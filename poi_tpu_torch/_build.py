@@ -1,0 +1,104 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+The sources in ``csrc/*.cu`` have a plain C interface and are compiled with
+``nvcc`` into one shared library, loaded with ``ctypes``. The library lands
+in ``build/poi_tpu_torch/`` at the repository root, named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one loads
+the cached file. Nothing is built when the package is imported: the first
+kernel launch on a CUDA tensor calls :func:`library`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "poi_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # report registers, shared memory and spills per kernel
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes; every pointer and the stream go as c_void_p.
+_SIGNATURES = {
+    "gru_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "gru_fwd_smem_bytes": [_I],
+    "topk_plan": [_I, _I, _I, ctypes.POINTER(_I)],
+    "topk_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "poi_cuda_error_string": [_I],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found on PATH or under /usr/local/cuda: cannot build the CUDA kernels")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libpoi_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernels unless the library for these sources exists.
+
+    Returns the library's path and nvcc's output (empty when cached). A
+    failed build raises with nvcc's stderr.
+    """
+    out = library_path()
+    if out.exists():
+        return out, ""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=out.parent, suffix=".so.tmp")
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out, proc.stdout + proc.stderr
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_char_p if name == "poi_cuda_error_string" else _I
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if code != 0:
+        msg = library().poi_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
