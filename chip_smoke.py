@@ -1,21 +1,30 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch port's serving path (config #1).
+"""On-card smoke run of the PyTorch port: serving config #1 and training.
 
     python3 chip_smoke.py          # from the repository root, on a machine with one CUDA card
 
-Builds the port's CUDA kernels from ``poi_tpu_torch/csrc``, compares each
-with its plain PyTorch version on the card, serves 256 requests of config #1
-(``gru_foursquare_nyc``: GRU 64-d, T=64, 6,749-POI catalog, random weights
-from a fixed seed) through ``Recommender`` and through ``python -m
-poi_tpu_torch serve``, and times the kernels and ``recommend``. Any failed
-phase prints its traceback and exits non-zero. The last two lines of
-standard output are the kernels' JSON record and
+Builds the port's CUDA kernels from ``poi_tpu_torch/csrc`` and compares each
+with its plain PyTorch version on the card. Then it drives the two paths:
+
+- serving: 256 requests of config #1 (``gru_foursquare_nyc``: GRU 64-d,
+  T=64, 6,749-POI catalog, random weights from a fixed seed) through
+  ``Recommender`` and ``python -m poi_tpu_torch serve``;
+- training: 40 device-sampled steps of the workload ``bench.py`` times (GRU
+  128-d, T=64, batch 512, bf16, 44,170-POI catalog, full-catalog CE) through
+  ``train()``, on the kernel path and on the plain path, then ``evaluate()``
+  on test; a few steps of config #1; and ``python -m poi_tpu_torch train``
+  on config #1 and on the bench workload.
+
+It times the kernels, ``recommend`` and the train step. Any failed phase
+prints its traceback and exits non-zero. The last lines of standard output
+are the card's name and power limit, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -37,9 +46,68 @@ DEV = "cuda"
 # steps, damped by the gates, stay well below 5e-3. A wrong gate or update
 # moves h by ~1e-1.
 GRU_TOL = 5e-3
-# Top-k values: fp32 sums of 64 exact bf16 products of magnitude <= ~20 in
-# different orders differ by a few ulps of ~10, far below 1e-4.
+# Top-k values: fp32 sums of 64 or 128 exact bf16 products, scores of
+# magnitude <= ~50, in different orders differ by a few ulps of ~50
+# (4e-6 each), far below 1e-4.
 TOPK_TOL = 1e-4
+# GRU backward, relative to each output's largest element: kernel and plain
+# version keep every cotangent fp32 and differ only in fp32 summation order
+# (3H terms per step for dh, B·T = 32,768 terms for dwh) and in expf/tanhf.
+# A cotangent rounded to bf16 anywhere would show at ~4e-3.
+GRU_BWD_TOL = 1e-5
+# CE forward, absolute: fp32 sums of up to 44,170 exponentials in different
+# orders, each exp within ~2 ulp; lse is ~10.
+CE_LSE_TOL = 1e-4
+# CE backward dq and dtable, relative to their largest element: gp is rounded
+# to bf16 before the products, and where the kernel's exp and torch's differ
+# by an ulp, gp can round to the neighbouring bf16 value (2^-8 apart) for a
+# few terms of the sum. dbias sums the unrounded gp: fp32 order only.
+CE_GRAD_TOL = 2e-3
+CE_DBIAS_TOL = 1e-5
+
+# The training workload bench.py times (bench.py:126-153): the smoke preset
+# with these overrides. 44,170 POIs and 4,925 training windows after
+# filtering.
+BENCH_OVERRIDES = {
+    "data.num_users": "4000",
+    "data.num_pois": "50000",
+    "data.mean_checkins_per_user": "60",
+    "data.max_seq_len": "64",
+    "data.min_user_checkins": "8",
+    "model.kind": "gru",
+    "model.embed_dim": "128",
+    "model.hidden_dim": "128",
+    "loss.kind": "ce",
+    "train.warmup_steps": "0",
+    "train.batch_size": "512",
+    "model.compute_dtype": "bfloat16",
+    "train.steps_per_call": "40",
+    "data.sampler": "device",
+    "eval.topk_impl": "pallas",
+}
+PLAIN_OVERRIDES = {"model.cell_impl": "scan", "loss.impl": "xla", "eval.topk_impl": "xla"}
+TRAIN_STEPS = 40
+# Per-step loss, kernel path vs plain path, relative. Step 1: the same params
+# and batch, so only summation order and the CE's target logit differ (fp32
+# operands in the fused CE, bf16 ones in the dense oracle; the logits are
+# ~1e-3 at init). Later steps: the gradients differ at bf16 resolution (the
+# dense oracle's autodiff rounds dq and dtable to bf16, the scan cell's the
+# recurrent cotangent; the kernels keep fp32), and Adam turns that into
+# parameter moves of up to ±lr for elements whose gradient is within it.
+LOSS_TOL_FIRST = 1e-5
+LOSS_TOL_LAST = 1e-3  # measured ~4e-5 at step 40 on an H100
+# recall@10 of one model through the top-k kernel and through its plain
+# version: only near-tie swaps move a hit.
+RECALL_TIE_TOL = 1e-3
+# recall@10 of the kernel-trained and the plain-trained model, whose
+# parameters drift apart as above.
+RECALL_PATH_TOL = 1e-2
+# Shapes the training kernels are timed at: the bench workload's GRU
+# (B, T, H) and CE (N = B*T, V, D), and the dense-vs-fused CE cases around the
+# 8,192 threshold (config #1's shape, then the bench shape at both catalogs).
+GRU_TRAIN_SHAPE = (512, 64, 128)
+CE_TRAIN_SHAPE = (32768, 44170, 128)
+CE_THRESHOLD_CASES = ((2048, 6749, 64), (32768, 6749, 128), (32768, 44170, 128))
 
 
 def log(msg: str) -> None:
@@ -141,33 +209,41 @@ def gru_phase() -> float:
 def topk_phase() -> float:
     import torch
 
+    from poi_tpu.configs.presets import get_config
     from poi_tpu_torch.ops.topk import fused_topk, topk_reference
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
-    D = 64
     worst = 0.0
-    # The padded config #1 catalog at request batch 1 and 256, and one case
-    # whose batch fills the card with one slice per row, on the unpadded V.
-    for B, V, k in ((1, 8192, 10), (1, 8192, 128), (256, 8192, 10), (256, 8192, 128), (300, 6749, 128)):
-        q = torch.randn(B, D, generator=gen, device=DEV)
+    # (B, V, D, k, real POIs). Serving: the padded config #1 catalog at
+    # request batch 1 and 256, and one case whose batch fills the card with
+    # one slice per row, on the unpadded V. Training's eval sweep: the bench
+    # catalog (44,170 POIs padded to 45,056) at D=128, at the eval batch and
+    # at 256 rows.
+    eval_batch = get_config("smoke").with_overrides(BENCH_OVERRIDES).eval.batch_size
+    cases = [(1, 8192, 64, 10, 6749), (1, 8192, 64, 128, 6749), (256, 8192, 64, 10, 6749),
+             (256, 8192, 64, 128, 6749), (300, 6749, 64, 128, 6749),
+             (eval_batch, 45056, 128, 10, 44170), (256, 45056, 128, 10, 44170)]
+    for B, V, D, k, real in cases:
+        # Scores of the same spread at either width (std ~8).
+        q = torch.randn(B, D, generator=gen, device=DEV) * (64 / D) ** 0.5
         table = torch.randn(V, D, generator=gen, device=DEV)
         bias = torch.randn(V, generator=gen, device=DEV)
-        bias[6749:] = -1e30  # the padded tail of the config #1 catalog
+        bias[real:] = -1e30  # the catalog's padded tail
         vals, ids = fused_topk(q, table, bias, k)
         torch.cuda.synchronize()
         want_v, want_i = topk_reference(q, table, bias, k)
         err = float((vals - want_v).abs().max())
-        assert err < TOPK_TOL, f"top-k B={B} k={k}: max |vals - plain| {err}"
+        assert err < TOPK_TOL, f"top-k B={B} V={V} D={D} k={k}: max |vals - plain| {err}"
         exact = q.to(torch.bfloat16).double() @ table.to(torch.bfloat16).double().T + bias.double()
         rows = torch.arange(B, device=DEV)[:, None]
         near = (exact[rows, ids.long()] - exact[rows, want_i.long()]).abs() < TOPK_TOL
-        assert ((ids == want_i) | near).all(), f"top-k B={B} k={k}: ids differ beyond near-ties"
-        assert int(ids.max()) < 6749, f"top-k B={B} k={k}: a padded row won"
+        assert ((ids == want_i) | near).all(), f"top-k B={B} V={V} D={D} k={k}: ids differ beyond near-ties"
+        assert int(ids.max()) < real, f"top-k B={B} V={V} D={D} k={k}: a padded row won"
         worst = max(worst, err)
-        log(f"[topk] B={B:3d} V={V} D={D} k={k:3d}: max |vals - plain| {err:.3e}, ids equal "
-            f"{int((ids == want_i).sum())}/{ids.numel()} (rest near-ties < {TOPK_TOL})")
+        log(f"[topk] B={B:3d} V={V} D={D:3d} k={k:3d}{' (-1e30 tail)' if real < V else ''}: max |vals - plain| "
+            f"{err:.3e}, ids equal {int((ids == want_i).sum())}/{ids.numel()} (rest near-ties < {TOPK_TOL})")
     # Duplicated rows across the catalog: the tie order must be exact.
-    V = 8192
+    D, V = 64, 8192
     q = torch.randn(4, D, generator=gen, device=DEV)
     table = torch.randn(16, D, generator=gen, device=DEV)[torch.randint(0, 16, (V,), generator=gen, device=DEV)]
     bias = torch.zeros(V, device=DEV)
@@ -179,13 +255,89 @@ def topk_phase() -> float:
     return worst
 
 
-def config1_params(ds, cfg):
-    """Full-width config #1 params in poi_tpu's layout and init scales
-    (models/base.py init_embed_params, models/gru.py init_gru_layer), from
-    numpy with a fixed seed."""
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def gru_bwd_phase() -> float:
+    """B2 against ``gru_bwd_reference``; returns the largest absolute error."""
+    import torch
+
+    from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan, gru_bwd_reference
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    worst = 0.0
+    for H in (64, 128):
+        for B in (1, 7, 512):
+            xw, wh, mask, _ = gru_case(B, 64, H, gen)
+            hs = fused_gru_scan(xw, wh)
+            dhs = torch.randn(B, 64, H, generator=gen, device=DEV)  # nonzero on padded steps too
+            dxw, dwh = fused_gru_bwd(xw, wh, hs, dhs)
+            torch.cuda.synchronize()
+            want_x, want_w = gru_bwd_reference(xw, wh, hs, dhs)
+            ex, ew = rel_err(dxw, want_x), rel_err(dwh, want_w)
+            assert torch.isfinite(dxw).all() and torch.isfinite(dwh).all(), f"GRU bwd B={B} H={H}: non-finite"
+            assert ex < GRU_BWD_TOL and ew < GRU_BWD_TOL, f"GRU bwd B={B} H={H}: rel err dxw {ex}, dwh {ew}"
+            pad = dxw[~mask]
+            assert bool((pad == 0).all()), f"GRU bwd B={B} H={H}: nonzero dxw on a padded step"
+            again = fused_gru_bwd(xw, wh, hs, dhs)  # no atomics: the same bits every run
+            assert torch.equal(again[0], dxw) and torch.equal(again[1], dwh), f"GRU bwd B={B} H={H}: run-to-run bits"
+            worst = max(worst, float((dxw - want_x).abs().max()), float((dwh - want_w).abs().max()))
+            log(f"[gru_bwd] B={B:3d} T=64 H={H:3d}: rel err dxw {ex:.2e}, dwh {ew:.2e} (tol {GRU_BWD_TOL}); "
+                f"dxw on {pad.shape[0]} padded steps exactly 0; "
+                f"a second run gives the same bits")
+    return worst
+
+
+def ce_phase() -> tuple[float, float]:
+    """B7 and B8 against their plain versions; returns the largest absolute
+    errors of (lse, gradients)."""
+    import torch
+
+    from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_bwd_reference, ce_lse, ce_lse_reference
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    worst_lse = worst_grad = 0.0
+    # Config #1's catalog at batch 1, a catalog one past a tile multiple, the
+    # bench shape, and config #1's catalog padded to 8,192 with -1e30 rows.
+    for N, V, D, real in ((1, 6749, 64, 6749), (300, 8193, 128, 8193), (32768, 44170, 128, 44170),
+                          (2048, 8192, 64, 6749)):
+        q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
+        table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
+        bias = torch.randn(V, generator=gen, device=DEV)
+        bias[real:] = -1e30
+        g = torch.rand(N, generator=gen, device=DEV)
+        lse = ce_lse(q, table, bias)
+        torch.cuda.synchronize()
+        want_lse = ce_lse_reference(q, table, bias)
+        e_lse = float((lse - want_lse).abs().max())
+        assert e_lse < CE_LSE_TOL, f"ce_lse N={N} V={V} D={D}: max |kernel - plain| {e_lse}"
+        dq, dt, db = ce_bwd(q, table, bias, want_lse, g)
+        torch.cuda.synchronize()
+        want = ce_bwd_reference(q, table, bias, want_lse, g)
+        errs = [rel_err(a, b) for a, b in zip((dq, dt, db), want)]
+        assert errs[0] < CE_GRAD_TOL and errs[1] < CE_GRAD_TOL and errs[2] < CE_DBIAS_TOL, \
+            f"ce_bwd N={N} V={V} D={D}: rel err dq/dtable/dbias {errs}"
+        assert bool((dt[real:] == 0).all()) and bool((db[real:] == 0).all()), "a padded catalog row got gradient"
+        again = ce_bwd(q, table, bias, want_lse, g)  # no atomics: the same bits every run
+        assert torch.equal(ce_lse(q, table, bias), lse) and all(torch.equal(a, b) for a, b in zip(again, (dq, dt, db))), \
+            f"ce N={N} V={V} D={D}: run-to-run bits"
+        worst_lse = max(worst_lse, e_lse)
+        worst_grad = max(worst_grad, *(float((a - b).abs().max()) for a, b in zip((dq, dt, db), want)))
+        log(f"[ce] N={N:5d} V={V} D={D:3d}{' (-1e30 tail)' if real < V else ''}: lse max err {e_lse:.2e} "
+            f"(tol {CE_LSE_TOL}); rel err dq {errs[0]:.2e}, dtable {errs[1]:.2e} (tol {CE_GRAD_TOL}), "
+            f"dbias {errs[2]:.2e} (tol {CE_DBIAS_TOL}); a second run gives the same bits")
+    return worst_lse, worst_grad
+
+
+def gru_params(ds, cfg, seed: int = SEED):
+    """Full-width params of a GRU config with a tied table, time and geo
+    embeddings, in poi_tpu's layout and init scales (models/base.py
+    init_embed_params, models/gru.py init_gru_layer), from numpy with a fixed
+    seed."""
     import numpy as np
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     m = cfg.model
     d, h = m.embed_dim, m.hidden_dim
     normal = lambda shape, s: (s * rng.normal(size=shape)).astype(np.float32)  # noqa: E731
@@ -195,8 +347,12 @@ def config1_params(ds, cfg):
         "time": normal((ds.num_time_buckets, d), 0.02),
         "geo": normal((ds.num_geo_buckets, d), 0.02),
     }
-    layer = {"wx": normal((d, 3 * h), d**-0.5), "wh": normal((h, 3 * h), h**-0.5), "b": np.zeros(3 * h, np.float32)}
-    return {"embed": embed, "tower": {"layers": [layer]}}
+    layers = []
+    for i in range(m.num_layers):
+        d_in = d if i == 0 else h
+        layers.append({"wx": normal((d_in, 3 * h), d_in**-0.5), "wh": normal((h, 3 * h), h**-0.5),
+                       "b": np.zeros(3 * h, np.float32)})
+    return {"embed": embed, "tower": {"layers": layers}}
 
 
 def histories_from_test(ds, n: int):
@@ -230,7 +386,7 @@ def slice_phase(state):
     ds = load_dataset(cfg.data)
     log(f"[slice] {CONFIG}: {ds.num_pois} POIs, T={ds.max_seq_len}, {len(ds.test)} test rows "
         f"(loaded in {time.perf_counter() - t0:.1f} s)")
-    tree = config1_params(ds, cfg)
+    tree = gru_params(ds, cfg)
     dims = DataDims.from_dataset(ds)
     model = build_model(cfg.model, dims, device=DEV)
     model.load_state_dict(params_from_jax(tree))
@@ -303,6 +459,132 @@ def cli_phase(state) -> None:
     log(f"[cli] serve --device {DEV}: 2 answers + 1 error line, exit 0; first answer equals in-process recommend")
 
 
+def kernel_wrappers() -> dict:
+    from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_lse
+    from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan
+    from poi_tpu_torch.ops.topk import fused_topk
+
+    return {"gru_fwd": fused_gru_scan, "gru_bwd": fused_gru_bwd, "ce_lse": ce_lse, "ce_bwd": ce_bwd,
+            "topk": fused_topk}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def train_phase(state) -> None:
+    import math
+
+    import torch
+
+    from poi_tpu.configs.presets import get_config
+    from poi_tpu.data.dataset import load_dataset
+    from poi_tpu_torch.eval.evaluate import evaluate
+    from poi_tpu_torch.train.loop import make_trainer, train
+
+    cfg = get_config("smoke").with_overrides(BENCH_OVERRIDES)
+    t0 = time.perf_counter()
+    ds = load_dataset(cfg.data)
+    log(f"[train] bench workload: {ds.num_pois} POIs, {len(ds.train)} training windows, T={ds.max_seq_len}, "
+        f"batch {cfg.train.batch_size}, GRU {cfg.model.hidden_dim}-d {cfg.model.compute_dtype} "
+        f"(loaded in {time.perf_counter() - t0:.1f} s)")
+    tree = gru_params(ds, cfg)
+    # Through train(), the loop a user runs: every step a log step, so the
+    # history holds each step's loss (read once, after the 40-step chunk).
+    cmp_cfg = cfg.with_overrides({"train.log_every": "1"})
+    plain_cfg = cmp_cfg.with_overrides(PLAIN_OVERRIDES)
+    kern, plain = make_trainer(cmp_cfg, ds, DEV), make_trainer(plain_cfg, ds, DEV)
+
+    reset_launches()
+    _, kst, k_hist = train(cmp_cfg, ds, num_steps=TRAIN_STEPS, trainer=kern, state=kern.init_state(tree))
+    k_loss = torch.tensor([row["loss"] for row in k_hist], dtype=torch.float64)
+    launches = read_launches()
+    log(f"[train] kernel path, train() over {TRAIN_STEPS} device-sampled steps, launches: {launches}")
+    for name in ("gru_fwd", "gru_bwd", "ce_lse", "ce_bwd"):
+        assert launches[name] > 0, f"the training path skipped {name}: {launches}"
+    reset_launches()
+    _, pst, p_hist = train(plain_cfg, ds, num_steps=TRAIN_STEPS, trainer=plain, state=plain.init_state(tree))
+    p_loss = torch.tensor([row["loss"] for row in p_hist], dtype=torch.float64)
+    plain_launches = read_launches()
+    assert kst.step == pst.step == TRAIN_STEPS and len(k_loss) == len(p_loss) == TRAIN_STEPS, (kst.step, pst.step)
+    assert not any(plain_launches.values()), f"the plain path launched a kernel: {plain_launches}"
+    assert torch.isfinite(k_loss).all() and torch.isfinite(p_loss).all(), "non-finite loss"
+    rel = (k_loss - p_loss).abs() / p_loss.abs()
+    log(f"[train] loss kernel vs plain: step 1 {k_loss[0]:.6f} / {p_loss[0]:.6f}, step {TRAIN_STEPS} "
+        f"{k_loss[-1]:.6f} / {p_loss[-1]:.6f}; rel diff "
+        + ", ".join(f"@{i + 1} {float(rel[i]):.2e}" for i in sorted({0, 9, 19, TRAIN_STEPS - 1}) if i < TRAIN_STEPS)
+        + f" (tol {LOSS_TOL_FIRST} at step 1, {LOSS_TOL_LAST} after)")
+    assert float(rel[0]) < LOSS_TOL_FIRST, f"step-1 loss differs: {float(rel[0])}"
+    assert float(rel.max()) < LOSS_TOL_LAST, f"loss trajectories drift apart: {rel.tolist()}"
+    assert float(k_loss[-1]) < float(k_loss[0]), f"loss did not drop: {k_loss.tolist()}"
+
+    reset_launches()
+    m_kern = evaluate(kern.model, ds, cfg)
+    eval_launches = read_launches()
+    assert eval_launches["topk"] > 0 and eval_launches["gru_fwd"] > 0, f"evaluate skipped a kernel: {eval_launches}"
+    m_tie = evaluate(kern.model, ds, cfg.with_overrides({"eval.topk_impl": "xla"}))
+    m_plain = evaluate(plain.model, ds, plain_cfg)
+    for m in (m_kern, m_tie, m_plain):
+        assert all(math.isfinite(v) for v in m.values()), m
+    log(f"[train] evaluate on test ({int(m_kern['eval_examples'])} rows): kernel path recall@10 "
+        f"{m_kern['recall@10']:.4f} ndcg@10 {m_kern['ndcg@10']:.4f} (launches {eval_launches}); same model, plain "
+        f"top-k {m_tie['recall@10']:.4f}; plain-trained model {m_plain['recall@10']:.4f}")
+    assert abs(m_kern["recall@10"] - m_tie["recall@10"]) <= RECALL_TIE_TOL, (m_kern, m_tie)
+    assert abs(m_kern["recall@10"] - m_plain["recall@10"]) <= RECALL_PATH_TOL, (m_kern, m_plain)
+
+    # Config #1 at its own width: 6,749 POIs is below the fused-CE threshold,
+    # so it trains through the GRU kernels and the dense CE, as in poi_tpu.
+    c1 = get_config(CONFIG)
+    tr1 = make_trainer(c1, state["ds"], DEV)
+    reset_launches()
+    _, s1, hist = train(c1, state["ds"], num_steps=5, trainer=tr1, state=tr1.init_state(state["tree"]))
+    c1_launches = read_launches()
+    log(f"[train] {CONFIG}: 5 host-loader steps, loss {hist[-1]['loss']:.4f}, launches {c1_launches}")
+    assert c1_launches["ce_lse"] == 0 and c1_launches["ce_bwd"] == 0, c1_launches
+    assert c1_launches["gru_fwd"] > 0 and c1_launches["gru_bwd"] > 0, c1_launches
+    assert s1.step == 5 and math.isfinite(hist[-1]["loss"])
+    state.update(train_launches=launches, bench_cfg=cfg, bench_ds=ds, bench_tree=tree)
+
+
+def run_cli_train(config: str, overrides: list[str], steps: int) -> dict:
+    """``python -m poi_tpu_torch train`` on the card; returns its final JSON
+    line after checking the exit code, the step count, a dropping loss and
+    finite final metrics."""
+    argv = [sys.executable, "-m", "poi_tpu_torch", "train", "--config", config, "--set", *overrides,
+            "--device", DEV, "--no-checkpoint"]
+    proc = subprocess.run(argv, capture_output=True, text=True, cwd=REPO, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert proc.returncode == 0, f"train --config {config} exited {proc.returncode}:\n{proc.stderr[-3000:]}"
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    losses = [row["loss"] for row in out["history"]]
+    assert out["steps"] == steps and len(losses) == 2 and losses[-1] < losses[0], out["history"]
+    assert all(math.isfinite(v) for v in out["final"].values()), out["final"]
+    assert len(out["periodic_evals"]) == 2, out["periodic_evals"]
+    log(f"[cli] train --config {config} ({steps} steps) --device {DEV}: exit 0, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} ({out['history'][-1]['seqs_per_sec']:.1f} seq/s over the last log interval), "
+        f"selected step {out['selected_step']}, final recall@10 {out['final']['recall@10']:.4f} "
+        f"(popularity {out['popularity_baseline']['recall@10']:.4f})")
+    return out
+
+
+def cli_train_phase(state) -> None:
+    run_cli_train(CONFIG, ["train.num_steps=20", "train.eval_every=10", "train.log_every=10"], 20)
+    # The bench workload: device sampler in 40-step chunks, test evaluated
+    # through the top-k kernel at steps 40 and 80 and at the end.
+    steps = 2 * TRAIN_STEPS
+    out = run_cli_train("smoke", [f"{k}={v}" for k, v in BENCH_OVERRIDES.items()]
+                        + [f"train.num_steps={steps}", f"train.eval_every={TRAIN_STEPS}",
+                           f"train.log_every={TRAIN_STEPS}"], steps)
+    # At the random init every POI scores about alike, a loss of ~ln(V):
+    # the loss logged at step 40 must already be below it.
+    assert out["history"][0]["loss"] < math.log(state["bench_ds"].num_pois), out["history"]
+
+
 def timing_phase(state, gpu: str) -> dict:
     import torch
 
@@ -342,8 +624,112 @@ def timing_phase(state, gpu: str) -> dict:
             f"visited filter {parts[4]:.3f} ms (host)  ({gpu})")
     for n in (1, 64, 256):
         for name, rec in (("kernels", state["rec"]), ("plain", state["plain"])):
-            ms = host_ms(lambda: rec.recommend(hist[:n], k=10))
-            log(f"[time] recommend batch {n:3d} ({name}): {ms:.3f} ms median of 20  ({gpu})")
+            ms = host_ms(lambda: rec.recommend(hist[:n], k=10), iters=10)
+            log(f"[time] recommend batch {n:3d} ({name}): {ms:.3f} ms median of 10  ({gpu})")
+    return out
+
+
+def train_timing_phase(state, gpu: str) -> dict:
+    """The training kernels at the bench shapes, the whole train step on both
+    paths, the dense-vs-fused CE around the fused-CE threshold, and the
+    kernel path's step broken down by kernel (torch.profiler)."""
+    import torch
+
+    from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_bwd_reference, ce_lse, ce_lse_reference, fused_ce_loss
+    from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan, gru_bwd_reference, gru_scan_reference
+    from poi_tpu_torch.train.losses import ce_loss
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    out = {}
+    B, T, H = GRU_TRAIN_SHAPE
+    xw, wh, _, _ = gru_case(B, T, H, gen)
+    hs = fused_gru_scan(xw, wh)
+    dhs = torch.randn(B, T, H, generator=gen, device=DEV)
+    out["gru_fwd_train"] = (time_ms(lambda: fused_gru_scan(xw, wh)), time_ms(lambda: gru_scan_reference(xw, wh), 5))
+    out["gru_bwd"] = (time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs)),
+                      time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 5))
+    for name in ("gru_fwd_train", "gru_bwd"):
+        log(f"[time] {name} B={B} T={T} H={H}: kernel {out[name][0]:.4f} ms, plain {out[name][1]:.4f} ms  ({gpu})")
+    N, V, D = CE_TRAIN_SHAPE
+    q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
+    table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
+    bias = torch.randn(V, generator=gen, device=DEV)
+    g = torch.rand(N, generator=gen, device=DEV)
+    lse = ce_lse_reference(q, table, bias)
+    out["ce_lse"] = (time_ms(lambda: ce_lse(q, table, bias)), time_ms(lambda: ce_lse_reference(q, table, bias), 5))
+    out["ce_bwd"] = (time_ms(lambda: ce_bwd(q, table, bias, lse, g)),
+                     time_ms(lambda: ce_bwd_reference(q, table, bias, lse, g), 5))
+    flop = 2 * N * V * D
+    for name, products in (("ce_lse", 1), ("ce_bwd", 4)):
+        k_ms, p_ms = out[name]
+        log(f"[time] {name} N={N} V={V} D={D}: kernel {k_ms:.4f} ms ({products * flop / k_ms / 1e9:.1f} TFLOP/s of "
+            f"catalog products), plain {p_ms:.4f} ms  ({gpu})")
+
+    # Whole train step, kernel and plain paths in turns, each over one
+    # 40-step device-sampled chunk fenced by reading its last loss. The host
+    # clock is also read when the chunk's launches are all queued: a share
+    # near 1 means the host waited for the card inside the chunk.
+    from poi_tpu_torch.train.loop import make_trainer
+
+    cfg, ds, tree = state["bench_cfg"], state["bench_ds"], state["bench_tree"]
+    trainers = {"kernels": make_trainer(cfg, ds, DEV), "plain": make_trainer(cfg.with_overrides(PLAIN_OVERRIDES), ds, DEV)}
+    states = {name: tr.init_state(tree) for name, tr in trainers.items()}
+    for name, tr in trainers.items():  # warm-up chunk: allocator, cuBLAS handles
+        states[name], m = tr.step_sampled(states[name], TRAIN_STEPS)
+        m["loss"][-1].item()
+    bs = cfg.train.batch_size
+    runs = {"kernels": [], "plain": []}
+    queued = {"kernels": [], "plain": []}
+    for name in ("kernels", "plain", "plain", "kernels"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states[name], m = trainers[name].step_sampled(states[name], TRAIN_STEPS)
+        t1 = time.perf_counter()
+        m["loss"][-1].item()
+        t2 = time.perf_counter()
+        runs[name].append((t2 - t0) * 1e3 / TRAIN_STEPS)
+        queued[name].append((t1 - t0) / (t2 - t0))
+    for name, ms in runs.items():
+        log(f"[time] train step ({name}), bench workload: {ms[0]:.3f} / {ms[1]:.3f} ms per step over "
+            f"{TRAIN_STEPS}-step chunks, {bs / (min(ms) / 1e3):.1f} seq/s at the better; launches queued at "
+            f"{queued[name][0]:.3f} / {queued[name][1]:.3f} of the chunk's time  ({gpu})")
+    out["train_step"] = {k: min(v) for k, v in runs.items()}
+
+    # Dense vs fused CE loss (forward + backward) on both sides of the 8,192
+    # threshold: config #1's shape, and the bench shape at both catalogs.
+    for n, v, d in CE_THRESHOLD_CASES:
+        qq = (0.3 * torch.randn(n // 64, 64, d, generator=gen, device=DEV)).requires_grad_()
+        tt = (0.3 * torch.randn(v, d, generator=gen, device=DEV)).requires_grad_()
+        bb = torch.zeros(v, device=DEV, requires_grad=True)
+        y = torch.randint(0, v, (n // 64, 64), generator=gen, device=DEV)
+        mask = torch.ones(n // 64, 64, device=DEV)
+        fused = time_ms(lambda: fused_ce_loss(qq, tt, bb, y, mask).backward(), 5)
+        dense = time_ms(lambda: ce_loss(qq, tt, bb, y, mask).backward(), 5)
+        log(f"[time] CE loss fwd+bwd N={n} V={v} D={d}: fused kernels {fused:.4f} ms, dense {dense:.4f} ms  ({gpu})")
+
+    # Where the kernel path's step spends device time.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        states["kernels"], m = trainers["kernels"].step_sampled(states["kernels"], 5)
+        m["loss"][-1].item()
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    dev_us = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0)) for e in kernels]
+    busy_ms = sum(t for _, _, t in dev_us) / 1e3 / 5
+    step_ms = out["train_step"]["kernels"]
+    # Runtime calls that make the host wait for the card (the closing
+    # .item() accounts for one copy and one sync).
+    waits = {e.key: e.count for e in events
+             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+                          "cudaMemcpyAsync", "cudaMemcpy")}
+    # The profiler slows the host, so the idle share compares the device time
+    # a step needs with the unprofiled step time measured above.
+    log(f"[profile] kernel path: {busy_ms:.3f} ms of device time a step against a {step_ms:.3f} ms step "
+        f"(device idle share {max(0.0, 1 - busy_ms / step_ms):.3f}); host-waiting runtime calls over 5 steps "
+        f"{waits}  ({gpu})")
+    for key, count, t in sorted(dev_us, key=lambda r: -r[2])[:14]:
+        log(f"[profile]   {t / 1e3 / 5:8.3f} ms/step  x{count // 5:<4d} {key[:90]}")
     return out
 
 
@@ -364,22 +750,46 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    build_phase()
-    gru_err = gru_phase()
-    topk_err = topk_phase()
     state: dict = {}
-    slice_phase(state)
-    cli_phase(state)
-    times = timing_phase(state, gpu)
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+        return result
+
+    phase("build", build_phase)
+    gru_err = phase("gru", gru_phase)
+    topk_err = phase("topk", topk_phase)
+    gru_bwd_err = phase("gru_bwd", gru_bwd_phase)
+    lse_err, ce_grad_err = phase("ce", ce_phase)
+    phase("slice", slice_phase, state)
+    phase("cli", cli_phase, state)
+    phase("train", train_phase, state)
+    phase("cli_train", cli_train_phase, state)
+    times = phase("timing", timing_phase, state, gpu)
+    times.update(phase("train_timing", train_timing_phase, state, gpu))
     assert "jax" not in sys.modules, "JAX was imported"
 
+    # Launches: gru_fwd and topk from the serving path's run (slice phase),
+    # gru_bwd, ce_lse and ce_bwd from the training path's (train phase).
+    served, trained = state["launches"], state["train_launches"]
     kernels = [
         {"name": "gru_fwd", "route": "cuda", "source": "poi_tpu_torch/csrc/gru_fwd.cu",
-         "replaces": "poi_tpu/ops/fused_gru.py:71", "launches": state["launches"]["gru_fwd"],
+         "replaces": "poi_tpu/ops/fused_gru.py:71", "launches": served["gru_fwd"],
          "max_abs_err": gru_err, "ms": times["gru_fwd"][0], "plain_ms": times["gru_fwd"][1]},
         {"name": "topk", "route": "cuda", "source": "poi_tpu_torch/csrc/topk.cu",
-         "replaces": "poi_tpu/ops/topk.py:58", "launches": state["launches"]["topk"],
+         "replaces": "poi_tpu/ops/topk.py:58", "launches": served["topk"],
          "max_abs_err": topk_err, "ms": times["topk"][0], "plain_ms": times["topk"][1]},
+        {"name": "gru_bwd", "route": "cuda", "source": "poi_tpu_torch/csrc/gru_bwd.cu",
+         "replaces": "poi_tpu/ops/fused_gru.py:86", "launches": trained["gru_bwd"],
+         "max_abs_err": gru_bwd_err, "ms": times["gru_bwd"][0], "plain_ms": times["gru_bwd"][1]},
+        {"name": "ce_lse", "route": "cuda", "source": "poi_tpu_torch/csrc/ce.cu",
+         "replaces": "poi_tpu/ops/fused_ce.py:181", "launches": trained["ce_lse"],
+         "max_abs_err": lse_err, "ms": times["ce_lse"][0], "plain_ms": times["ce_lse"][1]},
+        {"name": "ce_bwd", "route": "cuda", "source": "poi_tpu_torch/csrc/ce.cu",
+         "replaces": "poi_tpu/ops/fused_ce.py:210", "launches": trained["ce_bwd"],
+         "max_abs_err": ce_grad_err, "ms": times["ce_bwd"][0], "plain_ms": times["ce_bwd"][1]},
     ]
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,8 @@
 """Build and load the package's hand-written CUDA kernels.
 
-The sources in ``csrc/*.cu`` have a plain C interface and are compiled with
-``nvcc`` into one shared library, loaded with ``ctypes``. The library lands
+The sources in ``csrc/*.cu`` have a plain C interface. Each is compiled by
+its own ``nvcc`` process, all started together, and the objects are linked
+into one shared library, loaded with ``ctypes``. The library lands
 in ``build/poi_tpu_torch/`` at the repository root, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
 the cached file. Nothing is built when the package is imported: the first
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "poi_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # report registers, shared memory and spills per kernel
 )
 
@@ -33,6 +34,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "gru_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
     "gru_fwd_smem_bytes": [_I],
+    "gru_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gru_bwd_smem_bytes": [_I],
+    "gru_bwd_splits": [_I, _I, _I],
+    "ce_supports_dim": [_I],
+    "ce_lse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "topk_plan": [_I, _I, _I, ctypes.POINTER(_I)],
     "topk_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "poi_cuda_error_string": [_I],
@@ -71,18 +78,30 @@ def build() -> tuple[Path, str]:
     if out.exists():
         return out, ""
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=out.parent, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    try:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs, procs = [], []
+        for src in sources():
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log = []
+        failed = None
+        for cmd, proc in procs:
+            text = proc.communicate()[0]
+            log.append(text)
+            if proc.returncode != 0 and failed is None:
+                failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}"
+        if failed:
+            raise RuntimeError(failed)
+        tmp = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+    return out, "".join(log)
 
 
 @functools.cache

@@ -64,6 +64,41 @@ def params_to_numpy(model: torch.nn.Module):
     return unflatten(flat)
 
 
+def _find_adam_state(node):
+    """The node of an optax state tree that holds Adam's (count, mu, nu)."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, (list, tuple)):
+        for child in node:
+            found = _find_adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_jax(opt_state, device="cpu") -> dict:
+    """Adam's moments and count from a ``poi_tpu`` optax state → the port's
+    optimizer state (``train.state.Optimizer``)."""
+    node = _find_adam_state(opt_state)
+    if node is None:
+        raise ValueError("no Adam state (count, mu, nu) in this optimizer state")
+    return {
+        "count": int(np.asarray(node.count)),
+        "mu": {k: v.to(device) for k, v in params_from_jax(node.mu).items()},
+        "nu": {k: v.to(device) for k, v in params_from_jax(node.nu).items()},
+    }
+
+
+def adam_state_to_numpy(opt_state: dict) -> dict:
+    """The port's Adam state → ``{"count", "mu", "nu"}`` with the moments as
+    ``poi_tpu``-layout trees of numpy arrays."""
+
+    def tree(d):
+        return unflatten({k.replace(".", "/"): v.detach().cpu().numpy() for k, v in d.items()})
+
+    return {"count": int(opt_state["count"]), "mu": tree(opt_state["mu"]), "nu": tree(opt_state["nu"])}
+
+
 def save_npz(path, tree) -> None:
     np.savez(path, **flatten(tree))
 

@@ -1,0 +1,285 @@
+// GRU backward (BPTT) for Hopper (sm_90a).
+//
+// Replaces the TPU kernel poi_tpu/ops/fused_gru.py:_bwd_kernel (driven by
+// _bwd_vjp): reverse-time BPTT through the recurrence of csrc/gru_fwd.cu,
+// recomputing the gates from the stored hidden states.
+//
+// Contract (the same as the TPU kernel's):
+//   xw  [B, T, 3H] fp32  folded gate inputs of the forward (z | r | n)
+//   wh  [H, 3H]    bf16
+//   hs  [B, T, H]  fp32  the forward's hidden states; h_prev = hs[t-1], 0 at t = 0
+//   dhs [B, T, H]  fp32  cotangent of hs
+//   per step, t = T-1 .. 0:
+//     hw = bf16(h_prev) @ wh (fp32 sums); z, r, n, hn as in the forward
+//     dh += dhs[t]
+//     dn = dh z (1 - n^2);  da = dh (n - h_prev) z (1 - z)
+//     dr_pre = dn hn r (1 - r);  dhn = dn r
+//     dxw[t] = [da, dr_pre, dn];  dhw[t] = [da, dr_pre, dhn]
+//     dh = dh (1 - z) + dhw[t] @ wh^T      (fp32, wh widened from bf16)
+//   dwh [H, 3H] fp32 = sum over b, t of h_prev^T dhw
+//
+// No cotangent is ever rounded to bf16: a bf16-cotangent backward trains
+// config #2 to a much worse recall (fused_gru.py:113-120).
+//
+// What bounds it on this card: like the forward, the recurrence is a serial
+// chain of T tiny steps (per step and row: 6H^2 FMAs, H=128 -> 98k), so it is
+// latency-bound; dwh is a separate fp32 reduction product
+// [H, B*T] x [B*T, 3H] (3.2 GFLOP at B=512, T=64, H=128), bound by the CUDA
+// cores' fp32 rate.
+//
+// Design:
+// - gru_bwd_kernel: like the forward, a block owns `rows` whole batch rows
+//   and thread (row, j) owns hidden column j; dh[j] lives in a register for
+//   the whole reverse loop. wh (bf16, 6H^2 bytes) sits in shared memory. Each
+//   step stages bf16(h_prev) and then the row's fp32 dhw in shared memory,
+//   one barrier each. The gate recompute walks k in the forward kernel's
+//   order, so it reproduces the forward's gates bit for bit. For dh @ wh^T
+//   thread j reads row j of wh; each thread starts its walk at a different
+//   column so a warp's reads spread over the banks. The next step's inputs
+//   are loaded while this one computes.
+// - dhw goes to an fp32 scratch [B, T, 3H] that the wrapper allocates.
+// - gru_dwh_kernel: 64 x 64 output tiles of dwh, each thread 4 x 4, with
+//   the B*T sum split into `splits` contiguous chunks (one per grid z);
+//   gru_dwh_reduce_kernel then sums the partials in split order. No atomics:
+//   the result is the same bits every run.
+// - Padded steps (z = 0 exactly from the folded -1e9) give exactly zero
+//   da, dn, dr_pre and dhn, and dh passes through unchanged.
+//
+// The entry point launches on the given stream, does not synchronise and
+// allocates nothing; it returns cudaGetLastError() after the launches.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxSmem = 232448;  // 227 KB: the most a block may opt into
+constexpr int kDwhTile = 64;
+constexpr int kDwhK = 32;         // B*T rows per smem stage of the dwh product
+constexpr int kDwhThreads = 256;  // 16 x 16, 4 x 4 outputs each
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+int rows_per_block(int H) { return H >= 128 ? 1 : 128 / H; }
+
+int bwd_smem_bytes(int H) {
+  const int rows = rows_per_block(H);
+  return rows * 3 * H * 4 + 6 * H * H + rows * H * 2;  // dhw (fp32) + wh (bf16) + h_prev (bf16)
+}
+
+__global__ void gru_bwd_kernel(const float* __restrict__ xw, const bf16* __restrict__ wh,
+                               const float* __restrict__ hs, const float* __restrict__ dhs, float* __restrict__ dxw,
+                               float* __restrict__ dhw, int B, int T, int H, int rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H3 = 3 * H;
+  float* dhw_s = reinterpret_cast<float*>(smem);                 // [rows, 3H]
+  bf16* wh_s = reinterpret_cast<bf16*>(dhw_s + rows * H3);       // [H, 3H]
+  bf16* hb = wh_s + H * H3;                                      // [rows, H]
+
+  const int r = threadIdx.x / H;
+  const int j = threadIdx.x % H;
+  const int b = blockIdx.x * rows + r;
+  const bool valid = b < B;
+
+  for (int i = threadIdx.x; i < H * H3; i += blockDim.x) wh_s[i] = wh[i];
+
+  const size_t row = valid ? b : 0;
+  const float* xrow = xw + row * T * H3;
+  const float* hrow = hs + row * T * H;
+  const float* dyrow = dhs + row * T * H;
+  float* dxrow = dxw + row * T * H3;
+  float* dhwrow = dhw + row * T * H3;
+  float* dhw_mine = dhw_s + r * H3;
+  const bf16* hb_mine = hb + r * H;
+
+  // Inputs of step t: xw[t] (three gates), h_prev = hs[t-1] and dhs[t].
+  auto load = [&](int t, float& xz, float& xr, float& xn, float& hp, float& dy) {
+    xz = xr = xn = hp = dy = 0.f;
+    if (!valid || t < 0) return;
+    const float* x = xrow + (size_t)t * H3;
+    xz = x[j];
+    xr = x[H + j];
+    xn = x[2 * H + j];
+    hp = t > 0 ? hrow[(size_t)(t - 1) * H + j] : 0.f;
+    dy = dyrow[(size_t)t * H + j];
+  };
+  float xz, xr, xn, hp, dy;
+  load(T - 1, xz, xr, xn, hp, dy);
+  float dh = 0.f;
+
+  for (int t = T - 1; t >= 0; --t) {
+    float nxz, nxr, nxn, nhp, ndy;
+    load(t - 1, nxz, nxr, nxn, nhp, ndy);
+
+    hb[r * H + j] = __float2bfloat16(hp);
+    __syncthreads();  // h_prev staged; last step's reads of dhw_s are done
+    float hz = 0.f, hr = 0.f, hn = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < H; ++k) {
+      const float hk = __bfloat162float(hb_mine[k]);
+      const bf16* w = wh_s + k * H3 + j;
+      hz = fmaf(hk, __bfloat162float(w[0]), hz);
+      hr = fmaf(hk, __bfloat162float(w[H]), hr);
+      hn = fmaf(hk, __bfloat162float(w[2 * H]), hn);
+    }
+    const float z = sigmoidf(xz + hz);
+    const float rg = sigmoidf(xr + hr);
+    const float n = tanhf(xn + rg * hn);
+
+    dh += dy;
+    const float dn = dh * z * (1.0f - n * n);
+    const float da = dh * (n - hp) * z * (1.0f - z);
+    const float dr = dn * hn * rg * (1.0f - rg);
+    const float dhn = dn * rg;
+    if (valid) {
+      float* o = dxrow + (size_t)t * H3;
+      o[j] = da;
+      o[H + j] = dr;
+      o[2 * H + j] = dn;
+      float* s = dhwrow + (size_t)t * H3;
+      s[j] = da;
+      s[H + j] = dr;
+      s[2 * H + j] = dhn;
+    }
+    dhw_mine[j] = da;
+    dhw_mine[H + j] = dr;
+    dhw_mine[2 * H + j] = dhn;
+    __syncthreads();  // the row's dhw staged; every read of hb is done
+
+    // dh_prev = dh (1 - z) + dhw . wh[j, :], all fp32.
+    const bf16* wrow = wh_s + j * H3;
+    float acc = 0.f;
+    int c = j % H3;
+    for (int i = 0; i < H3; ++i) {
+      acc = fmaf(dhw_mine[c], __bfloat162float(wrow[c]), acc);
+      c = c + 1 == H3 ? 0 : c + 1;
+    }
+    dh = dh * (1.0f - z) + acc;
+
+    xz = nxz;
+    xr = nxr;
+    xn = nxn;
+    hp = nhp;
+    dy = ndy;
+  }
+}
+
+// partial[s][k][c] = sum over rows i of chunk s of h_prev[i][k] * dhw[i][c],
+// where row i = b*T + t and h_prev[i] = hs[i-1] (0 where t == 0).
+__global__ void __launch_bounds__(kDwhThreads)
+    gru_dwh_kernel(const float* __restrict__ hs, const float* __restrict__ dhw, float* __restrict__ partial, int BT,
+                   int T, int H, int chunk) {
+  __shared__ float a_s[kDwhK][kDwhTile];
+  __shared__ float b_s[kDwhK][kDwhTile];
+  const int H3 = 3 * H;
+  const int k0 = blockIdx.y * kDwhTile;
+  const int c0 = blockIdx.x * kDwhTile;
+  const int i_begin = blockIdx.z * chunk;
+  const int i_end = min(BT, i_begin + chunk);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  float acc[4][4] = {};
+  for (int i0 = i_begin; i0 < i_end; i0 += kDwhK) {
+    for (int e = threadIdx.x; e < kDwhK * kDwhTile; e += kDwhThreads) {
+      const int ii = e / kDwhTile, col = e % kDwhTile;
+      const int i = i0 + ii;
+      const bool in = i < i_end;
+      const int k = k0 + col, c = c0 + col;
+      a_s[ii][col] = in && k < H && i % T != 0 ? hs[(size_t)(i - 1) * H + k] : 0.f;
+      b_s[ii][col] = in && c < H3 ? dhw[(size_t)i * H3 + c] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int ii = 0; ii < kDwhK; ++ii) {
+      float a[4], bb[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) a[m] = a_s[ii][ty + 16 * m];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) bb[n] = b_s[ii][tx + 16 * n];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(a[m], bb[n], acc[m][n]);
+    }
+    __syncthreads();
+  }
+  float* out = partial + (size_t)blockIdx.z * H * H3;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int k = k0 + ty + 16 * m;
+    if (k >= H) continue;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = c0 + tx + 16 * n;
+      if (c < H3) out[(size_t)k * H3 + c] = acc[m][n];
+    }
+  }
+}
+
+__global__ void gru_dwh_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dwh, int n, int splits) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s += partial[(size_t)z * n + i];
+  dwh[i] = s;
+}
+
+// Rows of B*T per split of the dwh product: enough splits to put ~4 blocks
+// on each of the card's SMs, each a multiple of kDwhK rows.
+int dwh_chunk(int BT, int H) {
+  const int tiles = ((H + kDwhTile - 1) / kDwhTile) * ((3 * H + kDwhTile - 1) / kDwhTile);
+  int splits = (528 + tiles - 1) / tiles;
+  const int max_splits = (BT + kDwhK - 1) / kDwhK;
+  if (splits > max_splits) splits = max_splits;
+  if (splits < 1) splits = 1;
+  const int per = (BT + splits - 1) / splits;
+  return (per + kDwhK - 1) / kDwhK * kDwhK;
+}
+
+}  // namespace
+
+extern "C" int gru_bwd_smem_bytes(int H) { return bwd_smem_bytes(H); }
+
+// Number of partial dwh sums the wrapper allocates ([splits, H, 3H] fp32).
+extern "C" int gru_bwd_splits(int B, int T, int H) {
+  const int BT = B * T;
+  if (BT <= 0 || H <= 0) return 1;
+  const int chunk = dwh_chunk(BT, H);
+  return (BT + chunk - 1) / chunk;
+}
+
+extern "C" int gru_bwd(const void* xw, const void* wh, const void* hs, const void* dhs, void* dxw, void* dhw,
+                       void* dwh_partial, void* dwh, int B, int T, int H, int device, void* stream) {
+  if (H <= 0 || B <= 0 || T <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = rows_per_block(H);
+  const int threads = rows * H;
+  const int smem = bwd_smem_bytes(H);
+  if (threads > 1024 || smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(gru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  gru_bwd_kernel<<<(B + rows - 1) / rows, threads, smem, s>>>(
+      static_cast<const float*>(xw), static_cast<const bf16*>(wh), static_cast<const float*>(hs),
+      static_cast<const float*>(dhs), static_cast<float*>(dxw), static_cast<float*>(dhw), B, T, H, rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  const int BT = B * T;
+  const int chunk = dwh_chunk(BT, H);
+  const int splits = (BT + chunk - 1) / chunk;
+  const dim3 grid((3 * H + kDwhTile - 1) / kDwhTile, (H + kDwhTile - 1) / kDwhTile, splits);
+  gru_dwh_kernel<<<grid, kDwhThreads, 0, s>>>(static_cast<const float*>(hs), static_cast<const float*>(dhw),
+                                              static_cast<float*>(dwh_partial), BT, T, H, chunk);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int n = H * 3 * H;
+  gru_dwh_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(static_cast<const float*>(dwh_partial),
+                                                        static_cast<float*>(dwh), n, splits);
+  return cudaGetLastError();
+}

@@ -1,8 +1,9 @@
-"""Full-catalog top-k over the scoring queries, on one device.
+"""Full-catalog evaluation on one device.
 
 Counterpart of the single-device part of ``poi_tpu/eval/evaluate.py``:
 ``prepare_catalog`` lays the output table out once, ``make_topk_fn`` maps a
-batch of contexts to top-k candidate ids in the prepared table's id space.
+batch of contexts to top-k candidate ids in the prepared table's id space,
+and ``evaluate`` sweeps a split into Recall@k and NDCG.
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from poi_tpu.data.dataset import Dataset
+from poi_tpu.data.pipeline import eval_batches
+from poi_tpu.eval.metrics import ranking_metrics
 from poi_tpu.utils.config import Config
 from poi_tpu_torch.models import base as model_base
 from poi_tpu_torch.ops.topk import fused_topk, pad_table_for_topk, topk_reference
@@ -76,3 +80,40 @@ def make_topk_fn(model, cfg: Config, k: int):
 
     per_model[key] = fn
     return fn
+
+
+@torch.inference_mode()
+def evaluate(model, dataset: Dataset, cfg: Config, split: str = "test") -> dict[str, float]:
+    """Recall@k and NDCG@max(k) of the model's current parameters on
+    ``split``, plus ``eval_examples``; at most ``eval.max_eval_users`` rows."""
+    ks = cfg.eval.recall_ks
+    k = max(ks)
+    examples = getattr(dataset, split)
+    if examples is None:
+        raise ValueError(f"dataset has no {split!r} split (set data.val_fraction > 0 for val)")
+    if cfg.eval.max_eval_users and len(examples) > cfg.eval.max_eval_users:
+        examples = examples.take(np.arange(cfg.eval.max_eval_users))
+    prep = prepare_catalog(model, cfg, dataset.poi_counts)
+    topk_fn = make_topk_fn(model, cfg, k)
+    all_topk, all_tgt = [], []
+    for batch, targets, n_valid in eval_batches(examples, cfg.eval.batch_size):
+        ids = topk_fn(prep.table, prep.bias, model_base.batch_to(batch, model.device)).cpu().numpy()[:n_valid]
+        if prep.id_map is not None:
+            ids = prep.id_map[ids]  # back to catalog ids
+        all_topk.append(ids)
+        all_tgt.append(targets[:n_valid])
+    tgt = np.concatenate(all_tgt)
+    metrics = ranking_metrics(np.concatenate(all_topk), tgt, ks)
+    metrics["eval_examples"] = float(len(tgt))
+    return metrics
+
+
+def popularity_baseline(dataset: Dataset, ks=(1, 5, 10), split: str = "test") -> dict[str, float]:
+    """Recall of always recommending the globally most-popular POIs, the
+    floor any trained model must clear (``poi_tpu/eval/evaluate.py:310``)."""
+    k = max(ks)
+    examples = getattr(dataset, split)
+    if examples is None:
+        raise ValueError(f"dataset has no {split!r} split")
+    top = np.argsort(dataset.poi_counts)[::-1][:k]
+    return ranking_metrics(np.broadcast_to(top, (len(examples), k)), examples.target, ks)

@@ -1,7 +1,8 @@
-"""Model machinery shared by the towers: embedding tables, the scoring query
-at the last valid position, and the dense projection.
+"""Model machinery shared by the towers: embedding tables, the scoring
+queries (at every position for training, at the last valid one for serving
+and eval), and the dense projection.
 
-Counterpart of ``poi_tpu/models/base.py`` for the serving path. Parameters
+Counterpart of ``poi_tpu/models/base.py``. Parameters
 keep the JAX package's names and layouts, so ``convert.params_from_jax``
 carries a ``poi_tpu`` param tree straight into ``Module.load_state_dict``:
 ``embed.poi [Vp, D]``, ``embed.out_bias [Vp]`` (-1e30 on padded rows),
@@ -15,6 +16,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from poi_tpu.data.pipeline import Batch
@@ -111,13 +113,20 @@ def linear(p, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tens
     return matmul_fp32(x, p["kernel"], dtype) + p["bias"]
 
 
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``. Through ``F.embedding``, whose backward sorts the ids
+    and sums each run of duplicates in one pass; on an H100 the backward of
+    plain indexing took half the bench workload's train step (PERF.md)."""
+    return F.embedding(ids, table)
+
+
 def input_embeddings(embed, batch: Batch, cfg: ModelConfig) -> torch.Tensor:
     """Sum of POI + time + geo embeddings per input step → [B, T, D]."""
-    x = embed["poi"][batch.poi_in]
+    x = lookup(embed["poi"], batch.poi_in)
     if cfg.use_time_embedding:
-        x = x + embed["time"][batch.time_bucket]
+        x = x + lookup(embed["time"], batch.time_bucket)
     if cfg.use_geo_embedding:
-        x = x + embed["geo"][batch.geo_bucket]
+        x = x + lookup(embed["geo"], batch.geo_bucket)
     return x
 
 
@@ -130,12 +139,13 @@ def output_table(embed, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
 def add_user_query(q: torch.Tensor, embed, batch: Batch, cfg: ModelConfig) -> torch.Tensor:
     """Add the user vector to the [B, T, D] scoring query."""
     if cfg.use_user_embedding:
-        q = q + embed["user"][batch.user][:, None, :]
+        q = q + lookup(embed["user"], batch.user)[:, None, :]
     return q
 
 
-def _params(d: dict[str, torch.Tensor], device) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v.to(device), requires_grad=False) for k, v in d.items()})
+def params(d: dict[str, torch.Tensor], device) -> nn.ParameterDict:
+    """Trainable parameters; inference runs under ``torch.inference_mode``."""
+    return nn.ParameterDict({k: nn.Parameter(v.to(device)) for k, v in d.items()})
 
 
 class SequenceModel(nn.Module):
@@ -150,11 +160,11 @@ class SequenceModel(nn.Module):
         self.cfg = cfg
         self.dims = dims
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
-        self.embed = _params(init_embed_params(gen, cfg, dims), device)
+        self.embed = params(init_embed_params(gen, cfg, dims), device)
         self.tower = self.build_tower(gen, device)
         self.proj = None
         if cfg.hidden_dim != cfg.embed_dim or not cfg.tie_output_embedding:
-            self.proj = _params(init_linear(gen, cfg.hidden_dim, cfg.embed_dim), device)
+            self.proj = params(init_linear(gen, cfg.hidden_dim, cfg.embed_dim), device)
 
     def build_tower(self, gen: torch.Generator, device) -> nn.Module:
         raise NotImplementedError
@@ -162,6 +172,19 @@ class SequenceModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed["poi"].device
+
+    def queries(self, batch: Batch) -> torch.Tensor:
+        """[B, T, D] fp32 scoring queries at every position, the training
+        path: embed → tower → projection → user add. ``batch`` holds tensors
+        on the model's device (``batch_to``)."""
+        if self.cfg.dropout > 0.0:
+            raise NotImplementedError(
+                f"model.dropout={self.cfg.dropout}: dropout comes with the configs #3/#4 slice of the port"
+            )
+        x = input_embeddings(self.embed, batch, self.cfg)
+        h = self.tower(x, batch.mask)
+        q = linear(self.proj, h, compute_dtype(self.cfg)) if self.proj is not None else h
+        return add_user_query(q.float(), self.embed, batch, self.cfg)
 
     def tower_last(self, x: torch.Tensor, batch: Batch, last: torch.Tensor) -> torch.Tensor:
         """[B, H] hidden state at position ``last`` of each row: the

@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from poi_tpu_torch.models import base
-from poi_tpu_torch.ops.fused_gru import MASK_NEG, fused_gru_scan, gru_scan_reference
+from poi_tpu_torch.ops.fused_gru import MASK_NEG, fused_gru, gru_scan_reference
 
 CELL_IMPLS = ("auto", "pallas", "scan")
 
@@ -29,9 +29,9 @@ def gru_layer(p, x: torch.Tensor, mask: torch.Tensor | None, dtype: torch.dtype,
     """[B, T, D] → [B, T, H].
 
     ``cell_impl`` ``auto`` (with bf16) and ``pallas`` run the recurrence
-    through ``fused_gru_scan``: the CUDA kernel on a CUDA tensor, its plain
-    version on a CPU tensor. ``scan`` (or ``auto`` with fp32) runs the plain
-    version, the oracle.
+    through ``fused_gru``: the CUDA kernels forward and backward on a CUDA
+    tensor, their plain versions on a CPU tensor. ``scan`` (or ``auto`` with
+    fp32) runs the plain forward under autograd, the oracle.
     """
     if cell_impl not in CELL_IMPLS:
         raise ValueError(f"unknown cell_impl {cell_impl!r}: have {CELL_IMPLS}")
@@ -45,7 +45,7 @@ def gru_layer(p, x: torch.Tensor, mask: torch.Tensor | None, dtype: torch.dtype,
         xz = torch.where(mask[:, :, None] > 0, xw[:, :, :H], MASK_NEG)
         xw = torch.cat([xz, xw[:, :, H:]], dim=2)
     if cell_impl == "pallas" or (cell_impl == "auto" and dtype == torch.bfloat16):
-        return fused_gru_scan(xw.contiguous(), wh.to(torch.bfloat16))
+        return fused_gru(xw, wh)
     return gru_scan_reference(xw, wh)
 
 
@@ -58,8 +58,7 @@ class GRUTower(nn.Module):
         layers = []
         d_in = cfg.embed_dim
         for _ in range(cfg.num_layers):
-            p = init_gru_layer(gen, d_in, cfg.hidden_dim)
-            layers.append(nn.ParameterDict({k: nn.Parameter(v.to(device), requires_grad=False) for k, v in p.items()}))
+            layers.append(base.params(init_gru_layer(gen, d_in, cfg.hidden_dim), device))
             d_in = cfg.hidden_dim
         self.layers = nn.ModuleList(layers)
 

@@ -1,0 +1,236 @@
+"""The training loop on one device, counterpart of the single-device dense
+path of ``poi_tpu/train/loop.py``.
+
+``Trainer`` owns the model, the loss and the optimizer. A step runs the
+queries, the loss and its backward through autograd (the GRU and CE kernels
+on a CUDA device, their plain versions on the CPU), then the optimizer
+updates the parameters in place. ``train`` drives it from the host
+``TrainLoader`` or from the ``DeviceSampler`` (``data.sampler=device``).
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from poi_tpu.data.dataset import Dataset
+from poi_tpu.data.pipeline import Batch, make_train_loader
+from poi_tpu.utils.config import Config
+from poi_tpu_torch.convert import params_from_jax
+from poi_tpu_torch.data.device_sampler import DeviceSampler
+from poi_tpu_torch.models import base as model_base
+from poi_tpu_torch.train.losses import build_loss_fn
+from poi_tpu_torch.train.state import TrainState, global_norm, make_optimizer
+
+log = logging.getLogger(__name__)
+
+
+class FaultInjected(RuntimeError):
+    """Raised by --set train.fault_inject_step=N to exercise the resume path."""
+
+
+@dataclass
+class Trainer:
+    cfg: Config
+    dims: model_base.DataDims
+    device: Any = "cpu"
+    sampler: DeviceSampler | None = None  # batches drawn on the device (data.sampler=device)
+    loss_override: Callable | None = None
+    model: Any = field(init=False)
+
+    def __post_init__(self):
+        cfg = self.cfg
+        if self.loss_override is not None:
+            raise NotImplementedError("loss_override (an injected sharded loss) comes with the multi-GPU layer")
+        if cfg.train.table_update == "sparse":
+            raise NotImplementedError("train.table_update='sparse' (lazy Adam) is not ported yet")
+        if cfg.train.table_update != "dense":
+            raise ValueError(f"unknown train.table_update {cfg.train.table_update!r}")
+        if cfg.mesh.model > 1:
+            raise NotImplementedError(f"mesh.model={cfg.mesh.model}: vocab-sharded tables come with the multi-GPU layer")
+        # fp32 products stay fp32 on the card (no TF32), as the reference's.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.device = torch.device(self.device)
+        gen = torch.Generator().manual_seed(cfg.train.seed)
+        self.model = model_base.build_model(cfg.model, self.dims, device=self.device, generator=gen)
+        self.loss_fn = build_loss_fn(cfg.loss, self.dims.num_pois)
+        self.optimizer = make_optimizer(cfg.train)
+
+    def init_state(self, tree=None) -> TrainState:
+        """Step 0 with the model's parameters (``poi_tpu``'s init scales from
+        the seeded generator) or, given a ``poi_tpu`` param tree, those."""
+        if tree is not None:
+            self.model.load_state_dict(params_from_jax(tree))
+        params = dict(self.model.named_parameters())
+        return TrainState(0, params, self.optimizer.init(params))
+
+    def loss(self, batch: Batch) -> torch.Tensor:
+        q = self.model.queries(batch)
+        table, bias = model_base.output_table(self.model.embed, self.cfg.model)
+        return self.loss_fn(q, table, bias, batch.poi_tgt, batch.mask)
+
+    def step(self, state: TrainState, batch: Batch) -> tuple[TrainState, dict]:
+        """One train step on a host (numpy) or device batch. The parameter
+        and gradient norms are computed only on log steps (0.0 elsewhere):
+        nothing else reads them. ``lr`` is the host float the schedule gave:
+        copying it to the device would wait for the step to finish."""
+        if isinstance(batch.poi_in, np.ndarray):
+            batch = model_base.batch_to(batch, self.device)
+        params = state.params
+        for p in params.values():
+            p.grad = None
+        loss = self.loss(batch)
+        loss.backward()
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p) for k, p in params.items()}
+        train = self.cfg.train
+        is_log_step = (state.step + 1) % max(1, train.log_every) == 0 or state.step + 1 == train.num_steps
+        zero = torch.zeros((), device=self.device)
+        grad_norm = global_norm(grads.values()) if is_log_step else zero
+        lr = self.optimizer.lr(state.opt_state["count"])
+        self.optimizer.update(grads, state.opt_state, params)
+        for p in params.values():
+            p.grad = None
+        with torch.no_grad():
+            param_norm = global_norm(params.values()) if is_log_step else zero
+        metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "param_norm": param_norm, "lr": lr}
+        return TrainState(state.step + 1, params, state.opt_state), metrics
+
+    def step_sampled(self, state: TrainState, num_steps: int) -> tuple[TrainState, dict]:
+        """``num_steps`` steps on device-sampled batches; metrics stacked
+        [num_steps] (``lr`` on the host). The host reads nothing from the
+        device in between."""
+        if self.sampler is None:
+            raise ValueError("Trainer.step_sampled needs a DeviceSampler")
+        rows = []
+        for _ in range(num_steps):
+            state, metrics = self.step(state, self.sampler.sample(state.step))
+            rows.append(metrics)
+        return state, {k: torch.stack([r[k] for r in rows]) if torch.is_tensor(rows[0][k])
+                       else torch.tensor([r[k] for r in rows]) for k in rows[0]}
+
+
+def _aligned_steps_per_call(cfg: Config, callbacks) -> int:
+    """Chunk length that never strides across a checkpoint/eval/log boundary
+    (callbacks see the state only at chunk ends)."""
+    spc = max(1, cfg.train.steps_per_call)
+    if spc == 1 or not callbacks:
+        return spc
+    g = 0
+    for p in (cfg.train.log_every, cfg.train.checkpoint_every, cfg.train.eval_every):
+        if p and p > 0:
+            g = math.gcd(g, p)
+    if g == 0:
+        return spc
+    k = min(spc, g)
+    while g % k:
+        k -= 1
+    if k != spc:
+        log.info("steps_per_call %d -> %d (aligned to checkpoint/eval/log boundaries)", spc, k)
+    return k
+
+
+def _log_row(row: dict) -> None:
+    log.info("step %d loss %.4f grad %.3f %.1f seq/s", row["step"], row["loss"], row["grad_norm"],
+             row["seqs_per_sec"])
+
+
+def _train_sampled(cfg, trainer, state, start_step, num_steps, callbacks):
+    """Device-sampler loop: chunks of ``steps_per_call`` steps, metrics read
+    back once per chunk that holds a log boundary."""
+    history: list[dict] = []
+    end = start_step + num_steps
+    fault = cfg.train.fault_inject_step
+    spc = _aligned_steps_per_call(cfg, callbacks)
+    t0 = time.perf_counter()
+    seqs = 0
+    i = start_step
+    while i < end:
+        if fault == i:
+            raise FaultInjected(f"fault injected at step {i}")
+        k = min(spc, end - i)
+        if callbacks:
+            k = min(k, spc - i % spc)  # realign after an odd resume point
+        if fault > i:
+            k = min(k, fault - i)
+        state, metrics_k = trainer.step_sampled(state, k)
+        seqs += k * cfg.train.batch_size
+        i += k
+        bounds = [j for j in range(1, k + 1) if (i - k + j) % cfg.train.log_every == 0 or (i - k + j) == end]
+        if bounds:
+            # Reading the values waits for the device: it must come BEFORE
+            # the clock, or the rate would time the launches, not the work.
+            rows = [{m: float(v[j - 1]) for m, v in metrics_k.items()} for j in bounds]
+            rate = seqs / max(time.perf_counter() - t0, 1e-9)
+            for j, row in zip(bounds, rows):
+                row.update(step=i - k + j, seqs_per_sec=rate)
+                history.append(row)
+                _log_row(row)
+            t0, seqs = time.perf_counter(), 0
+        for cb in callbacks or []:
+            cb(i, state, {m: v[-1] for m, v in metrics_k.items()})
+    return trainer, state, history
+
+
+def make_trainer(cfg: Config, dataset: Dataset, device: Any = "cpu") -> Trainer:
+    """A Trainer for ``dataset``, with a DeviceSampler when
+    ``data.sampler=device``."""
+    sampler = None
+    if cfg.data.sampler == "device":
+        sampler = DeviceSampler(dataset.train, cfg.train.batch_size, cfg.train.seed, device)
+    elif cfg.data.sampler != "host":
+        raise ValueError(f"unknown data.sampler {cfg.data.sampler!r} (host|device)")
+    return Trainer(cfg, model_base.DataDims.from_dataset(dataset), device=device, sampler=sampler)
+
+
+def train(
+    cfg: Config,
+    dataset: Dataset,
+    num_steps: int | None = None,
+    state: TrainState | None = None,
+    trainer: Trainer | None = None,
+    callbacks: list[Callable] | None = None,
+    device: Any = "cpu",
+) -> tuple[Trainer, TrainState, list[dict]]:
+    """Run the training loop; returns (trainer, final state, metric history)."""
+    num_steps = num_steps if num_steps is not None else cfg.train.num_steps
+    if trainer is None:
+        trainer = make_trainer(cfg, dataset, device)
+    if state is None:
+        state = trainer.init_state()
+    start_step = state.step
+    if trainer.sampler is not None:
+        return _train_sampled(cfg, trainer, state, start_step, num_steps, callbacks)
+
+    loader = make_train_loader(dataset.train, batch_size=cfg.train.batch_size, seed=cfg.train.seed,
+                               backend=cfg.data.loader_backend)
+    if start_step:
+        loader.seek(start_step)  # step N always sees batch N
+    history: list[dict] = []
+    end = start_step + num_steps
+    fault = cfg.train.fault_inject_step
+    t0 = time.perf_counter()
+    seqs = 0
+    try:
+        for i in range(start_step, end):
+            if fault == i:
+                raise FaultInjected(f"fault injected at step {i}")
+            state, metrics = trainer.step(state, next(loader))
+            seqs += cfg.train.batch_size
+            if (i + 1) % cfg.train.log_every == 0 or i + 1 == end:
+                row = {k: float(v) for k, v in metrics.items()}  # waits for the device, before the clock
+                row.update(step=i + 1, seqs_per_sec=seqs / max(time.perf_counter() - t0, 1e-9))
+                history.append(row)
+                _log_row(row)
+                t0, seqs = time.perf_counter(), 0
+            for cb in callbacks or []:
+                cb(i + 1, state, metrics)
+    finally:
+        loader.close()
+    return trainer, state, history
