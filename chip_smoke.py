@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch port: serving config #1 and training.
+"""On-card smoke run of the PyTorch port: serving config #1, training, and
+config #4.
 
     python3 chip_smoke.py          # from the repository root, on a machine with one CUDA card
 
 Builds the port's CUDA kernels from ``poi_tpu_torch/csrc`` and compares each
-with its plain PyTorch version on the card. Then it drives the two paths:
+with its plain PyTorch version on the card. Then it drives the paths:
 
 - serving: 256 requests of config #1 (``gru_foursquare_nyc``: GRU 64-d,
   T=64, 6,749-POI catalog, random weights from a fixed seed) through
@@ -13,9 +14,14 @@ with its plain PyTorch version on the card. Then it drives the two paths:
   128-d, T=64, batch 512, bf16, 44,170-POI catalog, full-catalog CE) through
   ``train()``, on the kernel path and on the plain path, then ``evaluate()``
   on test; a few steps of config #1; and ``python -m poi_tpu_torch train``
-  on config #1 and on the bench workload.
+  on config #1 and on the bench workload;
+- config #4 (``attention_gowalla``: GRU 256-d + windowed attention, T=128,
+  batch 64, dropout 0.3, sampled softmax over 1,024 negatives, lazy Adam,
+  36,969-POI catalog): 40 device-sampled steps through ``train()`` on both
+  paths, ``evaluate()``, ``Recommender`` at request batch 1 and 256 on both
+  paths, and ``python -m poi_tpu_torch train``.
 
-It times the kernels, ``recommend`` and the train step. Any failed phase
+It times the kernels, ``recommend`` and both train steps. Any failed phase
 prints its traceback and exits non-zero. The last lines of standard output
 are the card's name and power limit, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -108,6 +114,22 @@ RECALL_PATH_TOL = 1e-2
 GRU_TRAIN_SHAPE = (512, 64, 128)
 CE_TRAIN_SHAPE = (32768, 44170, 128)
 CE_THRESHOLD_CASES = ((2048, 6749, 64), (32768, 6749, 128), (32768, 44170, 128))
+# Config #4 at full width: GRU + attention 256-d, T=128, batch 64, dropout
+# 0.3, sampled softmax (S=1,024), lazy Adam, 36,969 POIs. The device sampler
+# draws its batches; its step is timed over chunks of ATTN_TIME_CHUNK steps.
+ATTN_CONFIG = "attention_gowalla"
+ATTN_OVERRIDES = {"data.sampler": "device", "train.steps_per_call": str(TRAIN_STEPS)}
+ATTN_TIME_CHUNK = 20
+# The GRU kernels' cluster path (H > 196): config #4's train shape, a ragged
+# batch, and config #5's width.
+GRU_BIG_SHAPES = ((64, 128, 256), (7, 128, 256), (5, 64, 512))
+# Sampled softmax (N, S, D, V, pad, full_hit): config #4's train shape
+# (B*T = 8,192 rows, a pool of 1,024 from 36,969 POIs); a pool of 1,000
+# padded to 1,024 the way the TPU kernel pads it; a pool of 200 (no multiple
+# of the tile) whose entries 3 and 199 are every row's target; and D = 128.
+# Small catalogs make accidental hits common.
+SAMPLED_CASES = ((8192, 1024, 256, 36969, 0, False), (8192, 1000, 256, 2000, 24, False),
+                 (300, 200, 256, 50, 0, True), (1000, 300, 128, 500, 0, False))
 
 
 def log(msg: str) -> None:
@@ -180,27 +202,60 @@ def gru_case(B: int, T: int, H: int, gen):
     return xw, wh, mask, lengths
 
 
-def gru_phase() -> float:
+def check_gru_fwd(xw, wh, mask, lengths):
+    """B1 against ``gru_scan_reference`` at the valid steps, the carry held
+    through the padded tail, and the same bits on a second launch; returns
+    (hs, max abs error)."""
     import torch
 
     from poi_tpu_torch.ops.fused_gru import fused_gru_scan, gru_scan_reference
+
+    B, T, H = mask.shape[0], mask.shape[1], wh.shape[0]
+    hs = fused_gru_scan(xw, wh)
+    torch.cuda.synchronize()
+    want = gru_scan_reference(xw, wh)
+    err = float(((hs - want).abs() * mask[:, :, None]).max())
+    assert torch.isfinite(hs).all(), f"GRU B={B} T={T} H={H}: non-finite output"
+    assert err < GRU_TOL, f"GRU B={B} T={T} H={H}: max |kernel - plain| {err} >= {GRU_TOL}"
+    # The folded mask carries h through the padded tail unchanged.
+    last = hs[torch.arange(B, device=DEV), lengths - 1]
+    tail = torch.where(mask[:, :, None], last[:, None, :], hs)
+    assert torch.equal(tail, last[:, None, :].expand_as(hs)), f"GRU B={B} T={T} H={H}: masked tail moved h"
+    assert torch.equal(fused_gru_scan(xw, wh), hs), f"GRU B={B} T={T} H={H}: run-to-run bits"
+    return hs, err
+
+
+def check_gru_bwd(xw, wh, hs, dhs, mask):
+    """B2 against ``gru_bwd_reference`` (relative to each output's largest
+    element), dxw exactly 0 on padded steps, the same bits on a second
+    launch; returns (rel err dxw, rel err dwh, max abs error, padded steps)."""
+    import torch
+
+    from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, gru_bwd_reference
+
+    B, H = mask.shape[0], wh.shape[0]
+    dxw, dwh = fused_gru_bwd(xw, wh, hs, dhs)
+    torch.cuda.synchronize()
+    want_x, want_w = gru_bwd_reference(xw, wh, hs, dhs)
+    ex, ew = rel_err(dxw, want_x), rel_err(dwh, want_w)
+    assert torch.isfinite(dxw).all() and torch.isfinite(dwh).all(), f"GRU bwd B={B} H={H}: non-finite"
+    assert ex < GRU_BWD_TOL and ew < GRU_BWD_TOL, f"GRU bwd B={B} H={H}: rel err dxw {ex}, dwh {ew}"
+    pad = dxw[~mask]
+    assert bool((pad == 0).all()), f"GRU bwd B={B} H={H}: nonzero dxw on a padded step"
+    again = fused_gru_bwd(xw, wh, hs, dhs)  # no atomics: the same bits every run
+    assert torch.equal(again[0], dxw) and torch.equal(again[1], dwh), f"GRU bwd B={B} H={H}: run-to-run bits"
+    worst = max(float((dxw - want_x).abs().max()), float((dwh - want_w).abs().max()))
+    return ex, ew, worst, pad.shape[0]
+
+
+def gru_phase() -> float:
+    import torch
 
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     worst = 0.0
     for H in (64, 128):
         for B in (1, 7, 256):
-            xw, wh, mask, lengths = gru_case(B, 64, H, gen)
-            got = fused_gru_scan(xw, wh)
-            torch.cuda.synchronize()
-            want = gru_scan_reference(xw, wh)
-            torch.cuda.synchronize()
-            err = float(((got - want).abs() * mask[:, :, None]).max())
-            assert torch.isfinite(got).all(), f"GRU B={B} H={H}: non-finite output"
-            assert err < GRU_TOL, f"GRU B={B} H={H}: max |kernel - plain| {err} >= {GRU_TOL}"
-            # The folded mask carries h through the padded tail unchanged.
-            last = got[torch.arange(B, device=DEV), lengths - 1]
-            tail = torch.where(mask[:, :, None], last[:, None, :], got)
-            assert torch.equal(tail, last[:, None, :].expand_as(got)), f"GRU B={B} H={H}: masked tail moved h"
+            _, err = check_gru_fwd(*gru_case(B, 64, H, gen))
             worst = max(worst, err)
             log(f"[gru] B={B:3d} T=64 H={H:3d}: max |kernel - plain| at valid steps {err:.3e} (tol {GRU_TOL})")
     return worst
@@ -218,11 +273,12 @@ def topk_phase() -> float:
     # request batch 1 and 256, and one case whose batch fills the card with
     # one slice per row, on the unpadded V. Training's eval sweep: the bench
     # catalog (44,170 POIs padded to 45,056) at D=128, at the eval batch and
-    # at 256 rows.
+    # at 256 rows; and config #4's sweep (36,969 POIs padded to 38,912, D=256,
+    # its eval batch of 256).
     eval_batch = get_config("smoke").with_overrides(BENCH_OVERRIDES).eval.batch_size
     cases = [(1, 8192, 64, 10, 6749), (1, 8192, 64, 128, 6749), (256, 8192, 64, 10, 6749),
              (256, 8192, 64, 128, 6749), (300, 6749, 64, 128, 6749),
-             (eval_batch, 45056, 128, 10, 44170), (256, 45056, 128, 10, 44170)]
+             (eval_batch, 45056, 128, 10, 44170), (256, 45056, 128, 10, 44170), (256, 38912, 256, 10, 36969)]
     for B, V, D, k, real in cases:
         # Scores of the same spread at either width (std ~8).
         q = torch.randn(B, D, generator=gen, device=DEV) * (64 / D) ** 0.5
@@ -263,7 +319,7 @@ def gru_bwd_phase() -> float:
     """B2 against ``gru_bwd_reference``; returns the largest absolute error."""
     import torch
 
-    from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan, gru_bwd_reference
+    from poi_tpu_torch.ops.fused_gru import fused_gru_scan
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
     worst = 0.0
@@ -272,20 +328,10 @@ def gru_bwd_phase() -> float:
             xw, wh, mask, _ = gru_case(B, 64, H, gen)
             hs = fused_gru_scan(xw, wh)
             dhs = torch.randn(B, 64, H, generator=gen, device=DEV)  # nonzero on padded steps too
-            dxw, dwh = fused_gru_bwd(xw, wh, hs, dhs)
-            torch.cuda.synchronize()
-            want_x, want_w = gru_bwd_reference(xw, wh, hs, dhs)
-            ex, ew = rel_err(dxw, want_x), rel_err(dwh, want_w)
-            assert torch.isfinite(dxw).all() and torch.isfinite(dwh).all(), f"GRU bwd B={B} H={H}: non-finite"
-            assert ex < GRU_BWD_TOL and ew < GRU_BWD_TOL, f"GRU bwd B={B} H={H}: rel err dxw {ex}, dwh {ew}"
-            pad = dxw[~mask]
-            assert bool((pad == 0).all()), f"GRU bwd B={B} H={H}: nonzero dxw on a padded step"
-            again = fused_gru_bwd(xw, wh, hs, dhs)  # no atomics: the same bits every run
-            assert torch.equal(again[0], dxw) and torch.equal(again[1], dwh), f"GRU bwd B={B} H={H}: run-to-run bits"
-            worst = max(worst, float((dxw - want_x).abs().max()), float((dwh - want_w).abs().max()))
+            ex, ew, err, n_pad = check_gru_bwd(xw, wh, hs, dhs, mask)
+            worst = max(worst, err)
             log(f"[gru_bwd] B={B:3d} T=64 H={H:3d}: rel err dxw {ex:.2e}, dwh {ew:.2e} (tol {GRU_BWD_TOL}); "
-                f"dxw on {pad.shape[0]} padded steps exactly 0; "
-                f"a second run gives the same bits")
+                f"dxw on {n_pad} padded steps exactly 0; a second run gives the same bits")
     return worst
 
 
@@ -328,6 +374,105 @@ def ce_phase() -> tuple[float, float]:
             f"(tol {CE_LSE_TOL}); rel err dq {errs[0]:.2e}, dtable {errs[1]:.2e} (tol {CE_GRAD_TOL}), "
             f"dbias {errs[2]:.2e} (tol {CE_DBIAS_TOL}); a second run gives the same bits")
     return worst_lse, worst_grad
+
+
+def gru_big_phase() -> dict:
+    """B1 and B2 on the cluster path (H > 196) against their plain versions:
+    config #4's (B, T, H), a ragged batch, and config #5's H = 512. Returns
+    the largest absolute errors and config #4's times."""
+    import torch
+
+    from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan, gru_bwd_reference, gru_scan_reference
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    out = {"fwd_err": 0.0, "bwd_err": 0.0}
+    for B, T, H in GRU_BIG_SHAPES:
+        xw, wh, mask, lengths = gru_case(B, T, H, gen)
+        hs, err = check_gru_fwd(xw, wh, mask, lengths)
+        dhs = torch.randn(B, T, H, generator=gen, device=DEV)
+        ex, ew, bwd_err, n_pad = check_gru_bwd(xw, wh, hs, dhs, mask)
+        out["fwd_err"] = max(out["fwd_err"], err)
+        out["bwd_err"] = max(out["bwd_err"], bwd_err)
+        log(f"[gru_big] B={B:3d} T={T} H={H}: forward max |kernel - plain| at valid steps {err:.3e} (tol {GRU_TOL}); "
+            f"backward rel err dxw {ex:.2e}, dwh {ew:.2e} (tol {GRU_BWD_TOL}); dxw on {n_pad} padded steps "
+            f"exactly 0; a second run gives the same bits")
+        if (B, T, H) == GRU_BIG_SHAPES[0]:
+            out["fwd_ms"] = (time_ms(lambda: fused_gru_scan(xw, wh)), time_ms(lambda: gru_scan_reference(xw, wh), 5))
+            out["bwd_ms"] = (time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs)),
+                             time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 5))
+            log(f"[time] gru_fwd B={B} T={T} H={H} (cluster): kernel {out['fwd_ms'][0]:.4f} ms, plain "
+                f"{out['fwd_ms'][1]:.4f} ms; gru_bwd kernel {out['bwd_ms'][0]:.4f} ms, plain {out['bwd_ms'][1]:.4f} ms")
+    return out
+
+
+def sampled_case(N: int, S: int, D: int, V: int, gen, pad: int = 0, full_hit: bool = False):
+    """Queries, a pool of S draws from V ids with ``pad`` entries appended
+    as the TPU kernel pads its pool (bias -1e30, id -1), targets, and the
+    lse/g a backward receives. ``full_hit``: every row's target is id 7,
+    which pool entries 3 and S-1 carry."""
+    import torch
+
+    from poi_tpu_torch.ops.fused_sampled import NEG, log_q, sampled_lse_reference
+
+    q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
+    e = 0.3 * torch.randn(S + pad, D, generator=gen, device=DEV)
+    b = 0.1 * torch.randn(S + pad, generator=gen, device=DEV) - log_q(S, V)
+    ids = torch.randint(0, V, (S + pad,), generator=gen, device=DEV)
+    b[S:], ids[S:] = NEG, -1
+    tgt = torch.randint(0, V, (N,), generator=gen, device=DEV)
+    if full_hit:
+        tgt[:] = 7
+        ids[[3, S - 1]] = 7
+    s_pos = 0.3 * torch.randn(N, generator=gen, device=DEV)
+    lse_tot = torch.logaddexp(sampled_lse_reference(q, e, b, ids, tgt), s_pos)
+    g = torch.rand(N, generator=gen, device=DEV) / N
+    return q, e, b, ids, tgt, lse_tot, g
+
+
+def sampled_phase() -> dict:
+    """B9 and B10 against their plain versions at config #4's shape, at a
+    pool that is no multiple of the 64-row tile (padded as the TPU pads it),
+    and with pool entries that are a hit for every row."""
+    import torch
+
+    from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_bwd_reference, sampled_lse, sampled_lse_reference
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    out = {"lse_err": 0.0, "grad_err": 0.0}
+    for N, S, D, V, pad, full_hit in SAMPLED_CASES:
+        q, e, b, ids, tgt, lse_tot, g = sampled_case(N, S, D, V, gen, pad, full_hit)
+        full_hits = torch.tensor([3, S - 1] if full_hit else [], dtype=torch.long, device=DEV)
+        lse = sampled_lse(q, e, b, ids, tgt)
+        torch.cuda.synchronize()
+        want_lse = sampled_lse_reference(q, e, b, ids, tgt)
+        e_lse = float((lse - want_lse).abs().max())
+        assert e_lse < CE_LSE_TOL, f"sampled_lse N={N} S={S} D={D}: max |kernel - plain| {e_lse}"
+        got = sampled_bwd(q, e, b, ids, tgt, lse_tot, g)
+        torch.cuda.synchronize()
+        want = sampled_bwd_reference(q, e, b, ids, tgt, lse_tot, g)
+        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        assert errs[0] < CE_GRAD_TOL and errs[1] < CE_GRAD_TOL and errs[2] < CE_DBIAS_TOL, \
+            f"sampled_bwd N={N} S={S} D={D}: rel err dq/de/db {errs}"
+        zero_rows = torch.cat([full_hits, torch.arange(S, S + pad, device=DEV)])
+        assert bool((got[1][zero_rows] == 0).all()) and bool((got[2][zero_rows] == 0).all()), \
+            "a hit column or a padded pool entry got gradient"
+        again = (sampled_lse(q, e, b, ids, tgt), *sampled_bwd(q, e, b, ids, tgt, lse_tot, g))
+        assert all(torch.equal(a, w) for a, w in zip(again, (lse, *got))), f"sampled N={N} S={S}: run-to-run bits"
+        hits = int((ids[None, :] == tgt[:, None]).sum())
+        out["lse_err"] = max(out["lse_err"], e_lse)
+        out["grad_err"] = max(out["grad_err"], *(float((a - w).abs().max()) for a, w in zip(got, want)))
+        log(f"[sampled] N={N} S={S}{f'+{pad} padded' if pad else ''} D={D}: {hits} hits; lse max err {e_lse:.2e} "
+            f"(tol {CE_LSE_TOL}); rel err dq {errs[0]:.2e}, de {errs[1]:.2e} (tol {CE_GRAD_TOL}), db {errs[2]:.2e} "
+            f"(tol {CE_DBIAS_TOL}); {len(zero_rows)} hit/padded pool rows exactly 0; a second run gives the same bits")
+        if (N, S, D, pad) == (8192, 1024, 256, 0):
+            out["lse_ms"] = (time_ms(lambda: sampled_lse(q, e, b, ids, tgt)),
+                             time_ms(lambda: sampled_lse_reference(q, e, b, ids, tgt)))
+            out["bwd_ms"] = (time_ms(lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g)),
+                             time_ms(lambda: sampled_bwd_reference(q, e, b, ids, tgt, lse_tot, g)))
+            log(f"[time] sampled_lse N={N} S={S} D={D}: kernel {out['lse_ms'][0]:.4f} ms, plain "
+                f"{out['lse_ms'][1]:.4f} ms; sampled_bwd kernel {out['bwd_ms'][0]:.4f} ms, plain "
+                f"{out['bwd_ms'][1]:.4f} ms")
+    return out
 
 
 def gru_params(ds, cfg, seed: int = SEED):
@@ -377,7 +522,7 @@ def slice_phase(state):
     from poi_tpu.data.dataset import load_dataset
     from poi_tpu_torch.convert import params_from_jax
     from poi_tpu_torch.eval.serve import Recommender
-    from poi_tpu_torch.models.base import DataDims, batch_to, build_model
+    from poi_tpu_torch.models.base import DataDims, build_model
     from poi_tpu_torch.ops.fused_gru import fused_gru_scan
     from poi_tpu_torch.ops.topk import fused_topk
 
@@ -412,22 +557,34 @@ def slice_phase(state):
     plain_model = build_model(plain_cfg.model, dims, device=DEV)
     plain_model.load_state_dict(params_from_jax(tree))
     plain = Recommender(plain_model, plain_cfg, ds)
-    want = plain.recommend(histories, k=10, exclude_visited=True)
+    compare_paths("slice", rec, plain, histories, got)
+    state.update(cfg=cfg, ds=ds, tree=tree, rec=rec, plain=plain, histories=histories, launches=launches)
+
+
+def compare_paths(tag: str, rec, plain, histories, got) -> None:
+    """The kernel path's ids ``got`` against the plain ``Recommender``'s on
+    the same histories: equal, or a swap of two candidates whose scores lie
+    within what the two paths' query difference can move a score."""
+    import torch
+
+    from poi_tpu_torch.models.base import batch_to, output_table
+
+    want = plain.recommend(histories, k=got.shape[1], exclude_visited=True)
     with torch.inference_mode():
         batch = batch_to(rec._featurize(histories), DEV)
-        q_k, q_p = model.queries_last(batch).double(), plain_model.queries_last(batch).double()
-    table = model.embed["poi"].detach().to(torch.bfloat16).double()
-    scores = q_p.to(torch.bfloat16).double() @ table.T  # out_bias is zero
+        q_k, q_p = rec.model.queries_last(batch).double(), plain.model.queries_last(batch).double()
+    table, bias = output_table(rec.model.embed, rec.cfg.model)
+    table = table.detach().to(torch.bfloat16).double()
+    scores = q_p.to(torch.bfloat16).double() @ table.T + bias.detach().double()
     # Two ids may swap only if their scores lie within what the two paths'
     # query difference can move a score (|Δq|·max|e| per row) plus fp32 noise.
     bound = ((q_k - q_p).abs() @ table.abs().max(dim=0).values[:, None]).squeeze(1) * 2 + 1e-5
     g, w = torch.as_tensor(got, device=DEV).long(), torch.as_tensor(want, device=DEV).long()
-    rows = torch.arange(256, device=DEV)[:, None]
+    rows = torch.arange(len(histories), device=DEV)[:, None]
     near = (scores[rows, g] - scores[rows, w]).abs() <= bound[:, None]
-    assert bool(((g == w) | near).all()), "kernel path and plain path disagree beyond near-ties"
-    log(f"[slice] kernel path vs plain path: ids equal {int((g == w).sum())}/{g.numel()}, "
+    assert bool(((g == w) | near).all()), f"{tag}: kernel path and plain path disagree beyond near-ties"
+    log(f"[{tag}] kernel path vs plain path, batch {len(histories)}: ids equal {int((g == w).sum())}/{g.numel()}, "
         f"max |Δq| {float((q_k - q_p).abs().max()):.3e}")
-    state.update(cfg=cfg, ds=ds, tree=tree, rec=rec, plain=plain, histories=histories, launches=launches)
 
 
 def cli_phase(state) -> None:
@@ -462,10 +619,11 @@ def cli_phase(state) -> None:
 def kernel_wrappers() -> dict:
     from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_lse
     from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan
+    from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse
     from poi_tpu_torch.ops.topk import fused_topk
 
     return {"gru_fwd": fused_gru_scan, "gru_bwd": fused_gru_bwd, "ce_lse": ce_lse, "ce_bwd": ce_bwd,
-            "topk": fused_topk}
+            "topk": fused_topk, "sampled_lse": sampled_lse, "sampled_bwd": sampled_bwd}
 
 
 def reset_launches() -> None:
@@ -477,14 +635,71 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
-def train_phase(state) -> None:
+def train_both_paths(tag: str, cfg, ds, tree, used: tuple, unused: tuple = ()):
+    """40 device-sampled steps through ``train()``, the loop a user runs, on
+    the kernel path and on the plain path (``PLAIN_OVERRIDES``) from the
+    params ``tree``; every step a log step, so the history holds each step's
+    loss (read once, after the chunk). Compares the per-step losses, checks
+    that the kernel path launched ``used`` and not ``unused`` and the plain
+    path nothing, then ``evaluate()`` on test: the kernel-trained model
+    through the top-k kernel and its plain version, and the plain-trained
+    model. Returns (kernel trainer, the kernel path's launches)."""
     import math
 
     import torch
 
+    from poi_tpu_torch.eval.evaluate import evaluate
+    from poi_tpu_torch.train.loop import make_trainer, train
+
+    cmp_cfg = cfg.with_overrides({"train.log_every": "1"})
+    plain_cfg = cmp_cfg.with_overrides(PLAIN_OVERRIDES)
+    kern, plain = make_trainer(cmp_cfg, ds, DEV), make_trainer(plain_cfg, ds, DEV)
+
+    reset_launches()
+    _, kst, k_hist = train(cmp_cfg, ds, num_steps=TRAIN_STEPS, trainer=kern, state=kern.init_state(tree))
+    k_loss = torch.tensor([row["loss"] for row in k_hist], dtype=torch.float64)
+    launches = read_launches()
+    log(f"[{tag}] kernel path, train() over {TRAIN_STEPS} device-sampled steps, launches: {launches}")
+    for name in used:
+        assert launches[name] > 0, f"{tag}: the training path skipped {name}: {launches}"
+    assert not any(launches[name] for name in unused), f"{tag}: launches {launches}"
+    reset_launches()
+    _, pst, p_hist = train(plain_cfg, ds, num_steps=TRAIN_STEPS, trainer=plain, state=plain.init_state(tree))
+    p_loss = torch.tensor([row["loss"] for row in p_hist], dtype=torch.float64)
+    plain_launches = read_launches()
+    assert kst.step == pst.step == TRAIN_STEPS and len(k_loss) == len(p_loss) == TRAIN_STEPS, (kst.step, pst.step)
+    assert not any(plain_launches.values()), f"{tag}: the plain path launched a kernel: {plain_launches}"
+    assert torch.isfinite(k_loss).all() and torch.isfinite(p_loss).all(), f"{tag}: non-finite loss"
+    rel = (k_loss - p_loss).abs() / p_loss.abs()
+    log(f"[{tag}] loss kernel vs plain: step 1 {k_loss[0]:.6f} / {p_loss[0]:.6f}, step {TRAIN_STEPS} "
+        f"{k_loss[-1]:.6f} / {p_loss[-1]:.6f}; rel diff "
+        + ", ".join(f"@{i + 1} {float(rel[i]):.2e}" for i in sorted({0, 9, 19, TRAIN_STEPS - 1}) if i < TRAIN_STEPS)
+        + f" (tol {LOSS_TOL_FIRST} at step 1, {LOSS_TOL_LAST} after)")
+    assert float(rel[0]) < LOSS_TOL_FIRST, f"{tag}: step-1 loss differs: {float(rel[0])}"
+    assert float(rel.max()) < LOSS_TOL_LAST, f"{tag}: loss trajectories drift apart: {rel.tolist()}"
+    assert float(k_loss[-1]) < float(k_loss[0]), f"{tag}: loss did not drop: {k_loss.tolist()}"
+
+    reset_launches()
+    m_kern = evaluate(kern.model, ds, cfg)
+    eval_launches = read_launches()
+    assert eval_launches["topk"] > 0 and eval_launches["gru_fwd"] > 0, f"{tag}: evaluate skipped a kernel: {eval_launches}"
+    m_tie = evaluate(kern.model, ds, cfg.with_overrides({"eval.topk_impl": "xla"}))
+    m_plain = evaluate(plain.model, ds, plain_cfg)
+    for m in (m_kern, m_tie, m_plain):
+        assert all(math.isfinite(v) for v in m.values()), m
+    log(f"[{tag}] evaluate on test ({int(m_kern['eval_examples'])} rows): kernel path recall@10 "
+        f"{m_kern['recall@10']:.4f} ndcg@10 {m_kern['ndcg@10']:.4f} (launches {eval_launches}); same model, plain "
+        f"top-k {m_tie['recall@10']:.4f}; plain-trained model {m_plain['recall@10']:.4f}")
+    assert abs(m_kern["recall@10"] - m_tie["recall@10"]) <= RECALL_TIE_TOL, (m_kern, m_tie)
+    assert abs(m_kern["recall@10"] - m_plain["recall@10"]) <= RECALL_PATH_TOL, (m_kern, m_plain)
+    return kern, launches
+
+
+def train_phase(state) -> None:
+    import math
+
     from poi_tpu.configs.presets import get_config
     from poi_tpu.data.dataset import load_dataset
-    from poi_tpu_torch.eval.evaluate import evaluate
     from poi_tpu_torch.train.loop import make_trainer, train
 
     cfg = get_config("smoke").with_overrides(BENCH_OVERRIDES)
@@ -494,48 +709,7 @@ def train_phase(state) -> None:
         f"batch {cfg.train.batch_size}, GRU {cfg.model.hidden_dim}-d {cfg.model.compute_dtype} "
         f"(loaded in {time.perf_counter() - t0:.1f} s)")
     tree = gru_params(ds, cfg)
-    # Through train(), the loop a user runs: every step a log step, so the
-    # history holds each step's loss (read once, after the 40-step chunk).
-    cmp_cfg = cfg.with_overrides({"train.log_every": "1"})
-    plain_cfg = cmp_cfg.with_overrides(PLAIN_OVERRIDES)
-    kern, plain = make_trainer(cmp_cfg, ds, DEV), make_trainer(plain_cfg, ds, DEV)
-
-    reset_launches()
-    _, kst, k_hist = train(cmp_cfg, ds, num_steps=TRAIN_STEPS, trainer=kern, state=kern.init_state(tree))
-    k_loss = torch.tensor([row["loss"] for row in k_hist], dtype=torch.float64)
-    launches = read_launches()
-    log(f"[train] kernel path, train() over {TRAIN_STEPS} device-sampled steps, launches: {launches}")
-    for name in ("gru_fwd", "gru_bwd", "ce_lse", "ce_bwd"):
-        assert launches[name] > 0, f"the training path skipped {name}: {launches}"
-    reset_launches()
-    _, pst, p_hist = train(plain_cfg, ds, num_steps=TRAIN_STEPS, trainer=plain, state=plain.init_state(tree))
-    p_loss = torch.tensor([row["loss"] for row in p_hist], dtype=torch.float64)
-    plain_launches = read_launches()
-    assert kst.step == pst.step == TRAIN_STEPS and len(k_loss) == len(p_loss) == TRAIN_STEPS, (kst.step, pst.step)
-    assert not any(plain_launches.values()), f"the plain path launched a kernel: {plain_launches}"
-    assert torch.isfinite(k_loss).all() and torch.isfinite(p_loss).all(), "non-finite loss"
-    rel = (k_loss - p_loss).abs() / p_loss.abs()
-    log(f"[train] loss kernel vs plain: step 1 {k_loss[0]:.6f} / {p_loss[0]:.6f}, step {TRAIN_STEPS} "
-        f"{k_loss[-1]:.6f} / {p_loss[-1]:.6f}; rel diff "
-        + ", ".join(f"@{i + 1} {float(rel[i]):.2e}" for i in sorted({0, 9, 19, TRAIN_STEPS - 1}) if i < TRAIN_STEPS)
-        + f" (tol {LOSS_TOL_FIRST} at step 1, {LOSS_TOL_LAST} after)")
-    assert float(rel[0]) < LOSS_TOL_FIRST, f"step-1 loss differs: {float(rel[0])}"
-    assert float(rel.max()) < LOSS_TOL_LAST, f"loss trajectories drift apart: {rel.tolist()}"
-    assert float(k_loss[-1]) < float(k_loss[0]), f"loss did not drop: {k_loss.tolist()}"
-
-    reset_launches()
-    m_kern = evaluate(kern.model, ds, cfg)
-    eval_launches = read_launches()
-    assert eval_launches["topk"] > 0 and eval_launches["gru_fwd"] > 0, f"evaluate skipped a kernel: {eval_launches}"
-    m_tie = evaluate(kern.model, ds, cfg.with_overrides({"eval.topk_impl": "xla"}))
-    m_plain = evaluate(plain.model, ds, plain_cfg)
-    for m in (m_kern, m_tie, m_plain):
-        assert all(math.isfinite(v) for v in m.values()), m
-    log(f"[train] evaluate on test ({int(m_kern['eval_examples'])} rows): kernel path recall@10 "
-        f"{m_kern['recall@10']:.4f} ndcg@10 {m_kern['ndcg@10']:.4f} (launches {eval_launches}); same model, plain "
-        f"top-k {m_tie['recall@10']:.4f}; plain-trained model {m_plain['recall@10']:.4f}")
-    assert abs(m_kern["recall@10"] - m_tie["recall@10"]) <= RECALL_TIE_TOL, (m_kern, m_tie)
-    assert abs(m_kern["recall@10"] - m_plain["recall@10"]) <= RECALL_PATH_TOL, (m_kern, m_plain)
+    _, launches = train_both_paths("train", cfg, ds, tree, used=("gru_fwd", "gru_bwd", "ce_lse", "ce_bwd"))
 
     # Config #1 at its own width: 6,749 POIs is below the fused-CE threshold,
     # so it trains through the GRU kernels and the dense CE, as in poi_tpu.
@@ -549,6 +723,60 @@ def train_phase(state) -> None:
     assert c1_launches["gru_fwd"] > 0 and c1_launches["gru_bwd"] > 0, c1_launches
     assert s1.step == 5 and math.isfinite(hist[-1]["loss"])
     state.update(train_launches=launches, bench_cfg=cfg, bench_ds=ds, bench_tree=tree)
+
+
+def attention_train_phase(state) -> None:
+    """Config #4 trains 40 device-sampled steps through ``train()`` on the
+    kernel path and on the plain path from the same random init, at its full
+    width (dropout 0.3, sampled softmax over 1,024 negatives, lazy Adam on
+    the tables); both paths draw the pool and the dropout masks from the
+    same step-keyed generators. Then ``evaluate()`` on test."""
+    from poi_tpu.configs.presets import get_config
+    from poi_tpu.data.dataset import load_dataset
+    from poi_tpu_torch.convert import params_to_numpy
+    from poi_tpu_torch.train.loop import make_trainer
+
+    cfg = get_config(ATTN_CONFIG).with_overrides(ATTN_OVERRIDES)
+    t0 = time.perf_counter()
+    ds = load_dataset(cfg.data)
+    m = cfg.model
+    log(f"[attn] {ATTN_CONFIG}: {ds.num_pois} POIs, {len(ds.train)} training windows, T={ds.max_seq_len}, batch "
+        f"{cfg.train.batch_size}, GRU {m.hidden_dim}-d + {m.attn_heads}-head attention over {m.attn_window} steps, "
+        f"dropout {m.dropout}, sampled softmax S={cfg.loss.num_sampled}, table_update={cfg.train.table_update} "
+        f"(loaded in {time.perf_counter() - t0:.1f} s)")
+    tree = params_to_numpy(make_trainer(cfg, ds, DEV).model)  # the trainer's own seeded init
+    kern, launches = train_both_paths("attn", cfg, ds, tree, used=("gru_fwd", "gru_bwd", "sampled_lse", "sampled_bwd"),
+                                      unused=("ce_lse", "ce_bwd"))
+    state.update(attn_launches=launches, attn_cfg=cfg, attn_ds=ds, attn_tree=tree,
+                 attn_trained=params_to_numpy(kern.model))
+
+
+def attention_serve_phase(state) -> None:
+    """``Recommender`` on config #4 with the trained parameters at request
+    batch 1 and 256, kernel path against plain path."""
+    from poi_tpu_torch.convert import params_from_jax
+    from poi_tpu_torch.eval.serve import Recommender
+    from poi_tpu_torch.models.base import DataDims, build_model
+
+    cfg, ds = state["attn_cfg"], state["attn_ds"]
+    plain_cfg = cfg.with_overrides({"model.cell_impl": "scan", "eval.topk_impl": "xla"})
+    recs = []
+    for c in (cfg, plain_cfg):
+        model = build_model(c.model, DataDims.from_dataset(ds), device=DEV)
+        model.load_state_dict(params_from_jax(state["attn_trained"]))
+        recs.append(Recommender(model, c, ds))
+    rec, plain = recs
+    histories = histories_from_test(ds, 256)
+    for n in (1, 256):
+        reset_launches()
+        got = rec.recommend(histories[:n], k=10, exclude_visited=True)
+        launches = read_launches()
+        assert launches["gru_fwd"] > 0 and launches["topk"] > 0, f"config #4 recommend skipped a kernel: {launches}"
+        assert got.shape == (n, 10) and ((got >= 0) & (got < ds.num_pois)).all(), got
+        for row, hist in zip(got, histories[:n]):
+            assert not set(row.tolist()) & {c.poi for c in hist}, "a visited POI was returned"
+        compare_paths("attn serve", rec, plain, histories[:n], got)
+    state.update(attn_rec=rec, attn_plain=plain, attn_histories=histories)
 
 
 def run_cli_train(config: str, overrides: list[str], steps: int) -> dict:
@@ -583,6 +811,9 @@ def cli_train_phase(state) -> None:
     # At the random init every POI scores about alike, a loss of ~ln(V):
     # the loss logged at step 40 must already be below it.
     assert out["history"][0]["loss"] < math.log(state["bench_ds"].num_pois), out["history"]
+    # Config #4 as a user runs it, cut to 40 steps (best-on-val at 20 and 40).
+    run_cli_train(ATTN_CONFIG, [f"train.num_steps={TRAIN_STEPS}", f"train.eval_every={TRAIN_STEPS // 2}",
+                                f"train.log_every={TRAIN_STEPS // 2}", "data.sampler=device"], TRAIN_STEPS)
 
 
 def timing_phase(state, gpu: str) -> dict:
@@ -629,6 +860,61 @@ def timing_phase(state, gpu: str) -> dict:
     return out
 
 
+def step_timing(label: str, trainers: dict, tree, chunk: int, gpu: str) -> dict:
+    """The whole train step on the kernel and the plain path in turns
+    (kernels, plain, plain, kernels), each over one ``chunk``-step
+    device-sampled chunk fenced by reading its last loss, after a warm-up
+    chunk; then where the kernel path's step spends device time. The host
+    clock is also read when the chunk's launches are all queued: a share
+    near 1 means the host waited for the card inside the chunk. Returns the
+    better ms per step of each path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    states = {name: tr.init_state(tree) for name, tr in trainers.items()}
+    for name, tr in trainers.items():  # warm-up chunk: allocator, cuBLAS handles
+        states[name], m = tr.step_sampled(states[name], chunk)
+        m["loss"][-1].item()
+    bs = trainers["kernels"].cfg.train.batch_size
+    runs = {"kernels": [], "plain": []}
+    queued = {"kernels": [], "plain": []}
+    for name in ("kernels", "plain", "plain", "kernels"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states[name], m = trainers[name].step_sampled(states[name], chunk)
+        t1 = time.perf_counter()
+        m["loss"][-1].item()
+        t2 = time.perf_counter()
+        runs[name].append((t2 - t0) * 1e3 / chunk)
+        queued[name].append((t1 - t0) / (t2 - t0))
+    for name, ms in runs.items():
+        log(f"[time] train step ({name}), {label}: {ms[0]:.3f} / {ms[1]:.3f} ms per step over "
+            f"{chunk}-step chunks, {bs / (min(ms) / 1e3):.1f} seq/s at the better; launches queued at "
+            f"{queued[name][0]:.3f} / {queued[name][1]:.3f} of the chunk's time  ({gpu})")
+    best = {k: min(v) for k, v in runs.items()}
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        states["kernels"], m = trainers["kernels"].step_sampled(states["kernels"], 5)
+        m["loss"][-1].item()
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    dev_us = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0)) for e in kernels]
+    busy_ms = sum(t for _, _, t in dev_us) / 1e3 / 5
+    # Runtime calls that make the host wait for the card (the closing
+    # .item() accounts for one copy and one sync).
+    waits = {e.key: e.count for e in events
+             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+                          "cudaMemcpyAsync", "cudaMemcpy")}
+    # The profiler slows the host, so the idle share compares the device time
+    # a step needs with the unprofiled step time measured above.
+    log(f"[profile] kernel path, {label}: {busy_ms:.3f} ms of device time a step against a {best['kernels']:.3f} ms "
+        f"step (device idle share {max(0.0, 1 - busy_ms / best['kernels']):.3f}); host-waiting runtime calls over "
+        f"5 steps {waits}  ({gpu})")
+    for key, count, t in sorted(dev_us, key=lambda r: -r[2])[:20]:
+        log(f"[profile]   {t / 1e3 / 5:8.3f} ms/step  x{count // 5:<4d} {key[:90]}")
+    return best
+
+
 def train_timing_phase(state, gpu: str) -> dict:
     """The training kernels at the bench shapes, the whole train step on both
     paths, the dense-vs-fused CE around the fused-CE threshold, and the
@@ -665,35 +951,11 @@ def train_timing_phase(state, gpu: str) -> dict:
         log(f"[time] {name} N={N} V={V} D={D}: kernel {k_ms:.4f} ms ({products * flop / k_ms / 1e9:.1f} TFLOP/s of "
             f"catalog products), plain {p_ms:.4f} ms  ({gpu})")
 
-    # Whole train step, kernel and plain paths in turns, each over one
-    # 40-step device-sampled chunk fenced by reading its last loss. The host
-    # clock is also read when the chunk's launches are all queued: a share
-    # near 1 means the host waited for the card inside the chunk.
     from poi_tpu_torch.train.loop import make_trainer
 
     cfg, ds, tree = state["bench_cfg"], state["bench_ds"], state["bench_tree"]
     trainers = {"kernels": make_trainer(cfg, ds, DEV), "plain": make_trainer(cfg.with_overrides(PLAIN_OVERRIDES), ds, DEV)}
-    states = {name: tr.init_state(tree) for name, tr in trainers.items()}
-    for name, tr in trainers.items():  # warm-up chunk: allocator, cuBLAS handles
-        states[name], m = tr.step_sampled(states[name], TRAIN_STEPS)
-        m["loss"][-1].item()
-    bs = cfg.train.batch_size
-    runs = {"kernels": [], "plain": []}
-    queued = {"kernels": [], "plain": []}
-    for name in ("kernels", "plain", "plain", "kernels"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        states[name], m = trainers[name].step_sampled(states[name], TRAIN_STEPS)
-        t1 = time.perf_counter()
-        m["loss"][-1].item()
-        t2 = time.perf_counter()
-        runs[name].append((t2 - t0) * 1e3 / TRAIN_STEPS)
-        queued[name].append((t1 - t0) / (t2 - t0))
-    for name, ms in runs.items():
-        log(f"[time] train step ({name}), bench workload: {ms[0]:.3f} / {ms[1]:.3f} ms per step over "
-            f"{TRAIN_STEPS}-step chunks, {bs / (min(ms) / 1e3):.1f} seq/s at the better; launches queued at "
-            f"{queued[name][0]:.3f} / {queued[name][1]:.3f} of the chunk's time  ({gpu})")
-    out["train_step"] = {k: min(v) for k, v in runs.items()}
+    out["train_step"] = step_timing("bench workload", trainers, tree, TRAIN_STEPS, gpu)
 
     # Dense vs fused CE loss (forward + backward) on both sides of the 8,192
     # threshold: config #1's shape, and the bench shape at both catalogs.
@@ -707,30 +969,16 @@ def train_timing_phase(state, gpu: str) -> dict:
         dense = time_ms(lambda: ce_loss(qq, tt, bb, y, mask).backward(), 5)
         log(f"[time] CE loss fwd+bwd N={n} V={v} D={d}: fused kernels {fused:.4f} ms, dense {dense:.4f} ms  ({gpu})")
 
-    # Where the kernel path's step spends device time.
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        states["kernels"], m = trainers["kernels"].step_sampled(states["kernels"], 5)
-        m["loss"][-1].item()
-    events = prof.key_averages()
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
-    dev_us = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0)) for e in kernels]
-    busy_ms = sum(t for _, _, t in dev_us) / 1e3 / 5
-    step_ms = out["train_step"]["kernels"]
-    # Runtime calls that make the host wait for the card (the closing
-    # .item() accounts for one copy and one sync).
-    waits = {e.key: e.count for e in events
-             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
-                          "cudaMemcpyAsync", "cudaMemcpy")}
-    # The profiler slows the host, so the idle share compares the device time
-    # a step needs with the unprofiled step time measured above.
-    log(f"[profile] kernel path: {busy_ms:.3f} ms of device time a step against a {step_ms:.3f} ms step "
-        f"(device idle share {max(0.0, 1 - busy_ms / step_ms):.3f}); host-waiting runtime calls over 5 steps "
-        f"{waits}  ({gpu})")
-    for key, count, t in sorted(dev_us, key=lambda r: -r[2])[:14]:
-        log(f"[profile]   {t / 1e3 / 5:8.3f} ms/step  x{count // 5:<4d} {key[:90]}")
     return out
+
+
+def attention_timing_phase(state, gpu: str) -> dict:
+    """Config #4's train step on both paths, with its device-time profile."""
+    from poi_tpu_torch.train.loop import make_trainer
+
+    cfg, ds = state["attn_cfg"], state["attn_ds"]
+    trainers = {"kernels": make_trainer(cfg, ds, DEV), "plain": make_trainer(cfg.with_overrides(PLAIN_OVERRIDES), ds, DEV)}
+    return {"attn_train_step": step_timing("config #4", trainers, state["attn_tree"], ATTN_TIME_CHUNK, gpu)}
 
 
 def main() -> int:
@@ -763,27 +1011,43 @@ def main() -> int:
     topk_err = phase("topk", topk_phase)
     gru_bwd_err = phase("gru_bwd", gru_bwd_phase)
     lse_err, ce_grad_err = phase("ce", ce_phase)
+    big = phase("gru_big", gru_big_phase)
+    sampled = phase("sampled", sampled_phase)
     phase("slice", slice_phase, state)
     phase("cli", cli_phase, state)
     phase("train", train_phase, state)
+    phase("attn_train", attention_train_phase, state)
+    phase("attn_serve", attention_serve_phase, state)
     phase("cli_train", cli_train_phase, state)
     times = phase("timing", timing_phase, state, gpu)
     times.update(phase("train_timing", train_timing_phase, state, gpu))
+    times.update(phase("attn_timing", attention_timing_phase, state, gpu))
     assert "jax" not in sys.modules, "JAX was imported"
 
     # Launches: gru_fwd and topk from the serving path's run (slice phase),
-    # gru_bwd, ce_lse and ce_bwd from the training path's (train phase).
-    served, trained = state["launches"], state["train_launches"]
+    # gru_bwd, ce_lse and ce_bwd from the bench workload's training run
+    # (train phase), sampled_lse and sampled_bwd from config #4's (attn_train
+    # phase). The GRU rows also carry the cluster path (H = 256) at config
+    # #4's shape, (B, T) = (64, 128).
+    served, trained, attn = state["launches"], state["train_launches"], state["attn_launches"]
     kernels = [
         {"name": "gru_fwd", "route": "cuda", "source": "poi_tpu_torch/csrc/gru_fwd.cu",
          "replaces": "poi_tpu/ops/fused_gru.py:71", "launches": served["gru_fwd"],
-         "max_abs_err": gru_err, "ms": times["gru_fwd"][0], "plain_ms": times["gru_fwd"][1]},
+         "max_abs_err": gru_err, "ms": times["gru_fwd"][0], "plain_ms": times["gru_fwd"][1],
+         "max_abs_err_h256": big["fwd_err"], "ms_h256": big["fwd_ms"][0], "plain_ms_h256": big["fwd_ms"][1]},
         {"name": "topk", "route": "cuda", "source": "poi_tpu_torch/csrc/topk.cu",
          "replaces": "poi_tpu/ops/topk.py:58", "launches": served["topk"],
          "max_abs_err": topk_err, "ms": times["topk"][0], "plain_ms": times["topk"][1]},
         {"name": "gru_bwd", "route": "cuda", "source": "poi_tpu_torch/csrc/gru_bwd.cu",
          "replaces": "poi_tpu/ops/fused_gru.py:86", "launches": trained["gru_bwd"],
-         "max_abs_err": gru_bwd_err, "ms": times["gru_bwd"][0], "plain_ms": times["gru_bwd"][1]},
+         "max_abs_err": gru_bwd_err, "ms": times["gru_bwd"][0], "plain_ms": times["gru_bwd"][1],
+         "max_abs_err_h256": big["bwd_err"], "ms_h256": big["bwd_ms"][0], "plain_ms_h256": big["bwd_ms"][1]},
+        {"name": "sampled_lse", "route": "cuda", "source": "poi_tpu_torch/csrc/sampled.cu",
+         "replaces": "poi_tpu/ops/fused_sampled.py:76", "launches": attn["sampled_lse"],
+         "max_abs_err": sampled["lse_err"], "ms": sampled["lse_ms"][0], "plain_ms": sampled["lse_ms"][1]},
+        {"name": "sampled_bwd", "route": "cuda", "source": "poi_tpu_torch/csrc/sampled.cu",
+         "replaces": "poi_tpu/ops/fused_sampled.py:103", "launches": attn["sampled_bwd"],
+         "max_abs_err": sampled["grad_err"], "ms": sampled["bwd_ms"][0], "plain_ms": sampled["bwd_ms"][1]},
         {"name": "ce_lse", "route": "cuda", "source": "poi_tpu_torch/csrc/ce.cu",
          "replaces": "poi_tpu/ops/fused_ce.py:181", "launches": trained["ce_lse"],
          "max_abs_err": lse_err, "ms": times["ce_lse"][0], "plain_ms": times["ce_lse"][1]},

@@ -1,11 +1,11 @@
 """Build and load the package's hand-written CUDA kernels.
 
-The sources in ``csrc/*.cu`` have a plain C interface. Each is compiled by
-its own ``nvcc`` process, all started together, and the objects are linked
-into one shared library, loaded with ``ctypes``. The library lands
-in ``build/poi_tpu_torch/`` at the repository root, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-the cached file. Nothing is built when the package is imported: the first
+The sources in ``csrc/*.cu`` have a plain C interface (``csrc/*.cuh`` are
+headers they share). Each is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library,
+loaded with ``ctypes``. The library lands in ``build/poi_tpu_torch/`` at the
+repository root, named by a hash of the sources, headers and flags, so an
+edited file rebuilds and an unchanged tree loads the cached library. Nothing is built when the package is imported: the first
 kernel launch on a CUDA tensor calls :func:`library`.
 """
 
@@ -33,13 +33,17 @@ _I = ctypes.c_int
 # name -> argtypes; every pointer and the stream go as c_void_p.
 _SIGNATURES = {
     "gru_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "gru_fwd_smem_bytes": [_I],
+    "gru_fwd_cluster_size": [_I],
     "gru_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "gru_bwd_smem_bytes": [_I],
+    "gru_bwd_cluster_size": [_I],
     "gru_bwd_splits": [_I, _I, _I],
     "ce_supports_dim": [_I],
     "ce_lse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sampled_supports_dim": [_I],
+    "sampled_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sampled_bwd_splits": [_I, _I, _I],
+    "sampled_bwd": [_P] * 12 + [_I, _I, _I, _I, _P],
     "topk_plan": [_I, _I, _I, ctypes.POINTER(_I)],
     "topk_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "poi_cuda_error_string": [_I],
@@ -62,7 +66,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and the headers they include
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libpoi_tpu_torch_{h.hexdigest()[:16]}.so"

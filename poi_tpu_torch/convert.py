@@ -59,8 +59,9 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
 
 
 def params_to_numpy(model: torch.nn.Module):
-    """The port's parameters → a ``poi_tpu``-layout tree of numpy arrays."""
-    flat = {k.replace(".", "/"): v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    """The port's parameters → a ``poi_tpu``-layout tree of numpy arrays,
+    copies (on the CPU ``.numpy()`` would alias the live parameters)."""
+    flat = {k.replace(".", "/"): np.array(v.detach().cpu()) for k, v in model.state_dict().items()}
     return unflatten(flat)
 
 
@@ -97,6 +98,26 @@ def adam_state_to_numpy(opt_state: dict) -> dict:
         return unflatten({k.replace(".", "/"): v.detach().cpu().numpy() for k, v in d.items()})
 
     return {"count": int(opt_state["count"]), "mu": tree(opt_state["mu"]), "nu": tree(opt_state["nu"])}
+
+
+def sparse_adam_state_from_jax(opt_state, device="cpu") -> dict:
+    """``poi_tpu``'s lazy-Adam ``SparseAdamState(count, m, v)`` → the port's
+    ``train.sparse_opt.SparseTableOptimizer`` state."""
+    if not all(hasattr(opt_state, f) for f in ("count", "m", "v")):
+        raise ValueError("not a SparseAdamState (count, m, v)")
+    return {
+        "count": int(np.asarray(opt_state.count)),
+        "m": {k: v.to(device) for k, v in params_from_jax(opt_state.m).items()},
+        "v": {k: v.to(device) for k, v in params_from_jax(opt_state.v).items()},
+    }
+
+
+def sparse_adam_state_to_numpy(opt_state: dict) -> dict:
+    """The port's lazy-Adam state → ``{"count", "m", "v"}`` with the
+    moments as ``poi_tpu``-layout trees of numpy arrays, the fields of
+    ``SparseAdamState``."""
+    tree = adam_state_to_numpy({"count": opt_state["count"], "mu": opt_state["m"], "nu": opt_state["v"]})
+    return {"count": tree["count"], "m": tree["mu"], "v": tree["nu"]}
 
 
 def save_npz(path, tree) -> None:

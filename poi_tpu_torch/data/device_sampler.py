@@ -17,9 +17,10 @@ from poi_tpu.data.dataset import Examples
 from poi_tpu.data.pipeline import Batch
 
 
-def step_seed(seed: int, step: int) -> int:
-    """A 63-bit generator seed that depends only on (seed, step)."""
-    return int(np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0] >> 1)
+def step_seed(seed: int, step: int, *stream: int) -> int:
+    """A 63-bit generator seed that depends only on (seed, step) and, for
+    the trainer's other draws, a stream number."""
+    return int(np.random.SeedSequence((seed, step, *stream)).generate_state(1, np.uint64)[0] >> 1)
 
 
 class DeviceSampler:

@@ -20,6 +20,7 @@ from poi_tpu.data.pipeline import Batch
 from poi_tpu.utils.config import Config
 from poi_tpu_torch.eval.evaluate import make_topk_fn, prepare_catalog
 from poi_tpu_torch.models.base import batch_to
+from poi_tpu_torch.ops.topk import MAX_K, NEG
 
 log = logging.getLogger(__name__)
 
@@ -42,6 +43,9 @@ class Recommender:
         self.ds = dataset
         self.T = dataset.max_seq_len
         self._prep = prepare_catalog(model, cfg, dataset.poi_counts)
+        if self._prep.id_map is not None:  # catalog id -> row of the prepared table
+            self._kernel_row = np.empty_like(self._prep.id_map)
+            self._kernel_row[self._prep.id_map] = np.arange(len(self._prep.id_map))
 
     @property
     def device(self) -> torch.device:
@@ -128,31 +132,49 @@ class Recommender:
         max_hist = max(len(h) for h in histories)
         needed = k + (max_hist if exclude_visited else 0)
         # Over-fetch to the next power of two (capped at the catalog): the
-        # visited filter below needs k + max_hist candidates at most.
+        # visited filter below needs k + max_hist candidates at most. The
+        # top-k kernel takes k <= 128, so with T = 128 histories (config #4)
+        # the fetch is capped there and rows left short are scored again.
         fetch = min(1 << (needed - 1).bit_length(), int(self._prep.table.shape[0]))
-        topk_fn = make_topk_fn(self.model, self.cfg, fetch)
-        ids = topk_fn(self._prep.table, self._prep.bias, batch_to(batch, self.device)).cpu().numpy()
-        if self._prep.id_map is not None:
-            ids = self._prep.id_map[ids]
-        return self._finalize(ids, histories, k, exclude_visited)
-
-    @staticmethod
-    def _finalize(ids: np.ndarray, histories: list[list[Checkin]], k: int, exclude_visited: bool) -> np.ndarray:
-        """Per-row visited filter. The over-fetch guarantees >= k unvisited
-        survivors whenever the catalog has them; otherwise the short row's
-        remaining slots are -1, never a repeated or visited POI."""
-        if not exclude_visited:
-            return ids[:, :k]
-        out = np.full((len(histories), k), -1, np.int32)
-        short = 0
-        for b, hist in enumerate(histories):
-            visited = {c.poi for c in hist}
-            picked = [i for i in ids[b] if i not in visited][:k]
-            short += len(picked) < k
-            out[b, : len(picked)] = picked
+        if self.cfg.eval.topk_impl == "pallas":
+            fetch = min(fetch, MAX_K)
+        out = self._finalize(self._top_ids(batch, self._prep.bias, fetch), histories, k, exclude_visited)
+        if fetch < needed:
+            for b in np.flatnonzero((out == -1).any(axis=1)):
+                out[b] = self._rescore_unvisited(batch, histories[b], b, k)
+        short = int((out == -1).any(axis=1).sum())
         if short:
             log.warning(
                 "%d/%d request rows have fewer than k=%d unvisited POIs in the "
                 "catalog; short rows are padded with -1", short, len(histories), k,
             )
+        return out
+
+    def _top_ids(self, batch: Batch, bias: torch.Tensor, k: int) -> np.ndarray:
+        """[B, k] catalog ids of the best-scoring POIs under ``bias``."""
+        ids = make_topk_fn(self.model, self.cfg, k)(self._prep.table, bias, batch_to(batch, self.device)).cpu().numpy()
+        return ids if self._prep.id_map is None else self._prep.id_map[ids]
+
+    def _rescore_unvisited(self, batch: Batch, history: list[Checkin], b: int, k: int) -> np.ndarray:
+        """Row ``b`` scored alone with its visited POIs masked out of the
+        bias: the exact top-k of its unvisited POIs."""
+        visited = np.fromiter({c.poi for c in history}, np.int64)
+        rows = visited if self._prep.id_map is None else self._kernel_row[visited]
+        bias = self._prep.bias.clone()
+        bias[torch.from_numpy(rows).to(bias.device)] = NEG
+        ids = self._top_ids(Batch(*(a[b:b + 1] for a in batch)), bias, k)
+        return self._finalize(ids, [history], k, True)[0]
+
+    @staticmethod
+    def _finalize(ids: np.ndarray, histories: list[list[Checkin]], k: int, exclude_visited: bool) -> np.ndarray:
+        """Per-row visited filter: the first k unvisited ids of each row, -1
+        in the slots of a row that has fewer; never a repeated or visited
+        POI."""
+        if not exclude_visited:
+            return ids[:, :k]
+        out = np.full((len(histories), k), -1, np.int32)
+        for b, hist in enumerate(histories):
+            visited = {c.poi for c in hist}
+            picked = [i for i in ids[b] if i not in visited][:k]
+            out[b, : len(picked)] = picked
         return out

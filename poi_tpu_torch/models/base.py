@@ -95,6 +95,16 @@ def init_embed_params(gen: torch.Generator, cfg: ModelConfig, dims: DataDims) ->
     return p
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate). The identity without a generator (eval) or
+    at rate 0, so one ``queries`` call serves train and eval."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 def init_linear(gen: torch.Generator, n_in: int, n_out: int) -> dict[str, torch.Tensor]:
     return {"kernel": _normal(gen, (n_in, n_out), (1.0 / n_in) ** 0.5), "bias": torch.zeros(n_out)}
 
@@ -173,16 +183,15 @@ class SequenceModel(nn.Module):
     def device(self) -> torch.device:
         return self.embed["poi"].device
 
-    def queries(self, batch: Batch) -> torch.Tensor:
+    def queries(self, batch: Batch, generator: torch.Generator | None = None) -> torch.Tensor:
         """[B, T, D] fp32 scoring queries at every position, the training
         path: embed → tower → projection → user add. ``batch`` holds tensors
-        on the model's device (``batch_to``)."""
-        if self.cfg.dropout > 0.0:
-            raise NotImplementedError(
-                f"model.dropout={self.cfg.dropout}: dropout comes with the configs #3/#4 slice of the port"
-            )
-        x = input_embeddings(self.embed, batch, self.cfg)
-        h = self.tower(x, batch.mask)
+        on the model's device (``batch_to``). With a ``generator`` (on the
+        model's device), ``model.dropout`` drops out the summed input
+        embeddings and the tower output, in that order, as ``poi_tpu``
+        does; without one the path is deterministic."""
+        x = dropout(input_embeddings(self.embed, batch, self.cfg), self.cfg.dropout, generator)
+        h = dropout(self.tower(x, batch.mask), self.cfg.dropout, generator)
         q = linear(self.proj, h, compute_dtype(self.cfg)) if self.proj is not None else h
         return add_user_query(q.float(), self.embed, batch, self.cfg)
 
@@ -204,9 +213,10 @@ class SequenceModel(nn.Module):
 
 
 def build_model(cfg: ModelConfig, dims: DataDims, device=None, generator: torch.Generator | None = None):
+    from poi_tpu_torch.models.attention import AttentionModel
     from poi_tpu_torch.models.gru import GRUModel
 
-    registry = {"gru": GRUModel}
+    registry = {"gru": GRUModel, "attention": AttentionModel}
     if cfg.kind not in registry:
         raise KeyError(f"model kind {cfg.kind!r} is not ported yet: have {sorted(registry)}")
     return registry[cfg.kind](cfg, dims, device=device, generator=generator)

@@ -17,6 +17,10 @@ kernels':
 - backward: the gates are recomputed from ``hs``; every cotangent stays
   fp32 (``dh @ whᵀ`` with wh widened from bf16), and ``dwh`` sums
   ``h_prevᵀ · dhw`` over batch and time in fp32.
+
+The kernels keep bf16 ``wh`` in shared memory: one block holds it up to
+H = 196, and above that its columns are split across a cluster of 2, 4 or 8
+blocks (H = 256 for config #4, 512 for config #5).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 from poi_tpu_torch import _build
 
 MASK_NEG = -1e9
-MAX_SMEM_BYTES = 232_448  # the most shared memory one Hopper block may use
+TAKES_H = "H <= 196 in one block, or H <= 544 split evenly across a cluster of 2, 4 or 8 blocks"
 
 
 def gru_scan_reference(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
@@ -70,12 +74,8 @@ def fused_gru_scan(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
     B, T, H3 = xw.shape
     H = H3 // 3
     lib = _build.library()
-    smem = lib.gru_fwd_smem_bytes(H)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"fused_gru_scan: H={H} needs {smem} bytes of shared memory for bf16 wh, more than the "
-            f"{MAX_SMEM_BYTES} a Hopper block has (H <= 196 fits); splitting wh across a cluster is not built yet"
-        )
+    if lib.gru_fwd_cluster_size(H) == 0:
+        raise ValueError(f"fused_gru_scan: H={H} is not taken by the kernels: {TAKES_H}")
     xw = xw.contiguous()
     wh = wh.contiguous()
     hs = torch.empty(B, T, H, dtype=torch.float32, device=xw.device)
@@ -145,10 +145,8 @@ def fused_gru_bwd(xw: torch.Tensor, wh: torch.Tensor, hs: torch.Tensor, dhs: tor
         raise TypeError(f"fused_gru_bwd: need wh bfloat16 and xw, hs, dhs float32; got "
                         f"{[t.dtype for t in tensors]}")
     lib = _build.library()
-    smem = lib.gru_bwd_smem_bytes(H)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"fused_gru_bwd: H={H} needs {smem} bytes of shared memory, more than the "
-                         f"{MAX_SMEM_BYTES} a Hopper block has (H <= 196 fits)")
+    if lib.gru_bwd_cluster_size(H) == 0:
+        raise ValueError(f"fused_gru_bwd: H={H} is not taken by the kernels: {TAKES_H}")
     dev = xw.device
     dxw = torch.empty(B, T, H3, dtype=torch.float32, device=dev)
     dwh = torch.empty(H, H3, dtype=torch.float32, device=dev)

@@ -1,0 +1,189 @@
+"""Sampled softmax over one negative pool shared by every row, without
+storing the [N, S] logits: the CUDA kernels of ``csrc/sampled.cu``, their
+plain PyTorch versions, and the autograd ``Function`` around them.
+
+Counterpart of ``poi_tpu/ops/fused_sampled.py``. Contract, the same as the
+TPU kernels':
+
+- negative logits ``z = q · e_negᵀ + b_neg`` from bf16-rounded ``q [N, D]``
+  and ``e_neg [S, D]`` with fp32 sums; ``b_neg [S]`` carries the logQ
+  correction; ``z = -1e30`` where a pool id equals the row's target (an
+  accidental hit);
+- forward (``sampled_lse``): ``lse_neg [N]``; outside the kernel, in plain
+  fp32, ``lse_tot = logaddexp(lse_neg, s_pos)`` and ``nll = lse_tot - s_pos``;
+- backward (``sampled_bwd``): ``gp = exp(z - lse_tot) · g`` in fp32, rounded
+  to bf16 for ``dq = gp · e_neg`` and ``de_neg = gpᵀ · q``;
+  ``db_neg = colsum(gp)`` from the unrounded ``gp``. The positive column's
+  gradient ``ds_pos = g · (exp(s_pos - lse_tot) - 1)`` stays outside.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from poi_tpu_torch import _build
+from poi_tpu_torch.models.base import lookup
+
+NEG = -1e30
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def log_q(num_sampled: int, num_pois: int) -> float:
+    """The logQ correction log(S/V) of uniform sampling with replacement,
+    taken in float32 as the TPU package takes it."""
+    return float(np.log(np.float32(num_sampled / num_pois)))
+
+
+def sampled_logits_reference(q, e_neg, b_neg, neg_ids, targets) -> torch.Tensor:
+    """[N, S] fp32 masked negative logits."""
+    z = _bf16(q) @ _bf16(e_neg).T + b_neg.float()
+    return torch.where(neg_ids[None, :] == targets[:, None], NEG, z)
+
+
+def sampled_lse_reference(q, e_neg, b_neg, neg_ids, targets) -> torch.Tensor:
+    """Plain PyTorch version of ``sampled_lse``: [N] fp32."""
+    return torch.logsumexp(sampled_logits_reference(q, e_neg, b_neg, neg_ids, targets), dim=1)
+
+
+def sampled_bwd_reference(q, e_neg, b_neg, neg_ids, targets, lse_tot, g):
+    """Plain PyTorch version of ``sampled_bwd``: ``(dq [N, D], de_neg [S, D],
+    db_neg [S])`` fp32, with the kernels' rounding points."""
+    z = sampled_logits_reference(q, e_neg, b_neg, neg_ids, targets)
+    gp = torch.exp(z - lse_tot.float()[:, None]) * g.float()[:, None]
+    gpb = _bf16(gp)
+    return gpb @ _bf16(e_neg), gpb.T @ _bf16(q), gp.sum(dim=0)
+
+
+def _check(name: str, tensors: dict[str, torch.Tensor]) -> bool:
+    """True when every tensor lies on the CPU (the plain versions run); False
+    when all lie on one CUDA device and the kernel may launch; raises
+    otherwise."""
+    devices = {t.device for t in tensors.values()}
+    if devices == {torch.device("cpu")}:
+        return True
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}; need all on one CUDA device")
+    D = tensors["q"].shape[1]
+    if not _build.library().sampled_supports_dim(D):
+        raise ValueError(f"{name}: the kernels are built for D in (64, 128, 256), got D={D}")
+    return False
+
+
+def _shapes(name, q, e_neg, b_neg, neg_ids, targets, *rows):
+    N, D = q.shape
+    S = e_neg.shape[0]
+    if (e_neg.shape != (S, D) or b_neg.shape != (S,) or neg_ids.shape != (S,) or targets.shape != (N,) or S == 0
+            or any(r.shape != (N,) for r in rows)):
+        raise ValueError(f"{name}: need q [N,D], e_neg [S,D], b_neg, neg_ids [S], targets and row values [N], S > 0; "
+                         f"got {[tuple(t.shape) for t in (q, e_neg, b_neg, neg_ids, targets, *rows)]}")
+    return N, S, D
+
+
+def _kernel_args(q, e_neg, b_neg, neg_ids, targets):
+    return (q.to(torch.bfloat16).contiguous(), e_neg.to(torch.bfloat16).contiguous(), b_neg.float().contiguous(),
+            neg_ids.to(torch.int32).contiguous(), targets.to(torch.int32).contiguous())
+
+
+def sampled_lse(q, e_neg, b_neg, neg_ids, targets) -> torch.Tensor:
+    """[N] fp32 log-sum-exp of each row's masked negative logits.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel or
+    raise; ``sampled_lse.launches`` counts the launches.
+    """
+    N, S, D = _shapes("sampled_lse", q, e_neg, b_neg, neg_ids, targets)
+    if _check("sampled_lse", {"q": q, "e_neg": e_neg, "b_neg": b_neg, "neg_ids": neg_ids, "targets": targets}):
+        return sampled_lse_reference(q, e_neg, b_neg, neg_ids, targets)
+    lse = torch.empty(N, dtype=torch.float32, device=q.device)
+    if N == 0:
+        return lse
+    args = _kernel_args(q, e_neg, b_neg, neg_ids, targets)
+    dev = q.device
+    rc = _build.library().sampled_lse(*(a.data_ptr() for a in args), lse.data_ptr(), N, S, D, dev.index,
+                                      torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "sampled_lse launch")
+    sampled_lse.launches += 1
+    return lse
+
+
+sampled_lse.launches = 0
+
+
+def sampled_bwd(q, e_neg, b_neg, neg_ids, targets, lse_tot, g):
+    """``(dq [N, D], de_neg [S, D], db_neg [S])`` fp32 of ``sum_n g[n] ·
+    lse_tot[n]`` through the negative columns.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernels (dq,
+    the chunked dE/db pass and its ordered reduce) or raise;
+    ``sampled_bwd.launches`` counts the calls that launched them.
+    """
+    N, S, D = _shapes("sampled_bwd", q, e_neg, b_neg, neg_ids, targets, lse_tot, g)
+    if _check("sampled_bwd", {"q": q, "e_neg": e_neg, "b_neg": b_neg, "neg_ids": neg_ids, "targets": targets,
+                              "lse_tot": lse_tot, "g": g}):
+        return sampled_bwd_reference(q, e_neg, b_neg, neg_ids, targets, lse_tot, g)
+    dev = q.device
+    dq = torch.empty(N, D, dtype=torch.float32, device=dev)
+    de = torch.empty(S, D, dtype=torch.float32, device=dev)
+    db = torch.empty(S, dtype=torch.float32, device=dev)
+    if N == 0:
+        return dq, de.zero_(), db.zero_()
+    lib = _build.library()
+    args = _kernel_args(q, e_neg, b_neg, neg_ids, targets)
+    l32, g32 = lse_tot.float().contiguous(), g.float().contiguous()
+    splits = lib.sampled_bwd_splits(N, S, D)
+    de_part = torch.empty(splits, S, D, dtype=torch.float32, device=dev)  # scratch: per-chunk partial sums
+    db_part = torch.empty(splits, S, dtype=torch.float32, device=dev)
+    rc = lib.sampled_bwd(*(a.data_ptr() for a in args), l32.data_ptr(), g32.data_ptr(), dq.data_ptr(),
+                         de_part.data_ptr(), db_part.data_ptr(), de.data_ptr(), db.data_ptr(), N, S, D, dev.index,
+                         torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "sampled_bwd launch")
+    sampled_bwd.launches += 1
+    return dq, de, db
+
+
+sampled_bwd.launches = 0
+
+
+class SampledNLL(torch.autograd.Function):
+    """Per-row sampled-softmax NLL, the counterpart of ``sampled_nll_rows``'s
+    custom VJP: differentiable in ``q``, ``e_neg``, ``b_neg`` and ``s_pos``;
+    the ids only mask hits."""
+
+    @staticmethod
+    def forward(ctx, q, e_neg, b_neg, s_pos, targets, neg_ids):
+        q, e_neg, b_neg, s_pos = q.detach(), e_neg.detach(), b_neg.detach(), s_pos.detach().float()
+        lse_tot = torch.logaddexp(sampled_lse(q, e_neg, b_neg, neg_ids, targets), s_pos)
+        ctx.save_for_backward(q, e_neg, b_neg, s_pos, targets, neg_ids, lse_tot)
+        return lse_tot - s_pos
+
+    @staticmethod
+    def backward(ctx, g):
+        q, e_neg, b_neg, s_pos, targets, neg_ids, lse_tot = ctx.saved_tensors
+        g = g.float().contiguous()
+        dq, de, db = sampled_bwd(q, e_neg, b_neg, neg_ids, targets, lse_tot, g)
+        ds_pos = g * (torch.exp(s_pos - lse_tot) - 1.0)
+        return dq, de, db, ds_pos, None, None
+
+
+def sampled_nll_rows(q, e_neg, b_neg, s_pos, targets, neg_ids) -> torch.Tensor:
+    """[N] fp32 ``logaddexp(LSE(masked s_neg), s_pos) - s_pos``."""
+    return SampledNLL.apply(q, e_neg, b_neg, s_pos, targets, neg_ids)
+
+
+def fused_sampled_softmax_loss(q, table, bias, targets, mask, neg, num_sampled: int, num_pois: int) -> torch.Tensor:
+    """Masked-mean sampled softmax over [B, T, D] queries with the pool
+    ``neg [S]``, the counterpart of ``fused_sampled_softmax_loss``. The
+    table and bias rows are gathered in plain torch, so their gradients
+    scatter back through autograd."""
+    B, T, D = q.shape
+    e_neg = lookup(table, neg)
+    b_neg = lookup(bias[:, None], neg)[:, 0] - log_q(num_sampled, num_pois)
+    q2 = q.reshape(B * T, D)
+    t1 = targets.reshape(-1)
+    s_pos = (q2.float() * lookup(table, t1).float()).sum(dim=1) + lookup(bias[:, None], t1)[:, 0]
+    nll = sampled_nll_rows(q2, e_neg, b_neg, s_pos, t1, neg)
+    m = mask.reshape(-1).float()
+    return (nll * m).sum() / m.sum().clamp_min(1.0)

@@ -1,11 +1,18 @@
-"""The training loop on one device, counterpart of the single-device dense
-path of ``poi_tpu/train/loop.py``.
+"""The training loop on one device, counterpart of the single-device path
+of ``poi_tpu/train/loop.py``.
 
 ``Trainer`` owns the model, the loss and the optimizer. A step runs the
-queries, the loss and its backward through autograd (the GRU and CE kernels
-on a CUDA device, their plain versions on the CPU), then the optimizer
-updates the parameters in place. ``train`` drives it from the host
-``TrainLoader`` or from the ``DeviceSampler`` (``data.sampler=device``).
+queries, the loss and its backward through autograd (the GRU, CE and
+sampled-softmax kernels on a CUDA device, their plain versions on the CPU),
+then the optimizer updates the parameters in place: dense Adam (or
+adagrad/sgd), or lazy Adam on the tables (``train.table_update=sparse``).
+``train`` drives it from the host ``TrainLoader`` or from the
+``DeviceSampler`` (``data.sampler=device``).
+
+A step's random draws come from generators on the device keyed by
+``(seed, step, stream)``, so a step draws the same numbers whenever it runs:
+the sampled-softmax pool (drawn once, handed to the loss and to lazy Adam's
+touched rows) and, only when ``model.dropout > 0``, the dropout masks.
 """
 
 from __future__ import annotations
@@ -23,10 +30,15 @@ from poi_tpu.data.dataset import Dataset
 from poi_tpu.data.pipeline import Batch, make_train_loader
 from poi_tpu.utils.config import Config
 from poi_tpu_torch.convert import params_from_jax
-from poi_tpu_torch.data.device_sampler import DeviceSampler
+from poi_tpu_torch.data.device_sampler import DeviceSampler, step_seed
 from poi_tpu_torch.models import base as model_base
-from poi_tpu_torch.train.losses import build_loss_fn
+from poi_tpu_torch.train import sparse_opt
+from poi_tpu_torch.train.losses import build_loss_fn, draw_sampled_negatives
 from poi_tpu_torch.train.state import TrainState, global_norm, make_optimizer
+
+# Generator streams of a step's key (seed, step, stream).
+NEGATIVES_STREAM = 1
+DROPOUT_STREAM = 2
 
 log = logging.getLogger(__name__)
 
@@ -42,26 +54,49 @@ class Trainer:
     device: Any = "cpu"
     sampler: DeviceSampler | None = None  # batches drawn on the device (data.sampler=device)
     loss_override: Callable | None = None
+    # step -> the [S] negative pool of that step; None draws it from the
+    # step's generator. A test replays poi_tpu's draws through it.
+    negatives: Callable[[int], torch.Tensor] | None = None
     model: Any = field(init=False)
 
     def __post_init__(self):
         cfg = self.cfg
         if self.loss_override is not None:
             raise NotImplementedError("loss_override (an injected sharded loss) comes with the multi-GPU layer")
-        if cfg.train.table_update == "sparse":
-            raise NotImplementedError("train.table_update='sparse' (lazy Adam) is not ported yet")
-        if cfg.train.table_update != "dense":
+        if cfg.train.table_update not in ("dense", "sparse"):
             raise ValueError(f"unknown train.table_update {cfg.train.table_update!r}")
         if cfg.mesh.model > 1:
             raise NotImplementedError(f"mesh.model={cfg.mesh.model}: vocab-sharded tables come with the multi-GPU layer")
+        if sparse_opt.rows_mode_enabled(cfg, self.dims, n_model=1):
+            raise NotImplementedError(
+                "train.table_update='sparse' on a tied table above "
+                f"{sparse_opt.DENSE_LAZY_MAX_BYTES} bytes takes poi_tpu's rows-gradient step, "
+                f"not ported yet ({sparse_opt.ROWS_MODE_TODO})"
+            )
         # fp32 products stay fp32 on the card (no TF32), as the reference's.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.device = torch.device(self.device)
         gen = torch.Generator().manual_seed(cfg.train.seed)
         self.model = model_base.build_model(cfg.model, self.dims, device=self.device, generator=gen)
-        self.loss_fn = build_loss_fn(cfg.loss, self.dims.num_pois)
-        self.optimizer = make_optimizer(cfg.train)
+        self.loss_fn = build_loss_fn(cfg.loss, self.dims.num_pois, cfg.model.embed_dim)
+        self.sparse = cfg.train.table_update == "sparse"
+        self.optimizer = sparse_opt.SparseTableOptimizer(cfg) if self.sparse else make_optimizer(cfg.train)
+        self._gen = {s: torch.Generator(device=self.device) for s in (NEGATIVES_STREAM, DROPOUT_STREAM)}
+
+    def generator(self, step: int, stream: int) -> torch.Generator:
+        """The device generator of ``stream``, seeded for ``step``."""
+        return self._gen[stream].manual_seed(step_seed(self.cfg.train.seed, step, stream))
+
+    def draw_negatives(self, step: int) -> torch.Tensor | None:
+        """The step's sampled-softmax pool (None for the other losses)."""
+        loss = self.cfg.loss
+        if loss.kind != "sampled_softmax":
+            return None
+        if self.negatives is not None:
+            return self.negatives(step).to(self.device)
+        return draw_sampled_negatives(self.generator(step, NEGATIVES_STREAM), loss.num_sampled, self.dims.num_pois,
+                                      self.device)
 
     def init_state(self, tree=None) -> TrainState:
         """Step 0 with the model's parameters (``poi_tpu``'s init scales from
@@ -71,10 +106,15 @@ class Trainer:
         params = dict(self.model.named_parameters())
         return TrainState(0, params, self.optimizer.init(params))
 
-    def loss(self, batch: Batch) -> torch.Tensor:
-        q = self.model.queries(batch)
+    def loss(self, batch: Batch, neg: torch.Tensor | None = None,
+             dropout: torch.Generator | None = None) -> torch.Tensor:
+        """The objective on ``batch``: ``neg`` is the step's negative pool
+        (sampled softmax), ``dropout`` the generator of its dropout masks."""
+        q = self.model.queries(batch, dropout)
         table, bias = model_base.output_table(self.model.embed, self.cfg.model)
-        return self.loss_fn(q, table, bias, batch.poi_tgt, batch.mask)
+        if neg is None:
+            return self.loss_fn(q, table, bias, batch.poi_tgt, batch.mask)
+        return self.loss_fn(q, table, bias, batch.poi_tgt, batch.mask, neg)
 
     def step(self, state: TrainState, batch: Batch) -> tuple[TrainState, dict]:
         """One train step on a host (numpy) or device batch. The parameter
@@ -86,15 +126,20 @@ class Trainer:
         params = state.params
         for p in params.values():
             p.grad = None
-        loss = self.loss(batch)
+        neg = self.draw_negatives(state.step)
+        drop = self.generator(state.step, DROPOUT_STREAM) if self.cfg.model.dropout > 0.0 else None
+        loss = self.loss(batch, neg, drop)
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p) for k, p in params.items()}
         train = self.cfg.train
         is_log_step = (state.step + 1) % max(1, train.log_every) == 0 or state.step + 1 == train.num_steps
         zero = torch.zeros((), device=self.device)
-        grad_norm = global_norm(grads.values()) if is_log_step else zero
         lr = self.optimizer.lr(state.opt_state["count"])
-        self.optimizer.update(grads, state.opt_state, params)
+        if self.sparse:  # lazy Adam computes the exact global norm for its clip: reported every step
+            grad_norm = self.optimizer.update(grads, state.opt_state, params, sparse_opt.touched_ids(batch, neg))
+        else:
+            grad_norm = global_norm(grads.values()) if is_log_step else zero
+            self.optimizer.update(grads, state.opt_state, params)
         for p in params.values():
             p.grad = None
         with torch.no_grad():

@@ -1,19 +1,22 @@
 """Training objectives, counterpart of ``poi_tpu/train/losses.py``.
 
 Losses take ``q [B, T, D]`` queries, the output ``table [V, D]`` + ``bias
-[V]``, targets and the validity ``mask [B, T]``, and reduce to a masked mean.
-Logits use bf16 operands with fp32 sums; the softmax is fp32.
+[V]``, targets and the validity ``mask [B, T]``, and reduce to a masked mean;
+sampled softmax also takes the step's negative pool ``neg [S]``. Logits use
+bf16 operands with fp32 sums; the softmax is fp32.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 
 from poi_tpu.utils.config import LossConfig
-from poi_tpu_torch.models.base import matmul_fp32
+from poi_tpu_torch.models.base import lookup, matmul_fp32
 from poi_tpu_torch.ops.fused_ce import fused_ce_loss
+from poi_tpu_torch.ops.fused_sampled import NEG, fused_sampled_softmax_loss, log_q
 
 # Catalogs below this size take the dense CE, as in the TPU package
 # (``poi_tpu/train/losses.py:163``). Kept at the TPU's value; PERF.md records
@@ -46,13 +49,43 @@ def ce_loss(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, targets: t
     return _masked_mean(nll, mask)
 
 
-def build_loss_fn(cfg: LossConfig, num_pois: int) -> Callable:
-    """loss(q, table, bias, targets, mask) -> scalar.
+def draw_sampled_negatives(generator: torch.Generator, num_sampled: int, num_pois: int, device) -> torch.Tensor:
+    """The shared negative pool: ``num_sampled`` ids drawn uniformly with
+    replacement from ``[0, num_pois)``. The trainer draws it once a step and
+    hands the same ids to the loss and to the lazy-Adam touched rows."""
+    return torch.randint(0, num_pois, (num_sampled,), generator=generator, device=device)
+
+
+def sampled_nll(q, e_neg, b_neg, s_pos, targets, neg, num_sampled: int, num_pois: int) -> torch.Tensor:
+    """[B, T] sampled-softmax NLL from gathered rows, the plain version
+    (``poi_tpu``'s ``sampled_nll_xla``): bf16 negative logits with fp32
+    sums, the logQ correction, accidental hits masked to -1e30, and the
+    positive column folded in by ``logaddexp``; autograd differentiates it."""
+    s_neg = matmul_fp32(q, e_neg.T, torch.bfloat16) + b_neg
+    hit = neg == targets[..., None]
+    s_neg = torch.where(hit, NEG, s_neg - log_q(num_sampled, num_pois))
+    return torch.logaddexp(torch.logsumexp(s_neg, dim=-1), s_pos) - s_pos
+
+
+def sampled_softmax_loss(q, table, bias, targets, mask, neg, num_sampled: int, num_pois: int) -> torch.Tensor:
+    """Sampled softmax with the shared pool ``neg``, the plain path."""
+    e_pos = lookup(table, targets)
+    s_pos = (q.float() * e_pos.float()).sum(dim=-1) + lookup(bias[:, None], targets)[..., 0]
+    nll = sampled_nll(q, lookup(table, neg), lookup(bias[:, None], neg)[:, 0], s_pos, targets, neg, num_sampled,
+                      num_pois)
+    return _masked_mean(nll, mask)
+
+
+def build_loss_fn(cfg: LossConfig, num_pois: int, embed_dim: int | None = None) -> Callable:
+    """loss(q, table, bias, targets, mask) -> scalar; sampled softmax takes
+    the step's negative pool as a sixth argument.
 
     CE takes ``fused_ce_loss`` (the CUDA kernels on CUDA tensors, their plain
     versions on CPU tensors) as the TPU package dispatches it: unless
     ``impl == "xla"``, the catalog is below ``FUSED_CE_MIN_VOCAB`` or label
-    smoothing is on.
+    smoothing is on. Sampled softmax takes ``fused_sampled_softmax_loss``
+    unless ``impl == "xla"``, when ``num_sampled >= 128`` and ``embed_dim``
+    is a multiple of 128 (or unknown), or always with ``impl == "fused"``.
     """
     if cfg.kind == "ce":
         if cfg.impl != "xla" and num_pois >= FUSED_CE_MIN_VOCAB and cfg.label_smoothing == 0.0:
@@ -61,7 +94,8 @@ def build_loss_fn(cfg: LossConfig, num_pois: int) -> Callable:
     if cfg.kind == "bpr":
         raise NotImplementedError("loss.kind='bpr' comes with the config #2 slice of the port (LSTM + BPR)")
     if cfg.kind == "sampled_softmax":
-        raise NotImplementedError(
-            "loss.kind='sampled_softmax' comes with the configs #4/#5 slice of the port (attention + sampled softmax)"
-        )
+        shapes_ok = cfg.num_sampled >= 128 and (embed_dim is None or embed_dim % 128 == 0)
+        fused = cfg.impl != "xla" and (shapes_ok or cfg.impl == "fused")
+        fn = fused_sampled_softmax_loss if fused else sampled_softmax_loss
+        return functools.partial(fn, num_sampled=cfg.num_sampled, num_pois=num_pois)
     raise ValueError(f"unknown loss {cfg.kind!r}")

@@ -127,7 +127,7 @@ def test_build_loss_fn_dispatch_matches_the_tpu_package(num_pois, kind, smoothin
     assert (fn is fused_ce_loss) == fused
 
 
-@pytest.mark.parametrize("kind", ["bpr", "sampled_softmax"])
+@pytest.mark.parametrize("kind", ["bpr"])
 def test_unported_losses_raise(kind):
     with pytest.raises(NotImplementedError, match="slice"):
         build_loss_fn(LossConfig(kind=kind), 100)
