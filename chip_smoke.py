@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port: serving config #1, training, and
-config #4.
+configs #2, #3 and #4.
 
     python3 chip_smoke.py          # from the repository root, on a machine with one CUDA card
 
@@ -19,12 +19,20 @@ with its plain PyTorch version on the card. Then it drives the paths:
   batch 64, dropout 0.3, sampled softmax over 1,024 negatives, lazy Adam,
   36,969-POI catalog): 40 device-sampled steps through ``train()`` on both
   paths, ``evaluate()``, ``Recommender`` at request batch 1 and 256 on both
-  paths, and ``python -m poi_tpu_torch train``.
+  paths, and ``python -m poi_tpu_torch train``;
+- config #2 (``lstm_bpr_foursquare``: LSTM 128-d + user embedding, BPR with
+  32 negatives a position, T=64, batch 64, 35,880 POIs) and config #3
+  (``strnn_gowalla``: ST-RNN 128-d, 8 time-gap and 8 distance buckets, user
+  embedding, dropout 0.5, full CE over 36,969 POIs, T=32, batch 64), each the
+  same way as config #4.
 
-It times the kernels, ``recommend`` and both train steps. Any failed phase
-prints its traceback and exits non-zero. The last lines of standard output
-are the card's name and power limit, the kernels' JSON record and
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+It times the kernels against their plain versions (and against a PyTorch
+call that computes the same function, where there is one), ``recommend``
+and the train steps. Any failed phase prints its traceback and exits
+non-zero. The last lines of standard output are the card's name and power
+limit, the kernels' JSON record (each with its least possible time on the
+card, ``bound_ms``) and ``{"ok": true, "device": {...}}``. Imports nothing
+of JAX and nothing of the JAX package ``poi_tpu``.
 """
 
 from __future__ import annotations
@@ -108,6 +116,36 @@ RECALL_TIE_TOL = 1e-3
 # recall@10 of the kernel-trained and the plain-trained model, whose
 # parameters drift apart as above.
 RECALL_PATH_TOL = 1e-2
+# LSTM (config #2's train shape) and RNN (config #3's), the forward at the
+# valid steps, absolute. Kernel and plain version round h to bf16 before the
+# recurrent product and sum exact products in fp32 in different orders; where
+# h straddles a bf16 rounding boundary the two round apart. The LSTM's gates
+# damp such a flip; the RNN's tanh chain has no gate to damp it (two fp32
+# summation orders of the plain version differ by ~4e-4 (LSTM) and ~4e-3 (RNN)
+# at these shapes on the CPU), so its tolerance is wider. A wrong gate, blend
+# or carry moves h by ~1e-1.
+LSTM_TOL = 5e-3
+RNN_TOL = 2e-2
+# Their backward, relative to each output's largest element: kernel and plain
+# version get the same hs (and cs), so the gate recompute rounds the same
+# bf16 h_prev; they differ in fp32 summation order only (4H or H terms a
+# step for dh, B·T for dwh), as the GRU's.
+REC_BWD_TOL = GRU_BWD_TOL
+# (B, T, H): config #2's and config #3's train shapes first, then a ragged
+# batch and a width of two rows a block.
+LSTM_SHAPES = ((64, 64, 128), (7, 64, 128), (33, 16, 64))
+RNN_SHAPES = ((64, 32, 128), (7, 32, 128), (33, 16, 64))
+# Configs #2 and #3 at full width, device-sampled like config #4: the preset
+# and the kernels its train step launches (the recurrence's forward first).
+REC_CONFIGS = {"lstm": ("lstm_bpr_foursquare", ("lstm_fwd", "lstm_bwd")),
+               "strnn": ("strnn_gowalla", ("rnn_fwd", "rnn_bwd", "ce_lse", "ce_bwd"))}
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# the least time a function could take is the larger of its bytes (each input
+# read once, each output written once) over the memory rate and its
+# operations over the peak rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
 # Shapes the training kernels are timed at: the bench workload's GRU
 # (B, T, H) and CE (N = B*T, V, D), and the dense-vs-fused CE cases around the
 # 8,192 threshold (config #1's shape, then the bench shape at both catalogs).
@@ -116,10 +154,11 @@ CE_TRAIN_SHAPE = (32768, 44170, 128)
 CE_THRESHOLD_CASES = ((2048, 6749, 64), (32768, 6749, 128), (32768, 44170, 128))
 # Config #4 at full width: GRU + attention 256-d, T=128, batch 64, dropout
 # 0.3, sampled softmax (S=1,024), lazy Adam, 36,969 POIs. The device sampler
-# draws its batches; its step is timed over chunks of ATTN_TIME_CHUNK steps.
+# draws its batches (configs #2 and #3 too); each config's step is timed over
+# chunks of STEP_TIME_CHUNK steps.
 ATTN_CONFIG = "attention_gowalla"
-ATTN_OVERRIDES = {"data.sampler": "device", "train.steps_per_call": str(TRAIN_STEPS)}
-ATTN_TIME_CHUNK = 20
+SAMPLER_OVERRIDES = {"data.sampler": "device", "train.steps_per_call": str(TRAIN_STEPS)}
+STEP_TIME_CHUNK = 20
 # The GRU kernels' cluster path (H > 196): config #4's train shape, a ragged
 # batch, and config #5's width.
 GRU_BIG_SHAPES = ((64, 128, 256), (7, 128, 256), (5, 64, 512))
@@ -264,7 +303,7 @@ def gru_phase() -> float:
 def topk_phase() -> float:
     import torch
 
-    from poi_tpu.configs.presets import get_config
+    from poi_tpu_torch.configs.presets import get_config
     from poi_tpu_torch.ops.topk import fused_topk, topk_reference
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
@@ -309,6 +348,34 @@ def topk_phase() -> float:
         assert torch.equal(ids, want_i), f"top-k duplicated rows k={k}: tie order differs"
     log("[topk] duplicated rows: tie order (value desc, id asc) exact for k=10 and k=128")
     return worst
+
+
+def bound(inputs, outputs, bf16_flop: float = 0.0, fp32_flop: float = 0.0) -> dict:
+    """The least time the card could take for a function of ``inputs`` to
+    ``outputs``: bytes at the memory rate or operations at the peak rate of
+    their type (bf16 products on the tensor cores, fp32 ones on the CUDA
+    cores), whichever is larger."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (bf16_flop / BF16_FLOP_PER_S + fp32_flop / FP32_FLOP_PER_S) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def cudnn_ms(kind: str, B: int, T: int, H: int) -> float:
+    """Forward of cuDNN's ``nn.GRU``/``nn.LSTM``/``nn.RNN`` (tanh) in bf16 at
+    the same B, T, H: a yardstick only. It computes more than the kernel (its
+    own input projection and a second bias) and takes no mask; the GRU's gate
+    semantics differ from poi_tpu's. PyTorch keeps bf16 weights out of
+    cuDNN's single weight buffer (``flatten_parameters`` takes fp16/fp32
+    only), so each call also packs the weights into one: the time a bf16
+    user of the module pays."""
+    import torch
+
+    cls = {"gru": torch.nn.GRU, "lstm": torch.nn.LSTM, "rnn": torch.nn.RNN}[kind]
+    mod = cls(H, H, batch_first=True, device=DEV, dtype=torch.bfloat16)
+    x = torch.randn(B, T, H, device=DEV, dtype=torch.bfloat16)
+    with torch.no_grad():
+        return time_ms(lambda: mod(x))
 
 
 def rel_err(got, want) -> float:
@@ -397,11 +464,18 @@ def gru_big_phase() -> dict:
             f"backward rel err dxw {ex:.2e}, dwh {ew:.2e} (tol {GRU_BWD_TOL}); dxw on {n_pad} padded steps "
             f"exactly 0; a second run gives the same bits")
         if (B, T, H) == GRU_BIG_SHAPES[0]:
-            out["fwd_ms"] = (time_ms(lambda: fused_gru_scan(xw, wh)), time_ms(lambda: gru_scan_reference(xw, wh), 5))
-            out["bwd_ms"] = (time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs)),
-                             time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 5))
-            log(f"[time] gru_fwd B={B} T={T} H={H} (cluster): kernel {out['fwd_ms'][0]:.4f} ms, plain "
-                f"{out['fwd_ms'][1]:.4f} ms; gru_bwd kernel {out['bwd_ms'][0]:.4f} ms, plain {out['bwd_ms'][1]:.4f} ms")
+            G = 3 * H
+            out["fwd"] = {"ms": time_ms(lambda: fused_gru_scan(xw, wh)),
+                          "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh), 5),
+                          **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * G)}
+            out["bwd"] = {"ms": time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs)),
+                          "plain_ms": time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 5),
+                          **bound((xw, wh, hs, dhs), fused_gru_bwd(xw, wh, hs, dhs), bf16_flop=2 * B * T * H * G,
+                                  fp32_flop=4 * B * T * H * G)}
+            for d in ("fwd", "bwd"):
+                t = out[d]
+                log(f"[time] gru_{d} B={B} T={T} H={H} (cluster): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                    f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     return out
 
 
@@ -464,15 +538,145 @@ def sampled_phase() -> dict:
         log(f"[sampled] N={N} S={S}{f'+{pad} padded' if pad else ''} D={D}: {hits} hits; lse max err {e_lse:.2e} "
             f"(tol {CE_LSE_TOL}); rel err dq {errs[0]:.2e}, de {errs[1]:.2e} (tol {CE_GRAD_TOL}), db {errs[2]:.2e} "
             f"(tol {CE_DBIAS_TOL}); {len(zero_rows)} hit/padded pool rows exactly 0; a second run gives the same bits")
-        if (N, S, D, pad) == (8192, 1024, 256, 0):
-            out["lse_ms"] = (time_ms(lambda: sampled_lse(q, e, b, ids, tgt)),
-                             time_ms(lambda: sampled_lse_reference(q, e, b, ids, tgt)))
-            out["bwd_ms"] = (time_ms(lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g)),
-                             time_ms(lambda: sampled_bwd_reference(q, e, b, ids, tgt, lse_tot, g)))
-            log(f"[time] sampled_lse N={N} S={S} D={D}: kernel {out['lse_ms'][0]:.4f} ms, plain "
-                f"{out['lse_ms'][1]:.4f} ms; sampled_bwd kernel {out['bwd_ms'][0]:.4f} ms, plain "
-                f"{out['bwd_ms'][1]:.4f} ms")
+        if (N, S, D, V, pad, full_hit) == SAMPLED_CASES[0]:
+            # No single PyTorch call computes the masked pool LSE or its
+            # gradients: no library time.
+            out["lse"] = {"ms": time_ms(lambda: sampled_lse(q, e, b, ids, tgt)),
+                          "plain_ms": time_ms(lambda: sampled_lse_reference(q, e, b, ids, tgt)), "library_ms": None,
+                          **bound((q, e, b, ids, tgt), (lse,), bf16_flop=2 * N * S * D)}
+            out["bwd"] = {"ms": time_ms(lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g)),
+                          "plain_ms": time_ms(lambda: sampled_bwd_reference(q, e, b, ids, tgt, lse_tot, g)),
+                          "library_ms": None,
+                          **bound((q, e, b, ids, tgt, lse_tot, g), got, bf16_flop=6 * N * S * D)}
+            for d in ("lse", "bwd"):
+                t = out[d]
+                log(f"[time] sampled_{d} N={N} S={S} D={D}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; "
+                    f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     return out
+
+
+def recurrence_case(B: int, T: int, H: int, gates: int, gen):
+    """Gate inputs [B, T, gates·H], a ragged [B, T] mask (row 0 full) and
+    bf16 recurrent weights [H, gates·H] at the init scale."""
+    import torch
+
+    x = torch.randn(B, T, gates * H, generator=gen, device=DEV)
+    w = (torch.randn(H, gates * H, generator=gen, device=DEV) / H**0.5).to(torch.bfloat16)
+    lengths = torch.randint(1, T + 1, (B,), generator=gen, device=DEV)
+    lengths[0] = T
+    mask = (torch.arange(T, device=DEV)[None, :] < lengths[:, None]).float()
+    return x, mask, w, lengths
+
+
+def check_recurrence(tag: str, scan, scan_ref, bwd, bwd_ref, x, mask, w, lengths, tol: float) -> dict:
+    """A recurrence kernel pair against its plain versions: the forward at
+    the valid steps (every carry it returns), the carries held exactly
+    through the padded tail, the backward relative to each output's largest
+    element, its input cotangent exactly 0 on padded steps, and the same
+    bits on a second launch of each. Returns the errors and the tensors."""
+    import torch
+
+    B, T = mask.shape
+    carries = scan(x, mask, w)
+    carries = carries if isinstance(carries, tuple) else (carries,)
+    torch.cuda.synchronize()
+    want = scan_ref(x, mask, w)
+    want = want if isinstance(want, tuple) else (want,)
+    valid = mask[:, :, None] > 0
+    fwd_err = max(float(((c - r).abs() * valid).max()) for c, r in zip(carries, want))
+    assert all(torch.isfinite(c).all() for c in carries), f"{tag} B={B} T={T}: non-finite forward"
+    assert fwd_err < tol, f"{tag} B={B} T={T}: max |kernel - plain| at valid steps {fwd_err} >= {tol}"
+    rows = torch.arange(B, device=DEV)
+    for c in carries:
+        last = c[rows, lengths - 1]
+        assert torch.equal(torch.where(valid, last[:, None, :], c), last[:, None, :].expand_as(c)), \
+            f"{tag} B={B} T={T}: a padded step moved a carry"
+    again = scan(x, mask, w)
+    assert all(torch.equal(a, c) for a, c in zip(again if isinstance(again, tuple) else (again,), carries)), \
+        f"{tag} B={B} T={T}: forward run-to-run bits"
+    dhs = torch.randn_like(carries[0])  # nonzero on padded steps too
+    dx, dw = bwd(x, mask, w, *carries, dhs)
+    torch.cuda.synchronize()
+    want_x, want_w = bwd_ref(x, mask, w, *carries, dhs)
+    ex, ew = rel_err(dx, want_x), rel_err(dw, want_w)
+    assert torch.isfinite(dx).all() and torch.isfinite(dw).all(), f"{tag} bwd B={B} T={T}: non-finite"
+    assert ex < REC_BWD_TOL and ew < REC_BWD_TOL, f"{tag} bwd B={B} T={T}: rel err dx {ex}, dw {ew}"
+    pad = dx[mask == 0]
+    assert bool((pad == 0).all()), f"{tag} bwd B={B} T={T}: nonzero input cotangent on a padded step"
+    again = bwd(x, mask, w, *carries, dhs)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw), f"{tag} bwd B={B} T={T}: run-to-run bits"
+    bwd_err = max(float((dx - want_x).abs().max()), float((dw - want_w).abs().max()))
+    log(f"[{tag}] B={B:2d} T={T} H={w.shape[0]}: forward max |kernel - plain| at valid steps {fwd_err:.3e} (tol "
+        f"{tol}), carries exact through {int((mask == 0).sum())} padded steps; backward rel err dx {ex:.2e}, dw "
+        f"{ew:.2e} (tol {REC_BWD_TOL}), dx on padded steps exactly 0; second launches give the same bits")
+    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "carries": carries, "dhs": dhs}
+
+
+def expect_width_limit(fn, *args) -> str:
+    """``fn`` must refuse a hidden width past the kernels' limit and name it."""
+    try:
+        fn(*args)
+    except ValueError as e:
+        assert "H <=" in str(e), str(e)
+        return str(e)
+    raise AssertionError(f"{fn.__name__} took a width past its limit")
+
+
+def recurrence_phase(tag: str, gates: int, shapes, tol: float, ops) -> dict:
+    """B3/B4 (``gates`` = 4) or B5/B6 (1) against their plain versions at
+    ``shapes``; times both directions at the first shape (the config's train
+    shape) against the plain versions and cuDNN's forward, with their bounds.
+    A width past the kernels' limit raises and names it."""
+    import torch
+
+    from poi_tpu_torch import _build
+
+    scan, scan_ref, bwd, bwd_ref = ops
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 8 + gates)
+    out = {"fwd_err": 0.0, "bwd_err": 0.0}
+    for B, T, H in shapes:
+        x, mask, w, lengths = recurrence_case(B, T, H, gates, gen)
+        r = check_recurrence(tag, scan, scan_ref, bwd, bwd_ref, x, mask, w, lengths, tol)
+        out["fwd_err"] = max(out["fwd_err"], r["fwd_err"])
+        out["bwd_err"] = max(out["bwd_err"], r["bwd_err"])
+        if (B, T, H) != shapes[0]:
+            continue
+        carries, dhs = r["carries"], r["dhs"]
+        G = gates * H
+        out["fwd"] = {"ms": time_ms(lambda: scan(x, mask, w)), "plain_ms": time_ms(lambda: scan_ref(x, mask, w), 5),
+                      "library_ms": cudnn_ms("lstm" if gates == 4 else "rnn", B, T, H),
+                      **bound((x, mask, w), carries, bf16_flop=2 * B * T * H * G)}
+        dx_dw = bwd(x, mask, w, *carries, dhs)
+        out["bwd"] = {"ms": time_ms(lambda: bwd(x, mask, w, *carries, dhs)),
+                      "plain_ms": time_ms(lambda: bwd_ref(x, mask, w, *carries, dhs), 5), "library_ms": None,
+                      **bound((x, mask, w, *carries, dhs), dx_dw, bf16_flop=2 * B * T * H * G,
+                              fp32_flop=4 * B * T * H * G)}
+        for d in ("fwd", "bwd"):
+            t = out[d]
+            lib = f", cuDNN forward {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
+            log(f"[time] {tag}_{d} B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms{lib}; "
+                f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    lib = _build.library()
+    H = (lib.lstm_max_hidden if gates == 4 else lib.rnn_max_hidden)() + 1
+    x = torch.zeros(2, 3, gates * H, device=DEV)
+    msg = expect_width_limit(scan, x, torch.ones(2, 3, device=DEV), torch.zeros(H, gates * H, device=DEV,
+                                                                                  dtype=torch.bfloat16))
+    log(f"[{tag}] H={H} refused: {msg}")
+    return out
+
+
+def lstm_phase() -> dict:
+    from poi_tpu_torch.ops.fused_lstm import fused_lstm_bwd, fused_lstm_scan, lstm_bwd_reference, lstm_scan_reference
+
+    return recurrence_phase("lstm", 4, LSTM_SHAPES, LSTM_TOL,
+                            (fused_lstm_scan, lstm_scan_reference, fused_lstm_bwd, lstm_bwd_reference))
+
+
+def rnn_phase() -> dict:
+    from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan, rnn_bwd_reference, rnn_scan_reference
+
+    return recurrence_phase("rnn", 1, RNN_SHAPES, RNN_TOL,
+                            (fused_rnn_scan, rnn_scan_reference, fused_rnn_bwd, rnn_bwd_reference))
 
 
 def gru_params(ds, cfg, seed: int = SEED):
@@ -518,8 +722,8 @@ def histories_from_test(ds, n: int):
 def slice_phase(state):
     import torch
 
-    from poi_tpu.configs.presets import get_config
-    from poi_tpu.data.dataset import load_dataset
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.data.dataset import load_dataset
     from poi_tpu_torch.convert import params_from_jax
     from poi_tpu_torch.eval.serve import Recommender
     from poi_tpu_torch.models.base import DataDims, build_model
@@ -619,11 +823,14 @@ def cli_phase(state) -> None:
 def kernel_wrappers() -> dict:
     from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_lse
     from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan
+    from poi_tpu_torch.ops.fused_lstm import fused_lstm_bwd, fused_lstm_scan
+    from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan
     from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse
     from poi_tpu_torch.ops.topk import fused_topk
 
-    return {"gru_fwd": fused_gru_scan, "gru_bwd": fused_gru_bwd, "ce_lse": ce_lse, "ce_bwd": ce_bwd,
-            "topk": fused_topk, "sampled_lse": sampled_lse, "sampled_bwd": sampled_bwd}
+    return {"gru_fwd": fused_gru_scan, "gru_bwd": fused_gru_bwd, "lstm_fwd": fused_lstm_scan,
+            "lstm_bwd": fused_lstm_bwd, "rnn_fwd": fused_rnn_scan, "rnn_bwd": fused_rnn_bwd, "ce_lse": ce_lse,
+            "ce_bwd": ce_bwd, "topk": fused_topk, "sampled_lse": sampled_lse, "sampled_bwd": sampled_bwd}
 
 
 def reset_launches() -> None:
@@ -635,20 +842,22 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
-def train_both_paths(tag: str, cfg, ds, tree, used: tuple, unused: tuple = ()):
+def train_both_paths(tag: str, cfg, ds, tree, used: tuple, fwd: str = "gru_fwd"):
     """40 device-sampled steps through ``train()``, the loop a user runs, on
     the kernel path and on the plain path (``PLAIN_OVERRIDES``) from the
     params ``tree``; every step a log step, so the history holds each step's
     loss (read once, after the chunk). Compares the per-step losses, checks
-    that the kernel path launched ``used`` and not ``unused`` and the plain
+    that the kernel path launched each kernel of ``used`` and no other, the plain
     path nothing, then ``evaluate()`` on test: the kernel-trained model
-    through the top-k kernel and its plain version, and the plain-trained
-    model. Returns (kernel trainer, the kernel path's launches)."""
+    through the top-k kernel (and the recurrence's forward kernel ``fwd``)
+    and through its plain version, the plain-trained model, and the
+    popularity baseline. Returns (kernel trainer, the kernel path's
+    launches)."""
     import math
 
     import torch
 
-    from poi_tpu_torch.eval.evaluate import evaluate
+    from poi_tpu_torch.eval.evaluate import evaluate, popularity_baseline
     from poi_tpu_torch.train.loop import make_trainer, train
 
     cmp_cfg = cfg.with_overrides({"train.log_every": "1"})
@@ -662,7 +871,7 @@ def train_both_paths(tag: str, cfg, ds, tree, used: tuple, unused: tuple = ()):
     log(f"[{tag}] kernel path, train() over {TRAIN_STEPS} device-sampled steps, launches: {launches}")
     for name in used:
         assert launches[name] > 0, f"{tag}: the training path skipped {name}: {launches}"
-    assert not any(launches[name] for name in unused), f"{tag}: launches {launches}"
+    assert not any(n for name, n in launches.items() if name not in used), f"{tag}: launches {launches}"
     reset_launches()
     _, pst, p_hist = train(plain_cfg, ds, num_steps=TRAIN_STEPS, trainer=plain, state=plain.init_state(tree))
     p_loss = torch.tensor([row["loss"] for row in p_hist], dtype=torch.float64)
@@ -682,14 +891,15 @@ def train_both_paths(tag: str, cfg, ds, tree, used: tuple, unused: tuple = ()):
     reset_launches()
     m_kern = evaluate(kern.model, ds, cfg)
     eval_launches = read_launches()
-    assert eval_launches["topk"] > 0 and eval_launches["gru_fwd"] > 0, f"{tag}: evaluate skipped a kernel: {eval_launches}"
+    assert eval_launches["topk"] > 0 and eval_launches[fwd] > 0, f"{tag}: evaluate skipped a kernel: {eval_launches}"
     m_tie = evaluate(kern.model, ds, cfg.with_overrides({"eval.topk_impl": "xla"}))
     m_plain = evaluate(plain.model, ds, plain_cfg)
     for m in (m_kern, m_tie, m_plain):
         assert all(math.isfinite(v) for v in m.values()), m
     log(f"[{tag}] evaluate on test ({int(m_kern['eval_examples'])} rows): kernel path recall@10 "
         f"{m_kern['recall@10']:.4f} ndcg@10 {m_kern['ndcg@10']:.4f} (launches {eval_launches}); same model, plain "
-        f"top-k {m_tie['recall@10']:.4f}; plain-trained model {m_plain['recall@10']:.4f}")
+        f"top-k {m_tie['recall@10']:.4f}; plain-trained model {m_plain['recall@10']:.4f}; popularity baseline "
+        f"{popularity_baseline(ds)['recall@10']:.4f}")
     assert abs(m_kern["recall@10"] - m_tie["recall@10"]) <= RECALL_TIE_TOL, (m_kern, m_tie)
     assert abs(m_kern["recall@10"] - m_plain["recall@10"]) <= RECALL_PATH_TOL, (m_kern, m_plain)
     return kern, launches
@@ -698,8 +908,8 @@ def train_both_paths(tag: str, cfg, ds, tree, used: tuple, unused: tuple = ()):
 def train_phase(state) -> None:
     import math
 
-    from poi_tpu.configs.presets import get_config
-    from poi_tpu.data.dataset import load_dataset
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.data.dataset import load_dataset
     from poi_tpu_torch.train.loop import make_trainer, train
 
     cfg = get_config("smoke").with_overrides(BENCH_OVERRIDES)
@@ -731,12 +941,12 @@ def attention_train_phase(state) -> None:
     width (dropout 0.3, sampled softmax over 1,024 negatives, lazy Adam on
     the tables); both paths draw the pool and the dropout masks from the
     same step-keyed generators. Then ``evaluate()`` on test."""
-    from poi_tpu.configs.presets import get_config
-    from poi_tpu.data.dataset import load_dataset
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.data.dataset import load_dataset
     from poi_tpu_torch.convert import params_to_numpy
     from poi_tpu_torch.train.loop import make_trainer
 
-    cfg = get_config(ATTN_CONFIG).with_overrides(ATTN_OVERRIDES)
+    cfg = get_config(ATTN_CONFIG).with_overrides(SAMPLER_OVERRIDES)
     t0 = time.perf_counter()
     ds = load_dataset(cfg.data)
     m = cfg.model
@@ -745,25 +955,24 @@ def attention_train_phase(state) -> None:
         f"dropout {m.dropout}, sampled softmax S={cfg.loss.num_sampled}, table_update={cfg.train.table_update} "
         f"(loaded in {time.perf_counter() - t0:.1f} s)")
     tree = params_to_numpy(make_trainer(cfg, ds, DEV).model)  # the trainer's own seeded init
-    kern, launches = train_both_paths("attn", cfg, ds, tree, used=("gru_fwd", "gru_bwd", "sampled_lse", "sampled_bwd"),
-                                      unused=("ce_lse", "ce_bwd"))
+    kern, launches = train_both_paths("attn", cfg, ds, tree, used=("gru_fwd", "gru_bwd", "sampled_lse", "sampled_bwd"))
     state.update(attn_launches=launches, attn_cfg=cfg, attn_ds=ds, attn_tree=tree,
                  attn_trained=params_to_numpy(kern.model))
 
 
-def attention_serve_phase(state) -> None:
-    """``Recommender`` on config #4 with the trained parameters at request
-    batch 1 and 256, kernel path against plain path."""
+def serve_both_paths(tag: str, cfg, ds, trained, fwd: str = "gru_fwd") -> None:
+    """``Recommender`` with the trained parameters at request batch 1 and
+    256, kernel path (the recurrence's forward kernel ``fwd`` and top-k)
+    against plain path."""
     from poi_tpu_torch.convert import params_from_jax
     from poi_tpu_torch.eval.serve import Recommender
     from poi_tpu_torch.models.base import DataDims, build_model
 
-    cfg, ds = state["attn_cfg"], state["attn_ds"]
     plain_cfg = cfg.with_overrides({"model.cell_impl": "scan", "eval.topk_impl": "xla"})
     recs = []
     for c in (cfg, plain_cfg):
         model = build_model(c.model, DataDims.from_dataset(ds), device=DEV)
-        model.load_state_dict(params_from_jax(state["attn_trained"]))
+        model.load_state_dict(params_from_jax(trained))
         recs.append(Recommender(model, c, ds))
     rec, plain = recs
     histories = histories_from_test(ds, 256)
@@ -771,12 +980,38 @@ def attention_serve_phase(state) -> None:
         reset_launches()
         got = rec.recommend(histories[:n], k=10, exclude_visited=True)
         launches = read_launches()
-        assert launches["gru_fwd"] > 0 and launches["topk"] > 0, f"config #4 recommend skipped a kernel: {launches}"
+        assert launches[fwd] > 0 and launches["topk"] > 0, f"{tag} recommend skipped a kernel: {launches}"
         assert got.shape == (n, 10) and ((got >= 0) & (got < ds.num_pois)).all(), got
         for row, hist in zip(got, histories[:n]):
             assert not set(row.tolist()) & {c.poi for c in hist}, "a visited POI was returned"
-        compare_paths("attn serve", rec, plain, histories[:n], got)
-    state.update(attn_rec=rec, attn_plain=plain, attn_histories=histories)
+        compare_paths(tag, rec, plain, histories[:n], got)
+
+
+def recurrent_config_phase(state, tag: str) -> None:
+    """Config #2 (``tag`` lstm) or #3 (strnn) at full width: 40
+    device-sampled steps through ``train()`` on both paths from the
+    trainer's own seeded init (config #3 at its dropout 0.5, both paths
+    drawing the same step-keyed masks), ``evaluate()``, then ``Recommender``
+    on both paths."""
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.convert import params_to_numpy
+    from poi_tpu_torch.data.dataset import load_dataset
+    from poi_tpu_torch.train.loop import make_trainer
+
+    config, used = REC_CONFIGS[tag]
+    cfg = get_config(config).with_overrides(SAMPLER_OVERRIDES)
+    t0 = time.perf_counter()
+    ds = load_dataset(cfg.data)
+    m = cfg.model
+    log(f"[{tag}] {config}: {ds.num_pois} POIs, {ds.num_users} users, {len(ds.train)} training windows, "
+        f"T={ds.max_seq_len}, batch {cfg.train.batch_size}, {m.kind} {m.hidden_dim}-d {m.compute_dtype}, user "
+        f"embedding {m.use_user_embedding}, dropout {m.dropout}, loss {cfg.loss.kind}"
+        f"{f' with {cfg.loss.num_negatives} negatives a position' if cfg.loss.kind == 'bpr' else ''} "
+        f"(loaded in {time.perf_counter() - t0:.1f} s)")
+    tree = params_to_numpy(make_trainer(cfg, ds, DEV).model)
+    kern, launches = train_both_paths(tag, cfg, ds, tree, used=used, fwd=used[0])
+    serve_both_paths(f"{tag} serve", cfg, ds, params_to_numpy(kern.model), used[0])
+    state[tag] = {"cfg": cfg, "ds": ds, "tree": tree, "launches": launches}
 
 
 def run_cli_train(config: str, overrides: list[str], steps: int) -> dict:
@@ -814,6 +1049,10 @@ def cli_train_phase(state) -> None:
     # Config #4 as a user runs it, cut to 40 steps (best-on-val at 20 and 40).
     run_cli_train(ATTN_CONFIG, [f"train.num_steps={TRAIN_STEPS}", f"train.eval_every={TRAIN_STEPS // 2}",
                                 f"train.log_every={TRAIN_STEPS // 2}", "data.sampler=device"], TRAIN_STEPS)
+    # Configs #2 and #3 as a user runs them, cut to 20 steps (best-on-val at 10 and 20).
+    for config, _ in REC_CONFIGS.values():
+        run_cli_train(config, ["train.num_steps=20", "train.eval_every=10", "train.log_every=10",
+                               "data.sampler=device"], 20)
 
 
 def timing_phase(state, gpu: str) -> dict:
@@ -825,16 +1064,27 @@ def timing_phase(state, gpu: str) -> dict:
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
     out = {}
-    xw, wh, _, _ = gru_case(256, 64, 64, gen)
-    out["gru_fwd"] = (time_ms(lambda: fused_gru_scan(xw, wh)), time_ms(lambda: gru_scan_reference(xw, wh)))
-    log(f"[time] gru_fwd B=256 T=64 H=64: kernel {out['gru_fwd'][0]:.4f} ms, plain {out['gru_fwd'][1]:.4f} ms  ({gpu})")
+    B, T, H = 256, 64, 64
+    xw, wh, _, _ = gru_case(B, T, H, gen)
+    out["gru_fwd"] = {"ms": time_ms(lambda: fused_gru_scan(xw, wh)), "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh)),
+                      "library_ms": cudnn_ms("gru", B, T, H),
+                      **bound((xw, wh), (fused_gru_scan(xw, wh),), bf16_flop=2 * B * T * H * 3 * H)}
+    t = out["gru_fwd"]
+    log(f"[time] gru_fwd B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN nn.GRU "
+        f"forward {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})  ({gpu})")
     prep = state["rec"]._prep
     q = torch.randn(256, 64, generator=gen, device=DEV)
+    V, D = prep.table.shape
     for k in (128, 10):
-        t = (time_ms(lambda: fused_topk(q, prep.table, prep.bias, k)),
-             time_ms(lambda: topk_reference(q, prep.table, prep.bias, k)))
+        t = {"ms": time_ms(lambda: fused_topk(q, prep.table, prep.bias, k)),
+             "plain_ms": time_ms(lambda: topk_reference(q, prep.table, prep.bias, k)),
+             # torch.topk over the materialised logits (bf16 product, fp32 scores).
+             "library_ms": time_ms(lambda: torch.topk(
+                 torch.nn.functional.linear(q.to(torch.bfloat16), prep.table).float() + prep.bias, k)),
+             **bound((q, prep.table, prep.bias), fused_topk(q, prep.table, prep.bias, k), bf16_flop=2 * 256 * V * D)}
         out.setdefault("topk", t)  # the slice's own fetch (k=128) goes in the record
-        log(f"[time] topk B=256 V={prep.table.shape[0]} D=64 k={k}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms  ({gpu})")
+        log(f"[time] topk B=256 V={V} D={D} k={k}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.topk "
+            f"over the logits {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})  ({gpu})")
     hist = state["histories"]
     rec = state["rec"]
     for n in (1, 256):
@@ -931,25 +1181,40 @@ def train_timing_phase(state, gpu: str) -> dict:
     xw, wh, _, _ = gru_case(B, T, H, gen)
     hs = fused_gru_scan(xw, wh)
     dhs = torch.randn(B, T, H, generator=gen, device=DEV)
-    out["gru_fwd_train"] = (time_ms(lambda: fused_gru_scan(xw, wh)), time_ms(lambda: gru_scan_reference(xw, wh), 5))
-    out["gru_bwd"] = (time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs)),
-                      time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 5))
+    G = 3 * H
+    out["gru_fwd_train"] = {"ms": time_ms(lambda: fused_gru_scan(xw, wh)),
+                            "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh), 5),
+                            "library_ms": cudnn_ms("gru", B, T, H),
+                            **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * G)}
+    out["gru_bwd"] = {"ms": time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs)),
+                      "plain_ms": time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 5), "library_ms": None,
+                      **bound((xw, wh, hs, dhs), fused_gru_bwd(xw, wh, hs, dhs), bf16_flop=2 * B * T * H * G,
+                              fp32_flop=4 * B * T * H * G)}
     for name in ("gru_fwd_train", "gru_bwd"):
-        log(f"[time] {name} B={B} T={T} H={H}: kernel {out[name][0]:.4f} ms, plain {out[name][1]:.4f} ms  ({gpu})")
+        t = out[name]
+        lib = f", cuDNN nn.GRU forward {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
+        log(f"[time] {name} B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms{lib}; bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})  ({gpu})")
     N, V, D = CE_TRAIN_SHAPE
     q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
     table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
     bias = torch.randn(V, generator=gen, device=DEV)
     g = torch.rand(N, generator=gen, device=DEV)
     lse = ce_lse_reference(q, table, bias)
-    out["ce_lse"] = (time_ms(lambda: ce_lse(q, table, bias)), time_ms(lambda: ce_lse_reference(q, table, bias), 5))
-    out["ce_bwd"] = (time_ms(lambda: ce_bwd(q, table, bias, lse, g)),
-                     time_ms(lambda: ce_bwd_reference(q, table, bias, lse, g), 5))
     flop = 2 * N * V * D
+    # No single PyTorch call computes a row LSE over a product, or its
+    # gradients from a given LSE: no library time.
+    out["ce_lse"] = {"ms": time_ms(lambda: ce_lse(q, table, bias)),
+                     "plain_ms": time_ms(lambda: ce_lse_reference(q, table, bias), 5), "library_ms": None,
+                     **bound((q, table, bias), (lse,), bf16_flop=flop)}
+    out["ce_bwd"] = {"ms": time_ms(lambda: ce_bwd(q, table, bias, lse, g)),
+                     "plain_ms": time_ms(lambda: ce_bwd_reference(q, table, bias, lse, g), 5), "library_ms": None,
+                     **bound((q, table, bias, lse, g), ce_bwd(q, table, bias, lse, g), bf16_flop=3 * flop)}
     for name, products in (("ce_lse", 1), ("ce_bwd", 4)):
-        k_ms, p_ms = out[name]
-        log(f"[time] {name} N={N} V={V} D={D}: kernel {k_ms:.4f} ms ({products * flop / k_ms / 1e9:.1f} TFLOP/s of "
-            f"catalog products), plain {p_ms:.4f} ms  ({gpu})")
+        t = out[name]
+        log(f"[time] {name} N={N} V={V} D={D}: kernel {t['ms']:.4f} ms ({products * flop / t['ms'] / 1e9:.1f} TFLOP/s "
+            f"of catalog products), plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})  "
+            f"({gpu})")
 
     from poi_tpu_torch.train.loop import make_trainer
 
@@ -972,22 +1237,36 @@ def train_timing_phase(state, gpu: str) -> dict:
     return out
 
 
-def attention_timing_phase(state, gpu: str) -> dict:
-    """Config #4's train step on both paths, with its device-time profile."""
+def config_timing_phase(state, gpu: str) -> dict:
+    """Config #4's train step on both paths, with its device-time profile;
+    then configs #2 and #3."""
     from poi_tpu_torch.train.loop import make_trainer
 
-    cfg, ds = state["attn_cfg"], state["attn_ds"]
-    trainers = {"kernels": make_trainer(cfg, ds, DEV), "plain": make_trainer(cfg.with_overrides(PLAIN_OVERRIDES), ds, DEV)}
-    return {"attn_train_step": step_timing("config #4", trainers, state["attn_tree"], ATTN_TIME_CHUNK, gpu)}
+    out = {}
+    for tag, label, cfg, ds, tree in (("attn", "config #4", state["attn_cfg"], state["attn_ds"], state["attn_tree"]),
+                                      *((tag, f"config {REC_CONFIGS[tag][0]}", state[tag]["cfg"], state[tag]["ds"],
+                                         state[tag]["tree"]) for tag in REC_CONFIGS)):
+        trainers = {"kernels": make_trainer(cfg, ds, DEV),
+                    "plain": make_trainer(cfg.with_overrides(PLAIN_OVERRIDES), ds, DEV)}
+        out[f"{tag}_train_step"] = step_timing(label, trainers, tree, STEP_TIME_CHUNK, gpu)
+    return out
+
+
+def record(name: str, source: str, replaces: str, launches: int, max_abs_err: float, t: dict, **extra) -> dict:
+    """One kernel's entry in the JSON line: its launches on the main path,
+    its parity and its times at the main path's shape, with the bound."""
+    return {"name": name, "route": "cuda", "source": f"poi_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches, "max_abs_err": max_abs_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"], **extra}
 
 
 def main() -> int:
-    if not (REPO / "poi_tpu_torch").is_dir() or not (REPO / "poi_tpu").is_dir():
-        print(f"error: {REPO} is not a checkout of the repository (no poi_tpu_torch/ or poi_tpu/)", file=sys.stderr)
+    if not (REPO / "poi_tpu_torch").is_dir():
+        print(f"error: {REPO} is not a checkout of the repository (no poi_tpu_torch/)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    # The dataset cache would live outside the checkout; config #1 builds in about a second.
-    os.environ.setdefault("POI_TPU_DATA_CACHE", "off")
+    # The dataset cache would live outside the checkout; each config builds in about two seconds.
+    os.environ.setdefault("POI_TPU_TORCH_DATA_CACHE", "off")
     import torch
 
     if not torch.cuda.is_available():
@@ -1013,47 +1292,47 @@ def main() -> int:
     lse_err, ce_grad_err = phase("ce", ce_phase)
     big = phase("gru_big", gru_big_phase)
     sampled = phase("sampled", sampled_phase)
+    lstm = phase("lstm", lstm_phase)
+    rnn = phase("rnn", rnn_phase)
     phase("slice", slice_phase, state)
     phase("cli", cli_phase, state)
     phase("train", train_phase, state)
     phase("attn_train", attention_train_phase, state)
-    phase("attn_serve", attention_serve_phase, state)
+    phase("attn_serve", serve_both_paths, "attn serve", state["attn_cfg"], state["attn_ds"], state["attn_trained"])
+    phase("lstm_config", recurrent_config_phase, state, "lstm")
+    phase("strnn_config", recurrent_config_phase, state, "strnn")
     phase("cli_train", cli_train_phase, state)
     times = phase("timing", timing_phase, state, gpu)
     times.update(phase("train_timing", train_timing_phase, state, gpu))
-    times.update(phase("attn_timing", attention_timing_phase, state, gpu))
-    assert "jax" not in sys.modules, "JAX was imported"
+    times.update(phase("config_timing", config_timing_phase, state, gpu))
+    loaded = sorted(m for m in sys.modules if m in ("jax", "poi_tpu") or m.startswith(("jax.", "poi_tpu.")))
+    assert not loaded, f"JAX or the JAX package was imported: {loaded}"
 
     # Launches: gru_fwd and topk from the serving path's run (slice phase),
     # gru_bwd, ce_lse and ce_bwd from the bench workload's training run
     # (train phase), sampled_lse and sampled_bwd from config #4's (attn_train
-    # phase). The GRU rows also carry the cluster path (H = 256) at config
-    # #4's shape, (B, T) = (64, 128).
+    # phase), lstm_* from config #2's and rnn_* from config #3's (lstm_config,
+    # strnn_config). The GRU rows also carry the cluster path (H = 256) at
+    # config #4's shape, (B, T) = (64, 128).
     served, trained, attn = state["launches"], state["train_launches"], state["attn_launches"]
+    c2, c3 = state["lstm"]["launches"], state["strnn"]["launches"]
+    h256 = lambda d: {f"{k}_h256": big[d][k] for k in ("ms", "plain_ms", "bound_ms")}  # noqa: E731
     kernels = [
-        {"name": "gru_fwd", "route": "cuda", "source": "poi_tpu_torch/csrc/gru_fwd.cu",
-         "replaces": "poi_tpu/ops/fused_gru.py:71", "launches": served["gru_fwd"],
-         "max_abs_err": gru_err, "ms": times["gru_fwd"][0], "plain_ms": times["gru_fwd"][1],
-         "max_abs_err_h256": big["fwd_err"], "ms_h256": big["fwd_ms"][0], "plain_ms_h256": big["fwd_ms"][1]},
-        {"name": "topk", "route": "cuda", "source": "poi_tpu_torch/csrc/topk.cu",
-         "replaces": "poi_tpu/ops/topk.py:58", "launches": served["topk"],
-         "max_abs_err": topk_err, "ms": times["topk"][0], "plain_ms": times["topk"][1]},
-        {"name": "gru_bwd", "route": "cuda", "source": "poi_tpu_torch/csrc/gru_bwd.cu",
-         "replaces": "poi_tpu/ops/fused_gru.py:86", "launches": trained["gru_bwd"],
-         "max_abs_err": gru_bwd_err, "ms": times["gru_bwd"][0], "plain_ms": times["gru_bwd"][1],
-         "max_abs_err_h256": big["bwd_err"], "ms_h256": big["bwd_ms"][0], "plain_ms_h256": big["bwd_ms"][1]},
-        {"name": "sampled_lse", "route": "cuda", "source": "poi_tpu_torch/csrc/sampled.cu",
-         "replaces": "poi_tpu/ops/fused_sampled.py:76", "launches": attn["sampled_lse"],
-         "max_abs_err": sampled["lse_err"], "ms": sampled["lse_ms"][0], "plain_ms": sampled["lse_ms"][1]},
-        {"name": "sampled_bwd", "route": "cuda", "source": "poi_tpu_torch/csrc/sampled.cu",
-         "replaces": "poi_tpu/ops/fused_sampled.py:103", "launches": attn["sampled_bwd"],
-         "max_abs_err": sampled["grad_err"], "ms": sampled["bwd_ms"][0], "plain_ms": sampled["bwd_ms"][1]},
-        {"name": "ce_lse", "route": "cuda", "source": "poi_tpu_torch/csrc/ce.cu",
-         "replaces": "poi_tpu/ops/fused_ce.py:181", "launches": trained["ce_lse"],
-         "max_abs_err": lse_err, "ms": times["ce_lse"][0], "plain_ms": times["ce_lse"][1]},
-        {"name": "ce_bwd", "route": "cuda", "source": "poi_tpu_torch/csrc/ce.cu",
-         "replaces": "poi_tpu/ops/fused_ce.py:210", "launches": trained["ce_bwd"],
-         "max_abs_err": ce_grad_err, "ms": times["ce_bwd"][0], "plain_ms": times["ce_bwd"][1]},
+        record("gru_fwd", "gru_fwd.cu", "poi_tpu/ops/fused_gru.py:71", served["gru_fwd"], gru_err, times["gru_fwd"],
+               max_abs_err_h256=big["fwd_err"], **h256("fwd")),
+        record("gru_bwd", "gru_bwd.cu", "poi_tpu/ops/fused_gru.py:86", trained["gru_bwd"], gru_bwd_err,
+               times["gru_bwd"], max_abs_err_h256=big["bwd_err"], **h256("bwd")),
+        record("lstm_fwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:59", c2["lstm_fwd"], lstm["fwd_err"], lstm["fwd"]),
+        record("lstm_bwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:81", c2["lstm_bwd"], lstm["bwd_err"], lstm["bwd"]),
+        record("rnn_fwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:48", c3["rnn_fwd"], rnn["fwd_err"], rnn["fwd"]),
+        record("rnn_bwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:65", c3["rnn_bwd"], rnn["bwd_err"], rnn["bwd"]),
+        record("ce_lse", "ce.cu", "poi_tpu/ops/fused_ce.py:181", trained["ce_lse"], lse_err, times["ce_lse"]),
+        record("ce_bwd", "ce.cu", "poi_tpu/ops/fused_ce.py:210", trained["ce_bwd"], ce_grad_err, times["ce_bwd"]),
+        record("sampled_lse", "sampled.cu", "poi_tpu/ops/fused_sampled.py:76", attn["sampled_lse"],
+               sampled["lse_err"], sampled["lse"]),
+        record("sampled_bwd", "sampled.cu", "poi_tpu/ops/fused_sampled.py:103", attn["sampled_bwd"],
+               sampled["grad_err"], sampled["bwd"]),
+        record("topk", "topk.cu", "poi_tpu/ops/topk.py:58", served["topk"], topk_err, times["topk"]),
     ]
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

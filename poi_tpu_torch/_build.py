@@ -37,6 +37,14 @@ _SIGNATURES = {
     "gru_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gru_bwd_cluster_size": [_I],
     "gru_bwd_splits": [_I, _I, _I],
+    "lstm_max_hidden": [],
+    "lstm_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "lstm_bwd_splits": [_I, _I, _I],
+    "lstm_bwd": [_P] * 9 + [_I, _I, _I, _I, _P],
+    "rnn_max_hidden": [],
+    "rnn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rnn_bwd_splits": [_I, _I, _I],
+    "rnn_bwd": [_P] * 8 + [_I, _I, _I, _I, _P],
     "ce_supports_dim": [_I],
     "ce_lse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

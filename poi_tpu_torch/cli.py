@@ -37,7 +37,7 @@ def main(argv: list[str] | None = None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     def add_common(p, params: bool = True):
-        p.add_argument("--config", required=True, help="named config (poi_tpu's presets)")
+        p.add_argument("--config", required=True, help="named config (configs/presets.py)")
         p.add_argument("--set", nargs="*", default=[], help="dotted overrides key=value")
         if params:
             p.add_argument("--params", required=True, help="parameters as .npz (convert.save_npz layout)")
@@ -64,8 +64,8 @@ def main(argv: list[str] | None = None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error(f"--device {args.device}: CUDA is not available")
 
-    from poi_tpu.configs.presets import get_config
-    from poi_tpu.utils.config import parse_set_flags
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.utils.config import parse_set_flags
 
     cfg = get_config(args.config).with_overrides(parse_set_flags(args.set))
     if args.cmd == "train":
@@ -83,7 +83,7 @@ def main(argv: list[str] | None = None) -> int:
 def run_train(cfg, device: torch.device) -> int:
     """Train, select on val (or evaluate on test) every ``eval_every`` steps,
     then print the final test metrics as one JSON line."""
-    from poi_tpu.data.dataset import load_dataset
+    from poi_tpu_torch.data.dataset import load_dataset
     from poi_tpu_torch.eval.evaluate import evaluate, popularity_baseline
     from poi_tpu_torch.train.loop import make_trainer, train
     from poi_tpu_torch.train.selection import BestOnVal
@@ -130,7 +130,7 @@ def run_train(cfg, device: torch.device) -> int:
 
 def load_recommender(cfg, params_path: str, device: torch.device):
     """Dataset featurizer + model with the given parameters on ``device``."""
-    from poi_tpu.data.dataset import load_dataset
+    from poi_tpu_torch.data.dataset import load_dataset
     from poi_tpu_torch.convert import load_npz, params_from_jax
     from poi_tpu_torch.eval.serve import Recommender
     from poi_tpu_torch.models.base import DataDims, build_model

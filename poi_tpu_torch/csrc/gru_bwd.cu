@@ -38,10 +38,9 @@
 //   column so a warp's reads spread over the banks. The next step's inputs
 //   are loaded while this one computes.
 // - dhw goes to an fp32 scratch [B, T, 3H] that the wrapper allocates.
-// - gru_dwh_kernel: 64 x 64 output tiles of dwh, each thread 4 x 4, with
-//   the B*T sum split into `splits` contiguous chunks (one per grid z);
-//   gru_dwh_reduce_kernel then sums the partials in split order. No atomics:
-//   the result is the same bits every run.
+// - dwh: the split-chunk product and ordered reduce of csrc/recurrent_dwh.cuh
+//   (shared with the LSTM and RNN backward). No atomics: the result is the
+//   same bits every run.
 // - Padded steps (z = 0 exactly from the folded -1e9) give exactly zero
 //   da, dn, dr_pre and dhn, and dh passes through unchanged.
 // - gru_bwd_kernel holds bf16 wh in one block, so it takes H <= 196.
@@ -66,14 +65,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "recurrent_dwh.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxSmem = 232448;  // 227 KB: the most a block may opt into
-constexpr int kDwhTile = 64;
-constexpr int kDwhK = 32;         // B*T rows per smem stage of the dwh product
-constexpr int kDwhThreads = 256;  // 16 x 16, 4 x 4 outputs each
 
 using bf16 = __nv_bfloat16;
 
@@ -336,78 +334,6 @@ cudaError_t launch_cluster(const void* xw, const void* wh, const void* hs, const
   return cudaGetLastError();
 }
 
-// partial[s][k][c] = sum over rows i of chunk s of h_prev[i][k] * dhw[i][c],
-// where row i = b*T + t and h_prev[i] = hs[i-1] (0 where t == 0).
-__global__ void __launch_bounds__(kDwhThreads)
-    gru_dwh_kernel(const float* __restrict__ hs, const float* __restrict__ dhw, float* __restrict__ partial, int BT,
-                   int T, int H, int chunk) {
-  __shared__ float a_s[kDwhK][kDwhTile];
-  __shared__ float b_s[kDwhK][kDwhTile];
-  const int H3 = 3 * H;
-  const int k0 = blockIdx.y * kDwhTile;
-  const int c0 = blockIdx.x * kDwhTile;
-  const int i_begin = blockIdx.z * chunk;
-  const int i_end = min(BT, i_begin + chunk);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  float acc[4][4] = {};
-  for (int i0 = i_begin; i0 < i_end; i0 += kDwhK) {
-    for (int e = threadIdx.x; e < kDwhK * kDwhTile; e += kDwhThreads) {
-      const int ii = e / kDwhTile, col = e % kDwhTile;
-      const int i = i0 + ii;
-      const bool in = i < i_end;
-      const int k = k0 + col, c = c0 + col;
-      a_s[ii][col] = in && k < H && i % T != 0 ? hs[(size_t)(i - 1) * H + k] : 0.f;
-      b_s[ii][col] = in && c < H3 ? dhw[(size_t)i * H3 + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int ii = 0; ii < kDwhK; ++ii) {
-      float a[4], bb[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) a[m] = a_s[ii][ty + 16 * m];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) bb[n] = b_s[ii][tx + 16 * n];
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(a[m], bb[n], acc[m][n]);
-    }
-    __syncthreads();
-  }
-  float* out = partial + (size_t)blockIdx.z * H * H3;
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int k = k0 + ty + 16 * m;
-    if (k >= H) continue;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int c = c0 + tx + 16 * n;
-      if (c < H3) out[(size_t)k * H3 + c] = acc[m][n];
-    }
-  }
-}
-
-__global__ void gru_dwh_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dwh, int n, int splits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += partial[(size_t)z * n + i];
-  dwh[i] = s;
-}
-
-// Rows of B*T per split of the dwh product: enough splits to put ~4 blocks
-// on each of the card's SMs, each a multiple of kDwhK rows.
-int dwh_chunk(int BT, int H) {
-  const int tiles = ((H + kDwhTile - 1) / kDwhTile) * ((3 * H + kDwhTile - 1) / kDwhTile);
-  int splits = (528 + tiles - 1) / tiles;
-  const int max_splits = (BT + kDwhK - 1) / kDwhK;
-  if (splits > max_splits) splits = max_splits;
-  if (splits < 1) splits = 1;
-  const int per = (BT + splits - 1) / splits;
-  return (per + kDwhK - 1) / kDwhK * kDwhK;
-}
-
 }  // namespace
 
 extern "C" int gru_bwd_smem_bytes(int H) { return bwd_smem_bytes(H); }
@@ -424,12 +350,7 @@ extern "C" int gru_bwd_cluster_size(int H) {
 }
 
 // Number of partial dwh sums the wrapper allocates ([splits, H, 3H] fp32).
-extern "C" int gru_bwd_splits(int B, int T, int H) {
-  const int BT = B * T;
-  if (BT <= 0 || H <= 0) return 1;
-  const int chunk = dwh_chunk(BT, H);
-  return (BT + chunk - 1) / chunk;
-}
+extern "C" int gru_bwd_splits(int B, int T, int H) { return recurrent_dw::num_splits(B * T, H, 3 * H); }
 
 extern "C" int gru_bwd(const void* xw, const void* wh, const void* hs, const void* dhs, void* dxw, void* dhw,
                        void* dwh_partial, void* dwh, int B, int T, int H, int device, void* stream) {
@@ -460,16 +381,6 @@ extern "C" int gru_bwd(const void* xw, const void* wh, const void* hs, const voi
     if (e != cudaSuccess) return e;
   }
 
-  const int BT = B * T;
-  const int chunk = dwh_chunk(BT, H);
-  const int splits = (BT + chunk - 1) / chunk;
-  const dim3 grid((3 * H + kDwhTile - 1) / kDwhTile, (H + kDwhTile - 1) / kDwhTile, splits);
-  gru_dwh_kernel<<<grid, kDwhThreads, 0, s>>>(static_cast<const float*>(hs), static_cast<const float*>(dhw),
-                                              static_cast<float*>(dwh_partial), BT, T, H, chunk);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int n = H * 3 * H;
-  gru_dwh_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(static_cast<const float*>(dwh_partial),
-                                                        static_cast<float*>(dwh), n, splits);
-  return cudaGetLastError();
+  return recurrent_dw::launch(static_cast<const float*>(hs), static_cast<const float*>(dhw),
+                              static_cast<float*>(dwh_partial), static_cast<float*>(dwh), B, T, H, 3 * H, s);
 }

@@ -13,8 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from poi_tpu.data.dataset import Examples
-from poi_tpu.data.pipeline import Batch
+from poi_tpu_torch.data.dataset import Examples
+from poi_tpu_torch.data.pipeline import Batch
 
 
 def step_seed(seed: int, step: int, *stream: int) -> int:

@@ -13,12 +13,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from poi_tpu.data.dataset import Dataset
-from poi_tpu.data.pipeline import eval_batches
-from poi_tpu.eval.metrics import ranking_metrics
-from poi_tpu.utils.config import Config
+from poi_tpu_torch.data.dataset import Dataset
+from poi_tpu_torch.data.pipeline import eval_batches
+from poi_tpu_torch.eval.metrics import ranking_metrics
 from poi_tpu_torch.models import base as model_base
 from poi_tpu_torch.ops.topk import fused_topk, pad_table_for_topk, topk_reference
+from poi_tpu_torch.utils.config import Config
 
 TOPK_IMPLS = ("pallas", "xla")
 

@@ -15,12 +15,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from poi_tpu.data.dataset import Dataset, bucketize_interp, haversine_km
-from poi_tpu.data.pipeline import Batch
-from poi_tpu.utils.config import Config
+from poi_tpu_torch.data.dataset import Dataset, bucketize_interp, haversine_km
+from poi_tpu_torch.data.pipeline import Batch
 from poi_tpu_torch.eval.evaluate import make_topk_fn, prepare_catalog
 from poi_tpu_torch.models.base import batch_to
 from poi_tpu_torch.ops.topk import MAX_K, NEG
+from poi_tpu_torch.utils.config import Config
 
 log = logging.getLogger(__name__)
 

@@ -43,18 +43,18 @@ class AttentionTower(nn.Module):
     def _gru(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         return gru_layer(self.gru, x, mask, base.compute_dtype(self.cfg), cell_impl=self.cfg.cell_impl)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, batch) -> torch.Tensor:
         """[B, T, D] → [B, T, H] at every position."""
         cfg = self.cfg
-        h = self._gru(x, mask)
+        h = self._gru(x, batch.mask)
         o = multihead_attention(h, self.mha, cfg.attn_heads, cfg.attn_window, base.compute_dtype(cfg))
         return layer_norm(self.ln, h + o)
 
-    def last(self, x: torch.Tensor, mask: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    def last(self, x: torch.Tensor, batch, last: torch.Tensor) -> torch.Tensor:
         """[B, H] at position ``last`` of each row: the GRU runs over all T,
         the attention and LayerNorm only at that position."""
         cfg = self.cfg
-        h = self._gru(x, mask)
+        h = self._gru(x, batch.mask)
         o = multihead_attention_last(h, self.mha, cfg.attn_heads, cfg.attn_window, last, base.compute_dtype(cfg))
         h_last = h[torch.arange(h.shape[0], device=h.device), last]
         return layer_norm(self.ln, h_last + o)
@@ -67,4 +67,4 @@ class AttentionModel(base.SequenceModel):
         return AttentionTower(self.cfg, gen, device)
 
     def tower_last(self, x: torch.Tensor, batch, last: torch.Tensor) -> torch.Tensor:
-        return self.tower.last(x, batch.mask, last)
+        return self.tower.last(x, batch, last)

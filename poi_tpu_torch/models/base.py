@@ -19,8 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from poi_tpu.data.pipeline import Batch
-from poi_tpu.utils.config import ModelConfig
+from poi_tpu_torch.data.pipeline import Batch
+from poi_tpu_torch.utils.config import ModelConfig
 
 
 @dataclass(frozen=True)
@@ -161,8 +161,9 @@ def params(d: dict[str, torch.Tensor], device) -> nn.ParameterDict:
 class SequenceModel(nn.Module):
     """Embeddings + tower + optional projection to query space.
 
-    Subclasses build ``self.tower``: a module whose ``forward(x, mask)`` maps
-    [B, T, D] inputs to [B, T, H] hidden states.
+    Subclasses build ``self.tower``: a module whose ``forward(x, batch)`` maps
+    [B, T, D] inputs to [B, T, H] hidden states; it reads what it needs from
+    the batch (the mask, and ST-RNN's time-gap and distance buckets).
     """
 
     def __init__(self, cfg: ModelConfig, dims: DataDims, device=None, generator: torch.Generator | None = None):
@@ -191,14 +192,14 @@ class SequenceModel(nn.Module):
         embeddings and the tower output, in that order, as ``poi_tpu``
         does; without one the path is deterministic."""
         x = dropout(input_embeddings(self.embed, batch, self.cfg), self.cfg.dropout, generator)
-        h = dropout(self.tower(x, batch.mask), self.cfg.dropout, generator)
+        h = dropout(self.tower(x, batch), self.cfg.dropout, generator)
         q = linear(self.proj, h, compute_dtype(self.cfg)) if self.proj is not None else h
         return add_user_query(q.float(), self.embed, batch, self.cfg)
 
     def tower_last(self, x: torch.Tensor, batch: Batch, last: torch.Tensor) -> torch.Tensor:
         """[B, H] hidden state at position ``last`` of each row: the
         recurrence traverses T, then the row's position is selected."""
-        h = self.tower(x, batch.mask)
+        h = self.tower(x, batch)
         return h[torch.arange(h.shape[0], device=h.device), last]
 
     def queries_last(self, batch: Batch) -> torch.Tensor:
@@ -215,8 +216,10 @@ class SequenceModel(nn.Module):
 def build_model(cfg: ModelConfig, dims: DataDims, device=None, generator: torch.Generator | None = None):
     from poi_tpu_torch.models.attention import AttentionModel
     from poi_tpu_torch.models.gru import GRUModel
+    from poi_tpu_torch.models.lstm import LSTMModel
+    from poi_tpu_torch.models.strnn import STRNNModel
 
-    registry = {"gru": GRUModel, "attention": AttentionModel}
+    registry = {"gru": GRUModel, "lstm": LSTMModel, "strnn": STRNNModel, "attention": AttentionModel}
     if cfg.kind not in registry:
         raise KeyError(f"model kind {cfg.kind!r} is not ported yet: have {sorted(registry)}")
     return registry[cfg.kind](cfg, dims, device=device, generator=generator)

@@ -62,11 +62,11 @@ class GRUTower(nn.Module):
             d_in = cfg.hidden_dim
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, batch) -> torch.Tensor:
         dtype = base.compute_dtype(self.cfg)
         h = x
         for p in self.layers:
-            h = gru_layer(p, h, mask, dtype, cell_impl=self.cfg.cell_impl)
+            h = gru_layer(p, h, batch.mask, dtype, cell_impl=self.cfg.cell_impl)
         return h
 
 

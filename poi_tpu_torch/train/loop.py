@@ -2,7 +2,7 @@
 of ``poi_tpu/train/loop.py``.
 
 ``Trainer`` owns the model, the loss and the optimizer. A step runs the
-queries, the loss and its backward through autograd (the GRU, CE and
+queries, the loss and its backward through autograd (the recurrence, CE and
 sampled-softmax kernels on a CUDA device, their plain versions on the CPU),
 then the optimizer updates the parameters in place: dense Adam (or
 adagrad/sgd), or lazy Adam on the tables (``train.table_update=sparse``).
@@ -11,8 +11,9 @@ adagrad/sgd), or lazy Adam on the tables (``train.table_update=sparse``).
 
 A step's random draws come from generators on the device keyed by
 ``(seed, step, stream)``, so a step draws the same numbers whenever it runs:
-the sampled-softmax pool (drawn once, handed to the loss and to lazy Adam's
-touched rows) and, only when ``model.dropout > 0``, the dropout masks.
+the negatives (sampled softmax's pool or BPR's [B, T, N] ids, drawn once,
+handed to the loss and to lazy Adam's touched rows) and, only when
+``model.dropout > 0``, the dropout masks.
 """
 
 from __future__ import annotations
@@ -26,15 +27,15 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from poi_tpu.data.dataset import Dataset
-from poi_tpu.data.pipeline import Batch, make_train_loader
-from poi_tpu.utils.config import Config
 from poi_tpu_torch.convert import params_from_jax
+from poi_tpu_torch.data.dataset import Dataset
 from poi_tpu_torch.data.device_sampler import DeviceSampler, step_seed
+from poi_tpu_torch.data.pipeline import Batch, make_train_loader
 from poi_tpu_torch.models import base as model_base
 from poi_tpu_torch.train import sparse_opt
-from poi_tpu_torch.train.losses import build_loss_fn, draw_sampled_negatives
+from poi_tpu_torch.train.losses import build_loss_fn, draw_bpr_negatives, draw_sampled_negatives
 from poi_tpu_torch.train.state import TrainState, global_norm, make_optimizer
+from poi_tpu_torch.utils.config import Config
 
 # Generator streams of a step's key (seed, step, stream).
 NEGATIVES_STREAM = 1
@@ -54,8 +55,9 @@ class Trainer:
     device: Any = "cpu"
     sampler: DeviceSampler | None = None  # batches drawn on the device (data.sampler=device)
     loss_override: Callable | None = None
-    # step -> the [S] negative pool of that step; None draws it from the
-    # step's generator. A test replays poi_tpu's draws through it.
+    # step -> the negatives of that step ([S] pool, or [B, T, N] for BPR);
+    # None draws them from the step's generator. A test replays poi_tpu's
+    # draws through it.
     negatives: Callable[[int], torch.Tensor] | None = None
     model: Any = field(init=False)
 
@@ -88,15 +90,19 @@ class Trainer:
         """The device generator of ``stream``, seeded for ``step``."""
         return self._gen[stream].manual_seed(step_seed(self.cfg.train.seed, step, stream))
 
-    def draw_negatives(self, step: int) -> torch.Tensor | None:
-        """The step's sampled-softmax pool (None for the other losses)."""
+    def draw_negatives(self, step: int, batch: Batch | None = None) -> torch.Tensor | None:
+        """The step's sampled-softmax pool, or BPR's negatives for each
+        position of ``batch``; None for CE."""
         loss = self.cfg.loss
-        if loss.kind != "sampled_softmax":
+        if loss.kind not in ("sampled_softmax", "bpr"):
             return None
         if self.negatives is not None:
             return self.negatives(step).to(self.device)
-        return draw_sampled_negatives(self.generator(step, NEGATIVES_STREAM), loss.num_sampled, self.dims.num_pois,
-                                      self.device)
+        gen = self.generator(step, NEGATIVES_STREAM)
+        if loss.kind == "bpr":
+            B, T = batch.poi_tgt.shape
+            return draw_bpr_negatives(gen, B, T, loss.num_negatives, self.dims.num_pois, self.device)
+        return draw_sampled_negatives(gen, loss.num_sampled, self.dims.num_pois, self.device)
 
     def init_state(self, tree=None) -> TrainState:
         """Step 0 with the model's parameters (``poi_tpu``'s init scales from
@@ -108,8 +114,9 @@ class Trainer:
 
     def loss(self, batch: Batch, neg: torch.Tensor | None = None,
              dropout: torch.Generator | None = None) -> torch.Tensor:
-        """The objective on ``batch``: ``neg`` is the step's negative pool
-        (sampled softmax), ``dropout`` the generator of its dropout masks."""
+        """The objective on ``batch``: ``neg`` is the step's negatives
+        (sampled softmax, BPR), ``dropout`` the generator of its dropout
+        masks."""
         q = self.model.queries(batch, dropout)
         table, bias = model_base.output_table(self.model.embed, self.cfg.model)
         if neg is None:
@@ -126,7 +133,7 @@ class Trainer:
         params = state.params
         for p in params.values():
             p.grad = None
-        neg = self.draw_negatives(state.step)
+        neg = self.draw_negatives(state.step, batch)
         drop = self.generator(state.step, DROPOUT_STREAM) if self.cfg.model.dropout > 0.0 else None
         loss = self.loss(batch, neg, drop)
         loss.backward()

@@ -2,8 +2,10 @@
 
 Losses take ``q [B, T, D]`` queries, the output ``table [V, D]`` + ``bias
 [V]``, targets and the validity ``mask [B, T]``, and reduce to a masked mean;
-sampled softmax also takes the step's negative pool ``neg [S]``. Logits use
-bf16 operands with fp32 sums; the softmax is fp32.
+sampled softmax also takes the step's negative pool ``neg [S]``, BPR the
+step's negatives ``neg [B, T, N]``. Softmax logits use bf16 operands with
+fp32 sums; the softmax is fp32. BPR's pairwise scores are fp32, as in the
+JAX package, which computes BPR outside any kernel.
 """
 
 from __future__ import annotations
@@ -12,11 +14,12 @@ import functools
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
-from poi_tpu.utils.config import LossConfig
 from poi_tpu_torch.models.base import lookup, matmul_fp32
 from poi_tpu_torch.ops.fused_ce import fused_ce_loss
 from poi_tpu_torch.ops.fused_sampled import NEG, fused_sampled_softmax_loss, log_q
+from poi_tpu_torch.utils.config import LossConfig
 
 # Catalogs below this size take the dense CE, as in the TPU package
 # (``poi_tpu/train/losses.py:163``). Kept at the TPU's value; PERF.md records
@@ -49,6 +52,28 @@ def ce_loss(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, targets: t
     return _masked_mean(nll, mask)
 
 
+def draw_bpr_negatives(generator: torch.Generator, B: int, T: int, num_negatives: int, num_pois: int,
+                       device) -> torch.Tensor:
+    """BPR's negatives: ``num_negatives`` ids a position, [B, T, N], drawn
+    uniformly from ``[0, num_pois)``. The trainer draws them once a step and
+    hands the same ids to the loss and to lazy Adam's touched rows."""
+    return torch.randint(0, num_pois, (B, T, num_negatives), generator=generator, device=device)
+
+
+def bpr_loss(q, table, bias, targets, mask, neg) -> torch.Tensor:
+    """Bayesian Personalized Ranking, ``-log σ(s_pos - s_neg)`` for each of
+    the position's negatives ``neg [B, T, N]``, averaged over the pairs whose
+    negative is not the positive and whose position is valid. The rows are
+    gathered through ``lookup`` (``F.embedding``), whose backward sums the
+    duplicate ids of the [B, T, N] gather in one pass."""
+    e_pos = lookup(table, targets)  # [B, T, D]
+    e_neg = lookup(table, neg)  # [B, T, N, D]
+    s_pos = (q * e_pos).sum(dim=-1) + lookup(bias[:, None], targets)[..., 0]
+    s_neg = torch.einsum("btd,btnd->btn", q, e_neg) + lookup(bias[:, None], neg)[..., 0]
+    pair_ok = (neg != targets[..., None]) & (mask[..., None] > 0)
+    return _masked_mean(-F.logsigmoid(s_pos[..., None] - s_neg), pair_ok)
+
+
 def draw_sampled_negatives(generator: torch.Generator, num_sampled: int, num_pois: int, device) -> torch.Tensor:
     """The shared negative pool: ``num_sampled`` ids drawn uniformly with
     replacement from ``[0, num_pois)``. The trainer draws it once a step and
@@ -78,7 +103,8 @@ def sampled_softmax_loss(q, table, bias, targets, mask, neg, num_sampled: int, n
 
 def build_loss_fn(cfg: LossConfig, num_pois: int, embed_dim: int | None = None) -> Callable:
     """loss(q, table, bias, targets, mask) -> scalar; sampled softmax takes
-    the step's negative pool as a sixth argument.
+    the step's negative pool and BPR the step's negatives as a sixth
+    argument.
 
     CE takes ``fused_ce_loss`` (the CUDA kernels on CUDA tensors, their plain
     versions on CPU tensors) as the TPU package dispatches it: unless
@@ -92,7 +118,7 @@ def build_loss_fn(cfg: LossConfig, num_pois: int, embed_dim: int | None = None) 
             return fused_ce_loss
         return lambda q, t, b, y, m: ce_loss(q, t, b, y, m, cfg.label_smoothing)
     if cfg.kind == "bpr":
-        raise NotImplementedError("loss.kind='bpr' comes with the config #2 slice of the port (LSTM + BPR)")
+        return bpr_loss
     if cfg.kind == "sampled_softmax":
         shapes_ok = cfg.num_sampled >= 128 and (embed_dim is None or embed_dim % 128 == 0)
         fused = cfg.impl != "xla" and (shapes_ok or cfg.impl == "fused")

@@ -21,8 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from poi_tpu.utils.config import Config
 from poi_tpu_torch.train.state import ADAM_B1, ADAM_B2, ADAM_EPS, lr_schedule
+from poi_tpu_torch.utils.config import Config
 
 # params["embed"] keys that hold catalog-sized tables -> the id set that touches them.
 TABLE_ID_SOURCE = {"poi": "poi", "out": "poi", "out_bias": "poi", "user": "user"}

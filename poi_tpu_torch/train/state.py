@@ -18,7 +18,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from poi_tpu.utils.config import TrainConfig
+from poi_tpu_torch.utils.config import TrainConfig
 
 log = logging.getLogger(__name__)
 

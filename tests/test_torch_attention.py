@@ -11,16 +11,17 @@ import numpy as np
 import pytest
 import torch
 
-from poi_tpu.data.pipeline import Batch
 from poi_tpu.models import base as jax_base
 from poi_tpu.ops.attention import multihead_attention as jax_mha
 from poi_tpu.ops.attention import multihead_attention_last as jax_mha_last
 from poi_tpu.ops.attention import window_mask as jax_window_mask
-from poi_tpu.utils.config import ModelConfig
+from poi_tpu.utils.config import ModelConfig as JaxModelConfig
 from poi_tpu_torch.convert import flatten, params_from_jax
+from poi_tpu_torch.data.pipeline import Batch
 from poi_tpu_torch.models import base
 from poi_tpu_torch.models.attention import AttentionModel, layer_norm
 from poi_tpu_torch.ops.attention import multihead_attention, multihead_attention_last, window_mask
+from poi_tpu_torch.utils.config import ModelConfig
 
 torch.set_num_threads(1)
 
@@ -111,7 +112,7 @@ def test_multihead_attention_last_matches_jax_and_the_full_path(window, lens, dt
 def _models(dtype, seed=3, **cfg_kw):
     cfg = ModelConfig(kind="attention", embed_dim=32, hidden_dim=32, attn_window=4, attn_heads=2,
                       compute_dtype=dtype, **cfg_kw)
-    jm = jax_base.build_model(cfg, DIMS)
+    jm = jax_base.build_model(JaxModelConfig(**dataclasses.asdict(cfg)), DIMS)
     params = jm.init(jax.random.key(seed))
     tm = base.build_model(cfg, base.DataDims(**dataclasses.asdict(DIMS)))
     assert isinstance(tm, AttentionModel)

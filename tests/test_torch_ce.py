@@ -15,9 +15,9 @@ import torch
 
 from poi_tpu.ops.fused_ce import fused_ce_loss_pallas
 from poi_tpu.train.losses import ce_loss as jax_ce_loss
-from poi_tpu.utils.config import LossConfig
 from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_bwd_reference, ce_lse, ce_lse_reference, fused_ce_loss
-from poi_tpu_torch.train.losses import FUSED_CE_MIN_VOCAB, build_loss_fn, ce_loss
+from poi_tpu_torch.train.losses import FUSED_CE_MIN_VOCAB, bpr_loss, build_loss_fn, ce_loss
+from poi_tpu_torch.utils.config import LossConfig
 
 torch.set_num_threads(1)
 
@@ -129,5 +129,8 @@ def test_build_loss_fn_dispatch_matches_the_tpu_package(num_pois, kind, smoothin
 
 @pytest.mark.parametrize("kind", ["bpr"])
 def test_unported_losses_raise(kind):
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_loss_fn(LossConfig(kind=kind), 100)
+    """Every objective of poi_tpu is ported now (BPR came with config #2's
+    slice): ``kind`` builds its loss, and only an unknown kind raises."""
+    assert build_loss_fn(LossConfig(kind=kind), 100) is bpr_loss
+    with pytest.raises(ValueError, match="unknown loss"):
+        build_loss_fn(LossConfig(kind="hinge"), 100)

@@ -17,7 +17,6 @@ import torch
 from poi_tpu.ops.fused_sampled import fused_sampled_softmax_loss as jax_fused_loss
 from poi_tpu.ops.fused_sampled import sampled_nll_rows as jax_sampled_nll_rows
 from poi_tpu.train.losses import sampled_softmax_loss as jax_sampled_loss
-from poi_tpu.utils.config import LossConfig
 from poi_tpu_torch.ops.fused_sampled import (
     NEG,
     fused_sampled_softmax_loss,
@@ -28,6 +27,7 @@ from poi_tpu_torch.ops.fused_sampled import (
     sampled_nll_rows,
 )
 from poi_tpu_torch.train.losses import build_loss_fn, draw_sampled_negatives, sampled_softmax_loss
+from poi_tpu_torch.utils.config import LossConfig
 
 torch.set_num_threads(1)
 

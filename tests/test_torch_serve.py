@@ -6,6 +6,7 @@ Smoke-config dataset with config #1's model widths (64-d). The JAX side runs
 on the CPU: the lax.scan GRU cell and, with eval.topk_impl=pallas, the
 top-k kernel in Pallas interpret mode."""
 
+import dataclasses
 import io
 import json
 import os
@@ -18,13 +19,14 @@ import numpy as np
 import pytest
 import torch
 
-from poi_tpu.configs.presets import get_config
-from poi_tpu.data.dataset import load_dataset
 from poi_tpu.eval.serve import Checkin as JaxCheckin
 from poi_tpu.eval.serve import Recommender as JaxRecommender
 from poi_tpu.models.base import DataDims as JaxDataDims
 from poi_tpu.models.base import build_model as jax_build_model
+from poi_tpu.utils.config import Config as JaxConfig
+from poi_tpu_torch.configs.presets import get_config
 from poi_tpu_torch.convert import load_npz, params_from_jax, params_to_numpy, save_npz
+from poi_tpu_torch.data.dataset import load_dataset
 from poi_tpu_torch.eval.serve import Checkin, Recommender
 from poi_tpu_torch.models.base import DataDims, batch_to, build_model
 
@@ -41,13 +43,18 @@ QUERY_TOL = 1e-5
 TIE_TOL = 1e-5
 
 
+def _jax(cfg):
+    """The same configuration as poi_tpu's own Config."""
+    return JaxConfig.from_dict(cfg.to_dict())
+
+
 @pytest.fixture(scope="module")
 def setup():
     cfg = get_config("smoke").with_overrides(
         {"model.embed_dim": "64", "model.hidden_dim": "64", "eval.topk_impl": "pallas"}
     )
     ds = load_dataset(cfg.data)
-    jmodel = jax_build_model(cfg.model, JaxDataDims.from_dataset(ds))
+    jmodel = jax_build_model(_jax(cfg).model, JaxDataDims.from_dataset(ds))
     jparams = jmodel.init(jax.random.key(0))
     tree = jax.tree.map(np.asarray, jparams)
     model = build_model(cfg.model, DataDims.from_dataset(ds), device="cpu")
@@ -87,7 +94,7 @@ def test_convert_round_trips_jax_init_tree(setup, tmp_path):
 
 def test_queries_last_matches_jax(setup):
     cfg, ds, jmodel, jparams, _, model = setup
-    jrec = JaxRecommender(jmodel, jparams, cfg, ds)
+    jrec = JaxRecommender(jmodel, jparams, _jax(cfg), ds)
     batch = jrec._featurize(_histories_from_test(ds, 8, JaxCheckin))
     want = np.asarray(jmodel.queries_last(jparams, batch))
     with torch.inference_mode():
@@ -100,17 +107,18 @@ def test_queries_last_with_projection_user_and_untied_table_matches_jax(setup):
     """The parts config #1 does not use: a hidden width other than the
     embedding width (so a projection), the user embedding and an untied
     output table, carried across and scored as in poi_tpu."""
-    from poi_tpu.utils.config import ModelConfig
+    from poi_tpu.utils.config import ModelConfig as JaxModelConfig
     from poi_tpu_torch.eval.evaluate import prepare_catalog
+    from poi_tpu_torch.utils.config import ModelConfig
 
     cfg, ds, _, _, _, _ = setup
     mcfg = ModelConfig(kind="gru", embed_dim=32, hidden_dim=48, use_user_embedding=True,
                        tie_output_embedding=False)
-    jmodel = jax_build_model(mcfg, JaxDataDims.from_dataset(ds))
+    jmodel = jax_build_model(JaxModelConfig(**dataclasses.asdict(mcfg)), JaxDataDims.from_dataset(ds))
     jparams = jmodel.init(jax.random.key(1))
     model = build_model(mcfg, DataDims.from_dataset(ds), device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams)))
-    jrec = JaxRecommender(jmodel, jparams, cfg, ds)
+    jrec = JaxRecommender(jmodel, jparams, _jax(cfg), ds)
     batch = jrec._featurize(_histories_from_test(ds, 8, JaxCheckin))
     batch = batch._replace(user=np.arange(8, dtype=np.int32))
     want = np.asarray(jmodel.queries_last(jparams, batch))
@@ -138,7 +146,7 @@ def test_featurize_matches_jax(setup):
              float(rng.uniform(-120, 120)) if i % 3 == 0 else None)
             for i, p in enumerate(pois)
         ])
-    want = JaxRecommender(jmodel, jparams, cfg, ds)._featurize([[JaxCheckin(*c) for c in h] for h in raw])
+    want = JaxRecommender(jmodel, jparams, _jax(cfg), ds)._featurize([[JaxCheckin(*c) for c in h] for h in raw])
     got = Recommender(model, cfg, ds)._featurize([[Checkin(*c) for c in h] for h in raw])
     for name in want._fields:
         a, b = getattr(got, name), getattr(want, name)
@@ -153,7 +161,7 @@ def test_recommend_matches_jax(setup, exclude_visited):
     cfg, ds, jmodel, jparams, _, model = setup
     histories = _histories_from_test(ds, 8)
     jhist = [[JaxCheckin(c.poi, c.timestamp) for c in h] for h in histories]
-    want = JaxRecommender(jmodel, jparams, cfg, ds).recommend(jhist, k=10, exclude_visited=exclude_visited)
+    want = JaxRecommender(jmodel, jparams, _jax(cfg), ds).recommend(jhist, k=10, exclude_visited=exclude_visited)
     rec = Recommender(model, cfg, ds)
     got = rec.recommend(histories, k=10, exclude_visited=exclude_visited)
     assert got.shape == want.shape == (8, 10)

@@ -10,12 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from poi_tpu.data.pipeline import Batch
 from poi_tpu.models.base import DataDims
 from poi_tpu.train import sparse_opt as jax_sparse
-from poi_tpu.utils.config import Config, LossConfig, ModelConfig, TrainConfig
+from poi_tpu.utils.config import Config as JaxConfig
 from poi_tpu_torch.convert import flatten, params_from_jax, sparse_adam_state_from_jax, sparse_adam_state_to_numpy
+from poi_tpu_torch.data.pipeline import Batch
 from poi_tpu_torch.train import sparse_opt
+from poi_tpu_torch.utils.config import Config, LossConfig, ModelConfig, TrainConfig
 
 torch.set_num_threads(1)
 
@@ -23,6 +24,11 @@ torch.set_num_threads(1)
 # powers and the global norm's summation order may differ in the last bit.
 REL_TOL = 1e-6
 V, D = 40, 8
+
+
+def _jax(cfg):
+    """The same configuration as poi_tpu's own Config."""
+    return JaxConfig.from_dict(cfg.to_dict())
 
 
 def _cfg(clip=1.0, **train):
@@ -61,7 +67,7 @@ def test_update_matches_poi_tpu_masked_dense(clip, grad_scale):
     moments against update_apply; untouched table rows bit-unchanged."""
     rng = np.random.default_rng(0)
     tree = _tree(rng)
-    jopt = jax_sparse.SparseTableOptimizer(_cfg(clip))
+    jopt = jax_sparse.SparseTableOptimizer(_jax(_cfg(clip)))
     jparams = jax.tree.map(jnp.asarray, tree)
     jstate = jopt.init(jparams)
     opt = sparse_opt.SparseTableOptimizer(_cfg(clip))
@@ -102,7 +108,7 @@ def test_state_carried_from_poi_tpu_continues_identically():
     poi_tpu's next update."""
     rng = np.random.default_rng(1)
     tree = _tree(rng)
-    jopt = jax_sparse.SparseTableOptimizer(_cfg())
+    jopt = jax_sparse.SparseTableOptimizer(_jax(_cfg()))
     jparams = jax.tree.map(jnp.asarray, tree)
     jstate = jopt.init(jparams)
     for _ in range(2):
@@ -137,9 +143,9 @@ def test_validate_config_matches_poi_tpu(overrides, match):
     cfg = _cfg() if overrides == "ce" else _cfg(**overrides)
     if overrides == "ce":
         cfg = dataclasses.replace(cfg, loss=LossConfig(kind="ce"))
-    for validate in (sparse_opt.validate_config, jax_sparse.validate_config):
+    for validate, c in ((sparse_opt.validate_config, cfg), (jax_sparse.validate_config, _jax(cfg))):
         with pytest.raises(ValueError, match=match):
-            validate(cfg)
+            validate(c)
 
 
 @pytest.mark.parametrize("num_pois, embed_dim, tied, loss", [
@@ -154,7 +160,7 @@ def test_rows_mode_dispatch_matches_poi_tpu(num_pois, embed_dim, tied, loss):
     dims = DataDims(num_users=1, num_pois=num_pois, num_time_buckets=1, num_geo_buckets=1, num_tgap_buckets=1,
                     num_dist_buckets=1)
     assert sparse_opt.DENSE_LAZY_MAX_BYTES == jax_sparse.DENSE_LAZY_MAX_BYTES
-    assert sparse_opt.rows_mode_enabled(cfg, dims, 1) == jax_sparse.rows_mode_enabled(cfg, dims, 1)
+    assert sparse_opt.rows_mode_enabled(cfg, dims, 1) == jax_sparse.rows_mode_enabled(_jax(cfg), dims, 1)
     assert not sparse_opt.rows_mode_enabled(cfg, dims, 4)
 
 
@@ -165,7 +171,7 @@ def test_touched_ids_match_poi_tpu_on_the_same_pool():
                   mask=np.ones((B, T), np.float32), time_bucket=None, geo_bucket=None, tgap_idx=None,
                   tgap_frac=None, dist_idx=None, dist_frac=None)
     key = jax.random.key(3)
-    want = jax_sparse.touched_ids(_cfg(), jax.tree.map(lambda a: a if a is None else jnp.asarray(a), batch), key, V)
+    want = jax_sparse.touched_ids(_jax(_cfg()), jax.tree.map(lambda a: a if a is None else jnp.asarray(a), batch), key, V)
     neg = torch.from_numpy(np.array(jax.random.randint(key, (S,), 0, V)))
     tb = batch._replace(**{f: torch.from_numpy(getattr(batch, f)) for f in ("user", "poi_in", "poi_tgt")})
     got = sparse_opt.touched_ids(tb, neg)

@@ -6,6 +6,7 @@ Smoke config: a 410-POI synthetic catalog, so the CE is the dense one on
 both sides. The JAX side runs on the CPU with its lax.scan cell; the port
 runs its GRU Function (the kernels' plain versions on the CPU)."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -17,9 +18,6 @@ import optax
 import pytest
 import torch
 
-from poi_tpu.configs.presets import get_config
-from poi_tpu.data.dataset import load_dataset
-from poi_tpu.data.pipeline import make_batch
 from poi_tpu.eval.evaluate import evaluate as jax_evaluate
 from poi_tpu.eval.evaluate import popularity_baseline as jax_popularity_baseline
 from poi_tpu.models.base import DataDims as JaxDataDims
@@ -27,18 +25,30 @@ from poi_tpu.train.loop import Trainer as JaxTrainer
 from poi_tpu.train.loop import train as jax_train
 from poi_tpu.train.state import lr_schedule as jax_lr_schedule
 from poi_tpu.train.state import make_optimizer as jax_make_optimizer
-from poi_tpu.utils.config import TrainConfig
+from poi_tpu.utils.config import Config as JaxConfig
+from poi_tpu.utils.config import TrainConfig as JaxTrainConfig
+from poi_tpu_torch.configs.presets import get_config
 from poi_tpu_torch.convert import adam_state_from_jax, adam_state_to_numpy, params_to_numpy
+from poi_tpu_torch.data.dataset import load_dataset
 from poi_tpu_torch.data.device_sampler import DeviceSampler
+from poi_tpu_torch.data.pipeline import make_batch
 from poi_tpu_torch.eval.evaluate import evaluate, popularity_baseline
 from poi_tpu_torch.models.base import DataDims
 from poi_tpu_torch.train.loop import FaultInjected, Trainer, train
 from poi_tpu_torch.train.selection import BestOnVal
 from poi_tpu_torch.train.state import lr_schedule, make_optimizer
+from poi_tpu_torch.utils.config import TrainConfig
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax(cfg):
+    """The same configuration as poi_tpu's own Config (or TrainConfig)."""
+    if isinstance(cfg, TrainConfig):
+        return JaxTrainConfig(**dataclasses.asdict(cfg))
+    return JaxConfig.from_dict(cfg.to_dict())
 
 
 def _smoke(**overrides):
@@ -73,7 +83,7 @@ def test_clip_matches_optax_on_tiny_gradients(clip):
     rng = np.random.default_rng(1)
     grads = {k: (1e-4 * rng.normal(size=s)).astype(np.float32) for k, s in (("a", (4, 3)), ("b", (5,)))}
     zeros = {k: np.zeros_like(g) for k, g in grads.items()}
-    jopt = jax_make_optimizer(cfg)
+    jopt = jax_make_optimizer(_jax(cfg))
     updates, _ = jopt.update(jax.tree.map(jax.numpy.asarray, grads), jopt.init(zeros), zeros)
     opt = make_optimizer(cfg)
     params = {k: torch.from_numpy(v.copy()) for k, v in zeros.items()}
@@ -90,7 +100,7 @@ def test_optimizer_matches_optax(case):
     cfg = TrainConfig(learning_rate=1e-2, **OPT_CASES[case])
     rng = np.random.default_rng(0)
     tree = {"a": rng.normal(size=(4, 3)).astype(np.float32), "b": rng.normal(size=5).astype(np.float32)}
-    jopt = jax_make_optimizer(cfg)
+    jopt = jax_make_optimizer(_jax(cfg))
     jparams = jax.tree.map(jax.numpy.asarray, tree)
     jstate = jopt.init(jparams)
     opt = make_optimizer(cfg)
@@ -118,7 +128,7 @@ def test_optimizer_matches_optax(case):
 ])
 def test_lr_schedule_matches_jax(overrides):
     cfg = TrainConfig(**overrides)
-    mine, theirs = lr_schedule(cfg), jax_lr_schedule(cfg)
+    mine, theirs = lr_schedule(cfg), jax_lr_schedule(_jax(cfg))
     for step in list(range(0, 120)) + [cfg.num_steps - 1, cfg.num_steps, cfg.num_steps + 5]:
         np.testing.assert_allclose(mine(step), float(theirs(step)), rtol=1e-6, atol=0, err_msg=f"step {step}")
 
@@ -132,7 +142,7 @@ def test_cosine_warmup_longer_than_half_the_run_raises_unless_default():
 
 
 def _jax_trainer_and_tree(cfg, ds):
-    jt = JaxTrainer(cfg, JaxDataDims.from_dataset(ds))
+    jt = JaxTrainer(_jax(cfg), JaxDataDims.from_dataset(ds))
     js = jt.init_state()
     return jt, js, jax.tree.map(np.asarray, js.params)
 
@@ -193,7 +203,7 @@ def test_train_trajectory_matches_jax(smoke_ds):
     cfg = _smoke(**{"model.compute_dtype": "float32", "train.warmup_steps": 0, "train.log_every": 1,
                     "train.num_steps": 5})
     jt, js, tree = _jax_trainer_and_tree(cfg, smoke_ds)
-    _, _, jhist = jax_train(cfg, smoke_ds, state=js, trainer=jt)
+    _, _, jhist = jax_train(_jax(cfg), smoke_ds, state=js, trainer=jt)
     tt = Trainer(cfg, DataDims.from_dataset(smoke_ds))
     _, state, hist = train(cfg, smoke_ds, trainer=tt, state=tt.init_state(tree))
     assert state.step == 5
@@ -211,7 +221,7 @@ def test_evaluate_matches_jax(smoke_ds):
     kernel's plain version against JAX's Pallas top-k in interpret mode."""
     cfg = _smoke(**{"eval.topk_impl": "pallas"})
     jt, js, tree = _jax_trainer_and_tree(cfg, smoke_ds)
-    want = jax_evaluate(jt.model, js.params, smoke_ds, cfg)
+    want = jax_evaluate(jt.model, js.params, smoke_ds, _jax(cfg))
     tt = Trainer(cfg, DataDims.from_dataset(smoke_ds))
     tt.init_state(tree)
     got = evaluate(tt.model, smoke_ds, cfg)
@@ -315,7 +325,7 @@ def _run_cli(*argv):
         "import sys; from poi_tpu_torch.cli import main; rc = main(sys.argv[1:]); "
         "assert 'jax' not in sys.modules, 'jax was imported'; sys.exit(rc)"
     )
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", POI_TPU_DATA_CACHE="off")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", POI_TPU_TORCH_DATA_CACHE="off")
     return subprocess.run([sys.executable, "-c", code, *argv], capture_output=True, text=True, cwd=REPO, env=env,
                           timeout=300)
 

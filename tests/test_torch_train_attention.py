@@ -18,14 +18,15 @@ import numpy as np
 import pytest
 import torch
 
-from poi_tpu.configs.presets import get_config
-from poi_tpu.data.dataset import load_dataset
-from poi_tpu.data.pipeline import make_batch
 from poi_tpu.eval.evaluate import evaluate as jax_evaluate
 from poi_tpu.models.base import DataDims as JaxDataDims
 from poi_tpu.train.loop import Trainer as JaxTrainer
 from poi_tpu.train.loop import train as jax_train
+from poi_tpu.utils.config import Config as JaxConfig
+from poi_tpu_torch.configs.presets import get_config
 from poi_tpu_torch.convert import flatten, params_to_numpy, sparse_adam_state_to_numpy
+from poi_tpu_torch.data.dataset import load_dataset
+from poi_tpu_torch.data.pipeline import make_batch
 from poi_tpu_torch.eval.evaluate import evaluate
 from poi_tpu_torch.eval.serve import Checkin, Recommender
 from poi_tpu_torch.models.base import DataDims, batch_to
@@ -46,6 +47,11 @@ SMALL = {
 REL_TOL = 1e-5
 
 
+def _jax(cfg):
+    """The same configuration as poi_tpu's own Config."""
+    return JaxConfig.from_dict(cfg.to_dict())
+
+
 def _cfg(**overrides):
     return get_config("attention_gowalla").with_overrides({k: str(v) for k, v in {**SMALL, **overrides}.items()})
 
@@ -58,7 +64,7 @@ def ds():
 def _pair(cfg, ds):
     """poi_tpu's Trainer and state, and the port's Trainer on the same
     params whose negative pools replay poi_tpu's draws."""
-    jt = JaxTrainer(cfg, JaxDataDims.from_dataset(ds))
+    jt = JaxTrainer(_jax(cfg), JaxDataDims.from_dataset(ds))
     js = jt.init_state()
     tree = jax.tree.map(np.asarray, js.params)
     S, V = cfg.loss.num_sampled, ds.num_pois
@@ -122,7 +128,7 @@ def test_train_trajectory_and_evaluate_match_jax(ds):
     then the lazy-Adam state and evaluate() on val."""
     cfg = _cfg(**{"model.compute_dtype": "float32"})
     jt, js, tt, st, _ = _pair(cfg, ds)
-    _, jfinal, jhist = jax_train(cfg, ds, state=js, trainer=jt)
+    _, jfinal, jhist = jax_train(_jax(cfg), ds, state=js, trainer=jt)
     _, final, hist = train(cfg, ds, trainer=tt, state=st)
     assert final.step == 5 and [r["step"] for r in hist] == [r["step"] for r in jhist] == [1, 2, 3, 4, 5]
     for a, b in zip(hist, jhist):
@@ -135,7 +141,7 @@ def test_train_trajectory_and_evaluate_match_jax(ds):
     for which in ("m", "v"):
         _assert_trees_close(lazy[which], getattr(jfinal.opt_state, which), 1e-3, which)
     got = evaluate(tt.model, ds, cfg, split="val")
-    want = jax_evaluate(jt.model, jfinal.params, ds, cfg, split="val")
+    want = jax_evaluate(jt.model, jfinal.params, ds, _jax(cfg), split="val")
     n = want["eval_examples"]
     assert got["eval_examples"] == n
     for k in want:  # a near-tie may swap between the packages: one row's hit per metric
@@ -190,7 +196,7 @@ def test_cli_train_config4_on_cpu_without_jax():
     sets = [f"{k}={v}" for k, v in {**SMALL, "train.num_steps": 20, "train.log_every": 10,
                                      "train.eval_every": 10, "data.sampler": "device",
                                      "model.dropout": 0.3}.items()]
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", POI_TPU_DATA_CACHE="off")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", POI_TPU_TORCH_DATA_CACHE="off")
     proc = subprocess.run([sys.executable, "-c", code, "train", "--config", "attention_gowalla", "--device", "cpu",
                            "--no-checkpoint", "--set", *sets], capture_output=True, text=True, cwd=REPO, env=env,
                           timeout=300)
