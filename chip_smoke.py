@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch port: serving config #1, training, and
-configs #2, #3 and #4.
+"""On-card smoke run of the PyTorch port: serving config #1, training,
+configs #2, #3 and #4, and the measurement scripts.
 
     python3 chip_smoke.py          # from the repository root, on a machine with one CUDA card
 
@@ -24,7 +24,11 @@ with its plain PyTorch version on the card. Then it drives the paths:
   32 negatives a position, T=64, batch 64, 35,880 POIs) and config #3
   (``strnn_gowalla``: ST-RNN 128-d, 8 time-gap and 8 distance buckets, user
   embedding, dropout 0.5, full CE over 36,969 POIs, T=32, batch 64), each the
-  same way as config #4.
+  same way as config #4;
+- the sweep of the CE forward's variants (B12, ``scripts/sweep_ce_fwd``),
+  B12's main path, called in this process at its own shape;
+- the measurement scripts (``python -m poi_tpu_torch.scripts.<name>``), each
+  once as a subprocess.
 
 It times the kernels against their plain versions (and against a PyTorch
 call that computes the same function, where there is one), ``recommend``
@@ -49,6 +53,13 @@ import traceback
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+if not (REPO / "poi_tpu_torch").is_dir():
+    sys.exit(f"error: {REPO} is not a checkout of the repository (no poi_tpu_torch/)")
+sys.path.insert(0, str(REPO))
+# The timer, the cuDNN yardstick and the bench workload are the measurement scripts'.
+from poi_tpu_torch.scripts import _timing  # noqa: E402
+from poi_tpu_torch.scripts._timing import cudnn_ms, time_ms  # noqa: E402
+
 CONFIG = "gru_foursquare_nyc"
 SEED = 0
 DEV = "cuda"
@@ -79,22 +90,12 @@ CE_LSE_TOL = 1e-4
 CE_GRAD_TOL = 2e-3
 CE_DBIAS_TOL = 1e-5
 
-# The training workload bench.py times (bench.py:126-153): the smoke preset
-# with these overrides. 44,170 POIs and 4,925 training windows after
-# filtering.
+# The training workload bench.py times (bench.py:126-153, 44,170 POIs and
+# 4,925 training windows after filtering) at batch 512, device-sampled in
+# 40-step chunks, evaluated through the top-k kernel.
 BENCH_OVERRIDES = {
-    "data.num_users": "4000",
-    "data.num_pois": "50000",
-    "data.mean_checkins_per_user": "60",
-    "data.max_seq_len": "64",
-    "data.min_user_checkins": "8",
-    "model.kind": "gru",
-    "model.embed_dim": "128",
-    "model.hidden_dim": "128",
-    "loss.kind": "ce",
-    "train.warmup_steps": "0",
+    **_timing.BENCH_OVERRIDES,
     "train.batch_size": "512",
-    "model.compute_dtype": "bfloat16",
     "train.steps_per_call": "40",
     "data.sampler": "device",
     "eval.topk_impl": "pallas",
@@ -146,6 +147,12 @@ REC_CONFIGS = {"lstm": ("lstm_bpr_foursquare", ("lstm_fwd", "lstm_bwd")),
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
+# Exponentials (ex2, and log2 and the other special functions) go to the
+# special-function units: 16 results a clock per SM at compute capability
+# 9.0, against 128 fp32 FMAs (256 FLOP) a clock (NVIDIA's CUDA C++
+# documentation, the throughput table of the arithmetic instructions), so a
+# sixteenth of the fp32 rate above: 4.19e12 a second.
+SFU_PER_S = FP32_FLOP_PER_S / 16
 # Shapes the training kernels are timed at: the bench workload's GRU
 # (B, T, H) and CE (N = B*T, V, D), and the dense-vs-fused CE cases around the
 # 8,192 threshold (config #1's shape, then the bench shape at both catalogs).
@@ -159,6 +166,23 @@ CE_THRESHOLD_CASES = ((2048, 6749, 64), (32768, 6749, 128), (32768, 44170, 128))
 ATTN_CONFIG = "attention_gowalla"
 SAMPLER_OVERRIDES = {"data.sampler": "device", "train.steps_per_call": str(TRAIN_STEPS)}
 STEP_TIME_CHUNK = 20
+# The ported measurement scripts, each run once as a subprocess: the sweeps,
+# bench_cells and bench_serve at their defaults; profile_step at the bench
+# workload's batch and profile_attn at config #4's; mem_budget on the bench
+# workload (one 40-step device-sampled chunk) and on config #4 (one
+# host-loader step); quality_runs on config #1 cut from its 3,000 steps to
+# 300 (best-on-val at 100, 200, 300).
+SCRIPT_RUNS = (
+    ("sweep_ce_fwd", []),
+    ("sweep_ce_bwd", []),
+    ("profile_step", ["--batch", "512"]),
+    ("profile_attn", ["--batch", "64"]),
+    ("bench_cells", []),
+    ("bench_serve", []),
+    ("mem_budget", ["smoke", "--set", *(f"{k}={v}" for k, v in BENCH_OVERRIDES.items())]),
+    ("mem_budget", [ATTN_CONFIG]),
+    ("quality_runs", [CONFIG, "train.num_steps=300", "train.eval_every=100"]),
+)
 # The GRU kernels' cluster path (H > 196): config #4's train shape, a ragged
 # batch, and config #5's width.
 GRU_BIG_SHAPES = ((64, 128, 256), (7, 128, 256), (5, 64, 512))
@@ -169,6 +193,10 @@ GRU_BIG_SHAPES = ((64, 128, 256), (7, 128, 256), (5, 64, 512))
 # Small catalogs make accidental hits common.
 SAMPLED_CASES = ((8192, 1024, 256, 36969, 0, False), (8192, 1000, 256, 2000, 24, False),
                  (300, 200, 256, 50, 0, True), (1000, 300, 128, 500, 0, False))
+# B12, the CE forward's variants, beside the sweep's own shape (N, V, D,
+# real POIs): a ragged catalog padded with -1e30 rows past a tile boundary,
+# and D = 32 with neither N nor V a tile multiple.
+CE_VARIANT_CASES = ((300, 8193, 128, 8000), (70, 700, 32, 650))
 
 
 def log(msg: str) -> None:
@@ -180,24 +208,6 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms (CUDA events around each call)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def host_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -350,32 +360,28 @@ def topk_phase() -> float:
     return worst
 
 
-def bound(inputs, outputs, bf16_flop: float = 0.0, fp32_flop: float = 0.0) -> dict:
+def bound(inputs, outputs, bf16_flop: float = 0.0, fp32_flop: float = 0.0, exps: float = 0.0) -> dict:
     """The least time the card could take for a function of ``inputs`` to
-    ``outputs``: bytes at the memory rate or operations at the peak rate of
-    their type (bf16 products on the tensor cores, fp32 ones on the CUDA
-    cores), whichever is larger."""
+    ``outputs``: its bytes at the memory rate, and each kind of operation at
+    the peak rate of the pipe that does it (bf16 products on the tensor
+    cores, fp32 ones on the CUDA cores, exponentials on the special-function
+    units). The pipes run at once, so the largest of these times bounds it;
+    ``bound_pipe`` names which."""
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (bf16_flop / BF16_FLOP_PER_S + fp32_flop / FP32_FLOP_PER_S) * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    times = {"memory": nbytes / HBM_BYTES_PER_S, "tensor": bf16_flop / BF16_FLOP_PER_S,
+             "fp32": fp32_flop / FP32_FLOP_PER_S, "sfu": exps / SFU_PER_S}
+    pipe = max(times, key=times.get)
+    return {"bound_ms": times[pipe] * 1e3, "bound_by": "bytes" if pipe == "memory" else "operations",
+            "bound_pipe": pipe}
 
 
-def cudnn_ms(kind: str, B: int, T: int, H: int) -> float:
-    """Forward of cuDNN's ``nn.GRU``/``nn.LSTM``/``nn.RNN`` (tanh) in bf16 at
-    the same B, T, H: a yardstick only. It computes more than the kernel (its
-    own input projection and a second bias) and takes no mask; the GRU's gate
-    semantics differ from poi_tpu's. PyTorch keeps bf16 weights out of
-    cuDNN's single weight buffer (``flatten_parameters`` takes fp16/fp32
-    only), so each call also packs the weights into one: the time a bf16
-    user of the module pays."""
-    import torch
-
-    cls = {"gru": torch.nn.GRU, "lstm": torch.nn.LSTM, "rnn": torch.nn.RNN}[kind]
-    mod = cls(H, H, batch_first=True, device=DEV, dtype=torch.bfloat16)
-    x = torch.randn(B, T, H, device=DEV, dtype=torch.bfloat16)
-    with torch.no_grad():
-        return time_ms(lambda: mod(x))
+def ce_lse_bound(q, table, bias, lse) -> dict:
+    """B7's and B12's bound: the catalog product on the tensor cores, one
+    exponential a logit on the special-function units, and the two fp32
+    operations a logit that every variant does (the bias add and the sum)."""
+    N, D = q.shape
+    V = table.shape[0]
+    return bound((q, table, bias), (lse,), bf16_flop=2 * N * V * D, fp32_flop=2 * N * V, exps=N * V)
 
 
 def rel_err(got, want) -> float:
@@ -443,6 +449,68 @@ def ce_phase() -> tuple[float, float]:
     return worst_lse, worst_grad
 
 
+def check_variant(name: str, got, want, base, q, table, bias, shape: str) -> float:
+    """One B12 instantiation's output against its plain version's: within
+    ``CE_LSE_TOL``, the same bits on a second launch, and base/64 equal to
+    ``ce_lse`` bit for bit. Returns the largest absolute error."""
+    import torch
+
+    from poi_tpu_torch.ops.fused_ce import ce_lse_variant
+
+    variant, rows = name.split("/")
+    err = float((got - want).abs().max())
+    assert bool(torch.isfinite(got).all()) and err < CE_LSE_TOL, f"ce_lse_variant {name} {shape}: {err}"
+    assert torch.equal(ce_lse_variant(q, table, bias, variant, int(rows)), got), f"{name} {shape}: run-to-run bits"
+    assert name != "base/64" or torch.equal(got, base), f"base/64 differs from ce_lse at {shape}"
+    log(f"[ce_variants] {name:9s} {shape}: max |kernel - plain| {err:.2e} (tol {CE_LSE_TOL}); a second launch "
+        f"gives the same bits" + ("; equal to ce_lse bit for bit" if name == "base/64" else ""))
+    return err
+
+
+def ce_variants_phase() -> dict:
+    """B12's main path, the sweep (``scripts/sweep_ce_fwd.sweep``) at its own
+    shape and inputs (logits under ~3, far below the ~88 where nomax
+    overflows), then ``CE_VARIANT_CASES``. Each of the six instantiations
+    (variant x rows a block) is held against its plain version; base at 64
+    rows equals ``ce_lse`` bit for bit and a second launch of each gives the
+    same bits. Keeps, at the sweep's shape, each one's launches in the sweep's
+    timed runs and its time (the sweep's), its plain version's and the bound."""
+    import torch
+
+    from poi_tpu_torch.ops.fused_ce import VARIANT_REFERENCES, ce_lse, ce_lse_variant
+    from poi_tpu_torch.scripts import sweep_ce_fwd
+
+    N, V, D = sweep_ce_fwd.N, sweep_ce_fwd.V, sweep_ce_fwd.D
+    q, table, bias = sweep_ce_fwd.inputs(N, V, D, DEV)
+    cells = sweep_ce_fwd.sweep(q, table, bias)
+    base = ce_lse(q, table, bias)
+    for name, c in cells.items():
+        variant = name.split("/")[0]
+        want = VARIANT_REFERENCES[variant](q, table, bias)
+        c["max_abs_err"] = check_variant(name, c.pop("lse"), want, base, q, table, bias, f"N={N} V={V} D={D}")
+        # No one PyTorch call gives a row LSE over a product (as B7): no library time.
+        c.update(plain_ms=time_ms(lambda: VARIANT_REFERENCES[variant](q, table, bias), 5), library_ms=None,
+                 **ce_lse_bound(q, table, bias, base))
+        log(f"[time] ce_lse_variant {name} N={N} V={V} D={D}: kernel {c['ms']:.4f} ms "
+            f"({2 * N * V * D / c['ms'] / 1e9:.1f} TFLOP/s), plain {c['plain_ms']:.4f} ms; bound "
+            f"{c['bound_ms']:.4f} ms ({c['bound_by']}, {c['bound_pipe']}); {c['launches']} launches in the sweep")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    for N, V, D, real in CE_VARIANT_CASES:
+        q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
+        table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
+        bias = torch.randn(V, generator=gen, device=DEV)
+        bias[real:] = -1e30
+        base = ce_lse(q, table, bias)
+        for name, c in cells.items():
+            variant, rows = name.split("/")
+            got = ce_lse_variant(q, table, bias, variant, int(rows))
+            want = VARIANT_REFERENCES[variant](q, table, bias)
+            err = check_variant(name, got, want, base, q, table, bias,
+                                f"N={N} V={V} D={D}" + (" (-1e30 tail)" if real < V else ""))
+            c["max_abs_err"] = max(c["max_abs_err"], err)
+    return cells
+
+
 def gru_big_phase() -> dict:
     """B1 and B2 on the cluster path (H > 196) against their plain versions:
     config #4's (B, T, H), a ragged batch, and config #5's H = 512. Returns
@@ -467,15 +535,17 @@ def gru_big_phase() -> dict:
             G = 3 * H
             out["fwd"] = {"ms": time_ms(lambda: fused_gru_scan(xw, wh)),
                           "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh), 5),
+                          "library_ms": cudnn_ms("gru", B, T, H, DEV),
                           **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * G)}
             out["bwd"] = {"ms": time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs)),
-                          "plain_ms": time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 5),
+                          "plain_ms": time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 5), "library_ms": None,
                           **bound((xw, wh, hs, dhs), fused_gru_bwd(xw, wh, hs, dhs), bf16_flop=2 * B * T * H * G,
                                   fp32_flop=4 * B * T * H * G)}
             for d in ("fwd", "bwd"):
                 t = out[d]
+                lib = f", cuDNN nn.GRU forward {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
                 log(f"[time] gru_{d} B={B} T={T} H={H} (cluster): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-                    f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+                    f"ms{lib}; bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     return out
 
 
@@ -644,7 +714,7 @@ def recurrence_phase(tag: str, gates: int, shapes, tol: float, ops) -> dict:
         carries, dhs = r["carries"], r["dhs"]
         G = gates * H
         out["fwd"] = {"ms": time_ms(lambda: scan(x, mask, w)), "plain_ms": time_ms(lambda: scan_ref(x, mask, w), 5),
-                      "library_ms": cudnn_ms("lstm" if gates == 4 else "rnn", B, T, H),
+                      "library_ms": cudnn_ms("lstm" if gates == 4 else "rnn", B, T, H, DEV),
                       **bound((x, mask, w), carries, bf16_flop=2 * B * T * H * G)}
         dx_dw = bwd(x, mask, w, *carries, dhs)
         out["bwd"] = {"ms": time_ms(lambda: bwd(x, mask, w, *carries, dhs)),
@@ -821,7 +891,7 @@ def cli_phase(state) -> None:
 
 
 def kernel_wrappers() -> dict:
-    from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_lse
+    from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_lse, ce_lse_variant
     from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan
     from poi_tpu_torch.ops.fused_lstm import fused_lstm_bwd, fused_lstm_scan
     from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan
@@ -830,7 +900,8 @@ def kernel_wrappers() -> dict:
 
     return {"gru_fwd": fused_gru_scan, "gru_bwd": fused_gru_bwd, "lstm_fwd": fused_lstm_scan,
             "lstm_bwd": fused_lstm_bwd, "rnn_fwd": fused_rnn_scan, "rnn_bwd": fused_rnn_bwd, "ce_lse": ce_lse,
-            "ce_bwd": ce_bwd, "topk": fused_topk, "sampled_lse": sampled_lse, "sampled_bwd": sampled_bwd}
+            "ce_bwd": ce_bwd, "topk": fused_topk, "sampled_lse": sampled_lse, "sampled_bwd": sampled_bwd,
+            "ce_lse_variant": ce_lse_variant}
 
 
 def reset_launches() -> None:
@@ -1055,6 +1126,21 @@ def cli_train_phase(state) -> None:
                                "data.sampler=device"], 20)
 
 
+def scripts_phase(state) -> None:
+    """Each ported script as a user runs it (``python -m
+    poi_tpu_torch.scripts.<name>``) on the card, at ``SCRIPT_RUNS``; a
+    nonzero exit fails the run."""
+    for name, args in SCRIPT_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"poi_tpu_torch.scripts.{name}", *args, "--device", DEV],
+                              capture_output=True, text=True, cwd=REPO, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=str(REPO)))
+        for line in proc.stdout.splitlines():
+            log(f"[{name}] {line}")
+        assert proc.returncode == 0, f"{name} {' '.join(args)} exited {proc.returncode}:\n{proc.stderr[-3000:]}"
+        log(f"[scripts] {name} {' '.join(args)}: exit 0 in {time.perf_counter() - t0:.1f} s")
+
+
 def timing_phase(state, gpu: str) -> dict:
     import torch
 
@@ -1067,7 +1153,7 @@ def timing_phase(state, gpu: str) -> dict:
     B, T, H = 256, 64, 64
     xw, wh, _, _ = gru_case(B, T, H, gen)
     out["gru_fwd"] = {"ms": time_ms(lambda: fused_gru_scan(xw, wh)), "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh)),
-                      "library_ms": cudnn_ms("gru", B, T, H),
+                      "library_ms": cudnn_ms("gru", B, T, H, DEV),
                       **bound((xw, wh), (fused_gru_scan(xw, wh),), bf16_flop=2 * B * T * H * 3 * H)}
     t = out["gru_fwd"]
     log(f"[time] gru_fwd B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN nn.GRU "
@@ -1184,7 +1270,7 @@ def train_timing_phase(state, gpu: str) -> dict:
     G = 3 * H
     out["gru_fwd_train"] = {"ms": time_ms(lambda: fused_gru_scan(xw, wh)),
                             "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh), 5),
-                            "library_ms": cudnn_ms("gru", B, T, H),
+                            "library_ms": cudnn_ms("gru", B, T, H, DEV),
                             **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * G)}
     out["gru_bwd"] = {"ms": time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs)),
                       "plain_ms": time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 5), "library_ms": None,
@@ -1206,15 +1292,15 @@ def train_timing_phase(state, gpu: str) -> dict:
     # gradients from a given LSE: no library time.
     out["ce_lse"] = {"ms": time_ms(lambda: ce_lse(q, table, bias)),
                      "plain_ms": time_ms(lambda: ce_lse_reference(q, table, bias), 5), "library_ms": None,
-                     **bound((q, table, bias), (lse,), bf16_flop=flop)}
+                     **ce_lse_bound(q, table, bias, lse)}
     out["ce_bwd"] = {"ms": time_ms(lambda: ce_bwd(q, table, bias, lse, g)),
                      "plain_ms": time_ms(lambda: ce_bwd_reference(q, table, bias, lse, g), 5), "library_ms": None,
                      **bound((q, table, bias, lse, g), ce_bwd(q, table, bias, lse, g), bf16_flop=3 * flop)}
     for name, products in (("ce_lse", 1), ("ce_bwd", 4)):
         t = out[name]
         log(f"[time] {name} N={N} V={V} D={D}: kernel {t['ms']:.4f} ms ({products * flop / t['ms'] / 1e9:.1f} TFLOP/s "
-            f"of catalog products), plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})  "
-            f"({gpu})")
+            f"of catalog products), plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{t['bound_pipe']})  ({gpu})")
 
     from poi_tpu_torch.train.loop import make_trainer
 
@@ -1257,14 +1343,11 @@ def record(name: str, source: str, replaces: str, launches: int, max_abs_err: fl
     its parity and its times at the main path's shape, with the bound."""
     return {"name": name, "route": "cuda", "source": f"poi_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches, "max_abs_err": max_abs_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"], **extra}
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_pipe": t["bound_pipe"],
+            "library_ms": t["library_ms"], **extra}
 
 
 def main() -> int:
-    if not (REPO / "poi_tpu_torch").is_dir():
-        print(f"error: {REPO} is not a checkout of the repository (no poi_tpu_torch/)", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(REPO))
     # The dataset cache would live outside the checkout; each config builds in about two seconds.
     os.environ.setdefault("POI_TPU_TORCH_DATA_CACHE", "off")
     import torch
@@ -1290,6 +1373,7 @@ def main() -> int:
     topk_err = phase("topk", topk_phase)
     gru_bwd_err = phase("gru_bwd", gru_bwd_phase)
     lse_err, ce_grad_err = phase("ce", ce_phase)
+    variants = phase("ce_variants", ce_variants_phase)
     big = phase("gru_big", gru_big_phase)
     sampled = phase("sampled", sampled_phase)
     lstm = phase("lstm", lstm_phase)
@@ -1305,6 +1389,7 @@ def main() -> int:
     times = phase("timing", timing_phase, state, gpu)
     times.update(phase("train_timing", train_timing_phase, state, gpu))
     times.update(phase("config_timing", config_timing_phase, state, gpu))
+    phase("scripts", scripts_phase, state)
     loaded = sorted(m for m in sys.modules if m in ("jax", "poi_tpu") or m.startswith(("jax.", "poi_tpu.")))
     assert not loaded, f"JAX or the JAX package was imported: {loaded}"
 
@@ -1313,10 +1398,15 @@ def main() -> int:
     # (train phase), sampled_lse and sampled_bwd from config #4's (attn_train
     # phase), lstm_* from config #2's and rnn_* from config #3's (lstm_config,
     # strnn_config). The GRU rows also carry the cluster path (H = 256) at
-    # config #4's shape, (B, T) = (64, 128).
+    # config #4's shape, (B, T) = (64, 128). ce_lse_variants: each
+    # instantiation's launches and time in the sweep's timed runs
+    # (ce_variants phase), the fastest one's at the top level.
     served, trained, attn = state["launches"], state["train_launches"], state["attn_launches"]
+    swept = {k: t["launches"] for k, t in variants.items()}
+    assert len(swept) == 6 and all(swept.values()), f"the sweep skipped an instantiation: {swept}"
+    best = min(variants, key=lambda k: variants[k]["ms"])
     c2, c3 = state["lstm"]["launches"], state["strnn"]["launches"]
-    h256 = lambda d: {f"{k}_h256": big[d][k] for k in ("ms", "plain_ms", "bound_ms")}  # noqa: E731
+    h256 = lambda d: {f"{k}_h256": big[d][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}  # noqa: E731
     kernels = [
         record("gru_fwd", "gru_fwd.cu", "poi_tpu/ops/fused_gru.py:71", served["gru_fwd"], gru_err, times["gru_fwd"],
                max_abs_err_h256=big["fwd_err"], **h256("fwd")),
@@ -1333,6 +1423,10 @@ def main() -> int:
         record("sampled_bwd", "sampled.cu", "poi_tpu/ops/fused_sampled.py:103", attn["sampled_bwd"],
                sampled["grad_err"], sampled["bwd"]),
         record("topk", "topk.cu", "poi_tpu/ops/topk.py:58", served["topk"], topk_err, times["topk"]),
+        record("ce_lse_variants", "ce.cu", "scripts/sweep_ce_fwd.py:30,58", sum(swept.values()),
+               max(t["max_abs_err"] for t in variants.values()), variants[best], best=best,
+               variants={k: {**{f: t[f] for f in ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_pipe")},
+                             "launches": swept[k]} for k, t in variants.items()}),
     ]
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

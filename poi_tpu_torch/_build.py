@@ -47,6 +47,7 @@ _SIGNATURES = {
     "rnn_bwd": [_P] * 8 + [_I, _I, _I, _I, _P],
     "ce_supports_dim": [_I],
     "ce_lse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ce_lse_variant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sampled_supports_dim": [_I],
     "sampled_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

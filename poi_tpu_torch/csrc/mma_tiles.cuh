@@ -50,11 +50,12 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows [r0, r0 + kTile) of a row-major [R, D] bf16 matrix into a smem tile
-// with row stride D + kPad; rows past R are zero-filled.
-template <int D>
+// with row stride D + kPad; rows past R are zero-filled. Threads is the
+// block's thread count (ce.cu's 128-row forward runs 256).
+template <int D, int Threads = kThreads>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, int R) {
   constexpr int kVec = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
+  for (int i = threadIdx.x; i < kTile * kVec; i += Threads) {
     const int r = i / kVec;
     const int c = (i % kVec) * 8;
     const bool ok = r0 + r < R;

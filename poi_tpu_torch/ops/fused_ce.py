@@ -16,6 +16,11 @@ the TPU kernels':
   bf16 for the two products ``dq = gp · table`` and ``dtable = gpᵀ · q``;
   ``dbias = colsum(gp)`` from the unrounded ``gp``. The one-hot target terms
   are subtracted outside the kernels in plain torch.
+
+``ce_lse_variant`` holds the forward's tuning variants, the counterparts of
+``scripts/sweep_ce_fwd.py``'s kernels (``exp2``, ``nomax``) and its row-block
+axis; ``scripts/sweep_ce_fwd.py`` of this package times them. Nothing on the
+train or serve path calls them.
 """
 
 from __future__ import annotations
@@ -27,6 +32,10 @@ from poi_tpu_torch import _build
 # Catalog columns per chunk of the plain versions: [N, 4096] fp32 logits at a
 # time (512 MiB at N = 32,768), so they run at the full training shape.
 REFERENCE_CHUNK = 4096
+LOG2E = 1.4426950408889634
+# The forward's variants, in the C entry's numbering, and its rows per block.
+VARIANTS = ("base", "exp2", "nomax")
+ROWS = (64, 128)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -46,6 +55,39 @@ def ce_lse_reference(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor,
         s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=1)
         m = m_new
     return m + torch.log(s)
+
+
+def ce_lse_exp2_reference(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor,
+                          chunk: int = REFERENCE_CHUNK) -> torch.Tensor:
+    """Plain PyTorch version of the ``exp2`` variant: ``q`` is scaled by
+    log2(e) in fp32 and then rounded to bf16, the bias scaled in fp32, so
+    the logits are in base 2; an online max and sum of ``2^x`` over catalog
+    chunks, and ``lse = (log2(l) + m) / log2(e)``. It differs from the exact
+    LSE by the rounding of ``q · log2(e)``."""
+    q2 = _bf16(q.float() * LOG2E)
+    m = q2.new_full((q.shape[0],), float("-inf"))
+    s = q2.new_zeros(q.shape[0])
+    for v0 in range(0, table.shape[0], chunk):
+        logits = q2 @ _bf16(table[v0:v0 + chunk]).T + bias[v0:v0 + chunk].float() * LOG2E
+        m_new = torch.maximum(m, logits.max(dim=1).values)
+        s = s * torch.exp2(m - m_new) + torch.exp2(logits - m_new[:, None]).sum(dim=1)
+        m = m_new
+    return (torch.log2(s) + m) / LOG2E
+
+
+def ce_lse_nomax_reference(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor,
+                           chunk: int = REFERENCE_CHUNK) -> torch.Tensor:
+    """Plain PyTorch version of the ``nomax`` variant: ``log`` of the plain
+    sum of ``exp(logit)`` over catalog chunks, no running max. Unsafe: a
+    logit past about 88 overflows fp32 to inf."""
+    qb = _bf16(q)
+    s = qb.new_zeros(q.shape[0])
+    for v0 in range(0, table.shape[0], chunk):
+        s = s + torch.exp(qb @ _bf16(table[v0:v0 + chunk]).T + bias[v0:v0 + chunk].float()).sum(dim=1)
+    return torch.log(s)
+
+
+VARIANT_REFERENCES = {"base": ce_lse_reference, "exp2": ce_lse_exp2_reference, "nomax": ce_lse_nomax_reference}
 
 
 def ce_bwd_reference(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
@@ -113,6 +155,48 @@ def ce_lse(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor) -> torch.Te
 
 
 ce_lse.launches = 0
+
+
+def ce_lse_variant(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, variant: str = "base",
+                   rows: int = 64) -> torch.Tensor:
+    """[N] fp32 log-sum-exp of ``q · tableᵀ + bias`` through one of the
+    forward's tuning variants (``VARIANTS``) with ``rows`` query rows a block
+    (``ROWS``). ``base`` at 64 rows launches ``ce_lse``'s kernel. ``exp2``
+    scales ``q`` (in fp32, before its bf16 rounding) and ``bias`` by log2(e)
+    here, so its result carries the rounding of ``q · log2(e)``. ``nomax``
+    keeps no running max and is UNSAFE: a logit past about 88 overflows the
+    fp32 sum to inf.
+
+    CPU tensors take the variant's plain version (``VARIANT_REFERENCES``).
+    CUDA tensors launch the kernel or raise; ``ce_lse_variant.launches``
+    counts the launches.
+    """
+    if variant not in VARIANTS or rows not in ROWS:
+        raise ValueError(f"ce_lse_variant: variant in {VARIANTS} and rows in {ROWS}, got {variant!r}, {rows}")
+    N, D = q.shape
+    V = table.shape[0]
+    if table.shape[1] != D or bias.shape != (V,) or V == 0:
+        raise ValueError(f"ce_lse_variant: need q [N,D], table [V,D], bias [V], V > 0; got "
+                         f"{tuple(q.shape)}, {tuple(table.shape)}, {tuple(bias.shape)}")
+    if _check("ce_lse_variant", {"q": q, "table": table, "bias": bias}):
+        return VARIANT_REFERENCES[variant](q, table, bias)
+    lse = torch.empty(N, dtype=torch.float32, device=q.device)
+    if N == 0:
+        return lse
+    scale = LOG2E if variant == "exp2" else 1.0
+    q16 = (q.float() * scale).to(torch.bfloat16).contiguous()
+    t16 = table.to(torch.bfloat16).contiguous()
+    b32 = (bias.float() * scale).contiguous()
+    dev = q.device
+    rc = _build.library().ce_lse_variant(q16.data_ptr(), t16.data_ptr(), b32.data_ptr(), lse.data_ptr(), N, V, D,
+                                         VARIANTS.index(variant), rows, dev.index,
+                                         torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, f"ce_lse_variant({variant}, rows={rows}) launch")
+    ce_lse_variant.launches += 1
+    return lse
+
+
+ce_lse_variant.launches = 0
 
 
 def ce_bwd(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, lse: torch.Tensor, g: torch.Tensor):

@@ -1,0 +1,17 @@
+"""Measurement scripts of the port, the counterparts of the JAX package's
+``scripts/`` that run on the card:
+
+    python -m poi_tpu_torch.scripts.sweep_ce_fwd    # B12: the CE forward's variants x rows a block
+    python -m poi_tpu_torch.scripts.sweep_ce_bwd    # B8: ce_bwd_dq and ce_bwd_dtable, apart and together
+    python -m poi_tpu_torch.scripts.profile_step    # the bench workload's train step by region
+    python -m poi_tpu_torch.scripts.profile_attn    # config #4's train step by region
+    python -m poi_tpu_torch.scripts.bench_cells     # B1-B6 against their plain versions and cuDNN
+    python -m poi_tpu_torch.scripts.bench_serve     # Recommender.recommend p50/p99 and requests/s
+    python -m poi_tpu_torch.scripts.mem_budget      # params, optimizer state and a step's peak memory
+    python -m poi_tpu_torch.scripts.quality_runs    # train, select on val, evaluate beside popularity
+
+Each prints the card's ``nvidia-smi`` name and power limit first and runs on
+``--device cuda`` unless it is given ``--device cpu``, where it runs the
+kernels' plain versions at whatever size it is asked for and times them on
+the host clock.
+"""

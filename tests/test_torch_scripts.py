@@ -1,0 +1,223 @@
+"""The port's measurement scripts (``poi_tpu_torch.scripts``) run on the CPU at
+tiny sizes, where they take the kernels' plain versions; each is checked for
+the rows it prints (their module constants shrink the runs: the number of
+timed calls, the bench workload, ``bench_cells``' points). ``mem_budget``'s accounting is held against the JAX
+package's (``jax.eval_shape`` of ``poi_tpu``'s ``Trainer.init_state``). On
+the card, ``chip_smoke.py`` runs every script at its default size."""
+
+import os
+import re
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from poi_tpu.models.base import DataDims as JaxDataDims
+from poi_tpu.train.loop import Trainer as JaxTrainer
+from poi_tpu.utils.config import Config as JaxConfig
+from poi_tpu_torch.configs.presets import get_config
+from poi_tpu_torch.data.dataset import load_dataset
+from poi_tpu_torch.models.base import DataDims
+from poi_tpu_torch.ops import fused_lstm, fused_rnn
+from poi_tpu_torch.scripts import (bench_cells, bench_serve, mem_budget, profile_attn, profile_step, quality_runs,
+                                   sweep_ce_bwd, sweep_ce_fwd)
+from poi_tpu_torch.train.loop import Trainer
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CPU = ["--device", "cpu"]
+SMALL = {"data.num_users": "64", "data.num_pois": "400", "data.max_seq_len": "12", "model.embed_dim": "32",
+         "model.hidden_dim": "32"}
+SMALL_SET = [f"{k}={v}" for k, v in SMALL.items()]
+SCRIPTS = {
+    "sweep_ce_fwd": (sweep_ce_fwd, []), "sweep_ce_bwd": (sweep_ce_bwd, []), "profile_step": (profile_step, []),
+    "profile_attn": (profile_attn, []), "bench_cells": (bench_cells, []), "bench_serve": (bench_serve, []),
+    "mem_budget": (mem_budget, []), "quality_runs": (quality_runs, ["gru_foursquare_nyc"]),
+}
+
+
+@pytest.fixture(autouse=True)
+def _no_dataset_cache(monkeypatch):
+    monkeypatch.setenv("POI_TPU_TORCH_DATA_CACHE", "off")
+
+
+def _run(capsys, module, argv) -> list[str]:
+    assert module.main(argv + CPU) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("cpu: ")  # the device line comes first
+    return out
+
+
+def test_sweep_ce_fwd_prints_six_cells_and_the_best(capsys, monkeypatch):
+    monkeypatch.setattr(sweep_ce_fwd, "ITERS", 1)
+    out = _run(capsys, sweep_ce_fwd, ["--n", "70", "--v", "300", "--d", "32"])
+    cells = [line for line in out if re.match(r"(base|exp2|nomax) +rows=", line)]
+    assert [c.split(":")[0].replace(" ", "") for c in cells] == [f"{v}rows={r}" for v in ("base", "exp2", "nomax")
+                                                                  for r in (64, 128)]
+    assert all("max |kernel - plain| 0.00e+00" in c for c in cells)  # the wrapper takes the plain versions here
+    assert any("nomax is safe on these inputs" in line for line in out)
+    assert out[-3].startswith("ce_lse_variant launches: 0 ")
+    assert re.match(r"best: (base|exp2|nomax) rows=(64|128): ", out[-1])
+
+
+def test_sweep_ce_bwd_prints_both_flop_counts(capsys, monkeypatch):
+    monkeypatch.setattr(sweep_ce_bwd, "ITERS", 1)
+    out = "\n".join(_run(capsys, sweep_ce_bwd, ["--n", "70", "--v", "300", "--d", "32"]))
+    assert re.search(r"ce_bwd \(dq \+ dtable\): .* TFLOP/s \(3 products\) .* TFLOP/s \(4 products\)", out)
+    assert "no tile axis" in out and "rel err against the plain version: dq 0.00e+00" in out
+
+
+@pytest.mark.parametrize("module, consts, names", [
+    (profile_step, {"BENCH_OVERRIDES": {**profile_step.BENCH_OVERRIDES, **SMALL}, "STEPS": 2, "TRIALS": 1},
+     ("embed lookup fwd+bwd", "tower fwd", "tower fwd+bwd", "CE fwd (fixed q)", "CE fwd+bwd (fixed q)",
+      "full loss fwd+bwd", "optimizer update", "global norms x2", "CE fwd eff", "CE bwd eff", "full step",
+      "sampled 10-step")),
+    (profile_attn, {"OVERRIDES": {**profile_attn.OVERRIDES, **SMALL, "data.dataset": "synthetic",
+                                  "loss.num_sampled": "64"}},
+     ("embed lookup fwd+bwd", "tower fwd", "tower fwd+bwd", "loss fwd+bwd (fixed q)", "full loss fwd+bwd",
+      "optimizer update")),
+])
+def test_profile_scripts_print_every_region(capsys, monkeypatch, module, consts, names):
+    for name, value in {"ITERS": 1, **consts}.items():
+        monkeypatch.setattr(module, name, value)
+    out = _run(capsys, module, ["--batch", "8"])
+    rows = {line.split(":")[0].strip() for line in out if line.startswith("  ")}
+    assert set(names) <= rows, set(names) - rows
+    assert all(np.isfinite(float(m)) for m in re.findall(r": +([0-9.]+) ms", "\n".join(out)))
+
+
+def test_bench_cells_rows_and_refused_widths(capsys, monkeypatch):
+    """Past the LSTM's and the RNN's width limits the wrapper refuses (on the
+    card; here a stand-in raises its message) and the refusal is the row."""
+    assert bench_cells.POINTS["lstm"][:2] == ((64, 128), (256, 128)) and (256, 512) in bench_cells.POINTS["gru"]
+    for mod, name, limit in ((fused_lstm, "fused_lstm_scan", 169), (fused_rnn, "fused_rnn_scan", 339)):
+        real = getattr(mod, name)
+
+        def limited(x, mask, w, real=real, name=name, limit=limit):
+            if w.shape[0] > limit:
+                raise ValueError(f"{name}: H={w.shape[0]} is not taken by the kernels: ... so H <= {limit}")
+            return real(x, mask, w)
+        monkeypatch.setattr(mod, name, limited)
+    for name, value in {"T": 3, "ITERS": 1, "PLAIN_ITERS": 1, "POINTS": {
+            "gru": ((2, 8),), "lstm": ((3, 8), (1, 170)), "rnn": ((2, 16), (1, 340))}}.items():
+        monkeypatch.setattr(bench_cells, name, value)
+    out = _run(capsys, bench_cells, [])
+    rows = {tuple(line.split()[:3]): line for line in out[2:]}
+    assert set(rows) == {("gru", "2", "8"), ("lstm", "3", "8"), ("lstm", "1", "170"), ("rnn", "2", "16"),
+                         ("rnn", "1", "340")}
+    assert "refused: fused_lstm_scan: H=170" in rows["lstm", "1", "170"] and "H <= 169" in rows["lstm", "1", "170"]
+    assert "refused: fused_rnn_scan: H=340" in rows["rnn", "1", "340"] and "H <= 339" in rows["rnn", "1", "340"]
+    assert len(rows["gru", "2", "8"].split()) == 10  # cell, B, H, six times and ratios, no cuDNN on the cpu
+
+
+def test_bench_cells_stops_on_any_other_error(capsys, monkeypatch):
+    """Only the width refusal is printed as a row: a point whose inputs are
+    built wrong (here the LSTM given three gates' columns, not four) raises
+    the wrapper's shape error out of main()."""
+    for name, value in {"T": 3, "ITERS": 1, "PLAIN_ITERS": 1, "POINTS": {"lstm": ((2, 8),)},
+                        "GATES": {**bench_cells.GATES, "lstm": 3}}.items():
+        monkeypatch.setattr(bench_cells, name, value)
+    with pytest.raises(ValueError, match=r"fused_lstm: need xw \[B,T,4H\]"):
+        bench_cells.main(CPU)
+
+
+def test_bench_serve_prints_four_batches(capsys, monkeypatch):
+    monkeypatch.setattr(bench_serve, "BENCH_OVERRIDES", {**bench_serve.BENCH_OVERRIDES, "data.num_users": "64"})
+    monkeypatch.setattr(bench_serve, "REPS", 2)
+    out = _run(capsys, bench_serve, ["--num-pois", "300", "--dim", "32"])
+    batches = [int(m.group(1)) for line in out if (m := re.match(r"batch= *(\d+): p50 .* p99 .* req/s", line))]
+    assert batches == [1, 8, 64, 256]
+    assert out[-1].startswith("marginal cost ")
+
+
+def test_quality_runs_prints_the_row(capsys):
+    out = _run(capsys, quality_runs, ["gru_foursquare_nyc", "data.num_users=64", "data.num_pois=400",
+                                      "data.max_seq_len=12", "train.num_steps=10", "train.eval_every=5",
+                                      "train.log_every=5", "train.warmup_steps=2"])
+    row = out[-1]
+    assert row.startswith("ROW gru_foursquare_nyc: steps=10 ")
+    assert re.search(r"r@10=0\.\d{4} ndcg@10=0\.\d{4} \[selected step (5|10) val recall@10=", row)
+    assert re.search(r"\| pop r@1=0\.\d{4} r@5=0\.\d{4} r@10=0\.\d{4} ndcg=0\.\d{4} \|", row)
+    assert "seq/s (median window)" in row and ("BEATS POP" in row or "BELOW FLOOR" in row)
+
+
+def _jax_split(tree, vp):
+    table = dense = 0
+    for x in jax.tree.leaves(tree):
+        b = int(np.prod(x.shape)) * x.dtype.itemsize
+        if x.ndim >= 1 and x.shape[0] == vp:
+            table += b
+        else:
+            dense += b
+    return table, dense
+
+
+@pytest.mark.parametrize("preset, overrides", [
+    ("smoke", {}),  # dense Adam (optax: clip, scale_by_adam, the schedule)
+    ("attention_gowalla", {"data.dataset": "synthetic", "loss.num_sampled": "64"}),  # lazy Adam
+    ("lstm_bpr_foursquare", {"loss.num_negatives": "4"}),  # a user table beside the catalog's
+])
+def test_mem_budget_accounting_equals_poi_tpus(preset, overrides):
+    """The port's params and optimizer state bytes, tables and dense, equal
+    the leaves of jax.eval_shape(poi_tpu Trainer.init_state) but for one
+    named difference: poi_tpu keeps each optimizer step count as an int32
+    device scalar (optax's adam and schedule counts, or SparseAdamState's),
+    the port as a host int."""
+    cfg = get_config(preset).with_overrides({**SMALL, **overrides})
+    ds = load_dataset(cfg.data)
+    trainer = Trainer(cfg, DataDims.from_dataset(ds))
+    got = mem_budget.accounting(trainer, trainer.init_state())
+
+    jt = JaxTrainer(JaxConfig.from_dict(cfg.to_dict()), JaxDataDims.from_dataset(ds))
+    abstract = jax.eval_shape(jt.init_state)
+    vp = jt.dims.num_pois_padded
+    assert vp == trainer.dims.num_pois_padded
+    pt, pd = _jax_split(abstract.params, vp)
+    ot, od = _jax_split(abstract.opt_state, vp)
+    counts = [x for x in jax.tree.leaves(abstract.opt_state) if x.ndim == 0]
+    assert counts and all(x.dtype == np.int32 for x in counts)
+    assert (got["params_tables"], got["params_dense"], got["opt_tables"]) == (pt, pd, ot)
+    assert got["opt_dense"] + 4 * len(counts) == od
+    assert got["params_tables"] > 0 and got["opt_tables"] == 2 * got["params_tables"]
+
+
+def test_mem_budget_runs_a_step(capsys):
+    out = "\n".join(_run(capsys, mem_budget, ["smoke", "--set", *SMALL_SET, "data.sampler=device",
+                                              "train.steps_per_call=2"]))
+    assert "params      tables" in out and "opt state   tables" in out and "one step_sampled chunk of 2 steps" in out
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        mem_budget.main(["multihost_1m", "--set", "mesh.model=1", "data.num_users=64", "data.num_pois=400",
+                         "--force-v", "1000000"] + CPU)
+
+
+@pytest.mark.parametrize("name", sorted(SCRIPTS))
+def test_script_refuses_cuda_without_a_card(name):
+    """``--device`` defaults to cuda, and a run asked for the card on a
+    machine without one stops: no fallback to the CPU."""
+    module, argv = SCRIPTS[name]
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(SystemExit, match="torch.cuda.is_available"):
+        module.main(argv)
+
+
+def test_scripts_run_as_modules():
+    """Every script runs as ``python -m poi_tpu_torch.scripts.<name>`` (its
+    ``--help`` here)."""
+    code = ("import runpy, sys\n"
+            "for name in sys.argv[1:]:\n"
+            "    sys.argv = [name, '--help']\n"
+            "    try:\n"
+            "        runpy.run_module(f'poi_tpu_torch.scripts.{name}', run_name='__main__')\n"
+            "    except SystemExit as e:\n"
+            "        assert e.code == 0, (name, e.code)\n"
+            "    print('ran', name)\n")
+    proc = subprocess.run([sys.executable, "-c", code, *sorted(SCRIPTS)], capture_output=True, text=True, cwd=REPO,
+                          timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert [line for line in proc.stdout.splitlines() if line.startswith("ran ")] == [f"ran {n}" for n in
+                                                                                      sorted(SCRIPTS)]
