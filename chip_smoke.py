@@ -158,6 +158,11 @@ SFU_PER_S = FP32_FLOP_PER_S / 16
 # 8,192 threshold (config #1's shape, then the bench shape at both catalogs).
 GRU_TRAIN_SHAPE = (512, 64, 128)
 CE_TRAIN_SHAPE = (32768, 44170, 128)
+CE_C3_SHAPE = (2048, 36969, 128)  # config #3's CE: batch 64 x T=32 rows, 36,969 POIs
+# B11's other main-path catalogs, (V, D, real POIs), each padded to a multiple
+# of 2,048 with -1e30 rows as the eval and serving code pad them: the bench
+# eval sweep's, config #4's eval sweep's, and bench_serve's (70,953 POIs).
+TOPK_CATALOGS = {"eval": (45056, 128, 44170), "c4": (38912, 256, 36969), "serve70k": (71680, 256, 70953)}
 CE_THRESHOLD_CASES = ((2048, 6749, 64), (32768, 6749, 128), (32768, 44170, 128))
 # Config #4 at full width: GRU + attention 256-d, T=128, batch 64, dropout
 # 0.3, sampled softmax (S=1,024), lazy Adam, 36,969 POIs. The device sampler
@@ -220,6 +225,13 @@ def host_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def device_ms(fn, iters: int = 20, expect=()) -> float:
+    """Device time of one call of ``fn`` in ms: the sum of its kernels' time
+    in ``torch.profiler`` over ``iters`` calls, the record checked to hold
+    every launch and each kernel named in ``expect`` (``_timing.kernel_ms``)."""
+    return sum(_timing.kernel_ms(fn, iters, expect).values())
 
 
 # ----------------------------------------------------------------- phases
@@ -328,6 +340,14 @@ def topk_phase() -> float:
     cases = [(1, 8192, 64, 10, 6749), (1, 8192, 64, 128, 6749), (256, 8192, 64, 10, 6749),
              (256, 8192, 64, 128, 6749), (300, 6749, 64, 128, 6749),
              (eval_batch, 45056, 128, 10, 44170), (256, 45056, 128, 10, 44170), (256, 38912, 256, 10, 36969)]
+    # bench_serve's catalog (70,953 POIs padded to 71,680, D=256) at its fetch
+    # of k = 32, a whole 32-entry list, at batch 1 (its widest slice plan)
+    # and 256. The narrower blocks of D > 256 at config #5's D = 512 and at
+    # the kernel's limit of 1024, and D = 520, whose K is zero-padded to a
+    # multiple of 16, on a ragged batch.
+    cases += [(1, 71680, 256, 32, 70953), (256, 71680, 256, 32, 70953), (256, 8192, 512, 10, 8000),
+              (256, 8192, 512, 128, 8000), (256, 8192, 1024, 10, 8000), (256, 8192, 1024, 128, 8000),
+              (7, 8192, 520, 128, 8000)]
     for B, V, D, k, real in cases:
         # Scores of the same spread at either width (std ~8).
         q = torch.randn(B, D, generator=gen, device=DEV) * (64 / D) ** 0.5
@@ -418,9 +438,12 @@ def ce_phase() -> tuple[float, float]:
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
     worst_lse = worst_grad = 0.0
     # Config #1's catalog at batch 1, a catalog one past a tile multiple, the
-    # bench shape, and config #1's catalog padded to 8,192 with -1e30 rows.
-    for N, V, D, real in ((1, 6749, 64, 6749), (300, 8193, 128, 8193), (32768, 44170, 128, 44170),
-                          (2048, 8192, 64, 6749)):
+    # bench shape, config #1's catalog padded to 8,192 with -1e30 rows,
+    # config #3's shape (its 16 row blocks split the catalog: B8's
+    # split-and-reduce path), and D = 32 (the smoke preset's width, whose
+    # tiles take the 64-byte swizzle) on ragged N and V with a padded tail.
+    for N, V, D, real in ((1, 6749, 64, 6749), (300, 8193, 128, 8193), CE_TRAIN_SHAPE + (CE_TRAIN_SHAPE[1],),
+                          (2048, 8192, 64, 6749), CE_C3_SHAPE + (CE_C3_SHAPE[1],), (300, 8193, 32, 8000)):
         q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
         table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
         bias = torch.randn(V, generator=gen, device=DEV)
@@ -1141,6 +1164,17 @@ def scripts_phase(state) -> None:
         log(f"[scripts] {name} {' '.join(args)}: exit 0 in {time.perf_counter() - t0:.1f} s")
 
 
+def topk_kernels(B: int, V: int, D: int, k: int) -> tuple:
+    """The kernels one ``fused_topk`` call launches: pass 1, and the merge
+    pass where its plan cuts the catalog into more than one slice."""
+    import ctypes
+
+    from poi_tpu_torch import _build
+
+    slices = _build.library().topk_plan(V, k, B, D, ctypes.byref(ctypes.c_int(0)))
+    return ("topk_slice_kernel", "topk_merge_kernel") if slices > 1 else ("topk_slice_kernel",)
+
+
 def timing_phase(state, gpu: str) -> dict:
     import torch
 
@@ -1158,19 +1192,35 @@ def timing_phase(state, gpu: str) -> dict:
     t = out["gru_fwd"]
     log(f"[time] gru_fwd B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN nn.GRU "
         f"forward {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})  ({gpu})")
+    # B11 at the serve shape (config #1's padded catalog) at request batch 1
+    # and 256, k = 128 (recommend's fetch) and 10, and at the bench eval
+    # sweep's shape, each beside torch.topk over the materialised logits (bf16
+    # product, fp32 scores): CUDA events around a call (host launch work
+    # included) and the profiler's device time.
+    # bench_serve's 20-check-in histories fetch k = 32 (next_pow2(10 + 20)).
     prep = state["rec"]._prep
-    q = torch.randn(256, 64, generator=gen, device=DEV)
-    V, D = prep.table.shape
-    for k in (128, 10):
-        t = {"ms": time_ms(lambda: fused_topk(q, prep.table, prep.bias, k)),
-             "plain_ms": time_ms(lambda: topk_reference(q, prep.table, prep.bias, k)),
-             # torch.topk over the materialised logits (bf16 product, fp32 scores).
-             "library_ms": time_ms(lambda: torch.topk(
-                 torch.nn.functional.linear(q.to(torch.bfloat16), prep.table).float() + prep.bias, k)),
-             **bound((q, prep.table, prep.bias), fused_topk(q, prep.table, prep.bias, k), bf16_flop=2 * 256 * V * D)}
-        out.setdefault("topk", t)  # the slice's own fetch (k=128) goes in the record
-        log(f"[time] topk B=256 V={V} D={D} k={k}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.topk "
-            f"over the logits {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})  ({gpu})")
+    catalogs = {"serve": (prep.table, prep.bias)}
+    for key, (V, D, real) in TOPK_CATALOGS.items():
+        bias = torch.randn(V, generator=gen, device=DEV)
+        bias[real:] = -1e30
+        catalogs[key] = (torch.randn(V, D, generator=gen, device=DEV).to(torch.bfloat16), bias)
+    eval_batch = state["bench_cfg"].eval.batch_size
+    cases = [("topk", 256, "serve", 128), ("topk_k10", 256, "serve", 10), ("topk_b1", 1, "serve", 128),
+             ("topk_b1_k10", 1, "serve", 10), ("topk_eval", eval_batch, "eval", 10), ("topk_eval256", 256, "eval", 10),
+             ("topk_c4", 256, "c4", 10), ("topk_serve70k", 256, "serve70k", 32), ("topk_serve70k_b1", 1, "serve70k", 32)]
+    for name, B, cat, k in cases:
+        table, bias = catalogs[cat]
+        q = torch.randn(B, table.shape[1], generator=gen, device=DEV)
+        lib = lambda: torch.topk(torch.nn.functional.linear(q.to(torch.bfloat16), table).float() + bias, k)  # noqa: E731
+        t = {"ms": time_ms(lambda: fused_topk(q, table, bias, k)),
+             "plain_ms": time_ms(lambda: topk_reference(q, table, bias, k)), "library_ms": time_ms(lib),
+             "device_ms": device_ms(lambda: fused_topk(q, table, bias, k), expect=topk_kernels(B, *table.shape, k)),
+             "library_device_ms": device_ms(lib),
+             **bound((q, table, bias), fused_topk(q, table, bias, k), bf16_flop=2 * B * table.shape[0] * table.shape[1])}
+        out[name] = t
+        log(f"[time] {name} B={B} V={table.shape[0]} D={table.shape[1]} k={k}: kernel {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, torch.topk over the logits {t['library_ms']:.4f} ms "
+            f"(device {t['library_device_ms']:.4f}); bound {t['bound_ms']:.4f} ms ({t['bound_by']})  ({gpu})")
     hist = state["histories"]
     rec = state["rec"]
     for n in (1, 256):
@@ -1259,6 +1309,7 @@ def train_timing_phase(state, gpu: str) -> dict:
 
     from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_bwd_reference, ce_lse, ce_lse_reference, fused_ce_loss
     from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan, gru_bwd_reference, gru_scan_reference
+    from poi_tpu_torch.scripts import sweep_ce_bwd
     from poi_tpu_torch.train.losses import ce_loss
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
@@ -1281,26 +1332,37 @@ def train_timing_phase(state, gpu: str) -> dict:
         lib = f", cuDNN nn.GRU forward {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
         log(f"[time] {name} B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms{lib}; bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']})  ({gpu})")
-    N, V, D = CE_TRAIN_SHAPE
-    q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
-    table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
-    bias = torch.randn(V, generator=gen, device=DEV)
-    g = torch.rand(N, generator=gen, device=DEV)
-    lse = ce_lse_reference(q, table, bias)
-    flop = 2 * N * V * D
     # No single PyTorch call computes a row LSE over a product, or its
-    # gradients from a given LSE: no library time.
-    out["ce_lse"] = {"ms": time_ms(lambda: ce_lse(q, table, bias)),
-                     "plain_ms": time_ms(lambda: ce_lse_reference(q, table, bias), 5), "library_ms": None,
-                     **ce_lse_bound(q, table, bias, lse)}
-    out["ce_bwd"] = {"ms": time_ms(lambda: ce_bwd(q, table, bias, lse, g)),
-                     "plain_ms": time_ms(lambda: ce_bwd_reference(q, table, bias, lse, g), 5), "library_ms": None,
-                     **bound((q, table, bias, lse, g), ce_bwd(q, table, bias, lse, g), bf16_flop=3 * flop)}
-    for name, products in (("ce_lse", 1), ("ce_bwd", 4)):
-        t = out[name]
-        log(f"[time] {name} N={N} V={V} D={D}: kernel {t['ms']:.4f} ms ({products * flop / t['ms'] / 1e9:.1f} TFLOP/s "
-            f"of catalog products), plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
-            f"{t['bound_pipe']})  ({gpu})")
+    # gradients from a given LSE: no library time. B8 at the bench shape and
+    # at config #3's, its two passes apart from the profiler's device time.
+    for key, (N, V, D) in (("", CE_TRAIN_SHAPE), ("_c3", CE_C3_SHAPE)):
+        q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
+        table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
+        bias = torch.randn(V, generator=gen, device=DEV)
+        g = torch.rand(N, generator=gen, device=DEV)
+        lse = ce_lse_reference(q, table, bias)
+        flop = 2 * N * V * D
+        if not key:
+            out["ce_lse"] = {"ms": time_ms(lambda: ce_lse(q, table, bias)),
+                             "plain_ms": time_ms(lambda: ce_lse_reference(q, table, bias), 5), "library_ms": None,
+                             **ce_lse_bound(q, table, bias, lse)}
+        t = {"ms": time_ms(lambda: ce_bwd(q, table, bias, lse, g)),
+             "plain_ms": time_ms(lambda: ce_bwd_reference(q, table, bias, lse, g), 5), "library_ms": None,
+             **bound((q, table, bias, lse, g), ce_bwd(q, table, bias, lse, g), bf16_flop=3 * flop)}
+        parts = sweep_ce_bwd.pass_ms(lambda: ce_bwd(q, table, bias, lse, g), 10)
+        t.update({f"{name.split()[0]}_ms": parts[name] for name in ("dq pass", "dtable pass")},
+                 sum_splits_ms=parts.get("sum_splits"))
+        out["ce_bwd" + key] = t
+        names = ("ce_lse", "ce_bwd") if not key else ("ce_bwd_c3",)
+        for name in names:
+            t = out[name]
+            products = 1 if name == "ce_lse" else 4
+            apart = ("" if name == "ce_lse" else
+                     f"; device time dq pass {t['dq_ms']:.4f} ms, dtable pass {t['dtable_ms']:.4f} ms"
+                     + (f", sum_splits {t['sum_splits_ms']:.4f} ms" if t["sum_splits_ms"] is not None else ""))
+            log(f"[time] {name} N={N} V={V} D={D}: kernel {t['ms']:.4f} ms ({products * flop / t['ms'] / 1e9:.1f} "
+                f"TFLOP/s of catalog products), plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}, {t['bound_pipe']}){apart}  ({gpu})")
 
     from poi_tpu_torch.train.loop import make_trainer
 
@@ -1398,7 +1460,9 @@ def main() -> int:
     # (train phase), sampled_lse and sampled_bwd from config #4's (attn_train
     # phase), lstm_* from config #2's and rnn_* from config #3's (lstm_config,
     # strnn_config). The GRU rows also carry the cluster path (H = 256) at
-    # config #4's shape, (B, T) = (64, 128). ce_lse_variants: each
+    # config #4's shape, (B, T) = (64, 128); ce_bwd also carries config #3's
+    # shape and launches (strnn_config); topk its other serve and eval
+    # shapes. ce_lse_variants: each
     # instantiation's launches and time in the sweep's timed runs
     # (ce_variants phase), the fastest one's at the top level.
     served, trained, attn = state["launches"], state["train_launches"], state["attn_launches"]
@@ -1417,12 +1481,21 @@ def main() -> int:
         record("rnn_fwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:48", c3["rnn_fwd"], rnn["fwd_err"], rnn["fwd"]),
         record("rnn_bwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:65", c3["rnn_bwd"], rnn["bwd_err"], rnn["bwd"]),
         record("ce_lse", "ce.cu", "poi_tpu/ops/fused_ce.py:181", trained["ce_lse"], lse_err, times["ce_lse"]),
-        record("ce_bwd", "ce.cu", "poi_tpu/ops/fused_ce.py:210", trained["ce_bwd"], ce_grad_err, times["ce_bwd"]),
+        record("ce_bwd", "ce_bwd.cu", "poi_tpu/ops/fused_ce.py:210", trained["ce_bwd"], ce_grad_err, times["ce_bwd"],
+               dq_ms=times["ce_bwd"]["dq_ms"], dtable_ms=times["ce_bwd"]["dtable_ms"],
+               config3={f: times["ce_bwd_c3"][f] for f in ("ms", "plain_ms", "bound_ms", "dq_ms", "dtable_ms",
+                                                           "sum_splits_ms")},
+               config3_launches=c3["ce_bwd"]),
         record("sampled_lse", "sampled.cu", "poi_tpu/ops/fused_sampled.py:76", attn["sampled_lse"],
                sampled["lse_err"], sampled["lse"]),
         record("sampled_bwd", "sampled.cu", "poi_tpu/ops/fused_sampled.py:103", attn["sampled_bwd"],
                sampled["grad_err"], sampled["bwd"]),
-        record("topk", "topk.cu", "poi_tpu/ops/topk.py:58", served["topk"], topk_err, times["topk"]),
+        record("topk", "topk.cu", "poi_tpu/ops/topk.py:58", served["topk"], topk_err, times["topk"],
+               device_ms=times["topk"]["device_ms"], library_device_ms=times["topk"]["library_device_ms"],
+               **{case: {f: times[case][f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                                                    "bound_ms")}
+                  for case in ("topk_k10", "topk_b1", "topk_b1_k10", "topk_eval", "topk_eval256", "topk_c4",
+                               "topk_serve70k", "topk_serve70k_b1")}),
         record("ce_lse_variants", "ce.cu", "scripts/sweep_ce_fwd.py:30,58", sum(swept.values()),
                max(t["max_abs_err"] for t in variants.values()), variants[best], best=best,
                variants={k: {**{f: t[f] for f in ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_pipe")},

@@ -2,8 +2,9 @@
 
 The sources in ``csrc/*.cu`` have a plain C interface (``csrc/*.cuh`` are
 headers they share). Each is compiled by its own ``nvcc`` process, all
-started together, and the objects are linked into one shared library,
-loaded with ``ctypes``. The library lands in ``build/poi_tpu_torch/`` at the
+started together, and the objects are linked, with ``libcuda``
+(``-lcuda``), into one shared library, loaded with ``ctypes``. The library
+lands in ``build/poi_tpu_torch/`` at the
 repository root, named by a hash of the sources, headers and flags, so an
 edited file rebuilds and an unchanged tree loads the cached library. Nothing is built when the package is imported: the first
 kernel launch on a CUDA tensor calls :func:`library`.
@@ -48,12 +49,13 @@ _SIGNATURES = {
     "ce_supports_dim": [_I],
     "ce_lse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ce_lse_variant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ce_bwd_scratch": [_I, _I, _I],
+    "ce_bwd": [_P] * 9 + [_I, _I, _I, _I, _P],
     "sampled_supports_dim": [_I],
     "sampled_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sampled_bwd_splits": [_I, _I, _I],
     "sampled_bwd": [_P] * 12 + [_I, _I, _I, _I, _P],
-    "topk_plan": [_I, _I, _I, ctypes.POINTER(_I)],
+    "topk_plan": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     "topk_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "poi_cuda_error_string": [_I],
 }
@@ -69,12 +71,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under /usr/local/cuda: cannot build the CUDA kernels")
 
 
+def _libcuda_link_flags(nvcc: str) -> list[str]:
+    """``-lcuda`` (ce_bwd.cu encodes its TMA descriptors with libcuda's
+    ``cuTensorMapEncodeTiled``), with the toolkit's stub directories on the
+    search path for a machine whose libcuda lies elsewhere; the real
+    ``libcuda.so.1`` is found when the library is loaded."""
+    root = Path(nvcc).resolve().parents[1]
+    stubs = [d for d in (root / "lib64" / "stubs", root / "targets" / "x86_64-linux" / "lib" / "stubs") if d.is_dir()]
+    return [*(f"-L{d}" for d in stubs), "-lcuda"]
+
+
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, "-lcuda")).encode())
     for src in sorted(CSRC.glob("*.cu*")):  # the sources and the headers they include
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -109,7 +121,7 @@ def build() -> tuple[Path, str]:
         if failed:
             raise RuntimeError(failed)
         tmp = os.path.join(tmpdir, "lib.so")
-        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        cmd = [nvcc, "-shared", "-o", tmp, *objs, *_libcuda_link_flags(nvcc)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")

@@ -1,0 +1,427 @@
+// Full-catalog softmax cross-entropy, backward, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel poi_tpu/ops/fused_ce.py:_bwd_kernel (driven by
+// _bwd_slab / _pallas_bwd). Contract (ce.cu's, the TPU kernel's arithmetic):
+//   q [N, D] bf16, table [V, D] bf16, bias [V] fp32 (-1e30 on padded rows),
+//   lse [N] fp32, g [N] fp32;
+//   logits l = q . table^T + bias: exact bf16 products, fp32 sums;
+//   gp = exp(l - lse[n]) * g[n] in fp32, gpb = bf16(gp);
+//   dq [N, D] = gpb . table, dtable [V, D] = gpb^T . q, dbias [V] = colsum(gp)
+//   (the unrounded gp). The one-hot target terms are left to the caller.
+//
+// What bounds it on this card: four catalog products of 2*N*V*D FLOPs each
+// (1.48 TFLOP at N=32768, V=44170, D=128: 1.50 ms at the tensor cores' 989
+// TFLOP/s), then the N*V exponentials of each pass (two passes: 2.9e9 on the
+// special-function units, 0.69 ms), both far above the bytes. The first
+// version used warp-level mma.sync, which cannot reach Hopper's tensor-core
+// rate, re-loaded every B fragment from smem warp by warp, held 64 resident
+// rows a block (so the streamed operand was re-read from L2 once per 64 rows)
+// and ran two cp.async stages with every warp both loading and computing.
+//
+// Design: two passes, each the same warp-specialised kernel (ce_bwd_pass):
+// - dq:     row blocks of 128 queries stream the catalog;
+// - dtable: catalog blocks of 128 rows stream the queries (and their lse, g),
+//           and also sum dbias.
+// A block is two consumer warpgroups, each owning 64 resident rows, and one
+// producer warpgroup, whose registers go to the consumers (setmaxnreg). One
+// producer thread starts TMA loads of the 64-row streamed tiles
+// into a ring of kStages smem stages guarded by mbarriers (full: the bytes
+// arrived; empty: all 256 consumer threads are done with the stage). A tile
+// arrives as D * 2 / sw boxes of sw bytes a row (sw = 128, or 64 at D = 32),
+// swizzled as wgmma's descriptors read them.
+// For each tile a consumer warpgroup
+//   1. computes its 64 x 64 logits with wgmma m64n64k16: A is the
+//      warpgroup's resident rows, read once from smem into register
+//      fragments for the whole kernel; B is the tile, K-major in smem (each
+//      row contiguous in D);
+//   2. turns them into gp in registers (the same __expf and masking of ragged
+//      rows and columns as the first version);
+//   3. rounds gp to bf16 straight into wgmma A-operand fragments (the fp32
+//      accumulator layout of m64nN is the A layout of the next k16 step) and
+//      multiplies them by the SAME smem tile read MN-major (the transpose
+//      bit), adding into its [64, D] fp32 output accumulators. The tile is
+//      not copied a second time.
+// Where the resident blocks cannot fill the card (config #3's dq: 16 blocks
+// of 128 rows), the streamed dimension is split S ways into fp32 partials
+// [S, rows, D] (and [S, V] for dbias) in the caller's scratch, and
+// sum_splits adds them in a fixed order. No atomics: every output element is
+// summed by one thread in one fixed order, so a run gives the same bits
+// every time.
+//
+// The tensor maps are built on the host with cuTensorMapEncodeTiled (the
+// library links -lcuda). The entry points launch on the given stream, do not
+// synchronise and allocate nothing; each returns cudaGetLastError() after its
+// launches.
+
+#include <cstdio>
+
+#include "mma_tiles.cuh"
+#include "wgmma_tiles.cuh"
+
+namespace {
+
+constexpr int kRes = 128;     // resident rows a block: two consumer warpgroups of 64
+constexpr int kStr = 64;      // rows of a streamed tile
+constexpr int kStages = 4;    // smem ring of streamed tiles
+constexpr int kBwdThreads = 384;  // 2 consumer warpgroups + 1 producer warpgroup
+constexpr int kSms = 132;     // H100 SXM
+constexpr int kMaxSplits = 32;
+
+__host__ __device__ constexpr int swizzle_bytes(int D) { return D * 2 >= 128 ? 128 : 64; }
+
+// Streamed fp32 vectors that arrive with each tile: the dq pass needs the
+// catalog rows' bias, the dtable pass the query rows' lse and g.
+template <bool kDtable>
+__host__ __device__ constexpr int stream_vecs() {
+  return kDtable ? 2 : 1;
+}
+
+template <int D, bool kDtable>
+constexpr int pass_smem_bytes() {
+  // 1024: room to align the base; the stages' vectors; the barriers.
+  return 1024 + (kRes + kStages * kStr) * D * 2 + kStages * stream_vecs<kDtable>() * kStr * 4 + (2 * kStages + 1) * 8;
+}
+
+// One consumer warpgroup's work on one streamed tile: gp from the logits `s`
+// (already waited for), rounded into A fragments and multiplied by the same
+// tile, MN-major, into `acc`. Starts the product and commits it; the caller
+// waits.
+template <int D, bool kDtable>
+__device__ __forceinline__ void tile_gradient(float (&s)[32], float (&acc)[D / 2], float (&db)[2], uint32_t tile,
+                                              const float* vec, int c0, int n_str, const bool (&ok)[2],
+                                              const float (&ra)[2], const float (&rb)[2], int t) {
+  constexpr int SW = swizzle_bytes(D);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = j * 8 + 2 * t + e;
+      const bool okc = c0 + c < n_str;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float& x = s[j * 4 + 2 * r + e];
+        // gp of every element, then a select (no branch: the logits of the
+        // next tile are in flight on the tensor cores meanwhile).
+        const bool keep = okc & ok[r];
+        if constexpr (kDtable) {
+          // vec: the streamed queries' lse, then their g.
+          const float gp = __expf(x + ra[r] - vec[c]) * vec[kStr + c];
+          x = keep ? gp : 0.f;
+          db[r] += x;
+        } else {
+          // vec: the streamed catalog rows' bias.
+          const float gp = __expf(x + vec[c] - ra[r]) * rb[r];
+          x = keep ? gp : 0.f;
+        }
+      }
+    }
+  }
+  uint32_t a[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    // K = tile rows 16kk.., N = D: the same tile, MN-major; the next sw / 2
+    // columns (chunk) lie kStr * SW bytes on.
+    wgmma_rs_t<D>(acc, a[kk], smem_desc(tile + kk * 16 * SW, kStr * SW, 8 * SW, SW), 1);
+  }
+  wgmma_commit();
+}
+
+// The logits of the warpgroup's 64 resident rows (A fragments `ra_frag` in
+// registers) against a 64-row tile (K-major in smem). Starts and commits.
+template <int D>
+__device__ __forceinline__ void tile_logits(float (&s)[32], const uint32_t (&ra_frag)[D / 16][4], uint32_t tile) {
+  constexpr int SW = swizzle_bytes(D), KPC = SW / 32;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    wgmma_rs_n64(s, ra_frag[ks], smem_desc(tile + (ks / KPC) * kStr * SW + (ks % KPC) * 32, 16, 8 * SW, SW), ks > 0);
+  }
+  wgmma_commit();
+}
+
+// One tile of the consumers' pipeline: wait for tile cur's logits (sc) and
+// the previous tile's product, release the previous tile's stage, start tile
+// cur + 1's logits into sn, then tile cur's gradient product. Past the
+// split's last tile the step runs on that tile's stage (landed, never
+// refilled) with every gp masked to 0, so that every wgmma is started on the
+// one path all steps take: no wgmma under a branch.
+template <int D, bool kDtable>
+__device__ __forceinline__ void pipeline_step(float (&sc)[32], float (&sn)[32], float (&acc)[D / 2], float (&db)[2],
+                                              const uint32_t (&rf)[D / 16][4], int cur, int t0, int t1, int n_str,
+                                              uint64_t* full, uint64_t* empty, uint32_t str_addr, const float* vec_s,
+                                              const bool (&ok)[2], const float (&ra)[2], const float (&rb)[2], int t) {
+  constexpr int SW = swizzle_bytes(D), NCH = D / (SW / 2), NV = stream_vecs<kDtable>();
+  const int st = (min(cur, t1 - 1) - t0) % kStages;
+  wgmma_wait<0>();
+  fence_regs(sc);
+  fence_regs(acc);
+  if (cur > t0 && cur < t1) mbar_arrive(&empty[(st + kStages - 1) % kStages]);
+  const int k = min(cur + 1, t1 - 1) - t0;
+  mbar_wait(&full[k % kStages], (k / kStages) & 1);
+  tile_logits<D>(sn, rf, str_addr + (k % kStages) * NCH * kStr * SW);
+  tile_gradient<D, kDtable>(sc, acc, db, str_addr + st * NCH * kStr * SW, vec_s + st * NV * kStr, cur * kStr,
+                            cur < t1 ? n_str : 0, ok, ra, rb, t);
+}
+
+// kDtable false: the dq pass (resident = queries, streamed = catalog rows,
+// out = dq). True: the dtable pass (resident = catalog rows, streamed =
+// queries, out = dtable, and dbias). With S splits (gridDim.y), split s
+// writes its partial sums at out + s * n_res * D and dbias + s * n_res.
+// row_a / row_b: per resident row, the dq pass's lse and g, the dtable
+// pass's bias (row_b unused).
+template <int D, bool kDtable>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    ce_bwd_pass(const __grid_constant__ CUtensorMap res_map, const __grid_constant__ CUtensorMap str_map,
+                const __grid_constant__ CUtensorMap vec0_map, const __grid_constant__ CUtensorMap vec1_map,
+                const float* __restrict__ row_a, const float* __restrict__ row_b, float* __restrict__ out,
+                float* __restrict__ dbias, int n_res, int n_str, int tiles_per_split) {
+  constexpr int SW = swizzle_bytes(D), CC = SW / 2, NCH = D / CC, NV = stream_vecs<kDtable>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* res_s = base;                                     // [NCH][kRes][SW bytes]
+  unsigned char* str_s = base + kRes * D * 2;                      // [kStages][NCH][kStr][SW bytes]
+  float* vec_s = reinterpret_cast<float*>(str_s + kStages * kStr * D * 2);  // [kStages][NV][kStr]
+  uint64_t* full = reinterpret_cast<uint64_t*>(vec_s + kStages * NV * kStr);
+  uint64_t* empty = full + kStages;
+  uint64_t* res_full = empty + kStages;
+
+  const int r0 = blockIdx.x * kRes;
+  const int split = blockIdx.y;
+  const int n_tiles = (n_str + kStr - 1) / kStr;
+  const int t0 = split * tiles_per_split, t1 = min(n_tiles, t0 + tiles_per_split);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);  // every consumer thread
+    }
+    mbar_init(res_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp >= 8) {  // the producer warpgroup: one thread keeps the ring full
+    // It needs few registers: hand them to the consumers (setmaxnreg works
+    // per warpgroup, hence a whole producer warpgroup).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
+      mbar_arrive_expect_tx(res_full, kRes * D * 2);
+      for (int c = 0; c < NCH; ++c) tma_load_2d(res_s + c * kRes * SW, &res_map, c * CC, r0, res_full);
+      int st = 0;
+      uint32_t ph = 0;
+      for (int it = t0; it < t1; ++it) {
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_arrive_expect_tx(&full[st], kStr * D * 2 + NV * kStr * 4);
+        for (int c = 0; c < NCH; ++c) {
+          tma_load_2d(str_s + (st * NCH + c) * kStr * SW, &str_map, c * CC, it * kStr, &full[st]);
+        }
+        tma_load_1d(vec_s + st * NV * kStr, &vec0_map, it * kStr, &full[st]);
+        if constexpr (NV == 2) tma_load_1d(vec_s + (st * NV + 1) * kStr, &vec1_map, it * kStr, &full[st]);
+        if (++st == kStages) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // 232 registers a consumer thread (the launch gives 168): the accumulators,
+  // two logit tiles and the resident fragments fit with no spills.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  // Consumers: warpgroup wg owns resident rows [wg * 64, wg * 64 + 64); each
+  // thread holds rows g and g + 8 of its warp's 16 in the accumulators.
+  const int wg = warp / 4, wi = warp % 4, g = lane / 4, t = lane % 4;
+  int row[2];
+  bool ok[2];
+  float ra[2], rb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row[r] = r0 + wg * 64 + wi * 16 + g + 8 * r;
+    ok[r] = row[r] < n_res;
+    ra[r] = ok[r] ? row_a[row[r]] : 0.f;
+    rb[r] = ok[r] && !kDtable ? row_b[row[r]] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float db[2] = {0.f, 0.f};
+  mbar_wait(res_full, 0);
+  // The resident rows' A fragments, read once from the swizzled smem tile.
+  uint32_t rf[D / 16][4];
+  {
+    const uint32_t res_addr = smem_u32(res_s);
+    const int lr = wg * 64 + wi * 16 + g;  // local row
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int rr = lr + (h & 1) * 8, col = ks * 16 + 2 * t + (h >> 1) * 8;
+        const uint32_t addr = res_addr + (col / CC) * kRes * SW + swizzled<SW>(rr, col % CC);
+        asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(rf[ks][h]) : "r"(addr));
+      }
+    }
+  }
+
+  // Software pipeline over the tiles: the logits of tile it + 1 are on the
+  // tensor cores while tile it's gp is computed (two logit buffers, s0 for
+  // the even tiles of the split, s1 for the odd).
+  const uint32_t str_addr = smem_u32(str_s);
+  float s0[32] = {}, s1[32] = {};
+  mbar_wait(&full[0], 0);  // every split has a tile
+  tile_logits<D>(s0, rf, str_addr);
+  for (int it = t0; it < t1; it += 2) {
+    pipeline_step<D, kDtable>(s0, s1, acc, db, rf, it, t0, t1, n_str, full, empty, str_addr, vec_s, ok, ra, rb, t);
+    pipeline_step<D, kDtable>(s1, s0, acc, db, rf, it + 1, t0, t1, n_str, full, empty, str_addr, vec_s, ok, ra, rb, t);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  float* dst0 = out + (size_t)split * n_res * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if constexpr (kDtable) {
+      db[r] += __shfl_xor_sync(0xffffffffu, db[r], 1);
+      db[r] += __shfl_xor_sync(0xffffffffu, db[r], 2);
+      if (ok[r] && t == 0) dbias[(size_t)split * n_res + row[r]] = db[r];
+    }
+    if (!ok[r]) continue;
+    float* dst = dst0 + (size_t)row[r] * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(dst + j * 8) = make_float2(acc[j * 4 + 2 * r], acc[j * 4 + 2 * r + 1]);
+    }
+  }
+}
+
+// out[i] = sum over s of part[s * n + i], s in order.
+__global__ void sum_splits(const float* __restrict__ part, float* __restrict__ out, long long n, int S) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n; i += (long long)gridDim.x * blockDim.x) {
+    float acc = part[i];
+    for (int s = 1; s < S; ++s) acc += part[(long long)s * n + i];
+    out[i] = acc;
+  }
+}
+
+// How many ways a pass splits its streamed tiles: 1 when the resident
+// blocks fill the card, else as many as fill it, every split non-empty.
+int splits(int n_res, int n_str, int* per) {
+  const int blocks = (n_res + kRes - 1) / kRes;
+  const int tiles = (n_str + kStr - 1) / kStr;
+  int S = blocks >= kSms ? 1 : kSms / blocks;
+  S = S > kMaxSplits ? kMaxSplits : S;
+  S = S > tiles ? tiles : (S < 1 ? 1 : S);
+  *per = (tiles + S - 1) / S;
+  return (tiles + *per - 1) / *per;
+}
+
+// A row-major [rows, D] bf16 matrix, box [box_rows, sw / 2].
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int D, int box_rows) {
+  const int sw = swizzle_bytes(D);
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
+  cuuint32_t box[2] = {static_cast<cuuint32_t>(sw / 2), static_cast<cuuint32_t>(box_rows)};
+  cuuint32_t elem[2] = {1, 1};
+  const CUresult r = cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                            sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) std::fprintf(stderr, "ce_bwd: cuTensorMapEncodeTiled failed with CUresult %d\n", (int)r);
+  return r == CUDA_SUCCESS;
+}
+
+// A [n] fp32 vector, box kStr.
+bool make_vec_map(CUtensorMap* map, const float* ptr, int n) {
+  cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(n) * 4};  // unused for one dimension
+  cuuint32_t box[1] = {static_cast<cuuint32_t>(kStr)};
+  cuuint32_t elem[1] = {1};
+  const CUresult r = cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr), dims,
+                                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) std::fprintf(stderr, "ce_bwd: cuTensorMapEncodeTiled (vector) failed with CUresult %d\n", (int)r);
+  return r == CUDA_SUCCESS;
+}
+
+// One pass. vec0/vec1: the streamed rows' vectors (dq: bias; dtable: lse,
+// g); row_a/row_b: the resident rows' (dq: lse, g; dtable: bias).
+template <int D, bool kDtable>
+cudaError_t run_pass(const void* res, int n_res, const void* str, int n_str, const float* vec0, const float* vec1,
+                     const float* row_a, const float* row_b, float* out, float* dbias, float* scratch,
+                     cudaStream_t s) {
+  CUtensorMap res_map, str_map, vec0_map, vec1_map;
+  if (!make_map(&res_map, res, n_res, D, kRes) || !make_map(&str_map, str, n_str, D, kStr) ||
+      !make_vec_map(&vec0_map, vec0, n_str) || !make_vec_map(&vec1_map, vec1, n_str)) {
+    return cudaErrorInvalidValue;
+  }
+  int per = 0;
+  const int S = splits(n_res, n_str, &per);
+  float* o = S > 1 ? scratch : out;
+  float* ob = S > 1 ? scratch + (size_t)S * n_res * D : dbias;
+  constexpr int smem = pass_smem_bytes<D, kDtable>();
+  auto kernel = ce_bwd_pass<D, kDtable>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3((n_res + kRes - 1) / kRes, S), kBwdThreads, smem, s>>>(res_map, str_map, vec0_map, vec1_map, row_a,
+                                                                      row_b, o, ob, n_res, n_str, per);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || S == 1) return e;
+  sum_splits<<<2 * kSms, 256, 0, s>>>(o, out, (long long)n_res * D, S);
+  if (kDtable) sum_splits<<<2 * kSms, 256, 0, s>>>(ob, dbias, n_res, S);
+  return cudaGetLastError();
+}
+
+// Scratch floats a pass needs for its partials (0 when it does not split).
+long long pass_scratch(int n_res, int n_str, int D, bool dtable) {
+  int per = 0;
+  const int S = splits(n_res, n_str, &per);
+  return S > 1 ? (long long)S * n_res * (D + (dtable ? 1 : 0)) : 0;
+}
+
+template <int D>
+cudaError_t run_bwd(const void* q, const void* table, const void* bias, const void* lse, const void* g, void* dq,
+                    void* dtable, void* dbias, void* scratch, int N, int V, cudaStream_t s) {
+  const float* b = static_cast<const float*>(bias);
+  const float* l = static_cast<const float*>(lse);
+  const float* gg = static_cast<const float*>(g);
+  float* sc = static_cast<float*>(scratch);
+  cudaError_t e = run_pass<D, false>(q, N, table, V, b, b, l, gg, static_cast<float*>(dq), nullptr, sc, s);
+  if (e != cudaSuccess) return e;
+  return run_pass<D, true>(table, V, q, N, l, gg, b, b, static_cast<float*>(dtable), static_cast<float*>(dbias),
+                           sc + pass_scratch(N, V, D, false), s);
+}
+
+}  // namespace
+
+// The widths the CE kernels take, defined once in ce.cu.
+extern "C" int ce_supports_dim(int D);
+
+// Floats of scratch ce_bwd needs for split partials (0: pass any pointer).
+extern "C" int ce_bwd_scratch(int N, int V, int D) {
+  if (N <= 0 || V <= 0) return 0;
+  return static_cast<int>(pass_scratch(N, V, D, false) + pass_scratch(V, N, D, true));
+}
+
+extern "C" int ce_bwd(const void* q, const void* table, const void* bias, const void* lse, const void* g, void* dq,
+                      void* dtable, void* dbias, void* scratch, int N, int V, int D, int device, void* stream) {
+  if (!ce_supports_dim(D) || V <= 0 || N <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return run_bwd<32>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
+    case 64: return run_bwd<64>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
+    default: return run_bwd<128>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
+  }
+}

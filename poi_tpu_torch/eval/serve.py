@@ -126,6 +126,9 @@ class Recommender:
     ) -> np.ndarray:
         """[B, k] recommended POI ids, best first; -1 where a row has fewer
         than k unvisited POIs in the catalog."""
+        if self.cfg.eval.topk_impl == "pallas" and k > MAX_K:
+            # The reference's top-k kernel refuses such k (poi_tpu/ops/topk.py).
+            raise ValueError(f"k={k} > {MAX_K} not supported")
         batch = self._featurize(histories)
         if user_ids is not None:
             batch = batch._replace(user=np.asarray(user_ids, np.int32))

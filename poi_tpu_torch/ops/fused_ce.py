@@ -1,6 +1,7 @@
 """Full-catalog softmax cross-entropy that never stores the [N, V] logits:
-the CUDA kernels of ``csrc/ce.cu``, their plain PyTorch versions, and the
-autograd ``Function`` around them.
+the CUDA kernels of ``csrc/ce.cu`` (forward) and ``csrc/ce_bwd.cu``
+(backward), their plain PyTorch versions, and the autograd ``Function``
+around them.
 
 Counterpart of the Pallas path of ``poi_tpu/ops/fused_ce.py``
 (``fused_ce_rows_pallas`` / ``fused_ce_loss_pallas``). Contract, the same as
@@ -203,8 +204,9 @@ def ce_bwd(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, lse: torch.
     """``(dq [N, D], dtable [V, D], dbias [V])`` fp32 of ``sum_n g[n] · lse[n]``
     (the softmax part of the CE gradient, without the one-hot terms).
 
-    CPU tensors take the plain version. CUDA tensors launch the two kernels
-    (``ce_bwd_dq``, ``ce_bwd_dtable``) or raise; ``ce_bwd.launches`` counts
+    CPU tensors take the plain version. CUDA tensors launch the kernels (the
+    dq pass and the dtable pass of ``csrc/ce_bwd.cu``, and the reduction of
+    split partials where a pass splits) or raise; ``ce_bwd.launches`` counts
     the calls that launched them.
     """
     N, D = q.shape
@@ -224,9 +226,12 @@ def ce_bwd(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, lse: torch.
     q16 = q.to(torch.bfloat16).contiguous()
     t16 = table.to(torch.bfloat16).contiguous()
     b32, l32, g32 = (x.float().contiguous() for x in (bias, lse, g))
-    rc = _build.library().ce_bwd(q16.data_ptr(), t16.data_ptr(), b32.data_ptr(), l32.data_ptr(), g32.data_ptr(),
-                                 dq.data_ptr(), dtable.data_ptr(), dbias.data_ptr(), N, V, D, dev.index,
-                                 torch.cuda.current_stream(dev).cuda_stream)
+    lib = _build.library()
+    # fp32 partials of a pass that splits its streamed rows to fill the card.
+    scratch = torch.empty(max(1, lib.ce_bwd_scratch(N, V, D)), dtype=torch.float32, device=dev)
+    rc = lib.ce_bwd(q16.data_ptr(), t16.data_ptr(), b32.data_ptr(), l32.data_ptr(), g32.data_ptr(), dq.data_ptr(),
+                    dtable.data_ptr(), dbias.data_ptr(), scratch.data_ptr(), N, V, D, dev.index,
+                    torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "ce_bwd launch")
     ce_bwd.launches += 1
     return dq, dtable, dbias

@@ -78,7 +78,7 @@ def fused_topk(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, k: int)
         raise ValueError("fused_topk: the bf16 table must start on a 16-byte boundary")
     lib = _build.library()
     slice_len = ctypes.c_int(0)
-    slices = lib.topk_plan(V, k, B, ctypes.byref(slice_len))
+    slices = lib.topk_plan(V, k, B, D, ctypes.byref(slice_len))
     dev = q.device
     vals = torch.empty(B, k, dtype=torch.float32, device=dev)
     ids = torch.empty(B, k, dtype=torch.int32, device=dev)

@@ -2,7 +2,7 @@
 ``scripts/`` that run on the card:
 
     python -m poi_tpu_torch.scripts.sweep_ce_fwd    # B12: the CE forward's variants x rows a block
-    python -m poi_tpu_torch.scripts.sweep_ce_bwd    # B8: ce_bwd_dq and ce_bwd_dtable, apart and together
+    python -m poi_tpu_torch.scripts.sweep_ce_bwd    # B8: its dq and dtable passes, apart and together
     python -m poi_tpu_torch.scripts.profile_step    # the bench workload's train step by region
     python -m poi_tpu_torch.scripts.profile_attn    # config #4's train step by region
     python -m poi_tpu_torch.scripts.bench_cells     # B1-B6 against their plain versions and cuDNN

@@ -2,16 +2,18 @@
 
     python -m poi_tpu_torch.scripts.sweep_ce_bwd [--n 16384 --v 44170 --d 128] [--device cuda]
 
-``ops.fused_ce.ce_bwd`` launches two kernels, ``ce_bwd_dq`` (row blocks over
-the catalog) and ``ce_bwd_dtable`` (catalog blocks over the rows). Together
+``ops.fused_ce.ce_bwd`` launches two passes of ``csrc/ce_bwd.cu``'s
+``ce_bwd_pass``: the dq pass (blocks of 128 query rows over the catalog) and
+the dtable pass (blocks of 128 catalog rows over the queries), and, where a
+pass splits its streamed rows to fill the card, ``sum_splits``. Together
 they are timed with CUDA events; apart, by their device time in
 ``torch.profiler`` over the same launches. The rates are given under two
 counts of the work: the JAX script's three catalog products (the TPU kernel
 keeps dq resident and recomputes the logits once) and the port's own four
-(each kernel recomputes the logits: ``csrc/ce.cu``). B8 has one tile shape
-(64-row blocks, 64-row streamed tiles), so unlike the TPU sweep there is no
-tile axis. Inputs as the JAX script's: q ~ N(0, 1), table ~ 0.05·N(0, 1),
-zero bias, lse = 5, g = 1/N.
+(each pass recomputes the logits). B8 has one tile shape (128 resident rows,
+64-row streamed tiles), so unlike the TPU sweep there is no tile axis.
+Inputs as the JAX script's: q ~ N(0, 1), table ~ 0.05·N(0, 1), zero bias,
+lse = 5, g = 1/N.
 """
 
 from __future__ import annotations
@@ -22,28 +24,22 @@ import sys
 import torch
 
 from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_bwd_reference
-from poi_tpu_torch.scripts._timing import add_device_arg, setup, sync, time_ms
+from poi_tpu_torch.scripts._timing import add_device_arg, kernel_ms, setup, sync, time_ms
 
-KERNELS = ("ce_bwd_dq_kernel", "ce_bwd_dtable_kernel")
+# The profiler's kernel names (substrings) of the two passes and the reduction.
+KERNELS = {"dq pass": ", false>", "dtable pass": ", true>", "sum_splits": "sum_splits"}
 ITERS = 20
 
 
-def kernel_ms(fn, n: int) -> dict[str, float]:
-    """Device ms a call of each of ``KERNELS`` takes, from the profiler over
-    ``n`` calls of ``fn``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
+def pass_ms(fn, n: int) -> dict[str, float]:
+    """Device ms a call of each of ``KERNELS`` takes (those that ran), from
+    the profiler over ``n`` calls of ``fn`` (``_timing.kernel_ms``, which
+    checks that the record holds both passes and every launch)."""
     out = {}
-    for e in prof.key_averages():
-        for name in KERNELS:
-            if name in e.key:
-                out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / n
+    for key, ms in kernel_ms(fn, n, expect=("ce_bwd_pass<", ", false>", ", true>")).items():
+        for name, part in KERNELS.items():
+            if part in key and ("ce_bwd_pass<" in key or name == "sum_splits"):
+                out[name] = out.get(name, 0.0) + ms
     return out
 
 
@@ -65,8 +61,8 @@ def main(argv: list[str] | None = None) -> int:
     g = torch.full((N,), 1.0 / N, device=dev)
     product = 2 * N * V * D
     print(f"N={N} V={V} D={D}: one catalog product is {product / 1e9:.1f} GFLOP; the backward counts 3 (the JAX "
-          f"script's, sweep_ce_bwd.py:45) or 4 (the port's two kernels, csrc/ce.cu)", flush=True)
-    print("B8 has one tile shape (64-row blocks, 64-row streamed tiles): no tile axis to sweep", flush=True)
+          f"script's, sweep_ce_bwd.py:45) or 4 (the port's two passes, csrc/ce_bwd.cu)", flush=True)
+    print("B8 has one tile shape (128 resident rows, 64-row streamed tiles): no tile axis to sweep", flush=True)
 
     got = ce_bwd(q, table, bias, lse, g)
     sync(dev)
@@ -77,16 +73,16 @@ def main(argv: list[str] | None = None) -> int:
     print(f"ce_bwd (dq + dtable): {ms:8.4f} ms  {3 * product / ms / 1e9:7.1f} TFLOP/s (3 products)  "
           f"{4 * product / ms / 1e9:7.1f} TFLOP/s (4 products)", flush=True)
     if dev.type != "cuda":
-        print("ce_bwd_dq, ce_bwd_dtable apart: not measured (no device profile on the cpu)")
+        print("dq pass, dtable pass apart: not measured (no device profile on the cpu)")
         return 0
-    parts = kernel_ms(lambda: ce_bwd(q, table, bias, lse, g), ITERS)
-    for name in KERNELS:
-        t = parts.get(name)
-        if t is None:
-            raise SystemExit(f"the profiler recorded no {name}: {sorted(parts)}")
+    parts = pass_ms(lambda: ce_bwd(q, table, bias, lse, g), ITERS)
+    for name in ("dq pass", "dtable pass"):
+        t = parts[name]
         # Each pass: the logits' product and one gradient product.
-        print(f"{name.removesuffix('_kernel'):13s}: {t:8.4f} ms  {2 * product / t / 1e9:7.1f} TFLOP/s (2 products; "
-              f"device time, torch.profiler)", flush=True)
+        print(f"{name:11s}: {t:8.4f} ms  {2 * product / t / 1e9:7.1f} TFLOP/s (2 products; device time, "
+              f"torch.profiler)", flush=True)
+    if "sum_splits" in parts:
+        print(f"sum_splits : {parts['sum_splits']:8.4f} ms  (the split partials' reduction)", flush=True)
     return 0
 
 

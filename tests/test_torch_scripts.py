@@ -22,8 +22,8 @@ from poi_tpu_torch.configs.presets import get_config
 from poi_tpu_torch.data.dataset import load_dataset
 from poi_tpu_torch.models.base import DataDims
 from poi_tpu_torch.ops import fused_lstm, fused_rnn
-from poi_tpu_torch.scripts import (bench_cells, bench_serve, mem_budget, profile_attn, profile_step, quality_runs,
-                                   sweep_ce_bwd, sweep_ce_fwd)
+from poi_tpu_torch.scripts import (_timing, bench_cells, bench_serve, mem_budget, profile_attn, profile_step,
+                                   quality_runs, sweep_ce_bwd, sweep_ce_fwd)
 from poi_tpu_torch.train.loop import Trainer
 
 torch.set_num_threads(1)
@@ -69,6 +69,44 @@ def test_sweep_ce_bwd_prints_both_flop_counts(capsys, monkeypatch):
     out = "\n".join(_run(capsys, sweep_ce_bwd, ["--n", "70", "--v", "300", "--d", "32"]))
     assert re.search(r"ce_bwd \(dq \+ dtable\): .* TFLOP/s \(3 products\) .* TFLOP/s \(4 products\)", out)
     assert "no tile axis" in out and "rel err against the plain version: dq 0.00e+00" in out
+
+
+ONCE = {"topk_slice_kernel<64, 16>": 1, "topk_merge_kernel<32>": 1}
+
+
+@pytest.mark.parametrize("counts, expect, fault", [
+    ({"topk_slice_kernel<64, 16>": 20, "topk_merge_kernel<32>": 20}, ("topk_slice", "topk_merge"), None),
+    ({"topk_slice_kernel<64, 16>": 5, "topk_merge_kernel<32>": 20}, (), "20 calls recorded"),  # launches lost
+    ({"topk_merge_kernel<32>": 20}, (), "20 calls recorded"),  # a kernel lost in every call
+    ({**{k: 20 for k in ONCE}, "Memset (Device)": 1}, (), "20 calls recorded"),  # one more
+    ({k: 20 for k in ONCE}, ("sum_splits",), "no kernel named like ['sum_splits']"),
+])
+def test_kernel_ms_record_check(counts, expect, fault):
+    """``kernel_ms`` takes a profile of n calls only if it holds each kernel
+    of one profiled call n times as often, no other, and the named ones."""
+    got = _timing.record_fault(ONCE, counts, 20, expect)
+    assert got is None if fault is None else fault in got
+
+
+def test_kernel_ms_retakes_an_incomplete_record(monkeypatch, capsys):
+    records = iter([{"a": (1, 5.0)}, {"a": (3, 20.0)},  # the first 4-call record lost a launch
+                    {"a": (1, 5.0)}, {"a": (4, 20.0)}])
+    monkeypatch.setattr(_timing, "_device_record", lambda fn, calls: next(records))
+    assert _timing.kernel_ms(lambda: None, 4) == {"a": 20.0 / 1e3 / 4}
+    assert "profiler record 1/3 incomplete" in capsys.readouterr().out
+    monkeypatch.setattr(_timing, "_device_record", lambda fn, calls: {"a": (calls, 1.0)} if calls == 1 else {})
+    with pytest.raises(RuntimeError, match="missed launches in 3 records"):
+        _timing.kernel_ms(lambda: None, 4)
+
+
+def test_sweep_ce_bwd_pass_ms_groups_the_kernels(monkeypatch):
+    record = {"void (anonymous namespace)::ce_bwd_pass<128, false>(CUtensorMap, ...)": 1.5,
+              "void (anonymous namespace)::ce_bwd_pass<128, true>(CUtensorMap, ...)": 2.0,
+              "(anonymous namespace)::sum_splits(float const*, float*, long long, int)": 0.25}
+    seen = {}
+    monkeypatch.setattr(sweep_ce_bwd, "kernel_ms", lambda fn, n, expect: seen.update(expect=expect) or record)
+    assert sweep_ce_bwd.pass_ms(None, 10) == {"dq pass": 1.5, "dtable pass": 2.0, "sum_splits": 0.25}
+    assert {"ce_bwd_pass<", ", false>", ", true>"} <= set(seen["expect"])
 
 
 @pytest.mark.parametrize("module, consts, names", [

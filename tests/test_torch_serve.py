@@ -10,6 +10,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 from contextlib import redirect_stdout
@@ -177,6 +178,54 @@ def test_recommend_matches_jax(setup, exclude_visited):
     rows = np.arange(len(got))[:, None]
     near = np.abs(scores[rows, got] - scores[rows, want]) < TIE_TOL
     assert ((got == want) | near).all(), (got, want)
+
+
+@pytest.mark.parametrize("exclude_visited", [True, False])
+def test_recommend_k_above_128_raises_the_reference_error_on_the_kernel_path(setup, exclude_visited):
+    cfg, ds, jmodel, jparams, _, model = setup
+    histories = _histories_from_test(ds, 2)
+    jhist = [[JaxCheckin(c.poi, c.timestamp) for c in h] for h in histories]
+    with pytest.raises(ValueError) as want:
+        JaxRecommender(jmodel, jparams, _jax(cfg), ds).recommend(jhist, k=200, exclude_visited=exclude_visited)
+    with pytest.raises(ValueError) as got:
+        Recommender(model, cfg, ds).recommend(histories, k=200, exclude_visited=exclude_visited)
+    # The reference names the k it fetches (with the visited filter, the
+    # next power of two of k + history); the port names the k asked for.
+    assert re.fullmatch(r"k=\d+ > 128 not supported", str(want.value)), want.value
+    assert str(got.value) == "k=200 > 128 not supported"
+
+
+def test_recommend_k_above_128_on_the_plain_path_returns_k_ids(setup):
+    cfg, ds, _, _, _, model = setup
+    histories = _histories_from_test(ds, 3)
+    rec = Recommender(model, cfg.with_overrides({"eval.topk_impl": "xla"}), ds)
+    for exclude_visited in (True, False):
+        out = rec.recommend(histories, k=200, exclude_visited=exclude_visited)
+        assert out.shape == (3, 200) and (out >= 0).all()
+
+
+def test_cli_serve_answers_k_above_128_with_an_error_and_keeps_serving(setup, tmp_path, monkeypatch):
+    from poi_tpu_torch import cli
+
+    _, _, _, _, tree, _ = setup
+    params = tmp_path / "params.npz"
+    save_npz(params, tree)
+    hist = [[{"poi": 3, "timestamp": 1000.0}, {"poi": 5, "timestamp": 5000.0}]]
+    lines = "\n".join([
+        json.dumps({"histories": hist, "k": 200, "exclude_visited": False}),
+        json.dumps({"histories": hist, "k": 200}),
+        json.dumps({"histories": hist, "k": 4}),
+    ]) + "\n"
+    monkeypatch.setattr(sys, "stdin", io.StringIO(lines))
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = cli.main(["serve", "--config", "smoke", "--params", str(params), "--device", "cpu",
+                       "--set", "model.embed_dim=64", "model.hidden_dim=64", "eval.topk_impl=pallas"])
+    assert rc == 0
+    out = [json.loads(l) for l in buf.getvalue().strip().splitlines()]
+    assert len(out) == 3
+    assert out[0] == out[1] == {"error": "ValueError: k=200 > 128 not supported"}
+    assert len(out[2]["ids"][0]) == 4
 
 
 def test_finalize_pads_short_rows_with_sentinel():
