@@ -191,6 +191,10 @@ SCRIPT_RUNS = (
 # The GRU kernels' cluster path (H > 196): config #4's train shape, a ragged
 # batch, and config #5's width.
 GRU_BIG_SHAPES = ((64, 128, 256), (7, 128, 256), (5, 64, 512))
+# B2 at widths that are no multiple of 16 (B, H, blocks a row group that the
+# kernel picks for them): H = 100 on one block, at a batch whose 69 row groups
+# would not fit on the card on clusters of 2, and H = 200 on a cluster.
+GRU_BWD_RAGGED = ((1100, 100, 1), (7, 200, 8))
 # Sampled softmax (N, S, D, V, pad, full_hit): config #4's train shape
 # (B*T = 8,192 rows, a pool of 1,024 from 36,969 POIs); a pool of 1,000
 # padded to 1,024 the way the TPU kernel pads it; a pool of 200 (no multiple
@@ -202,6 +206,11 @@ SAMPLED_CASES = ((8192, 1024, 256, 36969, 0, False), (8192, 1000, 256, 2000, 24,
 # real POIs): a ragged catalog padded with -1e30 rows past a tile boundary,
 # and D = 32 with neither N nor V a tile multiple.
 CE_VARIANT_CASES = ((300, 8193, 128, 8000), (70, 700, 32, 650))
+# B7's split-V edges (N, V, D, real POIs): 2 row blocks of 256 split a
+# catalog of 8,192 into 32 ranges of 256, the last three wholly in the -1e30
+# tail; 1 row block splits 700 POIs (V < S * 64) into 11 one-tile ranges of
+# 64, the last of 60 columns, 10 of them padded.
+CE_SPLIT_CASES = ((300, 8192, 128, 7424), (129, 700, 64, 650))
 
 
 def log(msg: str) -> None:
@@ -289,7 +298,7 @@ def check_gru_fwd(xw, wh, mask, lengths):
 def check_gru_bwd(xw, wh, hs, dhs, mask):
     """B2 against ``gru_bwd_reference`` (relative to each output's largest
     element), dxw exactly 0 on padded steps, the same bits on a second
-    launch; returns (rel err dxw, rel err dwh, max abs error, padded steps)."""
+    launch. Returns (rel err dxw, rel err dwh, max abs error, padded steps)."""
     import torch
 
     from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, gru_bwd_reference
@@ -404,27 +413,61 @@ def ce_lse_bound(q, table, bias, lse) -> dict:
     return bound((q, table, bias), (lse,), bf16_flop=2 * N * V * D, fp32_flop=2 * N * V, exps=N * V)
 
 
+def gru_bwd_bound(xw, wh, hs, dhs, outs) -> dict:
+    """B2's bound: the gate recompute and the carry product on the tensor
+    cores, the carry's fp32 cotangent counted as the kernel runs it, three
+    exact bf16 products (so four products of 2 * B * T * H * 3H FLOPs), and
+    dwh's fp32 product on the CUDA cores."""
+    B, T, H = hs.shape
+    flop = 2 * B * T * H * 3 * H
+    return bound((xw, wh, hs, dhs), outs, bf16_flop=4 * flop, fp32_flop=flop)
+
+
+# The kernels of B2's and B7's calls, as the profiler names them: B2's three
+# passes and the dwh product it shares; B7's catalog kernel and its merge.
+GRU_BWD_KERNELS = ("gru_bwd_gates", "gru_bwd_carry", "gru_bwd_outputs", "recurrent_dw")
+CE_LSE_KERNELS = ("ce_lse_wg_kernel", "lse_merge")
+
+
+def device_parts(fn, names) -> dict:
+    """Device ms of one call of ``fn`` (``_timing.kernel_ms``, the record
+    checked to hold ``names[0]``): in all (``device_ms``), and in the kernels
+    named like each of ``names`` (``<name>_ms``)."""
+    parts = _timing.kernel_ms(fn, 10, expect=names[:1])
+    return {"device_ms": sum(parts.values()),
+            **{f"{n}_ms": sum(v for k, v in parts.items() if n in k) for n in names}}
+
+
+def parts_text(t: dict, names) -> str:
+    return f"device {t['device_ms']:.4f} ms: " + ", ".join(f"{n} {t[n + '_ms']:.4f}" for n in names)
+
+
 def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
 def gru_bwd_phase() -> float:
-    """B2 against ``gru_bwd_reference``; returns the largest absolute error."""
+    """B2 against ``gru_bwd_reference`` at H = 64 and 128, then at ragged
+    widths (``GRU_BWD_RAGGED``); returns the largest absolute error."""
     import torch
 
+    from poi_tpu_torch import _build
     from poi_tpu_torch.ops.fused_gru import fused_gru_scan
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
     worst = 0.0
-    for H in (64, 128):
-        for B in (1, 7, 512):
-            xw, wh, mask, _ = gru_case(B, 64, H, gen)
-            hs = fused_gru_scan(xw, wh)
-            dhs = torch.randn(B, 64, H, generator=gen, device=DEV)  # nonzero on padded steps too
-            ex, ew, err, n_pad = check_gru_bwd(xw, wh, hs, dhs, mask)
-            worst = max(worst, err)
-            log(f"[gru_bwd] B={B:3d} T=64 H={H:3d}: rel err dxw {ex:.2e}, dwh {ew:.2e} (tol {GRU_BWD_TOL}); "
-                f"dxw on {n_pad} padded steps exactly 0; a second run gives the same bits")
+    cases = [(B, H, None) for H in (64, 128) for B in (1, 7, 512)] + list(GRU_BWD_RAGGED)
+    for B, H, want_blocks in cases:
+        blocks = _build.library().gru_bwd_cluster_size(B, H)
+        assert want_blocks in (None, blocks), f"GRU bwd B={B} H={H}: the kernel picks {blocks} blocks, not {want_blocks}"
+        xw, wh, mask, _ = gru_case(B, 64, H, gen)
+        hs = fused_gru_scan(xw, wh)
+        dhs = torch.randn(B, 64, H, generator=gen, device=DEV)  # nonzero on padded steps too
+        ex, ew, err, n_pad = check_gru_bwd(xw, wh, hs, dhs, mask)
+        worst = max(worst, err)
+        log(f"[gru_bwd] B={B:3d} T=64 H={H:3d} ({blocks} block{'s' if blocks > 1 else ''} a row group): rel err dxw "
+            f"{ex:.2e}, dwh {ew:.2e} (tol {GRU_BWD_TOL}); dxw on {n_pad} padded steps exactly 0; a second run gives "
+            f"the same bits")
     return worst
 
 
@@ -433,17 +476,20 @@ def ce_phase() -> tuple[float, float]:
     errors of (lse, gradients)."""
     import torch
 
+    from poi_tpu_torch import _build
     from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_bwd_reference, ce_lse, ce_lse_reference
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
     worst_lse = worst_grad = 0.0
     # Config #1's catalog at batch 1, a catalog one past a tile multiple, the
     # bench shape, config #1's catalog padded to 8,192 with -1e30 rows,
-    # config #3's shape (its 16 row blocks split the catalog: B8's
-    # split-and-reduce path), and D = 32 (the smoke preset's width, whose
-    # tiles take the 64-byte swizzle) on ragged N and V with a padded tail.
+    # config #3's shape (its 16 row blocks split the catalog: B7's
+    # split-and-merge and B8's split-and-reduce paths), D = 32 (the smoke
+    # preset's width, whose tiles take the 64-byte swizzle) on ragged N and V
+    # with a padded tail, and B7's split edges (CE_SPLIT_CASES).
     for N, V, D, real in ((1, 6749, 64, 6749), (300, 8193, 128, 8193), CE_TRAIN_SHAPE + (CE_TRAIN_SHAPE[1],),
-                          (2048, 8192, 64, 6749), CE_C3_SHAPE + (CE_C3_SHAPE[1],), (300, 8193, 32, 8000)):
+                          (2048, 8192, 64, 6749), CE_C3_SHAPE + (CE_C3_SHAPE[1],), (300, 8193, 32, 8000),
+                          *CE_SPLIT_CASES):
         q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
         table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
         bias = torch.randn(V, generator=gen, device=DEV)
@@ -466,7 +512,9 @@ def ce_phase() -> tuple[float, float]:
             f"ce N={N} V={V} D={D}: run-to-run bits"
         worst_lse = max(worst_lse, e_lse)
         worst_grad = max(worst_grad, *(float((a - b).abs().max()) for a, b in zip((dq, dt, db), want)))
-        log(f"[ce] N={N:5d} V={V} D={D:3d}{' (-1e30 tail)' if real < V else ''}: lse max err {e_lse:.2e} "
+        splits = max(1, _build.library().ce_lse_scratch(N, V, D) // (2 * N))
+        log(f"[ce] N={N:5d} V={V} D={D:3d}{' (-1e30 tail)' if real < V else ''}, ce_lse in {splits} catalog "
+            f"range{'s' if splits > 1 else ''}: lse max err {e_lse:.2e} "
             f"(tol {CE_LSE_TOL}); rel err dq {errs[0]:.2e}, dtable {errs[1]:.2e} (tol {CE_GRAD_TOL}), "
             f"dbias {errs[2]:.2e} (tol {CE_DBIAS_TOL}); a second run gives the same bits")
     return worst_lse, worst_grad
@@ -474,8 +522,9 @@ def ce_phase() -> tuple[float, float]:
 
 def check_variant(name: str, got, want, base, q, table, bias, shape: str) -> float:
     """One B12 instantiation's output against its plain version's: within
-    ``CE_LSE_TOL``, the same bits on a second launch, and base/64 equal to
-    ``ce_lse`` bit for bit. Returns the largest absolute error."""
+    ``CE_LSE_TOL``, the same bits on a second launch, and base/64 (the first
+    design of ``ce_lse``'s kernel) within ``CE_LSE_TOL`` of ``ce_lse``.
+    Returns the largest absolute error."""
     import torch
 
     from poi_tpu_torch.ops.fused_ce import ce_lse_variant
@@ -484,9 +533,10 @@ def check_variant(name: str, got, want, base, q, table, bias, shape: str) -> flo
     err = float((got - want).abs().max())
     assert bool(torch.isfinite(got).all()) and err < CE_LSE_TOL, f"ce_lse_variant {name} {shape}: {err}"
     assert torch.equal(ce_lse_variant(q, table, bias, variant, int(rows)), got), f"{name} {shape}: run-to-run bits"
-    assert name != "base/64" or torch.equal(got, base), f"base/64 differs from ce_lse at {shape}"
+    to_lse = float((got - base).abs().max())
+    assert name != "base/64" or to_lse < CE_LSE_TOL, f"base/64 differs from ce_lse by {to_lse} at {shape}"
     log(f"[ce_variants] {name:9s} {shape}: max |kernel - plain| {err:.2e} (tol {CE_LSE_TOL}); a second launch "
-        f"gives the same bits" + ("; equal to ce_lse bit for bit" if name == "base/64" else ""))
+        f"gives the same bits" + (f"; within {to_lse:.2e} of ce_lse" if name == "base/64" else ""))
     return err
 
 
@@ -562,14 +612,28 @@ def gru_big_phase() -> dict:
                           **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * G)}
             out["bwd"] = {"ms": time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs)),
                           "plain_ms": time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 5), "library_ms": None,
-                          **bound((xw, wh, hs, dhs), fused_gru_bwd(xw, wh, hs, dhs), bf16_flop=2 * B * T * H * G,
-                                  fp32_flop=4 * B * T * H * G)}
+                          **gru_bwd_bound(xw, wh, hs, dhs, fused_gru_bwd(xw, wh, hs, dhs)),
+                          "args": (xw, wh, hs, dhs)}
             for d in ("fwd", "bwd"):
                 t = out[d]
                 lib = f", cuDNN nn.GRU forward {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
                 log(f"[time] gru_{d} B={B} T={T} H={H} (cluster): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-                    f"ms{lib}; bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+                    f"ms{lib}; bound {t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bound_pipe']})")
     return out
+
+
+def gru_big_device_phase(big: dict, gpu: str) -> None:
+    """B2's device time by kernel at config #4's shape, on the inputs
+    ``gru_big_phase`` timed. It runs after the timing phases, as every
+    profiler reading does: in a run that profiled here, before the training
+    phases, the top-k timing's later records came back empty."""
+    from poi_tpu_torch.ops.fused_gru import fused_gru_bwd
+
+    t = big["bwd"]
+    xw, wh, hs, dhs = t.pop("args")
+    t.update(device_parts(lambda: fused_gru_bwd(xw, wh, hs, dhs), GRU_BWD_KERNELS))
+    log(f"[time] gru_bwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]} (cluster): {parts_text(t, GRU_BWD_KERNELS)}  "
+        f"({gpu})")
 
 
 def sampled_case(N: int, S: int, D: int, V: int, gen, pad: int = 0, full_hit: bool = False):
@@ -1325,13 +1389,14 @@ def train_timing_phase(state, gpu: str) -> dict:
                             **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * G)}
     out["gru_bwd"] = {"ms": time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs)),
                       "plain_ms": time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 5), "library_ms": None,
-                      **bound((xw, wh, hs, dhs), fused_gru_bwd(xw, wh, hs, dhs), bf16_flop=2 * B * T * H * G,
-                              fp32_flop=4 * B * T * H * G)}
+                      **gru_bwd_bound(xw, wh, hs, dhs, fused_gru_bwd(xw, wh, hs, dhs)),
+                      **device_parts(lambda: fused_gru_bwd(xw, wh, hs, dhs), GRU_BWD_KERNELS)}
     for name in ("gru_fwd_train", "gru_bwd"):
         t = out[name]
         lib = f", cuDNN nn.GRU forward {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
+        dev = "; " + parts_text(t, GRU_BWD_KERNELS) if name == "gru_bwd" else ""
         log(f"[time] {name} B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms{lib}; bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']})  ({gpu})")
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bound_pipe']}){dev}  ({gpu})")
     # No single PyTorch call computes a row LSE over a product, or its
     # gradients from a given LSE: no library time. B8 at the bench shape and
     # at config #3's, its two passes apart from the profiler's device time.
@@ -1342,10 +1407,11 @@ def train_timing_phase(state, gpu: str) -> dict:
         g = torch.rand(N, generator=gen, device=DEV)
         lse = ce_lse_reference(q, table, bias)
         flop = 2 * N * V * D
-        if not key:
-            out["ce_lse"] = {"ms": time_ms(lambda: ce_lse(q, table, bias)),
-                             "plain_ms": time_ms(lambda: ce_lse_reference(q, table, bias), 5), "library_ms": None,
-                             **ce_lse_bound(q, table, bias, lse)}
+        # B7 at both shapes, its split kernel and merge apart in device time.
+        out["ce_lse" + key] = {"ms": time_ms(lambda: ce_lse(q, table, bias)),
+                               "plain_ms": time_ms(lambda: ce_lse_reference(q, table, bias), 5), "library_ms": None,
+                               **ce_lse_bound(q, table, bias, lse),
+                               **device_parts(lambda: ce_lse(q, table, bias), CE_LSE_KERNELS)}
         t = {"ms": time_ms(lambda: ce_bwd(q, table, bias, lse, g)),
              "plain_ms": time_ms(lambda: ce_bwd_reference(q, table, bias, lse, g), 5), "library_ms": None,
              **bound((q, table, bias, lse, g), ce_bwd(q, table, bias, lse, g), bf16_flop=3 * flop)}
@@ -1353,11 +1419,10 @@ def train_timing_phase(state, gpu: str) -> dict:
         t.update({f"{name.split()[0]}_ms": parts[name] for name in ("dq pass", "dtable pass")},
                  sum_splits_ms=parts.get("sum_splits"))
         out["ce_bwd" + key] = t
-        names = ("ce_lse", "ce_bwd") if not key else ("ce_bwd_c3",)
-        for name in names:
+        for name in ("ce_lse" + key, "ce_bwd" + key):
             t = out[name]
-            products = 1 if name == "ce_lse" else 4
-            apart = ("" if name == "ce_lse" else
+            products = 1 if name.startswith("ce_lse") else 4
+            apart = ("; " + parts_text(t, CE_LSE_KERNELS) if name.startswith("ce_lse") else
                      f"; device time dq pass {t['dq_ms']:.4f} ms, dtable pass {t['dtable_ms']:.4f} ms"
                      + (f", sum_splits {t['sum_splits_ms']:.4f} ms" if t["sum_splits_ms"] is not None else ""))
             log(f"[time] {name} N={N} V={V} D={D}: kernel {t['ms']:.4f} ms ({products * flop / t['ms'] / 1e9:.1f} "
@@ -1451,7 +1516,11 @@ def main() -> int:
     times = phase("timing", timing_phase, state, gpu)
     times.update(phase("train_timing", train_timing_phase, state, gpu))
     times.update(phase("config_timing", config_timing_phase, state, gpu))
+    phase("gru_big_device", gru_big_device_phase, big, gpu)
     phase("scripts", scripts_phase, state)
+    kept = dict(sorted(_timing.HEAD_SPINS_SEEN.items()))
+    log(f"[profiler] records by the head spins each kept (of {_timing.HEAD_SPINS}): {kept}")
+    assert any(kept.keys() - {0}), f"no profiler record kept a kernel named like {_timing.SPIN_KERNEL!r}: {kept}"
     loaded = sorted(m for m in sys.modules if m in ("jax", "poi_tpu") or m.startswith(("jax.", "poi_tpu.")))
     assert not loaded, f"JAX or the JAX package was imported: {loaded}"
 
@@ -1475,12 +1544,18 @@ def main() -> int:
         record("gru_fwd", "gru_fwd.cu", "poi_tpu/ops/fused_gru.py:71", served["gru_fwd"], gru_err, times["gru_fwd"],
                max_abs_err_h256=big["fwd_err"], **h256("fwd")),
         record("gru_bwd", "gru_bwd.cu", "poi_tpu/ops/fused_gru.py:86", trained["gru_bwd"], gru_bwd_err,
-               times["gru_bwd"], max_abs_err_h256=big["bwd_err"], **h256("bwd")),
+               times["gru_bwd"], max_abs_err_h256=big["bwd_err"], **h256("bwd"),
+               **{f"{k}{h}": t[k] for h, t in (("", times["gru_bwd"]), ("_h256", big["bwd"]))
+                  for k in ("device_ms", *(f"{n}_ms" for n in GRU_BWD_KERNELS))}),
         record("lstm_fwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:59", c2["lstm_fwd"], lstm["fwd_err"], lstm["fwd"]),
         record("lstm_bwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:81", c2["lstm_bwd"], lstm["bwd_err"], lstm["bwd"]),
         record("rnn_fwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:48", c3["rnn_fwd"], rnn["fwd_err"], rnn["fwd"]),
         record("rnn_bwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:65", c3["rnn_bwd"], rnn["bwd_err"], rnn["bwd"]),
-        record("ce_lse", "ce.cu", "poi_tpu/ops/fused_ce.py:181", trained["ce_lse"], lse_err, times["ce_lse"]),
+        record("ce_lse", "ce.cu", "poi_tpu/ops/fused_ce.py:181", trained["ce_lse"], lse_err, times["ce_lse"],
+               device_ms=times["ce_lse"]["device_ms"],
+               config3={f: times["ce_lse_c3"][f] for f in ("ms", "plain_ms", "bound_ms", "device_ms",
+                                                           *(f"{n}_ms" for n in CE_LSE_KERNELS))},
+               config3_launches=c3["ce_lse"]),
         record("ce_bwd", "ce_bwd.cu", "poi_tpu/ops/fused_ce.py:210", trained["ce_bwd"], ce_grad_err, times["ce_bwd"],
                dq_ms=times["ce_bwd"]["dq_ms"], dtable_ms=times["ce_bwd"]["dtable_ms"],
                config3={f: times["ce_bwd_c3"][f] for f in ("ms", "plain_ms", "bound_ms", "dq_ms", "dtable_ms",

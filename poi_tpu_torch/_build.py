@@ -36,7 +36,7 @@ _SIGNATURES = {
     "gru_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
     "gru_fwd_cluster_size": [_I],
     "gru_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "gru_bwd_cluster_size": [_I],
+    "gru_bwd_cluster_size": [_I, _I],
     "gru_bwd_splits": [_I, _I, _I],
     "lstm_max_hidden": [],
     "lstm_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -47,7 +47,8 @@ _SIGNATURES = {
     "rnn_bwd_splits": [_I, _I, _I],
     "rnn_bwd": [_P] * 8 + [_I, _I, _I, _I, _P],
     "ce_supports_dim": [_I],
-    "ce_lse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ce_lse_scratch": [_I, _I, _I],
+    "ce_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ce_lse_variant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ce_bwd_scratch": [_I, _I, _I],
     "ce_bwd": [_P] * 9 + [_I, _I, _I, _I, _P],

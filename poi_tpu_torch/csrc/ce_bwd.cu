@@ -53,8 +53,6 @@
 // synchronise and allocate nothing; each returns cudaGetLastError() after its
 // launches.
 
-#include <cstdio>
-
 #include "mma_tiles.cuh"
 #include "wgmma_tiles.cuh"
 
@@ -64,10 +62,6 @@ constexpr int kRes = 128;     // resident rows a block: two consumer warpgroups 
 constexpr int kStr = 64;      // rows of a streamed tile
 constexpr int kStages = 4;    // smem ring of streamed tiles
 constexpr int kBwdThreads = 384;  // 2 consumer warpgroups + 1 producer warpgroup
-constexpr int kSms = 132;     // H100 SXM
-constexpr int kMaxSplits = 32;
-
-__host__ __device__ constexpr int swizzle_bytes(int D) { return D * 2 >= 128 ? 128 : 64; }
 
 // Streamed fp32 vectors that arrive with each tile: the dq pass needs the
 // catalog rows' bias, the dtable pass the query rows' lse and g.
@@ -130,7 +124,7 @@ __device__ __forceinline__ void tile_gradient(float (&s)[32], float (&acc)[D / 2
   for (int kk = 0; kk < 4; ++kk) {
     // K = tile rows 16kk.., N = D: the same tile, MN-major; the next sw / 2
     // columns (chunk) lie kStr * SW bytes on.
-    wgmma_rs_t<D>(acc, a[kk], smem_desc(tile + kk * 16 * SW, kStr * SW, 8 * SW, SW), 1);
+    wgmma_rs<D, 1>(acc, a[kk], smem_desc(tile + kk * 16 * SW, kStr * SW, 8 * SW, SW), 1);
   }
   wgmma_commit();
 }
@@ -144,7 +138,7 @@ __device__ __forceinline__ void tile_logits(float (&s)[32], const uint32_t (&ra_
   wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
-    wgmma_rs_n64(s, ra_frag[ks], smem_desc(tile + (ks / KPC) * kStr * SW + (ks % KPC) * 32, 16, 8 * SW, SW), ks > 0);
+    wgmma_rs<64, 0>(s, ra_frag[ks], smem_desc(tile + (ks / KPC) * kStr * SW + (ks % KPC) * 32, 16, 8 * SW, SW), ks > 0);
   }
   wgmma_commit();
 }
@@ -313,45 +307,9 @@ __global__ void sum_splits(const float* __restrict__ part, float* __restrict__ o
   }
 }
 
-// How many ways a pass splits its streamed tiles: 1 when the resident
-// blocks fill the card, else as many as fill it, every split non-empty.
+// How many ways a pass splits its streamed tiles (fill_splits).
 int splits(int n_res, int n_str, int* per) {
-  const int blocks = (n_res + kRes - 1) / kRes;
-  const int tiles = (n_str + kStr - 1) / kStr;
-  int S = blocks >= kSms ? 1 : kSms / blocks;
-  S = S > kMaxSplits ? kMaxSplits : S;
-  S = S > tiles ? tiles : (S < 1 ? 1 : S);
-  *per = (tiles + S - 1) / S;
-  return (tiles + *per - 1) / *per;
-}
-
-// A row-major [rows, D] bf16 matrix, box [box_rows, sw / 2].
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int D, int box_rows) {
-  const int sw = swizzle_bytes(D);
-  cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows)};
-  cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
-  cuuint32_t box[2] = {static_cast<cuuint32_t>(sw / 2), static_cast<cuuint32_t>(box_rows)};
-  cuuint32_t elem[2] = {1, 1};
-  const CUresult r = cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                            sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) std::fprintf(stderr, "ce_bwd: cuTensorMapEncodeTiled failed with CUresult %d\n", (int)r);
-  return r == CUDA_SUCCESS;
-}
-
-// A [n] fp32 vector, box kStr.
-bool make_vec_map(CUtensorMap* map, const float* ptr, int n) {
-  cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
-  cuuint64_t strides[1] = {static_cast<cuuint64_t>(n) * 4};  // unused for one dimension
-  cuuint32_t box[1] = {static_cast<cuuint32_t>(kStr)};
-  cuuint32_t elem[1] = {1};
-  const CUresult r = cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr), dims,
-                                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-                                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) std::fprintf(stderr, "ce_bwd: cuTensorMapEncodeTiled (vector) failed with CUresult %d\n", (int)r);
-  return r == CUDA_SUCCESS;
+  return fill_splits((n_res + kRes - 1) / kRes, (n_str + kStr - 1) / kStr, per);
 }
 
 // One pass. vec0/vec1: the streamed rows' vectors (dq: bias; dtable: lse,
@@ -362,7 +320,7 @@ cudaError_t run_pass(const void* res, int n_res, const void* str, int n_str, con
                      cudaStream_t s) {
   CUtensorMap res_map, str_map, vec0_map, vec1_map;
   if (!make_map(&res_map, res, n_res, D, kRes) || !make_map(&str_map, str, n_str, D, kStr) ||
-      !make_vec_map(&vec0_map, vec0, n_str) || !make_vec_map(&vec1_map, vec1, n_str)) {
+      !make_vec_map(&vec0_map, vec0, n_str, kStr) || !make_vec_map(&vec1_map, vec1, n_str, kStr)) {
     return cudaErrorInvalidValue;
   }
   int per = 0;

@@ -10,315 +10,557 @@
 //   hs  [B, T, H]  fp32  the forward's hidden states; h_prev = hs[t-1], 0 at t = 0
 //   dhs [B, T, H]  fp32  cotangent of hs
 //   per step, t = T-1 .. 0:
-//     hw = bf16(h_prev) @ wh (fp32 sums); z, r, n, hn as in the forward
+//     hw = bf16(h_prev) @ wh (exact bf16 products, fp32 sums); z, r, n, hn as in the forward
 //     dh += dhs[t]
 //     dn = dh z (1 - n^2);  da = dh (n - h_prev) z (1 - z)
 //     dr_pre = dn hn r (1 - r);  dhn = dn r
 //     dxw[t] = [da, dr_pre, dn];  dhw[t] = [da, dr_pre, dhn]
-//     dh = dh (1 - z) + dhw[t] @ wh^T      (fp32, wh widened from bf16)
+//     dh = dh (1 - z) + dhw[t] @ wh^T      (fp32-faithful, see below)
 //   dwh [H, 3H] fp32 = sum over b, t of h_prev^T dhw
 //
-// No cotangent is ever rounded to bf16: a bf16-cotangent backward trains
-// config #2 to a much worse recall (fused_gru.py:113-120).
+// What bounds it on this card: the carry is a serial chain of T steps; each
+// step's product [3H] x [3H, H] a batch row is small, so a step's time is
+// its latency (a barrier across the blocks that share a row group, the
+// product, the exchange of partial sums) times T. What does not depend on
+// the carry is parallel work: the gate recompute, a product
+// [B*T, H] x [H, 3H] (3.2 GFLOP at B=512, T=64, H=128), the elementwise
+// outputs, and dwh, an fp32 product [H, B*T] x [B*T, 3H] on the CUDA cores.
 //
-// What bounds it on this card: like the forward, the recurrence is a serial
-// chain of T tiny steps (per step and row: 6H^2 FMAs, H=128 -> 98k), so it is
-// latency-bound; dwh is a separate fp32 reduction product
-// [H, B*T] x [B*T, 3H] (3.2 GFLOP at B=512, T=64, H=128), bound by the CUDA
-// cores' fp32 rate.
-//
-// Design:
-// - gru_bwd_kernel: like the forward, a block owns `rows` whole batch rows
-//   and thread (row, j) owns hidden column j; dh[j] lives in a register for
-//   the whole reverse loop. wh (bf16, 6H^2 bytes) sits in shared memory. Each
-//   step stages bf16(h_prev) and then the row's fp32 dhw in shared memory,
-//   one barrier each. The gate recompute walks k in the forward kernel's
-//   order, so it reproduces the forward's gates bit for bit. For dh @ wh^T
-//   thread j reads row j of wh; each thread starts its walk at a different
-//   column so a warp's reads spread over the banks. The next step's inputs
-//   are loaded while this one computes.
-// - dhw goes to an fp32 scratch [B, T, 3H] that the wrapper allocates.
-// - dwh: the split-chunk product and ordered reduce of csrc/recurrent_dwh.cuh
-//   (shared with the LSTM and RNN backward). No atomics: the result is the
-//   same bits every run.
-// - Padded steps (z = 0 exactly from the folded -1e9) give exactly zero
-//   da, dn, dr_pre and dhn, and dh passes through unchanged.
-// - gru_bwd_kernel holds bf16 wh in one block, so it takes H <= 196.
-//
-// H > 196: gru_bwd_cluster_kernel, the layout of the forward's cluster
-// kernel (csrc/gru_fwd.cu): one batch row per cluster of C CTAs, CTA p owns
-// hidden units [p*U, (p+1)*U), U = H/C, and keeps their z, r, n columns of
-// wh ([H, 3U] bf16) in shared memory.
-// - Each CTA stages the whole bf16(h_prev) row from hs (global, L2) and
-//   recomputes its units' gates walking k in the forward's order.
-// - dh @ wh^T needs every column of wh: each CTA computes the partial sums
-//   over its own 3U columns for all H units and writes unit m*U + u's
-//   partial into CTA m's reduce buffer (distributed shared memory), slot p.
-//   After one cluster barrier, each thread adds the C partials of its unit in
-//   rank order: fp32 throughout, and the same bits every run. The reduce
-//   buffer is double-buffered, so one cluster barrier a step suffices.
+// Design: three passes and the shared dwh product.
+// 1. gru_bwd_gates_kernel: the gate recompute of every step at once on the
+//    tensor cores (mma.sync m16n8k16: exact bf16 products summed in fp32,
+//    the TPU kernel's arithmetic, _gates; the summation order is the tensor
+//    cores', so the gates match the forward's scalar walk to fp32 rounding,
+//    not bit for bit), and from the gates each element's coefficients,
+//    which depend on the forward alone: with d = dh + dhs[t],
+//    da = d alpha, dr_pre = d beta, dn = d delta, dhn = d gamma, and the
+//    carry's own factor 1 - z. They go into the outputs' buffers.
+// 2. gru_bwd_carry_kernel, the serial chain. A cluster of C CTAs owns a
+//    group of R = 16 batch rows (8 at a cluster of 16), the mma's M. The H
+//    units are cut into octets of 8 (the mma's N); CTA p owns octets
+//    [p*O/C, (p+1)*O/C) of O = ceil(H/8) and keeps their z, r and n columns
+//    of wh, [Hk, 24 per octet] bf16 (Hk = H rounded up to 16, padding zero),
+//    in shared memory; its first warps each own an octet, whose carry dh
+//    stays in registers for the whole reverse loop. Per step:
+//    - each owner warp forms dhw = d [alpha, beta, gamma] of its units and
+//      splits each fp32 element x into three bf16 terms, b0 = bf16(x),
+//      b1 = bf16(x - b0), b2 = bf16(x - b0 - b1) (the differences are exact
+//      in fp32; together the terms carry fp32's 24 significant bits), staged
+//      in smem. The TPU kernel computes dhw @ wh^T at Precision.HIGHEST from
+//      fp32 dhw; no cotangent is rounded to bf16 as a whole (a bf16
+//      cotangent trains config #2 to a much worse recall,
+//      poi_tpu/ops/fused_gru.py:113-120);
+//    - the CTA multiplies its columns by its wh slice for every unit (all its
+//      warps splitting the unit octets), each term exactly into its own fp32
+//      accumulator, the three summed smallest first; it writes the partial
+//      sums of octet m into the CTA that owns m (distributed shared memory),
+//      slot p;
+//    - one cluster barrier, split: its arrive releases the partials, the
+//      step's global traffic (d out, the next step's inputs in) runs before
+//      its wait; then dh = d (1 - z) + the C partials, added in rank order.
+//      The slots are double-buffered by step parity. No atomics: the same
+//      bits every run.
+//    C: the smallest of 1, 2, 4, 8, 16 whose slices fit in shared memory,
+//    then doubled (up to 8) while the groups' clusters fit on the 132 SMs
+//    at once (B = 512, H = 128: 32 groups x 4; B = 64, H = 256: 4 x 8). Any
+//    H up to 640; a ragged H zero-pads the last octet and K.
+// 3. gru_bwd_outputs_kernel: dxw = d [alpha, beta, delta] and
+//    dhw = d [alpha, beta, gamma], in place. Padded steps (z = 0 exactly
+//    from the folded -1e9) have alpha = beta = gamma = delta = 0, so dxw is
+//    exactly 0 there, and 1 - z = 1 passes dh through unchanged.
+// dhw is an fp32 scratch [B, T, 3H] the wrapper allocates; dwh is the
+// split-chunk product and ordered reduce of csrc/recurrent_dwh.cuh (shared
+// with the LSTM and RNN backward).
 //
 // The entry point launches on the given stream, does not synchronise and
 // allocates nothing; it returns cudaGetLastError() after the launches.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "mma_tiles.cuh"
 #include "recurrent_dwh.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxSmem = 232448;  // 227 KB: the most a block may opt into
-
-using bf16 = __nv_bfloat16;
+constexpr int kSms = 132;         // H100 SXM
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-int rows_per_block(int H) { return H >= 128 ? 1 : 128 / H; }
+// Rows a group: the mma's M, halved at a cluster of 16 to fit its slots
+// and to put twice the groups on the card.
+__host__ __device__ constexpr int group_rows(int C) { return C >= 16 ? 8 : 16; }
+// Warps a CTA may run: fewer at the large clusters, whose threads hold more
+// partial sums in registers.
+__host__ __device__ constexpr int max_warps(int C) { return C >= 16 ? 8 : 16; }
 
-int bwd_smem_bytes(int H) {
-  const int rows = rows_per_block(H);
-  return rows * 3 * H * 4 + 6 * H * H + rows * H * 2;  // dhw (fp32) + wh (bf16) + h_prev (bf16)
+// The shared-memory layout of one CTA of the serial kernel for width H on a
+// cluster of C.
+struct Layout {
+  int O;     // unit octets, ceil(H / 8)
+  int ocp;   // octets a CTA (at most): ceil(O / C); its first ocp warps own one each
+  int W;     // warps a CTA: 2 ocp (4 ocp from a cluster of 8), up to max_warps; all split the carry product
+  int NC;    // the CTA's wh columns, 24 an octet, rounded up to 16 (the carry product's K)
+  int Hk;    // H rounded up to 16
+  int ldw;   // bf16 row stride of the wh slice and the dhw terms (NC + 8: conflict-free ldmatrix)
+  int dt_off, red_off, bytes;
+};
+
+__host__ __device__ inline Layout layout(int H, int C) {
+  Layout L;
+  const int R = group_rows(C);
+  L.O = (H + 7) / 8;
+  L.ocp = (L.O + C - 1) / C;
+  const int W = (C >= 8 ? 4 : 2) * L.ocp;
+  L.W = W < max_warps(C) ? W : max_warps(C);
+  L.NC = (24 * L.ocp + 15) / 16 * 16;
+  L.Hk = (H + 15) / 16 * 16;
+  L.ldw = L.NC + 8;
+  L.dt_off = L.Hk * L.ldw * 2;                       // wh slice [Hk][ldw] bf16 at 0
+  L.red_off = L.dt_off + 3 * R * L.ldw * 2;          // dhw terms [3][R][ldw] bf16
+  L.bytes = L.red_off + 2 * C * R * 8 * L.ocp * 4;   // reduce slots [2][C][R][8 ocp] fp32
+  return L;
 }
 
-__global__ void gru_bwd_kernel(const float* __restrict__ xw, const bf16* __restrict__ wh,
-                               const float* __restrict__ hs, const float* __restrict__ dhs, float* __restrict__ dxw,
-                               float* __restrict__ dhw, int B, int T, int H, int rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int H3 = 3 * H;
-  float* dhw_s = reinterpret_cast<float*>(smem);                 // [rows, 3H]
-  bf16* wh_s = reinterpret_cast<bf16*>(dhw_s + rows * H3);       // [H, 3H]
-  bf16* hb = wh_s + H * H3;                                      // [rows, H]
+bool fits(int H, int C) {
+  if (H <= 0) return false;
+  const Layout L = layout(H, C);
+  return C <= L.O && L.ocp <= L.W && L.bytes <= kMaxSmem;
+}
 
-  const int r = threadIdx.x / H;
-  const int j = threadIdx.x % H;
-  const int b = blockIdx.x * rows + r;
-  const bool valid = b < B;
+int smallest_cluster(int H) {
+  for (int c = 1; c <= 16; c *= 2) {
+    if (fits(H, c)) return c;
+  }
+  return 0;
+}
 
-  for (int i = threadIdx.x; i < H * H3; i += blockDim.x) wh_s[i] = wh[i];
+// The cluster the serial kernel runs (B, H) on: the smallest that fits,
+// doubled (up to 8, the portable size: a cluster of 16 measured slower at
+// config #4's shape) while the groups' clusters still fit on the card at once.
+int pick_cluster(int B, int H) {
+  int c = smallest_cluster(H);
+  const int b = B > 0 ? B : 1;
+  while (c > 0 && c < 8 && fits(H, 2 * c) &&
+         (b + group_rows(2 * c) - 1) / group_rows(2 * c) * 2 * c <= kSms) {
+    c *= 2;
+  }
+  return c;
+}
 
-  const size_t row = valid ? b : 0;
-  const float* xrow = xw + row * T * H3;
-  const float* hrow = hs + row * T * H;
-  const float* dyrow = dhs + row * T * H;
-  float* dxrow = dxw + row * T * H3;
-  float* dhwrow = dhw + row * T * H3;
-  float* dhw_mine = dhw_s + r * H3;
-  const bf16* hb_mine = hb + r * H;
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
 
-  // Inputs of step t: xw[t] (three gates), h_prev = hs[t-1] and dhs[t].
-  auto load = [&](int t, float& xz, float& xr, float& xn, float& hp, float& dy) {
-    xz = xr = xn = hp = dy = 0.f;
-    if (!valid || t < 0) return;
-    const float* x = xrow + (size_t)t * H3;
-    xz = x[j];
-    xr = x[H + j];
-    xn = x[2 * H + j];
-    hp = t > 0 ? hrow[(size_t)(t - 1) * H + j] : 0.f;
-    dy = dyrow[(size_t)t * H + j];
-  };
-  float xz, xr, xn, hp, dy;
-  load(T - 1, xz, xr, xn, hp, dy);
-  float dh = 0.f;
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n" : "=r"(r0), "=r"(r1) : "r"(addr) : "memory");
+}
 
-  for (int t = T - 1; t >= 0; --t) {
-    float nxz, nxr, nxn, nhp, ndy;
-    load(t - 1, nxz, nxr, nxn, nhp, ndy);
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr)
+               : "memory");
+}
 
-    hb[r * H + j] = __float2bfloat16(hp);
-    __syncthreads();  // h_prev staged; last step's reads of dhw_s are done
-    float hz = 0.f, hr = 0.f, hn = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < H; ++k) {
-      const float hk = __bfloat162float(hb_mine[k]);
-      const bf16* w = wh_s + k * H3 + j;
-      hz = fmaf(hk, __bfloat162float(w[0]), hz);
-      hr = fmaf(hk, __bfloat162float(w[H]), hr);
-      hn = fmaf(hk, __bfloat162float(w[2 * H]), hn);
-    }
-    const float z = sigmoidf(xz + hz);
-    const float rg = sigmoidf(xr + hr);
-    const float n = tanhf(xn + rg * hn);
-
-    dh += dy;
-    const float dn = dh * z * (1.0f - n * n);
-    const float da = dh * (n - hp) * z * (1.0f - z);
-    const float dr = dn * hn * rg * (1.0f - rg);
-    const float dhn = dn * rg;
-    if (valid) {
-      float* o = dxrow + (size_t)t * H3;
-      o[j] = da;
-      o[H + j] = dr;
-      o[2 * H + j] = dn;
-      float* s = dhwrow + (size_t)t * H3;
-      s[j] = da;
-      s[H + j] = dr;
-      s[2 * H + j] = dhn;
-    }
-    dhw_mine[j] = da;
-    dhw_mine[H + j] = dr;
-    dhw_mine[2 * H + j] = dhn;
-    __syncthreads();  // the row's dhw staged; every read of hb is done
-
-    // dh_prev = dh (1 - z) + dhw . wh[j, :], all fp32.
-    const bf16* wrow = wh_s + j * H3;
-    float acc = 0.f;
-    int c = j % H3;
-    for (int i = 0; i < H3; ++i) {
-      acc = fmaf(dhw_mine[c], __bfloat162float(wrow[c]), acc);
-      c = c + 1 == H3 ? 0 : c + 1;
-    }
-    dh = dh * (1.0f - z) + acc;
-
-    xz = nxz;
-    xr = nxr;
-    xn = nxn;
-    hp = nhp;
-    dy = ndy;
+// An A fragment (R x 16, row-major, row stride ld bf16) at column k0 of a
+// bf16 smem matrix; at R = 8 the fragment's rows 8-15 are zero.
+template <int R>
+__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], uint32_t base, int ld, int k0, int lane) {
+  if constexpr (R == 16) {
+    ldsm_x4(a, base + ((lane % 16) * ld + k0 + (lane / 16) * 8) * 2);
+  } else {
+    ldsm_x2(a[0], a[2], base + ((lane % 8) * ld + k0 + ((lane / 8) % 2) * 8) * 2);
+    a[1] = a[3] = 0u;
   }
 }
 
-int cluster_smem_bytes(int H, int C) {
-  const int U = H / C;
-  return 2 * C * U * 4 + 3 * U * 4 + 6 * H * H / C + H * 2;  // reduce slots + dhw + wh slice + h_prev
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// One batch row per cluster of C CTAs; CTA p owns hidden units [p*U, (p+1)*U).
-template <int C>
-__global__ void gru_bwd_cluster_kernel(const float* __restrict__ xw, const bf16* __restrict__ wh,
-                                       const float* __restrict__ hs, const float* __restrict__ dhs,
-                                       float* __restrict__ dxw, float* __restrict__ dhw, int T, int H) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int U = H / C;
-  const int U3 = 3 * U;
-  const int H3 = 3 * H;
-  const int p = static_cast<int>(cluster.block_rank());
-  float* red_s = reinterpret_cast<float*>(smem);          // [2][C][U]: partial dh sums from each CTA
-  float* dhw_s = red_s + 2 * C * U;                       // [3U]: this CTA's columns of the row's dhw
-  bf16* wh_s = reinterpret_cast<bf16*>(dhw_s + U3);       // [H, 3U]: wh[k][g*H + p*U + u] at [k][g*U + u]
-  bf16* hb = wh_s + H * U3;                               // [H]: bf16(h_prev)
+__device__ __forceinline__ uint32_t cta_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
 
-  const int u = threadIdx.x;
-  const int j = p * U + u;
-  const size_t row = blockIdx.x / C;
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
 
-  for (int i = threadIdx.x; i < H * U3; i += blockDim.x) {
-    const int k = i / U3, lc = i % U3;
-    wh_s[i] = wh[(size_t)k * H3 + (lc / U) * H + p * U + lc % U];
-  }
+// Two floats into CTA `rank`'s shared memory at the offset of local address `addr`.
+__device__ __forceinline__ void st_cluster_f2(uint32_t addr, int rank, float x, float y) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(remote), "f"(x), "f"(y) : "memory");
+}
 
-  const float* xrow = xw + row * T * H3;
-  const float* hrow = hs + row * T * H;
-  const float* dyrow = dhs + row * T * H;
-  float* dxrow = dxw + row * T * H3;
-  float* dhwrow = dhw + row * T * H3;
+// ------------------------------------------------------------- pass 1: the gates
+//
+// The gate recompute of every (b, t) at once: hw = bf16(h_prev) @ wh as a
+// batched product [B*T, Hk] x [Hk, 3H] (mma.sync, exact bf16 products, fp32
+// sums), and from hw the step's coefficients, which depend on the forward
+// alone:
+//   z, r, n as in the forward; 1 - z; delta = z (1 - n^2);
+//   alpha = (n - h_prev) z (1 - z); beta = delta hn r (1 - r); gamma = delta r
+// so that with d = dh + dhs[t]: da = d alpha, dr_pre = d beta, dn = d delta,
+// dhn = d gamma. They go into the outputs' own buffers: dxw [alpha, beta,
+// delta], dhw [1 - z, gamma, -] (its third block is the serial kernel's d).
+// A block is 8 warps of 16 rows (128 rows of B*T) x 8 unit octets (their z,
+// r and n columns); K streams through smem in chunks of 64. Where H % 8 ==
+// 0 (kVec) the loads move 4 (h) and 8 (wh) elements at a time and the
+// epilogue two units.
+constexpr int kGateRows = 128, kGateOct = 8, kGateK = 64, kGateThreads = 256;
+constexpr int kGateLdA = kGateK + 8, kGateLdB = 24 * kGateOct + 8;
 
-  // Inputs of step t: xw[t] at unit j, h_prev = hs[t-1] at units m*U + u, dhs[t] at j.
-  auto load = [&](int t, float& xz, float& xr, float& xn, float (&hp)[C], float& dy) {
-    xz = xr = xn = dy = 0.f;
+template <bool kVec>
+__global__ void __launch_bounds__(kGateThreads)
+    gru_bwd_gates_kernel(const float* __restrict__ xw, const bf16* __restrict__ wh, const float* __restrict__ hs,
+                         float* __restrict__ dxw, float* __restrict__ dhw, int BT, int T, int H) {
+  __shared__ __align__(16) bf16 a_s[kGateRows * kGateLdA];
+  __shared__ __align__(16) bf16 b_s[kGateK * kGateLdB];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int r0 = blockIdx.x * kGateRows, o0 = blockIdx.y * kGateOct;
+  const int H3 = 3 * H, Hk = (H + 15) / 16 * 16;
+  float acc[3 * kGateOct][4];
 #pragma unroll
-    for (int m = 0; m < C; ++m) hp[m] = 0.f;
-    if (t < 0) return;
-    const float* x = xrow + (size_t)t * H3;
-    xz = x[j];
-    xr = x[H + j];
-    xn = x[2 * H + j];
-    if (t > 0) {
+  for (int i = 0; i < 3 * kGateOct; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const uint32_t a_a = shared_addr(a_s), b_a = shared_addr(b_s);
+  for (int k0 = 0; k0 < Hk; k0 += kGateK) {
+    // A: bf16(h_prev) of rows r0.. (h_prev of row r = b T + t is hs row r - 1, 0 at t = 0).
+    if constexpr (kVec) {
 #pragma unroll
-      for (int m = 0; m < C; ++m) hp[m] = hrow[(size_t)(t - 1) * H + m * U + u];
-    }
-    dy = dyrow[(size_t)t * H + j];
-  };
-  float xz, xr, xn, hp[C], dy;
-  load(T - 1, xz, xr, xn, hp, dy);
-  float dh = 0.f;
-  cluster.sync();  // wh staged, and every CTA of the cluster runs before the first remote write
-
-  for (int t = T - 1; t >= 0; --t) {
-    float nxz, nxr, nxn, nhp[C], ndy;
-    load(t - 1, nxz, nxr, nxn, nhp, ndy);
-
-    float hj = 0.f;  // h_prev at this thread's own unit j = p*U + u
-#pragma unroll
-    for (int m = 0; m < C; ++m) {
-      hb[m * U + u] = __float2bfloat16(hp[m]);
-      if (m == p) hj = hp[m];
-    }
-    __syncthreads();  // h_prev staged; the last step's reads of dhw_s are done
-    float hz = 0.f, hr = 0.f, hn = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < H; ++k) {
-      const float hk = __bfloat162float(hb[k]);
-      const bf16* w = wh_s + k * U3 + u;
-      hz = fmaf(hk, __bfloat162float(w[0]), hz);
-      hr = fmaf(hk, __bfloat162float(w[U]), hr);
-      hn = fmaf(hk, __bfloat162float(w[2 * U]), hn);
-    }
-    const float z = sigmoidf(xz + hz);
-    const float rg = sigmoidf(xr + hr);
-    const float n = tanhf(xn + rg * hn);
-
-    dh += dy;
-    const float dn = dh * z * (1.0f - n * n);
-    const float da = dh * (n - hj) * z * (1.0f - z);
-    const float dr = dn * hn * rg * (1.0f - rg);
-    const float dhn = dn * rg;
-    float* o = dxrow + (size_t)t * H3;
-    o[j] = da;
-    o[H + j] = dr;
-    o[2 * H + j] = dn;
-    float* s = dhwrow + (size_t)t * H3;
-    s[j] = da;
-    s[H + j] = dr;
-    s[2 * H + j] = dhn;
-    dhw_s[u] = da;
-    dhw_s[U + u] = dr;
-    dhw_s[2 * U + u] = dhn;
-    __syncthreads();  // the CTA's dhw staged; every read of hb is done
-
-    // Partial dh_prev of unit m*U + u over this CTA's columns, sent to CTA m.
-    float* red = red_s + (t & 1) * C * U;
-#pragma unroll
-    for (int m = 0; m < C; ++m) {
-      const bf16* wrow = wh_s + (m * U + u) * U3;
-      float acc = 0.f;
-      int c = u % U3;
-      for (int i = 0; i < U3; ++i) {
-        acc = fmaf(dhw_s[c], __bfloat162float(wrow[c]), acc);
-        c = c + 1 == U3 ? 0 : c + 1;
+      for (int i = 0; i < kGateRows * kGateK / 4 / kGateThreads; ++i) {
+        const int e = threadIdx.x + i * kGateThreads, rr = e / (kGateK / 4), k = k0 + (e % (kGateK / 4)) * 4;
+        const int r = r0 + rr;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < BT && r % T != 0 && k < H) v = *reinterpret_cast<const float4*>(hs + (size_t)(r - 1) * H + k);
+        __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(a_s + rr * kGateLdA + k - k0);
+        dst[0] = __floats2bfloat162_rn(v.x, v.y);
+        dst[1] = __floats2bfloat162_rn(v.z, v.w);
       }
-      *cluster.map_shared_rank(red + p * U + u, m) = acc;
+    } else {
+      for (int e = threadIdx.x; e < kGateRows * kGateK; e += kGateThreads) {
+        const int rr = e / kGateK, k = k0 + e % kGateK, r = r0 + rr;
+        const bool ok = r < BT && r % T != 0 && k < H;
+        a_s[rr * kGateLdA + e % kGateK] = __float2bfloat16(ok ? hs[(size_t)(r - 1) * H + k] : 0.f);
+      }
     }
-    cluster.sync();  // every CTA's partials of this CTA's units have arrived
-    float acc = 0.f;
+    // B: wh rows k0.., local column 24 lo + 8 gate + u = wh column gate H + 8 (o0 + lo) + u.
+    if constexpr (kVec) {
+      for (int e = threadIdx.x; e < kGateK * 3 * kGateOct; e += kGateThreads) {
+        const int kk = e / (3 * kGateOct), grp8 = e % (3 * kGateOct), k = k0 + kk;  // grp8 = 3 lo + gate
+        const int j = 8 * (o0 + grp8 / 3);
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (k < H && j < H) v = *reinterpret_cast<const uint4*>(wh + (size_t)k * H3 + (grp8 % 3) * H + j);
+        *reinterpret_cast<uint4*>(b_s + kk * kGateLdB + 8 * grp8) = v;
+      }
+    } else {
+      for (int e = threadIdx.x; e < kGateK * 24 * kGateOct; e += kGateThreads) {
+        const int kk = e / (24 * kGateOct), lc = e % (24 * kGateOct), k = k0 + kk;
+        const int j = 8 * (o0 + lc / 24) + lc % 8;
+        b_s[kk * kGateLdB + lc] = k < H && j < H ? wh[(size_t)k * H3 + ((lc % 24) / 8) * H + j] : __float2bfloat16(0.f);
+      }
+    }
+    __syncthreads();
+    const int ks_end = (Hk - k0 < kGateK ? Hk - k0 : kGateK) / 16;
+    for (int ks = 0; ks < ks_end; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, a_a + ((warp * 16 + lane % 16) * kGateLdA + ks * 16 + (lane / 16) * 8) * 2);
 #pragma unroll
-    for (int q = 0; q < C; ++q) acc += red[q * U + u];
-    dh = dh * (1.0f - z) + acc;
+      for (int nt = 0; nt < 3 * kGateOct; ++nt) {
+        uint32_t b0, b1;
+        ldsm_x2_trans(b0, b1, b_a + ((ks * 16 + lane % 16) * kGateLdB + nt * 8) * 2);
+        mma_bf16(acc[nt], a, b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+  // Accumulator (n-tile 3 lo + gate) holds rows g (+ 8) x units 2 tq (+ 1) of octet o0 + lo.
+#pragma unroll
+  for (int lo = 0; lo < kGateOct; ++lo) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = r0 + warp * 16 + g + 8 * rr, j0 = 8 * (o0 + lo) + 2 * tq;
+      if (r >= BT || j0 >= H) continue;
+      const size_t o = (size_t)r * H3 + j0;
+      const float* hp_row = hs + (size_t)(r - 1) * H + j0;
+      float xz[2], xr[2], xn[2], hp[2];
+      if constexpr (kVec) {  // j0 even, H % 8 == 0: both units valid, 8-byte aligned
+        const float2 a = *reinterpret_cast<const float2*>(xw + o);
+        const float2 b = *reinterpret_cast<const float2*>(xw + o + H);
+        const float2 c = *reinterpret_cast<const float2*>(xw + o + 2 * H);
+        const float2 h = r % T != 0 ? *reinterpret_cast<const float2*>(hp_row) : make_float2(0.f, 0.f);
+        xz[0] = a.x, xz[1] = a.y, xr[0] = b.x, xr[1] = b.y, xn[0] = c.x, xn[1] = c.y, hp[0] = h.x, hp[1] = h.y;
+      } else {
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const bool ok = j0 + ii < H;
+          xz[ii] = ok ? xw[o + ii] : 0.f;
+          xr[ii] = ok ? xw[o + H + ii] : 0.f;
+          xn[ii] = ok ? xw[o + 2 * H + ii] : 0.f;
+          hp[ii] = ok && r % T != 0 ? hp_row[ii] : 0.f;
+        }
+      }
+      float v[5][2];  // alpha, beta, delta, 1 - z, gamma of the two units
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int ci = 2 * rr + ii;
+        const float hz = acc[3 * lo][ci], hr = acc[3 * lo + 1][ci], hn = acc[3 * lo + 2][ci];
+        const float z = sigmoidf(xz[ii] + hz);
+        const float rg = sigmoidf(xr[ii] + hr);
+        const float n = tanhf(xn[ii] + rg * hn);
+        const float delta = z * (1.0f - n * n);
+        v[0][ii] = (n - hp[ii]) * z * (1.0f - z);
+        v[1][ii] = delta * hn * rg * (1.0f - rg);
+        v[2][ii] = delta;
+        v[3][ii] = 1.0f - z;
+        v[4][ii] = delta * rg;
+      }
+      float* dst[5] = {dxw + o, dxw + o + H, dxw + o + 2 * H, dhw + o, dhw + o + H};
+#pragma unroll
+      for (int q = 0; q < 5; ++q) {
+        if constexpr (kVec) {
+          *reinterpret_cast<float2*>(dst[q]) = make_float2(v[q][0], v[q][1]);
+        } else {
+          dst[q][0] = v[q][0];
+          if (j0 + 1 < H) dst[q][1] = v[q][1];
+        }
+      }
+    }
+  }
+}
 
-    xz = nxz;
-    xr = nxr;
-    xn = nxn;
+// ------------------------------------------------------------- pass 2: the carry
+//
+// One cluster of C CTAs a group of R batch rows; blockDim = 32 W. Per step
+// t = T-1 .. 0, with d = dh + dhs[t] at each (row, unit) of the warp's octet:
+// dhw = d [alpha, beta, gamma] is split into three bf16 terms in smem, the
+// CTA multiplies its columns by its wh slice for every unit (the warps
+// splitting the unit octets), the partials go to the CTAs that own the
+// units, and after the cluster barrier dh = d (1 - z) + their sum, in rank
+// order. d is written to dhw's third block for pass 3.
+template <int C>
+__global__ void __launch_bounds__(32 * max_warps(C))
+    gru_bwd_carry_kernel(const bf16* __restrict__ wh, const float* __restrict__ dhs, const float* __restrict__ coef_x,
+                         float* __restrict__ coef_h, int B, int T, int H) {
+  constexpr int R = group_rows(C);
+  constexpr int NR = R / 8;  // accumulator rows a thread holds: g, and g + 8 at R = 16
+  constexpr int kChunk = C >= 4 ? 2 : 1;  // unit octets a warp multiplies at once
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = layout(H, C);
+  const int p = C > 1 ? static_cast<int>(cta_rank()) : 0;
+  const int grp = blockIdx.x / C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int ob = p * L.O / C, n_oct = (p + 1) * L.O / C - ob;
+  const bool owner = warp < n_oct;  // warp-uniform: this warp owns octet ob + warp
+  const int H3 = 3 * H, RU = 8 * L.ocp;
+  const int n_per = (L.O + L.W - 1) / L.W;  // unit octets of the carry product a warp takes (the same for all)
+  bf16* slice = reinterpret_cast<bf16*>(smem);                // [Hk][ldw]
+  bf16* dt = reinterpret_cast<bf16*>(smem + L.dt_off);        // [3][R][ldw]
+  float* red = reinterpret_cast<float*>(smem + L.red_off);    // [2][C][R][RU]
+  const uint32_t slice_a = shared_addr(slice), dt_a = shared_addr(dt), red_a = shared_addr(red);
+
+  // Zero the dhw terms (their padding stays zero), then the wh slice: local
+  // column lc = 24 lo + 8 gate + u is column gate * H + 8 (ob + lo) + u of
+  // wh, zero past H and past the CTA's octets.
+  for (int i = threadIdx.x; i < (L.red_off - L.dt_off) / 16; i += blockDim.x) {
+    reinterpret_cast<uint4*>(smem + L.dt_off)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int i = threadIdx.x; i < L.Hk * L.NC; i += blockDim.x) {
+    const int k = i / L.NC, lc = i % L.NC;
+    const int lo = lc / 24, j = 8 * (ob + lo) + lc % 8;
+    const bool ok = k < H && lo < n_oct && j < H;
+    slice[k * L.ldw + lc] = ok ? wh[(size_t)k * H3 + ((lc % 24) / 8) * H + j] : __float2bfloat16(0.f);
+  }
+
+  // This thread's (row, unit) pairs: rows g (+ 8), units 2 tq (+ 1) of its octet.
+  int brow[NR];
+  bool ok[NR][2];
 #pragma unroll
-    for (int m = 0; m < C; ++m) hp[m] = nhp[m];
-    dy = ndy;
+  for (int rr = 0; rr < NR; ++rr) {
+    brow[rr] = grp * R + g + 8 * rr;
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) ok[rr][ii] = owner && brow[rr] < B && 8 * (ob + warp) + 2 * tq + ii < H;
+  }
+  const int j0 = 8 * (ob + warp) + 2 * tq;
+
+  // Step t's inputs at the thread's pairs: 1 - z, alpha, beta, gamma, dhs.
+  float omz[NR][2], ca[NR][2], cb[NR][2], cg[NR][2], dy[NR][2];
+  auto load = [&](int t) {
+#pragma unroll
+    for (int rr = 0; rr < NR; ++rr) {
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const size_t row = (size_t)brow[rr] * T + t;
+        const size_t o = row * H3 + j0 + ii;
+        const bool k = ok[rr][ii];
+        omz[rr][ii] = k ? coef_h[o] : 1.f;
+        cg[rr][ii] = k ? coef_h[o + H] : 0.f;
+        ca[rr][ii] = k ? coef_x[o] : 0.f;
+        cb[rr][ii] = k ? coef_x[o + H] : 0.f;
+        dy[rr][ii] = k ? dhs[row * H + j0 + ii] : 0.f;
+      }
+    }
+  };
+
+  float dh[NR][2], d[NR][2];
+#pragma unroll
+  for (int rr = 0; rr < NR; ++rr) dh[rr][0] = dh[rr][1] = 0.f;
+  if (owner) load(T - 1);
+  __syncthreads();
+  // Every CTA of the cluster runs before the first remote write.
+  cluster_arrive();
+  cluster_wait();
+
+  for (int t = T - 1; t >= 0; --t) {
+    float keep[NR][2];  // 1 - z of step t
+    if (owner) {
+      // dhw = d [alpha, beta, gamma], split into three bf16 terms.
+#pragma unroll
+      for (int rr = 0; rr < NR; ++rr) {
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          d[rr][ii] = dh[rr][ii] + dy[rr][ii];
+          keep[rr][ii] = omz[rr][ii];
+        }
+        const int at = (g + 8 * rr) * L.ldw + warp * 24 + 2 * tq;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float* c = q == 0 ? ca[rr] : q == 1 ? cb[rr] : cg[rr];
+          const float v0 = d[rr][0] * c[0], v1 = d[rr][1] * c[1];
+          const __nv_bfloat162 t0 = __floats2bfloat162_rn(v0, v1);
+          const float e0 = v0 - __low2float(t0), e1 = v1 - __high2float(t0);
+          const __nv_bfloat162 t1 = __floats2bfloat162_rn(e0, e1);
+          const __nv_bfloat162 t2 = __floats2bfloat162_rn(e0 - __low2float(t1), e1 - __high2float(t1));
+          *reinterpret_cast<__nv_bfloat162*>(dt + at + q * 8) = t0;
+          *reinterpret_cast<__nv_bfloat162*>(dt + R * L.ldw + at + q * 8) = t1;
+          *reinterpret_cast<__nv_bfloat162*>(dt + 2 * R * L.ldw + at + q * 8) = t2;
+        }
+      }
+    }
+    __syncthreads();  // the CTA's dhw terms staged
+
+    // dhw[:, CTA columns] @ wh[:, CTA columns]^T for every unit: this warp's
+    // n_per unit octets nt = warp + j * W, kChunk at a time, each of the
+    // three terms into its own accumulator (three independent mma chains),
+    // summed at the end; then each octet's partials go to the CTA that owns
+    // it, slot p. Every warp runs the same mma sequence (a j past the
+    // octets recomputes the last one and stores nothing), so no mma or
+    // ldmatrix sits under a branch that may diverge.
+    const uint32_t red_t = red_a + (t & 1) * C * R * RU * 4;
+    for (int j0 = 0; j0 < n_per; j0 += kChunk) {
+      float acc[3][kChunk][4];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+#pragma unroll
+        for (int jj = 0; jj < kChunk; ++jj) acc[q][jj][0] = acc[q][jj][1] = acc[q][jj][2] = acc[q][jj][3] = 0.f;
+      }
+      int ntc[kChunk];
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) ntc[jj] = min(warp + (j0 + jj) * L.W, L.O - 1);
+#pragma unroll 2
+      for (int kb = 0; kb < L.NC / 16; ++kb) {
+        uint32_t a[3][4], b[kChunk][2];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) load_a_frag<R>(a[q], dt_a + q * R * L.ldw * 2, L.ldw, kb * 16, lane);
+#pragma unroll
+        for (int jj = 0; jj < kChunk; ++jj) {
+          ldsm_x2(b[jj][0], b[jj][1], slice_a + ((ntc[jj] * 8 + lane % 8) * L.ldw + kb * 16 + ((lane / 8) % 2) * 8) * 2);
+        }
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+#pragma unroll
+          for (int jj = 0; jj < kChunk; ++jj) mma_bf16(acc[q][jj], a[q], b[jj][0], b[jj][1]);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const int nt = warp + (j0 + jj) * L.W;
+        if (j0 + jj < n_per && nt < L.O) {
+          int m = 0;
+          while ((m + 1) * L.O / C <= nt) ++m;
+          const int lu = (nt - m * L.O / C) * 8 + 2 * tq;
+#pragma unroll
+          for (int rr = 0; rr < NR; ++rr) {
+            // The smallest term first.
+            const float x = (acc[2][jj][2 * rr] + acc[1][jj][2 * rr]) + acc[0][jj][2 * rr];
+            const float y = (acc[2][jj][2 * rr + 1] + acc[1][jj][2 * rr + 1]) + acc[0][jj][2 * rr + 1];
+            st_cluster_f2(red_t + ((p * R + g + 8 * rr) * RU + lu) * 4, m, x, y);
+          }
+        }
+      }
+    }
+    // The arrive releases the partials; the step's global traffic (d out,
+    // the next step's inputs in) goes between it and the wait.
+    cluster_arrive();
+    if (owner) {
+#pragma unroll
+      for (int rr = 0; rr < NR; ++rr) {
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          if (ok[rr][ii]) coef_h[((size_t)brow[rr] * T + t) * H3 + 2 * H + j0 + ii] = d[rr][ii];
+        }
+      }
+      if (t > 0) load(t - 1);
+    }
+    cluster_wait();  // every CTA's partials of this CTA's units have arrived
+
+    if (owner) {
+      const float* rd = red + (t & 1) * C * R * RU;
+#pragma unroll
+      for (int rr = 0; rr < NR; ++rr) {
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int at = (g + 8 * rr) * RU + warp * 8 + 2 * tq + ii;
+          float s = 0.f;
+#pragma unroll
+          for (int q = 0; q < C; ++q) s += rd[q * R * RU + at];
+          dh[rr][ii] = d[rr][ii] * keep[rr][ii] + s;
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- pass 3: the outputs
+//
+// In place: dxw = d [alpha, beta, delta], dhw = d [alpha, beta, gamma].
+__global__ void gru_bwd_outputs_kernel(float* __restrict__ dxw, float* __restrict__ dhw, long long n, int H) {
+  const int H3 = 3 * H;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n; i += (long long)gridDim.x * blockDim.x) {
+    const long long o = i / H * H3 + i % H;
+    const float d = dhw[o + 2 * H];
+    const float da = d * dxw[o], dr = d * dxw[o + H];
+    dxw[o] = da;
+    dxw[o + H] = dr;
+    dxw[o + 2 * H] *= d;
+    dhw[o + 2 * H] = d * dhw[o + H];
+    dhw[o] = da;
+    dhw[o + H] = dr;
   }
 }
 
 template <int C>
-cudaError_t launch_cluster(const void* xw, const void* wh, const void* hs, const void* dhs, void* dxw, void* dhw,
-                           int B, int T, int H, cudaStream_t s) {
-  const int smem = cluster_smem_bytes(H, C);
-  cudaError_t e =
-      cudaFuncSetAttribute(gru_bwd_cluster_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t launch_carry(const void* wh, const void* dhs, void* dxw, void* dhw, int B, int T, int H, cudaStream_t s) {
+  const Layout L = layout(H, C);
+  auto kernel = gru_bwd_carry_kernel<C>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (e != cudaSuccess) return e;
+  if (C > 8) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  const int groups = (B + group_rows(C) - 1) / group_rows(C);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * C);
-  cfg.blockDim = dim3(H / C);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3(groups * C);
+  cfg.blockDim = dim3(32 * L.W);
+  cfg.dynamicSmemBytes = L.bytes;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -327,60 +569,48 @@ cudaError_t launch_cluster(const void* xw, const void* wh, const void* hs, const
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, gru_bwd_cluster_kernel<C>, static_cast<const float*>(xw), static_cast<const bf16*>(wh),
-                         static_cast<const float*>(hs), static_cast<const float*>(dhs), static_cast<float*>(dxw),
-                         static_cast<float*>(dhw), T, H);
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(wh), static_cast<const float*>(dhs),
+                         static_cast<const float*>(dxw), static_cast<float*>(dhw), B, T, H);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int gru_bwd_smem_bytes(int H) { return bwd_smem_bytes(H); }
-
-// CTAs that hold wh for H: 1 (one block, H <= 196), the smallest of 2, 4, 8
-// that divides H and whose slices fit, or 0 when no path takes H.
-extern "C" int gru_bwd_cluster_size(int H) {
-  if (H <= 0) return 0;
-  if (rows_per_block(H) * H <= 1024 && bwd_smem_bytes(H) <= kMaxSmem) return 1;
-  for (int c = 2; c <= 8; c *= 2) {
-    if (H % c == 0 && H / c <= 1024 && cluster_smem_bytes(H, c) <= kMaxSmem) return c;
-  }
-  return 0;
-}
+// The cluster size the kernel runs a batch of B rows of width H on (1, 2, 4,
+// 8 or 16), or 0 when no cluster takes H.
+extern "C" int gru_bwd_cluster_size(int B, int H) { return pick_cluster(B, H); }
 
 // Number of partial dwh sums the wrapper allocates ([splits, H, 3H] fp32).
 extern "C" int gru_bwd_splits(int B, int T, int H) { return recurrent_dw::num_splits(B * T, H, 3 * H); }
 
 extern "C" int gru_bwd(const void* xw, const void* wh, const void* hs, const void* dhs, void* dxw, void* dhw,
                        void* dwh_partial, void* dwh, int B, int T, int H, int device, void* stream) {
-  const int cluster = gru_bwd_cluster_size(H);
-  if (cluster == 0 || B <= 0 || T <= 0) return cudaErrorInvalidValue;
+  const int c = pick_cluster(B, H);
+  if (c == 0 || B <= 0 || T <= 0) return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cluster > 1) {
-    switch (cluster) {
-      case 2: e = launch_cluster<2>(xw, wh, hs, dhs, dxw, dhw, B, T, H, s); break;
-      case 4: e = launch_cluster<4>(xw, wh, hs, dhs, dxw, dhw, B, T, H, s); break;
-      default: e = launch_cluster<8>(xw, wh, hs, dhs, dxw, dhw, B, T, H, s); break;
-    }
-    if (e != cudaSuccess) return e;
-  } else {
-    const int rows = rows_per_block(H);
-    const int threads = rows * H;
-    const int smem = bwd_smem_bytes(H);
-    if (smem > 48 * 1024) {
-      e = cudaFuncSetAttribute(gru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return e;
-    }
-    gru_bwd_kernel<<<(B + rows - 1) / rows, threads, smem, s>>>(
-        static_cast<const float*>(xw), static_cast<const bf16*>(wh), static_cast<const float*>(hs),
-        static_cast<const float*>(dhs), static_cast<float*>(dxw), static_cast<float*>(dhw), B, T, H, rows);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
+  const int BT = B * T;
+  const dim3 gates_grid((BT + kGateRows - 1) / kGateRows, ((H + 7) / 8 + kGateOct - 1) / kGateOct);
+  auto gates = H % 8 == 0 ? gru_bwd_gates_kernel<true> : gru_bwd_gates_kernel<false>;
+  gates<<<gates_grid, kGateThreads, 0, s>>>(static_cast<const float*>(xw), static_cast<const bf16*>(wh),
+                                            static_cast<const float*>(hs), static_cast<float*>(dxw),
+                                            static_cast<float*>(dhw), BT, T, H);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  switch (c) {
+    case 1: e = launch_carry<1>(wh, dhs, dxw, dhw, B, T, H, s); break;
+    case 2: e = launch_carry<2>(wh, dhs, dxw, dhw, B, T, H, s); break;
+    case 4: e = launch_carry<4>(wh, dhs, dxw, dhw, B, T, H, s); break;
+    case 8: e = launch_carry<8>(wh, dhs, dxw, dhw, B, T, H, s); break;
+    default: e = launch_carry<16>(wh, dhs, dxw, dhw, B, T, H, s); break;
   }
-
+  if (e != cudaSuccess) return e;
+  const long long n = (long long)BT * H;
+  gru_bwd_outputs_kernel<<<4 * kSms, 256, 0, s>>>(static_cast<float*>(dxw), static_cast<float*>(dhw), n, H);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
   return recurrent_dw::launch(static_cast<const float*>(hs), static_cast<const float*>(dhw),
                               static_cast<float*>(dwh_partial), static_cast<float*>(dwh), B, T, H, 3 * H, s);
 }

@@ -10,7 +10,9 @@ the TPU kernels':
 - logits ``q · tableᵀ + bias`` from bf16-rounded ``q [N, D]`` and
   ``table [V, D]`` with fp32 sums and the fp32 ``bias [V]`` (-1e30 on padded
   catalog rows, which then get exactly zero gradient);
-- forward (``ce_lse``): ``lse [N]``; the target logit is gathered outside the
+- forward (``ce_lse``): ``lse [N]`` (where the row blocks do not fill the
+  card, the catalog is split into ranges whose partial (max, sum) pairs a
+  merge combines in order: ``lse_merge_reference``); the target logit is gathered outside the
   kernel in plain fp32 from the unrounded ``q`` and ``table``, and
   ``nll = lse - target logit``;
 - backward (``ce_bwd``): ``gp = exp(logit - lse) · g`` in fp32, rounded to
@@ -56,6 +58,33 @@ def ce_lse_reference(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor,
         s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=1)
         m = m_new
     return m + torch.log(s)
+
+
+def lse_partials_reference(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, bounds) -> tuple:
+    """The partials a split ``ce_lse`` writes, in plain PyTorch: for each
+    catalog range ``[v0, v1)`` of ``bounds``, each row's max logit ``m`` and
+    ``l = sum exp(logit - m)`` over the range. Returns ``(m, l)``, each
+    ``[S, N]`` fp32, in natural units (the kernel keeps them in base 2)."""
+    qb = _bf16(q)
+    ms, ls = [], []
+    for v0, v1 in bounds:
+        logits = qb @ _bf16(table[v0:v1]).T + bias[v0:v1].float()
+        m = logits.max(dim=1).values
+        ms.append(m)
+        ls.append(torch.exp(logits - m[:, None]).sum(dim=1))
+    return torch.stack(ms), torch.stack(ls)
+
+
+def lse_merge_reference(m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``ce_lse``'s merge (``lse_merge`` in
+    ``csrc/ce.cu``): ``[S, N]`` partial maxima and sums of S catalog ranges
+    combined in range order, ``M + log(sum_s l_s exp(m_s - M))`` with
+    ``M = max_s m_s``. Used by nothing on the train or serve path."""
+    M = m.max(dim=0).values
+    L = torch.zeros_like(M)
+    for s in range(m.shape[0]):
+        L = L + l[s] * torch.exp(m[s] - M)
+    return M + torch.log(L)
 
 
 def ce_lse_exp2_reference(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor,
@@ -131,8 +160,9 @@ def _check(name: str, tensors: dict[str, torch.Tensor]) -> bool:
 def ce_lse(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """[N] fp32 log-sum-exp of ``q · tableᵀ + bias`` over the catalog.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise; ``ce_lse.launches`` counts the launches.
+    CPU tensors take the plain version. CUDA tensors launch the kernel (and,
+    where it splits the catalog, its merge) or raise; ``ce_lse.launches``
+    counts the calls that launched them.
     """
     N, D = q.shape
     V = table.shape[0]
@@ -148,8 +178,11 @@ def ce_lse(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor) -> torch.Te
     t16 = table.to(torch.bfloat16).contiguous()
     b32 = bias.float().contiguous()
     dev = q.device
-    rc = _build.library().ce_lse(q16.data_ptr(), t16.data_ptr(), b32.data_ptr(), lse.data_ptr(), N, V, D, dev.index,
-                                 torch.cuda.current_stream(dev).cuda_stream)
+    lib = _build.library()
+    # fp32 partial (max, sum) pairs of the catalog ranges, where the row blocks split it to fill the card.
+    scratch = torch.empty(max(1, lib.ce_lse_scratch(N, V, D)), dtype=torch.float32, device=dev)
+    rc = lib.ce_lse(q16.data_ptr(), t16.data_ptr(), b32.data_ptr(), lse.data_ptr(), scratch.data_ptr(), N, V, D,
+                    dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "ce_lse launch")
     ce_lse.launches += 1
     return lse
@@ -162,7 +195,8 @@ def ce_lse_variant(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, var
                    rows: int = 64) -> torch.Tensor:
     """[N] fp32 log-sum-exp of ``q · tableᵀ + bias`` through one of the
     forward's tuning variants (``VARIANTS``) with ``rows`` query rows a block
-    (``ROWS``). ``base`` at 64 rows launches ``ce_lse``'s kernel. ``exp2``
+    (``ROWS``): the first, ``mma.sync`` design of ``ce_lse``'s kernel, which
+    ``base`` at 64 rows still is. ``exp2``
     scales ``q`` (in fp32, before its bf16 rounding) and ``bias`` by log2(e)
     here, so its result carries the rounding of ``q · log2(e)``. ``nomax``
     keeps no running max and is UNSAFE: a logit past about 88 overflows the

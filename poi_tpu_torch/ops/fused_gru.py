@@ -18,9 +18,14 @@ kernels':
   fp32 (``dh @ whᵀ`` with wh widened from bf16), and ``dwh`` sums
   ``h_prevᵀ · dhw`` over batch and time in fp32.
 
-The kernels keep bf16 ``wh`` in shared memory: one block holds it up to
-H = 196, and above that its columns are split across a cluster of 2, 4 or 8
-blocks (H = 256 for config #4, 512 for config #5).
+The kernels keep bf16 ``wh`` in shared memory. The forward holds it in one
+block up to H = 196, and above that splits its columns across a cluster of 2,
+4 or 8 blocks (H = 256 for config #4, 512 for config #5). The backward
+recomputes every step's gates at once on the tensor cores, then runs the
+serial carry, ``dh @ whᵀ`` with the fp32 cotangent split into three exact
+bf16 products, for groups of 16 batch rows with wh's columns split across a
+cluster of 1 to 16 blocks (``gru_bwd_cluster_size``); it takes any H up to
+640.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from poi_tpu_torch import _build
 
 MASK_NEG = -1e9
 TAKES_H = "H <= 196 in one block, or H <= 544 split evenly across a cluster of 2, 4 or 8 blocks"
+BWD_TAKES_H = "H <= 640, on a cluster of 1, 2, 4, 8 or 16 blocks a group of batch rows"
 
 
 def gru_scan_reference(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
@@ -145,8 +151,8 @@ def fused_gru_bwd(xw: torch.Tensor, wh: torch.Tensor, hs: torch.Tensor, dhs: tor
         raise TypeError(f"fused_gru_bwd: need wh bfloat16 and xw, hs, dhs float32; got "
                         f"{[t.dtype for t in tensors]}")
     lib = _build.library()
-    if lib.gru_bwd_cluster_size(H) == 0:
-        raise ValueError(f"fused_gru_bwd: H={H} is not taken by the kernels: {TAKES_H}")
+    if lib.gru_bwd_cluster_size(B, H) == 0:
+        raise ValueError(f"fused_gru_bwd: H={H} is not taken by the kernels: {BWD_TAKES_H}")
     dev = xw.device
     dxw = torch.empty(B, T, H3, dtype=torch.float32, device=dev)
     dwh = torch.empty(H, H3, dtype=torch.float32, device=dev)
@@ -156,7 +162,8 @@ def fused_gru_bwd(xw: torch.Tensor, wh: torch.Tensor, hs: torch.Tensor, dhs: tor
     dhw = torch.empty(B, T, H3, dtype=torch.float32, device=dev)  # scratch: the recurrent cotangent per step
     partial = torch.empty(lib.gru_bwd_splits(B, T, H), H, H3, dtype=torch.float32, device=dev)
     rc = lib.gru_bwd(xw.data_ptr(), wh.data_ptr(), hs.data_ptr(), dhs.data_ptr(), dxw.data_ptr(), dhw.data_ptr(),
-                     partial.data_ptr(), dwh.data_ptr(), B, T, H, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+                     partial.data_ptr(), dwh.data_ptr(), B, T, H, dev.index,
+                     torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "gru_bwd launch")
     fused_gru_bwd.launches += 1
     return dxw, dwh

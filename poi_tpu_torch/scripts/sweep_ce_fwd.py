@@ -3,7 +3,8 @@ against rows a block, the counterpart of ``scripts/sweep_ce_fwd.py``.
 
     python -m poi_tpu_torch.scripts.sweep_ce_fwd [--n 16384 --v 44170 --d 128] [--device cuda]
 
-  base   ce_lse's online max and sum (exp = a log2(e) multiply, then ex2)
+  base   the first design of ce_lse's kernel: an online max and sum (exp =
+         a log2(e) multiply, then ex2)
   exp2   q and bias pre-scaled by log2(e): exp2 saves one multiply a logit
   nomax  UNSAFE (no running max: fp32 overflows past logits of ~88): what the
          max loop costs
@@ -11,8 +12,9 @@ against rows a block, the counterpart of ``scripts/sweep_ce_fwd.py``.
 each at 64 and 128 query rows a block; the streamed catalog tile is 64 rows
 in every cell (``csrc/ce.cu``). Per cell: the time (CUDA events, median), the
 rate over the catalog product's 2·N·V·D FLOPs, and the largest difference
-from the variant's own plain version. Inputs as the JAX script's: q ~ N(0,
-1), table ~ 0.05·N(0, 1), zero bias.
+from the variant's own plain version. Beside them, ``ce_lse`` itself (the
+warp-specialised wgmma kernel the train path launches) on the same inputs.
+Inputs as the JAX script's: q ~ N(0, 1), table ~ 0.05·N(0, 1), zero bias.
 """
 
 from __future__ import annotations
@@ -79,6 +81,11 @@ def main(argv: list[str] | None = None) -> int:
         variant, rows = name.split("/")
         print(f"{variant:5s} rows={int(rows):3d}: {c['ms']:8.4f} ms {flop / c['ms'] / 1e9:7.1f} TFLOP/s  "
               f"max |kernel - plain| {c['max_abs_err']:.2e}  launches {c['launches']}", flush=True)
+    want = fused_ce.ce_lse_reference(q, table, bias)
+    err = float((fused_ce.ce_lse(q, table, bias) - want).abs().max())
+    ms = time_ms(lambda: fused_ce.ce_lse(q, table, bias), ITERS, dev=q.device)
+    print(f"ce_lse (the train path's kernel): {ms:8.4f} ms {flop / ms / 1e9:7.1f} TFLOP/s  "
+          f"max |kernel - plain| {err:.2e}", flush=True)
     print(f"ce_lse_variant launches: {sum(c['launches'] for c in cells.values())} (the timed runs'; the "
           f"comparisons' not counted)")
     best = min(cells, key=lambda k: cells[k]["ms"])

@@ -13,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from poi_tpu.ops.fused_ce import fused_ce_loss_pallas
+from poi_tpu.ops.fused_ce import _pallas_forward, fused_ce_loss_pallas
 from poi_tpu.train.losses import ce_loss as jax_ce_loss
-from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_bwd_reference, ce_lse, ce_lse_reference, fused_ce_loss
+from poi_tpu_torch.ops.fused_ce import (ce_bwd, ce_bwd_reference, ce_lse, ce_lse_reference, fused_ce_loss,
+                                        lse_merge_reference, lse_partials_reference)
 from poi_tpu_torch.train.losses import FUSED_CE_MIN_VOCAB, bpr_loss, build_loss_fn, ce_loss
 from poi_tpu_torch.utils.config import LossConfig
 
@@ -134,3 +135,42 @@ def test_unported_losses_raise(kind):
     assert build_loss_fn(LossConfig(kind=kind), 100) is bpr_loss
     with pytest.raises(ValueError, match="unknown loss"):
         build_loss_fn(LossConfig(kind="hinge"), 100)
+
+
+def _ranges(V, S, tile=64):
+    """Contiguous catalog ranges the way ce_lse splits them (fill_splits in
+    csrc/wgmma_tiles.cuh, over the kernel's streamed tiles of kLseStr = 64
+    rows): at most S, whole tiles each, none empty."""
+    tiles = -(-V // tile)
+    per = -(-tiles // min(S, tiles))
+    return [(v0, min(V, v0 + per * tile)) for v0 in range(0, V, per * tile)]
+
+
+@pytest.mark.parametrize("V, real, S", [
+    (300, 300, 3),     # a ragged last range (300 = 4 tiles + 44: ranges of 128, 128, 44)
+    (1000, 600, 4),    # the last range (768-1000) lies wholly in the -1e30 tail
+    (200, 200, 5),     # V < S * 64: four one-tile ranges, the last of 8 columns
+])
+def test_split_lse_merges_to_the_pallas_lse(V, real, S):
+    """ce_lse's split path: each catalog range's partial (max, sum) merged in
+    range order (lse_merge_reference, the plain version of the kernel's
+    merge) against the Pallas forward's LSE in interpret mode."""
+    rng = np.random.default_rng(V)
+    q = rng.normal(size=(24, 32)).astype(np.float32)
+    table = rng.normal(size=(V, 32)).astype(np.float32)
+    bias = rng.normal(size=(V,)).astype(np.float32)
+    bias[real:] = -1e30
+    _, want = _pallas_forward(jnp.asarray(q), jnp.asarray(table), jnp.asarray(bias), jnp.zeros(24, jnp.int32),
+                              128, 8, True)
+    bounds = _ranges(V, S)
+    assert len(bounds) > 1
+    m, l = lse_partials_reference(*(torch.from_numpy(a) for a in (q, table, bias)), bounds)
+    if real < V:
+        assert bounds[-1][0] >= real and bool((m[-1] <= -1e29).all())
+    got = lse_merge_reference(m, l)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=REL_TOL, atol=0)
+    # One range is the plain LSE itself.
+    m1, l1 = lse_partials_reference(*(torch.from_numpy(a) for a in (q, table, bias)), [(0, V)])
+    torch.testing.assert_close(lse_merge_reference(m1, l1), ce_lse_reference(*(torch.from_numpy(a) for a in
+                                                                                (q, table, bias))), rtol=1e-6, atol=0)

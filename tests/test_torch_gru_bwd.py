@@ -149,3 +149,86 @@ def test_fused_gru_bwd_rejects_bad_shapes():
     with pytest.raises(ValueError, match="3H"):
         fused_gru_bwd(torch.zeros(2, 3, 12), torch.zeros(4, 12, dtype=torch.bfloat16), torch.zeros(2, 3, 5),
                       torch.zeros(2, 3, 4))
+
+
+def _three_bf16_terms(x: torch.Tensor):
+    """The backward kernel's split of an fp32 cotangent (csrc/gru_bwd.cu):
+    b0 = bf16(x), b1 = bf16(x - b0), b2 = bf16(x - b0 - b1)."""
+    b0 = x.to(torch.bfloat16)
+    r = x - b0.float()
+    b1 = r.to(torch.bfloat16)
+    return b0, b1, (r - b1.float()).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("H", [16, 100, 128])
+def test_three_term_split_keeps_the_carry_product_fp32(H):
+    """The CUDA kernel computes dhw @ whᵀ as three exact bf16 products (the
+    split terms times bf16 wh) summed in fp32. Emulated here, it matches the
+    TPU kernel's product (fused_gru.py:121-128: fp32 dhw, wh widened from
+    bf16, Precision.HIGHEST, evaluated by XLA on the CPU as interpret mode
+    does) to 1e-6 of the largest element, fp32 summation order only; the
+    first term alone, a bf16-rounded cotangent, misses by more than 1e-3."""
+    rng = np.random.default_rng(H)
+    dhw = rng.normal(size=(16, 3 * H)).astype(np.float32)
+    wh = torch.from_numpy((rng.normal(size=(H, 3 * H)) / np.sqrt(H)).astype(np.float32)).to(torch.bfloat16).float()
+    want = np.asarray(jax.lax.dot_general(jnp.asarray(dhw), jnp.asarray(wh.numpy()), (((1,), (1,)), ((), ())),
+                                          precision=jax.lax.Precision.HIGHEST, preferred_element_type=jnp.float32))
+    b0, b1, b2 = _three_bf16_terms(torch.from_numpy(dhw))
+    # Together the terms hold x to its last bit or so: a relative residual of ~2^-24.
+    resid = (torch.from_numpy(dhw).double() - b0.double() - b1.double() - b2.double()).abs()
+    assert float((resid / torch.from_numpy(dhw).double().abs().clamp_min(1e-30)).max()) < 2 ** -23
+    scale = np.abs(want).max()
+    three = (b2.float() @ wh.T + b1.float() @ wh.T + b0.float() @ wh.T).numpy()
+    assert np.abs(three - want).max() / scale < 1e-6
+    one = (b0.float() @ wh.T).numpy()
+    assert np.abs(one - want).max() / scale > 1e-3
+
+
+def _three_pass_bwd(xw, wh16, hs, dhs):
+    """The CUDA backward's arithmetic (csrc/gru_bwd.cu), emulated in torch:
+    the gates of every step at once and their coefficients (pass 1), the
+    serial carry with dhw = d [alpha, beta, gamma] split into three bf16
+    terms times bf16 wh (pass 2), dxw and dhw from d (pass 3), then dwh."""
+    B, T, H3 = xw.shape
+    H = H3 // 3
+    w = wh16.float()
+    h_prev = torch.cat([torch.zeros(B, 1, H), hs[:, :-1]], dim=1)
+    hw = h_prev.to(torch.bfloat16).float() @ w
+    z = torch.sigmoid(xw[..., :H] + hw[..., :H])
+    r = torch.sigmoid(xw[..., H:2 * H] + hw[..., H:2 * H])
+    hn = hw[..., 2 * H:]
+    n = torch.tanh(xw[..., 2 * H:] + r * hn)
+    delta = z * (1.0 - n * n)
+    alpha = (n - h_prev) * z * (1.0 - z)
+    beta = delta * hn * r * (1.0 - r)
+    gamma = delta * r
+    d = torch.empty(B, T, H)
+    dh = torch.zeros(B, H)
+    for t in range(T - 1, -1, -1):
+        d[:, t] = dh + dhs[:, t]
+        terms = _three_bf16_terms(torch.cat([d[:, t] * alpha[:, t], d[:, t] * beta[:, t], d[:, t] * gamma[:, t]], 1))
+        carry = (terms[2].float() @ w.T + terms[1].float() @ w.T) + terms[0].float() @ w.T
+        dh = d[:, t] * (1.0 - z[:, t]) + carry
+    dxw = torch.cat([d * alpha, d * beta, d * delta], dim=2)
+    dhw = torch.cat([d * alpha, d * beta, d * gamma], dim=2)
+    dwh = (h_prev.reshape(-1, H).T @ dhw.reshape(-1, H3))
+    return dxw, dwh
+
+
+@pytest.mark.parametrize("H", [16, 20])
+def test_three_pass_arithmetic_matches_pallas_vjp(H):
+    """The CUDA kernel's restructured backward (gates of all steps first,
+    then the carry on split bf16 terms, then the outputs), emulated on the
+    CPU, against jax.vjp of the Pallas recurrence in interpret mode, at a
+    multiple of 16 and at a ragged width; dxw is exactly 0 on padded steps."""
+    p, x, mask, rng = _case(H=H, seed=11)
+    xw = _folded_xw(p, x, mask)
+    dhs = rng.normal(size=(8, 12, H)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, wgt: jax_fused_gru_scan(a, wgt, True), jnp.asarray(xw), jnp.asarray(p["wh"]))
+    dxw_j, dwh_j = vjp(jnp.asarray(dhs))
+    wh16 = torch.from_numpy(p["wh"]).to(torch.bfloat16)
+    hs = gru_scan_reference(torch.from_numpy(xw), wh16)
+    dxw, dwh = _three_pass_bwd(torch.from_numpy(xw), wh16, hs, torch.from_numpy(dhs))
+    _close(dxw, dxw_j, REL_TOL, "dxw")
+    _close(dwh, np.asarray(dwh_j, np.float32), REL_TOL, "dwh")
+    assert (dxw.numpy()[~mask] == 0).all()

@@ -60,6 +60,7 @@ def test_sweep_ce_fwd_prints_six_cells_and_the_best(capsys, monkeypatch):
                                                                   for r in (64, 128)]
     assert all("max |kernel - plain| 0.00e+00" in c for c in cells)  # the wrapper takes the plain versions here
     assert any("nomax is safe on these inputs" in line for line in out)
+    assert out[-4].startswith("ce_lse (the train path's kernel): ") and "max |kernel - plain| 0.00e+00" in out[-4]
     assert out[-3].startswith("ce_lse_variant launches: 0 ")
     assert re.match(r"best: (base|exp2|nomax) rows=(64|128): ", out[-1])
 
