@@ -133,8 +133,10 @@ RNN_TOL = 2e-2
 # step for dh, B·T for dwh), as the GRU's.
 REC_BWD_TOL = GRU_BWD_TOL
 # (B, T, H): config #2's and config #3's train shapes first, then a ragged
-# batch and a width of two rows a block.
-LSTM_SHAPES = ((64, 64, 128), (7, 64, 128), (33, 16, 64))
+# batch and a width of two rows a block; the LSTM also at a width that is no
+# multiple of 8 (the backward zero-pads the last octet) and at 169 and 170,
+# the old limit and the pair's limit (lstm_max_hidden(), the forward's).
+LSTM_SHAPES = ((64, 64, 128), (7, 64, 128), (33, 16, 64), (9, 64, 100), (7, 64, 169), (5, 64, 170))
 RNN_SHAPES = ((64, 32, 128), (7, 32, 128), (33, 16, 64))
 # Configs #2 and #3 at full width, device-sampled like config #4: the preset
 # and the kernels its train step launches (the recurrence's forward first).
@@ -188,9 +190,20 @@ SCRIPT_RUNS = (
     ("mem_budget", [ATTN_CONFIG]),
     ("quality_runs", [CONFIG, "train.num_steps=300", "train.eval_every=100"]),
 )
-# The GRU kernels' cluster path (H > 196): config #4's train shape, a ragged
-# batch, and config #5's width.
-GRU_BIG_SHAPES = ((64, 128, 256), (7, 128, 256), (5, 64, 512))
+# The GRU kernels at the larger widths: config #4's train shape, a ragged
+# batch, config #5's width on a few rows and at its batch of 512, and the
+# kernels' limit, 640.
+GRU_FWD_H512 = (512, 64, 512)  # config #5's batch and width, where B1 is also timed
+GRU_BIG_SHAPES = ((64, 128, 256), (7, 128, 256), (5, 64, 512), GRU_FWD_H512, (3, 64, 640))
+# B1 at widths that are no multiple of 8 (B, H, blocks a row group that the
+# kernel picks for them): H = 100 at a batch whose 69 row groups on clusters
+# of 4 overflow the card (276 CTAs on 132 SMs), H = 200 on a cluster of 8,
+# and H = 45, odd, whose xw rows are no multiple of 16 bytes (moved by 4-byte
+# cp.async, not TMA).
+GRU_FWD_RAGGED = ((1100, 100, 4), (7, 200, 8), (300, 45, 2))
+# B1's cluster choice, timed at each cluster that fits (B, T, H): serving
+# config #1 at request batch 1 and 256, the bench workload, config #4.
+GRU_CLUSTER_CASES = ((1, 64, 64), (256, 64, 64), (512, 64, 128), (64, 128, 256))
 # B2 at widths that are no multiple of 16 (B, H, blocks a row group that the
 # kernel picks for them): H = 100 on one block, at a batch whose 69 row groups
 # would not fit on the card on clusters of 2, and H = 200 on a cluster.
@@ -319,15 +332,22 @@ def check_gru_bwd(xw, wh, hs, dhs, mask):
 
 
 def gru_phase() -> float:
+    """B1 against its plain version at H = 64 and 128, then at ragged widths
+    (``GRU_FWD_RAGGED``); returns the largest absolute error."""
     import torch
+
+    from poi_tpu_torch import _build
 
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     worst = 0.0
-    for H in (64, 128):
-        for B in (1, 7, 256):
-            _, err = check_gru_fwd(*gru_case(B, 64, H, gen))
-            worst = max(worst, err)
-            log(f"[gru] B={B:3d} T=64 H={H:3d}: max |kernel - plain| at valid steps {err:.3e} (tol {GRU_TOL})")
+    cases = [(B, H, None) for H in (64, 128) for B in (1, 7, 256)] + list(GRU_FWD_RAGGED)
+    for B, H, want_blocks in cases:
+        blocks = _build.library().gru_fwd_cluster_size(H)
+        assert want_blocks in (None, blocks), f"GRU B={B} H={H}: the kernel picks {blocks} blocks, not {want_blocks}"
+        _, err = check_gru_fwd(*gru_case(B, 64, H, gen))
+        worst = max(worst, err)
+        log(f"[gru] B={B:4d} T=64 H={H:3d} ({blocks} block{'s' if blocks > 1 else ''} a row group): max |kernel - "
+            f"plain| at valid steps {err:.3e} (tol {GRU_TOL}); masked tail unchanged; a second run gives the same bits")
     return worst
 
 
@@ -423,9 +443,23 @@ def gru_bwd_bound(xw, wh, hs, dhs, outs) -> dict:
     return bound((xw, wh, hs, dhs), outs, bf16_flop=4 * flop, fp32_flop=flop)
 
 
-# The kernels of B2's and B7's calls, as the profiler names them: B2's three
-# passes and the dwh product it shares; B7's catalog kernel and its merge.
+def lstm_bwd_bound(x, mask, w, carries, dhs, outs) -> dict:
+    """B4's bound, counted as the kernel runs it: the gate recompute and the
+    carry product on the tensor cores, the carry's fp32 cotangent as three
+    exact bf16 products (so four products of 2 * B * T * H * 4H FLOPs), and
+    dwh's fp32 product on the CUDA cores."""
+    B, T, H = carries[0].shape
+    flop = 2 * B * T * H * 4 * H
+    return bound((x, mask, w, *carries, dhs), outs, bf16_flop=4 * flop, fp32_flop=flop)
+
+
+# The kernels of B1's, B2's, B4's and B7's calls, as the profiler names
+# them: B1's one kernel; B2's three passes and the dwh product it shares; B4's
+# gates and carry passes and that dwh product; B7's catalog kernel and its
+# merge.
+GRU_FWD_KERNELS = ("gru_fwd_kernel",)
 GRU_BWD_KERNELS = ("gru_bwd_gates", "gru_bwd_carry", "gru_bwd_outputs", "recurrent_dw")
+LSTM_BWD_KERNELS = ("lstm_bwd_gates", "lstm_bwd_carry", "recurrent_dw")
 CE_LSE_KERNELS = ("ce_lse_wg_kernel", "lse_merge")
 
 
@@ -585,9 +619,10 @@ def ce_variants_phase() -> dict:
 
 
 def gru_big_phase() -> dict:
-    """B1 and B2 on the cluster path (H > 196) against their plain versions:
-    config #4's (B, T, H), a ragged batch, and config #5's H = 512. Returns
-    the largest absolute errors and config #4's times."""
+    """B1 and B2 at the larger widths against their plain versions: config
+    #4's (B, T, H), a ragged batch, and config #5's H = 512 on a few rows and
+    at its batch of 512. Returns the largest absolute errors and config #4's
+    times."""
     import torch
 
     from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan, gru_bwd_reference, gru_scan_reference
@@ -604,12 +639,21 @@ def gru_big_phase() -> dict:
         log(f"[gru_big] B={B:3d} T={T} H={H}: forward max |kernel - plain| at valid steps {err:.3e} (tol {GRU_TOL}); "
             f"backward rel err dxw {ex:.2e}, dwh {ew:.2e} (tol {GRU_BWD_TOL}); dxw on {n_pad} padded steps "
             f"exactly 0; a second run gives the same bits")
+        if (B, T, H) == GRU_FWD_H512:
+            out["fwd_h512"] = {"ms": time_ms(lambda: fused_gru_scan(xw, wh)),
+                               "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh), 5),
+                               "library_ms": cudnn_ms("gru", B, T, H, DEV),
+                               **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * 3 * H)}
+            t = out["fwd_h512"]
+            log(f"[time] gru_fwd B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN "
+                f"nn.GRU forward {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+                f"{t['bound_pipe']})")
         if (B, T, H) == GRU_BIG_SHAPES[0]:
             G = 3 * H
             out["fwd"] = {"ms": time_ms(lambda: fused_gru_scan(xw, wh)),
                           "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh), 5),
                           "library_ms": cudnn_ms("gru", B, T, H, DEV),
-                          **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * G)}
+                          **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * G), "args": (xw, wh)}
             out["bwd"] = {"ms": time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs)),
                           "plain_ms": time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 5), "library_ms": None,
                           **gru_bwd_bound(xw, wh, hs, dhs, fused_gru_bwd(xw, wh, hs, dhs)),
@@ -617,23 +661,39 @@ def gru_big_phase() -> dict:
             for d in ("fwd", "bwd"):
                 t = out[d]
                 lib = f", cuDNN nn.GRU forward {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
-                log(f"[time] gru_{d} B={B} T={T} H={H} (cluster): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                log(f"[time] gru_{d} B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
                     f"ms{lib}; bound {t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bound_pipe']})")
+    H = 648
+    msg = expect_width_limit(fused_gru_scan, torch.zeros(2, 3, 3 * H, device=DEV),
+                             torch.zeros(H, 3 * H, device=DEV, dtype=torch.bfloat16))
+    log(f"[gru_big] H={H} refused: {msg}")
     return out
 
 
-def gru_big_device_phase(big: dict, gpu: str) -> None:
-    """B2's device time by kernel at config #4's shape, on the inputs
-    ``gru_big_phase`` timed. It runs after the timing phases, as every
-    profiler reading does: in a run that profiled here, before the training
-    phases, the top-k timing's later records came back empty."""
-    from poi_tpu_torch.ops.fused_gru import fused_gru_bwd
+def recurrence_device_phase(times: dict, big: dict, lstm: dict, gpu: str) -> None:
+    """Device time by kernel, on the inputs the earlier phases timed: B1 at
+    the serve shapes (batch 256 and 1), the bench shape and config #4's; B2
+    at config #4's; B4 at config #2's, pass by pass. It runs after the
+    timing phases, as every profiler reading does: in a run that profiled
+    here, before the training phases, the top-k timing's later records came
+    back empty."""
+    from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan
+    from poi_tpu_torch.ops.fused_lstm import fused_lstm_bwd
 
+    for t in (times["gru_fwd"], times["gru_fwd_b1"], times["gru_fwd_train"], big["fwd"]):
+        xw, wh = t.pop("args")
+        t.update(device_parts(lambda: fused_gru_scan(xw, wh), GRU_FWD_KERNELS))
+        log(f"[time] gru_fwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]}: device {t['device_ms']:.4f} ms "
+            f"(CUDA events {t['ms']:.4f} ms)  ({gpu})")
     t = big["bwd"]
     xw, wh, hs, dhs = t.pop("args")
     t.update(device_parts(lambda: fused_gru_bwd(xw, wh, hs, dhs), GRU_BWD_KERNELS))
-    log(f"[time] gru_bwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]} (cluster): {parts_text(t, GRU_BWD_KERNELS)}  "
-        f"({gpu})")
+    log(f"[time] gru_bwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]}: {parts_text(t, GRU_BWD_KERNELS)}  ({gpu})")
+    t = lstm["bwd"]
+    args = t.pop("args")
+    t.update(device_parts(lambda: fused_lstm_bwd(*args), LSTM_BWD_KERNELS))
+    log(f"[time] lstm_bwd B={args[0].shape[0]} T={args[0].shape[1]} H={args[2].shape[0]}: "
+        f"{parts_text(t, LSTM_BWD_KERNELS)}  ({gpu})")
 
 
 def sampled_case(N: int, S: int, D: int, V: int, gen, pad: int = 0, full_hit: bool = False):
@@ -806,8 +866,10 @@ def recurrence_phase(tag: str, gates: int, shapes, tol: float, ops) -> dict:
         dx_dw = bwd(x, mask, w, *carries, dhs)
         out["bwd"] = {"ms": time_ms(lambda: bwd(x, mask, w, *carries, dhs)),
                       "plain_ms": time_ms(lambda: bwd_ref(x, mask, w, *carries, dhs), 5), "library_ms": None,
-                      **bound((x, mask, w, *carries, dhs), dx_dw, bf16_flop=2 * B * T * H * G,
-                              fp32_flop=4 * B * T * H * G)}
+                      **(lstm_bwd_bound(x, mask, w, carries, dhs, dx_dw) if gates == 4 else
+                         bound((x, mask, w, *carries, dhs), dx_dw, bf16_flop=2 * B * T * H * G,
+                               fp32_flop=4 * B * T * H * G)),
+                      **({"args": (x, mask, w, *carries, dhs)} if gates == 4 else {})}
         for d in ("fwd", "bwd"):
             t = out[d]
             lib = f", cuDNN forward {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
@@ -1248,14 +1310,17 @@ def timing_phase(state, gpu: str) -> dict:
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
     out = {}
-    B, T, H = 256, 64, 64
-    xw, wh, _, _ = gru_case(B, T, H, gen)
-    out["gru_fwd"] = {"ms": time_ms(lambda: fused_gru_scan(xw, wh)), "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh)),
-                      "library_ms": cudnn_ms("gru", B, T, H, DEV),
-                      **bound((xw, wh), (fused_gru_scan(xw, wh),), bf16_flop=2 * B * T * H * 3 * H)}
-    t = out["gru_fwd"]
-    log(f"[time] gru_fwd B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN nn.GRU "
-        f"forward {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})  ({gpu})")
+    # B1 at the serve shape (config #1, 256 histories) and at request batch 1.
+    for name, B in (("gru_fwd", 256), ("gru_fwd_b1", 1)):
+        T, H = 64, 64
+        xw, wh, _, _ = gru_case(B, T, H, gen)
+        out[name] = {"ms": time_ms(lambda: fused_gru_scan(xw, wh)), "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh)),
+                     "library_ms": cudnn_ms("gru", B, T, H, DEV),
+                     **bound((xw, wh), (fused_gru_scan(xw, wh),), bf16_flop=2 * B * T * H * 3 * H), "args": (xw, wh)}
+        t = out[name]
+        log(f"[time] gru_fwd B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN nn.GRU "
+            f"forward {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})  ({gpu})")
+    gru_cluster_choice(gen, gpu)
     # B11 at the serve shape (config #1's padded catalog) at request batch 1
     # and 256, k = 128 (recommend's fetch) and 10, and at the bench eval
     # sweep's shape, each beside torch.topk over the materialised logits (bf16
@@ -1308,6 +1373,31 @@ def timing_phase(state, gpu: str) -> dict:
             ms = host_ms(lambda: rec.recommend(hist[:n], k=10), iters=10)
             log(f"[time] recommend batch {n:3d} ({name}): {ms:.3f} ms median of 10  ({gpu})")
     return out
+
+
+def gru_cluster_choice(gen, gpu: str) -> None:
+    """B1 at each cluster size that fits, beside the one the kernel picks,
+    at ``GRU_CLUSTER_CASES`` (CUDA events): the measurement behind the pick.
+    The C entry takes the cluster size to force; the wrapper always passes 0,
+    the kernel's own pick."""
+    import torch
+
+    from poi_tpu_torch import _build
+
+    lib = _build.library()
+    for B, T, H in GRU_CLUSTER_CASES:
+        xw, wh, _, _ = gru_case(B, T, H, gen)
+        hs = torch.empty(B, T, H, device=DEV)
+
+        def at(c):
+            rc = lib.gru_fwd(xw.data_ptr(), wh.data_ptr(), hs.data_ptr(), B, T, H, c, xw.device.index,
+                             torch.cuda.current_stream().cuda_stream)
+            _build.check(rc, f"gru_fwd on a cluster of {c}")
+
+        times = {c: time_ms(lambda: at(c)) for c in (1, 2, 4, 8, 16) if lib.gru_fwd_fits(H, c)}
+        log(f"[time] gru_fwd cluster choice B={B} T={T} H={H}: " + ", ".join(f"C={c} {ms:.4f} ms" for c, ms in
+                                                                              times.items())
+            + f"; the kernel picks C={lib.gru_fwd_cluster_size(H)}  ({gpu})")
 
 
 def step_timing(label: str, trainers: dict, tree, chunk: int, gpu: str) -> dict:
@@ -1386,7 +1476,7 @@ def train_timing_phase(state, gpu: str) -> dict:
     out["gru_fwd_train"] = {"ms": time_ms(lambda: fused_gru_scan(xw, wh)),
                             "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh), 5),
                             "library_ms": cudnn_ms("gru", B, T, H, DEV),
-                            **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * G)}
+                            **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * G), "args": (xw, wh)}
     out["gru_bwd"] = {"ms": time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs)),
                       "plain_ms": time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 5), "library_ms": None,
                       **gru_bwd_bound(xw, wh, hs, dhs, fused_gru_bwd(xw, wh, hs, dhs)),
@@ -1516,7 +1606,7 @@ def main() -> int:
     times = phase("timing", timing_phase, state, gpu)
     times.update(phase("train_timing", train_timing_phase, state, gpu))
     times.update(phase("config_timing", config_timing_phase, state, gpu))
-    phase("gru_big_device", gru_big_device_phase, big, gpu)
+    phase("recurrence_device", recurrence_device_phase, times, big, lstm, gpu)
     phase("scripts", scripts_phase, state)
     kept = dict(sorted(_timing.HEAD_SPINS_SEEN.items()))
     log(f"[profiler] records by the head spins each kept (of {_timing.HEAD_SPINS}): {kept}")
@@ -1528,8 +1618,9 @@ def main() -> int:
     # gru_bwd, ce_lse and ce_bwd from the bench workload's training run
     # (train phase), sampled_lse and sampled_bwd from config #4's (attn_train
     # phase), lstm_* from config #2's and rnn_* from config #3's (lstm_config,
-    # strnn_config). The GRU rows also carry the cluster path (H = 256) at
-    # config #4's shape, (B, T) = (64, 128); ce_bwd also carries config #3's
+    # strnn_config). The GRU rows also carry config #4's shape (B, T, H) =
+    # (64, 128, 256), and gru_fwd the bench shape (with the bench workload's
+    # launches) and request batch 1; ce_bwd also carries config #3's
     # shape and launches (strnn_config); topk its other serve and eval
     # shapes. ce_lse_variants: each
     # instantiation's launches and time in the sweep's timed runs
@@ -1540,15 +1631,20 @@ def main() -> int:
     best = min(variants, key=lambda k: variants[k]["ms"])
     c2, c3 = state["lstm"]["launches"], state["strnn"]["launches"]
     h256 = lambda d: {f"{k}_h256": big[d][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}  # noqa: E731
+    fwd_at = lambda t: {f: t[f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}  # noqa: E731
     kernels = [
         record("gru_fwd", "gru_fwd.cu", "poi_tpu/ops/fused_gru.py:71", served["gru_fwd"], gru_err, times["gru_fwd"],
-               max_abs_err_h256=big["fwd_err"], **h256("fwd")),
+               device_ms=times["gru_fwd"]["device_ms"], max_abs_err_h256=big["fwd_err"], **h256("fwd"),
+               device_ms_h256=big["fwd"]["device_ms"], b1=fwd_at(times["gru_fwd_b1"]),
+               h512={f: big["fwd_h512"][f] for f in ("ms", "plain_ms", "library_ms", "bound_ms")},
+               bench=fwd_at(times["gru_fwd_train"]), bench_launches=trained["gru_fwd"]),
         record("gru_bwd", "gru_bwd.cu", "poi_tpu/ops/fused_gru.py:86", trained["gru_bwd"], gru_bwd_err,
                times["gru_bwd"], max_abs_err_h256=big["bwd_err"], **h256("bwd"),
                **{f"{k}{h}": t[k] for h, t in (("", times["gru_bwd"]), ("_h256", big["bwd"]))
                   for k in ("device_ms", *(f"{n}_ms" for n in GRU_BWD_KERNELS))}),
         record("lstm_fwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:59", c2["lstm_fwd"], lstm["fwd_err"], lstm["fwd"]),
-        record("lstm_bwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:81", c2["lstm_bwd"], lstm["bwd_err"], lstm["bwd"]),
+        record("lstm_bwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:81", c2["lstm_bwd"], lstm["bwd_err"], lstm["bwd"],
+               **{k: lstm["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in LSTM_BWD_KERNELS))}),
         record("rnn_fwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:48", c3["rnn_fwd"], rnn["fwd_err"], rnn["fwd"]),
         record("rnn_bwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:65", c3["rnn_bwd"], rnn["bwd_err"], rnn["bwd"]),
         record("ce_lse", "ce.cu", "poi_tpu/ops/fused_ce.py:181", trained["ce_lse"], lse_err, times["ce_lse"],

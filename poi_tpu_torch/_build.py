@@ -33,15 +33,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; every pointer and the stream go as c_void_p.
 _SIGNATURES = {
-    "gru_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "gru_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gru_fwd_cluster_size": [_I],
+    "gru_fwd_fits": [_I, _I],
     "gru_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gru_bwd_cluster_size": [_I, _I],
     "gru_bwd_splits": [_I, _I, _I],
     "lstm_max_hidden": [],
     "lstm_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lstm_bwd_splits": [_I, _I, _I],
-    "lstm_bwd": [_P] * 9 + [_I, _I, _I, _I, _P],
+    "lstm_bwd": [_P] * 10 + [_I, _I, _I, _I, _P],
     "rnn_max_hidden": [],
     "rnn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rnn_bwd_splits": [_I, _I, _I],

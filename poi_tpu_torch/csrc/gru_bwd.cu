@@ -79,126 +79,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_tiles.cuh"
+#include "cluster_carry.cuh"
 #include "recurrent_dwh.cuh"
 
 namespace {
 
-constexpr int kMaxSmem = 232448;  // 227 KB: the most a block may opt into
-constexpr int kSms = 132;         // H100 SXM
-
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// Rows a group: the mma's M, halved at a cluster of 16 to fit its slots
-// and to put twice the groups on the card.
-__host__ __device__ constexpr int group_rows(int C) { return C >= 16 ? 8 : 16; }
-// Warps a CTA may run: fewer at the large clusters, whose threads hold more
-// partial sums in registers.
-__host__ __device__ constexpr int max_warps(int C) { return C >= 16 ? 8 : 16; }
-
-// The shared-memory layout of one CTA of the serial kernel for width H on a
-// cluster of C.
-struct Layout {
-  int O;     // unit octets, ceil(H / 8)
-  int ocp;   // octets a CTA (at most): ceil(O / C); its first ocp warps own one each
-  int W;     // warps a CTA: 2 ocp (4 ocp from a cluster of 8), up to max_warps; all split the carry product
-  int NC;    // the CTA's wh columns, 24 an octet, rounded up to 16 (the carry product's K)
-  int Hk;    // H rounded up to 16
-  int ldw;   // bf16 row stride of the wh slice and the dhw terms (NC + 8: conflict-free ldmatrix)
-  int dt_off, red_off, bytes;
-};
-
-__host__ __device__ inline Layout layout(int H, int C) {
-  Layout L;
-  const int R = group_rows(C);
-  L.O = (H + 7) / 8;
-  L.ocp = (L.O + C - 1) / C;
-  const int W = (C >= 8 ? 4 : 2) * L.ocp;
-  L.W = W < max_warps(C) ? W : max_warps(C);
-  L.NC = (24 * L.ocp + 15) / 16 * 16;
-  L.Hk = (H + 15) / 16 * 16;
-  L.ldw = L.NC + 8;
-  L.dt_off = L.Hk * L.ldw * 2;                       // wh slice [Hk][ldw] bf16 at 0
-  L.red_off = L.dt_off + 3 * R * L.ldw * 2;          // dhw terms [3][R][ldw] bf16
-  L.bytes = L.red_off + 2 * C * R * 8 * L.ocp * 4;   // reduce slots [2][C][R][8 ocp] fp32
-  return L;
-}
-
-bool fits(int H, int C) {
-  if (H <= 0) return false;
-  const Layout L = layout(H, C);
-  return C <= L.O && L.ocp <= L.W && L.bytes <= kMaxSmem;
-}
-
-int smallest_cluster(int H) {
-  for (int c = 1; c <= 16; c *= 2) {
-    if (fits(H, c)) return c;
-  }
-  return 0;
-}
-
-// The cluster the serial kernel runs (B, H) on: the smallest that fits,
-// doubled (up to 8, the portable size: a cluster of 16 measured slower at
-// config #4's shape) while the groups' clusters still fit on the card at once.
-int pick_cluster(int B, int H) {
-  int c = smallest_cluster(H);
-  const int b = B > 0 ? B : 1;
-  while (c > 0 && c < 8 && fits(H, 2 * c) &&
-         (b + group_rows(2 * c) - 1) / group_rows(2 * c) * 2 * c <= kSms) {
-    c *= 2;
-  }
-  return c;
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n" : "=r"(r0), "=r"(r1) : "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr)
-               : "memory");
-}
-
-// An A fragment (R x 16, row-major, row stride ld bf16) at column k0 of a
-// bf16 smem matrix; at R = 8 the fragment's rows 8-15 are zero.
-template <int R>
-__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], uint32_t base, int ld, int k0, int lane) {
-  if constexpr (R == 16) {
-    ldsm_x4(a, base + ((lane % 16) * ld + k0 + (lane / 16) * 8) * 2);
-  } else {
-    ldsm_x2(a[0], a[2], base + ((lane % 8) * ld + k0 + ((lane / 8) % 2) * 8) * 2);
-    a[1] = a[3] = 0u;
-  }
-}
-
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t cta_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
-
-// Two floats into CTA `rank`'s shared memory at the offset of local address `addr`.
-__device__ __forceinline__ void st_cluster_f2(uint32_t addr, int rank, float x, float y) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
-  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(remote), "f"(x), "f"(y) : "memory");
-}
 
 // ------------------------------------------------------------- pass 1: the gates
 //
@@ -353,7 +239,7 @@ __global__ void __launch_bounds__(32 * max_warps(C))
   constexpr int NR = R / 8;  // accumulator rows a thread holds: g, and g + 8 at R = 16
   constexpr int kChunk = C >= 4 ? 2 : 1;  // unit octets a warp multiplies at once
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout(H, C);
+  const Layout L = layout(H, C, 3);
   const int p = C > 1 ? static_cast<int>(cta_rank()) : 0;
   const int grp = blockIdx.x / C;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
@@ -433,14 +319,11 @@ __global__ void __launch_bounds__(32 * max_warps(C))
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
           const float* c = q == 0 ? ca[rr] : q == 1 ? cb[rr] : cg[rr];
-          const float v0 = d[rr][0] * c[0], v1 = d[rr][1] * c[1];
-          const __nv_bfloat162 t0 = __floats2bfloat162_rn(v0, v1);
-          const float e0 = v0 - __low2float(t0), e1 = v1 - __high2float(t0);
-          const __nv_bfloat162 t1 = __floats2bfloat162_rn(e0, e1);
-          const __nv_bfloat162 t2 = __floats2bfloat162_rn(e0 - __low2float(t1), e1 - __high2float(t1));
-          *reinterpret_cast<__nv_bfloat162*>(dt + at + q * 8) = t0;
-          *reinterpret_cast<__nv_bfloat162*>(dt + R * L.ldw + at + q * 8) = t1;
-          *reinterpret_cast<__nv_bfloat162*>(dt + 2 * R * L.ldw + at + q * 8) = t2;
+          __nv_bfloat162 terms[3];
+          split3(d[rr][0] * c[0], d[rr][1] * c[1], terms);
+          *reinterpret_cast<__nv_bfloat162*>(dt + at + q * 8) = terms[0];
+          *reinterpret_cast<__nv_bfloat162*>(dt + R * L.ldw + at + q * 8) = terms[1];
+          *reinterpret_cast<__nv_bfloat162*>(dt + 2 * R * L.ldw + at + q * 8) = terms[2];
         }
       }
     }
@@ -548,7 +431,7 @@ __global__ void gru_bwd_outputs_kernel(float* __restrict__ dxw, float* __restric
 
 template <int C>
 cudaError_t launch_carry(const void* wh, const void* dhs, void* dxw, void* dhw, int B, int T, int H, cudaStream_t s) {
-  const Layout L = layout(H, C);
+  const Layout L = layout(H, C, 3);
   auto kernel = gru_bwd_carry_kernel<C>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (e != cudaSuccess) return e;
@@ -579,14 +462,14 @@ cudaError_t launch_carry(const void* wh, const void* dhs, void* dxw, void* dhw, 
 
 // The cluster size the kernel runs a batch of B rows of width H on (1, 2, 4,
 // 8 or 16), or 0 when no cluster takes H.
-extern "C" int gru_bwd_cluster_size(int B, int H) { return pick_cluster(B, H); }
+extern "C" int gru_bwd_cluster_size(int B, int H) { return pick_cluster(B, H, 3); }
 
 // Number of partial dwh sums the wrapper allocates ([splits, H, 3H] fp32).
 extern "C" int gru_bwd_splits(int B, int T, int H) { return recurrent_dw::num_splits(B * T, H, 3 * H); }
 
 extern "C" int gru_bwd(const void* xw, const void* wh, const void* hs, const void* dhs, void* dxw, void* dhw,
                        void* dwh_partial, void* dwh, int B, int T, int H, int device, void* stream) {
-  const int c = pick_cluster(B, H);
+  const int c = pick_cluster(B, H, 3);
   if (c == 0 || B <= 0 || T <= 0) return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;

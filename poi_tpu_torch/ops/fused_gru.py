@@ -18,14 +18,14 @@ kernels':
   fp32 (``dh @ whᵀ`` with wh widened from bf16), and ``dwh`` sums
   ``h_prevᵀ · dhw`` over batch and time in fp32.
 
-The kernels keep bf16 ``wh`` in shared memory. The forward holds it in one
-block up to H = 196, and above that splits its columns across a cluster of 2,
-4 or 8 blocks (H = 256 for config #4, 512 for config #5). The backward
-recomputes every step's gates at once on the tensor cores, then runs the
-serial carry, ``dh @ whᵀ`` with the fp32 cotangent split into three exact
-bf16 products, for groups of 16 batch rows with wh's columns split across a
-cluster of 1 to 16 blocks (``gru_bwd_cluster_size``); it takes any H up to
-640.
+Both kernels run groups of 16 batch rows (8 on the backward's clusters of
+16) on a cluster of 1 to 16 blocks, wh's columns split across the cluster
+and kept in shared memory, and do each step's product on the tensor cores.
+The forward runs ``bf16(h) @ wh`` a step for the group
+(``gru_fwd_cluster_size``). The backward recomputes every step's gates at
+once, then runs the serial carry, ``dh @ whᵀ`` with the fp32 cotangent split
+into three exact bf16 products (``gru_bwd_cluster_size``). Both take any H
+up to 640.
 """
 
 from __future__ import annotations
@@ -35,8 +35,7 @@ import torch
 from poi_tpu_torch import _build
 
 MASK_NEG = -1e9
-TAKES_H = "H <= 196 in one block, or H <= 544 split evenly across a cluster of 2, 4 or 8 blocks"
-BWD_TAKES_H = "H <= 640, on a cluster of 1, 2, 4, 8 or 16 blocks a group of batch rows"
+TAKES_H = "H <= 640, on a cluster of 1, 2, 4, 8 or 16 blocks a group of batch rows"
 
 
 def gru_scan_reference(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
@@ -86,7 +85,7 @@ def fused_gru_scan(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
     wh = wh.contiguous()
     hs = torch.empty(B, T, H, dtype=torch.float32, device=xw.device)
     stream = torch.cuda.current_stream(xw.device).cuda_stream
-    rc = lib.gru_fwd(xw.data_ptr(), wh.data_ptr(), hs.data_ptr(), B, T, H, xw.device.index, stream)
+    rc = lib.gru_fwd(xw.data_ptr(), wh.data_ptr(), hs.data_ptr(), B, T, H, 0, xw.device.index, stream)
     _build.check(rc, "gru_fwd launch")
     fused_gru_scan.launches += 1
     return hs
@@ -152,7 +151,7 @@ def fused_gru_bwd(xw: torch.Tensor, wh: torch.Tensor, hs: torch.Tensor, dhs: tor
                         f"{[t.dtype for t in tensors]}")
     lib = _build.library()
     if lib.gru_bwd_cluster_size(B, H) == 0:
-        raise ValueError(f"fused_gru_bwd: H={H} is not taken by the kernels: {BWD_TAKES_H}")
+        raise ValueError(f"fused_gru_bwd: H={H} is not taken by the kernels: {TAKES_H}")
     dev = xw.device
     dxw = torch.empty(B, T, H3, dtype=torch.float32, device=dev)
     dwh = torch.empty(H, H3, dtype=torch.float32, device=dev)

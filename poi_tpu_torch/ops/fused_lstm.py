@@ -19,8 +19,12 @@ Counterpart of ``poi_tpu/ops/fused_lstm.py``. Contract, the TPU kernels':
   exactly 0 on padded steps, and ``dwh`` sums ``h_prevᵀ · dxw`` over batch
   and time in fp32.
 
-The kernels keep bf16 ``wh`` (8·H² bytes) in one block's shared memory, so
-they take H up to ``csrc/lstm.cu``'s ``lstm_max_hidden()`` (169).
+The forward keeps bf16 ``wh`` (8·H² bytes) in one block's shared memory, so
+the pair takes H up to ``csrc/lstm.cu``'s ``lstm_max_hidden()`` (170). The
+backward recomputes every step's gates at once on the tensor cores, then
+runs the serial carry, ``dxw @ whᵀ`` with the fp32 cotangent split into three
+exact bf16 products, for groups of 16 batch rows with wh's columns split
+across a cluster of 1 to 16 blocks.
 """
 
 from __future__ import annotations
@@ -82,8 +86,8 @@ def _check_cuda(name: str, tensors, lib_max_hidden, H: int) -> None:
         raise ValueError(f"{name}: tensors on {sorted({str(t.device) for t in tensors})}; need one CUDA device")
     max_h = lib_max_hidden()
     if H > max_h:
-        raise ValueError(f"{name}: H={H} is not taken by the kernels: they hold bf16 wh (8*H*H bytes) in one "
-                         f"block's shared memory, so H <= {max_h}")
+        raise ValueError(f"{name}: H={H} is not taken by the kernels: the forward holds bf16 wh (8*H*H bytes) in "
+                         f"one block's shared memory, so H <= {max_h}")
 
 
 def fused_lstm_scan(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
@@ -174,9 +178,10 @@ def fused_lstm_bwd(xw, mask, wh, hs, cs, dhs):
     if B == 0 or T == 0:
         return dxw, dwh.zero_()
     xw, mask, wh, hs, cs, dhs = (t.contiguous() for t in tensors)
+    coef = torch.empty(B, T, 2 * H, dtype=torch.float32, device=dev)  # scratch: two of the gates' coefficients
     partial = torch.empty(lib.lstm_bwd_splits(B, T, H), H, H4, dtype=torch.float32, device=dev)
     rc = lib.lstm_bwd(xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
-                      dxw.data_ptr(), partial.data_ptr(), dwh.data_ptr(), B, T, H, dev.index,
+                      dxw.data_ptr(), coef.data_ptr(), partial.data_ptr(), dwh.data_ptr(), B, T, H, dev.index,
                       torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "lstm_bwd launch")
     fused_lstm_bwd.launches += 1

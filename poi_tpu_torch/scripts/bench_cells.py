@@ -7,8 +7,9 @@ plain versions at config #4/#5 widths, the counterpart of
 The JAX script's points (B, H) at T=64, forward and forward+backward
 (``sum(hs**2)`` through the autograd Function, whose backward is the BPTT
 kernel), and the same for the plain versions through autograd. The LSTM and
-RNN also run at the GRU's widths 256 and 512: one block holds their bf16
-recurrent weights, so they take H <= 169 (LSTM) and H <= 339 (RNN), and a
+RNN also run at the GRU's widths 256 and 512: one block of their forward
+holds the bf16 recurrent weights, so they take H <= 170 (LSTM) and H <= 339
+(RNN), and a
 point past the limit prints the wrapper's refusal as its row (any other
 error of the wrapper stops the run). The last
 column is cuDNN's ``nn.GRU``/``nn.LSTM``/``nn.RNN`` bf16 forward at the same

@@ -65,7 +65,7 @@ def _close(got, want, tol, name):
     np.testing.assert_allclose(got / scale, want / scale, atol=tol, rtol=0, err_msg=name)
 
 
-@pytest.mark.parametrize("H", [16, 64])
+@pytest.mark.parametrize("H", [16, 64, 20])  # 20: no multiple of 8, as the CUDA backward's ragged last octet
 def test_lstm_scan_reference_matches_pallas_interpret(H):
     """hs at every step, padded ones included: both carry h through them."""
     p, x, mask, _ = _case(H=H, seed=H)
@@ -84,17 +84,19 @@ def test_lstm_scan_reference_matches_pallas_interpret(H):
     assert torch.equal(got_hs, hs) and torch.equal(got_cs, cs)
 
 
-@pytest.mark.parametrize("wh_dtype", ["float32", "bfloat16"])
-def test_backward_matches_pallas_vjp(wh_dtype):
+@pytest.mark.parametrize("wh_dtype, H", [("float32", 16), ("bfloat16", 16), ("float32", 20)],
+                         ids=["float32", "bfloat16", "float32-H20"])
+def test_backward_matches_pallas_vjp(wh_dtype, H):
     """The plain backward and the Function's grads vs jax.vjp of the Pallas
-    recurrence; dwh comes back in wh's dtype on both sides."""
-    p, x, mask, rng = _case(seed=1)
+    recurrence; dwh comes back in wh's dtype on both sides. H = 20 is no
+    multiple of 8, as the CUDA backward's ragged last octet."""
+    p, x, mask, rng = _case(H=H, seed=1)
     xw = _xw(p, x)
-    dhs = rng.normal(size=(8, 12, 16)).astype(np.float32)
+    dhs = rng.normal(size=(8, 12, H)).astype(np.float32)
     jdtype = jnp.float32 if wh_dtype == "float32" else jnp.bfloat16
     tdtype = torch.float32 if wh_dtype == "float32" else torch.bfloat16
 
-    hs_j, vjp = jax.vjp(lambda a, w: jax_fused_lstm_scan(a, _mask_bh(mask, 16), w, True), jnp.asarray(xw),
+    hs_j, vjp = jax.vjp(lambda a, w: jax_fused_lstm_scan(a, _mask_bh(mask, H), w, True), jnp.asarray(xw),
                         jnp.asarray(p["wh"], jdtype))
     dxw_j, dwh_j = vjp(jnp.asarray(dhs))
     assert dwh_j.dtype == jdtype
@@ -175,6 +177,75 @@ def test_padded_steps_zero_dxw_and_pass_the_carries():
     (dxw_j,) = vjp(jnp.asarray(at_end))
     assert (np.asarray(dxw_j)[:, L:] == 0).all()
     _close(dxw_b, dxw_j, REL_TOL, "dxw")
+
+
+def _three_bf16_terms(x: torch.Tensor):
+    """The CUDA backward's split of an fp32 cotangent (csrc/cluster_carry.cuh
+    split3): b0 = bf16(x), b1 = bf16(x - b0), b2 = bf16(x - b0 - b1)."""
+    b0 = x.to(torch.bfloat16)
+    r = x - b0.float()
+    b1 = r.to(torch.bfloat16)
+    return b0, b1, (r - b1.float()).to(torch.bfloat16)
+
+
+def _coefficient_bwd(xw, mask, wh16, hs, cs, dhs):
+    """The CUDA backward's arithmetic (csrc/lstm.cu), emulated in torch.
+    Pass 1: every step's gates at once and the coefficients that depend on
+    the forward alone, kappa = o(1 - tc^2), omega = tc o(1 - o), iota = g i(1 - i),
+    phi = c_prev f(1 - f), gamma = i(1 - g^2) and f. Pass 2: the serial carry,
+    dxw[t] = [dc_raw iota, dc_raw phi, dc_raw gamma, dh_raw omega] and
+    dxw[t] @ whᵀ as the sum of three bf16-term products, smallest first.
+    Then dwh."""
+    B, T, H4 = xw.shape
+    H = H4 // 4
+    w = wh16.float()
+    h_prev = torch.cat([torch.zeros(B, 1, H), hs[:, :-1]], dim=1)
+    c_prev = torch.cat([torch.zeros(B, 1, H), cs[:, :-1]], dim=1)
+    pre = xw + h_prev.to(torch.bfloat16).float() @ w
+    i, f, g, o = (torch.sigmoid(pre[..., :H]), torch.sigmoid(pre[..., H:2 * H]), torch.tanh(pre[..., 2 * H:3 * H]),
+                  torch.sigmoid(pre[..., 3 * H:]))
+    tc = torch.tanh(f * c_prev + i * g)
+    kappa, omega = o * (1.0 - tc * tc), tc * o * (1.0 - o)
+    iota, phi, gamma = g * i * (1.0 - i), c_prev * f * (1.0 - f), i * (1.0 - g * g)
+    dxw = torch.empty(B, T, H4)
+    dh = torch.zeros(B, H)
+    dc = torch.zeros(B, H)
+    for t in range(T - 1, -1, -1):
+        m = mask[:, t, None]
+        d = dh + dhs[:, t]
+        dh_raw = d * m
+        dc_raw = dc * m + dh_raw * kappa[:, t]
+        x = torch.cat([dc_raw * iota[:, t], dc_raw * phi[:, t], dc_raw * gamma[:, t], dh_raw * omega[:, t]], 1)
+        dxw[:, t] = x
+        terms = _three_bf16_terms(x)
+        dh = d * (1.0 - m) + ((terms[2].float() @ w.T + terms[1].float() @ w.T) + terms[0].float() @ w.T)
+        dc = dc * (1.0 - m) + dc_raw * f[:, t]
+    dwh = h_prev.reshape(-1, H).T @ dxw.reshape(-1, H4)
+    return dxw, dwh
+
+
+@pytest.mark.parametrize("H", [16, 20])
+def test_coefficient_bwd_matches_pallas_vjp(H):
+    """The CUDA backward's restructured arithmetic (per-element coefficients
+    from the forward, then the carry on split bf16 terms), emulated on the
+    CPU, against jax.vjp of the Pallas recurrence in interpret mode, padded
+    steps included (every row has some, and dhs is nonzero there), at a
+    multiple of 8 and at a ragged width; dxw is exactly 0 on padded steps."""
+    p, x, mask, rng = _case(H=H, seed=13, min_len=2)
+    mask[:, -1] = 0.0  # a padded tail on every row
+    mask[0, :-1] = 1.0
+    xw = _xw(p, x)
+    dhs = rng.normal(size=(8, 12, H)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, w: jax_fused_lstm_scan(a, _mask_bh(mask, H), w, True), jnp.asarray(xw),
+                     jnp.asarray(p["wh"]))
+    dxw_j, dwh_j = vjp(jnp.asarray(dhs))
+    wh16 = torch.from_numpy(p["wh"]).to(torch.bfloat16)
+    m = torch.from_numpy(mask)
+    hs, cs = lstm_scan_reference(torch.from_numpy(xw), m, wh16)
+    dxw, dwh = _coefficient_bwd(torch.from_numpy(xw), m, wh16, hs, cs, torch.from_numpy(dhs))
+    _close(dxw, dxw_j, REL_TOL, "dxw")
+    _close(dwh, np.asarray(dwh_j, np.float32), REL_TOL, "dwh")
+    assert (dxw.numpy()[mask == 0] == 0).all()
 
 
 def test_init_lstm_layer_layout():
