@@ -134,9 +134,19 @@ RNN_TOL = 2e-2
 REC_BWD_TOL = GRU_BWD_TOL
 # (B, T, H): config #2's and config #3's train shapes first, then a ragged
 # batch and a width of two rows a block; the LSTM also at a width that is no
-# multiple of 8 (the backward zero-pads the last octet) and at 169 and 170,
-# the old limit and the pair's limit (lstm_max_hidden(), the forward's).
-LSTM_SHAPES = ((64, 64, 128), (7, 64, 128), (33, 16, 64), (9, 64, 100), (7, 64, 169), (5, 64, 170))
+# multiple of 8 (the kernels zero-pad the last octet), at 169 and 170 (the
+# old limits), at 200 (ragged, above them), at the reference's 256-d config
+# #2 probe (config #2's B and T), and at 512, the pair's limit
+# (lstm_max_hidden()).
+LSTM_SHAPES = ((64, 64, 128), (7, 64, 128), (33, 16, 64), (9, 64, 100), (7, 64, 169), (5, 64, 170), (7, 64, 200),
+               (64, 64, 256), (3, 64, 512))
+# B3 timed beside cuDNN's nn.LSTM forward (B, T, H): serving's request batch
+# 1 and 256 at config #2's width, and the reference's 256-d config #2 probe.
+LSTM_TIMED = {"b1": (1, 64, 128), "b256": (256, 64, 128), "h256": (64, 64, 256)}
+# B3's cluster choice, timed at each cluster that fits (B, T, H): config #2's
+# train shape, serving's request batch 1 and 256, then H = 256 and H = 64 at
+# config #2's B and T (the widths where the pick is 8 and 2 blocks).
+LSTM_CLUSTER_CASES = ((64, 64, 128), (1, 64, 128), (256, 64, 128), (64, 64, 256), (64, 64, 64))
 RNN_SHAPES = ((64, 32, 128), (7, 32, 128), (33, 16, 64))
 # Configs #2 and #3 at full width, device-sampled like config #4: the preset
 # and the kernels its train step launches (the recurrence's forward first).
@@ -211,10 +221,15 @@ GRU_BWD_RAGGED = ((1100, 100, 1), (7, 200, 8))
 # Sampled softmax (N, S, D, V, pad, full_hit): config #4's train shape
 # (B*T = 8,192 rows, a pool of 1,024 from 36,969 POIs); a pool of 1,000
 # padded to 1,024 the way the TPU kernel pads it; a pool of 200 (no multiple
-# of the tile) whose entries 3 and 199 are every row's target; and D = 128.
-# Small catalogs make accidental hits common.
+# of the tile) whose entries 3 and 199 are every row's target; D = 128; and
+# D = 64 with neither N nor the padded pool a tile multiple. Small catalogs
+# make accidental hits common.
 SAMPLED_CASES = ((8192, 1024, 256, 36969, 0, False), (8192, 1000, 256, 2000, 24, False),
-                 (300, 200, 256, 50, 0, True), (1000, 300, 128, 500, 0, False))
+                 (300, 200, 256, 50, 0, True), (1000, 300, 128, 500, 0, False), (777, 300, 64, 400, 33, False))
+# B10's split rule (the dq pass's, the dE pass's: 2 and 16 at config #4's
+# shape) against fewer and more ranges of the streamed rows; (0, 0) is the
+# rule.
+SAMPLED_SPLITS = ((0, 0), (1, 0), (4, 0), (0, 4), (0, 8), (0, 32))
 # B12, the CE forward's variants, beside the sweep's own shape (N, V, D,
 # real POIs): a ragged catalog padded with -1e30 rows past a tile boundary,
 # and D = 32 with neither N nor V a tile multiple.
@@ -461,6 +476,13 @@ GRU_FWD_KERNELS = ("gru_fwd_kernel",)
 GRU_BWD_KERNELS = ("gru_bwd_gates", "gru_bwd_carry", "gru_bwd_outputs", "recurrent_dw")
 LSTM_BWD_KERNELS = ("lstm_bwd_gates", "lstm_bwd_carry", "recurrent_dw")
 CE_LSE_KERNELS = ("ce_lse_wg_kernel", "lse_merge")
+# B9's kernel; B10's dq pass, dE/db pass and the ordered sum of split
+# partials; B3's kernel; B5's and B6's.
+SAMPLED_LSE_KERNELS = ("sampled_lse_kernel",)
+SAMPLED_BWD_KERNELS = ("sampled_dq_pass", "sampled_de_pass", "sum_splits")
+LSTM_FWD_KERNELS = ("lstm_fwd_kernel",)
+RNN_FWD_KERNELS = ("rnn_fwd_kernel",)
+RNN_BWD_KERNELS = ("rnn_bwd_kernel",)
 
 
 def device_parts(fn, names) -> dict:
@@ -696,6 +718,31 @@ def recurrence_device_phase(times: dict, big: dict, lstm: dict, gpu: str) -> Non
         f"{parts_text(t, LSTM_BWD_KERNELS)}  ({gpu})")
 
 
+def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str) -> None:
+    """Device time by kernel, on the inputs the earlier phases timed: B9 and
+    B10 (pass by pass, also at ``SAMPLED_SPLITS``) at config #4's shape, B3
+    at config #2's and at ``LSTM_TIMED`` (and at each cluster of
+    ``LSTM_CLUSTER_CASES``), B5 and B6 at config #3's. After the timing
+    phases, as every profiler reading."""
+    from poi_tpu_torch.ops.fused_lstm import fused_lstm_scan
+    from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan
+    from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse
+
+    cases = [("sampled_lse", sampled["lse"], sampled_lse, SAMPLED_LSE_KERNELS),
+             ("sampled_bwd", sampled["bwd"], sampled_bwd, SAMPLED_BWD_KERNELS),
+             *(("lstm_fwd", lstm[k], fused_lstm_scan, LSTM_FWD_KERNELS)
+               for k in ("fwd", *(f"fwd_{k}" for k in LSTM_TIMED))),
+             ("rnn_fwd", rnn["fwd"], fused_rnn_scan, RNN_FWD_KERNELS),
+             ("rnn_bwd", rnn["bwd"], fused_rnn_bwd, RNN_BWD_KERNELS)]
+    sampled_split_times(sampled["bwd"]["args"], gpu)
+    for tag, t, fn, names in cases:
+        args = t.pop("args")
+        t.update(device_parts(lambda: fn(*args), names))
+        log(f"[time] {tag} {'x'.join(map(str, args[0].shape))}: {parts_text(t, names)} (CUDA events {t['ms']:.4f} "
+            f"ms)  ({gpu})")
+    lstm_cluster_choice(gpu)
+
+
 def sampled_case(N: int, S: int, D: int, V: int, gen, pad: int = 0, full_hit: bool = False):
     """Queries, a pool of S draws from V ids with ``pad`` entries appended
     as the TPU kernel pads its pool (bias -1e30, id -1), targets, and the
@@ -760,16 +807,64 @@ def sampled_phase() -> dict:
             # gradients: no library time.
             out["lse"] = {"ms": time_ms(lambda: sampled_lse(q, e, b, ids, tgt)),
                           "plain_ms": time_ms(lambda: sampled_lse_reference(q, e, b, ids, tgt)), "library_ms": None,
-                          **bound((q, e, b, ids, tgt), (lse,), bf16_flop=2 * N * S * D)}
+                          **bound((q, e, b, ids, tgt), (lse,), bf16_flop=2 * N * S * D), "args": (q, e, b, ids, tgt)}
             out["bwd"] = {"ms": time_ms(lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g)),
                           "plain_ms": time_ms(lambda: sampled_bwd_reference(q, e, b, ids, tgt, lse_tot, g)),
                           "library_ms": None,
-                          **bound((q, e, b, ids, tgt, lse_tot, g), got, bf16_flop=6 * N * S * D)}
+                          **bound((q, e, b, ids, tgt, lse_tot, g), got, bf16_flop=6 * N * S * D),
+                          "args": (q, e, b, ids, tgt, lse_tot, g)}
             for d in ("lse", "bwd"):
                 t = out[d]
                 log(f"[time] sampled_{d} N={N} S={S} D={D}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; "
                     f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+            sampled_splits(q, e, b, ids, tgt, lse_tot, g, got)
     return out
+
+
+def sampled_bwd_at(args, splits):
+    """B10 through its C entry with the (dq, dE) splits to force; the
+    wrapper always passes (0, 0), the kernels' own rule. ``args``: the
+    wrapper's inputs. Returns (dq, de, db)."""
+    import torch
+
+    from poi_tpu_torch import _build
+    from poi_tpu_torch.ops.fused_sampled import bwd_kernel_args
+
+    lib = _build.library()
+    ins = bwd_kernel_args(*args)
+    (N, D), S = ins[0].shape, ins[1].shape[0]
+    dq, de, db = torch.empty(N, D, device=DEV), torch.empty(S, D, device=DEV), torch.empty(S, device=DEV)
+    scratch = torch.empty(max(1, lib.sampled_bwd_scratch(N, S, D, *splits)), device=DEV)
+    rc = lib.sampled_bwd(*(a.data_ptr() for a in ins), dq.data_ptr(), de.data_ptr(), db.data_ptr(),
+                         scratch.data_ptr(), N, S, D, *splits, ins[0].device.index,
+                         torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"sampled_bwd at splits {splits}")
+    return dq, de, db
+
+
+def sampled_splits(q, e, b, ids, tgt, lse_tot, g, want) -> None:
+    """B10 at each of ``SAMPLED_SPLITS`` within the tolerances of the rule's
+    run (``want``); ``sampled_split_times`` times them."""
+    for dq_s, de_s in SAMPLED_SPLITS:
+        got = sampled_bwd_at((q, e, b, ids, tgt, lse_tot, g), (dq_s, de_s))
+        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        assert errs[0] < CE_GRAD_TOL and errs[1] < CE_GRAD_TOL and errs[2] < CE_DBIAS_TOL, (dq_s, de_s, errs)
+    log(f"[sampled] forced splits (dq, dE) {', '.join(map(str, SAMPLED_SPLITS[1:]))}: within the tolerances of "
+        f"the rule's results")
+
+
+def sampled_split_times(args, gpu: str) -> None:
+    """B10's device time at each of ``SAMPLED_SPLITS``, pass by pass: the
+    measurement behind the split rule."""
+    from poi_tpu_torch import _build
+
+    N, D = args[0].shape
+    S = args[1].shape[0]
+    for dq_s, de_s in SAMPLED_SPLITS:
+        t = device_parts(lambda: sampled_bwd_at(args, (dq_s, de_s)), SAMPLED_BWD_KERNELS)
+        scratch = _build.library().sampled_bwd_scratch(N, S, D, dq_s, de_s) * 4 / 2**20
+        log(f"[time] sampled_bwd splits (dq, dE) = ({dq_s or 'rule'}, {de_s or 'rule'}) N={N} S={S} D={D}: "
+            f"{parts_text(t, SAMPLED_BWD_KERNELS)}; scratch {scratch:.1f} MiB  ({gpu})")
 
 
 def recurrence_case(B: int, T: int, H: int, gates: int, gen):
@@ -862,14 +957,14 @@ def recurrence_phase(tag: str, gates: int, shapes, tol: float, ops) -> dict:
         G = gates * H
         out["fwd"] = {"ms": time_ms(lambda: scan(x, mask, w)), "plain_ms": time_ms(lambda: scan_ref(x, mask, w), 5),
                       "library_ms": cudnn_ms("lstm" if gates == 4 else "rnn", B, T, H, DEV),
-                      **bound((x, mask, w), carries, bf16_flop=2 * B * T * H * G)}
+                      **bound((x, mask, w), carries, bf16_flop=2 * B * T * H * G), "args": (x, mask, w)}
         dx_dw = bwd(x, mask, w, *carries, dhs)
         out["bwd"] = {"ms": time_ms(lambda: bwd(x, mask, w, *carries, dhs)),
                       "plain_ms": time_ms(lambda: bwd_ref(x, mask, w, *carries, dhs), 5), "library_ms": None,
                       **(lstm_bwd_bound(x, mask, w, carries, dhs, dx_dw) if gates == 4 else
                          bound((x, mask, w, *carries, dhs), dx_dw, bf16_flop=2 * B * T * H * G,
                                fp32_flop=4 * B * T * H * G)),
-                      **({"args": (x, mask, w, *carries, dhs)} if gates == 4 else {})}
+                      "args": (x, mask, w, *carries, dhs)}
         for d in ("fwd", "bwd"):
             t = out[d]
             lib = f", cuDNN forward {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
@@ -880,15 +975,66 @@ def recurrence_phase(tag: str, gates: int, shapes, tol: float, ops) -> dict:
     x = torch.zeros(2, 3, gates * H, device=DEV)
     msg = expect_width_limit(scan, x, torch.ones(2, 3, device=DEV), torch.zeros(H, gates * H, device=DEV,
                                                                                   dtype=torch.bfloat16))
+    assert gates != 4 or "cluster's blocks cannot hold" in msg, msg
     log(f"[{tag}] H={H} refused: {msg}")
     return out
 
 
 def lstm_phase() -> dict:
+    """B3/B4 at ``LSTM_SHAPES``, then B3 timed at ``LSTM_TIMED`` beside its
+    plain version and cuDNN's forward."""
+    import torch
+
     from poi_tpu_torch.ops.fused_lstm import fused_lstm_bwd, fused_lstm_scan, lstm_bwd_reference, lstm_scan_reference
 
-    return recurrence_phase("lstm", 4, LSTM_SHAPES, LSTM_TOL,
-                            (fused_lstm_scan, lstm_scan_reference, fused_lstm_bwd, lstm_bwd_reference))
+    out = recurrence_phase("lstm", 4, LSTM_SHAPES, LSTM_TOL,
+                           (fused_lstm_scan, lstm_scan_reference, fused_lstm_bwd, lstm_bwd_reference))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    for key, (B, T, H) in LSTM_TIMED.items():
+        x, mask, w, _ = recurrence_case(B, T, H, 4, gen)
+        t = {"ms": time_ms(lambda: fused_lstm_scan(x, mask, w)),
+             "plain_ms": time_ms(lambda: lstm_scan_reference(x, mask, w), 5),
+             "library_ms": cudnn_ms("lstm", B, T, H, DEV),
+             **bound((x, mask, w), fused_lstm_scan(x, mask, w), bf16_flop=2 * B * T * H * 4 * H), "args": (x, mask, w)}
+        out[f"fwd_{key}"] = t
+        log(f"[time] lstm_fwd B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN "
+            f"nn.LSTM forward {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return out
+
+
+def lstm_cluster_choice(gpu: str) -> None:
+    """B3 at each cluster size that fits, beside the one the kernel picks,
+    at ``LSTM_CLUSTER_CASES`` by device time: the measurement behind the
+    pick. A warp's arithmetic does not depend on the cluster, so every
+    cluster gives the pick's bits. The C entry takes the cluster size to
+    force; the wrapper always passes 0, the kernel's own pick."""
+    import torch
+
+    from poi_tpu_torch import _build
+    from poi_tpu_torch.ops.fused_lstm import fused_lstm_scan
+
+    lib = _build.library()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 14)
+    for B, T, H in LSTM_CLUSTER_CASES:
+        x, mask, w, _ = recurrence_case(B, T, H, 4, gen)
+        want = fused_lstm_scan(x, mask, w)
+        hs, cs = torch.empty(B, T, H, device=DEV), torch.empty(B, T, H, device=DEV)
+
+        def at(c):
+            rc = lib.lstm_fwd(x.data_ptr(), mask.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(), B, T, H, c,
+                              x.device.index, torch.cuda.current_stream().cuda_stream)
+            _build.check(rc, f"lstm_fwd on a cluster of {c}")
+
+        times = {}
+        for c in (1, 2, 4, 8, 16):
+            if not lib.lstm_fwd_fits(H, c):
+                continue
+            at(c)
+            assert torch.equal(hs, want[0]) and torch.equal(cs, want[1]), f"lstm_fwd C={c} B={B} H={H}: other bits"
+            times[c] = device_ms(lambda: at(c), expect=LSTM_FWD_KERNELS)
+        log(f"[time] lstm_fwd cluster choice B={B} T={T} H={H}, device time: "
+            + ", ".join(f"C={c} {ms:.4f} ms" for c, ms in times.items())
+            + f"; each the pick's bits; the kernel picks C={lib.lstm_fwd_cluster_size(H)}  ({gpu})")
 
 
 def rnn_phase() -> dict:
@@ -1607,6 +1753,7 @@ def main() -> int:
     times.update(phase("train_timing", train_timing_phase, state, gpu))
     times.update(phase("config_timing", config_timing_phase, state, gpu))
     phase("recurrence_device", recurrence_device_phase, times, big, lstm, gpu)
+    phase("pool_recurrence_device", pool_recurrence_device_phase, sampled, lstm, rnn, gpu)
     phase("scripts", scripts_phase, state)
     kept = dict(sorted(_timing.HEAD_SPINS_SEEN.items()))
     log(f"[profiler] records by the head spins each kept (of {_timing.HEAD_SPINS}): {kept}")
@@ -1642,11 +1789,14 @@ def main() -> int:
                times["gru_bwd"], max_abs_err_h256=big["bwd_err"], **h256("bwd"),
                **{f"{k}{h}": t[k] for h, t in (("", times["gru_bwd"]), ("_h256", big["bwd"]))
                   for k in ("device_ms", *(f"{n}_ms" for n in GRU_BWD_KERNELS))}),
-        record("lstm_fwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:59", c2["lstm_fwd"], lstm["fwd_err"], lstm["fwd"]),
+        record("lstm_fwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:59", c2["lstm_fwd"], lstm["fwd_err"], lstm["fwd"],
+               device_ms=lstm["fwd"]["device_ms"], **{k: fwd_at(lstm[f"fwd_{k}"]) for k in LSTM_TIMED}),
         record("lstm_bwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:81", c2["lstm_bwd"], lstm["bwd_err"], lstm["bwd"],
                **{k: lstm["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in LSTM_BWD_KERNELS))}),
-        record("rnn_fwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:48", c3["rnn_fwd"], rnn["fwd_err"], rnn["fwd"]),
-        record("rnn_bwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:65", c3["rnn_bwd"], rnn["bwd_err"], rnn["bwd"]),
+        record("rnn_fwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:48", c3["rnn_fwd"], rnn["fwd_err"], rnn["fwd"],
+               device_ms=rnn["fwd"]["device_ms"]),
+        record("rnn_bwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:65", c3["rnn_bwd"], rnn["bwd_err"], rnn["bwd"],
+               device_ms=rnn["bwd"]["device_ms"]),
         record("ce_lse", "ce.cu", "poi_tpu/ops/fused_ce.py:181", trained["ce_lse"], lse_err, times["ce_lse"],
                device_ms=times["ce_lse"]["device_ms"],
                config3={f: times["ce_lse_c3"][f] for f in ("ms", "plain_ms", "bound_ms", "device_ms",
@@ -1658,9 +1808,10 @@ def main() -> int:
                                                            "sum_splits_ms")},
                config3_launches=c3["ce_bwd"]),
         record("sampled_lse", "sampled.cu", "poi_tpu/ops/fused_sampled.py:76", attn["sampled_lse"],
-               sampled["lse_err"], sampled["lse"]),
+               sampled["lse_err"], sampled["lse"], device_ms=sampled["lse"]["device_ms"]),
         record("sampled_bwd", "sampled.cu", "poi_tpu/ops/fused_sampled.py:103", attn["sampled_bwd"],
-               sampled["grad_err"], sampled["bwd"]),
+               sampled["grad_err"], sampled["bwd"],
+               **{k: sampled["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in SAMPLED_BWD_KERNELS))}),
         record("topk", "topk.cu", "poi_tpu/ops/topk.py:58", served["topk"], topk_err, times["topk"],
                device_ms=times["topk"]["device_ms"], library_device_ms=times["topk"]["library_device_ms"],
                **{case: {f: times[case][f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",

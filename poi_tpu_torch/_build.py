@@ -40,7 +40,9 @@ _SIGNATURES = {
     "gru_bwd_cluster_size": [_I, _I],
     "gru_bwd_splits": [_I, _I, _I],
     "lstm_max_hidden": [],
-    "lstm_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "lstm_fwd_cluster_size": [_I],
+    "lstm_fwd_fits": [_I, _I],
+    "lstm_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "lstm_bwd_splits": [_I, _I, _I],
     "lstm_bwd": [_P] * 10 + [_I, _I, _I, _I, _P],
     "rnn_max_hidden": [],
@@ -55,8 +57,8 @@ _SIGNATURES = {
     "ce_bwd": [_P] * 9 + [_I, _I, _I, _I, _P],
     "sampled_supports_dim": [_I],
     "sampled_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "sampled_bwd_splits": [_I, _I, _I],
-    "sampled_bwd": [_P] * 12 + [_I, _I, _I, _I, _P],
+    "sampled_bwd_scratch": [_I] * 5,
+    "sampled_bwd": [_P] * 11 + [_I] * 6 + [_P],
     "topk_plan": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     "topk_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "poi_cuda_error_string": [_I],

@@ -298,15 +298,6 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
-// out[i] = sum over s of part[s * n + i], s in order.
-__global__ void sum_splits(const float* __restrict__ part, float* __restrict__ out, long long n, int S) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n; i += (long long)gridDim.x * blockDim.x) {
-    float acc = part[i];
-    for (int s = 1; s < S; ++s) acc += part[(long long)s * n + i];
-    out[i] = acc;
-  }
-}
-
 // How many ways a pass splits its streamed tiles (fill_splits).
 int splits(int n_res, int n_str, int* per) {
   return fill_splits((n_res + kRes - 1) / kRes, (n_str + kStr - 1) / kStr, per);

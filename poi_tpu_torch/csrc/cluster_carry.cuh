@@ -3,6 +3,7 @@
 // (csrc/gru_fwd.cu, csrc/gru_bwd.cu, csrc/lstm.cu):
 //
 // - fragment loads from shared memory (ldmatrix);
+// - the forwards' fast sigmoid and tanh;
 // - the cluster's rank, its split barrier (arrive with release, wait with
 //   acquire) and stores into another CTA's shared memory (mapa);
 // - the split of an fp32 cotangent into three exact bf16 terms;
@@ -16,6 +17,27 @@
 namespace {
 
 constexpr int kMaxSmem = 232448;  // 227 KB: the most a block may opt into
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// sigmoid and tanh from ex2.approx and rcp.approx: no branches, so the
+// compiler interleaves a thread's (row, unit) pairs; each within a few fp32
+// ulp. A pre-activation of -1e9 gives ex2(+inf) = inf and rcp(inf) = 0: a
+// sigmoid of exactly 0 (the GRU's z on a padded step).
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float sigmoid_fast(float x) { return rcp_approx(1.0f + ex2_approx(-kLog2e * x)); }
+__device__ __forceinline__ float tanh_fast(float x) {
+  return fmaf(-2.0f, rcp_approx(1.0f + ex2_approx(2.0f * kLog2e * x)), 1.0f);
+}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"

@@ -37,8 +37,9 @@
 //   summed in fp32, the TPU kernel's arithmetic; h is rounded to bf16 by
 //   contract, so one term suffices), in two chains a gate (even and odd
 //   k-steps) added at the end; the gate update with sigmoid and tanh from
-//   ex2.approx and rcp.approx (branch-free, so a thread's four pairs
-//   interleave; each within a few fp32 ulp); bf16(h) into the next h buffer
+//   ex2.approx and rcp.approx (cluster_carry.cuh's sigmoid_fast, tanh_fast:
+//   branch-free, so a thread's four pairs interleave; each within a few fp32
+//   ulp); bf16(h) into the next h buffer
 //   of every CTA of the cluster by st.async, which counts its bytes on that
 //   CTA's mbarrier; fp32 h out to hs.
 // - The h buffers are double-buffered by step parity, each with an
@@ -85,26 +86,6 @@ constexpr int kRows = 16;      // batch rows a group: the mma's M
 constexpr int kMaxWarps = 8;   // unit octets (= consumer warps) a CTA at most
 constexpr int kPickOct = 4;    // unit octets a CTA of the cluster the kernel picks
 constexpr int kMaxSlots = 4;   // xw ring slots: steps t .. t + 3 (fewer where they do not fit)
-constexpr float kLog2e = 1.4426950408889634f;
-
-// sigmoid and tanh from ex2.approx and rcp.approx: no branches, so the
-// compiler interleaves the four (row, unit) pairs of a thread; each within a
-// few fp32 ulp. A folded -1e9 gives ex2(+inf) = inf and rcp(inf) = 0: z is
-// exactly 0 on a padded step.
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float rcp_approx(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float sigmoid_fast(float x) { return rcp_approx(1.0f + ex2_approx(-kLog2e * x)); }
-__device__ __forceinline__ float tanh_fast(float x) {
-  return fmaf(-2.0f, rcp_approx(1.0f + ex2_approx(2.0f * kLog2e * x)), 1.0f);
-}
 
 // The shared-memory layout of one CTA for width H on a cluster of C.
 struct FwdLayout {

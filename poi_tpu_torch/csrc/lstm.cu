@@ -37,26 +37,70 @@
 // recompute, a product [B*T, H] x [H, 4H], and dwh, an fp32 product on the
 // CUDA cores (csrc/recurrent_dwh.cuh).
 //
-// Forward (B3): a block owns `rows` = 128 / H whole batch rows (one at
-// H >= 128); thread (row, j) owns hidden unit j and needs only its four gate
-// columns j, H+j, 2H+j, 3H+j of the product, so its fp32 h and c stay in
-// registers; only bf16(h), which every thread of the row reads, goes to
-// shared memory, double-buffered so a step needs one barrier. bf16 wh (8H^2
-// bytes: 128 KB at H = 128) is loaded once into dynamic shared memory; the
-// product is an H-long k-ordered FMA chain a gate. The next step's xw and
-// mask are loaded while this step computes. Rows past B compute on zeros
-// and store nothing. One block holds wh, so the forward, and with it the
-// pair, takes H <= lstm_max_hidden() (170); a larger H is refused
-// (cudaErrorInvalidValue), and the Python wrapper raises first and names
-// the limit.
+// Forward (B3), lstm_fwd_kernel: csrc/gru_fwd.cu's design (B1) for four gate
+// blocks and two carries, written as a kernel of its own rather than a
+// template shared with gru_fwd.cu (the mask ring, the fourth gate block and
+// the second carry reach every part of the step, and gru_fwd.cu keeps its
+// code and bits); the two share cluster_carry.cuh's helpers: the fast
+// gates, ldmatrix, st.async and the TMA load. The first design (one thread a unit of one row,
+// a row a block at H >= 128, an H-long FMA chain a gate on shared-memory
+// operands, IEEE gates, a block barrier a step: ~4.3 us a step) held all of
+// bf16 wh in one block, which capped the pair at H <= 170.
+// - A cluster of C CTAs owns a group of 16 batch rows (the mma's M); rows
+//   past B compute on zeros and store nothing. CTA p owns unit octets
+//   [p*O/C, (p+1)*O/C) of O = ceil(H/8) and their i, f, g and o columns of
+//   wh, [Hk, 32 an octet] bf16 (Hk = H rounded up to 16; padding zero), in
+//   shared memory; up to Hk = 128 each warp holds its octet's slice as mma B
+//   fragments in registers (8 k-steps x 4 n-tiles x 2: 64 registers).
+// - Consumer warp w of CTA p owns octet p*O/C + w. Its four accumulator
+//   tiles hold the same (row, unit) positions, so the gate update runs in
+//   registers, and the fp32 carries h and c of its 16 rows x 8 units stay in
+//   that thread's registers, in the accumulator layout, for the sequence.
+// - A step: wait for xw[t] and the mask (the ring below) and for h(t-1) (the
+//   h buffer's mbarrier); bf16(h) @ wh on mma.sync m16n8k16 (exact bf16
+//   products summed in fp32; h is rounded to bf16 by contract, so one term
+//   suffices), two chains a gate added at the end; the gates with
+//   cluster_carry.cuh's sigmoid_fast / tanh_fast (ex2.approx, rcp.approx),
+//   tanh(c_raw) too; the blend with the row's m; bf16(h) into the next h
+//   buffer of every CTA of the cluster by st.async, counted on that CTA's
+//   mbarrier (double-buffered by step parity, no barrier in the step: a CTA
+//   can only overwrite a buffer after every warp of every CTA has read it);
+//   fp32 h and c out to hs and cs.
+// - A producer warp streams xw in with one TMA box a step and CTA ([16 rows]
+//   [i, f, g, o][the CTA's units] of xw seen as [B][T][4][H], zero past B
+//   and H; 4-byte cp.async where H % 4 != 0), and the group's 16 mask values
+//   beside it in the same ring slot by cp.async: the mask rides the ring, so
+//   no T-long copy of it sits in shared memory. Up to 4 slots on full /
+//   empty mbarriers; a consumer fences its reads of a slot against the async
+//   proxy before it releases the slot.
+// - Padded steps (m = 0) pass both carries through exactly: the gates are
+//   finite (ex2 overflows to inf, and rcp(inf) = 0), so m c_raw = 0 and
+//   (1 - m) c = c.
+// - C: B1's rule, the smallest of 1, 2, 4, 8, 16 whose CTAs hold at most
+//   4 octets each (else the smallest that fits): C = 2 at H = 64, 4 at
+//   H = 128, 8 at H = 256. chip_smoke.py times every cluster that fits
+//   (`lstm_fwd cluster choice`, device time): 4 octets a CTA was the
+//   fastest at H = 64 and 256 (at 256 by 13% over 8 octets) and at batch
+//   256; at config #2's B = 64, H = 128, 8 octets (C = 2) was 4-5% faster in
+//   three runs, and at batch 1 two octets (C = 8) by 4%. Every cluster gives
+//   the same bits: a warp's arithmetic does not depend on C.
+// - No atomics: a second launch gives the same bits. The gates are
+//   approximated and the product is two chains, so the backward's gate
+//   recompute (IEEE sigmoidf / tanhf, the tensor cores' summation order)
+//   matches these gates to fp32 rounding, not bit for bit.
+// The pair takes any H up to lstm_max_hidden() (512), ragged ones included,
+// where both this forward and the backward's carry fit on some cluster; a
+// larger H is refused (cudaErrorInvalidValue), and the Python wrapper raises
+// first and names the limit.
 //
 // Backward (B4): csrc/gru_bwd.cu's three passes, for four gates and two
 // carries, and the shared dwh product.
 // 1. lstm_bwd_gates_kernel: the gate recompute of every step at once on the
 //    tensor cores (mma.sync m16n8k16: exact bf16 products summed in fp32, the
-//    TPU kernel's arithmetic, _gates; the summation order is the tensor
-//    cores', so the gates match the forward's scalar walk to fp32 rounding,
-//    not bit for bit), and from the gates and c_prev each element's
+//    TPU kernel's arithmetic, _gates; IEEE sigmoidf / tanhf, and the
+//    tensor cores' summation order, so the gates match the forward's fast
+//    approximations to fp32 rounding, not bit for bit), and from the gates
+//    and c_prev each element's
 //    coefficients, which depend on the forward alone: kappa = o (1 - tc^2),
 //    omega = tc o (1 - o), iota = g i (1 - i), phi = c_prev f (1 - f),
 //    gamma = i (1 - g^2) and f. iota, phi, gamma and omega go into dxw's
@@ -108,92 +152,364 @@ namespace {
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-int rows_per_block(int H) { return H >= 128 ? 1 : 128 / H; }
+// ------------------------------------------------------------- forward (B3)
+//
+// gru_fwd.cu's design with four gate blocks and a second carry. A cluster of
+// C CTAs owns 16 batch rows; CTA p owns unit octets [p*O/C, (p+1)*O/C) of
+// O = ceil(H/8) and keeps their i, f, g and o columns of wh, [Hk, 32 an
+// octet] bf16, in shared memory; up to Hk = 128 each warp holds its octet's
+// slice as mma B fragments in registers (8 k-steps x 4 n-tiles x 2).
+// Consumer warp w owns octet p*O/C + w: its four accumulator tiles hold the
+// same (row, unit) positions, so the gate update runs in registers and the
+// fp32 carries h and c of its 16 rows x 8 units stay in that thread's
+// registers for the whole sequence (c never leaves the thread). A producer
+// warp streams each step's xw (one TMA box [16 rows][i, f, g, o][the CTA's
+// units] of xw seen as [B][T][4][H], zero past B and H; 4-byte cp.async
+// where H % 4 != 0) and the group's 16 mask values (cp.async, zero past B)
+// into a ring of up to 4 slots on full / empty mbarriers.
+constexpr int kFwdRows = 16;     // batch rows a group: the mma's M
+constexpr int kFwdMaxWarps = 8;  // unit octets (= consumer warps) a CTA at most
+constexpr int kFwdPickOct = 4;   // unit octets a CTA of the cluster the kernel picks
+constexpr int kFwdMaxSlots = 4;  // ring slots: steps t .. t + 3 (fewer where they do not fit)
+constexpr int kMaskFloats = 32;  // a slot's mask: 16 rows, padded to 128 bytes
 
-int fwd_smem_bytes(int H) { return 8 * H * H + 2 * rows_per_block(H) * H * 2; }  // wh + double-buffered bf16(h)
+// The shared-memory layout of one CTA of the forward for width H on a cluster of C.
+struct FwdLayout {
+  int O;    // unit octets, ceil(H / 8)
+  int ocp;  // octets a CTA at most, ceil(O / C): its consumer warps
+  int Hk;   // H rounded up to 16: the product's K
+  int ldb;  // bf16 row stride of the wh slice [Hk][32 ocp] (+ 8: conflict-free ldmatrix)
+  int lda;  // bf16 row stride of the h buffers [2][16][Hk] (+ 8)
+  int xu;   // units of a slot's gate block: the CTA's 8 ocp (+ 4, for the banks)
+  int xs;   // fp32 row stride of a slot's xw [16][i | f | g | o][xu]: 4 xu
+  int slot;  // fp32 a slot: xw, then the mask
+  int slots;
+  int a_off, x_off, bar_off, bytes;
+};
 
-// The widths the forward takes, and so the pair's: bf16 wh in one block.
-bool takes(int H) { return H > 0 && rows_per_block(H) * H <= 1024 && fwd_smem_bytes(H) <= kMaxSmem; }
-
-// Gates of unit j from the row's bf16(h) in shared memory: one k-ordered
-// FMA chain a gate.
-__device__ __forceinline__ void gates(const bf16* __restrict__ h_s, const bf16* __restrict__ wh_s, int H, int j,
-                                      float xi, float xf, float xg, float xo, float& ig, float& fg, float& gg,
-                                      float& og) {
-  const int H4 = 4 * H;
-  float ai = 0.f, af = 0.f, ag = 0.f, ao = 0.f;
-#pragma unroll 8
-  for (int k = 0; k < H; ++k) {
-    const float hk = __bfloat162float(h_s[k]);
-    const bf16* w = wh_s + k * H4 + j;
-    ai = fmaf(hk, __bfloat162float(w[0]), ai);
-    af = fmaf(hk, __bfloat162float(w[H]), af);
-    ag = fmaf(hk, __bfloat162float(w[2 * H]), ag);
-    ao = fmaf(hk, __bfloat162float(w[3 * H]), ao);
+__host__ __device__ inline FwdLayout fwd_layout(int H, int C) {
+  FwdLayout L;
+  L.O = (H + 7) / 8;
+  L.ocp = (L.O + C - 1) / C;
+  L.Hk = (H + 15) / 16 * 16;
+  L.ldb = 32 * L.ocp + 8;
+  L.lda = L.Hk + 8;
+  L.xu = 8 * L.ocp + 4;
+  L.xs = 4 * L.xu;
+  L.slot = kFwdRows * L.xs + kMaskFloats;  // a multiple of 32 floats: 128-byte slots
+  L.a_off = L.Hk * L.ldb * 2;                                         // wh slice [Hk][ldb] bf16 at 0
+  L.x_off = (L.a_off + 2 * kFwdRows * L.lda * 2 + 127) / 128 * 128;   // h buffers [2][16][lda] bf16
+  for (L.slots = kFwdMaxSlots; L.slots > 2; --L.slots) {
+    if (L.x_off + L.slots * L.slot * 4 + (2 + 2 * kFwdMaxSlots) * 8 <= kMaxSmem) break;
   }
-  ig = sigmoidf(xi + ai);
-  fg = sigmoidf(xf + af);
-  gg = tanhf(xg + ag);
-  og = sigmoidf(xo + ao);
+  L.bar_off = L.x_off + L.slots * L.slot * 4;
+  L.bytes = L.bar_off + (2 + 2 * kFwdMaxSlots) * 8;  // mbarriers: h buffers, ring full, ring empty
+  return L;
 }
 
-__global__ void lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
-                                const bf16* __restrict__ wh, float* __restrict__ hs, float* __restrict__ cs, int B,
-                                int T, int H, int rows) {
+bool fwd_fits(int H, int C) {
+  if (H <= 0) return false;
+  const FwdLayout L = fwd_layout(H, C);
+  return C <= L.O && L.ocp <= kFwdMaxWarps && L.bytes <= kMaxSmem;
+}
+
+// The cluster: the smallest of 1, 2, 4, 8, 16 that fits with at most
+// kFwdPickOct octets a CTA, else the smallest that fits; 0 when none does.
+int fwd_pick(int H) {
+  int fit = 0;
+  for (int c = 1; c <= 16; c *= 2) {
+    if (!fwd_fits(H, c)) continue;
+    if (fit == 0) fit = c;
+    if (fwd_layout(H, c).ocp <= kFwdPickOct) return c;
+  }
+  return fit;
+}
+
+// One cluster of C CTAs a group of 16 rows; blockDim = 32 (ocp + 1): warps
+// 0 .. ocp-1 own the CTA's octets (consumers), warp ocp is the producer.
+// kRegK > 0: wh's fragments sit in registers (Hk <= 16 kRegK), else each
+// step loads them from the shared slice. kVec: H % 4 == 0, so xw moves by one
+// TMA copy a step (xmap: xw as [B][T][4][H]), else by 4-byte cp.async.
+template <int kRegK, bool kVec>
+__global__ void __launch_bounds__(32 * (kFwdMaxWarps + 1))
+    lstm_fwd_kernel(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ xw,
+                    const float* __restrict__ mask, const bf16* __restrict__ wh, float* __restrict__ hs,
+                    float* __restrict__ cs, int B, int T, int H, int C) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int H4 = 4 * H;
-  bf16* wh_s = reinterpret_cast<bf16*>(smem);  // [H, 4H]
-  bf16* hb = wh_s + H * H4;                    // [2, rows, H]
+  const FwdLayout L = fwd_layout(H, C);
+  const int Hk = L.Hk, KS = Hk / 16, H4 = 4 * H, ocp = L.ocp;
+  const int p = C > 1 ? static_cast<int>(cta_rank()) : 0;
+  const int grp = blockIdx.x / C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int ob = p * L.O / C, n_oct = (p + 1) * L.O / C - ob;
+  const bool owner = warp < n_oct;    // warp-uniform: this warp owns octet ob + warp
+  const bool producer = warp == ocp;  // warp-uniform: this warp moves xw and the mask in
+  bf16* slice = reinterpret_cast<bf16*>(smem);
+  float* xring = reinterpret_cast<float*>(smem + L.x_off);
+  uint64_t* hbar = reinterpret_cast<uint64_t*>(smem + L.bar_off);  // [2]: bf16(h) of the cluster arrived in buffer b
+  uint64_t* full = hbar + 2;                                         // [slots]: a step's xw and mask landed in slot s
+  uint64_t* empty = full + kFwdMaxSlots;                             // [slots]: slot s read by every owner warp
+  const int S = L.slots;
+  const uint32_t slice_a = shared_addr(slice), abuf_a = shared_addr(smem + L.a_off), hbar_a = shared_addr(hbar);
 
-  const int r = threadIdx.x / H;
-  const int j = threadIdx.x % H;
-  const int b = blockIdx.x * rows + r;
-  const bool valid = b < B;
-
-  for (int i = threadIdx.x; i < H * H4; i += blockDim.x) wh_s[i] = wh[i];
-  hb[r * H + j] = __float2bfloat16(0.0f);
-
-  const size_t row = valid ? b : 0;
-  const float* xrow = xw + row * T * H4;
-  const float* mrow = mask + row * T;
-  float* hrow = hs + row * T * H;
-  float* crow = cs + row * T * H;
-  auto load = [&](int t, float& xi, float& xf, float& xg, float& xo, float& m) {
-    xi = xf = xg = xo = m = 0.f;
-    if (!valid || t >= T) return;
-    const float* x = xrow + (size_t)t * H4;
-    xi = x[j];
-    xf = x[H + j];
-    xg = x[2 * H + j];
-    xo = x[3 * H + j];
-    m = mrow[t];
-  };
-  float xi, xf, xg, xo, m;
-  load(0, xi, xf, xg, xo, m);
-  float h = 0.f, c = 0.f;
+  // The wh slice: local column lc = 32 lo + 8 gate + u is column
+  // gate * H + 8 (ob + lo) + u of wh, zero past H and past the CTA's octets;
+  // the h buffers (h0 = 0; K's padding stays zero) and the ring (rows past
+  // B and units past H stay zero) zero.
+  if (H % 8 == 0) {  // a gate's octet is 16 aligned bytes of a wh row
+    for (int i = threadIdx.x; i < Hk * 4 * ocp; i += blockDim.x) {
+      const int k = i / (4 * ocp), lo = (i % (4 * ocp)) / 4, q = i % 4;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (k < H && lo < n_oct) v = *reinterpret_cast<const uint4*>(wh + (size_t)k * H4 + q * H + 8 * (ob + lo));
+      *reinterpret_cast<uint4*>(slice + k * L.ldb + 32 * lo + 8 * q) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < Hk * 32 * ocp; i += blockDim.x) {
+      const int k = i / (32 * ocp), lc = i % (32 * ocp);
+      const int lo = lc / 32, j = 8 * (ob + lo) + lc % 8;
+      const bool ok = k < H && lo < n_oct && j < H;
+      slice[k * L.ldb + lc] = ok ? wh[(size_t)k * H4 + ((lc % 32) / 8) * H + j] : __float2bfloat16(0.f);
+    }
+  }
+  for (int i = threadIdx.x; i < (L.bar_off - L.a_off) / 16; i += blockDim.x) {
+    reinterpret_cast<uint4*>(smem + L.a_off)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  // The bytes of bf16(h) a step brings to each CTA: every octet's 16 x 8.
+  const uint32_t h_bytes = L.O * kFwdRows * 8 * 2;
+  if (threadIdx.x == 0) {
+    mbar_init(&hbar[0], 1);
+    mbar_init(&hbar[1], 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], kVec ? 33 : 32);  // every producer lane's cp.async, and the TMA's bytes
+      mbar_init(&empty[s], n_oct);
+    }
+    mbar_init_fence();
+    // h(0) lands in buffer 1, h(1) in buffer 0 (h(T - 1) is never sent).
+    if (T > 1) mbar_arrive_expect_tx(&hbar[1], h_bytes);
+    if (T > 2) mbar_arrive_expect_tx(&hbar[0], h_bytes);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the zeros before any bulk copy
   __syncthreads();
 
-  for (int t = 0; t < T; ++t) {
-    float nxi, nxf, nxg, nxo, nm;
-    load(t + 1, nxi, nxf, nxg, nxo, nm);
-    float ig, fg, gg, og;
-    gates(hb + (t & 1) * rows * H + r * H, wh_s, H, j, xi, xf, xg, xo, ig, fg, gg, og);
-    const float c_raw = fg * c + ig * gg;
-    const float h_raw = og * tanhf(c_raw);
-    c = m * c_raw + (1.0f - m) * c;
-    h = m * h_raw + (1.0f - m) * h;
-    if (valid) {
-      hrow[(size_t)t * H + j] = h;
-      crow[(size_t)t * H + j] = c;
-    }
-    hb[((t + 1) & 1) * rows * H + r * H + j] = __float2bfloat16(h);
-    xi = nxi;
-    xf = nxf;
-    xg = nxg;
-    xo = nxo;
-    m = nm;
-    __syncthreads();
+  float h[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, c[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  // Every CTA of the cluster runs, its barriers armed, before the first remote store.
+  if (C > 1) {
+    cluster_arrive();
+    cluster_wait();
   }
+
+  if (producer) {
+    // Step t's xw (the group's rows, the CTA's units) and mask into ring
+    // slot t % S, S - 1 steps ahead of the owners, once they have read the
+    // slot's last step.
+    const int nu = min(8 * n_oct, H - 8 * ob), u0 = 8 * ob;  // the CTA's units [u0, u0 + nu) below H
+    const int rows = min(kFwdRows, B - grp * kFwdRows);
+    for (int t = 0; t < T; ++t) {
+      const int s = t % S;
+      if (t >= S) mbar_wait(&empty[s], (t / S - 1) & 1);
+      float* slot = xring + s * L.slot;
+      if constexpr (kVec) {
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], kFwdRows * L.xs * 4);
+          tma_load_4d(slot, &xmap, u0, 0, t, grp * kFwdRows, &full[s]);
+        }
+      } else {
+        for (int e = lane; e < 4 * rows * nu; e += 32) {
+          const int r = e / (4 * nu), q = (e / nu) % 4, u = e % nu;
+          cp_async4(slot + r * L.xs + q * L.xu + u, xw + ((size_t)(grp * kFwdRows + r) * T + t) * H4 + q * H + u0 + u,
+                    true);
+        }
+      }
+      if (lane < kFwdRows) {
+        cp_async4(slot + kFwdRows * L.xs + lane, mask + (lane < rows ? (size_t)(grp * kFwdRows + lane) * T + t : 0),
+                  lane < rows);
+      }
+      cp_async_arrive(&full[s]);
+    }
+  } else if (owner) {
+    // B fragments of the warp's i, f, g, o n-tiles at k-step kb.
+    auto load_b = [&](uint32_t (&b)[4][2], int kb) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        ldsm_x2_trans(b[q][0], b[q][1], slice_a + ((kb * 16 + lane % 16) * L.ldb + warp * 32 + q * 8) * 2);
+      }
+    };
+    uint32_t breg[kRegK > 0 ? kRegK : 1][4][2];
+    if constexpr (kRegK > 0) {
+#pragma unroll
+      for (int kb = 0; kb < kRegK; ++kb) {
+        if (kb < KS) load_b(breg[kb], kb);
+      }
+    }
+    const int j0 = 8 * (ob + warp) + 2 * tq;
+    bool ok[2][2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) ok[rr][ii] = grp * kFwdRows + g + 8 * rr < B && j0 + ii < H;
+    }
+    // fp32 h and c of step t out to hs and cs at the thread's pairs.
+    auto store = [&](float* out, const float (&v)[2][2], int t) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float* dst = out + ((size_t)(grp * kFwdRows + g + 8 * rr) * T + t) * H + j0;
+        if (ok[rr][1] && H % 2 == 0) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v[rr][0], v[rr][1]);
+        } else {
+          if (ok[rr][0]) dst[0] = v[rr][0];
+          if (ok[rr][1]) dst[1] = v[rr][1];
+        }
+      }
+    };
+    for (int t = 0; t < T; ++t) {
+      // Step t's xw at the thread's pairs (rows g (+ 8), units 2 tq (+ 1) of
+      // its octet) and its rows' mask.
+      const int s = t % S;
+      mbar_wait(&full[s], (t / S) & 1);
+      const float* slot = xring + s * L.slot;
+      const float* xr = slot + g * L.xs + 8 * warp + 2 * tq;
+      float2 x[2][4];
+      float m[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) x[rr][q] = *reinterpret_cast<const float2*>(xr + rr * 8 * L.xs + q * L.xu);
+        m[rr] = slot[kFwdRows * L.xs + g + 8 * rr];
+      }
+      // The slot's reads ordered before the producer's next bulk write into it.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      // h(t - 1) of the whole cluster in buffer t & 1 (zero at t = 0); then
+      // the next phase of its barrier is armed for h(t + 1).
+      if (t > 0) {
+        mbar_wait(&hbar[t & 1], ((t - 1) >> 1) & 1);
+        if (threadIdx.x == 0 && t + 1 < T - 1) mbar_arrive_expect_tx(&hbar[t & 1], h_bytes);
+      }
+      // bf16(h) @ wh: two mma chains a gate (even and odd k-steps), added at
+      // the end, the next k-step's A fragment loaded ahead.
+      float acc[2][4][4];
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[ch][q][0] = acc[ch][q][1] = acc[ch][q][2] = acc[ch][q][3] = 0.f;
+      }
+      const uint32_t a_cur = abuf_a + (t & 1) * kFwdRows * L.lda * 2;
+      uint32_t a[2][4];
+      load_a_frag<kFwdRows>(a[0], a_cur, L.lda, 0, lane);
+      if constexpr (kRegK > 0) {
+#pragma unroll
+        for (int kb = 0; kb < kRegK; ++kb) {
+          if (kb < KS) {
+            if (kb + 1 < KS) load_a_frag<kFwdRows>(a[(kb + 1) & 1], a_cur, L.lda, (kb + 1) * 16, lane);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) mma_bf16(acc[kb & 1][q], a[kb & 1], breg[kb][q][0], breg[kb][q][1]);
+          }
+        }
+      } else {
+        uint32_t b[2][4][2];
+        load_b(b[0], 0);
+        for (int kb = 0; kb < KS; kb += 2) {  // two k-steps a turn, so the fragments' registers stay named
+          const bool two = kb + 1 < KS;
+          if (two) {
+            load_a_frag<kFwdRows>(a[1], a_cur, L.lda, (kb + 1) * 16, lane);
+            load_b(b[1], kb + 1);
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) mma_bf16(acc[0][q], a[0], b[0][q][0], b[0][q][1]);
+          if (kb + 2 < KS) {
+            load_a_frag<kFwdRows>(a[0], a_cur, L.lda, (kb + 2) * 16, lane);
+            load_b(b[0], kb + 2);
+          }
+          if (two) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) mma_bf16(acc[1][q], a[1], b[1][q][0], b[1][q][1]);
+          }
+        }
+      }
+      // The gate update in registers: accumulator element 2 rr + ii is (row
+      // g + 8 rr, unit j0 + ii); the blend with the row's mask (a padded
+      // step, m = 0, keeps both carries exactly: the gates are finite); then
+      // bf16(h) into every CTA's next buffer (not after the last step) and
+      // fp32 h and c out.
+      const uint32_t a_next = abuf_a + ((t + 1) & 1) * kFwdRows * L.lda * 2, bar_next = hbar_a + ((t + 1) & 1) * 8;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int ci = 2 * rr + ii;
+          float pre[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) pre[q] = (ii ? x[rr][q].y : x[rr][q].x) + (acc[0][q][ci] + acc[1][q][ci]);
+          const float ig = sigmoid_fast(pre[0]), fg = sigmoid_fast(pre[1]), gg = tanh_fast(pre[2]);
+          const float og = sigmoid_fast(pre[3]);
+          const float c_raw = fg * c[rr][ii] + ig * gg;
+          const float h_raw = og * tanh_fast(c_raw);
+          c[rr][ii] = m[rr] * c_raw + (1.0f - m[rr]) * c[rr][ii];
+          h[rr][ii] = m[rr] * h_raw + (1.0f - m[rr]) * h[rr][ii];
+        }
+        if (t + 1 < T) {
+          const uint32_t v = pack_bf16(h[rr][0], h[rr][1]);
+          const uint32_t at = a_next + ((g + 8 * rr) * L.lda + j0) * 2;
+          for (int q = 0; q < C; ++q) st_async_u32(at, bar_next, q, v);
+        }
+      }
+      store(hs, h, t);
+      store(cs, c, t);
+    }
+  }
+  // No CTA leaves while another may still store into its shared memory.
+  if (C > 1) {
+    cluster_arrive();
+    cluster_wait();
+  }
+}
+
+template <int kRegK, bool kVec>
+cudaError_t launch_fwd(const void* xw, const void* mask, const void* wh, void* hs, void* cs, int B, int T, int H,
+                       int C, int device, cudaStream_t s) {
+  const FwdLayout L = fwd_layout(H, C);
+  auto kernel = lstm_fwd_kernel<kRegK, kVec>;
+  // Once an instantiation and device: the largest shared-memory opt-in, clusters of 16.
+  static uint64_t attributes_set = 0;
+  if (device >= 64 || !(attributes_set >> device & 1)) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    if (device < 64) attributes_set |= uint64_t{1} << device;
+  }
+  CUtensorMap xmap = {};
+  if (kVec) {
+    // xw as [B][T][4][H] fp32; a box is [16][1][4][xu], zero past B and H.
+    cuuint64_t dims[4] = {static_cast<cuuint64_t>(H), 4, static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
+    cuuint64_t strides[3] = {static_cast<cuuint64_t>(H) * 4, static_cast<cuuint64_t>(H) * 16,
+                             static_cast<cuuint64_t>(H) * 16 * T};
+    cuuint32_t box[4] = {static_cast<cuuint32_t>(L.xu), 4, 1, kFwdRows};
+    cuuint32_t elem[4] = {1, 1, 1, 1};
+    if (cuTensorMapEncodeTiled(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(xw), dims, strides, box,
+                               elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const int groups = (B + kFwdRows - 1) / kFwdRows;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups * C);
+  cfg.blockDim = dim3(32 * (L.ocp + 1));
+  cfg.dynamicSmemBytes = L.bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, xmap, static_cast<const float*>(xw), static_cast<const float*>(mask),
+                                     static_cast<const bf16*>(wh), static_cast<float*>(hs), static_cast<float*>(cs), B,
+                                     T, H, C);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------- backward, pass 1: the gates
@@ -593,40 +909,56 @@ cudaError_t launch_carry(const void* wh, const void* dhs, const void* mask, void
 
 }  // namespace
 
-// The largest hidden width the pair takes: the forward's, bf16 wh in one block.
+// The largest H up to which the pair takes every width: the forward on some
+// cluster, and the backward's carry on some cluster (512: past it neither
+// fits its wh slice in a CTA's shared memory).
 extern "C" int lstm_max_hidden() {
-  for (int H = 1024; H > 0; --H) {
-    if (takes(H)) return H;
+  static int limit = -1;
+  if (limit < 0) {
+    int H = 0;
+    while (H < 4096 && fwd_pick(H + 1) > 0 && pick_cluster(1, H + 1, 4, kStage) > 0) ++H;
+    limit = H;
   }
-  return 0;
+  return limit;
 }
 
 // Number of partial dwh sums the wrapper allocates ([splits, H, 4H] fp32).
 extern "C" int lstm_bwd_splits(int B, int T, int H) { return recurrent_dw::num_splits(B * T, H, 4 * H); }
 
+// The forward's cluster size for width H (1, 2, 4, 8 or 16), or 0 when no
+// cluster takes H.
+extern "C" int lstm_fwd_cluster_size(int H) { return fwd_pick(H); }
 
+// Whether a cluster of C blocks a row group takes width H in the forward.
+extern "C" int lstm_fwd_fits(int H, int C) { return fwd_fits(H, C) ? 1 : 0; }
+
+// cluster: 0 runs the kernel's own pick (the wrapper's); 1, 2, 4, 8 or 16
+// forces that cluster size where it fits, else cudaErrorInvalidValue
+// (chip_smoke.py times each to measure the pick).
 extern "C" int lstm_fwd(const void* xw, const void* mask, const void* wh, void* hs, void* cs, int B, int T, int H,
-                        int device, void* stream) {
-  if (!takes(H)) return cudaErrorInvalidValue;
+                        int cluster, int device, void* stream) {
+  const int c = cluster > 0 ? cluster : fwd_pick(H);
+  if (H > lstm_max_hidden() || c == 0 || (c & (c - 1)) != 0 || c > 16 || !fwd_fits(H, c)) {
+    return cudaErrorInvalidValue;
+  }
   if (B <= 0 || T <= 0) return cudaSuccess;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  const int rows = rows_per_block(H);
-  const int smem = fwd_smem_bytes(H);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(lstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // wh in registers up to Hk = 128 (8 k-steps), from shared memory above.
+  if (H % 4 == 0) {
+    if (H <= 128) return launch_fwd<8, true>(xw, mask, wh, hs, cs, B, T, H, c, device, s);
+    return launch_fwd<0, true>(xw, mask, wh, hs, cs, B, T, H, c, device, s);
   }
-  lstm_fwd_kernel<<<(B + rows - 1) / rows, rows * H, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xw), static_cast<const float*>(mask), static_cast<const bf16*>(wh),
-      static_cast<float*>(hs), static_cast<float*>(cs), B, T, H, rows);
-  return cudaGetLastError();
+  if (H <= 128) return launch_fwd<8, false>(xw, mask, wh, hs, cs, B, T, H, c, device, s);
+  return launch_fwd<0, false>(xw, mask, wh, hs, cs, B, T, H, c, device, s);
 }
 
 extern "C" int lstm_bwd(const void* xw, const void* mask, const void* wh, const void* hs, const void* cs,
                         const void* dhs, void* dxw, void* coef, void* dwh_partial, void* dwh, int B, int T, int H,
                         int device, void* stream) {
-  const int c = takes(H) ? pick_cluster(B, H, 4, kStage) : 0;  // the carry's cluster: 1, 2, 4, 8 or 16
+  // The carry's cluster: 1, 2, 4, 8 or 16.
+  const int c = H <= lstm_max_hidden() ? pick_cluster(B, H, 4, kStage) : 0;
   if (c == 0 || B <= 0 || T <= 0) return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;

@@ -2,8 +2,9 @@
 // TMA tile loads into 128- or 64-byte-swizzled shared memory, mbarriers that
 // count their arrivals and bytes, smem matrix descriptors, and warpgroup
 // matrix multiplies (wgmma) with A in registers and B in smem.
-// Used by ce.cu (ce_lse) and ce_bwd.cu; the mma.sync kernels share
-// mma_tiles.cuh instead. Also the host side: TMA descriptors and the split
+// Used by ce.cu (ce_lse), ce_bwd.cu and sampled.cu's backward; the
+// mma.sync kernels share mma_tiles.cuh instead. Also the ordered sum of a
+// split kernel's partials, and the host side: TMA descriptors and the split
 // count of a kernel that splits its streamed dimension to fill the card.
 //
 // Layout: a TMA box of 8 * sw bytes a row wide lands as rows of sw bytes
@@ -175,6 +176,15 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint6
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// out[i] = sum over s of part[s * n + i], s in order.
+__global__ void sum_splits(const float* __restrict__ part, float* __restrict__ out, long long n, int S) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n; i += (long long)gridDim.x * blockDim.x) {
+    float acc = part[i];
+    for (int s = 1; s < S; ++s) acc += part[(long long)s * n + i];
+    out[i] = acc;
+  }
 }
 
 // ---------------------------------------------------------------- host side

@@ -213,12 +213,26 @@ class SequenceModel(nn.Module):
         return add_user_query(q.float()[:, None, :], self.embed, batch, self.cfg)[:, 0]
 
 
-def build_model(cfg: ModelConfig, dims: DataDims, device=None, generator: torch.Generator | None = None):
+def require_device(device, what: str) -> torch.device:
+    """``device`` as a ``torch.device``. The entry points run on the card
+    unless the caller asks for the CPU: a CUDA device on a machine without
+    CUDA raises here, before any work, and does not fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: device {str(device)!r}, but CUDA is not available; pass device=\"cpu\" to run "
+                           "on the CPU")
+    return device
+
+
+def build_model(cfg: ModelConfig, dims: DataDims, device="cuda", generator: torch.Generator | None = None):
+    """The model of ``cfg.kind`` with its parameters on ``device`` (the card
+    unless the caller asks for the CPU)."""
     from poi_tpu_torch.models.attention import AttentionModel
     from poi_tpu_torch.models.gru import GRUModel
     from poi_tpu_torch.models.lstm import LSTMModel
     from poi_tpu_torch.models.strnn import STRNNModel
 
+    device = require_device(device, "build_model")
     registry = {"gru": GRUModel, "lstm": LSTMModel, "strnn": STRNNModel, "attention": AttentionModel}
     if cfg.kind not in registry:
         raise KeyError(f"model kind {cfg.kind!r} is not ported yet: have {sorted(registry)}")

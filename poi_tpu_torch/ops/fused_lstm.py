@@ -19,12 +19,14 @@ Counterpart of ``poi_tpu/ops/fused_lstm.py``. Contract, the TPU kernels':
   exactly 0 on padded steps, and ``dwh`` sums ``h_prevᵀ · dxw`` over batch
   and time in fp32.
 
-The forward keeps bf16 ``wh`` (8·H² bytes) in one block's shared memory, so
-the pair takes H up to ``csrc/lstm.cu``'s ``lstm_max_hidden()`` (170). The
-backward recomputes every step's gates at once on the tensor cores, then
-runs the serial carry, ``dxw @ whᵀ`` with the fp32 cotangent split into three
-exact bf16 products, for groups of 16 batch rows with wh's columns split
-across a cluster of 1 to 16 blocks.
+The forward runs groups of 16 batch rows on a cluster of 1 to 16 blocks,
+each block holding the i, f, g and o columns of its units of bf16 ``wh``:
+every step is a tensor-core tile product, and both carries stay in
+registers. The backward recomputes every step's gates at once on the tensor
+cores, then runs the serial carry, ``dxw @ whᵀ`` with the fp32 cotangent
+split into three exact bf16 products, on such clusters too. The pair takes
+any H up to ``csrc/lstm.cu``'s ``lstm_max_hidden()`` (512), where both
+directions still fit a cluster's blocks.
 """
 
 from __future__ import annotations
@@ -86,8 +88,8 @@ def _check_cuda(name: str, tensors, lib_max_hidden, H: int) -> None:
         raise ValueError(f"{name}: tensors on {sorted({str(t.device) for t in tensors})}; need one CUDA device")
     max_h = lib_max_hidden()
     if H > max_h:
-        raise ValueError(f"{name}: H={H} is not taken by the kernels: the forward holds bf16 wh (8*H*H bytes) in "
-                         f"one block's shared memory, so H <= {max_h}")
+        raise ValueError(f"{name}: H={H} is not taken by the kernels: past it, a cluster's blocks cannot hold "
+                         f"their columns of bf16 wh beside the forward's and the backward's buffers, so H <= {max_h}")
 
 
 def fused_lstm_scan(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
@@ -109,7 +111,7 @@ def fused_lstm_scan(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
     xw, mask, wh = xw.contiguous(), mask.contiguous(), wh.contiguous()
     hs = torch.empty(B, T, H, dtype=torch.float32, device=xw.device)
     cs = torch.empty_like(hs)
-    rc = lib.lstm_fwd(xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), hs.data_ptr(), cs.data_ptr(), B, T, H,
+    rc = lib.lstm_fwd(xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), hs.data_ptr(), cs.data_ptr(), B, T, H, 0,
                       xw.device.index, torch.cuda.current_stream(xw.device).cuda_stream)
     _build.check(rc, "lstm_fwd launch")
     fused_lstm_scan.launches += 1

@@ -88,6 +88,12 @@ def _kernel_args(q, e_neg, b_neg, neg_ids, targets):
             neg_ids.to(torch.int32).contiguous(), targets.to(torch.int32).contiguous())
 
 
+def bwd_kernel_args(q, e_neg, b_neg, neg_ids, targets, lse_tot, g):
+    """The backward kernels' inputs in their dtypes, contiguous: q, e_neg,
+    b_neg, neg_ids, targets, lse_tot, g."""
+    return _kernel_args(q, e_neg, b_neg, neg_ids, targets) + (lse_tot.float().contiguous(), g.float().contiguous())
+
+
 def sampled_lse(q, e_neg, b_neg, neg_ids, targets) -> torch.Tensor:
     """[N] fp32 log-sum-exp of each row's masked negative logits.
 
@@ -116,9 +122,10 @@ def sampled_bwd(q, e_neg, b_neg, neg_ids, targets, lse_tot, g):
     """``(dq [N, D], de_neg [S, D], db_neg [S])`` fp32 of ``sum_n g[n] ·
     lse_tot[n]`` through the negative columns.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernels (dq,
-    the chunked dE/db pass and its ordered reduce) or raise;
-    ``sampled_bwd.launches`` counts the calls that launched them.
+    CPU tensors take the plain version. CUDA tensors launch the kernels (the
+    dq pass and the dE/db pass, each with the ordered sum of its split
+    partials where it splits) or raise; ``sampled_bwd.launches`` counts the
+    calls that launched them.
     """
     N, S, D = _shapes("sampled_bwd", q, e_neg, b_neg, neg_ids, targets, lse_tot, g)
     if _check("sampled_bwd", {"q": q, "e_neg": e_neg, "b_neg": b_neg, "neg_ids": neg_ids, "targets": targets,
@@ -131,14 +138,11 @@ def sampled_bwd(q, e_neg, b_neg, neg_ids, targets, lse_tot, g):
     if N == 0:
         return dq, de.zero_(), db.zero_()
     lib = _build.library()
-    args = _kernel_args(q, e_neg, b_neg, neg_ids, targets)
-    l32, g32 = lse_tot.float().contiguous(), g.float().contiguous()
-    splits = lib.sampled_bwd_splits(N, S, D)
-    de_part = torch.empty(splits, S, D, dtype=torch.float32, device=dev)  # scratch: per-chunk partial sums
-    db_part = torch.empty(splits, S, dtype=torch.float32, device=dev)
-    rc = lib.sampled_bwd(*(a.data_ptr() for a in args), l32.data_ptr(), g32.data_ptr(), dq.data_ptr(),
-                         de_part.data_ptr(), db_part.data_ptr(), de.data_ptr(), db.data_ptr(), N, S, D, dev.index,
-                         torch.cuda.current_stream(dev).cuda_stream)
+    args = bwd_kernel_args(q, e_neg, b_neg, neg_ids, targets, lse_tot, g)
+    # Scratch for the passes' split partials; (0, 0): each pass's own split rule.
+    scratch = torch.empty(max(1, lib.sampled_bwd_scratch(N, S, D, 0, 0)), dtype=torch.float32, device=dev)
+    rc = lib.sampled_bwd(*(a.data_ptr() for a in args), dq.data_ptr(), de.data_ptr(), db.data_ptr(),
+                         scratch.data_ptr(), N, S, D, 0, 0, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "sampled_bwd launch")
     sampled_bwd.launches += 1
     return dq, de, db

@@ -52,7 +52,7 @@ class FaultInjected(RuntimeError):
 class Trainer:
     cfg: Config
     dims: model_base.DataDims
-    device: Any = "cpu"
+    device: Any = "cuda"  # the card unless the caller asks for the CPU
     sampler: DeviceSampler | None = None  # batches drawn on the device (data.sampler=device)
     loss_override: Callable | None = None
     # step -> the negatives of that step ([S] pool, or [B, T, N] for BPR);
@@ -62,6 +62,7 @@ class Trainer:
     model: Any = field(init=False)
 
     def __post_init__(self):
+        self.device = model_base.require_device(self.device, "Trainer")
         cfg = self.cfg
         if self.loss_override is not None:
             raise NotImplementedError("loss_override (an injected sharded loss) comes with the multi-GPU layer")
@@ -78,7 +79,6 @@ class Trainer:
         # fp32 products stay fp32 on the card (no TF32), as the reference's.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.device = torch.device(self.device)
         gen = torch.Generator().manual_seed(cfg.train.seed)
         self.model = model_base.build_model(cfg.model, self.dims, device=self.device, generator=gen)
         self.loss_fn = build_loss_fn(cfg.loss, self.dims.num_pois, cfg.model.embed_dim)
@@ -230,9 +230,10 @@ def _train_sampled(cfg, trainer, state, start_step, num_steps, callbacks):
     return trainer, state, history
 
 
-def make_trainer(cfg: Config, dataset: Dataset, device: Any = "cpu") -> Trainer:
-    """A Trainer for ``dataset``, with a DeviceSampler when
-    ``data.sampler=device``."""
+def make_trainer(cfg: Config, dataset: Dataset, device: Any = "cuda") -> Trainer:
+    """A Trainer for ``dataset`` on ``device`` (the card unless the caller
+    asks for the CPU), with a DeviceSampler when ``data.sampler=device``."""
+    device = model_base.require_device(device, "make_trainer")
     sampler = None
     if cfg.data.sampler == "device":
         sampler = DeviceSampler(dataset.train, cfg.train.batch_size, cfg.train.seed, device)
@@ -248,9 +249,11 @@ def train(
     state: TrainState | None = None,
     trainer: Trainer | None = None,
     callbacks: list[Callable] | None = None,
-    device: Any = "cpu",
+    device: Any = "cuda",
 ) -> tuple[Trainer, TrainState, list[dict]]:
-    """Run the training loop; returns (trainer, final state, metric history)."""
+    """Run the training loop; returns (trainer, final state, metric history).
+    Without a ``trainer`` it makes one on ``device``: the card unless the
+    caller asks for the CPU (``device="cpu"``)."""
     num_steps = num_steps if num_steps is not None else cfg.train.num_steps
     if trainer is None:
         trainer = make_trainer(cfg, dataset, device)

@@ -114,7 +114,7 @@ def _models(dtype, seed=3, **cfg_kw):
                       compute_dtype=dtype, **cfg_kw)
     jm = jax_base.build_model(JaxModelConfig(**dataclasses.asdict(cfg)), DIMS)
     params = jm.init(jax.random.key(seed))
-    tm = base.build_model(cfg, base.DataDims(**dataclasses.asdict(DIMS)))
+    tm = base.build_model(cfg, base.DataDims(**dataclasses.asdict(DIMS)), device="cpu")
     assert isinstance(tm, AttentionModel)
     tm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     return jm, params, tm

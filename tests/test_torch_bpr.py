@@ -100,7 +100,7 @@ def test_trainer_draws_bpr_negatives_once_a_step_for_loss_and_lazy_adam():
                                                               "model.hidden_dim": "8"})
     dims = DataDims(num_users=7, num_pois=50, num_time_buckets=4, num_geo_buckets=4, num_tgap_buckets=2,
                     num_dist_buckets=2)
-    tt = Trainer(cfg, dims)
+    tt = Trainer(cfg, dims, device="cpu")
     batch = Batch(*(torch.zeros(3, 6, dtype=torch.long) for _ in range(10)))
     a, b, c = tt.draw_negatives(4, batch), tt.draw_negatives(4, batch), tt.draw_negatives(5, batch)
     assert a.shape == (3, 6, 5) and int(a.min()) >= 0 and int(a.max()) < 50

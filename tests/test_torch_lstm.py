@@ -28,6 +28,12 @@ torch.set_num_threads(1)
 # these seeds. 1e-5 leaves room for that drift over T steps; a wrong gate
 # order, bias placement or carry blend moves h by ~1e-1.
 ATOL = 1e-5
+# At H = 256 (256 terms a sum) the two fp32 orders round some h across a
+# bf16 boundary, which moves a pre-activation by ~|h|·2^-9·|w|: 1.4e-4 at
+# most here, damped by the gates; the same mechanism as chip_smoke.py's
+# LSTM_TOL on the card. A wrong gate order, bias placement or carry blend
+# still moves h by ~1e-1.
+ATOL_WIDE = 1e-3
 # Backward, relative to each output's largest element: the same formulas and
 # rounding points (bf16 h_prev and wh in the gate recompute, fp32
 # cotangents), fp32 summation order only; a bf16 cotangent would show at ~4e-3.
@@ -65,7 +71,9 @@ def _close(got, want, tol, name):
     np.testing.assert_allclose(got / scale, want / scale, atol=tol, rtol=0, err_msg=name)
 
 
-@pytest.mark.parametrize("H", [16, 64, 20])  # 20: no multiple of 8, as the CUDA backward's ragged last octet
+# 20: no multiple of 8, as the CUDA kernels' ragged last octet; 256: the
+# reference's 256-d config #2 probe, past the old one-block forward's limit.
+@pytest.mark.parametrize("H", [16, 64, 20, 256])
 def test_lstm_scan_reference_matches_pallas_interpret(H):
     """hs at every step, padded ones included: both carry h through them."""
     p, x, mask, _ = _case(H=H, seed=H)
@@ -73,7 +81,7 @@ def test_lstm_scan_reference_matches_pallas_interpret(H):
     want = np.asarray(jax_fused_lstm_scan(jnp.asarray(xw), _mask_bh(mask, H), jnp.asarray(p["wh"]), True))
     wh16 = torch.from_numpy(p["wh"]).to(torch.bfloat16)
     hs, cs = lstm_scan_reference(torch.from_numpy(xw), torch.from_numpy(mask), wh16)
-    np.testing.assert_allclose(hs.numpy(), want, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(hs.numpy(), want, atol=ATOL if H < 256 else ATOL_WIDE, rtol=0)
     # On a padded step both carries pass through exactly.
     for b in range(mask.shape[0]):
         n = int(mask[b].sum())

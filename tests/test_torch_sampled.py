@@ -99,11 +99,12 @@ def test_sampled_loss_matches_pallas_interpret_and_xla(num_sampled):
         _close(a, b, BF16_REL, name)
 
 
-def test_sampled_nll_rows_gradients_match_pallas_interpret():
+@pytest.mark.parametrize("D", [64, 128, 256])  # the widths the CUDA kernels take
+def test_sampled_nll_rows_gradients_match_pallas_interpret(D):
     """All four cotangents of the custom VJP, s_pos's included, on a pool
     padded by neither side (S=200)."""
     rng = np.random.default_rng(3)
-    N, S, D = 24, 200, 128
+    N, S = 24, 200
     q = rng.normal(size=(N, D)).astype(np.float32)
     e_neg = (rng.normal(size=(S, D)) * 0.3).astype(np.float32)
     b_neg = (rng.normal(size=S) * 0.1 + 1.3).astype(np.float32)
@@ -122,6 +123,88 @@ def test_sampled_nll_rows_gradients_match_pallas_interpret():
     assert abs(float(got.detach()) - float(want)) <= REL_TOL * abs(float(want))
     for a, b, name in zip(args, g_pal, ("dq", "de_neg", "db_neg", "ds_pos")):
         _close(a.grad.numpy(), np.asarray(b), REL_TOL, name)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _ranges(n, splits, tile=64):
+    """The CUDA backward's split rule for a forced count: the streamed rows'
+    tiles cut into ranges of ceil(tiles / splits) tiles, every range
+    non-empty (csrc/sampled.cu pass_splits)."""
+    tiles = -(-n // tile)
+    per = -(-tiles // min(splits, tiles))
+    return [(t0 * tile, min(n, (t0 + per) * tile)) for t0 in range(0, tiles, per)]
+
+
+def _b10_passes(q, e, b, ids, tgt, lse, g, dq_splits, de_splits, tile=64):
+    """csrc/sampled.cu's backward written in plain torch: the dq pass (every
+    row against the pool, the pool's tiles cut into dq_splits ranges, each a
+    partial sum added tile by tile, the partials added in range order) and
+    the dE/db pass (every pool row against the queries, cut into de_splits
+    ranges the same way), gp recomputed in each, 0 on a hit, rounded to bf16
+    for the products and summed unrounded into db."""
+    qb, eb = _bf16(q), _bf16(e)
+
+    def gp(r0, r1, c0, c1):
+        z = qb[r0:r1] @ eb[c0:c1].T + b[c0:c1]
+        out = torch.exp(z - lse[r0:r1, None]) * g[r0:r1, None]
+        return torch.where(ids[None, c0:c1] == tgt[r0:r1, None], 0.0, out)
+
+    N, S = q.shape[0], e.shape[0]
+    parts = []
+    for s0, s1 in _ranges(S, dq_splits, tile):
+        acc = torch.zeros_like(q)
+        for c0 in range(s0, s1, tile):
+            acc += _bf16(gp(0, N, c0, min(s1, c0 + tile))) @ eb[c0:c0 + tile][: min(s1, c0 + tile) - c0]
+        parts.append(acc)
+    dq = sum(parts[1:], parts[0])
+    de_parts, db_parts = [], []
+    for n0, n1 in _ranges(N, de_splits, tile):
+        acc, dacc = torch.zeros_like(e), torch.zeros(S)
+        for r0 in range(n0, n1, tile):
+            r1 = min(n1, r0 + tile)
+            x = gp(r0, r1, 0, S)
+            acc += _bf16(x).T @ qb[r0:r1]
+            dacc += x.sum(dim=0)
+        de_parts.append(acc)
+        db_parts.append(dacc)
+    return dq, sum(de_parts[1:], de_parts[0]), sum(db_parts[1:], db_parts[0])
+
+
+@pytest.mark.parametrize("dq_splits, de_splits", [(1, 1), (2, 4), (3, 5)])
+def test_b10_pass_structure_matches_pallas_vjp(dq_splits, de_splits):
+    """The CUDA backward's two passes (pool ranges for dq, query ranges for
+    dE and db, partials added in range order, hits masked) held against
+    jax.vjp of poi_tpu's sampled_nll_rows in interpret mode at config #4's
+    D = 256, on a pool (300) and a row count (330) that are no multiple of
+    the 64-row tile and split counts that divide neither."""
+    rng = np.random.default_rng(11)
+    N, S, D = 330, 300, 256
+    q = (rng.normal(size=(N, D)) * 0.3).astype(np.float32)
+    e_neg = (rng.normal(size=(S, D)) * 0.3).astype(np.float32)
+    b_neg = (rng.normal(size=S) * 0.1 + 1.3).astype(np.float32)
+    s_pos = rng.normal(size=N).astype(np.float32)
+    targets = rng.integers(0, 60, N).astype(np.int32)
+    ids = rng.integers(0, 60, S).astype(np.int32)
+    w = rng.random(N).astype(np.float32)
+    assert (ids[None, :] == targets[:, None]).sum() > 100, "the case needs many hits"
+
+    _, vjp = jax.vjp(lambda q, e, b: jax_sampled_nll_rows(q, e, b, jnp.asarray(s_pos),
+                                                          (jnp.asarray(targets), jnp.asarray(ids)), True),
+                     *map(jnp.asarray, (q, e_neg, b_neg)))
+    want = vjp(jnp.asarray(w))
+    t = [torch.from_numpy(a) for a in (q, e_neg, b_neg, ids, targets, s_pos, w)]
+    lse_tot = torch.logaddexp(sampled_lse_reference(*t[:5]), t[5])
+    got = _b10_passes(*t[:5], lse_tot, t[6], dq_splits, de_splits)
+    for a, b, name in zip(got, want, ("dq", "de_neg", "db_neg")):
+        _close(a.numpy(), np.asarray(b), REL_TOL, name)
+    # And the plain version, which takes the whole [N, S] product at once:
+    # fp32 summation order only.
+    whole = sampled_bwd_reference(*t[:5], lse_tot, t[6])
+    for a, b, name in zip(got, whole, ("dq", "de_neg", "db_neg")):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7, msg=name)
 
 
 @pytest.mark.parametrize("fused", [True, False])

@@ -208,7 +208,7 @@ def test_mem_budget_accounting_equals_poi_tpus(preset, overrides):
     the port as a host int."""
     cfg = get_config(preset).with_overrides({**SMALL, **overrides})
     ds = load_dataset(cfg.data)
-    trainer = Trainer(cfg, DataDims.from_dataset(ds))
+    trainer = Trainer(cfg, DataDims.from_dataset(ds), device="cpu")
     got = mem_budget.accounting(trainer, trainer.init_state())
 
     jt = JaxTrainer(JaxConfig.from_dict(cfg.to_dict()), JaxDataDims.from_dataset(ds))

@@ -7,6 +7,7 @@ both sides. The JAX side runs on the CPU with its lax.scan cell; the port
 runs its GRU Function (the kernels' plain versions on the CPU)."""
 
 import dataclasses
+import inspect
 import json
 import os
 import subprocess
@@ -33,7 +34,9 @@ from poi_tpu_torch.data.dataset import load_dataset
 from poi_tpu_torch.data.device_sampler import DeviceSampler
 from poi_tpu_torch.data.pipeline import make_batch
 from poi_tpu_torch.eval.evaluate import evaluate, popularity_baseline
-from poi_tpu_torch.models.base import DataDims
+from poi_tpu_torch.models.base import DataDims, build_model
+from poi_tpu_torch.models.gru import GRUModel
+from poi_tpu_torch.train import loop
 from poi_tpu_torch.train.loop import FaultInjected, Trainer, train
 from poi_tpu_torch.train.selection import BestOnVal
 from poi_tpu_torch.train.state import lr_schedule, make_optimizer
@@ -169,7 +172,7 @@ def test_trainer_step_matches_jax(smoke_ds, dtype):
     batch = make_batch(smoke_ds.train, np.arange(cfg.train.batch_size))
     js2, jm = jt.step(js, batch)
 
-    tt = Trainer(cfg, DataDims.from_dataset(smoke_ds))
+    tt = Trainer(cfg, DataDims.from_dataset(smoke_ds), device="cpu")
     st, tm = tt.step(tt.init_state(tree), batch)
     assert st.step == 1 and st.opt_state["count"] == 1
     assert abs(float(tm["loss"]) - float(jm["loss"])) <= 1e-6 * float(jm["loss"])
@@ -204,7 +207,7 @@ def test_train_trajectory_matches_jax(smoke_ds):
                     "train.num_steps": 5})
     jt, js, tree = _jax_trainer_and_tree(cfg, smoke_ds)
     _, _, jhist = jax_train(_jax(cfg), smoke_ds, state=js, trainer=jt)
-    tt = Trainer(cfg, DataDims.from_dataset(smoke_ds))
+    tt = Trainer(cfg, DataDims.from_dataset(smoke_ds), device="cpu")
     _, state, hist = train(cfg, smoke_ds, trainer=tt, state=tt.init_state(tree))
     assert state.step == 5
     assert [r["step"] for r in hist] == [r["step"] for r in jhist] == [1, 2, 3, 4, 5]
@@ -222,7 +225,7 @@ def test_evaluate_matches_jax(smoke_ds):
     cfg = _smoke(**{"eval.topk_impl": "pallas"})
     jt, js, tree = _jax_trainer_and_tree(cfg, smoke_ds)
     want = jax_evaluate(jt.model, js.params, smoke_ds, _jax(cfg))
-    tt = Trainer(cfg, DataDims.from_dataset(smoke_ds))
+    tt = Trainer(cfg, DataDims.from_dataset(smoke_ds), device="cpu")
     tt.init_state(tree)
     got = evaluate(tt.model, smoke_ds, cfg)
     assert got.keys() == want.keys()
@@ -256,7 +259,7 @@ def test_device_sampler_is_deterministic_per_step(smoke_ds):
 def test_sampled_training_drops_the_loss(smoke_ds):
     cfg = _smoke(**{"data.sampler": "device", "train.steps_per_call": 8, "train.num_steps": 24,
                     "train.log_every": 8, "train.warmup_steps": 0})
-    trainer, state, hist = train(cfg, smoke_ds)
+    trainer, state, hist = train(cfg, smoke_ds, device="cpu")
     assert state.step == 24 and [r["step"] for r in hist] == [8, 16, 24]
     assert hist[-1]["loss"] < hist[0]["loss"]
     assert all(r["grad_norm"] > 0 and r["param_norm"] > 0 for r in hist)
@@ -272,7 +275,7 @@ def test_sampled_training_drops_the_loss(smoke_ds):
 def test_best_on_val_keeps_a_copy_on_the_device(smoke_ds):
     cfg = _smoke(**{"data.val_fraction": 0.1, "train.eval_every": 5})
     ds = load_dataset(cfg.data)
-    trainer = Trainer(cfg, DataDims.from_dataset(ds))
+    trainer = Trainer(cfg, DataDims.from_dataset(ds), device="cpu")
     state = trainer.init_state()
     tracker = BestOnVal(trainer, ds, cfg)
     tracker(3, state, {})
@@ -294,7 +297,7 @@ def test_fault_injection_raises_at_the_step_and_resume_continues(smoke_ds, sampl
     second train() from the surviving state picks up at that step."""
     cfg = _smoke(**{"data.sampler": sampler, "train.fault_inject_step": 3, "train.num_steps": 5,
                     "train.log_every": 1, "train.steps_per_call": 2})
-    trainer = Trainer(cfg, DataDims.from_dataset(smoke_ds),
+    trainer = Trainer(cfg, DataDims.from_dataset(smoke_ds), device="cpu",
                       sampler=DeviceSampler(smoke_ds.train, 16, 0, "cpu") if sampler == "device" else None)
     seen = []
     with pytest.raises(FaultInjected, match="step 3"):
@@ -314,7 +317,34 @@ def test_fault_injection_raises_at_the_step_and_resume_continues(smoke_ds, sampl
 ])
 def test_trainer_rejects_what_is_not_ported(smoke_ds, overrides, match):
     with pytest.raises(NotImplementedError, match=match):
-        Trainer(_smoke(**overrides), DataDims.from_dataset(smoke_ds))
+        Trainer(_smoke(**overrides), DataDims.from_dataset(smoke_ds), device="cpu")
+
+
+ENTRY_POINTS = {
+    "train": lambda ds: train(_smoke(**{"data.sampler": "device"}), ds),
+    "make_trainer": lambda ds: loop.make_trainer(_smoke(**{"data.sampler": "device"}), ds),
+    "Trainer": lambda ds: Trainer(_smoke(), DataDims.from_dataset(ds)),
+    "build_model": lambda ds: build_model(_smoke().model, DataDims.from_dataset(ds)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_cuda_and_refuse_without_it(smoke_ds, monkeypatch, name):
+    """The Python entry points run on the card unless the caller asks for
+    the CPU: device defaults to "cuda", and without CUDA a call that names no
+    device raises before it builds a sampler, a loader or a model."""
+    fn = {"train": train, "make_trainer": loop.make_trainer, "build_model": build_model}.get(name)
+    default = (inspect.signature(fn).parameters["device"].default if fn else
+               Trainer.__dataclass_fields__["device"].default)
+    assert default == "cuda"
+    work = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(loop, "DeviceSampler", lambda *a, **k: work.append("sampler"))
+    monkeypatch.setattr(loop, "make_train_loader", lambda *a, **k: work.append("loader"))
+    monkeypatch.setattr(GRUModel, "__init__", lambda *a, **k: work.append("model"))
+    with pytest.raises(RuntimeError, match=r"device 'cuda', but CUDA is not available; pass device=\"cpu\""):
+        ENTRY_POINTS[name](smoke_ds)
+    assert work == []
 
 
 # ----------------------------------------------------------------- CLI

@@ -69,7 +69,7 @@ def _pair(cfg, ds):
     tree = jax.tree.map(np.asarray, js.params)
     S, V = cfg.loss.num_sampled, ds.num_pois
     pools = [np.array(jax.random.randint(jax.random.fold_in(js.rng, s), (S,), 0, V)) for s in range(8)]
-    tt = Trainer(cfg, DataDims.from_dataset(ds), negatives=lambda step: torch.from_numpy(pools[step]))
+    tt = Trainer(cfg, DataDims.from_dataset(ds), device="cpu", negatives=lambda step: torch.from_numpy(pools[step]))
     return jt, js, tt, tt.init_state(tree), tree
 
 
@@ -151,7 +151,7 @@ def test_train_trajectory_and_evaluate_match_jax(ds):
 def test_dropout_draws_are_keyed_by_step(ds):
     """With dropout on, a step's masks come from its own generator: the same
     step gives the same loss, another step another."""
-    tt = Trainer(_cfg(**{"model.dropout": 0.3}), DataDims.from_dataset(ds))
+    tt = Trainer(_cfg(**{"model.dropout": 0.3}), DataDims.from_dataset(ds), device="cpu")
     tt.init_state()
     batch = batch_to(make_batch(ds.train, np.arange(16)), "cpu")
     with torch.no_grad():
@@ -166,7 +166,7 @@ def test_trainer_rejects_the_rows_gradient_step(ds):
     big = DataDims(num_users=1, num_pois=1_000_000, num_time_buckets=1, num_geo_buckets=1, num_tgap_buckets=1,
                    num_dist_buckets=1)
     with pytest.raises(NotImplementedError, match="A11"):
-        Trainer(_cfg(**{"model.embed_dim": 512, "model.hidden_dim": 512}), big)
+        Trainer(_cfg(**{"model.embed_dim": 512, "model.hidden_dim": 512}), big, device="cpu")
 
 
 def test_recommender_rescores_rows_beyond_the_kernels_fetch(ds):
@@ -175,7 +175,7 @@ def test_recommender_rescores_rows_beyond_the_kernels_fetch(ds):
     what the uncapped plain path (xla) returns."""
     cfg = _cfg(**{"data.max_seq_len": 160})
     long_ds = load_dataset(cfg.data)
-    tt = Trainer(cfg, DataDims.from_dataset(long_ds))
+    tt = Trainer(cfg, DataDims.from_dataset(long_ds), device="cpu")
     tt.init_state()
     rng = np.random.default_rng(0)
     histories = [[Checkin(int(p), 3600.0 * i) for i, p in enumerate(rng.permutation(long_ds.num_pois)[:150])]

@@ -74,7 +74,7 @@ def _pair(cfg, ds):
     tree = jax.tree.map(np.asarray, js.params)
     shape = (cfg.train.batch_size, ds.max_seq_len, cfg.loss.num_negatives)
     negs = [np.array(jax.random.randint(jax.random.fold_in(js.rng, s), shape, 0, ds.num_pois)) for s in range(8)]
-    tt = Trainer(cfg, DataDims.from_dataset(ds), negatives=lambda step: torch.from_numpy(negs[step]))
+    tt = Trainer(cfg, DataDims.from_dataset(ds), device="cpu", negatives=lambda step: torch.from_numpy(negs[step]))
     return jt, js, tt, tt.init_state(tree), tree
 
 

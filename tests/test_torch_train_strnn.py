@@ -72,7 +72,7 @@ def _pair(cfg, ds):
     jt = JaxTrainer(_jax(cfg), JaxDataDims.from_dataset(ds))
     js = jt.init_state()
     tree = jax.tree.map(np.asarray, js.params)
-    tt = Trainer(cfg, DataDims.from_dataset(ds))
+    tt = Trainer(cfg, DataDims.from_dataset(ds), device="cpu")
     return jt, js, tt, tt.init_state(tree)
 
 
@@ -185,7 +185,7 @@ def test_featurize_and_recommend_match_jax(ds):
 def test_dropout_step_is_keyed_and_finite(ds):
     """Config #3's dropout 0.5 through the step-keyed generator: the same
     step gives the same loss, another step another; a step trains."""
-    tt = Trainer(_cfg(**{"model.dropout": 0.5}), DataDims.from_dataset(ds))
+    tt = Trainer(_cfg(**{"model.dropout": 0.5}), DataDims.from_dataset(ds), device="cpu")
     state = tt.init_state()
     batch = batch_to(make_batch(ds.train, np.arange(16)), "cpu")
     with torch.no_grad():
