@@ -32,11 +32,20 @@ with its plain PyTorch version on the card. Then it drives the paths:
 
 It times the kernels against their plain versions (and against a PyTorch
 call that computes the same function, where there is one), ``recommend``
-and the train steps. Any failed phase prints its traceback and exits
-non-zero. The last lines of standard output are the card's name and power
-limit, the kernels' JSON record (each with its least possible time on the
-card, ``bound_ms``) and ``{"ok": true, "device": {...}}``. Imports nothing
-of JAX and nothing of the JAX package ``poi_tpu``.
+and the train steps.
+
+    python3 chip_smoke.py --ab DIR  # DIR: another checkout, e.g. the parent commit's
+
+instead times the kernels a change redesigns (``AB_TIMED``) at their main
+path's shapes in both checkouts on this card, in turns (DIR, this, this,
+DIR), each in a fresh process with its checkout's own wrappers and
+helpers, logs how far their outputs moved, and asserts that the kernels it
+must leave alone (``AB_KEPT``) give DIR's bits. Any failed phase prints
+its traceback and exits non-zero. The last lines of standard output are the
+card's name and power limit, the kernels' JSON record (each with its least
+possible time on the card, ``bound_ms``) and ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX and nothing of the JAX package
+``poi_tpu``.
 """
 
 from __future__ import annotations
@@ -147,7 +156,15 @@ LSTM_TIMED = {"b1": (1, 64, 128), "b256": (256, 64, 128), "h256": (64, 64, 256)}
 # train shape, serving's request batch 1 and 256, then H = 256 and H = 64 at
 # config #2's B and T (the widths where the pick is 8 and 2 blocks).
 LSTM_CLUSTER_CASES = ((64, 64, 128), (1, 64, 128), (256, 64, 128), (64, 64, 256), (64, 64, 64))
-RNN_SHAPES = ((64, 32, 128), (7, 32, 128), (33, 16, 64))
+# The RNN also at a width that is no multiple of 16 (B6 zero-pads the last
+# octet and K) and at 339, the pair's limit (rnn_max_hidden()).
+RNN_SHAPES = ((64, 32, 128), (7, 32, 128), (33, 16, 64), (9, 32, 100), (5, 32, 339))
+# B6's cluster choice, timed at each cluster that fits (B, T, H): config
+# #3's train shape, then H = 64 and H = 339 at its B and T (the pick is 8
+# blocks at H = 128 and 339, 4 at H = 64), then H = 128 at a batch of 7
+# and of 256 (where the pick's clusters of 8-row groups would not all fit,
+# so it takes 16-row groups; smaller clusters keep 8).
+RNN_CLUSTER_CASES = ((64, 32, 128), (64, 32, 64), (64, 32, 339), (7, 32, 128), (256, 32, 128))
 # Configs #2 and #3 at full width, device-sampled like config #4: the preset
 # and the kernels its train step launches (the recurrence's forward first).
 REC_CONFIGS = {"lstm": ("lstm_bpr_foursquare", ("lstm_fwd", "lstm_bwd")),
@@ -218,18 +235,25 @@ GRU_CLUSTER_CASES = ((1, 64, 64), (256, 64, 64), (512, 64, 128), (64, 128, 256))
 # kernel picks for them): H = 100 on one block, at a batch whose 69 row groups
 # would not fit on the card on clusters of 2, and H = 200 on a cluster.
 GRU_BWD_RAGGED = ((1100, 100, 1), (7, 200, 8))
-# Sampled softmax (N, S, D, V, pad, full_hit): config #4's train shape
-# (B*T = 8,192 rows, a pool of 1,024 from 36,969 POIs); a pool of 1,000
-# padded to 1,024 the way the TPU kernel pads it; a pool of 200 (no multiple
-# of the tile) whose entries 3 and 199 are every row's target; D = 128; and
-# D = 64 with neither N nor the padded pool a tile multiple. Small catalogs
-# make accidental hits common.
-SAMPLED_CASES = ((8192, 1024, 256, 36969, 0, False), (8192, 1000, 256, 2000, 24, False),
-                 (300, 200, 256, 50, 0, True), (1000, 300, 128, 500, 0, False), (777, 300, 64, 400, 33, False))
+# Sampled softmax (N, S, D, V, pad, hits): config #4's train shape (B*T =
+# 8,192 rows, a pool of 1,024 from 36,969 POIs); a pool of 1,000 padded to
+# 1,024 the way the TPU kernel pads it; a pool of 200 (no multiple of the
+# tile) whose entries 3 and 199 are every row's target (hits "two"); D =
+# 128; D = 64 with neither N nor the padded pool a tile multiple; and a pool
+# of 130 entries all of one id, padded to 320, which is the target of rows
+# 0-19 (hits "all": every pool entry of those rows is a hit or padding; one
+# block of 100 rows splits the 5 tiles into 5 ranges, the last two wholly
+# padding). Small catalogs make accidental hits common.
+SAMPLED_CASES = ((8192, 1024, 256, 36969, 0, None), (8192, 1000, 256, 2000, 24, None),
+                 (300, 200, 256, 50, 0, "two"), (1000, 300, 128, 500, 0, None), (777, 300, 64, 400, 33, None),
+                 (100, 130, 256, 400, 190, "all"))
 # B10's split rule (the dq pass's, the dE pass's: 2 and 16 at config #4's
 # shape) against fewer and more ranges of the streamed rows; (0, 0) is the
 # rule.
 SAMPLED_SPLITS = ((0, 0), (1, 0), (4, 0), (0, 4), (0, 8), (0, 32))
+# B9's split rule (0: 2 ranges at config #4's shape) against one range and
+# more ranges of the pool's tiles.
+SAMPLED_LSE_SPLITS = (0, 1, 4, 8)
 # B12, the CE forward's variants, beside the sweep's own shape (N, V, D,
 # real POIs): a ragged catalog padded with -1e30 rows past a tile boundary,
 # and D = 32 with neither N nor V a tile multiple.
@@ -476,13 +500,14 @@ GRU_FWD_KERNELS = ("gru_fwd_kernel",)
 GRU_BWD_KERNELS = ("gru_bwd_gates", "gru_bwd_carry", "gru_bwd_outputs", "recurrent_dw")
 LSTM_BWD_KERNELS = ("lstm_bwd_gates", "lstm_bwd_carry", "recurrent_dw")
 CE_LSE_KERNELS = ("ce_lse_wg_kernel", "lse_merge")
-# B9's kernel; B10's dq pass, dE/db pass and the ordered sum of split
-# partials; B3's kernel; B5's and B6's.
-SAMPLED_LSE_KERNELS = ("sampled_lse_kernel",)
+# B9's kernel and the ordered merge of its ranges; B10's dq pass, dE/db
+# pass and the ordered sum of split partials; B3's kernel; B5's; B6's
+# coefficients pass, carry and dC (its partials and their ordered reduce).
+SAMPLED_LSE_KERNELS = ("sampled_lse_wg_kernel", "sampled_lse_merge")
 SAMPLED_BWD_KERNELS = ("sampled_dq_pass", "sampled_de_pass", "sum_splits")
 LSTM_FWD_KERNELS = ("lstm_fwd_kernel",)
 RNN_FWD_KERNELS = ("rnn_fwd_kernel",)
-RNN_BWD_KERNELS = ("rnn_bwd_kernel",)
+RNN_BWD_KERNELS = ("rnn_bwd_coef", "rnn_bwd_carry", "recurrent_dw")
 
 
 def device_parts(fn, names) -> dict:
@@ -719,11 +744,13 @@ def recurrence_device_phase(times: dict, big: dict, lstm: dict, gpu: str) -> Non
 
 
 def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str) -> None:
-    """Device time by kernel, on the inputs the earlier phases timed: B9 and
-    B10 (pass by pass, also at ``SAMPLED_SPLITS``) at config #4's shape, B3
-    at config #2's and at ``LSTM_TIMED`` (and at each cluster of
-    ``LSTM_CLUSTER_CASES``), B5 and B6 at config #3's. After the timing
-    phases, as every profiler reading."""
+    """Device time by kernel, on the inputs the earlier phases timed: B9
+    (kernel and merge apart, also at ``SAMPLED_LSE_SPLITS``) and B10 (pass by
+    pass, also at ``SAMPLED_SPLITS``) at config #4's shape, B3 at config
+    #2's and at ``LSTM_TIMED`` (and at each cluster of
+    ``LSTM_CLUSTER_CASES``), B5 and B6 (pass by pass, and at each cluster of
+    ``RNN_CLUSTER_CASES``) at config #3's. After the timing phases, as every
+    profiler reading."""
     from poi_tpu_torch.ops.fused_lstm import fused_lstm_scan
     from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan
     from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse
@@ -735,19 +762,22 @@ def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str)
              ("rnn_fwd", rnn["fwd"], fused_rnn_scan, RNN_FWD_KERNELS),
              ("rnn_bwd", rnn["bwd"], fused_rnn_bwd, RNN_BWD_KERNELS)]
     sampled_split_times(sampled["bwd"]["args"], gpu)
+    sampled_lse_split_times(sampled["lse"]["args"], gpu)
     for tag, t, fn, names in cases:
         args = t.pop("args")
         t.update(device_parts(lambda: fn(*args), names))
         log(f"[time] {tag} {'x'.join(map(str, args[0].shape))}: {parts_text(t, names)} (CUDA events {t['ms']:.4f} "
             f"ms)  ({gpu})")
     lstm_cluster_choice(gpu)
+    rnn_cluster_choice(gpu)
 
 
-def sampled_case(N: int, S: int, D: int, V: int, gen, pad: int = 0, full_hit: bool = False):
+def sampled_case(N: int, S: int, D: int, V: int, gen, pad: int = 0, hits=None):
     """Queries, a pool of S draws from V ids with ``pad`` entries appended
     as the TPU kernel pads its pool (bias -1e30, id -1), targets, and the
-    lse/g a backward receives. ``full_hit``: every row's target is id 7,
-    which pool entries 3 and S-1 carry."""
+    lse/g a backward receives. ``hits`` "two": every row's target is id 7,
+    which pool entries 3 and S-1 carry; "all": every pool entry is id 7, the
+    target of rows 0-19."""
     import torch
 
     from poi_tpu_torch.ops.fused_sampled import NEG, log_q, sampled_lse_reference
@@ -758,9 +788,12 @@ def sampled_case(N: int, S: int, D: int, V: int, gen, pad: int = 0, full_hit: bo
     ids = torch.randint(0, V, (S + pad,), generator=gen, device=DEV)
     b[S:], ids[S:] = NEG, -1
     tgt = torch.randint(0, V, (N,), generator=gen, device=DEV)
-    if full_hit:
+    if hits == "two":
         tgt[:] = 7
         ids[[3, S - 1]] = 7
+    elif hits == "all":
+        tgt[:20], ids[:S] = 7, 7
+        tgt[20:] = torch.where(tgt[20:] == 7, 8, tgt[20:])
     s_pos = 0.3 * torch.randn(N, generator=gen, device=DEV)
     lse_tot = torch.logaddexp(sampled_lse_reference(q, e, b, ids, tgt), s_pos)
     g = torch.rand(N, generator=gen, device=DEV) / N
@@ -773,18 +806,23 @@ def sampled_phase() -> dict:
     and with pool entries that are a hit for every row."""
     import torch
 
-    from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_bwd_reference, sampled_lse, sampled_lse_reference
+    from poi_tpu_torch.ops.fused_sampled import (NEG, sampled_bwd, sampled_bwd_reference, sampled_lse,
+                                                 sampled_lse_reference)
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
     out = {"lse_err": 0.0, "grad_err": 0.0}
-    for N, S, D, V, pad, full_hit in SAMPLED_CASES:
-        q, e, b, ids, tgt, lse_tot, g = sampled_case(N, S, D, V, gen, pad, full_hit)
-        full_hits = torch.tensor([3, S - 1] if full_hit else [], dtype=torch.long, device=DEV)
+    for N, S, D, V, pad, hits in SAMPLED_CASES:
+        q, e, b, ids, tgt, lse_tot, g = sampled_case(N, S, D, V, gen, pad, hits)
+        full_hits = torch.tensor([3, S - 1] if hits == "two" else [], dtype=torch.long, device=DEV)
         lse = sampled_lse(q, e, b, ids, tgt)
         torch.cuda.synchronize()
         want_lse = sampled_lse_reference(q, e, b, ids, tgt)
         e_lse = float((lse - want_lse).abs().max())
+        assert bool(torch.isfinite(lse).all()), f"sampled_lse N={N} S={S} D={D}: non-finite lse"
         assert e_lse < CE_LSE_TOL, f"sampled_lse N={N} S={S} D={D}: max |kernel - plain| {e_lse}"
+        if hits == "all":
+            assert bool((lse[:20] == NEG).all()), f"sampled_lse: rows whose every entry is a hit gave {lse[:20]}"
+        sampled_lse_splits(q, e, b, ids, tgt, lse)
         got = sampled_bwd(q, e, b, ids, tgt, lse_tot, g)
         torch.cuda.synchronize()
         want = sampled_bwd_reference(q, e, b, ids, tgt, lse_tot, g)
@@ -796,13 +834,15 @@ def sampled_phase() -> dict:
             "a hit column or a padded pool entry got gradient"
         again = (sampled_lse(q, e, b, ids, tgt), *sampled_bwd(q, e, b, ids, tgt, lse_tot, g))
         assert all(torch.equal(a, w) for a, w in zip(again, (lse, *got))), f"sampled N={N} S={S}: run-to-run bits"
-        hits = int((ids[None, :] == tgt[:, None]).sum())
         out["lse_err"] = max(out["lse_err"], e_lse)
         out["grad_err"] = max(out["grad_err"], *(float((a - w).abs().max()) for a, w in zip(got, want)))
-        log(f"[sampled] N={N} S={S}{f'+{pad} padded' if pad else ''} D={D}: {hits} hits; lse max err {e_lse:.2e} "
-            f"(tol {CE_LSE_TOL}); rel err dq {errs[0]:.2e}, de {errs[1]:.2e} (tol {CE_GRAD_TOL}), db {errs[2]:.2e} "
-            f"(tol {CE_DBIAS_TOL}); {len(zero_rows)} hit/padded pool rows exactly 0; a second run gives the same bits")
-        if (N, S, D, V, pad, full_hit) == SAMPLED_CASES[0]:
+        n_hits = int((ids[None, :] == tgt[:, None]).sum())
+        all_hit = "; rows 0-19 (every entry a hit or padding) give -1e30" if hits == "all" else ""
+        log(f"[sampled] N={N} S={S}{f'+{pad} padded' if pad else ''} D={D}: {n_hits} hits; lse max err {e_lse:.2e} "
+            f"(tol {CE_LSE_TOL}){all_hit}; rel err dq {errs[0]:.2e}, de {errs[1]:.2e} (tol {CE_GRAD_TOL}), db "
+            f"{errs[2]:.2e} (tol {CE_DBIAS_TOL}); {len(zero_rows)} hit/padded pool rows exactly 0; a second run gives "
+            f"the same bits; every forced split of B9 within the tolerance")
+        if (N, S, D, V, pad, hits) == SAMPLED_CASES[0]:
             # No single PyTorch call computes the masked pool LSE or its
             # gradients: no library time.
             out["lse"] = {"ms": time_ms(lambda: sampled_lse(q, e, b, ids, tgt)),
@@ -818,7 +858,72 @@ def sampled_phase() -> dict:
                 log(f"[time] sampled_{d} N={N} S={S} D={D}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; "
                     f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
             sampled_splits(q, e, b, ids, tgt, lse_tot, g, got)
+            sampled_nll_bits(q, e, b, ids, tgt, g)
     return out
+
+
+def sampled_lse_at(args, splits: int):
+    """B9 through its C entry with the pool ranges to force; the wrapper
+    always passes 0, the rule. ``args``: the wrapper's inputs. Returns
+    lse."""
+    import torch
+
+    from poi_tpu_torch import _build
+    from poi_tpu_torch.ops.fused_sampled import _kernel_args
+
+    lib = _build.library()
+    ins = _kernel_args(*args)
+    (N, D), S = ins[0].shape, ins[1].shape[0]
+    lse = torch.empty(N, device=DEV)
+    scratch = torch.empty(max(1, lib.sampled_lse_scratch(N, S, D, splits)), device=DEV)
+    rc = lib.sampled_lse(*(a.data_ptr() for a in ins), lse.data_ptr(), scratch.data_ptr(), N, S, D, splits,
+                         ins[0].device.index, torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"sampled_lse at splits {splits}")
+    return lse
+
+
+def sampled_lse_splits(q, e, b, ids, tgt, want) -> None:
+    """B9 at each of ``SAMPLED_LSE_SPLITS``, within ``CE_LSE_TOL`` of the
+    rule's ``want`` and the same bits on a second launch; every row of
+    ``want`` at -1e30 stays there. The ranges change the merge's fp32 order,
+    so their bits differ from the rule's."""
+    import torch
+
+    for splits in SAMPLED_LSE_SPLITS:
+        got = sampled_lse_at((q, e, b, ids, tgt), splits)
+        err = float((got - want).abs().max())
+        assert err < CE_LSE_TOL and torch.isfinite(got).all(), (splits, err)
+        all_hit = want == -1e30
+        assert torch.equal(got[all_hit], want[all_hit]), splits
+        assert torch.equal(sampled_lse_at((q, e, b, ids, tgt), splits), got), (splits, "bits")
+
+
+def sampled_lse_split_times(args, gpu: str) -> None:
+    """B9's device time at each of ``SAMPLED_LSE_SPLITS``, kernel and merge
+    apart: the measurement behind its split rule."""
+    N, D = args[0].shape
+    S = args[1].shape[0]
+    for splits in SAMPLED_LSE_SPLITS:
+        t = device_parts(lambda: sampled_lse_at(args, splits), SAMPLED_LSE_KERNELS)
+        log(f"[time] sampled_lse splits = {splits or 'rule'} N={N} S={S} D={D}: "
+            f"{parts_text(t, SAMPLED_LSE_KERNELS)}  ({gpu})")
+
+
+def sampled_nll_bits(q, e, b, ids, tgt, g) -> None:
+    """``SampledNLL`` hands its forward's bf16/int32 kernel arguments to its
+    backward: B10's outputs through it are the bits of ``sampled_bwd`` on
+    the fp32 inputs, cast in the call."""
+    import torch
+
+    from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse, sampled_nll_rows
+
+    s_pos = torch.randn(q.shape[0], generator=torch.Generator(device=DEV).manual_seed(SEED + 15), device=DEV)
+    leaves = [t.clone().requires_grad_() for t in (q, e, b, s_pos)]
+    sampled_nll_rows(*leaves, tgt, ids).backward(g)
+    lse_tot = torch.logaddexp(sampled_lse(q, e, b, ids, tgt), s_pos)
+    want = sampled_bwd(q, e, b, ids, tgt, lse_tot, g)
+    assert all(torch.equal(a.grad, w) for a, w in zip(leaves, want)), "SampledNLL's backward: other bits"
+    log("[sampled] SampledNLL's backward on its forward's kernel arguments: B10's bits on the fp32 inputs")
 
 
 def sampled_bwd_at(args, splits):
@@ -1035,6 +1140,46 @@ def lstm_cluster_choice(gpu: str) -> None:
         log(f"[time] lstm_fwd cluster choice B={B} T={T} H={H}, device time: "
             + ", ".join(f"C={c} {ms:.4f} ms" for c, ms in times.items())
             + f"; each the pick's bits; the kernel picks C={lib.lstm_fwd_cluster_size(H)}  ({gpu})")
+
+
+def rnn_cluster_choice(gpu: str) -> None:
+    """B6 at each cluster size that fits its carry, beside the one the
+    kernel picks, at ``RNN_CLUSTER_CASES`` by device time, pass by pass: the
+    measurement behind the pick. A warp's arithmetic does not depend on the
+    cluster, so every cluster gives the pick's bits. The C entry takes the
+    cluster size to force; the wrapper always passes 0, the kernel's own
+    pick."""
+    import torch
+
+    from poi_tpu_torch import _build
+    from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan
+
+    lib = _build.library()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 16)
+    for B, T, H in RNN_CLUSTER_CASES:
+        x, mask, w, _ = recurrence_case(B, T, H, 1, gen)
+        hs = fused_rnn_scan(x, mask, w)
+        dhs = torch.randn(B, T, H, generator=gen, device=DEV)
+        want = fused_rnn_bwd(x, mask, w, hs, dhs)
+        dx, dc = torch.empty(B, T, H, device=DEV), torch.empty(H, H, device=DEV)
+        partial = torch.empty(lib.rnn_bwd_splits(B, T, H), H, H, device=DEV)
+
+        def at(c):
+            rc = lib.rnn_bwd(x.data_ptr(), mask.data_ptr(), w.data_ptr(), hs.data_ptr(), dhs.data_ptr(),
+                             dx.data_ptr(), partial.data_ptr(), dc.data_ptr(), B, T, H, c, x.device.index,
+                             torch.cuda.current_stream().cuda_stream)
+            _build.check(rc, f"rnn_bwd on a cluster of {c}")
+
+        times = {}
+        for c in (1, 2, 4, 8, 16):
+            if not lib.rnn_bwd_fits(H, c):
+                continue
+            at(c)
+            assert torch.equal(dx, want[0]) and torch.equal(dc, want[1]), f"rnn_bwd C={c} B={B} H={H}: other bits"
+            times[c] = device_parts(lambda: at(c), RNN_BWD_KERNELS)
+        log(f"[time] rnn_bwd cluster choice B={B} T={T} H={H}, device time (carry): "
+            + ", ".join(f"C={c} {t['device_ms']:.4f} ms ({t['rnn_bwd_carry_ms']:.4f})" for c, t in times.items())
+            + f"; each the pick's bits; the kernel picks C={lib.rnn_bwd_cluster_size(H)}  ({gpu})")
 
 
 def rnn_phase() -> dict:
@@ -1701,6 +1846,88 @@ def config_timing_phase(state, gpu: str) -> dict:
     return out
 
 
+# --ab: kernels timed in both checkouts at their main path's shapes
+# (``AB_TIMED``: those a change redesigns, their outputs' difference logged),
+# and kernels whose outputs must keep the other checkout's bits
+# (``AB_KEPT``: asserted). ``AB_CHILD`` runs in each checkout's directory,
+# with its chip_smoke.py's helpers, and holds a call for every kernel
+# either names; its second argument lists the kernels to time.
+AB_TIMED = ("rnn_bwd", "sampled_lse")
+AB_KEPT = ("gru_bwd", "lstm_bwd", "sampled_bwd")
+AB_CHILD = r"""
+import json, sys
+import torch
+import chip_smoke as cs
+from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan
+from poi_tpu_torch.ops.fused_lstm import fused_lstm_bwd, fused_lstm_scan
+from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan
+from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse
+torch.backends.cuda.matmul.allow_tf32 = False
+cs.build_phase()
+gen = torch.Generator(device="cuda").manual_seed(1234)
+x, mask, w, _ = cs.recurrence_case(64, 32, 128, 1, gen)
+hs = fused_rnn_scan(x, mask, w)
+dhs = torch.randn(64, 32, 128, generator=gen, device="cuda")
+q, e, b, ids, tgt, lse_tot, g = cs.sampled_case(8192, 1024, 256, 36969, gen)
+xw, wh, _, _ = cs.gru_case(64, 64, 128, gen)
+gh = fused_gru_scan(xw, wh)
+gdh = torch.randn(64, 64, 128, generator=gen, device="cuda")
+lx, lmask, lw, _ = cs.recurrence_case(64, 64, 128, 4, gen)
+lst = fused_lstm_scan(lx, lmask, lw)
+ldh = torch.randn(64, 64, 128, generator=gen, device="cuda")
+calls = {"rnn_bwd": (lambda: fused_rnn_bwd(x, mask, w, hs, dhs), cs.RNN_BWD_KERNELS),
+         "sampled_lse": (lambda: (sampled_lse(q, e, b, ids, tgt),), cs.SAMPLED_LSE_KERNELS),
+         "sampled_bwd": (lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g), cs.SAMPLED_BWD_KERNELS),
+         "gru_bwd": (lambda: fused_gru_bwd(xw, wh, gh, gdh), cs.GRU_BWD_KERNELS),
+         "lstm_bwd": (lambda: fused_lstm_bwd(lx, lmask, lw, *lst, ldh), cs.LSTM_BWD_KERNELS)}
+res = {k: {"events_ms": cs.time_ms(calls[k][0]), **cs.device_parts(*calls[k])} for k in json.loads(sys.argv[2])}
+torch.save({k: [t.cpu() for t in f()] for k, (f, _) in calls.items()}, sys.argv[1])
+print("AB " + json.dumps(res), flush=True)
+"""
+
+
+def ab_main(other: str) -> int:
+    """``--ab``: ``AB_TIMED`` timed in ``other`` and in this checkout, in
+    turns; ``AB_KEPT``'s outputs asserted to be the other checkout's bits,
+    and every output the same bits on a second run here."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: torch.cuda.is_available() is false: this smoke run needs a CUDA card", file=sys.stderr)
+        return 2
+    gpu = gpu_line()
+    log(f"[ab] card: {gpu}")
+    (REPO / "build").mkdir(exist_ok=True)
+    out_dir = Path(tempfile.mkdtemp(prefix="ab_", dir=REPO / "build"))
+    runs = [("other", Path(other).resolve()), ("this", REPO), ("this", REPO), ("other", Path(other).resolve())]
+    times: dict = {}
+    outs = {}
+    for i, (tag, tree) in enumerate(runs):
+        path = out_dir / f"{i}_{tag}.pt"
+        proc = subprocess.run([sys.executable, "-c", AB_CHILD, str(path), json.dumps(AB_TIMED)], cwd=tree,
+                              capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, f"--ab run in {tree} failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}"
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")][-1]
+        times.setdefault(tag, []).append(json.loads(line[3:]))
+        outs.setdefault(tag, []).append(torch.load(path))
+    for name in AB_TIMED:
+        for tag in ("other", "this"):
+            for i, t in enumerate(times[tag]):
+                parts = ", ".join(f"{k[:-3]} {v:.4f}" for k, v in t[name].items() if k not in ("events_ms", "device_ms"))
+                log(f"[ab] {name} {tag} run {i + 1}: CUDA events {t[name]['events_ms']:.4f} ms, device "
+                    f"{t[name]['device_ms']:.4f} ms ({parts})  ({gpu})")
+    for name in (*AB_TIMED, *AB_KEPT):
+        want = outs["other"][0][name]
+        same = all(torch.equal(a, b) for a, b in zip(outs["this"][0][name], want))
+        rerun = all(torch.equal(a, b) for a, b in zip(outs["this"][0][name], outs["this"][1][name]))
+        diff = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30)) for a, b in zip(outs["this"][0][name], want))
+        log(f"[ab] {name}: outputs {'the same bits as' if same else 'differ from'} the other checkout's (max "
+            f"relative difference {diff:.3e}); a second run here gives {'the same' if rerun else 'other'} bits")
+        assert rerun, f"{name}: run-to-run bits"
+        assert same or name not in AB_KEPT, f"{name}: must keep the other checkout's bits"
+    return 0
+
+
 def record(name: str, source: str, replaces: str, launches: int, max_abs_err: float, t: dict, **extra) -> dict:
     """One kernel's entry in the JSON line: its launches on the main path,
     its parity and its times at the main path's shape, with the bound."""
@@ -1796,7 +2023,7 @@ def main() -> int:
         record("rnn_fwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:48", c3["rnn_fwd"], rnn["fwd_err"], rnn["fwd"],
                device_ms=rnn["fwd"]["device_ms"]),
         record("rnn_bwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:65", c3["rnn_bwd"], rnn["bwd_err"], rnn["bwd"],
-               device_ms=rnn["bwd"]["device_ms"]),
+               **{k: rnn["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in RNN_BWD_KERNELS))}),
         record("ce_lse", "ce.cu", "poi_tpu/ops/fused_ce.py:181", trained["ce_lse"], lse_err, times["ce_lse"],
                device_ms=times["ce_lse"]["device_ms"],
                config3={f: times["ce_lse_c3"][f] for f in ("ms", "plain_ms", "bound_ms", "device_ms",
@@ -1808,7 +2035,8 @@ def main() -> int:
                                                            "sum_splits_ms")},
                config3_launches=c3["ce_bwd"]),
         record("sampled_lse", "sampled.cu", "poi_tpu/ops/fused_sampled.py:76", attn["sampled_lse"],
-               sampled["lse_err"], sampled["lse"], device_ms=sampled["lse"]["device_ms"]),
+               sampled["lse_err"], sampled["lse"],
+               **{k: sampled["lse"][k] for k in ("device_ms", *(f"{n}_ms" for n in SAMPLED_LSE_KERNELS))}),
         record("sampled_bwd", "sampled.cu", "poi_tpu/ops/fused_sampled.py:103", attn["sampled_bwd"],
                sampled["grad_err"], sampled["bwd"],
                **{k: sampled["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in SAMPLED_BWD_KERNELS))}),
@@ -1832,7 +2060,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(ab_main(sys.argv[2]) if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3 else main())
     except Exception:
         traceback.print_exc()
         sys.exit(1)

@@ -48,7 +48,9 @@ _SIGNATURES = {
     "rnn_max_hidden": [],
     "rnn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rnn_bwd_splits": [_I, _I, _I],
-    "rnn_bwd": [_P] * 8 + [_I, _I, _I, _I, _P],
+    "rnn_bwd_cluster_size": [_I],
+    "rnn_bwd_fits": [_I, _I],
+    "rnn_bwd": [_P] * 8 + [_I] * 5 + [_P],
     "ce_supports_dim": [_I],
     "ce_lse_scratch": [_I, _I, _I],
     "ce_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -56,7 +58,8 @@ _SIGNATURES = {
     "ce_bwd_scratch": [_I, _I, _I],
     "ce_bwd": [_P] * 9 + [_I, _I, _I, _I, _P],
     "sampled_supports_dim": [_I],
-    "sampled_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sampled_lse_scratch": [_I] * 4,
+    "sampled_lse": [_P] * 7 + [_I] * 5 + [_P],
     "sampled_bwd_scratch": [_I] * 5,
     "sampled_bwd": [_P] * 11 + [_I] * 6 + [_P],
     "topk_plan": [_I, _I, _I, _I, ctypes.POINTER(_I)],

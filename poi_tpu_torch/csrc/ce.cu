@@ -98,8 +98,8 @@ __device__ __forceinline__ float exp_v(float x) {
 
 // Resident query rows: 64 (4 warps) or 128 (8 warps, each streamed tile
 // feeding twice the rows). The streamed catalog tile stays at kTile = 64
-// rows: mma_tiles.cuh's kTile is shared with sampled.cu, and tile_logits
-// produces a warp's 16 x 64 logits in registers (32 fp32 a thread) from it.
+// rows: tile_logits produces a warp's 16 x 64 logits in registers (32 fp32 a
+// thread) from it.
 template <int Rows>
 __host__ __device__ constexpr int lse_threads() {
   return Rows * 2;  // Rows / 16 warps

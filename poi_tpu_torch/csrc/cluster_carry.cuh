@@ -1,6 +1,6 @@
 // Helpers of the recurrences' serial kernels that run a group of batch rows
 // on a thread-block cluster, one mma.sync tile product a step
-// (csrc/gru_fwd.cu, csrc/gru_bwd.cu, csrc/lstm.cu):
+// (csrc/gru_fwd.cu, csrc/gru_bwd.cu, csrc/lstm.cu, csrc/rnn.cu):
 //
 // - fragment loads from shared memory (ldmatrix);
 // - the forwards' fast sigmoid and tanh;
@@ -100,6 +100,17 @@ __device__ __forceinline__ void st_cluster_f2(uint32_t addr, int rank, float x, 
 __device__ __forceinline__ void st_async_u32(uint32_t addr, uint32_t bar, int rank, uint32_t v) {
   asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(map_rank(addr, rank)),
                "r"(v), "r"(map_rank(bar, rank))
+               : "memory");
+}
+
+// 16 bytes by st.async at addresses already mapped into the receiving CTA's
+// window (map_rank): a CTA's shared memory is one contiguous window, so an
+// offset added to a mapped base stays in that CTA. One 16-byte store moves
+// four times the bytes of st_async_u32's in one transaction.
+__device__ __forceinline__ void st_async_v4(uint32_t remote_addr, uint32_t remote_bar, uint4 v) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(
+                   remote_addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(remote_bar)
                : "memory");
 }
 

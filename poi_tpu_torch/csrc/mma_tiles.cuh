@@ -1,4 +1,5 @@
-// Tensor-core tile helpers shared by the catalog kernels (ce.cu, sampled.cu).
+// Tensor-core tile helpers shared by the catalog kernels (ce.cu, topk.cu;
+// sampled.cu takes its bf16 packing).
 //
 // A block is 4 warps; each warp owns 16 rows of a "resident" operand, and the
 // other operand streams through shared memory in tiles of kTile rows,

@@ -20,10 +20,36 @@
 //   The positive column and its gradient stay outside, as on the TPU.
 //   D is 64, 128 or 256.
 //
-// B9, sampled_lse_kernel (tile code shared with ce.cu through
-// mma_tiles.cuh): row blocks of 64 stream the pool in double-buffered tiles
-// of 64 (cp.async) on warp-level mma.sync, the resident rows' A fragments
-// read from shared memory at every tile, with a running max and sum a row.
+// B9, the pool LSE. What bounds it on this card: its product, 2*N*S*D
+// FLOPs (4.3 GFLOP at config #4's N = 8,192, S = 1,024, D = 256: 4.3 us at
+// the tensor cores' 989 TFLOP/s), and the N*S exponentials (2.0 us on the
+// special-function units). The first design (row blocks of 64 on 4 warps of
+// mma.sync, the resident rows' fragments re-read from shared memory at
+// every tile, cp.async double buffering) ran 16x its bound, latency-bound.
+// Design: csrc/ce.cu's ce_lse_wg_kernel (B7) with the hit mask
+// (sampled_lse_wg_kernel<D, Cons>):
+// - a block holds 64 Cons query rows, loaded once by TMA, and their
+//   targets; a producer warpgroup keeps a ring of 64-row pool tiles in
+//   flight by TMA, each tile's biases and ids riding the ring beside it;
+// - Cons consumer warpgroups run wgmma m64n64k16 (A and B from smem by
+//   descriptor) into two logit buffers each, ping-ponged on named barriers
+//   so some warpgroups' exponentials overlap others' products;
+// - each logit is folded in base 2 (B7's t = fmaf(x, log2e, b log2e)), a hit replaced by the reference's -1e30 first (in base 2),
+//   a ragged column by -inf; the running max starts finite, so a row or a
+//   range whose every entry is a hit or padding keeps a finite max and
+//   gives -1e30, never NaN or -inf;
+// - where the row blocks cannot fill the card (config #4: 64 blocks of
+//   128 rows), the pool's tiles are cut into contiguous ranges
+//   (fill_splits: 2 of 8 tiles there), each range's partial (max, sum) to
+//   scratch (sampled_lse_scratch), and sampled_lse_merge combines them in
+//   range order. No atomics: the same bits every run.
+// Cons is 4 (256 rows, B7's) for D = 64 and 128 and 2 (128 rows) at
+// D = 256, where 256 rows fit only with a 3-stage ring (timed once: no
+// faster, PERF.md). The C entry takes the splits to force (chip_smoke.py's
+// `sampled_lse splits` times them); the wrapper passes 0, the rule. At
+// config #4's shape the rule took 0.0148 ms (kernel) + 0.0020 (merge) of
+// device time; one range took 0.0247 (no merge), 4 and 8 ranges 0.0183 and
+// 0.0247 (H100, 700 W).
 //
 // B10, the backward. What bounds it on this card: its products, 6*N*S*D
 // FLOPs for the function (at config #4's N = 8,192, S = 1,024, D = 256:
@@ -89,88 +115,222 @@
 
 namespace {
 
-template <int D>
-constexpr int smem_bytes() {
-  return 3 * kTile * (D + kPad) * 2;  // the resident tile and two streamed ones
+// ---------------------------------------------------------------- B9: the pool LSE
+//
+// csrc/ce.cu's ce_lse_wg_kernel (B7) with the hit mask, copied rather than
+// shared: D = 256 needs half of B7's resident rows (below), the pool's ids
+// ride the ring beside the biases, and B7 keeps its code and bits.
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// Logits are folded in base 2 (t = fmaf(logit, log2e, bias log2e)); a hit
+// is the reference's -1e30 in base 2. The running max starts below every t
+// but finite, so no -inf - -inf arises.
+constexpr float kHit2 = kNegInit * kLog2e;
+constexpr float kLseInit = -3.0e38f;
+constexpr int kLseStr = 64;  // pool rows a streamed tile, the wgmma's N
+
+constexpr int kLseStages = 4;  // pool tiles in flight
+
+// Consumer warpgroups (64 query rows each) a block: 4 as B7 where D <= 128;
+// at D = 256 the 4-stage ring of 64 x 256 tiles (128 KB) beside 256
+// resident rows (128 KB) exceeds 227 KB, so 2 (128 rows).
+__host__ __device__ constexpr int lse_cons(int D) { return D == 256 ? 2 : 4; }
+
+template <int D, int Cons>
+constexpr int lse_smem_bytes() {
+  // 1024: room to align the base; the stages' biases and ids; the barriers.
+  return 1024 + (64 * Cons + kLseStages * kLseStr) * D * 2 + kLseStages * 2 * kLseStr * 4 + (2 * kLseStages + 1) * 8;
 }
 
-// tile_logits with the resident rows' A fragments read from a smem tile.
-template <int D>
-__device__ __forceinline__ void tile_logits_smem(float (&acc)[8][4], const bf16* res, int row0, const bf16* tile,
-                                                 int g, int t) {
-  constexpr int LD = D + kPad;
+__device__ __forceinline__ void named_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void named_arrive(int id) { asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory"); }
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The logits of a warpgroup's 64 resident rows against a pool tile, both
+// K-major in smem. Starts and commits. The consumer warpgroups take turns
+// in a ring (B7's ping-pong): group wg waits on named barrier 1 + wg (but
+// for group 0's first product), starts its product, then lets group wg + 1
+// go (but for the last group's last product); `n` and `of` count this
+// group's products.
+template <int D, int Cons>
+__device__ __forceinline__ void pool_logits_wg(float (&s)[kLseStr / 2], uint32_t res, uint32_t tile, int wg, int n,
+                                               int of) {
+  constexpr int SW = swizzle_bytes(D), KPC = SW / 32;
+  if (wg > 0 || n > 0) named_sync(1 + wg);
+  fence_regs(s);
+  wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll 4
   for (int ks = 0; ks < D / 16; ++ks) {
-    uint32_t a[4];
-    load_a<LD>(a, res, row0, ks * 16, g, t);
+    wgmma_ss<kLseStr>(s, smem_desc(res + (ks / KPC) * 64 * Cons * SW + (ks % KPC) * 32, 16, 8 * SW, SW),
+                      smem_desc(tile + (ks / KPC) * kLseStr * SW + (ks % KPC) * 32, 16, 8 * SW, SW), ks > 0);
+  }
+  wgmma_commit();
+  if (wg < Cons - 1 || n < of - 1) named_arrive(1 + (wg + 1) % Cons);
+}
+
+// Folds a tile's logits s (columns c0 + 8j + 2t + e of rows g and g + 8)
+// into the running base-2 max m and sum l of the two rows, from the
+// stage's biases and ids (vec: [bias | ids] of the tile's 64 columns): a
+// column whose id is the row's target (rid) is a hit, kHit2; kMask: columns
+// at or past n_valid are -inf.
+template <bool kMask>
+__device__ __forceinline__ void pool_fold(float (&s)[kLseStr / 2], float (&m)[2], float (&l)[2], const float* vec,
+                                          const int (&rid)[2], int c0, int n_valid, int t) {
+  const int* ids = reinterpret_cast<const int*>(vec + kLseStr);
+  float tmax[2][2] = {{kLseInit, kLseInit}, {kLseInit, kLseInit}};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* p = tile + (j * 8 + g) * LD + ks * 16 + 2 * t;
-      mma_bf16(acc[j], a, ld32(p), ld32(p + 8));
+  for (int j = 0; j < kLseStr / 8; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(vec + j * 8 + 2 * t);
+    const int2 id = *reinterpret_cast<const int2*>(ids + j * 8 + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool ok = !kMask || c0 + j * 8 + 2 * t + e < n_valid;
+      const float b2 = (e ? b.y : b.x) * kLog2e;
+      const int idv = e ? id.y : id.x;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // A hit is x 0 + kHit2: the mask picks the FMA's operands, so the
+        // logit takes one FMA as in B7 (a select of kHit2 into the
+        // accumulator registers had ptxas serialise the wgmma, C7515).
+        const bool hit = idv == rid[r];
+        float& x = s[4 * j + 2 * r + e];
+        x = ok ? fmaf(x, hit ? 0.f : kLog2e, hit ? kHit2 : b2) : -INFINITY;
+        tmax[r][e] = fmaxf(tmax[r][e], x);
+      }
     }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], fmaxf(tmax[r][0], tmax[r][1]));
+    float acc[2] = {l[r] * ex2(m[r] - mn), 0.f};
+#pragma unroll
+    for (int j = 0; j < kLseStr / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) acc[e] += ex2(s[4 * j + 2 * r + e] - mn);
+    }
+    m[r] = mn;
+    l[r] = acc[0] + acc[1];
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    sampled_lse_kernel(const bf16* __restrict__ q, const bf16* __restrict__ e, const float* __restrict__ b,
-                       const int* __restrict__ ids, const int* __restrict__ tgt, float* __restrict__ lse, int N,
-                       int S) {
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* res_s = reinterpret_cast<bf16*>(smem);  // [kTile][LD] query rows
-  bf16* str_s = res_s + kTile * LD;             // [2][kTile][LD] pool tiles
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int n0 = blockIdx.x * kTile;
-  const int row0 = n0 + warp * 16 + g;
+// Blocks: (row block of 64 Cons, pool range). With one range it writes
+// lse; with S ranges (gridDim.y) it writes its rows' partial base-2 max and
+// sum to part[split * N + row] and part[(S + split) * N + row].
+template <int D, int Cons>
+__global__ void __launch_bounds__(128 * (Cons + 1), 1)
+    sampled_lse_wg_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap e_map,
+                          const __grid_constant__ CUtensorMap b_map, const __grid_constant__ CUtensorMap id_map,
+                          const int* __restrict__ tgt, float* __restrict__ lse, float* __restrict__ part, int N,
+                          int S, int tiles_per_split) {
+  constexpr int SW = swizzle_bytes(D), CC = SW / 2, NCH = D / CC, Rows = 64 * Cons, ST = kLseStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* res_s = base;                                     // [NCH][Rows][SW bytes]
+  unsigned char* str_s = base + Rows * D * 2;                      // [ST][NCH][kLseStr][SW bytes]
+  float* vec_s = reinterpret_cast<float*>(str_s + ST * kLseStr * D * 2);  // [ST][bias | ids][kLseStr]
+  uint64_t* full = reinterpret_cast<uint64_t*>(vec_s + ST * 2 * kLseStr);
+  uint64_t* empty = full + ST;
+  uint64_t* res_full = empty + ST;
 
-  load_tile<D>(res_s, q, n0, N);
-  load_tile<D>(str_s, e, 0, S);
-  cp_async_commit();
-  int row_tgt[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) row_tgt[r] = row0 + 8 * r < N ? tgt[row0 + 8 * r] : -1;
+  const int r0 = blockIdx.x * Rows;
+  const int split = blockIdx.y, n_split = gridDim.y;
+  const int n_tiles = (S + kLseStr - 1) / kLseStr;
+  const int t0 = split * tiles_per_split, t1 = min(n_tiles, t0 + tiles_per_split);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 4 * Cons);  // every consumer warp
+    }
+    mbar_init(res_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  float m[2] = {kNegInit, kNegInit}, l[2] = {0.f, 0.f};
-  const int tiles = (S + kTile - 1) / kTile;
-  for (int it = 0; it < tiles; ++it) {
-    if (it + 1 < tiles) load_tile<D>(str_s + ((it + 1) & 1) * kTile * LD, e, (it + 1) * kTile, S);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    float acc[8][4];
-    tile_logits_smem<D>(acc, res_s, warp * 16, str_s + (it & 1) * kTile * LD, g, t);
-    const int s0 = it * kTile;
-    float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = s0 + j * 8 + 2 * t + c;
-        const bool ok = col < S;
-        const float bb = ok ? __ldg(b + col) : 0.f;
-        const int id = ok ? __ldg(ids + col) : -1;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float x = ok ? (id == row_tgt[r] ? kNegInit : acc[j][2 * r + c] + bb) : -INFINITY;
-          acc[j][2 * r + c] = x;
-          tmax[r] = fmaxf(tmax[r], x);
+  if (warp >= 4 * Cons) {  // the producer warpgroup: one thread keeps the ring full
+    // With four consumer warpgroups it hands its registers to them
+    // (setmaxnreg works per warpgroup, hence a whole producer warpgroup).
+    if constexpr (Cons == 4) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == 4 * Cons && lane == 0) {
+      mbar_arrive_expect_tx(res_full, Rows * D * 2);
+      for (int c = 0; c < NCH; ++c) tma_load_2d(res_s + c * Rows * SW, &q_map, c * CC, r0, res_full);
+      int st = 0;
+      uint32_t ph = 0;
+      for (int it = t0; it < t1; ++it) {
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_arrive_expect_tx(&full[st], kLseStr * D * 2 + 2 * kLseStr * 4);
+        for (int c = 0; c < NCH; ++c) {
+          tma_load_2d(str_s + (st * NCH + c) * kLseStr * SW, &e_map, c * CC, it * kLseStr, &full[st]);
+        }
+        tma_load_1d(vec_s + st * 2 * kLseStr, &b_map, it * kLseStr, &full[st]);
+        tma_load_1d(vec_s + (st * 2 + 1) * kLseStr, &id_map, it * kLseStr, &full[st]);
+        if (++st == ST) {
+          st = 0;
+          ph ^= 1;
         }
       }
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float mn = fmaxf(m[r], tmax[r]);
-      float s = l[r] * __expf(m[r] - mn);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s += __expf(acc[j][2 * r] - mn) + __expf(acc[j][2 * r + 1] - mn);
-      m[r] = mn;
-      l[r] = s;
-    }
-    __syncthreads();  // every warp is done with this buffer before the next load overwrites it
+    return;
   }
+
+  // 112 registers a consumer thread where four warpgroups share the file
+  // (the launch gives 96): two logit tiles and the running sums, no spills.
+  if constexpr (Cons == 4) asm volatile("setmaxnreg.inc.sync.aligned.u32 112;\n" ::: "memory");
+  const int wg = warp / 4, wi = warp % 4, g = lane / 4, t = lane % 4;
+  int rid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + wg * 64 + wi * 16 + g + 8 * r;
+    rid[r] = row < N ? tgt[row] : -1;
+  }
+  mbar_wait(res_full, 0);
+  const uint32_t res_addr = smem_u32(res_s) + wg * 64 * SW;  // the warpgroup's 64 resident rows
+
+  // Software pipeline: tile it + 1's logits are on the tensor cores while
+  // tile it is folded (s0 for the even tiles of the range, s1 for the odd).
+  // Past the range's last tile a step re-runs on that tile's stage (landed,
+  // never refilled) with every column masked, so every wgmma is started on
+  // the one path all steps take.
+  const uint32_t str_addr = smem_u32(str_s);
+  const int of = 1 + (t1 - t0 + 1) / 2 * 2;  // products a warpgroup starts
+  int n = 0;
+  float m[2] = {kLseInit, kLseInit}, l[2] = {0.f, 0.f};
+  float s0[kLseStr / 2], s1[kLseStr / 2];
+  mbar_wait(&full[0], 0);  // every range has a tile
+  pool_logits_wg<D, Cons>(s0, res_addr, str_addr, wg, n++, of);
+  auto step = [&](float (&sc)[kLseStr / 2], float (&sn)[kLseStr / 2], int cur) {
+    const int st = (min(cur, t1 - 1) - t0) % ST;
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (cur > t0 && cur < t1) {
+      // The warp is done with the previous stage (its ids and biases read by
+      // generic loads, before the next bulk write into it): lane 0 says so.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(st + ST - 1) % ST]);
+    }
+    const int k = min(cur + 1, t1 - 1) - t0;
+    mbar_wait(&full[k % ST], (k / ST) & 1);
+    pool_logits_wg<D, Cons>(sn, res_addr, str_addr + (k % ST) * NCH * kLseStr * SW, wg, n++, of);
+    const float* v = vec_s + st * 2 * kLseStr;
+    if (cur >= t1 || (cur + 1) * kLseStr > S) {
+      pool_fold<true>(sc, m, l, v, rid, cur * kLseStr, cur < t1 ? S : 0, t);
+    } else {
+      pool_fold<false>(sc, m, l, v, rid, 0, 0, t);
+    }
+  };
+  for (int it = t0; it < t1; it += 2) {
+    step(s0, s1, it);
+    step(s1, s0, it + 1);
+  }
+  wgmma_wait<0>();
+  fence_regs(s0);
+
   // The four threads of a quad hold the same two rows over disjoint columns.
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -179,28 +339,86 @@ __global__ void __launch_bounds__(kThreads)
       const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
       const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
       const float mn = fmaxf(m[r], mo);
-      l[r] = l[r] * __expf(m[r] - mn) + lo * __expf(mo - mn);
+      l[r] = l[r] * ex2(m[r] - mn) + lo * ex2(mo - mn);
       m[r] = mn;
     }
   }
   if (t == 0) {
-    if (row0 < N) lse[row0] = m[0] + logf(l[0]);
-    if (row0 + 8 < N) lse[row0 + 8] = m[1] + logf(l[1]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + wg * 64 + wi * 16 + g + 8 * r;
+      if (row >= N) continue;
+      if (n_split == 1) {
+        lse[row] = (m[r] + log2f(l[r])) * kLn2;
+      } else {
+        part[(size_t)split * N + row] = m[r];
+        part[(size_t)(n_split + split) * N + row] = l[r];
+      }
+    }
   }
 }
 
-template <int D>
-cudaError_t run_lse(const void* q, const void* e, const void* b, const void* ids, const void* tgt, void* lse, int N,
-                    int S, cudaStream_t s) {
-  constexpr int smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(sampled_lse_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  sampled_lse_kernel<D><<<(N + kTile - 1) / kTile, kThreads, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(e), static_cast<const float*>(b),
-      static_cast<const int*>(ids), static_cast<const int*>(tgt), static_cast<float*>(lse), N, S);
-  return cudaGetLastError();
+// The ranges' partials of row i, in base 2, in range order:
+// lse[i] = (M + log2(sum over s of l_s 2^(m_s - M))) ln 2, M = max_s m_s.
+// A row whose every pool entry is a hit or padding has M = kHit2 and gives
+// -1e30, as the reference does.
+__global__ void sampled_lse_merge(const float* __restrict__ part, float* __restrict__ lse, int N, int n_split) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  float M = part[i];
+  for (int s = 1; s < n_split; ++s) M = fmaxf(M, part[(size_t)s * N + i]);
+  float L = 0.f;
+  for (int s = 0; s < n_split; ++s) L += part[(size_t)(n_split + s) * N + i] * exp2f(part[(size_t)s * N + i] - M);
+  lse[i] = (M + log2f(L)) * kLn2;
 }
 
+// The ranges a kernel whose `blocks` resident blocks each stream `tiles`
+// tiles cuts them into: the rule (fill_splits) when forced <= 0, else
+// `forced` as far as the tiles allow; *per is the tiles a range.
+int stream_splits(int blocks, int tiles, int forced, int* per) {
+  if (forced <= 0) return fill_splits(blocks, tiles, per);
+  const int n = forced < tiles ? forced : tiles;
+  *per = (tiles + n - 1) / n;
+  return (tiles + *per - 1) / *per;
+}
+
+// The pool ranges of B9 with `cons` consumer warpgroups a block.
+int lse_splits(int N, int S, int cons, int forced, int* per) {
+  return stream_splits((N + 64 * cons - 1) / (64 * cons), (S + kLseStr - 1) / kLseStr, forced, per);
+}
+
+template <int D, int Cons>
+cudaError_t run_lse(const void* q, const void* e, const void* b, const void* ids, const void* tgt, void* lse,
+                    void* scratch, int N, int S, int forced, cudaStream_t s) {
+  CUtensorMap q_map, e_map, b_map, id_map;
+  // The int32 ids travel as 4-byte elements under an fp32 map (TMA copies bits).
+  if (!make_map(&q_map, q, N, D, 64 * Cons) || !make_map(&e_map, e, S, D, kLseStr) ||
+      !make_vec_map(&b_map, static_cast<const float*>(b), S, kLseStr) ||
+      !make_vec_map(&id_map, static_cast<const float*>(ids), S, kLseStr)) {
+    return cudaErrorInvalidValue;
+  }
+  int per = 0;
+  const int n_split = lse_splits(N, S, Cons, forced, &per);
+  constexpr int smem = lse_smem_bytes<D, Cons>();
+  auto kernel = sampled_lse_wg_kernel<D, Cons>;
+  // Once an instantiation and device: the shared-memory opt-in (host time on every call otherwise).
+  static uint64_t attribute_set = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 64 || !(attribute_set >> device & 1)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (device < 64) attribute_set |= uint64_t{1} << device;
+  }
+  float* part = static_cast<float*>(scratch);
+  kernel<<<dim3((N + 64 * Cons - 1) / (64 * Cons), n_split), 128 * (Cons + 1), smem, s>>>(
+      q_map, e_map, b_map, id_map, static_cast<const int*>(tgt), static_cast<float*>(lse), part, N, S, per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  sampled_lse_merge<<<(N + 255) / 256, 256, 0, s>>>(part, static_cast<float*>(lse), N, n_split);
+  return cudaGetLastError();
+}
 
 // ---------------------------------------------------------------- backward
 
@@ -480,15 +698,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   bwd_pass<D, true>(&e_map, &q_map, vecs.m, b, nullptr, ids, de, db, S, N, tiles_per_split);
 }
 
-// The ranges a pass splits its streamed tiles into: the rule (fill_splits)
-// when forced <= 0, else `forced` as far as the tiles allow; *per is the
-// tiles a range.
+// The ranges a backward pass splits its streamed tiles into.
 int pass_splits(int n_res, int n_str, int forced, int* per) {
-  const int tiles = (n_str + kStr - 1) / kStr;
-  if (forced <= 0) return fill_splits((n_res + kRes - 1) / kRes, tiles, per);
-  const int S = forced < tiles ? forced : tiles;
-  *per = (tiles + S - 1) / S;
-  return (tiles + *per - 1) / *per;
+  return stream_splits((n_res + kRes - 1) / kRes, (n_str + kStr - 1) / kStr, forced, per);
 }
 
 // Scratch floats a pass needs for its partials (0 when it does not split).
@@ -567,17 +779,30 @@ extern "C" int sampled_bwd_scratch(int N, int S, int D, int dq_splits, int de_sp
   return static_cast<int>(pass_scratch(N, S, D, false, dq_splits) + pass_scratch(S, N, D, true, de_splits));
 }
 
+// Floats of scratch sampled_lse needs for its ranges' partial sums (0 when
+// it does not split: pass any pointer). splits: as for sampled_lse.
+extern "C" int sampled_lse_scratch(int N, int S, int D, int splits) {
+  if (N <= 0 || S <= 0 || !sampled_supports_dim(D)) return 0;
+  int per = 0;
+  const int n_split = lse_splits(N, S, lse_cons(D), splits, &per);
+  return n_split > 1 ? 2 * n_split * N : 0;
+}
+
+// splits: 0 runs the split rule (the wrapper's), n > 0 forces n ranges of
+// the pool's tiles, as far as there are tiles (chip_smoke.py times them to
+// measure the rule). scratch: at least sampled_lse_scratch(N, S, D, splits)
+// floats.
 extern "C" int sampled_lse(const void* q, const void* e, const void* b, const void* ids, const void* tgt, void* lse,
-                           int N, int S, int D, int device, void* stream) {
+                           void* scratch, int N, int S, int D, int splits, int device, void* stream) {
   if (!sampled_supports_dim(D) || S <= 0) return cudaErrorInvalidValue;
   if (N <= 0) return cudaSuccess;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return run_lse<64>(q, e, b, ids, tgt, lse, N, S, s);
-    case 128: return run_lse<128>(q, e, b, ids, tgt, lse, N, S, s);
-    default: return run_lse<256>(q, e, b, ids, tgt, lse, N, S, s);
+    case 64: return run_lse<64, lse_cons(64)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
+    case 128: return run_lse<128, lse_cons(128)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
+    default: return run_lse<256, lse_cons(256)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
   }
 }
 

@@ -2,7 +2,7 @@
 // TMA tile loads into 128- or 64-byte-swizzled shared memory, mbarriers that
 // count their arrivals and bytes, smem matrix descriptors, and warpgroup
 // matrix multiplies (wgmma) with A in registers and B in smem.
-// Used by ce.cu (ce_lse), ce_bwd.cu and sampled.cu's backward; the
+// Used by ce.cu (ce_lse), ce_bwd.cu and sampled.cu; the
 // mma.sync kernels share mma_tiles.cuh instead. Also the ordered sum of a
 // split kernel's partials, and the host side: TMA descriptors and the split
 // count of a kernel that splits its streamed dimension to fill the card.

@@ -16,8 +16,13 @@ Counterpart of ``poi_tpu/ops/fused_rnn.py``. Contract, the TPU kernels':
   ``dh = dh·(1 - m) + dpre @ Cᵀ`` in fp32, and ``dC = Σ h_prevᵀ · dpre`` in
   fp32.
 
-The kernels keep bf16 ``C`` (2·H² bytes) in one block's shared memory, so
-they take H up to ``csrc/rnn.cu``'s ``rnn_max_hidden()`` (339).
+The forward keeps bf16 ``C`` (2·H² bytes) in one block's shared memory, so
+the pair takes H up to ``csrc/rnn.cu``'s ``rnn_max_hidden()`` (339). The
+backward recomputes every step's ``h_raw`` at once on the tensor cores, runs
+the serial carry (``dpre @ Cᵀ`` with the fp32 ``dpre`` split into three exact
+bf16 products) on a cluster of blocks a group of 8 rows (16 where the
+8-row groups' clusters would not all fit on the card at once), and forms
+``dC`` in fp32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -59,8 +64,8 @@ def _check_cuda(name: str, tensors, lib, H: int) -> None:
         raise ValueError(f"{name}: tensors on {sorted({str(t.device) for t in tensors})}; need one CUDA device")
     max_h = lib.rnn_max_hidden()
     if H > max_h:
-        raise ValueError(f"{name}: H={H} is not taken by the kernels: they hold bf16 C (2*H*H bytes) in one "
-                         f"block's shared memory, so H <= {max_h}")
+        raise ValueError(f"{name}: H={H} is not taken by the kernels: the forward holds bf16 C (2*H*H bytes) in "
+                         f"one block's shared memory, so H <= {max_h}")
 
 
 def fused_rnn_scan(xin: torch.Tensor, mask: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -138,8 +143,10 @@ def fused_rnn_bwd(xin, mask, c, hs, dhs):
         return dxin, dc.zero_()
     xin, mask, c, hs, dhs = (t.contiguous() for t in tensors)
     partial = torch.empty(lib.rnn_bwd_splits(B, T, H), H, H, dtype=torch.float32, device=dev)
+    # Cluster 0: the carry's own pick.
     rc = lib.rnn_bwd(xin.data_ptr(), mask.data_ptr(), c.data_ptr(), hs.data_ptr(), dhs.data_ptr(), dxin.data_ptr(),
-                     partial.data_ptr(), dc.data_ptr(), B, T, H, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+                     partial.data_ptr(), dc.data_ptr(), B, T, H, 0, dev.index,
+                     torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rnn_bwd launch")
     fused_rnn_bwd.launches += 1
     return dxin, dc

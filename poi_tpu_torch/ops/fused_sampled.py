@@ -95,21 +95,26 @@ def bwd_kernel_args(q, e_neg, b_neg, neg_ids, targets, lse_tot, g):
 
 
 def sampled_lse(q, e_neg, b_neg, neg_ids, targets) -> torch.Tensor:
-    """[N] fp32 log-sum-exp of each row's masked negative logits.
+    """[N] fp32 log-sum-exp of each row's masked negative logits (-1e30 for a
+    row whose every pool entry is a hit).
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise; ``sampled_lse.launches`` counts the launches.
+    CPU tensors take the plain version. CUDA tensors launch the kernel (and
+    the ordered merge of its pool ranges' partials where it splits) or
+    raise; ``sampled_lse.launches`` counts the calls that launched it.
     """
     N, S, D = _shapes("sampled_lse", q, e_neg, b_neg, neg_ids, targets)
     if _check("sampled_lse", {"q": q, "e_neg": e_neg, "b_neg": b_neg, "neg_ids": neg_ids, "targets": targets}):
         return sampled_lse_reference(q, e_neg, b_neg, neg_ids, targets)
-    lse = torch.empty(N, dtype=torch.float32, device=q.device)
+    dev = q.device
+    lse = torch.empty(N, dtype=torch.float32, device=dev)
     if N == 0:
         return lse
+    lib = _build.library()
     args = _kernel_args(q, e_neg, b_neg, neg_ids, targets)
-    dev = q.device
-    rc = _build.library().sampled_lse(*(a.data_ptr() for a in args), lse.data_ptr(), N, S, D, dev.index,
-                                      torch.cuda.current_stream(dev).cuda_stream)
+    # Scratch for the pool ranges' partial sums; 0: the split rule.
+    scratch = torch.empty(max(1, lib.sampled_lse_scratch(N, S, D, 0)), dtype=torch.float32, device=dev)
+    rc = lib.sampled_lse(*(a.data_ptr() for a in args), lse.data_ptr(), scratch.data_ptr(), N, S, D, 0, dev.index,
+                         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "sampled_lse launch")
     sampled_lse.launches += 1
     return lse
@@ -159,6 +164,9 @@ class SampledNLL(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, e_neg, b_neg, s_pos, targets, neg_ids):
         q, e_neg, b_neg, s_pos = q.detach(), e_neg.detach(), b_neg.detach(), s_pos.detach().float()
+        if q.is_cuda:
+            # The kernels' bf16/int32 arguments, made once for both directions.
+            q, e_neg, b_neg, neg_ids, targets = _kernel_args(q, e_neg, b_neg, neg_ids, targets)
         lse_tot = torch.logaddexp(sampled_lse(q, e_neg, b_neg, neg_ids, targets), s_pos)
         ctx.save_for_backward(q, e_neg, b_neg, s_pos, targets, neg_ids, lse_tot)
         return lse_tot - s_pos

@@ -157,3 +157,65 @@ def test_fused_rnn_rejects_bad_shapes():
     with pytest.raises(ValueError, match="hs and dhs"):
         fused_rnn_bwd(torch.zeros(2, 3, 8), torch.ones(2, 3), torch.zeros(8, 8, dtype=torch.bfloat16),
                       torch.zeros(2, 3, 8), torch.zeros(2, 3, 7))
+
+
+def _three_bf16_terms(x: torch.Tensor):
+    """The CUDA backward's split of an fp32 tensor (csrc/cluster_carry.cuh
+    split3): b0 = bf16(x), b1 = bf16(x - b0), b2 = bf16(x - b0 - b1)."""
+    b0 = x.to(torch.bfloat16)
+    r = x - b0.float()
+    b1 = r.to(torch.bfloat16)
+    return b0, b1, (r - b1.float()).to(torch.bfloat16)
+
+
+def _three_part_bwd(xin, mask, c16, hs, dhs, dc_dtype=torch.float32):
+    """csrc/rnn.cu's backward emulated in torch. Part 1: the coefficient
+    a = m (1 - h_raw²) of every step at once, h_raw from bf16(h_prev).
+    Part 2: the serial carry, dpre(t) = d a[t] with d = dh + dhs[t], and
+    dh = d (1 - m) + dpre @ Cᵀ as three bf16-term products, the smallest
+    first. Part 3: dC = h_prevᵀ dpre over all (b, t), its operands rounded
+    to ``dc_dtype`` (the kernel's: fp32)."""
+    B, T, H = xin.shape
+    w = c16.float()
+    h_prev = torch.cat([torch.zeros(B, 1, H), hs[:, :-1]], dim=1)
+    h_raw = torch.tanh(xin + h_prev.to(torch.bfloat16).float() @ w)
+    a = mask[:, :, None] * (1.0 - h_raw * h_raw)
+    dxin = torch.empty(B, T, H)
+    keep = torch.zeros(B, H)
+    for t in range(T - 1, -1, -1):
+        dh = keep
+        if t < T - 1:
+            terms = _three_bf16_terms(dxin[:, t + 1])
+            dh = keep + ((terms[2].float() @ w.T + terms[1].float() @ w.T) + terms[0].float() @ w.T)
+        d = dh + dhs[:, t]
+        dxin[:, t] = d * a[:, t]
+        keep = d * (1.0 - mask[:, t, None])
+    dc = h_prev.reshape(-1, H).to(dc_dtype).float().T @ dxin.reshape(-1, H).to(dc_dtype).float()
+    return dxin, dc
+
+
+@pytest.mark.parametrize("H", [16, 20])
+def test_three_part_bwd_matches_pallas_vjp(H):
+    """The CUDA backward's restructured arithmetic (the coefficients from all
+    steps at once, the carry on split bf16 terms, dC in fp32), emulated on
+    the CPU, against jax.vjp of the Pallas recurrence in interpret mode, at a
+    multiple of 8 and at a ragged width. Every row has a padded tail with
+    nonzero dhs there, and dxin is exactly 0 on padded steps. dC from bf16
+    operands misses the tolerance, so it stays in fp32."""
+    xin, c, mask, rng = _case(H=H, seed=17, min_len=2)
+    mask[:, -2:] = 0.0  # a padded tail on every row
+    mask[0, :-2] = 1.0
+    dhs = rng.normal(size=xin.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, w: jax_fused_rnn_scan(a, _mask_bh(mask, H), w, True), jnp.asarray(xin),
+                     jnp.asarray(c))
+    dxin_j, dc_j = vjp(jnp.asarray(dhs))
+    x, m = torch.from_numpy(xin), torch.from_numpy(mask)
+    c16 = torch.from_numpy(c).to(torch.bfloat16)
+    hs = rnn_scan_reference(x, m, c16)
+    dxin, dc = _three_part_bwd(x, m, c16, hs, torch.from_numpy(dhs))
+    _close(dxin, dxin_j, REL_TOL, "dxin")
+    _close(dc, np.asarray(dc_j, np.float32), REL_TOL, "dC")
+    assert (dxin.numpy()[mask == 0] == 0).all()
+    _, dc_one = _three_part_bwd(x, m, c16, hs, torch.from_numpy(dhs), dc_dtype=torch.bfloat16)
+    scale = np.abs(np.asarray(dc_j)).max()
+    assert np.abs(dc_one.numpy() - np.asarray(dc_j)).max() / scale > 10 * REL_TOL

@@ -281,3 +281,77 @@ def test_draw_sampled_negatives_is_keyed_by_its_generator():
     a, b, c = draw(1), draw(1), draw(2)
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert a.shape == (1024,) and a.dtype == torch.int64 and 0 <= int(a.min()) and int(a.max()) < 300
+
+
+LOG2E = np.float32(1.4426950408889634)
+LN2 = np.float32(0.6931471805599453)
+
+
+def _b9_lse(q, e, b, ids, tgt, splits, tile=64):
+    """csrc/sampled.cu's pool LSE written in plain torch: the pool's tiles
+    cut into ``splits`` ranges (csrc/sampled.cu lse_splits, the same rule
+    as _ranges), each range folded tile by tile into a running base-2 max
+    (starting at -3e38, finite) and sum of every row, a logit t = z log2(e)
+    with the bias scaled alike, a hit replaced by -1e30 in base 2; then the
+    ranges' (max, sum) pairs merged in range order:
+    lse = (M + log2(sum_s l_s 2^(m_s - M))) ln 2."""
+    qb, eb = _bf16(q), _bf16(e)
+    hit2 = torch.tensor(NEG, dtype=torch.float32) * LOG2E
+    N, S = q.shape[0], e.shape[0]
+    parts = []
+    for s0, s1 in _ranges(S, splits, tile):
+        m, l = torch.full((N,), -3.0e38), torch.zeros(N)
+        for c0 in range(s0, s1, tile):
+            c1 = min(s1, c0 + tile)
+            t = (qb @ eb[c0:c1].T) * LOG2E + b[c0:c1] * LOG2E
+            t = torch.where(ids[None, c0:c1] == tgt[:, None], hit2, t)
+            mn = torch.maximum(m, t.max(dim=1).values)
+            l = l * torch.exp2(m - mn) + torch.exp2(t - mn[:, None]).sum(dim=1)
+            m = mn
+        parts.append((m, l))
+    M = parts[0][0]
+    for m, _ in parts[1:]:
+        M = torch.maximum(M, m)
+    L = torch.zeros(N)
+    for m, l in parts:
+        L = L + l * torch.exp2(m - M)
+    return (M + torch.log2(L)) * LN2
+
+
+@pytest.mark.parametrize("splits", [1, 4, 5])
+@pytest.mark.parametrize("hits", ["mixed", "all"])
+def test_b9_range_structure_matches_pallas_forward(splits, hits):
+    """The CUDA pool LSE's structure (64-row tiles folded in base 2, pool
+    ranges, partial pairs merged in range order) held against poi_tpu's
+    sampled_nll_rows forward in interpret mode and against
+    sampled_lse_reference, at N = 330 and a pool of 200 entries padded to
+    330 (bias -1e30, id -1): 6 tiles, which 4 and 5 ranges both cut into 3,
+    the last wholly padding. "mixed": many accidental hits; "all": every pool
+    entry is one id, the target of rows 0-9, whose lse is -1e30 and nll 0."""
+    rng = np.random.default_rng(12)
+    N, S_real, S, D = 330, 200, 330, 256
+    q = (rng.normal(size=(N, D)) * 0.3).astype(np.float32)
+    e_neg = (rng.normal(size=(S, D)) * 0.3).astype(np.float32)
+    b_neg = (rng.normal(size=S) * 0.1 + 1.3).astype(np.float32)
+    s_pos = rng.normal(size=N).astype(np.float32)
+    targets = rng.integers(0, 60, N).astype(np.int32)
+    ids = rng.integers(0, 60, S).astype(np.int32)
+    if hits == "all":
+        ids[:] = 7
+        targets[:10] = 7
+        targets[10:] = np.where(targets[10:] == 7, 8, targets[10:])
+    b_neg[S_real:], ids[S_real:] = NEG, -1
+    if hits == "mixed":
+        assert (ids[None, :] == targets[:, None]).sum() > 100, "the case needs many hits"
+    assert _ranges(S, splits)[-1][0] >= S_real or splits == 1, "a range of padding only"
+
+    want_nll = np.asarray(jax_sampled_nll_rows(*map(jnp.asarray, (q, e_neg, b_neg, s_pos)),
+                                               (jnp.asarray(targets), jnp.asarray(ids)), True))
+    t = [torch.from_numpy(a) for a in (q, e_neg, b_neg, ids, targets)]
+    lse = _b9_lse(*t, splits)
+    assert torch.isfinite(lse).all()
+    nll = torch.logaddexp(lse, torch.from_numpy(s_pos)) - torch.from_numpy(s_pos)
+    _close(nll.numpy(), want_nll, REL_TOL, "nll")
+    torch.testing.assert_close(lse, sampled_lse_reference(*t), rtol=0, atol=1e-4)
+    if hits == "all":
+        assert (lse[:10] == NEG).all() and (nll[:10] == 0).all() and (want_nll[:10] == 0).all()
