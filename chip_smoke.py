@@ -156,15 +156,28 @@ LSTM_TIMED = {"b1": (1, 64, 128), "b256": (256, 64, 128), "h256": (64, 64, 256)}
 # train shape, serving's request batch 1 and 256, then H = 256 and H = 64 at
 # config #2's B and T (the widths where the pick is 8 and 2 blocks).
 LSTM_CLUSTER_CASES = ((64, 64, 128), (1, 64, 128), (256, 64, 128), (64, 64, 256), (64, 64, 64))
-# The RNN also at a width that is no multiple of 16 (B6 zero-pads the last
-# octet and K) and at 339, the pair's limit (rnn_max_hidden()).
-RNN_SHAPES = ((64, 32, 128), (7, 32, 128), (33, 16, 64), (9, 32, 100), (5, 32, 339))
+# The RNN also at widths that are no multiple of 16 (the kernels zero-pad
+# the last octet and K; 45 is no multiple of 4 either, so B5 moves xin by
+# cp.async, on 300 rows), at 339 (the old limit), 512, and 640 (the pair's
+# limit, rnn_max_hidden()), and at serving's request batch 1.
+RNN_SHAPES = ((64, 32, 128), (7, 32, 128), (33, 16, 64), (9, 32, 100), (300, 16, 45), (5, 32, 339), (5, 32, 512),
+              (3, 32, 640), (1, 32, 128))
+# B5 timed beside cuDNN's nn.RNN forward (B, T, H): serving's request batch
+# 1 and 256 at config #3's width, and H = 512 at batch 256; B6 also at the
+# last (``h512``).
+RNN_TIMED = {"b1": (1, 32, 128), "b256": (256, 32, 128), "h512": (256, 32, 512)}
+# B5's cluster choice, timed at each cluster and rows a group that fit
+# (B, T, H): config #3's train shape, serving's request batch 1 and 256,
+# then H = 64, 339 and 512 at config #3's B and T, and H = 512 at batch 256
+# (where 8-row groups on clusters of 8 would not all fit on the card).
+RNN_FWD_CLUSTER_CASES = ((64, 32, 128), (1, 32, 128), (256, 32, 128), (64, 32, 64), (64, 32, 339), (64, 32, 512),
+                         (256, 32, 512))
 # B6's cluster choice, timed at each cluster that fits (B, T, H): config
-# #3's train shape, then H = 64 and H = 339 at its B and T (the pick is 8
-# blocks at H = 128 and 339, 4 at H = 64), then H = 128 at a batch of 7
+# #3's train shape, then H = 64, 339 and 512 at its B and T (the pick is 8
+# blocks at H = 128, 339 and 512, 4 at H = 64), then H = 128 at a batch of 7
 # and of 256 (where the pick's clusters of 8-row groups would not all fit,
 # so it takes 16-row groups; smaller clusters keep 8).
-RNN_CLUSTER_CASES = ((64, 32, 128), (64, 32, 64), (64, 32, 339), (7, 32, 128), (256, 32, 128))
+RNN_CLUSTER_CASES = ((64, 32, 128), (64, 32, 64), (64, 32, 339), (64, 32, 512), (7, 32, 128), (256, 32, 128))
 # Configs #2 and #3 at full width, device-sampled like config #4: the preset
 # and the kernels its train step launches (the recurrence's forward first).
 REC_CONFIGS = {"lstm": ("lstm_bpr_foursquare", ("lstm_fwd", "lstm_bwd")),
@@ -748,9 +761,10 @@ def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str)
     (kernel and merge apart, also at ``SAMPLED_LSE_SPLITS``) and B10 (pass by
     pass, also at ``SAMPLED_SPLITS``) at config #4's shape, B3 at config
     #2's and at ``LSTM_TIMED`` (and at each cluster of
-    ``LSTM_CLUSTER_CASES``), B5 and B6 (pass by pass, and at each cluster of
-    ``RNN_CLUSTER_CASES``) at config #3's. After the timing phases, as every
-    profiler reading."""
+    ``LSTM_CLUSTER_CASES``), B5 at config #3's and at ``RNN_TIMED`` (and at
+    each cluster of ``RNN_FWD_CLUSTER_CASES``), B6 (pass by pass, and at each
+    cluster of ``RNN_CLUSTER_CASES``) at config #3's and at ``RNN_TIMED``'s
+    H = 512. After the timing phases, as every profiler reading."""
     from poi_tpu_torch.ops.fused_lstm import fused_lstm_scan
     from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan
     from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse
@@ -759,8 +773,8 @@ def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str)
              ("sampled_bwd", sampled["bwd"], sampled_bwd, SAMPLED_BWD_KERNELS),
              *(("lstm_fwd", lstm[k], fused_lstm_scan, LSTM_FWD_KERNELS)
                for k in ("fwd", *(f"fwd_{k}" for k in LSTM_TIMED))),
-             ("rnn_fwd", rnn["fwd"], fused_rnn_scan, RNN_FWD_KERNELS),
-             ("rnn_bwd", rnn["bwd"], fused_rnn_bwd, RNN_BWD_KERNELS)]
+             *(("rnn_fwd", rnn[k], fused_rnn_scan, RNN_FWD_KERNELS) for k in ("fwd", *(f"fwd_{k}" for k in RNN_TIMED))),
+             *(("rnn_bwd", rnn[k], fused_rnn_bwd, RNN_BWD_KERNELS) for k in ("bwd", "bwd_h512"))]
     sampled_split_times(sampled["bwd"]["args"], gpu)
     sampled_lse_split_times(sampled["lse"]["args"], gpu)
     for tag, t, fn, names in cases:
@@ -769,6 +783,7 @@ def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str)
         log(f"[time] {tag} {'x'.join(map(str, args[0].shape))}: {parts_text(t, names)} (CUDA events {t['ms']:.4f} "
             f"ms)  ({gpu})")
     lstm_cluster_choice(gpu)
+    rnn_fwd_cluster_choice(gpu)
     rnn_cluster_choice(gpu)
 
 
@@ -1081,6 +1096,7 @@ def recurrence_phase(tag: str, gates: int, shapes, tol: float, ops) -> dict:
     msg = expect_width_limit(scan, x, torch.ones(2, 3, device=DEV), torch.zeros(H, gates * H, device=DEV,
                                                                                   dtype=torch.bfloat16))
     assert gates != 4 or "cluster's blocks cannot hold" in msg, msg
+    assert gates != 1 or (H - 1 >= 640 and f"H <= {H - 1}" in msg), msg
     log(f"[{tag}] H={H} refused: {msg}")
     return out
 
@@ -1183,10 +1199,75 @@ def rnn_cluster_choice(gpu: str) -> None:
 
 
 def rnn_phase() -> dict:
+    """B5/B6 at ``RNN_SHAPES``, then B5 timed at ``RNN_TIMED`` beside its
+    plain version and cuDNN's forward, and B6 at its H = 512 shape beside
+    its plain version."""
+    import torch
+
     from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan, rnn_bwd_reference, rnn_scan_reference
 
-    return recurrence_phase("rnn", 1, RNN_SHAPES, RNN_TOL,
-                            (fused_rnn_scan, rnn_scan_reference, fused_rnn_bwd, rnn_bwd_reference))
+    out = recurrence_phase("rnn", 1, RNN_SHAPES, RNN_TOL,
+                           (fused_rnn_scan, rnn_scan_reference, fused_rnn_bwd, rnn_bwd_reference))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 17)
+    for key, (B, T, H) in RNN_TIMED.items():
+        x, mask, w, _ = recurrence_case(B, T, H, 1, gen)
+        hs = fused_rnn_scan(x, mask, w)
+        t = {"ms": time_ms(lambda: fused_rnn_scan(x, mask, w)),
+             "plain_ms": time_ms(lambda: rnn_scan_reference(x, mask, w), 5),
+             "library_ms": cudnn_ms("rnn", B, T, H, DEV),
+             **bound((x, mask, w), (hs,), bf16_flop=2 * B * T * H * H), "args": (x, mask, w)}
+        out[f"fwd_{key}"] = t
+        log(f"[time] rnn_fwd B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN "
+            f"nn.RNN forward {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+        if key != "h512":
+            continue
+        dhs = torch.randn(B, T, H, generator=gen, device=DEV)
+        args = (x, mask, w, hs, dhs)
+        t = {"ms": time_ms(lambda: fused_rnn_bwd(*args)), "plain_ms": time_ms(lambda: rnn_bwd_reference(*args), 5),
+             "library_ms": None, **bound(args, fused_rnn_bwd(*args), bf16_flop=2 * B * T * H * H,
+                                         fp32_flop=4 * B * T * H * H), "args": args}
+        out["bwd_h512"] = t
+        log(f"[time] rnn_bwd B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return out
+
+
+def rnn_fwd_cluster_choice(gpu: str) -> None:
+    """B5 at each cluster size and rows a group that fit, beside the pair
+    the kernel picks, at ``RNN_FWD_CLUSTER_CASES`` by device time: the
+    measurement behind the pick. A warp's arithmetic depends on neither, so
+    every pair gives the pick's bits. The C entry takes the cluster and the
+    rows to force; the wrapper always passes 0, the kernel's own pick."""
+    import torch
+
+    from poi_tpu_torch import _build
+    from poi_tpu_torch.ops.fused_rnn import fused_rnn_scan
+
+    lib = _build.library()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 18)
+    for B, T, H in RNN_FWD_CLUSTER_CASES:
+        x, mask, w, _ = recurrence_case(B, T, H, 1, gen)
+        want = fused_rnn_scan(x, mask, w)
+        hs = torch.empty(B, T, H, device=DEV)
+
+        def at(c, r):
+            rc = lib.rnn_fwd(x.data_ptr(), mask.data_ptr(), w.data_ptr(), hs.data_ptr(), B, T, H, c, r,
+                             x.device.index, torch.cuda.current_stream().cuda_stream)
+            _build.check(rc, f"rnn_fwd on a cluster of {c}, {r} rows a group")
+
+        times = {}
+        for c in (1, 2, 4, 8, 16):
+            for r in (8, 16):
+                if not lib.rnn_fwd_fits(H, c, r):
+                    continue
+                hs.zero_()
+                at(c, r)
+                assert torch.equal(hs, want), f"rnn_fwd C={c} R={r} B={B} H={H}: other bits"
+                times[c, r] = device_ms(lambda: at(c, r), expect=RNN_FWD_KERNELS)
+        pick = lib.rnn_fwd_cluster_size(B, H)
+        log(f"[time] rnn_fwd cluster choice B={B} T={T} H={H}, device time: "
+            + ", ".join(f"C={c}/R={r} {ms:.4f} ms" for (c, r), ms in times.items())
+            + f"; each the pick's bits; the kernel picks C={pick}/R={lib.rnn_fwd_group_rows(B, pick)}  ({gpu})")
 
 
 def gru_params(ds, cfg, seed: int = SEED):
@@ -1578,6 +1659,8 @@ def scripts_phase(state) -> None:
         for line in proc.stdout.splitlines():
             log(f"[{name}] {line}")
         assert proc.returncode == 0, f"{name} {' '.join(args)} exited {proc.returncode}:\n{proc.stderr[-3000:]}"
+        # Every point of bench_cells is within its recurrence's width limit.
+        assert name != "bench_cells" or "refused" not in proc.stdout, "bench_cells: a point was refused"
         log(f"[scripts] {name} {' '.join(args)}: exit 0 in {time.perf_counter() - t0:.1f} s")
 
 
@@ -1852,21 +1935,21 @@ def config_timing_phase(state, gpu: str) -> dict:
 # (``AB_KEPT``: asserted). ``AB_CHILD`` runs in each checkout's directory,
 # with its chip_smoke.py's helpers, and holds a call for every kernel
 # either names; its second argument lists the kernels to time.
-AB_TIMED = ("rnn_bwd", "sampled_lse")
-AB_KEPT = ("gru_bwd", "lstm_bwd", "sampled_bwd")
+AB_TIMED = ("rnn_fwd",)
+AB_KEPT = ("gru_bwd", "lstm_bwd", "sampled_bwd", "rnn_bwd", "sampled_lse")
 AB_CHILD = r"""
 import json, sys
 import torch
 import chip_smoke as cs
 from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan
 from poi_tpu_torch.ops.fused_lstm import fused_lstm_bwd, fused_lstm_scan
-from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan
+from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan, rnn_scan_reference
 from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse
 torch.backends.cuda.matmul.allow_tf32 = False
 cs.build_phase()
 gen = torch.Generator(device="cuda").manual_seed(1234)
 x, mask, w, _ = cs.recurrence_case(64, 32, 128, 1, gen)
-hs = fused_rnn_scan(x, mask, w)
+hs = rnn_scan_reference(x, mask, w)  # B6's input the same in both checkouts, whatever their B5
 dhs = torch.randn(64, 32, 128, generator=gen, device="cuda")
 q, e, b, ids, tgt, lse_tot, g = cs.sampled_case(8192, 1024, 256, 36969, gen)
 xw, wh, _, _ = cs.gru_case(64, 64, 128, gen)
@@ -1875,7 +1958,8 @@ gdh = torch.randn(64, 64, 128, generator=gen, device="cuda")
 lx, lmask, lw, _ = cs.recurrence_case(64, 64, 128, 4, gen)
 lst = fused_lstm_scan(lx, lmask, lw)
 ldh = torch.randn(64, 64, 128, generator=gen, device="cuda")
-calls = {"rnn_bwd": (lambda: fused_rnn_bwd(x, mask, w, hs, dhs), cs.RNN_BWD_KERNELS),
+calls = {"rnn_fwd": (lambda: (fused_rnn_scan(x, mask, w),), cs.RNN_FWD_KERNELS),
+         "rnn_bwd": (lambda: fused_rnn_bwd(x, mask, w, hs, dhs), cs.RNN_BWD_KERNELS),
          "sampled_lse": (lambda: (sampled_lse(q, e, b, ids, tgt),), cs.SAMPLED_LSE_KERNELS),
          "sampled_bwd": (lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g), cs.SAMPLED_BWD_KERNELS),
          "gru_bwd": (lambda: fused_gru_bwd(xw, wh, gh, gdh), cs.GRU_BWD_KERNELS),
@@ -2021,9 +2105,11 @@ def main() -> int:
         record("lstm_bwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:81", c2["lstm_bwd"], lstm["bwd_err"], lstm["bwd"],
                **{k: lstm["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in LSTM_BWD_KERNELS))}),
         record("rnn_fwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:48", c3["rnn_fwd"], rnn["fwd_err"], rnn["fwd"],
-               device_ms=rnn["fwd"]["device_ms"]),
+               device_ms=rnn["fwd"]["device_ms"], **{k: fwd_at(rnn[f"fwd_{k}"]) for k in RNN_TIMED}),
         record("rnn_bwd", "rnn.cu", "poi_tpu/ops/fused_rnn.py:65", c3["rnn_bwd"], rnn["bwd_err"], rnn["bwd"],
-               **{k: rnn["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in RNN_BWD_KERNELS))}),
+               **{k: rnn["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in RNN_BWD_KERNELS))},
+               h512={k: rnn["bwd_h512"][k] for k in ("ms", "plain_ms", "bound_ms", "device_ms",
+                                                    *(f"{n}_ms" for n in RNN_BWD_KERNELS))}),
         record("ce_lse", "ce.cu", "poi_tpu/ops/fused_ce.py:181", trained["ce_lse"], lse_err, times["ce_lse"],
                device_ms=times["ce_lse"]["device_ms"],
                config3={f: times["ce_lse_c3"][f] for f in ("ms", "plain_ms", "bound_ms", "device_ms",

@@ -46,7 +46,10 @@ _SIGNATURES = {
     "lstm_bwd_splits": [_I, _I, _I],
     "lstm_bwd": [_P] * 10 + [_I, _I, _I, _I, _P],
     "rnn_max_hidden": [],
-    "rnn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rnn_fwd_cluster_size": [_I, _I],
+    "rnn_fwd_group_rows": [_I, _I],
+    "rnn_fwd_fits": [_I, _I, _I],
+    "rnn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "rnn_bwd_splits": [_I, _I, _I],
     "rnn_bwd_cluster_size": [_I],
     "rnn_bwd_fits": [_I, _I],

@@ -114,6 +114,16 @@ __device__ __forceinline__ void st_async_v4(uint32_t remote_addr, uint32_t remot
                : "memory");
 }
 
+// The box of a 3-D tensor map at (c0, c1, c2) into this CTA's shared memory,
+// counted in bytes on `bar`; elements past the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // The box of a 4-D tensor map at (c0, c1, c2, c3) into this CTA's shared
 // memory, counted in bytes on `bar`; elements past the tensor arrive as zeros.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,

@@ -27,20 +27,64 @@
 // FLOPs or bytes. What does not depend on the carry is parallel work: the
 // backward's recompute of h_raw, a product [B*T, H] x [H, H], and dC.
 //
-// Forward (B5), rnn_fwd_kernel: the LSTM's first layout with one gate. A
-// block owns `rows` = 128 / H whole rows (one at H >= 128), thread (row, j)
-// owns unit j, its fp32 h in a register, bf16(h) double-buffered in shared
-// memory; bf16 C (2H^2 bytes: 32 KB at H = 128) sits in shared memory, and
-// each step is an H-long k-ordered FMA chain and a block barrier. It takes
-// H <= rnn_max_hidden() (339: bf16 C in one block); a larger H is refused
-// (cudaErrorInvalidValue), and the Python wrapper raises first and names the
-// limit.
+// Forward (B5), rnn_fwd_kernel<kRegK, R, kVec>: lstm.cu's forward (B3) with
+// one gate block and one carry; the two share cluster_carry.cuh's helpers
+// (tanh_fast, ldmatrix, st.async, the TMA load). The first design (a thread
+// a unit of one row, an H-long k-ordered FMA chain on shared-memory
+// operands, IEEE tanhf, a block barrier a step: ~2.0 us a step at H = 128)
+// held all of bf16 C in one block, which capped the pair at H <= 339.
+// - A cluster of C CTAs owns a group of R batch rows: 8 where the 8-row
+//   groups' clusters fit on the card at once (the A fragment's upper rows
+//   zero), else 16 (the mma's M); rows past B compute on zeros and store
+//   nothing. CTA p owns unit octets [p*O/C, (p+1)*O/C) of O = ceil(H/8) and
+//   their columns of C, [Hk, 8 an octet] bf16 (Hk = H rounded up to 16;
+//   padding zero), in shared memory; each consumer warp loads its octet's
+//   columns once as mma B fragments into registers (2 Hk/16: up to 80 at
+//   H = 640), so a step reads only bf16(h) from shared memory.
+// - Consumer warp w of CTA p owns octet p*O/C + w; the fp32 carry h of its
+//   R rows x 8 units stays in that thread's registers, in the accumulator
+//   layout, for the sequence.
+// - A step: wait for xin[t] and the mask (the ring below) and for h(t-1)
+//   (the h buffer's mbarrier); bf16(h) @ C on mma.sync m16n8k16 (exact bf16
+//   products summed in fp32, the TPU kernel's arithmetic), two chains (even
+//   and odd k-steps) added at the end; + xin[t], tanh_fast (ex2.approx,
+//   rcp.approx; within a few fp32 ulp of tanhf); the blend with the row's m;
+//   bf16(h) into the next h buffer of every CTA of the cluster, a row's 8
+//   units (gathered from the 4 lanes that hold them by shuffles) as one
+//   16-byte st.async counted on that CTA's mbarrier, double-buffered by
+//   step parity, with no barrier in the step (a CTA can only overwrite a
+//   buffer after every warp of every CTA has read it); fp32 h out to hs.
+//   The exchange brings 2 R H bytes into each SM a step (2 KB at R = 8,
+//   H = 128), a third of the backward carry's three terms.
+// - A producer warp streams xin in with one TMA box a step and CTA ([R rows]
+//   [the CTA's units] of xin, zero past B and H; 4-byte cp.async where
+//   H % 4 != 0), and the group's R mask values beside it in the same ring
+//   slot by cp.async (the mask rides the ring). Up to 4 slots on full /
+//   empty mbarriers; a consumer fences its reads of a slot against the async
+//   proxy before it releases the slot.
+// - Padded steps (m = 0) pass h through exactly: tanh_fast is finite, so
+//   m h_raw = 0 and (1 - m) h = h.
+// - C and R from (B, H): the smallest cluster that fits (at most 8 octets a
+//   CTA: C = 1 at H = 64, 2 at 128, 8 at 339 and 512, 16 at 640), R as
+//   above (rnn_fwd_cluster_size, rnn_fwd_group_rows). chip_smoke.py times
+//   every cluster that fits (`rnn_fwd cluster choice`, device time). Every
+//   cluster and row count gives the same bits: a warp's
+//   arithmetic depends on neither, nor on kRegK (k-steps past Hk / 16 are
+//   skipped).
+// - No atomics: a second launch gives the same bits. The product is two
+//   chains and tanh is approximated, so the backward's recompute (IEEE
+//   tanhf, the tensor cores' order in one chain) matches this forward to
+//   fp32 rounding, not bit for bit.
+// The pair takes any H up to rnn_max_hidden() (640: a warp's fragments of C,
+// and of C^T in the backward carry, stay in registers up to 40 k-steps);
+// a larger H is refused (cudaErrorInvalidValue), and the Python wrapper
+// raises first and names the limit.
 //
 // Backward (B6): csrc/gru_bwd.cu's three-part pattern with one gate block.
 // 1. rnn_bwd_coef_kernel: h_raw = tanh(xin + bf16(h_prev) @ C) of every
 //    step at once on the tensor cores (mma.sync m16n8k16: exact bf16
 //    products, fp32 sums, in the tensor cores' order, so h_raw matches the
-//    forward's k-ordered chain to fp32 rounding, not bit for bit), and from
+//    forward's two chains and tanh_fast to fp32 rounding, not bit for bit), and from
 //    it the coefficient a = m (1 - h_raw^2), which depends on the forward
 //    alone, written into dxin.
 // 2. rnn_bwd_carry_kernel<kRegK, R>, the serial chain. A cluster of C CTAs
@@ -51,7 +95,8 @@
 //    and sets the step's pace. CTA p owns unit octets [p*O/C, (p+1)*O/C) of
 //    O = ceil(H/8), a consumer warp each, and each warp holds the rows of C
 //    of its 8 units as mma B fragments in registers (the columns of C^T:
-//    2 Hk/16 registers, 44 at H = 339). Per step t = T-1 .. 0, at the
+//    2 Hk/16 registers, 44 at H = 339, 80 at H = 640; past 24 k-steps a CTA
+//    runs at most 8 warps, so that they fit). Per step t = T-1 .. 0, at the
 //    thread's (row, unit) pairs:
 //    - dh = d(t+1) (1 - m(t+1)) + dpre(t+1) @ C^T, where dpre(t+1) of the
 //      whole group arrived in this CTA's shared memory as three exact bf16
@@ -71,8 +116,9 @@
 //    into private slots of a three-slot ring (B4's carry). Padded steps
 //    (a = 0) give dpre = 0 exactly, and products of zero terms add +0, so
 //    the carry passes d through unchanged.
-//    C: the smallest of 1, 2, 4, 8 whose CTAs hold at most 2 octets each
-//    (else 8): 4 at H = 64, 8 at H = 100, 128 and 339. chip_smoke.py's
+//    C: the smallest of 1, 2, 4, 8 whose CTAs hold at most 2 octets each,
+//    else the largest of them that fits, 16 where none does: 4 at H = 64, 8
+//    at H = 100, 128, 339 and 512, 16 past 512. chip_smoke.py's
 //    `rnn_bwd cluster choice` times every
 //    size that fits (the C entry takes the cluster to force, the wrapper
 //    passes 0). A warp's arithmetic depends neither on C nor on the group's
@@ -94,59 +140,333 @@
 
 namespace {
 
-int rows_per_block(int H) { return H >= 128 ? 1 : 128 / H; }
+constexpr int kMaxK = 40;  // k-steps of C (forward) or C^T (backward carry) a warp holds in registers: Hk <= 640
 
-int fwd_smem_bytes(int H) { return 2 * H * H + 2 * rows_per_block(H) * H * 2; }  // C + double-buffered bf16(h)
+// Rows a group, both directions: 8 (the A fragment's upper rows zero) where
+// the 8-row groups' clusters of C fit on the card at once, else 16 (the
+// mma's M). The exchange's bytes into each SM set a step's pace, and 8 rows
+// halve them on twice the SMs.
+int rows_a_group(int B, int C) { return (B + 7) / 8 * C <= kSms ? 8 : 16; }
 
-bool fwd_takes(int H) { return H > 0 && rows_per_block(H) * H <= 1024 && fwd_smem_bytes(H) <= kMaxSmem; }
+// ------------------------------------------------------------- forward (B5)
+//
+// lstm.cu's forward (B3) with one gate block and one carry. A cluster of C
+// CTAs owns a group of R rows (16, the mma's M, or 8 with the A fragment's
+// upper rows zero); CTA p owns unit octets [p*O/C, (p+1)*O/C) of
+// O = ceil(H/8) and keeps their columns of C, [Hk, 8 an octet] bf16, in
+// shared memory, from which each consumer warp loads its octet's columns
+// once as mma B fragments into registers (2 Hk/16 registers: 80 at
+// H = 640). A producer warp streams each step's xin (one TMA box [R rows]
+// [the CTA's units] of xin, zero past B and H; 4-byte cp.async where
+// H % 4 != 0) and the group's R mask values (cp.async, zero past B) into a
+// ring of up to 4 slots on full / empty mbarriers.
+constexpr int kFwdMaxWarps = 8;   // unit octets (= consumer warps) a CTA at most
+constexpr int kFwdMaxSlots = 4;   // ring slots: steps t .. t + 3 (fewer where they do not fit)
+constexpr int kMaskFloats = 32;   // a slot's mask: up to 16 rows, padded to 128 bytes
 
-// tanh(x + bf16(h) @ C[:, j]) from the row's bf16(h) in shared memory: the
-// one k-ordered FMA chain both kernels use.
-__device__ __forceinline__ float step_raw(const bf16* __restrict__ h_s, const bf16* __restrict__ c_s, int H, int j,
-                                          float x) {
-  float acc = 0.f;
-#pragma unroll 8
-  for (int k = 0; k < H; ++k) acc = fmaf(__bfloat162float(h_s[k]), __bfloat162float(c_s[k * H + j]), acc);
-  return tanhf(x + acc);
+// The shared-memory layout of one CTA of the forward for width H on a
+// cluster of C, R rows a group.
+struct FwdLayout {
+  int O;     // unit octets, ceil(H / 8)
+  int ocp;   // octets a CTA at most, ceil(O / C): its consumer warps
+  int Hk;    // H rounded up to 16: the product's K
+  int ldb;   // bf16 row stride of the C slice [Hk][8 ocp] (+ 8: conflict-free ldmatrix)
+  int lda;   // bf16 row stride of the h buffers [2][R][Hk] (+ 8)
+  int xu;    // fp32 row stride of a slot's xin [R][xu]: the CTA's 8 ocp units (+ 4, for the banks)
+  int slot;  // fp32 a slot: xin, then the mask (a multiple of 32: 128-byte slots)
+  int slots;
+  int a_off, x_off, bar_off, bytes;
+};
+
+__host__ __device__ inline FwdLayout fwd_layout(int H, int C, int R) {
+  FwdLayout L;
+  L.O = (H + 7) / 8;
+  L.ocp = (L.O + C - 1) / C;
+  L.Hk = (H + 15) / 16 * 16;
+  L.ldb = 8 * L.ocp + 8;
+  L.lda = L.Hk + 8;
+  L.xu = 8 * L.ocp + 4;
+  L.slot = R * L.xu + kMaskFloats;
+  L.a_off = (L.Hk * L.ldb * 2 + 127) / 128 * 128;               // C slice [Hk][ldb] bf16 at 0
+  L.x_off = (L.a_off + 2 * R * L.lda * 2 + 127) / 128 * 128;    // h buffers [2][R][lda] bf16
+  for (L.slots = kFwdMaxSlots; L.slots > 2; --L.slots) {
+    if (L.x_off + L.slots * L.slot * 4 + (2 + 2 * kFwdMaxSlots) * 8 <= kMaxSmem) break;
+  }
+  L.bar_off = L.x_off + L.slots * L.slot * 4;
+  L.bytes = L.bar_off + (2 + 2 * kFwdMaxSlots) * 8;  // mbarriers: h buffers, ring full, ring empty
+  return L;
 }
 
-__global__ void rnn_fwd_kernel(const float* __restrict__ xin, const float* __restrict__ mask,
-                               const bf16* __restrict__ cw, float* __restrict__ hs, int B, int T, int H, int rows) {
+bool fwd_fits(int H, int C, int R) {
+  if (H <= 0 || C < 1 || C > 16 || (C & (C - 1)) != 0 || (R != 8 && R != 16)) return false;
+  const FwdLayout L = fwd_layout(H, C, R);
+  return C <= L.O && L.ocp <= kFwdMaxWarps && L.Hk / 16 <= kMaxK && L.bytes <= kMaxSmem;
+}
+
+// The cluster for (B, H): the smallest of 1, 2, 4, 8, 16 that fits (at
+// most 8 octets a CTA), on rows_a_group(B, C) rows a group; 0 when none fits.
+// Timed at every cluster (`rnn_fwd cluster choice`): the fewest CTAs were
+// the fastest or within 5% of it at every (B, H) measured, and a cluster of
+// 16 at H = 512 lost 24% to 8.
+int fwd_pick(int B, int H) {
+  for (int c = 1; c <= 16; c *= 2) {
+    if (fwd_fits(H, c, rows_a_group(B, c))) return c;
+  }
+  return 0;
+}
+
+// One cluster of C CTAs a group of R rows; blockDim = 32 (ocp + 1): warps
+// 0 .. ocp-1 own the CTA's octets (consumers), warp ocp is the producer.
+// kRegK: the k-steps of C's fragments held in registers, at least Hk / 16.
+// kVec: H % 4 == 0, so xin moves by one TMA copy a step (xmap: xin as
+// [B][T][H]), else by 4-byte cp.async.
+template <int kRegK, int R, bool kVec>
+__global__ void __launch_bounds__(32 * (kFwdMaxWarps + 1))
+    rnn_fwd_kernel(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ xin,
+                   const float* __restrict__ mask, const bf16* __restrict__ cw, float* __restrict__ hs, int B, int T,
+                   int H, int C) {
+  constexpr int NR = R / 8;  // rows a thread holds: g, and g + 8 at R = 16
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* c_s = reinterpret_cast<bf16*>(smem);  // [H, H]
-  bf16* hb = c_s + H * H;                     // [2, rows, H]
+  const FwdLayout L = fwd_layout(H, C, R);
+  const int KS = L.Hk / 16, ocp = L.ocp;
+  const int p = C > 1 ? static_cast<int>(cta_rank()) : 0;
+  const int grp = blockIdx.x / C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int ob = p * L.O / C, n_oct = (p + 1) * L.O / C - ob;
+  const bool owner = warp < n_oct;    // warp-uniform: this warp owns octet ob + warp
+  const bool producer = warp == ocp;  // warp-uniform: this warp moves xin and the mask in
+  bf16* slice = reinterpret_cast<bf16*>(smem);
+  float* xring = reinterpret_cast<float*>(smem + L.x_off);
+  uint64_t* hbar = reinterpret_cast<uint64_t*>(smem + L.bar_off);  // [2]: bf16(h) of the cluster arrived in buffer b
+  uint64_t* full = hbar + 2;                                         // [slots]: a step's xin and mask landed in slot s
+  uint64_t* empty = full + kFwdMaxSlots;                             // [slots]: slot s read by every owner warp
+  const int S = L.slots;
+  const uint32_t slice_a = shared_addr(slice), abuf_a = shared_addr(smem + L.a_off), hbar_a = shared_addr(hbar);
 
-  const int r = threadIdx.x / H;
-  const int j = threadIdx.x % H;
-  const int b = blockIdx.x * rows + r;
-  const bool valid = b < B;
-
-  for (int i = threadIdx.x; i < H * H; i += blockDim.x) c_s[i] = cw[i];
-  hb[r * H + j] = __float2bfloat16(0.0f);
-
-  const size_t row = valid ? b : 0;
-  const float* xrow = xin + row * T * H;
-  const float* mrow = mask + row * T;
-  float* hrow = hs + row * T * H;
-  float x = valid ? xrow[j] : 0.f;
-  float m = valid ? mrow[0] : 0.f;
-  float h = 0.f;
+  // The C slice: local column 8 lo + u is column 8 (ob + lo) + u of C, zero
+  // past H and past the CTA's octets; the h buffers (h0 = 0; K's padding
+  // stays zero) and the ring (rows past B and units past H stay zero) zero.
+  if (H % 8 == 0) {  // an octet is 16 aligned bytes of a row of C
+    for (int i = threadIdx.x; i < L.Hk * ocp; i += blockDim.x) {
+      const int k = i / ocp, lo = i % ocp;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (k < H && lo < n_oct) v = *reinterpret_cast<const uint4*>(cw + (size_t)k * H + 8 * (ob + lo));
+      *reinterpret_cast<uint4*>(slice + k * L.ldb + 8 * lo) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < L.Hk * 8 * ocp; i += blockDim.x) {
+      const int k = i / (8 * ocp), lc = i % (8 * ocp), lo = lc / 8, j = 8 * (ob + lo) + lc % 8;
+      const bool ok = k < H && lo < n_oct && j < H;
+      slice[k * L.ldb + lc] = ok ? cw[(size_t)k * H + j] : __float2bfloat16(0.f);
+    }
+  }
+  for (int i = threadIdx.x; i < (L.bar_off - L.a_off) / 16; i += blockDim.x) {
+    reinterpret_cast<uint4*>(smem + L.a_off)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  // The bytes of bf16(h) a step brings to each CTA: every octet's R rows x 8.
+  const uint32_t h_bytes = L.O * R * 8 * 2;
+  if (threadIdx.x == 0) {
+    mbar_init(&hbar[0], 1);
+    mbar_init(&hbar[1], 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], kVec ? 33 : 32);  // every producer lane's cp.async, and the TMA's bytes
+      mbar_init(&empty[s], n_oct);
+    }
+    mbar_init_fence();
+    // h(0) lands in buffer 1, h(1) in buffer 0 (h(T - 1) is never sent).
+    if (T > 1) mbar_arrive_expect_tx(&hbar[1], h_bytes);
+    if (T > 2) mbar_arrive_expect_tx(&hbar[0], h_bytes);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the zeros before any bulk copy
   __syncthreads();
+  // Every CTA of the cluster runs, its barriers armed, before the first remote store.
+  if (C > 1) {
+    cluster_arrive();
+    cluster_wait();
+  }
 
-  for (int t = 0; t < T; ++t) {
-    const bool more = valid && t + 1 < T;
-    const float nx = more ? xrow[(size_t)(t + 1) * H + j] : 0.f;
-    const float nm = more ? mrow[t + 1] : 0.f;
-    const float h_raw = step_raw(hb + (t & 1) * rows * H + r * H, c_s, H, j, x);
-    h = m * h_raw + (1.0f - m) * h;
-    if (valid) hrow[(size_t)t * H + j] = h;
-    hb[((t + 1) & 1) * rows * H + r * H + j] = __float2bfloat16(h);
-    x = nx;
-    m = nm;
-    __syncthreads();
+  if (producer) {
+    // Step t's xin (the group's rows, the CTA's units) and mask into ring
+    // slot t % S, S - 1 steps ahead of the owners, once they have read the
+    // slot's last step.
+    const int nu = min(8 * n_oct, H - 8 * ob), u0 = 8 * ob;  // the CTA's units [u0, u0 + nu) below H
+    const int rows = min(R, B - grp * R);
+    for (int t = 0; t < T; ++t) {
+      const int s = t % S;
+      if (t >= S) mbar_wait(&empty[s], (t / S - 1) & 1);
+      float* slot = xring + s * L.slot;
+      if constexpr (kVec) {
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], R * L.xu * 4);
+          tma_load_3d(slot, &xmap, u0, t, grp * R, &full[s]);
+        }
+      } else {
+        for (int e = lane; e < rows * nu; e += 32) {
+          const int r = e / nu, u = e % nu;
+          cp_async4(slot + r * L.xu + u, xin + ((size_t)(grp * R + r) * T + t) * H + u0 + u, true);
+        }
+      }
+      if (lane < R) {
+        cp_async4(slot + R * L.xu + lane, mask + (lane < rows ? (size_t)(grp * R + lane) * T + t : 0), lane < rows);
+      }
+      cp_async_arrive(&full[s]);
+    }
+  } else if (owner) {
+    // The warp's columns of C as B fragments, for the whole sequence.
+    uint32_t breg[kRegK][2];
+#pragma unroll
+    for (int kb = 0; kb < kRegK; ++kb) {
+      if (kb < KS) ldsm_x2_trans(breg[kb][0], breg[kb][1], slice_a + ((kb * 16 + lane % 16) * L.ldb + warp * 8) * 2);
+    }
+    const int j0 = 8 * (ob + warp) + 2 * tq;
+    bool ok[NR][2];
+#pragma unroll
+    for (int rr = 0; rr < NR; ++rr) {
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) ok[rr][ii] = grp * R + g + 8 * rr < B && j0 + ii < H;
+    }
+    float h[NR][2] = {};
+    for (int t = 0; t < T; ++t) {
+      // Step t's xin at the thread's pairs (rows g (+ 8), units 2 tq (+ 1)
+      // of its octet) and its rows' mask.
+      const int s = t % S;
+      mbar_wait(&full[s], (t / S) & 1);
+      const float* slot = xring + s * L.slot;
+      float2 x[NR];
+      float m[NR];
+#pragma unroll
+      for (int rr = 0; rr < NR; ++rr) {
+        x[rr] = *reinterpret_cast<const float2*>(slot + (g + 8 * rr) * L.xu + 8 * warp + 2 * tq);
+        m[rr] = slot[R * L.xu + g + 8 * rr];
+      }
+      // The slot's reads ordered before the producer's next bulk write into it.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      // h(t - 1) of the whole cluster in buffer t & 1 (zero at t = 0); then
+      // the next phase of its barrier is armed for h(t + 1).
+      if (t > 0) {
+        mbar_wait(&hbar[t & 1], ((t - 1) >> 1) & 1);
+        if (threadIdx.x == 0 && t + 1 < T - 1) mbar_arrive_expect_tx(&hbar[t & 1], h_bytes);
+      }
+      // bf16(h) @ C: two mma chains (even and odd k-steps), added at the
+      // end, the next k-step's A fragment loaded ahead.
+      float acc[2][4] = {};
+      const uint32_t a_cur = abuf_a + (t & 1) * R * L.lda * 2;
+      uint32_t a[2][4];
+      load_a_frag<R>(a[0], a_cur, L.lda, 0, lane);
+#pragma unroll
+      for (int kb = 0; kb < kRegK; ++kb) {
+        if (kb < KS) {
+          if (kb + 1 < KS) load_a_frag<R>(a[(kb + 1) & 1], a_cur, L.lda, (kb + 1) * 16, lane);
+          mma_bf16(acc[kb & 1], a[kb & 1], breg[kb][0], breg[kb][1]);
+        }
+      }
+      // Accumulator element 2 rr + ii is (row g + 8 rr, unit j0 + ii); the
+      // blend with the row's mask (a padded step, m = 0, keeps h exactly:
+      // tanh_fast is finite).
+      uint32_t v[NR];
+#pragma unroll
+      for (int rr = 0; rr < NR; ++rr) {
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int e = 2 * rr + ii;
+          const float h_raw = tanh_fast((ii ? x[rr].y : x[rr].x) + (acc[0][e] + acc[1][e]));
+          h[rr][ii] = m[rr] * h_raw + (1.0f - m[rr]) * h[rr][ii];
+        }
+        v[rr] = pack_bf16(h[rr][0], h[rr][1]);
+      }
+      // bf16(h) into every CTA's next buffer (not after the last step): the
+      // 4 lanes of a group gather a row's 8 units, and lane tq sends row
+      // g + 8 tq (tq < NR) as one 16-byte st.async.
+      if (t + 1 < T) {
+        uint4 row = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int rr = 0; rr < NR; ++rr) {
+          const uint32_t w0 = __shfl_sync(0xffffffffu, v[rr], lane & ~3), w1 = __shfl_sync(0xffffffffu, v[rr], (lane & ~3) + 1);
+          const uint32_t w2 = __shfl_sync(0xffffffffu, v[rr], (lane & ~3) + 2), w3 = __shfl_sync(0xffffffffu, v[rr], (lane & ~3) + 3);
+          if (tq == rr) row = make_uint4(w0, w1, w2, w3);
+        }
+        if (tq < NR) {
+          const uint32_t at = abuf_a + ((t + 1) & 1) * R * L.lda * 2 + ((g + 8 * tq) * L.lda + 8 * (ob + warp)) * 2;
+          const uint32_t bar = hbar_a + ((t + 1) & 1) * 8;
+          for (int dst = 0; dst < C; ++dst) st_async_v4(map_rank(at, dst), map_rank(bar, dst), row);
+        }
+      }
+      // fp32 h of step t out to hs.
+#pragma unroll
+      for (int rr = 0; rr < NR; ++rr) {
+        float* out = hs + ((size_t)(grp * R + g + 8 * rr) * T + t) * H + j0;
+        if (ok[rr][1] && H % 2 == 0) {
+          *reinterpret_cast<float2*>(out) = make_float2(h[rr][0], h[rr][1]);
+        } else {
+          if (ok[rr][0]) out[0] = h[rr][0];
+          if (ok[rr][1]) out[1] = h[rr][1];
+        }
+      }
+    }
+  }
+  // No CTA leaves while another may still store into its shared memory.
+  if (C > 1) {
+    cluster_arrive();
+    cluster_wait();
   }
 }
 
+template <int kRegK, int R, bool kVec>
+cudaError_t launch_fwd(const void* xin, const void* mask, const void* cw, void* hs, int B, int T, int H, int C,
+                       int device, cudaStream_t s) {
+  const FwdLayout L = fwd_layout(H, C, R);
+  auto kernel = rnn_fwd_kernel<kRegK, R, kVec>;
+  // Once an instantiation and device: the largest shared-memory opt-in, clusters of 16.
+  static uint64_t attributes_set = 0;
+  if (device >= 64 || !(attributes_set >> device & 1)) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    if (device < 64) attributes_set |= uint64_t{1} << device;
+  }
+  CUtensorMap xmap = {};
+  if (kVec) {
+    // xin as [B][T][H] fp32; a box is [R][1][xu], zero past B and H.
+    cuuint64_t dims[3] = {static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
+    cuuint64_t strides[2] = {static_cast<cuuint64_t>(H) * 4, static_cast<cuuint64_t>(H) * 4 * T};
+    cuuint32_t box[3] = {static_cast<cuuint32_t>(L.xu), 1, static_cast<cuuint32_t>(R)};
+    cuuint32_t elem[3] = {1, 1, 1};
+    if (cuTensorMapEncodeTiled(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(xin), dims, strides, box,
+                               elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const int groups = (B + R - 1) / R;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups * C);
+  cfg.blockDim = dim3(32 * (L.ocp + 1));
+  cfg.dynamicSmemBytes = L.bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, xmap, static_cast<const float*>(xin), static_cast<const float*>(mask),
+                                     static_cast<const bf16*>(cw), static_cast<float*>(hs), B, T, H, C);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// C's fragments in registers: 8 k-steps up to H = 128, 16 up to 256, else 40.
+template <int R, bool kVec>
+cudaError_t launch_fwd_k(const void* xin, const void* mask, const void* cw, void* hs, int B, int T, int H, int C,
+                         int device, cudaStream_t s) {
+  const int ks = (H + 15) / 16;
+  if (ks <= 8) return launch_fwd<8, R, kVec>(xin, mask, cw, hs, B, T, H, C, device, s);
+  if (ks <= 16) return launch_fwd<16, R, kVec>(xin, mask, cw, hs, B, T, H, C, device, s);
+  return launch_fwd<kMaxK, R, kVec>(xin, mask, cw, hs, B, T, H, C, device, s);
+}
 
 // ------------------------------------------------------------- backward, part 1: the coefficients
 //
@@ -268,13 +588,16 @@ __global__ void __launch_bounds__(kCoefThreads)
 // bytes (12 KB at R = 16, H = 128), whatever C, and distributed shared
 // memory moves them at ~11 bytes a clock an SM (a clock64() profile: ~1,100
 // clocks of a ~2,200-clock step). So the carry takes 8-row groups where
-// their clusters still fit on the card at once (carry_rows), half the bytes
+// their clusters still fit on the card at once (rows_a_group), half the bytes
 // a step, on twice the SMs.
-constexpr int kCarryMaxWarps = 16;  // unit octets (= warps) a CTA at most
 constexpr int kCarryPickOct = 2;    // unit octets a CTA of the cluster the kernel picks
 constexpr int kCarrySlots = 3;      // prefetch ring slots: two steps in flight
 constexpr int kCarryVals = 10;      // a thread's step inputs: a and dhs at its 2 x 2 pairs, its rows' mask
 constexpr int kStageBytes = 8 * 6 * 16;  // a warp's send staging: [g][2 rows x 3 terms][8 units] bf16
+
+// Unit octets (= warps) a CTA at most: 16 while a warp holds up to 24
+// k-steps of C^T in registers, 8 past that (up to 40), whose threads hold more.
+__host__ __device__ constexpr int carry_max_warps(int ks) { return ks <= 24 ? 16 : 8; }
 
 struct CarryLayout {
   int O;    // unit octets, ceil(H / 8)
@@ -302,12 +625,9 @@ __host__ __device__ inline CarryLayout carry_layout(int H, int C, int R) {
 bool carry_fits(int H, int C) {
   if (H <= 0 || C < 1 || C > 16 || (C & (C - 1)) != 0) return false;
   const CarryLayout L = carry_layout(H, C, 16);
-  return C <= L.O && L.ocp <= kCarryMaxWarps && L.bytes <= kMaxSmem;
+  return C <= L.O && L.Hk / 16 <= kMaxK && L.ocp <= carry_max_warps(L.Hk / 16) && L.bytes <= kMaxSmem;
 }
 
-// Rows a group: 8 where the 8-row groups' clusters fit on the card at once,
-// else 16.
-int carry_rows(int B, int C) { return (B + 7) / 8 * C <= kSms ? 8 : 16; }
 
 // The cluster: the smallest of 1, 2, 4, 8 that fits with at most
 // kCarryPickOct octets a CTA, else the largest of them that fits (16 only
@@ -333,7 +653,7 @@ __device__ __forceinline__ uint32_t c_pair(const bf16* __restrict__ cw, int H, i
 
 // kRegK: the k-steps held in registers, at least Hk / 16; R: rows a group.
 template <int kRegK, int R>
-__global__ void __launch_bounds__(32 * kCarryMaxWarps)
+__global__ void __launch_bounds__(32 * carry_max_warps(kRegK))
     rnn_bwd_carry_kernel(const bf16* __restrict__ cw, const float* __restrict__ mask, const float* __restrict__ dhs,
                          float* __restrict__ dxin, int B, int T, int H, int C) {
   constexpr int NR = R / 8;     // rows a thread holds: g, and g + 8 at R = 16
@@ -546,7 +866,7 @@ cudaError_t launch_carry(const void* cw, const void* mask, const void* dhs, void
   return cudaGetLastError();
 }
 
-// C^T's fragments in registers: Hk / 16 k-steps, at most 22 (H <= 352).
+// C^T's fragments in registers: Hk / 16 k-steps, at most 40 (H <= 640).
 template <int R>
 cudaError_t launch_carry_k(const void* cw, const void* mask, const void* dhs, void* dxin, int B, int T, int H, int C,
                            int device, cudaStream_t s) {
@@ -554,23 +874,39 @@ cudaError_t launch_carry_k(const void* cw, const void* mask, const void* dhs, vo
   if (ks <= 8) return launch_carry<8, R>(cw, mask, dhs, dxin, B, T, H, C, device, s);
   if (ks <= 16) return launch_carry<16, R>(cw, mask, dhs, dxin, B, T, H, C, device, s);
   if (ks <= 24) return launch_carry<24, R>(cw, mask, dhs, dxin, B, T, H, C, device, s);
+  if (ks <= kMaxK) return launch_carry<kMaxK, R>(cw, mask, dhs, dxin, B, T, H, C, device, s);
   return cudaErrorInvalidValue;
 }
 
-bool takes(int H) { return fwd_takes(H) && carry_pick(H) > 0; }
+// Whether both directions take width H on some cluster.
+bool takes(int H) { return fwd_pick(1, H) > 0 && carry_pick(H) > 0; }
 
 }  // namespace
 
-// The largest hidden width both directions take (the forward's bf16 C in one block).
+// The largest H up to which the pair takes every width (640: past it a
+// warp's fragments of C, 40 k-steps, no longer fit its registers).
 extern "C" int rnn_max_hidden() {
-  for (int H = 1024; H > 0; --H) {
-    if (takes(H)) return H;
+  static int limit = -1;
+  if (limit < 0) {
+    int H = 0;
+    while (H < 4096 && takes(H + 1)) ++H;
+    limit = H;
   }
-  return 0;
+  return limit;
 }
 
 // Number of partial dC sums the wrapper allocates ([splits, H, H] fp32).
 extern "C" int rnn_bwd_splits(int B, int T, int H) { return recurrent_dw::num_splits(B * T, H, H); }
+
+// The forward's cluster size for (B, H) (1, 2, 4, 8 or 16), or 0 when no
+// cluster takes H.
+extern "C" int rnn_fwd_cluster_size(int B, int H) { return fwd_pick(B, H); }
+
+// The forward's rows a group (8 or 16) for a batch of B on a cluster of C.
+extern "C" int rnn_fwd_group_rows(int B, int C) { return rows_a_group(B, C); }
+
+// Whether a cluster of C blocks a group of R rows takes width H in the forward.
+extern "C" int rnn_fwd_fits(int H, int C, int R) { return fwd_fits(H, C, R) ? 1 : 0; }
 
 // The backward carry's cluster size for width H (1, 2, 4, 8 or 16), or 0
 // when no cluster takes H.
@@ -579,22 +915,25 @@ extern "C" int rnn_bwd_cluster_size(int H) { return carry_pick(H); }
 // Whether a cluster of C blocks a row group takes width H in the backward carry.
 extern "C" int rnn_bwd_fits(int H, int C) { return carry_fits(H, C) ? 1 : 0; }
 
-extern "C" int rnn_fwd(const void* xin, const void* mask, const void* cw, void* hs, int B, int T, int H, int device,
-                       void* stream) {
-  if (!takes(H)) return cudaErrorInvalidValue;
+// cluster, rows: 0 runs the kernel's own pick (the wrapper's); otherwise
+// that cluster size (1, 2, 4, 8, 16) and rows a group (8, 16) where they
+// fit, else cudaErrorInvalidValue (chip_smoke.py times each to measure the
+// pick).
+extern "C" int rnn_fwd(const void* xin, const void* mask, const void* cw, void* hs, int B, int T, int H, int cluster,
+                       int rows, int device, void* stream) {
+  const int c = cluster > 0 ? cluster : fwd_pick(B, H);
+  const int r = rows > 0 ? rows : rows_a_group(B, c);
+  if (H > rnn_max_hidden() || c == 0 || !fwd_fits(H, c, r)) return cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return cudaSuccess;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  const int rows = rows_per_block(H);
-  const int smem = fwd_smem_bytes(H);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(rnn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H % 4 == 0) {
+    return r == 8 ? launch_fwd_k<8, true>(xin, mask, cw, hs, B, T, H, c, device, s)
+                  : launch_fwd_k<16, true>(xin, mask, cw, hs, B, T, H, c, device, s);
   }
-  rnn_fwd_kernel<<<(B + rows - 1) / rows, rows * H, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xin), static_cast<const float*>(mask), static_cast<const bf16*>(cw),
-      static_cast<float*>(hs), B, T, H, rows);
-  return cudaGetLastError();
+  return r == 8 ? launch_fwd_k<8, false>(xin, mask, cw, hs, B, T, H, c, device, s)
+                : launch_fwd_k<16, false>(xin, mask, cw, hs, B, T, H, c, device, s);
 }
 
 // cluster: 0 runs the carry's own pick (the wrapper's); 1, 2, 4, 8 or 16
@@ -616,7 +955,7 @@ extern "C" int rnn_bwd(const void* xin, const void* mask, const void* cw, const 
                                           static_cast<float*>(dxin), BT, T, H);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = carry_rows(B, c) == 8 ? launch_carry_k<8>(cw, mask, dhs, dxin, B, T, H, c, device, s)
+  e = rows_a_group(B, c) == 8 ? launch_carry_k<8>(cw, mask, dhs, dxin, B, T, H, c, device, s)
                             : launch_carry_k<16>(cw, mask, dhs, dxin, B, T, H, c, device, s);
   if (e != cudaSuccess) return e;
   return recurrent_dw::launch(static_cast<const float*>(hs), static_cast<const float*>(dxin),

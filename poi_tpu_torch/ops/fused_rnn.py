@@ -16,13 +16,17 @@ Counterpart of ``poi_tpu/ops/fused_rnn.py``. Contract, the TPU kernels':
   ``dh = dh·(1 - m) + dpre @ Cᵀ`` in fp32, and ``dC = Σ h_prevᵀ · dpre`` in
   fp32.
 
-The forward keeps bf16 ``C`` (2·H² bytes) in one block's shared memory, so
-the pair takes H up to ``csrc/rnn.cu``'s ``rnn_max_hidden()`` (339). The
-backward recomputes every step's ``h_raw`` at once on the tensor cores, runs
-the serial carry (``dpre @ Cᵀ`` with the fp32 ``dpre`` split into three exact
-bf16 products) on a cluster of blocks a group of 8 rows (16 where the
-8-row groups' clusters would not all fit on the card at once), and forms
-``dC`` in fp32 on the CUDA cores.
+Both directions run a group of batch rows on a cluster of blocks, each
+block a slice of the hidden units, each warp its octet's columns of ``C``
+(forward) or ``Cᵀ`` (backward) in registers, exchanging the group's step
+with every block of the cluster by ``st.async`` on mbarriers: 8 rows a group
+where the 8-row groups' clusters all fit on the card at once, else 16. The
+forward streams ``xin`` and the mask in by TMA and takes ``tanh`` from
+``ex2.approx``; the backward recomputes every step's ``h_raw`` at once on the
+tensor cores, runs the serial carry (``dpre @ Cᵀ`` with the fp32 ``dpre``
+split into three exact bf16 products) and forms ``dC`` in fp32 on the CUDA
+cores. The pair takes any H up to ``csrc/rnn.cu``'s ``rnn_max_hidden()``
+(640: the fragments' 40 k-steps fill a warp's registers); a wider H raises.
 """
 
 from __future__ import annotations
@@ -64,8 +68,8 @@ def _check_cuda(name: str, tensors, lib, H: int) -> None:
         raise ValueError(f"{name}: tensors on {sorted({str(t.device) for t in tensors})}; need one CUDA device")
     max_h = lib.rnn_max_hidden()
     if H > max_h:
-        raise ValueError(f"{name}: H={H} is not taken by the kernels: the forward holds bf16 C (2*H*H bytes) in "
-                         f"one block's shared memory, so H <= {max_h}")
+        raise ValueError(f"{name}: H={H} is not taken by the kernels: a warp holds its columns of C as mma "
+                         f"fragments in registers, 40 k-steps at most, so H <= {max_h}")
 
 
 def fused_rnn_scan(xin: torch.Tensor, mask: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -85,7 +89,8 @@ def fused_rnn_scan(xin: torch.Tensor, mask: torch.Tensor, c: torch.Tensor) -> to
                         f"{c.dtype}")
     xin, mask, c = xin.contiguous(), mask.contiguous(), c.contiguous()
     hs = torch.empty(B, T, H, dtype=torch.float32, device=xin.device)
-    rc = lib.rnn_fwd(xin.data_ptr(), mask.data_ptr(), c.data_ptr(), hs.data_ptr(), B, T, H, xin.device.index,
+    # Cluster and rows 0: the kernel's own pick.
+    rc = lib.rnn_fwd(xin.data_ptr(), mask.data_ptr(), c.data_ptr(), hs.data_ptr(), B, T, H, 0, 0, xin.device.index,
                      torch.cuda.current_stream(xin.device).cuda_stream)
     _build.check(rc, "rnn_fwd launch")
     fused_rnn_scan.launches += 1

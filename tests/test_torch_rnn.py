@@ -51,9 +51,10 @@ def _close(got, want, tol, name):
     np.testing.assert_allclose(got / scale, want / scale, atol=tol, rtol=0, err_msg=name)
 
 
-@pytest.mark.parametrize("H", [16, 64])
+@pytest.mark.parametrize("H", [16, 64, 20, 352])
 def test_rnn_scan_reference_matches_pallas_interpret(H):
-    """hs at every step: both carry h through the padded ones."""
+    """hs at every step: both carry h through the padded ones; also at a
+    ragged width and at one past the kernels' old limit of 339."""
     xin, c, mask, _ = _case(H=H, seed=H)
     want = np.asarray(jax_fused_rnn_scan(jnp.asarray(xin), _mask_bh(mask, H), jnp.asarray(c), True))
     c16 = torch.from_numpy(c).to(torch.bfloat16)
@@ -194,24 +195,28 @@ def _three_part_bwd(xin, mask, c16, hs, dhs, dc_dtype=torch.float32):
     return dxin, dc
 
 
-@pytest.mark.parametrize("H", [16, 20])
+@pytest.mark.parametrize("H", [16, 20, 400])
 def test_three_part_bwd_matches_pallas_vjp(H):
     """The CUDA backward's restructured arithmetic (the coefficients from all
     steps at once, the carry on split bf16 terms, dC in fp32), emulated on
     the CPU, against jax.vjp of the Pallas recurrence in interpret mode, at a
-    multiple of 8 and at a ragged width. Every row has a padded tail with
+    multiple of 8, at a ragged width, and at one past 24 k-steps (the carry's
+    wide instantiation, 8 warps a block), on the hs of the Pallas forward the
+    VJP saved. Every row has a padded tail with
     nonzero dhs there, and dxin is exactly 0 on padded steps. dC from bf16
     operands misses the tolerance, so it stays in fp32."""
     xin, c, mask, rng = _case(H=H, seed=17, min_len=2)
     mask[:, -2:] = 0.0  # a padded tail on every row
     mask[0, :-2] = 1.0
     dhs = rng.normal(size=xin.shape).astype(np.float32)
-    _, vjp = jax.vjp(lambda a, w: jax_fused_rnn_scan(a, _mask_bh(mask, H), w, True), jnp.asarray(xin),
-                     jnp.asarray(c))
+    hs_j, vjp = jax.vjp(lambda a, w: jax_fused_rnn_scan(a, _mask_bh(mask, H), w, True), jnp.asarray(xin),
+                        jnp.asarray(c))
     dxin_j, dc_j = vjp(jnp.asarray(dhs))
     x, m = torch.from_numpy(xin), torch.from_numpy(mask)
     c16 = torch.from_numpy(c).to(torch.bfloat16)
-    hs = rnn_scan_reference(x, m, c16)
+    # The forward the VJP saved: at H = 400 the plain forward's h rounds to
+    # bf16 apart from the Pallas one's at a few elements (summation order).
+    hs = torch.from_numpy(np.array(hs_j))
     dxin, dc = _three_part_bwd(x, m, c16, hs, torch.from_numpy(dhs))
     _close(dxin, dxin_j, REL_TOL, "dxin")
     _close(dc, np.asarray(dc_j, np.float32), REL_TOL, "dC")
@@ -219,3 +224,53 @@ def test_three_part_bwd_matches_pallas_vjp(H):
     _, dc_one = _three_part_bwd(x, m, c16, hs, torch.from_numpy(dhs), dc_dtype=torch.bfloat16)
     scale = np.abs(np.asarray(dc_j)).max()
     assert np.abs(dc_one.numpy() - np.asarray(dc_j)).max() / scale > 10 * REL_TOL
+
+
+def _tanh_fast(x: torch.Tensor) -> torch.Tensor:
+    """csrc/cluster_carry.cuh's tanh_fast in fp32: 1 - 2 / (1 + 2^(2 log2(e) x)),
+    infinite powers of two giving exactly -1 and 1."""
+    e = torch.exp2(x * (2.0 * 1.4426950408889634))
+    return 1.0 - 2.0 * torch.reciprocal(1.0 + e)
+
+
+def _two_chain_fwd(xin, mask, c16):
+    """csrc/rnn.cu's forward (B5) emulated in torch: bf16(h) @ C as two fp32
+    chains over the even and odd 16-wide k-steps (K zero-padded to 16),
+    added at the end, then tanh_fast and the blend with the mask."""
+    B, T, H = xin.shape
+    Hk = -(-H // 16) * 16
+    w = torch.zeros(Hk, H)
+    w[:H] = c16.float()
+    h = torch.zeros(B, H)
+    hs = torch.empty(B, T, H)
+    for t in range(T):
+        hb = torch.zeros(B, Hk)
+        hb[:, :H] = h.to(torch.bfloat16).float()
+        chains = [torch.zeros(B, H), torch.zeros(B, H)]
+        for kb in range(Hk // 16):
+            ks = slice(16 * kb, 16 * kb + 16)
+            chains[kb % 2] = chains[kb % 2] + hb[:, ks] @ w[ks]
+        h_raw = _tanh_fast(xin[:, t] + (chains[0] + chains[1]))
+        m = mask[:, t, None]
+        h = m * h_raw + (1.0 - m) * h
+        hs[:, t] = h
+    return hs
+
+
+@pytest.mark.parametrize("H", [16, 20, 352])
+def test_two_chain_fwd_matches_pallas_interpret(H):
+    """The CUDA forward's restructured arithmetic (two mma chains, tanh from
+    ex2 and a reciprocal), emulated on the CPU, against the Pallas forward in
+    interpret mode at the valid steps, at a multiple of 16, at a ragged width
+    and past the old limit; padded steps pass h through exactly. Both round h
+    to bf16 before the product and differ in fp32 summation order and tanh
+    only, so they agree to ATOL unless h straddles a bf16 rounding boundary,
+    which these seeds do not hit."""
+    xin, c, mask, _ = _case(H=H, seed=40 + H)
+    want = np.asarray(jax_fused_rnn_scan(jnp.asarray(xin), _mask_bh(mask, H), jnp.asarray(c), True))
+    hs = _two_chain_fwd(torch.from_numpy(xin), torch.from_numpy(mask), torch.from_numpy(c).to(torch.bfloat16))
+    valid = mask[:, :, None] > 0
+    np.testing.assert_allclose(np.where(valid, hs.numpy(), 0), np.where(valid, want, 0), atol=ATOL, rtol=0)
+    for b in range(mask.shape[0]):
+        n = int(mask[b].sum())
+        assert torch.equal(hs[b, n:], hs[b, n - 1].expand_as(hs[b, n:]))

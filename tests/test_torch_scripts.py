@@ -133,7 +133,7 @@ def test_bench_cells_rows_and_refused_widths(capsys, monkeypatch):
     """Past the LSTM's and the RNN's width limits the wrapper refuses (on the
     card; here a stand-in raises its message) and the refusal is the row."""
     assert bench_cells.POINTS["lstm"][:2] == ((64, 128), (256, 128)) and (256, 512) in bench_cells.POINTS["gru"]
-    for mod, name, limit in ((fused_lstm, "fused_lstm_scan", 169), (fused_rnn, "fused_rnn_scan", 339)):
+    for mod, name, limit in ((fused_lstm, "fused_lstm_scan", 512), (fused_rnn, "fused_rnn_scan", 640)):
         real = getattr(mod, name)
 
         def limited(x, mask, w, real=real, name=name, limit=limit):
@@ -142,14 +142,14 @@ def test_bench_cells_rows_and_refused_widths(capsys, monkeypatch):
             return real(x, mask, w)
         monkeypatch.setattr(mod, name, limited)
     for name, value in {"T": 3, "ITERS": 1, "PLAIN_ITERS": 1, "POINTS": {
-            "gru": ((2, 8),), "lstm": ((3, 8), (1, 170)), "rnn": ((2, 16), (1, 340))}}.items():
+            "gru": ((2, 8),), "lstm": ((3, 8), (1, 513)), "rnn": ((2, 16), (1, 641))}}.items():
         monkeypatch.setattr(bench_cells, name, value)
     out = _run(capsys, bench_cells, [])
     rows = {tuple(line.split()[:3]): line for line in out[2:]}
-    assert set(rows) == {("gru", "2", "8"), ("lstm", "3", "8"), ("lstm", "1", "170"), ("rnn", "2", "16"),
-                         ("rnn", "1", "340")}
-    assert "refused: fused_lstm_scan: H=170" in rows["lstm", "1", "170"] and "H <= 169" in rows["lstm", "1", "170"]
-    assert "refused: fused_rnn_scan: H=340" in rows["rnn", "1", "340"] and "H <= 339" in rows["rnn", "1", "340"]
+    assert set(rows) == {("gru", "2", "8"), ("lstm", "3", "8"), ("lstm", "1", "513"), ("rnn", "2", "16"),
+                         ("rnn", "1", "641")}
+    assert "refused: fused_lstm_scan: H=513" in rows["lstm", "1", "513"] and "H <= 512" in rows["lstm", "1", "513"]
+    assert "refused: fused_rnn_scan: H=641" in rows["rnn", "1", "641"] and "H <= 640" in rows["rnn", "1", "641"]
     assert len(rows["gru", "2", "8"].split()) == 10  # cell, B, H, six times and ratios, no cuDNN on the cpu
 
 
