@@ -606,7 +606,7 @@ def ce_phase() -> tuple[float, float]:
             f"ce N={N} V={V} D={D}: run-to-run bits"
         worst_lse = max(worst_lse, e_lse)
         worst_grad = max(worst_grad, *(float((a - b).abs().max()) for a, b in zip((dq, dt, db), want)))
-        splits = max(1, _build.library().ce_lse_scratch(N, V, D) // (2 * N))
+        splits = max(1, _build.library().ce_lse_scratch(N, V, D, 256) // (2 * N))
         log(f"[ce] N={N:5d} V={V} D={D:3d}{' (-1e30 tail)' if real < V else ''}, ce_lse in {splits} catalog "
             f"range{'s' if splits > 1 else ''}: lse max err {e_lse:.2e} "
             f"(tol {CE_LSE_TOL}); rel err dq {errs[0]:.2e}, dtable {errs[1]:.2e} (tol {CE_GRAD_TOL}), "
@@ -616,9 +616,9 @@ def ce_phase() -> tuple[float, float]:
 
 def check_variant(name: str, got, want, base, q, table, bias, shape: str) -> float:
     """One B12 instantiation's output against its plain version's: within
-    ``CE_LSE_TOL``, the same bits on a second launch, and base/64 (the first
-    design of ``ce_lse``'s kernel) within ``CE_LSE_TOL`` of ``ce_lse``.
-    Returns the largest absolute error."""
+    ``CE_LSE_TOL``, the same bits on a second launch, and base/256 (``ce_lse``'s
+    own instantiation) the same bits as ``ce_lse``. Returns the largest
+    absolute error."""
     import torch
 
     from poi_tpu_torch.ops.fused_ce import ce_lse_variant
@@ -627,23 +627,26 @@ def check_variant(name: str, got, want, base, q, table, bias, shape: str) -> flo
     err = float((got - want).abs().max())
     assert bool(torch.isfinite(got).all()) and err < CE_LSE_TOL, f"ce_lse_variant {name} {shape}: {err}"
     assert torch.equal(ce_lse_variant(q, table, bias, variant, int(rows)), got), f"{name} {shape}: run-to-run bits"
-    to_lse = float((got - base).abs().max())
-    assert name != "base/64" or to_lse < CE_LSE_TOL, f"base/64 differs from ce_lse by {to_lse} at {shape}"
+    assert name != "base/256" or torch.equal(got, base), \
+        f"base/256 differs from ce_lse by {float((got - base).abs().max())} at {shape}"
     log(f"[ce_variants] {name:9s} {shape}: max |kernel - plain| {err:.2e} (tol {CE_LSE_TOL}); a second launch "
-        f"gives the same bits" + (f"; within {to_lse:.2e} of ce_lse" if name == "base/64" else ""))
+        f"gives the same bits" + ("; the same bits as ce_lse" if name == "base/256" else ""))
     return err
 
 
 def ce_variants_phase() -> dict:
     """B12's main path, the sweep (``scripts/sweep_ce_fwd.sweep``) at its own
     shape and inputs (logits under ~3, far below the ~88 where nomax
-    overflows), then ``CE_VARIANT_CASES``. Each of the six instantiations
-    (variant x rows a block) is held against its plain version; base at 64
-    rows equals ``ce_lse`` bit for bit and a second launch of each gives the
-    same bits. Keeps, at the sweep's shape, each one's launches in the sweep's
-    timed runs and its time (the sweep's), its plain version's and the bound."""
+    overflows), then ``CE_VARIANT_CASES`` and B7's split edges
+    (``CE_SPLIT_CASES``). Each of the six instantiations (variant x rows a
+    block) is held against its plain version; base at 256 rows equals
+    ``ce_lse`` bit for bit and a second launch of each gives the same bits.
+    Keeps, at the sweep's shape, each one's launches in the sweep's timed
+    runs, its time (the sweep's), its plain version's time, the bound, and
+    the inputs (``args``) for its device time (``ce_variants_device_phase``)."""
     import torch
 
+    from poi_tpu_torch import _build
     from poi_tpu_torch.ops.fused_ce import VARIANT_REFERENCES, ce_lse, ce_lse_variant
     from poi_tpu_torch.scripts import sweep_ce_fwd
 
@@ -657,12 +660,12 @@ def ce_variants_phase() -> dict:
         c["max_abs_err"] = check_variant(name, c.pop("lse"), want, base, q, table, bias, f"N={N} V={V} D={D}")
         # No one PyTorch call gives a row LSE over a product (as B7): no library time.
         c.update(plain_ms=time_ms(lambda: VARIANT_REFERENCES[variant](q, table, bias), 5), library_ms=None,
-                 **ce_lse_bound(q, table, bias, base))
+                 **ce_lse_bound(q, table, bias, base), args=(q, table, bias))
         log(f"[time] ce_lse_variant {name} N={N} V={V} D={D}: kernel {c['ms']:.4f} ms "
             f"({2 * N * V * D / c['ms'] / 1e9:.1f} TFLOP/s), plain {c['plain_ms']:.4f} ms; bound "
             f"{c['bound_ms']:.4f} ms ({c['bound_by']}, {c['bound_pipe']}); {c['launches']} launches in the sweep")
     gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
-    for N, V, D, real in CE_VARIANT_CASES:
+    for N, V, D, real in (*CE_VARIANT_CASES, *CE_SPLIT_CASES):
         q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
         table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
         bias = torch.randn(V, generator=gen, device=DEV)
@@ -672,10 +675,26 @@ def ce_variants_phase() -> dict:
             variant, rows = name.split("/")
             got = ce_lse_variant(q, table, bias, variant, int(rows))
             want = VARIANT_REFERENCES[variant](q, table, bias)
+            splits = max(1, _build.library().ce_lse_scratch(N, V, D, int(rows)) // (2 * N))
             err = check_variant(name, got, want, base, q, table, bias,
-                                f"N={N} V={V} D={D}" + (" (-1e30 tail)" if real < V else ""))
+                                f"N={N} V={V} D={D}" + (" (-1e30 tail)" if real < V else "")
+                                + f", {splits} catalog range{'s' if splits > 1 else ''}")
             c["max_abs_err"] = max(c["max_abs_err"], err)
     return cells
+
+
+def ce_variants_device_phase(variants: dict, gpu: str) -> None:
+    """Device time by kernel (``CE_LSE_KERNELS``) of each B12 instantiation
+    at the sweep's shape, on the inputs ``ce_variants_phase`` timed. After
+    the timing phases, as every profiler reading."""
+    from poi_tpu_torch.ops.fused_ce import ce_lse_variant
+
+    for name, c in variants.items():
+        q, table, bias = c.pop("args")
+        variant, rows = name.split("/")
+        c.update(device_parts(lambda: ce_lse_variant(q, table, bias, variant, int(rows)), CE_LSE_KERNELS))
+        log(f"[time] ce_lse_variant {name} N={q.shape[0]} V={table.shape[0]} D={q.shape[1]}: "
+            f"{parts_text(c, CE_LSE_KERNELS)} (CUDA events {c['ms']:.4f} ms)  ({gpu})")
 
 
 def gru_big_phase() -> dict:
@@ -1935,8 +1954,8 @@ def config_timing_phase(state, gpu: str) -> dict:
 # (``AB_KEPT``: asserted). ``AB_CHILD`` runs in each checkout's directory,
 # with its chip_smoke.py's helpers, and holds a call for every kernel
 # either names; its second argument lists the kernels to time.
-AB_TIMED = ("rnn_fwd",)
-AB_KEPT = ("gru_bwd", "lstm_bwd", "sampled_bwd", "rnn_bwd", "sampled_lse")
+AB_TIMED = ("ce_lse_variant_base", "ce_lse_variant_exp2", "ce_lse_variant_nomax")
+AB_KEPT = ("gru_bwd", "lstm_bwd", "sampled_bwd", "rnn_bwd", "sampled_lse", "ce_lse", "rnn_fwd")
 AB_CHILD = r"""
 import json, sys
 import torch
@@ -1944,7 +1963,9 @@ import chip_smoke as cs
 from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan
 from poi_tpu_torch.ops.fused_lstm import fused_lstm_bwd, fused_lstm_scan
 from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan, rnn_scan_reference
+from poi_tpu_torch.ops.fused_ce import ce_lse, ce_lse_variant
 from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse
+from poi_tpu_torch.scripts import sweep_ce_fwd
 torch.backends.cuda.matmul.allow_tf32 = False
 cs.build_phase()
 gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -1958,7 +1979,16 @@ gdh = torch.randn(64, 64, 128, generator=gen, device="cuda")
 lx, lmask, lw, _ = cs.recurrence_case(64, 64, 128, 4, gen)
 lst = fused_lstm_scan(lx, lmask, lw)
 ldh = torch.randn(64, 64, 128, generator=gen, device="cuda")
-calls = {"rnn_fwd": (lambda: (fused_rnn_scan(x, mask, w),), cs.RNN_FWD_KERNELS),
+cq, ct, cb = sweep_ce_fwd.inputs(sweep_ce_fwd.N, sweep_ce_fwd.V, sweep_ce_fwd.D, "cuda")
+bq, bt = (0.3 * torch.randn(n, 128, generator=gen, device="cuda") for n in cs.CE_TRAIN_SHAPE[:2])
+bb = torch.randn(cs.CE_TRAIN_SHAPE[1], generator=gen, device="cuda")
+# B12 at the sweep's shape and 128 rows, which both checkouts take; "ce_lse"
+# names the kernel of either design (ce_lse_kernel, ce_lse_wg_kernel). B7 at
+# the bench shape, and on config #3's 2,048 rows (its split-and-merge path).
+variant = lambda v: (lambda: (ce_lse_variant(cq, ct, cb, v, 128),), ("ce_lse",))  # noqa: E731
+calls = {**{f"ce_lse_variant_{v}": variant(v) for v in ("base", "exp2", "nomax")},
+         "ce_lse": (lambda: (ce_lse(bq, bt, bb), ce_lse(bq[:cs.CE_C3_SHAPE[0]], bt, bb)), cs.CE_LSE_KERNELS),
+         "rnn_fwd": (lambda: (fused_rnn_scan(x, mask, w),), cs.RNN_FWD_KERNELS),
          "rnn_bwd": (lambda: fused_rnn_bwd(x, mask, w, hs, dhs), cs.RNN_BWD_KERNELS),
          "sampled_lse": (lambda: (sampled_lse(q, e, b, ids, tgt),), cs.SAMPLED_LSE_KERNELS),
          "sampled_bwd": (lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g), cs.SAMPLED_BWD_KERNELS),
@@ -2065,6 +2095,7 @@ def main() -> int:
     times.update(phase("config_timing", config_timing_phase, state, gpu))
     phase("recurrence_device", recurrence_device_phase, times, big, lstm, gpu)
     phase("pool_recurrence_device", pool_recurrence_device_phase, sampled, lstm, rnn, gpu)
+    phase("ce_variants_device", ce_variants_device_phase, variants, gpu)
     phase("scripts", scripts_phase, state)
     kept = dict(sorted(_timing.HEAD_SPINS_SEEN.items()))
     log(f"[profiler] records by the head spins each kept (of {_timing.HEAD_SPINS}): {kept}")
@@ -2082,7 +2113,8 @@ def main() -> int:
     # shape and launches (strnn_config); topk its other serve and eval
     # shapes. ce_lse_variants: each
     # instantiation's launches and time in the sweep's timed runs
-    # (ce_variants phase), the fastest one's at the top level.
+    # (ce_variants phase) and its device time by kernel (ce_variants_device),
+    # the fastest one's at the top level.
     served, trained, attn = state["launches"], state["train_launches"], state["attn_launches"]
     swept = {k: t["launches"] for k, t in variants.items()}
     assert len(swept) == 6 and all(swept.values()), f"the sweep skipped an instantiation: {swept}"
@@ -2134,7 +2166,8 @@ def main() -> int:
                                "topk_serve70k", "topk_serve70k_b1")}),
         record("ce_lse_variants", "ce.cu", "scripts/sweep_ce_fwd.py:30,58", sum(swept.values()),
                max(t["max_abs_err"] for t in variants.values()), variants[best], best=best,
-               variants={k: {**{f: t[f] for f in ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_pipe")},
+               variants={k: {**{f: t[f] for f in ("ms", "device_ms", *(f"{n}_ms" for n in CE_LSE_KERNELS),
+                                                  "plain_ms", "max_abs_err", "bound_ms", "bound_pipe")},
                              "launches": swept[k]} for k, t in variants.items()}),
     ]
     print(gpu, flush=True)

@@ -55,9 +55,8 @@ _SIGNATURES = {
     "rnn_bwd_fits": [_I, _I],
     "rnn_bwd": [_P] * 8 + [_I] * 5 + [_P],
     "ce_supports_dim": [_I],
-    "ce_lse_scratch": [_I, _I, _I],
-    "ce_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "ce_lse_variant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ce_lse_scratch": [_I, _I, _I, _I],
+    "ce_lse_variant": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ce_bwd_scratch": [_I, _I, _I],
     "ce_bwd": [_P] * 9 + [_I, _I, _I, _I, _P],
     "sampled_supports_dim": [_I],

@@ -21,9 +21,12 @@ the TPU kernels':
   are subtracted outside the kernels in plain torch.
 
 ``ce_lse_variant`` holds the forward's tuning variants, the counterparts of
-``scripts/sweep_ce_fwd.py``'s kernels (``exp2``, ``nomax``) and its row-block
-axis; ``scripts/sweep_ce_fwd.py`` of this package times them. Nothing on the
-train or serve path calls them.
+``scripts/sweep_ce_fwd.py``'s kernels (``exp2``, ``nomax``), on ``ce_lse``'s
+own kernel; ``scripts/sweep_ce_fwd.py`` of this package times them. The TPU
+sweep's row block (``rb``) maps to the kernel's consumer warpgroups, 64 rows
+each (``ROWS``); its catalog chunk (``cv``) has no counterpart, as the
+streamed tile is fixed at 64 rows by the ``wgmma``'s N. Nothing on the train
+or serve path calls them.
 """
 
 from __future__ import annotations
@@ -36,9 +39,10 @@ from poi_tpu_torch import _build
 # time (512 MiB at N = 32,768), so they run at the full training shape.
 REFERENCE_CHUNK = 4096
 LOG2E = 1.4426950408889634
-# The forward's variants, in the C entry's numbering, and its rows per block.
+# The forward's variants, in the C entry's numbering, and its rows per block
+# (2 or 4 consumer warpgroups; ce_lse takes 256).
 VARIANTS = ("base", "exp2", "nomax")
-ROWS = (64, 128)
+ROWS = (128, 256)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -60,31 +64,39 @@ def ce_lse_reference(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor,
     return m + torch.log(s)
 
 
-def lse_partials_reference(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, bounds) -> tuple:
-    """The partials a split ``ce_lse`` writes, in plain PyTorch: for each
-    catalog range ``[v0, v1)`` of ``bounds``, each row's max logit ``m`` and
-    ``l = sum exp(logit - m)`` over the range. Returns ``(m, l)``, each
-    ``[S, N]`` fp32, in natural units (the kernel keeps them in base 2)."""
-    qb = _bf16(q)
+def lse_partials_reference(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, bounds,
+                           variant: str = "base") -> tuple:
+    """The partials a split launch of ``variant`` writes, in plain PyTorch:
+    for each catalog range ``[v0, v1)`` of ``bounds``, each row's max logit
+    ``m`` and ``l = sum exp(logit - m)`` over the range. Returns ``(m, l)``,
+    each ``[S, N]`` fp32, in the variant's units: natural for ``base`` (the
+    kernel keeps them in base 2); base 2 for ``exp2``, whose logits are
+    ``bf16(q · log2(e)) · table + bias · log2(e)``, with ``2^`` for ``exp``;
+    ``m = 0`` for ``nomax``, which keeps no max."""
+    scale = LOG2E if variant == "exp2" else 1.0
+    q, bias = _bf16(q.float() * scale), bias.float() * scale
     ms, ls = [], []
     for v0, v1 in bounds:
-        logits = qb @ _bf16(table[v0:v1]).T + bias[v0:v1].float()
-        m = logits.max(dim=1).values
+        logits = q @ _bf16(table[v0:v1]).T + bias[v0:v1]
+        m = logits.new_zeros(q.shape[0]) if variant == "nomax" else logits.max(dim=1).values
         ms.append(m)
-        ls.append(torch.exp(logits - m[:, None]).sum(dim=1))
+        ls.append((torch.exp2 if variant == "exp2" else torch.exp)(logits - m[:, None]).sum(dim=1))
     return torch.stack(ms), torch.stack(ls)
 
 
-def lse_merge_reference(m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of ``ce_lse``'s merge (``lse_merge`` in
+def lse_merge_reference(m: torch.Tensor, l: torch.Tensor, variant: str = "base") -> torch.Tensor:
+    """Plain PyTorch version of the forward's merge (``lse_merge`` in
     ``csrc/ce.cu``): ``[S, N]`` partial maxima and sums of S catalog ranges
-    combined in range order, ``M + log(sum_s l_s exp(m_s - M))`` with
-    ``M = max_s m_s``. Used by nothing on the train or serve path."""
+    (``lse_partials_reference``'s) combined in range order,
+    ``M + log(sum_s l_s exp(m_s - M))`` with ``M = max_s m_s``; ``exp2`` in
+    base 2 and divided by log2(e) at the end; ``nomax``'s maxima are 0, so
+    its merge is ``log(sum_s l_s)``. Used by nothing on the train or serve
+    path."""
     M = m.max(dim=0).values
     L = torch.zeros_like(M)
     for s in range(m.shape[0]):
-        L = L + l[s] * torch.exp(m[s] - M)
-    return M + torch.log(L)
+        L = L + l[s] * (torch.exp2 if variant == "exp2" else torch.exp)(m[s] - M)
+    return (M + torch.log2(L)) / LOG2E if variant == "exp2" else M + torch.log(L)
 
 
 def ce_lse_exp2_reference(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor,
@@ -157,78 +169,77 @@ def _check(name: str, tensors: dict[str, torch.Tensor]) -> bool:
     return False
 
 
-def ce_lse(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """[N] fp32 log-sum-exp of ``q · tableᵀ + bias`` over the catalog.
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel (and,
-    where it splits the catalog, its merge) or raise; ``ce_lse.launches``
-    counts the calls that launched them.
-    """
+def _lse_launch(wrapper, name: str, q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, variant: str,
+                rows: int) -> torch.Tensor:
+    """Launches ``csrc/ce.cu``'s kernel (and, where it splits the catalog,
+    its merge) for ``variant`` at ``rows`` query rows a block on CUDA
+    tensors, or raises through ``_build.check``; counts the launch on
+    ``wrapper.launches``."""
     N, D = q.shape
     V = table.shape[0]
-    if table.shape[1] != D or bias.shape != (V,) or V == 0:
-        raise ValueError(f"ce_lse: need q [N,D], table [V,D], bias [V], V > 0; got "
-                         f"{tuple(q.shape)}, {tuple(table.shape)}, {tuple(bias.shape)}")
-    if _check("ce_lse", {"q": q, "table": table, "bias": bias}):
-        return ce_lse_reference(q, table, bias)
     lse = torch.empty(N, dtype=torch.float32, device=q.device)
     if N == 0:
         return lse
+    if variant == "exp2":  # base 2: q scaled before its bf16 rounding
+        q, bias = q.float() * LOG2E, bias.float() * LOG2E
     q16 = q.to(torch.bfloat16).contiguous()
     t16 = table.to(torch.bfloat16).contiguous()
     b32 = bias.float().contiguous()
     dev = q.device
     lib = _build.library()
     # fp32 partial (max, sum) pairs of the catalog ranges, where the row blocks split it to fill the card.
-    scratch = torch.empty(max(1, lib.ce_lse_scratch(N, V, D)), dtype=torch.float32, device=dev)
-    rc = lib.ce_lse(q16.data_ptr(), t16.data_ptr(), b32.data_ptr(), lse.data_ptr(), scratch.data_ptr(), N, V, D,
-                    dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "ce_lse launch")
-    ce_lse.launches += 1
+    scratch = torch.empty(max(1, lib.ce_lse_scratch(N, V, D, rows)), dtype=torch.float32, device=dev)
+    rc = lib.ce_lse_variant(q16.data_ptr(), t16.data_ptr(), b32.data_ptr(), lse.data_ptr(), scratch.data_ptr(), N, V,
+                            D, VARIANTS.index(variant), rows, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, f"{name} launch")
+    wrapper.launches += 1
     return lse
+
+
+def _check_shapes(name: str, q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor) -> None:
+    V = table.shape[0]
+    if q.dim() != 2 or table.shape[1] != q.shape[1] or bias.shape != (V,) or V == 0:
+        raise ValueError(f"{name}: need q [N,D], table [V,D], bias [V], V > 0; got "
+                         f"{tuple(q.shape)}, {tuple(table.shape)}, {tuple(bias.shape)}")
+
+
+def ce_lse(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """[N] fp32 log-sum-exp of ``q · tableᵀ + bias`` over the catalog.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel at
+    256 rows a block (and, where it splits the catalog, its merge) or raise;
+    ``ce_lse.launches`` counts the calls that launched them.
+    """
+    _check_shapes("ce_lse", q, table, bias)
+    if _check("ce_lse", {"q": q, "table": table, "bias": bias}):
+        return ce_lse_reference(q, table, bias)
+    return _lse_launch(ce_lse, "ce_lse", q, table, bias, "base", 256)
 
 
 ce_lse.launches = 0
 
 
 def ce_lse_variant(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, variant: str = "base",
-                   rows: int = 64) -> torch.Tensor:
+                   rows: int = 256) -> torch.Tensor:
     """[N] fp32 log-sum-exp of ``q · tableᵀ + bias`` through one of the
     forward's tuning variants (``VARIANTS``) with ``rows`` query rows a block
-    (``ROWS``): the first, ``mma.sync`` design of ``ce_lse``'s kernel, which
-    ``base`` at 64 rows still is. ``exp2``
-    scales ``q`` (in fp32, before its bf16 rounding) and ``bias`` by log2(e)
-    here, so its result carries the rounding of ``q · log2(e)``. ``nomax``
-    keeps no running max and is UNSAFE: a logit past about 88 overflows the
-    fp32 sum to inf.
+    (``ROWS``), on ``ce_lse``'s kernel: ``base`` at 256 rows is ``ce_lse``
+    itself. ``exp2`` scales ``q`` (in fp32, before its bf16 rounding) and
+    ``bias`` by log2(e) here, so its result carries the rounding of
+    ``q · log2(e)``. ``nomax`` keeps no running max and is UNSAFE: a logit
+    past about 88 overflows the fp32 sum to inf.
 
     CPU tensors take the variant's plain version (``VARIANT_REFERENCES``).
-    CUDA tensors launch the kernel or raise; ``ce_lse_variant.launches``
-    counts the launches.
+    CUDA tensors launch the kernel (and, where it splits the catalog, its
+    merge) or raise; ``ce_lse_variant.launches`` counts the calls that
+    launched them.
     """
     if variant not in VARIANTS or rows not in ROWS:
         raise ValueError(f"ce_lse_variant: variant in {VARIANTS} and rows in {ROWS}, got {variant!r}, {rows}")
-    N, D = q.shape
-    V = table.shape[0]
-    if table.shape[1] != D or bias.shape != (V,) or V == 0:
-        raise ValueError(f"ce_lse_variant: need q [N,D], table [V,D], bias [V], V > 0; got "
-                         f"{tuple(q.shape)}, {tuple(table.shape)}, {tuple(bias.shape)}")
+    _check_shapes("ce_lse_variant", q, table, bias)
     if _check("ce_lse_variant", {"q": q, "table": table, "bias": bias}):
         return VARIANT_REFERENCES[variant](q, table, bias)
-    lse = torch.empty(N, dtype=torch.float32, device=q.device)
-    if N == 0:
-        return lse
-    scale = LOG2E if variant == "exp2" else 1.0
-    q16 = (q.float() * scale).to(torch.bfloat16).contiguous()
-    t16 = table.to(torch.bfloat16).contiguous()
-    b32 = (bias.float() * scale).contiguous()
-    dev = q.device
-    rc = _build.library().ce_lse_variant(q16.data_ptr(), t16.data_ptr(), b32.data_ptr(), lse.data_ptr(), N, V, D,
-                                         VARIANTS.index(variant), rows, dev.index,
-                                         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, f"ce_lse_variant({variant}, rows={rows}) launch")
-    ce_lse_variant.launches += 1
-    return lse
+    return _lse_launch(ce_lse_variant, f"ce_lse_variant({variant}, rows={rows})", q, table, bias, variant, rows)
 
 
 ce_lse_variant.launches = 0

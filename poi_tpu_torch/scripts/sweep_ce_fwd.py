@@ -3,18 +3,21 @@ against rows a block, the counterpart of ``scripts/sweep_ce_fwd.py``.
 
     python -m poi_tpu_torch.scripts.sweep_ce_fwd [--n 16384 --v 44170 --d 128] [--device cuda]
 
-  base   the first design of ce_lse's kernel: an online max and sum (exp =
-         a log2(e) multiply, then ex2)
-  exp2   q and bias pre-scaled by log2(e): exp2 saves one multiply a logit
+  base   ce_lse's fold: an online max and sum in base 2 (one FMA a logit
+         scales it to base 2 with its bias, then ex2)
+  exp2   q and bias pre-scaled by log2(e): an add in place of the FMA
   nomax  UNSAFE (no running max: fp32 overflows past logits of ~88): what the
-         max loop costs
+         running max costs the fold
 
-each at 64 and 128 query rows a block; the streamed catalog tile is 64 rows
-in every cell (``csrc/ce.cu``). Per cell: the time (CUDA events, median), the
-rate over the catalog product's 2·N·V·D FLOPs, and the largest difference
-from the variant's own plain version. Beside them, ``ce_lse`` itself (the
-warp-specialised wgmma kernel the train path launches) on the same inputs.
-Inputs as the JAX script's: q ~ N(0, 1), table ~ 0.05·N(0, 1), zero bias.
+each on ``ce_lse``'s kernel (``csrc/ce.cu`` ``ce_lse_wg_kernel``) at 128 and
+256 query rows a block, 2 or 4 consumer warpgroups: the TPU sweep's row
+block (``rb``) maps to the warpgroups, and its catalog chunk (``cv``) has no
+counterpart, the streamed tile being 64 rows in every cell (the ``wgmma``'s
+N). base at 256 rows is ``ce_lse`` itself. Per cell: the time (CUDA events,
+median), the rate over the catalog product's 2·N·V·D FLOPs, and the largest
+difference from the variant's own plain version. Beside them, ``ce_lse`` (the
+train path's call) on the same inputs. Inputs as the JAX script's: q ~ N(0,
+1), table ~ 0.05·N(0, 1), zero bias.
 """
 
 from __future__ import annotations

@@ -57,12 +57,12 @@ def test_sweep_ce_fwd_prints_six_cells_and_the_best(capsys, monkeypatch):
     out = _run(capsys, sweep_ce_fwd, ["--n", "70", "--v", "300", "--d", "32"])
     cells = [line for line in out if re.match(r"(base|exp2|nomax) +rows=", line)]
     assert [c.split(":")[0].replace(" ", "") for c in cells] == [f"{v}rows={r}" for v in ("base", "exp2", "nomax")
-                                                                  for r in (64, 128)]
+                                                                  for r in (128, 256)]
     assert all("max |kernel - plain| 0.00e+00" in c for c in cells)  # the wrapper takes the plain versions here
     assert any("nomax is safe on these inputs" in line for line in out)
     assert out[-4].startswith("ce_lse (the train path's kernel): ") and "max |kernel - plain| 0.00e+00" in out[-4]
     assert out[-3].startswith("ce_lse_variant launches: 0 ")
-    assert re.match(r"best: (base|exp2|nomax) rows=(64|128): ", out[-1])
+    assert re.match(r"best: (base|exp2|nomax) rows=(128|256): ", out[-1])
 
 
 def test_sweep_ce_bwd_prints_both_flop_counts(capsys, monkeypatch):
