@@ -25,6 +25,11 @@ with its plain PyTorch version on the card. Then it drives the paths:
   (``strnn_gowalla``: ST-RNN 128-d, 8 time-gap and 8 distance buckets, user
   embedding, dropout 0.5, full CE over 36,969 POIs, T=32, batch 64), each the
   same way as config #4;
+- checkpoint and resume: ``python -m poi_tpu_torch train`` on configs #1
+  and #4 uninterrupted (twice) and stopped by ``train.fault_inject_step``
+  then resumed, the final steps compared tensor by tensor; ``eval``,
+  ``recommend`` and ``serve`` from the checkpoints; ``--metrics-dir`` and
+  ``--profile-dir``; a step file's size and its save and restore times;
 - the sweep of the CE forward's variants (B12, ``scripts/sweep_ce_fwd``),
   B12's main path, called in this process at its own shape;
 - the measurement scripts (``python -m poi_tpu_torch.scripts.<name>``), each
@@ -1666,6 +1671,267 @@ def cli_train_phase(state) -> None:
                                "data.sampler=device"], 20)
 
 
+# The checkpoint phase's resume drill, per configuration: (config, extra
+# --set flags, steps, checkpoint and eval period, fault step, the kernels
+# its train path must launch). Config #1 takes the host TrainLoader and
+# dense Adam, config #4 the device sampler, lazy Adam, dropout 0.3 and the
+# sampled softmax.
+CKPT_DRILLS = {
+    "c1": (CONFIG, [], 20, 10, 15, ("gru_fwd", "gru_bwd", "topk")),
+    "c4": (ATTN_CONFIG, ["data.sampler=device"], 40, 20, 30, ("gru_fwd", "gru_bwd", "sampled_lse", "sampled_bwd",
+                                                              "topk")),
+}
+CKPT_TIMED = 3  # save and restore calls timed a configuration (median)
+
+
+def cli_proc(verb: str, config: str, args: list, stdin: str | None = None) -> tuple:
+    """``python -m poi_tpu_torch <verb> --config <config> --device DEV <args>``,
+    started; ``cli_done`` feeds it ``stdin`` and waits for it."""
+    proc = subprocess.Popen([sys.executable, "-m", "poi_tpu_torch", verb, "--config", config, "--device", DEV, *args],
+                            stdin=subprocess.PIPE if stdin is not None else subprocess.DEVNULL,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
+                            env=dict(os.environ, PYTHONPATH=str(REPO)))
+    return proc, stdin
+
+
+def cli_done(job: tuple, rc: int | None = 0) -> tuple[str, str]:
+    """Wait for a ``cli_proc`` job, check its exit code (``rc``, or any
+    nonzero for None) and return its stdout and stderr."""
+    proc, stdin = job
+    try:
+        out, err = proc.communicate(stdin, timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    ok = proc.returncode != 0 if rc is None else proc.returncode == rc
+    assert ok, f"{' '.join(proc.args[2:])} exited {proc.returncode}:\n{err[-3000:]}"
+    return out, err
+
+
+def step_tensors(saved: dict) -> dict:
+    """{path: tensor} of a step file's params and optimizer moments."""
+    out = {f"params.{k}": v for k, v in saved["params"].items()}
+    for part, d in saved["opt_state"].items():
+        if part != "count":
+            out.update({f"{part}.{k}": v for k, v in d.items()})
+    return out
+
+
+def step_spread(a: dict, b: dict) -> dict:
+    """{path: max |a - b| / max |a|} of the tensors that differ."""
+    out = {}
+    for k, x in a.items():
+        if not x.equal(b[k]):
+            out[k] = float((x.double() - b[k].double()).abs().max() / x.double().abs().max().clamp_min(1e-30))
+    return out
+
+
+def grad_spread(cfg, ds) -> tuple[dict, list]:
+    """Where two uninterrupted runs part: the first step's gradients, twice
+    from the same state, batch and draws ({param: relative spread} of those
+    that differ), and the PyTorch ops on the step that warn under
+    ``torch.use_deterministic_algorithms`` (a third pass in that mode)."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from poi_tpu_torch.data.pipeline import make_batch
+    from poi_tpu_torch.models.base import batch_to
+    from poi_tpu_torch.train.loop import DROPOUT_STREAM, make_trainer
+
+    trainer = make_trainer(cfg, ds, DEV)
+    params = trainer.init_state().params
+    batch = trainer.sampler.sample(0) if trainer.sampler is not None else \
+        batch_to(make_batch(ds.train, np.arange(cfg.train.batch_size)), DEV)
+
+    def grads():
+        for p in params.values():
+            p.grad = None
+        drop = trainer.generator(0, DROPOUT_STREAM) if cfg.model.dropout > 0.0 else None
+        trainer.loss(batch, trainer.draw_negatives(0, batch), drop).backward()
+        return {k: p.grad.clone() for k, p in params.items() if p.grad is not None}
+
+    spread = step_spread(grads(), grads())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            grads()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).splitlines()[0][:160] for w in caught if "determinis" in str(w.message)})
+    return spread, ops
+
+
+def checkpoint_phase(gpu: str) -> None:
+    """Checkpoint and resume as a user runs them, on configs #1 and #4 at
+    full width: uninterrupted ``train`` runs into A (in this process, its
+    kernel launches counted) and A2 (a subprocess; config #1's with
+    ``--metrics-dir`` and ``--profile-dir``), a run into B that the fault
+    stops, and the same command again, which resumes. The final steps of A,
+    A2 and B must agree bit for bit, or, if A and A2 differ (an op with
+    atomics), B may differ from A by at most twice as much. Then ``eval``,
+    ``recommend`` and ``serve`` from A, and the size, save and restore time
+    of a step file."""
+    import contextlib
+    import io
+    import logging
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from poi_tpu_torch import cli
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.data.dataset import load_dataset
+    from poi_tpu_torch.eval.serve import Recommender
+    from poi_tpu_torch.utils.checkpoint import CheckpointManager
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def d(tag, name):
+            return os.path.join(tmp, f"{tag}_{name}")
+
+        def train_args(tag, *extra):
+            config, sets, steps, every, _, _ = CKPT_DRILLS[tag]
+            return ["--checkpoint-dir", d(tag, extra[0]), *extra[1:], "--set", *sets, f"train.num_steps={steps}",
+                    f"train.checkpoint_every={every}", f"train.eval_every={every}", f"train.log_every={every}"]
+
+        first = {}
+        for tag, (config, _, _, _, fault, _) in CKPT_DRILLS.items():
+            obs = ["--metrics-dir", d(tag, "M"), "--profile-dir", d(tag, "P")] if tag == "c1" else []
+            first[tag] = (cli_proc("train", config, train_args(tag, "A2", *obs)),
+                          cli_proc("train", config, train_args(tag, "B") + [f"train.fault_inject_step={fault}"]))
+        outs = {}
+        # cli.main's logging.basicConfig finds this handler and leaves this process's logging as it is.
+        quiet = logging.NullHandler()
+        for tag, (config, _, steps, _, _, used) in CKPT_DRILLS.items():
+            reset_launches()
+            buf = io.StringIO()
+            logging.getLogger().addHandler(quiet)
+            try:
+                with contextlib.redirect_stdout(buf):
+                    assert cli.main(["train", "--config", config, "--device", DEV, *train_args(tag, "A")]) == 0
+            finally:
+                logging.getLogger().removeHandler(quiet)
+            launches = read_launches()
+            outs[tag] = json.loads(buf.getvalue().strip().splitlines()[-1])
+            log(f"[checkpoint] {tag} train --config {config} ({steps} steps) into A, in this process: final "
+                f"recall@10 {outs[tag]['final']['recall@10']:.4f}, selected step {outs[tag]['selected_step']}, "
+                f"launches {launches}")
+            assert all(launches[k] > 0 for k in used), f"{tag}: the train path skipped a kernel: {launches}"
+            assert outs[tag]["steps"] == steps and outs[tag]["resumed_from"] is None, outs[tag]
+        resumed = {}
+        for tag, (a2, fault_run) in first.items():
+            cli_done(a2)
+            _, err = cli_done(fault_run, rc=None)
+            assert "FaultInjected" in err, f"{tag}: the fault run did not stop at the fault:\n{err[-3000:]}"
+            resumed[tag] = cli_proc("train", CKPT_DRILLS[tag][0], train_args(tag, "B"))
+        for tag, (config, _, steps, every, fault, _) in CKPT_DRILLS.items():
+            out, err = cli_done(resumed[tag])
+            assert f"resumed from checkpoint step {every}" in err, err[-3000:]
+            assert json.loads(out.strip().splitlines()[-1])["resumed_from"] == every
+            a, a2, b = (step_tensors(CheckpointManager(d(tag, n)).load(steps)) for n in ("A", "A2", "B"))
+            run_spread, resume_spread = step_spread(a, a2), step_spread(a, b)
+            if not run_spread:
+                assert not resume_spread, f"{tag}: B differs from A, which A2 repeats bit for bit: {resume_spread}"
+                log(f"[checkpoint] {tag}: fault at step {fault}, resumed from {every}: the final step ({steps}) of "
+                    f"A, A2 and B agree bit for bit ({len(a)} tensors: params and optimizer moments)")
+            else:
+                worst = max(resume_spread.values(), default=0.0)
+                log(f"[checkpoint] {tag}: A and A2 differ in {len(run_spread)} of {len(a)} tensors (an op with "
+                    f"atomics): {run_spread}; B against A: {resume_spread}")
+                assert worst <= 2 * max(run_spread.values()), f"{tag}: B's spread {worst} beyond twice A2's"
+                cfg = get_config(config).with_overrides(dict(x.split("=", 1) for x in CKPT_DRILLS[tag][1]))
+                step_grads, ops = grad_spread(cfg, load_dataset(cfg.data))
+                log(f"[checkpoint] {tag}: step 1's gradients twice from one state differ in {step_grads}; ops that "
+                    f"warn under torch.use_deterministic_algorithms: {ops}")
+
+        # eval, recommend and serve from A.
+        c1_cfg, _, c1_steps, c1_every, _, _ = CKPT_DRILLS["c1"]
+        ds = load_dataset(get_config(c1_cfg).data)
+        hist = histories_from_test(ds, 3)
+        request = json.dumps([[{"poi": c.poi, "timestamp": c.timestamp} for c in h] for h in hist[:2]])
+        reqs = [request, "{not json", json.dumps({"histories": [[{"poi": c.poi, "timestamp": c.timestamp}
+                                                                  for c in hist[2]]], "k": 5})]
+        procs = {}
+        for tag, (config, sets, steps, every, _, _) in CKPT_DRILLS.items():
+            where = ["--checkpoint-dir", d(tag, "A"), "--set", *sets]
+            procs[f"{tag} eval"] = cli_proc("eval", config, where)
+            procs[f"{tag} eval --step {every}"] = cli_proc("eval", config, [*where, "--step", str(every)])
+        procs["recommend"] = cli_proc("recommend", c1_cfg, ["--checkpoint-dir", d("c1", "A")], stdin=request)
+        procs["serve"] = cli_proc("serve", c1_cfg, ["--checkpoint-dir", d("c1", "A"), "--step", str(c1_steps)],
+                                  stdin="\n".join(reqs) + "\n")
+        got = {name: cli_done(p)[0].strip().splitlines() for name, p in procs.items()}
+        for tag, (config, _, steps, every, _, _) in CKPT_DRILLS.items():
+            full, at = json.loads(got[f"{tag} eval"][-1]), json.loads(got[f"{tag} eval --step {every}"][-1])
+            assert full["metrics"] == outs[tag]["final"], (full, outs[tag]["final"])
+            assert full["step"] == outs[tag]["selected_step"] and at["step"] == every, (full, at)
+            log(f"[checkpoint] {tag} eval --checkpoint-dir A: {full['metrics']} (step {full['step']}, the selected "
+                f"params), the metrics train printed; eval --step {every}: recall@10 {at['metrics']['recall@10']:.4f}")
+        mgr = CheckpointManager(d("c1", "A"))
+        cfg1 = get_config(c1_cfg)
+        for name, params in (("recommend", mgr.restore_selected()), ("serve", mgr.load(c1_steps)["params"])):
+            rec = Recommender(cli.model_with_params(cfg1, ds, params, torch.device(DEV)), cfg1, ds)
+            want = rec.recommend(hist[:2], k=10)
+            lines = [json.loads(x) for x in got[name]]
+            if name == "recommend":
+                assert np.array_equal(np.asarray(lines[-1]), want), (lines[-1], want)
+            else:
+                assert len(lines) == 3 and "error" in lines[1], lines
+                assert np.array_equal(np.asarray(lines[0]["ids"]), want) and np.asarray(lines[2]["ids"]).shape == (1, 5)
+        log(f"[checkpoint] c1 recommend --checkpoint-dir A: the ids of an in-process Recommender on the selected "
+            f"params; serve --step {c1_steps}: 2 answers (those of the step's params) + 1 error line")
+
+        # The metrics and the profiler window of config #1's A2 run.
+        rows = []
+        for name in os.listdir(d("c1", "M")):
+            with open(os.path.join(d("c1", "M"), name)) as f:
+                rows += [json.loads(line) for line in f]
+        mem = [r for r in rows if "hbm_bytes_in_use_gib" in r]
+        keys = ("hbm_bytes_in_use_gib", "hbm_peak_bytes_in_use_gib", "hbm_bytes_limit_gib")
+        assert mem and all(r[k] > 0 for r in mem for k in keys), rows[:5]
+        traces = os.listdir(d("c1", "P"))
+        with open(os.path.join(d("c1", "P"), traces[0])) as f:
+            trace = f.read()
+        missing = [k for k in (*GRU_FWD_KERNELS, *GRU_BWD_KERNELS) if k not in trace]
+        assert traces and not missing, f"the profile {traces} names no {missing}"
+        log(f"[checkpoint] c1 --metrics-dir: {len(rows)} rows, memory at steps {[r['step'] for r in mem]}: "
+            f"{[{k: round(r[k], 4) for k in keys} for r in mem]}; --profile-dir: {traces[0]} "
+            f"({len(trace)} bytes) names {GRU_FWD_KERNELS + GRU_BWD_KERNELS}")
+
+        # A step file's size, and the time to save it (synchronous, and with
+        # async_save up to the caller's return) and to restore it.
+        from poi_tpu_torch.train.loop import make_trainer
+
+        for tag, (config, sets, steps, _, _, _) in CKPT_DRILLS.items():
+            cfg = get_config(config).with_overrides(dict(s.split("=", 1) for s in sets))
+            trainer = make_trainer(cfg, ds if tag == "c1" else load_dataset(cfg.data), DEV)
+            st = trainer.init_state()
+            src = CheckpointManager(d(tag, "A"))
+            times = {"save": [], "async_return": [], "async_on_disk": [], "restore": []}
+            for i in range(CKPT_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, _ = src.restore(st, steps)
+                torch.cuda.synchronize()
+                times["restore"].append((time.perf_counter() - t0) * 1e3)
+                for mode in (False, True):
+                    out = CheckpointManager(d(tag, f"T{int(mode)}"), async_save=mode)
+                    t0 = time.perf_counter()
+                    out.save(steps, st, config_json=cfg.to_json())
+                    times["async_return" if mode else "save"].append((time.perf_counter() - t0) * 1e3)
+                    out.wait()
+                    if mode:
+                        times["async_on_disk"].append((time.perf_counter() - t0) * 1e3)
+            size = os.path.getsize(os.path.join(d(tag, "A"), f"step_{steps}.pt"))
+            n = sum(v.numel() for v in st.params.values())
+            log(f"[checkpoint] {tag} {config}: step file {size} bytes ({n} params + optimizer moments); ms, median "
+                f"of {CKPT_TIMED}: " + ", ".join(f"{k} {statistics.median(v):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
+                                                 for k, v in times.items()) + f"; card: {gpu}")
+
+
 def scripts_phase(state) -> None:
     """Each ported script as a user runs it (``python -m
     poi_tpu_torch.scripts.<name>``) on the card, at ``SCRIPT_RUNS``; a
@@ -2090,6 +2356,7 @@ def main() -> int:
     phase("lstm_config", recurrent_config_phase, state, "lstm")
     phase("strnn_config", recurrent_config_phase, state, "strnn")
     phase("cli_train", cli_train_phase, state)
+    phase("checkpoint", checkpoint_phase, gpu)
     times = phase("timing", timing_phase, state, gpu)
     times.update(phase("train_timing", train_timing_phase, state, gpu))
     times.update(phase("config_timing", config_timing_phase, state, gpu))

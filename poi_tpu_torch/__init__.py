@@ -9,7 +9,9 @@ C++ windowing (``utils``, ``configs``, ``data``, ``eval.metrics``,
 
 Layering (entry point down to the kernels):
 
-- ``cli``              — ``train`` / ``recommend`` / ``serve`` verbs
+- ``cli``              — ``train`` / ``eval`` / ``recommend`` / ``serve`` / ``configs`` verbs
+- ``utils.checkpoint`` — step files (params, optimizer state, loader position), resume, ``selected/``
+- ``utils.obs``        — JSONL metrics, card memory readings, the profiler window
 - ``train``            — ``Trainer`` and ``train()``, losses, optimizers, best-on-val
 - ``data``             — check-in tables, windowing, host loader, batches drawn on the device
 - ``eval.serve``       — ``Recommender``: featurize, query, top-k, visited filter

@@ -1,14 +1,21 @@
 """Command-line entry point of the PyTorch port.
 
-    python -m poi_tpu_torch train     --config gru_foursquare_nyc [--set k=v ...] [--device cuda] --no-checkpoint
-    python -m poi_tpu_torch recommend --config gru_foursquare_nyc --params P.npz [--device cuda]
-    python -m poi_tpu_torch serve     --config gru_foursquare_nyc --params P.npz [--device cuda]
+    python -m poi_tpu_torch train     --config gru_foursquare_nyc [--set k=v ...] [--device cuda] [--checkpoint-dir D]
+    python -m poi_tpu_torch eval      --config gru_foursquare_nyc [--checkpoint-dir D] [--step N]
+    python -m poi_tpu_torch recommend --config gru_foursquare_nyc (--checkpoint-dir D [--step N] | --params P.npz)
+    python -m poi_tpu_torch serve     --config gru_foursquare_nyc (--checkpoint-dir D [--step N] | --params P.npz)
+    python -m poi_tpu_torch configs
 
-``train`` trains from a fresh init, evaluates on val every ``eval_every``
-steps (best-on-val selection) when the dataset has a val split, or on test
-otherwise, and prints the final test metrics of the selected parameters as
-one JSON line. Checkpointing is not ported yet, so it needs
-``--no-checkpoint``.
+``train`` evaluates on val every ``eval_every`` steps (best-on-val
+selection) when the dataset has a val split, or on test otherwise, and
+prints the final test metrics of the selected parameters as one JSON line.
+It checkpoints every ``checkpoint_every`` steps into ``checkpoint.directory``
+(``--checkpoint-dir``; ``--no-checkpoint`` trains without) and resumes from
+the latest step there: same batches, same draws, same optimizer moments, so
+``--set train.fault_inject_step=N`` and a rerun give the uninterrupted run's
+bits. The step sequence ends at the true end-of-run state; the selected
+params go to ``<dir>/selected``, which ``eval``, ``recommend`` and ``serve``
+prefer unless ``--step`` names a step.
 
 ``--params`` is an ``.npz`` of a ``poi_tpu`` param tree with ``/``-joined keys
 (``convert.save_npz``; ``scripts/export_params_npz.py`` writes one from a
@@ -31,34 +38,67 @@ import sys
 import numpy as np
 import torch
 
+# Steps [start, stop) that --profile-dir traces (the reference's window).
+PROFILE_STEPS = (10, 15)
+
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="poi_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    def add_common(p, params: bool = True):
-        p.add_argument("--config", required=True, help="named config (configs/presets.py)")
+    def add_common(p):
+        p.add_argument("--config", required=True, help="named config (see `configs`)")
         p.add_argument("--set", nargs="*", default=[], help="dotted overrides key=value")
-        if params:
-            p.add_argument("--params", required=True, help="parameters as .npz (convert.save_npz layout)")
         p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
 
+    def add_source(p, params: bool):
+        where = p.add_mutually_exclusive_group(required=params)
+        where.add_argument("--checkpoint-dir", default=None,
+                           help="a poi_tpu_torch checkpoint directory" + ("" if params else
+                                                                          " (default: checkpoint.directory)"))
+        if params:
+            where.add_argument("--params", default=None, help="parameters as .npz (convert.save_npz layout)")
+        p.add_argument("--step", type=int, default=None,
+                       help="checkpoint step to load (default: the latest, with the selected params when saved)")
+
     p_train = sub.add_parser("train", help="train a model, then evaluate it on test")
-    add_common(p_train, params=False)
-    p_train.add_argument("--no-checkpoint", action="store_true",
-                         help="train without checkpoints (required: checkpointing is not ported yet)")
+    add_common(p_train)
+    p_train.add_argument("--checkpoint-dir", default=None, help="override checkpoint.directory")
+    p_train.add_argument("--no-checkpoint", action="store_true", help="train without saving or resuming")
+    p_train.add_argument("--metrics-dir", default=None, help="append per-step JSONL metrics here")
+    p_train.add_argument("--tensorboard", action="store_true", help="also write TB scalars under metrics-dir/tb")
+    p_train.add_argument("--profile-dir", default=None,
+                         help=f"trace steps {PROFILE_STEPS[0]}..{PROFILE_STEPS[1]} to this dir (Chrome trace)")
+    p_train.add_argument("--debug", action="store_true",
+                         help="autograd anomaly detection, and stop on a non-finite loss or grad norm")
+
+    p_eval = sub.add_parser("eval", help="evaluate a checkpoint on test")
+    add_common(p_eval)
+    add_source(p_eval, params=False)
 
     p_rec = sub.add_parser("recommend", help="one-shot: JSON check-in histories in, top-k POI ids out")
     add_common(p_rec)
+    add_source(p_rec, params=True)
     p_rec.add_argument("--input", default="-", help="JSON file of histories ('-' = stdin)")
     p_rec.add_argument("--k", type=int, default=10)
     p_rec.add_argument("--include-visited", action="store_true")
 
     p_srv = sub.add_parser("serve", help="persistent loop: one JSON request per stdin line")
     add_common(p_srv)
+    add_source(p_srv, params=True)
     p_srv.add_argument("--k", type=int, default=10, help="default top-k per request")
 
+    sub.add_parser("configs", help="list named configs")
+
     args = parser.parse_args(argv)
+    if args.cmd == "configs":
+        from poi_tpu_torch.configs.presets import list_configs
+
+        for name in list_configs():
+            print(name)
+        return 0
+    if getattr(args, "params", None) is not None and args.step is not None:
+        parser.error("--step names a checkpoint step: it goes with --checkpoint-dir, not --params")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -68,57 +108,124 @@ def main(argv: list[str] | None = None) -> int:
     from poi_tpu_torch.utils.config import parse_set_flags
 
     cfg = get_config(args.config).with_overrides(parse_set_flags(args.set))
+    if args.checkpoint_dir:
+        cfg = cfg.with_overrides({"checkpoint.directory": args.checkpoint_dir})
     if args.cmd == "train":
-        if not args.no_checkpoint:
-            print("error: checkpointing is not ported to poi_tpu_torch yet; pass --no-checkpoint to train "
-                  "without it", file=sys.stderr)
-            return 2
-        return run_train(cfg, device)
-    rec = load_recommender(cfg, args.params, device)
+        return run_train(cfg, device, enable_checkpoint=not args.no_checkpoint, metrics_dir=args.metrics_dir,
+                         profile_dir=args.profile_dir, tensorboard=args.tensorboard, debug=args.debug)
+    if args.cmd == "eval":
+        return run_eval(cfg, device, step=args.step)
+    rec = load_recommender(cfg, device, params_path=args.params, step=args.step)
     if args.cmd == "recommend":
         return run_recommend(rec, args.input, args.k, not args.include_visited)
     return run_serve(rec, default_k=args.k)
 
 
-def run_train(cfg, device: torch.device) -> int:
-    """Train, select on val (or evaluate on test) every ``eval_every`` steps,
-    then print the final test metrics as one JSON line."""
+def run_train(cfg, device: torch.device, enable_checkpoint: bool = True, metrics_dir: str | None = None,
+              profile_dir: str | None = None, tensorboard: bool = False, debug: bool = False) -> int:
+    """Train (resuming from ``checkpoint.directory``'s latest step), select
+    on val (or evaluate on test) every ``eval_every`` steps, then print the
+    final test metrics as one JSON line."""
     from poi_tpu_torch.data.dataset import load_dataset
     from poi_tpu_torch.eval.evaluate import evaluate, popularity_baseline
     from poi_tpu_torch.train.loop import make_trainer, train
     from poi_tpu_torch.train.selection import BestOnVal
+    from poi_tpu_torch.utils.checkpoint import CheckpointManager, warn_config_mismatch
+    from poi_tpu_torch.utils.obs import MetricsLogger, device_memory_stats, profile_window
 
     log = logging.getLogger("poi_tpu_torch.cli")
     ds = load_dataset(cfg.data)
     log.info("dataset: %d users, %d pois, %d train examples, %d test examples on %s",
              ds.num_users, ds.num_pois, len(ds.train), len(ds.test), device)
     trainer = make_trainer(cfg, ds, device)
+    trainer.check_finite = debug
+    state = trainer.init_state()
+
+    ckpt = None
+    loader_state = None
+    resumed_from = None
+    if enable_checkpoint:
+        ckpt = CheckpointManager(cfg.checkpoint.directory, cfg.checkpoint.max_to_keep, cfg.checkpoint.async_save)
+        latest = ckpt.latest_step()
+        if latest is not None:
+            warn_config_mismatch(ckpt.saved_config(latest), cfg)
+            if latest >= cfg.train.num_steps:
+                log.info("checkpoint already at step %d >= num_steps %d", latest, cfg.train.num_steps)
+                return 0
+            state, loader_state = ckpt.restore(state, latest)
+            resumed_from = latest
+            log.info("resumed from checkpoint step %d", latest)
+
+    # With a val split, periodic eval runs on val and the best-on-val params
+    # are selected for the final test eval; without one, periodic eval runs
+    # on test directly.
     tracker = BestOnVal(trainer, ds, cfg) if ds.val is not None else None
+    if tracker is not None and ckpt is not None:
+        # Resuming a directory with a persisted selection: seed the tracker
+        # so a worse later-segment val peak never replaces the better one.
+        info = ckpt.selected_info()
+        if info and info["metric"] == tracker.metric and info["score"] is not None:
+            tracker.seed(info["step"], info["score"], ckpt.restore_selected())
+            log.info("seeded selection from selected/: step %d %s=%.4f", info["step"], info["metric"], info["score"])
+    metrics = MetricsLogger(metrics_dir, tensorboard=tensorboard)
+    pw = profile_window(profile_dir, *PROFILE_STEPS)
     test_evals: list[dict] = []
 
-    def callback(step, state, metrics):
-        if tracker is not None:
-            tracker(step, state, metrics)
-        elif step % cfg.train.eval_every == 0:
-            m = evaluate(trainer.model, ds, cfg)
-            log.info("test @%d: %s", step, m)
-            test_evals.append({"step": step, **m})
+    def loader_state_at(step):
+        ldr = trainer.active_loader
+        return ldr.state_at(step) if ldr is not None else None
 
-    trainer, state, history = train(cfg, ds, trainer=trainer, callbacks=[callback], device=device)
-    if tracker is not None and tracker.best_step >= 0:
-        # No checkpoint keeps the end-of-run state, so the selected
-        # parameters simply replace it for the final evaluation.
-        with torch.no_grad():
-            for k, p in tracker.best_params(state.params).items():
-                state.params[k].copy_(p)
-        log.info("selected best-on-val params from step %d (val %s=%.4f)",
-                 tracker.best_step, tracker.metric, tracker.best_score)
-    final = evaluate(trainer.model, ds, cfg)
-    pop = popularity_baseline(ds, cfg.eval.recall_ks)
+    def callback(step, st, m):
+        pw.step(step)
+        if step % cfg.train.eval_every == 0:
+            mem = device_memory_stats(device)  # empty on the CPU
+            if mem:
+                metrics.write(step, mem)
+        if ckpt is not None and cfg.train.checkpoint_every > 0 and step % cfg.train.checkpoint_every == 0:
+            ckpt.save(step, st, loader_state=loader_state_at(step), config_json=cfg.to_json())
+        if tracker is not None:
+            tracker(step, st, m)
+            if tracker.history and tracker.history[-1]["step"] == step:
+                metrics.write(step, {f"val/{k}": v for k, v in tracker.history[-1].items() if k != "step"})
+        elif step % cfg.train.eval_every == 0:
+            em = evaluate(trainer.model, ds, cfg)
+            log.info("test @%d: %s", step, em)
+            test_evals.append({"step": step, **em})
+            metrics.write(step, {f"eval/{k}": v for k, v in em.items()})
+
+    try:
+        with torch.autograd.set_detect_anomaly(debug):
+            trainer, state, history = train(cfg, ds, num_steps=cfg.train.num_steps - state.step, state=state,
+                                            trainer=trainer, callbacks=[callback], loader_state=loader_state)
+        for row in history:
+            metrics.write(row["step"], {k: v for k, v in row.items() if k != "step"})
+        # The step sequence ends with the TRUE end-of-run state (params and
+        # moments that belong together, so resuming with a larger num_steps
+        # is sound). It is saved before the selected params go into the
+        # model for the final eval: evaluate() reads the model's own params.
+        if ckpt is not None and ckpt.latest_step() != state.step:
+            ckpt.save(state.step, state, loader_state=loader_state_at(state.step), config_json=cfg.to_json())
+        if tracker is not None and tracker.best_step >= 0:
+            with torch.no_grad():
+                for k, p in tracker.best_params(state.params).items():
+                    state.params[k].copy_(p)
+            log.info("selected best-on-val params from step %d (val %s=%.4f)",
+                     tracker.best_step, tracker.metric, tracker.best_score)
+            if ckpt is not None:
+                ckpt.save_selected(tracker.best_step, state.params, metric=tracker.metric, score=tracker.best_score)
+        final = evaluate(trainer.model, ds, cfg)
+        pop = popularity_baseline(ds, cfg.eval.recall_ks)
+        metrics.write(state.step, {f"final/{k}": v for k, v in final.items()})
+    finally:
+        pw.close()
+        metrics.close()
+        if ckpt is not None:
+            ckpt.close()
     log.info("final eval: %s", final)
     log.info("popularity baseline: %s", pop)
     print(json.dumps({
         "steps": state.step,
+        "resumed_from": resumed_from,
         "selected_step": tracker.best_step if tracker is not None else None,
         "final": final,
         "popularity_baseline": pop,
@@ -128,19 +235,65 @@ def run_train(cfg, device: torch.device) -> int:
     return 0
 
 
-def load_recommender(cfg, params_path: str, device: torch.device):
-    """Dataset featurizer + model with the given parameters on ``device``."""
-    from poi_tpu_torch.data.dataset import load_dataset
-    from poi_tpu_torch.convert import load_npz, params_from_jax
-    from poi_tpu_torch.eval.serve import Recommender
+def model_with_params(cfg, ds, params: dict[str, torch.Tensor], device: torch.device):
+    """The model of ``cfg`` on ``device`` holding ``params`` (a ``state_dict``).
+    The table may be padded past num_pois (a vocab-sharded run): its size
+    comes from the params."""
     from poi_tpu_torch.models.base import DataDims, build_model
 
-    ds = load_dataset(cfg.data)
-    tree = load_npz(params_path)
-    # The table may be padded past num_pois (a vocab-sharded run); take its size.
-    dims = dataclasses.replace(DataDims.from_dataset(ds), num_pois_padded=int(tree["embed"]["poi"].shape[0]))
+    dims = dataclasses.replace(DataDims.from_dataset(ds), num_pois_padded=int(params["embed.poi"].shape[0]))
     model = build_model(cfg.model, dims, device=device)
-    model.load_state_dict(params_from_jax(tree))
+    model.load_state_dict(params)
+    return model
+
+
+def restore_for_inference(cfg, device: torch.device, step: int | None = None):
+    """(dataset, model, step) from ``checkpoint.directory``: exactly step
+    ``step`` when given, else the latest step with the best-on-val selected
+    params when the run saved them (so inference on a finished directory
+    reproduces its reported metrics); ``step`` is the params' step."""
+    from poi_tpu_torch.data.dataset import load_dataset
+    from poi_tpu_torch.utils.checkpoint import CheckpointManager, warn_config_mismatch
+
+    log = logging.getLogger("poi_tpu_torch.cli")
+    ds = load_dataset(cfg.data)
+    ckpt = CheckpointManager(cfg.checkpoint.directory)
+    try:
+        saved = ckpt.load(step)
+        warn_config_mismatch(saved["config"], cfg)
+        params, at = saved["params"], saved["step"]
+        if step is None and ckpt.selected_step() is not None:
+            params, at = ckpt.restore_selected(), ckpt.selected_step()
+            log.info("using best-on-val-selected params (trained to step %d)", at)
+        model = model_with_params(cfg, ds, params, device)
+    finally:
+        ckpt.close()
+    log.info("restored step %d from %s", at, ckpt.directory)
+    return ds, model, at
+
+
+def run_eval(cfg, device: torch.device, step: int | None = None) -> int:
+    """Evaluate a checkpoint on test; prints ``{"step", "metrics"}`` as one JSON line."""
+    from poi_tpu_torch.eval.evaluate import evaluate
+
+    ds, model, at = restore_for_inference(cfg, device, step=step)
+    print(json.dumps({"step": at, "metrics": evaluate(model, ds, cfg)}), flush=True)
+    return 0
+
+
+def load_recommender(cfg, device: torch.device, params_path: str | None = None, step: int | None = None):
+    """Dataset featurizer + model on ``device``, with the ``.npz`` parameters
+    at ``params_path``, or else with ``checkpoint.directory``'s
+    (``restore_for_inference``)."""
+    from poi_tpu_torch.convert import load_npz, params_from_jax
+    from poi_tpu_torch.data.dataset import load_dataset
+    from poi_tpu_torch.eval.serve import Recommender
+
+    if params_path is None:
+        ds, model, _ = restore_for_inference(cfg, device, step=step)
+    else:
+        ds = load_dataset(cfg.data)
+        model = model_with_params(cfg, ds, params_from_jax(load_npz(params_path)), device)
     return Recommender(model, cfg, ds)
 
 

@@ -59,7 +59,13 @@ class Trainer:
     # None draws them from the step's generator. A test replays poi_tpu's
     # draws through it.
     negatives: Callable[[int], torch.Tensor] | None = None
+    # --debug: raise FloatingPointError on a non-finite loss or grad norm.
+    # It reads both every step, so the host waits for the card every step.
+    check_finite: bool = False
     model: Any = field(init=False)
+    # The host loader of the running train(), so a callback can checkpoint
+    # its consumed position; None on the device-sampler path.
+    active_loader: Any = field(init=False, default=None)
 
     def __post_init__(self):
         self.device = model_base.require_device(self.device, "Trainer")
@@ -136,10 +142,13 @@ class Trainer:
         neg = self.draw_negatives(state.step, batch)
         drop = self.generator(state.step, DROPOUT_STREAM) if self.cfg.model.dropout > 0.0 else None
         loss = self.loss(batch, neg, drop)
+        if self.check_finite:
+            _require_finite("loss", loss, state.step)
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p) for k, p in params.items()}
         train = self.cfg.train
-        is_log_step = (state.step + 1) % max(1, train.log_every) == 0 or state.step + 1 == train.num_steps
+        is_log_step = (self.check_finite or (state.step + 1) % max(1, train.log_every) == 0
+                       or state.step + 1 == train.num_steps)
         zero = torch.zeros((), device=self.device)
         lr = self.optimizer.lr(state.opt_state["count"])
         if self.sparse:  # lazy Adam computes the exact global norm for its clip: reported every step
@@ -147,6 +156,8 @@ class Trainer:
         else:
             grad_norm = global_norm(grads.values()) if is_log_step else zero
             self.optimizer.update(grads, state.opt_state, params)
+        if self.check_finite:
+            _require_finite("grad norm", grad_norm, state.step)
         for p in params.values():
             p.grad = None
         with torch.no_grad():
@@ -166,6 +177,11 @@ class Trainer:
             rows.append(metrics)
         return state, {k: torch.stack([r[k] for r in rows]) if torch.is_tensor(rows[0][k])
                        else torch.tensor([r[k] for r in rows]) for k in rows[0]}
+
+
+def _require_finite(what: str, value: torch.Tensor, step: int) -> None:
+    if not bool(torch.isfinite(value)):
+        raise FloatingPointError(f"non-finite {what} ({float(value.detach())}) at step {step}")
 
 
 def _aligned_steps_per_call(cfg: Config, callbacks) -> int:
@@ -250,10 +266,13 @@ def train(
     trainer: Trainer | None = None,
     callbacks: list[Callable] | None = None,
     device: Any = "cuda",
+    loader_state: dict | None = None,
 ) -> tuple[Trainer, TrainState, list[dict]]:
     """Run the training loop; returns (trainer, final state, metric history).
     Without a ``trainer`` it makes one on ``device``: the card unless the
-    caller asks for the CPU (``device="cpu"``)."""
+    caller asks for the CPU (``device="cpu"``). ``loader_state`` (from a
+    checkpoint) restores the host loader's position; without it the loader
+    seeks to the state's step, which is the same position for this loader."""
     num_steps = num_steps if num_steps is not None else cfg.train.num_steps
     if trainer is None:
         trainer = make_trainer(cfg, dataset, device)
@@ -261,11 +280,15 @@ def train(
         state = trainer.init_state()
     start_step = state.step
     if trainer.sampler is not None:
+        trainer.active_loader = None
         return _train_sampled(cfg, trainer, state, start_step, num_steps, callbacks)
 
     loader = make_train_loader(dataset.train, batch_size=cfg.train.batch_size, seed=cfg.train.seed,
                                backend=cfg.data.loader_backend)
-    if start_step:
+    trainer.active_loader = loader
+    if loader_state:
+        loader.restore(loader_state)
+    elif start_step:
         loader.seek(start_step)  # step N always sees batch N
     history: list[dict] = []
     end = start_step + num_steps

@@ -40,6 +40,14 @@ class BestOnVal:
         self._best: dict[str, torch.Tensor] | None = None
         self.history: list[dict] = []
 
+    def seed(self, step: int, score: float, params: dict[str, torch.Tensor]) -> None:
+        """Adopt a persisted selection as the incumbent best (a resumed run),
+        so a worse later-segment val peak never replaces it. ``params`` may
+        lie on the host; the copy kept goes to the trainer's device."""
+        self.best_step = step
+        self.best_score = score
+        self._best = {k: p.detach().to(self.trainer.device, copy=True) for k, p in params.items()}
+
     def __call__(self, step: int, state, metrics) -> None:
         if step % self.every:
             return

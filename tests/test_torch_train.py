@@ -372,6 +372,16 @@ def test_cli_train_on_cpu_drops_the_loss_without_jax():
     assert set(out["popularity_baseline"]) == {"recall@1", "recall@5", "recall@10", "ndcg@10"}
 
 
-def test_cli_train_needs_no_checkpoint():
-    proc = _run_cli("train", "--config", "smoke", "--device", "cpu")
-    assert proc.returncode == 2 and "checkpoint" in proc.stderr
+def test_cli_train_checkpoints_by_default(tmp_path, capsys, caplog):
+    """With no flag, train saves into --checkpoint-dir (the end-of-run step,
+    50); the same command again finds the run finished and returns 0."""
+    from poi_tpu_torch.cli import main
+
+    argv = ["train", "--config", "smoke", "--device", "cpu", "--checkpoint-dir", str(tmp_path)]
+    assert main(argv) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["steps"] == 50
+    assert os.listdir(tmp_path) == ["step_50.pt"]
+    caplog.clear()
+    with caplog.at_level("INFO", logger="poi_tpu_torch.cli"):
+        assert main(argv) == 0
+    assert "already at step 50" in caplog.text and capsys.readouterr().out == ""
