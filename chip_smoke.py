@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port: serving config #1, training,
-configs #2, #3 and #4, and the measurement scripts.
+configs #2 to #5, and the measurement scripts.
 
     python3 chip_smoke.py          # from the repository root, on a machine with one CUDA card
 
@@ -25,6 +25,14 @@ with its plain PyTorch version on the card. Then it drives the paths:
   (``strnn_gowalla``: ST-RNN 128-d, 8 time-gap and 8 distance buckets, user
   embedding, dropout 0.5, full CE over 36,969 POIs, T=32, batch 64), each the
   same way as config #4;
+- config #5 on one card (``multihost_1m --set mesh.model=1
+  mesh.embedding_mode=psum data.min_poi_checkins=1 data.val_fraction=0.05``:
+  GRU 512-d + 8-head attention, T=64, batch 512, sampled softmax over 4,096
+  negatives at D = 512, the rows-gradient step with gather/scatter lazy
+  Adam, 903,889 POIs): 20 device-sampled steps through ``train()`` on both
+  paths, ``evaluate()`` on val, the rows step against the dense-gradient
+  step and its bits run to run, ``Recommender`` at request batch 1 and 256
+  on both paths, and ``python -m poi_tpu_torch train``;
 - checkpoint and resume: ``python -m poi_tpu_torch train`` on configs #1
   and #4 uninterrupted (twice) and stopped by ``train.fault_inject_step``
   then resumed, the final steps compared tensor by tensor; ``eval``,
@@ -209,7 +217,8 @@ CE_C3_SHAPE = (2048, 36969, 128)  # config #3's CE: batch 64 x T=32 rows, 36,969
 # B11's other main-path catalogs, (V, D, real POIs), each padded to a multiple
 # of 2,048 with -1e30 rows as the eval and serving code pad them: the bench
 # eval sweep's, config #4's eval sweep's, and bench_serve's (70,953 POIs).
-TOPK_CATALOGS = {"eval": (45056, 128, 44170), "c4": (38912, 256, 36969), "serve70k": (71680, 256, 70953)}
+TOPK_CATALOGS = {"eval": (45056, 128, 44170), "c4": (38912, 256, 36969), "serve70k": (71680, 256, 70953),
+                 "c5": (905216, 512, 903889)}
 CE_THRESHOLD_CASES = ((2048, 6749, 64), (32768, 6749, 128), (32768, 44170, 128))
 # Config #4 at full width: GRU + attention 256-d, T=128, batch 64, dropout
 # 0.3, sampled softmax (S=1,024), lazy Adam, 36,969 POIs. The device sampler
@@ -223,7 +232,10 @@ STEP_TIME_CHUNK = 20
 # workload's batch and profile_attn at config #4's; mem_budget on the bench
 # workload (one 40-step device-sampled chunk) and on config #4 (one
 # host-loader step); quality_runs on config #1 cut from its 3,000 steps to
-# 300 (best-on-val at 100, 200, 300).
+# 300 (best-on-val at 100, 200, 300); mem_budget on config #5 (one
+# host-loader rows step), profile_1m at its default, bench_1m's training at
+# V = 1M with the preset's lazy Adam (its top-k is timed in the timing phase
+# at V = 903,889), step_time on the bench workload.
 SCRIPT_RUNS = (
     ("sweep_ce_fwd", []),
     ("sweep_ce_bwd", []),
@@ -234,6 +246,11 @@ SCRIPT_RUNS = (
     ("mem_budget", ["smoke", "--set", *(f"{k}={v}" for k, v in BENCH_OVERRIDES.items())]),
     ("mem_budget", [ATTN_CONFIG]),
     ("quality_runs", [CONFIG, "train.num_steps=300", "train.eval_every=100"]),
+    ("mem_budget", ["multihost_1m", "--set", "mesh.model=1", "mesh.embedding_mode=psum", "data.min_poi_checkins=1",
+                    "data.val_fraction=0.05"]),
+    ("profile_1m", []),
+    ("bench_1m", ["--skip-topk", "--table-update", "sparse"]),
+    ("step_time", ["bench"]),
 )
 # The GRU kernels at the larger widths: config #4's train shape, a ragged
 # batch, config #5's width on a few rows and at its batch of 512, and the
@@ -261,10 +278,15 @@ GRU_BWD_RAGGED = ((1100, 100, 1), (7, 200, 8))
 # of 130 entries all of one id, padded to 320, which is the target of rows
 # 0-19 (hits "all": every pool entry of those rows is a hit or padding; one
 # block of 100 rows splits the 5 tiles into 5 ranges, the last two wholly
-# padding). Small catalogs make accidental hits common.
+# padding). Small catalogs make accidental hits common. Then D = 512:
+# config #5's train shape (B*T = 32,768 rows, a pool of 4,096 from 903,889
+# POIs; ~150 accidental hits), its pool of 4,000 padded to 4,096 with two
+# entries every row's target, a ragged padded pool, and every entry a hit.
+SAMPLED_C5 = (32768, 4096, 512, 903889, 0, None)
 SAMPLED_CASES = ((8192, 1024, 256, 36969, 0, None), (8192, 1000, 256, 2000, 24, None),
                  (300, 200, 256, 50, 0, "two"), (1000, 300, 128, 500, 0, None), (777, 300, 64, 400, 33, None),
-                 (100, 130, 256, 400, 190, "all"))
+                 (100, 130, 256, 400, 190, "all"), SAMPLED_C5, (32768, 4000, 512, 903889, 96, "two"),
+                 (777, 300, 512, 400, 33, None), (100, 130, 512, 400, 190, "all"))
 # B10's split rule (the dq pass's, the dE pass's: 2 and 16 at config #4's
 # shape) against fewer and more ranges of the streamed rows; (0, 0) is the
 # rule.
@@ -323,7 +345,7 @@ def build_phase() -> None:
     path, out = _build.build()
     log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
     for line in out.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "smem", "spill", "Compiling entry", "warning")):
             log(f"[build]   {line.strip()}")
     _build.library()
 
@@ -706,7 +728,7 @@ def gru_big_phase() -> dict:
     """B1 and B2 at the larger widths against their plain versions: config
     #4's (B, T, H), a ragged batch, and config #5's H = 512 on a few rows and
     at its batch of 512. Returns the largest absolute errors and config #4's
-    times."""
+    and config #5's times."""
     import torch
 
     from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan, gru_bwd_reference, gru_scan_reference
@@ -728,10 +750,16 @@ def gru_big_phase() -> dict:
                                "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh), 5),
                                "library_ms": cudnn_ms("gru", B, T, H, DEV),
                                **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * 3 * H)}
-            t = out["fwd_h512"]
+            out["fwd_h512"]["args"] = (xw, wh)
+            out["bwd_h512"] = {"ms": time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs)),
+                               "plain_ms": time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 5), "library_ms": None,
+                               **gru_bwd_bound(xw, wh, hs, dhs, fused_gru_bwd(xw, wh, hs, dhs)),
+                               "args": (xw, wh, hs, dhs)}
+            t, tb = out["fwd_h512"], out["bwd_h512"]
             log(f"[time] gru_fwd B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN "
                 f"nn.GRU forward {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
-                f"{t['bound_pipe']})")
+                f"{t['bound_pipe']}); gru_bwd: kernel {tb['ms']:.4f} ms, plain {tb['plain_ms']:.4f} ms; bound "
+                f"{tb['bound_ms']:.4f} ms ({tb['bound_by']}, {tb['bound_pipe']})")
         if (B, T, H) == GRU_BIG_SHAPES[0]:
             G = 3 * H
             out["fwd"] = {"ms": time_ms(lambda: fused_gru_scan(xw, wh)),
@@ -756,8 +784,9 @@ def gru_big_phase() -> dict:
 
 def recurrence_device_phase(times: dict, big: dict, lstm: dict, gpu: str) -> None:
     """Device time by kernel, on the inputs the earlier phases timed: B1 at
-    the serve shapes (batch 256 and 1), the bench shape and config #4's; B2
-    at config #4's; B4 at config #2's, pass by pass. It runs after the
+    the serve shapes (batch 256 and 1), the bench shape, config #4's and
+    config #5's; B2 at config #4's and config #5's; B4 at config #2's, pass
+    by pass. It runs after the
     timing phases, as every profiler reading does: in a run that profiled
     here, before the training phases, the top-k timing's later records came
     back empty."""
@@ -769,10 +798,16 @@ def recurrence_device_phase(times: dict, big: dict, lstm: dict, gpu: str) -> Non
         t.update(device_parts(lambda: fused_gru_scan(xw, wh), GRU_FWD_KERNELS))
         log(f"[time] gru_fwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]}: device {t['device_ms']:.4f} ms "
             f"(CUDA events {t['ms']:.4f} ms)  ({gpu})")
-    t = big["bwd"]
-    xw, wh, hs, dhs = t.pop("args")
-    t.update(device_parts(lambda: fused_gru_bwd(xw, wh, hs, dhs), GRU_BWD_KERNELS))
-    log(f"[time] gru_bwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]}: {parts_text(t, GRU_BWD_KERNELS)}  ({gpu})")
+    t = big["fwd_h512"]
+    xw, wh = t.pop("args")
+    t.update(device_parts(lambda: fused_gru_scan(xw, wh), GRU_FWD_KERNELS))
+    log(f"[time] gru_fwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]}: device {t['device_ms']:.4f} ms "
+        f"(CUDA events {t['ms']:.4f} ms)  ({gpu})")
+    for t in (big["bwd"], big["bwd_h512"]):
+        xw, wh, hs, dhs = t.pop("args")
+        t.update(device_parts(lambda: fused_gru_bwd(xw, wh, hs, dhs), GRU_BWD_KERNELS))
+        log(f"[time] gru_bwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]}: {parts_text(t, GRU_BWD_KERNELS)}  "
+            f"({gpu})")
     t = lstm["bwd"]
     args = t.pop("args")
     t.update(device_parts(lambda: fused_lstm_bwd(*args), LSTM_BWD_KERNELS))
@@ -783,7 +818,8 @@ def recurrence_device_phase(times: dict, big: dict, lstm: dict, gpu: str) -> Non
 def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str) -> None:
     """Device time by kernel, on the inputs the earlier phases timed: B9
     (kernel and merge apart, also at ``SAMPLED_LSE_SPLITS``) and B10 (pass by
-    pass, also at ``SAMPLED_SPLITS``) at config #4's shape, B3 at config
+    pass, also at ``SAMPLED_SPLITS``) at config #4's shape, both at config
+    #5's (D = 512), B3 at config
     #2's and at ``LSTM_TIMED`` (and at each cluster of
     ``LSTM_CLUSTER_CASES``), B5 at config #3's and at ``RNN_TIMED`` (and at
     each cluster of ``RNN_FWD_CLUSTER_CASES``), B6 (pass by pass, and at each
@@ -795,6 +831,8 @@ def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str)
 
     cases = [("sampled_lse", sampled["lse"], sampled_lse, SAMPLED_LSE_KERNELS),
              ("sampled_bwd", sampled["bwd"], sampled_bwd, SAMPLED_BWD_KERNELS),
+             ("sampled_lse", sampled["lse_d512"], sampled_lse, SAMPLED_LSE_KERNELS),
+             ("sampled_bwd", sampled["bwd_d512"], sampled_bwd, SAMPLED_BWD_KERNELS),
              *(("lstm_fwd", lstm[k], fused_lstm_scan, LSTM_FWD_KERNELS)
                for k in ("fwd", *(f"fwd_{k}" for k in LSTM_TIMED))),
              *(("rnn_fwd", rnn[k], fused_rnn_scan, RNN_FWD_KERNELS) for k in ("fwd", *(f"fwd_{k}" for k in RNN_TIMED))),
@@ -840,9 +878,10 @@ def sampled_case(N: int, S: int, D: int, V: int, gen, pad: int = 0, hits=None):
 
 
 def sampled_phase() -> dict:
-    """B9 and B10 against their plain versions at config #4's shape, at a
-    pool that is no multiple of the 64-row tile (padded as the TPU pads it),
-    and with pool entries that are a hit for every row."""
+    """B9 and B10 against their plain versions at config #4's shape and
+    config #5's (D = 512), at pools that are no multiple of the 64-row tile
+    (padded as the TPU pads them), and with pool entries that are a hit for
+    every row; both timed at the two configs' shapes."""
     import torch
 
     from poi_tpu_torch.ops.fused_sampled import (NEG, sampled_bwd, sampled_bwd_reference, sampled_lse,
@@ -881,19 +920,24 @@ def sampled_phase() -> dict:
             f"(tol {CE_LSE_TOL}){all_hit}; rel err dq {errs[0]:.2e}, de {errs[1]:.2e} (tol {CE_GRAD_TOL}), db "
             f"{errs[2]:.2e} (tol {CE_DBIAS_TOL}); {len(zero_rows)} hit/padded pool rows exactly 0; a second run gives "
             f"the same bits; every forced split of B9 within the tolerance")
-        if (N, S, D, V, pad, hits) == SAMPLED_CASES[0]:
+        key = {SAMPLED_CASES[0]: "", SAMPLED_C5: "_d512"}.get((N, S, D, V, pad, hits))
+        if key is not None:
             # No single PyTorch call computes the masked pool LSE or its
             # gradients: no library time.
-            out["lse"] = {"ms": time_ms(lambda: sampled_lse(q, e, b, ids, tgt)),
-                          "plain_ms": time_ms(lambda: sampled_lse_reference(q, e, b, ids, tgt)), "library_ms": None,
-                          **bound((q, e, b, ids, tgt), (lse,), bf16_flop=2 * N * S * D), "args": (q, e, b, ids, tgt)}
-            out["bwd"] = {"ms": time_ms(lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g)),
-                          "plain_ms": time_ms(lambda: sampled_bwd_reference(q, e, b, ids, tgt, lse_tot, g)),
-                          "library_ms": None,
-                          **bound((q, e, b, ids, tgt, lse_tot, g), got, bf16_flop=6 * N * S * D),
-                          "args": (q, e, b, ids, tgt, lse_tot, g)}
+            if key:  # the D = 512 rows' own parity (the top-level rows carry every case's worst)
+                out["lse_err" + key] = e_lse
+                out["grad_err" + key] = max(float((a - w).abs().max()) for a, w in zip(got, want))
+            out["lse" + key] = {"ms": time_ms(lambda: sampled_lse(q, e, b, ids, tgt)),
+                                "plain_ms": time_ms(lambda: sampled_lse_reference(q, e, b, ids, tgt)),
+                                "library_ms": None, **bound((q, e, b, ids, tgt), (lse,), bf16_flop=2 * N * S * D),
+                                "args": (q, e, b, ids, tgt)}
+            out["bwd" + key] = {"ms": time_ms(lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g)),
+                                "plain_ms": time_ms(lambda: sampled_bwd_reference(q, e, b, ids, tgt, lse_tot, g)),
+                                "library_ms": None,
+                                **bound((q, e, b, ids, tgt, lse_tot, g), got, bf16_flop=6 * N * S * D),
+                                "args": (q, e, b, ids, tgt, lse_tot, g)}
             for d in ("lse", "bwd"):
-                t = out[d]
+                t = out[d + key]
                 log(f"[time] sampled_{d} N={N} S={S} D={D}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; "
                     f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
             sampled_splits(q, e, b, ids, tgt, lse_tot, g, got)
@@ -1458,17 +1502,18 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
-def train_both_paths(tag: str, cfg, ds, tree, used: tuple, fwd: str = "gru_fwd"):
-    """40 device-sampled steps through ``train()``, the loop a user runs, on
-    the kernel path and on the plain path (``PLAIN_OVERRIDES``) from the
-    params ``tree``; every step a log step, so the history holds each step's
-    loss (read once, after the chunk). Compares the per-step losses, checks
-    that the kernel path launched each kernel of ``used`` and no other, the plain
-    path nothing, then ``evaluate()`` on test: the kernel-trained model
-    through the top-k kernel (and the recurrence's forward kernel ``fwd``)
-    and through its plain version, the plain-trained model, and the
-    popularity baseline. Returns (kernel trainer, the kernel path's
-    launches)."""
+def train_both_paths(tag: str, cfg, ds, tree, used: tuple, fwd: str = "gru_fwd", steps: int = TRAIN_STEPS,
+                     split: str = "test"):
+    """``steps`` (40) device-sampled steps through ``train()``, the loop a
+    user runs, on the kernel path and on the plain path (``PLAIN_OVERRIDES``)
+    from the params ``tree``; every step a log step, so the history holds
+    each step's loss (read once, after the chunk). Compares the per-step
+    losses, checks that the kernel path launched each kernel of ``used`` and
+    no other, the plain path nothing, then ``evaluate()`` on ``split``: the
+    kernel-trained model through the top-k kernel (and the recurrence's
+    forward kernel ``fwd``) and through its plain version, the plain-trained
+    model, and the popularity baseline. Returns (kernel trainer, the kernel
+    path's launches in training, in its evaluate)."""
     import math
 
     import torch
@@ -1481,44 +1526,44 @@ def train_both_paths(tag: str, cfg, ds, tree, used: tuple, fwd: str = "gru_fwd")
     kern, plain = make_trainer(cmp_cfg, ds, DEV), make_trainer(plain_cfg, ds, DEV)
 
     reset_launches()
-    _, kst, k_hist = train(cmp_cfg, ds, num_steps=TRAIN_STEPS, trainer=kern, state=kern.init_state(tree))
+    _, kst, k_hist = train(cmp_cfg, ds, num_steps=steps, trainer=kern, state=kern.init_state(tree))
     k_loss = torch.tensor([row["loss"] for row in k_hist], dtype=torch.float64)
     launches = read_launches()
-    log(f"[{tag}] kernel path, train() over {TRAIN_STEPS} device-sampled steps, launches: {launches}")
+    log(f"[{tag}] kernel path, train() over {steps} device-sampled steps, launches: {launches}")
     for name in used:
         assert launches[name] > 0, f"{tag}: the training path skipped {name}: {launches}"
     assert not any(n for name, n in launches.items() if name not in used), f"{tag}: launches {launches}"
     reset_launches()
-    _, pst, p_hist = train(plain_cfg, ds, num_steps=TRAIN_STEPS, trainer=plain, state=plain.init_state(tree))
+    _, pst, p_hist = train(plain_cfg, ds, num_steps=steps, trainer=plain, state=plain.init_state(tree))
     p_loss = torch.tensor([row["loss"] for row in p_hist], dtype=torch.float64)
     plain_launches = read_launches()
-    assert kst.step == pst.step == TRAIN_STEPS and len(k_loss) == len(p_loss) == TRAIN_STEPS, (kst.step, pst.step)
+    assert kst.step == pst.step == steps and len(k_loss) == len(p_loss) == steps, (kst.step, pst.step)
     assert not any(plain_launches.values()), f"{tag}: the plain path launched a kernel: {plain_launches}"
     assert torch.isfinite(k_loss).all() and torch.isfinite(p_loss).all(), f"{tag}: non-finite loss"
     rel = (k_loss - p_loss).abs() / p_loss.abs()
-    log(f"[{tag}] loss kernel vs plain: step 1 {k_loss[0]:.6f} / {p_loss[0]:.6f}, step {TRAIN_STEPS} "
+    log(f"[{tag}] loss kernel vs plain: step 1 {k_loss[0]:.6f} / {p_loss[0]:.6f}, step {steps} "
         f"{k_loss[-1]:.6f} / {p_loss[-1]:.6f}; rel diff "
-        + ", ".join(f"@{i + 1} {float(rel[i]):.2e}" for i in sorted({0, 9, 19, TRAIN_STEPS - 1}) if i < TRAIN_STEPS)
+        + ", ".join(f"@{i + 1} {float(rel[i]):.2e}" for i in sorted({0, 9, 19, steps - 1}) if i < steps)
         + f" (tol {LOSS_TOL_FIRST} at step 1, {LOSS_TOL_LAST} after)")
     assert float(rel[0]) < LOSS_TOL_FIRST, f"{tag}: step-1 loss differs: {float(rel[0])}"
     assert float(rel.max()) < LOSS_TOL_LAST, f"{tag}: loss trajectories drift apart: {rel.tolist()}"
     assert float(k_loss[-1]) < float(k_loss[0]), f"{tag}: loss did not drop: {k_loss.tolist()}"
 
     reset_launches()
-    m_kern = evaluate(kern.model, ds, cfg)
+    m_kern = evaluate(kern.model, ds, cfg, split)
     eval_launches = read_launches()
     assert eval_launches["topk"] > 0 and eval_launches[fwd] > 0, f"{tag}: evaluate skipped a kernel: {eval_launches}"
-    m_tie = evaluate(kern.model, ds, cfg.with_overrides({"eval.topk_impl": "xla"}))
-    m_plain = evaluate(plain.model, ds, plain_cfg)
+    m_tie = evaluate(kern.model, ds, cfg.with_overrides({"eval.topk_impl": "xla"}), split)
+    m_plain = evaluate(plain.model, ds, plain_cfg, split)
     for m in (m_kern, m_tie, m_plain):
         assert all(math.isfinite(v) for v in m.values()), m
-    log(f"[{tag}] evaluate on test ({int(m_kern['eval_examples'])} rows): kernel path recall@10 "
+    log(f"[{tag}] evaluate on {split} ({int(m_kern['eval_examples'])} rows): kernel path recall@10 "
         f"{m_kern['recall@10']:.4f} ndcg@10 {m_kern['ndcg@10']:.4f} (launches {eval_launches}); same model, plain "
         f"top-k {m_tie['recall@10']:.4f}; plain-trained model {m_plain['recall@10']:.4f}; popularity baseline "
         f"{popularity_baseline(ds)['recall@10']:.4f}")
     assert abs(m_kern["recall@10"] - m_tie["recall@10"]) <= RECALL_TIE_TOL, (m_kern, m_tie)
     assert abs(m_kern["recall@10"] - m_plain["recall@10"]) <= RECALL_PATH_TOL, (m_kern, m_plain)
-    return kern, launches
+    return kern, launches, eval_launches
 
 
 def train_phase(state) -> None:
@@ -1535,7 +1580,7 @@ def train_phase(state) -> None:
         f"batch {cfg.train.batch_size}, GRU {cfg.model.hidden_dim}-d {cfg.model.compute_dtype} "
         f"(loaded in {time.perf_counter() - t0:.1f} s)")
     tree = gru_params(ds, cfg)
-    _, launches = train_both_paths("train", cfg, ds, tree, used=("gru_fwd", "gru_bwd", "ce_lse", "ce_bwd"))
+    _, launches, _ = train_both_paths("train", cfg, ds, tree, used=("gru_fwd", "gru_bwd", "ce_lse", "ce_bwd"))
 
     # Config #1 at its own width: 6,749 POIs is below the fused-CE threshold,
     # so it trains through the GRU kernels and the dense CE, as in poi_tpu.
@@ -1571,7 +1616,8 @@ def attention_train_phase(state) -> None:
         f"dropout {m.dropout}, sampled softmax S={cfg.loss.num_sampled}, table_update={cfg.train.table_update} "
         f"(loaded in {time.perf_counter() - t0:.1f} s)")
     tree = params_to_numpy(make_trainer(cfg, ds, DEV).model)  # the trainer's own seeded init
-    kern, launches = train_both_paths("attn", cfg, ds, tree, used=("gru_fwd", "gru_bwd", "sampled_lse", "sampled_bwd"))
+    kern, launches, _ = train_both_paths("attn", cfg, ds, tree,
+                                         used=("gru_fwd", "gru_bwd", "sampled_lse", "sampled_bwd"))
     state.update(attn_launches=launches, attn_cfg=cfg, attn_ds=ds, attn_tree=tree,
                  attn_trained=params_to_numpy(kern.model))
 
@@ -1625,21 +1671,150 @@ def recurrent_config_phase(state, tag: str) -> None:
         f"{f' with {cfg.loss.num_negatives} negatives a position' if cfg.loss.kind == 'bpr' else ''} "
         f"(loaded in {time.perf_counter() - t0:.1f} s)")
     tree = params_to_numpy(make_trainer(cfg, ds, DEV).model)
-    kern, launches = train_both_paths(tag, cfg, ds, tree, used=used, fwd=used[0])
+    kern, launches, _ = train_both_paths(tag, cfg, ds, tree, used=used, fwd=used[0])
     serve_both_paths(f"{tag} serve", cfg, ds, params_to_numpy(kern.model), used[0])
     state[tag] = {"cfg": cfg, "ds": ds, "tree": tree, "launches": launches}
 
 
-def run_cli_train(config: str, overrides: list[str], steps: int) -> dict:
-    """``python -m poi_tpu_torch train`` on the card; returns its final JSON
-    line after checking the exit code, the step count, a dropping loss and
-    finite final metrics."""
-    argv = [sys.executable, "-m", "poi_tpu_torch", "train", "--config", config, "--set", *overrides,
-            "--device", DEV, "--no-checkpoint"]
-    proc = subprocess.run(argv, capture_output=True, text=True, cwd=REPO, timeout=600,
-                          env=dict(os.environ, PYTHONPATH=str(REPO)))
-    assert proc.returncode == 0, f"train --config {config} exited {proc.returncode}:\n{proc.stderr[-3000:]}"
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+# Config #5 on one card: BASELINE.md:29's command (multihost_1m at
+# mesh.model=1, V = 903,889 after min_poi_checkins=1, D = 512, batch 512,
+# T = 64, S = 4,096, the rows-gradient step with lazy Adam), device-sampled,
+# with no warmup so that a few steps move the loss (the preset warms up over
+# 100). C5_STEPS steps a path; the train CLI runs C5_CLI_STEPS.
+C5_CONFIG = "multihost_1m"
+C5_SETS = {"mesh.model": "1", "mesh.embedding_mode": "psum", "data.min_poi_checkins": "1",
+           "data.val_fraction": "0.05", "data.sampler": "device", "train.warmup_steps": "0"}
+C5_STEPS, C5_CLI_STEPS = 20, 10
+C5_POIS = 903_889
+
+
+def rows_against_dense(trainer, tree) -> None:
+    """Config #5's rows-gradient step against the dense-gradient sparse step
+    (``rows_mode`` off: autograd's [V, D] table gradient, gathered at the
+    deduplicated touched ids) from one state, batch and pool, at the
+    reference's tolerances for this comparison (tests/test_sparse_opt.py:
+    loss 1e-5, grad norm 1e-4 relative, params 2e-6 + 2e-5 relative); then
+    the lazy-Adam update of the rows step, called twice on its gradients
+    from that state, and the whole rows step twice: the same bits."""
+    import torch
+
+    from poi_tpu_torch.train.state import TrainState
+
+    state = trainer.init_state(tree)
+    batch = trainer.sampler.sample(0)
+    snap = {k: v.detach().clone() for k, v in state.params.items()}
+    snap_m = {w: {k: v.clone() for k, v in state.opt_state[w].items()} for w in ("m", "v")}
+
+    def reset():
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(snap[k])
+            for w in ("m", "v"):
+                for k, t in state.opt_state[w].items():
+                    t.copy_(snap_m[w][k])
+        state.opt_state["count"] = 0
+        return TrainState(0, state.params, state.opt_state)
+
+    def live():
+        return [p.detach() for p in state.params.values()] + [t for w in ("m", "v") for t in state.opt_state[w].values()]
+
+    def same_bits(ref) -> bool:
+        return all(torch.equal(a, b) for a, b in zip(live(), ref))
+
+    real, calls = trainer.optimizer.update, []
+
+    def recorded(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    def step(rows: bool) -> tuple[float, float]:
+        trainer.rows_mode = rows
+        trainer.optimizer.update = recorded
+        try:
+            _, m = trainer.step(reset(), batch)
+        finally:
+            trainer.optimizer.update = real
+            trainer.rows_mode = True
+        return float(m["loss"]), float(m["grad_norm"])
+
+    l_r, g_r = step(True)
+    ref = [t.clone() for t in live()]
+    l_d, g_d = step(False)
+    assert abs(l_r - l_d) < 1e-5 and abs(g_r - g_d) < 1e-4 * max(1.0, g_d), (l_r, l_d, g_r, g_d)
+    worst = 0.0
+    for (k, p), a in zip(state.params.items(), ref):
+        assert torch.allclose(p.detach(), a, atol=2e-6, rtol=2e-5), f"rows vs dense path: {k} differs"
+        worst = max(worst, float((p.detach() - a).abs().max()))
+    step(True)
+    assert same_bits(ref), "two rows steps from one state: other bits"
+    args, kwargs = calls[0]
+    for _ in range(2):
+        reset()
+        real(*args, **kwargs)
+        assert same_bits(ref), "the rows step's lazy-Adam update, replayed on its gradients: other bits"
+    log(f"[c5] rows step vs the dense-gradient step, one state, batch and pool: loss {l_r:.7f} / {l_d:.7f}, grad "
+        f"norm {g_r:.6f} / {g_d:.6f}, params max |diff| {worst:.3e} (tol 2e-6 + 2e-5 relative); the rows step twice "
+        f"and its lazy-Adam update twice on the same gradients: the same bits ({len(ref)} tensors)")
+
+
+def config5_phase(state, gpu: str) -> None:
+    """Config #5 at full width through the entry points: ``train()`` for
+    ``C5_STEPS`` steps on the kernel path and the plain path (losses
+    compared step by step), ``evaluate()`` on val, the rows step against the
+    dense-gradient step and its bits, ``Recommender`` at request batch 1 and
+    256 on both paths, the train CLI (started first, a process of its own),
+    and the step file's size."""
+    import torch
+
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.convert import params_to_numpy
+    from poi_tpu_torch.data.dataset import load_dataset
+    from poi_tpu_torch.train.loop import make_trainer
+    from poi_tpu_torch.utils.checkpoint import tensor_bytes
+
+    sets = [f"{k}={v}" for k, v in C5_SETS.items()]
+    cli_sets = sets + [f"train.num_steps={C5_CLI_STEPS}", f"train.eval_every={C5_CLI_STEPS // 2}",
+                       f"train.log_every={C5_CLI_STEPS // 2}", f"train.steps_per_call={C5_CLI_STEPS // 2}"]
+    cli_job = cli_proc("train", C5_CONFIG, ["--set", *cli_sets, "--no-checkpoint"])
+    cfg = get_config(C5_CONFIG).with_overrides({**C5_SETS, "train.steps_per_call": str(C5_STEPS)})
+    t0 = time.perf_counter()
+    ds = load_dataset(cfg.data)
+    m = cfg.model
+    log(f"[c5] {C5_CONFIG} {' '.join(sets)}: {ds.num_pois} POIs, {ds.num_users} users, {len(ds.train)} training "
+        f"windows, {len(ds.val)} val, T={ds.max_seq_len}, batch {cfg.train.batch_size}, GRU {m.hidden_dim}-d + "
+        f"{m.attn_heads}-head attention over {m.attn_window} steps, sampled softmax S={cfg.loss.num_sampled}, "
+        f"table_update={cfg.train.table_update} (loaded in {time.perf_counter() - t0:.1f} s)")
+    assert ds.num_pois == C5_POIS, ds.num_pois
+    trainer = make_trainer(cfg, ds, DEV)
+    assert trainer.rows_mode and trainer.rows_fused, "config #5 must take the rows-gradient step on the kernels"
+    tree = params_to_numpy(trainer.model)
+    st = trainer.init_state()
+    log(f"[c5] step file: {tensor_bytes(st)} bytes of tensors (utils/checkpoint.tensor_bytes: params and lazy Adam's "
+        f"m, v; {sum(p.numel() for p in st.params.values())} params)")
+    del trainer, st
+    kern, launches, eval_launches = train_both_paths("c5", cfg, ds, tree, used=("gru_fwd", "gru_bwd", "sampled_lse",
+                                                                               "sampled_bwd"),
+                                                     steps=C5_STEPS, split="val")
+    trained = params_to_numpy(kern.model)
+    rows_against_dense(kern, tree)
+    del kern
+    torch.cuda.empty_cache()
+    reset_launches()
+    serve_both_paths("c5 serve", cfg, ds, trained)
+    serve_launches = read_launches()
+    run_cli_train(C5_CONFIG, cli_sets, C5_CLI_STEPS, cli_job)
+    state["c5"] = {"cfg": cfg, "ds": ds, "tree": tree, "launches": launches, "eval_launches": eval_launches,
+                   "serve_launches": serve_launches}
+    torch.cuda.empty_cache()
+
+
+def run_cli_train(config: str, overrides: list[str], steps: int, job: tuple | None = None) -> dict:
+    """``python -m poi_tpu_torch train --no-checkpoint`` on the card (or the
+    run ``job`` that ``cli_proc`` started); returns its final JSON line after
+    checking the exit code, the step count, a dropping loss and finite final
+    metrics."""
+    stdout, _ = cli_done(job or cli_proc("train", config, ["--set", *overrides, "--no-checkpoint"]))
+    out = json.loads(stdout.strip().splitlines()[-1])
     losses = [row["loss"] for row in out["history"]]
     assert out["steps"] == steps and len(losses) == 2 and losses[-1] < losses[0], out["history"]
     assert all(math.isfinite(v) for v in out["final"].values()), out["final"]
@@ -1771,8 +1946,9 @@ def checkpoint_phase(gpu: str) -> None:
     kernel launches counted) and A2 (a subprocess; config #1's with
     ``--metrics-dir`` and ``--profile-dir``), a run into B that the fault
     stops, and the same command again, which resumes. The final steps of A,
-    A2 and B must agree bit for bit, or, if A and A2 differ (an op with
-    atomics), B may differ from A by at most twice as much. Then ``eval``,
+    A2 and B must agree bit for bit (where they do not, the first step's
+    gradients are taken twice from one state to say which parameter's
+    differ). Then ``eval``,
     ``recommend`` and ``serve`` from A, and the size, save and restore time
     of a step file."""
     import contextlib
@@ -1834,19 +2010,15 @@ def checkpoint_phase(gpu: str) -> None:
             assert json.loads(out.strip().splitlines()[-1])["resumed_from"] == every
             a, a2, b = (step_tensors(CheckpointManager(d(tag, n)).load(steps)) for n in ("A", "A2", "B"))
             run_spread, resume_spread = step_spread(a, a2), step_spread(a, b)
-            if not run_spread:
-                assert not resume_spread, f"{tag}: B differs from A, which A2 repeats bit for bit: {resume_spread}"
-                log(f"[checkpoint] {tag}: fault at step {fault}, resumed from {every}: the final step ({steps}) of "
-                    f"A, A2 and B agree bit for bit ({len(a)} tensors: params and optimizer moments)")
-            else:
-                worst = max(resume_spread.values(), default=0.0)
-                log(f"[checkpoint] {tag}: A and A2 differ in {len(run_spread)} of {len(a)} tensors (an op with "
-                    f"atomics): {run_spread}; B against A: {resume_spread}")
-                assert worst <= 2 * max(run_spread.values()), f"{tag}: B's spread {worst} beyond twice A2's"
+            if run_spread or resume_spread:
                 cfg = get_config(config).with_overrides(dict(x.split("=", 1) for x in CKPT_DRILLS[tag][1]))
                 step_grads, ops = grad_spread(cfg, load_dataset(cfg.data))
-                log(f"[checkpoint] {tag}: step 1's gradients twice from one state differ in {step_grads}; ops that "
-                    f"warn under torch.use_deterministic_algorithms: {ops}")
+                log(f"[checkpoint] {tag}: A against A2 {run_spread}, against B {resume_spread}; step 1's gradients "
+                    f"twice from one state differ in {step_grads}; ops that warn under "
+                    f"torch.use_deterministic_algorithms: {ops}")
+            assert not run_spread and not resume_spread, f"{tag}: A, A2 and B differ: {run_spread}, {resume_spread}"
+            log(f"[checkpoint] {tag}: fault at step {fault}, resumed from {every}: the final step ({steps}) of "
+                f"A, A2 and B agree bit for bit ({len(a)} tensors: params and optimizer moments)")
 
         # eval, recommend and serve from A.
         c1_cfg, _, c1_steps, c1_every, _, _ = CKPT_DRILLS["c1"]
@@ -1995,7 +2167,8 @@ def timing_phase(state, gpu: str) -> dict:
     eval_batch = state["bench_cfg"].eval.batch_size
     cases = [("topk", 256, "serve", 128), ("topk_k10", 256, "serve", 10), ("topk_b1", 1, "serve", 128),
              ("topk_b1_k10", 1, "serve", 10), ("topk_eval", eval_batch, "eval", 10), ("topk_eval256", 256, "eval", 10),
-             ("topk_c4", 256, "c4", 10), ("topk_serve70k", 256, "serve70k", 32), ("topk_serve70k_b1", 1, "serve70k", 32)]
+             ("topk_c4", 256, "c4", 10), ("topk_serve70k", 256, "serve70k", 32), ("topk_serve70k_b1", 1, "serve70k", 32),
+             ("topk_c5", 512, "c5", 10)]
     for name, B, cat, k in cases:
         table, bias = catalogs[cat]
         q = torch.randn(B, table.shape[1], generator=gen, device=DEV)
@@ -2059,11 +2232,12 @@ def gru_cluster_choice(gen, gpu: str) -> None:
             + f"; the kernel picks C={lib.gru_fwd_cluster_size(H)}  ({gpu})")
 
 
-def step_timing(label: str, trainers: dict, tree, chunk: int, gpu: str) -> dict:
+def step_timing(label: str, trainers: dict, tree, chunk: int, gpu: str, profiled: int = 5) -> dict:
     """The whole train step on the kernel and the plain path in turns
     (kernels, plain, plain, kernels), each over one ``chunk``-step
     device-sampled chunk fenced by reading its last loss, after a warm-up
-    chunk; then where the kernel path's step spends device time. The host
+    chunk; then where the kernel path's step spends device time, over
+    ``profiled`` steps. The host
     clock is also read when the chunk's launches are all queued: a share
     near 1 means the host waited for the card inside the chunk. Returns the
     better ms per step of each path."""
@@ -2093,12 +2267,12 @@ def step_timing(label: str, trainers: dict, tree, chunk: int, gpu: str) -> dict:
     best = {k: min(v) for k, v in runs.items()}
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        states["kernels"], m = trainers["kernels"].step_sampled(states["kernels"], 5)
+        states["kernels"], m = trainers["kernels"].step_sampled(states["kernels"], profiled)
         m["loss"][-1].item()
     events = prof.key_averages()
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
     dev_us = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0)) for e in kernels]
-    busy_ms = sum(t for _, _, t in dev_us) / 1e3 / 5
+    busy_ms = sum(t for _, _, t in dev_us) / 1e3 / profiled
     # Runtime calls that make the host wait for the card (the closing
     # .item() accounts for one copy and one sync).
     waits = {e.key: e.count for e in events
@@ -2108,9 +2282,9 @@ def step_timing(label: str, trainers: dict, tree, chunk: int, gpu: str) -> dict:
     # a step needs with the unprofiled step time measured above.
     log(f"[profile] kernel path, {label}: {busy_ms:.3f} ms of device time a step against a {best['kernels']:.3f} ms "
         f"step (device idle share {max(0.0, 1 - busy_ms / best['kernels']):.3f}); host-waiting runtime calls over "
-        f"5 steps {waits}  ({gpu})")
+        f"{profiled} steps {waits}  ({gpu})")
     for key, count, t in sorted(dev_us, key=lambda r: -r[2])[:20]:
-        log(f"[profile]   {t / 1e3 / 5:8.3f} ms/step  x{count // 5:<4d} {key[:90]}")
+        log(f"[profile]   {t / 1e3 / profiled:8.3f} ms/step  x{count // profiled:<4d} {key[:90]}")
     return best
 
 
@@ -2212,6 +2386,19 @@ def config_timing_phase(state, gpu: str) -> dict:
                     "plain": make_trainer(cfg.with_overrides(PLAIN_OVERRIDES), ds, DEV)}
         out[f"{tag}_train_step"] = step_timing(label, trainers, tree, STEP_TIME_CHUNK, gpu)
     return out
+
+
+def config5_timing_phase(state, gpu: str) -> None:
+    """Config #5's train step on both paths and its kernel path's device
+    time by kernel over 2 steps. The last phase that reads the profiler in
+    this process: after its record of two config #5 steps (~3,000 kernels
+    and their host ops) the profiler's later records here came back empty."""
+    from poi_tpu_torch.train.loop import make_trainer
+
+    c5 = state["c5"]
+    trainers = {"kernels": make_trainer(c5["cfg"], c5["ds"], DEV),
+                "plain": make_trainer(c5["cfg"].with_overrides(PLAIN_OVERRIDES), c5["ds"], DEV)}
+    step_timing("config #5", trainers, c5["tree"], STEP_TIME_CHUNK, gpu, profiled=2)
 
 
 # --ab: kernels timed in both checkouts at their main path's shapes
@@ -2355,6 +2542,7 @@ def main() -> int:
     phase("attn_serve", serve_both_paths, "attn serve", state["attn_cfg"], state["attn_ds"], state["attn_trained"])
     phase("lstm_config", recurrent_config_phase, state, "lstm")
     phase("strnn_config", recurrent_config_phase, state, "strnn")
+    phase("config5", config5_phase, state, gpu)
     phase("cli_train", cli_train_phase, state)
     phase("checkpoint", checkpoint_phase, gpu)
     times = phase("timing", timing_phase, state, gpu)
@@ -2363,6 +2551,7 @@ def main() -> int:
     phase("recurrence_device", recurrence_device_phase, times, big, lstm, gpu)
     phase("pool_recurrence_device", pool_recurrence_device_phase, sampled, lstm, rnn, gpu)
     phase("ce_variants_device", ce_variants_device_phase, variants, gpu)
+    phase("config5_timing", config5_timing_phase, state, gpu)
     phase("scripts", scripts_phase, state)
     kept = dict(sorted(_timing.HEAD_SPINS_SEEN.items()))
     log(f"[profiler] records by the head spins each kept (of {_timing.HEAD_SPINS}): {kept}")
@@ -2382,7 +2571,13 @@ def main() -> int:
     # instantiation's launches and time in the sweep's timed runs
     # (ce_variants phase) and its device time by kernel (ce_variants_device),
     # the fastest one's at the top level.
+    # Config #5's rows (config5: B1, B2 at B=512, T=64, H=512; B11 at
+    # V=903,889, B=512, k=10; d512: B9 and B10 at D=512) carry the launches of
+    # config #5's train() run (and of its evaluate on val, for top-k).
     served, trained, attn = state["launches"], state["train_launches"], state["attn_launches"]
+    c5, c5_eval = state["c5"]["launches"], state["c5"]["eval_launches"]
+    at5 = lambda t, n: {**{f: t[f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},  # noqa: E731
+                        "launches": n}
     swept = {k: t["launches"] for k, t in variants.items()}
     assert len(swept) == 6 and all(swept.values()), f"the sweep skipped an instantiation: {swept}"
     best = min(variants, key=lambda k: variants[k]["ms"])
@@ -2393,12 +2588,14 @@ def main() -> int:
         record("gru_fwd", "gru_fwd.cu", "poi_tpu/ops/fused_gru.py:71", served["gru_fwd"], gru_err, times["gru_fwd"],
                device_ms=times["gru_fwd"]["device_ms"], max_abs_err_h256=big["fwd_err"], **h256("fwd"),
                device_ms_h256=big["fwd"]["device_ms"], b1=fwd_at(times["gru_fwd_b1"]),
-               h512={f: big["fwd_h512"][f] for f in ("ms", "plain_ms", "library_ms", "bound_ms")},
+               config5=at5(big["fwd_h512"], c5["gru_fwd"]),
                bench=fwd_at(times["gru_fwd_train"]), bench_launches=trained["gru_fwd"]),
         record("gru_bwd", "gru_bwd.cu", "poi_tpu/ops/fused_gru.py:86", trained["gru_bwd"], gru_bwd_err,
                times["gru_bwd"], max_abs_err_h256=big["bwd_err"], **h256("bwd"),
                **{f"{k}{h}": t[k] for h, t in (("", times["gru_bwd"]), ("_h256", big["bwd"]))
-                  for k in ("device_ms", *(f"{n}_ms" for n in GRU_BWD_KERNELS))}),
+                  for k in ("device_ms", *(f"{n}_ms" for n in GRU_BWD_KERNELS))},
+               config5={**at5(big["bwd_h512"], c5["gru_bwd"]),
+                        **{f"{n}_ms": big["bwd_h512"][f"{n}_ms"] for n in GRU_BWD_KERNELS}}),
         record("lstm_fwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:59", c2["lstm_fwd"], lstm["fwd_err"], lstm["fwd"],
                device_ms=lstm["fwd"]["device_ms"], **{k: fwd_at(lstm[f"fwd_{k}"]) for k in LSTM_TIMED}),
         record("lstm_bwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:81", c2["lstm_bwd"], lstm["bwd_err"], lstm["bwd"],
@@ -2421,16 +2618,21 @@ def main() -> int:
                config3_launches=c3["ce_bwd"]),
         record("sampled_lse", "sampled.cu", "poi_tpu/ops/fused_sampled.py:76", attn["sampled_lse"],
                sampled["lse_err"], sampled["lse"],
-               **{k: sampled["lse"][k] for k in ("device_ms", *(f"{n}_ms" for n in SAMPLED_LSE_KERNELS))}),
+               **{k: sampled["lse"][k] for k in ("device_ms", *(f"{n}_ms" for n in SAMPLED_LSE_KERNELS))},
+               d512={**at5(sampled["lse_d512"], c5["sampled_lse"]), "max_abs_err": sampled["lse_err_d512"]}),
         record("sampled_bwd", "sampled.cu", "poi_tpu/ops/fused_sampled.py:103", attn["sampled_bwd"],
                sampled["grad_err"], sampled["bwd"],
-               **{k: sampled["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in SAMPLED_BWD_KERNELS))}),
+               **{k: sampled["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in SAMPLED_BWD_KERNELS))},
+               d512={**at5(sampled["bwd_d512"], c5["sampled_bwd"]), "max_abs_err": sampled["grad_err_d512"],
+                     **{f"{n}_ms": sampled["bwd_d512"][f"{n}_ms"] for n in SAMPLED_BWD_KERNELS}}),
         record("topk", "topk.cu", "poi_tpu/ops/topk.py:58", served["topk"], topk_err, times["topk"],
                device_ms=times["topk"]["device_ms"], library_device_ms=times["topk"]["library_device_ms"],
                **{case: {f: times[case][f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
                                                     "bound_ms")}
                   for case in ("topk_k10", "topk_b1", "topk_b1_k10", "topk_eval", "topk_eval256", "topk_c4",
-                               "topk_serve70k", "topk_serve70k_b1")}),
+                               "topk_serve70k", "topk_serve70k_b1")},
+               config5={**at5(times["topk_c5"], c5_eval["topk"]),
+                        "library_device_ms": times["topk_c5"]["library_device_ms"]}),
         record("ce_lse_variants", "ce.cu", "scripts/sweep_ce_fwd.py:30,58", sum(swept.values()),
                max(t["max_abs_err"] for t in variants.values()), variants[best], best=best,
                variants={k: {**{f: t[f] for f in ("ms", "device_ms", *(f"{n}_ms" for n in CE_LSE_KERNELS),

@@ -18,7 +18,7 @@
 //     (the unrounded gp). A hit gets gp = 0 exactly, and so does a padded
 //     pool entry (bias -1e30, id -1).
 //   The positive column and its gradient stay outside, as on the TPU.
-//   D is 64, 128 or 256.
+//   D is 64, 128, 256 or 512.
 //
 // B9, the pool LSE. What bounds it on this card: its product, 2*N*S*D
 // FLOPs (4.3 GFLOP at config #4's N = 8,192, S = 1,024, D = 256: 4.3 us at
@@ -45,7 +45,15 @@
 //   range order. No atomics: the same bits every run.
 // Cons is 4 (256 rows, B7's) for D = 64 and 128 and 2 (128 rows) at
 // D = 256, where 256 rows fit only with a 3-stage ring (timed once: no
-// faster, PERF.md). The C entry takes the splits to force (chip_smoke.py's
+// faster, PERF.md). At D = 512 (config #5: N = 32,768, S = 4,096; 2*N*S*D =
+// 137.4 GFLOP, 0.139 ms at 989 TFLOP/s) a warpgroup's 64 rows take 64 KB and
+// so does a 64-row tile: of the three shapes that fit 227 KB (2 warpgroups
+// on a 1-stage ring, which the one-tile-ahead pipeline below cannot run;
+// 1 warpgroup on 2 stages; 2 warpgroups on 3 stages of 32-row tiles, which
+// needs m64n32 products and another fold), this is the second, 192 KB: the
+// same code, 64 rows a block, every streamed byte used by 64 rows only (half
+// of D = 256's), so it leans on L2 more than the others: 0.5114 ms of device
+// time at config #5's shape (kernel 0.4716), 3.7x its bound (H100, 700 W). The C entry takes the splits to force (chip_smoke.py's
 // `sampled_lse splits` times them); the wrapper passes 0, the rule. At
 // config #4's shape the rule took 0.0148 ms (kernel) + 0.0020 (merge) of
 // device time; one range took 0.0247 (no merge), 4 and 8 ranges 0.0183 and
@@ -73,7 +81,7 @@
 // A block is two consumer warpgroups, each owning 64 resident rows, and one
 // producer warpgroup, whose registers go to the consumers (setmaxnreg). One
 // producer thread starts TMA loads of the resident rows once, then of the
-// 64-row streamed tiles and their vectors into a ring of kStages smem stages
+// 64-row streamed tiles and their vectors into a ring of 4 smem stages
 // on mbarriers (full: the bytes arrived; empty: all 256 consumer threads are
 // done with the stage). Rows arrive as D * 2 / 128 boxes of 128 bytes a row,
 // 128-byte swizzled as wgmma's descriptors read them. For each tile a
@@ -107,6 +115,22 @@
 // non-wgmma instructions define accumulator registers inside a stage), not
 // of D = 256, the one config #4 runs.
 //
+// D = 512 (config #5: N = 32,768, S = 4,096). A consumer thread's sums of
+// all 512 output columns would take 256 registers, so a block sums one half
+// (256 columns, gridDim.z = 2) and both halves compute the logits: 10*N*S*D
+// operations in all (687.2 GFLOP at config #5, 0.695 ms at 989 TFLOP/s)
+// where the passes above do 8*N*S*D (549.8 GFLOP) and the function needs
+// 6*N*S*D (412.3 GFLOP, 0.417 ms). A block holds 64 resident rows (one
+// consumer warpgroup, 64 KB) and a ring of 2 streamed 64-row tiles (64 KB
+// each): 192 KB; the thread holds its [64, 256] half in 128 registers, as at
+// D = 256, under the launch's limit of 255 (no setmaxnreg). Rows arrive as 8
+// boxes of 128 bytes. db is the same in both halves; half 0 writes it. At
+// config #5's shape: 2.6411 ms of device time (dq pass 1.2787, dE pass
+// 1.3214), 6.3x the function's bound, 3.8x the 10*N*S*D one (H100, 700 W).
+// ptxas serialises both passes' wgmma here (C7515), as at D = 64 and 128; a
+// compile-time column half (the column offset a template constant, which
+// ended it at D = 256) did not end it at D = 512 and ran no faster.
+//
 // The entry points launch on the given stream, do not synchronise and
 // allocate nothing; each returns cudaGetLastError() after its launches.
 
@@ -129,17 +153,20 @@ constexpr float kHit2 = kNegInit * kLog2e;
 constexpr float kLseInit = -3.0e38f;
 constexpr int kLseStr = 64;  // pool rows a streamed tile, the wgmma's N
 
-constexpr int kLseStages = 4;  // pool tiles in flight
-
 // Consumer warpgroups (64 query rows each) a block: 4 as B7 where D <= 128;
 // at D = 256 the 4-stage ring of 64 x 256 tiles (128 KB) beside 256
-// resident rows (128 KB) exceeds 227 KB, so 2 (128 rows).
-__host__ __device__ constexpr int lse_cons(int D) { return D == 256 ? 2 : 4; }
+// resident rows (128 KB) exceeds 227 KB, so 2 (128 rows); at D = 512 a
+// warpgroup's rows and a tile take 64 KB each, so 1 warpgroup and a ring of
+// 2 (192 KB).
+__host__ __device__ constexpr int lse_cons(int D) { return D == 512 ? 1 : D == 256 ? 2 : 4; }
+// Pool tiles in flight.
+__host__ __device__ constexpr int lse_stages(int D) { return D == 512 ? 2 : 4; }
 
 template <int D, int Cons>
 constexpr int lse_smem_bytes() {
   // 1024: room to align the base; the stages' biases and ids; the barriers.
-  return 1024 + (64 * Cons + kLseStages * kLseStr) * D * 2 + kLseStages * 2 * kLseStr * 4 + (2 * kLseStages + 1) * 8;
+  constexpr int ST = lse_stages(D);
+  return 1024 + (64 * Cons + ST * kLseStr) * D * 2 + ST * 2 * kLseStr * 4 + (2 * ST + 1) * 8;
 }
 
 __device__ __forceinline__ void named_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
@@ -161,7 +188,7 @@ template <int D, int Cons>
 __device__ __forceinline__ void pool_logits_wg(float (&s)[kLseStr / 2], uint32_t res, uint32_t tile, int wg, int n,
                                                int of) {
   constexpr int SW = swizzle_bytes(D), KPC = SW / 32;
-  if (wg > 0 || n > 0) named_sync(1 + wg);
+  if (Cons > 1 && (wg > 0 || n > 0)) named_sync(1 + wg);
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
@@ -170,7 +197,7 @@ __device__ __forceinline__ void pool_logits_wg(float (&s)[kLseStr / 2], uint32_t
                       smem_desc(tile + (ks / KPC) * kLseStr * SW + (ks % KPC) * 32, 16, 8 * SW, SW), ks > 0);
   }
   wgmma_commit();
-  if (wg < Cons - 1 || n < of - 1) named_arrive(1 + (wg + 1) % Cons);
+  if (Cons > 1 && (wg < Cons - 1 || n < of - 1)) named_arrive(1 + (wg + 1) % Cons);
 }
 
 // Folds a tile's logits s (columns c0 + 8j + 2t + e of rows g and g + 8)
@@ -227,7 +254,7 @@ __global__ void __launch_bounds__(128 * (Cons + 1), 1)
                           const __grid_constant__ CUtensorMap b_map, const __grid_constant__ CUtensorMap id_map,
                           const int* __restrict__ tgt, float* __restrict__ lse, float* __restrict__ part, int N,
                           int S, int tiles_per_split) {
-  constexpr int SW = swizzle_bytes(D), CC = SW / 2, NCH = D / CC, Rows = 64 * Cons, ST = kLseStages;
+  constexpr int SW = swizzle_bytes(D), CC = SW / 2, NCH = D / CC, Rows = 64 * Cons, ST = lse_stages(D);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* res_s = base;                                     // [NCH][Rows][SW bytes]
@@ -422,13 +449,23 @@ cudaError_t run_lse(const void* q, const void* e, const void* b, const void* ids
 
 // ---------------------------------------------------------------- backward
 
-constexpr int kRes = 128;          // resident rows a block: two consumer warpgroups of 64
 constexpr int kStr = 64;           // rows of a streamed tile
-constexpr int kStages = 4;         // smem ring of streamed tiles
-constexpr int kBwdThreads = 384;   // 2 consumer warpgroups + 1 producer warpgroup
 constexpr int kSw = 128;           // bytes a swizzled smem row: every width takes the 128-byte swizzle
 constexpr int kSwCols = kSw / 2;   // bf16 columns a box (a "chunk")
 constexpr int kKPerChunk = kSw / 32;  // k16 steps a chunk
+
+// The shape of a block, by D. Up to D = 256: two consumer warpgroups (128
+// resident rows), a ring of 4 streamed tiles, every output column in one
+// block. At D = 512 a consumer thread's sums of all 512 columns would take
+// 256 registers, so a block sums one half of the columns (gridDim.z = 2,
+// each half recomputing the logits), and the resident rows (64 KB a
+// warpgroup) and the tiles (64 KB each) leave room for one consumer
+// warpgroup (64 rows) and a ring of 2.
+__host__ __device__ constexpr int bwd_cons(int D) { return D == 512 ? 1 : 2; }
+__host__ __device__ constexpr int bwd_res(int D) { return 64 * bwd_cons(D); }  // resident rows a block
+__host__ __device__ constexpr int bwd_stages(int D) { return D == 512 ? 2 : 4; }
+__host__ __device__ constexpr int bwd_threads(int D) { return 128 * (bwd_cons(D) + 1); }  // + 1 producer warpgroup
+__host__ __device__ constexpr int bwd_halves(int D) { return D == 512 ? 2 : 1; }  // output column ranges
 
 // Streamed 4-byte vectors that arrive with each tile: the dq pass needs the
 // pool rows' bias and ids, the dE pass the queries' lse, g and targets.
@@ -440,7 +477,8 @@ __host__ __device__ constexpr int stream_vecs() {
 template <int D, bool kDe>
 constexpr int pass_smem_bytes() {
   // 1024: room to align the base; the stages' vectors; the barriers.
-  return 1024 + (kRes + kStages * kStr) * D * 2 + kStages * stream_vecs<kDe>() * kStr * 4 + (2 * kStages + 1) * 8;
+  constexpr int ST = bwd_stages(D);
+  return 1024 + (bwd_res(D) + ST * kStr) * D * 2 + ST * stream_vecs<kDe>() * kStr * 4 + (2 * ST + 1) * 8;
 }
 
 // wgmma_ss<64> that overwrites d (scale-d false) and takes no input from
@@ -458,15 +496,15 @@ __device__ __forceinline__ void wgmma_ss64_first(float (&d)[32], uint64_t da, ui
 }
 
 // The 64 x 64 logits of the warpgroup's resident rows (at `res`, their
-// first row) against a streamed tile, A and B K-major in smem. Starts and
-// commits; the caller waits.
-template <int D>
+// first row, of the block's Res) against a streamed tile, A and B K-major
+// in smem. Starts and commits; the caller waits.
+template <int D, int Res>
 __device__ __forceinline__ void pool_logits(float (&s)[32], uint32_t res, uint32_t tile) {
   wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
     const uint32_t k_off = (ks % kKPerChunk) * 32;
-    const uint64_t da = smem_desc(res + (ks / kKPerChunk) * kRes * kSw + k_off, 16, 8 * kSw, kSw);
+    const uint64_t da = smem_desc(res + (ks / kKPerChunk) * Res * kSw + k_off, 16, 8 * kSw, kSw);
     const uint64_t db = smem_desc(tile + (ks / kKPerChunk) * kStr * kSw + k_off, 16, 8 * kSw, kSw);
     if (ks == 0) {
       wgmma_ss64_first(s, da, db);
@@ -512,13 +550,14 @@ __device__ __forceinline__ void tile_gp(float (&s)[32], float (&db)[2], const fl
   }
 }
 
-// acc[64 x D] += bf16(gp)[64 x 64] . tile[64 x D]: gp rounded into A
-// fragments, the tile read MN-major, in products of NP <= 128 columns (the
-// chunks of 64 columns lie kStr * kSw bytes apart). Starts and commits.
-template <int D>
-__device__ __forceinline__ void gp_product(float (&acc)[D > 128 ? 2 : 1][(D > 128 ? 128 : D) / 2],
+// acc[64 x DO] += bf16(gp)[64 x 64] . tile[64 x DO]: gp rounded into A
+// fragments, the tile (at its first output column) read MN-major, in
+// products of NP <= 128 columns (the chunks of 64 columns lie kStr * kSw
+// bytes apart). Starts and commits.
+template <int DO>
+__device__ __forceinline__ void gp_product(float (&acc)[DO > 128 ? DO / 128 : 1][(DO > 128 ? 128 : DO) / 2],
                                            const float (&s)[32], uint32_t tile) {
-  constexpr int NP = D > 128 ? 128 : D, NH = D / NP;
+  constexpr int NP = DO > 128 ? 128 : DO, NH = DO / NP;
   uint32_t a[4][4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
@@ -544,9 +583,10 @@ __device__ __forceinline__ void gp_product(float (&acc)[D > 128 ? 2 : 1][(D > 12
 // One pass. kDe false: the dq pass (resident = queries, streamed = pool,
 // out = dq); true: the dE pass (resident = pool rows, streamed = queries,
 // out = de, and db). With S splits (gridDim.y), split s writes its partial
-// sums at out + s * n_res * D and db + s * n_res. row_a / row_b / row_id:
-// per resident row, the dq pass's lse, g and target, the dE pass's bias,
-// (unused) and id.
+// sums at out + s * n_res * D and db + s * n_res. A block sums the output
+// columns of its half (gridDim.z; one half but at D = 512); db, the same in
+// every half, is written by half 0. row_a / row_b / row_id: per resident
+// row, the dq pass's lse, g and target, the dE pass's bias, (unused) and id.
 template <int D, bool kDe>
 __device__ __forceinline__ void bwd_pass(const CUtensorMap* res_map, const CUtensorMap* str_map,
                                          const CUtensorMap* vec_maps, const float* __restrict__ row_a,
@@ -554,24 +594,27 @@ __device__ __forceinline__ void bwd_pass(const CUtensorMap* res_map, const CUten
                                          float* __restrict__ out, float* __restrict__ db_out, int n_res, int n_str,
                                          int tiles_per_split) {
   constexpr int NCH = D / kSwCols, NV = stream_vecs<kDe>();
-  constexpr int NP = D > 128 ? 128 : D, NH = D / NP;
+  constexpr int Cons = bwd_cons(D), Res = bwd_res(D), ST = bwd_stages(D), DO = D / bwd_halves(D);
+  constexpr int NP = DO > 128 ? 128 : DO, NH = DO / NP;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* res_s = base;                                     // [NCH][kRes][kSw bytes]
-  unsigned char* str_s = base + kRes * D * 2;                      // [kStages][NCH][kStr][kSw bytes]
-  float* vec_s = reinterpret_cast<float*>(str_s + kStages * kStr * D * 2);  // [kStages][NV][kStr]
-  uint64_t* full = reinterpret_cast<uint64_t*>(vec_s + kStages * NV * kStr);
-  uint64_t* empty = full + kStages;
-  uint64_t* res_full = empty + kStages;
+  unsigned char* res_s = base;                                     // [NCH][Res][kSw bytes]
+  unsigned char* str_s = base + Res * D * 2;                       // [ST][NCH][kStr][kSw bytes]
+  float* vec_s = reinterpret_cast<float*>(str_s + ST * kStr * D * 2);  // [ST][NV][kStr]
+  uint64_t* full = reinterpret_cast<uint64_t*>(vec_s + ST * NV * kStr);
+  uint64_t* empty = full + ST;
+  uint64_t* res_full = empty + ST;
 
-  const int r0 = blockIdx.x * kRes;
-  const int split = blockIdx.y;
+  const int r0 = blockIdx.x * Res;
+  // A compile-time 0 where one block sums every column: a column offset in
+  // registers had ptxas serialise the D = 256 passes' wgmma (C7515).
+  const int split = blockIdx.y, col0 = bwd_halves(D) > 1 ? blockIdx.z * DO : 0;
   const int n_tiles = (n_str + kStr - 1) / kStr;
   const int t0 = split * tiles_per_split, t1 = min(n_tiles, t0 + tiles_per_split);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 256);  // every consumer thread
+      mbar_init(&empty[s], 128 * Cons);  // every consumer thread
     }
     mbar_init(res_full, 1);
     mbar_init_fence();
@@ -579,11 +622,11 @@ __device__ __forceinline__ void bwd_pass(const CUtensorMap* res_map, const CUten
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  if (warp >= 8) {  // the producer warpgroup: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (warp == 8 && lane == 0) {
-      mbar_arrive_expect_tx(res_full, kRes * D * 2);
-      for (int c = 0; c < NCH; ++c) tma_load_2d(res_s + c * kRes * kSw, res_map, c * kSwCols, r0, res_full);
+  if (warp >= 4 * Cons) {  // the producer warpgroup: one thread keeps the ring full
+    if constexpr (Cons == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 4 * Cons && lane == 0) {
+      mbar_arrive_expect_tx(res_full, Res * D * 2);
+      for (int c = 0; c < NCH; ++c) tma_load_2d(res_s + c * Res * kSw, res_map, c * kSwCols, r0, res_full);
       int st = 0;
       uint32_t ph = 0;
       for (int it = t0; it < t1; ++it) {
@@ -593,7 +636,7 @@ __device__ __forceinline__ void bwd_pass(const CUtensorMap* res_map, const CUten
           tma_load_2d(str_s + (st * NCH + c) * kStr * kSw, str_map, c * kSwCols, it * kStr, &full[st]);
         }
         for (int v = 0; v < NV; ++v) tma_load_1d(vec_s + (st * NV + v) * kStr, &vec_maps[v], it * kStr, &full[st]);
-        if (++st == kStages) {
+        if (++st == ST) {
           st = 0;
           ph ^= 1;
         }
@@ -602,9 +645,11 @@ __device__ __forceinline__ void bwd_pass(const CUtensorMap* res_map, const CUten
     return;
   }
 
-  // 232 registers a consumer thread (the launch gives 168): at D = 256 the
-  // [64, 256] output sums, the logits and gp's A fragments.
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  // 232 registers a consumer thread (the launch gives 168) with two
+  // consumer warpgroups: at D = 256 the [64, 256] output sums, the logits
+  // and gp's A fragments. With one (D = 512, 256 threads) the launch's
+  // limit of 255 holds its [64, 256] half.
+  if constexpr (Cons == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   // Consumers: warpgroup wg owns resident rows [wg * 64, wg * 64 + 64); each
   // thread holds rows g and g + 8 of its warp's 16 in the accumulators.
   const int wg = warp / 4, wi = warp % 4, g = lane / 4, t = lane % 4;
@@ -628,6 +673,7 @@ __device__ __forceinline__ void bwd_pass(const CUtensorMap* res_map, const CUten
   float db[2] = {0.f, 0.f};
   float s[32];
   const uint32_t res_addr = smem_u32(res_s) + wg * 64 * kSw, str_addr = smem_u32(str_s);
+  const uint32_t out_off = (col0 / kSwCols) * kStr * kSw;  // the tile's chunk of the block's first output column
   mbar_wait(res_full, 0);
 
   // A tile: its logits on the tensor cores, then (once they and the previous
@@ -635,10 +681,10 @@ __device__ __forceinline__ void bwd_pass(const CUtensorMap* res_map, const CUten
   // this tile's product started; it runs while the next tile's logits are
   // started behind it.
   for (int it = t0; it < t1; ++it) {
-    const int k = it - t0, st = k % kStages;
+    const int k = it - t0, st = k % ST;
     const uint32_t tile = str_addr + st * NCH * kStr * kSw;
-    mbar_wait(&full[st], (k / kStages) & 1);
-    pool_logits<D>(s, res_addr, tile);
+    mbar_wait(&full[st], (k / ST) & 1);
+    pool_logits<D, Res>(s, res_addr, tile);
     wgmma_wait<0>();
     fence_regs(s);
 #pragma unroll
@@ -646,10 +692,10 @@ __device__ __forceinline__ void bwd_pass(const CUtensorMap* res_map, const CUten
     if (k > 0) {
       // The previous tile's vectors, read by generic loads, before the next bulk write into its stage.
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      mbar_arrive(&empty[(st + kStages - 1) % kStages]);
+      mbar_arrive(&empty[(st + ST - 1) % ST]);
     }
     tile_gp<kDe>(s, db, vec_s + st * NV * kStr, it * kStr, n_str, ok, ra, rb, rid, t);
-    gp_product<D>(acc, s, tile);
+    gp_product<DO>(acc, s, tile + out_off);
   }
   wgmma_wait<0>();
 #pragma unroll
@@ -661,10 +707,10 @@ __device__ __forceinline__ void bwd_pass(const CUtensorMap* res_map, const CUten
     if constexpr (kDe) {
       db[r] += __shfl_xor_sync(0xffffffffu, db[r], 1);
       db[r] += __shfl_xor_sync(0xffffffffu, db[r], 2);
-      if (ok[r] && t == 0) db_out[(size_t)split * n_res + row[r]] = db[r];
+      if (ok[r] && t == 0 && col0 == 0) db_out[(size_t)split * n_res + row[r]] = db[r];
     }
     if (!ok[r]) continue;
-    float* dst = dst0 + (size_t)row[r] * D + 2 * t;
+    float* dst = dst0 + (size_t)row[r] * D + col0 + 2 * t;
 #pragma unroll
     for (int h = 0; h < NH; ++h) {
 #pragma unroll
@@ -683,7 +729,7 @@ struct VecMaps {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(bwd_threads(D), 1)
     sampled_dq_pass(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap e_map,
                     const __grid_constant__ VecMaps vecs, const float* __restrict__ lse, const float* __restrict__ g,
                     const int* __restrict__ tgt, float* __restrict__ dq, int N, int S, int tiles_per_split) {
@@ -691,22 +737,24 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(bwd_threads(D), 1)
     sampled_de_pass(const __grid_constant__ CUtensorMap e_map, const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ VecMaps vecs, const float* __restrict__ b, const int* __restrict__ ids,
                     float* __restrict__ de, float* __restrict__ db, int S, int N, int tiles_per_split) {
   bwd_pass<D, true>(&e_map, &q_map, vecs.m, b, nullptr, ids, de, db, S, N, tiles_per_split);
 }
 
-// The ranges a backward pass splits its streamed tiles into.
-int pass_splits(int n_res, int n_str, int forced, int* per) {
-  return stream_splits((n_res + kRes - 1) / kRes, (n_str + kStr - 1) / kStr, forced, per);
+// The ranges a backward pass splits its streamed tiles into: its blocks are
+// the resident row blocks times the column halves.
+int pass_splits(int n_res, int n_str, int D, int forced, int* per) {
+  const int res = bwd_res(D);
+  return stream_splits((n_res + res - 1) / res * bwd_halves(D), (n_str + kStr - 1) / kStr, forced, per);
 }
 
 // Scratch floats a pass needs for its partials (0 when it does not split).
 long long pass_scratch(int n_res, int n_str, int D, bool de, int forced) {
   int per = 0;
-  const int S = pass_splits(n_res, n_str, forced, &per);
+  const int S = pass_splits(n_res, n_str, D, forced, &per);
   return S > 1 ? (long long)S * n_res * (D + (de ? 1 : 0)) : 0;
 }
 
@@ -717,7 +765,8 @@ cudaError_t run_bwd(const void* q, const void* e, const void* b, const void* ids
   CUtensorMap q_res, q_str, e_res, e_str;
   VecMaps pool_vecs, query_vecs;  // the dq pass's streamed bias, ids; the dE pass's lse, g, tgt
   // The int32 ids and targets travel as 4-byte elements under an fp32 map (TMA copies bits).
-  if (!make_map(&q_res, q, N, D, kRes) || !make_map(&q_str, q, N, D, kStr) || !make_map(&e_res, e, S, D, kRes) ||
+  constexpr int Res = bwd_res(D), H = bwd_halves(D);
+  if (!make_map(&q_res, q, N, D, Res) || !make_map(&q_str, q, N, D, kStr) || !make_map(&e_res, e, S, D, Res) ||
       !make_map(&e_str, e, S, D, kStr) || !make_vec_map(&pool_vecs.m[0], static_cast<const float*>(b), S, kStr) ||
       !make_vec_map(&pool_vecs.m[1], static_cast<const float*>(ids), S, kStr) ||
       !make_vec_map(&query_vecs.m[0], static_cast<const float*>(lse), N, kStr) ||
@@ -735,13 +784,13 @@ cudaError_t run_bwd(const void* q, const void* e, const void* b, const void* ids
 
   // dq: resident queries, streamed pool.
   int per = 0;
-  int splits = pass_splits(N, S, dq_forced, &per);
+  int splits = pass_splits(N, S, D, dq_forced, &per);
   constexpr int dq_smem = pass_smem_bytes<D, false>();
   cudaError_t err = cudaFuncSetAttribute(sampled_dq_pass<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
   if (err != cudaSuccess) return err;
   float* o = splits > 1 ? sc : static_cast<float*>(dq);
-  sampled_dq_pass<D><<<dim3((N + kRes - 1) / kRes, splits), kBwdThreads, dq_smem, s>>>(q_res, e_str, pool_vecs, l, gg,
-                                                                                        ti, o, N, S, per);
+  sampled_dq_pass<D><<<dim3((N + Res - 1) / Res, splits, H), bwd_threads(D), dq_smem, s>>>(q_res, e_str, pool_vecs, l,
+                                                                                             gg, ti, o, N, S, per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (splits > 1) {
@@ -752,14 +801,14 @@ cudaError_t run_bwd(const void* q, const void* e, const void* b, const void* ids
   sc += pass_scratch(N, S, D, false, dq_forced);
 
   // dE and db: resident pool rows, streamed queries.
-  splits = pass_splits(S, N, de_forced, &per);
+  splits = pass_splits(S, N, D, de_forced, &per);
   constexpr int de_smem = pass_smem_bytes<D, true>();
   err = cudaFuncSetAttribute(sampled_de_pass<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, de_smem);
   if (err != cudaSuccess) return err;
   o = splits > 1 ? sc : static_cast<float*>(de);
   float* ob = splits > 1 ? sc + (size_t)splits * S * D : static_cast<float*>(db);
-  sampled_de_pass<D><<<dim3((S + kRes - 1) / kRes, splits), kBwdThreads, de_smem, s>>>(e_res, q_str, query_vecs, bb,
-                                                                                        ii, o, ob, S, N, per);
+  sampled_de_pass<D><<<dim3((S + Res - 1) / Res, splits, H), bwd_threads(D), de_smem, s>>>(e_res, q_str, query_vecs,
+                                                                                             bb, ii, o, ob, S, N, per);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   sum_splits<<<2 * kSms, 256, 0, s>>>(o, static_cast<float*>(de), (long long)S * D, splits);
@@ -770,7 +819,7 @@ cudaError_t run_bwd(const void* q, const void* e, const void* b, const void* ids
 }  // namespace
 
 // The widths the kernels are built for; the wrapper checks D against it.
-extern "C" int sampled_supports_dim(int D) { return D == 64 || D == 128 || D == 256; }
+extern "C" int sampled_supports_dim(int D) { return D == 64 || D == 128 || D == 256 || D == 512; }
 
 // Floats of scratch sampled_bwd needs for split partials (0: pass any
 // pointer). dq_splits / de_splits: as for sampled_bwd.
@@ -802,7 +851,8 @@ extern "C" int sampled_lse(const void* q, const void* e, const void* b, const vo
   switch (D) {
     case 64: return run_lse<64, lse_cons(64)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
     case 128: return run_lse<128, lse_cons(128)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
-    default: return run_lse<256, lse_cons(256)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
+    case 256: return run_lse<256, lse_cons(256)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
+    default: return run_lse<512, lse_cons(512)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
   }
 }
 
@@ -820,6 +870,7 @@ extern "C" int sampled_bwd(const void* q, const void* e, const void* b, const vo
   switch (D) {
     case 64: return run_bwd<64>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
     case 128: return run_bwd<128>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
-    default: return run_bwd<256>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
+    case 256: return run_bwd<256>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
+    default: return run_bwd<512>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
   }
 }

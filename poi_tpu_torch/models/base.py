@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from poi_tpu_torch.data.pipeline import Batch
+from poi_tpu_torch.ops.segment import scatter_sum
 from poi_tpu_torch.utils.config import ModelConfig
 
 
@@ -72,26 +73,30 @@ def batch_to(batch: Batch, device) -> Batch:
     return Batch(*(conv(a) for a in batch))
 
 
-def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
+def _normal(gen: torch.Generator, shape, scale: float, meta: bool = False) -> torch.Tensor:
+    if meta:  # shapes only: nothing drawn, nothing allocated
+        return torch.empty(shape, device="meta")
     return scale * torch.randn(shape, generator=gen, dtype=torch.float32)
 
 
-def init_embed_params(gen: torch.Generator, cfg: ModelConfig, dims: DataDims) -> dict[str, torch.Tensor]:
+def init_embed_params(gen: torch.Generator, cfg: ModelConfig, dims: DataDims,
+                      meta: bool = False) -> dict[str, torch.Tensor]:
     """POI/user/time/geo tables + output bias (+ untied output table), at the
-    JAX package's scales. Padded rows get a -1e30 bias."""
+    JAX package's scales. Padded rows get a -1e30 bias. ``meta``: the tables'
+    shapes on the meta device, nothing drawn."""
     scale = 0.02
     d = cfg.embed_dim
     vp = dims.num_pois_padded
     bias = torch.where(torch.arange(vp) < dims.num_pois, 0.0, -1e30).to(torch.float32)
-    p = {"poi": _normal(gen, (vp, d), scale), "out_bias": bias}
+    p = {"poi": _normal(gen, (vp, d), scale, meta), "out_bias": bias}
     if cfg.use_user_embedding:
-        p["user"] = _normal(gen, (dims.num_users, d), scale)
+        p["user"] = _normal(gen, (dims.num_users, d), scale, meta)
     if cfg.use_time_embedding:
-        p["time"] = _normal(gen, (dims.num_time_buckets, d), scale)
+        p["time"] = _normal(gen, (dims.num_time_buckets, d), scale, meta)
     if cfg.use_geo_embedding:
-        p["geo"] = _normal(gen, (dims.num_geo_buckets, d), scale)
+        p["geo"] = _normal(gen, (dims.num_geo_buckets, d), scale, meta)
     if not cfg.tie_output_embedding:
-        p["out"] = _normal(gen, (vp, d), scale)
+        p["out"] = _normal(gen, (vp, d), scale, meta)
     return p
 
 
@@ -123,16 +128,43 @@ def linear(p, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tens
     return matmul_fp32(x, p["kernel"], dtype) + p["bias"]
 
 
+class _Lookup(torch.autograd.Function):
+    """``F.embedding`` forward; the backward sums each id's rows in a fixed
+    order (``ops.segment.scatter_sum``)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.num_rows = table.shape[0]
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return scatter_sum(ids, g, ctx.num_rows), None
+
+
 def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]``. Through ``F.embedding``, whose backward sorts the ids
-    and sums each run of duplicates in one pass; on an H100 the backward of
-    plain indexing took half the bench workload's train step (PERF.md)."""
-    return F.embedding(ids, table)
+    """``table[ids]``. The backward sums each id's rows in a fixed order, so
+    a run gives the same bits every time: the card's ``F.embedding``
+    backward gave other bits from run to run where many ids fall on few
+    rows (8,192 ids into config #4's 168-row time table, PERF.md)."""
+    return _Lookup.apply(table, ids)
 
 
-def input_embeddings(embed, batch: Batch, cfg: ModelConfig) -> torch.Tensor:
-    """Sum of POI + time + geo embeddings per input step → [B, T, D]."""
-    x = lookup(embed["poi"], batch.poi_in)
+def gather_rows(table: torch.Tensor, bias: torch.Tensor, ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(table[ids], bias[ids])``: a loss's positive and negative rows in
+    one lookup each, so each table's backward is one sorted sum."""
+    return lookup(table, ids), lookup(bias[:, None], ids)[..., 0]
+
+
+def input_embeddings(embed, batch: Batch, cfg: ModelConfig, poi_rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Sum of POI + time + geo embeddings per input step → [B, T, D].
+    ``poi_rows`` ([B, T, D] = the POI table's rows at ``batch.poi_in``)
+    stands in for the POI lookup where the caller gathered them: the
+    rows-gradient train step differentiates those rows, so the table's
+    dense gradient never exists."""
+    x = poi_rows if poi_rows is not None else lookup(embed["poi"], batch.poi_in)
     if cfg.use_time_embedding:
         x = x + lookup(embed["time"], batch.time_bucket)
     if cfg.use_geo_embedding:
@@ -171,7 +203,8 @@ class SequenceModel(nn.Module):
         self.cfg = cfg
         self.dims = dims
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
-        self.embed = params(init_embed_params(gen, cfg, dims), device)
+        meta = device is not None and torch.device(device).type == "meta"
+        self.embed = params(init_embed_params(gen, cfg, dims, meta), device)
         self.tower = self.build_tower(gen, device)
         self.proj = None
         if cfg.hidden_dim != cfg.embed_dim or not cfg.tie_output_embedding:
@@ -184,14 +217,16 @@ class SequenceModel(nn.Module):
     def device(self) -> torch.device:
         return self.embed["poi"].device
 
-    def queries(self, batch: Batch, generator: torch.Generator | None = None) -> torch.Tensor:
+    def queries(self, batch: Batch, generator: torch.Generator | None = None,
+                poi_rows: torch.Tensor | None = None) -> torch.Tensor:
         """[B, T, D] fp32 scoring queries at every position, the training
         path: embed → tower → projection → user add. ``batch`` holds tensors
         on the model's device (``batch_to``). With a ``generator`` (on the
         model's device), ``model.dropout`` drops out the summed input
         embeddings and the tower output, in that order, as ``poi_tpu``
-        does; without one the path is deterministic."""
-        x = dropout(input_embeddings(self.embed, batch, self.cfg), self.cfg.dropout, generator)
+        does; without one the path is deterministic. ``poi_rows``:
+        pre-gathered input rows, as for ``input_embeddings``."""
+        x = dropout(input_embeddings(self.embed, batch, self.cfg, poi_rows), self.cfg.dropout, generator)
         h = dropout(self.tower(x, batch), self.cfg.dropout, generator)
         q = linear(self.proj, h, compute_dtype(self.cfg)) if self.proj is not None else h
         return add_user_query(q.float(), self.embed, batch, self.cfg)

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from poi_tpu_torch import _build
-from poi_tpu_torch.models.base import lookup
+from poi_tpu_torch.models.base import gather_rows
 
 NEG = -1e30
 
@@ -58,6 +58,17 @@ def sampled_bwd_reference(q, e_neg, b_neg, neg_ids, targets, lse_tot, g):
     return gpb @ _bf16(e_neg), gpb.T @ _bf16(q), gp.sum(dim=0)
 
 
+# The widths the kernels are built for (``sampled_supports_dim`` in
+# ``csrc/sampled.cu`` says the same).
+KERNEL_DIMS = (64, 128, 256, 512)
+
+
+def require_kernel_dim(name: str, D: int) -> None:
+    """Raise unless the kernels are built for width ``D``."""
+    if D not in KERNEL_DIMS:
+        raise ValueError(f"{name}: the kernels are built for D in {KERNEL_DIMS}, got D={D}")
+
+
 def _check(name: str, tensors: dict[str, torch.Tensor]) -> bool:
     """True when every tensor lies on the CPU (the plain versions run); False
     when all lie on one CUDA device and the kernel may launch; raises
@@ -67,9 +78,7 @@ def _check(name: str, tensors: dict[str, torch.Tensor]) -> bool:
         return True
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}; need all on one CUDA device")
-    D = tensors["q"].shape[1]
-    if not _build.library().sampled_supports_dim(D):
-        raise ValueError(f"{name}: the kernels are built for D in (64, 128, 256), got D={D}")
+    require_kernel_dim(name, tensors["q"].shape[1])
     return False
 
 
@@ -188,14 +197,14 @@ def sampled_nll_rows(q, e_neg, b_neg, s_pos, targets, neg_ids) -> torch.Tensor:
 def fused_sampled_softmax_loss(q, table, bias, targets, mask, neg, num_sampled: int, num_pois: int) -> torch.Tensor:
     """Masked-mean sampled softmax over [B, T, D] queries with the pool
     ``neg [S]``, the counterpart of ``fused_sampled_softmax_loss``. The
-    table and bias rows are gathered in plain torch, so their gradients
-    scatter back through autograd."""
+    table and bias rows (the targets', then the pool's) are gathered in
+    plain torch, one lookup a tensor, so their gradients scatter back
+    through autograd."""
     B, T, D = q.shape
-    e_neg = lookup(table, neg)
-    b_neg = lookup(bias[:, None], neg)[:, 0] - log_q(num_sampled, num_pois)
     q2 = q.reshape(B * T, D)
     t1 = targets.reshape(-1)
-    s_pos = (q2.float() * lookup(table, t1).float()).sum(dim=1) + lookup(bias[:, None], t1)[:, 0]
-    nll = sampled_nll_rows(q2, e_neg, b_neg, s_pos, t1, neg)
+    rows, brows = gather_rows(table, bias, torch.cat([t1, neg]))
+    s_pos = (q2.float() * rows[:B * T].float()).sum(dim=1) + brows[:B * T]
+    nll = sampled_nll_rows(q2, rows[B * T:], brows[B * T:] - log_q(num_sampled, num_pois), s_pos, t1, neg)
     m = mask.reshape(-1).float()
     return (nll * m).sum() / m.sum().clamp_min(1.0)

@@ -9,6 +9,9 @@
     python -m poi_tpu_torch.scripts.bench_serve     # Recommender.recommend p50/p99 and requests/s
     python -m poi_tpu_torch.scripts.mem_budget      # params, optimizer state and a step's peak memory
     python -m poi_tpu_torch.scripts.quality_runs    # train, select on val, evaluate beside popularity
+    python -m poi_tpu_torch.scripts.bench_1m        # config #5 at V = 1M: top-k, train seq/s, peak memory
+    python -m poi_tpu_torch.scripts.profile_1m      # config #5's step by region; lazy Adam's two forms
+    python -m poi_tpu_torch.scripts.step_time       # the whole train step: bench workload, configs #4, #5
 
 Each prints the card's ``nvidia-smi`` name and power limit first and runs on
 ``--device cuda`` unless it is given ``--device cpu``, where it runs the

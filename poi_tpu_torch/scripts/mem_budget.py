@@ -16,9 +16,10 @@
 
 ``--budget-gib`` defaults to the card's memory. ``--force-v`` sizes the
 model's catalog at V rows whatever the corpus holds (``bench_1m``'s
-dimensions). Config #5's tied 1M-row table takes ``poi_tpu``'s rows-gradient
-step, which is not ported: building its trainer raises NotImplementedError
-naming ROADMAP A11.
+dimensions). Config #5 (``multihost_1m --set mesh.model=1
+mesh.embedding_mode=psum data.min_poi_checkins=1``: a tied 903,889 x 512
+table) takes the rows-gradient step: no dense table gradient, [N, D + 1]
+gradient rows (N = 2 B T + S) instead, and lazy Adam by gather/scatter.
 """
 
 from __future__ import annotations
@@ -101,7 +102,14 @@ def main(argv: list[str] | None = None) -> int:
     # ---- 1. exact accounting ------------------------------------------------
     acc = accounting(trainer, state)
     B, T = cfg.train.batch_size, cfg.data.max_seq_len
-    lazy = " (masked-dense lazy Adam)" if cfg.train.table_update == "sparse" else ""
+    from poi_tpu_torch.train import sparse_opt
+
+    big = trainer.dims.num_pois_padded * cfg.model.embed_dim * 4 > sparse_opt.DENSE_LAZY_MAX_BYTES
+    lazy = ""
+    if trainer.rows_mode:
+        lazy = " (rows-gradient step, gather/scatter lazy Adam)"
+    elif cfg.train.table_update == "sparse":
+        lazy = f" ({'gather/scatter' if big else 'masked-dense'} lazy Adam)"
     print(f"config {cfg.name}: V={trainer.dims.num_pois:,} (padded {trainer.dims.num_pois_padded:,}) "
           f"D={cfg.model.embed_dim} B={B} T={T} S={cfg.loss.num_sampled} loss={cfg.loss.kind} "
           f"table_update={cfg.train.table_update}{lazy} sampler={cfg.data.sampler}", flush=True)
@@ -109,7 +117,11 @@ def main(argv: list[str] | None = None) -> int:
     print(f"  params      tables {gib(acc['params_tables'])}   dense {gib(acc['params_dense'])}")
     print(f"  opt state   tables {gib(acc['opt_tables'])}   dense {gib(acc['opt_dense'])}   "
           f"({cfg.train.optimizer}; its step count is a host int)")
-    print(f"  table grad  {gib(acc['params_tables'])}  (dense cotangent)")
+    if trainer.rows_mode:
+        n = 2 * B * T + cfg.loss.num_sampled
+        print(f"  table grad  {gib(n * (cfg.model.embed_dim + 1) * 4)}  ([{n:,}, D + 1] rows: no dense cotangent)")
+    else:
+        print(f"  table grad  {gib(acc['params_tables'])}  (dense cotangent)")
     print(f"  dense grad  {gib(acc['params_dense'])}")
     print(f"  resident state (params + optimizer state): {gib(sum(acc.values()))}", flush=True)
 

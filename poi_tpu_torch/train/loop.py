@@ -9,6 +9,13 @@ adagrad/sgd), or lazy Adam on the tables (``train.table_update=sparse``).
 ``train`` drives it from the host ``TrainLoader`` or from the
 ``DeviceSampler`` (``data.sampler=device``).
 
+Where ``sparse_opt.rows_mode_enabled`` holds (lazy Adam on a tied table
+above ``DENSE_LAZY_MAX_BYTES``, config #5), a step differentiates the
+gathered table rows instead of the table (``Trainer._rows_loss``, the
+reference's ``_rows_step``): the POI table's and output bias's dense
+gradients never exist, and lazy Adam takes one gradient row per id
+occurrence.
+
 A step's random draws come from generators on the device keyed by
 ``(seed, step, stream)``, so a step draws the same numbers whenever it runs:
 the negatives (sampled softmax's pool or BPR's [B, T, N] ids, drawn once,
@@ -32,8 +39,10 @@ from poi_tpu_torch.data.dataset import Dataset
 from poi_tpu_torch.data.device_sampler import DeviceSampler, step_seed
 from poi_tpu_torch.data.pipeline import Batch, make_train_loader
 from poi_tpu_torch.models import base as model_base
+from poi_tpu_torch.ops.fused_sampled import fused_sampled_softmax_loss, log_q, sampled_nll_rows
 from poi_tpu_torch.train import sparse_opt
-from poi_tpu_torch.train.losses import build_loss_fn, draw_bpr_negatives, draw_sampled_negatives
+from poi_tpu_torch.train.losses import (build_loss_fn, draw_bpr_negatives, draw_sampled_negatives, masked_mean,
+                                        sampled_nll)
 from poi_tpu_torch.train.state import TrainState, global_norm, make_optimizer
 from poi_tpu_torch.utils.config import Config
 
@@ -75,13 +84,8 @@ class Trainer:
         if cfg.train.table_update not in ("dense", "sparse"):
             raise ValueError(f"unknown train.table_update {cfg.train.table_update!r}")
         if cfg.mesh.model > 1:
-            raise NotImplementedError(f"mesh.model={cfg.mesh.model}: vocab-sharded tables come with the multi-GPU layer")
-        if sparse_opt.rows_mode_enabled(cfg, self.dims, n_model=1):
-            raise NotImplementedError(
-                "train.table_update='sparse' on a tied table above "
-                f"{sparse_opt.DENSE_LAZY_MAX_BYTES} bytes takes poi_tpu's rows-gradient step, "
-                f"not ported yet ({sparse_opt.ROWS_MODE_TODO})"
-            )
+            raise NotImplementedError(f"mesh.model={cfg.mesh.model}: vocab-sharded tables (train.table_update="
+                                      f"{cfg.train.table_update!r}) come with the multi-GPU layer")
         # fp32 products stay fp32 on the card (no TF32), as the reference's.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -90,10 +94,17 @@ class Trainer:
         self.loss_fn = build_loss_fn(cfg.loss, self.dims.num_pois, cfg.model.embed_dim)
         self.sparse = cfg.train.table_update == "sparse"
         self.optimizer = sparse_opt.SparseTableOptimizer(cfg) if self.sparse else make_optimizer(cfg.train)
-        self._gen = {s: torch.Generator(device=self.device) for s in (NEGATIVES_STREAM, DROPOUT_STREAM)}
+        # The rows-gradient step, and whether its NLL takes the kernels: where
+        # the loss would (build_loss_fn's dispatch), on a CUDA device.
+        self.rows_mode = sparse_opt.rows_mode_enabled(cfg, self.dims, n_model=1)
+        self.rows_fused = (self.device.type == "cuda"
+                           and getattr(self.loss_fn, "func", None) is fused_sampled_softmax_loss)
+        self._gen: dict[int, torch.Generator] = {}
 
     def generator(self, step: int, stream: int) -> torch.Generator:
         """The device generator of ``stream``, seeded for ``step``."""
+        if stream not in self._gen:
+            self._gen[stream] = torch.Generator(device=self.device)
         return self._gen[stream].manual_seed(step_seed(self.cfg.train.seed, step, stream))
 
     def draw_negatives(self, step: int, batch: Batch | None = None) -> torch.Tensor | None:
@@ -129,6 +140,30 @@ class Trainer:
             return self.loss_fn(q, table, bias, batch.poi_tgt, batch.mask)
         return self.loss_fn(q, table, bias, batch.poi_tgt, batch.mask, neg)
 
+    def _rows_loss(self, batch: Batch, neg: torch.Tensor, dropout: torch.Generator | None):
+        """The objective of the rows-gradient step, the reference's
+        ``_rows_step``: every POI-table and bias row the step reads (inputs,
+        targets, the pool) gathered once, as leaves that require grad.
+        Returns the loss, the two leaves and their occurrence ids."""
+        cfg = self.cfg
+        B, T = batch.poi_tgt.shape
+        BT = B * T
+        ids_all = torch.cat([batch.poi_in.reshape(-1), batch.poi_tgt.reshape(-1), neg.reshape(-1)])
+        embed = self.model.embed
+        rows = embed["poi"].detach().index_select(0, ids_all).requires_grad_()
+        brows = embed["out_bias"].detach().index_select(0, ids_all).requires_grad_()
+        q = self.model.queries(batch, dropout, poi_rows=rows[:BT].reshape(B, T, -1))
+        e_pos, b_pos = rows[BT:2 * BT].reshape(B, T, -1), brows[BT:2 * BT].reshape(B, T)
+        e_neg, b_neg = rows[2 * BT:], brows[2 * BT:]
+        s_pos = (q.float() * e_pos.float()).sum(dim=-1) + b_pos
+        S, V = cfg.loss.num_sampled, self.dims.num_pois
+        if self.rows_fused:
+            nll = sampled_nll_rows(q.reshape(BT, -1), e_neg, b_neg - log_q(S, V), s_pos.reshape(-1),
+                                   batch.poi_tgt.reshape(-1), neg).reshape(B, T)
+        else:
+            nll = sampled_nll(q, e_neg, b_neg, s_pos, batch.poi_tgt, neg, S, V)
+        return masked_mean(nll, batch.mask), (rows, brows), ids_all
+
     def step(self, state: TrainState, batch: Batch) -> tuple[TrainState, dict]:
         """One train step on a host (numpy) or device batch. The parameter
         and gradient norms are computed only on log steps (0.0 elsewhere):
@@ -141,18 +176,31 @@ class Trainer:
             p.grad = None
         neg = self.draw_negatives(state.step, batch)
         drop = self.generator(state.step, DROPOUT_STREAM) if self.cfg.model.dropout > 0.0 else None
-        loss = self.loss(batch, neg, drop)
+        if self.rows_mode:
+            loss, leaves, ids_all = self._rows_loss(batch, neg, drop)
+        else:
+            loss = self.loss(batch, neg, drop)
         if self.check_finite:
             _require_finite("loss", loss, state.step)
         loss.backward()
-        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p) for k, p in params.items()}
+        row_grads, row_tables = None, ()
+        if self.rows_mode:
+            row_tables = ("embed.poi", "embed.out_bias")
+            # The point of the rows step: the tables' dense gradients never exist.
+            assert all(params[k].grad is None for k in row_tables), "the rows step made a dense table gradient"
+            row_grads = {"poi": (ids_all, leaves[0].grad), "out_bias": (ids_all, leaves[1].grad)}
+            touched = {"user": batch.user.reshape(-1)} if batch.user is not None else {}
+        elif self.sparse:
+            touched = sparse_opt.touched_ids(batch, neg)
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p) for k, p in params.items()
+                 if k not in row_tables}
         train = self.cfg.train
         is_log_step = (self.check_finite or (state.step + 1) % max(1, train.log_every) == 0
                        or state.step + 1 == train.num_steps)
         zero = torch.zeros((), device=self.device)
         lr = self.optimizer.lr(state.opt_state["count"])
         if self.sparse:  # lazy Adam computes the exact global norm for its clip: reported every step
-            grad_norm = self.optimizer.update(grads, state.opt_state, params, sparse_opt.touched_ids(batch, neg))
+            grad_norm = self.optimizer.update(grads, state.opt_state, params, touched, row_grads)
         else:
             grad_norm = global_norm(grads.values()) if is_log_step else zero
             self.optimizer.update(grads, state.opt_state, params)

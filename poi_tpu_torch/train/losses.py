@@ -16,7 +16,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from poi_tpu_torch.models.base import lookup, matmul_fp32
+from poi_tpu_torch.models.base import gather_rows, matmul_fp32
 from poi_tpu_torch.ops.fused_ce import fused_ce_loss
 from poi_tpu_torch.ops.fused_sampled import NEG, fused_sampled_softmax_loss, log_q
 from poi_tpu_torch.utils.config import LossConfig
@@ -27,7 +27,7 @@ from poi_tpu_torch.utils.config import LossConfig
 FUSED_CE_MIN_VOCAB = 8192
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     m = mask.float()
     return (x * m).sum() / m.sum().clamp_min(1.0)
 
@@ -49,7 +49,7 @@ def ce_loss(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, targets: t
     if label_smoothing > 0.0:
         v = logits.shape[-1]
         nll = (1.0 - label_smoothing) * nll + label_smoothing * (lse - logits.mean(dim=-1)) * (v / (v - 1.0))
-    return _masked_mean(nll, mask)
+    return masked_mean(nll, mask)
 
 
 def draw_bpr_negatives(generator: torch.Generator, B: int, T: int, num_negatives: int, num_pois: int,
@@ -63,15 +63,16 @@ def draw_bpr_negatives(generator: torch.Generator, B: int, T: int, num_negatives
 def bpr_loss(q, table, bias, targets, mask, neg) -> torch.Tensor:
     """Bayesian Personalized Ranking, ``-log σ(s_pos - s_neg)`` for each of
     the position's negatives ``neg [B, T, N]``, averaged over the pairs whose
-    negative is not the positive and whose position is valid. The rows are
-    gathered through ``lookup`` (``F.embedding``), whose backward sums the
-    duplicate ids of the [B, T, N] gather in one pass."""
-    e_pos = lookup(table, targets)  # [B, T, D]
-    e_neg = lookup(table, neg)  # [B, T, N, D]
-    s_pos = (q * e_pos).sum(dim=-1) + lookup(bias[:, None], targets)[..., 0]
-    s_neg = torch.einsum("btd,btnd->btn", q, e_neg) + lookup(bias[:, None], neg)[..., 0]
+    negative is not the positive and whose position is valid. The targets'
+    and the negatives' rows are gathered in one ``lookup`` a tensor, whose
+    backward sums each id's rows in a fixed order."""
+    B, T, N = neg.shape
+    rows, brows = gather_rows(table, bias, torch.cat([targets.reshape(-1), neg.reshape(-1)]))
+    e_pos, e_neg = rows[:B * T].reshape(B, T, -1), rows[B * T:].reshape(B, T, N, -1)
+    s_pos = (q * e_pos).sum(dim=-1) + brows[:B * T].reshape(B, T)
+    s_neg = torch.einsum("btd,btnd->btn", q, e_neg) + brows[B * T:].reshape(B, T, N)
     pair_ok = (neg != targets[..., None]) & (mask[..., None] > 0)
-    return _masked_mean(-F.logsigmoid(s_pos[..., None] - s_neg), pair_ok)
+    return masked_mean(-F.logsigmoid(s_pos[..., None] - s_neg), pair_ok)
 
 
 def draw_sampled_negatives(generator: torch.Generator, num_sampled: int, num_pois: int, device) -> torch.Tensor:
@@ -93,12 +94,13 @@ def sampled_nll(q, e_neg, b_neg, s_pos, targets, neg, num_sampled: int, num_pois
 
 
 def sampled_softmax_loss(q, table, bias, targets, mask, neg, num_sampled: int, num_pois: int) -> torch.Tensor:
-    """Sampled softmax with the shared pool ``neg``, the plain path."""
-    e_pos = lookup(table, targets)
-    s_pos = (q.float() * e_pos.float()).sum(dim=-1) + lookup(bias[:, None], targets)[..., 0]
-    nll = sampled_nll(q, lookup(table, neg), lookup(bias[:, None], neg)[:, 0], s_pos, targets, neg, num_sampled,
-                      num_pois)
-    return _masked_mean(nll, mask)
+    """Sampled softmax with the shared pool ``neg``, the plain path (the
+    targets' and the pool's rows in one lookup a tensor)."""
+    B, T = targets.shape
+    rows, brows = gather_rows(table, bias, torch.cat([targets.reshape(-1), neg]))
+    s_pos = (q.float() * rows[:B * T].reshape(B, T, -1).float()).sum(dim=-1) + brows[:B * T].reshape(B, T)
+    nll = sampled_nll(q, rows[B * T:], brows[B * T:], s_pos, targets, neg, num_sampled, num_pois)
+    return masked_mean(nll, mask)
 
 
 def build_loss_fn(cfg: LossConfig, num_pois: int, embed_dim: int | None = None) -> Callable:

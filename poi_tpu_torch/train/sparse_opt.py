@@ -1,14 +1,24 @@
 """Touched-rows-only ("lazy") Adam for catalog-sized embedding tables,
-counterpart of ``poi_tpu/train/sparse_opt.py`` on its masked-dense path.
+counterpart of ``poi_tpu/train/sparse_opt.py``.
 
 With a sampled objective only the rows a step touched (inputs ∪ targets ∪
 the negative pool) can carry gradient. Lazy Adam updates those rows and
 leaves every other row of the table, and of its moments, bit for bit as it
 was: no moment decay, no momentum tail. Below ``DENSE_LAZY_MAX_BYTES`` a
 table takes the masked-dense form: elementwise passes over the whole table
-gated by a [V] touched mask. The gather/scatter form for larger tables, and
-the rows-gradient train step that goes with it (``poi_tpu``'s
-``Trainer._rows_step``, config #5 at V = 1M), are not ported yet.
+gated by a [V] touched mask. Above it (config #5's 903,889 x 512 table) the
+gather/scatter form: the touched ids are deduplicated (``dedup_ids``), and
+Adam reads and writes the table and its moments at those rows only. The
+rows-gradient train step (``Trainer._rows_loss``) hands the table's gradient
+as one row per id occurrence (``row_grads``), summed per unique id here
+(``dedup_sum``), so the dense [V, D] gradient never exists.
+
+Shapes stay static, as in the reference: the deduplicated vector has the
+length of the occurrences, the unique ids first (ascending), then distinct
+out-of-bounds sentinels. No ``torch.unique`` (its size depends on the data,
+so the host would wait for the card every step), and the duplicate sums run
+in a fixed order (a sorted segment sum, not ``index_add_``, whose fp32
+atomics give other bits from run to run on the card).
 
 Small parameters (tower, projection, time and geo tables) take plain Adam
 with the same schedule and clip. The clip is ``poi_tpu``'s here:
@@ -21,15 +31,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from poi_tpu_torch.ops.segment import dedup_ids, dedup_sum
 from poi_tpu_torch.train.state import ADAM_B1, ADAM_B2, ADAM_EPS, lr_schedule
 from poi_tpu_torch.utils.config import Config
 
 # params["embed"] keys that hold catalog-sized tables -> the id set that touches them.
 TABLE_ID_SOURCE = {"poi": "poi", "out": "poi", "out_bias": "poi", "user": "user"}
-# Tables at or below this size take the masked-dense path (the TPU package's
-# threshold, sparse_opt.py:64; the H100's has not been derived).
+# Tables at or below this size take the masked-dense path: the TPU package's
+# threshold (sparse_opt.py:64). On an H100 the gather/scatter path was
+# already the faster at config #4's 37.9 MB table (scripts/profile_1m.py,
+# PERF.md §7); the threshold stays the reference's until a change measures
+# the whole step.
 DENSE_LAZY_MAX_BYTES = 512 * 2**20
-ROWS_MODE_TODO = "ROADMAP A11"
 
 
 def validate_config(cfg: Config) -> None:
@@ -70,6 +83,12 @@ def touched_ids(batch, neg: torch.Tensor) -> dict[str, torch.Tensor]:
     return ids
 
 
+def _rows_of(x: torch.Tensor, uids: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The rows of ``x`` at ``uids``, 0 at the sentinels."""
+    valid = (uids < n_rows).reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(valid, x[uids.clamp(max=n_rows - 1)], 0.0)
+
+
 def _table_source(name: str) -> str | None:
     """The id-source name when ``name`` (a state_dict key) is a table."""
     parts = name.split(".")
@@ -97,25 +116,42 @@ class SparseTableOptimizer:
 
     @torch.no_grad()
     def update(self, grads: dict[str, torch.Tensor], state: dict, params: dict[str, torch.Tensor],
-               ids: dict[str, torch.Tensor]) -> torch.Tensor:
+               ids: dict[str, torch.Tensor],
+               row_grads: dict[str, tuple[torch.Tensor, torch.Tensor]] | None = None) -> torch.Tensor:
         """One update of ``params`` and ``state`` in place; returns the
         global gradient norm (a device scalar: computed for the clip, so
-        reported every step)."""
-        masks: dict[str, torch.Tensor] = {}
-        for name, g in grads.items():
-            src = _table_source(name)
-            if src is None or src not in ids or src in masks:
-                continue
-            if g.numel() * g.element_size() > DENSE_LAZY_MAX_BYTES:
-                raise NotImplementedError(
-                    f"lazy Adam on {name} ({g.numel() * g.element_size()} bytes): the gather/scatter path for "
-                    f"tables above {DENSE_LAZY_MAX_BYTES} bytes is not ported yet ({ROWS_MODE_TODO})"
-                )
-            # index_fill_, not ``mask[ids] = True``: on a CUDA tensor that
-            # assignment waits for the stream.
-            masks[src] = torch.zeros(g.shape[0], dtype=torch.bool, device=g.device).index_fill_(0, ids[src], True)
+        reported every step).
 
-        gnorm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads.values()))
+        A table's gradient comes dense in ``grads`` or, for the embed keys
+        of ``row_grads`` (``{"poi": (occurrence ids, [N, D] rows), ...}``,
+        the rows-gradient step), as one row per id occurrence; ``grads``
+        then need not hold that table."""
+        row_grads = row_grads or {}
+        masks: dict[str, torch.Tensor] = {}
+        uids: dict[str, torch.Tensor] = {}
+        rows: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}  # name -> (unique ids, their summed grads)
+        for name, p in params.items():
+            src = _table_source(name)
+            key = name.split(".")[-1]
+            if src is not None and key in row_grads:
+                rows[name] = dedup_sum(*row_grads[key], oob=p.shape[0])
+            elif src is None or src not in ids:
+                continue
+            elif p.numel() * 4 <= DENSE_LAZY_MAX_BYTES:
+                if src not in masks:
+                    # index_fill_, not ``mask[ids] = True``: on a CUDA tensor
+                    # that assignment waits for the stream.
+                    masks[src] = torch.zeros(p.shape[0], dtype=torch.bool, device=p.device).index_fill_(0, ids[src],
+                                                                                                       True)
+            else:
+                if src not in uids:
+                    uids[src] = dedup_ids(ids[src], p.shape[0])
+                rows[name] = (uids[src], _rows_of(grads[name], uids[src], p.shape[0]))
+
+        # The global norm: dense and masked leaves in full (rows outside the
+        # touched set are 0), gather/scatter tables from their unique rows.
+        gnorm = torch.sqrt(sum((g.float() * g.float()).sum()
+                               for g in (rows[k][1] if k in rows else grads[k] for k in params)))
         scale = torch.ones_like(gnorm)
         if self.clip > 0:
             scale = torch.where(gnorm > self.clip, self.clip / gnorm, scale)
@@ -126,8 +162,11 @@ class SparseTableOptimizer:
         bc1 = float(np.float32(1.0) - np.float32(ADAM_B1) ** np.float32(count_inc))
         bc2 = float(np.float32(1.0) - np.float32(ADAM_B2) ** np.float32(count_inc))
         for name, p in params.items():
-            g = grads[name] * scale
             m, v = state["m"][name], state["v"][name]
+            if name in rows:
+                self._rows_update(p, m, v, *rows[name], scale, lr, bc1, bc2)
+                continue
+            g = grads[name] * scale
             m_n = ADAM_B1 * m + (1 - ADAM_B1) * g
             v_n = ADAM_B2 * v + (1 - ADAM_B2) * (g * g)
             step = lr * (m_n / bc1) / (torch.sqrt(v_n / bc2) + ADAM_EPS)
@@ -142,3 +181,19 @@ class SparseTableOptimizer:
             p.sub_(step)
         state["count"] = count_inc
         return gnorm
+
+    @staticmethod
+    def _rows_update(p, m, v, u, g_u, scale, lr, bc1, bc2) -> None:
+        """Lazy Adam at the unique ids ``u`` (sentinels past them) with their
+        summed grads ``g_u``: gather, Adam on the rows, write back. Each
+        sentinel position takes the last unique id's row and values, so every
+        index is in bounds and a repeated index writes equal values."""
+        n_unique = (u < p.shape[0]).sum()
+        src = torch.minimum(torch.arange(u.shape[0], device=u.device), n_unique - 1)
+        u, g = u[src], g_u[src] * scale
+        m_n = ADAM_B1 * m[u] + (1 - ADAM_B1) * g
+        v_n = ADAM_B2 * v[u] + (1 - ADAM_B2) * (g * g)
+        step = lr * (m_n / bc1) / (torch.sqrt(v_n / bc2) + ADAM_EPS)
+        p.index_put_((u,), p[u] - step)
+        m.index_put_((u,), m_n)
+        v.index_put_((u,), v_n)

@@ -68,6 +68,19 @@ def _copy_into(dst: dict, src: dict, what: str) -> None:
             t.copy_(s)
 
 
+def tensor_bytes(state: TrainState) -> int:
+    """The bytes of the tensors a step file of ``state`` holds (its
+    parameters and optimizer state): the file's size but for ``torch.save``'s
+    zip and pickle framing, some kilobytes. Config #5's is ~6.2 GB."""
+
+    def size(tree) -> int:
+        if isinstance(tree, dict):
+            return sum(size(v) for v in tree.values())
+        return tree.numel() * tree.element_size() if torch.is_tensor(tree) else 0
+
+    return size(state.params) + size(state.opt_state)
+
+
 def _write(path: str, payload: dict) -> None:
     tmp = os.path.join(os.path.dirname(path), f".{os.path.basename(path)}.tmp")
     torch.save(payload, tmp)

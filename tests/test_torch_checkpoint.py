@@ -23,7 +23,7 @@ from poi_tpu_torch.data.device_sampler import DeviceSampler
 from poi_tpu_torch.models.base import DataDims
 from poi_tpu_torch.train.loop import Trainer, train
 from poi_tpu_torch.train.selection import BestOnVal
-from poi_tpu_torch.utils.checkpoint import CheckpointManager, warn_config_mismatch
+from poi_tpu_torch.utils.checkpoint import CheckpointManager, tensor_bytes, warn_config_mismatch
 
 torch.set_num_threads(1)
 
@@ -109,6 +109,9 @@ def test_round_trip_restores_in_place(smoke_ds, tmp_path, update, async_save):
             assert torch.equal(v, saved[k]), k
     assert json.loads(mgr.saved_config()) == json.loads(cfg.to_json())
 
+    # The size reckoning (config #5's step file is reckoned, not written, on the card).
+    framing = os.path.getsize(os.path.join(str(tmp_path), "step_2.pt")) - tensor_bytes(restored)
+    assert 0 < framing < 64 * 1024, framing
     raw = torch.load(os.path.join(str(tmp_path), "step_2.pt"), weights_only=True)
     assert set(raw) == {"step", "params", "opt_state", "loader", "config"}
     tensors = [v for v in _leaves({"params": raw["params"], **raw["opt_state"]}).values() if torch.is_tensor(v)]
@@ -143,6 +146,25 @@ def test_resume_is_bit_exact(smoke_ds, tmp_path, case):
     restore and three more: params and moments torch.equal, and the losses
     of steps 4-6 identical (same batches, same step-keyed draws)."""
     cfg = _smoke(**RESUME_CASES[case], **{"train.warmup_steps": 0, "train.log_every": 1, "train.num_steps": 6})
+    _check_resume(cfg, smoke_ds, tmp_path)
+
+
+@pytest.mark.parametrize("sampler", ["host", "device"])
+def test_resume_is_bit_exact_in_rows_mode(smoke_ds, tmp_path, monkeypatch, sampler):
+    """The same in the rows-gradient step (config #5's; forced at the smoke
+    size by a threshold of 0): lazy Adam's gather/scatter path, whose
+    deduplication and duplicate sums run in a fixed order, resumes on the
+    uninterrupted run's bits."""
+    from poi_tpu_torch.train import sparse_opt
+
+    monkeypatch.setattr(sparse_opt, "DENSE_LAZY_MAX_BYTES", 0)
+    cfg = _smoke(**SPARSE, **{"data.sampler": sampler, "model.use_user_embedding": "true",
+                              "train.warmup_steps": 0, "train.log_every": 1, "train.num_steps": 6})
+    assert _trainer(cfg, smoke_ds).rows_mode
+    _check_resume(cfg, smoke_ds, tmp_path)
+
+
+def _check_resume(cfg, smoke_ds, tmp_path):
     _, straight, hist = train(cfg, smoke_ds, trainer=_trainer(cfg, smoke_ds))
 
     t = _trainer(cfg, smoke_ds)

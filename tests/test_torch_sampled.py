@@ -26,6 +26,7 @@ from poi_tpu_torch.ops.fused_sampled import (
     sampled_lse_reference,
     sampled_nll_rows,
 )
+from poi_tpu_torch.ops import fused_sampled
 from poi_tpu_torch.train.losses import build_loss_fn, draw_sampled_negatives, sampled_softmax_loss
 from poi_tpu_torch.utils.config import LossConfig
 
@@ -99,7 +100,39 @@ def test_sampled_loss_matches_pallas_interpret_and_xla(num_sampled):
         _close(a, b, BF16_REL, name)
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])  # the widths the CUDA kernels take
+@pytest.mark.parametrize("num_sampled", [256, 200])  # 200: a ragged pool
+def test_d512_loss_matches_pallas_interpret_and_xla(num_sampled):
+    """Config #5's width, D = 512, at N = 64 rows: the port's fused path
+    (sampled_lse / sampled_bwd's plain versions inside sampled_nll_rows)
+    against poi_tpu's Pallas kernels in interpret mode, and its plain path
+    against poi_tpu's XLA sampled_softmax_loss, at the tolerances of the
+    D = 128 test above."""
+    q, table, bias, targets, mask, key, neg = _case(B=4, T=16, D=512, S=num_sampled)
+    V = table.shape[0]
+    jt, jm = jnp.asarray(targets), jnp.asarray(mask)
+    want_f, g_pal = _jax(lambda *a: jax_fused_loss(*a, jt, jm, key, num_sampled, V, interpret=True), q, table, bias)
+    want_x, g_xla = _jax(lambda *a: jax_sampled_loss(*a, jt, jm, key, num_sampled, V), q, table, bias)
+    got_f, g_fused = _port(fused_sampled_softmax_loss, q, table, bias, targets, mask, neg, num_sampled, V)
+    assert abs(got_f - want_f) <= REL_TOL * abs(want_f)
+    for a, b, name in zip(g_fused, g_pal, ("dq", "dtable", "dbias")):
+        _close(a, b, REL_TOL, name)
+    got_x, g_plain = _port(sampled_softmax_loss, q, table, bias, targets, mask, neg, num_sampled, V)
+    assert abs(got_x - want_x) <= REL_TOL * abs(want_x)
+    for a, b, name in zip(g_plain, g_xla, ("dq", "dtable", "dbias")):
+        _close(a, b, BF16_REL, name)
+
+
+def test_kernel_widths_take_d512_and_refuse_others():
+    """The wrappers' width check (on CUDA tensors, before any launch): the
+    kernels take D = 512, config #5's, and still refuse a width they are
+    not built for."""
+    assert fused_sampled.KERNEL_DIMS == (64, 128, 256, 512)
+    fused_sampled.require_kernel_dim("sampled_lse", 512)
+    with pytest.raises(ValueError, match="D=96"):
+        fused_sampled.require_kernel_dim("sampled_lse", 96)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256, 512])  # the widths the CUDA kernels take
 def test_sampled_nll_rows_gradients_match_pallas_interpret(D):
     """All four cotangents of the custom VJP, s_pos's included, on a pool
     padded by neither side (S=200)."""

@@ -22,8 +22,8 @@ from poi_tpu_torch.configs.presets import get_config
 from poi_tpu_torch.data.dataset import load_dataset
 from poi_tpu_torch.models.base import DataDims
 from poi_tpu_torch.ops import fused_lstm, fused_rnn
-from poi_tpu_torch.scripts import (_timing, bench_cells, bench_serve, mem_budget, profile_attn, profile_step,
-                                   quality_runs, sweep_ce_bwd, sweep_ce_fwd)
+from poi_tpu_torch.scripts import (_timing, bench_1m, bench_cells, bench_serve, mem_budget, profile_1m,
+                                   profile_attn, profile_step, quality_runs, step_time, sweep_ce_bwd, sweep_ce_fwd)
 from poi_tpu_torch.train.loop import Trainer
 
 torch.set_num_threads(1)
@@ -37,7 +37,13 @@ SCRIPTS = {
     "sweep_ce_fwd": (sweep_ce_fwd, []), "sweep_ce_bwd": (sweep_ce_bwd, []), "profile_step": (profile_step, []),
     "profile_attn": (profile_attn, []), "bench_cells": (bench_cells, []), "bench_serve": (bench_serve, []),
     "mem_budget": (mem_budget, []), "quality_runs": (quality_runs, ["gru_foursquare_nyc"]),
+    "bench_1m": (bench_1m, []), "profile_1m": (profile_1m, []), "step_time": (step_time, []),
 }
+# Config #5's scripts at a tiny size: 64 users, a 400-POI corpus, the
+# catalog forced to 2,000 rows, 32-d, S = 64.
+TINY_1M = {"data.num_users": "64", "data.num_pois": "400", "data.mean_checkins_per_user": "20",
+           "data.max_seq_len": "12", "model.embed_dim": "32", "model.hidden_dim": "32", "model.attn_heads": "2",
+           "model.attn_window": "4", "loss.num_sampled": "64"}
 
 
 @pytest.fixture(autouse=True)
@@ -127,6 +133,55 @@ def test_profile_scripts_print_every_region(capsys, monkeypatch, module, consts,
     rows = {line.split(":")[0].strip() for line in out if line.startswith("  ")}
     assert set(names) <= rows, set(names) - rows
     assert all(np.isfinite(float(m)) for m in re.findall(r": +([0-9.]+) ms", "\n".join(out)))
+
+
+def test_bench_1m_prints_topk_and_both_training_rates(capsys, monkeypatch):
+    monkeypatch.setattr(bench_1m, "OVERRIDES", {**bench_1m.OVERRIDES, **TINY_1M})
+    for name, value in {"FORCE_V": 2000, "TOPK_SHAPE": (8, 3000, 32, 10), "ITERS": 1, "CHUNK": 2, "CHUNKS": 1,
+                        "TRIALS": 1}.items():
+        monkeypatch.setattr(bench_1m, name, value)
+    out = "\n".join(_run(capsys, bench_1m, ["--table-update", "both", "--batch", "8"]))
+    assert re.search(r"fused top-k @ V=3,000 \(padded 4,096\) D=32 B=8 k=10: [0-9,]+ qps", out), out
+    assert "model dims V=2,000 D=32 B=8 S=64" in out
+    rates = re.findall(r"config #5 one-card training \((dense|sparse)\): ([0-9,.]+) seq/s", out)
+    assert [r[0] for r in rates] == ["dense", "sparse"] and all(float(r[1].replace(",", "")) > 0 for r in rates)
+
+
+def test_profile_1m_prints_every_region_and_the_crossover(capsys, monkeypatch):
+    """The regions (the rows step's full gradient beside the dense path's)
+    and lazy Adam's two forms at two table shapes, here shrunk."""
+    monkeypatch.setattr(profile_1m, "OVERRIDES", {**profile_1m.OVERRIDES, **TINY_1M})
+    monkeypatch.setattr(profile_1m, "FORCE_V", 2000)
+    monkeypatch.setattr(profile_1m, "ITERS", 1)
+    monkeypatch.setattr(profile_1m, "CROSSOVER", (("config #4", 300, 16, 50), ("config #5", 900, 32, 70)))
+    from poi_tpu_torch.train import sparse_opt
+
+    threshold = sparse_opt.DENSE_LAZY_MAX_BYTES
+    out = _run(capsys, profile_1m, ["--batch", "8"])
+    assert sparse_opt.DENSE_LAZY_MAX_BYTES == threshold  # the crossover puts the threshold back
+    rows = {line.split(":")[0].strip(): line for line in out if line.startswith("  ")}
+    want = {"embed lookup fwd+bwd", "tower fwd", "tower fwd+bwd", "mha+ln fwd+bwd (fixed h)", "full grads (rows)",
+            "full grads (dense path)", "dense-grad scatter alone", "loss fwd+bwd (fixed q)", "optimizer DENSE adam",
+            "optimizer SPARSE adam", *(f"{c} {p}" for c in ("config #4", "config #5")
+                                       for p in ("masked-dense", "gather/scatter"))}
+    assert want <= rows.keys(), want - rows.keys()
+    assert all(np.isfinite(float(m)) for m in re.findall(r": +([0-9.]+) ms", "\n".join(out)))
+
+
+def test_step_time_prints_each_config(capsys, monkeypatch):
+    """Each configuration's step time, shrunk; the package it timed is named
+    (the same file times another checkout's package)."""
+    tiny = {"data.num_users": "64", "data.num_pois": "400", "data.max_seq_len": "12", "model.embed_dim": "32",
+            "model.hidden_dim": "32", "train.batch_size": "8"}
+    monkeypatch.setattr(step_time, "CONFIGS", {"bench": ("smoke", tiny),
+                                               "multihost_1m": ("multihost_1m", {**tiny, **TINY_1M, "mesh.model": "1"})})
+    monkeypatch.setattr(step_time, "CHUNK", 2)
+    monkeypatch.setattr(step_time, "TRIALS", 1)
+    assert step_time.main(["bench", "multihost_1m", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("cpu: ") and re.search(r"package: .*poi_tpu_torch/__init__.py", out)
+    for name in ("bench", "multihost_1m"):
+        assert re.search(rf"{name}: [0-9.]+ ms a step, [0-9,]+ seq/s at batch 8", out), out
 
 
 def test_bench_cells_rows_and_refused_widths(capsys, monkeypatch):
@@ -224,13 +279,22 @@ def test_mem_budget_accounting_equals_poi_tpus(preset, overrides):
     assert got["params_tables"] > 0 and got["opt_tables"] == 2 * got["params_tables"]
 
 
-def test_mem_budget_runs_a_step(capsys):
+def test_mem_budget_runs_a_step(capsys, monkeypatch):
+    """A device-sampled chunk at the smoke size; then config #5's
+    rows-gradient step (forced at a tiny size by a threshold of 0), whose
+    table gradient is its [N, D + 1] rows."""
+    from poi_tpu_torch.train import sparse_opt
+
     out = "\n".join(_run(capsys, mem_budget, ["smoke", "--set", *SMALL_SET, "data.sampler=device",
                                               "train.steps_per_call=2"]))
     assert "params      tables" in out and "opt state   tables" in out and "one step_sampled chunk of 2 steps" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        mem_budget.main(["multihost_1m", "--set", "mesh.model=1", "data.num_users=64", "data.num_pois=400",
-                         "--force-v", "1000000"] + CPU)
+    monkeypatch.setattr(sparse_opt, "DENSE_LAZY_MAX_BYTES", 0)
+    out = "\n".join(_run(capsys, mem_budget, ["multihost_1m", "--set", *SMALL_SET, "mesh.model=1",
+                                              "mesh.embedding_mode=psum", "loss.num_sampled=64",
+                                              "train.batch_size=8"]))
+    n = 2 * 8 * 12 + 64
+    assert "(rows-gradient step, gather/scatter lazy Adam)" in out and f"[{n:,}, D + 1] rows" in out
+    assert "one Trainer.step on a host batch" in out
 
 
 @pytest.mark.parametrize("name", sorted(SCRIPTS))

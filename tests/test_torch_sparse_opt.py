@@ -178,3 +178,164 @@ def test_touched_ids_match_poi_tpu_on_the_same_pool():
     assert sorted(got) == sorted(want) == ["poi", "user"]
     for k in got:
         assert np.array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+def test_dedup_matches_poi_tpu():
+    """dedup_ids and dedup_sum on the same ids: the sorted unique ids, the
+    distinct out-of-bounds sentinels after them, and the same summed rows
+    (both sum each id's rows in occurrence order)."""
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, 30, 90).astype(np.int32)
+    g = rng.normal(size=(90, D)).astype(np.float32)
+    got = sparse_opt.dedup_ids(torch.from_numpy(ids), 30).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_sparse.dedup_ids(jnp.asarray(ids), 30)))
+    n = len(np.unique(ids))
+    np.testing.assert_array_equal(got[:n], np.unique(ids))
+    assert (got[n:] >= 30).all() and (np.diff(got) > 0).all()
+    for rows in (g, g[:, 0]):  # table rows and bias entries
+        u, s = sparse_opt.dedup_sum(torch.from_numpy(ids), torch.from_numpy(rows), 30)
+        ju, js = jax_sparse.dedup_sum(jnp.asarray(ids), jnp.asarray(rows), 30)
+        np.testing.assert_array_equal(u.numpy(), np.asarray(ju))
+        np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=0, atol=1e-6)
+        assert not s[n:].any()
+
+
+@pytest.mark.parametrize("threshold", [None, 0], ids=["masked_dense", "gather_scatter"])
+def test_all_rows_touched_matches_dense_adam(threshold, monkeypatch):
+    """With ids covering every row (with duplicates, unsorted), lazy Adam is
+    optax.chain(clip_by_global_norm, adam) on both table paths, as
+    tests/test_sparse_opt.py holds poi_tpu's."""
+    import optax
+
+    from poi_tpu.train.state import lr_schedule as jax_lr_schedule
+
+    if threshold is not None:
+        monkeypatch.setattr(sparse_opt, "DENSE_LAZY_MAX_BYTES", threshold)
+    cfg = _cfg(clip=1.0)
+    rng = np.random.default_rng(5)
+    tree = {"embed": {"poi": rng.normal(size=(V, D)).astype(np.float32),
+                      "out_bias": rng.normal(size=V).astype(np.float32),
+                      "user": rng.normal(size=(5, D)).astype(np.float32)},
+            "tower": {"w": rng.normal(size=(D, D)).astype(np.float32)}}
+    dense = optax.chain(optax.clip_by_global_norm(cfg.train.grad_clip_norm), optax.adam(jax_lr_schedule(cfg.train)))
+    jparams = jax.tree.map(jnp.asarray, tree)
+    jstate = dense.init(jparams)
+    opt = sparse_opt.SparseTableOptimizer(cfg)
+    params = {k: torch.from_numpy(v.copy()) for k, v in _flat(tree).items()}
+    state = opt.init(params)
+    ids = {"poi": torch.from_numpy(np.concatenate([np.arange(V), rng.integers(0, V, 7)])),
+           "user": torch.from_numpy(np.array([4, 0, 1, 2, 3, 2, 2]))}
+    for _ in range(4):
+        grads = jax.tree.map(lambda a: rng.normal(size=a.shape).astype(np.float32), tree)
+        upd, jstate = dense.update(jax.tree.map(jnp.asarray, grads), jstate, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        opt.update({k: torch.from_numpy(v) for k, v in _flat(grads).items()}, state, params, ids)
+    for name, want in _flat(jax.tree.map(np.asarray, jparams)).items():
+        np.testing.assert_allclose(params[name].numpy(), want, rtol=2e-6, atol=2e-7, err_msg=name)
+
+
+def test_masked_and_gather_scatter_paths_agree(monkeypatch):
+    """Partly touched tables, two steps: the masked-dense and the
+    gather/scatter paths give the same params and moments (the port of
+    tests/test_sparse_opt.py's test for poi_tpu)."""
+    rng = np.random.default_rng(3)
+    Vm = 64
+    tree = {"embed": {"poi": rng.normal(size=(Vm, D)).astype(np.float32),
+                      "out_bias": rng.normal(size=Vm).astype(np.float32)},
+            "tower": {"w": rng.normal(size=(D, D)).astype(np.float32)}}
+    grads = jax.tree.map(lambda a: rng.normal(size=a.shape).astype(np.float32), tree)
+    touched = np.sort(rng.choice(Vm, 17, replace=False))
+    cold = np.setdiff1d(np.arange(Vm), touched)
+    grads["embed"]["poi"][cold] = 0.0
+    grads["embed"]["out_bias"][cold] = 0.0
+    ids = {"poi": torch.from_numpy(np.concatenate([touched, touched[:5]]))}
+    opt = sparse_opt.SparseTableOptimizer(_cfg())
+    outs = []
+    for threshold in (10**9, 0):
+        monkeypatch.setattr(sparse_opt, "DENSE_LAZY_MAX_BYTES", threshold)
+        params = {k: torch.from_numpy(v.copy()) for k, v in _flat(tree).items()}
+        state = opt.init(params)
+        g = {k: torch.from_numpy(v) for k, v in _flat(grads).items()}
+        norms = [opt.update(g, state, params, ids) for _ in range(2)]
+        outs.append((params, state["m"], state["v"], norms))
+    for which in range(3):
+        for name, want in outs[0][which].items():
+            torch.testing.assert_close(outs[1][which][name], want, rtol=1e-6, atol=1e-7, msg=name)
+    torch.testing.assert_close(torch.stack(outs[1][3]), torch.stack(outs[0][3]), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("clip", [1.0, 0.0], ids=["clip_engaged", "no_clip"])
+def test_row_grads_update_matches_poi_tpu(clip, monkeypatch):
+    """The rows-gradient form: the tables' gradients as one row per id
+    occurrence (``row_grads``), the user table dense at its touched ids, on
+    the gather/scatter path in both packages; three updates of params and
+    both moments against update_apply's."""
+    monkeypatch.setattr(sparse_opt, "DENSE_LAZY_MAX_BYTES", 0)
+    monkeypatch.setattr(jax_sparse, "DENSE_LAZY_MAX_BYTES", 0)
+    rng = np.random.default_rng(6)
+    tree = _tree(rng)
+    tree["embed"]["user"] = rng.normal(size=(9, D)).astype(np.float32)
+    jopt = jax_sparse.SparseTableOptimizer(_jax(_cfg(clip)))
+    jparams = jax.tree.map(jnp.asarray, tree)
+    jstate = jopt.init(jparams)
+    opt = sparse_opt.SparseTableOptimizer(_cfg(clip))
+    params = {k: torch.from_numpy(v.copy()) for k, v in _flat(tree).items()}
+    state = opt.init(params)
+    seen = set()
+    for _ in range(3):
+        occ = rng.integers(0, V, 50).astype(np.int32)  # duplicates: summed per unique id
+        rows, brows = rng.normal(size=(50, D)).astype(np.float32), rng.normal(size=50).astype(np.float32)
+        users = rng.integers(0, 6, 4).astype(np.int32)  # users 6-8 never touched
+        seen.update(occ.tolist())
+        g = jax.tree.map(lambda a: rng.normal(size=a.shape).astype(np.float32), tree)
+        g["embed"]["user"][np.setdiff1d(np.arange(9), users)] = 0.0
+        jg = jax.tree.map(jnp.asarray, g)
+        # Placeholders, as poi_tpu's rows step passes them.
+        jg["embed"]["poi"], jg["embed"]["out_bias"] = jnp.zeros(()), jnp.zeros(())
+        jparams, jstate, jnorm = jopt.update_apply(
+            jg, jstate, jparams, {"user": jnp.asarray(users)},
+            row_grads={"poi": (jnp.asarray(occ), jnp.asarray(rows)),
+                       "out_bias": (jnp.asarray(occ), jnp.asarray(brows))})
+        tg = {k: torch.from_numpy(v) for k, v in _flat(g).items() if k not in ("embed.poi", "embed.out_bias")}
+        t_occ = torch.from_numpy(occ).long()
+        norm = opt.update(tg, state, params, {"user": torch.from_numpy(users).long()},
+                          row_grads={"poi": (t_occ, torch.from_numpy(rows)),
+                                     "out_bias": (t_occ, torch.from_numpy(brows))})
+        assert float(norm) == pytest.approx(float(jnorm), rel=REL_TOL)
+    for name, want in _flat(jax.tree.map(np.asarray, jparams)).items():
+        np.testing.assert_allclose(params[name].numpy(), want, atol=REL_TOL * np.abs(want).max(), rtol=0,
+                                   err_msg=name)
+    got_state = sparse_adam_state_to_numpy(state)
+    for which in ("m", "v"):
+        for name, want in _flat(jax.tree.map(np.asarray, getattr(jstate, which))).items():
+            np.testing.assert_allclose(_flat(got_state[which])[name], want,
+                                       atol=REL_TOL * (np.abs(want).max() + 1e-30), rtol=0,
+                                       err_msg=f"{which} {name}")
+    cold = np.setdiff1d(np.arange(V), sorted(seen))  # lazy Adam: never-touched rows keep their bits
+    assert cold.size and np.array_equal(params["embed.poi"].numpy()[cold], tree["embed"]["poi"][cold])
+    assert np.array_equal(params["embed.user"].numpy()[6:], tree["embed"]["user"][6:])
+
+
+@pytest.mark.parametrize("num_rows, skew", [(40, False), (6, False), (300, True)],
+                         ids=["table", "few_rows", "one_id_holds_half"])
+def test_lookup_gradient_matches_jax_take(num_rows, skew):
+    """The embedding lookup's fixed-order backward (``ops.segment``: sorted
+    ids, each id's rows summed in runs, then the runs) against ``jax.grad``
+    of ``jnp.take``: the same row sums, within fp32 summation order. Half
+    the ids one id, as a batch's padded positions make them, and a table of
+    fewer rows than ids."""
+    from poi_tpu_torch.models.base import lookup
+
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, num_rows, (9, 13))
+    if skew:
+        ids.reshape(-1)[: ids.size // 2] = 0
+    table = rng.normal(size=(num_rows, D)).astype(np.float32)
+    g = rng.normal(size=(9, 13, D)).astype(np.float32)
+    want = jax.grad(lambda t: jnp.sum(jnp.take(t, jnp.asarray(ids), axis=0) * jnp.asarray(g)))(jnp.asarray(table))
+    t = torch.from_numpy(table).requires_grad_()
+    lookup(t, torch.from_numpy(ids)).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    again = torch.from_numpy(table).requires_grad_()
+    lookup(again, torch.from_numpy(ids)).backward(torch.from_numpy(g))
+    assert torch.equal(again.grad, t.grad)

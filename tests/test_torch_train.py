@@ -310,9 +310,12 @@ def test_fault_injection_raises_at_the_step_and_resume_continues(smoke_ds, sampl
 
 
 @pytest.mark.parametrize("overrides, match", [
-    # Lazy Adam on a tied table above 512 MiB (410 POIs x 400,000 x 4 bytes)
-    # takes poi_tpu's rows-gradient step; raised before any table is built.
-    ({"train.table_update": "sparse", "loss.kind": "sampled_softmax", "model.embed_dim": 400_000}, "sparse"),
+    # Lazy Adam on a vocab-sharded tied table above 512 MiB (410 POIs x
+    # 400,000 x 4 bytes): the rows-gradient step runs on one device, its
+    # sharded form waits for the multi-GPU layer; raised before any table is
+    # built.
+    ({"train.table_update": "sparse", "loss.kind": "sampled_softmax", "model.embed_dim": 400_000, "mesh.model": 2},
+     "sparse"),
     ({"mesh.model": 2}, "mesh.model"),
 ])
 def test_trainer_rejects_what_is_not_ported(smoke_ds, overrides, match):

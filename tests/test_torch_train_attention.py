@@ -163,10 +163,16 @@ def test_dropout_draws_are_keyed_by_step(ds):
 
 
 def test_trainer_rejects_the_rows_gradient_step(ds):
+    """The rows-gradient step (a tied table above DENSE_LAZY_MAX_BYTES) is
+    ported: the Trainer takes it on one device, and rejects only its
+    vocab-sharded form (mesh.model > 1), which waits for the multi-GPU
+    layer. The 2 GB table is built on the meta device."""
     big = DataDims(num_users=1, num_pois=1_000_000, num_time_buckets=1, num_geo_buckets=1, num_tgap_buckets=1,
                    num_dist_buckets=1)
-    with pytest.raises(NotImplementedError, match="A11"):
-        Trainer(_cfg(**{"model.embed_dim": 512, "model.hidden_dim": 512}), big, device="cpu")
+    wide = {"model.embed_dim": 512, "model.hidden_dim": 512}
+    assert Trainer(_cfg(**wide), big, device="meta").rows_mode
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        Trainer(_cfg(**wide, **{"mesh.model": 4}), big, device="meta")
 
 
 def test_recommender_rescores_rows_beyond_the_kernels_fetch(ds):
