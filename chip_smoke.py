@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port: serving config #1, training,
-configs #2 to #5, and the measurement scripts.
+configs #2 to #5, the multi-GPU layer on the one card, and the measurement
+scripts.
 
     python3 chip_smoke.py          # from the repository root, on a machine with one CUDA card
 
@@ -33,6 +34,15 @@ with its plain PyTorch version on the card. Then it drives the paths:
   paths, ``evaluate()`` on val, the rows step against the dense-gradient
   step and its bits run to run, ``Recommender`` at request batch 1 and 256
   on both paths, and ``python -m poi_tpu_torch train``;
+- the multi-GPU layer on this card (the ``mesh`` phase): 4 ranks, processes
+  that share the card over gloo, train config #5 on its preset's 1 x 4 mesh
+  (a2a lookups) and the bench workload on 2 x 2 (psum lookups, the sharded
+  CE) through ``train()`` and ``evaluate()``, each held to its one-rank run
+  (losses, config #5's table after step 1, the top-k at the init); config
+  #5 at the preset's own a2a capacity, its drops counted; B1, B2, B9, B10
+  and B11 launched on every rank and rank 0's calls held to their plain
+  versions; NCCL at world size 1 against gloo. A correctness and cost rig:
+  no scaling figure;
 - checkpoint and resume: ``python -m poi_tpu_torch train`` on configs #1
   and #4 uninterrupted (twice) and stopped by ``train.fault_inject_step``
   then resumed, the final steps compared tensor by tensor; ``eval``,
@@ -2495,6 +2505,446 @@ def ab_main(other: str) -> int:
     return 0
 
 
+# ----------------------------------------------------------------- mesh
+# The multi-GPU layer on this one card: MESH_WORLD ranks, each a process
+# (``parallel.launch.spawn``), all on cuda:0, over gloo: NCCL refuses two
+# ranks on one device. The kernels run on the card inside the sharded path
+# on every rank, and gloo carries the collectives through host memory. A
+# correctness and cost rig of ranks that share one card; it measures no
+# scaling.
+MESH_WORLD = 4
+MESH_TIMEOUT = 600
+# Config #5 on its preset's mesh (data=-1, model=4, a2a): C5_SETS without
+# the one-card mesh. Held to one rank with the a2a capacity factor at M,
+# where a bucket holds a whole chunk and no id can drop; then the preset's
+# own factor, whose drops the overflow metric counts.
+MESH_C5_SETS = {k: v for k, v in C5_SETS.items() if not k.startswith("mesh.")}
+MESH_EXACT = {"mesh.a2a_capacity_factor": str(float(MESH_WORLD))}
+MESH_C5_STEPS = 5
+# The bench workload on 2 x 2: psum lookups, the sharded CE, dense Adam with the clip.
+MESH_BENCH_SETS = {**BENCH_OVERRIDES, "mesh.data": "2", "mesh.model": "2", "mesh.embedding_mode": "psum"}
+MESH_BENCH_STEPS = 10
+MESH_TOPK_ROWS = 512  # the val (test) rows whose top-k scores and ids the mesh and one rank compare
+# The jobs whose table after step 1 is held entry by entry to the one-rank
+# run's. Not the bench: one card takes the fused CE (B8's fp32 table
+# gradient), 2 x 2 the sharded CE, whose table cotangent is rounded to bf16
+# (as the reference's is); a row that is no target has a CE gradient that is
+# a cancelling sum near Adam's eps, where the first step turns its last bits
+# into up to lr (1% of the entries, 1.26e-3 at most, in my first run).
+MESH_TABLE_JOBS = ("c5",)
+# job -> (config, sets, steps, split, the sets of a second run in the same
+# processes on the same corpus, or None): config #5 at the preset's own a2a
+# capacity follows its exact run.
+MESH_JOBS = {"c5": (C5_CONFIG, {**MESH_C5_SETS, **MESH_EXACT}, MESH_C5_STEPS, "val", MESH_C5_SETS),
+             "bench": ("smoke", MESH_BENCH_SETS, MESH_BENCH_STEPS, "test", None)}
+
+
+# The rank body that mesh_run spawns (module:function).
+MESH_CHILD = "chip_smoke:mesh_child"
+
+
+def mesh_cfg(name: str, sets: dict, one_rank: bool = False):
+    """A mesh job's config (log every step), or its one-rank run's."""
+    from poi_tpu_torch.configs.presets import get_config
+
+    cfg = get_config(name).with_overrides({**sets, "train.log_every": "1"})
+    return cfg.with_overrides({"mesh.data": "1", "mesh.model": "1"}) if one_rank else cfg
+
+
+def split_topk(model, ds, cfg, split: str, mesh=None):
+    """(vals, catalog ids) [MESH_TOPK_ROWS, k] of the first rows of
+    ``split``: the one-card top-k (B11 over the popularity-ordered catalog)
+    or, on a mesh, the sharded one (B11 on each shard, the k·M merge), each
+    data rank its rows, gathered."""
+    import numpy as np
+    import torch
+
+    from poi_tpu_torch.data.pipeline import Batch, eval_batches
+    from poi_tpu_torch.eval.evaluate import prepare_catalog
+    from poi_tpu_torch.models.base import batch_to
+    from poi_tpu_torch.ops.topk import fused_topk, sharded_topk
+    from poi_tpu_torch.parallel import collectives as cc
+    from poi_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+
+    k = max(cfg.eval.recall_ks)
+    prep = prepare_catalog(model, cfg, ds.poi_counts, mesh)
+    examples = getattr(ds, split).take(np.arange(MESH_TOPK_ROWS))
+    batch, _, _ = next(eval_batches(examples, MESH_TOPK_ROWS))
+    n_data = mesh.shape[DATA_AXIS] if mesh is not None else 1
+    rows = mesh.rows(MESH_TOPK_ROWS, DATA_AXIS) if n_data > 1 else slice(None)
+    with torch.inference_mode():
+        ql = model.queries_last(batch_to(Batch(*(a[rows] for a in batch)), model.device))
+        if mesh is not None and mesh.shape[MODEL_AXIS] > 1:
+            vals, ids = sharded_topk(ql, prep.table, prep.bias, k, mesh, fused_topk)
+        else:
+            vals, ids = fused_topk(ql, prep.table, prep.bias, k)
+        if n_data > 1:
+            vals, ids = (cc.all_gather(t, mesh, DATA_AXIS) for t in (vals, ids))
+    ids = ids.cpu().numpy()
+    return vals.cpu(), torch.from_numpy(prep.id_map[ids] if prep.id_map is not None else ids).long()
+
+
+def mesh_reference(job: str, ds, work: Path) -> dict:
+    """The one-rank run a mesh job is held to: ``make_trainer`` on this
+    card from the seed's init, the top-k of the split's first rows at that
+    init, the same device-sampled batches and pools, ``steps`` steps
+    through ``train()`` (the table after step 1 saved for the ranks) and
+    ``evaluate()``."""
+    import numpy as np
+    import torch
+
+    from poi_tpu_torch.eval.evaluate import evaluate
+    from poi_tpu_torch.train.loop import make_trainer, train
+
+    name, sets, steps, split, _ = MESH_JOBS[job]
+    cfg = mesh_cfg(name, sets, one_rank=True)
+    trainer = make_trainer(cfg, ds, DEV)
+    state = trainer.init_state()
+    vals, ids = split_topk(trainer.model, ds, cfg, split)
+    _, state, hist = train(cfg, ds, num_steps=1, trainer=trainer, state=state)
+    if job in MESH_TABLE_JOBS:
+        np.save(work / f"{job}_table1.npy", state.params["embed.poi"].detach().cpu().numpy())
+    _, state, more = train(cfg, ds, num_steps=steps - 1, trainer=trainer, state=state)
+    out = {"losses": [r["loss"] for r in hist + more], "vals": vals, "ids": ids,
+           "metrics": evaluate(trainer.model, ds, cfg, split)}
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_steps(trainer, state, cfg, ds, steps: int, table1: Path | None = None) -> tuple:
+    """``steps`` device-sampled steps through ``train()``, timed one by one:
+    the losses, step ms, ``a2a_overflow`` by step and the peak memory;
+    given ``table1`` (the one-rank POI table after step 1, ``.npy``), this
+    rank's rows against it after step 1."""
+    import numpy as np
+    import torch
+
+    from poi_tpu_torch.parallel.mesh import MODEL_AXIS
+    from poi_tpu_torch.train.loop import train
+
+    torch.cuda.reset_peak_memory_stats()
+    res = {"losses": [], "step_ms": [], "overflow": []}
+    for s in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, hist = train(cfg, ds, num_steps=1, trainer=trainer, state=state)
+        torch.cuda.synchronize()
+        res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        res["losses"].append(hist[-1]["loss"])
+        res["overflow"].append(hist[-1].get("a2a_overflow"))
+        if s == 0 and table1 is not None and table1.exists():
+            # This rank's rows of the one-rank table (its padded rows have none).
+            ref = np.load(table1, mmap_mode="r")
+            rows = trainer.model.embed["poi"].shape[0]
+            lo = trainer.mesh.index[MODEL_AXIS] * rows
+            mine = trainer.model.embed["poi"].detach()[:max(0, min(ref.shape[0] - lo, rows))]
+            want = torch.from_numpy(np.ascontiguousarray(ref[lo:lo + mine.shape[0]])).to(mine.device)
+            d = (mine - want).abs()
+            res.update(table1_max_abs=float(d.max()), table1_off=int((d > 2e-6 + 2e-5 * want.abs()).sum()),
+                       table1_n=int(d.numel()))
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if trainer.a2a:  # the a2a lookup of step 0's inputs alone, every rank in step
+        batch = trainer.sampler.sample(0)
+        table = trainer.model.embed["poi"].detach()
+
+        def lookup():
+            trainer.model.poi_lookup(table, batch.poi_in)
+            torch.cuda.synchronize()
+
+        with torch.no_grad():
+            res["a2a_lookup_ms"] = host_ms(lookup, iters=10, warmup=2)
+    return state, res
+
+
+def mesh_child(job: str, out: str, config: str, sets: dict, steps: int, split: str, device: str,
+               then: dict | None = None) -> None:
+    """One rank of a mesh job (``spawn`` runs it ``MESH_WORLD`` times):
+    the top-k of the split's first rows at the init; ``mesh_steps`` on the
+    job's mesh; the launches; ``evaluate()``. Rank 0 also holds the B9,
+    B10 and B11 calls it made (the first of each, at the path's shapes)
+    against their plain versions. ``then``: the sets of a second run from
+    the init on the same corpus (``mesh_steps`` only, under ``"then"``).
+    Writes ``out/rank<r>.json`` (rank 0 also the top-k as ``topk.pt``). The
+    job comes as arguments, ``device`` too (``cuda`` on the card)."""
+    global DEV
+    DEV = device
+    os.environ.setdefault("POI_TPU_TORCH_DATA_CACHE", "off")
+    import torch
+    import torch.distributed as dist
+
+    from poi_tpu_torch.data.dataset import load_dataset
+    from poi_tpu_torch.eval import evaluate as evaluate_mod
+    from poi_tpu_torch.ops import fused_sampled
+    from poi_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, init_distributed
+    from poi_tpu_torch.train.loop import make_trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("gloo")
+    rank = dist.get_rank()
+    cfg = mesh_cfg(config, sets)
+    ds = load_dataset(cfg.data)
+    work = Path(out)
+    # The first call of each kernel on this path, its arguments kept (rank
+    # 0). The wrapper stands in for the kernel's wrapper under its module
+    # name, which the kernel's wrapper counts its launches on.
+    calls: dict = {}
+    sites = {"sampled_lse": fused_sampled, "sampled_bwd": fused_sampled, "topk": evaluate_mod}
+    real = {"sampled_lse": fused_sampled.sampled_lse, "sampled_bwd": fused_sampled.sampled_bwd,
+            "topk": evaluate_mod.fused_topk}
+
+    def keep(*names):
+        for name in names:
+            def wrapped(*args, name=name):
+                if rank == 0 and name not in calls:
+                    calls[name] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+                return real[name](*args)
+            wrapped.launches = wrapped.start = real[name].launches
+            setattr(sites[name], "fused_topk" if name == "topk" else name, wrapped)
+
+    def unkeep(*names):
+        for name in names:
+            attr = "fused_topk" if name == "topk" else name
+            wrapped = getattr(sites[name], attr)
+            real[name].launches += wrapped.launches - wrapped.start
+            setattr(sites[name], attr, real[name])
+
+    trainer = make_trainer(cfg, ds, DEV)
+    mesh = trainer.mesh
+    state = trainer.init_state()
+    reset_launches()
+    vals, ids = split_topk(trainer.model, ds, cfg, split, mesh)
+    topk_launches = read_launches()["topk"]
+    reset_launches()
+    keep("sampled_lse", "sampled_bwd")
+    state, res = mesh_steps(trainer, state, cfg, ds, steps, work / f"{job}_table1.npy")
+    unkeep("sampled_lse", "sampled_bwd")
+    res.update(rank=rank, mesh=[mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]], launches=read_launches(),
+               topk_launches=topk_launches)
+    reset_launches()
+    keep("topk")
+    res["metrics"] = evaluate_mod.evaluate(trainer.model, ds, cfg, split, mesh=mesh)
+    unkeep("topk")
+    res["eval_launches"] = read_launches()
+    if rank == 0:
+        res["kernels"] = mesh_kernel_checks(calls)
+        torch.save({"vals": vals, "ids": ids}, work / f"{job}_topk.pt")
+    if then is not None:
+        del trainer, state
+        torch.cuda.empty_cache()
+        cfg = mesh_cfg(config, then)
+        trainer = make_trainer(cfg, ds, DEV)
+        res["then"] = mesh_steps(trainer, trainer.init_state(), cfg, ds, steps)[1]
+    (work / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()  # every rank is done before any exits
+    dist.destroy_process_group()
+
+
+def mesh_kernel_checks(calls: dict) -> dict:
+    """B9, B10 and B11 on the arguments the sharded path gave them (rank
+    0's first call of each) against their plain versions, at the earlier
+    phases' tolerances; the shapes, the errors and the kernels' times."""
+    import torch
+
+    from poi_tpu_torch.ops.fused_sampled import (sampled_bwd, sampled_bwd_reference, sampled_lse,
+                                                 sampled_lse_reference)
+    from poi_tpu_torch.ops.topk import fused_topk, topk_reference
+
+    out = {}
+    if "sampled_lse" in calls:
+        args = calls["sampled_lse"]
+        got, want = sampled_lse(*args), sampled_lse_reference(*args)
+        err = float((got - want).abs().max())
+        assert err < CE_LSE_TOL, f"mesh: sampled_lse on rank 0's rows: max |kernel - plain| {err}"
+        (N, D), S = args[0].shape, args[1].shape[0]
+        out["sampled_lse"] = {"shape": [list(a.shape) for a in args[:2]], "max_abs_err": err,
+                              "ms": time_ms(lambda: sampled_lse(*args)),
+                              "plain_ms": time_ms(lambda: sampled_lse_reference(*args)),
+                              **bound(args, (got,), bf16_flop=2 * N * S * D)}
+    if "sampled_bwd" in calls:
+        args = calls["sampled_bwd"]
+        got, want = sampled_bwd(*args), sampled_bwd_reference(*args)
+        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        assert errs[0] < CE_GRAD_TOL and errs[1] < CE_GRAD_TOL and errs[2] < CE_DBIAS_TOL, \
+            f"mesh: sampled_bwd on rank 0's rows: rel err dq/de/db {errs}"
+        (N, D), S = args[0].shape, args[1].shape[0]
+        out["sampled_bwd"] = {"shape": [list(a.shape) for a in args[:2]], "rel_err": errs,
+                              "max_abs_err": max(float((a - w).abs().max()) for a, w in zip(got, want)),
+                              "ms": time_ms(lambda: sampled_bwd(*args)),
+                              "plain_ms": time_ms(lambda: sampled_bwd_reference(*args)),
+                              **bound(args, got, bf16_flop=6 * N * S * D)}
+    if "topk" in calls:
+        q, table, bias, k = calls["topk"]
+        vals, ids = fused_topk(q, table, bias, k)
+        want_v, want_i = topk_reference(q, table, bias, k)
+        err = float((vals - want_v).abs().max())
+        near = (vals - want_v).abs() < TOPK_TOL
+        assert err < TOPK_TOL and bool(((ids == want_i) | near).all()), f"mesh: top-k on rank 0's shard: {err}"
+        (B, D), V = q.shape, table.shape[0]
+        logits = lambda: torch.nn.functional.linear(q.to(torch.bfloat16), table).float() + bias  # noqa: E731
+        out["topk"] = {"shape": [list(q.shape), list(table.shape)], "k": k, "max_abs_err": err,
+                       "ms": time_ms(lambda: fused_topk(q, table, bias, k)),
+                       "plain_ms": time_ms(lambda: topk_reference(q, table, bias, k)),
+                       "library_ms": time_ms(lambda: torch.topk(logits(), k)),
+                       **bound((q, table, bias), (vals, ids), bf16_flop=2 * B * V * D)}
+    return out
+
+
+def mesh_nccl_child(out: str) -> None:
+    """World size 1 over ``nccl`` on the card: each op of
+    ``parallel/collectives.py`` once, forward and backward, on a one-rank
+    mesh whose axis groups are the NCCL world and then a gloo group of the
+    same rank; the two must agree."""
+    import torch
+    import torch.distributed as dist
+
+    from poi_tpu_torch.parallel import collectives as cc
+    from poi_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, init_distributed
+
+    init_distributed("nccl")
+    gloo = dist.new_group([0], backend="gloo")
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    x = torch.randn(4, 8, 16, generator=gen, device=DEV)
+    g = torch.randn(4, 8, 16, generator=gen, device=DEV)
+    ops = {"psum": lambda t, m: cc.psum(t, m, MODEL_AXIS), "grad_psum": lambda t, m: cc.grad_psum(t, m, MODEL_AXIS),
+           "pmax": lambda t, m: cc.pmax(t, m, MODEL_AXIS) + t, "all_gather": lambda t, m: cc.all_gather(t, m, MODEL_AXIS, 1),
+           "all_to_all": lambda t, m: cc.all_to_all(t, m, MODEL_AXIS),
+           "all_reduce_": lambda t, m: t * cc.all_reduce_(t.detach().sum().clone(), m, DATA_AXIS)}
+    results = {}
+    for backend, group in (("nccl", dist.group.WORLD), ("gloo", gloo)):
+        mesh = Mesh(world_size=1)
+        mesh.groups = {DATA_AXIS: group, MODEL_AXIS: group}
+        for name, op in ops.items():
+            t = x.clone().requires_grad_()
+            y = op(t, mesh)
+            y.backward(g)
+            torch.cuda.synchronize()
+            results[(backend, name)] = (y.detach(), t.grad)
+    same = {name: all(torch.equal(a, b) for a, b in zip(results[("nccl", name)], results[("gloo", name)]))
+            for name in ops}
+    Path(out, "nccl.json").write_text(json.dumps({"same": same}))
+    dist.destroy_process_group()
+
+
+def mesh_run(job: str, work: Path) -> list[dict]:
+    """Spawn the job's ranks and read their results."""
+    from poi_tpu_torch.parallel.launch import spawn
+
+    for f in work.glob("rank*.json"):
+        f.unlink()
+    name, sets, steps, split, then = MESH_JOBS[job]
+    spawn(MESH_CHILD, MESH_WORLD, {"job": job, "out": str(work), "config": name, "sets": sets, "steps": steps,
+                                   "split": split, "device": DEV, "then": then},
+          timeout=MESH_TIMEOUT, cwd=str(REPO), env={"POI_TPU_TORCH_DATA_CACHE": "off", "OMP_NUM_THREADS": "2"},
+          log_dir=str(work))
+    return [json.loads((work / f"rank{r}.json").read_text()) for r in range(MESH_WORLD)]
+
+
+def mesh_line(job: str, ranks: list[dict], gpu: str, mesh: list) -> None:
+    r0 = ranks[0]
+    d, m = mesh
+    a2a = ""
+    if "a2a_lookup_ms" in r0:
+        a2a = (f"; a2a lookup {statistics.median(r['a2a_lookup_ms'] for r in ranks):.3f} ms (median over ranks of "
+               f"each one's median), a2a_overflow by step {r0['overflow']}")
+    log(f"[mesh] {job}: mesh {d} x {m}, backend gloo, {MESH_WORLD} ranks share one card (cuda:0); step ms (median of "
+        f"{len(r0['step_ms'])} steps) by rank "
+        + ", ".join(f"{statistics.median(r['step_ms']):.1f}" for r in ranks)
+        + "; peak GiB by rank " + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks) + a2a
+        + "; staged through the host by this code: none (gloo took every op on CUDA tensors); "
+        + f"card: {gpu}. A rig of ranks sharing one card: no scaling figure")
+
+
+def mesh_phase(state, gpu: str) -> dict:
+    """(a) config #5 on its preset's mesh (1 x 4, a2a) and (b) the bench
+    workload on 2 x 2 (psum, sharded CE), each held to its one-rank run:
+    losses at step 1 within ``LOSS_TOL_FIRST`` and after within
+    ``LOSS_TOL_LAST``, config #5's table after step 1, the top-k scores
+    equal and the ids equal but among equal scores; config #5 at the
+    preset's own a2a capacity, its drops counted; (c) B1, B2, B9, B10 and
+    B11 launched on every rank, and on rank 0 held against their plain
+    versions; (d) NCCL at world size 1 against gloo."""
+    import torch
+
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.data.dataset import load_dataset
+    from poi_tpu_torch.parallel.launch import spawn
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="mesh_") as tmp:
+        work = Path(tmp)
+        torch.cuda.empty_cache()
+        for job in ("c5", "bench"):
+            ds = state["c5"]["ds"] if job == "c5" else load_dataset(mesh_cfg(*MESH_JOBS[job][:2]).data)
+            ref = mesh_reference(job, ds, work)
+            t0 = time.perf_counter()
+            ranks = mesh_run(job, work)
+            wall = time.perf_counter() - t0
+            r0 = ranks[0]
+            assert all(r["losses"] == r0["losses"] for r in ranks), f"mesh {job}: ranks disagree on the loss"
+            got, want = torch.tensor(r0["losses"], dtype=torch.float64), torch.tensor(ref["losses"], dtype=torch.float64)
+            rel = (got - want).abs() / want.abs()
+            log(f"[mesh] {job}: losses by step, mesh / one rank: "
+                + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in zip(got.tolist(), want.tolist()))
+                + f"; rel diff {[f'{v:.1e}' for v in rel.tolist()]} (tol {LOSS_TOL_FIRST} at step 1, {LOSS_TOL_LAST} "
+                f"after); {wall:.1f} s for the ranks' processes")
+            assert float(rel[0]) < LOSS_TOL_FIRST and float(rel.max()) < LOSS_TOL_LAST, f"mesh {job}: {rel.tolist()}"
+            if "table1_max_abs" in r0:
+                off = sum(r["table1_off"] for r in ranks)
+                n = sum(r["table1_n"] for r in ranks)
+                worst = max(r["table1_max_abs"] for r in ranks)
+                log(f"[mesh] {job}: POI table after step 1, each rank's rows against the one-rank table: max |diff| "
+                    f"{worst:.3e}, {off} of {n} entries past 2e-6 + 2e-5 relative (the rows step's tolerance)")
+                assert off == 0, f"mesh {job}: table after step 1, {off} entries off, max |diff| {worst}"
+            topk = torch.load(work / f"{job}_topk.pt")
+            eq_v = bool(torch.equal(topk["vals"], ref["vals"]))
+            tied = ref["vals"][:, :, None] == ref["vals"][:, None, :]
+            same_ids = (topk["ids"] == ref["ids"]) | (tied.sum(-1) > 1)
+            log(f"[mesh] {job}: top-{topk['ids'].shape[1]} of {MESH_TOPK_ROWS} rows at the init, sharded B11 vs one-card B11: "
+                f"scores equal {eq_v} (max |diff| {float((topk['vals'] - ref['vals']).abs().max()):.3e}), ids equal "
+                f"{int((topk['ids'] == ref['ids']).sum())}/{topk['ids'].numel()}, the rest among equal scores "
+                f"{bool(same_ids.all())}")
+            assert eq_v and bool(same_ids.all()), f"mesh {job}: the sharded top-k differs from the one-card top-k"
+            for r in ranks:
+                for name in ("gru_fwd", "gru_bwd", *(("sampled_lse", "sampled_bwd") if job == "c5" else ())):
+                    assert r["launches"][name] > 0, f"mesh {job} rank {r['rank']}: {name} not launched: {r['launches']}"
+                assert r["eval_launches"]["topk"] > 0, f"mesh {job} rank {r['rank']}: no B11 launch in eval"
+            km = {k: r0["metrics"][k] for k in ("recall@10", "ndcg@10")}
+            log(f"[mesh] {job}: evaluate on {MESH_JOBS[job][3]} ({int(r0['metrics']['eval_examples'])} rows): mesh "
+                f"recall@10 {km['recall@10']:.4f} ndcg@10 {km['ndcg@10']:.4f}; one rank recall@10 "
+                f"{ref['metrics']['recall@10']:.4f} ndcg@10 {ref['metrics']['ndcg@10']:.4f}; launches by rank (train) "
+                + "; ".join(str({k: v for k, v in r["launches"].items() if v}) for r in ranks)
+                + "; B11 in eval by rank " + str([r["eval_launches"]["topk"] for r in ranks]))
+            for name, t in r0.get("kernels", {}).items():
+                log(f"[mesh] {job}: rank 0's {name} at {t['shape']}: max |kernel - plain| {t['max_abs_err']:.3e}, "
+                    f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                    f"({t['bound_pipe']})" + (f", torch.topk over the logits {t['library_ms']:.4f} ms"
+                                              if "library_ms" in t else ""))
+            mesh_line(job, ranks, gpu, r0["mesh"])
+            out[job] = ranks
+            (work / f"{job}_table1.npy").unlink(missing_ok=True)
+            torch.cuda.empty_cache()
+
+        # Config #5 at the preset's own a2a capacity, run next in the same
+        # ranks: its drops, counted.
+        then = [r["then"] for r in out["c5"]]
+        log(f"[mesh] c5_preset: mesh.a2a_capacity_factor={get_config(C5_CONFIG).mesh.a2a_capacity_factor} (the "
+            f"preset's): a2a_overflow by step {then[0]['overflow']}, losses "
+            f"{[round(v, 6) for v in then[0]['losses']]} (at capacity factor M, no drops: "
+            f"{[round(v, 6) for v in out['c5'][0]['losses']]})")
+        assert all(math.isfinite(v) for v in then[0]["losses"]), then[0]["losses"]
+        mesh_line("c5_preset", then, gpu, out["c5"][0]["mesh"])
+
+        # (d) NCCL at world size 1.
+        spawn("chip_smoke:mesh_nccl_child", 1, {"out": tmp}, timeout=300, cwd=str(REPO), log_dir=tmp)
+        nccl = json.loads((work / "nccl.json").read_text())
+        log(f"[mesh] nccl: world size 1 on the card, each op of parallel/collectives.py forward and backward, NCCL "
+            f"against gloo: {nccl['same']}; card: {gpu}")
+        assert all(nccl["same"].values()), nccl
+    return out
+
+
 def record(name: str, source: str, replaces: str, launches: int, max_abs_err: float, t: dict, **extra) -> dict:
     """One kernel's entry in the JSON line: its launches on the main path,
     its parity and its times at the main path's shape, with the bound."""
@@ -2543,6 +2993,7 @@ def main() -> int:
     phase("lstm_config", recurrent_config_phase, state, "lstm")
     phase("strnn_config", recurrent_config_phase, state, "strnn")
     phase("config5", config5_phase, state, gpu)
+    mesh = phase("mesh", mesh_phase, state, gpu)
     phase("cli_train", cli_train_phase, state)
     phase("checkpoint", checkpoint_phase, gpu)
     times = phase("timing", timing_phase, state, gpu)
@@ -2553,8 +3004,9 @@ def main() -> int:
     phase("ce_variants_device", ce_variants_device_phase, variants, gpu)
     phase("config5_timing", config5_timing_phase, state, gpu)
     phase("scripts", scripts_phase, state)
-    kept = dict(sorted(_timing.HEAD_SPINS_SEEN.items()))
-    log(f"[profiler] records by the head spins each kept (of {_timing.HEAD_SPINS}): {kept}")
+    kept = dict(sorted(_timing.SPINS_SEEN.items()))
+    log(f"[profiler] records by the spins each kept (of {_timing.HEAD_SPINS} at the head and {_timing.TAIL_SPINS} "
+        f"at the tail): {kept}")
     assert any(kept.keys() - {0}), f"no profiler record kept a kernel named like {_timing.SPIN_KERNEL!r}: {kept}"
     loaded = sorted(m for m in sys.modules if m in ("jax", "poi_tpu") or m.startswith(("jax.", "poi_tpu.")))
     assert not loaded, f"JAX or the JAX package was imported: {loaded}"
@@ -2639,6 +3091,21 @@ def main() -> int:
                                                   "plain_ms", "max_abs_err", "bound_ms", "bound_pipe")},
                              "launches": swept[k]} for k, t in variants.items()}),
     ]
+    # The mesh phase (ranks sharing this card): launches by rank on config
+    # #5's 1 x 4 run and the bench workload's 2 x 2 run, and rank 0's parity
+    # and times of B9, B10 (its data rows) and B11 (its shard) at the
+    # shapes the sharded path gave them.
+    def by_rank(job, name, key="launches"):
+        return [r[key][name] for r in mesh[job]]
+
+    checked = mesh["c5"][0].get("kernels", {})
+    for rec in kernels:
+        name = rec["name"]
+        if name in ("gru_fwd", "gru_bwd"):
+            rec["mesh"] = {"c5_launches_by_rank": by_rank("c5", name), "bench_launches_by_rank": by_rank("bench", name)}
+        elif name in ("sampled_lse", "sampled_bwd", "topk"):
+            rec["mesh"] = {"c5_launches_by_rank": by_rank("c5", name, "eval_launches" if name == "topk" else
+                                                          "launches"), **checked.get(name, {})}
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

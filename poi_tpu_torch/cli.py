@@ -6,6 +6,15 @@
     python -m poi_tpu_torch serve     --config gru_foursquare_nyc (--checkpoint-dir D [--step N] | --params P.npz)
     python -m poi_tpu_torch configs
 
+    python -m torch.distributed.run --nproc-per-node N -m poi_tpu_torch train --config multihost_1m [...]
+
+Under ``torch.distributed.run`` (or any launcher that sets ``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``) ``train`` and ``eval``
+run as one rank of the ``(mesh.data, mesh.model)`` mesh: a card a rank
+(``cuda:{LOCAL_RANK}``) over ``nccl``, or the CPU (``--platform cpu``) over
+``gloo``. Only rank 0 writes the checkpoint and the metrics and prints the
+result.
+
 ``train`` evaluates on val every ``eval_every`` steps (best-on-val
 selection) when the dataset has a val split, or on test otherwise, and
 prints the final test metrics of the selected parameters as one JSON line.
@@ -50,6 +59,7 @@ def main(argv: list[str] | None = None) -> int:
         p.add_argument("--config", required=True, help="named config (see `configs`)")
         p.add_argument("--set", nargs="*", default=[], help="dotted overrides key=value")
         p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+        p.add_argument("--platform", choices=("cuda", "cpu"), default=None, help="the same as --device cuda|cpu")
 
     def add_source(p, params: bool):
         where = p.add_mutually_exclusive_group(required=params)
@@ -100,9 +110,16 @@ def main(argv: list[str] | None = None) -> int:
     if getattr(args, "params", None) is not None and args.step is not None:
         parser.error("--step names a checkpoint step: it goes with --checkpoint-dir, not --params")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
-    device = torch.device(args.device)
+    device = torch.device(args.platform or args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error(f"--device {args.device}: CUDA is not available")
+    from poi_tpu_torch.parallel.mesh import init_distributed, launched, rank_device
+
+    if launched():
+        if args.cmd not in ("train", "eval"):
+            parser.error(f"{args.cmd} runs in one process: only train and eval run under a launcher")
+        init_distributed("nccl" if device.type == "cuda" else "gloo")
+        device = rank_device(device)
 
     from poi_tpu_torch.configs.presets import get_config
     from poi_tpu_torch.utils.config import parse_set_flags
@@ -110,11 +127,17 @@ def main(argv: list[str] | None = None) -> int:
     cfg = get_config(args.config).with_overrides(parse_set_flags(args.set))
     if args.checkpoint_dir:
         cfg = cfg.with_overrides({"checkpoint.directory": args.checkpoint_dir})
-    if args.cmd == "train":
-        return run_train(cfg, device, enable_checkpoint=not args.no_checkpoint, metrics_dir=args.metrics_dir,
-                         profile_dir=args.profile_dir, tensorboard=args.tensorboard, debug=args.debug)
-    if args.cmd == "eval":
-        return run_eval(cfg, device, step=args.step)
+    try:
+        if args.cmd == "train":
+            return run_train(cfg, device, enable_checkpoint=not args.no_checkpoint, metrics_dir=args.metrics_dir,
+                             profile_dir=args.profile_dir, tensorboard=args.tensorboard, debug=args.debug)
+        if args.cmd == "eval":
+            return run_eval(cfg, device, step=args.step)
+    finally:
+        # Before the interpreter exits: a process group left to the exit
+        # tears its threads down mid-run (gloo aborted a rank so).
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     rec = load_recommender(cfg, device, params_path=args.params, step=args.step)
     if args.cmd == "recommend":
         return run_recommend(rec, args.input, args.k, not args.include_visited)
@@ -139,13 +162,18 @@ def run_train(cfg, device: torch.device, enable_checkpoint: bool = True, metrics
              ds.num_users, ds.num_pois, len(ds.train), len(ds.test), device)
     trainer = make_trainer(cfg, ds, device)
     trainer.check_finite = debug
+    mesh = trainer.mesh
+    lead = mesh.rank == 0  # writes the metrics and prints the result
+    if mesh.size > 1:
+        log.info("rank %d of %r", mesh.rank, mesh)
     state = trainer.init_state()
 
     ckpt = None
     loader_state = None
     resumed_from = None
     if enable_checkpoint:
-        ckpt = CheckpointManager(cfg.checkpoint.directory, cfg.checkpoint.max_to_keep, cfg.checkpoint.async_save)
+        ckpt = CheckpointManager(cfg.checkpoint.directory, cfg.checkpoint.max_to_keep, cfg.checkpoint.async_save,
+                                 mesh=mesh, num_pois=trainer.dims.num_pois)
         latest = ckpt.latest_step()
         if latest is not None:
             warn_config_mismatch(ckpt.saved_config(latest), cfg)
@@ -165,10 +193,10 @@ def run_train(cfg, device: torch.device, enable_checkpoint: bool = True, metrics
         # so a worse later-segment val peak never replaces the better one.
         info = ckpt.selected_info()
         if info and info["metric"] == tracker.metric and info["score"] is not None:
-            tracker.seed(info["step"], info["score"], ckpt.restore_selected())
+            tracker.seed(info["step"], info["score"], ckpt.restore_selected(like=state.params))
             log.info("seeded selection from selected/: step %d %s=%.4f", info["step"], info["metric"], info["score"])
-    metrics = MetricsLogger(metrics_dir, tensorboard=tensorboard)
-    pw = profile_window(profile_dir, *PROFILE_STEPS)
+    metrics = MetricsLogger(metrics_dir if lead else None, tensorboard=tensorboard)
+    pw = profile_window(profile_dir if lead else None, *PROFILE_STEPS)
     test_evals: list[dict] = []
 
     def loader_state_at(step):
@@ -188,7 +216,7 @@ def run_train(cfg, device: torch.device, enable_checkpoint: bool = True, metrics
             if tracker.history and tracker.history[-1]["step"] == step:
                 metrics.write(step, {f"val/{k}": v for k, v in tracker.history[-1].items() if k != "step"})
         elif step % cfg.train.eval_every == 0:
-            em = evaluate(trainer.model, ds, cfg)
+            em = evaluate(trainer.model, ds, cfg, mesh=mesh)
             log.info("test @%d: %s", step, em)
             test_evals.append({"step": step, **em})
             metrics.write(step, {f"eval/{k}": v for k, v in em.items()})
@@ -213,7 +241,7 @@ def run_train(cfg, device: torch.device, enable_checkpoint: bool = True, metrics
                      tracker.best_step, tracker.metric, tracker.best_score)
             if ckpt is not None:
                 ckpt.save_selected(tracker.best_step, state.params, metric=tracker.metric, score=tracker.best_score)
-        final = evaluate(trainer.model, ds, cfg)
+        final = evaluate(trainer.model, ds, cfg, mesh=mesh)
         pop = popularity_baseline(ds, cfg.eval.recall_ks)
         metrics.write(state.step, {f"final/{k}": v for k, v in final.items()})
     finally:
@@ -223,6 +251,8 @@ def run_train(cfg, device: torch.device, enable_checkpoint: bool = True, metrics
             ckpt.close()
     log.info("final eval: %s", final)
     log.info("popularity baseline: %s", pop)
+    if not lead:
+        return 0
     print(json.dumps({
         "steps": state.step,
         "resumed_from": resumed_from,
@@ -273,11 +303,39 @@ def restore_for_inference(cfg, device: torch.device, step: int | None = None):
 
 
 def run_eval(cfg, device: torch.device, step: int | None = None) -> int:
-    """Evaluate a checkpoint on test; prints ``{"step", "metrics"}`` as one JSON line."""
+    """Evaluate a checkpoint on test; prints ``{"step", "metrics"}`` as one
+    JSON line. Under a launcher every rank holds its part of the params on
+    the ``(mesh.data, mesh.model)`` mesh, and rank 0 prints."""
     from poi_tpu_torch.eval.evaluate import evaluate
+    from poi_tpu_torch.parallel.mesh import Mesh, launched
 
-    ds, model, at = restore_for_inference(cfg, device, step=step)
-    print(json.dumps({"step": at, "metrics": evaluate(model, ds, cfg)}), flush=True)
+    if not launched():  # one process: the params whole, whatever mesh wrote them
+        ds, model, at = restore_for_inference(cfg, device, step=step)
+        print(json.dumps({"step": at, "metrics": evaluate(model, ds, cfg)}), flush=True)
+        return 0
+    mesh = Mesh(cfg.mesh.data, cfg.mesh.model)
+    from poi_tpu_torch.data.dataset import load_dataset
+    from poi_tpu_torch.train.loop import make_trainer
+    from poi_tpu_torch.utils.checkpoint import CheckpointManager, warn_config_mismatch
+
+    ds = load_dataset(cfg.data)
+    trainer = make_trainer(cfg, ds, device, mesh)
+    ckpt = CheckpointManager(cfg.checkpoint.directory, mesh=mesh, num_pois=trainer.dims.num_pois)
+    like = dict(trainer.model.named_parameters())
+    try:
+        saved = ckpt.load(step)
+        warn_config_mismatch(saved["config"], cfg)
+        at = saved["step"]
+        if step is None and ckpt.selected_step() is not None:
+            params, at = ckpt.restore_selected(like=like), ckpt.selected_step()
+        else:
+            params = ckpt.local_part(saved["params"], like["embed.poi"].shape[0], True)
+    finally:
+        ckpt.close()
+    trainer.model.load_state_dict(params)
+    metrics = evaluate(trainer.model, ds, cfg, mesh=mesh)
+    if mesh.rank == 0:
+        print(json.dumps({"step": at, "metrics": metrics}), flush=True)
     return 0
 
 

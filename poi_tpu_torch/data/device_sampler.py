@@ -24,10 +24,14 @@ def step_seed(seed: int, step: int, *stream: int) -> int:
 
 
 class DeviceSampler:
-    def __init__(self, examples: Examples, batch_size: int, seed: int, device):
+    """``rows``: keep these rows of each step's batch (one data shard's
+    part of the global batch, which every data rank draws alike)."""
+
+    def __init__(self, examples: Examples, batch_size: int, seed: int, device, rows: slice | None = None):
         if len(examples) == 0:
             raise ValueError("empty example set")
         self.batch_size = batch_size
+        self.rows = rows
         self.num_examples = len(examples)
         self.seed = seed
         self.device = torch.device(device)
@@ -43,6 +47,8 @@ class DeviceSampler:
         """The batch of ``step``: the same ids for the same (seed, step)."""
         self._gen.manual_seed(step_seed(self.seed, step))
         idx = torch.randint(0, self.num_examples, (self.batch_size,), generator=self._gen, device=self.device)
+        if self.rows is not None:
+            idx = idx[self.rows]
         b = {f: v[idx] for f, v in self._dev.items()}
         b["mask"] = b["mask"].float()
         return Batch(**b)

@@ -44,6 +44,12 @@ class DataDims:
         if self.num_pois_padded == 0:
             object.__setattr__(self, "num_pois_padded", self.num_pois)
 
+    def padded_to(self, model_shards: int) -> "DataDims":
+        """The catalog padded up to a multiple of ``model_shards`` rows."""
+        import dataclasses
+
+        return dataclasses.replace(self, num_pois_padded=-(-self.num_pois // model_shards) * model_shards)
+
     @classmethod
     def from_dataset(cls, ds) -> "DataDims":
         return cls(
@@ -79,16 +85,33 @@ def _normal(gen: torch.Generator, shape, scale: float, meta: bool = False) -> to
     return scale * torch.randn(shape, generator=gen, dtype=torch.float32)
 
 
-def init_embed_params(gen: torch.Generator, cfg: ModelConfig, dims: DataDims,
-                      meta: bool = False) -> dict[str, torch.Tensor]:
+def init_embed_params(gen: torch.Generator, cfg: ModelConfig, dims: DataDims, meta: bool = False,
+                      shard: slice | None = None) -> dict[str, torch.Tensor]:
     """POI/user/time/geo tables + output bias (+ untied output table), at the
-    JAX package's scales. Padded rows get a -1e30 bias. ``meta``: the tables'
-    shapes on the meta device, nothing drawn."""
+    JAX package's scales. The catalog tables draw ``num_pois`` rows, then
+    take zero rows up to ``num_pois_padded`` with a -1e30 bias, so a padded
+    catalog draws what the unpadded one draws. ``shard``: keep only those
+    rows of the catalog tables (one model rank's block of a vocab-sharded
+    table; the whole init is drawn, so every rank draws the same).
+    ``meta``: the tables' shapes on the meta device, nothing drawn."""
     scale = 0.02
     d = cfg.embed_dim
     vp = dims.num_pois_padded
+    rows = shard if shard is not None else slice(0, vp)
+
+    def catalog(t: torch.Tensor) -> torch.Tensor:
+        """Rows ``rows`` of the drawn table ``t`` padded to ``vp`` rows."""
+        lo, hi, _ = rows.indices(vp)
+        if meta:
+            return torch.empty((hi - lo,) + tuple(t.shape[1:]), device="meta")
+        if lo == 0 and hi == t.shape[0]:
+            return t
+        part = t[lo:min(hi, t.shape[0])]
+        return torch.cat([part, part.new_zeros((hi - lo - part.shape[0],) + tuple(t.shape[1:]))])
+
     bias = torch.where(torch.arange(vp) < dims.num_pois, 0.0, -1e30).to(torch.float32)
-    p = {"poi": _normal(gen, (vp, d), scale, meta), "out_bias": bias}
+    p = {"poi": catalog(_normal(gen, (dims.num_pois, d), scale, meta)),
+         "out_bias": bias if shard is None else bias[rows].clone()}
     if cfg.use_user_embedding:
         p["user"] = _normal(gen, (dims.num_users, d), scale, meta)
     if cfg.use_time_embedding:
@@ -96,17 +119,25 @@ def init_embed_params(gen: torch.Generator, cfg: ModelConfig, dims: DataDims,
     if cfg.use_geo_embedding:
         p["geo"] = _normal(gen, (dims.num_geo_buckets, d), scale, meta)
     if not cfg.tie_output_embedding:
-        p["out"] = _normal(gen, (vp, d), scale, meta)
+        p["out"] = catalog(_normal(gen, (dims.num_pois, d), scale, meta))
     return p
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 - rate and
     scale it by 1 / (1 - rate). The identity without a generator (eval) or
-    at rate 0, so one ``queries`` call serves train and eval."""
+    at rate 0, so one ``queries`` call serves train and eval. ``rows =
+    (lo, B)``: ``x`` holds rows ``lo..`` of a batch of B (one data shard's),
+    and its masks are those rows of the whole batch's draw."""
     if generator is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    if rows is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    else:
+        lo, full = rows
+        keep = torch.rand((full,) + tuple(x.shape[1:]), generator=generator, device=x.device)[lo:lo + x.shape[0]]
+        keep = keep < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -158,13 +189,15 @@ def gather_rows(table: torch.Tensor, bias: torch.Tensor, ids: torch.Tensor) -> t
     return lookup(table, ids), lookup(bias[:, None], ids)[..., 0]
 
 
-def input_embeddings(embed, batch: Batch, cfg: ModelConfig, poi_rows: torch.Tensor | None = None) -> torch.Tensor:
+def input_embeddings(embed, batch: Batch, cfg: ModelConfig, poi_rows: torch.Tensor | None = None,
+                     poi_lookup=None) -> torch.Tensor:
     """Sum of POI + time + geo embeddings per input step → [B, T, D].
     ``poi_rows`` ([B, T, D] = the POI table's rows at ``batch.poi_in``)
     stands in for the POI lookup where the caller gathered them: the
     rows-gradient train step differentiates those rows, so the table's
-    dense gradient never exists."""
-    x = poi_rows if poi_rows is not None else lookup(embed["poi"], batch.poi_in)
+    dense gradient never exists. ``poi_lookup(table, ids)`` reads the POI
+    table (``lookup``, or a vocab-sharded table's ``ops.embedding`` lookup)."""
+    x = poi_rows if poi_rows is not None else (poi_lookup or lookup)(embed["poi"], batch.poi_in)
     if cfg.use_time_embedding:
         x = x + lookup(embed["time"], batch.time_bucket)
     if cfg.use_geo_embedding:
@@ -198,13 +231,17 @@ class SequenceModel(nn.Module):
     the batch (the mask, and ST-RNN's time-gap and distance buckets).
     """
 
-    def __init__(self, cfg: ModelConfig, dims: DataDims, device=None, generator: torch.Generator | None = None):
+    def __init__(self, cfg: ModelConfig, dims: DataDims, device=None, generator: torch.Generator | None = None,
+                 shard: slice | None = None, poi_lookup=None):
         super().__init__()
         self.cfg = cfg
         self.dims = dims
+        # A vocab-sharded model holds its rows ``shard`` of the catalog
+        # tables and reads the POI table through ``poi_lookup``.
+        self.poi_lookup = poi_lookup or lookup
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         meta = device is not None and torch.device(device).type == "meta"
-        self.embed = params(init_embed_params(gen, cfg, dims, meta), device)
+        self.embed = params(init_embed_params(gen, cfg, dims, meta, shard), device)
         self.tower = self.build_tower(gen, device)
         self.proj = None
         if cfg.hidden_dim != cfg.embed_dim or not cfg.tie_output_embedding:
@@ -218,16 +255,18 @@ class SequenceModel(nn.Module):
         return self.embed["poi"].device
 
     def queries(self, batch: Batch, generator: torch.Generator | None = None,
-                poi_rows: torch.Tensor | None = None) -> torch.Tensor:
+                poi_rows: torch.Tensor | None = None, dropout_rows: tuple[int, int] | None = None) -> torch.Tensor:
         """[B, T, D] fp32 scoring queries at every position, the training
         path: embed → tower → projection → user add. ``batch`` holds tensors
         on the model's device (``batch_to``). With a ``generator`` (on the
         model's device), ``model.dropout`` drops out the summed input
         embeddings and the tower output, in that order, as ``poi_tpu``
         does; without one the path is deterministic. ``poi_rows``:
-        pre-gathered input rows, as for ``input_embeddings``."""
-        x = dropout(input_embeddings(self.embed, batch, self.cfg, poi_rows), self.cfg.dropout, generator)
-        h = dropout(self.tower(x, batch), self.cfg.dropout, generator)
+        pre-gathered input rows, as for ``input_embeddings``. ``dropout_rows``:
+        ``dropout``'s ``rows`` (a data shard's rows of the batch)."""
+        x = input_embeddings(self.embed, batch, self.cfg, poi_rows, self.poi_lookup)
+        x = dropout(x, self.cfg.dropout, generator, dropout_rows)
+        h = dropout(self.tower(x, batch), self.cfg.dropout, generator, dropout_rows)
         q = linear(self.proj, h, compute_dtype(self.cfg)) if self.proj is not None else h
         return add_user_query(q.float(), self.embed, batch, self.cfg)
 
@@ -241,7 +280,7 @@ class SequenceModel(nn.Module):
         """[B, D] fp32 scoring query at each sequence's final valid position
         (``sum(mask) - 1``, clamped at 0). ``batch`` holds tensors on the
         model's device (``batch_to``)."""
-        x = input_embeddings(self.embed, batch, self.cfg)
+        x = input_embeddings(self.embed, batch, self.cfg, poi_lookup=self.poi_lookup)
         last = (batch.mask.to(torch.int32).sum(dim=1) - 1).clamp_min(0)
         h = self.tower_last(x, batch, last)
         q = linear(self.proj, h, compute_dtype(self.cfg)) if self.proj is not None else h
@@ -259,9 +298,11 @@ def require_device(device, what: str) -> torch.device:
     return device
 
 
-def build_model(cfg: ModelConfig, dims: DataDims, device="cuda", generator: torch.Generator | None = None):
+def build_model(cfg: ModelConfig, dims: DataDims, device="cuda", generator: torch.Generator | None = None,
+                shard: slice | None = None, poi_lookup=None):
     """The model of ``cfg.kind`` with its parameters on ``device`` (the card
-    unless the caller asks for the CPU)."""
+    unless the caller asks for the CPU); ``shard`` and ``poi_lookup`` as
+    for ``SequenceModel``."""
     from poi_tpu_torch.models.attention import AttentionModel
     from poi_tpu_torch.models.gru import GRUModel
     from poi_tpu_torch.models.lstm import LSTMModel
@@ -271,4 +312,4 @@ def build_model(cfg: ModelConfig, dims: DataDims, device="cuda", generator: torc
     registry = {"gru": GRUModel, "lstm": LSTMModel, "strnn": STRNNModel, "attention": AttentionModel}
     if cfg.kind not in registry:
         raise KeyError(f"model kind {cfg.kind!r} is not ported yet: have {sorted(registry)}")
-    return registry[cfg.kind](cfg, dims, device=device, generator=generator)
+    return registry[cfg.kind](cfg, dims, device=device, generator=generator, shard=shard, poi_lookup=poi_lookup)

@@ -313,10 +313,12 @@ def fused_ce_rows(q, table, bias, targets) -> torch.Tensor:
     return FusedCERows.apply(q, table, bias, targets)
 
 
-def fused_ce_loss(q, table, bias, targets, mask) -> torch.Tensor:
+def fused_ce_loss(q, table, bias, targets, mask, mean=None) -> torch.Tensor:
     """Masked-mean fused CE over [B, T, D] queries, the counterpart of
     ``fused_ce_loss_pallas``."""
     B, T, D = q.shape
     nll = fused_ce_rows(q.reshape(B * T, D), table, bias, targets.reshape(-1))
+    if mean is not None:  # another reduction than this batch's masked mean
+        return mean(nll, mask.reshape(-1))
     m = mask.reshape(-1).float()
     return (nll * m).sum() / m.sum().clamp_min(1.0)

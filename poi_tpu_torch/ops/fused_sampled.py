@@ -194,7 +194,8 @@ def sampled_nll_rows(q, e_neg, b_neg, s_pos, targets, neg_ids) -> torch.Tensor:
     return SampledNLL.apply(q, e_neg, b_neg, s_pos, targets, neg_ids)
 
 
-def fused_sampled_softmax_loss(q, table, bias, targets, mask, neg, num_sampled: int, num_pois: int) -> torch.Tensor:
+def fused_sampled_softmax_loss(q, table, bias, targets, mask, neg, num_sampled: int, num_pois: int,
+                               mean=None) -> torch.Tensor:
     """Masked-mean sampled softmax over [B, T, D] queries with the pool
     ``neg [S]``, the counterpart of ``fused_sampled_softmax_loss``. The
     table and bias rows (the targets', then the pool's) are gathered in
@@ -206,5 +207,7 @@ def fused_sampled_softmax_loss(q, table, bias, targets, mask, neg, num_sampled: 
     rows, brows = gather_rows(table, bias, torch.cat([t1, neg]))
     s_pos = (q2.float() * rows[:B * T].float()).sum(dim=1) + brows[:B * T]
     nll = sampled_nll_rows(q2, rows[B * T:], brows[B * T:] - log_q(num_sampled, num_pois), s_pos, t1, neg)
+    if mean is not None:  # another reduction than this batch's masked mean
+        return mean(nll, mask.reshape(-1))
     m = mask.reshape(-1).float()
     return (nll * m).sum() / m.sum().clamp_min(1.0)

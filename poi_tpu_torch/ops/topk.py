@@ -96,3 +96,25 @@ def fused_topk(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, k: int)
 
 
 fused_topk.launches = 0
+
+
+def sharded_topk(q: torch.Tensor, table_local: torch.Tensor, bias_local: torch.Tensor, k: int, mesh,
+                 select=fused_topk):
+    """Top-k over a vocab-sharded catalog, ``make_sharded_topk``: ``select``
+    (``fused_topk``, B11, or ``topk_reference``) takes each shard's local
+    top-k of its rows, the ids are offset to the shard's rows of the
+    (per-shard padded) catalog, and the k·M candidates are all-gathered over
+    ``model`` in shard order. The final k keep, among equal values, the
+    earlier candidate (the lower shard, then that shard's order), as
+    ``lax.top_k`` over the gathered row does: a stable descending sort.
+    ``q [b, D]`` are this data shard's rows. Returns (vals [b, k] fp32, ids
+    [b, k] int64)."""
+    from poi_tpu_torch.parallel import collectives as cc
+    from poi_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    vals, ids = select(q, table_local, bias_local, k)
+    ids = ids.long() + cc.axis_index(mesh, MODEL_AXIS) * table_local.shape[0]
+    vals_all = cc.all_gather(vals, mesh, MODEL_AXIS, dim=1)
+    ids_all = cc.all_gather(ids, mesh, MODEL_AXIS, dim=1)
+    v, pos = torch.sort(vals_all, dim=1, descending=True, stable=True)
+    return v[:, :k].contiguous(), ids_all.gather(1, pos[:, :k])

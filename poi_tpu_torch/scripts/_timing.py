@@ -91,22 +91,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, dev="cuda") -> float:
     return statistics.median(times)
 
 
-PROFILE_TRIES = 3  # records of kernel_ms taken before an incomplete one is an error
+PROFILE_TRIES = 8  # records of kernel_ms taken before an incomplete one is an error
+RETAKE_PAUSE_S = 0.5  # host pause before an incomplete record is taken again
 
 
-# Short spin kernels launched at the head of each recorded window and dropped
-# from the record. With torch 2.11.0+cu128 (CUDA 12.8 and the CUPTI it ships)
-# on an H100, records lost the first launches of a window: one kernel, or a
-# whole short call, though every launch came after the profiler started. The
-# cause is not known; the spins take the loss instead of the calls measured,
-# and ``record_fault`` still checks what is left. ``HEAD_SPINS_SEEN`` counts
-# the windows by how many spins their record kept, so a run shows how much
-# was lost; a run whose windows never keep one means the spin kernel is no
-# longer named ``SPIN_KERNEL`` (ATen's ``Sleep.cu``), and ``chip_smoke.py``
-# fails on that.
-HEAD_SPINS = 4
+# Spin kernels of about 2.5 ms each (``SPIN_CYCLES`` at an H100's clock)
+# launched at the head and the tail of each recorded window and dropped from
+# the record. With torch 2.11.0+cu128 (CUDA 12.8 and the CUPTI it ships) on an
+# H100, records lost kernels at the head of a window, though every launch
+# came after the profiler started: in a long run most windows lose their
+# first three records whatever their length, and now and then a window loses
+# every kernel of its first millisecond or two. Eight long spins at the head
+# take both losses, one at the tail guards the end; ``record_fault`` still
+# checks what is left. Now and then, in bursts, a window loses every record,
+# spins and all (with long or short spins, and with ``TEARDOWN_CUPTI=0``):
+# ``kernel_ms`` takes such a record again.
+# ``SPINS_SEEN`` counts the windows by how many spins their record kept, so a
+# run shows how much was lost; a run whose windows never keep one means the
+# spin kernel is no longer named ``SPIN_KERNEL`` (ATen's ``Sleep.cu``), and
+# ``chip_smoke.py`` fails on that.
+HEAD_SPINS = 8
+TAIL_SPINS = 1
+SPIN_CYCLES = 5_000_000
 SPIN_KERNEL = "spin_kernel"  # the kernel of torch.cuda._sleep
-HEAD_SPINS_SEEN: collections.Counter = collections.Counter()
+SPINS_SEEN: collections.Counter = collections.Counter()
 
 
 def _device_record(fn, calls: int) -> dict[str, tuple[int, float]]:
@@ -117,14 +125,17 @@ def _device_record(fn, calls: int) -> dict[str, tuple[int, float]]:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(HEAD_SPINS):
-            torch.cuda._sleep(1000)
+            torch.cuda._sleep(SPIN_CYCLES)
         torch.cuda.synchronize()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        for _ in range(TAIL_SPINS):
+            torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
     record = {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")}
-    HEAD_SPINS_SEEN[sum(n for key, (n, _) in record.items() if SPIN_KERNEL in key)] += 1
+    SPINS_SEEN[sum(n for key, (n, _) in record.items() if SPIN_KERNEL in key)] += 1
     return {key: v for key, v in record.items() if SPIN_KERNEL not in key}
 
 
@@ -147,7 +158,8 @@ def kernel_ms(fn, iters: int = 20, expect=()) -> dict[str, float]:
     keyed by the profiler's name: ``torch.profiler`` over ``iters`` calls
     after a warm-up call, without the host's launch work that CUDA events
     around a short call include. The record is checked (``record_fault``)
-    against one profiled call; an incomplete one is taken again, and after
+    against one profiled call; an incomplete one is taken again after a
+    pause, since the profiler's losses come in bursts, and after
     ``PROFILE_TRIES`` records it raises."""
     fn()
     for attempt in range(1, PROFILE_TRIES + 1):
@@ -157,6 +169,7 @@ def kernel_ms(fn, iters: int = 20, expect=()) -> dict[str, float]:
         if fault is None:
             return {key: us / 1e3 / iters for key, (_, us) in rec.items()}
         print(f"profiler record {attempt}/{PROFILE_TRIES} incomplete: {fault}", flush=True)
+        time.sleep(RETAKE_PAUSE_S)
     raise RuntimeError(f"torch.profiler missed launches in {PROFILE_TRIES} records in a row: {fault}")
 
 

@@ -39,7 +39,7 @@ def full_logits(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor,
 
 
 def ce_loss(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
-            label_smoothing: float = 0.0) -> torch.Tensor:
+            label_smoothing: float = 0.0, mean: Callable = masked_mean) -> torch.Tensor:
     """Dense full-catalog softmax CE, the oracle: the [B, T, V] logits are
     materialised and differentiated by autograd."""
     logits = full_logits(q, table, bias)
@@ -49,7 +49,7 @@ def ce_loss(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, targets: t
     if label_smoothing > 0.0:
         v = logits.shape[-1]
         nll = (1.0 - label_smoothing) * nll + label_smoothing * (lse - logits.mean(dim=-1)) * (v / (v - 1.0))
-    return masked_mean(nll, mask)
+    return mean(nll, mask)
 
 
 def draw_bpr_negatives(generator: torch.Generator, B: int, T: int, num_negatives: int, num_pois: int,
@@ -60,7 +60,7 @@ def draw_bpr_negatives(generator: torch.Generator, B: int, T: int, num_negatives
     return torch.randint(0, num_pois, (B, T, num_negatives), generator=generator, device=device)
 
 
-def bpr_loss(q, table, bias, targets, mask, neg) -> torch.Tensor:
+def bpr_loss(q, table, bias, targets, mask, neg, mean: Callable = masked_mean) -> torch.Tensor:
     """Bayesian Personalized Ranking, ``-log σ(s_pos - s_neg)`` for each of
     the position's negatives ``neg [B, T, N]``, averaged over the pairs whose
     negative is not the positive and whose position is valid. The targets'
@@ -72,7 +72,7 @@ def bpr_loss(q, table, bias, targets, mask, neg) -> torch.Tensor:
     s_pos = (q * e_pos).sum(dim=-1) + brows[:B * T].reshape(B, T)
     s_neg = torch.einsum("btd,btnd->btn", q, e_neg) + brows[B * T:].reshape(B, T, N)
     pair_ok = (neg != targets[..., None]) & (mask[..., None] > 0)
-    return masked_mean(-F.logsigmoid(s_pos[..., None] - s_neg), pair_ok)
+    return mean(-F.logsigmoid(s_pos[..., None] - s_neg), pair_ok)
 
 
 def draw_sampled_negatives(generator: torch.Generator, num_sampled: int, num_pois: int, device) -> torch.Tensor:
@@ -93,20 +93,23 @@ def sampled_nll(q, e_neg, b_neg, s_pos, targets, neg, num_sampled: int, num_pois
     return torch.logaddexp(torch.logsumexp(s_neg, dim=-1), s_pos) - s_pos
 
 
-def sampled_softmax_loss(q, table, bias, targets, mask, neg, num_sampled: int, num_pois: int) -> torch.Tensor:
+def sampled_softmax_loss(q, table, bias, targets, mask, neg, num_sampled: int, num_pois: int,
+                         mean: Callable = masked_mean) -> torch.Tensor:
     """Sampled softmax with the shared pool ``neg``, the plain path (the
     targets' and the pool's rows in one lookup a tensor)."""
     B, T = targets.shape
     rows, brows = gather_rows(table, bias, torch.cat([targets.reshape(-1), neg]))
     s_pos = (q.float() * rows[:B * T].reshape(B, T, -1).float()).sum(dim=-1) + brows[:B * T].reshape(B, T)
     nll = sampled_nll(q, rows[B * T:], brows[B * T:], s_pos, targets, neg, num_sampled, num_pois)
-    return masked_mean(nll, mask)
+    return mean(nll, mask)
 
 
-def build_loss_fn(cfg: LossConfig, num_pois: int, embed_dim: int | None = None) -> Callable:
+def build_loss_fn(cfg: LossConfig, num_pois: int, embed_dim: int | None = None,
+                  mean: Callable = masked_mean) -> Callable:
     """loss(q, table, bias, targets, mask) -> scalar; sampled softmax takes
     the step's negative pool and BPR the step's negatives as a sixth
-    argument.
+    argument. ``mean(x, mask)`` reduces the per-position losses (this
+    batch's masked mean unless the caller gives another).
 
     CE takes ``fused_ce_loss`` (the CUDA kernels on CUDA tensors, their plain
     versions on CPU tensors) as the TPU package dispatches it: unless
@@ -115,15 +118,18 @@ def build_loss_fn(cfg: LossConfig, num_pois: int, embed_dim: int | None = None) 
     unless ``impl == "xla"``, when ``num_sampled >= 128`` and ``embed_dim``
     is a multiple of 128 (or unknown), or always with ``impl == "fused"``.
     """
+    # A mean other than this rank's own (a data-sharded batch's global one)
+    # is bound in; the default keeps the one-device functions as they are.
+    extra = {} if mean is masked_mean else {"mean": mean}
     if cfg.kind == "ce":
         if cfg.impl != "xla" and num_pois >= FUSED_CE_MIN_VOCAB and cfg.label_smoothing == 0.0:
-            return fused_ce_loss
-        return lambda q, t, b, y, m: ce_loss(q, t, b, y, m, cfg.label_smoothing)
+            return functools.partial(fused_ce_loss, **extra) if extra else fused_ce_loss
+        return lambda q, t, b, y, m: ce_loss(q, t, b, y, m, cfg.label_smoothing, mean)
     if cfg.kind == "bpr":
-        return bpr_loss
+        return functools.partial(bpr_loss, **extra) if extra else bpr_loss
     if cfg.kind == "sampled_softmax":
         shapes_ok = cfg.num_sampled >= 128 and (embed_dim is None or embed_dim % 128 == 0)
         fused = cfg.impl != "xla" and (shapes_ok or cfg.impl == "fused")
         fn = fused_sampled_softmax_loss if fused else sampled_softmax_loss
-        return functools.partial(fn, num_sampled=cfg.num_sampled, num_pois=num_pois)
+        return functools.partial(fn, num_sampled=cfg.num_sampled, num_pois=num_pois, **extra)
     raise ValueError(f"unknown loss {cfg.kind!r}")

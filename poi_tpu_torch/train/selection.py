@@ -51,7 +51,7 @@ class BestOnVal:
     def __call__(self, step: int, state, metrics) -> None:
         if step % self.every:
             return
-        m = evaluate(self.trainer.model, self.ds, self.cfg, split="val")
+        m = evaluate(self.trainer.model, self.ds, self.cfg, split="val", mesh=getattr(self.trainer, "mesh", None))
         m["step"] = step
         self.history.append(m)
         score = m[self.metric]

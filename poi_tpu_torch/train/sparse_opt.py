@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from poi_tpu_torch.ops.segment import dedup_ids, dedup_sum
-from poi_tpu_torch.train.state import ADAM_B1, ADAM_B2, ADAM_EPS, lr_schedule
+from poi_tpu_torch.train.state import ADAM_B1, ADAM_B2, ADAM_EPS, lr_schedule, named_norm
 from poi_tpu_torch.utils.config import Config
 
 # params["embed"] keys that hold catalog-sized tables -> the id set that touches them.
@@ -106,6 +106,11 @@ class SparseTableOptimizer:
         validate_config(cfg)
         self.lr = lr_schedule(cfg.train)
         self.clip = cfg.train.grad_clip_norm
+        self.norm = named_norm  # the clip's global norm
+        # The bytes of each table's whole catalog over its local rows: the
+        # model-axis size where a trainer holds one rank's rows, so a
+        # shard takes the path its whole table would.
+        self.table_scale = 1
 
     def init(self, params: dict[str, torch.Tensor]) -> dict:
         return {
@@ -125,7 +130,9 @@ class SparseTableOptimizer:
         A table's gradient comes dense in ``grads`` or, for the embed keys
         of ``row_grads`` (``{"poi": (occurrence ids, [N, D] rows), ...}``,
         the rows-gradient step), as one row per id occurrence; ``grads``
-        then need not hold that table."""
+        then need not hold that table. Ids are the tables' row numbers; an
+        id at or past a table's last row (a row another model rank holds)
+        touches none of its rows."""
         row_grads = row_grads or {}
         masks: dict[str, torch.Tensor] = {}
         uids: dict[str, torch.Tensor] = {}
@@ -137,12 +144,14 @@ class SparseTableOptimizer:
                 rows[name] = dedup_sum(*row_grads[key], oob=p.shape[0])
             elif src is None or src not in ids:
                 continue
-            elif p.numel() * 4 <= DENSE_LAZY_MAX_BYTES:
+            elif p.numel() * 4 * self.table_scale <= DENSE_LAZY_MAX_BYTES:
                 if src not in masks:
                     # index_fill_, not ``mask[ids] = True``: on a CUDA tensor
-                    # that assignment waits for the stream.
-                    masks[src] = torch.zeros(p.shape[0], dtype=torch.bool, device=p.device).index_fill_(0, ids[src],
-                                                                                                       True)
+                    # that assignment waits for the stream. The extra row
+                    # takes the ids of rows held elsewhere.
+                    n = p.shape[0]
+                    masks[src] = torch.zeros(n + 1, dtype=torch.bool, device=p.device).index_fill_(
+                        0, ids[src].clamp(max=n), True)[:n]
             else:
                 if src not in uids:
                     uids[src] = dedup_ids(ids[src], p.shape[0])
@@ -150,8 +159,7 @@ class SparseTableOptimizer:
 
         # The global norm: dense and masked leaves in full (rows outside the
         # touched set are 0), gather/scatter tables from their unique rows.
-        gnorm = torch.sqrt(sum((g.float() * g.float()).sum()
-                               for g in (rows[k][1] if k in rows else grads[k] for k in params)))
+        gnorm = self.norm({k: rows[k][1] if k in rows else grads[k] for k in params})
         scale = torch.ones_like(gnorm)
         if self.clip > 0:
             scale = torch.where(gnorm > self.clip, self.clip / gnorm, scale)
@@ -187,13 +195,18 @@ class SparseTableOptimizer:
         """Lazy Adam at the unique ids ``u`` (sentinels past them) with their
         summed grads ``g_u``: gather, Adam on the rows, write back. Each
         sentinel position takes the last unique id's row and values, so every
-        index is in bounds and a repeated index writes equal values."""
+        index is in bounds and a repeated index writes equal values. With no
+        unique id (a shard the step never touched) every position rewrites
+        the last row as it is."""
         n_unique = (u < p.shape[0]).sum()
-        src = torch.minimum(torch.arange(u.shape[0], device=u.device), n_unique - 1)
-        u, g = u[src], g_u[src] * scale
-        m_n = ADAM_B1 * m[u] + (1 - ADAM_B1) * g
-        v_n = ADAM_B2 * v[u] + (1 - ADAM_B2) * (g * g)
+        src = torch.minimum(torch.arange(u.shape[0], device=u.device), (n_unique - 1).clamp_min(0))
+        u, g = u[src].clamp(max=p.shape[0] - 1), g_u[src] * scale
+        m_u, v_u = m[u], v[u]
+        m_n = ADAM_B1 * m_u + (1 - ADAM_B1) * g
+        v_n = ADAM_B2 * v_u + (1 - ADAM_B2) * (g * g)
         step = lr * (m_n / bc1) / (torch.sqrt(v_n / bc2) + ADAM_EPS)
+        touched = n_unique > 0
+        m_n, v_n, step = torch.where(touched, m_n, m_u), torch.where(touched, v_n, v_u), torch.where(touched, step, 0.0)
         p.index_put_((u,), p[u] - step)
         m.index_put_((u,), m_n)
         v.index_put_((u,), v_n)

@@ -84,6 +84,27 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
 
 
+def named_norm(named: dict[str, torch.Tensor]) -> torch.Tensor:
+    """``global_norm`` of a dict's tensors: the optimizers' norm, which a
+    vocab-sharded trainer replaces with ``mesh_norm``."""
+    return global_norm(named.values())
+
+
+def mesh_norm(named: dict[str, torch.Tensor], sharded: set[str], reduce_sharded) -> torch.Tensor:
+    """The global norm of a state whose tensors named in ``sharded`` hold
+    one model rank's rows: their squares summed over the model axis by
+    ``reduce_sharded`` (an in-place all-reduce), each replicated tensor
+    counted once."""
+    sq = lambda t: (t.float() * t.float()).sum()  # noqa: E731
+    rep = sum((sq(t) for k, t in named.items() if k not in sharded), torch.zeros((), device=_device(named)))
+    part = sum((sq(t) for k, t in named.items() if k in sharded), torch.zeros((), device=_device(named)))
+    return torch.sqrt(rep + reduce_sharded(part))
+
+
+def _device(named: dict[str, torch.Tensor]) -> torch.device:
+    return next(iter(named.values())).device
+
+
 class Optimizer:
     """Global-norm clip, then adam / adamw / adagrad / sgd, then the
     scheduled learning rate, as ``poi_tpu.train.state.make_optimizer``
@@ -96,6 +117,7 @@ class Optimizer:
         self.lr = lr_schedule(cfg)
         self.clip = cfg.grad_clip_norm
         self.weight_decay = cfg.weight_decay if cfg.optimizer == "adam" else 0.0
+        self.norm = named_norm  # the clip's global norm
 
     def init(self, params: dict[str, torch.Tensor]) -> dict:
         state: dict = {"count": 0}
@@ -111,7 +133,7 @@ class Optimizer:
     def update(self, grads: dict[str, torch.Tensor], state: dict, params: dict[str, torch.Tensor]) -> None:
         """One update of ``params`` and ``state``, in place."""
         if self.clip > 0:
-            norm = global_norm(grads.values())
+            norm = self.norm(grads)
             keep = norm < self.clip
             grads = {k: torch.where(keep, g, g / norm * self.clip) for k, g in grads.items()}
         count = state["count"]

@@ -20,6 +20,14 @@ always ends at the true end-of-run state.
 
 ``poi_tpu``'s orbax steps are step-numbered subdirectories; a directory
 that holds them is refused, never read as empty.
+
+On a mesh (``CheckpointManager(mesh=..., num_pois=...)``, every rank makes
+one and calls it alike) the file is still one file of the whole state:
+``save`` gathers the vocab-sharded tables and their moments over ``model``,
+cuts the catalog tables to ``num_pois`` rows (the padding of that mesh's
+vocab), and rank 0 writes; ``restore`` pads them to this mesh's padded
+catalog (zero rows, a -1e30 bias) and keeps this rank's rows. So a step
+written on one mesh restores on any other, and on one device.
 """
 
 from __future__ import annotations
@@ -31,7 +39,10 @@ import re
 from concurrent.futures import Future, ThreadPoolExecutor
 
 import torch
+import torch.distributed as dist
 
+from poi_tpu_torch.parallel.mesh import MODEL_AXIS
+from poi_tpu_torch.parallel.shardings import CATALOG_TABLES, map_state, shard_state, unshard_state
 from poi_tpu_torch.train.state import TrainState
 
 log = logging.getLogger(__name__)
@@ -104,13 +115,33 @@ def _refuse_orbax(directory: str) -> None:
             )
 
 
+def _catalog_rows(tree, n: int, pad_bias: bool = False):
+    """``tree``'s catalog tables at ``n`` rows: cut, or padded with zero
+    rows (``-1e30`` for the output bias where ``pad_bias``)."""
+
+    def fit(name, x):
+        if name not in CATALOG_TABLES or x.shape[0] == n:
+            return x
+        if x.shape[0] > n:
+            return x[:n]
+        fill = -1e30 if pad_bias and name == "embed.out_bias" else 0.0
+        return torch.cat([x, x.new_full((n - x.shape[0],) + tuple(x.shape[1:]), fill)])
+
+    return map_state(tree, fit)
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int | None = 3, async_save: bool = False):
+    def __init__(self, directory: str, max_to_keep: int | None = 3, async_save: bool = False, mesh=None,
+                 num_pois: int | None = None):
         self.directory = os.path.abspath(directory)
         _refuse_orbax(self.directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
-        self.async_save = async_save
+        # Several ranks: one file, rank 0 writes it; the write is not
+        # deferred, so every rank sees it when save returns.
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.num_pois = num_pois
+        self.async_save = async_save and self.mesh is None
         self._pool: ThreadPoolExecutor | None = None
         self._pending: list[Future] = []
 
@@ -134,9 +165,34 @@ class CheckpointManager:
         the caller's thread, so the train step may update the parameters in
         place as soon as this returns; with ``async_save`` the file is written
         on a worker thread that ``wait()`` joins."""
-        payload = {"step": int(step), "params": _to_host(state.params), "opt_state": _to_host(state.opt_state),
-                   "loader": loader_state, "config": config_json}
-        self._submit(self._write_step, step, payload)
+        payload = {"step": int(step), "params": self._whole(state.params),
+                   "opt_state": self._whole(state.opt_state), "loader": loader_state, "config": config_json}
+        self._submit_once(self._write_step, step, payload)
+
+    def _whole(self, tree):
+        """A host copy of ``tree`` with the sharded tables put back together
+        (every model rank calls this) and cut to the catalog."""
+        if self.mesh is None or self.mesh.shape[MODEL_AXIS] == 1:
+            return _to_host(tree)
+        whole = unshard_state(tree, self.mesh, set(CATALOG_TABLES))
+        return _catalog_rows(_to_host(whole), self.num_pois)
+
+    def local_part(self, tree, rows: int, pad_bias: bool):
+        """This rank's part of a saved ``tree``: its catalog tables padded to
+        this mesh's padded catalog (``rows``, the live POI table's, on every
+        model rank) and cut to this rank's rows."""
+        vp = rows * (self.mesh.shape[MODEL_AXIS] if self.mesh is not None else 1)
+        tree = _catalog_rows(tree, vp, pad_bias)
+        return tree if self.mesh is None else shard_state(tree, self.mesh, vp)
+
+    def _submit_once(self, fn, *args) -> None:
+        """``fn`` on rank 0 only, then every rank waits for it."""
+        if self.mesh is None:
+            self._submit(fn, *args)
+            return
+        if self.mesh.rank == 0:
+            fn(*args)
+        dist.barrier()
 
     def _write_step(self, step: int, payload: dict) -> None:
         _write(self._path(step), payload)
@@ -191,10 +247,12 @@ class CheckpointManager:
         the saved step and the saved loader state ({} if none)."""
         state = trainer_or_state.init_state() if hasattr(trainer_or_state, "init_state") else trainer_or_state
         saved = self.load(step)
+        tensors = {k: v for k, v in state.opt_state.items() if k != "count"}
+        rows = state.params["embed.poi"].shape[0]
         with torch.no_grad():
-            _copy_into(state.params, saved["params"], "params")
-            tensors = {k: v for k, v in state.opt_state.items() if k != "count"}
-            _copy_into(tensors, {k: v for k, v in saved["opt_state"].items() if k != "count"}, "opt_state")
+            _copy_into(state.params, self.local_part(saved["params"], rows, True), "params")
+            _copy_into(tensors, self.local_part({k: v for k, v in saved["opt_state"].items() if k != "count"}, rows,
+                                                False), "opt_state")
         # The lr schedule and Adam's bias correction read the count.
         state.opt_state["count"] = int(saved["opt_state"]["count"])
         return TrainState(int(saved["step"]), state.params, state.opt_state), (saved["loader"] or {})
@@ -211,9 +269,9 @@ class CheckpointManager:
         """Persist the best-on-val params under the step they were trained
         to, with the selection's metric and score, so a resumed run can seed
         its tracker and never replace a better earlier selection."""
-        payload = {"step": int(step), "params": _to_host(params), "metric": metric,
+        payload = {"step": int(step), "params": self._whole(params), "metric": metric,
                    "score": None if score is None else float(score)}
-        self._submit(self._write_selected, step, payload)
+        self._submit_once(self._write_selected, step, payload)
 
     def _write_selected(self, step: int, payload: dict) -> None:
         os.makedirs(os.path.join(self.directory, SELECTED), exist_ok=True)
@@ -240,9 +298,11 @@ class CheckpointManager:
         saved = self._load_selected()
         return {k: saved[k] for k in ("step", "metric", "score")}
 
-    def restore_selected(self) -> dict[str, torch.Tensor]:
-        """The selected params, on the host, by ``state_dict`` name."""
-        return self._load_selected()["params"]
+    def restore_selected(self, like: dict[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
+        """The selected params, on the host, by ``state_dict`` name; given
+        the live params ``like``, this rank's part of them at its shapes."""
+        params = self._load_selected()["params"]
+        return params if like is None else self.local_part(params, like["embed.poi"].shape[0], True)
 
 
 def warn_config_mismatch(saved_json: str | None, cfg, sections=("model", "data", "loss")) -> list[str]:

@@ -26,6 +26,7 @@ from poi_tpu_torch.convert import flatten, params_to_numpy, sparse_adam_state_to
 from poi_tpu_torch.data.dataset import load_dataset
 from poi_tpu_torch.data.pipeline import make_train_loader
 from poi_tpu_torch.models.base import DataDims
+from poi_tpu_torch.parallel.mesh import Mesh
 from poi_tpu_torch.train import sparse_opt
 from poi_tpu_torch.train.loop import Trainer, train
 
@@ -169,8 +170,9 @@ def test_rows_step_matches_the_dense_grad_sparse_path(ds, batches, reference, mo
 
 def test_config5_full_dims_trainer_builds_without_allocating():
     """Config #5's Trainer at its full dims (V = 903,889, D = 512) builds in
-    rows mode, its 1.85 GB table on the meta device; mesh.model=4, the
-    preset's, still waits for the multi-GPU layer."""
+    rows mode, its 1.85 GB table on the meta device; the preset's own mesh
+    (mesh.model=4, a2a) builds on rank 0 of a (1, 4) mesh with a quarter of
+    the padded catalog (903,892 rows) and no rows step."""
     dims = DataDims(num_users=99_988, num_pois=903_889, num_time_buckets=168, num_geo_buckets=1024,
                     num_tgap_buckets=1, num_dist_buckets=1)
     cfg = get_config("multihost_1m").with_overrides({"mesh.model": "1", "mesh.embedding_mode": "psum"})
@@ -178,5 +180,5 @@ def test_config5_full_dims_trainer_builds_without_allocating():
     assert tt.rows_mode and tt.model.embed["poi"].shape == (903_889, 512) and tt.model.embed["poi"].is_meta
     state = tt.init_state()
     assert state.opt_state["m"]["embed.poi"].is_meta
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        Trainer(get_config("multihost_1m"), dims, device="meta")
+    sharded = Trainer(get_config("multihost_1m"), dims, device="meta", mesh=Mesh(1, 4, world_size=4, rank=0))
+    assert not sharded.rows_mode and sharded.a2a and sharded.model.embed["poi"].shape == (225_973, 512)

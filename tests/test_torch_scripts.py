@@ -98,11 +98,12 @@ def test_kernel_ms_record_check(counts, expect, fault):
 def test_kernel_ms_retakes_an_incomplete_record(monkeypatch, capsys):
     records = iter([{"a": (1, 5.0)}, {"a": (3, 20.0)},  # the first 4-call record lost a launch
                     {"a": (1, 5.0)}, {"a": (4, 20.0)}])
+    monkeypatch.setattr(_timing, "RETAKE_PAUSE_S", 0.0)
     monkeypatch.setattr(_timing, "_device_record", lambda fn, calls: next(records))
     assert _timing.kernel_ms(lambda: None, 4) == {"a": 20.0 / 1e3 / 4}
-    assert "profiler record 1/3 incomplete" in capsys.readouterr().out
+    assert f"profiler record 1/{_timing.PROFILE_TRIES} incomplete" in capsys.readouterr().out
     monkeypatch.setattr(_timing, "_device_record", lambda fn, calls: {"a": (calls, 1.0)} if calls == 1 else {})
-    with pytest.raises(RuntimeError, match="missed launches in 3 records"):
+    with pytest.raises(RuntimeError, match=f"missed launches in {_timing.PROFILE_TRIES} records"):
         _timing.kernel_ms(lambda: None, 4)
 
 

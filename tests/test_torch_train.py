@@ -36,6 +36,7 @@ from poi_tpu_torch.data.pipeline import make_batch
 from poi_tpu_torch.eval.evaluate import evaluate, popularity_baseline
 from poi_tpu_torch.models.base import DataDims, build_model
 from poi_tpu_torch.models.gru import GRUModel
+from poi_tpu_torch.parallel.mesh import Mesh
 from poi_tpu_torch.train import loop
 from poi_tpu_torch.train.loop import FaultInjected, Trainer, train
 from poi_tpu_torch.train.selection import BestOnVal
@@ -309,18 +310,29 @@ def test_fault_injection_raises_at_the_step_and_resume_continues(smoke_ds, sampl
     assert final.step == 5 and [r["step"] for r in hist] == [4, 5]
 
 
-@pytest.mark.parametrize("overrides, match", [
-    # Lazy Adam on a vocab-sharded tied table above 512 MiB (410 POIs x
-    # 400,000 x 4 bytes): the rows-gradient step runs on one device, its
-    # sharded form waits for the multi-GPU layer; raised before any table is
-    # built.
-    ({"train.table_update": "sparse", "loss.kind": "sampled_softmax", "model.embed_dim": 400_000, "mesh.model": 2},
-     "sparse"),
-    ({"mesh.model": 2}, "mesh.model"),
-])
-def test_trainer_rejects_what_is_not_ported(smoke_ds, overrides, match):
-    with pytest.raises(NotImplementedError, match=match):
-        Trainer(_smoke(**overrides), DataDims.from_dataset(smoke_ds), device="cpu")
+@pytest.mark.parametrize("case", [pytest.param("sharded_sparse_tied", id="overrides0-sparse"),
+                                  pytest.param("unfit_mesh", id="overrides1-mesh.model")])
+def test_trainer_rejects_what_is_not_ported(smoke_ds, case):
+    """What took the place of the two refusals: mesh.model=2 without a
+    process group is a mesh that does not fit the world size (the
+    reference's ValueError); lazy Adam on a vocab-sharded tied table above
+    512 MiB (1,100,000 POIs x 128 x 4 bytes) builds on one rank of a (1, 2)
+    mesh (shape only, on the meta device) without the rows-gradient step,
+    which stays a one-shard path (rows_mode_enabled), and with half the
+    padded catalog a rank."""
+    dims = DataDims.from_dataset(smoke_ds)
+    if case == "unfit_mesh":
+        with pytest.raises(ValueError, match="1 devices not divisible by model=2"):
+            Trainer(_smoke(**{"mesh.model": 2}), dims, device="cpu")
+        return
+    cfg = _smoke(**{"train.table_update": "sparse", "loss.kind": "sampled_softmax", "model.embed_dim": 128,
+                    "mesh.model": 2})
+    big = dataclasses.replace(dims, num_pois=1_100_001, num_pois_padded=0)
+    one = Trainer(cfg.with_overrides({"mesh.model": "1"}), big, device="meta")
+    tt = Trainer(cfg, big, device="meta", mesh=Mesh(1, 2, world_size=2, rank=0))
+    assert one.rows_mode and not tt.rows_mode and tt.sparse
+    assert tt.dims.num_pois_padded == 1_100_002 and tt.model.embed["poi"].shape == (550_001, 128)
+    assert tt.model.embed["out_bias"].shape == (550_001,) and tt.sharded == {"embed.poi", "embed.out_bias"}
 
 
 ENTRY_POINTS = {

@@ -30,6 +30,7 @@ from poi_tpu_torch.data.pipeline import make_batch
 from poi_tpu_torch.eval.evaluate import evaluate
 from poi_tpu_torch.eval.serve import Checkin, Recommender
 from poi_tpu_torch.models.base import DataDims, batch_to
+from poi_tpu_torch.parallel.mesh import Mesh
 from poi_tpu_torch.train.loop import DROPOUT_STREAM, Trainer, train
 
 torch.set_num_threads(1)
@@ -164,14 +165,18 @@ def test_dropout_draws_are_keyed_by_step(ds):
 
 def test_trainer_rejects_the_rows_gradient_step(ds):
     """The rows-gradient step (a tied table above DENSE_LAZY_MAX_BYTES) is
-    ported: the Trainer takes it on one device, and rejects only its
-    vocab-sharded form (mesh.model > 1), which waits for the multi-GPU
-    layer. The 2 GB table is built on the meta device."""
+    a one-shard path: the Trainer takes it on one device; its vocab-sharded
+    form (mesh.model > 1) builds on one rank of a (1, 4) mesh without it
+    (the dense-gradient lazy Adam on the rank's rows), and without a
+    process group mesh.model=4 is a mesh that does not fit one device. The
+    2 GB table is built on the meta device."""
     big = DataDims(num_users=1, num_pois=1_000_000, num_time_buckets=1, num_geo_buckets=1, num_tgap_buckets=1,
                    num_dist_buckets=1)
     wide = {"model.embed_dim": 512, "model.hidden_dim": 512}
     assert Trainer(_cfg(**wide), big, device="meta").rows_mode
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    sharded = Trainer(_cfg(**wide, **{"mesh.model": 4}), big, device="meta", mesh=Mesh(1, 4, world_size=4, rank=3))
+    assert not sharded.rows_mode and sharded.model.embed["poi"].shape == (250_000, 512)
+    with pytest.raises(ValueError, match="1 devices not divisible by model=4"):
         Trainer(_cfg(**wide, **{"mesh.model": 4}), big, device="meta")
 
 
