@@ -76,6 +76,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -121,6 +122,10 @@ CE_LSE_TOL = 1e-4
 # few terms of the sum. dbias sums the unrounded gp: fp32 order only.
 CE_GRAD_TOL = 2e-3
 CE_DBIAS_TOL = 1e-5
+# B10 at these widths is held element by element to the bound that its
+# arithmetic allows (b10_bound_ratios), not to CE_GRAD_TOL: at D = 512 the
+# max-over-max ratio reached 1.71e-3 and 2.03e-3 on correct runs.
+B10_BOUND_DIMS = (512,)
 
 # The training workload bench.py times (bench.py:126-153, 44,170 POIs and
 # 4,925 training windows after filtering) at batch 512, device-sampled in
@@ -915,8 +920,10 @@ def sampled_phase() -> dict:
         torch.cuda.synchronize()
         want = sampled_bwd_reference(q, e, b, ids, tgt, lse_tot, g)
         errs = [rel_err(a, w) for a, w in zip(got, want)]
-        assert errs[0] < CE_GRAD_TOL and errs[1] < CE_GRAD_TOL and errs[2] < CE_DBIAS_TOL, \
-            f"sampled_bwd N={N} S={S} D={D}: rel err dq/de/db {errs}"
+        checked = b10_check((q, e, b, ids, tgt, lse_tot, g), got, want, f"sampled_bwd N={N} S={S} D={D}")
+        if D in B10_BOUND_DIMS:
+            out.setdefault("b10_ratios", []).append({"case": [N, S, D, V, pad, hits], "dq": checked[0],
+                                                     "de": checked[1]})
         zero_rows = torch.cat([full_hits, torch.arange(S, S + pad, device=DEV)])
         assert bool((got[1][zero_rows] == 0).all()) and bool((got[2][zero_rows] == 0).all()), \
             "a hit column or a padded pool entry got gradient"
@@ -927,8 +934,10 @@ def sampled_phase() -> dict:
         n_hits = int((ids[None, :] == tgt[:, None]).sum())
         all_hit = "; rows 0-19 (every entry a hit or padding) give -1e30" if hits == "all" else ""
         log(f"[sampled] N={N} S={S}{f'+{pad} padded' if pad else ''} D={D}: {n_hits} hits; lse max err {e_lse:.2e} "
-            f"(tol {CE_LSE_TOL}){all_hit}; rel err dq {errs[0]:.2e}, de {errs[1]:.2e} (tol {CE_GRAD_TOL}), db "
-            f"{errs[2]:.2e} (tol {CE_DBIAS_TOL}); {len(zero_rows)} hit/padded pool rows exactly 0; a second run gives "
+            f"(tol {CE_LSE_TOL}){all_hit}; rel err dq {errs[0]:.2e}, de {errs[1]:.2e} ("
+            + (f"element-wise bound: largest |err| / bound dq {checked[0]:.4f}, de {checked[1]:.4f}, each <= 1"
+               if D in B10_BOUND_DIMS else f"tol {CE_GRAD_TOL}")
+            + f"), db {errs[2]:.2e} (tol {CE_DBIAS_TOL}); {len(zero_rows)} hit/padded pool rows exactly 0; a second run gives "
             f"the same bits; every forced split of B9 within the tolerance")
         key = {SAMPLED_CASES[0]: "", SAMPLED_C5: "_d512"}.get((N, S, D, V, pad, hits))
         if key is not None:
@@ -953,6 +962,79 @@ def sampled_phase() -> dict:
             sampled_splits(q, e, b, ids, tgt, lse_tot, g, got)
             sampled_nll_bits(q, e, b, ids, tgt, g)
     return out
+
+
+def b10_bound_ratios(args, got, want) -> tuple[float, float]:
+    """B10's outputs ``got`` against the plain version's ``want`` element by
+    element: the largest |dq - dq_plain| / bound and |dE - dE_plain| /
+    bound, each <= 1 for a correct kernel (0/0 counts as 0). ``args``: the
+    wrapper's inputs (q, e, b, ids, tgt, lse_tot, g).
+
+    The bound follows the arithmetic of both sides, with u = 2^-24 (fp32's
+    unit roundoff) and gp = exp(z - lse) * g the plain version's fp32 gp:
+
+    - Each side rounds its own gp to bf16 (the TPU kernel does the same,
+      poi_tpu/ops/fused_sampled.py:122), each within 2^-8 of it (bf16's unit
+      roundoff). Where the two fp32 gp straddle a rounding midpoint they land
+      one bf16 step apart, and a step is below 2^-7 of gp: so |gpb_kernel -
+      gpb_plain| <= 2^-7 |gp| + 1.01 |gp_kernel - gp_plain|.
+    - The two fp32 gp differ by at most delta |gp| (first order): the logit's
+      D-term sum, fp32 on both sides in other orders, the kernel's on the
+      tensor cores, allowed to truncate: 3 D u (|q| @ |e|^T); the bias add,
+      the lse subtraction and the g product, one rounding each a side:
+      4 u (|z| + |z - lse|) + 2 u; the kernel's __expf against torch.exp:
+      (2 + 1.173 |z - lse|) ulps (CUDA's bound for __expf) plus 2 ulps, an
+      ulp 2^-23: (4 + 1.2 |z - lse|) 2u.
+    - The products' fp32 sums over the n terms (S for dq, N for dE), any
+      order: (n - 1) u on the plain side and (n - 1) 2u on the kernel's,
+      of sum |gpb| |operand|; 3.03 (n - 1) u with 1% for the kernel's gpb.
+
+    So |dq - dq_plain| <= (c |gp| + 3.03 (S - 1) u |gpb|) @ |E_bf16| and
+    |dE - dE_plain| <= (c |gp| + 3.03 (N - 1) u |gpb|)^T @ |q_bf16|, with
+    c = 2^-7 + 1.01 delta. Unlike the largest error over the largest value
+    (``rel_err``), it catches one small element that is far off. Hit and
+    padded columns have gp = 0 on both sides, so their bound is 0."""
+    import torch
+
+    from poi_tpu_torch.ops.fused_sampled import sampled_logits_reference
+
+    q, e, b, ids, tgt, lse_tot, g = args
+    u = 2.0 ** -24
+    N, D = q.shape
+    S = e.shape[0]
+    qa, ea = q.to(torch.bfloat16).float().abs(), e.to(torch.bfloat16).float().abs()
+    z = sampled_logits_reference(q, e, b, ids, tgt)
+    x = z - lse_tot.float()[:, None]
+    gp = torch.exp(x) * g.float()[:, None]
+    gpa = gp.abs()
+    gpba = gp.to(torch.bfloat16).float().abs()
+    del gp
+    delta = 3 * D * u * (qa @ ea.T) + 4 * u * (z.abs() + x.abs()) + 2 * u + (4 + 1.2 * x.abs()) * 2 * u
+    del z, x
+    cg = (2.0 ** -7 + 1.01 * delta) * gpa
+    del delta, gpa
+    bounds = ((cg + 3.03 * (S - 1) * u * gpba) @ ea, (cg + 3.03 * (N - 1) * u * gpba).T @ qa)
+    ratios = []
+    for a, w, bd in zip(got[:2], want[:2], bounds):
+        err = (a - w).abs()
+        ratios.append(float(torch.where(err == 0, 0.0, err / bd).max()))
+    return ratios[0], ratios[1]
+
+
+def b10_check(args, got, want, what: str) -> tuple[float, float]:
+    """B10's outputs against the plain version's: dq and dE by the
+    element-wise bound at ``B10_BOUND_DIMS`` (the ratios returned, each
+    <= 1), by ``CE_GRAD_TOL`` of ``rel_err`` below (those returned); db by
+    ``CE_DBIAS_TOL`` (fp32 sums of the unrounded gp)."""
+    db = rel_err(got[2], want[2])
+    if args[0].shape[1] in B10_BOUND_DIMS:
+        ratios = b10_bound_ratios(args, got, want)
+        assert max(ratios) <= 1.0 and db < CE_DBIAS_TOL, \
+            f"{what}: |err| / element-wise bound dq/de {ratios}, db rel err {db}"
+        return ratios
+    errs = (rel_err(got[0], want[0]), rel_err(got[1], want[1]))
+    assert max(errs) < CE_GRAD_TOL and db < CE_DBIAS_TOL, f"{what}: rel err dq/de/db {(*errs, db)}"
+    return errs
 
 
 def sampled_lse_at(args, splits: int):
@@ -2532,11 +2614,41 @@ MESH_TOPK_ROWS = 512  # the val (test) rows whose top-k scores and ids the mesh 
 # a cancelling sum near Adam's eps, where the first step turns its last bits
 # into up to lr (1% of the entries, 1.26e-3 at most, in my first run).
 MESH_TABLE_JOBS = ("c5",)
-# job -> (config, sets, steps, split, the sets of a second run in the same
-# processes on the same corpus, or None): config #5 at the preset's own a2a
-# capacity follows its exact run.
-MESH_JOBS = {"c5": (C5_CONFIG, {**MESH_C5_SETS, **MESH_EXACT}, MESH_C5_STEPS, "val", MESH_C5_SETS),
-             "bench": ("smoke", MESH_BENCH_SETS, MESH_BENCH_STEPS, "test", None)}
+# Sequence-parallel attention (parallel/sp_attention.py) on config #5's
+# 1 x 4: a run of each impl at capacity factor M (no drops), held to the
+# blockwise run on the same ranks and to the one-rank run. Ulysses puts 2
+# of the 8 heads on a rank; ring's time blocks of 16 are the window.
+MESH_SP_IMPLS = ("ring", "ulysses")
+# job -> (config, sets, steps, split, the runs that follow from the init in
+# the same processes on the same corpus: name -> sets): config #5 at the
+# preset's own a2a capacity, and with ring and Ulysses attention.
+MESH_JOBS = {"c5": (C5_CONFIG, {**MESH_C5_SETS, **MESH_EXACT}, MESH_C5_STEPS, "val",
+                    {"preset": MESH_C5_SETS,
+                     **{impl: {**MESH_C5_SETS, **MESH_EXACT, "model.attn_impl": impl} for impl in MESH_SP_IMPLS}}),
+             "bench": ("smoke", MESH_BENCH_SETS, MESH_BENCH_STEPS, "test", {})}
+# Config #4's tower (attention_gowalla: GRU 256-d, 4 heads, window 16, T =
+# 128, batch 64) on the bench job's 2 x 2 with ring and with Ulysses, each
+# data rank its 32 rows, against blockwise attention on one rank over the
+# whole batch: the output and the gradients of the GRU and of wq..wo under
+# one cotangent. In fp32 (the plain GRU) at tests/test_sp_attention.py's
+# tolerances (|diff| <= atol + rtol |ref|: 1e-4 forward, 1e-3 gradients); in
+# bf16 (B1 and B2 on every rank) to 2^-5 of each tensor's largest value:
+# ring rounds its unnormalised probabilities to bf16 where blockwise rounds
+# the normalised ones, and the attention output is rounded again before wo
+# (2^-8 a rounding), so the two differ by a few bf16 steps, which the layer
+# norm scales up.
+TOWER_FP32_TOL = (1e-4, 1e-3)
+TOWER_BF16_TOL = 2.0 ** -5
+# Config #5 served on its 1 x 4 by the c5 job's ranks, through the serve
+# CLI, from the checkpoint of its exact run: SERVE_SINGLES one-history
+# requests, one of SERVE_BATCH histories twice (its first call pays the
+# shapes' first allocations), one whose 128 fetched candidates
+# are all visited (scored again by every rank), a malformed line and a k =
+# 129 line (answered by rank 0 alone), then EOF. At capacity factor M: at
+# the preset's 2.0 the a2a lookup may drop ids, the reference's semantics.
+SERVE_SINGLES = 64
+SERVE_BATCH = 256
+SERVE_SETS = {**MESH_C5_SETS, **MESH_EXACT}
 
 
 # The rank body that mesh_run spawns (module:function).
@@ -2612,11 +2724,12 @@ def mesh_reference(job: str, ds, work: Path) -> dict:
     return out
 
 
-def mesh_steps(trainer, state, cfg, ds, steps: int, table1: Path | None = None) -> tuple:
+def mesh_steps(trainer, state, cfg, ds, steps: int, table1: Path | None = None, lookup_ms: bool = True) -> tuple:
     """``steps`` device-sampled steps through ``train()``, timed one by one:
     the losses, step ms, ``a2a_overflow`` by step and the peak memory;
     given ``table1`` (the one-rank POI table after step 1, ``.npy``), this
-    rank's rows against it after step 1."""
+    rank's rows against it after step 1; with ``lookup_ms``, the a2a
+    lookup's time alone."""
     import numpy as np
     import torch
 
@@ -2644,7 +2757,7 @@ def mesh_steps(trainer, state, cfg, ds, steps: int, table1: Path | None = None) 
             res.update(table1_max_abs=float(d.max()), table1_off=int((d > 2e-6 + 2e-5 * want.abs()).sum()),
                        table1_n=int(d.numel()))
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    if trainer.a2a:  # the a2a lookup of step 0's inputs alone, every rank in step
+    if trainer.a2a and lookup_ms:  # the a2a lookup of step 0's inputs alone, every rank in step
         batch = trainer.sampler.sample(0)
         table = trainer.model.embed["poi"].detach()
 
@@ -2658,15 +2771,17 @@ def mesh_steps(trainer, state, cfg, ds, steps: int, table1: Path | None = None) 
 
 
 def mesh_child(job: str, out: str, config: str, sets: dict, steps: int, split: str, device: str,
-               then: dict | None = None) -> None:
+               then: dict) -> None:
     """One rank of a mesh job (``spawn`` runs it ``MESH_WORLD`` times):
     the top-k of the split's first rows at the init; ``mesh_steps`` on the
     job's mesh; the launches; ``evaluate()``. Rank 0 also holds the B9,
     B10 and B11 calls it made (the first of each, at the path's shapes)
-    against their plain versions. ``then``: the sets of a second run from
-    the init on the same corpus (``mesh_steps`` only, under ``"then"``).
-    Writes ``out/rank<r>.json`` (rank 0 also the top-k as ``topk.pt``). The
-    job comes as arguments, ``device`` too (``cuda`` on the card)."""
+    against their plain versions. ``then``: the runs that follow from the
+    init on the same corpus (``mesh_steps`` and their launches, under
+    ``"then"``). The c5 job then serves (``serve_prepare``, ``mesh_serve``),
+    the bench job checks config #4's tower (``tower_run``). Writes
+    ``out/rank<r>.json`` (rank 0 also the top-k as ``topk.pt``). The job
+    comes as arguments, ``device`` too (``cuda`` on the card)."""
     global DEV
     DEV = device
     os.environ.setdefault("POI_TPU_TORCH_DATA_CACHE", "off")
@@ -2675,7 +2790,7 @@ def mesh_child(job: str, out: str, config: str, sets: dict, steps: int, split: s
 
     from poi_tpu_torch.data.dataset import load_dataset
     from poi_tpu_torch.eval import evaluate as evaluate_mod
-    from poi_tpu_torch.ops import fused_sampled
+    from poi_tpu_torch.ops import fused_gru, fused_sampled
     from poi_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, init_distributed
     from poi_tpu_torch.train.loop import make_trainer
 
@@ -2687,28 +2802,30 @@ def mesh_child(job: str, out: str, config: str, sets: dict, steps: int, split: s
     ds = load_dataset(cfg.data)
     work = Path(out)
     # The first call of each kernel on this path, its arguments kept (rank
-    # 0). The wrapper stands in for the kernel's wrapper under its module
-    # name, which the kernel's wrapper counts its launches on.
+    # 0), under ``key(name, args)``. The wrapper stands in for the kernel's
+    # wrapper under its module name, which the kernel's wrapper counts its
+    # launches on.
     calls: dict = {}
-    sites = {"sampled_lse": fused_sampled, "sampled_bwd": fused_sampled, "topk": evaluate_mod}
-    real = {"sampled_lse": fused_sampled.sampled_lse, "sampled_bwd": fused_sampled.sampled_bwd,
-            "topk": evaluate_mod.fused_topk}
+    sites = {"sampled_lse": (fused_sampled, "sampled_lse"), "sampled_bwd": (fused_sampled, "sampled_bwd"),
+             "topk": (evaluate_mod, "fused_topk"), "gru_fwd": (fused_gru, "fused_gru_scan"),
+             "gru_bwd": (fused_gru, "fused_gru_bwd")}
+    real = {name: getattr(*site) for name, site in sites.items()}
 
-    def keep(*names):
+    def keep(*names, key=lambda name, args: name):
         for name in names:
             def wrapped(*args, name=name):
-                if rank == 0 and name not in calls:
-                    calls[name] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+                k = key(name, args)
+                if rank == 0 and k not in calls:
+                    calls[k] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
                 return real[name](*args)
             wrapped.launches = wrapped.start = real[name].launches
-            setattr(sites[name], "fused_topk" if name == "topk" else name, wrapped)
+            setattr(*sites[name], wrapped)
 
     def unkeep(*names):
         for name in names:
-            attr = "fused_topk" if name == "topk" else name
-            wrapped = getattr(sites[name], attr)
+            wrapped = getattr(*sites[name])
             real[name].launches += wrapped.launches - wrapped.start
-            setattr(sites[name], attr, real[name])
+            setattr(*sites[name], real[name])
 
     trainer = make_trainer(cfg, ds, DEV)
     mesh = trainer.mesh
@@ -2730,23 +2847,203 @@ def mesh_child(job: str, out: str, config: str, sets: dict, steps: int, split: s
     if rank == 0:
         res["kernels"] = mesh_kernel_checks(calls)
         torch.save({"vals": vals, "ids": ids}, work / f"{job}_topk.pt")
-    if then is not None:
-        del trainer, state
+    if job == "c5":
+        res["serve_prep"] = serve_prepare(trainer, state, cfg, ds, work, rank)
+    del trainer, state
+    torch.cuda.empty_cache()
+    res["then"] = {}
+    for name, then_sets in then.items():
+        c = mesh_cfg(config, then_sets)
+        t = make_trainer(c, ds, DEV)
+        reset_launches()
+        res["then"][name] = mesh_steps(t, t.init_state(), c, ds, steps, lookup_ms=name == "preset")[1]
+        res["then"][name]["launches"] = read_launches()
+        del t
         torch.cuda.empty_cache()
-        cfg = mesh_cfg(config, then)
-        trainer = make_trainer(cfg, ds, DEV)
-        res["then"] = mesh_steps(trainer, trainer.init_state(), cfg, ds, steps)[1]
+    if job == "bench":  # config #4's tower with SP attention on this 2 x 2, against one rank
+        inputs = tower_inputs()
+        dtypes = ("float32", "bfloat16")
+        refs = {d: tower_run(d, None, mesh, inputs) for d in dtypes} if rank == 0 else {}
+        calls.clear()
+        reset_launches()
+        keep("gru_fwd", "gru_bwd")
+        sp = {(d, impl): tower_run(d, impl, mesh, inputs) for d in dtypes for impl in MESH_SP_IMPLS}
+        unkeep("gru_fwd", "gru_bwd")
+        res["tower_launches"] = read_launches()
+        if rank == 0:
+            res["tower"] = tower_errors(sp, refs)
+            res["tower_kernels"] = mesh_kernel_checks(calls)
+    if job == "c5":  # last: the serve CLI ends the process group when it returns
+        calls.clear()
+        reset_launches()
+        keep("topk", key=lambda name, args: f"{name}_b{args[0].shape[0]}")
+        res["serve"] = mesh_serve(work, rank)
+        unkeep("topk")
+        res["serve"]["launches"] = read_launches()
+        if rank == 0:
+            res["serve_kernels"] = {f"b{b}": mesh_kernel_checks({"topk": calls[f"topk_b{b}"]})["topk"]
+                                    for b in (1, SERVE_BATCH)}
     (work / f"rank{rank}.json").write_text(json.dumps(res))
-    dist.barrier()  # every rank is done before any exits
-    dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.barrier()  # every rank is done before any exits
+        dist.destroy_process_group()
+
+
+def tower_inputs() -> dict:
+    """Config #4's tower inputs from the seed: x [B, T, E], a ragged
+    validity-prefix mask, and a cotangent of the output."""
+    import torch
+
+    from poi_tpu_torch.configs.presets import get_config
+
+    base = get_config(ATTN_CONFIG)
+    B, T, E, H = base.train.batch_size, base.data.max_seq_len, base.model.embed_dim, base.model.hidden_dim
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 21)
+    lengths = torch.randint(1, T + 1, (B,), generator=gen, device=DEV)
+    return {"x": 0.5 * torch.randn(B, T, E, generator=gen, device=DEV),
+            "mask": (torch.arange(T, device=DEV)[None, :] < lengths[:, None]).float(),
+            "cot": torch.randn(B, T, H, generator=gen, device=DEV)}
+
+
+def tower_run(dtype: str, impl: str | None, mesh, inputs: dict) -> tuple:
+    """Config #4's tower (``AttentionTower`` from the seed, compute
+    ``dtype``) forward and backward under the cotangent: with SP ``impl``
+    on ``mesh``, each data rank its rows, the output gathered and the
+    gradients summed over ``data`` (every rank calls); with None, blockwise
+    on this rank over the whole batch. Returns (output, {name: gradient}) of
+    the GRU's and the projections' parameters."""
+    import types
+
+    import torch
+
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.models.attention import AttentionTower
+    from poi_tpu_torch.parallel import collectives as cc
+    from poi_tpu_torch.parallel.mesh import DATA_AXIS
+    from poi_tpu_torch.parallel.sp_attention import make_sp_attention
+
+    model_cfg = get_config(ATTN_CONFIG).with_overrides({"model.compute_dtype": dtype}).model
+    tower = AttentionTower(model_cfg, torch.Generator().manual_seed(SEED), DEV)
+    r = slice(None)
+    if impl is not None:
+        r = mesh.rows(inputs["x"].shape[0], DATA_AXIS)
+        tower.sp_mha = make_sp_attention(mesh, model_cfg.attn_heads, model_cfg.attn_window, impl,
+                                         torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+    o = tower(inputs["x"][r], types.SimpleNamespace(mask=inputs["mask"][r]))
+    (o * inputs["cot"][r]).sum().backward()
+    grads = {k: p.grad for k, p in tower.named_parameters() if k.startswith(("gru.", "mha."))}
+    if impl is not None:
+        o = cc.all_gather(o.detach(), mesh, DATA_AXIS)
+        grads = {k: cc.all_reduce_(g.clone(), mesh, DATA_AXIS) for k, g in grads.items()}
+    torch.cuda.synchronize()
+    return o.detach(), grads
+
+
+def tower_errors(sp: dict, refs: dict) -> dict:
+    """Each SP run's output and gradients against the one-rank blockwise
+    run: in fp32 the largest |diff| / (atol + rtol |ref|) (<= 1 within
+    ``TOWER_FP32_TOL``), in bf16 ``rel_err`` (<= ``TOWER_BF16_TOL``)."""
+    out = {}
+    for (dtype, impl), (o, grads) in sp.items():
+        ref_o, ref_g = refs[dtype]
+        pairs = {"out": (o, ref_o), **{k: (g, ref_g[k]) for k, g in grads.items()}}
+        if dtype == "float32":
+            tol = {k: TOWER_FP32_TOL[0] if k == "out" else TOWER_FP32_TOL[1] for k in pairs}
+            out[f"{impl}_{dtype}"] = {k: float(((a - w).abs() / (tol[k] + tol[k] * w.abs())).max())
+                                      for k, (a, w) in pairs.items()}
+        else:
+            out[f"{impl}_{dtype}"] = {k: rel_err(a, w) for k, (a, w) in pairs.items()}
+    return out
+
+
+def serve_prepare(trainer, state, cfg, ds, work: Path, rank: int) -> dict:
+    """Config #5's serving inputs from its exact run's state: the
+    checkpoint (every rank calls ``save``; the tables gathered, rank 0
+    writes one step file), and on rank 0 the serve session's stdin: the
+    parent's histories (``serve_requests.json``), a malformed line and a k
+    = 129 line among them, and a long row. The long row's model window is
+    the parent's ``tail``; its earlier check-ins are that window's 128 best
+    POIs (the mesh's Recommender on the trained params, every rank in
+    step), so every candidate of the capped fetch is visited."""
+    import torch
+
+    from poi_tpu_torch.eval.serve import Checkin, Recommender
+    from poi_tpu_torch.ops.topk import MAX_K
+    from poi_tpu_torch.utils.checkpoint import CheckpointManager
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CheckpointManager(str(work / "c5_ckpt"), mesh=trainer.mesh, num_pois=trainer.dims.num_pois).save(
+        state.step, state, config_json=cfg.to_json())
+    save_s = time.perf_counter() - t0
+    req = json.loads((work / "serve_requests.json").read_text())
+    tail = [Checkin(**c) for c in req["tail"]]
+    best = Recommender(trainer.model, cfg, ds, mesh=trainer.mesh).recommend([tail] if rank == 0 else None, k=MAX_K,
+                                                                            exclude_visited=False)
+    if rank == 0:
+        long = [{"poi": int(p), "timestamp": 60.0 * i} for i, p in enumerate(best[0])] + req["tail"]
+        singles = req["singles"]
+        half = len(singles) // 2
+        lines = ([json.dumps([h]) for h in singles[:half]]
+                 + ["this is not json", json.dumps({"histories": singles[:1], "k": MAX_K + 1})]
+                 + [json.dumps([h]) for h in singles[half:]] + [json.dumps(req["batch"])] * 2 + [json.dumps([long])])
+        (work / "serve_stdin.txt").write_text("\n".join(lines) + "\n")
+        (work / "serve_long.json").write_text(json.dumps(long))
+    return {"ckpt_save_s": save_s, "step": state.step}
+
+
+def mesh_serve(work: Path, rank: int) -> dict:
+    """``poi_tpu_torch.cli.main(["serve", ...])`` on this rank of the mesh,
+    as a user runs it under a launcher (this rank's group is up, so the
+    CLI's own NCCL call does nothing), from the c5 checkpoint at
+    ``SERVE_SETS``; rank 0 reads ``serve_stdin.txt`` and writes its answers
+    to ``serve_stdout.txt``. Every call of ``Recommender.recommend`` is
+    counted, and timed on the host clock around a synchronised card: the
+    rig's wall ms a request, with its rows."""
+    import torch
+
+    from poi_tpu_torch import cli
+    from poi_tpu_torch.eval import serve as serve_mod
+
+    real = serve_mod.Recommender.recommend
+    times = []
+
+    def timed(self, histories, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = real(self, histories, *args, **kwargs)
+        torch.cuda.synchronize()
+        times.append([0 if histories is None else len(histories), (time.perf_counter() - t0) * 1e3])
+        return ids
+
+    argv = ["serve", "--config", C5_CONFIG, "--checkpoint-dir", str(work / "c5_ckpt"), "--device", DEV, "--set",
+            *(f"{k}={v}" for k, v in SERVE_SETS.items())]
+    serve_mod.Recommender.recommend = timed
+    t0 = time.perf_counter()
+    try:
+        if rank == 0:
+            with open(work / "serve_stdin.txt") as fin, open(work / "serve_stdout.txt", "w") as fout:
+                stdio = sys.stdin, sys.stdout
+                sys.stdin, sys.stdout = fin, fout
+                try:
+                    rc = cli.main(argv)
+                finally:
+                    sys.stdin, sys.stdout = stdio
+        else:
+            rc = cli.main(argv)
+    finally:
+        serve_mod.Recommender.recommend = real
+    return {"rc": rc, "calls": len(times), "times": times if rank == 0 else [], "wall_s": time.perf_counter() - t0}
 
 
 def mesh_kernel_checks(calls: dict) -> dict:
-    """B9, B10 and B11 on the arguments the sharded path gave them (rank
-    0's first call of each) against their plain versions, at the earlier
-    phases' tolerances; the shapes, the errors and the kernels' times."""
+    """B1, B2, B9, B10 and B11 on the arguments the sharded path gave them
+    (rank 0's first call of each) against their plain versions, at the
+    earlier phases' tolerances; the shapes, the errors and the kernels'
+    times."""
     import torch
 
+    from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan, gru_bwd_reference, gru_scan_reference
     from poi_tpu_torch.ops.fused_sampled import (sampled_bwd, sampled_bwd_reference, sampled_lse,
                                                  sampled_lse_reference)
     from poi_tpu_torch.ops.topk import fused_topk, topk_reference
@@ -2766,14 +3063,34 @@ def mesh_kernel_checks(calls: dict) -> dict:
         args = calls["sampled_bwd"]
         got, want = sampled_bwd(*args), sampled_bwd_reference(*args)
         errs = [rel_err(a, w) for a, w in zip(got, want)]
-        assert errs[0] < CE_GRAD_TOL and errs[1] < CE_GRAD_TOL and errs[2] < CE_DBIAS_TOL, \
-            f"mesh: sampled_bwd on rank 0's rows: rel err dq/de/db {errs}"
+        checked = b10_check(args, got, want, "mesh: sampled_bwd on rank 0's rows")
         (N, D), S = args[0].shape, args[1].shape[0]
         out["sampled_bwd"] = {"shape": [list(a.shape) for a in args[:2]], "rel_err": errs,
+                              **({"bound_ratios": checked} if D in B10_BOUND_DIMS else {}),
                               "max_abs_err": max(float((a - w).abs().max()) for a, w in zip(got, want)),
                               "ms": time_ms(lambda: sampled_bwd(*args)),
                               "plain_ms": time_ms(lambda: sampled_bwd_reference(*args)),
                               **bound(args, got, bf16_flop=6 * N * S * D)}
+    if "gru_fwd" in calls:
+        xw, wh = calls["gru_fwd"]
+        got, want = fused_gru_scan(xw, wh), gru_scan_reference(xw, wh)
+        err = float((got - want).abs().max())
+        assert err < GRU_TOL, f"mesh: gru_fwd on rank 0's rows: max |kernel - plain| {err}"
+        B, T, H = got.shape
+        out["gru_fwd"] = {"shape": [B, T, H], "max_abs_err": err, "ms": time_ms(lambda: fused_gru_scan(xw, wh)),
+                          "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh), 5),
+                          "library_ms": cudnn_ms("gru", B, T, H, DEV),
+                          **bound((xw, wh), (got,), bf16_flop=2 * B * T * H * 3 * H)}
+    if "gru_bwd" in calls:
+        args = calls["gru_bwd"]
+        got, want = fused_gru_bwd(*args), gru_bwd_reference(*args)
+        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        assert max(errs) < GRU_BWD_TOL, f"mesh: gru_bwd on rank 0's rows: rel err dxw/dwh {errs}"
+        out["gru_bwd"] = {"shape": list(args[2].shape), "rel_err": errs,
+                          "max_abs_err": max(float((a - w).abs().max()) for a, w in zip(got, want)),
+                          "ms": time_ms(lambda: fused_gru_bwd(*args)),
+                          "plain_ms": time_ms(lambda: gru_bwd_reference(*args), 5), "library_ms": None,
+                          **gru_bwd_bound(*args, got)}
     if "topk" in calls:
         q, table, bias, k = calls["topk"]
         vals, ids = fused_topk(q, table, bias, k)
@@ -2810,6 +3127,8 @@ def mesh_nccl_child(out: str) -> None:
     ops = {"psum": lambda t, m: cc.psum(t, m, MODEL_AXIS), "grad_psum": lambda t, m: cc.grad_psum(t, m, MODEL_AXIS),
            "pmax": lambda t, m: cc.pmax(t, m, MODEL_AXIS) + t, "all_gather": lambda t, m: cc.all_gather(t, m, MODEL_AXIS, 1),
            "all_to_all": lambda t, m: cc.all_to_all(t, m, MODEL_AXIS),
+           "split": lambda t, m: cc.split(t, m, MODEL_AXIS, 1),
+           "ppermute_ring": lambda t, m: cc.ppermute_ring(t, m, MODEL_AXIS),
            "all_reduce_": lambda t, m: t * cc.all_reduce_(t.detach().sum().clone(), m, DATA_AXIS)}
     results = {}
     for backend, group in (("nccl", dist.group.WORLD), ("gloo", gloo)):
@@ -2836,7 +3155,8 @@ def mesh_run(job: str, work: Path) -> list[dict]:
     name, sets, steps, split, then = MESH_JOBS[job]
     spawn(MESH_CHILD, MESH_WORLD, {"job": job, "out": str(work), "config": name, "sets": sets, "steps": steps,
                                    "split": split, "device": DEV, "then": then},
-          timeout=MESH_TIMEOUT, cwd=str(REPO), env={"POI_TPU_TORCH_DATA_CACHE": "off", "OMP_NUM_THREADS": "2"},
+          timeout=MESH_TIMEOUT, cwd=str(REPO),
+          env={"POI_TPU_TORCH_DATA_CACHE": str(work / "data") if job == "c5" else "off", "OMP_NUM_THREADS": "2"},
           log_dir=str(work))
     return [json.loads((work / f"rank{r}.json").read_text()) for r in range(MESH_WORLD)]
 
@@ -2856,6 +3176,109 @@ def mesh_line(job: str, ranks: list[dict], gpu: str, mesh: list) -> None:
         + f"card: {gpu}. A rig of ranks sharing one card: no scaling figure")
 
 
+def serve_inputs(ds, work: Path) -> None:
+    """The c5 job's serving requests, test histories as JSON
+    (``serve_requests.json``: ``SERVE_SINGLES`` singles, a batch of
+    ``SERVE_BATCH``, and the longest one as the long row's ``tail``), and
+    its corpus ``ds`` in a dataset cache under ``work`` (the ranks' env
+    names it), so the ranks and their serve CLI load it instead of building
+    it again."""
+    import pickle
+
+    from poi_tpu_torch.data import dataset as dataset_mod
+
+    hist = histories_from_test(ds, SERVE_SINGLES + SERVE_BATCH + 1)
+    tail = hist.pop(max(range(len(hist)), key=lambda i: len(hist[i])))
+    as_json = lambda h: [{"poi": c.poi, "timestamp": c.timestamp} for c in h]  # noqa: E731
+    (work / "serve_requests.json").write_text(json.dumps({
+        "singles": [as_json(h) for h in hist[:SERVE_SINGLES]],
+        "batch": [as_json(h) for h in hist[SERVE_SINGLES:SERVE_SINGLES + SERVE_BATCH]], "tail": as_json(tail)}))
+    before = os.environ.get("POI_TPU_TORCH_DATA_CACHE")
+    os.environ["POI_TPU_TORCH_DATA_CACHE"] = str(work / "data")
+    try:
+        path = dataset_mod._cache_path(mesh_cfg(*MESH_JOBS["c5"][:2]).data)
+    finally:
+        os.environ["POI_TPU_TORCH_DATA_CACHE"] = before if before is not None else "off"
+    path.parent.mkdir(mode=0o700, parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(ds, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def serve_check(work: Path, ranks: list[dict], ds, gpu: str) -> dict:
+    """The c5 job's serve session against the one-process ``Recommender``
+    on the checkpoint's params (each request as it was served, one call a
+    request): the answers in order, the two bad lines answered by rank 0
+    alone, every rank's CLI at exit code 0 after the same number of
+    requests, the ids equal or differing only among equal scores, B1 and
+    B11 launched on every rank; the rig's wall ms a request."""
+    import numpy as np
+    import torch
+
+    from poi_tpu_torch.cli import model_with_params
+    from poi_tpu_torch.eval.serve import Checkin, Recommender
+    from poi_tpu_torch.models.base import batch_to, output_table
+    from poi_tpu_torch.ops.topk import MAX_K
+    from poi_tpu_torch.utils.checkpoint import CheckpointManager
+
+    req = json.loads((work / "serve_requests.json").read_text())
+    long = json.loads((work / "serve_long.json").read_text())
+    answers = [json.loads(ln) for ln in (work / "serve_stdout.txt").read_text().splitlines() if ln.strip()]
+    half = len(req["singles"]) // 2
+    requests = [[h] for h in req["singles"]] + [req["batch"], req["batch"], [long]]
+    assert len(answers) == len(requests) + 2, f"serve: {len(answers)} answers to {len(requests) + 2} lines"
+    bad = answers[half:half + 2]
+    assert "error" in bad[0] and bad[1] == {"error": f"ValueError: k={MAX_K + 1} > {MAX_K} not supported"}, bad
+    served = answers[:half] + answers[half + 2:]
+    for r in ranks:
+        t = r["serve"]
+        assert t["rc"] == 0 and t["calls"] == len(requests), f"serve rank {r['rank']}: {t['rc']}, {t['calls']} calls"
+        assert t["launches"]["gru_fwd"] > 0 and t["launches"]["topk"] > 0, f"serve rank {r['rank']}: {t['launches']}"
+    cfg = mesh_cfg(C5_CONFIG, SERVE_SETS, one_rank=True)
+    saved = CheckpointManager(str(work / "c5_ckpt")).load()
+    model = model_with_params(cfg, ds, saved["params"], torch.device(DEV))
+    del saved
+    rec = Recommender(model, cfg, ds)
+    table, bias = output_table(model.embed, cfg.model)
+    same = total = 0
+    worst = 0.0
+    with torch.inference_mode():
+        for hist_json, ans in zip(requests, served):
+            hs = [[Checkin(**c) for c in h] for h in hist_json]
+            got, want = np.asarray(ans["ids"]), rec.recommend(hs, k=10)
+            assert got.shape == want.shape and (got >= 0).all(), (got.shape, want.shape)
+            for h, row in zip(hs, got):
+                assert not set(row.tolist()) & {c.poi for c in h}, "a served id was visited"
+            same += int((got == want).sum())
+            total += got.size
+            if not (got == want).all():  # differ only among equal scores
+                q = model.queries_last(batch_to(rec.check(hs, 10), DEV)).to(torch.bfloat16).float()
+                score = lambda ids: ((q[:, None, :] * table[torch.from_numpy(ids).to(DEV)].to(torch.bfloat16).float())  # noqa: E731
+                                     .sum(-1) + bias[torch.from_numpy(ids).to(DEV)])
+                d = (score(got) - score(want)).abs()[torch.from_numpy(got != want).to(DEV)]
+                worst = max(worst, float(d.max()))
+    assert worst < TOPK_TOL, f"serve: ids differ from the one-process ids at scores {worst} apart"
+    times = ranks[0]["serve"]["times"]
+    b1 = [ms for rows, ms in times[:len(req["singles"])]]
+    out = {"b1_ms": statistics.median(b1), "b256_first_ms": times[-3][1], "b256_ms": times[-2][1],
+           "long_ms": times[-1][1],
+           "ckpt_save_s": ranks[0]["serve_prep"]["ckpt_save_s"], "wall_s": ranks[0]["serve"]["wall_s"],
+           "launches_by_rank": {k: [r["serve"]["launches"][k] for r in ranks] for k in ("gru_fwd", "topk")}}
+    log(f"[mesh] serve: config #5 on 1 x 4 through `poi_tpu_torch serve` under the rig ({MESH_WORLD} gloo ranks, "
+        f"one card), from the c5 job's checkpoint (step {ranks[0]['serve_prep']['step']}, saved in "
+        f"{out['ckpt_save_s']:.1f} s): {len(requests)} requests answered ({len(req['singles'])} single histories, "
+        f"one of {len(req['batch'])} twice, one whose {MAX_K} fetched candidates were all visited, scored again on every "
+        f"rank), the malformed line and k = {MAX_K + 1} answered {{\"error\"}} by rank 0 alone, EOF: every rank's CLI "
+        f"returned 0 after {len(requests)} requests; ids against the one-process Recommender: {same}/{total} equal, "
+        f"the rest among equal scores (max |score diff| {worst:.2e}, tol {TOPK_TOL}); launches by rank B1 "
+        f"{out['launches_by_rank']['gru_fwd']}, B11 {out['launches_by_rank']['topk']}")
+    log(f"[mesh] serve: the rig's wall ms a request (host clock around a synchronised card, rank 0): batch 1 median "
+        f"{out['b1_ms']:.2f} (min {min(b1):.2f}, max {max(b1):.2f}, {len(b1)} requests), batch {len(req['batch'])} "
+        f"{out['b256_first_ms']:.2f} (its first call) and {out['b256_ms']:.2f} (the same request again), the "
+        f"re-scored row {out['long_ms']:.2f}; the session {out['wall_s']:.1f} s with the "
+        f"restore; card: {gpu}. Costs of {MESH_WORLD} ranks sharing one card over gloo: no scaling figure")
+    return out
+
+
 def mesh_phase(state, gpu: str) -> dict:
     """(a) config #5 on its preset's mesh (1 x 4, a2a) and (b) the bench
     workload on 2 x 2 (psum, sharded CE), each held to its one-rank run:
@@ -2864,7 +3287,10 @@ def mesh_phase(state, gpu: str) -> dict:
     equal and the ids equal but among equal scores; config #5 at the
     preset's own a2a capacity, its drops counted; (c) B1, B2, B9, B10 and
     B11 launched on every rank, and on rank 0 held against their plain
-    versions; (d) NCCL at world size 1 against gloo."""
+    versions; (d) NCCL at world size 1 against gloo; (e) config #5 with
+    ring and Ulysses attention held to its blockwise run and to one rank,
+    and config #4's tower with both on 2 x 2 against one rank; (f) config
+    #5 served on its 1 x 4 from its mesh checkpoint (``serve_check``)."""
     import torch
 
     from poi_tpu_torch.configs.presets import get_config
@@ -2875,9 +3301,12 @@ def mesh_phase(state, gpu: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="mesh_") as tmp:
         work = Path(tmp)
         torch.cuda.empty_cache()
+        refs = {}
         for job in ("c5", "bench"):
             ds = state["c5"]["ds"] if job == "c5" else load_dataset(mesh_cfg(*MESH_JOBS[job][:2]).data)
-            ref = mesh_reference(job, ds, work)
+            if job == "c5":
+                serve_inputs(ds, work)
+            ref = refs[job] = mesh_reference(job, ds, work)
             t0 = time.perf_counter()
             ranks = mesh_run(job, work)
             wall = time.perf_counter() - t0
@@ -2926,9 +3355,57 @@ def mesh_phase(state, gpu: str) -> dict:
             (work / f"{job}_table1.npy").unlink(missing_ok=True)
             torch.cuda.empty_cache()
 
+            if job == "c5":
+                out["serve"] = serve_check(work, ranks, ds, gpu)
+                shutil.rmtree(work / "c5_ckpt")
+
+        # (e) Config #5 with SP attention, run next in the same ranks from the
+        # init at capacity factor M: held to the blockwise run and to one rank.
+        for impl in MESH_SP_IMPLS:
+            runs = [r["then"][impl] for r in out["c5"]]
+            assert all(x["losses"] == runs[0]["losses"] for x in runs), f"mesh c5 {impl}: ranks disagree on the loss"
+            got = torch.tensor(runs[0]["losses"], dtype=torch.float64)
+            for what, want in (("the blockwise run on the mesh", out["c5"][0]["losses"]),
+                               ("the one-rank run", refs["c5"]["losses"])):
+                want = torch.tensor(want, dtype=torch.float64)
+                rel = (got - want).abs() / want.abs()
+                log(f"[mesh] c5_{impl}: model.attn_impl={impl} on 1 x 4 (time split over model: {impl}), losses by "
+                    f"step against {what}: " + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in zip(got.tolist(), want.tolist()))
+                    + f"; rel diff {[f'{v:.1e}' for v in rel.tolist()]} (tol {LOSS_TOL_FIRST} at step 1, "
+                    f"{LOSS_TOL_LAST} after)")
+                assert float(rel[0]) < LOSS_TOL_FIRST and float(rel.max()) < LOSS_TOL_LAST, \
+                    f"mesh c5 {impl} against {what}: {rel.tolist()}"
+            for r in out["c5"]:
+                for name in ("gru_fwd", "gru_bwd", "sampled_lse", "sampled_bwd"):
+                    assert r["then"][impl]["launches"][name] > 0, f"mesh c5 {impl} rank {r['rank']}: no {name} launch"
+            log(f"[mesh] c5_{impl}: launches by rank " + "; ".join(
+                str({k: v for k, v in r["then"][impl]["launches"].items() if v}) for r in out["c5"]))
+            mesh_line(f"c5_{impl}", runs, gpu, out["c5"][0]["mesh"])
+        # Config #4's tower with SP attention on the bench job's 2 x 2.
+        tower = out["bench"][0]["tower"]
+        for key, errs in tower.items():
+            fp32 = key.endswith("float32")
+            log(f"[mesh] c4_tower {key}: config #4's tower on 2 x 2 against blockwise on one rank, " + (
+                "largest |diff| / (atol + rtol |ref|) (<= 1 within " + f"{TOWER_FP32_TOL[0]} forward, "
+                f"{TOWER_FP32_TOL[1]} gradients): " if fp32 else f"rel err (tol {TOWER_BF16_TOL:.4g}): ")
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            assert max(errs.values()) <= (1.0 if fp32 else TOWER_BF16_TOL), f"c4 tower {key}: {errs}"
+        for r in out["bench"]:
+            assert r["tower_launches"]["gru_fwd"] > 0 and r["tower_launches"]["gru_bwd"] > 0, \
+                f"c4 tower rank {r['rank']}: {r['tower_launches']}"
+        for name, t in out["bench"][0]["tower_kernels"].items():
+            log(f"[mesh] c4_tower: rank 0's {name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_pipe']})"
+                + (f", cuDNN nn.GRU forward {t['library_ms']:.4f} ms" if t["library_ms"] is not None else "")
+                + f"; launches by rank {[r['tower_launches'][name] for r in out['bench']]}  ({gpu})")
+        for b, t in out["c5"][0]["serve_kernels"].items():
+            log(f"[mesh] serve: rank 0's B11 at {b} {t['shape']} k={t['k']}: max |kernel - plain| "
+                f"{t['max_abs_err']:.3e}, kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.topk over the "
+                f"logits {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_pipe']})  ({gpu})")
+
         # Config #5 at the preset's own a2a capacity, run next in the same
         # ranks: its drops, counted.
-        then = [r["then"] for r in out["c5"]]
+        then = [r["then"]["preset"] for r in out["c5"]]
         log(f"[mesh] c5_preset: mesh.a2a_capacity_factor={get_config(C5_CONFIG).mesh.a2a_capacity_factor} (the "
             f"preset's): a2a_overflow by step {then[0]['overflow']}, losses "
             f"{[round(v, 6) for v in then[0]['losses']]} (at capacity factor M, no drops: "
@@ -3098,14 +3575,32 @@ def main() -> int:
     def by_rank(job, name, key="launches"):
         return [r[key][name] for r in mesh[job]]
 
+    # Also the launches by rank of config #5's ring and Ulysses
+    # runs (sp_ring, sp_ulysses), of config #4's tower on 2 x 2 with rank
+    # 0's B1 and B2 there (c4_tower), and of the serve session with rank 0's
+    # B11 on its 1 x 4 shard at batch 1 and 256 (serve).
+    def sp(name):
+        return {f"sp_{impl}_launches_by_rank": [r["then"][impl]["launches"][name] for r in mesh["c5"]]
+                for impl in MESH_SP_IMPLS}
+
     checked = mesh["c5"][0].get("kernels", {})
+    tower = mesh["bench"][0]["tower_kernels"]
     for rec in kernels:
         name = rec["name"]
         if name in ("gru_fwd", "gru_bwd"):
-            rec["mesh"] = {"c5_launches_by_rank": by_rank("c5", name), "bench_launches_by_rank": by_rank("bench", name)}
+            rec["mesh"] = {"c5_launches_by_rank": by_rank("c5", name), "bench_launches_by_rank": by_rank("bench", name),
+                           **sp(name),
+                           "c4_tower": {**tower[name], "launches_by_rank": by_rank("bench", name, "tower_launches")}}
         elif name in ("sampled_lse", "sampled_bwd", "topk"):
             rec["mesh"] = {"c5_launches_by_rank": by_rank("c5", name, "eval_launches" if name == "topk" else
                                                           "launches"), **checked.get(name, {})}
+            if name == "topk":
+                rec["mesh"]["serve"] = {**mesh["c5"][0]["serve_kernels"],
+                                        "launches_by_rank": mesh["serve"]["launches_by_rank"]["topk"]}
+            else:
+                rec["mesh"].update(sp(name))
+        if name == "gru_fwd":
+            rec["mesh"]["serve_launches_by_rank"] = mesh["serve"]["launches_by_rank"]["gru_fwd"]
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,11 +9,17 @@
     python -m torch.distributed.run --nproc-per-node N -m poi_tpu_torch train --config multihost_1m [...]
 
 Under ``torch.distributed.run`` (or any launcher that sets ``RANK``,
-``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``) ``train`` and ``eval``
-run as one rank of the ``(mesh.data, mesh.model)`` mesh: a card a rank
+``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``) every verb runs as one
+rank of the ``(mesh.data, mesh.model)`` mesh: a card a rank
 (``cuda:{LOCAL_RANK}``) over ``nccl``, or the CPU (``--platform cpu``) over
-``gloo``. Only rank 0 writes the checkpoint and the metrics and prints the
-result.
+``gloo``; a process group that the caller made first is used as it is. Only rank 0
+writes the checkpoint and the metrics and prints the result. ``eval``,
+``recommend`` and ``serve`` give each rank its part of the params (its
+shard of the catalog tables). ``recommend`` and ``serve`` read their input
+on rank 0, the front end, and the other ranks serve as compute shards of
+``Recommender(mesh=...)``: ``serve`` checks each request on rank 0 before it
+announces it to them, answers a bad one there alone, and ends every rank
+at EOF.
 
 ``train`` evaluates on val every ``eval_every`` steps (best-on-val
 selection) when the dataset has a val split, or on test otherwise, and
@@ -44,7 +50,6 @@ import json
 import logging
 import sys
 
-import numpy as np
 import torch
 
 # Steps [start, stop) that --profile-dir traces (the reference's window).
@@ -116,8 +121,6 @@ def main(argv: list[str] | None = None) -> int:
     from poi_tpu_torch.parallel.mesh import init_distributed, launched, rank_device
 
     if launched():
-        if args.cmd not in ("train", "eval"):
-            parser.error(f"{args.cmd} runs in one process: only train and eval run under a launcher")
         init_distributed("nccl" if device.type == "cuda" else "gloo")
         device = rank_device(device)
 
@@ -133,15 +136,15 @@ def main(argv: list[str] | None = None) -> int:
                              profile_dir=args.profile_dir, tensorboard=args.tensorboard, debug=args.debug)
         if args.cmd == "eval":
             return run_eval(cfg, device, step=args.step)
+        rec = load_recommender(cfg, device, params_path=args.params, step=args.step)
+        if args.cmd == "recommend":
+            return run_recommend(rec, args.input, args.k, not args.include_visited)
+        return run_serve(rec, default_k=args.k)
     finally:
         # Before the interpreter exits: a process group left to the exit
         # tears its threads down mid-run (gloo aborted a rank so).
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
-    rec = load_recommender(cfg, device, params_path=args.params, step=args.step)
-    if args.cmd == "recommend":
-        return run_recommend(rec, args.input, args.k, not args.include_visited)
-    return run_serve(rec, default_k=args.k)
 
 
 def run_train(cfg, device: torch.device, enable_checkpoint: bool = True, metrics_dir: str | None = None,
@@ -302,57 +305,70 @@ def restore_for_inference(cfg, device: torch.device, step: int | None = None):
     return ds, model, at
 
 
+def restore_model(cfg, device: torch.device, step: int | None = None, params_path: str | None = None):
+    """(dataset, model, mesh, step) for ``eval``, ``recommend`` and
+    ``serve``: the params of ``params_path`` (a ``.npz``; step None) or of
+    ``checkpoint.directory`` (exactly step ``step`` when given, else the
+    latest step with the selected params when the run saved them). In one
+    process the model holds them whole (mesh None); under a launcher each
+    rank's model holds its part on the ``(mesh.data, mesh.model)`` mesh."""
+    from poi_tpu_torch.convert import load_npz, params_from_jax
+    from poi_tpu_torch.data.dataset import load_dataset
+    from poi_tpu_torch.parallel.mesh import Mesh, launched
+    from poi_tpu_torch.train.loop import make_trainer
+    from poi_tpu_torch.utils.checkpoint import CheckpointManager, local_part, warn_config_mismatch
+
+    if not launched():  # one process: the params whole, whatever mesh wrote them
+        if params_path is None:
+            ds, model, at = restore_for_inference(cfg, device, step=step)
+            return ds, model, None, at
+        ds = load_dataset(cfg.data)
+        return ds, model_with_params(cfg, ds, params_from_jax(load_npz(params_path)), device), None, None
+    mesh = Mesh(cfg.mesh.data, cfg.mesh.model)
+    ds = load_dataset(cfg.data)
+    trainer = make_trainer(cfg, ds, device, mesh)
+    like = dict(trainer.model.named_parameters())
+    rows = like["embed.poi"].shape[0]
+    at = None
+    if params_path is not None:  # every rank reads the file and keeps its part
+        params = local_part(params_from_jax(load_npz(params_path)), mesh, rows, True)
+    else:
+        ckpt = CheckpointManager(cfg.checkpoint.directory, mesh=mesh, num_pois=trainer.dims.num_pois)
+        try:
+            saved = ckpt.load(step)
+            warn_config_mismatch(saved["config"], cfg)
+            at = saved["step"]
+            if step is None and ckpt.selected_step() is not None:
+                params, at = ckpt.restore_selected(like=like), ckpt.selected_step()
+            else:
+                params = ckpt.local_part(saved["params"], rows, True)
+        finally:
+            ckpt.close()
+    trainer.model.load_state_dict(params)
+    return ds, trainer.model, mesh, at
+
+
 def run_eval(cfg, device: torch.device, step: int | None = None) -> int:
     """Evaluate a checkpoint on test; prints ``{"step", "metrics"}`` as one
     JSON line. Under a launcher every rank holds its part of the params on
     the ``(mesh.data, mesh.model)`` mesh, and rank 0 prints."""
     from poi_tpu_torch.eval.evaluate import evaluate
-    from poi_tpu_torch.parallel.mesh import Mesh, launched
 
-    if not launched():  # one process: the params whole, whatever mesh wrote them
-        ds, model, at = restore_for_inference(cfg, device, step=step)
-        print(json.dumps({"step": at, "metrics": evaluate(model, ds, cfg)}), flush=True)
-        return 0
-    mesh = Mesh(cfg.mesh.data, cfg.mesh.model)
-    from poi_tpu_torch.data.dataset import load_dataset
-    from poi_tpu_torch.train.loop import make_trainer
-    from poi_tpu_torch.utils.checkpoint import CheckpointManager, warn_config_mismatch
-
-    ds = load_dataset(cfg.data)
-    trainer = make_trainer(cfg, ds, device, mesh)
-    ckpt = CheckpointManager(cfg.checkpoint.directory, mesh=mesh, num_pois=trainer.dims.num_pois)
-    like = dict(trainer.model.named_parameters())
-    try:
-        saved = ckpt.load(step)
-        warn_config_mismatch(saved["config"], cfg)
-        at = saved["step"]
-        if step is None and ckpt.selected_step() is not None:
-            params, at = ckpt.restore_selected(like=like), ckpt.selected_step()
-        else:
-            params = ckpt.local_part(saved["params"], like["embed.poi"].shape[0], True)
-    finally:
-        ckpt.close()
-    trainer.model.load_state_dict(params)
-    metrics = evaluate(trainer.model, ds, cfg, mesh=mesh)
-    if mesh.rank == 0:
+    ds, model, mesh, at = restore_model(cfg, device, step=step)
+    metrics = evaluate(model, ds, cfg, mesh=mesh)
+    if mesh is None or mesh.rank == 0:
         print(json.dumps({"step": at, "metrics": metrics}), flush=True)
     return 0
 
 
 def load_recommender(cfg, device: torch.device, params_path: str | None = None, step: int | None = None):
-    """Dataset featurizer + model on ``device``, with the ``.npz`` parameters
-    at ``params_path``, or else with ``checkpoint.directory``'s
-    (``restore_for_inference``)."""
-    from poi_tpu_torch.convert import load_npz, params_from_jax
-    from poi_tpu_torch.data.dataset import load_dataset
+    """``Recommender`` of the params ``restore_model`` gives: whole on
+    ``device`` in one process, this rank's part on its mesh under a
+    launcher."""
     from poi_tpu_torch.eval.serve import Recommender
 
-    if params_path is None:
-        ds, model, _ = restore_for_inference(cfg, device, step=step)
-    else:
-        ds = load_dataset(cfg.data)
-        model = model_with_params(cfg, ds, params_from_jax(load_npz(params_path)), device)
-    return Recommender(model, cfg, ds)
+    ds, model, mesh, _ = restore_model(cfg, device, step=step, params_path=params_path)
+    return Recommender(model, cfg, ds, mesh=mesh)
 
 
 def parse_histories(raw) -> list:
@@ -365,19 +381,45 @@ def parse_histories(raw) -> list:
 
 
 def run_recommend(rec, input_path: str, k: int, exclude_visited: bool) -> int:
-    if input_path == "-":
-        raw = sys.stdin.read()
-    else:
-        with open(input_path) as f:
-            raw = f.read()
-    out = rec.recommend(parse_histories(json.loads(raw)), k=k, exclude_visited=exclude_visited)
-    print(json.dumps(out.tolist()))
+    """One request: rank 0 reads the histories and prints the ids; on a mesh
+    the other ranks serve as compute shards."""
+    histories = None
+    if rec.mesh is None or rec.mesh.rank == 0:
+        if input_path == "-":
+            raw = sys.stdin.read()
+        else:
+            with open(input_path) as f:
+                raw = f.read()
+        histories = parse_histories(json.loads(raw))
+    out = rec.recommend(histories, k=k, exclude_visited=exclude_visited)
+    if out is not None:
+        print(json.dumps(out.tolist()))
     return 0
 
 
+def _announce(rec, word: int | None) -> int:
+    """Rank 0's word (1: a request follows, 0: shut down) on every rank."""
+    t = torch.tensor([0 if word is None else word], device=rec.device)
+    torch.distributed.broadcast(t, 0)
+    return int(t)
+
+
 def run_serve(rec, default_k: int = 10) -> int:
+    """One JSON request a stdin line, one JSON answer a line, until EOF. On
+    a mesh rank 0 is the front end and the other ranks loop as compute
+    shards: rank 0 checks a request whole (``Recommender.check``) before it
+    announces it, so a bad line is answered by rank 0 alone and the shards
+    never hear of it; EOF announces the shutdown."""
     log = logging.getLogger("poi_tpu_torch.cli")
-    log.info("serving on %s: reading JSON requests from stdin", rec.device)
+    mesh = rec.mesh
+    if mesh is not None and mesh.rank != 0:
+        served = 0
+        while _announce(rec, None):
+            rec.recommend(None)
+            served += 1
+        log.info("compute shard %d: served %d requests", mesh.rank, served)
+        return 0
+    log.info("serving on %s%s: reading JSON requests from stdin", rec.device, f" as rank 0 of {mesh!r}" if mesh else "")
     served = 0
     for line in sys.stdin:
         line = line.strip()
@@ -388,21 +430,28 @@ def run_serve(rec, default_k: int = 10) -> int:
             if isinstance(req, list):
                 req = {"histories": req}
             histories = parse_histories(req["histories"])
-            if not histories:
-                raise ValueError("empty request: no histories")
             k = int(req.get("k", default_k))
             user_ids = req.get("user_ids")
-            if user_ids is not None:
-                user_ids = np.asarray(user_ids, np.int32)
-                if len(user_ids) != len(histories):
-                    raise ValueError(f"user_ids length {len(user_ids)} != {len(histories)} histories")
             exclude = bool(req.get("exclude_visited", True))
-            out = rec.recommend(histories, k=k, user_ids=user_ids, exclude_visited=exclude)
+            batch = rec.check(histories, k, user_ids)
         except Exception as e:  # a bad request is answered, never kills the server
             print(json.dumps({"error": f"{type(e).__name__}: {e}"}), flush=True)
             continue
+        if mesh is not None:
+            _announce(rec, 1)
+            # Past the word the shards are in this request's collectives: a
+            # failure now would leave them there, so it ends the run.
+            out = rec.recommend(histories, k=k, user_ids=user_ids, exclude_visited=exclude, batch=batch)
+        else:
+            try:
+                out = rec.recommend(histories, k=k, user_ids=user_ids, exclude_visited=exclude, batch=batch)
+            except Exception as e:  # a bad request never kills the server
+                print(json.dumps({"error": f"{type(e).__name__}: {e}"}), flush=True)
+                continue
         print(json.dumps({"ids": out.tolist()}), flush=True)
         served += 1
+    if mesh is not None:
+        _announce(rec, 0)
     log.info("served %d requests", served)
     return 0
 

@@ -32,6 +32,11 @@ def layer_norm(p, x: torch.Tensor) -> torch.Tensor:
 
 
 class AttentionTower(nn.Module):
+    # Injected by the Trainer when model.attn_impl is ring or ulysses on a
+    # mesh whose model axis is > 1 (parallel.sp_attention.make_sp_attention):
+    # mha(h, self.mha) in place of the local attention of the training path.
+    sp_mha = None
+
     def __init__(self, cfg, gen: torch.Generator, device=None):
         super().__init__()
         self.cfg = cfg
@@ -47,12 +52,16 @@ class AttentionTower(nn.Module):
         """[B, T, D] → [B, T, H] at every position."""
         cfg = self.cfg
         h = self._gru(x, batch.mask)
-        o = multihead_attention(h, self.mha, cfg.attn_heads, cfg.attn_window, base.compute_dtype(cfg))
+        if self.sp_mha is not None:
+            o = self.sp_mha(h, self.mha)
+        else:
+            o = multihead_attention(h, self.mha, cfg.attn_heads, cfg.attn_window, base.compute_dtype(cfg))
         return layer_norm(self.ln, h + o)
 
     def last(self, x: torch.Tensor, batch, last: torch.Tensor) -> torch.Tensor:
         """[B, H] at position ``last`` of each row: the GRU runs over all T,
-        the attention and LayerNorm only at that position."""
+        the attention and LayerNorm only at that position. A single query
+        needs no sequence split, so this path ignores ``sp_mha``."""
         cfg = self.cfg
         h = self._gru(x, batch.mask)
         o = multihead_attention_last(h, self.mha, cfg.attn_heads, cfg.attn_window, last, base.compute_dtype(cfg))

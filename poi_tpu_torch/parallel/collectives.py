@@ -14,8 +14,18 @@ equal the dense ones (Megatron's conjugate pair):
   replicated tensor that enters rank-local work (the queries against one
   shard's rows in the sharded CE), whose gradient each rank holds a part of;
 - ``all_gather``: the concatenation forward, this rank's block of the
-  gradient backward (the a2a lookup's replicated result);
-- ``all_to_all``: the block transpose both ways.
+  gradient backward (the a2a lookup's replicated result; the output of
+  sequence-parallel attention, gathered over time);
+- ``split``: this rank's block forward, the gradient blocks all-gathered
+  backward: ``all_gather``'s conjugate, for a replicated tensor of which
+  each rank works on its block alone (sequence-parallel attention's time
+  block of the replicated GRU output, whose full gradient the GRU's
+  backward needs on every rank);
+- ``all_to_all``: the block transpose both ways (the a2a lookup; Ulysses'
+  time-to-heads exchange);
+- ``ppermute_ring``: each rank's tensor to the rank ``shift`` places on,
+  forward, and back by ``-shift`` backward (ring attention's rotation of
+  the key and value blocks).
 
 ``torch.distributed.nn.functional.all_reduce`` is neither pair: its
 backward sums the cotangent, which a replicated loss makes M times the
@@ -24,7 +34,10 @@ without a group calls no collective.
 
 The ops are the same for ``nccl`` and ``gloo``. ``gloo`` takes every one of
 them on CUDA tensors as well (it copies them through host memory itself),
-which the rig of several ranks on one card uses.
+which the rig of several ranks on one card uses. The ring shift is an
+``all_to_all_single`` whose split sizes are zero but toward ``rank + shift``
+(and from ``rank - shift``), one mechanism for both backends: ``gloo``'s
+point-to-point ``send``/``recv`` take no CUDA tensors.
 """
 
 from __future__ import annotations
@@ -70,6 +83,18 @@ def _exchange(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     return out
 
 
+def _shift(x: torch.Tensor, mesh: Mesh, axis: str, shift: int) -> torch.Tensor:
+    """This rank's ``x`` to the rank ``shift`` places on along ``axis``;
+    the result is the tensor of the rank ``shift`` places back."""
+    n, me = mesh.shape[axis], mesh.index[axis]
+    flat = x.contiguous().view(1, -1)
+    send, recv = [0] * n, [0] * n
+    send[(me + shift) % n] = recv[(me - shift) % n] = 1
+    out = torch.empty_like(flat)
+    dist.all_to_all_single(out, flat, output_split_sizes=recv, input_split_sizes=send, group=mesh.group(axis))
+    return out.view_as(x)
+
+
 class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
@@ -100,6 +125,29 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.mesh.index[ctx.axis] * ctx.n, ctx.n), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        n = x.shape[dim] // mesh.shape[axis]
+        return x.narrow(dim, mesh.index[axis] * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _Ring(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return _shift(x, mesh, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.mesh, ctx.axis, -ctx.shift), None, None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -134,6 +182,22 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Te
     """Every rank's block of ``axis`` concatenated along ``dim``, in rank
     order; the backward keeps this rank's block of the gradient."""
     return x if _alone(mesh, axis) else _AllGather.apply(x, mesh, axis, dim)
+
+
+def split(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block of ``axis`` along ``dim`` of a replicated ``x``;
+    the backward all-gathers the blocks' gradients, so every rank holds the
+    whole gradient of ``x``."""
+    if x.shape[dim] % mesh.shape[axis]:
+        raise ValueError(f"split: dim {dim} of {tuple(x.shape)} does not divide over {axis}={mesh.shape[axis]}")
+    return x if _alone(mesh, axis) else _Split.apply(x, mesh, axis, dim)
+
+
+def ppermute_ring(x: torch.Tensor, mesh: Mesh, axis: str, shift: int = 1) -> torch.Tensor:
+    """Rotate ``x`` around the ring of ``axis``: rank i's tensor goes to
+    rank ``(i + shift) % n``, so this rank receives rank ``(i - shift) %
+    n``'s; the backward rotates the gradient back by ``-shift``."""
+    return x if _alone(mesh, axis) else _Ring.apply(x, mesh, axis, shift)
 
 
 def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:

@@ -33,8 +33,9 @@ the whole batch on every rank, which keeps its rows, and the pool is the
 same on every rank, so a mesh run sees a one-device run's batches. Every
 rank draws the same full init and keeps its rows. Lazy Adam updates the
 rows its rank holds that any data rank touched, and the clip's global norm
-counts each sharded tensor once over ``model``. A 1 x 1 mesh is the
-one-device path.
+counts each sharded tensor once over ``model``. With ``model.attn_impl``
+ring or ulysses, the attention tower's time axis is split over ``model``
+(``parallel.sp_attention``). A 1 x 1 mesh is the one-device path.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ from poi_tpu_torch.ops import sharded_loss
 from poi_tpu_torch.ops.embedding import lookup_overflow_count, make_lookup
 from poi_tpu_torch.ops.fused_sampled import fused_sampled_softmax_loss, log_q, sampled_nll_rows
 from poi_tpu_torch.parallel import collectives as cc
+from poi_tpu_torch.parallel import sp_attention
 from poi_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, local_data_batch, rank_device
 from poi_tpu_torch.parallel.shardings import CATALOG_TABLES, shard_state
 from poi_tpu_torch.train import sparse_opt
@@ -111,11 +113,8 @@ class Trainer:
         n_model, n_data = mesh.shape[MODEL_AXIS], mesh.shape[DATA_AXIS]
         if n_model > 1:
             self.dims = self.dims.padded_to(n_model)
-        if cfg.model.kind == "attention" and cfg.model.attn_impl in ("ring", "ulysses"):
-            if n_model > 1:
-                raise NotImplementedError(
-                    f"model.attn_impl={cfg.model.attn_impl!r} on mesh.model={n_model}: sequence-parallel attention "
-                    "(parallel/sp_attention.py) is not ported yet; use model.attn_impl=blockwise")
+        sp = cfg.model.kind == "attention" and cfg.model.attn_impl in sp_attention.IMPLS
+        if sp and n_model == 1:
             log.info("model.attn_impl=%r requested but the mesh's model axis is 1; taking single-device blockwise "
                      "attention", cfg.model.attn_impl)
         # fp32 products stay fp32 on the card (no TF32), as the reference's.
@@ -127,6 +126,10 @@ class Trainer:
         shard = mesh.rows(self.dims.num_pois_padded) if n_model > 1 else None
         self.model = model_base.build_model(cfg.model, self.dims, device=self.device, generator=gen, shard=shard,
                                             poi_lookup=lookup)
+        if sp and n_model > 1:  # the attention's time axis split over the model axis
+            self.model.tower.sp_mha = sp_attention.make_sp_attention(
+                mesh, cfg.model.attn_heads, cfg.model.attn_window, cfg.model.attn_impl,
+                model_base.compute_dtype(cfg.model))
         # The parameters that hold this rank's rows of a catalog table.
         self.sharded = {k for k, _ in self.model.named_parameters() if k in CATALOG_TABLES} if n_model > 1 else set()
         # Each rank's loss is its part of the whole batch's masked mean.

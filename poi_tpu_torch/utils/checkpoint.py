@@ -130,6 +130,17 @@ def _catalog_rows(tree, n: int, pad_bias: bool = False):
     return map_state(tree, fit)
 
 
+def local_part(tree, mesh, rows: int, pad_bias: bool):
+    """This rank's part of a saved full ``tree`` (a step's, or a ``.npz``'s
+    params): its catalog tables padded to ``mesh``'s padded catalog
+    (``rows``, the live POI table's, on every model rank) and cut to this
+    rank's rows. ``mesh`` None: one device."""
+    sharded = mesh is not None and mesh.shape[MODEL_AXIS] > 1
+    vp = rows * (mesh.shape[MODEL_AXIS] if sharded else 1)
+    tree = _catalog_rows(tree, vp, pad_bias)
+    return shard_state(tree, mesh, vp) if sharded else tree
+
+
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int | None = 3, async_save: bool = False, mesh=None,
                  num_pois: int | None = None):
@@ -178,12 +189,8 @@ class CheckpointManager:
         return _catalog_rows(_to_host(whole), self.num_pois)
 
     def local_part(self, tree, rows: int, pad_bias: bool):
-        """This rank's part of a saved ``tree``: its catalog tables padded to
-        this mesh's padded catalog (``rows``, the live POI table's, on every
-        model rank) and cut to this rank's rows."""
-        vp = rows * (self.mesh.shape[MODEL_AXIS] if self.mesh is not None else 1)
-        tree = _catalog_rows(tree, vp, pad_bias)
-        return tree if self.mesh is None else shard_state(tree, self.mesh, vp)
+        """``local_part`` on this manager's mesh."""
+        return local_part(tree, self.mesh, rows, pad_bias)
 
     def _submit_once(self, fn, *args) -> None:
         """``fn`` on rank 0 only, then every rank waits for it."""

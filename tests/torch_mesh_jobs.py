@@ -1,5 +1,6 @@
-"""Rank bodies of the gloo rig that ``tests/test_torch_sharded.py`` and
-``tests/test_torch_train_sharded.py`` start with ``parallel.launch.spawn``:
+"""Rank bodies of the gloo rig that ``tests/test_torch_sharded.py``,
+``tests/test_torch_train_sharded.py`` and ``tests/test_torch_sp_attention.py``
+start with ``parallel.launch.spawn``:
 4 ranks on the CPU, one job a test module. Each body reads the inputs the
 test wrote (numpy, from a seed and from ``poi_tpu``), computes every case
 on a 2 x 2 and a 1 x 4 mesh of its 4 ranks, and rank 0 writes the results
@@ -190,6 +191,76 @@ def train_job(inp: str, out: str, cases: str) -> None:
                    for w in whole for k in whole[w])
         res[f"ckpt/{target}/same"] = np.asarray(same and st2.step == st.step
                                                 and st2.opt_state["count"] == st.opt_state["count"])
+    if rank == 0:
+        np.savez(out, **res)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sp_job(inp: str, out: str, cases: str, tower: str) -> None:
+    """Sequence-parallel attention (``parallel.sp_attention``) on both
+    meshes: for each case of ``cases`` (JSON: name -> {"impl", "window",
+    "heads"}), the forward of this data rank's rows of ``x``, and the
+    gradients of ``x`` and of ``wq``..``wo`` under the cotangent ``cot``,
+    each gathered to the whole batch (the projections' summed over data);
+    a case that raises keeps its error. Then the attention tower of the
+    ``tower`` overrides (JSON, on ``attention_gowalla``) with each impl on
+    the inputs ``tx``, ``tmask``, ``tcot``: its output and the gradients of
+    its GRU and projections, gathered and summed alike. Then
+    ``ppermute_ring`` at shifts 1 and -1, forward and backward, every
+    rank's result gathered."""
+    import types
+
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.models.attention import AttentionTower
+    from poi_tpu_torch.parallel.sp_attention import IMPLS, make_sp_attention
+
+    rank = _setup()
+    z = {k: torch.from_numpy(v) for k, v in np.load(inp).items()}
+    res: dict[str, np.ndarray] = {}
+    B = z["x"].shape[0]
+    for shape in MESHES:
+        mesh = Mesh(*shape)
+        tag = f"{shape[0]}x{shape[1]}"
+        drows = mesh.rows(B, DATA_AXIS)
+        for name, case in json.loads(cases).items():
+            x = z["x"][drows].clone().requires_grad_()
+            p = {w: z[w].clone().requires_grad_() for w in ("wq", "wk", "wv", "wo")}
+            mha = make_sp_attention(mesh, case["heads"], case["window"], case["impl"], torch.float32)
+            try:
+                o = mha(x, p)
+            except ValueError as e:
+                res[f"{tag}/{name}/error"] = np.asarray(str(e))
+                continue
+            (o * z["cot"][drows]).sum().backward()
+            res[f"{tag}/{name}/out"] = _whole_rows(o, mesh).numpy()
+            res[f"{tag}/{name}/dx"] = _whole_rows(x.grad, mesh).numpy()
+            # Every model rank holds the whole gradient of its rows of x.
+            res[f"{tag}/{name}/dx_model_max_diff"] = np.asarray(float(
+                (cc.all_reduce_(x.grad.clone(), mesh, MODEL_AXIS, "max") - x.grad).abs().max()))
+            for w in p:
+                res[f"{tag}/{name}/d{w}"] = cc.all_reduce_(p[w].grad.clone(), mesh, DATA_AXIS).numpy()
+
+        model_cfg = get_config("attention_gowalla").with_overrides(json.loads(tower)).model
+        for impl in IMPLS:
+            t = AttentionTower(model_cfg, torch.Generator().manual_seed(0), "cpu")
+            t.sp_mha = make_sp_attention(mesh, model_cfg.attn_heads, model_cfg.attn_window, impl, torch.float32)
+            o = t(z["tx"][drows], types.SimpleNamespace(mask=z["tmask"][drows]))
+            (o * z["tcot"][drows]).sum().backward()
+            res[f"{tag}/tower_{impl}/out"] = _whole_rows(o, mesh).numpy()
+            for k, p in t.named_parameters():
+                if p.grad is not None:
+                    res[f"{tag}/tower_{impl}/d{k}"] = cc.all_reduce_(p.grad.clone(), mesh, DATA_AXIS).numpy()
+
+        # The ring shift: rank i's tensor to rank i + shift of its model group, the gradient back.
+        for shift in (1, -1):
+            x = torch.full((2, 3), float(rank)).requires_grad_()
+            y = cc.ppermute_ring(x, mesh, MODEL_AXIS, shift)
+            y.backward(torch.full((2, 3), 10.0 * rank))
+            got = torch.stack([y.detach()[0, 0], x.grad[0, 0]])
+            parts = [torch.empty_like(got) for _ in range(dist.get_world_size())]
+            dist.all_gather(parts, got)
+            res[f"{tag}/ring{shift}"] = torch.stack(parts).numpy()  # [world, (received, gradient)]
     if rank == 0:
         np.savez(out, **res)
     dist.barrier()
