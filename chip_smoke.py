@@ -73,6 +73,7 @@ possible time on the card, ``bound_ms``) and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import os
@@ -229,6 +230,12 @@ SFU_PER_S = FP32_FLOP_PER_S / 16
 GRU_TRAIN_SHAPE = (512, 64, 128)
 CE_TRAIN_SHAPE = (32768, 44170, 128)
 CE_C3_SHAPE = (2048, 36969, 128)  # config #3's CE: batch 64 x T=32 rows, 36,969 POIs
+# B7/B8 at the widths past 128 (N, V, D, real POIs): config #3's shape at
+# its 256-d probe (path 1), the bench shape at D = 256, and widths the
+# kernels are not built for, padded with zero columns: 200 (to 256) on ragged
+# N and V with a -1e30 tail, 130 (to 192).
+CE_C3_D256 = (2048, 36969, 256)
+CE_WIDE_CASES = (CE_C3_D256 + (36969,), (32768, 44170, 256, 44170), (300, 8193, 200, 8000), (1000, 5000, 130, 5000))
 # B11's other main-path catalogs, (V, D, real POIs), each padded to a multiple
 # of 2,048 with -1e30 rows as the eval and serving code pad them: the bench
 # eval sweep's, config #4's eval sweep's, and bench_serve's (70,953 POIs).
@@ -250,7 +257,11 @@ STEP_TIME_CHUNK = 20
 # 300 (best-on-val at 100, 200, 300); mem_budget on config #5 (one
 # host-loader rows step), profile_1m at its default, bench_1m's training at
 # V = 1M with the preset's lazy Adam (its top-k is timed in the timing phase
-# at V = 903,889), step_time on the bench workload.
+# at V = 903,889), step_time on the bench workload; tune_strnn and
+# tune_attention at 50 steps a probe (tune_strnn's h256 runs B7/B8 at D =
+# 256), check_cell_parity (a DIVERGES line fails the run), bench_eval_path,
+# compare_embedding_modes and compare_attention_modes on 4 gloo ranks sharing
+# the card, scaling_bench on 2 of them.
 SCRIPT_RUNS = (
     ("sweep_ce_fwd", []),
     ("sweep_ce_bwd", []),
@@ -266,6 +277,14 @@ SCRIPT_RUNS = (
     ("profile_1m", []),
     ("bench_1m", ["--skip-topk", "--table-update", "sparse"]),
     ("step_time", ["bench"]),
+    ("tune_strnn", ["50"]),
+    ("tune_attention", ["50"]),
+    ("check_cell_parity", []),
+    ("bench_eval_path", []),
+    ("compare_embedding_modes", []),
+    ("compare_attention_modes", []),
+    ("scaling_bench", ["--local-processes", "2"]),
+    ("host_feed", ["--rounds", "1", "--steps", "50"]),
 )
 # The GRU kernels at the larger widths: config #4's train shape, a ragged
 # batch, config #5's width on a few rows and at its batch of 512, and the
@@ -297,11 +316,15 @@ GRU_BWD_RAGGED = ((1100, 100, 1), (7, 200, 8))
 # config #5's train shape (B*T = 32,768 rows, a pool of 4,096 from 903,889
 # POIs; ~150 accidental hits), its pool of 4,000 padded to 4,096 with two
 # entries every row's target, a ragged padded pool, and every entry a hit.
+# Last D = 384, which the kernels are not built for: the wrappers pad it
+# with zero columns to 512 (config #4's shape, two hits a row, a ragged
+# padded pool).
 SAMPLED_C5 = (32768, 4096, 512, 903889, 0, None)
 SAMPLED_CASES = ((8192, 1024, 256, 36969, 0, None), (8192, 1000, 256, 2000, 24, None),
                  (300, 200, 256, 50, 0, "two"), (1000, 300, 128, 500, 0, None), (777, 300, 64, 400, 33, None),
                  (100, 130, 256, 400, 190, "all"), SAMPLED_C5, (32768, 4000, 512, 903889, 96, "two"),
-                 (777, 300, 512, 400, 33, None), (100, 130, 512, 400, 190, "all"))
+                 (777, 300, 512, 400, 33, None), (100, 130, 512, 400, 190, "all"),
+                 (8192, 1024, 384, 36969, 0, None), (300, 200, 384, 50, 0, "two"), (777, 300, 384, 400, 33, None))
 # B10's split rule (the dq pass's, the dE pass's: 2 and 16 at config #4's
 # shape) against fewer and more ranges of the streamed rows; (0, 0) is the
 # rule.
@@ -471,6 +494,9 @@ def topk_phase() -> float:
     cases += [(1, 71680, 256, 32, 70953), (256, 71680, 256, 32, 70953), (256, 8192, 512, 10, 8000),
               (256, 8192, 512, 128, 8000), (256, 8192, 1024, 10, 8000), (256, 8192, 1024, 128, 8000),
               (7, 8192, 520, 128, 8000)]
+    # D = 100, no multiple of 8: the wrapper pads q and the table with zero
+    # columns to 104.
+    cases += [(256, 8192, 100, 10, 8000), (7, 8192, 100, 128, 8000)]
     for B, V, D, k, real in cases:
         # Scores of the same spread at either width (std ~8).
         q = torch.randn(B, D, generator=gen, device=DEV) * (64 / D) ** 0.5
@@ -613,7 +639,8 @@ def ce_phase() -> tuple[float, float]:
     import torch
 
     from poi_tpu_torch import _build
-    from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_bwd_reference, ce_lse, ce_lse_reference
+    from poi_tpu_torch.ops.fused_ce import KERNEL_DIMS, ce_bwd, ce_bwd_reference, ce_lse, ce_lse_reference, lse_rows
+    from poi_tpu_torch.ops.widths import padded_dim
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
     worst_lse = worst_grad = 0.0
@@ -623,9 +650,11 @@ def ce_phase() -> tuple[float, float]:
     # split-and-merge and B8's split-and-reduce paths), D = 32 (the smoke
     # preset's width, whose tiles take the 64-byte swizzle) on ragged N and V
     # with a padded tail, and B7's split edges (CE_SPLIT_CASES).
+    # Then the widths past 128 (CE_WIDE_CASES), padded where the kernels
+    # are not built for the width.
     for N, V, D, real in ((1, 6749, 64, 6749), (300, 8193, 128, 8193), CE_TRAIN_SHAPE + (CE_TRAIN_SHAPE[1],),
                           (2048, 8192, 64, 6749), CE_C3_SHAPE + (CE_C3_SHAPE[1],), (300, 8193, 32, 8000),
-                          *CE_SPLIT_CASES):
+                          *CE_SPLIT_CASES, *CE_WIDE_CASES):
         q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
         table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
         bias = torch.randn(V, generator=gen, device=DEV)
@@ -648,11 +677,21 @@ def ce_phase() -> tuple[float, float]:
             f"ce N={N} V={V} D={D}: run-to-run bits"
         worst_lse = max(worst_lse, e_lse)
         worst_grad = max(worst_grad, *(float((a - b).abs().max()) for a, b in zip((dq, dt, db), want)))
-        splits = max(1, _build.library().ce_lse_scratch(N, V, D, 256) // (2 * N))
-        log(f"[ce] N={N:5d} V={V} D={D:3d}{' (-1e30 tail)' if real < V else ''}, ce_lse in {splits} catalog "
+        Dp = padded_dim(D, KERNEL_DIMS, "ce_lse")
+        splits = max(1, _build.library().ce_lse_scratch(N, V, Dp, lse_rows(D)) // (2 * N))
+        log(f"[ce] N={N:5d} V={V} D={D:3d}{f' (run at {Dp})' if Dp != D else ''}"
+            f"{' (-1e30 tail)' if real < V else ''}, ce_lse at {lse_rows(D)} rows a block in {splits} catalog "
             f"range{'s' if splits > 1 else ''}: lse max err {e_lse:.2e} "
             f"(tol {CE_LSE_TOL}); rel err dq {errs[0]:.2e}, dtable {errs[1]:.2e} (tol {CE_GRAD_TOL}), "
             f"dbias {errs[2]:.2e} (tol {CE_DBIAS_TOL}); a second run gives the same bits")
+    q = torch.zeros(4, 257, device=DEV)
+    try:
+        ce_lse(q, q, torch.zeros(4, device=DEV))
+    except ValueError as e:
+        assert "D <= 256" in str(e), e
+        log(f"[ce] D=257 refused: {e}")
+    else:
+        raise AssertionError("ce_lse took D = 257")
     return worst_lse, worst_grad
 
 
@@ -894,7 +933,7 @@ def sampled_case(N: int, S: int, D: int, V: int, gen, pad: int = 0, hits=None):
 
 def sampled_phase() -> dict:
     """B9 and B10 against their plain versions at config #4's shape and
-    config #5's (D = 512), at pools that are no multiple of the 64-row tile
+    config #5's (D = 512), at D = 384 (padded to 512), at pools that are no multiple of the 64-row tile
     (padded as the TPU pads them), and with pool entries that are a hit for
     every row; both timed at the two configs' shapes."""
     import torch
@@ -1044,10 +1083,11 @@ def sampled_lse_at(args, splits: int):
     import torch
 
     from poi_tpu_torch import _build
-    from poi_tpu_torch.ops.fused_sampled import _kernel_args
+    from poi_tpu_torch.ops.fused_sampled import KERNEL_DIMS, _kernel_args
+    from poi_tpu_torch.ops.widths import padded_dim
 
     lib = _build.library()
-    ins = _kernel_args(*args)
+    ins = _kernel_args(*args, padded_dim(args[0].shape[1], KERNEL_DIMS, "sampled_lse"))
     (N, D), S = ins[0].shape, ins[1].shape[0]
     lse = torch.empty(N, device=DEV)
     scratch = torch.empty(max(1, lib.sampled_lse_scratch(N, S, D, splits)), device=DEV)
@@ -1108,10 +1148,11 @@ def sampled_bwd_at(args, splits):
     import torch
 
     from poi_tpu_torch import _build
-    from poi_tpu_torch.ops.fused_sampled import bwd_kernel_args
+    from poi_tpu_torch.ops.fused_sampled import KERNEL_DIMS, bwd_kernel_args
+    from poi_tpu_torch.ops.widths import padded_dim
 
     lib = _build.library()
-    ins = bwd_kernel_args(*args)
+    ins = bwd_kernel_args(*args, padded_dim(args[0].shape[1], KERNEL_DIMS, "sampled_bwd"))
     (N, D), S = ins[0].shape, ins[1].shape[0]
     dq, de, db = torch.empty(N, D, device=DEV), torch.empty(S, D, device=DEV), torch.empty(S, device=DEV)
     scratch = torch.empty(max(1, lib.sampled_bwd_scratch(N, S, D, *splits)), device=DEV)
@@ -1938,6 +1979,139 @@ def cli_train_phase(state) -> None:
                                "data.sampler=device"], 20)
 
 
+# Path 1: config #3 at its reference's 256-d probe (BASELINE.md:27,
+# scripts/tune_strnn.py's h256) as a user runs it, through the host loader
+# at the preset's one step a call: B5/B6 at H = 256, B7/B8 at D = 256.
+C3_D256_SETS = ["model.embed_dim=256", "model.hidden_dim=256", "train.num_steps=20", "train.eval_every=10",
+                "train.log_every=10"]
+
+
+def strnn_d256_phase(state) -> None:
+    """``python -m poi_tpu_torch train --config strnn_gowalla --set
+    model.embed_dim=256 model.hidden_dim=256`` for 20 steps, run in this
+    process (``cli.main``) so its launches are counted: exit 0, finite
+    losses, and B5, B6, B7 and B8 launched."""
+    import contextlib
+    import io
+
+    from poi_tpu_torch import cli
+
+    argv = ["train", "--config", REC_CONFIGS["strnn"][0], "--device", DEV, "--no-checkpoint", "--set", *C3_D256_SETS]
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    launches = read_launches()
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    losses = [row["loss"] for row in out["history"]]
+    log(f"[strnn_d256] python -m poi_tpu_torch {' '.join(argv)}: exit {rc}, loss by log step {losses}, final "
+        f"recall@10 {out['final']['recall@10']:.4f}, {out['history'][-1]['seqs_per_sec']:.1f} seq/s over the last "
+        f"log interval; launches {launches}")
+    assert rc == 0 and out["steps"] == 20 and all(math.isfinite(v) for v in losses), out["history"]
+    assert all(math.isfinite(v) for v in out["final"].values()), out["final"]
+    for name in ("rnn_fwd", "rnn_bwd", "ce_lse", "ce_bwd"):
+        assert launches[name] > 0, f"strnn_d256: no {name} launch: {launches}"
+    state["c3_d256_launches"] = launches
+
+
+# Path 2: config #4 at full width through the host loader (the preset's
+# data.sampler=host): HOST_LOADER_STEPS steps at steps_per_call 1 (twice:
+# the spread of two runs) and 10 (chunks through DevicePrefetcher) from one
+# init,
+# every step a log step, for the losses. The rates come from warmed runs at
+# the preset's log_every (host_loader_timing), HOST_TIMING_ROUNDS of each
+# spc in turns.
+HOST_LOADER_STEPS = 40
+HOST_LOADER_SPC = (1, 1, 10)
+HOST_TIMING_STEPS, HOST_TIMING_WARMUP, HOST_TIMING_PROFILED = 100, 10, 10
+HOST_TIMING_ROUNDS = 2
+
+
+def host_loader_run(cfg, ds, tree, spc: int, steps: int):
+    """``train()`` of ``cfg`` at ``steps_per_call`` ``spc`` from ``tree``,
+    every step a log step: (per-step losses, the launches)."""
+    from poi_tpu_torch.train.loop import make_trainer, train
+
+    c = cfg.with_overrides({"train.steps_per_call": str(spc), "train.log_every": "1"})
+    tr = make_trainer(c, ds, DEV)
+    st = tr.init_state(tree)
+    reset_launches()
+    _, st, hist = train(c, ds, num_steps=steps, trainer=tr, state=st)
+    assert st.step == steps and len(hist) == steps, (st.step, len(hist))
+    return [row["loss"] for row in hist], read_launches()
+
+
+def host_loader_timing(cfg, ds, spc: int, steps: int, warmup: int, profiled: int) -> dict:
+    """``train()`` of ``cfg`` at ``steps_per_call`` ``spc`` and the
+    preset's log_every, after ``warmup`` steps: seq/s and ms a step over
+    ``steps`` timed steps, then the device ms a step from torch.profiler's
+    kernels over ``profiled`` more (the profiler slows the host, so the idle
+    share sets them against the timed step). ``--ab`` runs this source in
+    either checkout."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from poi_tpu_torch.train.loop import make_trainer, train
+
+    c = cfg.with_overrides({"train.steps_per_call": str(spc)})
+    tr = make_trainer(c, ds, "cuda")
+    _, state, _ = train(c, ds, num_steps=warmup, trainer=tr, state=tr.init_state())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, state, _ = train(c, ds, num_steps=steps, trainer=tr, state=state)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train(c, ds, num_steps=profiled, trainer=tr, state=state)
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / 1e3 / profiled
+    return {"seq_per_s": c.train.batch_size / step_ms * 1e3, "step_ms": step_ms, "device_ms": busy,
+            "idle": max(0.0, 1 - busy / step_ms)}
+
+
+def host_loader_phase(state) -> None:
+    """Path 2: config #4 trains ``HOST_LOADER_STEPS`` host-loader steps at
+    steps_per_call 1, 1 and 10 (chunks through the prefetcher); the ``spc =
+    10`` losses must lie within the spread of the two ``spc = 1`` runs
+    (the same bits where that spread is 0), every run launching B1, B2, B9
+    and B10."""
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.convert import params_to_numpy
+    from poi_tpu_torch.train.loop import make_trainer
+
+    cfg = get_config(ATTN_CONFIG)
+    assert cfg.data.sampler == "host" and cfg.train.steps_per_call == 1, (cfg.data.sampler, cfg.train.steps_per_call)
+    ds = state["attn_ds"]
+    tree = params_to_numpy(make_trainer(cfg, ds, DEV).model)
+    runs = [host_loader_run(cfg, ds, tree, spc, HOST_LOADER_STEPS) for spc in HOST_LOADER_SPC]
+    for (losses, launches), spc in zip(runs, HOST_LOADER_SPC):
+        assert all(math.isfinite(v) for v in losses), losses
+        for name in ("gru_fwd", "gru_bwd", "sampled_lse", "sampled_bwd"):
+            assert launches[name] > 0, f"host_loader spc={spc}: no {name} launch: {launches}"
+    (a, launches), (b, _), (c, _) = runs
+    spread = max(abs(x - y) for x, y in zip(a, b))
+    diff = max(abs(x - y) for x, y in zip(a, c))
+    log(f"[host_loader] config #4, {HOST_LOADER_STEPS} host-loader steps: losses at spc=1 {a[0]:.6f} -> {a[-1]:.6f}; "
+        f"largest |spc=1 - spc=1| {spread:.3e}, |spc=10 - spc=1| {diff:.3e}; launches at spc=1 {launches}")
+    assert diff <= spread, f"host_loader: spc=10's losses leave the spread of two spc=1 runs: {diff} > {spread}"
+
+
+def host_loader_device_phase(state, gpu: str) -> None:
+    """Path 2's rates: ``host_loader_timing`` at spc 1 and 10 in turns,
+    ``HOST_TIMING_ROUNDS`` rounds, each with its device idle share."""
+    from poi_tpu_torch.configs.presets import get_config
+
+    cfg, ds = get_config(ATTN_CONFIG), state["attn_ds"]
+    for r in range(HOST_TIMING_ROUNDS):
+        for spc in (1, 10):
+            t = host_loader_timing(cfg, ds, spc, HOST_TIMING_STEPS, HOST_TIMING_WARMUP, HOST_TIMING_PROFILED)
+            log(f"[host_loader] round {r + 1} spc={spc}: {t['seq_per_s']:.1f} seq/s ({t['step_ms']:.3f} ms a step over "
+                f"{HOST_TIMING_STEPS} steps after {HOST_TIMING_WARMUP}, log_every {cfg.train.log_every}); "
+                f"{t['device_ms']:.3f} ms of device time a step; device idle share {t['idle']:.3f}  ({gpu})")
+
+
 # The checkpoint phase's resume drill, per configuration: (config, extra
 # --set flags, steps, checkpoint and eval period, fault step, the kernels
 # its train path must launch). Config #1 takes the host TrainLoader and
@@ -2210,6 +2384,7 @@ def scripts_phase(state) -> None:
         assert proc.returncode == 0, f"{name} {' '.join(args)} exited {proc.returncode}:\n{proc.stderr[-3000:]}"
         # Every point of bench_cells is within its recurrence's width limit.
         assert name != "bench_cells" or "refused" not in proc.stdout, "bench_cells: a point was refused"
+        assert name != "check_cell_parity" or "DIVERGES" not in proc.stdout, "check_cell_parity: a cell diverged"
         log(f"[scripts] {name} {' '.join(args)}: exit 0 in {time.perf_counter() - t0:.1f} s")
 
 
@@ -2415,7 +2590,10 @@ def train_timing_phase(state, gpu: str) -> dict:
     # No single PyTorch call computes a row LSE over a product, or its
     # gradients from a given LSE: no library time. B8 at the bench shape and
     # at config #3's, its two passes apart from the profiler's device time.
-    for key, (N, V, D) in (("", CE_TRAIN_SHAPE), ("_c3", CE_C3_SHAPE)):
+    # Then B7/B8 at D = 256: config #3's 256-d shape (path 1) and the bench
+    # shape.
+    for key, (N, V, D) in (("", CE_TRAIN_SHAPE), ("_c3", CE_C3_SHAPE), ("_c3_d256", CE_C3_D256),
+                           ("_d256", CE_WIDE_CASES[1][:3])):
         q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
         table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
         bias = torch.randn(V, generator=gen, device=DEV)
@@ -2500,7 +2678,11 @@ def config5_timing_phase(state, gpu: str) -> None:
 # with its chip_smoke.py's helpers, and holds a call for every kernel
 # either names; its second argument lists the kernels to time.
 AB_TIMED = ("ce_lse_variant_base", "ce_lse_variant_exp2", "ce_lse_variant_nomax")
-AB_KEPT = ("gru_bwd", "lstm_bwd", "sampled_bwd", "rnn_bwd", "sampled_lse", "ce_lse", "rnn_fwd")
+AB_KEPT = ("gru_bwd", "lstm_bwd", "sampled_bwd", "rnn_bwd", "sampled_lse", "ce_lse", "ce_bwd", "rnn_fwd")
+# Path 2's host-loader train() in each checkout (seq/s and device idle share
+# at steps_per_call 1 and 10 by this checkout's host_loader_timing; a
+# checkout whose loop ignores steps_per_call runs both synchronously).
+AB_HOST = "host_loader"
 AB_CHILD = r"""
 import json, sys
 import torch
@@ -2508,7 +2690,7 @@ import chip_smoke as cs
 from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan
 from poi_tpu_torch.ops.fused_lstm import fused_lstm_bwd, fused_lstm_scan
 from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan, rnn_scan_reference
-from poi_tpu_torch.ops.fused_ce import ce_lse, ce_lse_variant
+from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_lse, ce_lse_variant
 from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse
 from poi_tpu_torch.scripts import sweep_ce_fwd
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -2527,20 +2709,37 @@ ldh = torch.randn(64, 64, 128, generator=gen, device="cuda")
 cq, ct, cb = sweep_ce_fwd.inputs(sweep_ce_fwd.N, sweep_ce_fwd.V, sweep_ce_fwd.D, "cuda")
 bq, bt = (0.3 * torch.randn(n, 128, generator=gen, device="cuda") for n in cs.CE_TRAIN_SHAPE[:2])
 bb = torch.randn(cs.CE_TRAIN_SHAPE[1], generator=gen, device="cuda")
+bl = torch.randn(cs.CE_TRAIN_SHAPE[0], generator=gen, device="cuda") + 8.0
+bg = torch.rand(cs.CE_TRAIN_SHAPE[0], generator=gen, device="cuda")
+sq, st, sb = (0.3 * torch.randn(300, 32, generator=gen, device="cuda"), 0.3 * torch.randn(8193, 32, generator=gen,
+              device="cuda"), torch.randn(8193, generator=gen, device="cuda"))
 # B12 at the sweep's shape and 128 rows, which both checkouts take; "ce_lse"
 # names the kernel of either design (ce_lse_kernel, ce_lse_wg_kernel). B7 at
 # the bench shape, and on config #3's 2,048 rows (its split-and-merge path).
 variant = lambda v: (lambda: (ce_lse_variant(cq, ct, cb, v, 128),), ("ce_lse",))  # noqa: E731
 calls = {**{f"ce_lse_variant_{v}": variant(v) for v in ("base", "exp2", "nomax")},
          "ce_lse": (lambda: (ce_lse(bq, bt, bb), ce_lse(bq[:cs.CE_C3_SHAPE[0]], bt, bb)), cs.CE_LSE_KERNELS),
+         # B8 at the bench shape, on config #3's 2,048 rows (its split
+         # passes) and at D = 32 on ragged N and V.
+         "ce_bwd": (lambda: (*ce_bwd(bq, bt, bb, bl, bg),
+                             *ce_bwd(bq[:cs.CE_C3_SHAPE[0]], bt, bb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]]),
+                             *ce_bwd(sq, st, sb, bl[:300], bg[:300])), ("ce_bwd_pass", "sum_splits")),
          "rnn_fwd": (lambda: (fused_rnn_scan(x, mask, w),), cs.RNN_FWD_KERNELS),
          "rnn_bwd": (lambda: fused_rnn_bwd(x, mask, w, hs, dhs), cs.RNN_BWD_KERNELS),
          "sampled_lse": (lambda: (sampled_lse(q, e, b, ids, tgt),), cs.SAMPLED_LSE_KERNELS),
          "sampled_bwd": (lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g), cs.SAMPLED_BWD_KERNELS),
          "gru_bwd": (lambda: fused_gru_bwd(xw, wh, gh, gdh), cs.GRU_BWD_KERNELS),
          "lstm_bwd": (lambda: fused_lstm_bwd(lx, lmask, lw, *lst, ldh), cs.LSTM_BWD_KERNELS)}
-res = {k: {"events_ms": cs.time_ms(calls[k][0]), **cs.device_parts(*calls[k])} for k in json.loads(sys.argv[2])}
+wanted = json.loads(sys.argv[2])
+res = {k: {"events_ms": cs.time_ms(calls[k][0]), **cs.device_parts(*calls[k])} for k in wanted if k in calls}
 torch.save({k: [t.cpu() for t in f()] for k, (f, _) in calls.items()}, sys.argv[1])
+if sys.argv[3] in wanted:  # path 2: config #4's host-loader train(), both spc
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.data.dataset import load_dataset
+    exec(sys.argv[5])  # this checkout's host_loader_timing
+    cfg = get_config(cs.ATTN_CONFIG)
+    ds = load_dataset(cfg.data)
+    res[sys.argv[3]] = {spc: host_loader_timing(cfg, ds, spc, *json.loads(sys.argv[4])) for spc in (1, 10)}
 print("AB " + json.dumps(res), flush=True)
 """
 
@@ -2563,8 +2762,10 @@ def ab_main(other: str) -> int:
     outs = {}
     for i, (tag, tree) in enumerate(runs):
         path = out_dir / f"{i}_{tag}.pt"
-        proc = subprocess.run([sys.executable, "-c", AB_CHILD, str(path), json.dumps(AB_TIMED)], cwd=tree,
-                              capture_output=True, text=True, timeout=600)
+        proc = subprocess.run([sys.executable, "-c", AB_CHILD, str(path), json.dumps([*AB_TIMED, AB_HOST]), AB_HOST,
+                               json.dumps([HOST_TIMING_STEPS, HOST_TIMING_WARMUP, HOST_TIMING_PROFILED]),
+                               inspect.getsource(host_loader_timing)], cwd=tree, capture_output=True, text=True,
+                              timeout=600)
         assert proc.returncode == 0, f"--ab run in {tree} failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}"
         line = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")][-1]
         times.setdefault(tag, []).append(json.loads(line[3:]))
@@ -2575,6 +2776,12 @@ def ab_main(other: str) -> int:
                 parts = ", ".join(f"{k[:-3]} {v:.4f}" for k, v in t[name].items() if k not in ("events_ms", "device_ms"))
                 log(f"[ab] {name} {tag} run {i + 1}: CUDA events {t[name]['events_ms']:.4f} ms, device "
                     f"{t[name]['device_ms']:.4f} ms ({parts})  ({gpu})")
+    for tag in ("other", "this"):
+        for i, t in enumerate(times[tag]):
+            log(f"[ab] {AB_HOST} {tag} run {i + 1}: config #4's host-loader train(), "
+                + "; ".join(f"spc={spc}: {r['seq_per_s']:.1f} seq/s ({r['step_ms']:.3f} ms a step, device "
+                            f"{r['device_ms']:.3f} ms, idle share {r['idle']:.3f})" for spc, r in t[AB_HOST].items())
+                + f"  ({gpu})")
     for name in (*AB_TIMED, *AB_KEPT):
         want = outs["other"][0][name]
         same = all(torch.equal(a, b) for a, b in zip(outs["this"][0][name], want))
@@ -2972,10 +3179,24 @@ def serve_prepare(trainer, state, cfg, ds, work: Path, rank: int) -> dict:
     from poi_tpu_torch.utils.checkpoint import CheckpointManager
 
     torch.cuda.synchronize()
+    live = {**{f"params/{k}": v.detach().clone() for k, v in state.params.items()},
+            **{f"opt/{k}": v.clone() for k, v in state.opt_state.items() if torch.is_tensor(v)}}
+    mgr = CheckpointManager(str(work / "c5_ckpt"), async_save=True, mesh=trainer.mesh,
+                            num_pois=trainer.dims.num_pois)
     t0 = time.perf_counter()
-    CheckpointManager(str(work / "c5_ckpt"), mesh=trainer.mesh, num_pois=trainer.dims.num_pois).save(
-        state.step, state, config_json=cfg.to_json())
+    mgr.save(state.step, state, config_json=cfg.to_json())
+    returned_s = time.perf_counter() - t0
+    mgr.wait()  # rank 0 joins its writer thread, then every rank passes the barrier
     save_s = time.perf_counter() - t0
+    # Resume from the file the writer thread wrote: the state it restores
+    # into the live tensors is the saved state, bit for bit.
+    restored, _ = mgr.restore(state)
+    mgr.close()
+    got = {**{f"params/{k}": v for k, v in restored.params.items()},
+           **{f"opt/{k}": v for k, v in restored.opt_state.items() if torch.is_tensor(v)}}
+    same = restored.step == state.step and got.keys() == live.keys() and all(
+        torch.equal(got[k], live[k]) for k in live)
+    del live
     req = json.loads((work / "serve_requests.json").read_text())
     tail = [Checkin(**c) for c in req["tail"]]
     best = Recommender(trainer.model, cfg, ds, mesh=trainer.mesh).recommend([tail] if rank == 0 else None, k=MAX_K,
@@ -2989,7 +3210,7 @@ def serve_prepare(trainer, state, cfg, ds, work: Path, rank: int) -> dict:
                  + [json.dumps([h]) for h in singles[half:]] + [json.dumps(req["batch"])] * 2 + [json.dumps([long])])
         (work / "serve_stdin.txt").write_text("\n".join(lines) + "\n")
         (work / "serve_long.json").write_text(json.dumps(long))
-    return {"ckpt_save_s": save_s, "step": state.step}
+    return {"ckpt_save_s": save_s, "ckpt_returned_s": returned_s, "resumed_same": same, "step": state.step}
 
 
 def mesh_serve(work: Path, rank: int) -> dict:
@@ -3257,6 +3478,11 @@ def serve_check(work: Path, ranks: list[dict], ds, gpu: str) -> dict:
                 d = (score(got) - score(want)).abs()[torch.from_numpy(got != want).to(DEV)]
                 worst = max(worst, float(d.max()))
     assert worst < TOPK_TOL, f"serve: ids differ from the one-process ids at scores {worst} apart"
+    prep = [r["serve_prep"] for r in ranks]
+    log(f"[mesh] checkpoint: the c5 job's async_save on 1 x 4: save returned after {prep[0]['ckpt_returned_s']:.2f} s "
+        f"(rank 0's host copy; the write on its writer thread), wait() after {prep[0]['ckpt_save_s']:.2f} s; restored "
+        f"from that file, the same bits as the live state on ranks {[p['resumed_same'] for p in prep]}")
+    assert all(p["resumed_same"] for p in prep), prep
     times = ranks[0]["serve"]["times"]
     b1 = [ms for rows, ms in times[:len(req["singles"])]]
     out = {"b1_ms": statistics.median(b1), "b256_first_ms": times[-3][1], "b256_ms": times[-2][1],
@@ -3422,6 +3648,10 @@ def mesh_phase(state, gpu: str) -> dict:
     return out
 
 
+# The kernels line's keys of B7/B8 at D = 256 and their timing keys.
+D256_KEYS = {"config3_d256": "_c3_d256", "bench_d256": "_d256"}
+
+
 def record(name: str, source: str, replaces: str, launches: int, max_abs_err: float, t: dict, **extra) -> dict:
     """One kernel's entry in the JSON line: its launches on the main path,
     its parity and its times at the main path's shape, with the bound."""
@@ -3470,6 +3700,8 @@ def main() -> int:
     phase("lstm_config", recurrent_config_phase, state, "lstm")
     phase("strnn_config", recurrent_config_phase, state, "strnn")
     phase("config5", config5_phase, state, gpu)
+    phase("strnn_d256", strnn_d256_phase, state)
+    phase("host_loader", host_loader_phase, state)
     mesh = phase("mesh", mesh_phase, state, gpu)
     phase("cli_train", cli_train_phase, state)
     phase("checkpoint", checkpoint_phase, gpu)
@@ -3479,6 +3711,7 @@ def main() -> int:
     phase("recurrence_device", recurrence_device_phase, times, big, lstm, gpu)
     phase("pool_recurrence_device", pool_recurrence_device_phase, sampled, lstm, rnn, gpu)
     phase("ce_variants_device", ce_variants_device_phase, variants, gpu)
+    phase("host_loader_device", host_loader_device_phase, state, gpu)
     phase("config5_timing", config5_timing_phase, state, gpu)
     phase("scripts", scripts_phase, state)
     kept = dict(sorted(_timing.SPINS_SEEN.items()))
@@ -3511,6 +3744,9 @@ def main() -> int:
     assert len(swept) == 6 and all(swept.values()), f"the sweep skipped an instantiation: {swept}"
     best = min(variants, key=lambda k: variants[k]["ms"])
     c2, c3 = state["lstm"]["launches"], state["strnn"]["launches"]
+    # B7/B8 at D = 256: config #3's 256-d shape with path 1's launches (the
+    # train CLI at 20 steps); the bench shape at D = 256 has no main path.
+    d256 = {"config3_d256": state["c3_d256_launches"], "bench_d256": {"ce_lse": 0, "ce_bwd": 0}}
     h256 = lambda d: {f"{k}_h256": big[d][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}  # noqa: E731
     fwd_at = lambda t: {f: t[f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}  # noqa: E731
     kernels = [
@@ -3539,12 +3775,18 @@ def main() -> int:
                device_ms=times["ce_lse"]["device_ms"],
                config3={f: times["ce_lse_c3"][f] for f in ("ms", "plain_ms", "bound_ms", "device_ms",
                                                            *(f"{n}_ms" for n in CE_LSE_KERNELS))},
-               config3_launches=c3["ce_lse"]),
+               config3_launches=c3["ce_lse"],
+               **{k: {**{f: times[f"ce_lse{key}"][f] for f in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
+                                                                *(f"{n}_ms" for n in CE_LSE_KERNELS))},
+                      "launches": d256[k]["ce_lse"]} for k, key in D256_KEYS.items()}),
         record("ce_bwd", "ce_bwd.cu", "poi_tpu/ops/fused_ce.py:210", trained["ce_bwd"], ce_grad_err, times["ce_bwd"],
                dq_ms=times["ce_bwd"]["dq_ms"], dtable_ms=times["ce_bwd"]["dtable_ms"],
                config3={f: times["ce_bwd_c3"][f] for f in ("ms", "plain_ms", "bound_ms", "dq_ms", "dtable_ms",
                                                            "sum_splits_ms")},
-               config3_launches=c3["ce_bwd"]),
+               config3_launches=c3["ce_bwd"],
+               **{k: {**{f: times[f"ce_bwd{key}"][f] for f in ("ms", "plain_ms", "bound_ms", "library_ms", "dq_ms",
+                                                                "dtable_ms", "sum_splits_ms")},
+                      "launches": d256[k]["ce_bwd"]} for k, key in D256_KEYS.items()}),
         record("sampled_lse", "sampled.cu", "poi_tpu/ops/fused_sampled.py:76", attn["sampled_lse"],
                sampled["lse_err"], sampled["lse"],
                **{k: sampled["lse"][k] for k in ("device_ms", *(f"{n}_ms" for n in SAMPLED_LSE_KERNELS))},

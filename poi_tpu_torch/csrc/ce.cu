@@ -63,6 +63,10 @@
 //   partial base-2 (max, sum) to scratch the wrapper allocates
 //   (ce_lse_scratch), and lse_merge combines the S pairs of a row in range
 //   order. No atomics: the same bits every run.
+// - Widths: 32, 64, 128 (every variant, 128 or 256 rows), 192 (ce_lse's
+//   base at 256 rows: 198,728 bytes of smem) and 256 (base at 128 rows,
+//   lse_rows_for, as ops/fused_ce.py's lse_rows). The wrapper pads any other
+//   D <= 256 with zero columns, which add nothing to q . table^T.
 // - Any N and V: TMA zero-fills rows past N and V, ragged columns are masked
 //   to -inf (they add 0); a range wholly in the -1e30 tail keeps a finite max
 //   (-1e30 in base 2) and a sum that the merge scales by 2^(-1e30 - max) = 0.
@@ -384,19 +388,32 @@ cudaError_t run_lse_variant(const void* q, const void* table, const void* bias, 
   }
 }
 
-bool lse_takes_rows(int rows) { return rows == 128 || rows == kLseRows; }
+// The rows a block of ce_lse at width D: 256 (Cons = 4) up to D = 192,
+// 128 (Cons = 2) at D = 256, where 256 resident rows (128 KB) beside the
+// 4-stage ring (128 KB) would pass the 227 KB a block may opt into; two
+// warpgroups keep B9's D = 256 shape (sampled.cu), whose 256 rows on a
+// 3-stage ring timed no faster.
+__host__ __device__ constexpr int lse_rows_for(int D) { return D == 256 ? 128 : kLseRows; }
+
+// B12's variants and both row counts up to D = 128; above it only
+// ce_lse's own instantiation (the base variant at lse_rows_for(D)).
+bool lse_takes(int D, int variant, int rows) {
+  if (D <= 128) return rows == 128 || rows == kLseRows;
+  return variant == kBase && rows == lse_rows_for(D);
+}
 
 }  // namespace
 
 // The widths the kernels are built for, the forward's here and the backward's
-// in ce_bwd.cu; the wrapper checks D against it.
-extern "C" int ce_supports_dim(int D) { return D == 32 || D == 64 || D == 128; }
+// in ce_bwd.cu; the wrapper pads any D <= 256 with zero columns to the next
+// of them (ops/fused_ce.py padded_dim).
+extern "C" int ce_supports_dim(int D) { return D == 32 || D == 64 || D == 128 || D == 192 || D == 256; }
 
 // Floats of scratch a launch with `rows` query rows a block needs for its
 // ranges' partial sums (0 when the row blocks fill the card: pass any
 // pointer).
 extern "C" int ce_lse_scratch(int N, int V, int D, int rows) {
-  if (N <= 0 || V <= 0 || !ce_supports_dim(D) || !lse_takes_rows(rows)) return 0;
+  if (N <= 0 || V <= 0 || !ce_supports_dim(D) || !lse_takes(D, kBase, rows)) return 0;
   int per = 0;
   const int S = lse_splits(N, V, rows, &per);
   return S > 1 ? 2 * S * N : 0;
@@ -404,10 +421,11 @@ extern "C" int ce_lse_scratch(int N, int V, int D, int rows) {
 
 // The forward: variant is a LseVariant (0 base, 1 exp2: q and bias already
 // scaled by log2(e), 2 nomax), rows 128 or 256 (2 or 4 consumer
-// warpgroups); ce_lse is base at 256.
+// warpgroups); ce_lse is base at ce_lse_rows(D). D = 192 and 256 take only
+// that.
 extern "C" int ce_lse_variant(const void* q, const void* table, const void* bias, void* lse, void* scratch, int N,
                               int V, int D, int variant, int rows, int device, void* stream) {
-  if (!ce_supports_dim(D) || V <= 0 || variant < kBase || variant > kNoMax || !lse_takes_rows(rows)) {
+  if (!ce_supports_dim(D) || V <= 0 || variant < kBase || variant > kNoMax || !lse_takes(D, variant, rows)) {
     return cudaErrorInvalidValue;
   }
   if (N <= 0) return cudaSuccess;
@@ -417,6 +435,8 @@ extern "C" int ce_lse_variant(const void* q, const void* table, const void* bias
   switch (D) {
     case 32: return run_lse_variant<32>(q, table, bias, lse, scratch, N, V, variant, rows, s);
     case 64: return run_lse_variant<64>(q, table, bias, lse, scratch, N, V, variant, rows, s);
+    case 192: return run_lse_wg<192, kBase, lse_rows_for(192) / 64>(q, table, bias, lse, scratch, N, V, s);
+    case 256: return run_lse_wg<256, kBase, lse_rows_for(256) / 64>(q, table, bias, lse, scratch, N, V, s);
     default: return run_lse_variant<128>(q, table, bias, lse, scratch, N, V, variant, rows, s);
   }
 }

@@ -41,6 +41,11 @@
 //      multiplies them by the SAME smem tile read MN-major (the transpose
 //      bit), adding into its [64, D] fp32 output accumulators. The tile is
 //      not copied a second time.
+// That is narrow_pass, for D = 32, 64 and 128. At D = 192 and 256 the
+// [64, D] sums leave no registers for the resident fragments: wide_pass
+// (below) reads A from smem for the logits, keeps one logits buffer and
+// splits the gradient product into products of at most 128 columns. The
+// wrapper pads any other D <= 256 with zero columns (ops/fused_ce.py).
 // Where the resident blocks cannot fill the card (config #3's dq: 16 blocks
 // of 128 rows), the streamed dimension is split S ways into fp32 partials
 // [S, rows, D] (and [S, V] for dbias) in the caller's scratch, and
@@ -76,15 +81,15 @@ constexpr int pass_smem_bytes() {
   return 1024 + (kRes + kStages * kStr) * D * 2 + kStages * stream_vecs<kDtable>() * kStr * 4 + (2 * kStages + 1) * 8;
 }
 
-// One consumer warpgroup's work on one streamed tile: gp from the logits `s`
-// (already waited for), rounded into A fragments and multiplied by the same
-// tile, MN-major, into `acc`. Starts the product and commits it; the caller
-// waits.
-template <int D, bool kDtable>
-__device__ __forceinline__ void tile_gradient(float (&s)[32], float (&acc)[D / 2], float (&db)[2], uint32_t tile,
-                                              const float* vec, int c0, int n_str, const bool (&ok)[2],
-                                              const float (&ra)[2], const float (&rb)[2], int t) {
-  constexpr int SW = swizzle_bytes(D);
+// gp of one streamed tile from its logits `s` (already waited for), in
+// place: (row r of the thread, column c of the tile) is s[4 (c / 8) + 2 r +
+// c % 2]. The dq pass: vec = the streamed catalog rows' bias; ra, rb = the
+// resident queries' lse, g. The dtable pass: vec = the streamed queries'
+// lse, then their g; ra = the resident catalog rows' bias; db sums gp a
+// resident row.
+template <bool kDtable>
+__device__ __forceinline__ void tile_gp(float (&s)[32], float (&db)[2], const float* vec, int c0, int n_str,
+                                        const bool (&ok)[2], const float (&ra)[2], const float (&rb)[2], int t) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -98,19 +103,21 @@ __device__ __forceinline__ void tile_gradient(float (&s)[32], float (&acc)[D / 2
         // next tile are in flight on the tensor cores meanwhile).
         const bool keep = okc & ok[r];
         if constexpr (kDtable) {
-          // vec: the streamed queries' lse, then their g.
           const float gp = __expf(x + ra[r] - vec[c]) * vec[kStr + c];
           x = keep ? gp : 0.f;
           db[r] += x;
         } else {
-          // vec: the streamed catalog rows' bias.
           const float gp = __expf(x + vec[c] - ra[r]) * rb[r];
           x = keep ? gp : 0.f;
         }
       }
     }
   }
-  uint32_t a[4][4];
+}
+
+// gp rounded to bf16 straight into wgmma A fragments (the fp32 accumulator
+// layout of m64nN is the A layout of the next k16 step).
+__device__ __forceinline__ void gp_fragments(uint32_t (&a)[4][4], const float (&s)[32]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
@@ -118,6 +125,20 @@ __device__ __forceinline__ void tile_gradient(float (&s)[32], float (&acc)[D / 2
     a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
     a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
+}
+
+// One consumer warpgroup's work on one streamed tile: gp from the logits `s`
+// (already waited for), rounded into A fragments and multiplied by the same
+// tile, MN-major, into `acc`. Starts the product and commits it; the caller
+// waits.
+template <int D, bool kDtable>
+__device__ __forceinline__ void tile_gradient(float (&s)[32], float (&acc)[D / 2], float (&db)[2], uint32_t tile,
+                                              const float* vec, int c0, int n_str, const bool (&ok)[2],
+                                              const float (&ra)[2], const float (&rb)[2], int t) {
+  constexpr int SW = swizzle_bytes(D);
+  tile_gp<kDtable>(s, db, vec, c0, n_str, ok, ra, rb, t);
+  uint32_t a[4][4];
+  gp_fragments(a, s);
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
@@ -167,6 +188,7 @@ __device__ __forceinline__ void pipeline_step(float (&sc)[32], float (&sn)[32], 
                             cur < t1 ? n_str : 0, ok, ra, rb, t);
 }
 
+// One pass up to D = 128: the resident rows' A fragments in registers.
 // kDtable false: the dq pass (resident = queries, streamed = catalog rows,
 // out = dq). True: the dtable pass (resident = catalog rows, streamed =
 // queries, out = dtable, and dbias). With S splits (gridDim.y), split s
@@ -174,11 +196,11 @@ __device__ __forceinline__ void pipeline_step(float (&sc)[32], float (&sn)[32], 
 // row_a / row_b: per resident row, the dq pass's lse and g, the dtable
 // pass's bias (row_b unused).
 template <int D, bool kDtable>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-    ce_bwd_pass(const __grid_constant__ CUtensorMap res_map, const __grid_constant__ CUtensorMap str_map,
-                const __grid_constant__ CUtensorMap vec0_map, const __grid_constant__ CUtensorMap vec1_map,
-                const float* __restrict__ row_a, const float* __restrict__ row_b, float* __restrict__ out,
-                float* __restrict__ dbias, int n_res, int n_str, int tiles_per_split) {
+__device__ __forceinline__ void narrow_pass(const CUtensorMap& res_map, const CUtensorMap& str_map,
+                                            const CUtensorMap& vec0_map, const CUtensorMap& vec1_map,
+                                            const float* __restrict__ row_a, const float* __restrict__ row_b,
+                                            float* __restrict__ out, float* __restrict__ dbias, int n_res, int n_str,
+                                            int tiles_per_split) {
   constexpr int SW = swizzle_bytes(D), CC = SW / 2, NCH = D / CC, NV = stream_vecs<kDtable>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -298,6 +320,211 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------- D = 192, 256
+//
+// At D = 256 a consumer thread's [64, 256] fp32 sums take 128 registers;
+// the resident rows' A fragments (64 more) and two logit tiles would not fit
+// beside them under setmaxnreg's 232. So the wide pass is csrc/sampled.cu's
+// backward at D = 256 (B10) without the hit mask: the logits read A (the
+// warpgroup's resident rows) from shared memory by descriptor, one logits
+// buffer a warpgroup (the other warpgroup's products run while this one
+// forms gp), and the gradient product runs in products of NP columns
+// (wgmma_rs takes N <= 128: two of 128 at D = 256, three of 64 at D = 192).
+// Block shape, ring, splits and arithmetic are narrow_pass's.
+
+template <int D>
+__host__ __device__ constexpr int wide_cols() {
+  return D % 128 == 0 ? 128 : 64;
+}
+
+// The 64 x 64 logits of the warpgroup's resident rows (at `res`, the first
+// of the block's kRes) against a streamed tile, A and B K-major in smem.
+// Starts and commits; the caller waits.
+template <int D>
+__device__ __forceinline__ void wide_logits(float (&s)[32], uint32_t res, uint32_t tile) {
+  constexpr int SW = swizzle_bytes(D), KPC = SW / 32;
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t k_off = (ks % KPC) * 32;
+    const uint64_t da = smem_desc(res + (ks / KPC) * kRes * SW + k_off, 16, 8 * SW, SW);
+    const uint64_t db = smem_desc(tile + (ks / KPC) * kStr * SW + k_off, 16, 8 * SW, SW);
+    if (ks == 0) {
+      wgmma_ss64_first(s, da, db);
+    } else {
+      wgmma_ss<64>(s, da, db, 1);
+    }
+  }
+  wgmma_commit();
+}
+
+// acc[64 x D] += bf16(gp)[64 x 64] . tile[64 x D], the tile read MN-major,
+// in products of NP columns (the chunks of 64 columns lie kStr * SW bytes
+// apart). Starts and commits.
+template <int D>
+__device__ __forceinline__ void wide_product(float (&acc)[D / wide_cols<D>()][wide_cols<D>() / 2],
+                                             const float (&s)[32], uint32_t tile) {
+  constexpr int SW = swizzle_bytes(D), NP = wide_cols<D>(), NH = D / NP;
+  uint32_t a[4][4];
+  gp_fragments(a, s);
+#pragma unroll
+  for (int h = 0; h < NH; ++h) fence_regs(acc[h]);
+  wgmma_fence();
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<NP, 1>(acc[h], a[kk], smem_desc(tile + h * (NP / 64) * kStr * SW + kk * 16 * SW, kStr * SW, 8 * SW, SW),
+                      1);
+    }
+  }
+  wgmma_commit();
+}
+
+// One pass at D = 192 or 256; arguments as narrow_pass's.
+template <int D, bool kDtable>
+__device__ __forceinline__ void wide_pass(const CUtensorMap& res_map, const CUtensorMap& str_map,
+                                          const CUtensorMap& vec0_map, const CUtensorMap& vec1_map,
+                                          const float* __restrict__ row_a, const float* __restrict__ row_b,
+                                          float* __restrict__ out, float* __restrict__ dbias, int n_res, int n_str,
+                                          int tiles_per_split) {
+  constexpr int SW = swizzle_bytes(D), CC = SW / 2, NCH = D / CC, NV = stream_vecs<kDtable>();
+  constexpr int NP = wide_cols<D>(), NH = D / NP;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* res_s = base;                                     // [NCH][kRes][SW bytes]
+  unsigned char* str_s = base + kRes * D * 2;                      // [kStages][NCH][kStr][SW bytes]
+  float* vec_s = reinterpret_cast<float*>(str_s + kStages * kStr * D * 2);  // [kStages][NV][kStr]
+  uint64_t* full = reinterpret_cast<uint64_t*>(vec_s + kStages * NV * kStr);
+  uint64_t* empty = full + kStages;
+  uint64_t* res_full = empty + kStages;
+
+  const int r0 = blockIdx.x * kRes;
+  const int split = blockIdx.y;
+  const int n_tiles = (n_str + kStr - 1) / kStr;
+  const int t0 = split * tiles_per_split, t1 = min(n_tiles, t0 + tiles_per_split);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 256);  // every consumer thread
+    }
+    mbar_init(res_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp >= 8) {  // the producer warpgroup, as narrow_pass's
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
+      mbar_arrive_expect_tx(res_full, kRes * D * 2);
+      for (int c = 0; c < NCH; ++c) tma_load_2d(res_s + c * kRes * SW, &res_map, c * CC, r0, res_full);
+      int st = 0;
+      uint32_t ph = 0;
+      for (int it = t0; it < t1; ++it) {
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_arrive_expect_tx(&full[st], kStr * D * 2 + NV * kStr * 4);
+        for (int c = 0; c < NCH; ++c) {
+          tma_load_2d(str_s + (st * NCH + c) * kStr * SW, &str_map, c * CC, it * kStr, &full[st]);
+        }
+        tma_load_1d(vec_s + st * NV * kStr, &vec0_map, it * kStr, &full[st]);
+        if constexpr (NV == 2) tma_load_1d(vec_s + (st * NV + 1) * kStr, &vec1_map, it * kStr, &full[st]);
+        if (++st == kStages) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // 232 registers a consumer thread: the [64, D] sums, one logits tile and
+  // gp's A fragments.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp / 4, wi = warp % 4, g = lane / 4, t = lane % 4;
+  int row[2];
+  bool ok[2];
+  float ra[2], rb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row[r] = r0 + wg * 64 + wi * 16 + g + 8 * r;
+    ok[r] = row[r] < n_res;
+    ra[r] = ok[r] ? row_a[row[r]] : 0.f;
+    rb[r] = ok[r] && !kDtable ? row_b[row[r]] : 0.f;
+  }
+  float acc[NH][NP / 2];
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) acc[h][i] = 0.f;
+  }
+  float db[2] = {0.f, 0.f};
+  float s[32];
+  const uint32_t res_addr = smem_u32(res_s) + wg * 64 * SW, str_addr = smem_u32(str_s);
+  mbar_wait(res_full, 0);
+
+  // A tile: its logits on the tensor cores, then (once they and the previous
+  // tile's product are done) the previous tile's stage released, gp, and
+  // this tile's product started; it runs while the next tile's logits are
+  // started behind it.
+  for (int it = t0; it < t1; ++it) {
+    const int k = it - t0, st = k % kStages;
+    const uint32_t tile = str_addr + st * NCH * kStr * SW;
+    mbar_wait(&full[st], (k / kStages) & 1);
+    wide_logits<D>(s, res_addr, tile);
+    wgmma_wait<0>();
+    fence_regs(s);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) fence_regs(acc[h]);
+    if (k > 0) {
+      // The previous tile's vectors, read by generic loads, before the next bulk write into its stage.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&empty[(st + kStages - 1) % kStages]);
+    }
+    tile_gp<kDtable>(s, db, vec_s + st * NV * kStr, it * kStr, n_str, ok, ra, rb, t);
+    wide_product<D>(acc, s, tile);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < NH; ++h) fence_regs(acc[h]);
+
+  float* dst0 = out + (size_t)split * n_res * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if constexpr (kDtable) {
+      db[r] += __shfl_xor_sync(0xffffffffu, db[r], 1);
+      db[r] += __shfl_xor_sync(0xffffffffu, db[r], 2);
+      if (ok[r] && t == 0) dbias[(size_t)split * n_res + row[r]] = db[r];
+    }
+    if (!ok[r]) continue;
+    float* dst = dst0 + (size_t)row[r] * D + 2 * t;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+#pragma unroll
+      for (int j = 0; j < NP / 8; ++j) {
+        *reinterpret_cast<float2*>(dst + h * NP + j * 8) = make_float2(acc[h][j * 4 + 2 * r], acc[h][j * 4 + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// A pass as a kernel of its own name (the profiler tells the dq and dtable
+// passes apart by kDtable): narrow_pass up to D = 128, wide_pass above.
+template <int D, bool kDtable>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    ce_bwd_pass(const __grid_constant__ CUtensorMap res_map, const __grid_constant__ CUtensorMap str_map,
+                const __grid_constant__ CUtensorMap vec0_map, const __grid_constant__ CUtensorMap vec1_map,
+                const float* __restrict__ row_a, const float* __restrict__ row_b, float* __restrict__ out,
+                float* __restrict__ dbias, int n_res, int n_str, int tiles_per_split) {
+  if constexpr (D <= 128) {
+    narrow_pass<D, kDtable>(res_map, str_map, vec0_map, vec1_map, row_a, row_b, out, dbias, n_res, n_str,
+                            tiles_per_split);
+  } else {
+    wide_pass<D, kDtable>(res_map, str_map, vec0_map, vec1_map, row_a, row_b, out, dbias, n_res, n_str,
+                          tiles_per_split);
+  }
+}
+
 // How many ways a pass splits its streamed tiles (fill_splits).
 int splits(int n_res, int n_str, int* per) {
   return fill_splits((n_res + kRes - 1) / kRes, (n_str + kStr - 1) / kStr, per);
@@ -371,6 +598,8 @@ extern "C" int ce_bwd(const void* q, const void* table, const void* bias, const 
   switch (D) {
     case 32: return run_bwd<32>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
     case 64: return run_bwd<64>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
+    case 192: return run_bwd<192>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
+    case 256: return run_bwd<256>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
     default: return run_bwd<128>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
   }
 }

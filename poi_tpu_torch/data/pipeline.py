@@ -112,6 +112,8 @@ class TrainLoader:
         return self
 
     def __next__(self) -> Batch:
+        if not self._prefetch:  # no thread: the caller's (a DevicePrefetcher's worker) assembles
+            return make_batch(self._ex, self._next_indices())
         if self._queue is None:
             self._start_prefetch()
         return self._queue.get()
@@ -251,12 +253,15 @@ def make_train_loader(
     host_id: int = 0,
     num_hosts: int = 1,
     backend: str = "threaded",
+    prefetch: int = 2,
 ):
-    """Loader factory: ``threaded`` (in-repo prefetch thread) or ``grain``."""
+    """Loader factory: ``threaded`` (in-repo prefetch thread; none at
+    ``prefetch=0``, where the caller's thread assembles each batch) or
+    ``grain``."""
     cls = {"threaded": TrainLoader, "grain": GrainTrainLoader}.get(backend)
     if cls is None:
         raise ValueError(f"unknown loader backend {backend!r} (threaded|grain)")
-    return cls(examples, batch_size, seed=seed, host_id=host_id, num_hosts=num_hosts)
+    return cls(examples, batch_size, seed=seed, host_id=host_id, num_hosts=num_hosts, prefetch=prefetch)
 
 
 def eval_batches(examples: Examples, batch_size: int) -> Iterator[tuple[Batch, np.ndarray, int]]:
@@ -280,8 +285,11 @@ class DevicePrefetcher:
     them to the device ahead of the training loop, so host batch assembly AND
     host→device transfer overlap device compute (SURVEY.md §3.2a "host CPU;
     prefetch → device"). ``produce()`` must return a device-ready element
-    (e.g. ``trainer._put_batch(next(loader))``); ``depth`` bounds how many
-    in-flight elements buffer device memory."""
+    (``Trainer.put_chunk``: a copy queued on a side stream, which the
+    consumer waits for); ``depth`` bounds how many in-flight elements
+    buffer device memory. An exception in the worker is
+    raised by the consumer's next ``next()``; ``close()`` joins the
+    worker."""
 
     def __init__(self, produce, depth: int = 2):
         self._q: queue.Queue = queue.Queue(maxsize=depth)
@@ -318,10 +326,12 @@ class DevicePrefetcher:
 
     def close(self) -> None:
         self._stop.set()
-        # Drain so the worker's pending put() unblocks, then join.
+        # Drain so the worker's pending put() unblocks, then join: the
+        # worker checks the flag between puts, so it ends once its current
+        # produce() returns.
         try:
             while True:
                 self._q.get_nowait()
         except queue.Empty:
             pass
-        self._thread.join(timeout=2.0)
+        self._thread.join()

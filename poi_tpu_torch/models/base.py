@@ -13,6 +13,7 @@ carries a ``poi_tpu`` param tree straight into ``Module.load_state_dict``:
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -66,17 +67,63 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
+def _host_tensor(a) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+    return t.long() if t.dtype in (torch.int32, torch.int64) else t
+
+
 def batch_to(batch: Batch, device) -> Batch:
     """A numpy ``Batch`` as tensors on ``device``: ids as int64, floats as is."""
+    return Batch(*(_host_tensor(a).to(device) for a in batch))
 
-    def conv(a):
-        a = np.asarray(a)
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if t.dtype in (torch.int32, torch.int64):
-            t = t.long()
-        return t.to(device)
 
-    return Batch(*(conv(a) for a in batch))
+class InFlight(NamedTuple):
+    """Batches whose copy to the card was queued on a side stream
+    (``batches_to_pinned``), with the event recorded after it. ``ready()``
+    makes the caller's current stream wait for that event and marks the one
+    device buffer that every tensor views as used on that stream
+    (``record_stream``), so the caching allocator does not hand its memory
+    to another tensor while work queued there may still read it."""
+
+    batches: list[Batch]
+    buffer: torch.Tensor
+    event: torch.cuda.Event
+
+    def ready(self) -> list[Batch]:
+        stream = torch.cuda.current_stream(self.buffer.device)
+        stream.wait_event(self.event)
+        self.buffer.record_stream(stream)
+        return self.batches
+
+
+# Each array's offset in the pinned buffer is a multiple of this, so that
+# every view of the device buffer is aligned for its dtype.
+_ALIGN = 16
+
+
+def batches_to_pinned(batches: list[Batch], device: torch.device, stream: torch.cuda.Stream) -> InFlight:
+    """``batch_to`` of each of ``batches`` for a CUDA ``device`` in one copy:
+    every array is written (ids as int64) into one pinned host buffer, which
+    is copied with ``non_blocking=True`` on ``stream``, so the copy overlaps
+    the work on the compute stream, and each batch's tensors are views of
+    the one device buffer. The caller waits through ``InFlight.ready()``.
+    Safe from another thread than the compute loop's."""
+    arrays = [np.asarray(a) for b in batches for a in b]
+    dtypes = [np.dtype(np.int64) if a.dtype in (np.int32, np.int64) else a.dtype for a in arrays]
+    sizes = [a.size * dt.itemsize for a, dt in zip(arrays, dtypes)]
+    offsets = np.cumsum([0] + [-(-n // _ALIGN) * _ALIGN for n in sizes]).tolist()
+    host = torch.empty(offsets[-1], dtype=torch.uint8, pin_memory=True)
+    flat = host.numpy()
+    for a, dt, o, n in zip(arrays, dtypes, offsets, sizes):
+        np.copyto(flat[o:o + n].view(dt).reshape(a.shape), a)
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        buffer = host.to(device, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(stream)
+    views = [buffer[o:o + n].view(torch.from_numpy(np.empty(0, dt)).dtype).view(a.shape)
+             for a, dt, o, n in zip(arrays, dtypes, offsets, sizes)]
+    width = len(Batch._fields)
+    return InFlight([Batch(*views[i:i + width]) for i in range(0, len(views), width)], buffer, event)
 
 
 def _normal(gen: torch.Generator, shape, scale: float, meta: bool = False) -> torch.Tensor:

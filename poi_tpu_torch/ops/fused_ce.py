@@ -20,6 +20,13 @@ the TPU kernels':
   ``dbias = colsum(gp)`` from the unrounded ``gp``. The one-hot target terms
   are subtracted outside the kernels in plain torch.
 
+Widths: the kernels are built for ``KERNEL_DIMS``; the wrappers pad any
+``D <= MAX_DIM`` with zero columns to the next of them (``widths.padded_dim``).
+Zero columns add nothing to ``q · tableᵀ``, and the padded columns of
+``dq`` and ``dtable`` are dropped, so the result is the function at ``D``;
+``D > MAX_DIM`` raises, naming the limit. At ``D = 256`` the forward runs
+128 rows a block (``lse_rows``).
+
 ``ce_lse_variant`` holds the forward's tuning variants, the counterparts of
 ``scripts/sweep_ce_fwd.py``'s kernels (``exp2``, ``nomax``), on ``ce_lse``'s
 own kernel; ``scripts/sweep_ce_fwd.py`` of this package times them. The TPU
@@ -34,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from poi_tpu_torch import _build
+from poi_tpu_torch.ops.widths import pad_cols, padded_dim
 
 # Catalog columns per chunk of the plain versions: [N, 4096] fp32 logits at a
 # time (512 MiB at N = 32,768), so they run at the full training shape.
@@ -43,6 +51,16 @@ LOG2E = 1.4426950408889634
 # (2 or 4 consumer warpgroups; ce_lse takes 256).
 VARIANTS = ("base", "exp2", "nomax")
 ROWS = (128, 256)
+# The widths the kernels are built for (``ce_supports_dim`` in csrc/ce.cu
+# says the same; B12's variants take the first three).
+KERNEL_DIMS = (32, 64, 128, 192, 256)
+MAX_DIM = KERNEL_DIMS[-1]
+
+
+def lse_rows(D: int) -> int:
+    """The query rows a block of ``ce_lse`` at width ``D`` (``ce_lse_rows`` in
+    csrc/ce.cu): 128 where it runs at 256 columns, else 256."""
+    return 128 if padded_dim(D, KERNEL_DIMS, "ce_lse") == 256 else 256
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -162,10 +180,7 @@ def _check(name: str, tensors: dict[str, torch.Tensor]) -> bool:
         return True
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}; need all on one CUDA device")
-    lib = _build.library()
-    D = tensors["q"].shape[1]
-    if not lib.ce_supports_dim(D):
-        raise ValueError(f"{name}: the kernels are built for D in (32, 64, 128), got D={D}")
+    padded_dim(tensors["q"].shape[1], KERNEL_DIMS, name)
     return False
 
 
@@ -175,15 +190,18 @@ def _lse_launch(wrapper, name: str, q: torch.Tensor, table: torch.Tensor, bias: 
     its merge) for ``variant`` at ``rows`` query rows a block on CUDA
     tensors, or raises through ``_build.check``; counts the launch on
     ``wrapper.launches``."""
-    N, D = q.shape
+    N, D = q.shape[0], padded_dim(q.shape[1], KERNEL_DIMS, name)
     V = table.shape[0]
+    if D > 128 and (variant, rows) != ("base", lse_rows(D)):
+        raise ValueError(f"{name}: at D={q.shape[1]} the kernel runs only the base variant at "
+                         f"{lse_rows(D)} rows a block; the variants take D <= 128")
     lse = torch.empty(N, dtype=torch.float32, device=q.device)
     if N == 0:
         return lse
     if variant == "exp2":  # base 2: q scaled before its bf16 rounding
         q, bias = q.float() * LOG2E, bias.float() * LOG2E
-    q16 = q.to(torch.bfloat16).contiguous()
-    t16 = table.to(torch.bfloat16).contiguous()
+    q16 = pad_cols(q.to(torch.bfloat16), D).contiguous()
+    t16 = pad_cols(table.to(torch.bfloat16), D).contiguous()
     b32 = bias.float().contiguous()
     dev = q.device
     lib = _build.library()
@@ -207,13 +225,14 @@ def ce_lse(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor) -> torch.Te
     """[N] fp32 log-sum-exp of ``q · tableᵀ + bias`` over the catalog.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel at
-    256 rows a block (and, where it splits the catalog, its merge) or raise;
-    ``ce_lse.launches`` counts the calls that launched them.
+    ``lse_rows(D)`` rows a block (and, where it splits the catalog, its
+    merge), ``D`` padded to ``padded_dim(D)``, or raise; ``ce_lse.launches``
+    counts the calls that launched them.
     """
     _check_shapes("ce_lse", q, table, bias)
     if _check("ce_lse", {"q": q, "table": table, "bias": bias}):
         return ce_lse_reference(q, table, bias)
-    return _lse_launch(ce_lse, "ce_lse", q, table, bias, "base", 256)
+    return _lse_launch(ce_lse, "ce_lse", q, table, bias, "base", lse_rows(q.shape[1]))
 
 
 ce_lse.launches = 0
@@ -251,8 +270,9 @@ def ce_bwd(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, lse: torch.
 
     CPU tensors take the plain version. CUDA tensors launch the kernels (the
     dq pass and the dtable pass of ``csrc/ce_bwd.cu``, and the reduction of
-    split partials where a pass splits) or raise; ``ce_bwd.launches`` counts
-    the calls that launched them.
+    split partials where a pass splits) at ``padded_dim(D)`` columns, the
+    padded ones dropped from ``dq`` and ``dtable``, or raise;
+    ``ce_bwd.launches`` counts the calls that launched them.
     """
     N, D = q.shape
     V = table.shape[0]
@@ -263,23 +283,24 @@ def ce_bwd(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, lse: torch.
     if _check("ce_bwd", {"q": q, "table": table, "bias": bias, "lse": lse, "g": g}):
         return ce_bwd_reference(q, table, bias, lse, g)
     dev = q.device
-    dq = torch.empty(N, D, dtype=torch.float32, device=dev)
-    dtable = torch.empty(V, D, dtype=torch.float32, device=dev)
+    Dp = padded_dim(D, KERNEL_DIMS, "ce_bwd")
+    dq = torch.empty(N, Dp, dtype=torch.float32, device=dev)
+    dtable = torch.empty(V, Dp, dtype=torch.float32, device=dev)
     dbias = torch.empty(V, dtype=torch.float32, device=dev)
     if N == 0:
-        return dq, dtable.zero_(), dbias.zero_()
-    q16 = q.to(torch.bfloat16).contiguous()
-    t16 = table.to(torch.bfloat16).contiguous()
+        return dq[:, :D], dtable[:, :D].zero_(), dbias.zero_()
+    q16 = pad_cols(q.to(torch.bfloat16), Dp).contiguous()
+    t16 = pad_cols(table.to(torch.bfloat16), Dp).contiguous()
     b32, l32, g32 = (x.float().contiguous() for x in (bias, lse, g))
     lib = _build.library()
     # fp32 partials of a pass that splits its streamed rows to fill the card.
-    scratch = torch.empty(max(1, lib.ce_bwd_scratch(N, V, D)), dtype=torch.float32, device=dev)
+    scratch = torch.empty(max(1, lib.ce_bwd_scratch(N, V, Dp)), dtype=torch.float32, device=dev)
     rc = lib.ce_bwd(q16.data_ptr(), t16.data_ptr(), b32.data_ptr(), l32.data_ptr(), g32.data_ptr(), dq.data_ptr(),
-                    dtable.data_ptr(), dbias.data_ptr(), scratch.data_ptr(), N, V, D, dev.index,
+                    dtable.data_ptr(), dbias.data_ptr(), scratch.data_ptr(), N, V, Dp, dev.index,
                     torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "ce_bwd launch")
     ce_bwd.launches += 1
-    return dq, dtable, dbias
+    return dq[:, :D], dtable[:, :D], dbias
 
 
 ce_bwd.launches = 0

@@ -15,6 +15,11 @@ TPU kernels':
   to bf16 for ``dq = gp · e_neg`` and ``de_neg = gpᵀ · q``;
   ``db_neg = colsum(gp)`` from the unrounded ``gp``. The positive column's
   gradient ``ds_pos = g · (exp(s_pos - lse_tot) - 1)`` stays outside.
+
+The kernels are built for ``KERNEL_DIMS``; on CUDA tensors the wrappers pad
+any ``D <= 512`` with zero columns to the next of them (``widths.padded_dim``:
+config #5's 384-wide variants run at 512) and drop the padded columns of
+``dq`` and ``de_neg``. Zero columns add nothing to ``q · e_negᵀ``.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from poi_tpu_torch import _build
 from poi_tpu_torch.models.base import gather_rows
+from poi_tpu_torch.ops.widths import pad_cols, padded_dim
 
 NEG = -1e30
 
@@ -63,12 +69,6 @@ def sampled_bwd_reference(q, e_neg, b_neg, neg_ids, targets, lse_tot, g):
 KERNEL_DIMS = (64, 128, 256, 512)
 
 
-def require_kernel_dim(name: str, D: int) -> None:
-    """Raise unless the kernels are built for width ``D``."""
-    if D not in KERNEL_DIMS:
-        raise ValueError(f"{name}: the kernels are built for D in {KERNEL_DIMS}, got D={D}")
-
-
 def _check(name: str, tensors: dict[str, torch.Tensor]) -> bool:
     """True when every tensor lies on the CPU (the plain versions run); False
     when all lie on one CUDA device and the kernel may launch; raises
@@ -78,7 +78,7 @@ def _check(name: str, tensors: dict[str, torch.Tensor]) -> bool:
         return True
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}; need all on one CUDA device")
-    require_kernel_dim(name, tensors["q"].shape[1])
+    padded_dim(tensors["q"].shape[1], KERNEL_DIMS, name)
     return False
 
 
@@ -92,15 +92,19 @@ def _shapes(name, q, e_neg, b_neg, neg_ids, targets, *rows):
     return N, S, D
 
 
-def _kernel_args(q, e_neg, b_neg, neg_ids, targets):
-    return (q.to(torch.bfloat16).contiguous(), e_neg.to(torch.bfloat16).contiguous(), b_neg.float().contiguous(),
-            neg_ids.to(torch.int32).contiguous(), targets.to(torch.int32).contiguous())
+def _kernel_args(q, e_neg, b_neg, neg_ids, targets, width: int | None = None):
+    """The kernels' inputs in their dtypes, contiguous; ``q`` and ``e_neg``
+    padded with zero columns to ``width`` where it is given."""
+    width = width or q.shape[1]
+    return (pad_cols(q.to(torch.bfloat16), width).contiguous(), pad_cols(e_neg.to(torch.bfloat16), width).contiguous(),
+            b_neg.float().contiguous(), neg_ids.to(torch.int32).contiguous(), targets.to(torch.int32).contiguous())
 
 
-def bwd_kernel_args(q, e_neg, b_neg, neg_ids, targets, lse_tot, g):
+def bwd_kernel_args(q, e_neg, b_neg, neg_ids, targets, lse_tot, g, width: int | None = None):
     """The backward kernels' inputs in their dtypes, contiguous: q, e_neg,
-    b_neg, neg_ids, targets, lse_tot, g."""
-    return _kernel_args(q, e_neg, b_neg, neg_ids, targets) + (lse_tot.float().contiguous(), g.float().contiguous())
+    b_neg, neg_ids, targets, lse_tot, g (q and e_neg padded to ``width``)."""
+    return (_kernel_args(q, e_neg, b_neg, neg_ids, targets, width)
+            + (lse_tot.float().contiguous(), g.float().contiguous()))
 
 
 def sampled_lse(q, e_neg, b_neg, neg_ids, targets) -> torch.Tensor:
@@ -119,7 +123,8 @@ def sampled_lse(q, e_neg, b_neg, neg_ids, targets) -> torch.Tensor:
     if N == 0:
         return lse
     lib = _build.library()
-    args = _kernel_args(q, e_neg, b_neg, neg_ids, targets)
+    D = padded_dim(D, KERNEL_DIMS, "sampled_lse")
+    args = _kernel_args(q, e_neg, b_neg, neg_ids, targets, D)
     # Scratch for the pool ranges' partial sums; 0: the split rule.
     scratch = torch.empty(max(1, lib.sampled_lse_scratch(N, S, D, 0)), dtype=torch.float32, device=dev)
     rc = lib.sampled_lse(*(a.data_ptr() for a in args), lse.data_ptr(), scratch.data_ptr(), N, S, D, 0, dev.index,
@@ -146,20 +151,21 @@ def sampled_bwd(q, e_neg, b_neg, neg_ids, targets, lse_tot, g):
                               "lse_tot": lse_tot, "g": g}):
         return sampled_bwd_reference(q, e_neg, b_neg, neg_ids, targets, lse_tot, g)
     dev = q.device
-    dq = torch.empty(N, D, dtype=torch.float32, device=dev)
-    de = torch.empty(S, D, dtype=torch.float32, device=dev)
+    Dp = padded_dim(D, KERNEL_DIMS, "sampled_bwd")
+    dq = torch.empty(N, Dp, dtype=torch.float32, device=dev)
+    de = torch.empty(S, Dp, dtype=torch.float32, device=dev)
     db = torch.empty(S, dtype=torch.float32, device=dev)
     if N == 0:
-        return dq, de.zero_(), db.zero_()
+        return dq[:, :D], de[:, :D].zero_(), db.zero_()
     lib = _build.library()
-    args = bwd_kernel_args(q, e_neg, b_neg, neg_ids, targets, lse_tot, g)
+    args = bwd_kernel_args(q, e_neg, b_neg, neg_ids, targets, lse_tot, g, Dp)
     # Scratch for the passes' split partials; (0, 0): each pass's own split rule.
-    scratch = torch.empty(max(1, lib.sampled_bwd_scratch(N, S, D, 0, 0)), dtype=torch.float32, device=dev)
+    scratch = torch.empty(max(1, lib.sampled_bwd_scratch(N, S, Dp, 0, 0)), dtype=torch.float32, device=dev)
     rc = lib.sampled_bwd(*(a.data_ptr() for a in args), dq.data_ptr(), de.data_ptr(), db.data_ptr(),
-                         scratch.data_ptr(), N, S, D, 0, 0, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+                         scratch.data_ptr(), N, S, Dp, 0, 0, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "sampled_bwd launch")
     sampled_bwd.launches += 1
-    return dq, de, db
+    return dq[:, :D], de[:, :D], db
 
 
 sampled_bwd.launches = 0

@@ -6,7 +6,8 @@ kernel's: queries ``q [B, D]`` and the table ``[V, D]`` are rounded to bf16,
 scores accumulate in fp32 and add the fp32 bias, ``k <= 128``. Returns
 ``vals [B, k]`` fp32 descending and ``ids [B, k]`` int32. Ties go to the
 lower id, as the TPU kernel's first-column pick and strict ``>`` across
-tiles order them. The CUDA kernel takes any V; ``pad_table_for_topk`` is
+tiles order them. The CUDA kernel takes any V and any D <= 1024 (padded with
+zero columns to a multiple of 8 on the way in); ``pad_table_for_topk`` is
 kept because the eval and serving code fix their id space with it.
 """
 
@@ -17,9 +18,13 @@ import ctypes
 import torch
 
 from poi_tpu_torch import _build
+from poi_tpu_torch.ops.widths import pad_cols, padded_dim
 
 NEG = -1e30
 MAX_K = 128  # the TPU kernel's lane-aligned scratch width; k <= MAX_K
+# The kernel reads rows as 16-byte vectors: it takes every multiple of 8 up
+# to 1024.
+KERNEL_DIMS = tuple(range(8, 1025, 8))
 
 
 def pad_table_for_topk(table: torch.Tensor, bias: torch.Tensor, tile_v: int = 2048):
@@ -69,10 +74,9 @@ def fused_topk(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, k: int)
         raise TypeError(f"fused_topk: bias must be float32, got {bias.dtype}")
     if B > 65535:
         raise ValueError(f"fused_topk: B={B} query rows exceed the kernel's grid limit of 65535")
-    if D % 8 != 0 or D > 1024:
-        raise ValueError(f"fused_topk: the kernel reads rows as 16-byte vectors and needs D % 8 == 0, D <= 1024; got D={D}")
-    q16 = q.to(torch.bfloat16).contiguous()
-    t16 = table.to(torch.bfloat16).contiguous()
+    D = padded_dim(D, KERNEL_DIMS, "fused_topk")
+    q16 = pad_cols(q.to(torch.bfloat16), D).contiguous()
+    t16 = pad_cols(table.to(torch.bfloat16), D).contiguous()
     bias = bias.contiguous()
     if t16.data_ptr() % 16:
         raise ValueError("fused_topk: the bf16 table must start on a 16-byte boundary")

@@ -38,14 +38,74 @@ which the rig of several ranks on one card uses. The ring shift is an
 ``all_to_all_single`` whose split sizes are zero but toward ``rank + shift``
 (and from ``rank - shift``), one mechanism for both backends: ``gloo``'s
 point-to-point ``send``/``recv`` take no CUDA tensors.
+
+``count_bytes()`` counts what they move: inside the block, every
+collective this module issues, forward and backward, adds this rank's
+payload (the bytes of its result, the quantity the reference's
+``scripts/compare_embedding_modes.py`` reads off compiled HLO) under its op
+and direction, and its ring-protocol wire bytes: all-reduce 2(M-1)/M of the
+payload, all-gather and all-to-all (M-1)/M, the ring shift 1. Outside a
+block nothing is counted.
 """
 
 from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass, field
 
 import torch
 import torch.distributed as dist
 
 from poi_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh  # noqa: F401  (re-export)
+
+# The reference's collective kinds (HLO op names) and their wire bytes a
+# payload byte on an axis of m ranks.
+WIRE = {"all-reduce": lambda m: 2.0 * (m - 1) / m, "all-gather": lambda m: (m - 1) / m,
+        "all-to-all": lambda m: (m - 1) / m, "collective-permute": lambda m: 1.0}
+
+
+@dataclass
+class ByteCount:
+    """A ``count_bytes`` block's tally on this rank. ``payload`` and
+    ``wire``: bytes by ``(op, direction)``, op one of this module's
+    functions (``psum``, ``grad_psum``, ``pmax``, ``all_gather``, ``split``,
+    ``ppermute_ring``, ``all_to_all``, ``all_reduce_``), direction ``fwd``
+    or ``bwd``; ``kinds`` the reference's kind of each op."""
+
+    payload: dict = field(default_factory=dict)
+    wire: dict = field(default_factory=dict)
+    kinds: dict = field(default_factory=dict)
+
+    def add(self, op: str, kind: str, nbytes: int, m: int) -> None:
+        self.payload[op] = self.payload.get(op, 0) + nbytes
+        self.wire[op] = self.wire.get(op, 0.0) + nbytes * WIRE[kind](m)
+        self.kinds[op[0]] = kind
+
+    def by_kind(self) -> dict[str, int]:
+        """Payload bytes by the reference's collective kind."""
+        out: dict[str, int] = {}
+        for op, b in self.payload.items():
+            out[self.kinds[op[0]]] = out.get(self.kinds[op[0]], 0) + b
+        return out
+
+
+_counts: list[ByteCount] = []
+
+
+@contextlib.contextmanager
+def count_bytes():
+    """Count this rank's collective bytes inside the block (``ByteCount``)."""
+    c = ByteCount()
+    _counts.append(c)
+    try:
+        yield c
+    finally:
+        _counts.remove(c)
+
+
+def _tally(op: tuple[str, str], kind: str, out: torch.Tensor, m: int) -> None:
+    for c in _counts:
+        c.add(op, kind, out.numel() * out.element_size(), m)
 
 def _alone(mesh: Mesh, axis: str) -> bool:
     """This rank is the whole axis, and no group asks for a collective."""
@@ -60,30 +120,39 @@ def axis_size(mesh: Mesh, axis: str) -> int:
     return mesh.shape[axis]
 
 
-def all_reduce_(x: torch.Tensor, mesh: Mesh, axis: str, op: str = "sum") -> torch.Tensor:
-    """``x`` reduced over ``axis`` in place (``op``: sum or max), no gradient."""
+def all_reduce_(x: torch.Tensor, mesh: Mesh, axis: str, op: str = "sum",
+                tally: tuple[str, str] = ("all_reduce_", "fwd")) -> torch.Tensor:
+    """``x`` reduced over ``axis`` in place (``op``: sum or max), no
+    gradient. ``tally``: the (op, direction) ``count_bytes`` files it under."""
     if _alone(mesh, axis):
         return x
     dist.all_reduce(x, {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op], group=mesh.group(axis))
+    if _counts:
+        _tally(tally, "all-reduce", x, mesh.shape[axis])
     return x
 
 
-def _gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+def _gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int, tally: tuple[str, str]) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
     dist.all_gather(parts, x, group=mesh.group(axis))
-    return torch.cat(parts, dim=dim)
+    out = torch.cat(parts, dim=dim)
+    if _counts:
+        _tally(tally, "all-gather", out, mesh.shape[axis])
+    return out
 
 
-def _exchange(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+def _exchange(x: torch.Tensor, mesh: Mesh, axis: str, tally: tuple[str, str]) -> torch.Tensor:
     """Block j of dim 0 to rank j; block j of the result from rank j."""
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=mesh.group(axis))
+    if _counts:
+        _tally(tally, "all-to-all", out, mesh.shape[axis])
     return out
 
 
-def _shift(x: torch.Tensor, mesh: Mesh, axis: str, shift: int) -> torch.Tensor:
+def _shift(x: torch.Tensor, mesh: Mesh, axis: str, shift: int, tally: tuple[str, str]) -> torch.Tensor:
     """This rank's ``x`` to the rank ``shift`` places on along ``axis``;
     the result is the tensor of the rank ``shift`` places back."""
     n, me = mesh.shape[axis], mesh.index[axis]
@@ -92,13 +161,15 @@ def _shift(x: torch.Tensor, mesh: Mesh, axis: str, shift: int) -> torch.Tensor:
     send[(me + shift) % n] = recv[(me - shift) % n] = 1
     out = torch.empty_like(flat)
     dist.all_to_all_single(out, flat, output_split_sizes=recv, input_split_sizes=send, group=mesh.group(axis))
+    if _counts:
+        _tally(tally, "collective-permute", out, n)
     return out.view_as(x)
 
 
 class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
-        return all_reduce_(x.clone(), mesh, axis)
+        return all_reduce_(x.clone(), mesh, axis, tally=("psum", "fwd"))
 
     @staticmethod
     def backward(ctx, g):
@@ -113,14 +184,14 @@ class _GradPsum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_(g.clone(), ctx.mesh, ctx.axis), None, None
+        return all_reduce_(g.clone(), ctx.mesh, ctx.axis, tally=("grad_psum", "bwd")), None, None
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
         ctx.mesh, ctx.axis, ctx.dim, ctx.n = mesh, axis, dim, x.shape[dim]
-        return _gather(x, mesh, axis, dim)
+        return _gather(x, mesh, axis, dim, ("all_gather", "fwd"))
 
     @staticmethod
     def backward(ctx, g):
@@ -136,29 +207,29 @@ class _Split(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+        return _gather(g, ctx.mesh, ctx.axis, ctx.dim, ("split", "bwd")), None, None, None
 
 
 class _Ring(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, shift):
         ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
-        return _shift(x, mesh, axis, shift)
+        return _shift(x, mesh, axis, shift, ("ppermute_ring", "fwd"))
 
     @staticmethod
     def backward(ctx, g):
-        return _shift(g, ctx.mesh, ctx.axis, -ctx.shift), None, None, None
+        return _shift(g, ctx.mesh, ctx.axis, -ctx.shift, ("ppermute_ring", "bwd")), None, None, None
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
         ctx.mesh, ctx.axis = mesh, axis
-        return _exchange(x, mesh, axis)
+        return _exchange(x, mesh, axis, ("all_to_all", "fwd"))
 
     @staticmethod
     def backward(ctx, g):
-        return _exchange(g, ctx.mesh, ctx.axis), None, None
+        return _exchange(g, ctx.mesh, ctx.axis, ("all_to_all", "bwd")), None, None
 
 
 def psum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
@@ -175,7 +246,7 @@ def grad_psum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 
 def pmax(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Max over ``axis`` of ``x`` detached (the stable LSE's shift)."""
-    return all_reduce_(x.detach().clone(), mesh, axis, "max")
+    return all_reduce_(x.detach().clone(), mesh, axis, "max", tally=("pmax", "fwd"))
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:

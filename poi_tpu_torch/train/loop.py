@@ -52,7 +52,7 @@ import torch
 from poi_tpu_torch.convert import params_from_jax
 from poi_tpu_torch.data.dataset import Dataset
 from poi_tpu_torch.data.device_sampler import DeviceSampler, step_seed
-from poi_tpu_torch.data.pipeline import Batch, make_train_loader
+from poi_tpu_torch.data.pipeline import Batch, DevicePrefetcher, make_train_loader
 from poi_tpu_torch.models import base as model_base
 from poi_tpu_torch.ops import sharded_loss
 from poi_tpu_torch.ops.embedding import lookup_overflow_count, make_lookup
@@ -101,6 +101,8 @@ class Trainer:
     # The host loader of the running train(), so a callback can checkpoint
     # its consumed position; None on the device-sampler path.
     active_loader: Any = field(init=False, default=None)
+    # The side stream of put_chunk's copies to the card (made at its first).
+    copy_stream: Any = field(init=False, default=None, repr=False)
 
     def __post_init__(self):
         cfg = self.cfg
@@ -333,6 +335,28 @@ class Trainer:
         over = cc.all_reduce_(over, mesh, DATA_AXIS)
         return over / max(batch.poi_in.numel() * mesh.shape[DATA_AXIS], 1)
 
+    def put_chunk(self, batches: list[Batch]) -> list[Batch] | model_base.InFlight:
+        """Host batches on their way to this trainer's device: on a card one
+        copy of them all from pinned memory, queued on a side stream behind
+        one event (``InFlight``); elsewhere the device batches. Called from
+        ``DevicePrefetcher``'s worker thread."""
+        if self.device.type != "cuda":
+            return [model_base.batch_to(b, self.device) for b in batches]
+        if self.copy_stream is None:
+            self.copy_stream = torch.cuda.Stream(self.device)
+        return model_base.batches_to_pinned(batches, self.device, self.copy_stream)
+
+    def step_chunk(self, state: TrainState, batches: list[Batch]) -> tuple[TrainState, dict]:
+        """K steps launched back to back, the counterpart of the reference's
+        scanned ``step_chunk``: ``batches`` is a list of K host or device
+        batches. Metrics stacked [K], as ``step_sampled``'s; the host reads
+        nothing from the device in between."""
+        rows = []
+        for batch in batches:
+            state, metrics = self.step(state, batch)
+            rows.append(metrics)
+        return state, _stack_metrics(rows)
+
     def step_sampled(self, state: TrainState, num_steps: int) -> tuple[TrainState, dict]:
         """``num_steps`` steps on device-sampled batches; metrics stacked
         [num_steps] (``lr`` on the host). The host reads nothing from the
@@ -343,8 +367,13 @@ class Trainer:
         for _ in range(num_steps):
             state, metrics = self.step(state, self.sampler.sample(state.step))
             rows.append(metrics)
-        return state, {k: torch.stack([r[k] for r in rows]) if torch.is_tensor(rows[0][k])
-                       else torch.tensor([r[k] for r in rows]) for k in rows[0]}
+        return state, _stack_metrics(rows)
+
+
+def _stack_metrics(rows: list[dict]) -> dict:
+    """Per-step metrics stacked [K] (``lr``, a host float, as a CPU tensor)."""
+    return {k: torch.stack([r[k] for r in rows]) if torch.is_tensor(rows[0][k])
+            else torch.tensor([r[k] for r in rows]) for k in rows[0]}
 
 
 def _sum_over_data(grads: dict[str, torch.Tensor], mesh: Mesh) -> None:
@@ -459,7 +488,20 @@ def train(
     host loader's position; without it the loader seeks to the state's
     step, which is the same position for this loader. On a mesh the host
     loader is the data rank's (``host_id``/``num_hosts`` of the data axis),
-    with its share of the batch."""
+    with its share of the batch.
+
+    The host loader's steps go in chunks of ``train.steps_per_call``
+    (aligned to the callbacks' periods; 1 after a resume off a chunk
+    boundary), each K ``Trainer.step`` calls whose metrics are read once at
+    its end, as the reference's ``step_chunk``. A ``DevicePrefetcher``
+    assembles the chunks on its worker thread and, on a card, queues their
+    copies ahead, two chunks deep, on every device and in the fault drill;
+    the checkpoint records the consumed position (``TrainLoader.state_at``),
+    so what it ran ahead by is replayed on a resume. At ``steps_per_call =
+    1`` the loader's own thread assembles and the step copies its batch:
+    the reference's single-batch prefetcher cost config #4, which its
+    launching thread bounds, more of that thread's time (the worker's share
+    of the GIL) than the copies it took off it (``scripts/host_feed.py``)."""
     num_steps = num_steps if num_steps is not None else cfg.train.num_steps
     if trainer is None:
         trainer = make_trainer(cfg, dataset, device, mesh)
@@ -470,34 +512,83 @@ def train(
         trainer.active_loader = None
         return _train_sampled(cfg, trainer, state, start_step, num_steps, callbacks)
 
+    spc = _aligned_steps_per_call(cfg, callbacks)
+    if callbacks and spc > 1 and start_step % spc:
+        # A misaligned resume point would put a chunk's end off the
+        # callbacks' boundaries: step singly instead.
+        log.info("steps_per_call -> 1 (resume step %d not chunk-aligned)", start_step)
+        spc = 1
     m = trainer.mesh
+    # Under the prefetcher its worker assembles the chunks: the loader runs
+    # no thread of its own then.
     loader = make_train_loader(dataset.train, batch_size=local_data_batch(cfg.train.batch_size, m),
                                seed=cfg.train.seed, host_id=m.index[DATA_AXIS], num_hosts=m.shape[DATA_AXIS],
-                               backend=cfg.data.loader_backend)
+                               backend=cfg.data.loader_backend, prefetch=0 if spc > 1 else 2)
     trainer.active_loader = loader
     if loader_state:
         loader.restore(loader_state)
     elif start_step:
         loader.seek(start_step)  # step N always sees batch N
     history: list[dict] = []
-    end = start_step + num_steps
-    fault = cfg.train.fault_inject_step
     t0 = time.perf_counter()
     seqs = 0
+
+    def record(i, state, metrics, rate=None):
+        """History row at a log boundary, then the callbacks, for step i + 1.
+        ``rate``: a chunk's seq/s, measured over the whole chunk."""
+        nonlocal t0, seqs
+        seqs += cfg.train.batch_size
+        if (i + 1) % cfg.train.log_every == 0 or i + 1 == end:
+            row = {k: float(v) for k, v in metrics.items()}  # waits for the device, before the clock
+            if rate is None:
+                rate = seqs / max(time.perf_counter() - t0, 1e-9)
+            row.update(step=i + 1, seqs_per_sec=rate)
+            history.append(row)
+            _log_row(row)
+            t0, seqs = time.perf_counter(), 0
+        for cb in callbacks or []:
+            cb(i + 1, state, metrics)
+
+    def fence_chunk(metrics_k, k, tc0):
+        """A chunk's per-step metrics read back (one wait for the device),
+        then its seq/s, which every boundary in it reports."""
+        cols = {name: v.tolist() if torch.is_tensor(v) else v for name, v in metrics_k.items()}
+        floated = [{name: float(v[j]) for name, v in cols.items()} for j in range(k)]
+        return floated, k * cfg.train.batch_size / max(time.perf_counter() - tc0, 1e-9)
+
+    end = start_step + num_steps
+    fault = cfg.train.fault_inject_step
+    # A worker thread assembles the chunks and queues their copies to the
+    # card ahead of the steps; single steps read the loader.
+    feed = DevicePrefetcher(lambda: trainer.put_chunk([next(loader) for _ in range(spc)]), depth=2) if spc > 1 \
+        else None
     try:
-        for i in range(start_step, end):
+        i = start_step
+        while i < end:
             if fault == i:
                 raise FaultInjected(f"fault injected at step {i}")
-            state, metrics = trainer.step(state, next(loader))
-            seqs += cfg.train.batch_size
-            if (i + 1) % cfg.train.log_every == 0 or i + 1 == end:
-                row = {k: float(v) for k, v in metrics.items()}  # waits for the device, before the clock
-                row.update(step=i + 1, seqs_per_sec=seqs / max(time.perf_counter() - t0, 1e-9))
-                history.append(row)
-                _log_row(row)
-                t0, seqs = time.perf_counter(), 0
-            for cb in callbacks or []:
-                cb(i + 1, state, metrics)
+            k = min(spc, end - i)
+            if fault > i:
+                k = min(k, fault - i)
+            if spc == 1:
+                state, metrics = trainer.step(state, next(loader))
+                record(i, state, metrics)
+            else:
+                chunk = next(feed)
+                chunk = chunk.ready() if isinstance(chunk, model_base.InFlight) else chunk
+                if k == spc:
+                    tc0 = time.perf_counter()
+                    state, metrics_k = trainer.step_chunk(state, chunk)
+                    floated, rate = fence_chunk(metrics_k, k, tc0)
+                    for j in range(k):
+                        record(i + j, state, floated[j], rate)
+                else:  # a tail of k < spc steps: the chunk's leading batches
+                    for j in range(k):
+                        state, metrics = trainer.step(state, chunk[j])
+                        record(i + j, state, metrics)
+            i += k
     finally:
+        if feed is not None:
+            feed.close()
         loader.close()
     return trainer, state, history

@@ -27,7 +27,11 @@ one and calls it alike) the file is still one file of the whole state:
 cuts the catalog tables to ``num_pois`` rows (the padding of that mesh's
 vocab), and rank 0 writes; ``restore`` pads them to this mesh's padded
 catalog (zero rows, a -1e30 bias) and keeps this rank's rows. So a step
-written on one mesh restores on any other, and on one device.
+written on one mesh restores on any other, and on one device. With
+``async_save`` rank 0 writes on its writer thread there too, and ``wait()``
+(which every restore, listing and later save goes through, on every rank
+alike) joins the write, then a barrier across the mesh lets every rank see
+the file.
 """
 
 from __future__ import annotations
@@ -148,13 +152,14 @@ class CheckpointManager:
         _refuse_orbax(self.directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
-        # Several ranks: one file, rank 0 writes it; the write is not
-        # deferred, so every rank sees it when save returns.
+        # Several ranks: one file, rank 0 writes it; every rank sees it once
+        # save returns, or with async_save once wait() returns.
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.num_pois = num_pois
-        self.async_save = async_save and self.mesh is None
+        self.async_save = async_save
         self._pool: ThreadPoolExecutor | None = None
         self._pending: list[Future] = []
+        self._unsynced = False  # a mesh's asynchronous write that no barrier has followed yet
 
     def _path(self, step: int, sub: str = "") -> str:
         return os.path.join(self.directory, sub, f"step_{step}.pt")
@@ -193,13 +198,19 @@ class CheckpointManager:
         return local_part(tree, self.mesh, rows, pad_bias)
 
     def _submit_once(self, fn, *args) -> None:
-        """``fn`` on rank 0 only, then every rank waits for it."""
+        """``fn`` on rank 0 only (on the writer thread with ``async_save``),
+        after the previous write; without ``async_save`` every rank then
+        waits for it, with it ``wait()`` does."""
         if self.mesh is None:
             self._submit(fn, *args)
             return
+        self.wait()
         if self.mesh.rank == 0:
-            fn(*args)
-        dist.barrier()
+            self._submit(fn, *args)
+        if self.async_save:
+            self._unsynced = True
+        else:
+            dist.barrier()
 
     def _write_step(self, step: int, payload: dict) -> None:
         _write(self._path(step), payload)
@@ -210,10 +221,16 @@ class CheckpointManager:
 
     def wait(self) -> None:
         """Block until every asynchronous write is on disk; re-raises a
-        writer's error."""
+        writer's error. On a mesh every rank calls it alike: after an
+        asynchronous save, a barrier follows rank 0's join."""
         pending, self._pending = self._pending, []
-        for f in pending:
-            f.result()
+        try:
+            for f in pending:
+                f.result()
+        finally:
+            if self._unsynced:
+                self._unsynced = False
+                dist.barrier()
 
     def delete(self, step: int) -> None:
         """Remove one step."""

@@ -27,6 +27,7 @@ from poi_tpu_torch.ops.fused_sampled import (
     sampled_nll_rows,
 )
 from poi_tpu_torch.ops import fused_sampled
+from poi_tpu_torch.ops.widths import padded_dim
 from poi_tpu_torch.train.losses import build_loss_fn, draw_sampled_negatives, sampled_softmax_loss
 from poi_tpu_torch.utils.config import LossConfig
 
@@ -123,13 +124,16 @@ def test_d512_loss_matches_pallas_interpret_and_xla(num_sampled):
 
 
 def test_kernel_widths_take_d512_and_refuse_others():
-    """The wrappers' width check (on CUDA tensors, before any launch): the
-    kernels take D = 512, config #5's, and still refuse a width they are
-    not built for."""
+    """The wrappers' width dispatch (on CUDA tensors, before any launch): the
+    kernels take D = 512, config #5's; a width they are not built for is
+    padded to the next one they are, up to 512; a wider one is refused,
+    naming the limit."""
     assert fused_sampled.KERNEL_DIMS == (64, 128, 256, 512)
-    fused_sampled.require_kernel_dim("sampled_lse", 512)
-    with pytest.raises(ValueError, match="D=96"):
-        fused_sampled.require_kernel_dim("sampled_lse", 96)
+    assert padded_dim(512, fused_sampled.KERNEL_DIMS, "sampled_lse") == 512
+    assert [padded_dim(d, fused_sampled.KERNEL_DIMS, "sampled_lse") for d in (1, 64, 96, 200, 384, 511)] == \
+        [64, 64, 128, 256, 512, 512]
+    with pytest.raises(ValueError, match="D <= 512.*D=513"):
+        padded_dim(513, fused_sampled.KERNEL_DIMS, "sampled_lse")
 
 
 @pytest.mark.parametrize("D", [64, 128, 256, 512])  # the widths the CUDA kernels take

@@ -22,8 +22,10 @@ from poi_tpu_torch.configs.presets import get_config
 from poi_tpu_torch.data.dataset import load_dataset
 from poi_tpu_torch.models.base import DataDims
 from poi_tpu_torch.ops import fused_lstm, fused_rnn
-from poi_tpu_torch.scripts import (_timing, bench_1m, bench_cells, bench_serve, mem_budget, profile_1m,
-                                   profile_attn, profile_step, quality_runs, step_time, sweep_ce_bwd, sweep_ce_fwd)
+from poi_tpu_torch.scripts import (_timing, bench_1m, bench_cells, bench_eval_path, bench_serve, check_cell_parity,
+                                   compare_attention_modes, compare_embedding_modes, host_feed, mem_budget, profile_1m,
+                                   profile_attn, profile_step, quality_runs, scaling_bench, step_time, sweep_ce_bwd,
+                                   sweep_ce_fwd, tune_attention, tune_strnn)
 from poi_tpu_torch.train.loop import Trainer
 
 torch.set_num_threads(1)
@@ -38,6 +40,10 @@ SCRIPTS = {
     "profile_attn": (profile_attn, []), "bench_cells": (bench_cells, []), "bench_serve": (bench_serve, []),
     "mem_budget": (mem_budget, []), "quality_runs": (quality_runs, ["gru_foursquare_nyc"]),
     "bench_1m": (bench_1m, []), "profile_1m": (profile_1m, []), "step_time": (step_time, []),
+    "compare_embedding_modes": (compare_embedding_modes, []), "compare_attention_modes": (compare_attention_modes, []),
+    "scaling_bench": (scaling_bench, []), "check_cell_parity": (check_cell_parity, []),
+    "bench_eval_path": (bench_eval_path, []), "tune_strnn": (tune_strnn, []), "tune_attention": (tune_attention, []),
+    "host_feed": (host_feed, []),
 }
 # Config #5's scripts at a tiny size: 64 users, a 400-POI corpus, the
 # catalog forced to 2,000 rows, 32-d, S = 64.
@@ -325,3 +331,102 @@ def test_scripts_run_as_modules():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert [line for line in proc.stdout.splitlines() if line.startswith("ran ")] == [f"ran {n}" for n in
                                                                                       sorted(SCRIPTS)]
+
+
+def _spawned(capfd, module, argv) -> list[str]:
+    """A script whose ranks print from their own processes (stdout is the
+    file descriptor's)."""
+    assert module.main(argv + CPU) == 0
+    return [line for line in capfd.readouterr().out.splitlines() if "socket.cpp" not in line]
+
+
+def test_compare_embedding_modes_prints_both_modes_at_each_mesh(capfd):
+    """Four gloo ranks: model 2 (data 2) and 4 (data 1), psum and a2a, each
+    row's payload the sum of its breakdown and the wire below it."""
+    out = _spawned(capfd, compare_embedding_modes, ["--dim", "16", "--vocab", "1024", "--batch", "16",
+                                                    "--seqlen", "8"])
+    rows = [line.split() for line in out if re.match(r" +[248] +[124] +(psum|a2a) ", line)]
+    assert [(r[0], r[1], r[2]) for r in rows] == [("2", "2", "psum"), ("2", "2", "a2a"), ("4", "1", "psum"),
+                                                  ("4", "1", "a2a")]
+    assert all(float(r[4]) <= float(r[3]) + 0.01 for r in rows)
+    assert any("psum/fwd=" in line for line in out) and any("all_to_all/bwd=" in line for line in out)
+
+
+def test_compare_attention_modes_prints_three_impls_at_each_mesh(capfd):
+    out = _spawned(capfd, compare_attention_modes, ["--dim", "16", "--heads", "4", "--batch", "8", "--seqlen", "8",
+                                                    "--window", "3"])
+    rows = [line.split() for line in out if re.match(r" +[248] +[124] +(blockwise|ring|ulysses) ", line)]
+    assert [(r[0], r[2]) for r in rows] == [(m, i) for m in ("2", "4") for i in ("blockwise", "ring", "ulysses")]
+    ring = next(line for line in out if re.match(r" +4 +1 +ring ", line))
+    assert "ppermute_ring/fwd=" in ring and "split/bwd=" in ring and "all_gather/fwd=" in ring
+    assert next(r for r in rows if r[:3] == ["4", "1", "blockwise"])[5] == "(none)"
+
+
+def test_scaling_bench_records_the_row_and_names_the_rig(capfd, tmp_path):
+    """Two local gloo ranks: rank 0 appends the row and prints the table;
+    then one process alone adds the N = 1 row, the efficiency's base."""
+    out_file = tmp_path / "scaling.json"
+    argv = ["--steps", "4", "--warmup", "1", "--repeats", "1", "--out", str(out_file), "--set", *SMALL_SET]
+    out = _spawned(capfd, scaling_bench, ["--local-processes", "2", *argv])
+    assert any(line.startswith("SCALING ") and '"processes": 2' in line for line in out)
+    out = _spawned(capfd, scaling_bench, argv)
+    import json
+
+    rows = json.loads(out_file.read_text())
+    assert [r["processes"] for r in rows] == [1, 2] and rows[1]["rig"] and not rows[0]["rig"]
+    assert re.match(r" +2 +[\d.]+ +[\d.]+ +[\d.]+%", [line for line in out if line.lstrip().startswith("2 ")][0])
+
+
+def test_check_cell_parity_prints_every_gradient(capsys, monkeypatch):
+    """Both cells (here the plain versions on both sides, so no difference):
+    a forward line and one line a parameter and the input."""
+    monkeypatch.setattr(check_cell_parity, "SHAPES", (("lstm", 4, 6, 8), ("gru", 3, 5, 16)))
+    out = _run(capsys, check_cell_parity, [])
+    assert [line.split(":")[0] for line in out if line.startswith(("lstm", "gru"))] == \
+           ["lstm B=4 T=6 H=8", "gru B=3 T=5 H=16"]
+    assert sum(line.strip().startswith(("dwx", "dwh", "db", "dx")) for line in out) == 8
+    assert "DIVERGES" not in "\n".join(out) and out[-1] == "0 gradient(s) diverged past 0.05"
+
+
+def test_bench_eval_path_prints_both_configs(capsys, monkeypatch):
+    """Config #4 and config #5 shrunk (config #5's catalog forced to 3,000):
+    both paths' queries agree."""
+    tiny = {**SMALL, "data.dataset": "synthetic", "data.val_fraction": "0", "model.dropout": "0"}
+    monkeypatch.setattr(bench_eval_path, "CASES", (
+        ("attention_gowalla", tiny, 16, None),
+        ("multihost_1m", {**TINY_1M, "mesh.model": "1", "mesh.embedding_mode": "psum"}, 8, 3000)))
+    monkeypatch.setattr(bench_eval_path, "ITERS", 1)
+    out = _run(capsys, bench_eval_path, [])
+    rows = [line for line in out if "full-T path" in line]
+    assert [r.split()[0] for r in rows] == ["attention_gowalla", "multihost_1m"]
+    assert "V=3000" in rows[1] and all("max |diff| 0.00e+00" in r for r in rows)
+
+
+@pytest.mark.parametrize("spc", ["1", "2"])
+def test_host_feed_prints_each_feed_and_puts_train_back(capsys, spc):
+    """Every feed, a round of each, at one step a call and at chunks of 2
+    (whose tail replays the chunk); afterwards ``train()`` has its own
+    loader and prefetcher again."""
+    from poi_tpu_torch.data.pipeline import DevicePrefetcher, make_train_loader
+    from poi_tpu_torch.train import loop
+
+    out = _run(capsys, host_feed, ["--config", "smoke", "--spc", spc, "--steps", "3", "--warmup", "1", "--rounds",
+                                   "1", "--set", *SMALL_SET])
+    for kind in ("round 1", "median"):
+        rows = [line for line in out if line.startswith(kind)]
+        assert [r.split()[2 if kind == "round 1" else 1] for r in rows] == list(host_feed.FEEDS), rows
+        assert all(float(re.search(r": ([\d.]+) seq/s", r).group(1)) > 0 for r in rows)
+    assert loop.make_train_loader is make_train_loader and loop.DevicePrefetcher is DevicePrefetcher
+
+
+@pytest.mark.parametrize("module, names", [(tune_strnn, ("base", "h256")), (tune_attention, ("base", "user"))])
+def test_tune_scripts_print_a_probe_line_each(capsys, monkeypatch, module, names):
+    """The probes shrunk (their overrides, the steps an argument); each is
+    scored on val beside the popularity floor."""
+    tiny = {**SMALL, "data.dataset": "synthetic", "train.batch_size": "8", "loss.num_sampled": "64"}
+    monkeypatch.setattr(module, "BASE", {**module.BASE, **tiny})
+    monkeypatch.setattr(module, "PROBES", {n: {**tiny, **module.PROBES[n]} for n in names})
+    out = _run(capsys, module, ["3"])
+    probes = [line for line in out if line.startswith("PROBE")]
+    assert [p.split()[1] for p in probes] == [f"{n}:" for n in names]
+    assert all(" VAL r@1=" in p and "| pop r@10=" in p for p in probes)

@@ -265,3 +265,105 @@ def sp_job(inp: str, out: str, cases: str, tower: str) -> None:
         np.savez(out, **res)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def bytes_job(out: str, n_ids: int, dim: int, vocab: int, factor: float, attn: str) -> None:
+    """On a 1 x world mesh: ``collectives.count_bytes`` around the psum and
+    a2a lookups of ``n_ids`` ids (forward and backward) and around ring and
+    Ulysses attention (``attn``: JSON B, T, D, heads, window); rank 0 writes
+    each case's payload bytes by ``op/direction``, and its wire bytes, as
+    JSON."""
+    from poi_tpu_torch.ops.embedding import make_lookup
+    from poi_tpu_torch.parallel.sp_attention import make_sp_attention
+
+    rank = _setup()
+    mesh = Mesh(1, dist.get_world_size())
+    gen = torch.Generator().manual_seed(0)
+    res = {}
+    rows = vocab // mesh.shape[MODEL_AXIS]
+    ids = torch.randint(0, vocab, (n_ids,), generator=gen)
+    for mode in ("psum", "a2a"):
+        table = torch.randn(rows, dim, generator=gen).requires_grad_()
+        lookup = make_lookup(mesh, mode, factor)
+        with cc.count_bytes() as c:
+            lookup(table, ids).square().sum().backward()
+        res[mode] = c
+    a = json.loads(attn)
+    x = torch.randn(a["B"], a["T"], a["D"], generator=gen)
+    p = {n: (0.1 * torch.randn(a["D"], a["D"], generator=gen)).requires_grad_() for n in ("wq", "wk", "wv", "wo")}
+    for impl in ("ring", "ulysses"):
+        mha = make_sp_attention(mesh, a["heads"], a["window"], impl, torch.float32)
+        xr = x.clone().requires_grad_()
+        with cc.count_bytes() as c:
+            mha(xr, p).square().sum().backward()
+        res[impl] = c
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump({k: {"payload": {"/".join(op): b for op, b in c.payload.items()},
+                           "wire": {"/".join(op): b for op, b in c.wire.items()}, "by_kind": c.by_kind()}
+                       for k, c in res.items()}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def async_ckpt_job(out: str, steps: int) -> None:
+    """A small attention config on a 1 x world mesh: ``steps`` steps, saved
+    at the end by an asynchronous and by a synchronous
+    ``CheckpointManager``; each restored into a fresh trainer that takes
+    one more step. Rank 0 writes whether the two files hold the same bytes,
+    whether the async save returned before its file existed on rank 0 or
+    ran on the writer thread, and the two resumed runs' losses and params,
+    gathered, to ``out`` (npz)."""
+    import threading
+
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.data.dataset import load_dataset
+    from poi_tpu_torch.data.pipeline import make_batch
+    from poi_tpu_torch.models.base import DataDims
+    from poi_tpu_torch.parallel.shardings import unshard_state
+    from poi_tpu_torch.train.loop import Trainer
+    from poi_tpu_torch.utils import checkpoint
+    from poi_tpu_torch.utils.checkpoint import CheckpointManager
+
+    rank = _setup()
+    cfg = get_config("smoke").with_overrides({"model.kind": "attention", "model.embed_dim": "16",
+                                              "model.hidden_dim": "16", "model.attn_heads": "2",
+                                              "train.warmup_steps": "0", "model.dropout": "0.0"})
+    ds = load_dataset(cfg.data)
+    dims = DataDims.from_dataset(ds)
+    mesh = Mesh(1, dist.get_world_size())
+    batches = [make_batch(ds.train, np.arange(s * 16, s * 16 + cfg.train.batch_size)) for s in range(steps + 1)]
+    tt = Trainer(cfg, dims, device="cpu", mesh=mesh)
+    st = tt.init_state()
+    for b in batches[:steps]:
+        st, _ = tt.step(st, b)
+    writers = []
+    write = checkpoint._write
+
+    def spy(path, payload):  # which thread writes the step file
+        writers.append(threading.current_thread().name)
+        write(path, payload)
+
+    checkpoint._write = spy
+    base = os.path.dirname(out)
+    res = {}
+    for kind in ("async", "sync"):
+        mgr = CheckpointManager(os.path.join(base, kind), async_save=kind == "async", mesh=mesh,
+                                num_pois=dims.num_pois)
+        mgr.save(st.step, st, config_json=cfg.to_json())
+        mgr.close()  # wait(): rank 0 joins its write, then every rank passes the barrier
+        t2 = Trainer(cfg, dims, device="cpu", mesh=mesh)
+        s2, _ = CheckpointManager(os.path.join(base, kind), mesh=mesh, num_pois=dims.num_pois).restore(t2)
+        s2, m = t2.step(s2, batches[steps])
+        res[f"{kind}/loss"] = np.asarray(float(m["loss"]))
+        res[f"{kind}/step"] = np.asarray(s2.step)
+        for k, v in unshard_state(dict(s2.params), mesh, t2.sharded).items():
+            res[f"{kind}/params/{k}"] = v.detach().numpy()
+    checkpoint._write = write
+    if rank == 0:
+        files = [open(os.path.join(base, k, f"step_{steps}.pt"), "rb").read() for k in ("async", "sync")]
+        res["same_bytes"] = np.asarray(files[0] == files[1])
+        res["writers"] = np.asarray(writers)
+        np.savez(out, **res)
+    dist.barrier()
+    dist.destroy_process_group()
