@@ -26,6 +26,12 @@ with its plain PyTorch version on the card. Then it drives the paths:
   (``strnn_gowalla``: ST-RNN 128-d, 8 time-gap and 8 distance buckets, user
   embedding, dropout 0.5, full CE over 36,969 POIs, T=32, batch 64), each the
   same way as config #4;
+- the wide path (the bench workload at D = 512, H = 1024: GRU widths past
+  the clusters' 640 on the grid-resident kernels, the full-catalog CE at D =
+  512): ``python -m poi_tpu_torch train`` 20 steps with B1, B2, B7 and B8
+  launched, 5 steps through ``train()`` on both paths, and ``Recommender``
+  at request batch 1 and 256 on both paths; before it, B1 and B2 at H =
+  648, 768, 1024 and the limit, B7 and B8 at D = 384 and 512;
 - config #5 on one card (``multihost_1m --set mesh.model=1
   mesh.embedding_mode=psum data.min_poi_checkins=1 data.val_fraction=0.05``:
   GRU 512-d + 8-head attention, T=64, batch 512, sampled softmax over 4,096
@@ -236,6 +242,17 @@ CE_C3_SHAPE = (2048, 36969, 128)  # config #3's CE: batch 64 x T=32 rows, 36,969
 # N and V with a -1e30 tail, 130 (to 192).
 CE_C3_D256 = (2048, 36969, 256)
 CE_WIDE_CASES = (CE_C3_D256 + (36969,), (32768, 44170, 256, 44170), (300, 8193, 200, 8000), (1000, 5000, 130, 5000))
+# B7/B8 at D = 384 and 512 (N, V, D, real POIs): config #3's shape at D =
+# 512, the wide path's CE (the bench shape at D = 512), a ragged 384 with a
+# -1e30 tail, and 300, which the kernels are not built for (run at 384).
+CE_C3_D512 = (2048, 36969, 512)
+CE_BENCH_D512 = (32768, 44170, 512)
+CE_D512_CASES = (CE_C3_D512 + (36969,), CE_BENCH_D512 + (44170,), (300, 8193, 384, 8000), (1000, 5000, 300, 5000))
+# B8 at these widths is held element by element to the bound its arithmetic
+# allows (ce_bound_ratios, b10_bound_ratios' without the hit mask) beside
+# CE_GRAD_TOL of the max-over-max error: at D = 512 a block sums half the
+# output columns, as B10's, whose correct runs reached 1.71e-3 and 2.03e-3.
+B8_BOUND_DIMS = (384, 512)
 # B11's other main-path catalogs, (V, D, real POIs), each padded to a multiple
 # of 2,048 with -1e30 rows as the eval and serving code pad them: the bench
 # eval sweep's, config #4's eval sweep's, and bench_serve's (70,953 POIs).
@@ -250,7 +267,8 @@ ATTN_CONFIG = "attention_gowalla"
 SAMPLER_OVERRIDES = {"data.sampler": "device", "train.steps_per_call": str(TRAIN_STEPS)}
 STEP_TIME_CHUNK = 20
 # The ported measurement scripts, each run once as a subprocess: the sweeps,
-# bench_cells and bench_serve at their defaults; profile_step at the bench
+# bench_cells and bench_serve at their defaults (bench_serve also at --dim
+# 1024: B1 on the grid, B11 at D = 1024); profile_step at the bench
 # workload's batch and profile_attn at config #4's; mem_budget on the bench
 # workload (one 40-step device-sampled chunk) and on config #4 (one
 # host-loader step); quality_runs on config #1 cut from its 3,000 steps to
@@ -269,6 +287,7 @@ SCRIPT_RUNS = (
     ("profile_attn", ["--batch", "64"]),
     ("bench_cells", []),
     ("bench_serve", []),
+    ("bench_serve", ["--dim", "1024"]),
     ("mem_budget", ["smoke", "--set", *(f"{k}={v}" for k, v in BENCH_OVERRIDES.items())]),
     ("mem_budget", [ATTN_CONFIG]),
     ("quality_runs", [CONFIG, "train.num_steps=300", "train.eval_every=100"]),
@@ -288,7 +307,7 @@ SCRIPT_RUNS = (
 )
 # The GRU kernels at the larger widths: config #4's train shape, a ragged
 # batch, config #5's width on a few rows and at its batch of 512, and the
-# kernels' limit, 640.
+# clusters' limit, 640 (past it the grid-resident kernels: GRU_WIDE_SHAPES).
 GRU_FWD_H512 = (512, 64, 512)  # config #5's batch and width, where B1 is also timed
 GRU_BIG_SHAPES = ((64, 128, 256), (7, 128, 256), (5, 64, 512), GRU_FWD_H512, (3, 64, 640))
 # B1 at widths that are no multiple of 8 (B, H, blocks a row group that the
@@ -300,6 +319,20 @@ GRU_FWD_RAGGED = ((1100, 100, 4), (7, 200, 8), (300, 45, 2))
 # B1's cluster choice, timed at each cluster that fits (B, T, H): serving
 # config #1 at request batch 1 and 256, the bench workload, config #4.
 GRU_CLUSTER_CASES = ((1, 64, 64), (256, 64, 64), (512, 64, 128), (64, 128, 256))
+# B1 and B2 past the clusters' 640, on the grid-resident kernels (B, T, H):
+# the wide path's shape (the bench workload at H = 1024, where both are also
+# timed), 5 rows at 768, and 7 rows at 648, ragged just past 640; then the
+# pair's limit (gru_max_hidden()) on 3 rows.
+GRU_WIDE_H1024 = (512, 64, 1024)
+GRU_WIDE_SHAPES = (GRU_WIDE_H1024, (5, 64, 768), (7, 32, 648))
+# The widths and batches at which the Python dispatch (fused_gru.design,
+# grid_shape) is held to the C side's picks.
+GRU_PICK_WIDTHS = (1, 20, 64, 100, 128, 256, 512, 600, 639, 640, 641, 648, 700, 768, 1000, 1024, 1500, 2048)
+GRU_PICK_BATCHES = (1, 7, 64, 512, 1100)
+# The kernels of B1's and B2's calls past 640: the grid forward; B2's gates
+# pass, grid carry, outputs and dwh.
+GRU_FWD_GRID_KERNELS = ("gru_fwd_grid_kernel",)
+GRU_BWD_GRID_KERNELS = ("gru_bwd_gates", "gru_bwd_grid_carry", "gru_bwd_outputs", "recurrent_dw")
 # B2 at widths that are no multiple of 16 (B, H, blocks a row group that the
 # kernel picks for them): H = 100 on one block, at a batch whose 69 row groups
 # would not fit on the card on clusters of 2, and H = 200 on a cluster.
@@ -633,14 +666,59 @@ def gru_bwd_phase() -> float:
     return worst
 
 
-def ce_phase() -> tuple[float, float]:
-    """B7 and B8 against their plain versions; returns the largest absolute
-    errors of (lse, gradients)."""
+def ce_case(tag: str, N: int, V: int, D: int, real: int, gen) -> dict:
+    """B7 and B8 on one (N, V, D) catalog whose rows past ``real`` are -1e30
+    padding, against their plain versions: lse at ``CE_LSE_TOL``; dq and
+    dtable at ``CE_GRAD_TOL`` of the max-over-max error and, at
+    ``B8_BOUND_DIMS``, element by element within ``ce_bound_ratios``'
+    bound; dbias at ``CE_DBIAS_TOL``; padded catalog rows get exactly zero
+    gradient; a second run gives the same bits. Returns the largest
+    absolute errors of lse and of the gradients, dq's and dtable's relative
+    errors and bound ratios (None below ``B8_BOUND_DIMS``)."""
     import torch
 
     from poi_tpu_torch import _build
     from poi_tpu_torch.ops.fused_ce import KERNEL_DIMS, ce_bwd, ce_bwd_reference, ce_lse, ce_lse_reference, lse_rows
     from poi_tpu_torch.ops.widths import padded_dim
+
+    q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
+    table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
+    bias = torch.randn(V, generator=gen, device=DEV)
+    bias[real:] = -1e30
+    g = torch.rand(N, generator=gen, device=DEV)
+    lse = ce_lse(q, table, bias)
+    torch.cuda.synchronize()
+    want_lse = ce_lse_reference(q, table, bias)
+    e_lse = float((lse - want_lse).abs().max())
+    assert e_lse < CE_LSE_TOL, f"ce_lse N={N} V={V} D={D}: max |kernel - plain| {e_lse}"
+    got = ce_bwd(q, table, bias, want_lse, g)
+    torch.cuda.synchronize()
+    want = ce_bwd_reference(q, table, bias, want_lse, g)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    Dp = padded_dim(D, KERNEL_DIMS, "ce_lse")
+    ratios = ce_bound_ratios((q, table, bias, want_lse, g), got, want) if Dp in B8_BOUND_DIMS else None
+    assert errs[0] < CE_GRAD_TOL and errs[1] < CE_GRAD_TOL and errs[2] < CE_DBIAS_TOL, \
+        f"ce_bwd N={N} V={V} D={D}: rel err dq/dtable/dbias {errs}, element-wise bound ratios {ratios}"
+    assert ratios is None or max(ratios) <= 1.0, f"ce_bwd N={N} V={V} D={D}: |err| / bound dq/dtable {ratios}"
+    assert bool((got[1][real:] == 0).all()) and bool((got[2][real:] == 0).all()), "a padded catalog row got gradient"
+    again = ce_bwd(q, table, bias, want_lse, g)  # no atomics: the same bits every run
+    assert torch.equal(ce_lse(q, table, bias), lse) and all(torch.equal(a, b) for a, b in zip(again, got)), \
+        f"ce N={N} V={V} D={D}: run-to-run bits"
+    splits = max(1, _build.library().ce_lse_scratch(N, V, Dp, lse_rows(D)) // (2 * N))
+    log(f"[{tag}] N={N:5d} V={V} D={D:3d}{f' (run at {Dp})' if Dp != D else ''}"
+        f"{' (-1e30 tail)' if real < V else ''}, ce_lse at {lse_rows(D)} rows a block in {splits} catalog "
+        f"range{'s' if splits > 1 else ''}: lse max err {e_lse:.2e} (tol {CE_LSE_TOL}); rel err dq {errs[0]:.2e}, "
+        f"dtable {errs[1]:.2e} (tol {CE_GRAD_TOL})"
+        + (f", |err| / element-wise bound dq {ratios[0]:.3f}, dtable {ratios[1]:.3f} (<= 1)" if ratios else "")
+        + f", dbias {errs[2]:.2e} (tol {CE_DBIAS_TOL}); a second run gives the same bits")
+    return {"lse_err": e_lse, "grad_err": max(float((a - b).abs().max()) for a, b in zip(got, want)),
+            "rel": tuple(errs[:2]), "ratios": ratios}
+
+
+def ce_phase() -> tuple[float, float]:
+    """B7 and B8 against their plain versions (``ce_case``); returns the
+    largest absolute errors of (lse, gradients)."""
+    import torch
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
     worst_lse = worst_grad = 0.0
@@ -655,44 +733,83 @@ def ce_phase() -> tuple[float, float]:
     for N, V, D, real in ((1, 6749, 64, 6749), (300, 8193, 128, 8193), CE_TRAIN_SHAPE + (CE_TRAIN_SHAPE[1],),
                           (2048, 8192, 64, 6749), CE_C3_SHAPE + (CE_C3_SHAPE[1],), (300, 8193, 32, 8000),
                           *CE_SPLIT_CASES, *CE_WIDE_CASES):
-        q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
-        table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
-        bias = torch.randn(V, generator=gen, device=DEV)
-        bias[real:] = -1e30
-        g = torch.rand(N, generator=gen, device=DEV)
-        lse = ce_lse(q, table, bias)
-        torch.cuda.synchronize()
-        want_lse = ce_lse_reference(q, table, bias)
-        e_lse = float((lse - want_lse).abs().max())
-        assert e_lse < CE_LSE_TOL, f"ce_lse N={N} V={V} D={D}: max |kernel - plain| {e_lse}"
-        dq, dt, db = ce_bwd(q, table, bias, want_lse, g)
-        torch.cuda.synchronize()
-        want = ce_bwd_reference(q, table, bias, want_lse, g)
-        errs = [rel_err(a, b) for a, b in zip((dq, dt, db), want)]
-        assert errs[0] < CE_GRAD_TOL and errs[1] < CE_GRAD_TOL and errs[2] < CE_DBIAS_TOL, \
-            f"ce_bwd N={N} V={V} D={D}: rel err dq/dtable/dbias {errs}"
-        assert bool((dt[real:] == 0).all()) and bool((db[real:] == 0).all()), "a padded catalog row got gradient"
-        again = ce_bwd(q, table, bias, want_lse, g)  # no atomics: the same bits every run
-        assert torch.equal(ce_lse(q, table, bias), lse) and all(torch.equal(a, b) for a, b in zip(again, (dq, dt, db))), \
-            f"ce N={N} V={V} D={D}: run-to-run bits"
-        worst_lse = max(worst_lse, e_lse)
-        worst_grad = max(worst_grad, *(float((a - b).abs().max()) for a, b in zip((dq, dt, db), want)))
-        Dp = padded_dim(D, KERNEL_DIMS, "ce_lse")
-        splits = max(1, _build.library().ce_lse_scratch(N, V, Dp, lse_rows(D)) // (2 * N))
-        log(f"[ce] N={N:5d} V={V} D={D:3d}{f' (run at {Dp})' if Dp != D else ''}"
-            f"{' (-1e30 tail)' if real < V else ''}, ce_lse at {lse_rows(D)} rows a block in {splits} catalog "
-            f"range{'s' if splits > 1 else ''}: lse max err {e_lse:.2e} "
-            f"(tol {CE_LSE_TOL}); rel err dq {errs[0]:.2e}, dtable {errs[1]:.2e} (tol {CE_GRAD_TOL}), "
-            f"dbias {errs[2]:.2e} (tol {CE_DBIAS_TOL}); a second run gives the same bits")
-    q = torch.zeros(4, 257, device=DEV)
-    try:
-        ce_lse(q, q, torch.zeros(4, device=DEV))
-    except ValueError as e:
-        assert "D <= 256" in str(e), e
-        log(f"[ce] D=257 refused: {e}")
-    else:
-        raise AssertionError("ce_lse took D = 257")
+        r = ce_case("ce", N, V, D, real, gen)
+        worst_lse, worst_grad = max(worst_lse, r["lse_err"]), max(worst_grad, r["grad_err"])
     return worst_lse, worst_grad
+
+
+def ce_bound_ratios(args, got, want, chunk: int = 4096) -> tuple[float, float]:
+    """B8's dq and dtable against the plain version's, element by element:
+    the largest |dq - dq_plain| / bound and |dtable - dtable_plain| / bound,
+    each <= 1 for a correct kernel (0/0 counts as 0). ``args``: (q, table,
+    bias, lse, g). The bound is ``b10_bound_ratios``' (every term written out
+    there) for the logits z = bf16(q) bf16(table)^T + bias, without the hit
+    mask: with u = 2^-24, x = z - lse and gp = exp(x) g,
+    delta = 3 D u (|q| |table|^T) + 4 u (|z| + |x|) + 2 u + (4 + 1.2 |x|) 2u,
+    c = 2^-7 + 1.01 delta, and
+    |dq - dq_plain| <= (c |gp| + 3.03 (V - 1) u |bf16(gp)|) @ |table_bf16|,
+    |dtable - dtable_plain| <= (c |gp| + 3.03 (N - 1) u |bf16(gp)|)^T @ |q_bf16|.
+    Computed over catalog chunks of ``chunk`` rows (the dq bound summed over
+    them), so the bench shape's [N, V] never lies on the card at once."""
+    import torch
+
+    q, table, bias, lse, g = args
+    u = 2.0 ** -24
+    N, D = q.shape
+    V = table.shape[0]
+    qb = q.to(torch.bfloat16).float()
+    qa = qb.abs()
+    dq_bound = torch.zeros(N, D, device=q.device)
+    ratio_dt = 0.0
+    for v0 in range(0, V, chunk):
+        tb = table[v0:v0 + chunk].to(torch.bfloat16).float()
+        ta = tb.abs()
+        z = qb @ tb.T + bias[v0:v0 + chunk].float()
+        x = z - lse.float()[:, None]
+        gp = torch.exp(x) * g.float()[:, None]
+        gpa = gp.abs()
+        gpba = gp.to(torch.bfloat16).float().abs()
+        del gp
+        delta = 3 * D * u * (qa @ ta.T) + 4 * u * (z.abs() + x.abs()) + 2 * u + (4 + 1.2 * x.abs()) * 2 * u
+        del z, x
+        cg = (2.0 ** -7 + 1.01 * delta) * gpa
+        del delta, gpa
+        dq_bound += (cg + 3.03 * (V - 1) * u * gpba) @ ta
+        bd = (cg + 3.03 * (N - 1) * u * gpba).T @ qa
+        del cg, gpba
+        err = (got[1][v0:v0 + chunk] - want[1][v0:v0 + chunk]).abs()
+        ratio_dt = max(ratio_dt, float(torch.where(err == 0, 0.0, err / bd).max()))
+    err = (got[0] - want[0]).abs()
+    return float(torch.where(err == 0, 0.0, err / dq_bound).max()), ratio_dt
+
+
+def ce_wide_phase() -> dict:
+    """B7 and B8 at D = 384 and 512 (``CE_D512_CASES``, ``ce_case``: B8
+    also element by element within ``ce_bound_ratios``' bound) and D = 513
+    refused, naming the limit. Returns the largest absolute errors, relative
+    errors and bound ratios."""
+    import torch
+
+    from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_lse
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    out = {"lse_err": 0.0, "grad_err": 0.0, "ratios": (0.0, 0.0), "rel": (0.0, 0.0)}
+    for N, V, D, real in CE_D512_CASES:
+        r = ce_case("ce_wide", N, V, D, real, gen)
+        out["lse_err"], out["grad_err"] = max(out["lse_err"], r["lse_err"]), max(out["grad_err"], r["grad_err"])
+        out["rel"] = tuple(map(max, out["rel"], r["rel"]))
+        out["ratios"] = tuple(map(max, out["ratios"], r["ratios"]))
+    q = torch.zeros(4, 513, device=DEV)
+    for fn, args in ((ce_lse, (q, q, torch.zeros(4, device=DEV))),
+                     (ce_bwd, (q, q, torch.zeros(4, device=DEV), torch.zeros(4, device=DEV), torch.zeros(4, device=DEV)))):
+        try:
+            fn(*args)
+        except ValueError as e:
+            assert "D <= 512" in str(e), e
+            log(f"[ce_wide] D=513 refused: {e}")
+        else:
+            raise AssertionError(f"{fn.__name__} took D = 513")
+    return out
 
 
 def check_variant(name: str, got, want, base, q, table, bias, shape: str) -> float:
@@ -829,18 +946,97 @@ def gru_big_phase() -> dict:
                 lib = f", cuDNN nn.GRU forward {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
                 log(f"[time] gru_{d} B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
                     f"ms{lib}; bound {t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bound_pipe']})")
-    H = 648
-    msg = expect_width_limit(fused_gru_scan, torch.zeros(2, 3, 3 * H, device=DEV),
-                             torch.zeros(H, 3 * H, device=DEV, dtype=torch.bfloat16))
-    log(f"[gru_big] H={H} refused: {msg}")
     return out
 
 
-def recurrence_device_phase(times: dict, big: dict, lstm: dict, gpu: str) -> None:
+def gru_picks() -> None:
+    """The dispatch the wrappers run (``fused_gru.design`` and
+    ``grid_shape``, pure Python) against the C side's own picks at
+    ``GRU_PICK_WIDTHS`` x ``GRU_PICK_BATCHES`` and at the limit: the clusters
+    take H exactly where the design says "cluster", the grid shapes agree,
+    and ``gru_max_hidden()`` is ``fused_gru.MAX_HIDDEN``."""
+    import ctypes
+
+    from poi_tpu_torch import _build
+    from poi_tpu_torch.ops import fused_gru
+
+    lib = _build.library()
+    limit = lib.gru_max_hidden()
+    assert limit == fused_gru.MAX_HIDDEN, f"gru_max_hidden() {limit}, fused_gru.MAX_HIDDEN {fused_gru.MAX_HIDDEN}"
+    got = (ctypes.c_int * 4)()
+    n = 0
+    for H in (*GRU_PICK_WIDTHS, limit, limit + 1):
+        cluster = H <= fused_gru.CLUSTER_MAX_HIDDEN
+        assert (lib.gru_fwd_cluster_size(H) > 0) == cluster, (H, lib.gru_fwd_cluster_size(H))
+        assert all((lib.gru_bwd_cluster_size(B, H) > 0) == cluster for B in GRU_PICK_BATCHES), H
+        if H <= limit:
+            assert fused_gru.design(H) == ("cluster" if cluster else "grid"), H
+        for B in GRU_PICK_BATCHES:
+            for bwd in (0, 1):
+                c = tuple(got) if lib.gru_grid_shape(B, H, bwd, got) else None
+                assert c == fused_gru.grid_shape(B, H, bool(bwd)), (B, H, bwd, c, fused_gru.grid_shape(B, H, bool(bwd)))
+                n += 1
+    log(f"[gru_wide] the Python dispatch agrees with the C side: clusters exactly to H = "
+        f"{fused_gru.CLUSTER_MAX_HIDDEN}, {n} grid shapes (the wide path's {fused_gru.grid_shape(512, 1024, False)} "
+        f"forward, {fused_gru.grid_shape(512, 1024, True)} backward: octets a block, unit slices, row groups, rows "
+        f"a group), gru_max_hidden() = {limit}")
+
+
+def gru_wide_phase() -> dict:
+    """B1 and B2 past the clusters' 640, on the grid-resident kernels, at
+    ``GRU_WIDE_SHAPES`` and at the limit: the forward at ``GRU_TOL`` with
+    the carry held through the padding, the backward at ``GRU_BWD_TOL`` with
+    dxw exactly 0 on padded steps, the same bits on a second launch of
+    each; the width past the limit refused, naming it. Returns the largest
+    errors and the wide path's times (with cuDNN's ``nn.GRU`` at H = 1024)."""
+    import torch
+
+    from poi_tpu_torch.ops import fused_gru
+    from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan, gru_bwd_reference, gru_scan_reference
+
+    gru_picks()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 18)
+    out = {"fwd_err": 0.0, "bwd_err": 0.0}
+    for B, T, H in (*GRU_WIDE_SHAPES, (3, 16, fused_gru.MAX_HIDDEN)):
+        xw, wh, mask, lengths = gru_case(B, T, H, gen)
+        hs, err = check_gru_fwd(xw, wh, mask, lengths)
+        dhs = torch.randn(B, T, H, generator=gen, device=DEV)
+        ex, ew, bwd_err, n_pad = check_gru_bwd(xw, wh, hs, dhs, mask)
+        out["fwd_err"] = max(out["fwd_err"], err)
+        out["bwd_err"] = max(out["bwd_err"], bwd_err)
+        ocp, U, R, rows = fused_gru.grid_shape(B, H, False)
+        log(f"[gru_wide] B={B:3d} T={T} H={H} (forward on {U} unit slices x {R} row groups of {rows} rows, {ocp} "
+            f"octets a block): forward max |kernel - plain| at valid steps {err:.3e} (tol {GRU_TOL}); backward rel "
+            f"err dxw {ex:.2e}, dwh {ew:.2e} (tol {GRU_BWD_TOL}); dxw on {n_pad} padded steps exactly 0; a second "
+            f"run of each gives the same bits")
+        if (B, T, H) == GRU_WIDE_H1024:
+            out["fwd"] = {"ms": time_ms(lambda: fused_gru_scan(xw, wh)),
+                          "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh), 5),
+                          "library_ms": cudnn_ms("gru", B, T, H, DEV),
+                          **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * 3 * H), "args": (xw, wh)}
+            out["bwd"] = {"ms": time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs), 5),
+                          "plain_ms": time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 3), "library_ms": None,
+                          **gru_bwd_bound(xw, wh, hs, dhs, fused_gru_bwd(xw, wh, hs, dhs)),
+                          "args": (xw, wh, hs, dhs)}
+            t, tb = out["fwd"], out["bwd"]
+            log(f"[time] gru_fwd B={B} T={T} H={H} (grid): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                f"cuDNN nn.GRU forward {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+                f"{t['bound_pipe']}); gru_bwd (grid carry): kernel {tb['ms']:.4f} ms, plain {tb['plain_ms']:.4f} ms; "
+                f"bound {tb['bound_ms']:.4f} ms ({tb['bound_by']}, {tb['bound_pipe']})")
+    H = fused_gru.MAX_HIDDEN + 1
+    xw, wh = torch.zeros(2, 3, 3 * H, device=DEV), torch.zeros(H, 3 * H, device=DEV, dtype=torch.bfloat16)
+    for fn, args in ((fused_gru_scan, (xw, wh)), (fused_gru_bwd, (xw, wh, xw[..., :H], xw[..., :H]))):
+        msg = expect_width_limit(fn, *args)
+        assert f"H <= {fused_gru.MAX_HIDDEN} (gru_max_hidden())" in msg, msg
+        log(f"[gru_wide] {fn.__name__} H={H} refused: {msg}")
+    return out
+
+
+def recurrence_device_phase(times: dict, big: dict, lstm: dict, gpu: str, wide: dict) -> None:
     """Device time by kernel, on the inputs the earlier phases timed: B1 at
     the serve shapes (batch 256 and 1), the bench shape, config #4's and
-    config #5's; B2 at config #4's and config #5's; B4 at config #2's, pass
-    by pass. It runs after the
+    config #5's; B2 at config #4's and config #5's; B1 and B2 on the grid at
+    the wide path's shape (``gru_wide``); B4 at config #2's, pass by pass. It runs after the
     timing phases, as every profiler reading does: in a run that profiled
     here, before the training phases, the top-k timing's later records came
     back empty."""
@@ -862,6 +1058,13 @@ def recurrence_device_phase(times: dict, big: dict, lstm: dict, gpu: str) -> Non
         t.update(device_parts(lambda: fused_gru_bwd(xw, wh, hs, dhs), GRU_BWD_KERNELS))
         log(f"[time] gru_bwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]}: {parts_text(t, GRU_BWD_KERNELS)}  "
             f"({gpu})")
+    # B1 and B2 on the grid at the wide path's shape.
+    xw, wh = wide["fwd"].pop("args")
+    wide["fwd"].update(device_parts(lambda: fused_gru_scan(xw, wh), GRU_FWD_GRID_KERNELS))
+    xw, wh, hs, dhs = wide["bwd"].pop("args")
+    wide["bwd"].update(device_parts(lambda: fused_gru_bwd(xw, wh, hs, dhs), GRU_BWD_GRID_KERNELS))
+    log(f"[time] gru_fwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]} (grid): device {wide['fwd']['device_ms']:.4f} "
+        f"ms (CUDA events {wide['fwd']['ms']:.4f} ms); gru_bwd: {parts_text(wide['bwd'], GRU_BWD_GRID_KERNELS)}  ({gpu})")
     t = lstm["bwd"]
     args = t.pop("args")
     t.update(device_parts(lambda: fused_lstm_bwd(*args), LSTM_BWD_KERNELS))
@@ -1979,6 +2182,14 @@ def cli_train_phase(state) -> None:
                                "data.sampler=device"], 20)
 
 
+# The wide path: the bench workload at D = 512 and H = 1024 through the
+# train CLI (WIDE_CLI_STEPS steps, 10 a call, best-on-val off: evaluated at
+# 10 and 20), then WIDE_STEPS steps a path through train() and Recommender
+# on both paths: B1/B2 on the grid, B7/B8 at D = 512, B11 at D = 512.
+WIDE_SETS = {"model.embed_dim": "512", "model.hidden_dim": "1024"}
+WIDE_CLI_STEPS, WIDE_STEPS, WIDE_TIME_CHUNK = 20, 5, 10
+
+
 # Path 1: config #3 at its reference's 256-d probe (BASELINE.md:27,
 # scripts/tune_strnn.py's h256) as a user runs it, through the host loader
 # at the preset's one step a call: B5/B6 at H = 256, B7/B8 at D = 256.
@@ -2012,6 +2223,51 @@ def strnn_d256_phase(state) -> None:
     for name in ("rnn_fwd", "rnn_bwd", "ce_lse", "ce_bwd"):
         assert launches[name] > 0, f"strnn_d256: no {name} launch: {launches}"
     state["c3_d256_launches"] = launches
+
+
+def gru_wide_path_phase(state) -> None:
+    """The wide path as a user runs it: ``python -m poi_tpu_torch train
+    --config smoke --set <BENCH_OVERRIDES> model.embed_dim=512
+    model.hidden_dim=1024`` for ``WIDE_CLI_STEPS`` steps, run in this process
+    (``cli.main``) so its launches are counted (exit 0, finite losses, B1,
+    B2, B7 and B8 launched); then ``WIDE_STEPS`` device-sampled steps
+    through ``train()`` on the kernel and the plain path from one init
+    (``train_both_paths``: losses at PERF.md §2's limits, evaluate on test),
+    and ``Recommender`` at request batch 1 and 256 on both paths
+    (``serve_both_paths``: B1 at H = 1024, B11 at D = 512)."""
+    import contextlib
+    import io
+
+    from poi_tpu_torch import cli
+    from poi_tpu_torch.convert import params_to_numpy
+    from poi_tpu_torch.train.loop import make_trainer
+
+    sets = {**BENCH_OVERRIDES, **WIDE_SETS, "train.num_steps": str(WIDE_CLI_STEPS), "train.steps_per_call": "10",
+            "train.eval_every": "10", "train.log_every": "10"}
+    argv = ["train", "--config", "smoke", "--device", DEV, "--no-checkpoint", "--set",
+            *(f"{k}={v}" for k, v in sets.items())]
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    launches = read_launches()
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    losses = [row["loss"] for row in out["history"]]
+    log(f"[gru_wide_path] python -m poi_tpu_torch {' '.join(argv)}: exit {rc} in {time.perf_counter() - t0:.1f} s, "
+        f"loss by log step {losses}, final recall@10 {out['final']['recall@10']:.4f} (popularity "
+        f"{out['popularity_baseline']['recall@10']:.4f}), {out['history'][-1]['seqs_per_sec']:.1f} seq/s over the "
+        f"last log interval; launches {launches}")
+    assert rc == 0 and out["steps"] == WIDE_CLI_STEPS and all(math.isfinite(v) for v in losses), out["history"]
+    assert all(math.isfinite(v) for v in out["final"].values()), out["final"]
+    for name in ("gru_fwd", "gru_bwd", "ce_lse", "ce_bwd"):
+        assert launches[name] > 0, f"gru_wide_path: no {name} launch: {launches}"
+    cfg, ds = state["bench_cfg"].with_overrides(WIDE_SETS), state["bench_ds"]
+    tree = params_to_numpy(make_trainer(cfg, ds, DEV).model)  # the trainer's own seeded init
+    kern, both, _ = train_both_paths("gru_wide_path", cfg, ds, tree, used=("gru_fwd", "gru_bwd", "ce_lse", "ce_bwd"),
+                                     steps=WIDE_STEPS)
+    serve_both_paths("gru_wide_path serve", cfg, ds, params_to_numpy(kern.model))
+    state["wide"] = {"launches": launches, "both_launches": both, "cfg": cfg, "tree": tree}
 
 
 # Path 2: config #4 at full width through the host loader (the preset's
@@ -2591,9 +2847,10 @@ def train_timing_phase(state, gpu: str) -> dict:
     # gradients from a given LSE: no library time. B8 at the bench shape and
     # at config #3's, its two passes apart from the profiler's device time.
     # Then B7/B8 at D = 256: config #3's 256-d shape (path 1) and the bench
-    # shape.
+    # shape; and at D = 512: config #3's shape and the bench shape (the wide
+    # path's CE).
     for key, (N, V, D) in (("", CE_TRAIN_SHAPE), ("_c3", CE_C3_SHAPE), ("_c3_d256", CE_C3_D256),
-                           ("_d256", CE_WIDE_CASES[1][:3])):
+                           ("_d256", CE_WIDE_CASES[1][:3]), ("_c3_d512", CE_C3_D512), ("_d512", CE_BENCH_D512)):
         q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
         table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
         bias = torch.randn(V, generator=gen, device=DEV)
@@ -2645,7 +2902,7 @@ def train_timing_phase(state, gpu: str) -> dict:
 
 def config_timing_phase(state, gpu: str) -> dict:
     """Config #4's train step on both paths, with its device-time profile;
-    then configs #2 and #3."""
+    then configs #2 and #3, and the wide path."""
     from poi_tpu_torch.train.loop import make_trainer
 
     out = {}
@@ -2655,6 +2912,12 @@ def config_timing_phase(state, gpu: str) -> dict:
         trainers = {"kernels": make_trainer(cfg, ds, DEV),
                     "plain": make_trainer(cfg.with_overrides(PLAIN_OVERRIDES), ds, DEV)}
         out[f"{tag}_train_step"] = step_timing(label, trainers, tree, STEP_TIME_CHUNK, gpu)
+    # The wide path's step (the bench workload at D = 512, H = 1024), over
+    # WIDE_TIME_CHUNK-step chunks and 2 profiled steps.
+    cfg, ds = state["wide"]["cfg"], state["bench_ds"]
+    trainers = {"kernels": make_trainer(cfg, ds, DEV), "plain": make_trainer(cfg.with_overrides(PLAIN_OVERRIDES), ds, DEV)}
+    out["wide_train_step"] = step_timing("the wide path (bench workload at D = 512, H = 1024)", trainers,
+                                         state["wide"]["tree"], WIDE_TIME_CHUNK, gpu, profiled=2)
     return out
 
 
@@ -2678,7 +2941,8 @@ def config5_timing_phase(state, gpu: str) -> None:
 # with its chip_smoke.py's helpers, and holds a call for every kernel
 # either names; its second argument lists the kernels to time.
 AB_TIMED = ("ce_lse_variant_base", "ce_lse_variant_exp2", "ce_lse_variant_nomax")
-AB_KEPT = ("gru_bwd", "lstm_bwd", "sampled_bwd", "rnn_bwd", "sampled_lse", "ce_lse", "ce_bwd", "rnn_fwd")
+AB_KEPT = ("gru_fwd", "gru_bwd", "lstm_bwd", "sampled_bwd", "rnn_bwd", "sampled_lse", "ce_lse", "ce_bwd", "rnn_fwd",
+           *AB_TIMED)
 # Path 2's host-loader train() in each checkout (seq/s and device idle share
 # at steps_per_call 1 and 10 by this checkout's host_loader_timing; a
 # checkout whose loop ignores steps_per_call runs both synchronously).
@@ -2687,7 +2951,7 @@ AB_CHILD = r"""
 import json, sys
 import torch
 import chip_smoke as cs
-from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan
+from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan, gru_scan_reference
 from poi_tpu_torch.ops.fused_lstm import fused_lstm_bwd, fused_lstm_scan
 from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan, rnn_scan_reference
 from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_lse, ce_lse_variant
@@ -2703,6 +2967,13 @@ q, e, b, ids, tgt, lse_tot, g = cs.sampled_case(8192, 1024, 256, 36969, gen)
 xw, wh, _, _ = cs.gru_case(64, 64, 128, gen)
 gh = fused_gru_scan(xw, wh)
 gdh = torch.randn(64, 64, 128, generator=gen, device="cuda")
+# B1/B2 at the clusters' widest H, 640, and B7/B8 at D = 256 on config #3's
+# rows: both checkouts take them.
+xw6, wh6, _, _ = cs.gru_case(3, 64, 640, gen)
+gh6 = gru_scan_reference(xw6, wh6)
+gdh6 = torch.randn(3, 64, 640, generator=gen, device="cuda")
+wq, wt = (0.3 * torch.randn(n, 256, generator=gen, device="cuda") for n in cs.CE_C3_D256[:2])
+wb = torch.randn(cs.CE_C3_D256[1], generator=gen, device="cuda")
 lx, lmask, lw, _ = cs.recurrence_case(64, 64, 128, 4, gen)
 lst = fused_lstm_scan(lx, lmask, lw)
 ldh = torch.randn(64, 64, 128, generator=gen, device="cuda")
@@ -2718,17 +2989,23 @@ sq, st, sb = (0.3 * torch.randn(300, 32, generator=gen, device="cuda"), 0.3 * to
 # the bench shape, and on config #3's 2,048 rows (its split-and-merge path).
 variant = lambda v: (lambda: (ce_lse_variant(cq, ct, cb, v, 128),), ("ce_lse",))  # noqa: E731
 calls = {**{f"ce_lse_variant_{v}": variant(v) for v in ("base", "exp2", "nomax")},
-         "ce_lse": (lambda: (ce_lse(bq, bt, bb), ce_lse(bq[:cs.CE_C3_SHAPE[0]], bt, bb)), cs.CE_LSE_KERNELS),
+         "ce_lse": (lambda: (ce_lse(bq, bt, bb), ce_lse(bq[:cs.CE_C3_SHAPE[0]], bt, bb), ce_lse(wq, wt, wb),
+                             ce_lse(wq[:, :192], wt[:, :192], wb)), cs.CE_LSE_KERNELS),
          # B8 at the bench shape, on config #3's 2,048 rows (its split
-         # passes) and at D = 32 on ragged N and V.
+         # passes), at D = 32 on ragged N and V, and at D = 256 and 192.
          "ce_bwd": (lambda: (*ce_bwd(bq, bt, bb, bl, bg),
                              *ce_bwd(bq[:cs.CE_C3_SHAPE[0]], bt, bb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]]),
-                             *ce_bwd(sq, st, sb, bl[:300], bg[:300])), ("ce_bwd_pass", "sum_splits")),
+                             *ce_bwd(sq, st, sb, bl[:300], bg[:300]),
+                             *ce_bwd(wq, wt, wb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]]),
+                             *ce_bwd(wq[:, :192], wt[:, :192], wb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]])),
+                    ("ce_bwd_pass", "sum_splits")),
+         "gru_fwd": (lambda: (fused_gru_scan(xw, wh), fused_gru_scan(xw6, wh6)), cs.GRU_FWD_KERNELS),
          "rnn_fwd": (lambda: (fused_rnn_scan(x, mask, w),), cs.RNN_FWD_KERNELS),
          "rnn_bwd": (lambda: fused_rnn_bwd(x, mask, w, hs, dhs), cs.RNN_BWD_KERNELS),
          "sampled_lse": (lambda: (sampled_lse(q, e, b, ids, tgt),), cs.SAMPLED_LSE_KERNELS),
          "sampled_bwd": (lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g), cs.SAMPLED_BWD_KERNELS),
-         "gru_bwd": (lambda: fused_gru_bwd(xw, wh, gh, gdh), cs.GRU_BWD_KERNELS),
+         "gru_bwd": (lambda: (*fused_gru_bwd(xw, wh, gh, gdh), *fused_gru_bwd(xw6, wh6, gh6, gdh6)),
+                     cs.GRU_BWD_KERNELS),
          "lstm_bwd": (lambda: fused_lstm_bwd(lx, lmask, lw, *lst, ldh), cs.LSTM_BWD_KERNELS)}
 wanted = json.loads(sys.argv[2])
 res = {k: {"events_ms": cs.time_ms(calls[k][0]), **cs.device_parts(*calls[k])} for k in wanted if k in calls}
@@ -2782,7 +3059,7 @@ def ab_main(other: str) -> int:
                 + "; ".join(f"spc={spc}: {r['seq_per_s']:.1f} seq/s ({r['step_ms']:.3f} ms a step, device "
                             f"{r['device_ms']:.3f} ms, idle share {r['idle']:.3f})" for spc, r in t[AB_HOST].items())
                 + f"  ({gpu})")
-    for name in (*AB_TIMED, *AB_KEPT):
+    for name in dict.fromkeys((*AB_TIMED, *AB_KEPT)):
         want = outs["other"][0][name]
         same = all(torch.equal(a, b) for a, b in zip(outs["this"][0][name], want))
         rerun = all(torch.equal(a, b) for a, b in zip(outs["this"][0][name], outs["this"][1][name]))
@@ -3648,8 +3925,9 @@ def mesh_phase(state, gpu: str) -> dict:
     return out
 
 
-# The kernels line's keys of B7/B8 at D = 256 and their timing keys.
+# The kernels line's keys of B7/B8 at D = 256 and 512 and their timing keys.
 D256_KEYS = {"config3_d256": "_c3_d256", "bench_d256": "_d256"}
+D512_KEYS = {"config3_d512": "_c3_d512", "bench_d512": "_d512"}
 
 
 def record(name: str, source: str, replaces: str, launches: int, max_abs_err: float, t: dict, **extra) -> dict:
@@ -3675,6 +3953,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     state: dict = {}
+    t_run = time.perf_counter()
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()
@@ -3689,6 +3968,8 @@ def main() -> int:
     lse_err, ce_grad_err = phase("ce", ce_phase)
     variants = phase("ce_variants", ce_variants_phase)
     big = phase("gru_big", gru_big_phase)
+    wide = phase("gru_wide", gru_wide_phase)
+    ce_wide = phase("ce_wide", ce_wide_phase)
     sampled = phase("sampled", sampled_phase)
     lstm = phase("lstm", lstm_phase)
     rnn = phase("rnn", rnn_phase)
@@ -3701,6 +3982,7 @@ def main() -> int:
     phase("strnn_config", recurrent_config_phase, state, "strnn")
     phase("config5", config5_phase, state, gpu)
     phase("strnn_d256", strnn_d256_phase, state)
+    phase("gru_wide_path", gru_wide_path_phase, state)
     phase("host_loader", host_loader_phase, state)
     mesh = phase("mesh", mesh_phase, state, gpu)
     phase("cli_train", cli_train_phase, state)
@@ -3708,7 +3990,7 @@ def main() -> int:
     times = phase("timing", timing_phase, state, gpu)
     times.update(phase("train_timing", train_timing_phase, state, gpu))
     times.update(phase("config_timing", config_timing_phase, state, gpu))
-    phase("recurrence_device", recurrence_device_phase, times, big, lstm, gpu)
+    phase("recurrence_device", recurrence_device_phase, times, big, lstm, gpu, wide)
     phase("pool_recurrence_device", pool_recurrence_device_phase, sampled, lstm, rnn, gpu)
     phase("ce_variants_device", ce_variants_device_phase, variants, gpu)
     phase("host_loader_device", host_loader_device_phase, state, gpu)
@@ -3736,6 +4018,8 @@ def main() -> int:
     # Config #5's rows (config5: B1, B2 at B=512, T=64, H=512; B11 at
     # V=903,889, B=512, k=10; d512: B9 and B10 at D=512) carry the launches of
     # config #5's train() run (and of its evaluate on val, for top-k).
+    from poi_tpu_torch.ops.fused_gru import MAX_HIDDEN as max_hidden
+
     served, trained, attn = state["launches"], state["train_launches"], state["attn_launches"]
     c5, c5_eval = state["c5"]["launches"], state["c5"]["eval_launches"]
     at5 = lambda t, n: {**{f: t[f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},  # noqa: E731
@@ -3747,6 +4031,12 @@ def main() -> int:
     # B7/B8 at D = 256: config #3's 256-d shape with path 1's launches (the
     # train CLI at 20 steps); the bench shape at D = 256 has no main path.
     d256 = {"config3_d256": state["c3_d256_launches"], "bench_d256": {"ce_lse": 0, "ce_bwd": 0}}
+    # B7/B8 at D = 512: the bench shape with the wide path's launches (the
+    # train CLI at 20 steps, GRU H = 1024); config #3's shape has no main
+    # path there. B1/B2 on the grid (gru_fwd_grid, gru_bwd_grid): the wide
+    # path's shape and launches.
+    wl = state["wide"]["launches"]
+    d256.update({"config3_d512": {"ce_lse": 0, "ce_bwd": 0}, "bench_d512": wl})
     h256 = lambda d: {f"{k}_h256": big[d][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}  # noqa: E731
     fwd_at = lambda t: {f: t[f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}  # noqa: E731
     kernels = [
@@ -3761,6 +4051,11 @@ def main() -> int:
                   for k in ("device_ms", *(f"{n}_ms" for n in GRU_BWD_KERNELS))},
                config5={**at5(big["bwd_h512"], c5["gru_bwd"]),
                         **{f"{n}_ms": big["bwd_h512"][f"{n}_ms"] for n in GRU_BWD_KERNELS}}),
+        record("gru_fwd_grid", "gru_fwd.cu", "poi_tpu/ops/fused_gru.py:71", wl["gru_fwd"], wide["fwd_err"], wide["fwd"],
+               device_ms=wide["fwd"]["device_ms"], shape=list(GRU_WIDE_H1024), max_hidden=max_hidden),
+        record("gru_bwd_grid", "gru_bwd.cu", "poi_tpu/ops/fused_gru.py:86", wl["gru_bwd"], wide["bwd_err"], wide["bwd"],
+               **{k: wide["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in GRU_BWD_GRID_KERNELS))},
+               shape=list(GRU_WIDE_H1024)),
         record("lstm_fwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:59", c2["lstm_fwd"], lstm["fwd_err"], lstm["fwd"],
                device_ms=lstm["fwd"]["device_ms"], **{k: fwd_at(lstm[f"fwd_{k}"]) for k in LSTM_TIMED}),
         record("lstm_bwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:81", c2["lstm_bwd"], lstm["bwd_err"], lstm["bwd"],
@@ -3778,7 +4073,8 @@ def main() -> int:
                config3_launches=c3["ce_lse"],
                **{k: {**{f: times[f"ce_lse{key}"][f] for f in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
                                                                 *(f"{n}_ms" for n in CE_LSE_KERNELS))},
-                      "launches": d256[k]["ce_lse"]} for k, key in D256_KEYS.items()}),
+                      "launches": d256[k]["ce_lse"]} for k, key in {**D256_KEYS, **D512_KEYS}.items()},
+               max_abs_err_d512=ce_wide["lse_err"]),
         record("ce_bwd", "ce_bwd.cu", "poi_tpu/ops/fused_ce.py:210", trained["ce_bwd"], ce_grad_err, times["ce_bwd"],
                dq_ms=times["ce_bwd"]["dq_ms"], dtable_ms=times["ce_bwd"]["dtable_ms"],
                config3={f: times["ce_bwd_c3"][f] for f in ("ms", "plain_ms", "bound_ms", "dq_ms", "dtable_ms",
@@ -3786,7 +4082,9 @@ def main() -> int:
                config3_launches=c3["ce_bwd"],
                **{k: {**{f: times[f"ce_bwd{key}"][f] for f in ("ms", "plain_ms", "bound_ms", "library_ms", "dq_ms",
                                                                 "dtable_ms", "sum_splits_ms")},
-                      "launches": d256[k]["ce_bwd"]} for k, key in D256_KEYS.items()}),
+                      "launches": d256[k]["ce_bwd"]} for k, key in {**D256_KEYS, **D512_KEYS}.items()},
+               max_abs_err_d512=ce_wide["grad_err"], rel_err_d512=list(ce_wide["rel"]),
+               bound_ratios_d512=list(ce_wide["ratios"])),
         record("sampled_lse", "sampled.cu", "poi_tpu/ops/fused_sampled.py:76", attn["sampled_lse"],
                sampled["lse_err"], sampled["lse"],
                **{k: sampled["lse"][k] for k in ("device_ms", *(f"{n}_ms" for n in SAMPLED_LSE_KERNELS))},
@@ -3843,6 +4141,7 @@ def main() -> int:
                 rec["mesh"].update(sp(name))
         if name == "gru_fwd":
             rec["mesh"]["serve_launches_by_rank"] = mesh["serve"]["launches_by_rank"]["gru_fwd"]
+    log(f"[run] chip_smoke.py passed every phase in {time.perf_counter() - t_run:.1f} s  ({gpu})")
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,10 @@ _SIGNATURES = {
     "gru_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gru_bwd_cluster_size": [_I, _I],
     "gru_bwd_splits": [_I, _I, _I],
+    "gru_grid_shape": [_I, _I, _I, ctypes.POINTER(_I)],
+    "gru_max_hidden": [],
+    "gru_fwd_grid": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gru_bwd_grid": [_P] * 10 + [_I, _I, _I, _I, _P],
     "lstm_max_hidden": [],
     "lstm_fwd_cluster_size": [_I],
     "lstm_fwd_fits": [_I, _I],

@@ -64,9 +64,12 @@
 //   (ce_lse_scratch), and lse_merge combines the S pairs of a row in range
 //   order. No atomics: the same bits every run.
 // - Widths: 32, 64, 128 (every variant, 128 or 256 rows), 192 (ce_lse's
-//   base at 256 rows: 198,728 bytes of smem) and 256 (base at 128 rows,
-//   lse_rows_for, as ops/fused_ce.py's lse_rows). The wrapper pads any other
-//   D <= 256 with zero columns, which add nothing to q . table^T.
+//   base at 256 rows: 198,728 bytes of smem), 256 (base at 128 rows), 384
+//   (base at 128 rows on a 2-stage ring) and 512 (base at 64 rows, one
+//   consumer warpgroup taking no turns, on a 2-stage ring: B9's D = 512
+//   shape without the hit mask); lse_rows_for, as ops/fused_ce.py's
+//   lse_rows. The wrapper pads any other D <= 512 with zero columns, which
+//   add nothing to q . table^T.
 // - Any N and V: TMA zero-fills rows past N and V, ragged columns are masked
 //   to -inf (they add 0); a range wholly in the -1e30 tail keeps a finite max
 //   (-1e30 in base 2) and a sum that the merge scales by 2^(-1e30 - max) = 0.
@@ -92,8 +95,11 @@ __device__ __forceinline__ float ex2(float x) {
 // ---------------------------------------------------------------- the kernel
 
 constexpr int kLseStr = 64;     // catalog rows a streamed tile, the wgmma's N
-constexpr int kLseStages = 4;   // smem ring of streamed tiles, for both consumer counts
 constexpr int kLseRows = 256;   // ce_lse's query rows a block: Cons = 4
+
+// The smem ring of streamed tiles: 4 stages up to D = 256; 2 at D = 384
+// and 512, where a 64-row tile is 48 or 64 KB (B9's D = 512 ring, sampled.cu).
+__host__ __device__ constexpr int lse_stages(int D) { return D >= 384 ? 2 : 4; }
 
 // Query rows a block: 64 a consumer warpgroup. Threads: the consumers and
 // one producer warpgroup.
@@ -105,8 +111,8 @@ __host__ __device__ constexpr int lse_rows() {
 template <int D, int Cons>
 constexpr int lse_wg_smem_bytes() {
   // 1024: room to align the base; the stages' biases; the barriers.
-  return 1024 + (lse_rows<Cons>() + kLseStages * kLseStr) * D * 2 + kLseStages * kLseStr * 4 +
-         (2 * kLseStages + 1) * 8;
+  constexpr int ST = lse_stages(D);
+  return 1024 + (lse_rows<Cons>() + ST * kLseStr) * D * 2 + ST * kLseStr * 4 + (2 * ST + 1) * 8;
 }
 
 __device__ __forceinline__ void named_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
@@ -118,11 +124,11 @@ __device__ __forceinline__ void named_arrive(int id) { asm volatile("bar.arrive 
 // wg waits on named barrier 1 + wg (but for group 0's first product),
 // starts its product, then lets group wg + 1 go on barrier 1 + (wg + 1) %
 // Cons (but for the last group's last product); `n` and `of` count this
-// group's products.
+// group's products. One warpgroup (D = 512) takes no turns.
 template <int D, int Cons>
 __device__ __forceinline__ void lse_logits(float (&s)[kLseStr / 2], uint32_t res, uint32_t tile, int wg, int n, int of) {
   constexpr int SW = swizzle_bytes(D), KPC = SW / 32;
-  if (wg > 0 || n > 0) named_sync(1 + wg);
+  if (Cons > 1 && (wg > 0 || n > 0)) named_sync(1 + wg);
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
@@ -131,7 +137,7 @@ __device__ __forceinline__ void lse_logits(float (&s)[kLseStr / 2], uint32_t res
                       smem_desc(tile + (ks / KPC) * kLseStr * SW + (ks % KPC) * 32, 16, 8 * SW, SW), ks > 0);
   }
   wgmma_commit();
-  if (wg < Cons - 1 || n < of - 1) named_arrive(1 + (wg + 1) % Cons);
+  if (Cons > 1 && (wg < Cons - 1 || n < of - 1)) named_arrive(1 + (wg + 1) % Cons);
 }
 
 // Logits are folded in base 2: t = fmaf(logit, log2e, bias * log2e), one FMA
@@ -204,6 +210,7 @@ __global__ void __launch_bounds__(128 * (Cons + 1), 1)
                      const __grid_constant__ CUtensorMap b_map, float* __restrict__ lse, float* __restrict__ part,
                      int N, int V, int tiles_per_split) {
   constexpr int SW = swizzle_bytes(D), CC = SW / 2, NCH = D / CC, Rows = lse_rows<Cons>();
+  constexpr int kLseStages = lse_stages(D);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* res_s = base;                                            // [NCH][Rows][SW bytes]
@@ -392,8 +399,12 @@ cudaError_t run_lse_variant(const void* q, const void* table, const void* bias, 
 // 128 (Cons = 2) at D = 256, where 256 resident rows (128 KB) beside the
 // 4-stage ring (128 KB) would pass the 227 KB a block may opt into; two
 // warpgroups keep B9's D = 256 shape (sampled.cu), whose 256 rows on a
-// 3-stage ring timed no faster.
-__host__ __device__ constexpr int lse_rows_for(int D) { return D == 256 ? 128 : kLseRows; }
+// 3-stage ring timed no faster. At D = 384, 128 rows (96 KB) on a 2-stage
+// ring (96 KB); at D = 512, B9's D = 512 shape: 64 rows (64 KB) on a
+// 2-stage ring (128 KB). Both take 198,184 bytes of smem.
+__host__ __device__ constexpr int lse_rows_for(int D) {
+  return D == 512 ? 64 : D == 256 || D == 384 ? 128 : kLseRows;
+}
 
 // B12's variants and both row counts up to D = 128; above it only
 // ce_lse's own instantiation (the base variant at lse_rows_for(D)).
@@ -405,9 +416,11 @@ bool lse_takes(int D, int variant, int rows) {
 }  // namespace
 
 // The widths the kernels are built for, the forward's here and the backward's
-// in ce_bwd.cu; the wrapper pads any D <= 256 with zero columns to the next
+// in ce_bwd.cu; the wrapper pads any D <= 512 with zero columns to the next
 // of them (ops/fused_ce.py padded_dim).
-extern "C" int ce_supports_dim(int D) { return D == 32 || D == 64 || D == 128 || D == 192 || D == 256; }
+extern "C" int ce_supports_dim(int D) {
+  return D == 32 || D == 64 || D == 128 || D == 192 || D == 256 || D == 384 || D == 512;
+}
 
 // Floats of scratch a launch with `rows` query rows a block needs for its
 // ranges' partial sums (0 when the row blocks fill the card: pass any
@@ -421,7 +434,7 @@ extern "C" int ce_lse_scratch(int N, int V, int D, int rows) {
 
 // The forward: variant is a LseVariant (0 base, 1 exp2: q and bias already
 // scaled by log2(e), 2 nomax), rows 128 or 256 (2 or 4 consumer
-// warpgroups); ce_lse is base at ce_lse_rows(D). D = 192 and 256 take only
+// warpgroups); ce_lse is base at lse_rows_for(D). D = 192 to 512 take only
 // that.
 extern "C" int ce_lse_variant(const void* q, const void* table, const void* bias, void* lse, void* scratch, int N,
                               int V, int D, int variant, int rows, int device, void* stream) {
@@ -437,6 +450,8 @@ extern "C" int ce_lse_variant(const void* q, const void* table, const void* bias
     case 64: return run_lse_variant<64>(q, table, bias, lse, scratch, N, V, variant, rows, s);
     case 192: return run_lse_wg<192, kBase, lse_rows_for(192) / 64>(q, table, bias, lse, scratch, N, V, s);
     case 256: return run_lse_wg<256, kBase, lse_rows_for(256) / 64>(q, table, bias, lse, scratch, N, V, s);
+    case 384: return run_lse_wg<384, kBase, lse_rows_for(384) / 64>(q, table, bias, lse, scratch, N, V, s);
+    case 512: return run_lse_wg<512, kBase, lse_rows_for(512) / 64>(q, table, bias, lse, scratch, N, V, s);
     default: return run_lse_variant<128>(q, table, bias, lse, scratch, N, V, variant, rows, s);
   }
 }

@@ -44,8 +44,12 @@
 // That is narrow_pass, for D = 32, 64 and 128. At D = 192 and 256 the
 // [64, D] sums leave no registers for the resident fragments: wide_pass
 // (below) reads A from smem for the logits, keeps one logits buffer and
-// splits the gradient product into products of at most 128 columns. The
-// wrapper pads any other D <= 256 with zero columns (ops/fused_ce.py).
+// splits the gradient product into products of at most 128 columns. At D =
+// 384 and 512 (csrc/sampled.cu's B10 at D = 512, without the hit mask) a
+// block is one consumer warpgroup of 64 resident rows on a 2-stage ring and
+// sums half the output columns (gridDim.z = 2), both halves recomputing the
+// logits: 12*N*V*D operations where the function needs 6*N*V*D. The
+// wrapper pads any other D <= 512 with zero columns (ops/fused_ce.py).
 // Where the resident blocks cannot fill the card (config #3's dq: 16 blocks
 // of 128 rows), the streamed dimension is split S ways into fp32 partials
 // [S, rows, D] (and [S, V] for dbias) in the caller's scratch, and
@@ -66,7 +70,6 @@ namespace {
 constexpr int kRes = 128;     // resident rows a block: two consumer warpgroups of 64
 constexpr int kStr = 64;      // rows of a streamed tile
 constexpr int kStages = 4;    // smem ring of streamed tiles
-constexpr int kBwdThreads = 384;  // 2 consumer warpgroups + 1 producer warpgroup
 
 // Streamed fp32 vectors that arrive with each tile: the dq pass needs the
 // catalog rows' bias, the dtable pass the query rows' lse and g.
@@ -75,10 +78,25 @@ __host__ __device__ constexpr int stream_vecs() {
   return kDtable ? 2 : 1;
 }
 
+// The shape of a block, by D. Up to D = 256: two consumer warpgroups
+// (kRes resident rows), a ring of kStages, every output column in one
+// block. At D = 384 and 512 (B10's D = 512 shape, sampled.cu, without the
+// hit mask) a thread's sums of all D output columns would take 192 or 256
+// registers, so a block sums one half of the columns (gridDim.z = 2, both
+// halves recomputing the logits), and the resident rows (48 or 64 KB a
+// warpgroup) and the tiles (as much each) leave room for one consumer
+// warpgroup (64 rows) and a ring of 2.
+__host__ __device__ constexpr int bwd_cons(int D) { return D >= 384 ? 1 : 2; }
+__host__ __device__ constexpr int bwd_res(int D) { return 64 * bwd_cons(D); }  // resident rows a block
+__host__ __device__ constexpr int bwd_stages(int D) { return D >= 384 ? 2 : kStages; }
+__host__ __device__ constexpr int bwd_halves(int D) { return D >= 384 ? 2 : 1; }  // output column ranges
+__host__ __device__ constexpr int bwd_threads(int D) { return 128 * (bwd_cons(D) + 1); }  // + 1 producer warpgroup
+
 template <int D, bool kDtable>
 constexpr int pass_smem_bytes() {
   // 1024: room to align the base; the stages' vectors; the barriers.
-  return 1024 + (kRes + kStages * kStr) * D * 2 + kStages * stream_vecs<kDtable>() * kStr * 4 + (2 * kStages + 1) * 8;
+  constexpr int Res = bwd_res(D), ST = bwd_stages(D);
+  return 1024 + (Res + ST * kStr) * D * 2 + ST * stream_vecs<kDtable>() * kStr * 4 + (2 * ST + 1) * 8;
 }
 
 // gp of one streamed tile from its logits `s` (already waited for), in
@@ -337,8 +355,9 @@ __host__ __device__ constexpr int wide_cols() {
   return D % 128 == 0 ? 128 : 64;
 }
 
+
 // The 64 x 64 logits of the warpgroup's resident rows (at `res`, the first
-// of the block's kRes) against a streamed tile, A and B K-major in smem.
+// of the block's bwd_res(D)) against a streamed tile, A and B K-major in smem.
 // Starts and commits; the caller waits.
 template <int D>
 __device__ __forceinline__ void wide_logits(float (&s)[32], uint32_t res, uint32_t tile) {
@@ -347,7 +366,7 @@ __device__ __forceinline__ void wide_logits(float (&s)[32], uint32_t res, uint32
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
     const uint32_t k_off = (ks % KPC) * 32;
-    const uint64_t da = smem_desc(res + (ks / KPC) * kRes * SW + k_off, 16, 8 * SW, SW);
+    const uint64_t da = smem_desc(res + (ks / KPC) * bwd_res(D) * SW + k_off, 16, 8 * SW, SW);
     const uint64_t db = smem_desc(tile + (ks / KPC) * kStr * SW + k_off, 16, 8 * SW, SW);
     if (ks == 0) {
       wgmma_ss64_first(s, da, db);
@@ -381,7 +400,9 @@ __device__ __forceinline__ void wide_product(float (&acc)[D / wide_cols<D>()][wi
   wgmma_commit();
 }
 
-// One pass at D = 192 or 256; arguments as narrow_pass's.
+// One pass at D = 192, 256, 384 or 512; arguments as narrow_pass's. A block
+// sums the output columns of its half (gridDim.z; one half but at D = 384
+// and 512); dbias, the same in every half, is written by half 0.
 template <int D, bool kDtable>
 __device__ __forceinline__ void wide_pass(const CUtensorMap& res_map, const CUtensorMap& str_map,
                                           const CUtensorMap& vec0_map, const CUtensorMap& vec1_map,
@@ -389,7 +410,8 @@ __device__ __forceinline__ void wide_pass(const CUtensorMap& res_map, const CUte
                                           float* __restrict__ out, float* __restrict__ dbias, int n_res, int n_str,
                                           int tiles_per_split) {
   constexpr int SW = swizzle_bytes(D), CC = SW / 2, NCH = D / CC, NV = stream_vecs<kDtable>();
-  constexpr int NP = wide_cols<D>(), NH = D / NP;
+  constexpr int Cons = bwd_cons(D), kRes = bwd_res(D), kStages = bwd_stages(D), DO = D / bwd_halves(D);
+  constexpr int NP = wide_cols<DO>(), NH = DO / NP;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* res_s = base;                                     // [NCH][kRes][SW bytes]
@@ -400,13 +422,15 @@ __device__ __forceinline__ void wide_pass(const CUtensorMap& res_map, const CUte
   uint64_t* res_full = empty + kStages;
 
   const int r0 = blockIdx.x * kRes;
-  const int split = blockIdx.y;
+  // A compile-time 0 where one block sums every column (a column offset in
+  // registers had ptxas serialise B10's D = 256 wgmma, C7515).
+  const int split = blockIdx.y, col0 = bwd_halves(D) > 1 ? blockIdx.z * DO : 0;
   const int n_tiles = (n_str + kStr - 1) / kStr;
   const int t0 = split * tiles_per_split, t1 = min(n_tiles, t0 + tiles_per_split);
   if (threadIdx.x == 0) {
     for (int st = 0; st < kStages; ++st) {
       mbar_init(&full[st], 1);
-      mbar_init(&empty[st], 256);  // every consumer thread
+      mbar_init(&empty[st], 128 * Cons);  // every consumer thread
     }
     mbar_init(res_full, 1);
     mbar_init_fence();
@@ -414,9 +438,9 @@ __device__ __forceinline__ void wide_pass(const CUtensorMap& res_map, const CUte
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  if (warp >= 8) {  // the producer warpgroup, as narrow_pass's
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (warp == 8 && lane == 0) {
+  if (warp >= 4 * Cons) {  // the producer warpgroup, as narrow_pass's
+    if constexpr (Cons == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 4 * Cons && lane == 0) {
       mbar_arrive_expect_tx(res_full, kRes * D * 2);
       for (int c = 0; c < NCH; ++c) tma_load_2d(res_s + c * kRes * SW, &res_map, c * CC, r0, res_full);
       int st = 0;
@@ -438,9 +462,10 @@ __device__ __forceinline__ void wide_pass(const CUtensorMap& res_map, const CUte
     return;
   }
 
-  // 232 registers a consumer thread: the [64, D] sums, one logits tile and
-  // gp's A fragments.
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  // 232 registers a consumer thread with two consumer warpgroups: the [64,
+  // D] sums, one logits tile and gp's A fragments. With one (D = 384 and
+  // 512, 256 threads) the launch's limit of 255 holds its half.
+  if constexpr (Cons == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int wg = warp / 4, wi = warp % 4, g = lane / 4, t = lane % 4;
   int row[2];
   bool ok[2];
@@ -461,6 +486,7 @@ __device__ __forceinline__ void wide_pass(const CUtensorMap& res_map, const CUte
   float db[2] = {0.f, 0.f};
   float s[32];
   const uint32_t res_addr = smem_u32(res_s) + wg * 64 * SW, str_addr = smem_u32(str_s);
+  const uint32_t out_off = (col0 / 64) * kStr * SW;  // the tile's chunk of the block's first output column
   mbar_wait(res_full, 0);
 
   // A tile: its logits on the tensor cores, then (once they and the previous
@@ -482,7 +508,7 @@ __device__ __forceinline__ void wide_pass(const CUtensorMap& res_map, const CUte
       mbar_arrive(&empty[(st + kStages - 1) % kStages]);
     }
     tile_gp<kDtable>(s, db, vec_s + st * NV * kStr, it * kStr, n_str, ok, ra, rb, t);
-    wide_product<D>(acc, s, tile);
+    wide_product<DO>(acc, s, tile + out_off);
   }
   wgmma_wait<0>();
 #pragma unroll
@@ -494,10 +520,10 @@ __device__ __forceinline__ void wide_pass(const CUtensorMap& res_map, const CUte
     if constexpr (kDtable) {
       db[r] += __shfl_xor_sync(0xffffffffu, db[r], 1);
       db[r] += __shfl_xor_sync(0xffffffffu, db[r], 2);
-      if (ok[r] && t == 0) dbias[(size_t)split * n_res + row[r]] = db[r];
+      if (ok[r] && t == 0 && col0 == 0) dbias[(size_t)split * n_res + row[r]] = db[r];
     }
     if (!ok[r]) continue;
-    float* dst = dst0 + (size_t)row[r] * D + 2 * t;
+    float* dst = dst0 + (size_t)row[r] * D + col0 + 2 * t;
 #pragma unroll
     for (int h = 0; h < NH; ++h) {
 #pragma unroll
@@ -511,7 +537,7 @@ __device__ __forceinline__ void wide_pass(const CUtensorMap& res_map, const CUte
 // A pass as a kernel of its own name (the profiler tells the dq and dtable
 // passes apart by kDtable): narrow_pass up to D = 128, wide_pass above.
 template <int D, bool kDtable>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(bwd_threads(D), 1)
     ce_bwd_pass(const __grid_constant__ CUtensorMap res_map, const __grid_constant__ CUtensorMap str_map,
                 const __grid_constant__ CUtensorMap vec0_map, const __grid_constant__ CUtensorMap vec1_map,
                 const float* __restrict__ row_a, const float* __restrict__ row_b, float* __restrict__ out,
@@ -525,9 +551,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
-// How many ways a pass splits its streamed tiles (fill_splits).
-int splits(int n_res, int n_str, int* per) {
-  return fill_splits((n_res + kRes - 1) / kRes, (n_str + kStr - 1) / kStr, per);
+// How many ways a pass at width D splits its streamed tiles (fill_splits):
+// its blocks are the resident row blocks times the column halves.
+int splits(int n_res, int n_str, int D, int* per) {
+  return fill_splits((n_res + bwd_res(D) - 1) / bwd_res(D) * bwd_halves(D), (n_str + kStr - 1) / kStr, per);
 }
 
 // One pass. vec0/vec1: the streamed rows' vectors (dq: bias; dtable: lse,
@@ -536,21 +563,22 @@ template <int D, bool kDtable>
 cudaError_t run_pass(const void* res, int n_res, const void* str, int n_str, const float* vec0, const float* vec1,
                      const float* row_a, const float* row_b, float* out, float* dbias, float* scratch,
                      cudaStream_t s) {
+  constexpr int Res = bwd_res(D);
   CUtensorMap res_map, str_map, vec0_map, vec1_map;
-  if (!make_map(&res_map, res, n_res, D, kRes) || !make_map(&str_map, str, n_str, D, kStr) ||
+  if (!make_map(&res_map, res, n_res, D, Res) || !make_map(&str_map, str, n_str, D, kStr) ||
       !make_vec_map(&vec0_map, vec0, n_str, kStr) || !make_vec_map(&vec1_map, vec1, n_str, kStr)) {
     return cudaErrorInvalidValue;
   }
   int per = 0;
-  const int S = splits(n_res, n_str, &per);
+  const int S = splits(n_res, n_str, D, &per);
   float* o = S > 1 ? scratch : out;
   float* ob = S > 1 ? scratch + (size_t)S * n_res * D : dbias;
   constexpr int smem = pass_smem_bytes<D, kDtable>();
   auto kernel = ce_bwd_pass<D, kDtable>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3((n_res + kRes - 1) / kRes, S), kBwdThreads, smem, s>>>(res_map, str_map, vec0_map, vec1_map, row_a,
-                                                                      row_b, o, ob, n_res, n_str, per);
+  kernel<<<dim3((n_res + Res - 1) / Res, S, bwd_halves(D)), bwd_threads(D), smem, s>>>(
+      res_map, str_map, vec0_map, vec1_map, row_a, row_b, o, ob, n_res, n_str, per);
   e = cudaGetLastError();
   if (e != cudaSuccess || S == 1) return e;
   sum_splits<<<2 * kSms, 256, 0, s>>>(o, out, (long long)n_res * D, S);
@@ -561,7 +589,7 @@ cudaError_t run_pass(const void* res, int n_res, const void* str, int n_str, con
 // Scratch floats a pass needs for its partials (0 when it does not split).
 long long pass_scratch(int n_res, int n_str, int D, bool dtable) {
   int per = 0;
-  const int S = splits(n_res, n_str, &per);
+  const int S = splits(n_res, n_str, D, &per);
   return S > 1 ? (long long)S * n_res * (D + (dtable ? 1 : 0)) : 0;
 }
 
@@ -600,6 +628,8 @@ extern "C" int ce_bwd(const void* q, const void* table, const void* bias, const 
     case 64: return run_bwd<64>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
     case 192: return run_bwd<192>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
     case 256: return run_bwd<256>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
+    case 384: return run_bwd<384>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
+    case 512: return run_bwd<512>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
     default: return run_bwd<128>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
   }
 }

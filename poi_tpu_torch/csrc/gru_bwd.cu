@@ -63,7 +63,12 @@
 //    C: the smallest of 1, 2, 4, 8, 16 whose slices fit in shared memory,
 //    then doubled (up to 8) while the groups' clusters fit on the 132 SMs
 //    at once (B = 512, H = 128: 32 groups x 4; B = 64, H = 256: 4 x 8). Any
-//    H up to 640; a ragged H zero-pads the last octet and K.
+//    H up to 640; a ragged H zero-pads the last octet and K. Past 640 the
+//    carry runs on the whole card (gru_bwd_grid_carry_kernel, below, with
+//    csrc/grid_carry.cuh): each CTA keeps wh's rows of its output units and
+//    reads the three bf16 terms of every column of dhw from an L2-resident
+//    buffer behind a step barrier of its row group; the other passes are
+//    the same (gru_bwd_grid).
 // 3. gru_bwd_outputs_kernel: dxw = d [alpha, beta, delta] and
 //    dhw = d [alpha, beta, gamma], in place. Padded steps (z = 0 exactly
 //    from the folded -1e9) have alpha = beta = gamma = delta = 0, so dxw is
@@ -79,7 +84,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "cluster_carry.cuh"
+#include "grid_carry.cuh"
 #include "recurrent_dwh.cuh"
 
 namespace {
@@ -429,6 +434,180 @@ __global__ void gru_bwd_outputs_kernel(float* __restrict__ dxw, float* __restric
   }
 }
 
+// ------------------------------------------------------------- pass 2 past the cluster: the grid
+//
+// gru_bwd_grid_carry_kernel, for the widths no cluster takes (grid_carry.cuh
+// has the grid, the barrier and the fragment loads). CTA (r, u) owns the
+// output units of its octets: it keeps wh's rows of those units, [8 ocp][Kp
+// + 8] bf16 (every column c < 3H, the k-steps' columns permuted by kperm), in
+// shared memory, so that dhw[t] @ wh^T at its units is one product over all
+// 3H columns: no partial sums cross a CTA. Step t = T-1 .. 1 of the row
+// group:
+// - each task's pairs form dhw = d [alpha, beta, gamma] (d = dh + dhs[t],
+//   already in dhw's third block) and write its three exact bf16 terms
+//   (split3) to the L2-resident buffer dt[t & 1] [3][R rows][Kp] at columns
+//   gate * H + unit;
+// - the group's barrier;
+// - per task, the three terms' products with the CTA's slice, each into its
+//   own fp32 accumulator (A straight from L2, kGridBwdPf k-steps ahead),
+//   summed smallest first: s; dh = d (1 - z) + s and d(t - 1) = dh +
+//   dhs[t - 1] into dhw's third block for the next step and for pass 3.
+// Step 0's dh is the cotangent of h0, a constant: no product. d(T - 1) =
+// dhs[T - 1] is written first. No atomics in any sum: the same bits every run.
+constexpr int kGridBwdPf = 2;  // k-steps of the three terms' fragments loaded ahead
+
+__global__ void __launch_bounds__(32 * kGridWarps, 1)
+    gru_bwd_grid_carry_kernel(const bf16* __restrict__ wh, const float* __restrict__ dhs,
+                              const float* __restrict__ coef_x, float* __restrict__ coef_h, bf16* __restrict__ dt,
+                              int* __restrict__ ctr, int B, int T, int H, GridShape S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int O = (H + 7) / 8, H3 = 3 * H, Kp = (H3 + 15) / 16 * 16, KS = Kp / 16, ldk = Kp + 8;
+  const int u = blockIdx.x % S.U, grp = blockIdx.x / S.U;
+  const int ob = u * O / S.U, n_oct = (u + 1) * O / S.U - ob;
+  const int row0 = grp * S.rows, n_rt = (min(S.rows, B - row0) + 15) / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const size_t term = (size_t)S.R * S.rows * Kp;  // one term of one parity of dt [2][3][R rows][Kp]
+  int* my_ctr = ctr + grp * kCtrStride;
+  int ng, gs;
+  grid_tasks(n_rt, n_oct, ng, gs);
+
+  // The slice: local unit lu's row holds wh[8 ob + lu][c] at physical column
+  // p, c = kperm of p within its k-step (zero past 3H, past H and past the
+  // CTA's octets).
+  bf16* slice = reinterpret_cast<bf16*>(smem);
+  for (int i = threadIdx.x; i < 8 * S.ocp * Kp; i += blockDim.x) {
+    const int lu = i / Kp, p = i % Kp, c = (p & ~15) + kperm(p & 15), j = 8 * ob + lu;
+    const bool ok = lu < 8 * n_oct && j < H && c < H3;
+    slice[lu * ldk + p] = ok ? wh[(size_t)j * H3 + c] : __float2bfloat16(0.f);
+  }
+  const uint32_t slice_a = shared_addr(slice);
+
+  // Calls f(lo, rr, ii, b, j) for each of this thread's pairs of a task that
+  // lie below B and H.
+  auto pairs = [&](int r0, int lo0, int no, auto&& f) {
+#pragma unroll
+    for (int lo = 0; lo < kTaskOct; ++lo) {
+      if (lo >= no) break;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int b = r0 + g + 8 * rr, j = 8 * (ob + lo0 + lo) + 2 * tq + ii;
+          if (b < B && j < H) f(lo, rr, ii, b, j);
+        }
+      }
+    }
+  };
+  for (int task = warp; task < n_rt * ng; task += kGridWarps) {  // d(T - 1) = dhs[T - 1]
+    pairs(row0 + 16 * (task / ng), (task % ng) * gs, min(gs, n_oct - (task % ng) * gs),
+          [&](int, int, int, int b, int j) {
+            const size_t row = (size_t)b * T + T - 1;
+            coef_h[row * H3 + 2 * H + j] = dhs[row * H + j];
+          });
+  }
+  __syncthreads();
+
+  for (int t = T - 1; t > 0; --t) {
+    bf16* dtt = dt + (size_t)(t & 1) * 3 * term;
+    for (int task = warp; task < n_rt * ng; task += kGridWarps) {
+      const int r0 = row0 + 16 * (task / ng), lo0 = (task % ng) * gs, no = min(gs, n_oct - lo0);
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) {
+        if (lo >= no) break;
+        const int j0 = 8 * (ob + lo0 + lo) + 2 * tq;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int b = r0 + g + 8 * rr;
+          if (b >= B || j0 >= H) continue;
+          float dv[2], c[3][2];
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const bool ok = j0 + ii < H;
+            const size_t o = ((size_t)b * T + t) * H3 + j0 + ii;
+            dv[ii] = ok ? coef_h[o + 2 * H] : 0.f;
+            c[0][ii] = ok ? coef_x[o] : 0.f;
+            c[1][ii] = ok ? coef_x[o + H] : 0.f;
+            c[2][ii] = ok ? coef_h[o + H] : 0.f;
+          }
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            __nv_bfloat162 terms[3];
+            split3(dv[0] * c[q][0], dv[1] * c[q][1], terms);
+            bf16* at = dtt + (size_t)b * Kp + q * H + j0;
+#pragma unroll
+            for (int e = 0; e < 3; ++e) {
+              if (j0 + 1 < H && H % 2 == 0) {
+                *reinterpret_cast<__nv_bfloat162*>(at + e * term) = terms[e];
+              } else {
+                at[e * term] = terms[e].x;
+                if (j0 + 1 < H) at[e * term + 1] = terms[e].y;
+              }
+            }
+          }
+        }
+      }
+    }
+    group_arrive(my_ctr);
+    group_wait(my_ctr, S.U * (T - t));  // every CTA of the group has written step t's terms
+    for (int task = warp; task < n_rt * ng; task += kGridWarps) {
+      const int r0 = row0 + 16 * (task / ng), lo0 = (task % ng) * gs, no = min(gs, n_oct - lo0);
+      float acc[3][kTaskOct][4];
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+#pragma unroll
+        for (int lo = 0; lo < kTaskOct; ++lo) acc[e][lo][0] = acc[e][lo][1] = acc[e][lo][2] = acc[e][lo][3] = 0.f;
+      }
+      const bf16* ra = dtt + (size_t)(r0 + g) * Kp + 4 * tq;
+      uint32_t ac[kGridBwdPf][3][4], an[kGridBwdPf][3][4];
+      auto load = [&](uint32_t (&dst)[kGridBwdPf][3][4], int kb0) {
+#pragma unroll
+        for (int i = 0; i < kGridBwdPf; ++i) {
+          if (kb0 + i < KS) {
+#pragma unroll
+            for (int e = 0; e < 3; ++e) {
+              const bf16* p = ra + e * term + 16 * (kb0 + i);
+              lda_l2(dst[i][e], p, p + 8 * Kp);
+            }
+          }
+        }
+      };
+      load(ac, 0);
+      for (int kb0 = 0; kb0 < KS; kb0 += kGridBwdPf) {
+        if (kb0 + kGridBwdPf < KS) load(an, kb0 + kGridBwdPf);
+#pragma unroll
+        for (int i = 0; i < kGridBwdPf; ++i) {
+          const int kb = kb0 + i;
+          if (kb >= KS) break;
+#pragma unroll
+          for (int lo = 0; lo < kTaskOct; ++lo) {
+            if (lo >= no) break;
+            uint32_t b0, b1;
+            ldsm_x2(b0, b1, slice_a + (((lo0 + lo) * 8 + lane % 8) * ldk + kb * 16 + ((lane / 8) % 2) * 8) * 2);
+#pragma unroll
+            for (int e = 0; e < 3; ++e) mma_bf16(acc[e][lo], ac[i][e], b0, b1);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kGridBwdPf; ++i) {
+#pragma unroll
+          for (int e = 0; e < 3; ++e) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) ac[i][e][x] = an[i][e][x];
+          }
+        }
+      }
+      // dh = d (1 - z) + s, the smallest term first; then d(t - 1).
+      pairs(r0, lo0, no, [&](int lo, int rr, int ii, int b, int j) {
+        const int ci = 2 * rr + ii;
+        const float s = (acc[2][lo][ci] + acc[1][lo][ci]) + acc[0][lo][ci];
+        const size_t row = (size_t)b * T + t;
+        const float dh = coef_h[row * H3 + 2 * H + j] * coef_h[row * H3 + j] + s;
+        coef_h[(row - 1) * H3 + 2 * H + j] = dh + dhs[(row - 1) * H + j];
+      });
+    }
+  }
+}
+
 template <int C>
 cudaError_t launch_carry(const void* wh, const void* dhs, void* dxw, void* dhw, int B, int T, int H, cudaStream_t s) {
   const Layout L = layout(H, C, 3);
@@ -467,28 +646,19 @@ extern "C" int gru_bwd_cluster_size(int B, int H) { return pick_cluster(B, H, 3)
 // Number of partial dwh sums the wrapper allocates ([splits, H, 3H] fp32).
 extern "C" int gru_bwd_splits(int B, int T, int H) { return recurrent_dw::num_splits(B * T, H, 3 * H); }
 
-extern "C" int gru_bwd(const void* xw, const void* wh, const void* hs, const void* dhs, void* dxw, void* dhw,
-                       void* dwh_partial, void* dwh, int B, int T, int H, int device, void* stream) {
-  const int c = pick_cluster(B, H, 3);
-  if (c == 0 || B <= 0 || T <= 0) return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// The three passes and dwh around `carry`, which launches pass 2 on `s`.
+template <class Carry>
+cudaError_t run_passes(const void* xw, const void* wh, const void* hs, void* dxw, void* dhw, void* dwh_partial,
+                       void* dwh, int B, int T, int H, cudaStream_t s, Carry carry) {
   const int BT = B * T;
   const dim3 gates_grid((BT + kGateRows - 1) / kGateRows, ((H + 7) / 8 + kGateOct - 1) / kGateOct);
   auto gates = H % 8 == 0 ? gru_bwd_gates_kernel<true> : gru_bwd_gates_kernel<false>;
   gates<<<gates_grid, kGateThreads, 0, s>>>(static_cast<const float*>(xw), static_cast<const bf16*>(wh),
                                             static_cast<const float*>(hs), static_cast<float*>(dxw),
                                             static_cast<float*>(dhw), BT, T, H);
-  e = cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  switch (c) {
-    case 1: e = launch_carry<1>(wh, dhs, dxw, dhw, B, T, H, s); break;
-    case 2: e = launch_carry<2>(wh, dhs, dxw, dhw, B, T, H, s); break;
-    case 4: e = launch_carry<4>(wh, dhs, dxw, dhw, B, T, H, s); break;
-    case 8: e = launch_carry<8>(wh, dhs, dxw, dhw, B, T, H, s); break;
-    default: e = launch_carry<16>(wh, dhs, dxw, dhw, B, T, H, s); break;
-  }
+  e = carry();
   if (e != cudaSuccess) return e;
   const long long n = (long long)BT * H;
   gru_bwd_outputs_kernel<<<4 * kSms, 256, 0, s>>>(static_cast<float*>(dxw), static_cast<float*>(dhw), n, H);
@@ -496,4 +666,41 @@ extern "C" int gru_bwd(const void* xw, const void* wh, const void* hs, const voi
   if (e != cudaSuccess) return e;
   return recurrent_dw::launch(static_cast<const float*>(hs), static_cast<const float*>(dhw),
                               static_cast<float*>(dwh_partial), static_cast<float*>(dwh), B, T, H, 3 * H, s);
+}
+
+extern "C" int gru_bwd(const void* xw, const void* wh, const void* hs, const void* dhs, void* dxw, void* dhw,
+                       void* dwh_partial, void* dwh, int B, int T, int H, int device, void* stream) {
+  const int c = pick_cluster(B, H, 3);
+  if (c == 0 || B <= 0 || T <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return run_passes(xw, wh, hs, dxw, dhw, dwh_partial, dwh, B, T, H, s, [&]() {
+    switch (c) {
+      case 1: return launch_carry<1>(wh, dhs, dxw, dhw, B, T, H, s);
+      case 2: return launch_carry<2>(wh, dhs, dxw, dhw, B, T, H, s);
+      case 4: return launch_carry<4>(wh, dhs, dxw, dhw, B, T, H, s);
+      case 8: return launch_carry<8>(wh, dhs, dxw, dhw, B, T, H, s);
+      default: return launch_carry<16>(wh, dhs, dxw, dhw, B, T, H, s);
+    }
+  });
+}
+
+// The backward with pass 2 on the grid (gru_bwd_grid_carry_kernel), for the
+// widths past the clusters'. dt: [2][3][R rows][Kp] bf16 zeros, ctr: R * 32
+// int32 zeros (gru_grid_shape(B, H, 1)'s R and rows); both the caller's,
+// left dirty. cudaErrorInvalidValue where no grid takes H.
+extern "C" int gru_bwd_grid(const void* xw, const void* wh, const void* hs, const void* dhs, void* dxw, void* dhw,
+                            void* dwh_partial, void* dwh, void* dt, void* ctr, int B, int T, int H, int device,
+                            void* stream) {
+  const GridShape g = grid_shape(B, H, true);
+  if (g.ocp == 0 || B <= 0 || T <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return run_passes(xw, wh, hs, dxw, dhw, dwh_partial, dwh, B, T, H, s, [&]() {
+    return launch_grid(gru_bwd_grid_carry_kernel, g, grid_slice_bytes(H, g.ocp, true), s, static_cast<const bf16*>(wh),
+                       static_cast<const float*>(dhs), static_cast<const float*>(dxw), static_cast<float*>(dhw),
+                       static_cast<bf16*>(dt), static_cast<int*>(ctr), B, T, H, g);
+  });
 }

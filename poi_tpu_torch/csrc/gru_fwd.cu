@@ -68,8 +68,14 @@
 //   single CTA, with no exchange outside the SM, was not faster at batch 1.
 //   Any H up to 640; a ragged H zero-pads the last octet and K.
 //
-// An H that no cluster takes is refused (cudaErrorInvalidValue); the Python
-// wrapper raises a clear error first (gru_fwd_cluster_size == 0).
+// Past 640 no cluster holds wh, and gru_fwd_grid runs gru_fwd_grid_kernel
+// (below, and csrc/grid_carry.cuh): the whole card as R row groups x U
+// unit slices, one CTA an SM, each CTA's z, r, n columns of wh in its shared
+// memory, bf16(h) exchanged through an L2-resident buffer behind a step
+// barrier of the row group, any H up to gru_max_hidden() (2064).
+//
+// An H that neither design takes is refused (cudaErrorInvalidValue); the
+// Python wrapper raises a clear error first (ops/fused_gru.py design).
 //
 // The entry point launches on the given stream, does not synchronise and
 // allocates nothing; it returns cudaGetLastError() after the launch.
@@ -78,7 +84,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "cluster_carry.cuh"
+#include "grid_carry.cuh"
 
 namespace {
 
@@ -411,7 +417,204 @@ cudaError_t launch(const void* xw, const void* wh, void* hs, int B, int T, int H
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- past the cluster: the grid
+//
+// gru_fwd_grid_kernel, for the widths no cluster takes (grid_carry.cuh has
+// the grid, the barrier and the fragment loads). CTA (r, u) of the R x U
+// grid keeps the z, r and n columns of wh for its unit octets, [Hk][24 ocp
+// + 8] bf16 with the k-steps' rows permuted (kperm), in shared memory. A
+// step: wait on the row group's barrier for h(t - 1); per task (a 16-row
+// tile, up to kTaskOct octets), hw = bf16(h(t - 1)) @ wh on mma.sync
+// m16n8k16, A straight from the L2-resident buffer hbuf[(t - 1) & 1] (zero
+// rows past B and zero columns past H: the wrapper zeroes it, and no CTA
+// writes there), kGridPf k-steps of fragments loaded ahead; the gate update
+// of the forward above (sigmoid_fast, tanh_fast, h = (1 - z) h + z n) with
+// the fp32 h(t - 1) read back from hs (this thread wrote it); fp32 h out to
+// hs, bf16(h) to hbuf[t & 1]; then arrive. Padded steps: z = 0 exactly
+// from the folded -1e9, so h passes through. No atomics in any sum: a
+// second launch gives the same bits.
+constexpr int kGridPf = 4;  // k-steps of A fragments loaded ahead
+
+__global__ void __launch_bounds__(32 * kGridWarps, 1)
+    gru_fwd_grid_kernel(const float* __restrict__ xw, const bf16* __restrict__ wh, float* __restrict__ hs,
+                        bf16* __restrict__ hbuf, int* __restrict__ ctr, int B, int T, int H, GridShape S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int O = (H + 7) / 8, Hk = (H + 15) / 16 * 16, KS = Hk / 16, H3 = 3 * H, ldb = 24 * S.ocp + 8;
+  const int u = blockIdx.x % S.U, grp = blockIdx.x / S.U;
+  const int ob = u * O / S.U, n_oct = (u + 1) * O / S.U - ob;
+  const int row0 = grp * S.rows, n_rt = (min(S.rows, B - row0) + 15) / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const size_t buf = (size_t)S.R * S.rows * Hk;  // one parity of hbuf [2][R rows][Hk]
+  int* my_ctr = ctr + grp * kCtrStride;
+  int ng, gs;
+  grid_tasks(n_rt, n_oct, ng, gs);
+
+  // The wh slice: physical row p of a k-step holds wh row k = kperm(p)
+  // (zero past H); local column 24 lo + 8 gate + u is column gate * H +
+  // 8 (ob + lo) + u (zero past H and past the CTA's octets).
+  bf16* slice = reinterpret_cast<bf16*>(smem);
+  if (H % 8 == 0) {
+    for (int i = threadIdx.x; i < Hk * 3 * S.ocp; i += blockDim.x) {
+      const int p = i / (3 * S.ocp), lo = (i % (3 * S.ocp)) / 3, q = i % 3, k = (p & ~15) + kperm(p & 15);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (k < H && lo < n_oct) v = *reinterpret_cast<const uint4*>(wh + (size_t)k * H3 + q * H + 8 * (ob + lo));
+      *reinterpret_cast<uint4*>(slice + p * ldb + 24 * lo + 8 * q) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < Hk * 24 * S.ocp; i += blockDim.x) {
+      const int p = i / (24 * S.ocp), lc = i % (24 * S.ocp), k = (p & ~15) + kperm(p & 15);
+      const int lo = lc / 24, j = 8 * (ob + lo) + lc % 8;
+      const bool ok = k < H && lo < n_oct && j < H;
+      slice[p * ldb + lc] = ok ? wh[(size_t)k * H3 + ((lc % 24) / 8) * H + j] : __float2bfloat16(0.f);
+    }
+  }
+  __syncthreads();
+  const uint32_t slice_a = shared_addr(slice);
+
+  for (int t = 0; t < T; ++t) {
+    if (t > 0) group_wait(my_ctr, S.U * t);  // every CTA of the group has written h(t - 1)
+    const bf16* hb = hbuf + ((t - 1) & 1) * buf;
+    bf16* hn = hbuf + (t & 1) * buf;
+    for (int task = warp; task < n_rt * ng; task += kGridWarps) {
+      const int r0 = row0 + 16 * (task / ng), lo0 = (task % ng) * gs, no = min(gs, n_oct - lo0);
+      // This thread's pairs: rows r0 + g (+ 8), units 8 (ob + lo0 + lo) + 2 tq (+ 1); xw of step t and the
+      // fp32 h(t - 1) there, loaded ahead of the product.
+      float x[kTaskOct][2][2][3], hp[kTaskOct][2][2];
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int b = r0 + g + 8 * rr, j = 8 * (ob + lo0 + lo) + 2 * tq + ii;
+            const bool ok = lo < no && b < B && j < H;
+            const size_t xo = ((size_t)b * T + t) * H3 + j;
+#pragma unroll
+            for (int q = 0; q < 3; ++q) x[lo][rr][ii][q] = ok ? xw[xo + q * H] : 0.f;
+            hp[lo][rr][ii] = ok && t > 0 ? hs[((size_t)b * T + t - 1) * H + j] : 0.f;
+          }
+        }
+      }
+      float acc[kTaskOct][3][4];
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) acc[lo][q][0] = acc[lo][q][1] = acc[lo][q][2] = acc[lo][q][3] = 0.f;
+      }
+      if (t > 0) {  // h(-1) = 0
+        const bf16* ra = hb + (size_t)(r0 + g) * Hk + 4 * tq;
+        const bf16* rb = ra + 8 * Hk;
+        uint32_t ac[kGridPf][4], an[kGridPf][4];
+        auto load = [&](uint32_t (&dst)[kGridPf][4], int kb0) {
+#pragma unroll
+          for (int i = 0; i < kGridPf; ++i) {
+            if (kb0 + i < KS) lda_l2(dst[i], ra + 16 * (kb0 + i), rb + 16 * (kb0 + i));
+          }
+        };
+        load(ac, 0);
+        for (int kb0 = 0; kb0 < KS; kb0 += kGridPf) {
+          if (kb0 + kGridPf < KS) load(an, kb0 + kGridPf);
+#pragma unroll
+          for (int i = 0; i < kGridPf; ++i) {
+            const int kb = kb0 + i;
+            if (kb >= KS) break;
+#pragma unroll
+            for (int lo = 0; lo < kTaskOct; ++lo) {
+              if (lo >= no) break;
+#pragma unroll
+              for (int q = 0; q < 3; ++q) {
+                uint32_t b0, b1;
+                ldsm_x2_trans(b0, b1, slice_a + ((kb * 16 + lane % 16) * ldb + (lo0 + lo) * 24 + q * 8) * 2);
+                mma_bf16(acc[lo][q], ac[i], b0, b1);
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kGridPf; ++i) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) ac[i][e] = an[i][e];
+          }
+        }
+      }
+      // The gate update: accumulator element 2 rr + ii is (row g + 8 rr, unit 2 tq + ii).
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) {
+        if (lo >= no) break;
+        const int j0 = 8 * (ob + lo0 + lo) + 2 * tq;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int b = r0 + g + 8 * rr;
+          float h[2];
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int ci = 2 * rr + ii;
+            const float z = sigmoid_fast(x[lo][rr][ii][0] + acc[lo][0][ci]);
+            const float rg = sigmoid_fast(x[lo][rr][ii][1] + acc[lo][1][ci]);
+            const float n = tanh_fast(x[lo][rr][ii][2] + rg * acc[lo][2][ci]);
+            h[ii] = (1.0f - z) * hp[lo][rr][ii] + z * n;
+          }
+          if (b >= B || j0 >= H) continue;
+          float* dst = hs + ((size_t)b * T + t) * H + j0;
+          bf16* hd = hn + (size_t)b * Hk + j0;
+          dst[0] = h[0];
+          if (j0 + 1 < H) {
+            dst[1] = h[1];
+            if (t + 1 < T) *reinterpret_cast<uint32_t*>(hd) = pack_bf16(h[0], h[1]);
+          } else if (t + 1 < T) {
+            hd[0] = __float2bfloat16(h[0]);
+          }
+        }
+      }
+    }
+    if (t + 1 < T) group_arrive(my_ctr);
+  }
+}
+
 }  // namespace
+
+// The grid the grid-resident kernels run a batch of B rows of width H on
+// (the forward's, bwd = 0, or the backward carry's): out[0..3] = octets a
+// CTA, unit slices, row groups, rows a group. Returns 0 (out untouched)
+// where no grid takes H.
+extern "C" int gru_grid_shape(int B, int H, int bwd, int* out) {
+  const GridShape s = grid_shape(B, H, bwd != 0);
+  if (s.ocp == 0) return 0;
+  out[0] = s.ocp;
+  out[1] = s.U;
+  out[2] = s.R;
+  out[3] = s.rows;
+  return 1;
+}
+
+// The widest H the GRU pair takes, every narrower one with it: the cluster
+// kernels up to 640, the grid-resident ones past it (both directions).
+extern "C" int gru_max_hidden() {
+  static int limit = -1;
+  if (limit < 0) {
+    int H = 0;
+    while (H < 8192 && (fwd_pick(H + 1) > 0 || grid_shape(1, H + 1, false).ocp > 0) &&
+           (pick_cluster(1, H + 1, 3) > 0 || grid_shape(1, H + 1, true).ocp > 0)) {
+      ++H;
+    }
+    limit = H;
+  }
+  return limit;
+}
+
+// The forward on the grid (gru_fwd_grid_kernel). hbuf: [2][R rows][Hk]
+// bf16 zeros, ctr: R * 32 int32 zeros (gru_grid_shape's R and rows); both
+// the caller's, left dirty. cudaErrorInvalidValue where no grid takes H.
+extern "C" int gru_fwd_grid(const void* xw, const void* wh, void* hs, void* hbuf, void* ctr, int B, int T, int H,
+                            int device, void* stream) {
+  const GridShape s = grid_shape(B, H, false);
+  if (s.ocp == 0) return cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  return launch_grid(gru_fwd_grid_kernel, s, grid_slice_bytes(H, s.ocp, false), static_cast<cudaStream_t>(stream),
+                     static_cast<const float*>(xw), static_cast<const bf16*>(wh), static_cast<float*>(hs),
+                     static_cast<bf16*>(hbuf), static_cast<int*>(ctr), B, T, H, s);
+}
 
 // The cluster size the kernel runs width H on (1, 2, 4, 8 or 16), or 0 when
 // no cluster takes H.

@@ -117,16 +117,17 @@
 //
 // D = 512 (config #5: N = 32,768, S = 4,096). A consumer thread's sums of
 // all 512 output columns would take 256 registers, so a block sums one half
-// (256 columns, gridDim.z = 2) and both halves compute the logits: 10*N*S*D
-// operations in all (687.2 GFLOP at config #5, 0.695 ms at 989 TFLOP/s)
-// where the passes above do 8*N*S*D (549.8 GFLOP) and the function needs
-// 6*N*S*D (412.3 GFLOP, 0.417 ms). A block holds 64 resident rows (one
+// (256 columns, gridDim.z = 2) and both halves compute the logits: 12*N*S*D
+// operations in all (each pass's logits twice, 4*N*S*D, and its product,
+// 2*N*S*D: 824.6 GFLOP at config #5, 0.834 ms at 989 TFLOP/s) where the
+// passes above do 8*N*S*D (549.8 GFLOP) and the function needs 6*N*S*D
+// (412.3 GFLOP, 0.417 ms). A block holds 64 resident rows (one
 // consumer warpgroup, 64 KB) and a ring of 2 streamed 64-row tiles (64 KB
 // each): 192 KB; the thread holds its [64, 256] half in 128 registers, as at
 // D = 256, under the launch's limit of 255 (no setmaxnreg). Rows arrive as 8
 // boxes of 128 bytes. db is the same in both halves; half 0 writes it. At
 // config #5's shape: 2.6411 ms of device time (dq pass 1.2787, dE pass
-// 1.3214), 6.3x the function's bound, 3.8x the 10*N*S*D one (H100, 700 W).
+// 1.3214), 6.3x the function's bound, 3.2x the 12*N*S*D one (H100, 700 W).
 // ptxas serialises both passes' wgmma here (C7515), as at D = 64 and 128; a
 // compile-time column half (the column offset a template constant, which
 // ended it at D = 256) did not end it at D = 512 and ran no faster.

@@ -24,8 +24,10 @@ Widths: the kernels are built for ``KERNEL_DIMS``; the wrappers pad any
 ``D <= MAX_DIM`` with zero columns to the next of them (``widths.padded_dim``).
 Zero columns add nothing to ``q · tableᵀ``, and the padded columns of
 ``dq`` and ``dtable`` are dropped, so the result is the function at ``D``;
-``D > MAX_DIM`` raises, naming the limit. At ``D = 256`` the forward runs
-128 rows a block (``lse_rows``).
+``D > MAX_DIM`` raises, naming the limit. No width pads by more than 1.5×
+past 128. The forward runs 128 rows a block at ``D = 256`` and 384, 64 at
+512 (``lse_rows``); at 384 and 512 the backward's blocks each sum half of
+the output columns, both halves recomputing the logits.
 
 ``ce_lse_variant`` holds the forward's tuning variants, the counterparts of
 ``scripts/sweep_ce_fwd.py``'s kernels (``exp2``, ``nomax``), on ``ce_lse``'s
@@ -53,14 +55,15 @@ VARIANTS = ("base", "exp2", "nomax")
 ROWS = (128, 256)
 # The widths the kernels are built for (``ce_supports_dim`` in csrc/ce.cu
 # says the same; B12's variants take the first three).
-KERNEL_DIMS = (32, 64, 128, 192, 256)
+KERNEL_DIMS = (32, 64, 128, 192, 256, 384, 512)
 MAX_DIM = KERNEL_DIMS[-1]
 
 
 def lse_rows(D: int) -> int:
-    """The query rows a block of ``ce_lse`` at width ``D`` (``ce_lse_rows`` in
-    csrc/ce.cu): 128 where it runs at 256 columns, else 256."""
-    return 128 if padded_dim(D, KERNEL_DIMS, "ce_lse") == 256 else 256
+    """The query rows a block of ``ce_lse`` at width ``D`` (``lse_rows_for``
+    in csrc/ce.cu): 128 where it runs at 256 or 384 columns, 64 at 512, else
+    256."""
+    return {256: 128, 384: 128, 512: 64}.get(padded_dim(D, KERNEL_DIMS, "ce_lse"), 256)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:

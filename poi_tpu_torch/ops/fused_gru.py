@@ -18,14 +18,20 @@ kernels':
   fp32 (``dh @ whᵀ`` with wh widened from bf16), and ``dwh`` sums
   ``h_prevᵀ · dhw`` over batch and time in fp32.
 
-Both kernels run groups of 16 batch rows (8 on the backward's clusters of
-16) on a cluster of 1 to 16 blocks, wh's columns split across the cluster
-and kept in shared memory, and do each step's product on the tensor cores.
-The forward runs ``bf16(h) @ wh`` a step for the group
-(``gru_fwd_cluster_size``). The backward recomputes every step's gates at
-once, then runs the serial carry, ``dh @ whᵀ`` with the fp32 cotangent split
-into three exact bf16 products (``gru_bwd_cluster_size``). Both take any H
-up to 640.
+Up to ``CLUSTER_MAX_HIDDEN`` (640) both kernels run groups of 16 batch rows
+(8 on the backward's clusters of 16) on a cluster of 1 to 16 blocks, wh's
+columns split across the cluster and kept in shared memory, and do each
+step's product on the tensor cores. The forward runs ``bf16(h) @ wh`` a step
+for the group (``gru_fwd_cluster_size``). The backward recomputes every
+step's gates at once, then runs the serial carry, ``dh @ whᵀ`` with the fp32
+cotangent split into three exact bf16 products (``gru_bwd_cluster_size``).
+Past 640 no cluster holds wh, and the serial kernels run on the whole card
+(``grid_shape``): R row groups x U unit slices, one block an SM, each
+block's slice of wh in its shared memory, the operand a step needs
+exchanged through an L2-resident buffer behind a step barrier of the row
+group (``gru_fwd_grid``, ``gru_bwd_grid``). The pair takes any H up to
+``MAX_HIDDEN``, the C side's ``gru_max_hidden()``; ``design`` is the
+dispatch, in Python so that the CPU tests hold it.
 """
 
 from __future__ import annotations
@@ -35,7 +41,69 @@ import torch
 from poi_tpu_torch import _build
 
 MASK_NEG = -1e9
-TAKES_H = "H <= 640, on a cluster of 1, 2, 4, 8 or 16 blocks a group of batch rows"
+# The widest H the cluster kernels take (gru_fwd_cluster_size and
+# gru_bwd_cluster_size are 0 past it: chip_smoke.py checks both sides).
+CLUSTER_MAX_HIDDEN = 640
+# The grid-resident kernels' limits (csrc/grid_carry.cuh, mirrored by
+# grid_shape): a block's shared memory, warps, octets, and the card's SMs.
+MAX_SMEM = 232448
+SMS = 132
+TASK_OCT = 4
+
+
+def _slice_bytes(H: int, ocp: int, bwd: bool) -> int:
+    """Shared memory of a block's slice of wh at ``ocp`` unit octets
+    (``grid_slice_bytes``): the forward's z, r, n columns of the octets for
+    every k, ``[Hk][24 ocp + 8]``; the backward carry's rows of the octets'
+    units, ``[8 ocp][Kp + 8]`` (``Kp`` = 3H rounded up to 16); bf16."""
+    if bwd:
+        return 8 * ocp * ((3 * H + 15) // 16 * 16 + 8) * 2
+    return (H + 15) // 16 * 16 * (24 * ocp + 8) * 2
+
+
+def grid_shape(B: int, H: int, bwd: bool) -> tuple[int, int, int, int] | None:
+    """The grid of the grid-resident kernel for ``B`` rows of width ``H``
+    (the forward's, or with ``bwd`` the backward carry's), as
+    ``gru_grid_shape`` picks it: ``(ocp, U, R, rows)``, the most octets a
+    block (up to 4) whose slice fits, the unit slices that takes, as many row
+    groups as the other SMs hold (no more than the batch has 16-row tiles),
+    and the rows a group. ``None`` where no grid takes ``H``."""
+    if H <= 0:
+        return None
+    fit = [c for c in range(1, TASK_OCT + 1) if _slice_bytes(H, c, bwd) <= MAX_SMEM]
+    if not fit:
+        return None
+    ocp = fit[-1]
+    U = (-(-H // 8) + ocp - 1) // ocp
+    if U > SMS:
+        return None
+    tiles = -(-B // 16) if B > 0 else 1
+    rmax = SMS // U
+    per = -(-tiles // rmax)
+    return ocp, U, -(-tiles // per), 16 * per
+
+
+def _max_hidden() -> int:
+    H = CLUSTER_MAX_HIDDEN
+    while grid_shape(1, H + 1, False) and grid_shape(1, H + 1, True):
+        H += 1
+    return H
+
+
+# The widest H the pair takes (``gru_max_hidden()`` in csrc/gru_fwd.cu).
+MAX_HIDDEN = _max_hidden()
+TAKES_H = (f"H <= {MAX_HIDDEN} (gru_max_hidden()): on a cluster of 1, 2, 4, 8 or 16 blocks a group of batch "
+           f"rows up to H = {CLUSTER_MAX_HIDDEN}, on a grid of row groups x unit slices, one block an SM, past it")
+
+
+def design(H: int) -> str:
+    """Which kernels run width ``H``: ``"cluster"`` up to 640, ``"grid"``
+    past it; raises past ``MAX_HIDDEN``, naming it."""
+    if 0 < H <= CLUSTER_MAX_HIDDEN:
+        return "cluster"
+    if CLUSTER_MAX_HIDDEN < H <= MAX_HIDDEN:
+        return "grid"
+    raise ValueError(f"GRU: H={H} is not taken by the kernels: {TAKES_H}")
 
 
 def gru_scan_reference(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
@@ -78,14 +146,22 @@ def fused_gru_scan(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"fused_gru_scan: need xw float32 and wh bfloat16, got {xw.dtype}, {wh.dtype}")
     B, T, H3 = xw.shape
     H = H3 // 3
+    grid = design(H) == "grid"
     lib = _build.library()
-    if lib.gru_fwd_cluster_size(H) == 0:
-        raise ValueError(f"fused_gru_scan: H={H} is not taken by the kernels: {TAKES_H}")
     xw = xw.contiguous()
     wh = wh.contiguous()
-    hs = torch.empty(B, T, H, dtype=torch.float32, device=xw.device)
-    stream = torch.cuda.current_stream(xw.device).cuda_stream
-    rc = lib.gru_fwd(xw.data_ptr(), wh.data_ptr(), hs.data_ptr(), B, T, H, 0, xw.device.index, stream)
+    dev = xw.device
+    hs = torch.empty(B, T, H, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if grid:
+        _, _, R, rows = grid_shape(B, H, False)
+        # bf16(h) by step parity, zero past B and H; the row groups' step counters.
+        hbuf = torch.zeros(2, R * rows, (H + 15) // 16 * 16, dtype=torch.bfloat16, device=dev)
+        ctr = torch.zeros(R * 32, dtype=torch.int32, device=dev)
+        rc = lib.gru_fwd_grid(xw.data_ptr(), wh.data_ptr(), hs.data_ptr(), hbuf.data_ptr(), ctr.data_ptr(), B, T, H,
+                              dev.index, stream)
+    else:
+        rc = lib.gru_fwd(xw.data_ptr(), wh.data_ptr(), hs.data_ptr(), B, T, H, 0, dev.index, stream)
     _build.check(rc, "gru_fwd launch")
     fused_gru_scan.launches += 1
     return hs
@@ -149,9 +225,8 @@ def fused_gru_bwd(xw: torch.Tensor, wh: torch.Tensor, hs: torch.Tensor, dhs: tor
     if wh.dtype != torch.bfloat16 or any(t.dtype != torch.float32 for t in (xw, hs, dhs)):
         raise TypeError(f"fused_gru_bwd: need wh bfloat16 and xw, hs, dhs float32; got "
                         f"{[t.dtype for t in tensors]}")
+    grid = design(H) == "grid"
     lib = _build.library()
-    if lib.gru_bwd_cluster_size(B, H) == 0:
-        raise ValueError(f"fused_gru_bwd: H={H} is not taken by the kernels: {TAKES_H}")
     dev = xw.device
     dxw = torch.empty(B, T, H3, dtype=torch.float32, device=dev)
     dwh = torch.empty(H, H3, dtype=torch.float32, device=dev)
@@ -160,9 +235,17 @@ def fused_gru_bwd(xw: torch.Tensor, wh: torch.Tensor, hs: torch.Tensor, dhs: tor
     xw, wh, hs, dhs = (t.contiguous() for t in tensors)
     dhw = torch.empty(B, T, H3, dtype=torch.float32, device=dev)  # scratch: the recurrent cotangent per step
     partial = torch.empty(lib.gru_bwd_splits(B, T, H), H, H3, dtype=torch.float32, device=dev)
-    rc = lib.gru_bwd(xw.data_ptr(), wh.data_ptr(), hs.data_ptr(), dhs.data_ptr(), dxw.data_ptr(), dhw.data_ptr(),
-                     partial.data_ptr(), dwh.data_ptr(), B, T, H, dev.index,
-                     torch.cuda.current_stream(dev).cuda_stream)
+    args = (xw.data_ptr(), wh.data_ptr(), hs.data_ptr(), dhs.data_ptr(), dxw.data_ptr(), dhw.data_ptr(),
+            partial.data_ptr(), dwh.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if grid:
+        _, _, R, rows = grid_shape(B, H, True)
+        # The three bf16 terms of dhw by step parity, zero past B and 3H; the row groups' step counters.
+        dt = torch.zeros(2, 3, R * rows, (3 * H + 15) // 16 * 16, dtype=torch.bfloat16, device=dev)
+        ctr = torch.zeros(R * 32, dtype=torch.int32, device=dev)
+        rc = lib.gru_bwd_grid(*args, dt.data_ptr(), ctr.data_ptr(), B, T, H, dev.index, stream)
+    else:
+        rc = lib.gru_bwd(*args, B, T, H, dev.index, stream)
     _build.check(rc, "gru_bwd launch")
     fused_gru_bwd.launches += 1
     return dxw, dwh

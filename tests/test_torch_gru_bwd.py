@@ -215,12 +215,15 @@ def _three_pass_bwd(xw, wh16, hs, dhs):
     return dxw, dwh
 
 
-@pytest.mark.parametrize("H", [16, 20])
+@pytest.mark.parametrize("H", [16, 20, 648])
 def test_three_pass_arithmetic_matches_pallas_vjp(H):
     """The CUDA kernel's restructured backward (gates of all steps first,
     then the carry on split bf16 terms, then the outputs), emulated on the
     CPU, against jax.vjp of the Pallas recurrence in interpret mode, at a
-    multiple of 16 and at a ragged width; dxw is exactly 0 on padded steps."""
+    multiple of 16, at a ragged width, and at a ragged width past 640, where
+    the carry runs on the grid (each unit's product over all 3H columns in
+    one block: the same three terms, no partials); dxw is exactly 0 on
+    padded steps."""
     p, x, mask, rng = _case(H=H, seed=11)
     xw = _folded_xw(p, x, mask)
     dhs = rng.normal(size=(8, 12, H)).astype(np.float32)

@@ -1,5 +1,6 @@
 """Widths the kernels are not built for, held against the JAX package:
-B7/B8 at any D <= 256 (the wrappers pad to 32, 64, 128, 192 or 256), B9/B10
+B7/B8 at any D <= 512 (the wrappers pad to 32, 64, 128, 192, 256, 384 or
+512), B9/B10
 at any D <= 512 (config #5's 384 pads to 512) and B11 at any D <= 1024 (to a
 multiple of 8).
 
@@ -38,12 +39,18 @@ def _close(got, want, name, tol=REL_TOL):
 
 
 def test_ce_padded_dim_maps_every_width_and_refuses_past_256():
-    want = {1: 32, 32: 32, 33: 64, 64: 64, 65: 128, 128: 128, 129: 192, 192: 192, 193: 256, 200: 256, 256: 256}
+    """Every D up to 512 goes to a width the kernels are built for (past 256
+    since 384 and 512 were added: the name keeps the limit this test was
+    written for); past 512 the wrappers refuse, naming the limit."""
+    want = {1: 32, 32: 32, 33: 64, 64: 64, 65: 128, 128: 128, 129: 192, 192: 192, 193: 256, 200: 256, 256: 256,
+            257: 384, 300: 384, 384: 384, 385: 512, 512: 512}
     assert {d: padded_dim(d, fused_ce.KERNEL_DIMS, "ce_lse") for d in want} == want
-    assert all(padded_dim(d, fused_ce.KERNEL_DIMS, "ce_lse") <= 1.5 * d for d in range(129, 257))  # the new widths pad by at most 1.5x
+    assert all(padded_dim(d, fused_ce.KERNEL_DIMS, "ce_lse") <= 1.5 * d for d in range(129, 513))  # the new widths pad by at most 1.5x
     assert fused_ce.lse_rows(256) == fused_ce.lse_rows(200) == 128 and fused_ce.lse_rows(192) == 256
-    with pytest.raises(ValueError, match=r"D <= 256 .*got D=257"):
-        padded_dim(257, fused_ce.KERNEL_DIMS, "ce_lse")
+    assert fused_ce.lse_rows(384) == fused_ce.lse_rows(300) == 128 and fused_ce.lse_rows(512) == fused_ce.lse_rows(385) == 64
+    for D in (513, 1024):
+        with pytest.raises(ValueError, match=rf"D <= 512 .*got D={D}"):
+            padded_dim(D, fused_ce.KERNEL_DIMS, "ce_lse")
 
 
 class _PaddedCE(torch.autograd.Function):
@@ -79,7 +86,7 @@ def _padded_ce_loss(q, table, bias, targets, mask):
     return (nll * m).sum() / m.sum().clamp_min(1.0)
 
 
-@pytest.mark.parametrize("D", [200, 256])
+@pytest.mark.parametrize("D", [200, 256, 300, 384, 512])
 @pytest.mark.parametrize("path", ["plain", "padded"])
 def test_fused_ce_at_wide_widths_matches_pallas_interpret(D, path):
     """``fused_ce_loss`` (the plain versions at D) and the padded dispatch
