@@ -32,6 +32,13 @@ with its plain PyTorch version on the card. Then it drives the paths:
   launched, 5 steps through ``train()`` on both paths, and ``Recommender``
   at request batch 1 and 256 on both paths; before it, B1 and B2 at H =
   648, 768, 1024 and the limit, B7 and B8 at D = 384 and 512;
+- the wide LSTM and ST-RNN paths (configs #2 and #3 at D = 512, H = 1024:
+  the LSTM past the clusters' 512 and the RNN past their 640 on the
+  grid-resident kernels): ``python -m poi_tpu_torch train`` 20 steps with
+  B3 and B4, or B5, B6, B7 and B8, launched, 5 steps through ``train()`` on
+  both paths, and ``Recommender`` at request batch 1 and 256 on both
+  paths; before them, B3/B4 at H = 520, 768, 1024 and the limit, B5/B6 at
+  H = 648, 768, 1024 and the limit;
 - config #5 on one card (``multihost_1m --set mesh.model=1
   mesh.embedding_mode=psum data.min_poi_checkins=1 data.val_fraction=0.05``:
   GRU 512-d + 8-head attention, T=64, batch 512, sampled softmax over 4,096
@@ -213,6 +220,20 @@ RNN_FWD_CLUSTER_CASES = ((64, 32, 128), (1, 32, 128), (256, 32, 128), (64, 32, 6
 # and of 256 (where the pick's clusters of 8-row groups would not all fit,
 # so it takes 16-row groups; smaller clusters keep 8).
 RNN_CLUSTER_CASES = ((64, 32, 128), (64, 32, 64), (64, 32, 339), (64, 32, 512), (7, 32, 128), (256, 32, 128))
+# B3/B4 and B5/B6 past the clusters' widths (512, 640), on the grid-resident
+# kernels (B, T, H): the wide paths' train shapes (config #2's and #3's at
+# H = 1024, where both directions are also timed), 5 rows at 768, and 7 rows
+# just past the clusters' limits (520, ragged for the LSTM; 648); then each
+# pair's limit (lstm_max_hidden(), rnn_max_hidden()) on 3 rows.
+LSTM_WIDE_H1024 = (64, 64, 1024)
+LSTM_WIDE_SHAPES = (LSTM_WIDE_H1024, (5, 64, 768), (7, 32, 520))
+RNN_WIDE_H1024 = (64, 32, 1024)
+RNN_WIDE_SHAPES = (RNN_WIDE_H1024, (5, 32, 768), (7, 16, 648))
+# The widths and batches at which the LSTM's and the RNN's Python dispatch
+# (design, grid_shape) is held to the C side's picks.
+REC_PICK_WIDTHS = (1, 20, 64, 128, 256, 511, 512, 513, 520, 600, 639, 640, 641, 648, 768, 1000, 1024, 1104, 1105, 1500,
+                   1600, 1601, 2048, 2896, 2897, 3168, 3169, 4096)
+REC_PICK_BATCHES = (1, 7, 64, 256, 512)
 # Configs #2 and #3 at full width, device-sampled like config #4: the preset
 # and the kernels its train step launches (the recurrence's forward first).
 REC_CONFIGS = {"lstm": ("lstm_bpr_foursquare", ("lstm_fwd", "lstm_bwd")),
@@ -622,6 +643,12 @@ SAMPLED_BWD_KERNELS = ("sampled_dq_pass", "sampled_de_pass", "sum_splits")
 LSTM_FWD_KERNELS = ("lstm_fwd_kernel",)
 RNN_FWD_KERNELS = ("rnn_fwd_kernel",)
 RNN_BWD_KERNELS = ("rnn_bwd_coef", "rnn_bwd_carry", "recurrent_dw")
+# B3's and B5's grid kernels; B4's gates pass, grid carry and dwh; B6's
+# coefficients pass, grid carry and dC: the calls past the clusters' widths.
+LSTM_FWD_GRID_KERNELS = ("lstm_fwd_grid_kernel",)
+LSTM_BWD_GRID_KERNELS = ("lstm_bwd_gates", "lstm_bwd_grid_carry", "recurrent_dw")
+RNN_FWD_GRID_KERNELS = ("rnn_fwd_grid_kernel",)
+RNN_BWD_GRID_KERNELS = ("rnn_bwd_coef", "rnn_bwd_grid_carry", "recurrent_dw")
 
 
 def device_parts(fn, names) -> dict:
@@ -1072,7 +1099,8 @@ def recurrence_device_phase(times: dict, big: dict, lstm: dict, gpu: str, wide: 
         f"{parts_text(t, LSTM_BWD_KERNELS)}  ({gpu})")
 
 
-def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str) -> None:
+def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str, lstm_wide: dict,
+                                 rnn_wide: dict) -> None:
     """Device time by kernel, on the inputs the earlier phases timed: B9
     (kernel and merge apart, also at ``SAMPLED_LSE_SPLITS``) and B10 (pass by
     pass, also at ``SAMPLED_SPLITS``) at config #4's shape, both at config
@@ -1081,8 +1109,9 @@ def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str)
     ``LSTM_CLUSTER_CASES``), B5 at config #3's and at ``RNN_TIMED`` (and at
     each cluster of ``RNN_FWD_CLUSTER_CASES``), B6 (pass by pass, and at each
     cluster of ``RNN_CLUSTER_CASES``) at config #3's and at ``RNN_TIMED``'s
-    H = 512. After the timing phases, as every profiler reading."""
-    from poi_tpu_torch.ops.fused_lstm import fused_lstm_scan
+    H = 512; B3/B4 and B5/B6 on the grid at the wide paths' shapes (pass by
+    pass). After the timing phases, as every profiler reading."""
+    from poi_tpu_torch.ops.fused_lstm import fused_lstm_bwd, fused_lstm_scan
     from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan
     from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse
 
@@ -1093,7 +1122,11 @@ def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str)
              *(("lstm_fwd", lstm[k], fused_lstm_scan, LSTM_FWD_KERNELS)
                for k in ("fwd", *(f"fwd_{k}" for k in LSTM_TIMED))),
              *(("rnn_fwd", rnn[k], fused_rnn_scan, RNN_FWD_KERNELS) for k in ("fwd", *(f"fwd_{k}" for k in RNN_TIMED))),
-             *(("rnn_bwd", rnn[k], fused_rnn_bwd, RNN_BWD_KERNELS) for k in ("bwd", "bwd_h512"))]
+             *(("rnn_bwd", rnn[k], fused_rnn_bwd, RNN_BWD_KERNELS) for k in ("bwd", "bwd_h512")),
+             ("lstm_fwd_grid", lstm_wide["fwd"], fused_lstm_scan, LSTM_FWD_GRID_KERNELS),
+             ("lstm_bwd_grid", lstm_wide["bwd"], fused_lstm_bwd, LSTM_BWD_GRID_KERNELS),
+             ("rnn_fwd_grid", rnn_wide["fwd"], fused_rnn_scan, RNN_FWD_GRID_KERNELS),
+             ("rnn_bwd_grid", rnn_wide["bwd"], fused_rnn_bwd, RNN_BWD_GRID_KERNELS)]
     sampled_split_times(sampled["bwd"]["args"], gpu)
     sampled_lse_split_times(sampled["lse"]["args"], gpu)
     for tag, t, fn, names in cases:
@@ -1462,10 +1495,9 @@ def recurrence_phase(tag: str, gates: int, shapes, tol: float, ops) -> dict:
     """B3/B4 (``gates`` = 4) or B5/B6 (1) against their plain versions at
     ``shapes``; times both directions at the first shape (the config's train
     shape) against the plain versions and cuDNN's forward, with their bounds.
-    A width past the kernels' limit raises and names it."""
+    (The widths past the cluster kernels, and the refusal past the pairs'
+    limits: ``rec_wide_phase``.)"""
     import torch
-
-    from poi_tpu_torch import _build
 
     scan, scan_ref, bwd, bwd_ref = ops
     gen = torch.Generator(device=DEV).manual_seed(SEED + 8 + gates)
@@ -1494,14 +1526,6 @@ def recurrence_phase(tag: str, gates: int, shapes, tol: float, ops) -> dict:
             lib = f", cuDNN forward {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
             log(f"[time] {tag}_{d} B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms{lib}; "
                 f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
-    lib = _build.library()
-    H = (lib.lstm_max_hidden if gates == 4 else lib.rnn_max_hidden)() + 1
-    x = torch.zeros(2, 3, gates * H, device=DEV)
-    msg = expect_width_limit(scan, x, torch.ones(2, 3, device=DEV), torch.zeros(H, gates * H, device=DEV,
-                                                                                  dtype=torch.bfloat16))
-    assert gates != 4 or "cluster's blocks cannot hold" in msg, msg
-    assert gates != 1 or (H - 1 >= 640 and f"H <= {H - 1}" in msg), msg
-    log(f"[{tag}] H={H} refused: {msg}")
     return out
 
 
@@ -1672,6 +1696,106 @@ def rnn_fwd_cluster_choice(gpu: str) -> None:
         log(f"[time] rnn_fwd cluster choice B={B} T={T} H={H}, device time: "
             + ", ".join(f"C={c}/R={r} {ms:.4f} ms" for (c, r), ms in times.items())
             + f"; each the pick's bits; the kernel picks C={pick}/R={lib.rnn_fwd_group_rows(B, pick)}  ({gpu})")
+
+
+def exchange_bytes(B: int, H: int, mod) -> dict:
+    """The backward carry's L2 exchange a step, reckoned for the two designs
+    on ``mod``'s grid for (B, H) (``grid_shape(B, H, True)``): partial-free
+    (each block reads its row group's three bf16 terms of every gate column,
+    rows x G H x 3 x 2 bytes; the kernels' design) and partials (each block
+    writes an fp32 [rows, H] partial of its own columns, and the owners read
+    the U partials of their 8 ocp units); their totals over the R x U
+    blocks, and the partials' buffer a step parity."""
+    ocp, U, R, rows = mod.grid_shape(B, H, True)
+    free = rows * mod.GATES * H * 3 * 2
+    part = rows * H * 4 + U * rows * 8 * ocp * 4
+    return {"partial_free_block": free, "partial_free_step": free * U * R, "partials_block": part,
+            "partials_step": part * U * R, "partials_parity": R * rows * U * H * 4}
+
+
+def rec_picks(tag: str, mod) -> None:
+    """The LSTM's (``tag`` lstm) or the RNN's (rnn) dispatch in Python
+    (``mod.design``, ``mod.grid_shape``) against the C side's own picks at
+    ``REC_PICK_WIDTHS`` x ``REC_PICK_BATCHES`` and at the limit: the clusters
+    take H exactly where the design says "cluster", the grid shapes agree,
+    and the limits are the module's."""
+    import ctypes
+
+    from poi_tpu_torch import _build
+
+    lib = _build.library()
+    limit, cluster_max = getattr(lib, f"{tag}_max_hidden")(), mod.CLUSTER_MAX_HIDDEN
+    assert limit == mod.MAX_HIDDEN, (tag, limit, mod.MAX_HIDDEN)
+    shape = getattr(lib, f"{tag}_grid_shape")
+    got = (ctypes.c_int * 4)()
+    n = 0
+    for H in (*REC_PICK_WIDTHS, limit, limit + 1):
+        cluster = H <= cluster_max
+        if tag == "lstm":
+            assert (lib.lstm_fwd_cluster_size(H) > 0) == cluster, (H, lib.lstm_fwd_cluster_size(H))
+        else:
+            assert (lib.rnn_bwd_cluster_size(H) > 0) == cluster, (H, lib.rnn_bwd_cluster_size(H))
+            assert all((lib.rnn_fwd_cluster_size(B, H) > 0) == cluster for B in REC_PICK_BATCHES), H
+        if H <= limit:
+            assert mod.design(H) == ("cluster" if cluster else "grid"), H
+        for B in REC_PICK_BATCHES:
+            for bwd in (0, 1):
+                c = tuple(got) if shape(B, H, bwd, got) else None
+                assert c == mod.grid_shape(B, H, bool(bwd)), (tag, B, H, bwd, c, mod.grid_shape(B, H, bool(bwd)))
+                n += 1
+    B, _, H = LSTM_WIDE_H1024 if tag == "lstm" else RNN_WIDE_H1024
+    for b in (B, 256):
+        log(f"[{tag}_wide] the backward carry's L2 exchange at B={b}, H={H}, reckoned: "
+            + ", ".join(f"{k} {v:,} bytes" for k, v in exchange_bytes(b, H, mod).items()))
+    log(f"[{tag}_wide] the Python dispatch agrees with the C side: clusters exactly to H = {cluster_max}, {n} grid "
+        f"shapes (the wide path's {mod.grid_shape(B, H, False)} forward, {mod.grid_shape(B, H, True)} backward, "
+        f"{mod.grid_shape(256, H, False)} forward at request batch 256: octets a block, unit slices, row groups, "
+        f"rows a group), {tag}_max_hidden() = {limit}")
+
+
+def rec_wide_phase(tag: str, gates: int, shapes, tol: float, ops, mod) -> dict:
+    """B3/B4 (``tag`` lstm, ``gates`` = 4) or B5/B6 (rnn, 1) past the
+    clusters' widths, on the grid-resident kernels: the dispatch held to the
+    C side (``rec_picks``), then ``recurrence_phase`` at ``shapes`` and at
+    the pair's limit (both directions timed at the first shape, the wide
+    path's, beside their plain versions, cuDNN's forward and their bounds);
+    the width past the limit refused, naming it."""
+    import torch
+
+    rec_picks(tag, mod)
+    shapes = (*shapes, (3, 16, mod.MAX_HIDDEN))
+    for B, T, H in shapes:
+        ocp, U, R, rows = mod.grid_shape(B, H, False)
+        bo, bu, br, brows = mod.grid_shape(B, H, True)
+        log(f"[{tag}_wide] B={B} T={T} H={H}: forward on {U} unit slices x {R} row groups of {rows} rows, {ocp} octets "
+            f"a block; backward carry on {bu} x {br} of {brows}, {bo} octets")
+    out = recurrence_phase(f"{tag}_wide", gates, shapes, tol, ops)
+    scan, _, bwd, _ = ops
+    H = mod.MAX_HIDDEN + 1
+    x = torch.zeros(2, 3, gates * H, device=DEV)
+    ones, w = torch.ones(2, 3, device=DEV), torch.zeros(H, gates * H, device=DEV, dtype=torch.bfloat16)
+    carries = (x[..., :H],) * (2 if gates == 4 else 1)
+    for fn, args in ((scan, (x, ones, w)), (bwd, (x, ones, w, *carries, x[..., :H]))):
+        msg = expect_width_limit(fn, *args)
+        assert f"H <= {mod.MAX_HIDDEN} ({tag}_max_hidden())" in msg, msg
+        log(f"[{tag}_wide] {fn.__name__} H={H} refused: {msg}")
+    return out
+
+
+def lstm_wide_phase() -> dict:
+    from poi_tpu_torch.ops import fused_lstm
+
+    return rec_wide_phase("lstm", 4, LSTM_WIDE_SHAPES, LSTM_TOL,
+                          (fused_lstm.fused_lstm_scan, fused_lstm.lstm_scan_reference, fused_lstm.fused_lstm_bwd,
+                           fused_lstm.lstm_bwd_reference), fused_lstm)
+
+
+def rnn_wide_phase() -> dict:
+    from poi_tpu_torch.ops import fused_rnn
+
+    return rec_wide_phase("rnn", 1, RNN_WIDE_SHAPES, RNN_TOL,
+                          (fused_rnn.fused_rnn_scan, fused_rnn.rnn_scan_reference, fused_rnn.fused_rnn_bwd,
+                           fused_rnn.rnn_bwd_reference), fused_rnn)
 
 
 def gru_params(ds, cfg, seed: int = SEED):
@@ -2183,25 +2307,26 @@ def cli_train_phase(state) -> None:
 
 
 # The wide path: the bench workload at D = 512 and H = 1024 through the
-# train CLI (WIDE_CLI_STEPS steps, 10 a call, best-on-val off: evaluated at
-# 10 and 20), then WIDE_STEPS steps a path through train() and Recommender
-# on both paths: B1/B2 on the grid, B7/B8 at D = 512, B11 at D = 512.
+# train CLI (WIDE_CLI_STEPS steps, 5 a call, best-on-val off: evaluated at
+# the end), then WIDE_STEPS steps a path through train() and Recommender on
+# both paths: B1/B2 on the grid, B7/B8 at D = 512, B11 at D = 512.
 WIDE_SETS = {"model.embed_dim": "512", "model.hidden_dim": "1024"}
-WIDE_CLI_STEPS, WIDE_STEPS, WIDE_TIME_CHUNK = 20, 5, 10
+WIDE_CLI_STEPS, WIDE_STEPS, WIDE_TIME_CHUNK = 10, 5, 10
 
 
 # Path 1: config #3 at its reference's 256-d probe (BASELINE.md:27,
 # scripts/tune_strnn.py's h256) as a user runs it, through the host loader
 # at the preset's one step a call: B5/B6 at H = 256, B7/B8 at D = 256.
-C3_D256_SETS = ["model.embed_dim=256", "model.hidden_dim=256", "train.num_steps=20", "train.eval_every=10",
-                "train.log_every=10"]
+C3_D256_STEPS = 10
+C3_D256_SETS = ["model.embed_dim=256", "model.hidden_dim=256", f"train.num_steps={C3_D256_STEPS}",
+                f"train.eval_every={C3_D256_STEPS}", f"train.log_every={C3_D256_STEPS // 2}"]
 
 
 def strnn_d256_phase(state) -> None:
     """``python -m poi_tpu_torch train --config strnn_gowalla --set
-    model.embed_dim=256 model.hidden_dim=256`` for 20 steps, run in this
-    process (``cli.main``) so its launches are counted: exit 0, finite
-    losses, and B5, B6, B7 and B8 launched."""
+    model.embed_dim=256 model.hidden_dim=256`` for ``C3_D256_STEPS`` steps,
+    run in this process (``cli.main``) so its launches are counted: exit 0,
+    finite losses, and B5, B6, B7 and B8 launched."""
     import contextlib
     import io
 
@@ -2218,7 +2343,7 @@ def strnn_d256_phase(state) -> None:
     log(f"[strnn_d256] python -m poi_tpu_torch {' '.join(argv)}: exit {rc}, loss by log step {losses}, final "
         f"recall@10 {out['final']['recall@10']:.4f}, {out['history'][-1]['seqs_per_sec']:.1f} seq/s over the last "
         f"log interval; launches {launches}")
-    assert rc == 0 and out["steps"] == 20 and all(math.isfinite(v) for v in losses), out["history"]
+    assert rc == 0 and out["steps"] == C3_D256_STEPS and all(math.isfinite(v) for v in losses), out["history"]
     assert all(math.isfinite(v) for v in out["final"].values()), out["final"]
     for name in ("rnn_fwd", "rnn_bwd", "ce_lse", "ce_bwd"):
         assert launches[name] > 0, f"strnn_d256: no {name} launch: {launches}"
@@ -2242,8 +2367,8 @@ def gru_wide_path_phase(state) -> None:
     from poi_tpu_torch.convert import params_to_numpy
     from poi_tpu_torch.train.loop import make_trainer
 
-    sets = {**BENCH_OVERRIDES, **WIDE_SETS, "train.num_steps": str(WIDE_CLI_STEPS), "train.steps_per_call": "10",
-            "train.eval_every": "10", "train.log_every": "10"}
+    sets = {**BENCH_OVERRIDES, **WIDE_SETS, "train.num_steps": str(WIDE_CLI_STEPS), "train.steps_per_call": "5",
+            "train.eval_every": str(WIDE_CLI_STEPS), "train.log_every": "5"}
     argv = ["train", "--config", "smoke", "--device", DEV, "--no-checkpoint", "--set",
             *(f"{k}={v}" for k, v in sets.items())]
     reset_launches()
@@ -2270,6 +2395,66 @@ def gru_wide_path_phase(state) -> None:
     state["wide"] = {"launches": launches, "both_launches": both, "cfg": cfg, "tree": tree}
 
 
+# The LSTM and ST-RNN towers at the same widths (configs #2 and #3 with
+# model.embed_dim=512 model.hidden_dim=1024): the train CLI for
+# REC_WIDE_CLI_STEPS steps at the preset's host loader (best-on-val and the
+# test evaluation once, at the end), then WIDE_STEPS device-sampled steps a
+# path through train() from one init, and Recommender on both paths: B3/B4
+# or B5/B6 on the grid, B7/B8 at D = 512 on config #3's 2,048 rows, B11 at
+# D = 512. The train() runs warm up over 20 steps: the presets' 100 move
+# config #3's loss in 5 steps by less than its batches' noise, and none
+# lets config #3 at H = 1024 spike at step 4 (grad norm 0.4 to 3.6), where
+# the two paths' losses parted by 3.9e-3 on an H100.
+REC_WIDE_CLI_STEPS = 10
+REC_WIDE_TRAIN_SETS = {**WIDE_SETS, "train.warmup_steps": "20"}
+
+
+def rec_wide_path_phase(state, tag: str) -> None:
+    """The wide LSTM path (``tag`` lstm) or ST-RNN path (strnn) as a user
+    runs it: ``python -m poi_tpu_torch train --config <config #2 or #3> --set
+    model.embed_dim=512 model.hidden_dim=1024`` for ``REC_WIDE_CLI_STEPS``
+    steps, run in this process (``cli.main``) so its launches are counted
+    (exit 0, finite losses, the recurrence's kernels launched, and B7/B8 on
+    config #3); then ``WIDE_STEPS`` device-sampled steps through ``train()``
+    on the kernel and the plain path from one init (``train_both_paths``:
+    losses at PERF.md §2's limits, evaluate on test), and ``Recommender`` at
+    request batch 1 and 256 on both paths (``serve_both_paths``: B3 or B5 at
+    H = 1024, B11 at D = 512)."""
+    import contextlib
+    import io
+
+    from poi_tpu_torch import cli
+    from poi_tpu_torch.convert import params_to_numpy
+    from poi_tpu_torch.train.loop import make_trainer
+
+    config, used = REC_CONFIGS[tag]
+    sets = {**WIDE_SETS, "train.num_steps": str(REC_WIDE_CLI_STEPS), "train.eval_every": str(REC_WIDE_CLI_STEPS),
+            "train.log_every": "5"}
+    argv = ["train", "--config", config, "--device", DEV, "--no-checkpoint", "--set",
+            *(f"{k}={v}" for k, v in sets.items())]
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    launches = read_launches()
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    losses = [row["loss"] for row in out["history"]]
+    log(f"[{tag}_wide_path] python -m poi_tpu_torch {' '.join(argv)}: exit {rc} in {time.perf_counter() - t0:.1f} s, "
+        f"loss by log step {losses}, final recall@10 {out['final']['recall@10']:.4f} (popularity "
+        f"{out['popularity_baseline']['recall@10']:.4f}), {out['history'][-1]['seqs_per_sec']:.1f} seq/s over the "
+        f"last log interval; launches {launches}")
+    assert rc == 0 and out["steps"] == REC_WIDE_CLI_STEPS and all(math.isfinite(v) for v in losses), out["history"]
+    assert all(math.isfinite(v) for v in out["final"].values()), out["final"]
+    for name in used:
+        assert launches[name] > 0, f"{tag}_wide_path: no {name} launch: {launches}"
+    cfg, ds = state[tag]["cfg"].with_overrides(REC_WIDE_TRAIN_SETS), state[tag]["ds"]
+    tree = params_to_numpy(make_trainer(cfg, ds, DEV).model)  # the trainer's own seeded init
+    kern, both, _ = train_both_paths(f"{tag}_wide_path", cfg, ds, tree, used=used, fwd=used[0], steps=WIDE_STEPS)
+    serve_both_paths(f"{tag}_wide_path serve", cfg, ds, params_to_numpy(kern.model), used[0])
+    state[f"{tag}_wide"] = {"launches": launches, "both_launches": both, "cfg": cfg, "tree": tree}
+
+
 # Path 2: config #4 at full width through the host loader (the preset's
 # data.sampler=host): HOST_LOADER_STEPS steps at steps_per_call 1 (twice:
 # the spread of two runs) and 10 (chunks through DevicePrefetcher) from one
@@ -2280,7 +2465,7 @@ def gru_wide_path_phase(state) -> None:
 HOST_LOADER_STEPS = 40
 HOST_LOADER_SPC = (1, 1, 10)
 HOST_TIMING_STEPS, HOST_TIMING_WARMUP, HOST_TIMING_PROFILED = 100, 10, 10
-HOST_TIMING_ROUNDS = 2
+HOST_TIMING_ROUNDS = 1
 
 
 def host_loader_run(cfg, ds, tree, spc: int, steps: int):
@@ -2902,7 +3087,8 @@ def train_timing_phase(state, gpu: str) -> dict:
 
 def config_timing_phase(state, gpu: str) -> dict:
     """Config #4's train step on both paths, with its device-time profile;
-    then configs #2 and #3, and the wide path."""
+    then configs #2 and #3, the wide path, and the wide LSTM and ST-RNN
+    paths."""
     from poi_tpu_torch.train.loop import make_trainer
 
     out = {}
@@ -2918,6 +3104,15 @@ def config_timing_phase(state, gpu: str) -> dict:
     trainers = {"kernels": make_trainer(cfg, ds, DEV), "plain": make_trainer(cfg.with_overrides(PLAIN_OVERRIDES), ds, DEV)}
     out["wide_train_step"] = step_timing("the wide path (bench workload at D = 512, H = 1024)", trainers,
                                          state["wide"]["tree"], WIDE_TIME_CHUNK, gpu, profiled=2)
+    # The wide LSTM and ST-RNN paths' steps (configs #2 and #3 at D = 512,
+    # H = 1024), the same way.
+    for tag in REC_CONFIGS:
+        w = state[f"{tag}_wide"]
+        trainers = {"kernels": make_trainer(w["cfg"], state[tag]["ds"], DEV),
+                    "plain": make_trainer(w["cfg"].with_overrides(PLAIN_OVERRIDES), state[tag]["ds"], DEV)}
+        out[f"{tag}_wide_train_step"] = step_timing(f"the wide {tag} path (config {REC_CONFIGS[tag][0]} at D = 512, "
+                                                    f"H = 1024)", trainers, w["tree"], WIDE_TIME_CHUNK, gpu,
+                                                    profiled=2)
     return out
 
 
@@ -2941,8 +3136,8 @@ def config5_timing_phase(state, gpu: str) -> None:
 # with its chip_smoke.py's helpers, and holds a call for every kernel
 # either names; its second argument lists the kernels to time.
 AB_TIMED = ("ce_lse_variant_base", "ce_lse_variant_exp2", "ce_lse_variant_nomax")
-AB_KEPT = ("gru_fwd", "gru_bwd", "lstm_bwd", "sampled_bwd", "rnn_bwd", "sampled_lse", "ce_lse", "ce_bwd", "rnn_fwd",
-           *AB_TIMED)
+AB_KEPT = ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd", "sampled_bwd", "rnn_bwd", "sampled_lse", "ce_lse", "ce_bwd",
+           "rnn_fwd", *AB_TIMED)
 # Path 2's host-loader train() in each checkout (seq/s and device idle share
 # at steps_per_call 1 and 10 by this checkout's host_loader_timing; a
 # checkout whose loop ignores steps_per_call runs both synchronously).
@@ -2952,7 +3147,7 @@ import json, sys
 import torch
 import chip_smoke as cs
 from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan, gru_scan_reference
-from poi_tpu_torch.ops.fused_lstm import fused_lstm_bwd, fused_lstm_scan
+from poi_tpu_torch.ops.fused_lstm import fused_lstm_bwd, fused_lstm_scan, lstm_scan_reference
 from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan, rnn_scan_reference
 from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_lse, ce_lse_variant
 from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse
@@ -2977,6 +3172,18 @@ wb = torch.randn(cs.CE_C3_D256[1], generator=gen, device="cuda")
 lx, lmask, lw, _ = cs.recurrence_case(64, 64, 128, 4, gen)
 lst = fused_lstm_scan(lx, lmask, lw)
 ldh = torch.randn(64, 64, 128, generator=gen, device="cuda")
+# B1/B2 on the grid (H = 648 and 1024), B3/B4 at the clusters' widest H,
+# 512, and B5/B6 at theirs, 640: the parent takes each. The backward's
+# inputs come from the plain forward, the same in both checkouts.
+gw = [cs.gru_case(B, 32, H, gen)[:2] for B, H in ((7, 648), (5, 1024))]
+gwh = [gru_scan_reference(a, w) for a, w in gw]
+gwd = [torch.randn(*h.shape, generator=gen, device="cuda") for h in gwh]
+lx5, lmask5, lw5, _ = cs.recurrence_case(3, 32, 512, 4, gen)
+lst5 = lstm_scan_reference(lx5, lmask5, lw5)
+ldh5 = torch.randn(3, 32, 512, generator=gen, device="cuda")
+x6, mask6, w6, _ = cs.recurrence_case(3, 32, 640, 1, gen)
+hs6 = rnn_scan_reference(x6, mask6, w6)
+dhs6 = torch.randn(3, 32, 640, generator=gen, device="cuda")
 cq, ct, cb = sweep_ce_fwd.inputs(sweep_ce_fwd.N, sweep_ce_fwd.V, sweep_ce_fwd.D, "cuda")
 bq, bt = (0.3 * torch.randn(n, 128, generator=gen, device="cuda") for n in cs.CE_TRAIN_SHAPE[:2])
 bb = torch.randn(cs.CE_TRAIN_SHAPE[1], generator=gen, device="cuda")
@@ -2999,14 +3206,20 @@ calls = {**{f"ce_lse_variant_{v}": variant(v) for v in ("base", "exp2", "nomax")
                              *ce_bwd(wq, wt, wb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]]),
                              *ce_bwd(wq[:, :192], wt[:, :192], wb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]])),
                     ("ce_bwd_pass", "sum_splits")),
-         "gru_fwd": (lambda: (fused_gru_scan(xw, wh), fused_gru_scan(xw6, wh6)), cs.GRU_FWD_KERNELS),
-         "rnn_fwd": (lambda: (fused_rnn_scan(x, mask, w),), cs.RNN_FWD_KERNELS),
-         "rnn_bwd": (lambda: fused_rnn_bwd(x, mask, w, hs, dhs), cs.RNN_BWD_KERNELS),
+         "gru_fwd": (lambda: (fused_gru_scan(xw, wh), fused_gru_scan(xw6, wh6), *(fused_gru_scan(a, w) for a, w in gw)),
+                     cs.GRU_FWD_KERNELS),
+         "rnn_fwd": (lambda: (fused_rnn_scan(x, mask, w), fused_rnn_scan(x6, mask6, w6)), cs.RNN_FWD_KERNELS),
+         "rnn_bwd": (lambda: (*fused_rnn_bwd(x, mask, w, hs, dhs), *fused_rnn_bwd(x6, mask6, w6, hs6, dhs6)),
+                     cs.RNN_BWD_KERNELS),
+         "lstm_fwd": (lambda: (*fused_lstm_scan(lx, lmask, lw), *fused_lstm_scan(lx5, lmask5, lw5)),
+                      cs.LSTM_FWD_KERNELS),
          "sampled_lse": (lambda: (sampled_lse(q, e, b, ids, tgt),), cs.SAMPLED_LSE_KERNELS),
          "sampled_bwd": (lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g), cs.SAMPLED_BWD_KERNELS),
-         "gru_bwd": (lambda: (*fused_gru_bwd(xw, wh, gh, gdh), *fused_gru_bwd(xw6, wh6, gh6, gdh6)),
+         "gru_bwd": (lambda: (*fused_gru_bwd(xw, wh, gh, gdh), *fused_gru_bwd(xw6, wh6, gh6, gdh6),
+                              *(o for (a, w), h, d in zip(gw, gwh, gwd) for o in fused_gru_bwd(a, w, h, d))),
                      cs.GRU_BWD_KERNELS),
-         "lstm_bwd": (lambda: fused_lstm_bwd(lx, lmask, lw, *lst, ldh), cs.LSTM_BWD_KERNELS)}
+         "lstm_bwd": (lambda: (*fused_lstm_bwd(lx, lmask, lw, *lst, ldh), *fused_lstm_bwd(lx5, lmask5, lw5, *lst5, ldh5)),
+                      cs.LSTM_BWD_KERNELS)}
 wanted = json.loads(sys.argv[2])
 res = {k: {"events_ms": cs.time_ms(calls[k][0]), **cs.device_parts(*calls[k])} for k in wanted if k in calls}
 torch.save({k: [t.cpu() for t in f()] for k, (f, _) in calls.items()}, sys.argv[1])
@@ -3973,6 +4186,8 @@ def main() -> int:
     sampled = phase("sampled", sampled_phase)
     lstm = phase("lstm", lstm_phase)
     rnn = phase("rnn", rnn_phase)
+    lstm_wide = phase("lstm_wide", lstm_wide_phase)
+    rnn_wide = phase("rnn_wide", rnn_wide_phase)
     phase("slice", slice_phase, state)
     phase("cli", cli_phase, state)
     phase("train", train_phase, state)
@@ -3983,6 +4198,8 @@ def main() -> int:
     phase("config5", config5_phase, state, gpu)
     phase("strnn_d256", strnn_d256_phase, state)
     phase("gru_wide_path", gru_wide_path_phase, state)
+    phase("lstm_wide_path", rec_wide_path_phase, state, "lstm")
+    phase("strnn_wide_path", rec_wide_path_phase, state, "strnn")
     phase("host_loader", host_loader_phase, state)
     mesh = phase("mesh", mesh_phase, state, gpu)
     phase("cli_train", cli_train_phase, state)
@@ -3991,7 +4208,7 @@ def main() -> int:
     times.update(phase("train_timing", train_timing_phase, state, gpu))
     times.update(phase("config_timing", config_timing_phase, state, gpu))
     phase("recurrence_device", recurrence_device_phase, times, big, lstm, gpu, wide)
-    phase("pool_recurrence_device", pool_recurrence_device_phase, sampled, lstm, rnn, gpu)
+    phase("pool_recurrence_device", pool_recurrence_device_phase, sampled, lstm, rnn, gpu, lstm_wide, rnn_wide)
     phase("ce_variants_device", ce_variants_device_phase, variants, gpu)
     phase("host_loader_device", host_loader_device_phase, state, gpu)
     phase("config5_timing", config5_timing_phase, state, gpu)
@@ -4019,6 +4236,8 @@ def main() -> int:
     # V=903,889, B=512, k=10; d512: B9 and B10 at D=512) carry the launches of
     # config #5's train() run (and of its evaluate on val, for top-k).
     from poi_tpu_torch.ops.fused_gru import MAX_HIDDEN as max_hidden
+    from poi_tpu_torch.ops.fused_lstm import MAX_HIDDEN as lstm_max
+    from poi_tpu_torch.ops.fused_rnn import MAX_HIDDEN as rnn_max
 
     served, trained, attn = state["launches"], state["train_launches"], state["attn_launches"]
     c5, c5_eval = state["c5"]["launches"], state["c5"]["eval_launches"]
@@ -4036,7 +4255,11 @@ def main() -> int:
     # path there. B1/B2 on the grid (gru_fwd_grid, gru_bwd_grid): the wide
     # path's shape and launches.
     wl = state["wide"]["launches"]
-    d256.update({"config3_d512": {"ce_lse": 0, "ce_bwd": 0}, "bench_d512": wl})
+    # B3/B4 and B5/B6 on the grid: the wide LSTM and ST-RNN paths' shapes
+    # and launches (their train CLI at 20 steps); the ST-RNN path also gives
+    # B7/B8 at config #3's shape at D = 512 its launches.
+    c2w, c3w = state["lstm_wide"]["launches"], state["strnn_wide"]["launches"]
+    d256.update({"config3_d512": c3w, "bench_d512": wl})
     h256 = lambda d: {f"{k}_h256": big[d][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}  # noqa: E731
     fwd_at = lambda t: {f: t[f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}  # noqa: E731
     kernels = [
@@ -4066,6 +4289,20 @@ def main() -> int:
                **{k: rnn["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in RNN_BWD_KERNELS))},
                h512={k: rnn["bwd_h512"][k] for k in ("ms", "plain_ms", "bound_ms", "device_ms",
                                                     *(f"{n}_ms" for n in RNN_BWD_KERNELS))}),
+        record("lstm_fwd_grid", "lstm.cu", "poi_tpu/ops/fused_lstm.py:59", c2w["lstm_fwd"], lstm_wide["fwd_err"],
+               lstm_wide["fwd"], device_ms=lstm_wide["fwd"]["device_ms"], shape=list(LSTM_WIDE_H1024),
+               max_hidden=lstm_max),
+        record("lstm_bwd_grid", "lstm.cu", "poi_tpu/ops/fused_lstm.py:81", c2w["lstm_bwd"], lstm_wide["bwd_err"],
+               lstm_wide["bwd"],
+               **{k: lstm_wide["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in LSTM_BWD_GRID_KERNELS))},
+               shape=list(LSTM_WIDE_H1024)),
+        record("rnn_fwd_grid", "rnn.cu", "poi_tpu/ops/fused_rnn.py:48", c3w["rnn_fwd"], rnn_wide["fwd_err"],
+               rnn_wide["fwd"], device_ms=rnn_wide["fwd"]["device_ms"], shape=list(RNN_WIDE_H1024),
+               max_hidden=rnn_max),
+        record("rnn_bwd_grid", "rnn.cu", "poi_tpu/ops/fused_rnn.py:65", c3w["rnn_bwd"], rnn_wide["bwd_err"],
+               rnn_wide["bwd"],
+               **{k: rnn_wide["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in RNN_BWD_GRID_KERNELS))},
+               shape=list(RNN_WIDE_H1024)),
         record("ce_lse", "ce.cu", "poi_tpu/ops/fused_ce.py:181", trained["ce_lse"], lse_err, times["ce_lse"],
                device_ms=times["ce_lse"]["device_ms"],
                config3={f: times["ce_lse_c3"][f] for f in ("ms", "plain_ms", "bound_ms", "device_ms",

@@ -44,12 +44,18 @@ _SIGNATURES = {
     "gru_fwd_grid": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gru_bwd_grid": [_P] * 10 + [_I, _I, _I, _I, _P],
     "lstm_max_hidden": [],
+    "lstm_grid_shape": [_I, _I, _I, ctypes.POINTER(_I)],
+    "lstm_fwd_grid": [_P] * 7 + [_I, _I, _I, _I, _P],
+    "lstm_bwd_grid": [_P] * 13 + [_I, _I, _I, _I, _P],
     "lstm_fwd_cluster_size": [_I],
     "lstm_fwd_fits": [_I, _I],
     "lstm_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "lstm_bwd_splits": [_I, _I, _I],
     "lstm_bwd": [_P] * 10 + [_I, _I, _I, _I, _P],
     "rnn_max_hidden": [],
+    "rnn_grid_shape": [_I, _I, _I, ctypes.POINTER(_I)],
+    "rnn_fwd_grid": [_P] * 6 + [_I, _I, _I, _I, _P],
+    "rnn_bwd_grid": [_P] * 11 + [_I, _I, _I, _I, _P],
     "rnn_fwd_cluster_size": [_I, _I],
     "rnn_fwd_group_rows": [_I, _I],
     "rnn_fwd_fits": [_I, _I, _I],

@@ -1,8 +1,10 @@
-// Helpers of the GRU's grid-resident serial kernels (csrc/gru_fwd.cu's
-// gru_fwd_grid_kernel, csrc/gru_bwd.cu's gru_bwd_grid_carry_kernel), which
-// take the widths whose recurrent weights no cluster holds (H past 640: wh
-// [H, 3H] bf16 is 2.46 MB at H = 640, 154 KB on each of a cluster's 16 CTAs,
-// and 6.29 MB at H = 1024, more than 16 CTAs of 227 KB hold).
+// Helpers of the recurrences' grid-resident serial kernels (csrc/gru_fwd.cu's
+// gru_fwd_grid_kernel, csrc/gru_bwd.cu's gru_bwd_grid_carry_kernel, and
+// csrc/lstm.cu's and csrc/rnn.cu's counterparts), which take the widths whose
+// recurrent weights no cluster holds (the GRU past H = 640: wh [H, 3H] bf16
+// is 2.46 MB at H = 640, 154 KB on each of a cluster's 16 CTAs, and 6.29 MB
+// at H = 1024, more than 16 CTAs of 227 KB hold; the LSTM past 512, the RNN
+// past 640). G is the gate blocks of the weight: 3 (GRU), 4 (LSTM), 1 (RNN).
 //
 // - The grid is R row groups x U unit slices, one CTA an SM, launched
 //   cooperatively (cudaLaunchAttributeCooperative): a grid that cannot be
@@ -48,24 +50,26 @@ struct GridShape {
 // The logical k at physical position p of a k-step of 16 (see the top).
 __host__ __device__ constexpr int kperm(int p) { return p < 8 ? 4 * (p / 2) + p % 2 : 4 * ((p - 8) / 2) + 2 + p % 2; }
 
-// Shared memory of a CTA's weight slice with `ocp` unit octets. The forward:
-// wh's z, r, n columns of the octets for every k, [Hk][24 ocp + 8] bf16. The
-// backward's carry: wh's rows of the octets' units, [8 ocp][Kp + 8] bf16
-// (Kp = 3H rounded up to 16). The + 8: conflict-free ldmatrix.
-__host__ __device__ inline int grid_slice_bytes(int H, int ocp, bool bwd) {
-  if (bwd) return 8 * ocp * ((3 * H + 15) / 16 * 16 + 8) * 2;
-  return (H + 15) / 16 * 16 * (24 * ocp + 8) * 2;
+// Shared memory of a CTA's weight slice with `ocp` unit octets and G gate
+// blocks. The forward: the G gate columns of the octets for every k (the
+// GRU's z, r, n), [Hk][8 G ocp + 8] bf16. The backward's carry: the weight's
+// rows of the octets' units, [8 ocp][Kp + 8] bf16 (Kp = G H rounded up to
+// 16). The + 8: conflict-free ldmatrix.
+__host__ __device__ inline int grid_slice_bytes(int H, int ocp, bool bwd, int G) {
+  if (bwd) return 8 * ocp * ((G * H + 15) / 16 * 16 + 8) * 2;
+  return (H + 15) / 16 * 16 * (8 * G * ocp + 8) * 2;
 }
 
-// The grid for a batch of B rows of width H: the most octets a CTA (up to
-// kTaskOct) whose slice fits, as few unit slices as that allows, and as many
-// row groups as the card's other SMs take (no more than the batch has
-// 16-row tiles). ocp = 0 where no slice fits or the slices outnumber the SMs.
-inline GridShape grid_shape(int B, int H, bool bwd) {
+// The grid for a batch of B rows of width H, G gate blocks: the most octets
+// a CTA (up to kTaskOct) whose slice fits, as few unit slices as that
+// allows, and as many row groups as the card's other SMs take (no more than
+// the batch has 16-row tiles). ocp = 0 where no slice fits or the slices
+// outnumber the SMs.
+inline GridShape grid_shape(int B, int H, bool bwd, int G) {
   GridShape s = {0, 0, 0, 0};
   if (H <= 0) return s;
   for (int c = 1; c <= kTaskOct; ++c) {
-    if (grid_slice_bytes(H, c, bwd) <= kMaxSmem) s.ocp = c;
+    if (grid_slice_bytes(H, c, bwd, G) <= kMaxSmem) s.ocp = c;
   }
   if (s.ocp == 0) return s;
   s.U = ((H + 7) / 8 + s.ocp - 1) / s.ocp;
@@ -96,6 +100,99 @@ __device__ __forceinline__ void lda_l2(uint32_t (&a)[4], const bf16* ra, const b
   a[1] = y.x;
   a[2] = x.y;
   a[3] = y.y;
+}
+
+// A forward step's product for one task: acc[lo][q] += bf16(h) @ the slice's
+// gate block q of octet lo0 + lo (no octets), on mma.sync m16n8k16. A comes
+// straight from L2 (ra, rb: rows g and g + 8 at logical k 4 tq of the step's
+// operand), kPf k-steps of fragments loaded ahead; the slice is [Hk][8 G ocp
+// + 8] bf16 at slice_a, row stride ldb.
+template <int G, int kPf>
+__device__ __forceinline__ void grid_fwd_product(float (&acc)[kTaskOct][G][4], const bf16* ra, const bf16* rb,
+                                                 int KS, uint32_t slice_a, int ldb, int lo0, int no, int lane) {
+  uint32_t ac[kPf][4], an[kPf][4];
+  auto load = [&](uint32_t (&dst)[kPf][4], int kb0) {
+#pragma unroll
+    for (int i = 0; i < kPf; ++i) {
+      if (kb0 + i < KS) lda_l2(dst[i], ra + 16 * (kb0 + i), rb + 16 * (kb0 + i));
+    }
+  };
+  load(ac, 0);
+  for (int kb0 = 0; kb0 < KS; kb0 += kPf) {
+    if (kb0 + kPf < KS) load(an, kb0 + kPf);
+#pragma unroll
+    for (int i = 0; i < kPf; ++i) {
+      const int kb = kb0 + i;
+      if (kb >= KS) break;
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) {
+        if (lo >= no) break;
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          uint32_t b0, b1;
+          ldsm_x2_trans(b0, b1, slice_a + ((kb * 16 + lane % 16) * ldb + (lo0 + lo) * 8 * G + q * 8) * 2);
+          mma_bf16(acc[lo][q], ac[i], b0, b1);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPf; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ac[i][e] = an[i][e];
+    }
+  }
+}
+
+// k-steps of the backward carries' three terms loaded ahead.
+constexpr int kGridBwdPf = 2;
+
+// A backward carry step's product for one task: acc[e][lo] += term e of the
+// cotangent @ the slice's rows of octet lo0 + lo (no octets), each of the
+// three bf16 terms into its own accumulator, on mma.sync m16n8k16. A comes
+// straight from L2 (ra: row g at logical k 4 tq of term 0; the terms `term`
+// elements apart, rows Kp apart), kGridBwdPf k-steps ahead; the slice is [8
+// ocp][Kp + 8] bf16 at slice_a, row stride ldk.
+__device__ __forceinline__ void grid_carry_product(float (&acc)[3][kTaskOct][4], const bf16* ra, size_t term, int Kp,
+                                                   uint32_t slice_a, int ldk, int lo0, int no, int lane) {
+  const int KS = Kp / 16;
+  uint32_t ac[kGridBwdPf][3][4], an[kGridBwdPf][3][4];
+  auto load = [&](uint32_t (&dst)[kGridBwdPf][3][4], int kb0) {
+#pragma unroll
+    for (int i = 0; i < kGridBwdPf; ++i) {
+      if (kb0 + i < KS) {
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+          const bf16* p = ra + e * term + 16 * (kb0 + i);
+          lda_l2(dst[i][e], p, p + 8 * Kp);
+        }
+      }
+    }
+  };
+  load(ac, 0);
+  for (int kb0 = 0; kb0 < KS; kb0 += kGridBwdPf) {
+    if (kb0 + kGridBwdPf < KS) load(an, kb0 + kGridBwdPf);
+#pragma unroll
+    for (int i = 0; i < kGridBwdPf; ++i) {
+      const int kb = kb0 + i;
+      if (kb >= KS) break;
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) {
+        if (lo >= no) break;
+        uint32_t b0, b1;
+        ldsm_x2(b0, b1, slice_a + (((lo0 + lo) * 8 + lane % 8) * ldk + kb * 16 + ((lane / 8) % 2) * 8) * 2);
+#pragma unroll
+        for (int e = 0; e < 3; ++e) mma_bf16(acc[e][lo], ac[i][e], b0, b1);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kGridBwdPf; ++i) {
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) ac[i][e][x] = an[i][e][x];
+      }
+    }
+  }
 }
 
 // The row group's step barrier (see the top): every thread's writes of the

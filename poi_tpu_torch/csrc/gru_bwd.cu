@@ -454,14 +454,13 @@ __global__ void gru_bwd_outputs_kernel(float* __restrict__ dxw, float* __restric
 //   dhs[t - 1] into dhw's third block for the next step and for pass 3.
 // Step 0's dh is the cotangent of h0, a constant: no product. d(T - 1) =
 // dhs[T - 1] is written first. No atomics in any sum: the same bits every run.
-constexpr int kGridBwdPf = 2;  // k-steps of the three terms' fragments loaded ahead
 
 __global__ void __launch_bounds__(32 * kGridWarps, 1)
     gru_bwd_grid_carry_kernel(const bf16* __restrict__ wh, const float* __restrict__ dhs,
                               const float* __restrict__ coef_x, float* __restrict__ coef_h, bf16* __restrict__ dt,
                               int* __restrict__ ctr, int B, int T, int H, GridShape S) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int O = (H + 7) / 8, H3 = 3 * H, Kp = (H3 + 15) / 16 * 16, KS = Kp / 16, ldk = Kp + 8;
+  const int O = (H + 7) / 8, H3 = 3 * H, Kp = (H3 + 15) / 16 * 16, ldk = Kp + 8;
   const int u = blockIdx.x % S.U, grp = blockIdx.x / S.U;
   const int ob = u * O / S.U, n_oct = (u + 1) * O / S.U - ob;
   const int row0 = grp * S.rows, n_rt = (min(S.rows, B - row0) + 15) / 16;
@@ -557,45 +556,7 @@ __global__ void __launch_bounds__(32 * kGridWarps, 1)
 #pragma unroll
         for (int lo = 0; lo < kTaskOct; ++lo) acc[e][lo][0] = acc[e][lo][1] = acc[e][lo][2] = acc[e][lo][3] = 0.f;
       }
-      const bf16* ra = dtt + (size_t)(r0 + g) * Kp + 4 * tq;
-      uint32_t ac[kGridBwdPf][3][4], an[kGridBwdPf][3][4];
-      auto load = [&](uint32_t (&dst)[kGridBwdPf][3][4], int kb0) {
-#pragma unroll
-        for (int i = 0; i < kGridBwdPf; ++i) {
-          if (kb0 + i < KS) {
-#pragma unroll
-            for (int e = 0; e < 3; ++e) {
-              const bf16* p = ra + e * term + 16 * (kb0 + i);
-              lda_l2(dst[i][e], p, p + 8 * Kp);
-            }
-          }
-        }
-      };
-      load(ac, 0);
-      for (int kb0 = 0; kb0 < KS; kb0 += kGridBwdPf) {
-        if (kb0 + kGridBwdPf < KS) load(an, kb0 + kGridBwdPf);
-#pragma unroll
-        for (int i = 0; i < kGridBwdPf; ++i) {
-          const int kb = kb0 + i;
-          if (kb >= KS) break;
-#pragma unroll
-          for (int lo = 0; lo < kTaskOct; ++lo) {
-            if (lo >= no) break;
-            uint32_t b0, b1;
-            ldsm_x2(b0, b1, slice_a + (((lo0 + lo) * 8 + lane % 8) * ldk + kb * 16 + ((lane / 8) % 2) * 8) * 2);
-#pragma unroll
-            for (int e = 0; e < 3; ++e) mma_bf16(acc[e][lo], ac[i][e], b0, b1);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kGridBwdPf; ++i) {
-#pragma unroll
-          for (int e = 0; e < 3; ++e) {
-#pragma unroll
-            for (int x = 0; x < 4; ++x) ac[i][e][x] = an[i][e][x];
-          }
-        }
-      }
+      grid_carry_product(acc, dtt + (size_t)(r0 + g) * Kp + 4 * tq, term, Kp, slice_a, ldk, lo0, no, lane);
       // dh = d (1 - z) + s, the smallest term first; then d(t - 1).
       pairs(r0, lo0, no, [&](int lo, int rr, int ii, int b, int j) {
         const int ci = 2 * rr + ii;
@@ -693,14 +654,14 @@ extern "C" int gru_bwd(const void* xw, const void* wh, const void* hs, const voi
 extern "C" int gru_bwd_grid(const void* xw, const void* wh, const void* hs, const void* dhs, void* dxw, void* dhw,
                             void* dwh_partial, void* dwh, void* dt, void* ctr, int B, int T, int H, int device,
                             void* stream) {
-  const GridShape g = grid_shape(B, H, true);
+  const GridShape g = grid_shape(B, H, true, 3);
   if (g.ocp == 0 || B <= 0 || T <= 0) return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return run_passes(xw, wh, hs, dxw, dhw, dwh_partial, dwh, B, T, H, s, [&]() {
-    return launch_grid(gru_bwd_grid_carry_kernel, g, grid_slice_bytes(H, g.ocp, true), s, static_cast<const bf16*>(wh),
-                       static_cast<const float*>(dhs), static_cast<const float*>(dxw), static_cast<float*>(dhw),
-                       static_cast<bf16*>(dt), static_cast<int*>(ctr), B, T, H, g);
+    return launch_grid(gru_bwd_grid_carry_kernel, g, grid_slice_bytes(H, g.ocp, true, 3), s,
+                       static_cast<const bf16*>(wh), static_cast<const float*>(dhs), static_cast<const float*>(dxw),
+                       static_cast<float*>(dhw), static_cast<bf16*>(dt), static_cast<int*>(ctr), B, T, H, g);
   });
 }

@@ -503,38 +503,7 @@ __global__ void __launch_bounds__(32 * kGridWarps, 1)
       }
       if (t > 0) {  // h(-1) = 0
         const bf16* ra = hb + (size_t)(r0 + g) * Hk + 4 * tq;
-        const bf16* rb = ra + 8 * Hk;
-        uint32_t ac[kGridPf][4], an[kGridPf][4];
-        auto load = [&](uint32_t (&dst)[kGridPf][4], int kb0) {
-#pragma unroll
-          for (int i = 0; i < kGridPf; ++i) {
-            if (kb0 + i < KS) lda_l2(dst[i], ra + 16 * (kb0 + i), rb + 16 * (kb0 + i));
-          }
-        };
-        load(ac, 0);
-        for (int kb0 = 0; kb0 < KS; kb0 += kGridPf) {
-          if (kb0 + kGridPf < KS) load(an, kb0 + kGridPf);
-#pragma unroll
-          for (int i = 0; i < kGridPf; ++i) {
-            const int kb = kb0 + i;
-            if (kb >= KS) break;
-#pragma unroll
-            for (int lo = 0; lo < kTaskOct; ++lo) {
-              if (lo >= no) break;
-#pragma unroll
-              for (int q = 0; q < 3; ++q) {
-                uint32_t b0, b1;
-                ldsm_x2_trans(b0, b1, slice_a + ((kb * 16 + lane % 16) * ldb + (lo0 + lo) * 24 + q * 8) * 2);
-                mma_bf16(acc[lo][q], ac[i], b0, b1);
-              }
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < kGridPf; ++i) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) ac[i][e] = an[i][e];
-          }
-        }
+        grid_fwd_product<3, kGridPf>(acc, ra, ra + 8 * Hk, KS, slice_a, ldb, lo0, no, lane);
       }
       // The gate update: accumulator element 2 rr + ii is (row g + 8 rr, unit 2 tq + ii).
 #pragma unroll
@@ -577,7 +546,7 @@ __global__ void __launch_bounds__(32 * kGridWarps, 1)
 // CTA, unit slices, row groups, rows a group. Returns 0 (out untouched)
 // where no grid takes H.
 extern "C" int gru_grid_shape(int B, int H, int bwd, int* out) {
-  const GridShape s = grid_shape(B, H, bwd != 0);
+  const GridShape s = grid_shape(B, H, bwd != 0, 3);
   if (s.ocp == 0) return 0;
   out[0] = s.ocp;
   out[1] = s.U;
@@ -592,8 +561,8 @@ extern "C" int gru_max_hidden() {
   static int limit = -1;
   if (limit < 0) {
     int H = 0;
-    while (H < 8192 && (fwd_pick(H + 1) > 0 || grid_shape(1, H + 1, false).ocp > 0) &&
-           (pick_cluster(1, H + 1, 3) > 0 || grid_shape(1, H + 1, true).ocp > 0)) {
+    while (H < 8192 && (fwd_pick(H + 1) > 0 || grid_shape(1, H + 1, false, 3).ocp > 0) &&
+           (pick_cluster(1, H + 1, 3) > 0 || grid_shape(1, H + 1, true, 3).ocp > 0)) {
       ++H;
     }
     limit = H;
@@ -606,12 +575,12 @@ extern "C" int gru_max_hidden() {
 // the caller's, left dirty. cudaErrorInvalidValue where no grid takes H.
 extern "C" int gru_fwd_grid(const void* xw, const void* wh, void* hs, void* hbuf, void* ctr, int B, int T, int H,
                             int device, void* stream) {
-  const GridShape s = grid_shape(B, H, false);
+  const GridShape s = grid_shape(B, H, false, 3);
   if (s.ocp == 0) return cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return cudaSuccess;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  return launch_grid(gru_fwd_grid_kernel, s, grid_slice_bytes(H, s.ocp, false), static_cast<cudaStream_t>(stream),
+  return launch_grid(gru_fwd_grid_kernel, s, grid_slice_bytes(H, s.ocp, false, 3), static_cast<cudaStream_t>(stream),
                      static_cast<const float*>(xw), static_cast<const bf16*>(wh), static_cast<float*>(hs),
                      static_cast<bf16*>(hbuf), static_cast<int*>(ctr), B, T, H, s);
 }

@@ -88,10 +88,15 @@
 //   approximated and the product is two chains, so the backward's gate
 //   recompute (IEEE sigmoidf / tanhf, the tensor cores' summation order)
 //   matches these gates to fp32 rounding, not bit for bit.
-// The pair takes any H up to lstm_max_hidden() (512), ragged ones included,
-// where both this forward and the backward's carry fit on some cluster; a
-// larger H is refused (cudaErrorInvalidValue), and the Python wrapper raises
-// first and names the limit.
+// The cluster kernels take any H up to 512 (cluster_max_hidden()), ragged
+// ones included, where both this forward and the backward's carry fit on
+// some cluster. Past it wh no longer fits a cluster (2.1 MB at H = 512, 8.4
+// MB at H = 1024), and the serial kernels run on the whole card:
+// lstm_fwd_grid_kernel and lstm_bwd_grid_carry_kernel below
+// (csrc/grid_carry.cuh, the GRU's grid-resident design with four gate
+// blocks), up to lstm_max_hidden() (1600); a larger H is refused
+// (cudaErrorInvalidValue), and the Python wrapper raises first and names the
+// limit.
 //
 // Backward (B4): csrc/gru_bwd.cu's three passes, for four gates and two
 // carries, and the shared dwh product.
@@ -145,7 +150,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "cluster_carry.cuh"
+#include "grid_carry.cuh"
 #include "recurrent_dwh.cuh"
 
 namespace {
@@ -907,12 +912,304 @@ cudaError_t launch_carry(const void* wh, const void* dhs, const void* mask, void
   return cudaGetLastError();
 }
 
-}  // namespace
 
-// The largest H up to which the pair takes every width: the forward on some
-// cluster, and the backward's carry on some cluster (512: past it neither
-// fits its wh slice in a CTA's shared memory).
-extern "C" int lstm_max_hidden() {
+// ---------------------------------------------------------------- past the cluster: the grid
+//
+// lstm_fwd_grid_kernel, for the widths no cluster takes (grid_carry.cuh has
+// the grid, the barrier and the fragment loads; gru_fwd.cu's
+// gru_fwd_grid_kernel is the same design with three gate blocks). CTA (r, u)
+// of the R x U grid keeps the i, f, g and o columns of wh for its unit
+// octets, [Hk][32 ocp + 8] bf16 with the k-steps' rows permuted (kperm), in
+// shared memory. A step: wait on the row group's barrier for h(t - 1); per
+// task (a 16-row tile, up to kTaskOct octets), bf16(h(t - 1)) @ wh on
+// mma.sync m16n8k16, A straight from the L2-resident buffer hbuf[(t - 1) &
+// 1] (zero rows past B and zero columns past H: the wrapper zeroes it, and
+// no CTA writes there), kLstmGridPf k-steps of fragments loaded ahead; the
+// forward's gate update above (sigmoid_fast, tanh_fast, c_raw = f c + i g,
+// h_raw = o tanh(c_raw)) and the blend of both carries with the row's mask,
+// the fp32 h(t - 1) and c(t - 1) read back from hs and cs (this thread wrote
+// them); fp32 h and c out to hs and cs, bf16(h) to hbuf[t & 1]; then
+// arrive. A padded step (m = 0) passes both carries through exactly: the
+// gates are finite. No atomics in any sum: a second launch gives the same
+// bits.
+constexpr int kLstmGridPf = 2;  // k-steps of A fragments loaded ahead
+
+__global__ void __launch_bounds__(32 * kGridWarps, 1)
+    lstm_fwd_grid_kernel(const float* __restrict__ xw, const float* __restrict__ mask, const bf16* __restrict__ wh,
+                         float* __restrict__ hs, float* __restrict__ cs, bf16* __restrict__ hbuf,
+                         int* __restrict__ ctr, int B, int T, int H, GridShape S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int O = (H + 7) / 8, Hk = (H + 15) / 16 * 16, KS = Hk / 16, H4 = 4 * H, ldb = 32 * S.ocp + 8;
+  const int u = blockIdx.x % S.U, grp = blockIdx.x / S.U;
+  const int ob = u * O / S.U, n_oct = (u + 1) * O / S.U - ob;
+  const int row0 = grp * S.rows, n_rt = (min(S.rows, B - row0) + 15) / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const size_t buf = (size_t)S.R * S.rows * Hk;  // one parity of hbuf [2][R rows][Hk]
+  int* my_ctr = ctr + grp * kCtrStride;
+  int ng, gs;
+  grid_tasks(n_rt, n_oct, ng, gs);
+
+  // The wh slice: physical row p of a k-step holds wh row k = kperm(p)
+  // (zero past H); local column 32 lo + 8 gate + u is column gate * H +
+  // 8 (ob + lo) + u (zero past H and past the CTA's octets).
+  bf16* slice = reinterpret_cast<bf16*>(smem);
+  if (H % 8 == 0) {
+    for (int i = threadIdx.x; i < Hk * 4 * S.ocp; i += blockDim.x) {
+      const int p = i / (4 * S.ocp), lo = (i % (4 * S.ocp)) / 4, q = i % 4, k = (p & ~15) + kperm(p & 15);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (k < H && lo < n_oct) v = *reinterpret_cast<const uint4*>(wh + (size_t)k * H4 + q * H + 8 * (ob + lo));
+      *reinterpret_cast<uint4*>(slice + p * ldb + 32 * lo + 8 * q) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < Hk * 32 * S.ocp; i += blockDim.x) {
+      const int p = i / (32 * S.ocp), lc = i % (32 * S.ocp), k = (p & ~15) + kperm(p & 15);
+      const int lo = lc / 32, j = 8 * (ob + lo) + lc % 8;
+      const bool ok = k < H && lo < n_oct && j < H;
+      slice[p * ldb + lc] = ok ? wh[(size_t)k * H4 + ((lc % 32) / 8) * H + j] : __float2bfloat16(0.f);
+    }
+  }
+  __syncthreads();
+  const uint32_t slice_a = shared_addr(slice);
+
+  for (int t = 0; t < T; ++t) {
+    if (t > 0) group_wait(my_ctr, S.U * t);  // every CTA of the group has written h(t - 1)
+    const bf16* hb = hbuf + ((t - 1) & 1) * buf;
+    bf16* hn = hbuf + (t & 1) * buf;
+    for (int task = warp; task < n_rt * ng; task += kGridWarps) {
+      const int r0 = row0 + 16 * (task / ng), lo0 = (task % ng) * gs, no = min(gs, n_oct - lo0);
+      // This thread's pairs: rows r0 + g (+ 8), units 8 (ob + lo0 + lo) + 2 tq (+ 1); xw of step t, the fp32
+      // carries of step t - 1 there and the rows' mask, loaded ahead of the product.
+      float x[kTaskOct][2][2][4], hp[kTaskOct][2][2], cp[kTaskOct][2][2], m[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int b = r0 + g + 8 * rr;
+        m[rr] = b < B ? mask[(size_t)b * T + t] : 0.f;
+      }
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int b = r0 + g + 8 * rr, j = 8 * (ob + lo0 + lo) + 2 * tq + ii;
+            const bool ok = lo < no && b < B && j < H;
+            const size_t xo = ((size_t)b * T + t) * H4 + j, co = ((size_t)b * T + t - 1) * H + j;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) x[lo][rr][ii][q] = ok ? xw[xo + q * H] : 0.f;
+            hp[lo][rr][ii] = ok && t > 0 ? hs[co] : 0.f;
+            cp[lo][rr][ii] = ok && t > 0 ? cs[co] : 0.f;
+          }
+        }
+      }
+      float acc[kTaskOct][4][4];
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[lo][q][0] = acc[lo][q][1] = acc[lo][q][2] = acc[lo][q][3] = 0.f;
+      }
+      if (t > 0) {  // h(-1) = 0
+        const bf16* ra = hb + (size_t)(r0 + g) * Hk + 4 * tq;
+        grid_fwd_product<4, kLstmGridPf>(acc, ra, ra + 8 * Hk, KS, slice_a, ldb, lo0, no, lane);
+      }
+      // The gate update: accumulator element 2 rr + ii is (row g + 8 rr, unit 2 tq + ii).
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) {
+        if (lo >= no) break;
+        const int j0 = 8 * (ob + lo0 + lo) + 2 * tq;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int b = r0 + g + 8 * rr;
+          float h[2], c[2];
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int ci = 2 * rr + ii;
+            const float* xv = x[lo][rr][ii];
+            const float ig = sigmoid_fast(xv[0] + acc[lo][0][ci]), fg = sigmoid_fast(xv[1] + acc[lo][1][ci]);
+            const float gg = tanh_fast(xv[2] + acc[lo][2][ci]), og = sigmoid_fast(xv[3] + acc[lo][3][ci]);
+            const float c_raw = fg * cp[lo][rr][ii] + ig * gg;
+            const float h_raw = og * tanh_fast(c_raw);
+            c[ii] = m[rr] * c_raw + (1.0f - m[rr]) * cp[lo][rr][ii];
+            h[ii] = m[rr] * h_raw + (1.0f - m[rr]) * hp[lo][rr][ii];
+          }
+          if (b >= B || j0 >= H) continue;
+          const size_t o = ((size_t)b * T + t) * H + j0;
+          bf16* hd = hn + (size_t)b * Hk + j0;
+          hs[o] = h[0];
+          cs[o] = c[0];
+          if (j0 + 1 < H) {
+            hs[o + 1] = h[1];
+            cs[o + 1] = c[1];
+            if (t + 1 < T) *reinterpret_cast<uint32_t*>(hd) = pack_bf16(h[0], h[1]);
+          } else if (t + 1 < T) {
+            hd[0] = __float2bfloat16(h[0]);
+          }
+        }
+      }
+    }
+    if (t + 1 < T) group_arrive(my_ctr);
+  }
+}
+
+// lstm_bwd_grid_carry_kernel, pass 2 of the backward past the clusters'
+// widths (csrc/gru_bwd.cu's gru_bwd_grid_carry_kernel with four gate blocks,
+// a second carry, and dxw written by the carry, as lstm_bwd_carry_kernel
+// writes it). CTA (r, u) owns the output units of its octets: it keeps wh's
+// rows of those units, [8 ocp][Kp + 8] bf16 (every column c < 4H, the
+// k-steps' columns permuted by kperm), in shared memory, so that
+// dxw[t] @ wh^T at its units is one product over all 4H columns: no partial
+// sums cross a CTA. Step t = T-1 .. 0 of the row group:
+// - each task's pairs, from the coefficients of pass 1 (kappa, f in coef;
+//   iota, phi, gamma, omega in dxw) and the carries dh, dc of the step
+//   after: d = dh + dhs[t], dh_raw = d m, dc_raw = dc m + dh_raw kappa,
+//   dxw[t] = [dc_raw iota, dc_raw phi, dc_raw gamma, dh_raw omega] (over its
+//   coefficients; exactly 0 where m = 0), dc = dc (1 - m) + dc_raw f and
+//   d (1 - m) into the thread's slots of `carry` [2][B][H] (dh, dc: only
+//   this thread reads them), and dxw[t]'s three exact bf16 terms (split3)
+//   to the L2-resident buffer dt[t & 1] [3][R rows][Kp] at columns
+//   gate * H + unit;
+// - the group's barrier (not at t = 0: dh(-1) feeds nothing);
+// - per task, the three terms' products with the CTA's slice, each into its
+//   own fp32 accumulator (A straight from L2, kGridBwdPf k-steps ahead),
+//   summed smallest first: s; dh = d (1 - m) + s.
+// No atomics in any sum: the same bits every run.
+
+__global__ void __launch_bounds__(32 * kGridWarps, 1)
+    lstm_bwd_grid_carry_kernel(const bf16* __restrict__ wh, const float* __restrict__ dhs,
+                               const float* __restrict__ mask, float* __restrict__ dxw, const float* __restrict__ coef,
+                               float* __restrict__ carry, bf16* __restrict__ dt, int* __restrict__ ctr, int B, int T,
+                               int H, GridShape S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int O = (H + 7) / 8, H4 = 4 * H, Kp = (H4 + 15) / 16 * 16, ldk = Kp + 8;
+  const int u = blockIdx.x % S.U, grp = blockIdx.x / S.U;
+  const int ob = u * O / S.U, n_oct = (u + 1) * O / S.U - ob;
+  const int row0 = grp * S.rows, n_rt = (min(S.rows, B - row0) + 15) / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const size_t term = (size_t)S.R * S.rows * Kp;  // one term of one parity of dt [2][3][R rows][Kp]
+  int* my_ctr = ctr + grp * kCtrStride;
+  float* dh_c = carry;                   // [B][H]: d (1 - m) of the step, then dh into the step before
+  float* dc_c = carry + (size_t)B * H;  // [B][H]: dc into the step before
+  int ng, gs;
+  grid_tasks(n_rt, n_oct, ng, gs);
+
+  // The slice: local unit lu's row holds wh[8 ob + lu][c] at physical column
+  // p, c = kperm of p within its k-step (zero past 4H, past H and past the
+  // CTA's octets).
+  bf16* slice = reinterpret_cast<bf16*>(smem);
+  for (int i = threadIdx.x; i < 8 * S.ocp * Kp; i += blockDim.x) {
+    const int lu = i / Kp, p = i % Kp, c = (p & ~15) + kperm(p & 15), j = 8 * ob + lu;
+    const bool ok = lu < 8 * n_oct && j < H && c < H4;
+    slice[lu * ldk + p] = ok ? wh[(size_t)j * H4 + c] : __float2bfloat16(0.f);
+  }
+  __syncthreads();
+  const uint32_t slice_a = shared_addr(slice);
+
+  for (int t = T - 1; t >= 0; --t) {
+    bf16* dtt = dt + (size_t)(t & 1) * 3 * term;
+    for (int task = warp; task < n_rt * ng; task += kGridWarps) {
+      const int r0 = row0 + 16 * (task / ng), lo0 = (task % ng) * gs, no = min(gs, n_oct - lo0);
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) {
+        if (lo >= no) break;
+        const int j0 = 8 * (ob + lo0 + lo) + 2 * tq;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int b = r0 + g + 8 * rr;
+          if (b >= B || j0 >= H) continue;
+          const size_t row = (size_t)b * T + t;
+          const float m = mask[row];
+          float x[4][2];
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int j = j0 + ii;
+            x[0][ii] = x[1][ii] = x[2][ii] = x[3][ii] = 0.f;
+            if (j >= H) continue;
+            const size_t o = row * H4 + j, oc = row * 2 * H + j, oh = (size_t)b * H + j;
+            const float dh = t == T - 1 ? 0.f : dh_c[oh], dc = t == T - 1 ? 0.f : dc_c[oh];
+            const float d = dh + dhs[row * H + j];
+            const float dh_raw = d * m;
+            const float dc_raw = dc * m + dh_raw * coef[oc];
+            x[0][ii] = dc_raw * dxw[o];
+            x[1][ii] = dc_raw * dxw[o + H];
+            x[2][ii] = dc_raw * dxw[o + 2 * H];
+            x[3][ii] = dh_raw * dxw[o + 3 * H];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) dxw[o + q * H] = x[q][ii];
+            dc_c[oh] = dc * (1.0f - m) + dc_raw * coef[oc + H];
+            dh_c[oh] = d * (1.0f - m);
+          }
+          if (t == 0) continue;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            __nv_bfloat162 terms[3];
+            split3(x[q][0], x[q][1], terms);
+            bf16* at = dtt + (size_t)b * Kp + q * H + j0;
+#pragma unroll
+            for (int e = 0; e < 3; ++e) {
+              if (j0 + 1 < H && H % 2 == 0) {
+                *reinterpret_cast<__nv_bfloat162*>(at + e * term) = terms[e];
+              } else {
+                at[e * term] = terms[e].x;
+                if (j0 + 1 < H) at[e * term + 1] = terms[e].y;
+              }
+            }
+          }
+        }
+      }
+    }
+    if (t == 0) break;
+    group_arrive(my_ctr);
+    group_wait(my_ctr, S.U * (T - t));  // every CTA of the group has written step t's terms
+    for (int task = warp; task < n_rt * ng; task += kGridWarps) {
+      const int r0 = row0 + 16 * (task / ng), lo0 = (task % ng) * gs, no = min(gs, n_oct - lo0);
+      float acc[3][kTaskOct][4];
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+#pragma unroll
+        for (int lo = 0; lo < kTaskOct; ++lo) acc[e][lo][0] = acc[e][lo][1] = acc[e][lo][2] = acc[e][lo][3] = 0.f;
+      }
+      grid_carry_product(acc, dtt + (size_t)(r0 + g) * Kp + 4 * tq, term, Kp, slice_a, ldk, lo0, no, lane);
+      // dh = d (1 - m) + s, the smallest term first.
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) {
+        if (lo >= no) break;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int b = r0 + g + 8 * rr, j = 8 * (ob + lo0 + lo) + 2 * tq + ii, ci = 2 * rr + ii;
+            if (b >= B || j >= H) continue;
+            const float s = (acc[2][lo][ci] + acc[1][lo][ci]) + acc[0][lo][ci];
+            dh_c[(size_t)b * H + j] += s;
+          }
+        }
+      }
+    }
+  }
+}
+
+// The backward's passes around `carry`, which launches pass 2 on `s`: the
+// gates (pass 1) before it, dwh over the final dxw (pass 3) after it.
+template <class Carry>
+cudaError_t run_passes(const void* xw, const void* wh, const void* hs, const void* cs, void* dxw, void* coef,
+                       void* dwh_partial, void* dwh, int B, int T, int H, cudaStream_t s, Carry carry) {
+  const int BT = B * T;
+  const dim3 gates_grid((BT + kGateRows - 1) / kGateRows, ((H + 7) / 8 + kGateOct - 1) / kGateOct);
+  auto gates = H % 8 == 0 ? lstm_bwd_gates_kernel<true> : lstm_bwd_gates_kernel<false>;
+  gates<<<gates_grid, kGateThreads, 0, s>>>(static_cast<const float*>(xw), static_cast<const bf16*>(wh),
+                                            static_cast<const float*>(hs), static_cast<const float*>(cs),
+                                            static_cast<float*>(dxw), static_cast<float*>(coef), BT, T, H);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = carry();
+  if (e != cudaSuccess) return e;
+  return recurrent_dw::launch(static_cast<const float*>(hs), static_cast<const float*>(dxw),
+                              static_cast<float*>(dwh_partial), static_cast<float*>(dwh), B, T, H, 4 * H, s);
+}
+
+// The widest H up to which the cluster kernels take every width: the
+// forward on some cluster, and the backward's carry on some cluster (512:
+// past it neither fits its wh slice in a CTA's shared memory).
+int cluster_max_hidden() {
   static int limit = -1;
   if (limit < 0) {
     int H = 0;
@@ -922,12 +1219,42 @@ extern "C" int lstm_max_hidden() {
   return limit;
 }
 
+}  // namespace
+
+// The largest H up to which the pair takes every width: the cluster kernels
+// up to cluster_max_hidden() (512), the grid-resident ones past it, both
+// directions (1600: past it the forward's slice of two octets no longer
+// fits a CTA, and one octet a CTA needs more CTAs than the card has SMs).
+extern "C" int lstm_max_hidden() {
+  static int limit = -1;
+  if (limit < 0) {
+    int H = cluster_max_hidden();
+    while (H < 8192 && grid_shape(1, H + 1, false, 4).ocp > 0 && grid_shape(1, H + 1, true, 4).ocp > 0) ++H;
+    limit = H;
+  }
+  return limit;
+}
+
+// The grid the grid-resident kernels run a batch of B rows of width H on
+// (the forward's, bwd = 0, or the backward carry's): out[0..3] = octets a
+// CTA, unit slices, row groups, rows a group. Returns 0 (out untouched)
+// where no grid takes H.
+extern "C" int lstm_grid_shape(int B, int H, int bwd, int* out) {
+  const GridShape s = grid_shape(B, H, bwd != 0, 4);
+  if (s.ocp == 0) return 0;
+  out[0] = s.ocp;
+  out[1] = s.U;
+  out[2] = s.R;
+  out[3] = s.rows;
+  return 1;
+}
+
 // Number of partial dwh sums the wrapper allocates ([splits, H, 4H] fp32).
 extern "C" int lstm_bwd_splits(int B, int T, int H) { return recurrent_dw::num_splits(B * T, H, 4 * H); }
 
-// The forward's cluster size for width H (1, 2, 4, 8 or 16), or 0 when no
-// cluster takes H.
-extern "C" int lstm_fwd_cluster_size(int H) { return fwd_pick(H); }
+// The forward's cluster size for width H (1, 2, 4, 8 or 16), or 0 past the
+// cluster kernels' widths.
+extern "C" int lstm_fwd_cluster_size(int H) { return H <= cluster_max_hidden() ? fwd_pick(H) : 0; }
 
 // Whether a cluster of C blocks a row group takes width H in the forward.
 extern "C" int lstm_fwd_fits(int H, int C) { return fwd_fits(H, C) ? 1 : 0; }
@@ -938,7 +1265,7 @@ extern "C" int lstm_fwd_fits(int H, int C) { return fwd_fits(H, C) ? 1 : 0; }
 extern "C" int lstm_fwd(const void* xw, const void* mask, const void* wh, void* hs, void* cs, int B, int T, int H,
                         int cluster, int device, void* stream) {
   const int c = cluster > 0 ? cluster : fwd_pick(H);
-  if (H > lstm_max_hidden() || c == 0 || (c & (c - 1)) != 0 || c > 16 || !fwd_fits(H, c)) {
+  if (H > cluster_max_hidden() || c == 0 || (c & (c - 1)) != 0 || c > 16 || !fwd_fits(H, c)) {
     return cudaErrorInvalidValue;
   }
   if (B <= 0 || T <= 0) return cudaSuccess;
@@ -958,27 +1285,56 @@ extern "C" int lstm_bwd(const void* xw, const void* mask, const void* wh, const 
                         const void* dhs, void* dxw, void* coef, void* dwh_partial, void* dwh, int B, int T, int H,
                         int device, void* stream) {
   // The carry's cluster: 1, 2, 4, 8 or 16.
-  const int c = H <= lstm_max_hidden() ? pick_cluster(B, H, 4, kStage) : 0;
+  const int c = H <= cluster_max_hidden() ? pick_cluster(B, H, 4, kStage) : 0;
   if (c == 0 || B <= 0 || T <= 0) return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int BT = B * T;
-  const dim3 gates_grid((BT + kGateRows - 1) / kGateRows, ((H + 7) / 8 + kGateOct - 1) / kGateOct);
-  auto gates = H % 8 == 0 ? lstm_bwd_gates_kernel<true> : lstm_bwd_gates_kernel<false>;
-  gates<<<gates_grid, kGateThreads, 0, s>>>(static_cast<const float*>(xw), static_cast<const bf16*>(wh),
-                                            static_cast<const float*>(hs), static_cast<const float*>(cs),
-                                            static_cast<float*>(dxw), static_cast<float*>(coef), BT, T, H);
-  e = cudaGetLastError();
+  return run_passes(xw, wh, hs, cs, dxw, coef, dwh_partial, dwh, B, T, H, s, [&]() {
+    switch (c) {
+      case 1: return launch_carry<1>(wh, dhs, mask, dxw, coef, B, T, H, s);
+      case 2: return launch_carry<2>(wh, dhs, mask, dxw, coef, B, T, H, s);
+      case 4: return launch_carry<4>(wh, dhs, mask, dxw, coef, B, T, H, s);
+      case 8: return launch_carry<8>(wh, dhs, mask, dxw, coef, B, T, H, s);
+      default: return launch_carry<16>(wh, dhs, mask, dxw, coef, B, T, H, s);
+    }
+  });
+}
+
+// The forward on the grid (lstm_fwd_grid_kernel), for the widths past the
+// clusters'. hbuf: [2][R rows][Hk] bf16 zeros, ctr: R * 32 int32 zeros
+// (lstm_grid_shape(B, H, 0)'s R and rows); both the caller's, left dirty.
+// cudaErrorInvalidValue where no grid takes H.
+extern "C" int lstm_fwd_grid(const void* xw, const void* mask, const void* wh, void* hs, void* cs, void* hbuf,
+                             void* ctr, int B, int T, int H, int device, void* stream) {
+  const GridShape g = grid_shape(B, H, false, 4);
+  if (g.ocp == 0) return cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  switch (c) {
-    case 1: e = launch_carry<1>(wh, dhs, mask, dxw, coef, B, T, H, s); break;
-    case 2: e = launch_carry<2>(wh, dhs, mask, dxw, coef, B, T, H, s); break;
-    case 4: e = launch_carry<4>(wh, dhs, mask, dxw, coef, B, T, H, s); break;
-    case 8: e = launch_carry<8>(wh, dhs, mask, dxw, coef, B, T, H, s); break;
-    default: e = launch_carry<16>(wh, dhs, mask, dxw, coef, B, T, H, s); break;
-  }
+  return launch_grid(lstm_fwd_grid_kernel, g, grid_slice_bytes(H, g.ocp, false, 4), static_cast<cudaStream_t>(stream),
+                     static_cast<const float*>(xw), static_cast<const float*>(mask), static_cast<const bf16*>(wh),
+                     static_cast<float*>(hs), static_cast<float*>(cs), static_cast<bf16*>(hbuf),
+                     static_cast<int*>(ctr), B, T, H, g);
+}
+
+// The backward with pass 2 on the grid (lstm_bwd_grid_carry_kernel), for
+// the widths past the clusters'. dt: [2][3][R rows][Kp] bf16 zeros (Kp = 4H
+// rounded up to 16), ctr: R * 32 int32 zeros (lstm_grid_shape(B, H, 1)'s R
+// and rows), carry: [2][B][H] fp32; all the caller's, left dirty.
+// cudaErrorInvalidValue where no grid takes H.
+extern "C" int lstm_bwd_grid(const void* xw, const void* mask, const void* wh, const void* hs, const void* cs,
+                             const void* dhs, void* dxw, void* coef, void* dwh_partial, void* dwh, void* dt, void* ctr,
+                             void* carry, int B, int T, int H, int device, void* stream) {
+  const GridShape g = grid_shape(B, H, true, 4);
+  if (g.ocp == 0 || B <= 0 || T <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  return recurrent_dw::launch(static_cast<const float*>(hs), static_cast<const float*>(dxw),
-                              static_cast<float*>(dwh_partial), static_cast<float*>(dwh), B, T, H, 4 * H, s);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return run_passes(xw, wh, hs, cs, dxw, coef, dwh_partial, dwh, B, T, H, s, [&]() {
+    return launch_grid(lstm_bwd_grid_carry_kernel, g, grid_slice_bytes(H, g.ocp, true, 4), s,
+                       static_cast<const bf16*>(wh), static_cast<const float*>(dhs), static_cast<const float*>(mask),
+                       static_cast<float*>(dxw), static_cast<const float*>(coef), static_cast<float*>(carry),
+                       static_cast<bf16*>(dt), static_cast<int*>(ctr), B, T, H, g);
+  });
 }

@@ -75,10 +75,14 @@
 //   chains and tanh is approximated, so the backward's recompute (IEEE
 //   tanhf, the tensor cores' order in one chain) matches this forward to
 //   fp32 rounding, not bit for bit.
-// The pair takes any H up to rnn_max_hidden() (640: a warp's fragments of C,
-// and of C^T in the backward carry, stay in registers up to 40 k-steps);
-// a larger H is refused (cudaErrorInvalidValue), and the Python wrapper
-// raises first and names the limit.
+// The cluster kernels take any H up to 640 (cluster_max_hidden(): a warp's
+// fragments of C, and of C^T in the backward carry, stay in registers up to
+// 40 k-steps). Past it the serial kernels run on the whole card, C in the
+// CTAs' shared memory: rnn_fwd_grid_kernel and rnn_bwd_grid_carry_kernel
+// below (csrc/grid_carry.cuh, the GRU's grid-resident design with one gate
+// block), up to rnn_max_hidden() (3168); a larger H is refused
+// (cudaErrorInvalidValue), and the Python wrapper raises first and names the
+// limit.
 //
 // Backward (B6): csrc/gru_bwd.cu's three-part pattern with one gate block.
 // 1. rnn_bwd_coef_kernel: h_raw = tanh(xin + bf16(h_prev) @ C) of every
@@ -135,7 +139,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "cluster_carry.cuh"
+#include "grid_carry.cuh"
 #include "recurrent_dwh.cuh"
 
 namespace {
@@ -881,11 +885,247 @@ cudaError_t launch_carry_k(const void* cw, const void* mask, const void* dhs, vo
 // Whether both directions take width H on some cluster.
 bool takes(int H) { return fwd_pick(1, H) > 0 && carry_pick(H) > 0; }
 
-}  // namespace
 
-// The largest H up to which the pair takes every width (640: past it a
-// warp's fragments of C, 40 k-steps, no longer fit its registers).
-extern "C" int rnn_max_hidden() {
+// ---------------------------------------------------------------- past the cluster: the grid
+//
+// rnn_fwd_grid_kernel, for the widths no cluster takes (grid_carry.cuh has
+// the grid, the barrier and the fragment loads; gru_fwd.cu's
+// gru_fwd_grid_kernel is the same design with three gate blocks). CTA (r, u)
+// of the R x U grid keeps C's columns of its unit octets, [Hk][8 ocp + 8]
+// bf16 with the k-steps' rows permuted (kperm), in shared memory: past 40
+// k-steps a warp's fragments of C no longer fit its registers. A step: wait
+// on the row group's barrier for h(t - 1); per task (a 16-row tile, up to
+// kTaskOct octets), bf16(h(t - 1)) @ C on mma.sync m16n8k16, A straight
+// from the L2-resident buffer hbuf[(t - 1) & 1] (zero rows past B and zero
+// columns past H: the wrapper zeroes it, and no CTA writes there),
+// kRnnGridPf k-steps of fragments loaded ahead; h = m tanh_fast(xin + .) +
+// (1 - m) h with the fp32 h(t - 1) read back from hs (this thread wrote it);
+// fp32 h out to hs, bf16(h) to hbuf[t & 1]; then arrive. A padded step
+// (m = 0) passes h through exactly: tanh_fast is finite. No atomics in any
+// sum: a second launch gives the same bits.
+constexpr int kRnnGridPf = 4;  // k-steps of A fragments loaded ahead
+
+__global__ void __launch_bounds__(32 * kGridWarps, 1)
+    rnn_fwd_grid_kernel(const float* __restrict__ xin, const float* __restrict__ mask, const bf16* __restrict__ cw,
+                        float* __restrict__ hs, bf16* __restrict__ hbuf, int* __restrict__ ctr, int B, int T, int H,
+                        GridShape S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int O = (H + 7) / 8, Hk = (H + 15) / 16 * 16, KS = Hk / 16, ldb = 8 * S.ocp + 8;
+  const int u = blockIdx.x % S.U, grp = blockIdx.x / S.U;
+  const int ob = u * O / S.U, n_oct = (u + 1) * O / S.U - ob;
+  const int row0 = grp * S.rows, n_rt = (min(S.rows, B - row0) + 15) / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const size_t buf = (size_t)S.R * S.rows * Hk;  // one parity of hbuf [2][R rows][Hk]
+  int* my_ctr = ctr + grp * kCtrStride;
+  int ng, gs;
+  grid_tasks(n_rt, n_oct, ng, gs);
+
+  // The C slice: physical row p of a k-step holds C's row k = kperm(p)
+  // (zero past H); local column 8 lo + u is column 8 (ob + lo) + u (zero past
+  // H and past the CTA's octets).
+  bf16* slice = reinterpret_cast<bf16*>(smem);
+  if (H % 8 == 0) {
+    for (int i = threadIdx.x; i < Hk * S.ocp; i += blockDim.x) {
+      const int p = i / S.ocp, lo = i % S.ocp, k = (p & ~15) + kperm(p & 15);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (k < H && lo < n_oct) v = *reinterpret_cast<const uint4*>(cw + (size_t)k * H + 8 * (ob + lo));
+      *reinterpret_cast<uint4*>(slice + p * ldb + 8 * lo) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < Hk * 8 * S.ocp; i += blockDim.x) {
+      const int p = i / (8 * S.ocp), lc = i % (8 * S.ocp), k = (p & ~15) + kperm(p & 15);
+      const int lo = lc / 8, j = 8 * (ob + lo) + lc % 8;
+      const bool ok = k < H && lo < n_oct && j < H;
+      slice[p * ldb + lc] = ok ? cw[(size_t)k * H + j] : __float2bfloat16(0.f);
+    }
+  }
+  __syncthreads();
+  const uint32_t slice_a = shared_addr(slice);
+
+  for (int t = 0; t < T; ++t) {
+    if (t > 0) group_wait(my_ctr, S.U * t);  // every CTA of the group has written h(t - 1)
+    const bf16* hb = hbuf + ((t - 1) & 1) * buf;
+    bf16* hn = hbuf + (t & 1) * buf;
+    for (int task = warp; task < n_rt * ng; task += kGridWarps) {
+      const int r0 = row0 + 16 * (task / ng), lo0 = (task % ng) * gs, no = min(gs, n_oct - lo0);
+      // This thread's pairs: rows r0 + g (+ 8), units 8 (ob + lo0 + lo) + 2 tq (+ 1); xin of step t, the fp32
+      // h(t - 1) there and the rows' mask, loaded ahead of the product.
+      float x[kTaskOct][2][2], hp[kTaskOct][2][2], m[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int b = r0 + g + 8 * rr;
+        m[rr] = b < B ? mask[(size_t)b * T + t] : 0.f;
+      }
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int b = r0 + g + 8 * rr, j = 8 * (ob + lo0 + lo) + 2 * tq + ii;
+            const bool ok = lo < no && b < B && j < H;
+            x[lo][rr][ii] = ok ? xin[((size_t)b * T + t) * H + j] : 0.f;
+            hp[lo][rr][ii] = ok && t > 0 ? hs[((size_t)b * T + t - 1) * H + j] : 0.f;
+          }
+        }
+      }
+      float acc[kTaskOct][1][4];
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) acc[lo][0][0] = acc[lo][0][1] = acc[lo][0][2] = acc[lo][0][3] = 0.f;
+      if (t > 0) {  // h(-1) = 0
+        const bf16* ra = hb + (size_t)(r0 + g) * Hk + 4 * tq;
+        grid_fwd_product<1, kRnnGridPf>(acc, ra, ra + 8 * Hk, KS, slice_a, ldb, lo0, no, lane);
+      }
+      // The update: accumulator element 2 rr + ii is (row g + 8 rr, unit 2 tq + ii).
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) {
+        if (lo >= no) break;
+        const int j0 = 8 * (ob + lo0 + lo) + 2 * tq;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int b = r0 + g + 8 * rr;
+          float h[2];
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const float h_raw = tanh_fast(x[lo][rr][ii] + acc[lo][0][2 * rr + ii]);
+            h[ii] = m[rr] * h_raw + (1.0f - m[rr]) * hp[lo][rr][ii];
+          }
+          if (b >= B || j0 >= H) continue;
+          float* dst = hs + ((size_t)b * T + t) * H + j0;
+          bf16* hd = hn + (size_t)b * Hk + j0;
+          dst[0] = h[0];
+          if (j0 + 1 < H) {
+            dst[1] = h[1];
+            if (t + 1 < T) *reinterpret_cast<uint32_t*>(hd) = pack_bf16(h[0], h[1]);
+          } else if (t + 1 < T) {
+            hd[0] = __float2bfloat16(h[0]);
+          }
+        }
+      }
+    }
+    if (t + 1 < T) group_arrive(my_ctr);
+  }
+}
+
+// rnn_bwd_grid_carry_kernel, part 2 of the backward past the clusters'
+// widths (csrc/gru_bwd.cu's gru_bwd_grid_carry_kernel with one gate block).
+// CTA (r, u) owns the output units of its octets: it keeps C's rows of
+// those units, [8 ocp][Hk + 8] bf16 (the k-steps' columns permuted by
+// kperm), in shared memory, so that dpre(t) @ C^T at its units is one
+// product over all H columns: no partial sums cross a CTA. Step t = T-1 .. 0
+// of the row group:
+// - each task's pairs, from part 1's coefficient a = m (1 - h_raw^2) (in
+//   dxin) and the carry dh of the step after: d = dh + dhs[t], dpre = d a
+//   into dxin[t] (exactly 0 on a padded step), d (1 - m) into the thread's
+//   slot of `carry` [B][H] (only this thread reads it), and dpre's three
+//   exact bf16 terms (split3) to the L2-resident buffer dt[t & 1]
+//   [3][R rows][Hk];
+// - the group's barrier (not at t = 0: dh(-1) feeds nothing);
+// - per task, the three terms' products with the CTA's slice, each into its
+//   own fp32 accumulator (A straight from L2, kGridBwdPf k-steps ahead),
+//   summed smallest first: s; dh = d (1 - m) + s.
+// No atomics in any sum: the same bits every run.
+
+__global__ void __launch_bounds__(32 * kGridWarps, 1)
+    rnn_bwd_grid_carry_kernel(const bf16* __restrict__ cw, const float* __restrict__ dhs,
+                              const float* __restrict__ mask, float* __restrict__ dxin, float* __restrict__ carry,
+                              bf16* __restrict__ dt, int* __restrict__ ctr, int B, int T, int H, GridShape S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int O = (H + 7) / 8, Kp = (H + 15) / 16 * 16, ldk = Kp + 8;
+  const int u = blockIdx.x % S.U, grp = blockIdx.x / S.U;
+  const int ob = u * O / S.U, n_oct = (u + 1) * O / S.U - ob;
+  const int row0 = grp * S.rows, n_rt = (min(S.rows, B - row0) + 15) / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const size_t term = (size_t)S.R * S.rows * Kp;  // one term of one parity of dt [2][3][R rows][Kp]
+  int* my_ctr = ctr + grp * kCtrStride;
+  int ng, gs;
+  grid_tasks(n_rt, n_oct, ng, gs);
+
+  // The slice: local unit lu's row holds C[8 ob + lu][c] at physical column
+  // p, c = kperm of p within its k-step (zero past H and past the CTA's
+  // octets).
+  bf16* slice = reinterpret_cast<bf16*>(smem);
+  for (int i = threadIdx.x; i < 8 * S.ocp * Kp; i += blockDim.x) {
+    const int lu = i / Kp, p = i % Kp, c = (p & ~15) + kperm(p & 15), j = 8 * ob + lu;
+    const bool ok = lu < 8 * n_oct && j < H && c < H;
+    slice[lu * ldk + p] = ok ? cw[(size_t)j * H + c] : __float2bfloat16(0.f);
+  }
+  __syncthreads();
+  const uint32_t slice_a = shared_addr(slice);
+
+  for (int t = T - 1; t >= 0; --t) {
+    bf16* dtt = dt + (size_t)(t & 1) * 3 * term;
+    for (int task = warp; task < n_rt * ng; task += kGridWarps) {
+      const int r0 = row0 + 16 * (task / ng), lo0 = (task % ng) * gs, no = min(gs, n_oct - lo0);
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) {
+        if (lo >= no) break;
+        const int j0 = 8 * (ob + lo0 + lo) + 2 * tq;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int b = r0 + g + 8 * rr;
+          if (b >= B || j0 >= H) continue;
+          const size_t row = (size_t)b * T + t;
+          const float m = mask[row];
+          float dpre[2] = {0.f, 0.f};
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int j = j0 + ii;
+            if (j >= H) continue;
+            const size_t o = row * H + j, oh = (size_t)b * H + j;
+            const float d = (t == T - 1 ? 0.f : carry[oh]) + dhs[o];
+            dpre[ii] = d * dxin[o];
+            dxin[o] = dpre[ii];
+            carry[oh] = d * (1.0f - m);
+          }
+          if (t == 0) continue;
+          __nv_bfloat162 terms[3];
+          split3(dpre[0], dpre[1], terms);
+          bf16* at = dtt + (size_t)b * Kp + j0;
+#pragma unroll
+          for (int e = 0; e < 3; ++e) {
+            if (j0 + 1 < H) {
+              *reinterpret_cast<__nv_bfloat162*>(at + e * term) = terms[e];
+            } else {
+              at[e * term] = terms[e].x;
+            }
+          }
+        }
+      }
+    }
+    if (t == 0) break;
+    group_arrive(my_ctr);
+    group_wait(my_ctr, S.U * (T - t));  // every CTA of the group has written step t's terms
+    for (int task = warp; task < n_rt * ng; task += kGridWarps) {
+      const int r0 = row0 + 16 * (task / ng), lo0 = (task % ng) * gs, no = min(gs, n_oct - lo0);
+      float acc[3][kTaskOct][4];
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+#pragma unroll
+        for (int lo = 0; lo < kTaskOct; ++lo) acc[e][lo][0] = acc[e][lo][1] = acc[e][lo][2] = acc[e][lo][3] = 0.f;
+      }
+      grid_carry_product(acc, dtt + (size_t)(r0 + g) * Kp + 4 * tq, term, Kp, slice_a, ldk, lo0, no, lane);
+      // dh = d (1 - m) + s, the smallest term first.
+#pragma unroll
+      for (int lo = 0; lo < kTaskOct; ++lo) {
+        if (lo >= no) break;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int b = r0 + g + 8 * rr, j = 8 * (ob + lo0 + lo) + 2 * tq + ii, ci = 2 * rr + ii;
+            if (b >= B || j >= H) continue;
+            carry[(size_t)b * H + j] += (acc[2][lo][ci] + acc[1][lo][ci]) + acc[0][lo][ci];
+          }
+        }
+      }
+    }
+  }
+}
+
+// The widest H up to which the cluster kernels take every width (640: past
+// it a warp's fragments of C, 40 k-steps, no longer fit its registers).
+int cluster_max_hidden() {
   static int limit = -1;
   if (limit < 0) {
     int H = 0;
@@ -893,6 +1133,56 @@ extern "C" int rnn_max_hidden() {
     limit = H;
   }
   return limit;
+}
+
+// The backward's parts around `carry`, which launches part 2 on `s`: the
+// coefficients (part 1) before it, dC over the final dxin (part 3) after it.
+template <class Carry>
+cudaError_t run_parts(const void* xin, const void* mask, const void* cw, const void* hs, void* dxin, void* dc_partial,
+                      void* dc, int B, int T, int H, cudaStream_t s, Carry carry) {
+  const int BT = B * T;
+  const dim3 coef_grid((BT + kCoefRows - 1) / kCoefRows, ((H + 7) / 8 + kCoefOct - 1) / kCoefOct);
+  auto coef = H % 8 == 0 ? rnn_bwd_coef_kernel<true> : rnn_bwd_coef_kernel<false>;
+  coef<<<coef_grid, kCoefThreads, 0, s>>>(static_cast<const float*>(xin), static_cast<const float*>(mask),
+                                          static_cast<const bf16*>(cw), static_cast<const float*>(hs),
+                                          static_cast<float*>(dxin), BT, T, H);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = carry();
+  if (e != cudaSuccess) return e;
+  return recurrent_dw::launch(static_cast<const float*>(hs), static_cast<const float*>(dxin),
+                              static_cast<float*>(dc_partial), static_cast<float*>(dc), B, T, H, H, s);
+}
+
+}  // namespace
+
+// The largest H up to which the pair takes every width: the cluster kernels
+// up to cluster_max_hidden() (640), the grid-resident ones past it, both
+// directions (3168: past it the forward's slice of three octets no longer
+// fits a CTA's shared memory beside four, and three octets a CTA need more
+// CTAs than the card has SMs).
+extern "C" int rnn_max_hidden() {
+  static int limit = -1;
+  if (limit < 0) {
+    int H = cluster_max_hidden();
+    while (H < 8192 && grid_shape(1, H + 1, false, 1).ocp > 0 && grid_shape(1, H + 1, true, 1).ocp > 0) ++H;
+    limit = H;
+  }
+  return limit;
+}
+
+// The grid the grid-resident kernels run a batch of B rows of width H on
+// (the forward's, bwd = 0, or the backward carry's): out[0..3] = octets a
+// CTA, unit slices, row groups, rows a group. Returns 0 (out untouched)
+// where no grid takes H.
+extern "C" int rnn_grid_shape(int B, int H, int bwd, int* out) {
+  const GridShape s = grid_shape(B, H, bwd != 0, 1);
+  if (s.ocp == 0) return 0;
+  out[0] = s.ocp;
+  out[1] = s.U;
+  out[2] = s.R;
+  out[3] = s.rows;
+  return 1;
 }
 
 // Number of partial dC sums the wrapper allocates ([splits, H, H] fp32).
@@ -923,7 +1213,7 @@ extern "C" int rnn_fwd(const void* xin, const void* mask, const void* cw, void* 
                        int rows, int device, void* stream) {
   const int c = cluster > 0 ? cluster : fwd_pick(B, H);
   const int r = rows > 0 ? rows : rows_a_group(B, c);
-  if (H > rnn_max_hidden() || c == 0 || !fwd_fits(H, c, r)) return cudaErrorInvalidValue;
+  if (H > cluster_max_hidden() || c == 0 || !fwd_fits(H, c, r)) return cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return cudaSuccess;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
@@ -943,21 +1233,48 @@ extern "C" int rnn_bwd(const void* xin, const void* mask, const void* cw, const 
                        void* dxin, void* dc_partial, void* dc, int B, int T, int H, int cluster, int device,
                        void* stream) {
   const int c = cluster > 0 ? cluster : carry_pick(H);
-  if (!takes(H) || c == 0 || !carry_fits(H, c) || B <= 0 || T <= 0) return cudaErrorInvalidValue;
+  if (H > cluster_max_hidden() || c == 0 || !carry_fits(H, c) || B <= 0 || T <= 0) return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int BT = B * T;
-  const dim3 coef_grid((BT + kCoefRows - 1) / kCoefRows, ((H + 7) / 8 + kCoefOct - 1) / kCoefOct);
-  auto coef = H % 8 == 0 ? rnn_bwd_coef_kernel<true> : rnn_bwd_coef_kernel<false>;
-  coef<<<coef_grid, kCoefThreads, 0, s>>>(static_cast<const float*>(xin), static_cast<const float*>(mask),
-                                          static_cast<const bf16*>(cw), static_cast<const float*>(hs),
-                                          static_cast<float*>(dxin), BT, T, H);
-  e = cudaGetLastError();
+  return run_parts(xin, mask, cw, hs, dxin, dc_partial, dc, B, T, H, s, [&]() {
+    return rows_a_group(B, c) == 8 ? launch_carry_k<8>(cw, mask, dhs, dxin, B, T, H, c, device, s)
+                                   : launch_carry_k<16>(cw, mask, dhs, dxin, B, T, H, c, device, s);
+  });
+}
+
+// The forward on the grid (rnn_fwd_grid_kernel), for the widths past the
+// clusters'. hbuf: [2][R rows][Hk] bf16 zeros, ctr: R * 32 int32 zeros
+// (rnn_grid_shape(B, H, 0)'s R and rows); both the caller's, left dirty.
+// cudaErrorInvalidValue where no grid takes H.
+extern "C" int rnn_fwd_grid(const void* xin, const void* mask, const void* cw, void* hs, void* hbuf, void* ctr, int B,
+                            int T, int H, int device, void* stream) {
+  const GridShape g = grid_shape(B, H, false, 1);
+  if (g.ocp == 0) return cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  e = rows_a_group(B, c) == 8 ? launch_carry_k<8>(cw, mask, dhs, dxin, B, T, H, c, device, s)
-                            : launch_carry_k<16>(cw, mask, dhs, dxin, B, T, H, c, device, s);
+  return launch_grid(rnn_fwd_grid_kernel, g, grid_slice_bytes(H, g.ocp, false, 1), static_cast<cudaStream_t>(stream),
+                     static_cast<const float*>(xin), static_cast<const float*>(mask), static_cast<const bf16*>(cw),
+                     static_cast<float*>(hs), static_cast<bf16*>(hbuf), static_cast<int*>(ctr), B, T, H, g);
+}
+
+// The backward with part 2 on the grid (rnn_bwd_grid_carry_kernel), for the
+// widths past the clusters'. dt: [2][3][R rows][Hk] bf16 zeros, ctr: R * 32
+// int32 zeros (rnn_grid_shape(B, H, 1)'s R and rows), carry: [B][H] fp32;
+// all the caller's, left dirty. cudaErrorInvalidValue where no grid takes H.
+extern "C" int rnn_bwd_grid(const void* xin, const void* mask, const void* cw, const void* hs, const void* dhs,
+                            void* dxin, void* dc_partial, void* dc, void* dt, void* ctr, void* carry, int B, int T,
+                            int H, int device, void* stream) {
+  const GridShape g = grid_shape(B, H, true, 1);
+  if (g.ocp == 0 || B <= 0 || T <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  return recurrent_dw::launch(static_cast<const float*>(hs), static_cast<const float*>(dxin),
-                              static_cast<float*>(dc_partial), static_cast<float*>(dc), B, T, H, H, s);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return run_parts(xin, mask, cw, hs, dxin, dc_partial, dc, B, T, H, s, [&]() {
+    return launch_grid(rnn_bwd_grid_carry_kernel, g, grid_slice_bytes(H, g.ocp, true, 1), s,
+                       static_cast<const bf16*>(cw), static_cast<const float*>(dhs), static_cast<const float*>(mask),
+                       static_cast<float*>(dxin), static_cast<float*>(carry), static_cast<bf16*>(dt),
+                       static_cast<int*>(ctr), B, T, H, g);
+  });
 }

@@ -39,59 +39,37 @@ from __future__ import annotations
 import torch
 
 from poi_tpu_torch import _build
+from poi_tpu_torch.ops import grid
 
 MASK_NEG = -1e9
 # The widest H the cluster kernels take (gru_fwd_cluster_size and
 # gru_bwd_cluster_size are 0 past it: chip_smoke.py checks both sides).
 CLUSTER_MAX_HIDDEN = 640
-# The grid-resident kernels' limits (csrc/grid_carry.cuh, mirrored by
-# grid_shape): a block's shared memory, warps, octets, and the card's SMs.
-MAX_SMEM = 232448
-SMS = 132
-TASK_OCT = 4
+GATES = 3  # the z, r and n blocks of wh
+# The grid-resident kernels' limits (csrc/grid_carry.cuh): a block's shared
+# memory, and the card's SMs.
+MAX_SMEM, SMS = grid.MAX_SMEM, grid.SMS
 
 
 def _slice_bytes(H: int, ocp: int, bwd: bool) -> int:
     """Shared memory of a block's slice of wh at ``ocp`` unit octets
-    (``grid_slice_bytes``): the forward's z, r, n columns of the octets for
-    every k, ``[Hk][24 ocp + 8]``; the backward carry's rows of the octets'
-    units, ``[8 ocp][Kp + 8]`` (``Kp`` = 3H rounded up to 16); bf16."""
-    if bwd:
-        return 8 * ocp * ((3 * H + 15) // 16 * 16 + 8) * 2
-    return (H + 15) // 16 * 16 * (24 * ocp + 8) * 2
+    (``grid.slice_bytes`` with three gate blocks): the forward's z, r, n
+    columns of the octets for every k, ``[Hk][24 ocp + 8]``; the backward
+    carry's rows of the octets' units, ``[8 ocp][Kp + 8]`` (``Kp`` = 3H
+    rounded up to 16); bf16."""
+    return grid.slice_bytes(H, ocp, bwd, GATES)
 
 
 def grid_shape(B: int, H: int, bwd: bool) -> tuple[int, int, int, int] | None:
     """The grid of the grid-resident kernel for ``B`` rows of width ``H``
     (the forward's, or with ``bwd`` the backward carry's), as
-    ``gru_grid_shape`` picks it: ``(ocp, U, R, rows)``, the most octets a
-    block (up to 4) whose slice fits, the unit slices that takes, as many row
-    groups as the other SMs hold (no more than the batch has 16-row tiles),
-    and the rows a group. ``None`` where no grid takes ``H``."""
-    if H <= 0:
-        return None
-    fit = [c for c in range(1, TASK_OCT + 1) if _slice_bytes(H, c, bwd) <= MAX_SMEM]
-    if not fit:
-        return None
-    ocp = fit[-1]
-    U = (-(-H // 8) + ocp - 1) // ocp
-    if U > SMS:
-        return None
-    tiles = -(-B // 16) if B > 0 else 1
-    rmax = SMS // U
-    per = -(-tiles // rmax)
-    return ocp, U, -(-tiles // per), 16 * per
-
-
-def _max_hidden() -> int:
-    H = CLUSTER_MAX_HIDDEN
-    while grid_shape(1, H + 1, False) and grid_shape(1, H + 1, True):
-        H += 1
-    return H
+    ``gru_grid_shape`` picks it: ``(ocp, U, R, rows)`` (``grid.grid_shape``
+    with three gate blocks). ``None`` where no grid takes ``H``."""
+    return grid.grid_shape(B, H, bwd, GATES)
 
 
 # The widest H the pair takes (``gru_max_hidden()`` in csrc/gru_fwd.cu).
-MAX_HIDDEN = _max_hidden()
+MAX_HIDDEN = grid.max_hidden(CLUSTER_MAX_HIDDEN, GATES)
 TAKES_H = (f"H <= {MAX_HIDDEN} (gru_max_hidden()): on a cluster of 1, 2, 4, 8 or 16 blocks a group of batch "
            f"rows up to H = {CLUSTER_MAX_HIDDEN}, on a grid of row groups x unit slices, one block an SM, past it")
 
@@ -99,11 +77,7 @@ TAKES_H = (f"H <= {MAX_HIDDEN} (gru_max_hidden()): on a cluster of 1, 2, 4, 8 or
 def design(H: int) -> str:
     """Which kernels run width ``H``: ``"cluster"`` up to 640, ``"grid"``
     past it; raises past ``MAX_HIDDEN``, naming it."""
-    if 0 < H <= CLUSTER_MAX_HIDDEN:
-        return "cluster"
-    if CLUSTER_MAX_HIDDEN < H <= MAX_HIDDEN:
-        return "grid"
-    raise ValueError(f"GRU: H={H} is not taken by the kernels: {TAKES_H}")
+    return grid.design(H, CLUSTER_MAX_HIDDEN, MAX_HIDDEN, f"GRU: H={H} is not taken by the kernels: {TAKES_H}")
 
 
 def gru_scan_reference(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:

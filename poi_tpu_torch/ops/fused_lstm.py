@@ -19,14 +19,20 @@ Counterpart of ``poi_tpu/ops/fused_lstm.py``. Contract, the TPU kernels':
   exactly 0 on padded steps, and ``dwh`` sums ``h_prevᵀ · dxw`` over batch
   and time in fp32.
 
-The forward runs groups of 16 batch rows on a cluster of 1 to 16 blocks,
-each block holding the i, f, g and o columns of its units of bf16 ``wh``:
-every step is a tensor-core tile product, and both carries stay in
-registers. The backward recomputes every step's gates at once on the tensor
-cores, then runs the serial carry, ``dxw @ whᵀ`` with the fp32 cotangent
-split into three exact bf16 products, on such clusters too. The pair takes
-any H up to ``csrc/lstm.cu``'s ``lstm_max_hidden()`` (512), where both
-directions still fit a cluster's blocks.
+Up to ``CLUSTER_MAX_HIDDEN`` (512) the forward runs groups of 16 batch rows
+on a cluster of 1 to 16 blocks, each block holding the i, f, g and o columns
+of its units of bf16 ``wh``: every step is a tensor-core tile product, and
+both carries stay in registers. The backward recomputes every step's gates
+at once on the tensor cores, then runs the serial carry, ``dxw @ whᵀ`` with
+the fp32 cotangent split into three exact bf16 products, on such clusters
+too. Past 512 no cluster holds wh (2.1 MB at H = 512, 8.4 MB at 1024), and
+both serial kernels run on the whole card (``grid_shape``): R row groups x U
+unit slices, one block an SM, each block's slice of wh in its shared memory,
+the operand a step needs exchanged through an L2-resident buffer behind a
+step barrier of the row group (``lstm_fwd_grid``, ``lstm_bwd_grid``). The
+pair takes any H up to ``MAX_HIDDEN`` (1600), the C side's
+``lstm_max_hidden()``; ``design`` is the dispatch, in Python so that the CPU
+tests hold it.
 """
 
 from __future__ import annotations
@@ -34,6 +40,30 @@ from __future__ import annotations
 import torch
 
 from poi_tpu_torch import _build
+from poi_tpu_torch.ops import grid
+
+# The widest H the cluster kernels take (lstm_fwd_cluster_size is 0 past it:
+# chip_smoke.py checks both sides).
+CLUSTER_MAX_HIDDEN = 512
+GATES = 4  # the i, f, g and o blocks of wh
+# The widest H the pair takes (``lstm_max_hidden()`` in csrc/lstm.cu).
+MAX_HIDDEN = grid.max_hidden(CLUSTER_MAX_HIDDEN, GATES)
+TAKES_H = (f"H <= {MAX_HIDDEN} (lstm_max_hidden()): on a cluster of 1 to 16 blocks a group of 16 batch rows up to "
+           f"H = {CLUSTER_MAX_HIDDEN}, on a grid of row groups x unit slices, one block an SM, past it")
+
+
+def grid_shape(B: int, H: int, bwd: bool) -> tuple[int, int, int, int] | None:
+    """The grid of the grid-resident kernel for ``B`` rows of width ``H``
+    (the forward's, or with ``bwd`` the backward carry's), as
+    ``lstm_grid_shape`` picks it: ``(ocp, U, R, rows)`` (``grid.grid_shape``
+    with four gate blocks). ``None`` where no grid takes ``H``."""
+    return grid.grid_shape(B, H, bwd, GATES)
+
+
+def design(H: int) -> str:
+    """Which kernels run width ``H``: ``"cluster"`` up to 512, ``"grid"``
+    past it; raises past ``MAX_HIDDEN``, naming it."""
+    return grid.design(H, CLUSTER_MAX_HIDDEN, MAX_HIDDEN, f"LSTM: H={H} is not taken by the kernels: {TAKES_H}")
 
 
 def _blend(m: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
@@ -82,14 +112,13 @@ def _check_fwd(xw, mask, wh):
                          f"{tuple(mask.shape)}, {tuple(wh.shape)}")
 
 
-def _check_cuda(name: str, tensors, lib_max_hidden, H: int) -> None:
+def _check_cuda(name: str, tensors, H: int) -> str:
+    """The design that runs width ``H`` on the tensors' CUDA device; raises
+    where they are not on one, or past ``MAX_HIDDEN``."""
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: tensors on {sorted({str(t.device) for t in tensors})}; need one CUDA device")
-    max_h = lib_max_hidden()
-    if H > max_h:
-        raise ValueError(f"{name}: H={H} is not taken by the kernels: past it, a cluster's blocks cannot hold "
-                         f"their columns of bf16 wh beside the forward's and the backward's buffers, so H <= {max_h}")
+    return design(H)
 
 
 def fused_lstm_scan(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
@@ -103,16 +132,25 @@ def fused_lstm_scan(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
         return lstm_scan_reference(xw, mask, wh)
     B, T, H4 = xw.shape
     H = H4 // 4
-    lib = _build.library()
-    _check_cuda("fused_lstm_scan", (xw, mask, wh), lib.lstm_max_hidden, H)
+    on_grid = _check_cuda("fused_lstm_scan", (xw, mask, wh), H) == "grid"
     if xw.dtype != torch.float32 or mask.dtype != torch.float32 or wh.dtype != torch.bfloat16:
         raise TypeError(f"fused_lstm_scan: need xw and mask float32, wh bfloat16; got {xw.dtype}, {mask.dtype}, "
                         f"{wh.dtype}")
+    lib = _build.library()
     xw, mask, wh = xw.contiguous(), mask.contiguous(), wh.contiguous()
-    hs = torch.empty(B, T, H, dtype=torch.float32, device=xw.device)
+    dev = xw.device
+    hs = torch.empty(B, T, H, dtype=torch.float32, device=dev)
     cs = torch.empty_like(hs)
-    rc = lib.lstm_fwd(xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), hs.data_ptr(), cs.data_ptr(), B, T, H, 0,
-                      xw.device.index, torch.cuda.current_stream(xw.device).cuda_stream)
+    args = (xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), hs.data_ptr(), cs.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if on_grid:
+        _, _, R, rows = grid_shape(B, H, False)
+        # bf16(h) by step parity, zero past B and H; the row groups' step counters.
+        hbuf = torch.zeros(2, R * rows, (H + 15) // 16 * 16, dtype=torch.bfloat16, device=dev)
+        ctr = torch.zeros(R * 32, dtype=torch.int32, device=dev)
+        rc = lib.lstm_fwd_grid(*args, hbuf.data_ptr(), ctr.data_ptr(), B, T, H, dev.index, stream)
+    else:
+        rc = lib.lstm_fwd(*args, B, T, H, 0, dev.index, stream)
     _build.check(rc, "lstm_fwd launch")
     fused_lstm_scan.launches += 1
     return hs, cs
@@ -170,10 +208,10 @@ def fused_lstm_bwd(xw, mask, wh, hs, cs, dhs):
     tensors = (xw, mask, wh, hs, cs, dhs)
     if all(t.device.type == "cpu" for t in tensors):
         return lstm_bwd_reference(*tensors)
-    lib = _build.library()
-    _check_cuda("fused_lstm_bwd", tensors, lib.lstm_max_hidden, H)
+    on_grid = _check_cuda("fused_lstm_bwd", tensors, H) == "grid"
     if wh.dtype != torch.bfloat16 or any(t.dtype != torch.float32 for t in (xw, mask, hs, cs, dhs)):
         raise TypeError(f"fused_lstm_bwd: need wh bfloat16 and the rest float32; got {[t.dtype for t in tensors]}")
+    lib = _build.library()
     dev = xw.device
     dxw = torch.empty(B, T, H4, dtype=torch.float32, device=dev)
     dwh = torch.empty(H, H4, dtype=torch.float32, device=dev)
@@ -182,9 +220,19 @@ def fused_lstm_bwd(xw, mask, wh, hs, cs, dhs):
     xw, mask, wh, hs, cs, dhs = (t.contiguous() for t in tensors)
     coef = torch.empty(B, T, 2 * H, dtype=torch.float32, device=dev)  # scratch: two of the gates' coefficients
     partial = torch.empty(lib.lstm_bwd_splits(B, T, H), H, H4, dtype=torch.float32, device=dev)
-    rc = lib.lstm_bwd(xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
-                      dxw.data_ptr(), coef.data_ptr(), partial.data_ptr(), dwh.data_ptr(), B, T, H, dev.index,
-                      torch.cuda.current_stream(dev).cuda_stream)
+    args = (xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
+            dxw.data_ptr(), coef.data_ptr(), partial.data_ptr(), dwh.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if on_grid:
+        _, _, R, rows = grid_shape(B, H, True)
+        # The three bf16 terms of dxw[t] by step parity, zero past B and 4H; the row groups' step counters; the
+        # carries dh and dc of each (row, unit).
+        dt = torch.zeros(2, 3, R * rows, (4 * H + 15) // 16 * 16, dtype=torch.bfloat16, device=dev)
+        ctr = torch.zeros(R * 32, dtype=torch.int32, device=dev)
+        carry = torch.empty(2, B, H, dtype=torch.float32, device=dev)
+        rc = lib.lstm_bwd_grid(*args, dt.data_ptr(), ctr.data_ptr(), carry.data_ptr(), B, T, H, dev.index, stream)
+    else:
+        rc = lib.lstm_bwd(*args, B, T, H, dev.index, stream)
     _build.check(rc, "lstm_bwd launch")
     fused_lstm_bwd.launches += 1
     return dxw, dwh

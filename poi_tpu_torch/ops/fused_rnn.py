@@ -16,17 +16,23 @@ Counterpart of ``poi_tpu/ops/fused_rnn.py``. Contract, the TPU kernels':
   ``dh = dh·(1 - m) + dpre @ Cᵀ`` in fp32, and ``dC = Σ h_prevᵀ · dpre`` in
   fp32.
 
-Both directions run a group of batch rows on a cluster of blocks, each
-block a slice of the hidden units, each warp its octet's columns of ``C``
-(forward) or ``Cᵀ`` (backward) in registers, exchanging the group's step
-with every block of the cluster by ``st.async`` on mbarriers: 8 rows a group
-where the 8-row groups' clusters all fit on the card at once, else 16. The
-forward streams ``xin`` and the mask in by TMA and takes ``tanh`` from
-``ex2.approx``; the backward recomputes every step's ``h_raw`` at once on the
-tensor cores, runs the serial carry (``dpre @ Cᵀ`` with the fp32 ``dpre``
-split into three exact bf16 products) and forms ``dC`` in fp32 on the CUDA
-cores. The pair takes any H up to ``csrc/rnn.cu``'s ``rnn_max_hidden()``
-(640: the fragments' 40 k-steps fill a warp's registers); a wider H raises.
+Up to ``CLUSTER_MAX_HIDDEN`` (640) both directions run a group of batch
+rows on a cluster of blocks, each block a slice of the hidden units, each
+warp its octet's columns of ``C`` (forward) or ``Cᵀ`` (backward) in
+registers, exchanging the group's step with every block of the cluster by
+``st.async`` on mbarriers: 8 rows a group where the 8-row groups' clusters
+all fit on the card at once, else 16. The forward streams ``xin`` and the
+mask in by TMA and takes ``tanh`` from ``ex2.approx``; the backward
+recomputes every step's ``h_raw`` at once on the tensor cores, runs the
+serial carry (``dpre @ Cᵀ`` with the fp32 ``dpre`` split into three exact
+bf16 products) and forms ``dC`` in fp32 on the CUDA cores. Past 640 a warp's
+fragments (40 k-steps) no longer fit its registers, and both serial kernels
+run on the whole card (``grid_shape``): R row groups x U unit slices, one
+block an SM, each block's slice of ``C`` in its shared memory, the operand a
+step needs exchanged through an L2-resident buffer behind a step barrier of
+the row group (``rnn_fwd_grid``, ``rnn_bwd_grid``). The pair takes any H up
+to ``MAX_HIDDEN`` (3168), the C side's ``rnn_max_hidden()``; ``design`` is
+the dispatch, in Python so that the CPU tests hold it.
 """
 
 from __future__ import annotations
@@ -34,6 +40,30 @@ from __future__ import annotations
 import torch
 
 from poi_tpu_torch import _build
+from poi_tpu_torch.ops import grid
+
+# The widest H the cluster kernels take (rnn_fwd_cluster_size and
+# rnn_bwd_cluster_size are 0 past it: chip_smoke.py checks both sides).
+CLUSTER_MAX_HIDDEN = 640
+GATES = 1  # C is one block
+# The widest H the pair takes (``rnn_max_hidden()`` in csrc/rnn.cu).
+MAX_HIDDEN = grid.max_hidden(CLUSTER_MAX_HIDDEN, GATES)
+TAKES_H = (f"H <= {MAX_HIDDEN} (rnn_max_hidden()): on a cluster of 1 to 16 blocks a group of 8 or 16 batch rows "
+           f"up to H = {CLUSTER_MAX_HIDDEN}, on a grid of row groups x unit slices, one block an SM, past it")
+
+
+def grid_shape(B: int, H: int, bwd: bool) -> tuple[int, int, int, int] | None:
+    """The grid of the grid-resident kernel for ``B`` rows of width ``H``
+    (the forward's, or with ``bwd`` the backward carry's), as
+    ``rnn_grid_shape`` picks it: ``(ocp, U, R, rows)`` (``grid.grid_shape``
+    with one gate block). ``None`` where no grid takes ``H``."""
+    return grid.grid_shape(B, H, bwd, GATES)
+
+
+def design(H: int) -> str:
+    """Which kernels run width ``H``: ``"cluster"`` up to 640, ``"grid"``
+    past it; raises past ``MAX_HIDDEN``, naming it."""
+    return grid.design(H, CLUSTER_MAX_HIDDEN, MAX_HIDDEN, f"RNN: H={H} is not taken by the kernels: {TAKES_H}")
 
 
 def rnn_scan_reference(xin: torch.Tensor, mask: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -62,14 +92,13 @@ def _check(name: str, xin, mask, c) -> None:
                          f"{tuple(mask.shape)}, {tuple(c.shape)}")
 
 
-def _check_cuda(name: str, tensors, lib, H: int) -> None:
+def _check_cuda(name: str, tensors, H: int) -> str:
+    """The design that runs width ``H`` on the tensors' CUDA device; raises
+    where they are not on one, or past ``MAX_HIDDEN``."""
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: tensors on {sorted({str(t.device) for t in tensors})}; need one CUDA device")
-    max_h = lib.rnn_max_hidden()
-    if H > max_h:
-        raise ValueError(f"{name}: H={H} is not taken by the kernels: a warp holds its columns of C as mma "
-                         f"fragments in registers, 40 k-steps at most, so H <= {max_h}")
+    return design(H)
 
 
 def fused_rnn_scan(xin: torch.Tensor, mask: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -82,16 +111,25 @@ def fused_rnn_scan(xin: torch.Tensor, mask: torch.Tensor, c: torch.Tensor) -> to
     if all(t.device.type == "cpu" for t in (xin, mask, c)):
         return rnn_scan_reference(xin, mask, c)
     B, T, H = xin.shape
-    lib = _build.library()
-    _check_cuda("fused_rnn_scan", (xin, mask, c), lib, H)
+    on_grid = _check_cuda("fused_rnn_scan", (xin, mask, c), H) == "grid"
     if xin.dtype != torch.float32 or mask.dtype != torch.float32 or c.dtype != torch.bfloat16:
         raise TypeError(f"fused_rnn_scan: need xin and mask float32, C bfloat16; got {xin.dtype}, {mask.dtype}, "
                         f"{c.dtype}")
+    lib = _build.library()
     xin, mask, c = xin.contiguous(), mask.contiguous(), c.contiguous()
-    hs = torch.empty(B, T, H, dtype=torch.float32, device=xin.device)
-    # Cluster and rows 0: the kernel's own pick.
-    rc = lib.rnn_fwd(xin.data_ptr(), mask.data_ptr(), c.data_ptr(), hs.data_ptr(), B, T, H, 0, 0, xin.device.index,
-                     torch.cuda.current_stream(xin.device).cuda_stream)
+    dev = xin.device
+    hs = torch.empty(B, T, H, dtype=torch.float32, device=dev)
+    args = (xin.data_ptr(), mask.data_ptr(), c.data_ptr(), hs.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if on_grid:
+        _, _, R, rows = grid_shape(B, H, False)
+        # bf16(h) by step parity, zero past B and H; the row groups' step counters.
+        hbuf = torch.zeros(2, R * rows, (H + 15) // 16 * 16, dtype=torch.bfloat16, device=dev)
+        ctr = torch.zeros(R * 32, dtype=torch.int32, device=dev)
+        rc = lib.rnn_fwd_grid(*args, hbuf.data_ptr(), ctr.data_ptr(), B, T, H, dev.index, stream)
+    else:
+        # Cluster and rows 0: the kernel's own pick.
+        rc = lib.rnn_fwd(*args, B, T, H, 0, 0, dev.index, stream)
     _build.check(rc, "rnn_fwd launch")
     fused_rnn_scan.launches += 1
     return hs
@@ -137,10 +175,10 @@ def fused_rnn_bwd(xin, mask, c, hs, dhs):
     tensors = (xin, mask, c, hs, dhs)
     if all(t.device.type == "cpu" for t in tensors):
         return rnn_bwd_reference(*tensors)
-    lib = _build.library()
-    _check_cuda("fused_rnn_bwd", tensors, lib, H)
+    on_grid = _check_cuda("fused_rnn_bwd", tensors, H) == "grid"
     if c.dtype != torch.bfloat16 or any(t.dtype != torch.float32 for t in (xin, mask, hs, dhs)):
         raise TypeError(f"fused_rnn_bwd: need C bfloat16 and the rest float32; got {[t.dtype for t in tensors]}")
+    lib = _build.library()
     dev = xin.device
     dxin = torch.empty(B, T, H, dtype=torch.float32, device=dev)
     dc = torch.empty(H, H, dtype=torch.float32, device=dev)
@@ -148,10 +186,20 @@ def fused_rnn_bwd(xin, mask, c, hs, dhs):
         return dxin, dc.zero_()
     xin, mask, c, hs, dhs = (t.contiguous() for t in tensors)
     partial = torch.empty(lib.rnn_bwd_splits(B, T, H), H, H, dtype=torch.float32, device=dev)
-    # Cluster 0: the carry's own pick.
-    rc = lib.rnn_bwd(xin.data_ptr(), mask.data_ptr(), c.data_ptr(), hs.data_ptr(), dhs.data_ptr(), dxin.data_ptr(),
-                     partial.data_ptr(), dc.data_ptr(), B, T, H, 0, dev.index,
-                     torch.cuda.current_stream(dev).cuda_stream)
+    args = (xin.data_ptr(), mask.data_ptr(), c.data_ptr(), hs.data_ptr(), dhs.data_ptr(), dxin.data_ptr(),
+            partial.data_ptr(), dc.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if on_grid:
+        _, _, R, rows = grid_shape(B, H, True)
+        # The three bf16 terms of dpre by step parity, zero past B and H; the row groups' step counters; the
+        # carry dh of each (row, unit).
+        dt = torch.zeros(2, 3, R * rows, (H + 15) // 16 * 16, dtype=torch.bfloat16, device=dev)
+        ctr = torch.zeros(R * 32, dtype=torch.int32, device=dev)
+        carry = torch.empty(B, H, dtype=torch.float32, device=dev)
+        rc = lib.rnn_bwd_grid(*args, dt.data_ptr(), ctr.data_ptr(), carry.data_ptr(), B, T, H, dev.index, stream)
+    else:
+        # Cluster 0: the carry's own pick.
+        rc = lib.rnn_bwd(*args, B, T, H, 0, dev.index, stream)
     _build.check(rc, "rnn_bwd launch")
     fused_rnn_bwd.launches += 1
     return dxin, dc
