@@ -11,14 +11,14 @@ with its plain PyTorch version on the card. Then it drives the paths:
 - serving: 256 requests of config #1 (``gru_foursquare_nyc``: GRU 64-d,
   T=64, 6,749-POI catalog, random weights from a fixed seed) through
   ``Recommender`` and ``python -m poi_tpu_torch serve``;
-- training: 40 device-sampled steps of the workload ``bench.py`` times (GRU
+- training: 20 device-sampled steps of the workload ``bench.py`` times (GRU
   128-d, T=64, batch 512, bf16, 44,170-POI catalog, full-catalog CE) through
   ``train()``, on the kernel path and on the plain path, then ``evaluate()``
   on test; a few steps of config #1; and ``python -m poi_tpu_torch train``
   on config #1 and on the bench workload;
 - config #4 (``attention_gowalla``: GRU 256-d + windowed attention, T=128,
   batch 64, dropout 0.3, sampled softmax over 1,024 negatives, lazy Adam,
-  36,969-POI catalog): 40 device-sampled steps through ``train()`` on both
+  36,969-POI catalog): 20 device-sampled steps through ``train()`` on both
   paths, ``evaluate()``, ``Recommender`` at request batch 1 and 256 on both
   paths, and ``python -m poi_tpu_torch train``;
 - config #2 (``lstm_bpr_foursquare``: LSTM 128-d + user embedding, BPR with
@@ -39,6 +39,13 @@ with its plain PyTorch version on the card. Then it drives the paths:
   both paths, and ``Recommender`` at request batch 1 and 256 on both
   paths; before them, B3/B4 at H = 520, 768, 1024 and the limit, B5/B6 at
   H = 648, 768, 1024 and the limit;
+- the wider paths (the bench workload and config #4 at D = H = 1024, the
+  losses past D = 512 on the K-chunked kernels): ``python -m poi_tpu_torch
+  train`` 10 steps with B1, B2, B7 and B8 (config #4: B9 and B10) and B11
+  launched, 5 steps through ``train()`` on both paths, and ``Recommender``
+  at request batch 1 and 256 on both paths; before them, B7 and B8 at D =
+  600, 768, 1000 and 1024, B9 and B10 at 640, 768 and 1024, the kernels'
+  block plans held to their Python mirrors, and D = 1025 refused;
 - config #5 on one card (``multihost_1m --set mesh.model=1
   mesh.embedding_mode=psum data.min_poi_checkins=1 data.val_fraction=0.05``:
   GRU 512-d + 8-head attention, T=64, batch 512, sampled softmax over 4,096
@@ -153,6 +160,9 @@ BENCH_OVERRIDES = {
 }
 PLAIN_OVERRIDES = {"model.cell_impl": "scan", "loss.impl": "xla", "eval.topk_impl": "xla"}
 TRAIN_STEPS = 40
+# Steps a path through train() in the train, config #2-#4 phases (40, as
+# TRAIN_STEPS, before the wider paths' phases came).
+PATH_STEPS = 20
 # Per-step loss, kernel path vs plain path, relative. Step 1: the same params
 # and batch, so only summation order and the CE's target logit differ (fp32
 # operands in the fused CE, bf16 ones in the dense oracle; the logits are
@@ -269,24 +279,48 @@ CE_WIDE_CASES = (CE_C3_D256 + (36969,), (32768, 44170, 256, 44170), (300, 8193, 
 CE_C3_D512 = (2048, 36969, 512)
 CE_BENCH_D512 = (32768, 44170, 512)
 CE_D512_CASES = (CE_C3_D512 + (36969,), CE_BENCH_D512 + (44170,), (300, 8193, 384, 8000), (1000, 5000, 300, 5000))
+# B7/B8 at D = 768 and 1024, the K-chunked kernels (N, V, D, real POIs): the
+# wider bench path's CE (the bench shape at D = 1024), config #3's shape at
+# 768 (the forward's split-V, the backward's three column ranges), and widths
+# the kernels are not built for: 600 (run at 768) on ragged N and V with a
+# -1e30 tail, and 1000 (run at 1024).
+CE_BENCH_D1024 = (32768, 44170, 1024)
+CE_C3_D768 = (2048, 36969, 768)
+CE_D1024_CASES = (CE_BENCH_D1024 + (44170,), CE_C3_D768 + (36969,), (300, 8193, 600, 8000), (1000, 5000, 1000, 5000))
 # B8 at these widths is held element by element to the bound its arithmetic
 # allows (ce_bound_ratios, b10_bound_ratios' without the hit mask) beside
 # CE_GRAD_TOL of the max-over-max error: at D = 512 a block sums half the
 # output columns, as B10's, whose correct runs reached 1.71e-3 and 2.03e-3.
 B8_BOUND_DIMS = (384, 512)
+
+
+def kchunked(D: int) -> bool:
+    """Whether the loss kernels run width ``D`` (already padded) on the
+    K-chunked design (csrc/kchunk.cuh). There B8 and B10 are held element by
+    element by their bounds alone, every output (dq and dE or dtable by
+    ``ce_bound_ratios`` / ``b10_bound_ratios``, db by the same bound's db
+    term): a block sums a third or a quarter of the output columns and the
+    logits' fp32 error grows with D, so the max-over-max errors pass
+    CE_GRAD_TOL and CE_DBIAS_TOL on correct runs (dq 4.7e-3 at the bench
+    shape at D = 1024, 0.18 of its element-wise bound; db 1.05e-5 on an
+    all-hit pool at 1024, 0.001 of it)."""
+    return D > 512
 # B11's other main-path catalogs, (V, D, real POIs), each padded to a multiple
 # of 2,048 with -1e30 rows as the eval and serving code pad them: the bench
-# eval sweep's, config #4's eval sweep's, and bench_serve's (70,953 POIs).
+# eval sweep's, config #4's eval sweep's, bench_serve's (70,953 POIs),
+# config #5's, and the wider bench path's eval sweep at D = 1024.
 TOPK_CATALOGS = {"eval": (45056, 128, 44170), "c4": (38912, 256, 36969), "serve70k": (71680, 256, 70953),
-                 "c5": (905216, 512, 903889)}
+                 "c5": (905216, 512, 903889), "eval1024": (45056, 1024, 44170)}
 CE_THRESHOLD_CASES = ((2048, 6749, 64), (32768, 6749, 128), (32768, 44170, 128))
 # Config #4 at full width: GRU + attention 256-d, T=128, batch 64, dropout
 # 0.3, sampled softmax (S=1,024), lazy Adam, 36,969 POIs. The device sampler
 # draws its batches (configs #2 and #3 too); each config's step is timed over
-# chunks of STEP_TIME_CHUNK steps.
+# chunks of STEP_TIME_CHUNK steps (20 before the wider paths' phases came;
+# the bench workload's over BENCH_TIME_CHUNK, 40 before).
 ATTN_CONFIG = "attention_gowalla"
 SAMPLER_OVERRIDES = {"data.sampler": "device", "train.steps_per_call": str(TRAIN_STEPS)}
-STEP_TIME_CHUNK = 20
+STEP_TIME_CHUNK = 10
+BENCH_TIME_CHUNK = 20
 # The ported measurement scripts, each run once as a subprocess: the sweeps,
 # bench_cells and bench_serve at their defaults (bench_serve also at --dim
 # 1024: B1 on the grid, B11 at D = 1024); profile_step at the bench
@@ -297,10 +331,12 @@ STEP_TIME_CHUNK = 20
 # host-loader rows step), profile_1m at its default, bench_1m's training at
 # V = 1M with the preset's lazy Adam (its top-k is timed in the timing phase
 # at V = 903,889), step_time on the bench workload; tune_strnn and
-# tune_attention at 50 steps a probe (tune_strnn's h256 runs B7/B8 at D =
-# 256), check_cell_parity (a DIVERGES line fails the run), bench_eval_path,
-# compare_embedding_modes and compare_attention_modes on 4 gloo ranks sharing
-# the card, scaling_bench on 2 of them.
+# tune_attention at 25 steps a probe (50 before the wider paths' phases
+# came; tune_strnn's h256 runs B7/B8 at D = 256), check_cell_parity (a
+# DIVERGES line fails the run), bench_eval_path, compare_embedding_modes and
+# compare_attention_modes on 4 gloo ranks sharing the card, scaling_bench on
+# 2 of them (20 steps, one repeat; 60 and 3 before), host_feed one round of
+# 25 steps (50 before).
 SCRIPT_RUNS = (
     ("sweep_ce_fwd", []),
     ("sweep_ce_bwd", []),
@@ -317,14 +353,14 @@ SCRIPT_RUNS = (
     ("profile_1m", []),
     ("bench_1m", ["--skip-topk", "--table-update", "sparse"]),
     ("step_time", ["bench"]),
-    ("tune_strnn", ["50"]),
-    ("tune_attention", ["50"]),
+    ("tune_strnn", ["25"]),
+    ("tune_attention", ["25"]),
     ("check_cell_parity", []),
     ("bench_eval_path", []),
     ("compare_embedding_modes", []),
     ("compare_attention_modes", []),
-    ("scaling_bench", ["--local-processes", "2"]),
-    ("host_feed", ["--rounds", "1", "--steps", "50"]),
+    ("scaling_bench", ["--local-processes", "2", "--steps", "20", "--repeats", "1"]),
+    ("host_feed", ["--rounds", "1", "--steps", "25"]),
 )
 # The GRU kernels at the larger widths: config #4's train shape, a ragged
 # batch, config #5's width on a few rows and at its batch of 512, and the
@@ -373,12 +409,20 @@ GRU_BWD_RAGGED = ((1100, 100, 1), (7, 200, 8))
 # Last D = 384, which the kernels are not built for: the wrappers pad it
 # with zero columns to 512 (config #4's shape, two hits a row, a ragged
 # padded pool).
+# Then the K-chunked kernels: config #4's shape at D = 1024 (the wider
+# config #4 path's), config #5's rows at 768, a ragged 640 (run at 768, a
+# ragged padded pool) and every entry a hit at 1024.
 SAMPLED_C5 = (32768, 4096, 512, 903889, 0, None)
+SAMPLED_C4_D1024 = (8192, 1024, 1024, 36969, 0, None)
+SAMPLED_C5_D768 = (32768, 4096, 768, 903889, 0, None)
 SAMPLED_CASES = ((8192, 1024, 256, 36969, 0, None), (8192, 1000, 256, 2000, 24, None),
                  (300, 200, 256, 50, 0, "two"), (1000, 300, 128, 500, 0, None), (777, 300, 64, 400, 33, None),
                  (100, 130, 256, 400, 190, "all"), SAMPLED_C5, (32768, 4000, 512, 903889, 96, "two"),
                  (777, 300, 512, 400, 33, None), (100, 130, 512, 400, 190, "all"),
-                 (8192, 1024, 384, 36969, 0, None), (300, 200, 384, 50, 0, "two"), (777, 300, 384, 400, 33, None))
+                 (8192, 1024, 384, 36969, 0, None), (300, 200, 384, 50, 0, "two"), (777, 300, 384, 400, 33, None),
+                 SAMPLED_C4_D1024, SAMPLED_C5_D768, (777, 300, 640, 400, 33, None), (100, 130, 1024, 400, 190, "all"))
+# The sampled cases timed, by the key of their times.
+SAMPLED_TIMED = {SAMPLED_CASES[0]: "", SAMPLED_C5: "_d512", SAMPLED_C4_D1024: "_d1024", SAMPLED_C5_D768: "_d768"}
 # B10's split rule (the dq pass's, the dE pass's: 2 and 16 at config #4's
 # shape) against fewer and more ranges of the streamed rows; (0, 0) is the
 # rule.
@@ -640,6 +684,28 @@ CE_LSE_KERNELS = ("ce_lse_wg_kernel", "lse_merge")
 # coefficients pass, carry and dC (its partials and their ordered reduce).
 SAMPLED_LSE_KERNELS = ("sampled_lse_wg_kernel", "sampled_lse_merge")
 SAMPLED_BWD_KERNELS = ("sampled_dq_pass", "sampled_de_pass", "sum_splits")
+# B7's and B9's kernels past D = 512 (csrc/kchunk.cuh), and their merges.
+CE_LSE_KC_KERNELS = ("ce_lse_kc_kernel", "lse_merge")
+SAMPLED_LSE_KC_KERNELS = ("sampled_lse_kc_kernel", "sampled_lse_merge")
+
+
+def ce_lse_kernels(D: int) -> tuple:
+    """B7's kernel and merge at the width ``D`` runs at."""
+    return CE_LSE_KC_KERNELS if kchunked(D) else CE_LSE_KERNELS
+
+
+def loss_kernel_flop(name: str, N: int, V: int, D: int) -> float:
+    """The bf16 product operations a loss kernel's call runs at its padded
+    width, counted as it runs them (the function's own count is 2 N V D for
+    the forward, 6 N V D for the backward): B7 and B9 one catalog or pool
+    product; B8 and B10 two passes, each the logits once a column range
+    (``bwd_plan`` / ``plan``) and the gradient product once."""
+    from poi_tpu_torch.ops import fused_ce, fused_sampled
+
+    if name in ("ce_lse", "sampled_lse"):
+        return 2 * N * V * D
+    ranges = fused_ce.bwd_plan(D)[2] if name == "ce_bwd" else fused_sampled.plan(D)[5]
+    return 2 * (2 * ranges + 2) * N * V * D
 LSTM_FWD_KERNELS = ("lstm_fwd_kernel",)
 RNN_FWD_KERNELS = ("rnn_fwd_kernel",)
 RNN_BWD_KERNELS = ("rnn_bwd_coef", "rnn_bwd_carry", "recurrent_dw")
@@ -723,10 +789,12 @@ def ce_case(tag: str, N: int, V: int, D: int, real: int, gen) -> dict:
     want = ce_bwd_reference(q, table, bias, want_lse, g)
     errs = [rel_err(a, b) for a, b in zip(got, want)]
     Dp = padded_dim(D, KERNEL_DIMS, "ce_lse")
-    ratios = ce_bound_ratios((q, table, bias, want_lse, g), got, want) if Dp in B8_BOUND_DIMS else None
-    assert errs[0] < CE_GRAD_TOL and errs[1] < CE_GRAD_TOL and errs[2] < CE_DBIAS_TOL, \
+    ratios = (ce_bound_ratios((q, table, bias, want_lse, g), got, want, with_db=kchunked(Dp))
+              if Dp in B8_BOUND_DIMS or kchunked(Dp) else None)
+    assert kchunked(Dp) or (errs[0] < CE_GRAD_TOL and errs[1] < CE_GRAD_TOL and errs[2] < CE_DBIAS_TOL), \
         f"ce_bwd N={N} V={V} D={D}: rel err dq/dtable/dbias {errs}, element-wise bound ratios {ratios}"
-    assert ratios is None or max(ratios) <= 1.0, f"ce_bwd N={N} V={V} D={D}: |err| / bound dq/dtable {ratios}"
+    assert ratios is None or max(ratios) <= 1.0, \
+        f"ce_bwd N={N} V={V} D={D}: |err| / bound dq/dtable{'/dbias' * kchunked(Dp)} {ratios}"
     assert bool((got[1][real:] == 0).all()) and bool((got[2][real:] == 0).all()), "a padded catalog row got gradient"
     again = ce_bwd(q, table, bias, want_lse, g)  # no atomics: the same bits every run
     assert torch.equal(ce_lse(q, table, bias), lse) and all(torch.equal(a, b) for a, b in zip(again, got)), \
@@ -735,9 +803,11 @@ def ce_case(tag: str, N: int, V: int, D: int, real: int, gen) -> dict:
     log(f"[{tag}] N={N:5d} V={V} D={D:3d}{f' (run at {Dp})' if Dp != D else ''}"
         f"{' (-1e30 tail)' if real < V else ''}, ce_lse at {lse_rows(D)} rows a block in {splits} catalog "
         f"range{'s' if splits > 1 else ''}: lse max err {e_lse:.2e} (tol {CE_LSE_TOL}); rel err dq {errs[0]:.2e}, "
-        f"dtable {errs[1]:.2e} (tol {CE_GRAD_TOL})"
-        + (f", |err| / element-wise bound dq {ratios[0]:.3f}, dtable {ratios[1]:.3f} (<= 1)" if ratios else "")
-        + f", dbias {errs[2]:.2e} (tol {CE_DBIAS_TOL}); a second run gives the same bits")
+        f"dtable {errs[1]:.2e} ({'held by the element-wise bound' if kchunked(Dp) else f'tol {CE_GRAD_TOL}'})"
+        + (f", |err| / element-wise bound dq {ratios[0]:.3f}, dtable {ratios[1]:.3f}" if ratios else "")
+        + (f", dbias {ratios[2]:.3f} (each <= 1; dbias rel err {errs[2]:.2e})" if kchunked(Dp) else
+           (" (<= 1)" if ratios else "") + f", dbias {errs[2]:.2e} (tol {CE_DBIAS_TOL})")
+        + "; a second run gives the same bits")
     return {"lse_err": e_lse, "grad_err": max(float((a - b).abs().max()) for a, b in zip(got, want)),
             "rel": tuple(errs[:2]), "ratios": ratios}
 
@@ -765,7 +835,7 @@ def ce_phase() -> tuple[float, float]:
     return worst_lse, worst_grad
 
 
-def ce_bound_ratios(args, got, want, chunk: int = 4096) -> tuple[float, float]:
+def ce_bound_ratios(args, got, want, chunk: int = 4096, with_db: bool = False) -> tuple:
     """B8's dq and dtable against the plain version's, element by element:
     the largest |dq - dq_plain| / bound and |dtable - dtable_plain| / bound,
     each <= 1 for a correct kernel (0/0 counts as 0). ``args``: (q, table,
@@ -777,7 +847,10 @@ def ce_bound_ratios(args, got, want, chunk: int = 4096) -> tuple[float, float]:
     |dq - dq_plain| <= (c |gp| + 3.03 (V - 1) u |bf16(gp)|) @ |table_bf16|,
     |dtable - dtable_plain| <= (c |gp| + 3.03 (N - 1) u |bf16(gp)|)^T @ |q_bf16|.
     Computed over catalog chunks of ``chunk`` rows (the dq bound summed over
-    them), so the bench shape's [N, V] never lies on the card at once."""
+    them), so the bench shape's [N, V] never lies on the card at once.
+    ``with_db``: also the largest |dbias - dbias_plain| / bound, dbias being
+    fp32 sums of the unrounded gp: |dbias - dbias_plain| <= colsum(1.01 delta
+    |gp| + 3.03 (N - 1) u |gp|)."""
     import torch
 
     q, table, bias, lse, g = args
@@ -787,7 +860,7 @@ def ce_bound_ratios(args, got, want, chunk: int = 4096) -> tuple[float, float]:
     qb = q.to(torch.bfloat16).float()
     qa = qb.abs()
     dq_bound = torch.zeros(N, D, device=q.device)
-    ratio_dt = 0.0
+    ratio_dt = ratio_db = 0.0
     for v0 in range(0, V, chunk):
         tb = table[v0:v0 + chunk].to(torch.bfloat16).float()
         ta = tb.abs()
@@ -799,6 +872,10 @@ def ce_bound_ratios(args, got, want, chunk: int = 4096) -> tuple[float, float]:
         del gp
         delta = 3 * D * u * (qa @ ta.T) + 4 * u * (z.abs() + x.abs()) + 2 * u + (4 + 1.2 * x.abs()) * 2 * u
         del z, x
+        if with_db:
+            db_bound = ((1.01 * delta + 3.03 * (N - 1) * u) * gpa).sum(dim=0)
+            err = (got[2][v0:v0 + chunk] - want[2][v0:v0 + chunk]).abs()
+            ratio_db = max(ratio_db, float(torch.where(err == 0, 0.0, err / db_bound).max()))
         cg = (2.0 ** -7 + 1.01 * delta) * gpa
         del delta, gpa
         dq_bound += (cg + 3.03 * (V - 1) * u * gpba) @ ta
@@ -807,35 +884,103 @@ def ce_bound_ratios(args, got, want, chunk: int = 4096) -> tuple[float, float]:
         err = (got[1][v0:v0 + chunk] - want[1][v0:v0 + chunk]).abs()
         ratio_dt = max(ratio_dt, float(torch.where(err == 0, 0.0, err / bd).max()))
     err = (got[0] - want[0]).abs()
-    return float(torch.where(err == 0, 0.0, err / dq_bound).max()), ratio_dt
+    ratio_dq = float(torch.where(err == 0, 0.0, err / dq_bound).max())
+    return (ratio_dq, ratio_dt, ratio_db) if with_db else (ratio_dq, ratio_dt)
+
+
+def ce_cases(tag: str, cases, gen) -> dict:
+    """``ce_case`` at each of ``cases``; the largest absolute errors,
+    relative errors and bound ratios over them."""
+    import itertools
+
+    out = {"lse_err": 0.0, "grad_err": 0.0, "ratios": (), "rel": (0.0, 0.0)}
+    for N, V, D, real in cases:
+        r = ce_case(tag, N, V, D, real, gen)
+        out["lse_err"], out["grad_err"] = max(out["lse_err"], r["lse_err"]), max(out["grad_err"], r["grad_err"])
+        out["rel"] = tuple(map(max, out["rel"], r["rel"]))
+        out["ratios"] = tuple(map(max, itertools.zip_longest(out["ratios"], r["ratios"], fillvalue=0.0)))
+    return out
+
+
+def expect_loss_width_limit(tag: str, D: int) -> None:
+    """Both pairs (B7/B8, B9/B10) refuse width ``D`` on CUDA tensors, naming
+    the limit, before any launch."""
+    import torch
+
+    from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_lse
+    from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse
+
+    q, z = torch.zeros(4, D, device=DEV), torch.zeros(4, device=DEV)
+    i = torch.zeros(4, dtype=torch.int32, device=DEV)
+    for fn, args in ((ce_lse, (q, q, z)), (ce_bwd, (q, q, z, z, z)), (sampled_lse, (q, q, z, i, i)),
+                     (sampled_bwd, (q, q, z, i, i, z, z))):
+        try:
+            fn(*args)
+        except ValueError as e:
+            assert "D <= 1024" in str(e) and f"D={D}" in str(e), e
+            log(f"[{tag}] D={D} refused: {e}")
+        else:
+            raise AssertionError(f"{fn.__name__} took D = {D}")
 
 
 def ce_wide_phase() -> dict:
     """B7 and B8 at D = 384 and 512 (``CE_D512_CASES``, ``ce_case``: B8
-    also element by element within ``ce_bound_ratios``' bound) and D = 513
-    refused, naming the limit. Returns the largest absolute errors, relative
-    errors and bound ratios."""
+    also element by element within ``ce_bound_ratios``' bound), and D = 513,
+    the limit before D = 768 and 1024 were built, taken (run at 768).
+    Returns the largest absolute errors, relative errors and bound
+    ratios."""
     import torch
 
-    from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_lse
-
     gen = torch.Generator(device=DEV).manual_seed(SEED + 19)
-    out = {"lse_err": 0.0, "grad_err": 0.0, "ratios": (0.0, 0.0), "rel": (0.0, 0.0)}
-    for N, V, D, real in CE_D512_CASES:
-        r = ce_case("ce_wide", N, V, D, real, gen)
-        out["lse_err"], out["grad_err"] = max(out["lse_err"], r["lse_err"]), max(out["grad_err"], r["grad_err"])
-        out["rel"] = tuple(map(max, out["rel"], r["rel"]))
-        out["ratios"] = tuple(map(max, out["ratios"], r["ratios"]))
-    q = torch.zeros(4, 513, device=DEV)
-    for fn, args in ((ce_lse, (q, q, torch.zeros(4, device=DEV))),
-                     (ce_bwd, (q, q, torch.zeros(4, device=DEV), torch.zeros(4, device=DEV), torch.zeros(4, device=DEV)))):
-        try:
-            fn(*args)
-        except ValueError as e:
-            assert "D <= 512" in str(e), e
-            log(f"[ce_wide] D=513 refused: {e}")
-        else:
-            raise AssertionError(f"{fn.__name__} took D = 513")
+    out = ce_cases("ce_wide", CE_D512_CASES, gen)
+    ce_case("ce_wide", 100, 700, 513, 650, gen)
+    log("[ce_wide] D=513 taken: run at 768 within the bounds above")
+    return out
+
+
+def check_plans() -> None:
+    """The wrappers' Python mirrors of the kernels' block shapes
+    (``fused_ce.lse_plan``, ``bwd_plan``, ``fused_sampled.plan``) against
+    the C side's (``ce_lse_plan``, ``ce_bwd_plan``, ``sampled_plan``) at
+    every width the kernels are built for and at widths they run padded."""
+    import ctypes
+
+    from poi_tpu_torch import _build
+    from poi_tpu_torch.ops import fused_ce, fused_sampled
+    from poi_tpu_torch.ops.widths import padded_dim
+
+    lib = _build.library()
+    buf = (ctypes.c_int * 8)()
+
+    def c_plan(fn, D, n):
+        assert fn(D, buf) == 1, D
+        return tuple(buf[:n])
+
+    widths = sorted(set(fused_ce.KERNEL_DIMS) | set(fused_sampled.KERNEL_DIMS) | {100, 300, 513, 600, 640, 1000})
+    for D in widths:
+        Dc = padded_dim(D, fused_ce.KERNEL_DIMS, "ce")
+        assert fused_ce.lse_plan(D) == c_plan(lib.ce_lse_plan, Dc, 3), (D, fused_ce.lse_plan(D))
+        assert fused_ce.bwd_plan(D) == c_plan(lib.ce_bwd_plan, Dc, 4), (D, fused_ce.bwd_plan(D))
+        Ds = padded_dim(max(D, 64), fused_sampled.KERNEL_DIMS, "sampled")
+        assert fused_sampled.plan(D) == c_plan(lib.sampled_plan, Ds, 7), (D, fused_sampled.plan(D))
+    assert lib.ce_lse_plan(1025, buf) == 0 and lib.sampled_plan(1025, buf) == 0
+    log(f"[ce_wider] the Python block plans equal the C side's at D = {widths}: "
+        + "; ".join(f"{D}: ce_lse {fused_ce.lse_plan(D)}, ce_bwd {fused_ce.bwd_plan(D)}, sampled {fused_sampled.plan(D)}"
+                    for D in (512, 768, 1024)))
+
+
+def ce_wider_phase() -> dict:
+    """B7 and B8 at D = 768 and 1024 on the K-chunked kernels
+    (``CE_D1024_CASES``, ``ce_case``: B8 element by element within
+    ``ce_bound_ratios``' bound), the block plans' Python mirrors against the
+    C side (``check_plans``), and D = 1025 refused by both loss pairs,
+    naming the limit. Returns the largest absolute errors, relative errors
+    and bound ratios."""
+    import torch
+
+    check_plans()
+    out = ce_cases("ce_wider", CE_D1024_CASES, torch.Generator(device=DEV).manual_seed(SEED + 23))
+    expect_loss_width_limit("ce_wider", 1025)
     return out
 
 
@@ -1104,7 +1249,8 @@ def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str,
     """Device time by kernel, on the inputs the earlier phases timed: B9
     (kernel and merge apart, also at ``SAMPLED_LSE_SPLITS``) and B10 (pass by
     pass, also at ``SAMPLED_SPLITS``) at config #4's shape, both at config
-    #5's (D = 512), B3 at config
+    #5's (D = 512), at config #4's at D = 1024 and config #5's rows at 768,
+    B3 at config
     #2's and at ``LSTM_TIMED`` (and at each cluster of
     ``LSTM_CLUSTER_CASES``), B5 at config #3's and at ``RNN_TIMED`` (and at
     each cluster of ``RNN_FWD_CLUSTER_CASES``), B6 (pass by pass, and at each
@@ -1119,6 +1265,9 @@ def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str,
              ("sampled_bwd", sampled["bwd"], sampled_bwd, SAMPLED_BWD_KERNELS),
              ("sampled_lse", sampled["lse_d512"], sampled_lse, SAMPLED_LSE_KERNELS),
              ("sampled_bwd", sampled["bwd_d512"], sampled_bwd, SAMPLED_BWD_KERNELS),
+             *((f"sampled_{d}", sampled[f"{d}_d{w}"], fn, names) for w in (1024, 768)
+               for d, fn, names in (("lse", sampled_lse, SAMPLED_LSE_KC_KERNELS),
+                                    ("bwd", sampled_bwd, SAMPLED_BWD_KERNELS))),
              *(("lstm_fwd", lstm[k], fused_lstm_scan, LSTM_FWD_KERNELS)
                for k in ("fwd", *(f"fwd_{k}" for k in LSTM_TIMED))),
              *(("rnn_fwd", rnn[k], fused_rnn_scan, RNN_FWD_KERNELS) for k in ("fwd", *(f"fwd_{k}" for k in RNN_TIMED))),
@@ -1169,9 +1318,11 @@ def sampled_case(N: int, S: int, D: int, V: int, gen, pad: int = 0, hits=None):
 
 def sampled_phase() -> dict:
     """B9 and B10 against their plain versions at config #4's shape and
-    config #5's (D = 512), at D = 384 (padded to 512), at pools that are no multiple of the 64-row tile
-    (padded as the TPU pads them), and with pool entries that are a hit for
-    every row; both timed at the two configs' shapes."""
+    config #5's (D = 512), at D = 384 (padded to 512), at pools that are no
+    multiple of the 64-row tile (padded as the TPU pads them), and with pool
+    entries that are a hit for every row; then the K-chunked kernels at
+    config #4's shape at D = 1024, config #5's rows at 768 and a ragged 640;
+    both timed at ``SAMPLED_TIMED``'s shapes."""
     import torch
 
     from poi_tpu_torch.ops.fused_sampled import (NEG, sampled_bwd, sampled_bwd_reference, sampled_lse,
@@ -1196,9 +1347,10 @@ def sampled_phase() -> dict:
         want = sampled_bwd_reference(q, e, b, ids, tgt, lse_tot, g)
         errs = [rel_err(a, w) for a, w in zip(got, want)]
         checked = b10_check((q, e, b, ids, tgt, lse_tot, g), got, want, f"sampled_bwd N={N} S={S} D={D}")
-        if D in B10_BOUND_DIMS:
+        if b10_bounded(D):
             out.setdefault("b10_ratios", []).append({"case": [N, S, D, V, pad, hits], "dq": checked[0],
-                                                     "de": checked[1]})
+                                                     "de": checked[1], **({"db": checked[2]} if len(checked) > 2
+                                                                          else {})})
         zero_rows = torch.cat([full_hits, torch.arange(S, S + pad, device=DEV)])
         assert bool((got[1][zero_rows] == 0).all()) and bool((got[2][zero_rows] == 0).all()), \
             "a hit column or a padded pool entry got gradient"
@@ -1210,36 +1362,44 @@ def sampled_phase() -> dict:
         all_hit = "; rows 0-19 (every entry a hit or padding) give -1e30" if hits == "all" else ""
         log(f"[sampled] N={N} S={S}{f'+{pad} padded' if pad else ''} D={D}: {n_hits} hits; lse max err {e_lse:.2e} "
             f"(tol {CE_LSE_TOL}){all_hit}; rel err dq {errs[0]:.2e}, de {errs[1]:.2e} ("
-            + (f"element-wise bound: largest |err| / bound dq {checked[0]:.4f}, de {checked[1]:.4f}, each <= 1"
-               if D in B10_BOUND_DIMS else f"tol {CE_GRAD_TOL}")
-            + f"), db {errs[2]:.2e} (tol {CE_DBIAS_TOL}); {len(zero_rows)} hit/padded pool rows exactly 0; a second run gives "
+            + (f"element-wise bound: largest |err| / bound dq {checked[0]:.4f}, de {checked[1]:.4f}"
+               + (f", db {checked[2]:.4f}" if len(checked) > 2 else "") + ", each <= 1"
+               if b10_bounded(D) else f"tol {CE_GRAD_TOL}")
+            + f"), db {errs[2]:.2e}" + ("" if len(checked) > 2 else f" (tol {CE_DBIAS_TOL})")
+            + f"; {len(zero_rows)} hit/padded pool rows exactly 0; a second run gives "
             f"the same bits; every forced split of B9 within the tolerance")
-        key = {SAMPLED_CASES[0]: "", SAMPLED_C5: "_d512"}.get((N, S, D, V, pad, hits))
+        key = SAMPLED_TIMED.get((N, S, D, V, pad, hits))
         if key is not None:
             # No single PyTorch call computes the masked pool LSE or its
             # gradients: no library time.
-            if key:  # the D = 512 rows' own parity (the top-level rows carry every case's worst)
+            if key:  # the wider rows' own parity (the top-level rows carry every case's worst)
                 out["lse_err" + key] = e_lse
                 out["grad_err" + key] = max(float((a - w).abs().max()) for a, w in zip(got, want))
             out["lse" + key] = {"ms": time_ms(lambda: sampled_lse(q, e, b, ids, tgt)),
                                 "plain_ms": time_ms(lambda: sampled_lse_reference(q, e, b, ids, tgt)),
                                 "library_ms": None, **bound((q, e, b, ids, tgt), (lse,), bf16_flop=2 * N * S * D),
+                                "bound_kernel_ms": loss_kernel_flop("sampled_lse", N, S, D) / BF16_FLOP_PER_S * 1e3,
                                 "args": (q, e, b, ids, tgt)}
             out["bwd" + key] = {"ms": time_ms(lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g)),
                                 "plain_ms": time_ms(lambda: sampled_bwd_reference(q, e, b, ids, tgt, lse_tot, g)),
                                 "library_ms": None,
                                 **bound((q, e, b, ids, tgt, lse_tot, g), got, bf16_flop=6 * N * S * D),
+                                "bound_kernel_ms": loss_kernel_flop("sampled_bwd", N, S, D) / BF16_FLOP_PER_S * 1e3,
                                 "args": (q, e, b, ids, tgt, lse_tot, g)}
             for d in ("lse", "bwd"):
                 t = out[d + key]
                 log(f"[time] sampled_{d} N={N} S={S} D={D}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; "
-                    f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+                    f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; the kernel's own count "
+                    f"{t['bound_kernel_ms']:.4f} ms)")
             sampled_splits(q, e, b, ids, tgt, lse_tot, g, got)
             sampled_nll_bits(q, e, b, ids, tgt, g)
+    # The K-chunked B10's largest |err| / element-wise bound, dq's and dE's, by width.
+    out["b10_ratios_max"] = {w: [max(r[k] for r in out["b10_ratios"] if r["case"][2] == w)
+                                 for k in ("dq", "de", "db")] for w in (768, 1024)}
     return out
 
 
-def b10_bound_ratios(args, got, want) -> tuple[float, float]:
+def b10_bound_ratios(args, got, want, with_db: bool = False) -> tuple:
     """B10's outputs ``got`` against the plain version's ``want`` element by
     element: the largest |dq - dq_plain| / bound and |dE - dE_plain| /
     bound, each <= 1 for a correct kernel (0/0 counts as 0). ``args``: the
@@ -1268,7 +1428,10 @@ def b10_bound_ratios(args, got, want) -> tuple[float, float]:
     |dE - dE_plain| <= (c |gp| + 3.03 (N - 1) u |gpb|)^T @ |q_bf16|, with
     c = 2^-7 + 1.01 delta. Unlike the largest error over the largest value
     (``rel_err``), it catches one small element that is far off. Hit and
-    padded columns have gp = 0 on both sides, so their bound is 0."""
+    padded columns have gp = 0 on both sides, so their bound is 0.
+    ``with_db``: also db's ratio, db being fp32 sums of the unrounded gp over
+    the N rows: |db - db_plain| <= colsum(1.01 delta |gp| + 3.03 (N - 1) u
+    |gp|)."""
     import torch
 
     from poi_tpu_torch.ops.fused_sampled import sampled_logits_reference
@@ -1286,22 +1449,41 @@ def b10_bound_ratios(args, got, want) -> tuple[float, float]:
     del gp
     delta = 3 * D * u * (qa @ ea.T) + 4 * u * (z.abs() + x.abs()) + 2 * u + (4 + 1.2 * x.abs()) * 2 * u
     del z, x
+    bounds = [((1.01 * delta + 3.03 * (N - 1) * u) * gpa).sum(dim=0)] if with_db else []
     cg = (2.0 ** -7 + 1.01 * delta) * gpa
     del delta, gpa
-    bounds = ((cg + 3.03 * (S - 1) * u * gpba) @ ea, (cg + 3.03 * (N - 1) * u * gpba).T @ qa)
+    bounds = [(cg + 3.03 * (S - 1) * u * gpba) @ ea, (cg + 3.03 * (N - 1) * u * gpba).T @ qa, *bounds]
     ratios = []
-    for a, w, bd in zip(got[:2], want[:2], bounds):
+    for a, w, bd in zip(got, want, bounds):
         err = (a - w).abs()
         ratios.append(float(torch.where(err == 0, 0.0, err / bd).max()))
-    return ratios[0], ratios[1]
+    return tuple(ratios)
 
 
-def b10_check(args, got, want, what: str) -> tuple[float, float]:
+def b10_bounded(D: int) -> bool:
+    """Whether ``b10_check`` holds B10 at width ``D`` by its element-wise
+    bound: at ``B10_BOUND_DIMS`` and where the kernels run K-chunked."""
+    from poi_tpu_torch.ops.fused_sampled import KERNEL_DIMS
+    from poi_tpu_torch.ops.widths import padded_dim
+
+    return D in B10_BOUND_DIMS or kchunked(padded_dim(D, KERNEL_DIMS, "sampled_bwd"))
+
+
+def b10_check(args, got, want, what: str) -> tuple:
     """B10's outputs against the plain version's: dq and dE by the
     element-wise bound at ``B10_BOUND_DIMS`` (the ratios returned, each
     <= 1), by ``CE_GRAD_TOL`` of ``rel_err`` below (those returned); db by
-    ``CE_DBIAS_TOL`` (fp32 sums of the unrounded gp)."""
+    ``CE_DBIAS_TOL`` (fp32 sums of the unrounded gp). Where the kernels run
+    K-chunked (``kchunked``), all three by the bound (three ratios
+    returned)."""
+    from poi_tpu_torch.ops.fused_sampled import KERNEL_DIMS
+    from poi_tpu_torch.ops.widths import padded_dim
+
     db = rel_err(got[2], want[2])
+    if kchunked(padded_dim(args[0].shape[1], KERNEL_DIMS, "sampled_bwd")):
+        ratios = b10_bound_ratios(args, got, want, with_db=True)
+        assert max(ratios) <= 1.0, f"{what}: |err| / element-wise bound dq/de/db {ratios}, db rel err {db}"
+        return ratios
     if args[0].shape[1] in B10_BOUND_DIMS:
         ratios = b10_bound_ratios(args, got, want)
         assert max(ratios) <= 1.0 and db < CE_DBIAS_TOL, \
@@ -1962,9 +2144,9 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
-def train_both_paths(tag: str, cfg, ds, tree, used: tuple, fwd: str = "gru_fwd", steps: int = TRAIN_STEPS,
+def train_both_paths(tag: str, cfg, ds, tree, used: tuple, fwd: str = "gru_fwd", steps: int = PATH_STEPS,
                      split: str = "test"):
-    """``steps`` (40) device-sampled steps through ``train()``, the loop a
+    """``steps`` (20) device-sampled steps through ``train()``, the loop a
     user runs, on the kernel path and on the plain path (``PLAIN_OVERRIDES``)
     from the params ``tree``; every step a log step, so the history holds
     each step's loss (read once, after the chunk). Compares the per-step
@@ -2057,7 +2239,7 @@ def train_phase(state) -> None:
 
 
 def attention_train_phase(state) -> None:
-    """Config #4 trains 40 device-sampled steps through ``train()`` on the
+    """Config #4 trains 20 device-sampled steps through ``train()`` on the
     kernel path and on the plain path from the same random init, at its full
     width (dropout 0.3, sampled softmax over 1,024 negatives, lazy Adam on
     the tables); both paths draw the pool and the dropout masks from the
@@ -2311,7 +2493,9 @@ def cli_train_phase(state) -> None:
 # the end), then WIDE_STEPS steps a path through train() and Recommender on
 # both paths: B1/B2 on the grid, B7/B8 at D = 512, B11 at D = 512.
 WIDE_SETS = {"model.embed_dim": "512", "model.hidden_dim": "1024"}
-WIDE_CLI_STEPS, WIDE_STEPS, WIDE_TIME_CHUNK = 10, 5, 10
+# The wide and wider paths' steps are timed over WIDE_TIME_CHUNK-step
+# chunks (10 before the wider paths' phases came).
+WIDE_CLI_STEPS, WIDE_STEPS, WIDE_TIME_CHUNK = 10, 5, 5
 
 
 # Path 1: config #3 at its reference's 256-d probe (BASELINE.md:27,
@@ -2453,6 +2637,70 @@ def rec_wide_path_phase(state, tag: str) -> None:
     kern, both, _ = train_both_paths(f"{tag}_wide_path", cfg, ds, tree, used=used, fwd=used[0], steps=WIDE_STEPS)
     serve_both_paths(f"{tag}_wide_path serve", cfg, ds, params_to_numpy(kern.model), used[0])
     state[f"{tag}_wide"] = {"launches": launches, "both_launches": both, "cfg": cfg, "tree": tree}
+
+
+# The wider paths: the bench workload ("bench") and config #4 ("c4") at
+# D = H = 1024, which the reference trains and the port refused before the
+# K-chunked loss kernels (csrc/kchunk.cuh): the train CLI for
+# WIDER_CLI_STEPS steps in this process (the bench workload device-sampled
+# in calls of 5 steps, config #4 through the preset's host loader; the val
+# and test evaluations at the end), then WIDE_STEPS device-sampled steps a
+# path through train() from one init (config #4 at the preset's dropout),
+# and Recommender at request batch 1 and 256 on both paths: B1/B2 on the
+# grid, B7/B8 (bench) or B9/B10 (config #4) at D = 1024, B11 at D = 1024.
+WIDER_SETS = {"model.embed_dim": "1024", "model.hidden_dim": "1024"}
+WIDER_CLI_STEPS = 10
+WIDER_PATHS = {"bench": ("smoke", ("gru_fwd", "gru_bwd", "ce_lse", "ce_bwd")),
+               "c4": (ATTN_CONFIG, ("gru_fwd", "gru_bwd", "sampled_lse", "sampled_bwd"))}
+
+
+def wider_path_phase(state, tag: str) -> None:
+    """The wider bench path (``tag`` bench) or the wider config #4 path (c4)
+    as a user runs it: ``python -m poi_tpu_torch train --config <smoke --set
+    BENCH_OVERRIDES, or attention_gowalla> --set model.embed_dim=1024
+    model.hidden_dim=1024`` for ``WIDER_CLI_STEPS`` steps, run in this
+    process (``cli.main``) so its launches are counted (exit 0, finite
+    losses, the path's four kernels and B11 launched); then ``WIDE_STEPS``
+    device-sampled steps through ``train()`` on the kernel and the plain
+    path from one init (``train_both_paths``: losses at PERF.md §2's limits,
+    evaluate on test), and ``Recommender`` at request batch 1 and 256 on both
+    paths (``serve_both_paths``: B1 at H = 1024, B11 at D = 1024)."""
+    import contextlib
+    import io
+
+    from poi_tpu_torch import cli
+    from poi_tpu_torch.convert import params_to_numpy
+    from poi_tpu_torch.train.loop import make_trainer
+
+    config, used = WIDER_PATHS[tag]
+    sets = {**WIDER_SETS, "train.num_steps": str(WIDER_CLI_STEPS), "train.eval_every": str(WIDER_CLI_STEPS),
+            "train.log_every": "5"}
+    if tag == "bench":
+        sets = {**BENCH_OVERRIDES, **sets, "train.steps_per_call": "5"}
+    argv = ["train", "--config", config, "--device", DEV, "--no-checkpoint", "--set",
+            *(f"{k}={v}" for k, v in sets.items())]
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    launches = read_launches()
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    losses = [row["loss"] for row in out["history"]]
+    log(f"[wider_{tag}_path] python -m poi_tpu_torch {' '.join(argv)}: exit {rc} in {time.perf_counter() - t0:.1f} s, "
+        f"loss by log step {losses}, final recall@10 {out['final']['recall@10']:.4f} (popularity "
+        f"{out['popularity_baseline']['recall@10']:.4f}), {out['history'][-1]['seqs_per_sec']:.1f} seq/s over the "
+        f"last log interval; launches {launches}")
+    assert rc == 0 and out["steps"] == WIDER_CLI_STEPS and all(math.isfinite(v) for v in losses), out["history"]
+    assert all(math.isfinite(v) for v in out["final"].values()), out["final"]
+    for name in (*used, "topk"):
+        assert launches[name] > 0, f"wider_{tag}_path: no {name} launch: {launches}"
+    base, ds = (state["bench_cfg"], state["bench_ds"]) if tag == "bench" else (state["attn_cfg"], state["attn_ds"])
+    cfg = base.with_overrides(WIDER_SETS)
+    tree = params_to_numpy(make_trainer(cfg, ds, DEV).model)  # the trainer's own seeded init
+    kern, both, _ = train_both_paths(f"wider_{tag}_path", cfg, ds, tree, used=used, steps=WIDE_STEPS)
+    serve_both_paths(f"wider_{tag}_path serve", cfg, ds, params_to_numpy(kern.model))
+    state[f"wider_{tag}"] = {"launches": launches, "both_launches": both, "cfg": cfg, "tree": tree, "ds": ds}
 
 
 # Path 2: config #4 at full width through the host loader (the preset's
@@ -2876,7 +3124,7 @@ def timing_phase(state, gpu: str) -> dict:
     cases = [("topk", 256, "serve", 128), ("topk_k10", 256, "serve", 10), ("topk_b1", 1, "serve", 128),
              ("topk_b1_k10", 1, "serve", 10), ("topk_eval", eval_batch, "eval", 10), ("topk_eval256", 256, "eval", 10),
              ("topk_c4", 256, "c4", 10), ("topk_serve70k", 256, "serve70k", 32), ("topk_serve70k_b1", 1, "serve70k", 32),
-             ("topk_c5", 512, "c5", 10)]
+             ("topk_c5", 512, "c5", 10), ("topk_eval_d1024", eval_batch, "eval1024", 10)]
     for name, B, cat, k in cases:
         table, bias = catalogs[cat]
         q = torch.randn(B, table.shape[1], generator=gen, device=DEV)
@@ -3032,10 +3280,13 @@ def train_timing_phase(state, gpu: str) -> dict:
     # gradients from a given LSE: no library time. B8 at the bench shape and
     # at config #3's, its two passes apart from the profiler's device time.
     # Then B7/B8 at D = 256: config #3's 256-d shape (path 1) and the bench
-    # shape; and at D = 512: config #3's shape and the bench shape (the wide
-    # path's CE).
+    # shape; at D = 512: config #3's shape and the bench shape (the wide
+    # path's CE); and on the K-chunked kernels: the bench shape at D = 1024
+    # (the wider bench path's CE) and config #3's at 768. Each bound at the
+    # function's count and at the kernel's own (loss_kernel_flop).
     for key, (N, V, D) in (("", CE_TRAIN_SHAPE), ("_c3", CE_C3_SHAPE), ("_c3_d256", CE_C3_D256),
-                           ("_d256", CE_WIDE_CASES[1][:3]), ("_c3_d512", CE_C3_D512), ("_d512", CE_BENCH_D512)):
+                           ("_d256", CE_WIDE_CASES[1][:3]), ("_c3_d512", CE_C3_D512), ("_d512", CE_BENCH_D512),
+                           ("_d1024", CE_BENCH_D1024), ("_c3_d768", CE_C3_D768)):
         q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
         table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
         bias = torch.randn(V, generator=gen, device=DEV)
@@ -3043,32 +3294,39 @@ def train_timing_phase(state, gpu: str) -> dict:
         lse = ce_lse_reference(q, table, bias)
         flop = 2 * N * V * D
         # B7 at both shapes, its split kernel and merge apart in device time.
+        lse_names = ce_lse_kernels(D)
         out["ce_lse" + key] = {"ms": time_ms(lambda: ce_lse(q, table, bias)),
                                "plain_ms": time_ms(lambda: ce_lse_reference(q, table, bias), 5), "library_ms": None,
                                **ce_lse_bound(q, table, bias, lse),
-                               **device_parts(lambda: ce_lse(q, table, bias), CE_LSE_KERNELS)}
+                               "bound_kernel_ms": loss_kernel_flop("ce_lse", N, V, D) / BF16_FLOP_PER_S * 1e3,
+                               **device_parts(lambda: ce_lse(q, table, bias), lse_names)}
+        for n in CE_LSE_KERNELS:  # the record's keys, under B7's kernel names at every width
+            out["ce_lse" + key][f"{n}_ms"] = out["ce_lse" + key].pop(f"{lse_names[CE_LSE_KERNELS.index(n)]}_ms")
         t = {"ms": time_ms(lambda: ce_bwd(q, table, bias, lse, g)),
              "plain_ms": time_ms(lambda: ce_bwd_reference(q, table, bias, lse, g), 5), "library_ms": None,
-             **bound((q, table, bias, lse, g), ce_bwd(q, table, bias, lse, g), bf16_flop=3 * flop)}
+             **bound((q, table, bias, lse, g), ce_bwd(q, table, bias, lse, g), bf16_flop=3 * flop),
+             "bound_kernel_ms": loss_kernel_flop("ce_bwd", N, V, D) / BF16_FLOP_PER_S * 1e3}
         parts = sweep_ce_bwd.pass_ms(lambda: ce_bwd(q, table, bias, lse, g), 10)
         t.update({f"{name.split()[0]}_ms": parts[name] for name in ("dq pass", "dtable pass")},
                  sum_splits_ms=parts.get("sum_splits"))
         out["ce_bwd" + key] = t
         for name in ("ce_lse" + key, "ce_bwd" + key):
             t = out[name]
-            products = 1 if name.startswith("ce_lse") else 4
-            apart = ("; " + parts_text(t, CE_LSE_KERNELS) if name.startswith("ce_lse") else
+            rate = loss_kernel_flop(name.split("_c3")[0].split("_d")[0], N, V, D) / t["ms"] / 1e9
+            apart = ("; " + parts_text({**t, f"{lse_names[0]}_ms": t[f"{CE_LSE_KERNELS[0]}_ms"]}, lse_names)
+                     if name.startswith("ce_lse") else
                      f"; device time dq pass {t['dq_ms']:.4f} ms, dtable pass {t['dtable_ms']:.4f} ms"
                      + (f", sum_splits {t['sum_splits_ms']:.4f} ms" if t["sum_splits_ms"] is not None else ""))
-            log(f"[time] {name} N={N} V={V} D={D}: kernel {t['ms']:.4f} ms ({products * flop / t['ms'] / 1e9:.1f} "
-                f"TFLOP/s of catalog products), plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
-                f"({t['bound_by']}, {t['bound_pipe']}){apart}  ({gpu})")
+            log(f"[time] {name} N={N} V={V} D={D}: kernel {t['ms']:.4f} ms ({rate:.1f} TFLOP/s of the kernel's "
+                f"catalog products), plain {t['plain_ms']:.4f} ms; bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bound_pipe']}; at the kernel's own count "
+                f"{t['bound_kernel_ms']:.4f} ms){apart}  ({gpu})")
 
     from poi_tpu_torch.train.loop import make_trainer
 
     cfg, ds, tree = state["bench_cfg"], state["bench_ds"], state["bench_tree"]
     trainers = {"kernels": make_trainer(cfg, ds, DEV), "plain": make_trainer(cfg.with_overrides(PLAIN_OVERRIDES), ds, DEV)}
-    out["train_step"] = step_timing("bench workload", trainers, tree, TRAIN_STEPS, gpu)
+    out["train_step"] = step_timing("bench workload", trainers, tree, BENCH_TIME_CHUNK, gpu)
 
     # Dense vs fused CE loss (forward + backward) on both sides of the 8,192
     # threshold: config #1's shape, and the bench shape at both catalogs.
@@ -3087,8 +3345,8 @@ def train_timing_phase(state, gpu: str) -> dict:
 
 def config_timing_phase(state, gpu: str) -> dict:
     """Config #4's train step on both paths, with its device-time profile;
-    then configs #2 and #3, the wide path, and the wide LSTM and ST-RNN
-    paths."""
+    then configs #2 and #3, the wide path, the wide LSTM and ST-RNN paths,
+    and the wider bench and config #4 paths."""
     from poi_tpu_torch.train.loop import make_trainer
 
     out = {}
@@ -3113,6 +3371,14 @@ def config_timing_phase(state, gpu: str) -> dict:
         out[f"{tag}_wide_train_step"] = step_timing(f"the wide {tag} path (config {REC_CONFIGS[tag][0]} at D = 512, "
                                                     f"H = 1024)", trainers, w["tree"], WIDE_TIME_CHUNK, gpu,
                                                     profiled=2)
+    # The wider paths' steps (the bench workload and config #4 at D = H =
+    # 1024), the same way.
+    for tag, (config, _) in WIDER_PATHS.items():
+        w = state[f"wider_{tag}"]
+        trainers = {"kernels": make_trainer(w["cfg"], w["ds"], DEV),
+                    "plain": make_trainer(w["cfg"].with_overrides(PLAIN_OVERRIDES), w["ds"], DEV)}
+        out[f"wider_{tag}_train_step"] = step_timing(f"the wider {tag} path ({config} at D = H = 1024)", trainers,
+                                                     w["tree"], WIDE_TIME_CHUNK, gpu, profiled=2)
     return out
 
 
@@ -3191,20 +3457,29 @@ bl = torch.randn(cs.CE_TRAIN_SHAPE[0], generator=gen, device="cuda") + 8.0
 bg = torch.rand(cs.CE_TRAIN_SHAPE[0], generator=gen, device="cuda")
 sq, st, sb = (0.3 * torch.randn(300, 32, generator=gen, device="cuda"), 0.3 * torch.randn(8193, 32, generator=gen,
               device="cuda"), torch.randn(8193, generator=gen, device="cuda"))
+# B7/B8 at D = 512 and 384 on config #3's rows, and B9/B10 at D = 512 on
+# config #4's: the widest the parent took before D = 768 and 1024.
+xq, xt = (0.3 * torch.randn(n, 512, generator=gen, device="cuda") for n in cs.CE_C3_D512[:2])
+xb = torch.randn(cs.CE_C3_D512[1], generator=gen, device="cuda")
+q5, e5, b5, ids5, tgt5, lse5, g5 = cs.sampled_case(8192, 1024, 512, 36969, gen)
 # B12 at the sweep's shape and 128 rows, which both checkouts take; "ce_lse"
 # names the kernel of either design (ce_lse_kernel, ce_lse_wg_kernel). B7 at
 # the bench shape, and on config #3's 2,048 rows (its split-and-merge path).
 variant = lambda v: (lambda: (ce_lse_variant(cq, ct, cb, v, 128),), ("ce_lse",))  # noqa: E731
 calls = {**{f"ce_lse_variant_{v}": variant(v) for v in ("base", "exp2", "nomax")},
          "ce_lse": (lambda: (ce_lse(bq, bt, bb), ce_lse(bq[:cs.CE_C3_SHAPE[0]], bt, bb), ce_lse(wq, wt, wb),
-                             ce_lse(wq[:, :192], wt[:, :192], wb)), cs.CE_LSE_KERNELS),
+                             ce_lse(wq[:, :192], wt[:, :192], wb), ce_lse(xq, xt, xb),
+                             ce_lse(xq[:, :384], xt[:, :384], xb)), cs.CE_LSE_KERNELS),
          # B8 at the bench shape, on config #3's 2,048 rows (its split
-         # passes), at D = 32 on ragged N and V, and at D = 256 and 192.
+         # passes), at D = 32 on ragged N and V, and at D = 256, 192, 512
+         # and 384.
          "ce_bwd": (lambda: (*ce_bwd(bq, bt, bb, bl, bg),
                              *ce_bwd(bq[:cs.CE_C3_SHAPE[0]], bt, bb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]]),
                              *ce_bwd(sq, st, sb, bl[:300], bg[:300]),
                              *ce_bwd(wq, wt, wb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]]),
-                             *ce_bwd(wq[:, :192], wt[:, :192], wb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]])),
+                             *ce_bwd(wq[:, :192], wt[:, :192], wb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]]),
+                             *ce_bwd(xq, xt, xb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]]),
+                             *ce_bwd(xq[:, :384], xt[:, :384], xb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]])),
                     ("ce_bwd_pass", "sum_splits")),
          "gru_fwd": (lambda: (fused_gru_scan(xw, wh), fused_gru_scan(xw6, wh6), *(fused_gru_scan(a, w) for a, w in gw)),
                      cs.GRU_FWD_KERNELS),
@@ -3213,8 +3488,10 @@ calls = {**{f"ce_lse_variant_{v}": variant(v) for v in ("base", "exp2", "nomax")
                      cs.RNN_BWD_KERNELS),
          "lstm_fwd": (lambda: (*fused_lstm_scan(lx, lmask, lw), *fused_lstm_scan(lx5, lmask5, lw5)),
                       cs.LSTM_FWD_KERNELS),
-         "sampled_lse": (lambda: (sampled_lse(q, e, b, ids, tgt),), cs.SAMPLED_LSE_KERNELS),
-         "sampled_bwd": (lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g), cs.SAMPLED_BWD_KERNELS),
+         "sampled_lse": (lambda: (sampled_lse(q, e, b, ids, tgt), sampled_lse(q5, e5, b5, ids5, tgt5)),
+                         cs.SAMPLED_LSE_KERNELS),
+         "sampled_bwd": (lambda: (*sampled_bwd(q, e, b, ids, tgt, lse_tot, g),
+                                  *sampled_bwd(q5, e5, b5, ids5, tgt5, lse5, g5)), cs.SAMPLED_BWD_KERNELS),
          "gru_bwd": (lambda: (*fused_gru_bwd(xw, wh, gh, gdh), *fused_gru_bwd(xw6, wh6, gh6, gdh6),
                               *(o for (a, w), h, d in zip(gw, gwh, gwd) for o in fused_gru_bwd(a, w, h, d))),
                      cs.GRU_BWD_KERNELS),
@@ -3299,7 +3576,7 @@ MESH_TIMEOUT = 600
 # own factor, whose drops the overflow metric counts.
 MESH_C5_SETS = {k: v for k, v in C5_SETS.items() if not k.startswith("mesh.")}
 MESH_EXACT = {"mesh.a2a_capacity_factor": str(float(MESH_WORLD))}
-MESH_C5_STEPS = 5
+MESH_C5_STEPS = 3  # 5 before the wider paths' phases came
 # The bench workload on 2 x 2: psum lookups, the sharded CE, dense Adam with the clip.
 MESH_BENCH_SETS = {**BENCH_OVERRIDES, "mesh.data": "2", "mesh.model": "2", "mesh.embedding_mode": "psum"}
 MESH_BENCH_STEPS = 10
@@ -4138,9 +4415,12 @@ def mesh_phase(state, gpu: str) -> dict:
     return out
 
 
-# The kernels line's keys of B7/B8 at D = 256 and 512 and their timing keys.
+# The kernels line's keys of B7/B8 at D = 256, 512, 1024 and 768 and their
+# timing keys.
 D256_KEYS = {"config3_d256": "_c3_d256", "bench_d256": "_d256"}
 D512_KEYS = {"config3_d512": "_c3_d512", "bench_d512": "_d512"}
+D1024_KEYS = {"bench_d1024": "_d1024", "config3_d768": "_c3_d768"}
+CE_KEYS = {**D256_KEYS, **D512_KEYS, **D1024_KEYS}
 
 
 def record(name: str, source: str, replaces: str, launches: int, max_abs_err: float, t: dict, **extra) -> dict:
@@ -4183,6 +4463,7 @@ def main() -> int:
     big = phase("gru_big", gru_big_phase)
     wide = phase("gru_wide", gru_wide_phase)
     ce_wide = phase("ce_wide", ce_wide_phase)
+    ce_wider = phase("ce_wider", ce_wider_phase)
     sampled = phase("sampled", sampled_phase)
     lstm = phase("lstm", lstm_phase)
     rnn = phase("rnn", rnn_phase)
@@ -4200,6 +4481,8 @@ def main() -> int:
     phase("gru_wide_path", gru_wide_path_phase, state)
     phase("lstm_wide_path", rec_wide_path_phase, state, "lstm")
     phase("strnn_wide_path", rec_wide_path_phase, state, "strnn")
+    phase("wider_bench_path", wider_path_phase, state, "bench")
+    phase("wider_c4_path", wider_path_phase, state, "c4")
     phase("host_loader", host_loader_phase, state)
     mesh = phase("mesh", mesh_phase, state, gpu)
     phase("cli_train", cli_train_phase, state)
@@ -4260,6 +4543,12 @@ def main() -> int:
     # B7/B8 at config #3's shape at D = 512 its launches.
     c2w, c3w = state["lstm_wide"]["launches"], state["strnn_wide"]["launches"]
     d256.update({"config3_d512": c3w, "bench_d512": wl})
+    # B7/B8 at D = 1024: the bench shape with the wider bench path's launches
+    # (its train CLI at 10 steps, GRU H = 1024); config #3's shape at 768 has
+    # no main path. B9/B10 at D = 1024: config #4's shape with the wider
+    # config #4 path's launches; config #5's rows at 768 have no main path.
+    wb, wc4 = state["wider_bench"]["launches"], state["wider_c4"]["launches"]
+    d256.update({"bench_d1024": wb, "config3_d768": {"ce_lse": 0, "ce_bwd": 0}})
     h256 = lambda d: {f"{k}_h256": big[d][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}  # noqa: E731
     fwd_at = lambda t: {f: t[f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}  # noqa: E731
     kernels = [
@@ -4308,35 +4597,46 @@ def main() -> int:
                config3={f: times["ce_lse_c3"][f] for f in ("ms", "plain_ms", "bound_ms", "device_ms",
                                                            *(f"{n}_ms" for n in CE_LSE_KERNELS))},
                config3_launches=c3["ce_lse"],
-               **{k: {**{f: times[f"ce_lse{key}"][f] for f in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
+               **{k: {**{f: times[f"ce_lse{key}"][f] for f in ("ms", "plain_ms", "bound_ms", "bound_kernel_ms",
+                                                                "library_ms", "device_ms",
                                                                 *(f"{n}_ms" for n in CE_LSE_KERNELS))},
-                      "launches": d256[k]["ce_lse"]} for k, key in {**D256_KEYS, **D512_KEYS}.items()},
-               max_abs_err_d512=ce_wide["lse_err"]),
+                      "launches": d256[k]["ce_lse"]} for k, key in CE_KEYS.items()},
+               max_abs_err_d512=ce_wide["lse_err"], max_abs_err_d1024=ce_wider["lse_err"]),
         record("ce_bwd", "ce_bwd.cu", "poi_tpu/ops/fused_ce.py:210", trained["ce_bwd"], ce_grad_err, times["ce_bwd"],
                dq_ms=times["ce_bwd"]["dq_ms"], dtable_ms=times["ce_bwd"]["dtable_ms"],
                config3={f: times["ce_bwd_c3"][f] for f in ("ms", "plain_ms", "bound_ms", "dq_ms", "dtable_ms",
                                                            "sum_splits_ms")},
                config3_launches=c3["ce_bwd"],
-               **{k: {**{f: times[f"ce_bwd{key}"][f] for f in ("ms", "plain_ms", "bound_ms", "library_ms", "dq_ms",
-                                                                "dtable_ms", "sum_splits_ms")},
-                      "launches": d256[k]["ce_bwd"]} for k, key in {**D256_KEYS, **D512_KEYS}.items()},
+               **{k: {**{f: times[f"ce_bwd{key}"][f] for f in ("ms", "plain_ms", "bound_ms", "bound_kernel_ms",
+                                                                "library_ms", "dq_ms", "dtable_ms", "sum_splits_ms")},
+                      "launches": d256[k]["ce_bwd"]} for k, key in CE_KEYS.items()},
                max_abs_err_d512=ce_wide["grad_err"], rel_err_d512=list(ce_wide["rel"]),
-               bound_ratios_d512=list(ce_wide["ratios"])),
+               bound_ratios_d512=list(ce_wide["ratios"]), max_abs_err_d1024=ce_wider["grad_err"],
+               rel_err_d1024=list(ce_wider["rel"]), bound_ratios_d1024=list(ce_wider["ratios"])),
         record("sampled_lse", "sampled.cu", "poi_tpu/ops/fused_sampled.py:76", attn["sampled_lse"],
                sampled["lse_err"], sampled["lse"],
                **{k: sampled["lse"][k] for k in ("device_ms", *(f"{n}_ms" for n in SAMPLED_LSE_KERNELS))},
-               d512={**at5(sampled["lse_d512"], c5["sampled_lse"]), "max_abs_err": sampled["lse_err_d512"]}),
+               d512={**at5(sampled["lse_d512"], c5["sampled_lse"]), "max_abs_err": sampled["lse_err_d512"]},
+               **{f"d{w}": {**at5(sampled[f"lse_d{w}"], n), "bound_kernel_ms": sampled[f"lse_d{w}"]["bound_kernel_ms"],
+                            "max_abs_err": sampled[f"lse_err_d{w}"],
+                            **{f"{k}_ms": sampled[f"lse_d{w}"][f"{k}_ms"] for k in SAMPLED_LSE_KC_KERNELS}}
+                  for w, n in ((1024, wc4["sampled_lse"]), (768, 0))}),
         record("sampled_bwd", "sampled.cu", "poi_tpu/ops/fused_sampled.py:103", attn["sampled_bwd"],
                sampled["grad_err"], sampled["bwd"],
                **{k: sampled["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in SAMPLED_BWD_KERNELS))},
                d512={**at5(sampled["bwd_d512"], c5["sampled_bwd"]), "max_abs_err": sampled["grad_err_d512"],
-                     **{f"{n}_ms": sampled["bwd_d512"][f"{n}_ms"] for n in SAMPLED_BWD_KERNELS}}),
+                     **{f"{n}_ms": sampled["bwd_d512"][f"{n}_ms"] for n in SAMPLED_BWD_KERNELS}},
+               **{f"d{w}": {**at5(sampled[f"bwd_d{w}"], n), "bound_kernel_ms": sampled[f"bwd_d{w}"]["bound_kernel_ms"],
+                            "max_abs_err": sampled[f"grad_err_d{w}"], "bound_ratios": sampled["b10_ratios_max"][w],
+                            **{f"{k}_ms": sampled[f"bwd_d{w}"][f"{k}_ms"] for k in SAMPLED_BWD_KERNELS}}
+                  for w, n in ((1024, wc4["sampled_bwd"]), (768, 0))}),
         record("topk", "topk.cu", "poi_tpu/ops/topk.py:58", served["topk"], topk_err, times["topk"],
                device_ms=times["topk"]["device_ms"], library_device_ms=times["topk"]["library_device_ms"],
                **{case: {f: times[case][f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
                                                     "bound_ms")}
                   for case in ("topk_k10", "topk_b1", "topk_b1_k10", "topk_eval", "topk_eval256", "topk_c4",
-                               "topk_serve70k", "topk_serve70k_b1")},
+                               "topk_serve70k", "topk_serve70k_b1", "topk_eval_d1024")},
+               wider_launches={"bench": wb["topk"], "c4": wc4["topk"]},
                config5={**at5(times["topk_c5"], c5_eval["topk"]),
                         "library_device_ms": times["topk_c5"]["library_device_ms"]}),
         record("ce_lse_variants", "ce.cu", "scripts/sweep_ce_fwd.py:30,58", sum(swept.values()),

@@ -65,11 +65,14 @@ _SIGNATURES = {
     "rnn_bwd_fits": [_I, _I],
     "rnn_bwd": [_P] * 8 + [_I] * 5 + [_P],
     "ce_supports_dim": [_I],
+    "ce_lse_plan": [_I, ctypes.POINTER(_I)],
+    "ce_bwd_plan": [_I, ctypes.POINTER(_I)],
     "ce_lse_scratch": [_I, _I, _I, _I],
     "ce_lse_variant": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ce_bwd_scratch": [_I, _I, _I],
     "ce_bwd": [_P] * 9 + [_I, _I, _I, _I, _P],
     "sampled_supports_dim": [_I],
+    "sampled_plan": [_I, ctypes.POINTER(_I)],
     "sampled_lse_scratch": [_I] * 4,
     "sampled_lse": [_P] * 7 + [_I] * 5 + [_P],
     "sampled_bwd_scratch": [_I] * 5,

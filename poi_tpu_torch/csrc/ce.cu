@@ -68,8 +68,16 @@
 //   (base at 128 rows on a 2-stage ring) and 512 (base at 64 rows, one
 //   consumer warpgroup taking no turns, on a 2-stage ring: B9's D = 512
 //   shape without the hit mask); lse_rows_for, as ops/fused_ce.py's
-//   lse_rows. The wrapper pads any other D <= 512 with zero columns, which
+//   lse_rows. The wrapper pads any other D <= 1024 with zero columns, which
 //   add nothing to q . table^T.
+// - D = 768 and 1024: ce_lse_kc_kernel, kchunk.cuh's K-chunked forward. A
+//   block holds 64 query rows (96 or 128 KB) and streams each 64-row catalog
+//   tile as 256-column chunks (32 KB) through a ring of 4 stages at 768, 3 at
+//   1024; the tile's logits accumulate across its chunks and are folded as
+//   above (lse_fold, base variant), and split-V and lse_merge are as above.
+//   Every streamed byte is used by 64 rows only, so it leans on L2 as D =
+//   512 does: at the bench shape (N = 32,768) each block reads the whole
+//   catalog, 90 MB at D = 1024, from L2.
 // - Any N and V: TMA zero-fills rows past N and V, ragged columns are masked
 //   to -inf (they add 0); a range wholly in the -1e30 tail keeps a finite max
 //   (-1e30 in base 2) and a sum that the merge scales by 2^(-1e30 - max) = 0.
@@ -77,6 +85,7 @@
 // The entry point launches on the given stream, does not synchronise and
 // allocates nothing; it returns cudaGetLastError() after its launches.
 
+#include "kchunk.cuh"
 #include "wgmma_tiles.cuh"
 
 namespace {
@@ -201,6 +210,43 @@ __device__ __forceinline__ void lse_fold(float (&s)[kLseStr / 2], float (&m)[2],
   }
 }
 
+// The end of a block: the four threads of a quad hold the same two rows
+// (row0 and row0 + 8) over disjoint columns; their partials are merged,
+// and thread t == 0 writes lse or, with S ranges, the rows' partial base-2
+// max and sum to part[split * N + row] and part[(S + split) * N + row].
+template <int Var>
+__device__ __forceinline__ void lse_store(float (&m)[2], float (&l)[2], float* __restrict__ lse,
+                                          float* __restrict__ part, int row0, int N, int split, int S, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
+      if constexpr (Var == kNoMax) {
+        l[r] += lo;
+      } else {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
+        const float mn = fmaxf(m[r], mo);
+        l[r] = l[r] * ex2(m[r] - mn) + lo * ex2(mo - mn);
+        m[r] = mn;
+      }
+    }
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= N) continue;
+      if (S == 1) {
+        lse[row] = (m[r] + log2f(l[r])) * kLn2;
+      } else {
+        part[(size_t)split * N + row] = m[r];
+        part[(size_t)(S + split) * N + row] = l[r];
+      }
+    }
+  }
+}
+
 // Blocks: (row block of 64 Cons, catalog range). With one range it writes
 // lse; with S ranges (gridDim.y) it writes its rows' partial base-2 max and
 // sum to part[split * N + row] and part[(S + split) * N + row].
@@ -304,36 +350,31 @@ __global__ void __launch_bounds__(128 * (Cons + 1), 1)
   }
   wgmma_wait<0>();
   fence_regs(s0);
+  lse_store<Var>(m, l, lse, part, r0 + wg * 64 + wi * 16 + g, N, split, S, t);
+}
 
-  // The four threads of a quad hold the same two rows over disjoint columns.
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
-      if constexpr (Var == kNoMax) {
-        l[r] += lo;
-      } else {
-        const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
-        const float mn = fmaxf(m[r], mo);
-        l[r] = l[r] * ex2(m[r] - mn) + lo * ex2(mo - mn);
-        m[r] = mn;
-      }
-    }
-  }
-  if (t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r0 + wg * 64 + wi * 16 + g + 8 * r;
-      if (row >= N) continue;
-      if (S == 1) {
-        lse[row] = (m[r] + log2f(l[r])) * kLn2;
-      } else {
-        part[(size_t)split * N + row] = m[r];
-        part[(size_t)(S + split) * N + row] = l[r];
-      }
-    }
-  }
+// D = 768 and 1024 (see the top of the file): 64 query rows a block, the
+// base variant, kchunk.cuh's K-chunked stream of catalog tiles.
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+    ce_lse_kc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap t_map,
+                     const __grid_constant__ CUtensorMap b_map, float* __restrict__ lse, float* __restrict__ part,
+                     int N, int V, int tiles_per_split) {
+  const int split = blockIdx.y, S = gridDim.y;
+  const int n_tiles = (V + kLseStr - 1) / kLseStr;
+  const int t0 = split * tiles_per_split, t1 = min(n_tiles, t0 + tiles_per_split);
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const CUtensorMap* const vecs[1] = {&b_map};
+  float m[2] = {kLseInit, kLseInit}, l[2] = {0.f, 0.f};
+  const bool consumer = kc_fwd_run<D, 1>(m, l, &q_map, &t_map, vecs, t0, t1,
+                                         [&](float (&s)[32], float (&mm)[2], float (&ll)[2], const float* b, int it) {
+                                           if ((it + 1) * kLseStr > V) {
+                                             lse_fold<kBase, true>(s, mm, ll, b, it * kLseStr, V, t);
+                                           } else {
+                                             lse_fold<kBase, false>(s, mm, ll, b, 0, 0, t);
+                                           }
+                                         });
+  if (consumer) lse_store<kBase>(m, l, lse, part, blockIdx.x * kKcRows + threadIdx.x / 32 * 16 + g, N, split, S, t);
 }
 
 // The S ranges' partials of row i, in base 2, in range order:
@@ -378,6 +419,29 @@ cudaError_t run_lse_wg(const void* q, const void* table, const void* bias, void*
   return cudaGetLastError();
 }
 
+// ce_lse_kc_kernel at D = 768 or 1024; splits and merge as run_lse_wg's.
+template <int D>
+cudaError_t run_lse_kc(const void* q, const void* table, const void* bias, void* lse, void* scratch, int N, int V,
+                       cudaStream_t s) {
+  CUtensorMap q_map, t_map, b_map;
+  if (!make_map(&q_map, q, N, D, kKcRows) || !make_map(&t_map, table, V, D, kLseStr) ||
+      !make_vec_map(&b_map, static_cast<const float*>(bias), V, kLseStr)) {
+    return cudaErrorInvalidValue;
+  }
+  int per = 0;
+  const int S = lse_splits(N, V, kKcRows, &per);
+  constexpr int smem = KcFwd<D, 1>::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(ce_lse_kc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  float* part = static_cast<float*>(scratch);
+  ce_lse_kc_kernel<D><<<dim3((N + kKcRows - 1) / kKcRows, S), 256, smem, s>>>(q_map, t_map, b_map,
+                                                                             static_cast<float*>(lse), part, N, V, per);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || S == 1) return e;
+  lse_merge<<<(N + 255) / 256, 256, 0, s>>>(part, static_cast<float*>(lse), N, S);
+  return cudaGetLastError();
+}
+
 template <int D, int Var>
 cudaError_t run_lse_rows(const void* q, const void* table, const void* bias, void* lse, void* scratch, int N, int V,
                          int rows, cudaStream_t s) {
@@ -401,9 +465,10 @@ cudaError_t run_lse_variant(const void* q, const void* table, const void* bias, 
 // warpgroups keep B9's D = 256 shape (sampled.cu), whose 256 rows on a
 // 3-stage ring timed no faster. At D = 384, 128 rows (96 KB) on a 2-stage
 // ring (96 KB); at D = 512, B9's D = 512 shape: 64 rows (64 KB) on a
-// 2-stage ring (128 KB). Both take 198,184 bytes of smem.
+// 2-stage ring (128 KB). Both take 198,184 bytes of smem. At D = 768 and
+// 1024, 64 rows (ce_lse_kc_kernel).
 __host__ __device__ constexpr int lse_rows_for(int D) {
-  return D == 512 ? 64 : D == 256 || D == 384 ? 128 : kLseRows;
+  return D >= 512 ? 64 : D == 256 || D == 384 ? 128 : kLseRows;
 }
 
 // B12's variants and both row counts up to D = 128; above it only
@@ -416,10 +481,22 @@ bool lse_takes(int D, int variant, int rows) {
 }  // namespace
 
 // The widths the kernels are built for, the forward's here and the backward's
-// in ce_bwd.cu; the wrapper pads any D <= 512 with zero columns to the next
+// in ce_bwd.cu; the wrapper pads any D <= 1024 with zero columns to the next
 // of them (ops/fused_ce.py padded_dim).
 extern "C" int ce_supports_dim(int D) {
-  return D == 32 || D == 64 || D == 128 || D == 192 || D == 256 || D == 384 || D == 512;
+  return D == 32 || D == 64 || D == 128 || D == 192 || D == 256 || D == 384 || D == 512 || D == 768 || D == 1024;
+}
+
+// The shape of ce_lse's block at a width it is built for, as out[0..2]: the
+// query rows a block, the ring's stages and the columns a streamed chunk
+// (D itself up to 512, where a tile arrives whole); ops/fused_ce.py's
+// lse_plan mirrors it. Returns 0 for a width it is not built for.
+extern "C" int ce_lse_plan(int D, int* out) {
+  if (!ce_supports_dim(D)) return 0;
+  out[0] = lse_rows_for(D);
+  out[1] = D == 768 ? KcFwd<768, 1>::kStages : D == 1024 ? KcFwd<1024, 1>::kStages : lse_stages(D);
+  out[2] = D > 512 ? kKc : D;
+  return 1;
 }
 
 // Floats of scratch a launch with `rows` query rows a block needs for its
@@ -434,8 +511,8 @@ extern "C" int ce_lse_scratch(int N, int V, int D, int rows) {
 
 // The forward: variant is a LseVariant (0 base, 1 exp2: q and bias already
 // scaled by log2(e), 2 nomax), rows 128 or 256 (2 or 4 consumer
-// warpgroups); ce_lse is base at lse_rows_for(D). D = 192 to 512 take only
-// that.
+// warpgroups); ce_lse is base at lse_rows_for(D). D = 192 to 1024 take
+// only that.
 extern "C" int ce_lse_variant(const void* q, const void* table, const void* bias, void* lse, void* scratch, int N,
                               int V, int D, int variant, int rows, int device, void* stream) {
   if (!ce_supports_dim(D) || V <= 0 || variant < kBase || variant > kNoMax || !lse_takes(D, variant, rows)) {
@@ -452,6 +529,8 @@ extern "C" int ce_lse_variant(const void* q, const void* table, const void* bias
     case 256: return run_lse_wg<256, kBase, lse_rows_for(256) / 64>(q, table, bias, lse, scratch, N, V, s);
     case 384: return run_lse_wg<384, kBase, lse_rows_for(384) / 64>(q, table, bias, lse, scratch, N, V, s);
     case 512: return run_lse_wg<512, kBase, lse_rows_for(512) / 64>(q, table, bias, lse, scratch, N, V, s);
+    case 768: return run_lse_kc<768>(q, table, bias, lse, scratch, N, V, s);
+    case 1024: return run_lse_kc<1024>(q, table, bias, lse, scratch, N, V, s);
     default: return run_lse_variant<128>(q, table, bias, lse, scratch, N, V, variant, rows, s);
   }
 }

@@ -48,8 +48,13 @@
 // 384 and 512 (csrc/sampled.cu's B10 at D = 512, without the hit mask) a
 // block is one consumer warpgroup of 64 resident rows on a 2-stage ring and
 // sums half the output columns (gridDim.z = 2), both halves recomputing the
-// logits: 12*N*V*D operations where the function needs 6*N*V*D. The
-// wrapper pads any other D <= 512 with zero columns (ops/fused_ce.py).
+// logits: 12*N*V*D operations where the function needs 6*N*V*D. At D =
+// 768 and 1024 (kc_pass) a tile no longer fits beside the resident rows:
+// kchunk.cuh's K-chunked backward streams it in chunks of 256 columns, and
+// a block sums the 256 output columns of one range (gridDim.z = 3 or 4),
+// every range recomputing the logits: 16*N*V*D operations at 768 and
+// 20*N*V*D at 1024 for the function's 6*N*V*D. The wrapper pads any other
+// D <= 1024 with zero columns (ops/fused_ce.py).
 // Where the resident blocks cannot fill the card (config #3's dq: 16 blocks
 // of 128 rows), the streamed dimension is split S ways into fp32 partials
 // [S, rows, D] (and [S, V] for dbias) in the caller's scratch, and
@@ -62,6 +67,7 @@
 // synchronise and allocate nothing; each returns cudaGetLastError() after its
 // launches.
 
+#include "kchunk.cuh"
 #include "mma_tiles.cuh"
 #include "wgmma_tiles.cuh"
 
@@ -89,11 +95,13 @@ __host__ __device__ constexpr int stream_vecs() {
 __host__ __device__ constexpr int bwd_cons(int D) { return D >= 384 ? 1 : 2; }
 __host__ __device__ constexpr int bwd_res(int D) { return 64 * bwd_cons(D); }  // resident rows a block
 __host__ __device__ constexpr int bwd_stages(int D) { return D >= 384 ? 2 : kStages; }
-__host__ __device__ constexpr int bwd_halves(int D) { return D >= 384 ? 2 : 1; }  // output column ranges
+// Output column ranges: halves at 384 and 512, ranges of 256 past 512.
+__host__ __device__ constexpr int bwd_halves(int D) { return D > 512 ? D / kKc : D >= 384 ? 2 : 1; }
 __host__ __device__ constexpr int bwd_threads(int D) { return 128 * (bwd_cons(D) + 1); }  // + 1 producer warpgroup
 
 template <int D, bool kDtable>
 constexpr int pass_smem_bytes() {
+  if constexpr (D > 512) return KcBwd<D, stream_vecs<kDtable>()>::kSmem;
   // 1024: room to align the base; the stages' vectors; the barriers.
   constexpr int Res = bwd_res(D), ST = bwd_stages(D);
   return 1024 + (Res + ST * kStr) * D * 2 + ST * stream_vecs<kDtable>() * kStr * 4 + (2 * ST + 1) * 8;
@@ -534,8 +542,65 @@ __device__ __forceinline__ void wide_pass(const CUtensorMap& res_map, const CUte
   }
 }
 
+// ---------------------------------------------------------------- D = 768, 1024
+
+// One pass at D = 768 or 1024 (kchunk.cuh's K-chunked backward): a block
+// sums the 256 output columns of range blockIdx.z, gp and its product as
+// wide_pass's; arguments as narrow_pass's. dbias, the same in every range,
+// is written by range 0.
+template <int D, bool kDtable>
+__device__ __forceinline__ void kc_pass(const CUtensorMap& res_map, const CUtensorMap& str_map,
+                                        const CUtensorMap& vec0_map, const CUtensorMap& vec1_map,
+                                        const float* __restrict__ row_a, const float* __restrict__ row_b,
+                                        float* __restrict__ out, float* __restrict__ dbias, int n_res, int n_str,
+                                        int tiles_per_split) {
+  const int split = blockIdx.y, col0 = blockIdx.z * kKc;
+  const int n_tiles = (n_str + kStr - 1) / kStr;
+  const int t0 = split * tiles_per_split, t1 = min(n_tiles, t0 + tiles_per_split);
+  const int lane = threadIdx.x % 32, wi = threadIdx.x / 32 % 4, g = lane / 4, t = lane % 4;
+  int row[2];
+  bool ok[2];
+  float ra[2], rb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row[r] = blockIdx.x * kKcRows + wi * 16 + g + 8 * r;
+    ok[r] = row[r] < n_res;
+    ra[r] = ok[r] ? row_a[row[r]] : 0.f;
+    rb[r] = ok[r] && !kDtable ? row_b[row[r]] : 0.f;
+  }
+  const CUtensorMap* const vecs[2] = {&vec0_map, &vec1_map};
+  float acc[2][64];
+  float db[2] = {0.f, 0.f};
+  const bool consumer = kc_bwd_run<D, stream_vecs<kDtable>()>(
+      acc, &res_map, &str_map, vecs, t0, t1, [&](float (&s)[32], const float* vec, int it, uint32_t hold) {
+        tile_gp<kDtable>(s, db, vec, it * kStr, n_str, ok, ra, rb, t);
+        wide_product<kKc>(acc, s, hold);
+      });
+  if (!consumer) return;
+
+  float* dst0 = out + (size_t)split * n_res * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if constexpr (kDtable) {
+      db[r] += __shfl_xor_sync(0xffffffffu, db[r], 1);
+      db[r] += __shfl_xor_sync(0xffffffffu, db[r], 2);
+      if (ok[r] && t == 0 && col0 == 0) dbias[(size_t)split * n_res + row[r]] = db[r];
+    }
+    if (!ok[r]) continue;
+    float* dst = dst0 + (size_t)row[r] * D + col0 + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<float2*>(dst + h * 128 + j * 8) = make_float2(acc[h][j * 4 + 2 * r], acc[h][j * 4 + 2 * r + 1]);
+      }
+    }
+  }
+}
+
 // A pass as a kernel of its own name (the profiler tells the dq and dtable
-// passes apart by kDtable): narrow_pass up to D = 128, wide_pass above.
+// passes apart by kDtable): narrow_pass up to D = 128, wide_pass to 512,
+// kc_pass above.
 template <int D, bool kDtable>
 __global__ void __launch_bounds__(bwd_threads(D), 1)
     ce_bwd_pass(const __grid_constant__ CUtensorMap res_map, const __grid_constant__ CUtensorMap str_map,
@@ -545,9 +610,12 @@ __global__ void __launch_bounds__(bwd_threads(D), 1)
   if constexpr (D <= 128) {
     narrow_pass<D, kDtable>(res_map, str_map, vec0_map, vec1_map, row_a, row_b, out, dbias, n_res, n_str,
                             tiles_per_split);
-  } else {
+  } else if constexpr (D <= 512) {
     wide_pass<D, kDtable>(res_map, str_map, vec0_map, vec1_map, row_a, row_b, out, dbias, n_res, n_str,
                           tiles_per_split);
+  } else {
+    kc_pass<D, kDtable>(res_map, str_map, vec0_map, vec1_map, row_a, row_b, out, dbias, n_res, n_str,
+                        tiles_per_split);
   }
 }
 
@@ -611,6 +679,22 @@ cudaError_t run_bwd(const void* q, const void* table, const void* bias, const vo
 // The widths the CE kernels take, defined once in ce.cu.
 extern "C" int ce_supports_dim(int D);
 
+// The shape of ce_bwd's blocks at a width it is built for, as out[0..3]:
+// the resident rows a block, the ring's stages, the output column ranges
+// (gridDim.z) and the columns a streamed chunk (D itself up to 512);
+// ops/fused_ce.py's bwd_plan mirrors it. The dq pass's and the dtable pass's
+// are the same. Returns 0 for a width it is not built for.
+extern "C" int ce_bwd_plan(int D, int* out) {
+  static_assert(KcBwd<768, 1>::kStages == KcBwd<768, 2>::kStages &&
+                KcBwd<1024, 1>::kStages == KcBwd<1024, 2>::kStages, "the two passes' rings differ");
+  if (!ce_supports_dim(D)) return 0;
+  out[0] = bwd_res(D);
+  out[1] = D == 768 ? KcBwd<768, 1>::kStages : D == 1024 ? KcBwd<1024, 1>::kStages : bwd_stages(D);
+  out[2] = bwd_halves(D);
+  out[3] = D > 512 ? kKc : D;
+  return 1;
+}
+
 // Floats of scratch ce_bwd needs for split partials (0: pass any pointer).
 extern "C" int ce_bwd_scratch(int N, int V, int D) {
   if (N <= 0 || V <= 0) return 0;
@@ -630,6 +714,8 @@ extern "C" int ce_bwd(const void* q, const void* table, const void* bias, const 
     case 256: return run_bwd<256>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
     case 384: return run_bwd<384>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
     case 512: return run_bwd<512>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
+    case 768: return run_bwd<768>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
+    case 1024: return run_bwd<1024>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
     default: return run_bwd<128>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
   }
 }

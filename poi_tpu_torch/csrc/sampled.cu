@@ -18,7 +18,7 @@
 //     (the unrounded gp). A hit gets gp = 0 exactly, and so does a padded
 //     pool entry (bias -1e30, id -1).
 //   The positive column and its gradient stay outside, as on the TPU.
-//   D is 64, 128, 256 or 512.
+//   D is 64, 128, 256, 512, 768 or 1024.
 //
 // B9, the pool LSE. What bounds it on this card: its product, 2*N*S*D
 // FLOPs (4.3 GFLOP at config #4's N = 8,192, S = 1,024, D = 256: 4.3 us at
@@ -132,9 +132,21 @@
 // compile-time column half (the column offset a template constant, which
 // ended it at D = 256) did not end it at D = 512 and ran no faster.
 //
+// D = 768 and 1024 (config #4 at D = 1024: N = 8,192, S = 1,024). A tile
+// no longer fits beside 64 resident rows: both kernels stream it in chunks
+// of 256 columns (kchunk.cuh). B9 (sampled_lse_kc_kernel): 64 query rows a
+// block, pool tiles chunked through a ring of 3 stages, the tile's biases
+// and ids riding with its last chunk, folded by pool_fold; split-S and the
+// ordered merge as above. B10 (kc_bwd_pass, in both passes' kernels): a
+// block sums the 256 output columns of one range (gridDim.z = 3 or 4),
+// every range recomputing the logits, 16*N*S*D operations at 768 and
+// 20*N*S*D at 1024 for the function's 6*N*S*D; gp and its product as
+// bwd_pass's; db, the same in every range, written by range 0.
+//
 // The entry points launch on the given stream, do not synchronise and
 // allocate nothing; each returns cudaGetLastError() after its launches.
 
+#include "kchunk.cuh"
 #include "mma_tiles.cuh"
 #include "wgmma_tiles.cuh"
 
@@ -159,7 +171,7 @@ constexpr int kLseStr = 64;  // pool rows a streamed tile, the wgmma's N
 // resident rows (128 KB) exceeds 227 KB, so 2 (128 rows); at D = 512 a
 // warpgroup's rows and a tile take 64 KB each, so 1 warpgroup and a ring of
 // 2 (192 KB).
-__host__ __device__ constexpr int lse_cons(int D) { return D == 512 ? 1 : D == 256 ? 2 : 4; }
+__host__ __device__ constexpr int lse_cons(int D) { return D >= 512 ? 1 : D == 256 ? 2 : 4; }
 // Pool tiles in flight.
 __host__ __device__ constexpr int lse_stages(int D) { return D == 512 ? 2 : 4; }
 
@@ -243,6 +255,40 @@ __device__ __forceinline__ void pool_fold(float (&s)[kLseStr / 2], float (&m)[2]
     }
     m[r] = mn;
     l[r] = acc[0] + acc[1];
+  }
+}
+
+// The end of a block: the four threads of a quad hold the same two rows
+// (row0 and row0 + 8) over disjoint columns; their partials are merged, and
+// thread t == 0 writes lse or, with n_split ranges, the rows' partial
+// base-2 max and sum to part[split * N + row] and part[(n_split + split) * N
+// + row].
+__device__ __forceinline__ void pool_lse_store(float (&m)[2], float (&l)[2], float* __restrict__ lse,
+                                               float* __restrict__ part, int row0, int N, int split, int n_split,
+                                               int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
+      const float mn = fmaxf(m[r], mo);
+      l[r] = l[r] * ex2(m[r] - mn) + lo * ex2(mo - mn);
+      m[r] = mn;
+    }
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= N) continue;
+      if (n_split == 1) {
+        lse[row] = (m[r] + log2f(l[r])) * kLn2;
+      } else {
+        part[(size_t)split * N + row] = m[r];
+        part[(size_t)(n_split + split) * N + row] = l[r];
+      }
+    }
   }
 }
 
@@ -358,32 +404,36 @@ __global__ void __launch_bounds__(128 * (Cons + 1), 1)
   }
   wgmma_wait<0>();
   fence_regs(s0);
+  pool_lse_store(m, l, lse, part, r0 + wg * 64 + wi * 16 + g, N, split, n_split, t);
+}
 
-  // The four threads of a quad hold the same two rows over disjoint columns.
+// D = 768 and 1024 (see the top of the file): 64 query rows a block,
+// kchunk.cuh's K-chunked stream of pool tiles.
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+    sampled_lse_kc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap e_map,
+                          const __grid_constant__ CUtensorMap b_map, const __grid_constant__ CUtensorMap id_map,
+                          const int* __restrict__ tgt, float* __restrict__ lse, float* __restrict__ part, int N,
+                          int S, int tiles_per_split) {
+  const int split = blockIdx.y, n_split = gridDim.y;
+  const int n_tiles = (S + kLseStr - 1) / kLseStr;
+  const int t0 = split * tiles_per_split, t1 = min(n_tiles, t0 + tiles_per_split);
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row0 = blockIdx.x * kKcRows + threadIdx.x / 32 % 4 * 16 + g;
+  int rid[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
-      const float mn = fmaxf(m[r], mo);
-      l[r] = l[r] * ex2(m[r] - mn) + lo * ex2(mo - mn);
-      m[r] = mn;
-    }
-  }
-  if (t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r0 + wg * 64 + wi * 16 + g + 8 * r;
-      if (row >= N) continue;
-      if (n_split == 1) {
-        lse[row] = (m[r] + log2f(l[r])) * kLn2;
-      } else {
-        part[(size_t)split * N + row] = m[r];
-        part[(size_t)(n_split + split) * N + row] = l[r];
-      }
-    }
-  }
+  for (int r = 0; r < 2; ++r) rid[r] = row0 + 8 * r < N ? tgt[row0 + 8 * r] : -1;
+  const CUtensorMap* const vecs[2] = {&b_map, &id_map};
+  float m[2] = {kLseInit, kLseInit}, l[2] = {0.f, 0.f};
+  const bool consumer = kc_fwd_run<D, 2>(m, l, &q_map, &e_map, vecs, t0, t1,
+                                         [&](float (&s)[32], float (&mm)[2], float (&ll)[2], const float* v, int it) {
+                                           if ((it + 1) * kLseStr > S) {
+                                             pool_fold<true>(s, mm, ll, v, rid, it * kLseStr, S, t);
+                                           } else {
+                                             pool_fold<false>(s, mm, ll, v, rid, 0, 0, t);
+                                           }
+                                         });
+  if (consumer) pool_lse_store(m, l, lse, part, row0, N, split, n_split, t);
 }
 
 // The ranges' partials of row i, in base 2, in range order:
@@ -413,6 +463,30 @@ int stream_splits(int blocks, int tiles, int forced, int* per) {
 // The pool ranges of B9 with `cons` consumer warpgroups a block.
 int lse_splits(int N, int S, int cons, int forced, int* per) {
   return stream_splits((N + 64 * cons - 1) / (64 * cons), (S + kLseStr - 1) / kLseStr, forced, per);
+}
+
+// sampled_lse_kc_kernel at D = 768 or 1024; ranges and merge as run_lse's.
+template <int D>
+cudaError_t run_lse_kc(const void* q, const void* e, const void* b, const void* ids, const void* tgt, void* lse,
+                       void* scratch, int N, int S, int forced, cudaStream_t s) {
+  CUtensorMap q_map, e_map, b_map, id_map;
+  if (!make_map(&q_map, q, N, D, kKcRows) || !make_map(&e_map, e, S, D, kLseStr) ||
+      !make_vec_map(&b_map, static_cast<const float*>(b), S, kLseStr) ||
+      !make_vec_map(&id_map, static_cast<const float*>(ids), S, kLseStr)) {
+    return cudaErrorInvalidValue;
+  }
+  int per = 0;
+  const int n_split = lse_splits(N, S, 1, forced, &per);
+  constexpr int smem = KcFwd<D, 2>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(sampled_lse_kc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  float* part = static_cast<float*>(scratch);
+  sampled_lse_kc_kernel<D><<<dim3((N + kKcRows - 1) / kKcRows, n_split), 256, smem, s>>>(
+      q_map, e_map, b_map, id_map, static_cast<const int*>(tgt), static_cast<float*>(lse), part, N, S, per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  sampled_lse_merge<<<(N + 255) / 256, 256, 0, s>>>(part, static_cast<float*>(lse), N, n_split);
+  return cudaGetLastError();
 }
 
 template <int D, int Cons>
@@ -462,11 +536,12 @@ constexpr int kKPerChunk = kSw / 32;  // k16 steps a chunk
 // each half recomputing the logits), and the resident rows (64 KB a
 // warpgroup) and the tiles (64 KB each) leave room for one consumer
 // warpgroup (64 rows) and a ring of 2.
-__host__ __device__ constexpr int bwd_cons(int D) { return D == 512 ? 1 : 2; }
+__host__ __device__ constexpr int bwd_cons(int D) { return D >= 512 ? 1 : 2; }
 __host__ __device__ constexpr int bwd_res(int D) { return 64 * bwd_cons(D); }  // resident rows a block
 __host__ __device__ constexpr int bwd_stages(int D) { return D == 512 ? 2 : 4; }
 __host__ __device__ constexpr int bwd_threads(int D) { return 128 * (bwd_cons(D) + 1); }  // + 1 producer warpgroup
-__host__ __device__ constexpr int bwd_halves(int D) { return D == 512 ? 2 : 1; }  // output column ranges
+// Output column ranges: halves at 512, ranges of 256 past it (kc_bwd_pass).
+__host__ __device__ constexpr int bwd_halves(int D) { return D > 512 ? D / kKc : D == 512 ? 2 : 1; }
 
 // Streamed 4-byte vectors that arrive with each tile: the dq pass needs the
 // pool rows' bias and ids, the dE pass the queries' lse, g and targets.
@@ -477,6 +552,7 @@ __host__ __device__ constexpr int stream_vecs() {
 
 template <int D, bool kDe>
 constexpr int pass_smem_bytes() {
+  if constexpr (D > 512) return KcBwd<D, stream_vecs<kDe>()>::kSmem;
   // 1024: room to align the base; the stages' vectors; the barriers.
   constexpr int ST = bwd_stages(D);
   return 1024 + (bwd_res(D) + ST * kStr) * D * 2 + ST * stream_vecs<kDe>() * kStr * 4 + (2 * ST + 1) * 8;
@@ -709,8 +785,64 @@ __device__ __forceinline__ void bwd_pass(const CUtensorMap* res_map, const CUten
   }
 }
 
+// One pass at D = 768 or 1024 (kchunk.cuh's K-chunked backward): a block
+// sums the 256 output columns of range blockIdx.z, gp and its product as
+// bwd_pass's; arguments as bwd_pass's. db, the same in every range, is
+// written by range 0.
+template <int D, bool kDe>
+__device__ __forceinline__ void kc_bwd_pass(const CUtensorMap* res_map, const CUtensorMap* str_map,
+                                            const CUtensorMap* vec_maps, const float* __restrict__ row_a,
+                                            const float* __restrict__ row_b, const int* __restrict__ row_id,
+                                            float* __restrict__ out, float* __restrict__ db_out, int n_res, int n_str,
+                                            int tiles_per_split) {
+  const int split = blockIdx.y, col0 = blockIdx.z * kKc;
+  const int n_tiles = (n_str + kStr - 1) / kStr;
+  const int t0 = split * tiles_per_split, t1 = min(n_tiles, t0 + tiles_per_split);
+  const int lane = threadIdx.x % 32, wi = threadIdx.x / 32 % 4, g = lane / 4, t = lane % 4;
+  int row[2], rid[2];
+  bool ok[2];
+  float ra[2], rb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row[r] = blockIdx.x * kKcRows + wi * 16 + g + 8 * r;
+    ok[r] = row[r] < n_res;
+    ra[r] = ok[r] ? row_a[row[r]] : 0.f;
+    rb[r] = ok[r] && !kDe ? row_b[row[r]] : 0.f;
+    rid[r] = ok[r] ? row_id[row[r]] : -1;
+  }
+  const CUtensorMap* const vecs[3] = {&vec_maps[0], &vec_maps[1], &vec_maps[2]};
+  float acc[2][64];
+  float db[2] = {0.f, 0.f};
+  const bool consumer = kc_bwd_run<D, stream_vecs<kDe>()>(
+      acc, res_map, str_map, vecs, t0, t1, [&](float (&s)[32], const float* vec, int it, uint32_t hold) {
+        tile_gp<kDe>(s, db, vec, it * kStr, n_str, ok, ra, rb, rid, t);
+        gp_product<kKc>(acc, s, hold);
+      });
+  if (!consumer) return;
+
+  float* dst0 = out + (size_t)split * n_res * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if constexpr (kDe) {
+      db[r] += __shfl_xor_sync(0xffffffffu, db[r], 1);
+      db[r] += __shfl_xor_sync(0xffffffffu, db[r], 2);
+      if (ok[r] && t == 0 && col0 == 0) db_out[(size_t)split * n_res + row[r]] = db[r];
+    }
+    if (!ok[r]) continue;
+    float* dst = dst0 + (size_t)row[r] * D + col0 + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<float2*>(dst + h * 128 + j * 8) = make_float2(acc[h][j * 4 + 2 * r], acc[h][j * 4 + 2 * r + 1]);
+      }
+    }
+  }
+}
+
 // The two passes as kernels of their own names (the profiler tells them
-// apart). vec_maps: the streamed vectors' tensor maps, in stream_vecs' order.
+// apart): bwd_pass up to D = 512, kc_bwd_pass above. vec_maps: the streamed
+// vectors' tensor maps, in stream_vecs' order.
 struct VecMaps {
   CUtensorMap m[3];
 };
@@ -720,7 +852,11 @@ __global__ void __launch_bounds__(bwd_threads(D), 1)
     sampled_dq_pass(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap e_map,
                     const __grid_constant__ VecMaps vecs, const float* __restrict__ lse, const float* __restrict__ g,
                     const int* __restrict__ tgt, float* __restrict__ dq, int N, int S, int tiles_per_split) {
-  bwd_pass<D, false>(&q_map, &e_map, vecs.m, lse, g, tgt, dq, nullptr, N, S, tiles_per_split);
+  if constexpr (D > 512) {
+    kc_bwd_pass<D, false>(&q_map, &e_map, vecs.m, lse, g, tgt, dq, nullptr, N, S, tiles_per_split);
+  } else {
+    bwd_pass<D, false>(&q_map, &e_map, vecs.m, lse, g, tgt, dq, nullptr, N, S, tiles_per_split);
+  }
 }
 
 template <int D>
@@ -728,7 +864,11 @@ __global__ void __launch_bounds__(bwd_threads(D), 1)
     sampled_de_pass(const __grid_constant__ CUtensorMap e_map, const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ VecMaps vecs, const float* __restrict__ b, const int* __restrict__ ids,
                     float* __restrict__ de, float* __restrict__ db, int S, int N, int tiles_per_split) {
-  bwd_pass<D, true>(&e_map, &q_map, vecs.m, b, nullptr, ids, de, db, S, N, tiles_per_split);
+  if constexpr (D > 512) {
+    kc_bwd_pass<D, true>(&e_map, &q_map, vecs.m, b, nullptr, ids, de, db, S, N, tiles_per_split);
+  } else {
+    bwd_pass<D, true>(&e_map, &q_map, vecs.m, b, nullptr, ids, de, db, S, N, tiles_per_split);
+  }
 }
 
 // The ranges a backward pass splits its streamed tiles into: its blocks are
@@ -806,7 +946,27 @@ cudaError_t run_bwd(const void* q, const void* e, const void* b, const void* ids
 }  // namespace
 
 // The widths the kernels are built for; the wrapper checks D against it.
-extern "C" int sampled_supports_dim(int D) { return D == 64 || D == 128 || D == 256 || D == 512; }
+extern "C" int sampled_supports_dim(int D) {
+  return D == 64 || D == 128 || D == 256 || D == 512 || D == 768 || D == 1024;
+}
+
+// The shape of the kernels' blocks at a width they are built for, as
+// out[0..6]: B9's query rows a block, its ring's stages and the columns a
+// streamed chunk (D itself up to 512, where a tile arrives whole); B10's
+// resident rows a block, its ring's stages (the dE pass's), its output
+// column ranges (gridDim.z) and the columns a chunk. ops/fused_sampled.py's
+// plan mirrors it. Returns 0 for a width they are not built for.
+extern "C" int sampled_plan(int D, int* out) {
+  if (!sampled_supports_dim(D)) return 0;
+  out[0] = 64 * lse_cons(D);
+  out[1] = D == 768 ? KcFwd<768, 2>::kStages : D == 1024 ? KcFwd<1024, 2>::kStages : lse_stages(D);
+  out[2] = D > 512 ? kKc : D;
+  out[3] = bwd_res(D);
+  out[4] = D == 768 ? KcBwd<768, 3>::kStages : D == 1024 ? KcBwd<1024, 3>::kStages : bwd_stages(D);
+  out[5] = bwd_halves(D);
+  out[6] = out[2];
+  return 1;
+}
 
 // Floats of scratch sampled_bwd needs for split partials (0: pass any
 // pointer). dq_splits / de_splits: as for sampled_bwd.
@@ -839,6 +999,8 @@ extern "C" int sampled_lse(const void* q, const void* e, const void* b, const vo
     case 64: return run_lse<64, lse_cons(64)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
     case 128: return run_lse<128, lse_cons(128)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
     case 256: return run_lse<256, lse_cons(256)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
+    case 768: return run_lse_kc<768>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
+    case 1024: return run_lse_kc<1024>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
     default: return run_lse<512, lse_cons(512)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
   }
 }
@@ -858,6 +1020,8 @@ extern "C" int sampled_bwd(const void* q, const void* e, const void* b, const vo
     case 64: return run_bwd<64>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
     case 128: return run_bwd<128>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
     case 256: return run_bwd<256>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
+    case 768: return run_bwd<768>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
+    case 1024: return run_bwd<1024>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
     default: return run_bwd<512>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
   }
 }

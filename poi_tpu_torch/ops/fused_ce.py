@@ -25,9 +25,14 @@ Widths: the kernels are built for ``KERNEL_DIMS``; the wrappers pad any
 Zero columns add nothing to ``q · tableᵀ``, and the padded columns of
 ``dq`` and ``dtable`` are dropped, so the result is the function at ``D``;
 ``D > MAX_DIM`` raises, naming the limit. No width pads by more than 1.5×
-past 128. The forward runs 128 rows a block at ``D = 256`` and 384, 64 at
+past 128. The forward runs 128 rows a block at ``D = 256`` and 384, 64 from
 512 (``lse_rows``); at 384 and 512 the backward's blocks each sum half of
-the output columns, both halves recomputing the logits.
+the output columns, both halves recomputing the logits. At 768 and 1024
+both stream the catalog in K-chunks of 256 columns (``csrc/kchunk.cuh``),
+and the backward's blocks each sum one range of 256 output columns, every
+range recomputing the logits. ``lse_plan`` and ``bwd_plan`` give each
+width's block shape, as ``ce_lse_plan`` and ``ce_bwd_plan`` in the C
+sources do.
 
 ``ce_lse_variant`` holds the forward's tuning variants, the counterparts of
 ``scripts/sweep_ce_fwd.py``'s kernels (``exp2``, ``nomax``), on ``ce_lse``'s
@@ -43,7 +48,7 @@ from __future__ import annotations
 import torch
 
 from poi_tpu_torch import _build
-from poi_tpu_torch.ops.widths import pad_cols, padded_dim
+from poi_tpu_torch.ops.widths import KCHUNK, kchunk_bwd_stages, kchunk_fwd_stages, pad_cols, padded_dim
 
 # Catalog columns per chunk of the plain versions: [N, 4096] fp32 logits at a
 # time (512 MiB at N = 32,768), so they run at the full training shape.
@@ -55,15 +60,38 @@ VARIANTS = ("base", "exp2", "nomax")
 ROWS = (128, 256)
 # The widths the kernels are built for (``ce_supports_dim`` in csrc/ce.cu
 # says the same; B12's variants take the first three).
-KERNEL_DIMS = (32, 64, 128, 192, 256, 384, 512)
+KERNEL_DIMS = (32, 64, 128, 192, 256, 384, 512, 768, 1024)
 MAX_DIM = KERNEL_DIMS[-1]
 
 
 def lse_rows(D: int) -> int:
     """The query rows a block of ``ce_lse`` at width ``D`` (``lse_rows_for``
-    in csrc/ce.cu): 128 where it runs at 256 or 384 columns, 64 at 512, else
-    256."""
-    return {256: 128, 384: 128, 512: 64}.get(padded_dim(D, KERNEL_DIMS, "ce_lse"), 256)
+    in csrc/ce.cu): 128 where it runs at 256 or 384 columns, 64 from 512,
+    else 256."""
+    return {256: 128, 384: 128, 512: 64, 768: 64, 1024: 64}.get(padded_dim(D, KERNEL_DIMS, "ce_lse"), 256)
+
+
+def lse_plan(D: int) -> tuple[int, int, int]:
+    """``ce_lse``'s block at width ``D`` (run at ``padded_dim(D)``), as
+    ``ce_lse_plan`` in csrc/ce.cu gives it: (query rows a block, ring
+    stages, columns a streamed chunk). Up to 512 a tile arrives whole, on 4
+    stages (2 from 384); past it in chunks of 256 (``csrc/kchunk.cuh``)."""
+    Dp = padded_dim(D, KERNEL_DIMS, "ce_lse")
+    if Dp > 512:
+        return lse_rows(Dp), kchunk_fwd_stages(Dp, 1), KCHUNK
+    return lse_rows(Dp), 2 if Dp >= 384 else 4, Dp
+
+
+def bwd_plan(D: int) -> tuple[int, int, int, int]:
+    """``ce_bwd``'s blocks at width ``D`` (run at ``padded_dim(D)``), as
+    ``ce_bwd_plan`` in csrc/ce_bwd.cu gives them: (resident rows a block,
+    ring stages, output column ranges, columns a streamed chunk). Up to 256
+    two warpgroups sum every column; at 384 and 512 one, over half the
+    columns; past 512 one, over 256 columns, the tile in chunks of 256."""
+    Dp = padded_dim(D, KERNEL_DIMS, "ce_bwd")
+    if Dp > 512:
+        return 64, kchunk_bwd_stages(Dp, 2), Dp // KCHUNK, KCHUNK
+    return (64, 2, 2, Dp) if Dp >= 384 else (128, 4, 1, Dp)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:

@@ -17,9 +17,12 @@ TPU kernels':
   gradient ``ds_pos = g · (exp(s_pos - lse_tot) - 1)`` stays outside.
 
 The kernels are built for ``KERNEL_DIMS``; on CUDA tensors the wrappers pad
-any ``D <= 512`` with zero columns to the next of them (``widths.padded_dim``:
+any ``D <= 1024`` with zero columns to the next of them (``widths.padded_dim``:
 config #5's 384-wide variants run at 512) and drop the padded columns of
-``dq`` and ``de_neg``. Zero columns add nothing to ``q · e_negᵀ``.
+``dq`` and ``de_neg``. Zero columns add nothing to ``q · e_negᵀ``. At 768
+and 1024 both kernels stream the pool in K-chunks of 256 columns
+(``csrc/kchunk.cuh``); ``plan`` gives each width's block shape, as
+``sampled_plan`` in ``csrc/sampled.cu`` does.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 
 from poi_tpu_torch import _build
 from poi_tpu_torch.models.base import gather_rows
-from poi_tpu_torch.ops.widths import pad_cols, padded_dim
+from poi_tpu_torch.ops.widths import KCHUNK, kchunk_bwd_stages, kchunk_fwd_stages, pad_cols, padded_dim
 
 NEG = -1e30
 
@@ -66,7 +69,22 @@ def sampled_bwd_reference(q, e_neg, b_neg, neg_ids, targets, lse_tot, g):
 
 # The widths the kernels are built for (``sampled_supports_dim`` in
 # ``csrc/sampled.cu`` says the same).
-KERNEL_DIMS = (64, 128, 256, 512)
+KERNEL_DIMS = (64, 128, 256, 512, 768, 1024)
+
+
+def plan(D: int) -> tuple[int, ...]:
+    """The kernels' blocks at width ``D`` (run at ``padded_dim(D)``), as
+    ``sampled_plan`` in ``csrc/sampled.cu`` gives them: B9's (query rows a
+    block, ring stages, columns a streamed chunk), then B10's (resident rows
+    a block, the dE pass's ring stages, output column ranges, columns a
+    chunk). Up to 512 a tile arrives whole; past it in chunks of 256, and a
+    B10 block sums one range of 256 output columns."""
+    Dp = padded_dim(D, KERNEL_DIMS, "sampled_lse")
+    if Dp > 512:
+        return 64, kchunk_fwd_stages(Dp, 2), KCHUNK, 64, kchunk_bwd_stages(Dp, 3), Dp // KCHUNK, KCHUNK
+    if Dp == 512:
+        return 64, 2, 512, 64, 2, 2, 512
+    return 128 if Dp == 256 else 256, 4, Dp, 128, 4, 1, Dp
 
 
 def _check(name: str, tensors: dict[str, torch.Tensor]) -> bool:

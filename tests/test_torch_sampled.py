@@ -125,15 +125,16 @@ def test_d512_loss_matches_pallas_interpret_and_xla(num_sampled):
 
 def test_kernel_widths_take_d512_and_refuse_others():
     """The wrappers' width dispatch (on CUDA tensors, before any launch): the
-    kernels take D = 512, config #5's; a width they are not built for is
-    padded to the next one they are, up to 512; a wider one is refused,
-    naming the limit."""
-    assert fused_sampled.KERNEL_DIMS == (64, 128, 256, 512)
+    kernels take D = 512, config #5's, and 768 and 1024; a width they are
+    not built for is padded to the next one they are, up to 1024; a wider
+    one is refused, naming the limit."""
+    assert fused_sampled.KERNEL_DIMS == (64, 128, 256, 512, 768, 1024)
     assert padded_dim(512, fused_sampled.KERNEL_DIMS, "sampled_lse") == 512
-    assert [padded_dim(d, fused_sampled.KERNEL_DIMS, "sampled_lse") for d in (1, 64, 96, 200, 384, 511)] == \
-        [64, 64, 128, 256, 512, 512]
-    with pytest.raises(ValueError, match="D <= 512.*D=513"):
-        padded_dim(513, fused_sampled.KERNEL_DIMS, "sampled_lse")
+    assert [padded_dim(d, fused_sampled.KERNEL_DIMS, "sampled_lse") for d in (1, 64, 96, 200, 384, 511, 513, 640,
+                                                                               768, 769, 1024)] == \
+        [64, 64, 128, 256, 512, 512, 768, 768, 768, 1024, 1024]
+    with pytest.raises(ValueError, match="D <= 1024.*D=1025"):
+        padded_dim(1025, fused_sampled.KERNEL_DIMS, "sampled_lse")
 
 
 @pytest.mark.parametrize("D", [64, 128, 256, 512])  # the widths the CUDA kernels take

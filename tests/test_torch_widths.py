@@ -1,8 +1,8 @@
 """Widths the kernels are not built for, held against the JAX package:
-B7/B8 at any D <= 512 (the wrappers pad to 32, 64, 128, 192, 256, 384 or
-512), B9/B10
-at any D <= 512 (config #5's 384 pads to 512) and B11 at any D <= 1024 (to a
-multiple of 8).
+B7/B8 at any D <= 1024 (the wrappers pad to 32, 64, 128, 192, 256, 384,
+512, 768 or 1024), B9/B10 at any D <= 1024 (config #5's 384 pads to 512,
+600 and 640 to 768, 1000 to 1024) and B11 at any D <= 1024 (to a multiple
+of 8).
 
 On the CPU the wrappers take the plain versions, which take any width; the
 CUDA wrappers pad ``q`` and the table with zero columns, launch at the
@@ -39,17 +39,20 @@ def _close(got, want, name, tol=REL_TOL):
 
 
 def test_ce_padded_dim_maps_every_width_and_refuses_past_256():
-    """Every D up to 512 goes to a width the kernels are built for (past 256
-    since 384 and 512 were added: the name keeps the limit this test was
-    written for); past 512 the wrappers refuse, naming the limit."""
+    """Every D up to 1024 goes to a width the kernels are built for (past 256
+    since 384 and 512 were added, past 512 since 768 and 1024 were: the name
+    keeps the limit this test was written for); past 1024 the wrappers
+    refuse, naming the limit."""
     want = {1: 32, 32: 32, 33: 64, 64: 64, 65: 128, 128: 128, 129: 192, 192: 192, 193: 256, 200: 256, 256: 256,
-            257: 384, 300: 384, 384: 384, 385: 512, 512: 512}
+            257: 384, 300: 384, 384: 384, 385: 512, 512: 512, 513: 768, 600: 768, 768: 768, 769: 1024, 1000: 1024,
+            1024: 1024}
     assert {d: padded_dim(d, fused_ce.KERNEL_DIMS, "ce_lse") for d in want} == want
-    assert all(padded_dim(d, fused_ce.KERNEL_DIMS, "ce_lse") <= 1.5 * d for d in range(129, 513))  # the new widths pad by at most 1.5x
+    assert all(padded_dim(d, fused_ce.KERNEL_DIMS, "ce_lse") <= 1.5 * d for d in range(129, 1025))  # the new widths pad by at most 1.5x
     assert fused_ce.lse_rows(256) == fused_ce.lse_rows(200) == 128 and fused_ce.lse_rows(192) == 256
     assert fused_ce.lse_rows(384) == fused_ce.lse_rows(300) == 128 and fused_ce.lse_rows(512) == fused_ce.lse_rows(385) == 64
-    for D in (513, 1024):
-        with pytest.raises(ValueError, match=rf"D <= 512 .*got D={D}"):
+    assert fused_ce.lse_rows(768) == fused_ce.lse_rows(600) == fused_ce.lse_rows(1024) == 64
+    for D in (1025, 2048):
+        with pytest.raises(ValueError, match=rf"D <= 1024 .*got D={D}"):
             padded_dim(D, fused_ce.KERNEL_DIMS, "ce_lse")
 
 
@@ -86,7 +89,7 @@ def _padded_ce_loss(q, table, bias, targets, mask):
     return (nll * m).sum() / m.sum().clamp_min(1.0)
 
 
-@pytest.mark.parametrize("D", [200, 256, 300, 384, 512])
+@pytest.mark.parametrize("D", [200, 256, 300, 384, 512, 600, 768, 1000, 1024])
 @pytest.mark.parametrize("path", ["plain", "padded"])
 def test_fused_ce_at_wide_widths_matches_pallas_interpret(D, path):
     """``fused_ce_loss`` (the plain versions at D) and the padded dispatch
@@ -111,13 +114,15 @@ def test_fused_ce_at_wide_widths_matches_pallas_interpret(D, path):
         _close(a.grad.numpy(), np.asarray(b), name)
 
 
-@pytest.mark.parametrize("D", [384, 100])
+@pytest.mark.parametrize("D", [384, 100, 600, 640, 768, 1000, 1024])
 def test_sampled_nll_rows_padded_to_the_kernels_width_matches_pallas_interpret(D):
     """B9/B10's dispatch at a width the kernels are not built for (384 runs
-    at 512, 100 at 128): the padded plain forward and backward against
-    ``sampled_nll_rows`` of the reference at D, all four cotangents."""
+    at 512, 100 at 128, 600 and 640 at 768, 1000 at 1024) and at 768 and
+    1024: the padded plain forward and backward, and the CPU wrapper (the
+    plain versions) at D itself, against ``sampled_nll_rows`` of the
+    reference at D, all four cotangents."""
     Dp = padded_dim(D, fused_sampled.KERNEL_DIMS, "sampled_lse")
-    assert Dp == {384: 512, 100: 128}[D]
+    assert Dp == {384: 512, 100: 128, 600: 768, 640: 768, 768: 768, 1000: 1024, 1024: 1024}[D]
     rng = np.random.default_rng(D)
     N, S = 24, 200
     q = rng.normal(size=(N, D)).astype(np.float32)
@@ -144,6 +149,13 @@ def test_sampled_nll_rows_padded_to_the_kernels_width_matches_pallas_interpret(D
     assert abs(float(got) - float(want)) <= REL_TOL * abs(float(want))
     for a, b, name in zip((dq[:, :D], de[:, :D], db, ds), g_pal, ("dq", "de_neg", "db_neg", "ds_pos")):
         _close(a.numpy(), np.asarray(b), name)
+    # The CPU wrapper at D itself.
+    leaves = [t.clone().requires_grad_() for t in (qt, et, bt, st)]
+    at_d = (fused_sampled.sampled_nll_rows(*leaves, tt, it) * wt).sum()
+    at_d.backward()
+    assert abs(float(at_d.detach()) - float(want)) <= REL_TOL * abs(float(want))
+    for a, b, name in zip(leaves, g_pal, ("dq", "de_neg", "db_neg", "ds_pos")):
+        _close(a.grad.numpy(), np.asarray(b), name)
 
 
 def test_topk_pads_any_width_to_a_multiple_of_8_and_matches_pallas_interpret():
