@@ -71,7 +71,7 @@ with its plain PyTorch version on the card. Then it drives the paths:
 - the sweep of the CE forward's variants (B12, ``scripts/sweep_ce_fwd``),
   B12's main path, called in this process at its own shape;
 - the measurement scripts (``python -m poi_tpu_torch.scripts.<name>``), each
-  once as a subprocess.
+  once, in this process as ``-m`` runs it.
 
 It times the kernels against their plain versions (and against a PyTorch
 call that computes the same function, where there is one), ``recommend``
@@ -83,7 +83,16 @@ instead times the kernels a change redesigns (``AB_TIMED``) at their main
 path's shapes in both checkouts on this card, in turns (DIR, this, this,
 DIR), each in a fresh process with its checkout's own wrappers and
 helpers, logs how far their outputs moved, and asserts that the kernels it
-must leave alone (``AB_KEPT``) give DIR's bits. Any failed phase prints
+must leave alone (``AB_KEPT``) give DIR's bits.
+
+    python3 chip_smoke.py --mesh-quality FACTOR  # e.g. 2.0, the preset's a2a capacity factor
+
+instead runs config #5's quality on its preset's 1 x 4 mesh on this card:
+``quality_runs multihost_1m`` on the 4 gloo ranks of the mesh phase
+(``MESH_QUALITY_SETS``: 2,000 steps, best-on-val, the test split scored
+once) at ``mesh.a2a_capacity_factor=FACTOR``, and prints rank 0's ``ROW``
+and the share of input ids the a2a lookup dropped (~20 min at 2,000
+steps; not part of the default run). Any failed phase prints
 its traceback and exits non-zero. The last lines of standard output are the
 card's name and power limit, the kernels' JSON record (each with its least
 possible time on the card, ``bound_ms``) and ``{"ok": true, "device":
@@ -253,7 +262,7 @@ REC_CONFIGS = {"lstm": ("lstm_bpr_foursquare", ("lstm_fwd", "lstm_bwd")),
 # read once, each output written once) over the memory rate and its
 # operations over the peak rate of their type.
 HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
+BF16_FLOP_PER_S = _timing.H100_BF16_PEAK  # 989e12, the scripts' MFU peak too
 FP32_FLOP_PER_S = 67e12
 # Exponentials (ex2, and log2 and the other special functions) go to the
 # special-function units: 16 results a clock per SM at compute capability
@@ -321,22 +330,24 @@ ATTN_CONFIG = "attention_gowalla"
 SAMPLER_OVERRIDES = {"data.sampler": "device", "train.steps_per_call": str(TRAIN_STEPS)}
 STEP_TIME_CHUNK = 10
 BENCH_TIME_CHUNK = 20
-# The ported measurement scripts, each run once as a subprocess: the sweeps,
+# The ported measurement scripts, each run once (run_script): the sweeps,
 # bench_cells and bench_serve at their defaults (bench_serve also at --dim
 # 1024: B1 on the grid, B11 at D = 1024); profile_step at the bench
 # workload's batch and profile_attn at config #4's; mem_budget on the bench
 # workload (one 40-step device-sampled chunk) and on config #4 (one
 # host-loader step); quality_runs on config #1 cut from its 3,000 steps to
-# 300 (best-on-val at 100, 200, 300); mem_budget on config #5 (one
-# host-loader rows step), profile_1m at its default, bench_1m's training at
-# V = 1M with the preset's lazy Adam (its top-k is timed in the timing phase
-# at V = 903,889), step_time on the bench workload; tune_strnn and
-# tune_attention at 25 steps a probe (50 before the wider paths' phases
-# came; tune_strnn's h256 runs B7/B8 at D = 256), check_cell_parity (a
-# DIVERGES line fails the run), bench_eval_path, compare_embedding_modes and
-# compare_attention_modes on 4 gloo ranks sharing the card, scaling_bench on
-# 2 of them (20 steps, one repeat; 60 and 3 before), host_feed one round of
-# 25 steps (50 before).
+# 200 (best-on-val at 100 and 200; 300 before A1's scripts came); mem_budget
+# on config #5 (one host-loader rows step), profile_1m at its default,
+# bench_1m's training at V = 1M with the preset's lazy Adam (its top-k is
+# timed in the timing phase at V = 903,889), step_time on the bench
+# workload; tune_strnn and tune_attention at 15 steps a probe (25 before
+# A1's scripts came, 50 before the wider paths'; tune_strnn's h256 runs
+# B7/B8 at D = 256), check_cell_parity (a DIVERGES line fails the run),
+# bench_eval_path, compare_embedding_modes and compare_attention_modes on 4
+# gloo ranks sharing the card, scaling_bench on 2 of them (20 steps, one
+# repeat; 60 and 3 before), host_feed one round of 15 steps (25 before A1's
+# scripts came, 50 before that); bench_variants' nine points at one window
+# each, bench_attn_step at the sparse table update alone (SCRIPT_ENV).
 SCRIPT_RUNS = (
     ("sweep_ce_fwd", []),
     ("sweep_ce_bwd", []),
@@ -347,21 +358,24 @@ SCRIPT_RUNS = (
     ("bench_serve", ["--dim", "1024"]),
     ("mem_budget", ["smoke", "--set", *(f"{k}={v}" for k, v in BENCH_OVERRIDES.items())]),
     ("mem_budget", [ATTN_CONFIG]),
-    ("quality_runs", [CONFIG, "train.num_steps=300", "train.eval_every=100"]),
+    ("quality_runs", [CONFIG, "train.num_steps=200", "train.eval_every=100"]),
     ("mem_budget", ["multihost_1m", "--set", "mesh.model=1", "mesh.embedding_mode=psum", "data.min_poi_checkins=1",
                     "data.val_fraction=0.05"]),
     ("profile_1m", []),
     ("bench_1m", ["--skip-topk", "--table-update", "sparse"]),
     ("step_time", ["bench"]),
-    ("tune_strnn", ["25"]),
-    ("tune_attention", ["25"]),
+    ("tune_strnn", ["15"]),
+    ("tune_attention", ["15"]),
     ("check_cell_parity", []),
     ("bench_eval_path", []),
     ("compare_embedding_modes", []),
     ("compare_attention_modes", []),
     ("scaling_bench", ["--local-processes", "2", "--steps", "20", "--repeats", "1"]),
-    ("host_feed", ["--rounds", "1", "--steps", "25"]),
+    ("host_feed", ["--rounds", "1", "--steps", "15"]),
+    ("bench_variants", ["1"]),
+    ("bench_attn_step", []),
 )
+SCRIPT_ENV = {"bench_attn_step": {"ATTN_BENCH_MODES": "sparse"}}
 # The GRU kernels at the larger widths: config #4's train shape, a ragged
 # batch, config #5's width on a few rows and at its batch of 512, and the
 # clusters' limit, 640 (past it the grid-resident kernels: GRU_WIDE_SHAPES).
@@ -2587,8 +2601,8 @@ def gru_wide_path_phase(state) -> None:
 # or B5/B6 on the grid, B7/B8 at D = 512 on config #3's 2,048 rows, B11 at
 # D = 512. The train() runs warm up over 20 steps: the presets' 100 move
 # config #3's loss in 5 steps by less than its batches' noise, and none
-# lets config #3 at H = 1024 spike at step 4 (grad norm 0.4 to 3.6), where
-# the two paths' losses parted by 3.9e-3 on an H100.
+# lets config #3 at H = 1024 climb as at warm-up 0 (the c1_warmup0 phase),
+# where any two runs part once its grad norm has climbed.
 REC_WIDE_CLI_STEPS = 10
 REC_WIDE_TRAIN_SETS = {**WIDE_SETS, "train.warmup_steps": "20"}
 
@@ -2637,6 +2651,158 @@ def rec_wide_path_phase(state, tag: str) -> None:
     kern, both, _ = train_both_paths(f"{tag}_wide_path", cfg, ds, tree, used=used, fwd=used[0], steps=WIDE_STEPS)
     serve_both_paths(f"{tag}_wide_path serve", cfg, ds, params_to_numpy(kern.model), used[0])
     state[f"{tag}_wide"] = {"launches": launches, "both_launches": both, "cfg": cfg, "tree": tree}
+
+
+# C1: config #3 at D = 512, H = 1024 with warm-up 0, where the two paths'
+# train() losses part once the grad norm climbs (0.41 at step 1, 1.47 at 3,
+# 3.6 at 5). C1_STEPS steps on the kernel path, the plain path, the plain
+# path from the init with a noise of C1_NOISE relative on every weight, and
+# the plain path in fp32, from one init on the same device-sampled batches
+# and dropout masks; at each step both paths' gradients from the kernel
+# path's parameters, and at the steps C1_HELD the kernel path's B5 and B6
+# calls held to their plain versions on the same inputs. The steps up to
+# C1_BEFORE come before the climb and are held to PERF.md §2's loss limits;
+# after it the noisy plain run parts from the plain run as far as the kernel
+# path does (logged).
+C1_STEPS = 6
+C1_HELD = (3, 4)
+C1_BEFORE = 3
+C1_SETS = {**WIDE_SETS, "train.warmup_steps": "0", "train.log_every": "1"}
+C1_NOISE = 1e-6
+C1_STEP_TOL = 1e-5  # B5's step alone against fp64 (rnn_step_err), absolute; fp32 sums of H products
+
+
+def rnn_step_err(xin, mask, c, hs) -> float:
+    """The largest error of one step of the RNN forward over every valid
+    (b, t): ``hs[t]`` against the step recomputed in fp64 from ``hs[t - 1]``
+    (rounded to bf16 as the kernel rounds it). The whole sequence's error
+    also carries every earlier step's rounding through the chain, where a
+    sum that lands across a bf16 rounding boundary of h moves later steps by
+    up to ~1e-2 in a run whose grad norm climbs; this is the arithmetic of
+    the step alone."""
+    import torch
+
+    h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], dim=1)
+    pre = xin.double() + h_prev.to(c.dtype).double() @ c.double()
+    m = mask.double()[:, :, None]
+    want = m * torch.tanh(pre) + (1.0 - m) * h_prev.double()
+    return float(((hs.double() - want).abs() * (m > 0)).max())
+
+
+def c1_phase(state) -> dict:
+    """C1's evidence on the card (queue C): the per-step losses and grad
+    norms of the four runs, the kernel-to-plain gradient at each step from
+    one set of parameters, and B5/B6 at steps ``C1_HELD`` on the kernel
+    path's own inputs: B5 at the valid steps within ``RNN_TOL``, B6 element
+    by element within ``REC_BWD_TOL`` of each output's largest."""
+    import torch
+
+    from poi_tpu_torch.convert import params_to_numpy
+    from poi_tpu_torch.ops import fused_rnn
+    from poi_tpu_torch.train.loop import DROPOUT_STREAM, make_trainer
+
+    cfg, ds = state["strnn"]["cfg"].with_overrides(C1_SETS), state["strnn"]["ds"]
+    plain_cfg = cfg.with_overrides(PLAIN_OVERRIDES)
+    runs = {"kernel": cfg, "plain": plain_cfg, "plain_noise": plain_cfg,
+            "plain_fp32": plain_cfg.with_overrides({"model.compute_dtype": "float32"})}
+    trainers = {name: make_trainer(c, ds, DEV) for name, c in runs.items()}
+    probe = make_trainer(plain_cfg, ds, DEV)  # the plain path's gradient at the kernel path's parameters
+    tree = params_to_numpy(trainers["kernel"].model)
+    states = {name: t.init_state(tree) for name, t in trainers.items()}
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    with torch.no_grad():
+        for p in states["plain_noise"].params.values():
+            p.mul_(1.0 + C1_NOISE * torch.randn(p.shape, generator=gen, device=DEV))
+
+    def grads(trainer, batch, step):
+        for p in trainer.model.parameters():
+            p.grad = None
+        drop = trainer.generator(step, DROPOUT_STREAM) if cfg.model.dropout > 0.0 else None
+        trainer.loss(batch, None, drop).backward()
+        out = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters() if p.grad is not None}
+        for p in trainer.model.parameters():
+            p.grad = None
+        return out
+
+    real = {"fwd": fused_rnn.fused_rnn_scan, "bwd": fused_rnn.fused_rnn_bwd}
+    caught: dict = {}
+
+    def catch(kind):
+        # Stands in under the wrapper's module name, which the wrapper counts its launches on.
+        def wrapped(*args):
+            caught.setdefault(kind, tuple(a.detach().clone() for a in args))
+            return real[kind](*args)
+        wrapped.launches = wrapped.start = real[kind].launches
+        return wrapped
+
+    def release(*wrapped):
+        for kind, w in zip(("fwd", "bwd"), wrapped):
+            real[kind].launches += w.launches - w.start
+        fused_rnn.fused_rnn_scan, fused_rnn.fused_rnn_bwd = real["fwd"], real["bwd"]
+
+    rows, held = [], {}
+    for s in range(C1_STEPS):
+        batch = trainers["kernel"].sampler.sample(s)
+        caught.clear()
+        fused_rnn.fused_rnn_scan, fused_rnn.fused_rnn_bwd = catch("fwd"), catch("bwd")
+        try:
+            gk = grads(trainers["kernel"], batch, s)
+        finally:
+            release(fused_rnn.fused_rnn_scan, fused_rnn.fused_rnn_bwd)
+        probe.model.load_state_dict(trainers["kernel"].model.state_dict())
+        gp = grads(probe, batch, s)
+        worst = max(gk, key=lambda k: rel_err(gk[k], gp[k]))
+        row = {"step": s + 1, "grad_rel": {k: rel_err(gk[k], gp[k]) for k in gk}, "worst": worst}
+        for name, t in trainers.items():
+            states[name], m = t.step(states[name], batch)
+            row[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        rows.append(row)
+        if s + 1 in C1_HELD:
+            # The kernels, the plain versions (fp32) and the plain versions
+            # summed in fp64 on the path's own inputs.
+            xin, mask, c16 = caught["fwd"]
+            valid = mask[:, :, None] > 0
+            hs = {"kernel": real["fwd"](xin, mask, c16), "plain": fused_rnn.rnn_scan_reference(xin, mask, c16),
+                  "fp64": fused_rnn.rnn_scan_reference(xin.double(), mask, c16)}
+            fwd = {f"{a}{tag}": float(((hs[a].double() - hs[b].double()).abs() * valid).max())
+                   for a, b, tag in (("kernel", "plain", ""), ("kernel", "fp64", "_fp64"), ("plain", "fp64", "_fp64"))}
+            fwd.update({f"{a}_step": rnn_step_err(xin, mask, c16, hs[a]) for a in ("kernel", "plain")})
+            bx, bm, bc, bhs, bdhs = caught["bwd"]
+            bwd = {"kernel": real["bwd"](bx, bm, bc, bhs, bdhs),
+                   "plain": fused_rnn.rnn_bwd_reference(bx, bm, bc, bhs, bdhs),
+                   "fp64": fused_rnn.rnn_bwd_reference(bx.double(), bm, bc, bhs, bdhs)}
+            held[s + 1] = {"shape": list(xin.shape), "fwd": fwd, **{
+                f"{out}_{a}_{b}": rel_err(bwd[a][i].double(), bwd[b][i].double())
+                for i, out in enumerate(("dxin", "dC"))
+                for a, b in (("kernel", "plain"), ("kernel", "fp64"), ("plain", "fp64"))}}
+    for row in rows:
+        k, p = row["kernel"], row["plain"]
+        gap = lambda name: abs(row[name]["loss"] - p["loss"]) / p["loss"]  # noqa: E731
+        log(f"[c1] step {row['step']}: loss kernel {k['loss']:.6f} plain {p['loss']:.6f} (rel gap {gap('kernel'):.2e}), "
+            f"plain from the init x (1 + {C1_NOISE:g} noise) {row['plain_noise']['loss']:.6f} (gap "
+            f"{gap('plain_noise'):.2e}), plain fp32 {row['plain_fp32']['loss']:.6f}; grad norm kernel "
+            f"{k['grad_norm']:.4f} plain {p['grad_norm']:.4f} noise {row['plain_noise']['grad_norm']:.4f} fp32 "
+            f"{row['plain_fp32']['grad_norm']:.4f}; from the kernel path's parameters, kernel vs plain gradient "
+            f"max rel err {row['grad_rel'][row['worst']]:.2e} ({row['worst']}), wh/c "
+            + ", ".join(f"{n} {v:.2e}" for n, v in row["grad_rel"].items() if n.endswith(("wh", ".c"))))
+    for step, h in held.items():
+        f = h["fwd"]
+        log(f"[c1] step {step}: the kernel path's B5/B6 calls at {h['shape']} on their own inputs: B5 max |kernel - "
+            f"plain| at valid steps {f['kernel']:.3e}, against the plain version summed in fp64: kernel "
+            f"{f['kernel_fp64']:.3e}, plain (fp32) {f['plain_fp64']:.3e}; a step alone against fp64 "
+            f"(rnn_step_err): kernel {f['kernel_step']:.3e}, plain (fp32) {f['plain_step']:.3e} (tol "
+            f"{C1_STEP_TOL}); B6 rel err kernel vs plain dxin "
+            f"{h['dxin_kernel_plain']:.2e}, dC {h['dC_kernel_plain']:.2e} (REC_BWD_TOL {REC_BWD_TOL}); against fp64: "
+            f"kernel dxin {h['dxin_kernel_fp64']:.2e}, dC {h['dC_kernel_fp64']:.2e}, plain (fp32) dxin "
+            f"{h['dxin_plain_fp64']:.2e}, dC {h['dC_plain_fp64']:.2e}")
+    for name in runs:
+        assert all(math.isfinite(r[name]["loss"]) for r in rows), f"c1: non-finite loss on {name}"
+    gaps = [abs(r["kernel"]["loss"] - r["plain"]["loss"]) / r["plain"]["loss"] for r in rows[:C1_BEFORE]]
+    assert gaps[0] < LOSS_TOL_FIRST and max(gaps) < LOSS_TOL_LAST, f"c1: losses before the climb part: {gaps}"
+    for step, h in held.items():
+        assert h["fwd"]["kernel_step"] < C1_STEP_TOL, f"c1 step {step}: B5 {h}"
+        assert h["dxin_kernel_plain"] < REC_BWD_TOL and h["dC_kernel_plain"] < REC_BWD_TOL, f"c1 step {step}: B6 {h}"
+    return {"rows": rows, "held": held}
 
 
 # The wider paths: the bench workload ("bench") and config #4 ("c4") at
@@ -3059,21 +3225,73 @@ def checkpoint_phase(gpu: str) -> None:
                                                  for k, v in times.items()) + f"; card: {gpu}")
 
 
-def scripts_phase(state) -> None:
-    """Each ported script as a user runs it (``python -m
-    poi_tpu_torch.scripts.<name>``) on the card, at ``SCRIPT_RUNS``; a
-    nonzero exit fails the run."""
-    for name, args in SCRIPT_RUNS:
-        t0 = time.perf_counter()
+# The scripts that read torch.profiler's device time by kernel run in a
+# process of their own: in this one, after the run's other profiler
+# windows, profile_1m's region records kept coming out short of one call's
+# kernels times the calls (8 records in a row, on an H100), where a fresh
+# process records them whole.
+SCRIPT_FRESH = ("sweep_ce_bwd", "profile_1m")
+
+
+def run_script(name: str, args: list) -> tuple:
+    """``python -m poi_tpu_torch.scripts.<name> *args --device DEV`` with
+    ``SCRIPT_ENV``'s variables: (exit code, its standard output). It runs
+    in this process as ``-m`` runs it (``runpy``: a process a script cost
+    ~8 s to reach the card, ~200 s of the run), but for ``SCRIPT_FRESH``.
+    The ranks that a script spawns print from their own processes."""
+    import contextlib
+    import gc
+    import io
+    import runpy
+
+    import torch
+
+    env = SCRIPT_ENV.get(name, {})
+    if name in SCRIPT_FRESH:
         proc = subprocess.run([sys.executable, "-m", f"poi_tpu_torch.scripts.{name}", *args, "--device", DEV],
                               capture_output=True, text=True, cwd=REPO, timeout=600,
-                              env=dict(os.environ, PYTHONPATH=str(REPO)))
+                              env=dict(os.environ, PYTHONPATH=str(REPO), **env))
         for line in proc.stdout.splitlines():
             log(f"[{name}] {line}")
-        assert proc.returncode == 0, f"{name} {' '.join(args)} exited {proc.returncode}:\n{proc.stderr[-3000:]}"
+        if proc.returncode:
+            log(f"[{name}] stderr: {proc.stderr[-3000:]}")
+        return proc.returncode, proc.stdout
+    buf = io.StringIO()
+    argv, saved = sys.argv, {k: os.environ.get(k) for k in env}
+    sys.argv = [name, *args, "--device", DEV]
+    os.environ.update(env)
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module(f"poi_tpu_torch.scripts.{name}", run_name="__main__")
+        code = 0
+    except SystemExit as e:  # every script ends in sys.exit(main())
+        code = e.code or 0
+    finally:
+        sys.argv = argv
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for line in buf.getvalue().splitlines():
+            log(f"[{name}] {line}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return code, buf.getvalue()
+
+
+def scripts_phase(state) -> None:
+    """Each ported script as a user runs it (``python -m
+    poi_tpu_torch.scripts.<name>``, ``run_script``) on the card, at
+    ``SCRIPT_RUNS`` (with ``SCRIPT_ENV``'s variables); a nonzero exit
+    fails the run."""
+    for name, args in SCRIPT_RUNS:
+        t0 = time.perf_counter()
+        code, out = run_script(name, args)
+        assert code == 0, f"{name} {' '.join(args)} exited {code}"
         # Every point of bench_cells is within its recurrence's width limit.
-        assert name != "bench_cells" or "refused" not in proc.stdout, "bench_cells: a point was refused"
-        assert name != "check_cell_parity" or "DIVERGES" not in proc.stdout, "check_cell_parity: a cell diverged"
+        assert name != "bench_cells" or "refused" not in out, "bench_cells: a point was refused"
+        assert name != "check_cell_parity" or "DIVERGES" not in out, "check_cell_parity: a cell diverged"
         log(f"[scripts] {name} {' '.join(args)}: exit 0 in {time.perf_counter() - t0:.1f} s")
 
 
@@ -3576,7 +3794,7 @@ MESH_TIMEOUT = 600
 # own factor, whose drops the overflow metric counts.
 MESH_C5_SETS = {k: v for k, v in C5_SETS.items() if not k.startswith("mesh.")}
 MESH_EXACT = {"mesh.a2a_capacity_factor": str(float(MESH_WORLD))}
-MESH_C5_STEPS = 3  # 5 before the wider paths' phases came
+MESH_C5_STEPS = 2  # 3 before A1's scripts came, 5 before the wider paths' phases
 # The bench workload on 2 x 2: psum lookups, the sharded CE, dense Adam with the clip.
 MESH_BENCH_SETS = {**BENCH_OVERRIDES, "mesh.data": "2", "mesh.model": "2", "mesh.embedding_mode": "psum"}
 MESH_BENCH_STEPS = 10
@@ -4272,6 +4490,71 @@ def serve_check(work: Path, ranks: list[dict], ds, gpu: str) -> dict:
     return out
 
 
+# Config #5's quality on its preset's mesh (--mesh-quality): quality_runs
+# on the rig's 4 gloo ranks at 1 x 4 (a2a), BASELINE.md:29's sets at the
+# step the reference's run selects.
+MESH_QUALITY_SETS = {"data.min_poi_checkins": "1", "data.val_fraction": "0.05", "train.num_steps": "2000"}
+MESH_QUALITY_TIMEOUT = 2400  # s for the ranks; they took 1,113-1,366 s at 2,000 steps on an H100
+MESH_QUALITY_LINES = ("config:", "dataset:", "a2a lookup", "ROW ")
+
+
+def mesh_quality_child(argv: list) -> None:
+    """One rank of ``--mesh-quality``: ``quality_runs.main(argv)`` in the
+    gloo process group made first (NCCL refuses ranks sharing a card), which
+    the script keeps and this body ends."""
+    import torch.distributed as dist
+
+    from poi_tpu_torch.parallel.mesh import init_distributed
+    from poi_tpu_torch.scripts import quality_runs
+
+    init_distributed("gloo")
+    assert quality_runs.main(argv) == 0
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_quality_main(factor: str) -> int:
+    """``--mesh-quality FACTOR``: config #5's quality on 1 x 4 at a2a
+    capacity factor FACTOR. The corpus is built once here into a dataset
+    cache that the ranks read. Prints rank 0's lines (the drop share, the
+    ``ROW``) and asserts that only rank 0 printed a ``ROW``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: torch.cuda.is_available() is false: this run needs a CUDA card", file=sys.stderr)
+        return 2
+    gpu = gpu_line()
+    log(f"[mesh_quality] card: {gpu}")
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.data.dataset import load_dataset
+    from poi_tpu_torch.parallel.launch import spawn
+
+    sets = {**MESH_QUALITY_SETS, "mesh.a2a_capacity_factor": str(float(factor))}
+    argv = [C5_CONFIG, *(f"{k}={v}" for k, v in sets.items()), "--device", DEV]
+    with tempfile.TemporaryDirectory(prefix="mesh_quality_") as tmp:
+        cache = str(Path(tmp) / "data")
+        os.environ["POI_TPU_TORCH_DATA_CACHE"] = cache
+        t0 = time.perf_counter()
+        ds = load_dataset(get_config(C5_CONFIG).with_overrides(sets).data)
+        log(f"[mesh_quality] corpus: {ds.num_pois} POIs, {len(ds.train)} training windows, built in "
+            f"{time.perf_counter() - t0:.1f} s into the ranks' cache")
+        del ds
+        t0 = time.perf_counter()
+        spawn("chip_smoke:mesh_quality_child", MESH_WORLD, {"argv": argv}, timeout=MESH_QUALITY_TIMEOUT,
+              cwd=str(REPO), env={"POI_TPU_TORCH_DATA_CACHE": cache, "OMP_NUM_THREADS": "2"}, log_dir=tmp)
+        wall = time.perf_counter() - t0
+        logs = [(Path(tmp) / f"rank{r}.log").read_text(errors="replace").splitlines() for r in range(MESH_WORLD)]
+    rows = [[line for line in lines if line.startswith("ROW ")] for lines in logs]
+    for line in logs[0]:
+        if line.startswith(MESH_QUALITY_LINES) or " poi_tpu_torch.train." in line:  # log steps, val evals
+            log(f"[mesh_quality] rank 0: {line}")
+    log(f"[mesh_quality] python -m poi_tpu_torch.scripts.quality_runs {' '.join(argv)} on {MESH_WORLD} gloo ranks "
+        f"sharing cuda:0: {wall:.1f} s  ({gpu})")
+    assert len(rows[0]) == 1 and not any(rows[1:]), f"ROW lines by rank: {rows}"
+    print(gpu, flush=True)
+    return 0
+
+
 def mesh_phase(state, gpu: str) -> dict:
     """(a) config #5 on its preset's mesh (1 x 4, a2a) and (b) the bench
     workload on 2 x 2 (psum, sharded CE), each held to its one-rank run:
@@ -4481,6 +4764,7 @@ def main() -> int:
     phase("gru_wide_path", gru_wide_path_phase, state)
     phase("lstm_wide_path", rec_wide_path_phase, state, "lstm")
     phase("strnn_wide_path", rec_wide_path_phase, state, "strnn")
+    phase("c1_warmup0", c1_phase, state)
     phase("wider_bench_path", wider_path_phase, state, "bench")
     phase("wider_c4_path", wider_path_phase, state, "c4")
     phase("host_loader", host_loader_phase, state)
@@ -4688,7 +4972,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(ab_main(sys.argv[2]) if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3 else main())
+        if len(sys.argv) == 3 and sys.argv[1] in ("--ab", "--mesh-quality"):
+            sys.exit(ab_main(sys.argv[2]) if sys.argv[1] == "--ab" else mesh_quality_main(sys.argv[2]))
+        sys.exit(main())
     except Exception:
         traceback.print_exc()
         sys.exit(1)

@@ -118,11 +118,9 @@ def main(argv: list[str] | None = None) -> int:
     device = torch.device(args.platform or args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error(f"--device {args.device}: CUDA is not available")
-    from poi_tpu_torch.parallel.mesh import init_distributed, launched, rank_device
+    from poi_tpu_torch.parallel.mesh import join_launch
 
-    if launched():
-        init_distributed("nccl" if device.type == "cuda" else "gloo")
-        device = rank_device(device)
+    device = join_launch(device)
 
     from poi_tpu_torch.configs.presets import get_config
     from poi_tpu_torch.utils.config import parse_set_flags

@@ -148,7 +148,13 @@ constexpr int kGridBwdPf = 2;
 
 // A backward carry step's product for one task: acc[e][lo] += term e of the
 // cotangent @ the slice's rows of octet lo0 + lo (no octets), each of the
-// three bf16 terms into its own accumulator, on mma.sync m16n8k16. A comes
+// three bf16 terms into its own accumulator, on mma.sync m16n8k16. Term 0
+// (the cotangent to bf16) carries the sum: each of its k-steps goes into a
+// zeroed fragment that is added to acc[0] in IEEE fp32, since the tensor
+// core's own fp32 accumulation truncates and over the Kp / 16 k-steps of a
+// wide carry drifted well past the plain version's rounding (B6 at H = 1024:
+// 2e-5 from an fp64 reference, against the plain version's 4e-7); terms 1
+// and 2, 2^-8 and 2^-16 of it, accumulate on the tensor core. A comes
 // straight from L2 (ra: row g at logical k 4 tq of term 0; the terms `term`
 // elements apart, rows Kp apart), kGridBwdPf k-steps ahead; the slice is [8
 // ocp][Kp + 8] bf16 at slice_a, row stride ldk.
@@ -181,7 +187,11 @@ __device__ __forceinline__ void grid_carry_product(float (&acc)[3][kTaskOct][4],
         uint32_t b0, b1;
         ldsm_x2(b0, b1, slice_a + (((lo0 + lo) * 8 + lane % 8) * ldk + kb * 16 + ((lane / 8) % 2) * 8) * 2);
 #pragma unroll
-        for (int e = 0; e < 3; ++e) mma_bf16(acc[e][lo], ac[i][e], b0, b1);
+        for (int e = 1; e < 3; ++e) mma_bf16(acc[e][lo], ac[i][e], b0, b1);
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(part, ac[i][0], b0, b1);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[0][lo][x] += part[x];
       }
     }
 #pragma unroll

@@ -87,8 +87,12 @@
 // Backward (B6): csrc/gru_bwd.cu's three-part pattern with one gate block.
 // 1. rnn_bwd_coef_kernel: h_raw = tanh(xin + bf16(h_prev) @ C) of every
 //    step at once on the tensor cores (mma.sync m16n8k16: exact bf16
-//    products, fp32 sums, in the tensor cores' order, so h_raw matches the
-//    forward's two chains and tanh_fast to fp32 rounding, not bit for bit), and from
+//    products; each k-step's 16 summed by the tensor core into a zeroed
+//    fragment and the k-steps added in IEEE fp32, since the tensor core's
+//    own fp32 accumulation over H / 16 k-steps truncates: at H = 1024 it
+//    put B6 2e-5 from an fp64 reference, the plain version 4e-7; so h_raw
+//    matches the forward's two chains and tanh_fast to fp32 rounding, not
+//    bit for bit), and from
 //    it the coefficient a = m (1 - h_raw^2), which depends on the forward
 //    alone, written into dxin.
 // 2. rnn_bwd_carry_kernel<kRegK, R>, the serial chain. A cluster of C CTAs
@@ -475,7 +479,8 @@ cudaError_t launch_fwd_k(const void* xin, const void* mask, const void* cw, void
 // ------------------------------------------------------------- backward, part 1: the coefficients
 //
 // h_raw of every (b, t) at once: bf16(h_prev) @ C as a batched product
-// [B*T, Hk] x [Hk, H] (mma.sync, exact bf16 products, fp32 sums), then
+// [B*T, Hk] x [Hk, H] (mma.sync, exact bf16 products, each k-step's into a
+// zeroed fragment added to the sum in IEEE fp32), then
 // a = m (1 - tanh(xin + .)^2) into coef (the dxin buffer). A block is 8 warps
 // of 16 rows (128 rows of B*T) x 4 unit octets; K streams through smem in
 // chunks of 64. Where H % 8 == 0 (kVec) the loads move 4 (h) and 8 (C)
@@ -556,7 +561,10 @@ __global__ void __launch_bounds__(kCoefThreads)
       for (int nt = 0; nt < kCoefOct; ++nt) {
         uint32_t b0, b1;
         ldsm_x2_trans(b0, b1, b_a + ((ks * 16 + lane % 16) * kCoefLdB + nt * 8) * 2);
-        mma_bf16(acc[nt], a, b0, b1);
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(part, a, b0, b1);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[nt][x] += part[x];
       }
     }
     __syncthreads();
@@ -1022,8 +1030,9 @@ __global__ void __launch_bounds__(32 * kGridWarps, 1)
 //   [3][R rows][Hk];
 // - the group's barrier (not at t = 0: dh(-1) feeds nothing);
 // - per task, the three terms' products with the CTA's slice, each into its
-//   own fp32 accumulator (A straight from L2, kGridBwdPf k-steps ahead),
-//   summed smallest first: s; dh = d (1 - m) + s.
+//   own fp32 accumulator (A straight from L2, kGridBwdPf k-steps ahead;
+//   term 0's k-steps added in IEEE fp32, grid_carry_product), summed
+//   smallest first: s; dh = d (1 - m) + s.
 // No atomics in any sum: the same bits every run.
 
 __global__ void __launch_bounds__(32 * kGridWarps, 1)

@@ -66,20 +66,26 @@ def design(H: int) -> str:
     return grid.design(H, CLUSTER_MAX_HIDDEN, MAX_HIDDEN, f"RNN: H={H} is not taken by the kernels: {TAKES_H}")
 
 
+def _sum_dtype(xin: torch.Tensor) -> torch.dtype:
+    return torch.float64 if xin.dtype == torch.float64 else torch.float32
+
+
 def rnn_scan_reference(xin: torch.Tensor, mask: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: a Python loop over T.
 
     ``h`` is rounded to ``c``'s dtype before the recurrent product, which sums
     in fp32: with bf16 ``c`` that is the kernel's arithmetic, with fp32 ``c``
-    the JAX scan cell's at ``compute_dtype="float32"``.
+    the JAX scan cell's at ``compute_dtype="float32"``. An fp64 ``xin`` sums
+    in fp64 (a reference for both fp32 orders).
     """
     B, T, H = xin.shape
-    xin, mask = xin.float(), mask.float()
-    w = c.float()
+    dt = _sum_dtype(xin)
+    xin, mask = xin.to(dt), mask.to(dt)
+    w = c.to(dt)
     h = xin.new_zeros(B, H)
     hs = []
     for t in range(T):
-        h_raw = torch.tanh(xin[:, t] + h.to(c.dtype).float() @ w)
+        h_raw = torch.tanh(xin[:, t] + h.to(c.dtype).to(dt) @ w)
         m = mask[:, t, None]
         h = m * h_raw + (1.0 - m) * h
         hs.append(h)
@@ -141,10 +147,12 @@ fused_rnn_scan.launches = 0
 def rnn_bwd_reference(xin, mask, c, hs, dhs):
     """Plain PyTorch version of the backward kernel: an explicit reverse-time
     loop in fp32 with the TPU kernel's formulas (``fused_rnn.py:_bwd_kernel``).
-    Returns ``(dxin [B, T, H], dC [H, H])`` fp32."""
+    Returns ``(dxin [B, T, H], dC [H, H])`` fp32 (fp64 for an fp64 ``xin``,
+    as ``rnn_scan_reference``)."""
     B, T, H = xin.shape
-    xin, mask, hs, dhs = xin.float(), mask.float(), hs.float(), dhs.float()
-    w = c.float()
+    dt = _sum_dtype(xin)
+    xin, mask, hs, dhs = xin.to(dt), mask.to(dt), hs.to(dt), dhs.to(dt)
+    w = c.to(dt)
     zero = xin.new_zeros(B, H)
     dh = zero
     dxin = torch.empty_like(xin)
@@ -152,7 +160,7 @@ def rnn_bwd_reference(xin, mask, c, hs, dhs):
     for t in range(T - 1, -1, -1):
         h_prev = hs[:, t - 1] if t > 0 else zero
         m = mask[:, t, None]
-        h_raw = torch.tanh(xin[:, t] + h_prev.to(c.dtype).float() @ w)
+        h_raw = torch.tanh(xin[:, t] + h_prev.to(c.dtype).to(dt) @ w)
         dh = dh + dhs[:, t]
         dpre = dh * m * (1.0 - h_raw * h_raw)
         dxin[:, t] = dpre

@@ -63,6 +63,18 @@ def rank_device(device) -> torch.device:
     return device
 
 
+def join_launch(device) -> torch.device:
+    """An entry point's device: under a launcher, this rank joins the
+    process group (``nccl`` for a card, ``gloo`` for the CPU; a group made
+    first is kept, as gloo ranks sharing a card make one) and takes its
+    ``rank_device``; without one, ``device`` as given."""
+    device = torch.device(device)
+    if not launched():
+        return device
+    init_distributed("nccl" if device.type == "cuda" else "gloo")
+    return rank_device(device)
+
+
 def mesh_shape(data: int, model: int, n: int) -> tuple[int, int]:
     """``(data, model)`` for ``n`` ranks, with ``make_mesh``'s errors;
     ``data=-1`` takes the rest of the ranks."""

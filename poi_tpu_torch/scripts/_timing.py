@@ -1,6 +1,7 @@
 """What the measurement scripts and ``chip_smoke.py`` share: the ``--device``
 flag, the card's line, the bench workload, one timer, one reader of the
-profiler's device time and the cuDNN yardstick.
+profiler's device time, the cuDNN yardstick, and the analytic step FLOP
+count with the card's peak that MFU is read against.
 
 The timer is CUDA events around each call after a warm-up, the median of
 ``iters``: the JAX scripts' slope-of-mins and device-to-host fence existed
@@ -35,6 +36,31 @@ BENCH_OVERRIDES = {
     "train.warmup_steps": "0",
     "model.compute_dtype": "bfloat16",
 }
+
+
+# The H100's dense bf16 tensor-core peak (NVIDIA's data sheet, SXM, 700 W):
+# the peak every bound of chip_smoke.py's kernels line is read against.
+H100_BF16_PEAK = 989e12
+
+
+def step_flops(cfg, dims) -> float:
+    """Analytic matmul FLOPs of one train step, forward and backward (3x
+    the forward's), counted as ``bench.py``'s ``_step_flops`` counts them:
+    the tower's input and recurrent products over its gate blocks and
+    layers; attention's q, k, v and o products and its windowed scores and
+    values; the output projection when it is not tied; the loss's logits
+    over the catalog (CE), the sampled pool + 1, or BPR's negatives + 1."""
+    b, t = cfg.train.batch_size, cfg.data.max_seq_len
+    m = cfg.model
+    d, h = m.embed_dim, m.hidden_dim
+    gates = {"gru": 3, "lstm": 4, "strnn": 1, "attention": 3}.get(m.kind, 1)  # the recurrence's gate blocks
+    tower = 2 * b * t * (d + h) * gates * h * m.num_layers
+    if m.kind == "attention":
+        tower += 4 * 2 * b * t * h * h + 2 * 2 * b * t * m.attn_window * h
+    proj = 2 * b * t * h * d if (h != d or not m.tie_output_embedding) else 0
+    cols = {"sampled_softmax": cfg.loss.num_sampled + 1, "bpr": cfg.loss.num_negatives + 1}.get(
+        cfg.loss.kind, dims.num_pois_padded)
+    return 3.0 * (tower + proj + 2 * b * t * d * cols)
 
 
 def add_device_arg(parser: argparse.ArgumentParser) -> None:

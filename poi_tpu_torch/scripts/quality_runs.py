@@ -10,16 +10,26 @@ selecting the best parameters on the val split every ``eval_every`` steps
 when the preset has one, evaluates the selected parameters on test once, and
 prints the ``ROW`` line of the JAX script: the metrics, the popularity
 floor, the median window's seq/s.
+
+Under a launcher (``python -m torch.distributed.run --nproc-per-node N -m
+poi_tpu_torch.scripts.quality_runs multihost_1m ...``) each rank runs on
+the config's ``(mesh.data, mesh.model)`` mesh, as the ``train`` verb does:
+the selection and the test evaluation run on the mesh, every rank gets the
+same metrics, and only rank 0 prints. A process group made before ``main``
+is kept (gloo ranks sharing one card make their own). With the a2a lookup
+rank 0 also prints the share of input ids it dropped.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import statistics
 import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from poi_tpu_torch.scripts._timing import add_device_arg, setup
 
@@ -34,21 +44,38 @@ def main(argv: list[str] | None = None) -> int:
     dev = setup(args.device)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
 
+    from poi_tpu_torch.parallel.mesh import join_launch
+
+    made = not dist.is_initialized()
+    dev = join_launch(dev)
+    try:
+        return run(args.preset, args.overrides, dev)
+    finally:
+        # Before the interpreter exits (cli.main's reason); a group the caller made is the caller's.
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run(preset: str, sets: list[str], dev: torch.device) -> int:
     from poi_tpu_torch.configs.presets import get_config
     from poi_tpu_torch.data.dataset import load_dataset
     from poi_tpu_torch.eval.evaluate import evaluate, popularity_baseline
+    from poi_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
     from poi_tpu_torch.train.loop import make_trainer, train
     from poi_tpu_torch.train.selection import BestOnVal
     from poi_tpu_torch.utils.config import parse_set_flags
 
-    overrides = parse_set_flags(args.overrides)
-    cfg = get_config(args.preset).with_overrides(overrides)
-    print(f"config: {args.preset} + {overrides} ({cfg.train.num_steps} steps)", flush=True)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if lead else lambda *a, **k: None
+    overrides = parse_set_flags(sets)
+    cfg = get_config(preset).with_overrides(overrides)
+    say(f"config: {preset} + {overrides} ({cfg.train.num_steps} steps)", flush=True)
     ds = load_dataset(cfg.data)
-    print(f"dataset: {ds.num_users} users {ds.num_pois} pois {len(ds.train)} train / {len(ds.test)} test"
-          + (f" / {len(ds.val)} val" if ds.val is not None else ""), flush=True)
+    say(f"dataset: {ds.num_users} users {ds.num_pois} pois {len(ds.train)} train / {len(ds.test)} test"
+        + (f" / {len(ds.val)} val" if ds.val is not None else ""), flush=True)
 
     trainer = make_trainer(cfg, ds, dev)
+    mesh = trainer.mesh
     tracker = BestOnVal(trainer, ds, cfg) if ds.val is not None else None
     t0 = time.time()
     trainer, state, history = train(cfg, ds, trainer=trainer, callbacks=[tracker] if tracker else None, device=dev)
@@ -59,20 +86,26 @@ def main(argv: list[str] | None = None) -> int:
             for k, v in tracker.best_params(state.params).items():
                 state.params[k].copy_(v)
         sel = f" [selected step {tracker.best_step} val {tracker.metric}={tracker.best_score:.4f}]"
-    m = evaluate(trainer.model, ds, cfg)
+    m = evaluate(trainer.model, ds, cfg, mesh=mesh)
     pop = popularity_baseline(ds, cfg.eval.recall_ks)
+    dropped = [h["a2a_overflow"] for h in history if "a2a_overflow" in h]
+    if dropped:
+        say(f"a2a lookup at mesh.a2a_capacity_factor={cfg.mesh.a2a_capacity_factor}: dropped a share "
+            f"{statistics.mean(dropped):.6f} of the input ids a step (mean of {len(dropped)} log steps; min "
+            f"{min(dropped):.6f}, max {max(dropped):.6f})", flush=True)
     # Steady state: the median window's seq/s (the first window holds the warm-up).
     sps = sorted(h["seqs_per_sec"] for h in history[1:] or history)
     sps = sps[len(sps) // 2]
     verdict = (f"BEATS POP {m['recall@10'] / max(pop['recall@10'], 1e-9):.2f}x" if m["recall@10"] > pop["recall@10"]
                else "BELOW FLOOR")
-    print(
-        f"ROW {args.preset}: steps={cfg.train.num_steps} loss={history[-1]['loss']:.3f} "
+    say(
+        f"ROW {preset}: steps={cfg.train.num_steps} loss={history[-1]['loss']:.3f} "
         f"r@1={m['recall@1']:.4f} r@5={m['recall@5']:.4f} r@10={m['recall@10']:.4f} "
         f"ndcg@10={m['ndcg@10']:.4f}{sel} | pop r@1={pop['recall@1']:.4f} "
         f"r@5={pop['recall@5']:.4f} r@10={pop['recall@10']:.4f} "
         f"ndcg={pop['ndcg@10']:.4f} | {sps:,.0f} seq/s (median window) "
-        f"batch={cfg.train.batch_size} wall={dt:.0f}s device={dev.type} {verdict}",
+        f"batch={cfg.train.batch_size} wall={dt:.0f}s device={dev.type} "
+        f"mesh={mesh.shape[DATA_AXIS]}x{mesh.shape[MODEL_AXIS]} {verdict}",
         flush=True,
     )
     return 0

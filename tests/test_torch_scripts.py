@@ -2,7 +2,9 @@
 tiny sizes, where they take the kernels' plain versions; each is checked for
 the rows it prints (their module constants shrink the runs: the number of
 timed calls, the bench workload, ``bench_cells``' points). ``mem_budget``'s accounting is held against the JAX
-package's (``jax.eval_shape`` of ``poi_tpu``'s ``Trainer.init_state``). On
+package's (``jax.eval_shape`` of ``poi_tpu``'s ``Trainer.init_state``), the
+step FLOP count of ``bench_variants`` and ``bench_attn_step`` against
+``bench.py``'s, and ``quality_runs`` on 4 gloo ranks against one rank. On
 the card, ``chip_smoke.py`` runs every script at its default size."""
 
 import os
@@ -22,10 +24,10 @@ from poi_tpu_torch.configs.presets import get_config
 from poi_tpu_torch.data.dataset import load_dataset
 from poi_tpu_torch.models.base import DataDims
 from poi_tpu_torch.ops import fused_lstm, fused_rnn
-from poi_tpu_torch.scripts import (_timing, bench_1m, bench_cells, bench_eval_path, bench_serve, check_cell_parity,
-                                   compare_attention_modes, compare_embedding_modes, host_feed, mem_budget, profile_1m,
-                                   profile_attn, profile_step, quality_runs, scaling_bench, step_time, sweep_ce_bwd,
-                                   sweep_ce_fwd, tune_attention, tune_strnn)
+from poi_tpu_torch.scripts import (_timing, bench_1m, bench_attn_step, bench_cells, bench_eval_path, bench_serve,
+                                   bench_variants, check_cell_parity, compare_attention_modes, compare_embedding_modes,
+                                   host_feed, mem_budget, profile_1m, profile_attn, profile_step, quality_runs,
+                                   scaling_bench, step_time, sweep_ce_bwd, sweep_ce_fwd, tune_attention, tune_strnn)
 from poi_tpu_torch.train.loop import Trainer
 
 torch.set_num_threads(1)
@@ -43,7 +45,7 @@ SCRIPTS = {
     "compare_embedding_modes": (compare_embedding_modes, []), "compare_attention_modes": (compare_attention_modes, []),
     "scaling_bench": (scaling_bench, []), "check_cell_parity": (check_cell_parity, []),
     "bench_eval_path": (bench_eval_path, []), "tune_strnn": (tune_strnn, []), "tune_attention": (tune_attention, []),
-    "host_feed": (host_feed, []),
+    "host_feed": (host_feed, []), "bench_variants": (bench_variants, []), "bench_attn_step": (bench_attn_step, []),
 }
 # Config #5's scripts at a tiny size: 64 users, a 400-POI corpus, the
 # catalog forced to 2,000 rows, 32-d, S = 64.
@@ -191,6 +193,98 @@ def test_step_time_prints_each_config(capsys, monkeypatch):
         assert re.search(rf"{name}: [0-9.]+ ms a step, [0-9,]+ seq/s at batch 8", out), out
 
 
+def _bench_py():
+    """The repository root's ``bench.py`` (it imports no JAX at module level)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("bench", os.path.join(REPO, "bench.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+BENCH_SETS = {**_timing.BENCH_OVERRIDES, "train.batch_size": "512"}
+WIDE_SETS = {"model.embed_dim": "512", "model.hidden_dim": "1024"}
+WIDER_SETS = {"model.embed_dim": "1024", "model.hidden_dim": "1024"}
+
+
+@pytest.mark.parametrize("preset, overrides, num_pois, model_shards", [
+    ("gru_foursquare_nyc", {}, 6749, 1),       # config #1
+    ("lstm_bpr_foursquare", {}, 35880, 1),     # config #2: BPR's negatives + 1
+    ("strnn_gowalla", {}, 36969, 1),           # config #3: the catalog
+    ("attention_gowalla", {}, 36969, 1),       # config #4: attention, the sampled pool + 1
+    ("attention_gowalla", {**bench_attn_step.OVERRIDES, "train.batch_size": "256"}, 36969, 1),
+    ("multihost_1m", {}, 903889, 4),           # config #5 on its 1 x 4: the catalog padded to the model axis
+    ("multihost_1m", {"mesh.model": "1"}, 903889, 1),
+    ("smoke", BENCH_SETS, 44170, 1),           # the bench workload
+    ("smoke", {**BENCH_SETS, "train.batch_size": "1024"}, 44170, 1),
+    ("smoke", {**BENCH_SETS, **WIDE_SETS}, 44170, 1),  # the wide paths: H != D, an untied projection
+    ("lstm_bpr_foursquare", WIDE_SETS, 35880, 1),
+    ("strnn_gowalla", WIDE_SETS, 36969, 1),
+    ("smoke", {**BENCH_SETS, **WIDER_SETS}, 44170, 1),  # the wider paths: D = H = 1024
+    ("attention_gowalla", WIDER_SETS, 36969, 1),
+    ("smoke", {"model.tie_output_embedding": "false", "model.num_layers": "2"}, 512, 1),
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_step_flops_equals_bench_py(preset, overrides, num_pois, model_shards):
+    """``_timing.step_flops`` counts to the FLOP what ``bench.py``'s
+    ``_step_flops`` counts, on the same overrides and catalog (poi_tpu's
+    ``Config`` and ``DataDims`` on the JAX side)."""
+    from poi_tpu.models.base import DataDims as JaxDims
+
+    cfg = get_config(preset).with_overrides(overrides)
+    sizes = dict(num_users=100, num_pois=num_pois, num_time_buckets=168, num_geo_buckets=64, num_tgap_buckets=8,
+                 num_dist_buckets=8)
+    dims, jdims = DataDims(**sizes).padded_to(model_shards), JaxDims(**sizes).padded_to(model_shards)
+    got = _timing.step_flops(cfg, dims)
+    want = _bench_py()._step_flops(JaxConfig.from_dict(cfg.to_dict()), jdims)
+    assert got == want and got > 0
+
+
+def _rows(out: list[str], pattern: str) -> list[re.Match]:
+    return [m for line in out if (m := re.match(pattern, line))]
+
+
+ROW = (r" +[\d,.]+ seq/s \( *[\d.]+ ms/step, MFU not measured \(cpu\), analytic ([\d.]+) GFLOP/step\)$")
+
+
+def test_bench_variants_prints_a_row_a_point(capsys, monkeypatch):
+    """The sweep shrunk (a tiny bench workload, two batches x two chunk
+    lengths, one window): a row a point in order, each with its analytic
+    GFLOP; no MFU on the CPU."""
+    monkeypatch.setattr(bench_variants, "OVERRIDES", {**bench_variants.OVERRIDES, **SMALL})
+    monkeypatch.setattr(bench_variants, "BATCHES", (8, 16))
+    monkeypatch.setattr(bench_variants, "SPCS", (2, 4))
+    monkeypatch.setattr(bench_variants, "MIN_STEPS", 4)
+    out = _run(capsys, bench_variants, ["1"])
+    rows = _rows(out, r"batch= +(\d+) spc= +(\d+):" + ROW)
+    assert [(int(m.group(1)), int(m.group(2))) for m in rows] == [(8, 2), (8, 4), (16, 2), (16, 4)], out
+    ds = load_dataset(get_config("smoke").with_overrides(bench_variants.OVERRIDES).data)
+    for m in rows:
+        cfg = get_config("smoke").with_overrides({**bench_variants.OVERRIDES, "train.batch_size": m.group(1)})
+        assert m.group(3) == f"{_timing.step_flops(cfg, DataDims.from_dataset(ds)) / 1e9:.1f}"
+
+
+def test_bench_attn_step_prints_a_row_a_point(capsys, monkeypatch):
+    """Config #4 shrunk (synthetic, 32-d, S = 64, chunks of 2): batch x
+    table update in ``ATTN_BENCH_MODES``' order; a bad list exits before
+    any work, as the reference's does."""
+    monkeypatch.setattr(bench_attn_step, "OVERRIDES", {
+        **bench_attn_step.OVERRIDES, **SMALL, "data.dataset": "synthetic", "loss.num_sampled": "64",
+        "train.steps_per_call": "2"})
+    monkeypatch.setattr(bench_attn_step, "BATCHES", (8, 16))
+    monkeypatch.setattr(bench_attn_step, "STEPS", 4)
+    monkeypatch.setattr(bench_attn_step, "REPEATS", 1)
+    monkeypatch.setenv("ATTN_BENCH_MODES", "dense, sparse")
+    out = _run(capsys, bench_attn_step, [])
+    rows = _rows(out, r"attention batch= +(\d+) \((sparse|dense) *\):" + ROW)
+    assert [(int(m.group(1)), m.group(2)) for m in rows] == [(8, "dense"), (8, "sparse"), (16, "dense"),
+                                                              (16, "sparse")], out
+    for bad in ("sparse,fast", " , "):
+        monkeypatch.setenv("ATTN_BENCH_MODES", bad)
+        with pytest.raises(SystemExit, match="ATTN_BENCH_MODES must be a comma list of sparse|dense"):
+            bench_attn_step.main(CPU)
+
+
 def test_bench_cells_rows_and_refused_widths(capsys, monkeypatch):
     """Past the LSTM's and the RNN's width limits the wrapper refuses (on the
     card; here a stand-in raises its message) and the refusal is the row."""
@@ -244,6 +338,40 @@ def test_quality_runs_prints_the_row(capsys):
     assert re.search(r"r@10=0\.\d{4} ndcg@10=0\.\d{4} \[selected step (5|10) val recall@10=", row)
     assert re.search(r"\| pop r@1=0\.\d{4} r@5=0\.\d{4} r@10=0\.\d{4} ndcg=0\.\d{4} \|", row)
     assert "seq/s (median window)" in row and ("BEATS POP" in row or "BELOW FLOOR" in row)
+
+
+def _row_numbers(row: str) -> dict:
+    return {k: float(v) for k, v in re.findall(r" (loss|r@10)=([0-9.]+)", row.split(" | ")[0])}
+
+
+# Config #5 at TINY_1M's size with a val split, selected every 10 of 20 steps.
+MESH_QUALITY_SETS = [f"{k}={v}" for k, v in {
+    **TINY_1M, "data.min_poi_checkins": "1", "data.val_fraction": "0.1", "train.batch_size": "8",
+    "train.num_steps": "20", "train.eval_every": "10", "train.log_every": "5", "train.warmup_steps": "2"}.items()]
+
+
+def test_quality_runs_on_a_mesh_matches_one_rank(capsys, tmp_path):
+    """``quality_runs`` on 4 gloo ranks (config #5's 1 x 4, a2a at capacity
+    factor 4, where no id drops): rank 0 prints one ``ROW`` (and the a2a
+    drop line, a share of 0), the other ranks none, and the row's loss and
+    recall@10 are the one-rank run's to PERF.md §2's limits (1e-3
+    relative, 0.01)."""
+    from poi_tpu_torch.parallel.launch import spawn
+
+    argv = ["multihost_1m", *MESH_QUALITY_SETS, "mesh.model=4", "mesh.a2a_capacity_factor=4", *CPU]
+    spawn("tests.torch_mesh_jobs:quality_job", 4, {"argv": argv}, timeout=300, cwd=REPO, log_dir=str(tmp_path),
+          env={"POI_TPU_TORCH_DATA_CACHE": "off", "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO})
+    logs = [(tmp_path / f"rank{r}.log").read_text().splitlines() for r in range(4)]
+    rows = [[line for line in log if line.startswith("ROW ")] for log in logs]
+    assert len(rows[0]) == 1 and not any(rows[1:]), rows
+    assert rows[0][0].startswith("ROW multihost_1m: steps=20 ") and " mesh=1x4 " in rows[0][0]
+    drops = [line for line in logs[0] if line.startswith("a2a lookup at mesh.a2a_capacity_factor=4.0: ")]
+    assert len(drops) == 1 and "dropped a share 0.000000 " in drops[0], drops
+    one = _run(capsys, quality_runs, ["multihost_1m", *MESH_QUALITY_SETS, "mesh.model=1"])[-1]
+    assert one.startswith("ROW multihost_1m: steps=20 ") and " mesh=1x1 " in one
+    got, want = _row_numbers(rows[0][0]), _row_numbers(one)
+    assert abs(got["loss"] - want["loss"]) <= 1e-3 * want["loss"], (got, want)
+    assert abs(got["r@10"] - want["r@10"]) <= 0.01, (got, want)
 
 
 def _jax_split(tree, vp):

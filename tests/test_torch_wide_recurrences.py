@@ -235,3 +235,63 @@ def test_wide_trainer_step_matches_jax(config):
         clear = np.abs(mu[name]) > 0.05 * np.abs(mu[name]).max()
         assert diff[clear].max(initial=0.0) <= 1e-6, name
         assert diff.max() <= 2 * lr + 1e-6, name
+
+
+# C1 (queue C): config #3 at H = 1024, D = 512 with warm-up 0, where on the
+# card the kernel and plain paths' losses parted after a grad-norm spike at
+# step 4. Here the port's plain path (the CPU takes it) against poi_tpu over
+# C1_STEPS steps from the same params on the same host batches, at
+# tests/test_torch_train.py's trajectory tolerances; each step's grad norm
+# on both sides shows whether the reference's step moves as the port's.
+C1_STEPS = 5
+TRAJECTORY_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "param_norm": 1e-5}
+
+
+def test_wide_strnn_trajectory_at_warmup_0_matches_jax():
+    """``C1_STEPS`` ``Trainer`` steps of config #3 at H = 1024, D = 512 and
+    warm-up 0 (fp32, dropout 0), the same params and the same successive
+    host batches on both sides: the per-step loss, grad norm and param norm
+    of ``poi_tpu``'s steps."""
+    config = "strnn_gowalla"
+    cfg = get_config(config).with_overrides({**WIDE, **WIDE_CONFIGS[config], "train.log_every": "1"})
+    assert cfg.train.warmup_steps == 0 and cfg.model.hidden_dim == 1024 and cfg.model.embed_dim == 512
+    ds = load_dataset(cfg.data)
+    jt = JaxTrainer(JaxConfig.from_dict(cfg.to_dict()), JaxDataDims.from_dataset(ds))
+    js = jt.init_state()
+    tt = Trainer(cfg, DataDims.from_dataset(ds), device="cpu")
+    st = tt.init_state(jax.tree.map(np.asarray, js.params))
+    B = cfg.train.batch_size
+    for s in range(C1_STEPS):
+        batch = make_batch(ds.train, np.arange(s * B, (s + 1) * B))
+        js, jm = jt.step(js, batch)
+        st, tm = tt.step(st, batch)
+        print(f"C1 step {s + 1}: " + ", ".join(f"{k} port {float(tm[k]):.6f} poi_tpu {float(jm[k]):.6f}"
+                                              for k in TRAJECTORY_TOL))  # shown under pytest -s
+        for k, tol in TRAJECTORY_TOL.items():
+            assert float(tm[k]) == pytest.approx(float(jm[k]), rel=tol), (s + 1, k, float(tm[k]), float(jm[k]))
+    assert st.step == C1_STEPS
+
+
+@pytest.mark.parametrize("H", [96, 1024])
+def test_rnn_plain_versions_sum_in_fp64_for_fp64_inputs(H):
+    """C1's held check on the card measures B5/B6 and their fp32 plain
+    versions against the same plain versions summed in fp64 (an fp64
+    ``xin``; h still rounded to ``C``'s bf16 before the product): they
+    return fp64; the fp32 backward is within ``REL_TOL`` of them, and the
+    forward within 1e-3 (an fp32 sum that lands across a bf16 rounding
+    boundary of h moves a unit by ~2e-4 at H = 1024 here)."""
+    rng = np.random.default_rng(H)
+    B, T = 4, 5
+    xin = torch.from_numpy(rng.normal(size=(B, T, H)).astype(np.float32))
+    c = torch.from_numpy((rng.normal(size=(H, H)) / np.sqrt(H)).astype(np.float32)).to(torch.bfloat16)
+    mask = torch.from_numpy(_mask(rng, B, T))
+    dhs = torch.from_numpy(rng.normal(size=(B, T, H)).astype(np.float32))
+    hs32, hs64 = rnn_scan_reference(xin, mask, c), rnn_scan_reference(xin.double(), mask, c)
+    assert hs32.dtype == torch.float32 and hs64.dtype == torch.float64
+    assert float((hs32.double() - hs64).abs().max()) < 1e-3
+    hs = hs32
+    (dx32, dc32), (dx64, dc64) = rnn_bwd_reference(xin, mask, c, hs, dhs), rnn_bwd_reference(xin.double(), mask, c,
+                                                                                             hs, dhs)
+    assert dx64.dtype == dc64.dtype == torch.float64
+    _close(dx32, dx64.numpy(), REL_TOL, "dxin")
+    _close(dc32, dc64.numpy(), REL_TOL, "dC")

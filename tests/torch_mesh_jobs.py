@@ -1,6 +1,7 @@
 """Rank bodies of the gloo rig that ``tests/test_torch_sharded.py``,
 ``tests/test_torch_train_sharded.py`` and ``tests/test_torch_sp_attention.py``
-start with ``parallel.launch.spawn``:
+start with ``parallel.launch.spawn`` (``tests/test_torch_scripts.py`` too, for
+``quality_job``):
 4 ranks on the CPU, one job a test module. Each body reads the inputs the
 test wrote (numpy, from a seed and from ``poi_tpu``), computes every case
 on a 2 x 2 and a 1 x 4 mesh of its 4 ranks, and rank 0 writes the results
@@ -365,5 +366,18 @@ def async_ckpt_job(out: str, steps: int) -> None:
         res["same_bytes"] = np.asarray(files[0] == files[1])
         res["writers"] = np.asarray(writers)
         np.savez(out, **res)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def quality_job(argv: list) -> None:
+    """``quality_runs.main(argv)`` on this rank, in the process group made
+    first, as the gloo ranks sharing a card make theirs: the script runs on
+    the config's mesh and keeps the group, which this body ends."""
+    from poi_tpu_torch.scripts import quality_runs
+
+    _setup()
+    assert quality_runs.main(argv) == 0
+    assert dist.is_initialized()  # kept: the caller made it
     dist.barrier()
     dist.destroy_process_group()
