@@ -41,11 +41,16 @@ with its plain PyTorch version on the card. Then it drives the paths:
   H = 648, 768, 1024 and the limit;
 - the wider paths (the bench workload and config #4 at D = H = 1024, the
   losses past D = 512 on the K-chunked kernels): ``python -m poi_tpu_torch
-  train`` 10 steps with B1, B2, B7 and B8 (config #4: B9 and B10) and B11
+  train`` 5 steps with B1, B2, B7 and B8 (config #4: B9 and B10) and B11
   launched, 5 steps through ``train()`` on both paths, and ``Recommender``
   at request batch 1 and 256 on both paths; before them, B7 and B8 at D =
-  600, 768, 1000 and 1024, B9 and B10 at 640, 768 and 1024, the kernels'
-  block plans held to their Python mirrors, and D = 1025 refused;
+  600, 768, 1000 and 1024, B9 and B10 at 640, 768 and 1024, and the
+  kernels' block plans held to their Python mirrors;
+- the widest bench path (the bench workload at D = H = 2048: B7, B8 and B11
+  past 1024 on their streamed kernels, B1/B2 on the grid), the same way as
+  the wider paths; before it, B7 and B8 at D = 1100, 1280, 2048 and 4096,
+  B11 at 1100, 2048 and 4096, and D = 1025 refused by B9/B10 alone and
+  taken by B7, B8 and B11;
 - config #5 on one card (``multihost_1m --set mesh.model=1
   mesh.embedding_mode=psum data.min_poi_checkins=1 data.val_fraction=0.05``:
   GRU 512-d + 8-head attention, T=64, batch 512, sampled softmax over 4,096
@@ -138,6 +143,16 @@ GRU_TOL = 5e-3
 # magnitude <= ~50, in different orders differ by a few ulps of ~50
 # (4e-6 each), far below 1e-4.
 TOPK_TOL = 1e-4
+
+
+def topk_tol(D: int) -> float:
+    """``TOPK_TOL`` up to D = 1024, where every top-k case here sums its
+    scores; past it the fp32 order error of a score grows with the D terms
+    it sums (the kernel's tensor-core accumulation against torch's), so the
+    tolerance grows in proportion: 2e-4 at 2048, 4e-4 at 4096 (measured on an
+    H100: up to 1.41e-4 at 2048, 2.10e-4 at 4096 on scores of std ~8)."""
+    return TOPK_TOL * max(1.0, D / 1024)
+
 # GRU backward, relative to each output's largest element: kernel and plain
 # version keep every cotangent fp32 and differ only in fp32 summation order
 # (3H terms per step for dh, B·T = 32,768 terms for dwh) and in expf/tanhf.
@@ -146,6 +161,17 @@ GRU_BWD_TOL = 1e-5
 # CE forward, absolute: fp32 sums of up to 44,170 exponentials in different
 # orders, each exp within ~2 ulp; lse is ~10.
 CE_LSE_TOL = 1e-4
+
+
+def ce_lse_tol(D: int) -> float:
+    """``CE_LSE_TOL`` up to D = 1024; past it a logit sums D products (the
+    kernel on the tensor cores, the plain version on the CUDA cores, in fp32
+    and in other orders), and its error, which the LSE inherits, grows with
+    D: the tolerance grows in proportion, 2e-4 at 2048 and 4e-4 at 4096
+    (measured on an H100: 9.9e-5 at the bench shape at 2048, 1.3e-4 at 4096
+    on a small catalog, logits 0.3 N(0, 1) rows apart)."""
+    return CE_LSE_TOL * max(1.0, D / 1024)
+
 # CE backward dq and dtable, relative to their largest element: gp is rounded
 # to bf16 before the products, and where the kernel's exp and torch's differ
 # by an ulp, gp can round to the neighbouring bf16 value (2^-8 apart) for a
@@ -296,6 +322,13 @@ CE_D512_CASES = (CE_C3_D512 + (36969,), CE_BENCH_D512 + (44170,), (300, 8193, 38
 CE_BENCH_D1024 = (32768, 44170, 1024)
 CE_C3_D768 = (2048, 36969, 768)
 CE_D1024_CASES = (CE_BENCH_D1024 + (44170,), CE_C3_D768 + (36969,), (300, 8193, 600, 8000), (1000, 5000, 1000, 5000))
+# B7/B8 past D = 1024, the streamed kernels (N, V, D, real POIs): the widest
+# bench path's CE (the bench shape at D = 2048), config #3's shape at 1280
+# (the forward's split-V, five column ranges), a ragged 1100 (run at 1280)
+# with a -1e30 tail, and 4096 on a small N and V: no width cap.
+CE_BENCH_D2048 = (32768, 44170, 2048)
+CE_C3_D1280 = (2048, 36969, 1280)
+CE_D2048_CASES = (CE_BENCH_D2048 + (44170,), CE_C3_D1280 + (36969,), (300, 8193, 1100, 8000), (200, 1000, 4096, 950))
 # B8 at these widths is held element by element to the bound its arithmetic
 # allows (ce_bound_ratios, b10_bound_ratios' without the hit mask) beside
 # CE_GRAD_TOL of the max-over-max error: at D = 512 a block sums half the
@@ -312,14 +345,24 @@ def kchunked(D: int) -> bool:
     logits' fp32 error grows with D, so the max-over-max errors pass
     CE_GRAD_TOL and CE_DBIAS_TOL on correct runs (dq 4.7e-3 at the bench
     shape at D = 1024, 0.18 of its element-wise bound; db 1.05e-5 on an
-    all-hit pool at 1024, 0.001 of it)."""
+    all-hit pool at 1024, 0.001 of it). Past 1024 (B7/B8 only) the same."""
     return D > 512
 # B11's other main-path catalogs, (V, D, real POIs), each padded to a multiple
 # of 2,048 with -1e30 rows as the eval and serving code pad them: the bench
 # eval sweep's, config #4's eval sweep's, bench_serve's (70,953 POIs),
-# config #5's, and the wider bench path's eval sweep at D = 1024.
+# config #5's, the wider bench path's eval sweep at D = 1024, the widest
+# bench path's at D = 2048 (its eval sweep and its serving), and a small one
+# at D = 4096 (no main path: no width cap).
 TOPK_CATALOGS = {"eval": (45056, 128, 44170), "c4": (38912, 256, 36969), "serve70k": (71680, 256, 70953),
-                 "c5": (905216, 512, 903889), "eval1024": (45056, 1024, 44170)}
+                 "c5": (905216, 512, 903889), "eval1024": (45056, 1024, 44170), "eval2048": (45056, 2048, 44170),
+                 "d4096": (8192, 4096, 8000)}
+# B11 past 1024, (B, V, D, k, real POIs): the widest bench path's eval sweep
+# (its eval batch; the eval batch is read from the config at run time, so
+# None here), its serving at request batch 1 and 256 (k = 128, recommend's
+# fetch), 4096 on a small catalog, and a ragged 1100 (run at 1280).
+TOPK_WIDEST_CASES = ((None, 45056, 2048, 10, 44170), (1, 45056, 2048, 128, 44170), (256, 45056, 2048, 128, 44170),
+                     (7, 8192, 4096, 128, 8000), (256, 8192, 4096, 10, 8000), (33, 8192, 1100, 32, 8000),
+                     (1, 8192, 1100, 128, 8000))
 CE_THRESHOLD_CASES = ((2048, 6749, 64), (32768, 6749, 128), (32768, 44170, 128))
 # Config #4 at full width: GRU + attention 256-d, T=128, batch 64, dropout
 # 0.3, sampled softmax (S=1,024), lazy Adam, 36,969 POIs. The device sampler
@@ -584,7 +627,7 @@ def topk_phase() -> float:
     import torch
 
     from poi_tpu_torch.configs.presets import get_config
-    from poi_tpu_torch.ops.topk import fused_topk, topk_reference
+    from poi_tpu_torch.ops.topk import fused_topk, kernel_dim, topk_reference
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     worst = 0.0
@@ -607,8 +650,10 @@ def topk_phase() -> float:
               (256, 8192, 512, 128, 8000), (256, 8192, 1024, 10, 8000), (256, 8192, 1024, 128, 8000),
               (7, 8192, 520, 128, 8000)]
     # D = 100, no multiple of 8: the wrapper pads q and the table with zero
-    # columns to 104.
+    # columns to 104. Past 1024, the K-chunked pass 1 (TOPK_WIDEST_CASES),
+    # each launched twice for its bits.
     cases += [(256, 8192, 100, 10, 8000), (7, 8192, 100, 128, 8000)]
+    cases += [(eval_batch if B is None else B, V, D, k, real) for B, V, D, k, real in TOPK_WIDEST_CASES]
     for B, V, D, k, real in cases:
         # Scores of the same spread at either width (std ~8).
         q = torch.randn(B, D, generator=gen, device=DEV) * (64 / D) ** 0.5
@@ -618,26 +663,34 @@ def topk_phase() -> float:
         vals, ids = fused_topk(q, table, bias, k)
         torch.cuda.synchronize()
         want_v, want_i = topk_reference(q, table, bias, k)
-        err = float((vals - want_v).abs().max())
-        assert err < TOPK_TOL, f"top-k B={B} V={V} D={D} k={k}: max |vals - plain| {err}"
+        err, tol = float((vals - want_v).abs().max()), topk_tol(D)
+        assert err < tol, f"top-k B={B} V={V} D={D} k={k}: max |vals - plain| {err} (tol {tol})"
         exact = q.to(torch.bfloat16).double() @ table.to(torch.bfloat16).double().T + bias.double()
         rows = torch.arange(B, device=DEV)[:, None]
-        near = (exact[rows, ids.long()] - exact[rows, want_i.long()]).abs() < TOPK_TOL
+        near = (exact[rows, ids.long()] - exact[rows, want_i.long()]).abs() < tol
         assert ((ids == want_i) | near).all(), f"top-k B={B} V={V} D={D} k={k}: ids differ beyond near-ties"
         assert int(ids.max()) < real, f"top-k B={B} V={V} D={D} k={k}: a padded row won"
+        bits = ""
+        if D > 1024:
+            again = fused_topk(q, table, bias, k)
+            assert torch.equal(again[0], vals) and torch.equal(again[1], ids), f"top-k D={D}: run-to-run bits"
+            bits = f"; run at {kernel_dim(D)} on the K-chunked pass 1, a second launch gives the same bits"
         worst = max(worst, err)
         log(f"[topk] B={B:3d} V={V} D={D:3d} k={k:3d}{' (-1e30 tail)' if real < V else ''}: max |vals - plain| "
-            f"{err:.3e}, ids equal {int((ids == want_i).sum())}/{ids.numel()} (rest near-ties < {TOPK_TOL})")
-    # Duplicated rows across the catalog: the tie order must be exact.
-    D, V = 64, 8192
-    q = torch.randn(4, D, generator=gen, device=DEV)
-    table = torch.randn(16, D, generator=gen, device=DEV)[torch.randint(0, 16, (V,), generator=gen, device=DEV)]
-    bias = torch.zeros(V, device=DEV)
-    for k in (10, 128):
-        _, ids = fused_topk(q, table, bias, k)
-        _, want_i = topk_reference(q, table, bias, k)
-        assert torch.equal(ids, want_i), f"top-k duplicated rows k={k}: tie order differs"
-    log("[topk] duplicated rows: tie order (value desc, id asc) exact for k=10 and k=128")
+            f"{err:.3e} (tol {tol:.0e}), ids equal {int((ids == want_i).sum())}/{ids.numel()} (rest near-ties < "
+            f"{tol:.0e}){bits}")
+    # Duplicated rows across the catalog: the tie order must be exact (past
+    # 1024 too: two identical rows score bit for bit alike over the chunks).
+    for D in (64, 2048):
+        V = 8192
+        q = torch.randn(4, D, generator=gen, device=DEV)
+        table = torch.randn(16, D, generator=gen, device=DEV)[torch.randint(0, 16, (V,), generator=gen, device=DEV)]
+        bias = torch.zeros(V, device=DEV)
+        for k in (10, 128):
+            _, ids = fused_topk(q, table, bias, k)
+            _, want_i = topk_reference(q, table, bias, k)
+            assert torch.equal(ids, want_i), f"top-k duplicated rows D={D} k={k}: tie order differs"
+    log("[topk] duplicated rows at D = 64 and 2048: tie order (value desc, id asc) exact for k=10 and k=128")
     return worst
 
 
@@ -775,18 +828,18 @@ def gru_bwd_phase() -> float:
 
 def ce_case(tag: str, N: int, V: int, D: int, real: int, gen) -> dict:
     """B7 and B8 on one (N, V, D) catalog whose rows past ``real`` are -1e30
-    padding, against their plain versions: lse at ``CE_LSE_TOL``; dq and
-    dtable at ``CE_GRAD_TOL`` of the max-over-max error and, at
-    ``B8_BOUND_DIMS``, element by element within ``ce_bound_ratios``'
-    bound; dbias at ``CE_DBIAS_TOL``; padded catalog rows get exactly zero
+    padding, against their plain versions: lse at ``ce_lse_tol(D)``
+    (``CE_LSE_TOL`` up to D = 1024); dq and dtable at ``CE_GRAD_TOL`` of the
+    max-over-max error and, at ``B8_BOUND_DIMS``, element by element within
+    ``ce_bound_ratios``' bound (past 512 by that bound alone, dbias too,
+    ``kchunked``); dbias at ``CE_DBIAS_TOL``; padded catalog rows get exactly zero
     gradient; a second run gives the same bits. Returns the largest
     absolute errors of lse and of the gradients, dq's and dtable's relative
     errors and bound ratios (None below ``B8_BOUND_DIMS``)."""
     import torch
 
     from poi_tpu_torch import _build
-    from poi_tpu_torch.ops.fused_ce import KERNEL_DIMS, ce_bwd, ce_bwd_reference, ce_lse, ce_lse_reference, lse_rows
-    from poi_tpu_torch.ops.widths import padded_dim
+    from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_bwd_reference, ce_lse, ce_lse_reference, kernel_dim, lse_rows
 
     q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
     table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
@@ -796,13 +849,13 @@ def ce_case(tag: str, N: int, V: int, D: int, real: int, gen) -> dict:
     lse = ce_lse(q, table, bias)
     torch.cuda.synchronize()
     want_lse = ce_lse_reference(q, table, bias)
-    e_lse = float((lse - want_lse).abs().max())
-    assert e_lse < CE_LSE_TOL, f"ce_lse N={N} V={V} D={D}: max |kernel - plain| {e_lse}"
+    e_lse, lse_tol = float((lse - want_lse).abs().max()), ce_lse_tol(kernel_dim(D))
+    assert e_lse < lse_tol, f"ce_lse N={N} V={V} D={D}: max |kernel - plain| {e_lse} (tol {lse_tol})"
     got = ce_bwd(q, table, bias, want_lse, g)
     torch.cuda.synchronize()
     want = ce_bwd_reference(q, table, bias, want_lse, g)
     errs = [rel_err(a, b) for a, b in zip(got, want)]
-    Dp = padded_dim(D, KERNEL_DIMS, "ce_lse")
+    Dp = kernel_dim(D)
     ratios = (ce_bound_ratios((q, table, bias, want_lse, g), got, want, with_db=kchunked(Dp))
               if Dp in B8_BOUND_DIMS or kchunked(Dp) else None)
     assert kchunked(Dp) or (errs[0] < CE_GRAD_TOL and errs[1] < CE_GRAD_TOL and errs[2] < CE_DBIAS_TOL), \
@@ -816,7 +869,7 @@ def ce_case(tag: str, N: int, V: int, D: int, real: int, gen) -> dict:
     splits = max(1, _build.library().ce_lse_scratch(N, V, Dp, lse_rows(D)) // (2 * N))
     log(f"[{tag}] N={N:5d} V={V} D={D:3d}{f' (run at {Dp})' if Dp != D else ''}"
         f"{' (-1e30 tail)' if real < V else ''}, ce_lse at {lse_rows(D)} rows a block in {splits} catalog "
-        f"range{'s' if splits > 1 else ''}: lse max err {e_lse:.2e} (tol {CE_LSE_TOL}); rel err dq {errs[0]:.2e}, "
+        f"range{'s' if splits > 1 else ''}: lse max err {e_lse:.2e} (tol {lse_tol:.0e}); rel err dq {errs[0]:.2e}, "
         f"dtable {errs[1]:.2e} ({'held by the element-wise bound' if kchunked(Dp) else f'tol {CE_GRAD_TOL}'})"
         + (f", |err| / element-wise bound dq {ratios[0]:.3f}, dtable {ratios[1]:.3f}" if ratios else "")
         + (f", dbias {ratios[2]:.3f} (each <= 1; dbias rel err {errs[2]:.2e})" if kchunked(Dp) else
@@ -917,24 +970,50 @@ def ce_cases(tag: str, cases, gen) -> dict:
 
 
 def expect_loss_width_limit(tag: str, D: int) -> None:
-    """Both pairs (B7/B8, B9/B10) refuse width ``D`` on CUDA tensors, naming
-    the limit, before any launch."""
+    """Width ``D`` past 1024 on CUDA tensors: B9/B10 alone refuse it, naming
+    the limit, before any launch; B7/B8 and B11 take it (at the next
+    multiple of 256), each launching its kernel once and agreeing with its
+    plain version."""
     import torch
 
-    from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_lse
+    from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_bwd_reference, ce_lse, ce_lse_reference
     from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse
+    from poi_tpu_torch.ops.topk import fused_topk, topk_reference
 
     q, z = torch.zeros(4, D, device=DEV), torch.zeros(4, device=DEV)
     i = torch.zeros(4, dtype=torch.int32, device=DEV)
-    for fn, args in ((ce_lse, (q, q, z)), (ce_bwd, (q, q, z, z, z)), (sampled_lse, (q, q, z, i, i)),
-                     (sampled_bwd, (q, q, z, i, i, z, z))):
+    for fn, args in ((sampled_lse, (q, q, z, i, i)), (sampled_bwd, (q, q, z, i, i, z, z))):
         try:
             fn(*args)
         except ValueError as e:
             assert "D <= 1024" in str(e) and f"D={D}" in str(e), e
-            log(f"[{tag}] D={D} refused: {e}")
+            log(f"[{tag}] D={D} refused by {fn.__name__}: {e}")
         else:
             raise AssertionError(f"{fn.__name__} took D = {D}")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 29)
+    q = 0.3 * torch.randn(70, D, generator=gen, device=DEV)
+    t = 0.3 * torch.randn(700, D, generator=gen, device=DEV)
+    b = torch.randn(700, generator=gen, device=DEV)
+    g = torch.rand(70, generator=gen, device=DEV)
+    before = {fn: fn.launches for fn in (ce_lse, ce_bwd, fused_topk)}
+    lse = ce_lse(q, t, b)
+    got = ce_bwd(q, t, b, lse, g)
+    vals, ids = fused_topk(q, t, b, 10)
+    torch.cuda.synchronize()
+    assert all(fn.launches == n + 1 for fn, n in before.items()), "a wrapper took D past 1024 without its kernel"
+    e_lse = float((lse - ce_lse_reference(q, t, b)).abs().max())
+    want = ce_bwd_reference(q, t, b, lse, g)
+    e_grad = max(ce_bound_ratios((q, t, b, lse, g), got, want, with_db=True))
+    want_v, want_i = topk_reference(q, t, b, 10)
+    e_top = float((vals - want_v).abs().max())
+    exact = q.to(torch.bfloat16).double() @ t.to(torch.bfloat16).double().T + b.double()
+    rows = torch.arange(70, device=DEV)[:, None]
+    near = (exact[rows, ids.long()] - exact[rows, want_i.long()]).abs() < topk_tol(D)
+    assert e_lse < ce_lse_tol(D) and e_grad <= 1.0 and e_top < topk_tol(D) and bool(((ids == want_i) | near).all()), \
+        (e_lse, e_grad, e_top)
+    log(f"[{tag}] D={D} taken by ce_lse, ce_bwd and fused_topk (one launch each): lse max err {e_lse:.2e}, "
+        f"gradients' largest |err| / element-wise bound {e_grad:.3f} (<= 1), top-k values {e_top:.2e}, ids the plain "
+        f"version's but for near-ties")
 
 
 def ce_wide_phase() -> dict:
@@ -970,31 +1049,44 @@ def check_plans() -> None:
         assert fn(D, buf) == 1, D
         return tuple(buf[:n])
 
-    widths = sorted(set(fused_ce.KERNEL_DIMS) | set(fused_sampled.KERNEL_DIMS) | {100, 300, 513, 600, 640, 1000})
+    widths = sorted(set(fused_ce.KERNEL_DIMS) | set(fused_sampled.KERNEL_DIMS) | {100, 300, 513, 600, 640, 1000}
+                    | {1100, 1280, 2048, 4096})
     for D in widths:
-        Dc = padded_dim(D, fused_ce.KERNEL_DIMS, "ce")
+        Dc = fused_ce.kernel_dim(D)
         assert fused_ce.lse_plan(D) == c_plan(lib.ce_lse_plan, Dc, 3), (D, fused_ce.lse_plan(D))
         assert fused_ce.bwd_plan(D) == c_plan(lib.ce_bwd_plan, Dc, 4), (D, fused_ce.bwd_plan(D))
-        Ds = padded_dim(max(D, 64), fused_sampled.KERNEL_DIMS, "sampled")
-        assert fused_sampled.plan(D) == c_plan(lib.sampled_plan, Ds, 7), (D, fused_sampled.plan(D))
-    assert lib.ce_lse_plan(1025, buf) == 0 and lib.sampled_plan(1025, buf) == 0
-    log(f"[ce_wider] the Python block plans equal the C side's at D = {widths}: "
-        + "; ".join(f"{D}: ce_lse {fused_ce.lse_plan(D)}, ce_bwd {fused_ce.bwd_plan(D)}, sampled {fused_sampled.plan(D)}"
-                    for D in (512, 768, 1024)))
+        if D <= 1024:
+            Ds = padded_dim(max(D, 64), fused_sampled.KERNEL_DIMS, "sampled")
+            assert fused_sampled.plan(D) == c_plan(lib.sampled_plan, Ds, 7), (D, fused_sampled.plan(D))
+    assert lib.sampled_plan(1025, buf) == 0 and lib.sampled_plan(1280, buf) == 0 and lib.ce_lse_plan(1280, buf) == 1
+    log(f"[ce_wider] the Python block plans equal the C side's at D = {widths} (the sampled pair's to 1024; it has "
+        f"none at 1025 or 1280): "
+        + "; ".join(f"{D}: ce_lse {fused_ce.lse_plan(D)}, ce_bwd {fused_ce.bwd_plan(D)}"
+                    + (f", sampled {fused_sampled.plan(D)}" if D <= 1024 else "") for D in (512, 768, 1024, 2048)))
 
 
 def ce_wider_phase() -> dict:
     """B7 and B8 at D = 768 and 1024 on the K-chunked kernels
     (``CE_D1024_CASES``, ``ce_case``: B8 element by element within
-    ``ce_bound_ratios``' bound), the block plans' Python mirrors against the
-    C side (``check_plans``), and D = 1025 refused by both loss pairs,
-    naming the limit. Returns the largest absolute errors, relative errors
-    and bound ratios."""
+    ``ce_bound_ratios``' bound), and the block plans' Python mirrors against
+    the C side (``check_plans``). Returns the largest absolute errors,
+    relative errors and bound ratios."""
     import torch
 
     check_plans()
-    out = ce_cases("ce_wider", CE_D1024_CASES, torch.Generator(device=DEV).manual_seed(SEED + 23))
-    expect_loss_width_limit("ce_wider", 1025)
+    return ce_cases("ce_wider", CE_D1024_CASES, torch.Generator(device=DEV).manual_seed(SEED + 23))
+
+
+def ce_widest_phase() -> dict:
+    """B7 and B8 past D = 1024 on the streamed kernels (``CE_D2048_CASES``,
+    ``ce_case``: B8 element by element within ``ce_bound_ratios``' bound, a
+    second launch the same bits), and D = 1025 refused by B9/B10 alone
+    (``expect_loss_width_limit``). Returns the largest absolute errors,
+    relative errors and bound ratios."""
+    import torch
+
+    out = ce_cases("ce_widest", CE_D2048_CASES, torch.Generator(device=DEV).manual_seed(SEED + 31))
+    expect_loss_width_limit("ce_widest", 1025)
     return out
 
 
@@ -2815,22 +2907,32 @@ def c1_phase(state) -> dict:
 # and Recommender at request batch 1 and 256 on both paths: B1/B2 on the
 # grid, B7/B8 (bench) or B9/B10 (config #4) at D = 1024, B11 at D = 1024.
 WIDER_SETS = {"model.embed_dim": "1024", "model.hidden_dim": "1024"}
-WIDER_CLI_STEPS = 10
+WIDER_CLI_STEPS = 5  # 10 before the widest path came
 WIDER_PATHS = {"bench": ("smoke", ("gru_fwd", "gru_bwd", "ce_lse", "ce_bwd")),
                "c4": (ATTN_CONFIG, ("gru_fwd", "gru_bwd", "sampled_lse", "sampled_bwd"))}
+# The widest bench path: the bench workload at D = H = 2048, the widest GRU
+# the port takes (2,064) over B7/B8 and B11 on their streamed kernels, the
+# same phase with its own sets (the train CLI for WIDEST_CLI_STEPS steps,
+# then WIDE_STEPS a path through train(), Recommender at batch 1 and 256);
+# its step is timed over WIDEST_TIME_CHUNK-step chunks.
+WIDEST_SETS = {"model.embed_dim": "2048", "model.hidden_dim": "2048"}
+WIDEST_CLI_STEPS, WIDEST_TIME_CHUNK = 5, 3
 
 
-def wider_path_phase(state, tag: str) -> None:
+def wider_path_phase(state, tag: str, sets: dict = WIDER_SETS, cli_steps: int = WIDER_CLI_STEPS,
+                     label: str = "wider") -> None:
     """The wider bench path (``tag`` bench) or the wider config #4 path (c4)
     as a user runs it: ``python -m poi_tpu_torch train --config <smoke --set
     BENCH_OVERRIDES, or attention_gowalla> --set model.embed_dim=1024
-    model.hidden_dim=1024`` for ``WIDER_CLI_STEPS`` steps, run in this
-    process (``cli.main``) so its launches are counted (exit 0, finite
-    losses, the path's four kernels and B11 launched); then ``WIDE_STEPS``
+    model.hidden_dim=1024`` (``sets``; the widest bench path's, ``label``
+    widest, at 2048) for ``cli_steps`` steps, run in this process
+    (``cli.main``) so its launches are counted (exit 0, finite losses, the
+    path's four kernels and B11 launched); then ``WIDE_STEPS``
     device-sampled steps through ``train()`` on the kernel and the plain
     path from one init (``train_both_paths``: losses at PERF.md §2's limits,
     evaluate on test), and ``Recommender`` at request batch 1 and 256 on both
-    paths (``serve_both_paths``: B1 at H = 1024, B11 at D = 1024)."""
+    paths (``serve_both_paths``: B1 at H, B11 at D). Keeps the path's
+    launches, config, init and dataset in ``state[f"{label}_{tag}"]``."""
     import contextlib
     import io
 
@@ -2839,7 +2941,9 @@ def wider_path_phase(state, tag: str) -> None:
     from poi_tpu_torch.train.loop import make_trainer
 
     config, used = WIDER_PATHS[tag]
-    sets = {**WIDER_SETS, "train.num_steps": str(WIDER_CLI_STEPS), "train.eval_every": str(WIDER_CLI_STEPS),
+    name = f"{label}_{tag}"
+    wide_sets = sets
+    sets = {**wide_sets, "train.num_steps": str(cli_steps), "train.eval_every": str(cli_steps),
             "train.log_every": "5"}
     if tag == "bench":
         sets = {**BENCH_OVERRIDES, **sets, "train.steps_per_call": "5"}
@@ -2853,20 +2957,20 @@ def wider_path_phase(state, tag: str) -> None:
     launches = read_launches()
     out = json.loads(buf.getvalue().strip().splitlines()[-1])
     losses = [row["loss"] for row in out["history"]]
-    log(f"[wider_{tag}_path] python -m poi_tpu_torch {' '.join(argv)}: exit {rc} in {time.perf_counter() - t0:.1f} s, "
+    log(f"[{name}_path] python -m poi_tpu_torch {' '.join(argv)}: exit {rc} in {time.perf_counter() - t0:.1f} s, "
         f"loss by log step {losses}, final recall@10 {out['final']['recall@10']:.4f} (popularity "
         f"{out['popularity_baseline']['recall@10']:.4f}), {out['history'][-1]['seqs_per_sec']:.1f} seq/s over the "
         f"last log interval; launches {launches}")
-    assert rc == 0 and out["steps"] == WIDER_CLI_STEPS and all(math.isfinite(v) for v in losses), out["history"]
+    assert rc == 0 and out["steps"] == cli_steps and all(math.isfinite(v) for v in losses), out["history"]
     assert all(math.isfinite(v) for v in out["final"].values()), out["final"]
-    for name in (*used, "topk"):
-        assert launches[name] > 0, f"wider_{tag}_path: no {name} launch: {launches}"
+    for kernel in (*used, "topk"):
+        assert launches[kernel] > 0, f"{name}_path: no {kernel} launch: {launches}"
     base, ds = (state["bench_cfg"], state["bench_ds"]) if tag == "bench" else (state["attn_cfg"], state["attn_ds"])
-    cfg = base.with_overrides(WIDER_SETS)
+    cfg = base.with_overrides(wide_sets)
     tree = params_to_numpy(make_trainer(cfg, ds, DEV).model)  # the trainer's own seeded init
-    kern, both, _ = train_both_paths(f"wider_{tag}_path", cfg, ds, tree, used=used, steps=WIDE_STEPS)
-    serve_both_paths(f"wider_{tag}_path serve", cfg, ds, params_to_numpy(kern.model))
-    state[f"wider_{tag}"] = {"launches": launches, "both_launches": both, "cfg": cfg, "tree": tree, "ds": ds}
+    kern, both, _ = train_both_paths(f"{name}_path", cfg, ds, tree, used=used, steps=WIDE_STEPS)
+    serve_both_paths(f"{name}_path serve", cfg, ds, params_to_numpy(kern.model))
+    state[name] = {"launches": launches, "both_launches": both, "cfg": cfg, "tree": tree, "ds": ds}
 
 
 # Path 2: config #4 at full width through the host loader (the preset's
@@ -3296,14 +3400,18 @@ def scripts_phase(state) -> None:
 
 
 def topk_kernels(B: int, V: int, D: int, k: int) -> tuple:
-    """The kernels one ``fused_topk`` call launches: pass 1, and the merge
-    pass where its plan cuts the catalog into more than one slice."""
+    """The kernels one ``fused_topk`` call launches: pass 1 (past D = 1024
+    the K-chunked one), and the merge pass where its plan cuts the catalog
+    into more than one slice."""
     import ctypes
 
     from poi_tpu_torch import _build
+    from poi_tpu_torch.ops.topk import kernel_dim
 
+    D = kernel_dim(D)
     slices = _build.library().topk_plan(V, k, B, D, ctypes.byref(ctypes.c_int(0)))
-    return ("topk_slice_kernel", "topk_merge_kernel") if slices > 1 else ("topk_slice_kernel",)
+    first = "topk_slice_kc_kernel" if D > 1024 else "topk_slice_kernel"
+    return (first, "topk_merge_kernel") if slices > 1 else (first,)
 
 
 def timing_phase(state, gpu: str) -> dict:
@@ -3342,7 +3450,9 @@ def timing_phase(state, gpu: str) -> dict:
     cases = [("topk", 256, "serve", 128), ("topk_k10", 256, "serve", 10), ("topk_b1", 1, "serve", 128),
              ("topk_b1_k10", 1, "serve", 10), ("topk_eval", eval_batch, "eval", 10), ("topk_eval256", 256, "eval", 10),
              ("topk_c4", 256, "c4", 10), ("topk_serve70k", 256, "serve70k", 32), ("topk_serve70k_b1", 1, "serve70k", 32),
-             ("topk_c5", 512, "c5", 10), ("topk_eval_d1024", eval_batch, "eval1024", 10)]
+             ("topk_c5", 512, "c5", 10), ("topk_eval_d1024", eval_batch, "eval1024", 10),
+             ("topk_eval_d2048", eval_batch, "eval2048", 10), ("topk_serve_d2048_b1", 1, "eval2048", 128),
+             ("topk_serve_d2048", 256, "eval2048", 128), ("topk_d4096", 256, "d4096", 10)]
     for name, B, cat, k in cases:
         table, bias = catalogs[cat]
         q = torch.randn(B, table.shape[1], generator=gen, device=DEV)
@@ -3500,11 +3610,15 @@ def train_timing_phase(state, gpu: str) -> dict:
     # Then B7/B8 at D = 256: config #3's 256-d shape (path 1) and the bench
     # shape; at D = 512: config #3's shape and the bench shape (the wide
     # path's CE); and on the K-chunked kernels: the bench shape at D = 1024
-    # (the wider bench path's CE) and config #3's at 768. Each bound at the
-    # function's count and at the kernel's own (loss_kernel_flop).
+    # (the wider bench path's CE) and config #3's at 768; and on the
+    # streamed kernels: the bench shape at D = 2048 (the widest bench path's
+    # CE, its B8 timed over fewer calls) and config #3's at 1280. Each bound
+    # at the function's count and at the kernel's own (loss_kernel_flop).
     for key, (N, V, D) in (("", CE_TRAIN_SHAPE), ("_c3", CE_C3_SHAPE), ("_c3_d256", CE_C3_D256),
                            ("_d256", CE_WIDE_CASES[1][:3]), ("_c3_d512", CE_C3_D512), ("_d512", CE_BENCH_D512),
-                           ("_d1024", CE_BENCH_D1024), ("_c3_d768", CE_C3_D768)):
+                           ("_d1024", CE_BENCH_D1024), ("_c3_d768", CE_C3_D768), ("_d2048", CE_BENCH_D2048),
+                           ("_c3_d1280", CE_C3_D1280)):
+        iters = 3 if key == "_d2048" else 20
         q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
         table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
         bias = torch.randn(V, generator=gen, device=DEV)
@@ -3520,11 +3634,11 @@ def train_timing_phase(state, gpu: str) -> dict:
                                **device_parts(lambda: ce_lse(q, table, bias), lse_names)}
         for n in CE_LSE_KERNELS:  # the record's keys, under B7's kernel names at every width
             out["ce_lse" + key][f"{n}_ms"] = out["ce_lse" + key].pop(f"{lse_names[CE_LSE_KERNELS.index(n)]}_ms")
-        t = {"ms": time_ms(lambda: ce_bwd(q, table, bias, lse, g)),
+        t = {"ms": time_ms(lambda: ce_bwd(q, table, bias, lse, g), iters),
              "plain_ms": time_ms(lambda: ce_bwd_reference(q, table, bias, lse, g), 5), "library_ms": None,
              **bound((q, table, bias, lse, g), ce_bwd(q, table, bias, lse, g), bf16_flop=3 * flop),
              "bound_kernel_ms": loss_kernel_flop("ce_bwd", N, V, D) / BF16_FLOP_PER_S * 1e3}
-        parts = sweep_ce_bwd.pass_ms(lambda: ce_bwd(q, table, bias, lse, g), 10)
+        parts = sweep_ce_bwd.pass_ms(lambda: ce_bwd(q, table, bias, lse, g), min(iters, 10))
         t.update({f"{name.split()[0]}_ms": parts[name] for name in ("dq pass", "dtable pass")},
                  sum_splits_ms=parts.get("sum_splits"))
         out["ce_bwd" + key] = t
@@ -3597,6 +3711,13 @@ def config_timing_phase(state, gpu: str) -> dict:
                     "plain": make_trainer(w["cfg"].with_overrides(PLAIN_OVERRIDES), w["ds"], DEV)}
         out[f"wider_{tag}_train_step"] = step_timing(f"the wider {tag} path ({config} at D = H = 1024)", trainers,
                                                      w["tree"], WIDE_TIME_CHUNK, gpu, profiled=2)
+    # The widest bench path's step (the bench workload at D = H = 2048),
+    # over WIDEST_TIME_CHUNK-step chunks and 2 profiled steps.
+    w = state["widest_bench"]
+    trainers = {"kernels": make_trainer(w["cfg"], w["ds"], DEV),
+                "plain": make_trainer(w["cfg"].with_overrides(PLAIN_OVERRIDES), w["ds"], DEV)}
+    out["widest_bench_train_step"] = step_timing("the widest bench path (smoke at D = H = 2048)", trainers, w["tree"],
+                                                 WIDEST_TIME_CHUNK, gpu, profiled=2)
     return out
 
 
@@ -3619,9 +3740,9 @@ def config5_timing_phase(state, gpu: str) -> None:
 # (``AB_KEPT``: asserted). ``AB_CHILD`` runs in each checkout's directory,
 # with its chip_smoke.py's helpers, and holds a call for every kernel
 # either names; its second argument lists the kernels to time.
-AB_TIMED = ("ce_lse_variant_base", "ce_lse_variant_exp2", "ce_lse_variant_nomax")
+AB_TIMED = ("topk",)
 AB_KEPT = ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd", "sampled_bwd", "rnn_bwd", "sampled_lse", "ce_lse", "ce_bwd",
-           "rnn_fwd", *AB_TIMED)
+           "rnn_fwd", "ce_lse_variant_base", "ce_lse_variant_exp2", "ce_lse_variant_nomax", *AB_TIMED)
 # Path 2's host-loader train() in each checkout (seq/s and device idle share
 # at steps_per_call 1 and 10 by this checkout's host_loader_timing; a
 # checkout whose loop ignores steps_per_call runs both synchronously).
@@ -3635,6 +3756,7 @@ from poi_tpu_torch.ops.fused_lstm import fused_lstm_bwd, fused_lstm_scan, lstm_s
 from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan, rnn_scan_reference
 from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_lse, ce_lse_variant
 from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse
+from poi_tpu_torch.ops.topk import fused_topk
 from poi_tpu_torch.scripts import sweep_ce_fwd
 torch.backends.cuda.matmul.allow_tf32 = False
 cs.build_phase()
@@ -3680,6 +3802,20 @@ sq, st, sb = (0.3 * torch.randn(300, 32, generator=gen, device="cuda"), 0.3 * to
 xq, xt = (0.3 * torch.randn(n, 512, generator=gen, device="cuda") for n in cs.CE_C3_D512[:2])
 xb = torch.randn(cs.CE_C3_D512[1], generator=gen, device="cuda")
 q5, e5, b5, ids5, tgt5, lse5, g5 = cs.sampled_case(8192, 1024, 512, 36969, gen)
+# B7/B8 at D = 1024 on config #3's rows, the widest both checkouts take.
+kq, kt = (0.3 * torch.randn(n, 1024, generator=gen, device="cuda") for n in (2048, 36969))
+kb = torch.randn(36969, generator=gen, device="cuda")
+# B11 at its main paths' widths up to 1024: serving config #1 (D = 64, the
+# padded 8,192 catalog, k = 128 and 10 at batch 256 and 1), the bench eval
+# sweep (D = 128, 45,056, batch 32), config #5's width on a small catalog
+# (512) and 1024, the eval of the wider bench path: both checkouts take them.
+tops = []
+for B, V, D, k in ((256, 8192, 64, 128), (1, 8192, 64, 10), (32, 45056, 128, 10), (256, 8192, 512, 10),
+                   (32, 45056, 1024, 10), (7, 8192, 520, 128)):
+    tb = torch.randn(V, generator=gen, device="cuda")
+    tb[V - 600:] = -1e30
+    tops.append((torch.randn(B, D, generator=gen, device="cuda") * (64 / D) ** 0.5,
+                 torch.randn(V, D, generator=gen, device="cuda").to(torch.bfloat16), tb, k))
 # B12 at the sweep's shape and 128 rows, which both checkouts take; "ce_lse"
 # names the kernel of either design (ce_lse_kernel, ce_lse_wg_kernel). B7 at
 # the bench shape, and on config #3's 2,048 rows (its split-and-merge path).
@@ -3687,7 +3823,7 @@ variant = lambda v: (lambda: (ce_lse_variant(cq, ct, cb, v, 128),), ("ce_lse",))
 calls = {**{f"ce_lse_variant_{v}": variant(v) for v in ("base", "exp2", "nomax")},
          "ce_lse": (lambda: (ce_lse(bq, bt, bb), ce_lse(bq[:cs.CE_C3_SHAPE[0]], bt, bb), ce_lse(wq, wt, wb),
                              ce_lse(wq[:, :192], wt[:, :192], wb), ce_lse(xq, xt, xb),
-                             ce_lse(xq[:, :384], xt[:, :384], xb)), cs.CE_LSE_KERNELS),
+                             ce_lse(xq[:, :384], xt[:, :384], xb), ce_lse(kq, kt, kb)), ("ce_lse", "lse_merge")),
          # B8 at the bench shape, on config #3's 2,048 rows (its split
          # passes), at D = 32 on ragged N and V, and at D = 256, 192, 512
          # and 384.
@@ -3697,10 +3833,12 @@ calls = {**{f"ce_lse_variant_{v}": variant(v) for v in ("base", "exp2", "nomax")
                              *ce_bwd(wq, wt, wb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]]),
                              *ce_bwd(wq[:, :192], wt[:, :192], wb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]]),
                              *ce_bwd(xq, xt, xb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]]),
-                             *ce_bwd(xq[:, :384], xt[:, :384], xb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]])),
+                             *ce_bwd(xq[:, :384], xt[:, :384], xb, bl[:cs.CE_C3_SHAPE[0]], bg[:cs.CE_C3_SHAPE[0]]),
+                             *ce_bwd(kq, kt, kb, bl[:2048], bg[:2048])),
                     ("ce_bwd_pass", "sum_splits")),
          "gru_fwd": (lambda: (fused_gru_scan(xw, wh), fused_gru_scan(xw6, wh6), *(fused_gru_scan(a, w) for a, w in gw)),
                      cs.GRU_FWD_KERNELS),
+         "topk": (lambda: tuple(o for a in tops for o in fused_topk(*a)), ("topk_slice_kernel", "topk_merge_kernel")),
          "rnn_fwd": (lambda: (fused_rnn_scan(x, mask, w), fused_rnn_scan(x6, mask6, w6)), cs.RNN_FWD_KERNELS),
          "rnn_bwd": (lambda: (*fused_rnn_bwd(x, mask, w, hs, dhs), *fused_rnn_bwd(x6, mask6, w6, hs6, dhs6)),
                      cs.RNN_BWD_KERNELS),
@@ -4703,7 +4841,8 @@ def mesh_phase(state, gpu: str) -> dict:
 D256_KEYS = {"config3_d256": "_c3_d256", "bench_d256": "_d256"}
 D512_KEYS = {"config3_d512": "_c3_d512", "bench_d512": "_d512"}
 D1024_KEYS = {"bench_d1024": "_d1024", "config3_d768": "_c3_d768"}
-CE_KEYS = {**D256_KEYS, **D512_KEYS, **D1024_KEYS}
+D2048_KEYS = {"bench_d2048": "_d2048", "config3_d1280": "_c3_d1280"}
+CE_KEYS = {**D256_KEYS, **D512_KEYS, **D1024_KEYS, **D2048_KEYS}
 
 
 def record(name: str, source: str, replaces: str, launches: int, max_abs_err: float, t: dict, **extra) -> dict:
@@ -4716,8 +4855,13 @@ def record(name: str, source: str, replaces: str, launches: int, max_abs_err: fl
 
 
 def main() -> int:
-    # The dataset cache would live outside the checkout; each config builds in about two seconds.
-    os.environ.setdefault("POI_TPU_TORCH_DATA_CACHE", "off")
+    # Each corpus is built once a run into a dataset cache inside the
+    # checkout (git ignores build/), emptied first: config #5's takes ~17 s,
+    # and the phases, the CLI runs and the scripts load each corpus several
+    # times (the cut that made room for the widest bench path's phase).
+    cache = REPO / "build" / "smoke_datasets"
+    shutil.rmtree(cache, ignore_errors=True)
+    os.environ.setdefault("POI_TPU_TORCH_DATA_CACHE", str(cache))
     import torch
 
     if not torch.cuda.is_available():
@@ -4747,6 +4891,7 @@ def main() -> int:
     wide = phase("gru_wide", gru_wide_phase)
     ce_wide = phase("ce_wide", ce_wide_phase)
     ce_wider = phase("ce_wider", ce_wider_phase)
+    ce_widest = phase("ce_widest", ce_widest_phase)
     sampled = phase("sampled", sampled_phase)
     lstm = phase("lstm", lstm_phase)
     rnn = phase("rnn", rnn_phase)
@@ -4767,6 +4912,7 @@ def main() -> int:
     phase("c1_warmup0", c1_phase, state)
     phase("wider_bench_path", wider_path_phase, state, "bench")
     phase("wider_c4_path", wider_path_phase, state, "c4")
+    phase("widest_bench_path", wider_path_phase, state, "bench", WIDEST_SETS, WIDEST_CLI_STEPS, "widest")
     phase("host_loader", host_loader_phase, state)
     mesh = phase("mesh", mesh_phase, state, gpu)
     phase("cli_train", cli_train_phase, state)
@@ -4828,11 +4974,17 @@ def main() -> int:
     c2w, c3w = state["lstm_wide"]["launches"], state["strnn_wide"]["launches"]
     d256.update({"config3_d512": c3w, "bench_d512": wl})
     # B7/B8 at D = 1024: the bench shape with the wider bench path's launches
-    # (its train CLI at 10 steps, GRU H = 1024); config #3's shape at 768 has
+    # (its train CLI at 5 steps, GRU H = 1024); config #3's shape at 768 has
     # no main path. B9/B10 at D = 1024: config #4's shape with the wider
     # config #4 path's launches; config #5's rows at 768 have no main path.
     wb, wc4 = state["wider_bench"]["launches"], state["wider_c4"]["launches"]
     d256.update({"bench_d1024": wb, "config3_d768": {"ce_lse": 0, "ce_bwd": 0}})
+    # B7/B8 past 1024: the bench shape at D = 2048 with the widest bench
+    # path's launches (its train CLI at 5 steps, GRU H = 2048); config #3's
+    # shape at 1280 has no main path. B11 at D = 2048: the widest path's
+    # evaluations (its eval sweep's shape, topk_eval_d2048).
+    wst = state["widest_bench"]["launches"]
+    d256.update({"bench_d2048": wst, "config3_d1280": {"ce_lse": 0, "ce_bwd": 0}})
     h256 = lambda d: {f"{k}_h256": big[d][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}  # noqa: E731
     fwd_at = lambda t: {f: t[f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}  # noqa: E731
     kernels = [
@@ -4885,7 +5037,8 @@ def main() -> int:
                                                                 "library_ms", "device_ms",
                                                                 *(f"{n}_ms" for n in CE_LSE_KERNELS))},
                       "launches": d256[k]["ce_lse"]} for k, key in CE_KEYS.items()},
-               max_abs_err_d512=ce_wide["lse_err"], max_abs_err_d1024=ce_wider["lse_err"]),
+               max_abs_err_d512=ce_wide["lse_err"], max_abs_err_d1024=ce_wider["lse_err"],
+               max_abs_err_d2048=ce_widest["lse_err"]),
         record("ce_bwd", "ce_bwd.cu", "poi_tpu/ops/fused_ce.py:210", trained["ce_bwd"], ce_grad_err, times["ce_bwd"],
                dq_ms=times["ce_bwd"]["dq_ms"], dtable_ms=times["ce_bwd"]["dtable_ms"],
                config3={f: times["ce_bwd_c3"][f] for f in ("ms", "plain_ms", "bound_ms", "dq_ms", "dtable_ms",
@@ -4896,7 +5049,9 @@ def main() -> int:
                       "launches": d256[k]["ce_bwd"]} for k, key in CE_KEYS.items()},
                max_abs_err_d512=ce_wide["grad_err"], rel_err_d512=list(ce_wide["rel"]),
                bound_ratios_d512=list(ce_wide["ratios"]), max_abs_err_d1024=ce_wider["grad_err"],
-               rel_err_d1024=list(ce_wider["rel"]), bound_ratios_d1024=list(ce_wider["ratios"])),
+               rel_err_d1024=list(ce_wider["rel"]), bound_ratios_d1024=list(ce_wider["ratios"]),
+               max_abs_err_d2048=ce_widest["grad_err"], rel_err_d2048=list(ce_widest["rel"]),
+               bound_ratios_d2048=list(ce_widest["ratios"])),
         record("sampled_lse", "sampled.cu", "poi_tpu/ops/fused_sampled.py:76", attn["sampled_lse"],
                sampled["lse_err"], sampled["lse"],
                **{k: sampled["lse"][k] for k in ("device_ms", *(f"{n}_ms" for n in SAMPLED_LSE_KERNELS))},
@@ -4919,8 +5074,9 @@ def main() -> int:
                **{case: {f: times[case][f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
                                                     "bound_ms")}
                   for case in ("topk_k10", "topk_b1", "topk_b1_k10", "topk_eval", "topk_eval256", "topk_c4",
-                               "topk_serve70k", "topk_serve70k_b1", "topk_eval_d1024")},
-               wider_launches={"bench": wb["topk"], "c4": wc4["topk"]},
+                               "topk_serve70k", "topk_serve70k_b1", "topk_eval_d1024", "topk_eval_d2048",
+                               "topk_serve_d2048_b1", "topk_serve_d2048", "topk_d4096")},
+               wider_launches={"bench": wb["topk"], "c4": wc4["topk"], "widest_bench": wst["topk"]},
                config5={**at5(times["topk_c5"], c5_eval["topk"]),
                         "library_device_ms": times["topk_c5"]["library_device_ms"]}),
         record("ce_lse_variants", "ce.cu", "scripts/sweep_ce_fwd.py:30,58", sum(swept.values()),

@@ -81,6 +81,8 @@ _SIGNATURES = {
     "topk_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "poi_cuda_error_string": [_I],
 }
+# Entry points that return another type than int.
+_RESTYPES = {"poi_cuda_error_string": ctypes.c_char_p, "ce_bwd_scratch": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -159,7 +161,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_char_p if name == "poi_cuda_error_string" else _I
+        fn.restype = _RESTYPES.get(name, _I)
     return lib
 
 

@@ -78,6 +78,14 @@
 //   Every streamed byte is used by 64 rows only, so it leans on L2 as D =
 //   512 does: at the bench shape (N = 32,768) each block reads the whole
 //   catalog, 90 MB at D = 1024, from L2.
+// - Past D = 1024, any multiple of 256 (the wrapper pads any wider D to
+//   one): ce_lse_kc_kernel<0>, kchunk.cuh's streamed forward. A block's 64
+//   query rows (160 KB at 1280, 256 KB at 2048) no longer fit, so they
+//   arrive chunk by chunk with each catalog tile's chunk, 64 KB a stage on
+//   3 stages; the width is a run-time loop bound, the fold, split-V and
+//   merge as above. The query rows are re-read from L2 for every tile: at
+//   the bench shape at D = 2048 a block reads 180 MB of catalog and as much
+//   of its own rows.
 // - Any N and V: TMA zero-fills rows past N and V, ragged columns are masked
 //   to -inf (they add 0); a range wholly in the -1e30 tail keeps a finite max
 //   (-1e30 in base 2) and a sum that the merge scales by 2^(-1e30 - max) = 0.
@@ -354,26 +362,33 @@ __global__ void __launch_bounds__(128 * (Cons + 1), 1)
 }
 
 // D = 768 and 1024 (see the top of the file): 64 query rows a block, the
-// base variant, kchunk.cuh's K-chunked stream of catalog tiles.
+// base variant, kchunk.cuh's K-chunked stream of catalog tiles. D = 0: any
+// width past 1024, `width` columns (a multiple of 256), the query rows
+// streamed with the tiles (kcs_fwd_run).
 template <int D>
 __global__ void __launch_bounds__(256, 1)
     ce_lse_kc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap t_map,
                      const __grid_constant__ CUtensorMap b_map, float* __restrict__ lse, float* __restrict__ part,
-                     int N, int V, int tiles_per_split) {
+                     int N, int V, int tiles_per_split, int width) {
   const int split = blockIdx.y, S = gridDim.y;
   const int n_tiles = (V + kLseStr - 1) / kLseStr;
   const int t0 = split * tiles_per_split, t1 = min(n_tiles, t0 + tiles_per_split);
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const CUtensorMap* const vecs[1] = {&b_map};
   float m[2] = {kLseInit, kLseInit}, l[2] = {0.f, 0.f};
-  const bool consumer = kc_fwd_run<D, 1>(m, l, &q_map, &t_map, vecs, t0, t1,
-                                         [&](float (&s)[32], float (&mm)[2], float (&ll)[2], const float* b, int it) {
-                                           if ((it + 1) * kLseStr > V) {
-                                             lse_fold<kBase, true>(s, mm, ll, b, it * kLseStr, V, t);
-                                           } else {
-                                             lse_fold<kBase, false>(s, mm, ll, b, 0, 0, t);
-                                           }
-                                         });
+  auto fold = [&](float (&s)[32], float (&mm)[2], float (&ll)[2], const float* b, int it) {
+    if ((it + 1) * kLseStr > V) {
+      lse_fold<kBase, true>(s, mm, ll, b, it * kLseStr, V, t);
+    } else {
+      lse_fold<kBase, false>(s, mm, ll, b, 0, 0, t);
+    }
+  };
+  bool consumer;
+  if constexpr (D == 0) {
+    consumer = kcs_fwd_run<1>(m, l, &q_map, &t_map, vecs, t0, t1, width / kKc, fold);
+  } else {
+    consumer = kc_fwd_run<D, 1>(m, l, &q_map, &t_map, vecs, t0, t1, fold);
+  }
   if (consumer) lse_store<kBase>(m, l, lse, part, blockIdx.x * kKcRows + threadIdx.x / 32 * 16 + g, N, split, S, t);
 }
 
@@ -419,23 +434,34 @@ cudaError_t run_lse_wg(const void* q, const void* table, const void* bias, void*
   return cudaGetLastError();
 }
 
-// ce_lse_kc_kernel at D = 768 or 1024; splits and merge as run_lse_wg's.
+// The shared memory of ce_lse_kc_kernel<D>.
+template <int D>
+constexpr int lse_kc_smem() {
+  if constexpr (D == 0) {
+    return KcsFwd<1>::kSmem;
+  } else {
+    return KcFwd<D, 1>::kSmem;
+  }
+}
+
+// ce_lse_kc_kernel at D = 768 or 1024, or at D = 0 with `width` columns
+// past 1024; splits and merge as run_lse_wg's.
 template <int D>
 cudaError_t run_lse_kc(const void* q, const void* table, const void* bias, void* lse, void* scratch, int N, int V,
-                       cudaStream_t s) {
+                       int width, cudaStream_t s) {
   CUtensorMap q_map, t_map, b_map;
-  if (!make_map(&q_map, q, N, D, kKcRows) || !make_map(&t_map, table, V, D, kLseStr) ||
+  if (!make_map(&q_map, q, N, width, kKcRows) || !make_map(&t_map, table, V, width, kLseStr) ||
       !make_vec_map(&b_map, static_cast<const float*>(bias), V, kLseStr)) {
     return cudaErrorInvalidValue;
   }
   int per = 0;
   const int S = lse_splits(N, V, kKcRows, &per);
-  constexpr int smem = KcFwd<D, 1>::kSmem;
+  constexpr int smem = lse_kc_smem<D>();
   cudaError_t e = cudaFuncSetAttribute(ce_lse_kc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   float* part = static_cast<float*>(scratch);
-  ce_lse_kc_kernel<D><<<dim3((N + kKcRows - 1) / kKcRows, S), 256, smem, s>>>(q_map, t_map, b_map,
-                                                                             static_cast<float*>(lse), part, N, V, per);
+  ce_lse_kc_kernel<D><<<dim3((N + kKcRows - 1) / kKcRows, S), 256, smem, s>>>(
+      q_map, t_map, b_map, static_cast<float*>(lse), part, N, V, per, width);
   e = cudaGetLastError();
   if (e != cudaSuccess || S == 1) return e;
   lse_merge<<<(N + 255) / 256, 256, 0, s>>>(part, static_cast<float*>(lse), N, S);
@@ -465,8 +491,8 @@ cudaError_t run_lse_variant(const void* q, const void* table, const void* bias, 
 // warpgroups keep B9's D = 256 shape (sampled.cu), whose 256 rows on a
 // 3-stage ring timed no faster. At D = 384, 128 rows (96 KB) on a 2-stage
 // ring (96 KB); at D = 512, B9's D = 512 shape: 64 rows (64 KB) on a
-// 2-stage ring (128 KB). Both take 198,184 bytes of smem. At D = 768 and
-// 1024, 64 rows (ce_lse_kc_kernel).
+// 2-stage ring (128 KB). Both take 198,184 bytes of smem. From D = 768, 64
+// rows (ce_lse_kc_kernel).
 __host__ __device__ constexpr int lse_rows_for(int D) {
   return D >= 512 ? 64 : D == 256 || D == 384 ? 128 : kLseRows;
 }
@@ -481,10 +507,13 @@ bool lse_takes(int D, int variant, int rows) {
 }  // namespace
 
 // The widths the kernels are built for, the forward's here and the backward's
-// in ce_bwd.cu; the wrapper pads any D <= 1024 with zero columns to the next
-// of them (ops/fused_ce.py padded_dim).
+// in ce_bwd.cu: a list up to 1024, then every multiple of 256 (the streamed
+// kernels, D = 0 in their templates). The wrapper pads any D <= 1024 with
+// zero columns to the next of the list, and any wider D to the next multiple
+// of 256 (ops/widths.py padded_dim).
 extern "C" int ce_supports_dim(int D) {
-  return D == 32 || D == 64 || D == 128 || D == 192 || D == 256 || D == 384 || D == 512 || D == 768 || D == 1024;
+  return D == 32 || D == 64 || D == 128 || D == 192 || D == 256 || D == 384 || D == 512 || D == 768 || D == 1024 ||
+         (D > 1024 && D % kKc == 0);
 }
 
 // The shape of ce_lse's block at a width it is built for, as out[0..2]: the
@@ -494,7 +523,10 @@ extern "C" int ce_supports_dim(int D) {
 extern "C" int ce_lse_plan(int D, int* out) {
   if (!ce_supports_dim(D)) return 0;
   out[0] = lse_rows_for(D);
-  out[1] = D == 768 ? KcFwd<768, 1>::kStages : D == 1024 ? KcFwd<1024, 1>::kStages : lse_stages(D);
+  out[1] = D > 1024  ? KcsFwd<1>::kStages
+           : D == 768 ? KcFwd<768, 1>::kStages
+           : D == 1024 ? KcFwd<1024, 1>::kStages
+                       : lse_stages(D);
   out[2] = D > 512 ? kKc : D;
   return 1;
 }
@@ -529,8 +561,9 @@ extern "C" int ce_lse_variant(const void* q, const void* table, const void* bias
     case 256: return run_lse_wg<256, kBase, lse_rows_for(256) / 64>(q, table, bias, lse, scratch, N, V, s);
     case 384: return run_lse_wg<384, kBase, lse_rows_for(384) / 64>(q, table, bias, lse, scratch, N, V, s);
     case 512: return run_lse_wg<512, kBase, lse_rows_for(512) / 64>(q, table, bias, lse, scratch, N, V, s);
-    case 768: return run_lse_kc<768>(q, table, bias, lse, scratch, N, V, s);
-    case 1024: return run_lse_kc<1024>(q, table, bias, lse, scratch, N, V, s);
-    default: return run_lse_variant<128>(q, table, bias, lse, scratch, N, V, variant, rows, s);
+    case 768: return run_lse_kc<768>(q, table, bias, lse, scratch, N, V, D, s);
+    case 1024: return run_lse_kc<1024>(q, table, bias, lse, scratch, N, V, D, s);
+    case 128: return run_lse_variant<128>(q, table, bias, lse, scratch, N, V, variant, rows, s);
+    default: return run_lse_kc<0>(q, table, bias, lse, scratch, N, V, D, s);
   }
 }

@@ -53,8 +53,14 @@
 // kchunk.cuh's K-chunked backward streams it in chunks of 256 columns, and
 // a block sums the 256 output columns of one range (gridDim.z = 3 or 4),
 // every range recomputing the logits: 16*N*V*D operations at 768 and
-// 20*N*V*D at 1024 for the function's 6*N*V*D. The wrapper pads any other
-// D <= 1024 with zero columns (ops/fused_ce.py).
+// 20*N*V*D at 1024 for the function's 6*N*V*D. Past 1024, at any multiple
+// of 256 (ce_bwd_pass<0, ...>, the width a run-time argument), the 64
+// resident rows no longer fit beside the hold and the ring: they stream
+// chunk by chunk with the tile (kchunk.cuh's kcs_bwd_run), and a block still
+// sums one range of 256 output columns: (2 (D / 256) + 2) N V D operations a
+// pass, 36*N*V*D at 2048. The wrapper pads any other D <= 1024 with zero
+// columns to the next width above, and any wider D to the next multiple of
+// 256 (ops/fused_ce.py).
 // Where the resident blocks cannot fill the card (config #3's dq: 16 blocks
 // of 128 rows), the streamed dimension is split S ways into fp32 partials
 // [S, rows, D] (and [S, V] for dbias) in the caller's scratch, and
@@ -92,15 +98,18 @@ __host__ __device__ constexpr int stream_vecs() {
 // halves recomputing the logits), and the resident rows (48 or 64 KB a
 // warpgroup) and the tiles (as much each) leave room for one consumer
 // warpgroup (64 rows) and a ring of 2.
-__host__ __device__ constexpr int bwd_cons(int D) { return D >= 384 ? 1 : 2; }
+__host__ __device__ constexpr int bwd_cons(int D) { return D >= 384 || D == 0 ? 1 : 2; }
 __host__ __device__ constexpr int bwd_res(int D) { return 64 * bwd_cons(D); }  // resident rows a block
 __host__ __device__ constexpr int bwd_stages(int D) { return D >= 384 ? 2 : kStages; }
 // Output column ranges: halves at 384 and 512, ranges of 256 past 512.
+// D = 0 is the streamed pass past 1024, whose ranges the launch counts
+// from its run-time width.
 __host__ __device__ constexpr int bwd_halves(int D) { return D > 512 ? D / kKc : D >= 384 ? 2 : 1; }
 __host__ __device__ constexpr int bwd_threads(int D) { return 128 * (bwd_cons(D) + 1); }  // + 1 producer warpgroup
 
 template <int D, bool kDtable>
 constexpr int pass_smem_bytes() {
+  if constexpr (D == 0) return KcsBwd<stream_vecs<kDtable>()>::kSmem;
   if constexpr (D > 512) return KcBwd<D, stream_vecs<kDtable>()>::kSmem;
   // 1024: room to align the base; the stages' vectors; the barriers.
   constexpr int Res = bwd_res(D), ST = bwd_stages(D);
@@ -544,16 +553,17 @@ __device__ __forceinline__ void wide_pass(const CUtensorMap& res_map, const CUte
 
 // ---------------------------------------------------------------- D = 768, 1024
 
-// One pass at D = 768 or 1024 (kchunk.cuh's K-chunked backward): a block
-// sums the 256 output columns of range blockIdx.z, gp and its product as
-// wide_pass's; arguments as narrow_pass's. dbias, the same in every range,
-// is written by range 0.
+// One pass at D = 768 or 1024 (kchunk.cuh's K-chunked backward), or at D =
+// 0 with `width` columns past 1024 (its streamed backward): a block sums the
+// 256 output columns of range blockIdx.z, gp and its product as wide_pass's;
+// arguments as narrow_pass's. dbias, the same in every range, is written by
+// range 0.
 template <int D, bool kDtable>
 __device__ __forceinline__ void kc_pass(const CUtensorMap& res_map, const CUtensorMap& str_map,
                                         const CUtensorMap& vec0_map, const CUtensorMap& vec1_map,
                                         const float* __restrict__ row_a, const float* __restrict__ row_b,
                                         float* __restrict__ out, float* __restrict__ dbias, int n_res, int n_str,
-                                        int tiles_per_split) {
+                                        int tiles_per_split, int width) {
   const int split = blockIdx.y, col0 = blockIdx.z * kKc;
   const int n_tiles = (n_str + kStr - 1) / kStr;
   const int t0 = split * tiles_per_split, t1 = min(n_tiles, t0 + tiles_per_split);
@@ -571,14 +581,20 @@ __device__ __forceinline__ void kc_pass(const CUtensorMap& res_map, const CUtens
   const CUtensorMap* const vecs[2] = {&vec0_map, &vec1_map};
   float acc[2][64];
   float db[2] = {0.f, 0.f};
-  const bool consumer = kc_bwd_run<D, stream_vecs<kDtable>()>(
-      acc, &res_map, &str_map, vecs, t0, t1, [&](float (&s)[32], const float* vec, int it, uint32_t hold) {
-        tile_gp<kDtable>(s, db, vec, it * kStr, n_str, ok, ra, rb, t);
-        wide_product<kKc>(acc, s, hold);
-      });
+  auto tile = [&](float (&s)[32], const float* vec, int it, uint32_t hold) {
+    tile_gp<kDtable>(s, db, vec, it * kStr, n_str, ok, ra, rb, t);
+    wide_product<kKc>(acc, s, hold);
+  };
+  bool consumer;
+  if constexpr (D == 0) {
+    consumer = kcs_bwd_run<stream_vecs<kDtable>()>(acc, &res_map, &str_map, vecs, t0, t1, width / kKc, tile);
+  } else {
+    consumer = kc_bwd_run<D, stream_vecs<kDtable>()>(acc, &res_map, &str_map, vecs, t0, t1, tile);
+  }
   if (!consumer) return;
 
-  float* dst0 = out + (size_t)split * n_res * D;
+  const int W = D == 0 ? width : D;
+  float* dst0 = out + (size_t)split * n_res * W;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if constexpr (kDtable) {
@@ -587,7 +603,7 @@ __device__ __forceinline__ void kc_pass(const CUtensorMap& res_map, const CUtens
       if (ok[r] && t == 0 && col0 == 0) dbias[(size_t)split * n_res + row[r]] = db[r];
     }
     if (!ok[r]) continue;
-    float* dst = dst0 + (size_t)row[r] * D + col0 + 2 * t;
+    float* dst = dst0 + (size_t)row[r] * W + col0 + 2 * t;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
 #pragma unroll
@@ -600,14 +616,18 @@ __device__ __forceinline__ void kc_pass(const CUtensorMap& res_map, const CUtens
 
 // A pass as a kernel of its own name (the profiler tells the dq and dtable
 // passes apart by kDtable): narrow_pass up to D = 128, wide_pass to 512,
-// kc_pass above.
+// kc_pass above and at D = 0 (`width` columns past 1024; the other widths
+// take no `width`).
 template <int D, bool kDtable>
 __global__ void __launch_bounds__(bwd_threads(D), 1)
     ce_bwd_pass(const __grid_constant__ CUtensorMap res_map, const __grid_constant__ CUtensorMap str_map,
                 const __grid_constant__ CUtensorMap vec0_map, const __grid_constant__ CUtensorMap vec1_map,
                 const float* __restrict__ row_a, const float* __restrict__ row_b, float* __restrict__ out,
-                float* __restrict__ dbias, int n_res, int n_str, int tiles_per_split) {
-  if constexpr (D <= 128) {
+                float* __restrict__ dbias, int n_res, int n_str, int tiles_per_split, int width) {
+  if constexpr (D == 0) {
+    kc_pass<0, kDtable>(res_map, str_map, vec0_map, vec1_map, row_a, row_b, out, dbias, n_res, n_str,
+                        tiles_per_split, width);
+  } else if constexpr (D <= 128) {
     narrow_pass<D, kDtable>(res_map, str_map, vec0_map, vec1_map, row_a, row_b, out, dbias, n_res, n_str,
                             tiles_per_split);
   } else if constexpr (D <= 512) {
@@ -615,7 +635,7 @@ __global__ void __launch_bounds__(bwd_threads(D), 1)
                           tiles_per_split);
   } else {
     kc_pass<D, kDtable>(res_map, str_map, vec0_map, vec1_map, row_a, row_b, out, dbias, n_res, n_str,
-                        tiles_per_split);
+                        tiles_per_split, width);
   }
 }
 
@@ -625,31 +645,36 @@ int splits(int n_res, int n_str, int D, int* per) {
   return fill_splits((n_res + bwd_res(D) - 1) / bwd_res(D) * bwd_halves(D), (n_str + kStr - 1) / kStr, per);
 }
 
-// One pass. vec0/vec1: the streamed rows' vectors (dq: bias; dtable: lse,
-// g); row_a/row_b: the resident rows' (dq: lse, g; dtable: bias).
+// The template width of a pass at width D: D itself up to 1024, 0 (the
+// streamed pass) past it.
+__host__ __device__ constexpr int pass_dim(int D) { return D > 1024 ? 0 : D; }
+
+// One pass at width `width` (D itself, or any multiple of 256 past 1024 at
+// D = 0). vec0/vec1: the streamed rows' vectors (dq: bias; dtable: lse, g);
+// row_a/row_b: the resident rows' (dq: lse, g; dtable: bias).
 template <int D, bool kDtable>
 cudaError_t run_pass(const void* res, int n_res, const void* str, int n_str, const float* vec0, const float* vec1,
-                     const float* row_a, const float* row_b, float* out, float* dbias, float* scratch,
+                     const float* row_a, const float* row_b, float* out, float* dbias, float* scratch, int width,
                      cudaStream_t s) {
   constexpr int Res = bwd_res(D);
   CUtensorMap res_map, str_map, vec0_map, vec1_map;
-  if (!make_map(&res_map, res, n_res, D, Res) || !make_map(&str_map, str, n_str, D, kStr) ||
+  if (!make_map(&res_map, res, n_res, width, Res) || !make_map(&str_map, str, n_str, width, kStr) ||
       !make_vec_map(&vec0_map, vec0, n_str, kStr) || !make_vec_map(&vec1_map, vec1, n_str, kStr)) {
     return cudaErrorInvalidValue;
   }
   int per = 0;
-  const int S = splits(n_res, n_str, D, &per);
+  const int S = splits(n_res, n_str, width, &per);
   float* o = S > 1 ? scratch : out;
-  float* ob = S > 1 ? scratch + (size_t)S * n_res * D : dbias;
+  float* ob = S > 1 ? scratch + (size_t)S * n_res * width : dbias;
   constexpr int smem = pass_smem_bytes<D, kDtable>();
   auto kernel = ce_bwd_pass<D, kDtable>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3((n_res + Res - 1) / Res, S, bwd_halves(D)), bwd_threads(D), smem, s>>>(
-      res_map, str_map, vec0_map, vec1_map, row_a, row_b, o, ob, n_res, n_str, per);
+  kernel<<<dim3((n_res + Res - 1) / Res, S, bwd_halves(width)), bwd_threads(D), smem, s>>>(
+      res_map, str_map, vec0_map, vec1_map, row_a, row_b, o, ob, n_res, n_str, per, width);
   e = cudaGetLastError();
   if (e != cudaSuccess || S == 1) return e;
-  sum_splits<<<2 * kSms, 256, 0, s>>>(o, out, (long long)n_res * D, S);
+  sum_splits<<<2 * kSms, 256, 0, s>>>(o, out, (long long)n_res * width, S);
   if (kDtable) sum_splits<<<2 * kSms, 256, 0, s>>>(ob, dbias, n_res, S);
   return cudaGetLastError();
 }
@@ -663,15 +688,15 @@ long long pass_scratch(int n_res, int n_str, int D, bool dtable) {
 
 template <int D>
 cudaError_t run_bwd(const void* q, const void* table, const void* bias, const void* lse, const void* g, void* dq,
-                    void* dtable, void* dbias, void* scratch, int N, int V, cudaStream_t s) {
+                    void* dtable, void* dbias, void* scratch, int N, int V, int width, cudaStream_t s) {
   const float* b = static_cast<const float*>(bias);
   const float* l = static_cast<const float*>(lse);
   const float* gg = static_cast<const float*>(g);
   float* sc = static_cast<float*>(scratch);
-  cudaError_t e = run_pass<D, false>(q, N, table, V, b, b, l, gg, static_cast<float*>(dq), nullptr, sc, s);
+  cudaError_t e = run_pass<D, false>(q, N, table, V, b, b, l, gg, static_cast<float*>(dq), nullptr, sc, width, s);
   if (e != cudaSuccess) return e;
   return run_pass<D, true>(table, V, q, N, l, gg, b, b, static_cast<float*>(dtable), static_cast<float*>(dbias),
-                           sc + pass_scratch(N, V, D, false), s);
+                           sc + pass_scratch(N, V, width, false), width, s);
 }
 
 }  // namespace
@@ -686,19 +711,23 @@ extern "C" int ce_supports_dim(int D);
 // are the same. Returns 0 for a width it is not built for.
 extern "C" int ce_bwd_plan(int D, int* out) {
   static_assert(KcBwd<768, 1>::kStages == KcBwd<768, 2>::kStages &&
-                KcBwd<1024, 1>::kStages == KcBwd<1024, 2>::kStages, "the two passes' rings differ");
+                KcBwd<1024, 1>::kStages == KcBwd<1024, 2>::kStages &&
+                KcsBwd<1>::kStages == KcsBwd<2>::kStages, "the two passes' rings differ");
   if (!ce_supports_dim(D)) return 0;
   out[0] = bwd_res(D);
-  out[1] = D == 768 ? KcBwd<768, 1>::kStages : D == 1024 ? KcBwd<1024, 1>::kStages : bwd_stages(D);
+  out[1] = D > 1024  ? KcsBwd<1>::kStages
+           : D == 768 ? KcBwd<768, 1>::kStages
+           : D == 1024 ? KcBwd<1024, 1>::kStages
+                       : bwd_stages(D);
   out[2] = bwd_halves(D);
   out[3] = D > 512 ? kKc : D;
   return 1;
 }
 
 // Floats of scratch ce_bwd needs for split partials (0: pass any pointer).
-extern "C" int ce_bwd_scratch(int N, int V, int D) {
+extern "C" long long ce_bwd_scratch(int N, int V, int D) {
   if (N <= 0 || V <= 0) return 0;
-  return static_cast<int>(pass_scratch(N, V, D, false) + pass_scratch(V, N, D, true));
+  return pass_scratch(N, V, D, false) + pass_scratch(V, N, D, true);
 }
 
 extern "C" int ce_bwd(const void* q, const void* table, const void* bias, const void* lse, const void* g, void* dq,
@@ -707,15 +736,16 @@ extern "C" int ce_bwd(const void* q, const void* table, const void* bias, const 
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return run_bwd<32>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
-    case 64: return run_bwd<64>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
-    case 192: return run_bwd<192>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
-    case 256: return run_bwd<256>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
-    case 384: return run_bwd<384>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
-    case 512: return run_bwd<512>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
-    case 768: return run_bwd<768>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
-    case 1024: return run_bwd<1024>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
-    default: return run_bwd<128>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, s);
+  switch (pass_dim(D)) {
+    case 32: return run_bwd<32>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, D, s);
+    case 64: return run_bwd<64>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, D, s);
+    case 128: return run_bwd<128>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, D, s);
+    case 192: return run_bwd<192>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, D, s);
+    case 256: return run_bwd<256>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, D, s);
+    case 384: return run_bwd<384>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, D, s);
+    case 512: return run_bwd<512>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, D, s);
+    case 768: return run_bwd<768>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, D, s);
+    case 1024: return run_bwd<1024>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, D, s);
+    default: return run_bwd<0>(q, table, bias, lse, g, dq, dtable, dbias, scratch, N, V, D, s);
   }
 }

@@ -34,6 +34,19 @@
 //
 // Every output element is summed by one thread in one fixed order, with no
 // atomics: a run gives the same bits every time.
+//
+// Past D = 1024 (B7 and B8 at any multiple of 256 the wrappers pad to: the
+// kcs_ functions at the end). The 64 resident rows no longer fit whole
+// beside the ring (160 KB at 1280, 256 KB at 2048), so they stream too:
+// each stage of the ring carries the resident rows' K-chunk c and the tile's
+// chunk c (64 KB), and the tile's logits accumulate over D / 256 chunks in
+// the same m64n64k16 k order as one unchunked tile. The chunk count is a
+// run-time loop bound, so one instantiation takes every width. The resident
+// rows are re-read from L2 for every tile: twice the bytes a logit of the
+// resident design. The backward keeps its hold: the tile's chunk z (the B
+// operand of the gradient product) goes to the hold with the tile's vectors,
+// and the stage that carries the resident rows' chunk z carries nothing of
+// the tile.
 
 #pragma once
 
@@ -336,6 +349,265 @@ __device__ __forceinline__ bool kc_bwd_run(float (&acc)[2][64], const CUtensorMa
   uint32_t hph = 0;
   for (int it = t0; it < t1; ++it, hph ^= 1) {
     kc_bwd_logits<D, NV>(s, res, ring, hold, full, empty, hold_full, hph, z, k);
+    tile(s, vec_s, it, hold);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) fence_regs(acc[h]);
+    // The vectors were read by generic loads: ordered before the next bulk write into the hold.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(hold_empty);
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------- past D = 1024
+
+// The streamed forward's shared memory, NV vectors a tile: a stage is the
+// resident rows' chunk, the tile's chunk, the vectors and its full and empty
+// barriers; nothing is fixed.
+template <int NV>
+struct KcsFwd {
+  static constexpr int kPerStage = 2 * kKcBytes + NV * kKcRows * 4 + 16;
+  static constexpr int kStages = kc_stages(0, kPerStage);
+  static constexpr int kSmem = 1024 + kStages * kPerStage;
+  static_assert(kSmem <= kSmemOptIn, "the streamed forward does not fit a block");
+};
+
+// The streamed backward's: the hold (a chunk and the tile's NV vectors) and
+// its two barriers fixed; a stage is the resident rows' chunk, the tile's
+// chunk and its two barriers.
+template <int NV>
+struct KcsBwd {
+  static constexpr int kFixed = kKcBytes + NV * kKcRows * 4 + 16;
+  static constexpr int kPerStage = 2 * kKcBytes + 16;
+  static constexpr int kStages = kc_stages(kFixed, kPerStage);
+  static constexpr int kSmem = 1024 + kFixed + kStages * kPerStage;
+  static_assert(kSmem <= kSmemOptIn, "the streamed backward does not fit a block");
+};
+
+// s (+)= a chunk of the 64 resident rows . the same chunk of the tile's 64
+// rows, both K-major in smem at `a` and `b`; First overwrites s at the
+// chunk's first step. Neither starts nor commits.
+template <bool First>
+__device__ __forceinline__ void kcs_chunk_logits(float (&s)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kKcSteps; ++kk) {
+    const uint64_t da = smem_desc(a + (kk / 4) * kKcBoxBytes + (kk % 4) * 32, 16, 1024, 128);
+    const uint64_t db = smem_desc(b + (kk / 4) * kKcBoxBytes + (kk % 4) * 32, 16, 1024, 128);
+    if (First && kk == 0) {
+      wgmma_ss64_first(s, da, db);
+    } else {
+      wgmma_ss<64>(s, da, db, 1);
+    }
+  }
+}
+
+// The producer thread of the streamed forward: tiles [t0, t1), each chunk c
+// of the resident rows [rb * 64, + 64) and of the tile into the next stage,
+// the tile's NV vectors with its last chunk.
+template <int NV>
+__device__ __forceinline__ void kcs_fwd_produce(unsigned char* ring_s, float* vec_s, uint64_t* full, uint64_t* empty,
+                                                const CUtensorMap* res_map, const CUtensorMap* str_map,
+                                                const CUtensorMap* const* vec_maps, int rb, int t0, int t1, int nc) {
+  constexpr int ST = KcsFwd<NV>::kStages;
+  int k = 0;
+  for (int it = t0; it < t1; ++it) {
+    for (int c = 0; c < nc; ++c, ++k) {
+      const int st = k % ST;
+      const bool last = c == nc - 1;
+      unsigned char* dst = ring_s + st * 2 * kKcBytes;
+      mbar_wait(&empty[st], ((k / ST) & 1) ^ 1);
+      mbar_arrive_expect_tx(&full[st], 2 * kKcBytes + (last ? NV * kKcRows * 4 : 0));
+      kc_load_chunk(dst, res_map, c, rb, &full[st]);
+      kc_load_chunk(dst + kKcBytes, str_map, c, it, &full[st]);
+      if (last) {
+        for (int v = 0; v < NV; ++v) tma_load_1d(vec_s + (st * NV + v) * kKcRows, vec_maps[v], it * kKcRows, &full[st]);
+      }
+    }
+  }
+}
+
+// The consumer warpgroup: a tile's logits into s over its nc chunks (ring
+// chunks k.., k advanced here), one chunk's product in flight behind the
+// next, each stage freed once its product is done but the last's. Returns
+// with every product done.
+template <int NV>
+__device__ __forceinline__ void kcs_fwd_logits(float (&s)[32], uint32_t ring, uint64_t* full, uint64_t* empty, int& k,
+                                               int nc) {
+  constexpr int ST = KcsFwd<NV>::kStages;
+  uint32_t a = ring + (k % ST) * 2 * kKcBytes;
+  mbar_wait(&full[k % ST], (k / ST) & 1);
+  fence_regs(s);
+  wgmma_fence();
+  kcs_chunk_logits<true>(s, a, a + kKcBytes);
+  wgmma_commit();
+  for (int c = 1; c < nc; ++c) {
+    ++k;
+    a = ring + (k % ST) * 2 * kKcBytes;
+    mbar_wait(&full[k % ST], (k / ST) & 1);
+    wgmma_fence();
+    kcs_chunk_logits<false>(s, a, a + kKcBytes);
+    wgmma_commit();
+    wgmma_wait<1>();
+    mbar_arrive(&empty[(k - 1) % ST]);
+  }
+  ++k;
+  wgmma_wait<0>();
+  fence_regs(s);
+}
+
+// kc_fwd_run at any width D = 256 nc: the resident rows stream with the
+// tiles. Arguments and returns as kc_fwd_run's.
+template <int NV, typename Fold>
+__device__ __forceinline__ bool kcs_fwd_run(float (&m)[2], float (&l)[2], const CUtensorMap* res_map,
+                                            const CUtensorMap* str_map, const CUtensorMap* const* vec_maps, int t0,
+                                            int t1, int nc, Fold&& fold) {
+  constexpr int ST = KcsFwd<NV>::kStages;
+  unsigned char* ring_s = kc_smem_base();                                      // [ST][2][4][64][128 bytes]
+  float* vec_s = reinterpret_cast<float*>(ring_s + ST * 2 * kKcBytes);         // [ST][NV][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(vec_s + ST * NV * kKcRows);     // [ST]
+  uint64_t* empty = full + ST;                                                 // [ST]
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 128);  // every consumer thread
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128) {
+    if (threadIdx.x == 128) {
+      kcs_fwd_produce<NV>(ring_s, vec_s, full, empty, res_map, str_map, vec_maps, blockIdx.x, t0, t1, nc);
+    }
+    return false;
+  }
+  const uint32_t ring = smem_u32(ring_s);
+  float s[32];
+  int k = 0;
+  for (int it = t0; it < t1; ++it) {
+    kcs_fwd_logits<NV>(s, ring, full, empty, k, nc);
+    const int last = (k - 1) % ST;
+    fold(s, m, l, vec_s + last * NV * kKcRows, it);
+    // The vectors were read by generic loads: ordered before the next bulk write into the stage.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(&empty[last]);
+  }
+  return true;
+}
+
+// The producer thread of the streamed backward: tiles [t0, t1), for each
+// chunk c the resident rows' chunk into the next stage with the tile's
+// chunk c, but for c = z, whose tile chunk and the tile's NV vectors go to
+// the hold (once the previous tile's product has freed it).
+template <int NV>
+__device__ __forceinline__ void kcs_bwd_produce(unsigned char* ring_s, unsigned char* hold_s, float* vec_s,
+                                                uint64_t* full, uint64_t* empty, uint64_t* hold_full,
+                                                uint64_t* hold_empty, const CUtensorMap* res_map,
+                                                const CUtensorMap* str_map, const CUtensorMap* const* vec_maps, int rb,
+                                                int t0, int t1, int z, int nc) {
+  constexpr int ST = KcsBwd<NV>::kStages;
+  int k = 0;
+  uint32_t hp = 0;
+  for (int it = t0; it < t1; ++it) {
+    for (int c = 0; c < nc; ++c, ++k) {
+      if (c == z) {
+        mbar_wait(hold_empty, hp ^ 1);
+        mbar_arrive_expect_tx(hold_full, kKcBytes + NV * kKcRows * 4);
+        kc_load_chunk(hold_s, str_map, c, it, hold_full);
+        for (int v = 0; v < NV; ++v) tma_load_1d(vec_s + v * kKcRows, vec_maps[v], it * kKcRows, hold_full);
+        hp ^= 1;
+      }
+      const int st = k % ST;
+      unsigned char* dst = ring_s + st * 2 * kKcBytes;
+      mbar_wait(&empty[st], ((k / ST) & 1) ^ 1);
+      mbar_arrive_expect_tx(&full[st], c == z ? kKcBytes : 2 * kKcBytes);
+      kc_load_chunk(dst, res_map, c, rb, &full[st]);
+      if (c != z) kc_load_chunk(dst + kKcBytes, str_map, c, it, &full[st]);
+    }
+  }
+}
+
+// The consumer warpgroup: ring chunk k (the tile's chunk c) started on s,
+// its B operand the hold when c = z (phase hph).
+template <int NV, bool First>
+__device__ __forceinline__ void kcs_bwd_chunk(float (&s)[32], uint32_t ring, uint32_t hold, uint64_t* full,
+                                              uint64_t* hold_full, uint32_t hph, int c, int z, int k) {
+  constexpr int ST = KcsBwd<NV>::kStages;
+  const bool own = c == z;
+  const uint32_t a = ring + (k % ST) * 2 * kKcBytes;
+  mbar_wait(&full[k % ST], (k / ST) & 1);
+  // The hold's phase where this chunk is z; else the stage's again, already complete.
+  mbar_wait(own ? hold_full : &full[k % ST], own ? hph : (k / ST) & 1);
+  if constexpr (First) fence_regs(s);
+  wgmma_fence();
+  kcs_chunk_logits<First>(s, a, own ? hold : a + kKcBytes);
+  wgmma_commit();
+}
+
+// A tile's logits into s over its nc chunks (ring chunks k.., k advanced
+// here), one chunk's product in flight behind the next, every stage freed
+// once its product is done. Returns with every product done and the hold
+// still held.
+template <int NV>
+__device__ __forceinline__ void kcs_bwd_logits(float (&s)[32], uint32_t ring, uint32_t hold, uint64_t* full,
+                                               uint64_t* empty, uint64_t* hold_full, uint32_t hph, int z, int& k,
+                                               int nc) {
+  constexpr int ST = KcsBwd<NV>::kStages;
+  kcs_bwd_chunk<NV, true>(s, ring, hold, full, hold_full, hph, 0, z, k);
+  for (int c = 1; c < nc; ++c) {
+    ++k;
+    kcs_bwd_chunk<NV, false>(s, ring, hold, full, hold_full, hph, c, z, k);
+    wgmma_wait<1>();
+    mbar_arrive(&empty[(k - 1) % ST]);
+  }
+  wgmma_wait<0>();
+  fence_regs(s);
+  mbar_arrive(&empty[k % ST]);
+  ++k;
+}
+
+// kc_bwd_run at any width D = 256 nc: the resident rows stream with the
+// tiles, the hold as kc_bwd_run's. Arguments and returns as kc_bwd_run's.
+template <int NV, typename Tile>
+__device__ __forceinline__ bool kcs_bwd_run(float (&acc)[2][64], const CUtensorMap* res_map, const CUtensorMap* str_map,
+                                            const CUtensorMap* const* vec_maps, int t0, int t1, int nc, Tile&& tile) {
+  constexpr int ST = KcsBwd<NV>::kStages;
+  unsigned char* hold_s = kc_smem_base();                                   // [4][64][128 bytes]
+  unsigned char* ring_s = hold_s + kKcBytes;                                // [ST][2][4][64][128 bytes]
+  float* vec_s = reinterpret_cast<float*>(ring_s + ST * 2 * kKcBytes);      // [NV][64], the hold's
+  uint64_t* full = reinterpret_cast<uint64_t*>(vec_s + NV * kKcRows);       // [ST]
+  uint64_t* empty = full + ST;                                              // [ST]
+  uint64_t* hold_full = empty + ST;
+  uint64_t* hold_empty = hold_full + 1;
+  const int z = blockIdx.z;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 128);  // every consumer thread
+    }
+    mbar_init(hold_full, 1);
+    mbar_init(hold_empty, 128);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128) {
+    if (threadIdx.x == 128) {
+      kcs_bwd_produce<NV>(ring_s, hold_s, vec_s, full, empty, hold_full, hold_empty, res_map, str_map, vec_maps,
+                          blockIdx.x, t0, t1, z, nc);
+    }
+    return false;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+  }
+  const uint32_t ring = smem_u32(ring_s), hold = smem_u32(hold_s);
+  float s[32];
+  int k = 0;
+  uint32_t hph = 0;
+  for (int it = t0; it < t1; ++it, hph ^= 1) {
+    kcs_bwd_logits<NV>(s, ring, hold, full, empty, hold_full, hph, z, k, nc);
     tile(s, vec_s, it, hold);
     wgmma_wait<0>();
 #pragma unroll

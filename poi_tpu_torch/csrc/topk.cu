@@ -31,6 +31,15 @@
 //   times. The query fragments are read from smem at each k-step, so any
 //   D % 8 == 0 up to 1024 fits (K is zero-padded to a multiple of 16); wider
 //   rows take smaller tiles and fewer rows a block (block_shape below);
+// - past D = 1024 (any multiple of kKc = 256, the wrapper's padding) a block
+//   of 16 query rows and 2 stages of 32 table rows at full width would pass
+//   the 227 KB a block may hold (330 KB at 2048), so topk_slice_kc_kernel
+//   streams each 64-row table tile as K-chunks of 256 columns through a
+//   cp.async ring: the tile's scores accumulate in the mma.sync accumulators
+//   over its chunks, in the same k order as at full width, and then go
+//   through the same filter and warp_sort. The query rows stay resident
+//   while they fit beside a 3-stage ring (to D = 2,816), and past that
+//   stream chunk by chunk with the tile on 4 stages;
 // - selects per row, not per block: each row keeps its running k-th (value,
 //   id); a tile's scores are filtered against it in registers, and only the
 //   survivors are appended to the row's own smem buffer. When the buffer
@@ -57,7 +66,9 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxD = 1024;
+constexpr int kMaxD = 1024;         // the widest row held whole; wider ones are K-chunked
+constexpr int kKc = 256;             // columns a K-chunk past kMaxD
+constexpr int kSmemOptIn = 232448;   // the dynamic smem a block may opt into on an H100
 constexpr int kSms = 132;            // H100 SXM
 constexpr int kMaxSlices = 64;       // slices a row group, at most (32 at k > 32)
 constexpr int kMinTilesPerSlice = 4;
@@ -73,11 +84,14 @@ __host__ __device__ constexpr int pad16(int D) { return (D + 15) & ~15; }
 struct BlockShape {
   int rows, warps, tile, stages;
 };
+// Past kMaxD (K-chunked): 16 rows, 4 warps, tiles of 64 rows; the stages
+// are run_width's (kc_qres).
 __host__ __device__ constexpr BlockShape block_shape(int D) {
-  return pad16(D) <= 128   ? BlockShape{64, 16, 64, 3}
-         : pad16(D) <= 256 ? BlockShape{64, 16, 32, 3}
-         : pad16(D) <= 512 ? BlockShape{32, 8, 32, 2}
-                           : BlockShape{16, 4, 32, 2};
+  return pad16(D) <= 128    ? BlockShape{64, 16, 64, 3}
+         : pad16(D) <= 256  ? BlockShape{64, 16, 32, 3}
+         : pad16(D) <= 512  ? BlockShape{32, 8, 32, 2}
+         : pad16(D) <= kMaxD ? BlockShape{16, 4, 32, 2}
+                             : BlockShape{16, 4, 64, 0};
 }
 
 // The length of a row's sorted list: k rounded up to 32 or 128.
@@ -218,6 +232,83 @@ __host__ __device__ constexpr int smem_bytes(BlockShape s, int LD, int KP) {
          s.rows * (KP + kSurv) * 8;
 }
 
+// Selection of one tile's scores sc [R][SLD] (columns v0..): a score enters
+// its row's buffer only if it beats the row's k-th. Each warp takes its RPW
+// rows; a row's survivors are merged when the next tile might not fit.
+template <int RPW, int TR, int SLD, int KP>
+__device__ __forceinline__ void select_tile(const float* sc, float* buf_v, int* buf_i, float (&thr_v)[RPW],
+                                            int (&thr_i)[RPW], int (&cnt)[RPW], int warp, int lane, int r0, int B,
+                                            int v0, int end, int k) {
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    const int row = warp * RPW + r;
+    if (r0 + row >= B) continue;  // warp-uniform
+    float* bv = buf_v + row * (KP + kSurv);
+    int* bi = buf_i + row * (KP + kSurv);
+#pragma unroll
+    for (int u = 0; u < TR / 32; ++u) {
+      const int c = u * 32 + lane;
+      const float s = sc[row * SLD + c];
+      const bool pass = v0 + c < end && before(s, v0 + c, thr_v[r], thr_i[r]);
+      const unsigned m = __ballot_sync(kFull, pass);
+      if (pass) {
+        const int p = KP + cnt[r] + __popc(m & ((1u << lane) - 1u));
+        bv[p] = s;
+        bi[p] = v0 + c;
+      }
+      cnt[r] += __popc(m);
+    }
+    if (cnt[r] > kSurv - TR) {  // the next tile might not fit
+      __syncwarp();
+      merge_row<KP>(bv, bi, cnt[r], lane);
+      thr_v[r] = bv[k - 1];
+      thr_i[r] = bi[k - 1];
+      cnt[r] = 0;
+    }
+  }
+}
+
+// The warp's rows' last merge, and their k best of the slice to
+// cand [B, slices, k].
+template <int RPW, int KP>
+__device__ __forceinline__ void finish_rows(float* buf_v, int* buf_i, const int (&cnt)[RPW], float* cand_v,
+                                            int* cand_i, int warp, int lane, int r0, int B, int slices, int sl,
+                                            int k) {
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    const int row = warp * RPW + r;
+    if (r0 + row >= B) continue;
+    float* bv = buf_v + row * (KP + kSurv);
+    int* bi = buf_i + row * (KP + kSurv);
+    if (cnt[r] > 0) {
+      __syncwarp();
+      merge_row<KP>(bv, bi, cnt[r], lane);
+    }
+    const size_t base = ((size_t)(r0 + row) * slices + sl) * k;
+    for (int i = lane; i < k; i += 32) {
+      cand_v[base + i] = bv[i];
+      cand_i[base + i] = bi[i];
+    }
+  }
+}
+
+// The warp's rows' sorted lists start empty, (-inf, INT_MAX).
+template <int RPW, int KP>
+__device__ __forceinline__ void init_rows(float* buf_v, int* buf_i, float (&thr_v)[RPW], int (&thr_i)[RPW],
+                                          int (&cnt)[RPW], int warp, int lane) {
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    const int row = warp * RPW + r;
+    for (int i = lane; i < KP; i += 32) {
+      buf_v[row * (KP + kSurv) + i] = -INFINITY;
+      buf_i[row * (KP + kSurv) + i] = INT_MAX;
+    }
+    thr_v[r] = -INFINITY;
+    thr_i[r] = INT_MAX;
+    cnt[r] = 0;
+  }
+}
+
 template <int R, int W, int TR, int ST, int KP>
 __global__ void __launch_bounds__(W * 32)
     topk_slice_kernel(const bf16* __restrict__ q, const bf16* __restrict__ table, const float* __restrict__ bias,
@@ -248,20 +339,9 @@ __global__ void __launch_bounds__(W * 32)
     if (p < tiles) load_tile_stage(t_s + p * TR * LD, b_s + p * TR, table, bias, start + p * TR, TR, V, D, LD, kThr);
     cp_async_commit();
   }
-  // The warp's rows: their sorted lists start empty, (-inf, INT_MAX).
   float thr_v[RPW];
   int thr_i[RPW], cnt[RPW];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = warp * RPW + r;
-    for (int i = lane; i < KP; i += 32) {
-      buf_v[row * (KP + kSurv) + i] = -INFINITY;
-      buf_i[row * (KP + kSurv) + i] = INT_MAX;
-    }
-    thr_v[r] = -INFINITY;
-    thr_i[r] = INT_MAX;
-    cnt[r] = 0;
-  }
+  init_rows<RPW, KP>(buf_v, buf_i, thr_v, thr_i, cnt, warp, lane);
 
   for (int it = 0; it < tiles; ++it) {
     const int nx = it + ST - 1;
@@ -299,53 +379,131 @@ __global__ void __launch_bounds__(W * 32)
     }
     __syncthreads();  // the tile's scores are in sc; stage it % ST may be refilled
 
-    // Selection: a score enters its row's buffer only if it beats the row's k-th.
-    const int v0 = start + it * TR;
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int row = warp * RPW + r;
-      if (r0 + row >= B) continue;  // warp-uniform
-      float* bv = buf_v + row * (KP + kSurv);
-      int* bi = buf_i + row * (KP + kSurv);
-#pragma unroll
-      for (int u = 0; u < TR / 32; ++u) {
-        const int c = u * 32 + lane;
-        const float s = sc[row * SLD + c];
-        const bool pass = v0 + c < end && before(s, v0 + c, thr_v[r], thr_i[r]);
-        const unsigned m = __ballot_sync(kFull, pass);
-        if (pass) {
-          const int p = KP + cnt[r] + __popc(m & ((1u << lane) - 1u));
-          bv[p] = s;
-          bi[p] = v0 + c;
-        }
-        cnt[r] += __popc(m);
-      }
-      if (cnt[r] > kSurv - TR) {  // the next tile might not fit
-        __syncwarp();
-        merge_row<KP>(bv, bi, cnt[r], lane);
-        thr_v[r] = bv[k - 1];
-        thr_i[r] = bi[k - 1];
-        cnt[r] = 0;
-      }
-    }
+    select_tile<RPW, TR, SLD, KP>(sc, buf_v, buf_i, thr_v, thr_i, cnt, warp, lane, r0, B, start + it * TR, end, k);
   }
+  finish_rows<RPW, KP>(buf_v, buf_i, cnt, cand_v, cand_i, warp, lane, r0, B, slices, sl, k);
+}
 
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = warp * RPW + r;
-    if (r0 + row >= B) continue;
-    float* bv = buf_v + row * (KP + kSurv);
-    int* bi = buf_i + row * (KP + kSurv);
-    if (cnt[r] > 0) {
-      __syncwarp();
-      merge_row<KP>(bv, bi, cnt[r], lane);
-    }
-    const size_t base = ((size_t)(r0 + row) * slices + sl) * k;
-    for (int i = lane; i < k; i += 32) {
-      cand_v[base + i] = bv[i];
-      cand_i[base + i] = bi[i];
-    }
+// Columns [c0, c0 + kKc) of rows [r0, r0 + n) of a row-major [R, D] bf16
+// matrix into smem rows of stride LDC; rows past R zeroed.
+__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src, int r0, int n, int R, int D, int c0, int LDC,
+                                           int threads) {
+  constexpr int vec = kKc / 8;
+  for (int i = threadIdx.x; i < n * vec; i += threads) {
+    const int r = i / vec;
+    const int c = (i % vec) * 8;
+    const bool ok = r0 + r < R;
+    cp_async16(dst + r * LDC + c, src + (ok ? (size_t)(r0 + r) * D + c0 + c : 0), ok);
   }
+}
+
+// The K-chunked pass 1's shared memory: the query rows (whole when qres,
+// else a chunk a stage), the stages of table chunks and their tiles' bias,
+// the score tile and the rows' buffers.
+__host__ __device__ constexpr int kc_smem_bytes(BlockShape s, int D, int KP, bool qres) {
+  return (qres ? s.rows * (D + kPad) * 2 : 0) +
+         s.stages * ((s.tile + (qres ? 0 : s.rows)) * (kKc + kPad) * 2 + s.tile * 4) + s.rows * (s.tile + 4) * 4 +
+         s.rows * (KP + kSurv) * 8;
+}
+
+// Past kMaxD: whether the query rows stay resident beside a ring of 3
+// stages (to D = 2,816); past that they stream with the tiles on 4.
+__host__ __device__ constexpr bool kc_qres(int D) {
+  return kc_smem_bytes(BlockShape{16, 4, 64, 3}, D, 128, true) <= kSmemOptIn;
+}
+
+// Pass 1 past kMaxD (D a multiple of kKc): topk_slice_kernel's blocks and
+// selection, each table tile arriving as D / kKc chunks of kKc columns. A
+// unit is one chunk of one tile; the ring holds ST units, loaded ST - 1
+// ahead. A tile's scores accumulate across its chunks, k16 steps in order
+// over the whole D, then take the bias and go through select_tile.
+template <int R, int W, int TR, int ST, int KP, bool QRes>
+__global__ void __launch_bounds__(W * 32)
+    topk_slice_kc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ table, const float* __restrict__ bias,
+                         float* __restrict__ cand_v, int* __restrict__ cand_i, int B, int V, int D, int k,
+                         int slice_len) {
+  constexpr int kThr = W * 32, RG = R / 16, CG = W / RG, CW = TR / CG, NJ = CW / 8, SLD = TR + 4;
+  constexpr int RPW = R / W, LDC = kKc + kPad;
+  constexpr int QST = QRes ? 0 : R * LDC;  // a stage's query chunk
+  static_assert(CW % 8 == 0 && RPW == 4 && TR % 32 == 0 && kSurv >= TR && kSurv >= KP, "block shape");
+  const int LDQ = QRes ? D + kPad : LDC, nc = D / kKc;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);                          // [R][LDQ] when QRes
+  bf16* t_s = q_s + (QRes ? R * LDQ : 0);                              // [ST][TR * LDC + QST]
+  float* b_s = reinterpret_cast<float*>(t_s + ST * (QST + TR * LDC));  // [ST][TR]
+  float* sc = b_s + ST * TR;                                           // [R][SLD] scores of the tile
+  float* buf_v = sc + R * SLD;                                         // [R][KP + kSurv]
+  int* buf_i = reinterpret_cast<int*>(buf_v + R * (KP + kSurv));
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int rg = warp % RG, cg = warp / RG;
+  const int sl = blockIdx.x, slices = gridDim.x;
+  const int r0 = blockIdx.y * R;
+  const int start = sl * slice_len, end = min(V, start + slice_len);
+  const int tiles = (end - start + TR - 1) / TR;
+  const int units = tiles * nc;
+
+  // Unit u into stage u % ST: the table chunk, the query chunk where the
+  // rows stream, and the tile's bias with its last chunk.
+  auto load_unit = [&](int u) {
+    const int it = u / nc, c = u % nc, v0 = start + it * TR;
+    bf16* dst = t_s + (u % ST) * (QST + TR * LDC);
+    load_chunk(dst, table, v0, TR, V, D, c * kKc, LDC, kThr);
+    if constexpr (!QRes) load_chunk(dst + TR * LDC, q, r0, R, B, D, c * kKc, LDC, kThr);
+    if (c == nc - 1) {
+      float* bd = b_s + (u % ST) * TR;
+      for (int i = threadIdx.x; i < TR; i += kThr) cp_async4(bd + i, bias + (v0 + i < V ? v0 + i : 0), v0 + i < V);
+    }
+  };
+  if constexpr (QRes) load_rows(q_s, q, r0, R, B, D, LDQ, kThr);
+#pragma unroll
+  for (int p = 0; p < ST - 1; ++p) {
+    if (p < units) load_unit(p);
+    cp_async_commit();
+  }
+  float thr_v[RPW];
+  int thr_i[RPW], cnt[RPW];
+  init_rows<RPW, KP>(buf_v, buf_i, thr_v, thr_i, cnt, warp, lane);
+
+  float acc[NJ][4];
+  for (int u = 0; u < units; ++u) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();  // unit u has landed; every warp is done with unit u - 1's stage and with sc
+    if (u + ST - 1 < units) load_unit(u + ST - 1);
+    cp_async_commit();
+    const int it = u / nc, c = u % nc;
+    const bf16* tile = t_s + (u % ST) * (QST + TR * LDC);
+    const bf16* qc = QRes ? q_s + c * kKc : tile + TR * LDC;  // this chunk's query columns
+    if (c == 0) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    }
+#pragma unroll
+    for (int ks = 0; ks < kKc / 16; ++ks) {
+      const bf16* pa = qc + (rg * 16 + g) * LDQ + ks * 16 + 2 * t;
+      const uint32_t a[4] = {ld32(pa), ld32(pa + 8 * LDQ), ld32(pa + 8), ld32(pa + 8 * LDQ + 8)};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const bf16* pb = tile + (cg * CW + j * 8 + g) * LDC + ks * 16 + 2 * t;
+        mma_bf16(acc[j], a, ld32(pb), ld32(pb + 8));
+      }
+    }
+    if (c < nc - 1) continue;
+    const float* bt = b_s + (u % ST) * TR;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = cg * CW + j * 8 + 2 * t;
+      float* d0 = sc + (rg * 16 + g) * SLD + col;
+      float* d1 = d0 + 8 * SLD;
+      d0[0] = acc[j][0] + bt[col];
+      d0[1] = acc[j][1] + bt[col + 1];
+      d1[0] = acc[j][2] + bt[col];
+      d1[1] = acc[j][3] + bt[col + 1];
+    }
+    __syncthreads();  // the tile's scores are in sc
+    select_tile<RPW, TR, SLD, KP>(sc, buf_v, buf_i, thr_v, thr_i, cnt, warp, lane, r0, B, start + it * TR, end, k);
+  }
+  finish_rows<RPW, KP>(buf_v, buf_i, cnt, cand_v, cand_i, warp, lane, r0, B, slices, sl, k);
 }
 
 // Pass 2, one warp a row: the row's slices * k candidates, each slice's k
@@ -436,10 +594,35 @@ cudaError_t run(const void* q, const void* table, const void* bias, void* cand_v
   return cudaGetLastError();
 }
 
+// Pass 1 past kMaxD (topk_slice_kc_kernel) and the merge, as run's.
+template <int ST, int KP, bool QRes>
+cudaError_t run_kc(const void* q, const void* table, const void* bias, void* cand_v, void* cand_i, void* out_v,
+                   void* out_i, int B, int V, int D, int k, int slices, int slice_len, cudaStream_t st) {
+  constexpr int R = 16, W = 4, TR = 64;
+  const int smem = kc_smem_bytes(BlockShape{R, W, TR, ST}, D, KP, QRes);
+  auto kernel = topk_slice_kc_kernel<R, W, TR, ST, KP, QRes>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const bool one = slices == 1;
+  kernel<<<dim3(slices, (B + R - 1) / R), W * 32, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(table), static_cast<const float*>(bias),
+      static_cast<float*>(one ? out_v : cand_v), static_cast<int*>(one ? out_i : cand_i), B, V, D, k, slice_len);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || one) return e;
+  topk_merge_kernel<KP><<<(B + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0, st>>>(
+      static_cast<const float*>(cand_v), static_cast<const int*>(cand_i), static_cast<float*>(out_v),
+      static_cast<int*>(out_i), B, slices, k);
+  return cudaGetLastError();
+}
+
 template <int KP>
 cudaError_t run_width(const void* q, const void* table, const void* bias, void* cand_v, void* cand_i, void* out_v,
                       void* out_i, int B, int V, int D, int k, int slices, int slice_len, cudaStream_t st) {
   const BlockShape s = block_shape(D);
+  if (D > kMaxD) {
+    if (kc_qres(D)) return run_kc<3, KP, true>(q, table, bias, cand_v, cand_i, out_v, out_i, B, V, D, k, slices, slice_len, st);
+    return run_kc<4, KP, false>(q, table, bias, cand_v, cand_i, out_v, out_i, B, V, D, k, slices, slice_len, st);
+  }
   if (s.tile == 64) return run<64, 16, 64, 3, KP>(q, table, bias, cand_v, cand_i, out_v, out_i, B, V, D, k, slices, slice_len, st);
   if (s.rows == 64) return run<64, 16, 32, 3, KP>(q, table, bias, cand_v, cand_i, out_v, out_i, B, V, D, k, slices, slice_len, st);
   if (s.rows == 32) return run<32, 8, 32, 2, KP>(q, table, bias, cand_v, cand_i, out_v, out_i, B, V, D, k, slices, slice_len, st);
@@ -476,7 +659,7 @@ extern "C" int topk_fwd(const void* q, const void* table, const void* bias, void
                         void* out_v, void* out_i, int B, int V, int D, int k, int slices, int slice_len,
                         int device, void* stream) {
   const BlockShape s = block_shape(D);
-  if (k < 1 || k > 128 || D % 8 != 0 || D <= 0 || D > kMaxD || slices < 1 || slices > kMaxSlices ||
+  if (k < 1 || k > 128 || D % 8 != 0 || D <= 0 || (D > kMaxD && D % kKc != 0) || slices < 1 || slices > kMaxSlices ||
       slice_len % s.tile != 0 || (long long)slices * slice_len < V || (long long)(slices - 1) * slice_len >= V ||
       B > 65535)
     return cudaErrorInvalidValue;

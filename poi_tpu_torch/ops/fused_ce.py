@@ -20,19 +20,21 @@ the TPU kernels':
   ``dbias = colsum(gp)`` from the unrounded ``gp``. The one-hot target terms
   are subtracted outside the kernels in plain torch.
 
-Widths: the kernels are built for ``KERNEL_DIMS``; the wrappers pad any
-``D <= MAX_DIM`` with zero columns to the next of them (``widths.padded_dim``).
-Zero columns add nothing to ``q · tableᵀ``, and the padded columns of
-``dq`` and ``dtable`` are dropped, so the result is the function at ``D``;
-``D > MAX_DIM`` raises, naming the limit. No width pads by more than 1.5×
-past 128. The forward runs 128 rows a block at ``D = 256`` and 384, 64 from
-512 (``lse_rows``); at 384 and 512 the backward's blocks each sum half of
-the output columns, both halves recomputing the logits. At 768 and 1024
-both stream the catalog in K-chunks of 256 columns (``csrc/kchunk.cuh``),
-and the backward's blocks each sum one range of 256 output columns, every
-range recomputing the logits. ``lse_plan`` and ``bwd_plan`` give each
-width's block shape, as ``ce_lse_plan`` and ``ce_bwd_plan`` in the C
-sources do.
+Widths: the kernels are built for ``KERNEL_DIMS`` and, past ``MAX_DIM``,
+for every multiple of 256; the wrappers pad any ``D`` with zero columns to
+the next of them (``widths.padded_dim(..., chunked=True)``). Zero columns
+add nothing to ``q · tableᵀ``, and the padded columns of ``dq`` and
+``dtable`` are dropped, so the result is the function at ``D``. No width
+pads by more than 1.5× past 128, nor by more than 1.25× past ``MAX_DIM``.
+The forward runs 128 rows a block at ``D = 256`` and 384, 64 from 512
+(``lse_rows``); at 384 and 512 the backward's blocks each sum half of the
+output columns, both halves recomputing the logits. At 768 and 1024 both
+stream the catalog in K-chunks of 256 columns (``csrc/kchunk.cuh``), and
+the backward's blocks each sum one range of 256 output columns, every range
+recomputing the logits. Past 1024 the 64 resident rows stream in the same
+chunks beside the catalog's (``kcs_fwd_run``, ``kcs_bwd_run``), at any
+width. ``lse_plan`` and ``bwd_plan`` give each width's block shape, as
+``ce_lse_plan`` and ``ce_bwd_plan`` in the C sources do.
 
 ``ce_lse_variant`` holds the forward's tuning variants, the counterparts of
 ``scripts/sweep_ce_fwd.py``'s kernels (``exp2``, ``nomax``), on ``ce_lse``'s
@@ -48,7 +50,8 @@ from __future__ import annotations
 import torch
 
 from poi_tpu_torch import _build
-from poi_tpu_torch.ops.widths import KCHUNK, kchunk_bwd_stages, kchunk_fwd_stages, pad_cols, padded_dim
+from poi_tpu_torch.ops.widths import (KCHUNK, kchunk_bwd_stages, kchunk_fwd_stages, kchunk_stream_bwd_stages,
+                                     kchunk_stream_fwd_stages, pad_cols, padded_dim)
 
 # Catalog columns per chunk of the plain versions: [N, 4096] fp32 logits at a
 # time (512 MiB at N = 32,768), so they run at the full training shape.
@@ -58,37 +61,51 @@ LOG2E = 1.4426950408889634
 # (2 or 4 consumer warpgroups; ce_lse takes 256).
 VARIANTS = ("base", "exp2", "nomax")
 ROWS = (128, 256)
-# The widths the kernels are built for (``ce_supports_dim`` in csrc/ce.cu
-# says the same; B12's variants take the first three).
+# The widths the kernels are built for up to MAX_DIM (``ce_supports_dim``
+# in csrc/ce.cu says the same, and takes every multiple of 256 past it;
+# B12's variants take the first three).
 KERNEL_DIMS = (32, 64, 128, 192, 256, 384, 512, 768, 1024)
 MAX_DIM = KERNEL_DIMS[-1]
+
+
+def kernel_dim(D: int, name: str = "ce") -> int:
+    """The width the kernels run ``D`` at: the next of ``KERNEL_DIMS``, or
+    past ``MAX_DIM`` the next multiple of 256."""
+    return padded_dim(D, KERNEL_DIMS, name, chunked=True)
 
 
 def lse_rows(D: int) -> int:
     """The query rows a block of ``ce_lse`` at width ``D`` (``lse_rows_for``
     in csrc/ce.cu): 128 where it runs at 256 or 384 columns, 64 from 512,
     else 256."""
-    return {256: 128, 384: 128, 512: 64, 768: 64, 1024: 64}.get(padded_dim(D, KERNEL_DIMS, "ce_lse"), 256)
+    Dp = kernel_dim(D, "ce_lse")
+    return 64 if Dp >= 512 else {256: 128, 384: 128}.get(Dp, 256)
 
 
 def lse_plan(D: int) -> tuple[int, int, int]:
-    """``ce_lse``'s block at width ``D`` (run at ``padded_dim(D)``), as
+    """``ce_lse``'s block at width ``D`` (run at ``kernel_dim(D)``), as
     ``ce_lse_plan`` in csrc/ce.cu gives it: (query rows a block, ring
     stages, columns a streamed chunk). Up to 512 a tile arrives whole, on 4
-    stages (2 from 384); past it in chunks of 256 (``csrc/kchunk.cuh``)."""
-    Dp = padded_dim(D, KERNEL_DIMS, "ce_lse")
+    stages (2 from 384); past it in chunks of 256 (``csrc/kchunk.cuh``),
+    past 1024 with the query rows' chunks beside the tile's."""
+    Dp = kernel_dim(D, "ce_lse")
+    if Dp > MAX_DIM:
+        return lse_rows(Dp), kchunk_stream_fwd_stages(1), KCHUNK
     if Dp > 512:
         return lse_rows(Dp), kchunk_fwd_stages(Dp, 1), KCHUNK
     return lse_rows(Dp), 2 if Dp >= 384 else 4, Dp
 
 
 def bwd_plan(D: int) -> tuple[int, int, int, int]:
-    """``ce_bwd``'s blocks at width ``D`` (run at ``padded_dim(D)``), as
+    """``ce_bwd``'s blocks at width ``D`` (run at ``kernel_dim(D)``), as
     ``ce_bwd_plan`` in csrc/ce_bwd.cu gives them: (resident rows a block,
     ring stages, output column ranges, columns a streamed chunk). Up to 256
     two warpgroups sum every column; at 384 and 512 one, over half the
-    columns; past 512 one, over 256 columns, the tile in chunks of 256."""
-    Dp = padded_dim(D, KERNEL_DIMS, "ce_bwd")
+    columns; past 512 one, over 256 columns, the tile in chunks of 256, and
+    past 1024 the resident rows' chunks beside the tile's."""
+    Dp = kernel_dim(D, "ce_bwd")
+    if Dp > MAX_DIM:
+        return 64, kchunk_stream_bwd_stages(2), Dp // KCHUNK, KCHUNK
     if Dp > 512:
         return 64, kchunk_bwd_stages(Dp, 2), Dp // KCHUNK, KCHUNK
     return (64, 2, 2, Dp) if Dp >= 384 else (128, 4, 1, Dp)
@@ -211,7 +228,7 @@ def _check(name: str, tensors: dict[str, torch.Tensor]) -> bool:
         return True
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}; need all on one CUDA device")
-    padded_dim(tensors["q"].shape[1], KERNEL_DIMS, name)
+    kernel_dim(tensors["q"].shape[1], name)
     return False
 
 
@@ -221,7 +238,7 @@ def _lse_launch(wrapper, name: str, q: torch.Tensor, table: torch.Tensor, bias: 
     its merge) for ``variant`` at ``rows`` query rows a block on CUDA
     tensors, or raises through ``_build.check``; counts the launch on
     ``wrapper.launches``."""
-    N, D = q.shape[0], padded_dim(q.shape[1], KERNEL_DIMS, name)
+    N, D = q.shape[0], kernel_dim(q.shape[1], name)
     V = table.shape[0]
     if D > 128 and (variant, rows) != ("base", lse_rows(D)):
         raise ValueError(f"{name}: at D={q.shape[1]} the kernel runs only the base variant at "
@@ -257,7 +274,7 @@ def ce_lse(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor) -> torch.Te
 
     CPU tensors take the plain version. CUDA tensors launch the kernel at
     ``lse_rows(D)`` rows a block (and, where it splits the catalog, its
-    merge), ``D`` padded to ``padded_dim(D)``, or raise; ``ce_lse.launches``
+    merge), ``D`` padded to ``kernel_dim(D)``, or raise; ``ce_lse.launches``
     counts the calls that launched them.
     """
     _check_shapes("ce_lse", q, table, bias)
@@ -301,7 +318,7 @@ def ce_bwd(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, lse: torch.
 
     CPU tensors take the plain version. CUDA tensors launch the kernels (the
     dq pass and the dtable pass of ``csrc/ce_bwd.cu``, and the reduction of
-    split partials where a pass splits) at ``padded_dim(D)`` columns, the
+    split partials where a pass splits) at ``kernel_dim(D)`` columns, the
     padded ones dropped from ``dq`` and ``dtable``, or raise;
     ``ce_bwd.launches`` counts the calls that launched them.
     """
@@ -314,7 +331,7 @@ def ce_bwd(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, lse: torch.
     if _check("ce_bwd", {"q": q, "table": table, "bias": bias, "lse": lse, "g": g}):
         return ce_bwd_reference(q, table, bias, lse, g)
     dev = q.device
-    Dp = padded_dim(D, KERNEL_DIMS, "ce_bwd")
+    Dp = kernel_dim(D, "ce_bwd")
     dq = torch.empty(N, Dp, dtype=torch.float32, device=dev)
     dtable = torch.empty(V, Dp, dtype=torch.float32, device=dev)
     dbias = torch.empty(V, dtype=torch.float32, device=dev)

@@ -6,9 +6,10 @@ kernel's: queries ``q [B, D]`` and the table ``[V, D]`` are rounded to bf16,
 scores accumulate in fp32 and add the fp32 bias, ``k <= 128``. Returns
 ``vals [B, k]`` fp32 descending and ``ids [B, k]`` int32. Ties go to the
 lower id, as the TPU kernel's first-column pick and strict ``>`` across
-tiles order them. The CUDA kernel takes any V and any D <= 1024 (padded with
-zero columns to a multiple of 8 on the way in); ``pad_table_for_topk`` is
-kept because the eval and serving code fix their id space with it.
+tiles order them. The CUDA kernel takes any V and any D: up to 1024 padded
+with zero columns to a multiple of 8, past it to a multiple of 256, whose
+rows it streams in K-chunks (``widths.padded_dim``); ``pad_table_for_topk``
+is kept because the eval and serving code fix their id space with it.
 """
 
 from __future__ import annotations
@@ -23,8 +24,14 @@ from poi_tpu_torch.ops.widths import pad_cols, padded_dim
 NEG = -1e30
 MAX_K = 128  # the TPU kernel's lane-aligned scratch width; k <= MAX_K
 # The kernel reads rows as 16-byte vectors: it takes every multiple of 8 up
-# to 1024.
+# to 1024 whole, and every multiple of 256 past it in K-chunks.
 KERNEL_DIMS = tuple(range(8, 1025, 8))
+
+
+def kernel_dim(D: int) -> int:
+    """The width the kernel runs ``D`` at: the next multiple of 8 up to
+    1024, of 256 past it."""
+    return padded_dim(D, KERNEL_DIMS, "fused_topk", chunked=True)
 
 
 def pad_table_for_topk(table: torch.Tensor, bias: torch.Tensor, tile_v: int = 2048):
@@ -74,7 +81,7 @@ def fused_topk(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor, k: int)
         raise TypeError(f"fused_topk: bias must be float32, got {bias.dtype}")
     if B > 65535:
         raise ValueError(f"fused_topk: B={B} query rows exceed the kernel's grid limit of 65535")
-    D = padded_dim(D, KERNEL_DIMS, "fused_topk")
+    D = kernel_dim(D)
     q16 = pad_cols(q.to(torch.bfloat16), D).contiguous()
     t16 = pad_cols(table.to(torch.bfloat16), D).contiguous()
     bias = bias.contiguous()

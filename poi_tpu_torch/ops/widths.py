@@ -5,8 +5,11 @@ kernels' K-chunked streams past ``D = 512`` (``csrc/kchunk.cuh``).
 A wrapper pads its inputs' last dimension with zero columns to
 ``padded_dim(D, its kernels' widths)``. Zero columns add nothing to a row
 product ``q · eᵀ``, and the gradient columns past ``D`` are dropped, so the
-result is the function at ``D``. Pure Python, so the CPU tests hold the
-dispatch the card runs.
+result is the function at ``D``. Past the last width, the kernels that
+stream every operand in K-chunks (B7, B8, B11) take any multiple of
+``KCHUNK``: ``padded_dim(..., chunked=True)`` pads to the next one
+(``chunked_dim``, at most 1.25× past 1024), and the others raise. Pure
+Python, so the CPU tests hold the dispatch the card runs.
 """
 
 from __future__ import annotations
@@ -15,12 +18,21 @@ import torch
 import torch.nn.functional as F
 
 
-def padded_dim(D: int, widths: tuple[int, ...], name: str) -> int:
-    """The smallest of ``widths`` (ascending) at least ``D``; raises past
-    the last, naming it."""
+def chunked_dim(D: int) -> int:
+    """The width past the last built one: ``D`` padded to the next multiple
+    of ``KCHUNK``."""
+    return -(-D // KCHUNK) * KCHUNK
+
+
+def padded_dim(D: int, widths: tuple[int, ...], name: str, chunked: bool = False) -> int:
+    """The smallest of ``widths`` (ascending) at least ``D``; past the last,
+    ``chunked_dim(D)`` when ``chunked`` (the kernels take every multiple of
+    ``KCHUNK`` there), else raises, naming the last."""
     for k in widths:
         if D <= k:
             return k
+    if chunked:
+        return chunked_dim(D)
     raise ValueError(f"{name}: the kernels take D <= {widths[-1]} (padded with zero columns to the next width "
                      f"they are built for), got D={D}")
 
@@ -32,7 +44,8 @@ def pad_cols(x: torch.Tensor, width: int) -> torch.Tensor:
 
 # csrc/kchunk.cuh: the loss kernels past D = 512 stream a 64-row tile as
 # K-chunks of KCHUNK columns (32 KB) through a ring of 2 to 4 stages, as many
-# as fit the shared memory a block may opt into on an H100.
+# as fit the shared memory a block may opt into on an H100; past D = 1024
+# (B7, B8; B11 in csrc/topk.cu) every multiple of KCHUNK.
 KCHUNK = 256
 KCHUNK_ROWS = 64
 SMEM_OPT_IN = 232448
@@ -60,3 +73,17 @@ def kchunk_bwd_stages(D: int, vecs: int) -> int:
     chunk and two barriers."""
     return kchunk_stages(KCHUNK_ROWS * D * 2 + KCHUNK_ROWS * KCHUNK * 2 + vecs * KCHUNK_ROWS * 4 + 24,
                          KCHUNK_ROWS * KCHUNK * 2 + 16)
+
+
+def kchunk_stream_fwd_stages(vecs: int) -> int:
+    """The forward's ring past D = 1024 (``KcsFwd``), the resident rows
+    streamed too: nothing fixed; a stage is their chunk and the tile's,
+    ``vecs`` vectors and two barriers."""
+    return kchunk_stages(0, 2 * KCHUNK_ROWS * KCHUNK * 2 + vecs * KCHUNK_ROWS * 4 + 16)
+
+
+def kchunk_stream_bwd_stages(vecs: int) -> int:
+    """The backward's ring past D = 1024 (``KcsBwd``): the hold (a chunk and
+    the tile's ``vecs`` vectors) and two barriers fixed; a stage is the
+    resident rows' chunk, the tile's and two barriers."""
+    return kchunk_stages(KCHUNK_ROWS * KCHUNK * 2 + vecs * KCHUNK_ROWS * 4 + 16, 2 * KCHUNK_ROWS * KCHUNK * 2 + 16)

@@ -1,31 +1,39 @@
 """The losses past D = 512: B7/B8 and B9/B10 at D = 768 and 1024 on the
-K-chunked kernels (``csrc/kchunk.cuh``), and the two models they let train at
-D = H = 1024, held against the JAX package on the same numpy inputs.
+K-chunked kernels (``csrc/kchunk.cuh``), B7/B8 past 1024 on its streamed
+kernels, and the models they let train, held against the JAX package on the
+same numpy inputs.
 
 On the CPU the wrappers take the plain versions, which take any width; the
 card runs the kernels and ``chip_smoke.py`` holds them against those plain
 versions there, and the Python mirrors of the kernels' block shapes against
-the C side's. Here: the width dispatch (every D in 513..1024 to 768 or 1024,
-1025 refused), the mirrors against a table, and one ``Trainer`` step at
-D = H = 1024 of the smoke GRU model with the fused CE and of config #4's
-attention model with sampled softmax, each against ``poi_tpu``'s step."""
+the C side's. Here: the width dispatch (every D in 513..1024 to 768 or 1024;
+past 1024 B7/B8 to the next multiple of 256, B9/B10 refusing 1025), the
+mirrors against a table, one ``Trainer`` step at D = H = 1024 of the smoke
+GRU model with the fused CE and of config #4's attention model with sampled
+softmax, and one ``Trainer`` step and one ``Recommender.recommend`` of the
+smoke GRU model at D = H = 2048 (the widest bench path's model), each
+against ``poi_tpu``'s."""
 
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from poi_tpu.eval.serve import Checkin as JaxCheckin
+from poi_tpu.eval.serve import Recommender as JaxRecommender
 from poi_tpu.models.base import DataDims as JaxDataDims
 from poi_tpu.train.loop import Trainer as JaxTrainer
 from poi_tpu.utils.config import Config as JaxConfig
 from poi_tpu_torch.configs.presets import get_config
-from poi_tpu_torch.convert import (adam_state_from_jax, adam_state_to_numpy, flatten, params_to_numpy,
+from poi_tpu_torch.convert import (adam_state_from_jax, adam_state_to_numpy, flatten, params_from_jax, params_to_numpy,
                                    sparse_adam_state_to_numpy)
 from poi_tpu_torch.data.dataset import load_dataset
 from poi_tpu_torch.data.pipeline import make_batch
-from poi_tpu_torch.models.base import DataDims
+from poi_tpu_torch.eval.serve import Checkin, Recommender
+from poi_tpu_torch.models.base import DataDims, batch_to, build_model
 from poi_tpu_torch.ops import fused_ce, fused_sampled
 from poi_tpu_torch.ops.widths import padded_dim
 from poi_tpu_torch.train.losses import FUSED_CE_MIN_VOCAB
@@ -34,20 +42,32 @@ from poi_tpu_torch.train.loop import Trainer
 torch.set_num_threads(1)
 
 PAIRS = {"ce": fused_ce.KERNEL_DIMS, "sampled": fused_sampled.KERNEL_DIMS}
+# Each pair's dispatch: B7/B8 take every multiple of 256 past 1024 (the
+# streamed kernels), B9/B10 refuse past it.
+CHUNKED = {"ce": True, "sampled": False}
 
 
 @pytest.mark.parametrize("pair", sorted(PAIRS))
 def test_padded_dim_past_512_pads_by_at_most_half_and_refuses_past_1024(pair):
-    """Every D in 513..1024 runs at 768 or 1024, no more than 1.5x D; 1025
-    is refused, naming the limit."""
+    """Every D in 513..1024 runs at 768 or 1024, no more than 1.5x D. Past
+    1024 the ce pair (which refused there before its streamed kernels; the
+    name keeps that limit) runs every D in 1025..4096 at the next multiple
+    of 256, no more than 1.25x D; the sampled pair refuses 1025, naming the
+    limit."""
     dims = PAIRS[pair]
     assert dims[-2:] == (768, 1024)
-    got = {D: padded_dim(D, dims, pair) for D in range(513, 1025)}
+    got = {D: padded_dim(D, dims, pair, chunked=CHUNKED[pair]) for D in range(513, 1025)}
     assert set(got.values()) == {768, 1024}
     assert all(D <= Dp <= 1.5 * D for D, Dp in got.items())
     assert all(Dp == (768 if D <= 768 else 1024) for D, Dp in got.items())
-    with pytest.raises(ValueError, match=rf"{pair}: the kernels take D <= 1024 .*got D=1025"):
-        padded_dim(1025, dims, pair)
+    if CHUNKED[pair]:
+        past = {D: padded_dim(D, dims, pair, chunked=True) for D in range(1025, 4097)}
+        assert all(Dp % 256 == 0 and D <= Dp <= 1.25 * D and Dp - D < 256 for D, Dp in past.items())
+        assert past[1025] == 1280 and past[2048] == 2048 and past[4096] == 4096
+        assert all(past[D] == fused_ce.kernel_dim(D) for D in past)
+    else:
+        with pytest.raises(ValueError, match=rf"{pair}: the kernels take D <= 1024 .*got D=1025"):
+            padded_dim(1025, dims, pair, chunked=False)
 
 
 # The kernels' block shapes by width (csrc/ce.cu ce_lse_plan, csrc/ce_bwd.cu
@@ -55,24 +75,32 @@ def test_padded_dim_past_512_pads_by_at_most_half_and_refuses_past_1024(pair):
 # mirrors to them on the card). Past 512 a streamed tile arrives in chunks of
 # 256 columns; the ring takes as many 32 KB stages as fit 232,448 bytes
 # beside 64 resident rows (and, in the backward, the hold's chunk); a B8 or
-# B10 block sums one range of 256 output columns.
+# B10 block sums one range of 256 output columns. Past 1024 the resident
+# rows' chunk rides each stage beside the tile's (64 KB): 3 stages, every
+# width.
 CE_LSE_PLANS = {32: (256, 4, 32), 128: (256, 4, 128), 192: (256, 4, 192), 256: (128, 4, 256), 384: (128, 2, 384),
-                512: (64, 2, 512), 768: (64, 4, 256), 1024: (64, 3, 256)}
+                512: (64, 2, 512), 768: (64, 4, 256), 1024: (64, 3, 256), 1280: (64, 3, 256), 2048: (64, 3, 256),
+                4096: (64, 3, 256)}
 CE_BWD_PLANS = {32: (128, 4, 1, 32), 128: (128, 4, 1, 128), 192: (128, 4, 1, 192), 256: (128, 4, 1, 256),
-                384: (64, 2, 2, 384), 512: (64, 2, 2, 512), 768: (64, 3, 3, 256), 1024: (64, 2, 4, 256)}
+                384: (64, 2, 2, 384), 512: (64, 2, 2, 512), 768: (64, 3, 3, 256), 1024: (64, 2, 4, 256),
+                1280: (64, 3, 5, 256), 2048: (64, 3, 8, 256), 4096: (64, 3, 16, 256)}
 SAMPLED_PLANS = {64: (256, 4, 64, 128, 4, 1, 64), 128: (256, 4, 128, 128, 4, 1, 128),
                  256: (128, 4, 256, 128, 4, 1, 256), 512: (64, 2, 512, 64, 2, 2, 512),
                  768: (64, 3, 256, 64, 3, 3, 256), 1024: (64, 3, 256, 64, 2, 4, 256)}
 
 
-@pytest.mark.parametrize("D", [32, 128, 192, 256, 384, 512, 600, 768, 1000, 1024])
+@pytest.mark.parametrize("D", [32, 128, 192, 256, 384, 512, 600, 768, 1000, 1024, 1280, 2048, 4096])
 def test_block_plans_match_the_table(D):
     """``lse_plan``, ``bwd_plan`` and ``fused_sampled.plan`` at each width,
     a width the kernels run padded (600, 1000) taking its padded width's
-    plan."""
-    Dc = padded_dim(D, fused_ce.KERNEL_DIMS, "ce")
+    plan; past 1024 the sampled pair has none."""
+    Dc = fused_ce.kernel_dim(D)
     assert fused_ce.lse_plan(D) == CE_LSE_PLANS[Dc] and fused_ce.lse_plan(D)[0] == fused_ce.lse_rows(D)
     assert fused_ce.bwd_plan(D) == CE_BWD_PLANS[Dc]
+    if D > 1024:
+        with pytest.raises(ValueError, match=rf"D <= 1024 .*got D={D}"):
+            fused_sampled.plan(D)
+        return
     Ds = padded_dim(D, fused_sampled.KERNEL_DIMS, "sampled")
     assert fused_sampled.plan(D) == SAMPLED_PLANS[Ds]
     if Dc > 512:  # column ranges of 256 cover the width; the chunks tile it
@@ -170,3 +198,77 @@ def test_wider_attention_trainer_step_matches_jax():
     want = {"mu": js2.opt_state.m, "nu": js2.opt_state.v}
     assert set(flatten(got["mu"])) == set(flatten(jax.tree.map(np.asarray, want["mu"])))
     _moments_and_params_close(got, want, params_to_numpy(tt.model), js2.params, cfg.train.learning_rate)
+
+
+# The widest bench path's model at test size: GRU H = 2048 over D = 2048
+# embeddings (the widest GRU the port takes is 2,064), otherwise
+# WIDER_SETS: batch 8, T = 6, bf16, 8,432 POIs, so both packages take their
+# fused CE, the port's at D = 2048 on the streamed kernels on the card.
+WIDEST_SETS = {**WIDER_SETS, "model.embed_dim": "2048", "model.hidden_dim": "2048"}
+# Recommend: the query difference between the packages at D = 2048 (bf16
+# operands, fp32 sums in other orders) under which two candidates may swap.
+TIE_TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def widest():
+    """The model's config, data, ``poi_tpu`` trainer and init state, and the
+    init params as numpy (the JAX step donates the state's buffers)."""
+    cfg = get_config("smoke").with_overrides(WIDEST_SETS)
+    ds = load_dataset(cfg.data)
+    assert ds.num_pois >= FUSED_CE_MIN_VOCAB
+    jt = JaxTrainer(JaxConfig.from_dict(cfg.to_dict()), JaxDataDims.from_dataset(ds))
+    js = jt.init_state()
+    return cfg, ds, jt, js, jax.tree.map(np.asarray, js.params)
+
+
+def test_widest_gru_trainer_step_matches_jax(widest):
+    """One ``Trainer`` step of the GRU model at D = H = 2048 from the same
+    params on the same batch against ``poi_tpu``'s, at
+    ``test_wider_gru_trainer_step_matches_jax``'s bounds."""
+    cfg, ds, jt, js, tree = widest
+    batch = make_batch(ds.train, np.arange(cfg.train.batch_size))
+    js2, jm = jt.step(js, batch)
+
+    tt = Trainer(cfg, DataDims.from_dataset(ds), device="cpu")
+    st, tm = tt.step(tt.init_state(tree), batch)
+    assert tt.model.embed["poi"].shape[1] == 2048 and tt.model.tower.layers[0]["wh"].shape == (2048, 6144)
+    assert abs(float(tm["loss"]) - float(jm["loss"])) <= 1e-6 * float(jm["loss"])
+    want_adam = adam_state_to_numpy(adam_state_from_jax(js2.opt_state))
+    _moments_and_params_close(adam_state_to_numpy(st.opt_state), want_adam, params_to_numpy(tt.model), js2.params,
+                              cfg.train.learning_rate)
+
+
+def test_widest_gru_recommend_matches_jax(widest):
+    """``Recommender.recommend`` of the GRU model at D = H = 2048 (B11 past
+    1024 on the card) against ``poi_tpu``'s with its top-k kernel in
+    interpret mode, on the same params: the same ids but for near-ties, no
+    visited POI."""
+    cfg, ds, jt, _, tree = widest
+    cfg = cfg.with_overrides({"eval.topk_impl": "pallas"})
+    jcfg = JaxConfig.from_dict(cfg.to_dict())
+    model = build_model(cfg.model, DataDims.from_dataset(ds), device="cpu")
+    model.load_state_dict(params_from_jax(tree))
+    ex = ds.test
+    histories = []
+    for i in np.linspace(0, len(ex) - 1, 6).astype(int):
+        m = int(ex.mask[i].sum())
+        histories.append([Checkin(poi=int(p), timestamp=float(tb) * 3600.0 + 1800.0)
+                          for p, tb in zip(ex.poi_in[i, :m], ex.time_bucket[i, :m])])
+    jhist = [[JaxCheckin(c.poi, c.timestamp) for c in h] for h in histories]
+    want = JaxRecommender(jt.model, jax.tree.map(jnp.asarray, tree), jcfg, ds).recommend(jhist, k=10,
+                                                                                          exclude_visited=True)
+    rec = Recommender(model, cfg, ds)
+    got = rec.recommend(histories, k=10, exclude_visited=True)
+    assert got.shape == want.shape == (6, 10)
+    assert (got >= 0).all() and (got < ds.num_pois).all()
+    for row, hist in zip(got, histories):
+        assert not set(row.tolist()) & {c.poi for c in hist} and len(set(row.tolist())) == 10
+    with torch.inference_mode():
+        q = model.queries_last(batch_to(rec._featurize(histories), "cpu")).double().numpy()
+    table = model.embed["poi"].detach().to(torch.bfloat16).double().numpy()
+    scores = torch.from_numpy(q).to(torch.bfloat16).double().numpy() @ table.T
+    scores += model.embed["out_bias"].detach().double().numpy()
+    rows = np.arange(len(got))[:, None]
+    near = np.abs(scores[rows, got] - scores[rows, want]) < TIE_TOL
+    assert ((got == want) | near).all(), (got, want)

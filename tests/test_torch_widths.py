@@ -1,8 +1,8 @@
 """Widths the kernels are not built for, held against the JAX package:
-B7/B8 at any D <= 1024 (the wrappers pad to 32, 64, 128, 192, 256, 384,
-512, 768 or 1024), B9/B10 at any D <= 1024 (config #5's 384 pads to 512,
-600 and 640 to 768, 1000 to 1024) and B11 at any D <= 1024 (to a multiple
-of 8).
+B7/B8 at any D (the wrappers pad to 32, 64, 128, 192, 256, 384, 512, 768 or
+1024, and past 1024 to a multiple of 256: 1100 runs at 1280), B9/B10 at any
+D <= 1024 (config #5's 384 pads to 512, 600 and 640 to 768, 1000 to 1024)
+and B11 at any D (to a multiple of 8, past 1024 of 256).
 
 On the CPU the wrappers take the plain versions, which take any width; the
 CUDA wrappers pad ``q`` and the table with zero columns, launch at the
@@ -39,18 +39,23 @@ def _close(got, want, name, tol=REL_TOL):
 
 
 def test_ce_padded_dim_maps_every_width_and_refuses_past_256():
-    """Every D up to 1024 goes to a width the kernels are built for (past 256
-    since 384 and 512 were added, past 512 since 768 and 1024 were: the name
-    keeps the limit this test was written for); past 1024 the wrappers
-    refuse, naming the limit."""
+    """Every D goes to a width the kernels are built for (past 256 since 384
+    and 512 were added, past 512 since 768 and 1024 were, past 1024 since
+    the streamed kernels take every multiple of 256: the name keeps the
+    limit this test was written for). Past 1024 ``kernel_dim`` pads to the
+    next multiple of 256, by at most 1.25x; ``padded_dim`` without
+    ``chunked`` still refuses there, naming the limit."""
     want = {1: 32, 32: 32, 33: 64, 64: 64, 65: 128, 128: 128, 129: 192, 192: 192, 193: 256, 200: 256, 256: 256,
             257: 384, 300: 384, 384: 384, 385: 512, 512: 512, 513: 768, 600: 768, 768: 768, 769: 1024, 1000: 1024,
-            1024: 1024}
-    assert {d: padded_dim(d, fused_ce.KERNEL_DIMS, "ce_lse") for d in want} == want
-    assert all(padded_dim(d, fused_ce.KERNEL_DIMS, "ce_lse") <= 1.5 * d for d in range(129, 1025))  # the new widths pad by at most 1.5x
+            1024: 1024, 1025: 1280, 1100: 1280, 1280: 1280, 1281: 1536, 2047: 2048, 2048: 2048, 4096: 4096}
+    assert {d: fused_ce.kernel_dim(d) for d in want} == want
+    assert all(fused_ce.kernel_dim(d) <= 1.5 * d for d in range(129, 1025))  # the new widths pad by at most 1.5x
+    past = {d: fused_ce.kernel_dim(d) for d in range(1025, 4097)}
+    assert all(Dp % 256 == 0 and d <= Dp <= 1.25 * d for d, Dp in past.items())
     assert fused_ce.lse_rows(256) == fused_ce.lse_rows(200) == 128 and fused_ce.lse_rows(192) == 256
     assert fused_ce.lse_rows(384) == fused_ce.lse_rows(300) == 128 and fused_ce.lse_rows(512) == fused_ce.lse_rows(385) == 64
     assert fused_ce.lse_rows(768) == fused_ce.lse_rows(600) == fused_ce.lse_rows(1024) == 64
+    assert fused_ce.lse_rows(1100) == fused_ce.lse_rows(2048) == fused_ce.lse_rows(4096) == 64
     for D in (1025, 2048):
         with pytest.raises(ValueError, match=rf"D <= 1024 .*got D={D}"):
             padded_dim(D, fused_ce.KERNEL_DIMS, "ce_lse")
@@ -63,7 +68,7 @@ class _PaddedCE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, table, bias, targets):
-        Dp = padded_dim(q.shape[1], fused_ce.KERNEL_DIMS, "ce_lse")
+        Dp = fused_ce.kernel_dim(q.shape[1])
         qp, tp = pad_cols(q.detach(), Dp), pad_cols(table.detach(), Dp)
         lse = fused_ce.ce_lse_reference(qp, tp, bias)
         ctx.save_for_backward(q, table, bias, targets, lse)
@@ -89,7 +94,7 @@ def _padded_ce_loss(q, table, bias, targets, mask):
     return (nll * m).sum() / m.sum().clamp_min(1.0)
 
 
-@pytest.mark.parametrize("D", [200, 256, 300, 384, 512, 600, 768, 1000, 1024])
+@pytest.mark.parametrize("D", [200, 256, 300, 384, 512, 600, 768, 1000, 1024, 1100, 1280, 2048])
 @pytest.mark.parametrize("path", ["plain", "padded"])
 def test_fused_ce_at_wide_widths_matches_pallas_interpret(D, path):
     """``fused_ce_loss`` (the plain versions at D) and the padded dispatch
@@ -161,19 +166,34 @@ def test_sampled_nll_rows_padded_to_the_kernels_width_matches_pallas_interpret(D
 def test_topk_pads_any_width_to_a_multiple_of_8_and_matches_pallas_interpret():
     """B11 at D = 100 (the kernel runs at 104): the top-k of the padded
     operands, and ``fused_topk`` at D, against the reference's kernel at
-    D; ids equal but for near-ties."""
-    assert [padded_dim(d, topk.KERNEL_DIMS, "fused_topk") for d in (1, 8, 100, 1023, 1024)] == [8, 8, 104, 1024, 1024]
-    with pytest.raises(ValueError, match=r"D <= 1024 .*got D=1025"):
-        padded_dim(1025, topk.KERNEL_DIMS, "fused_topk")
-    rng = np.random.default_rng(7)
-    B, D, V, k = 8, 100, 2048, 10
-    q = rng.normal(size=(B, D)).astype(np.float32)
+    D; ids equal but for near-ties. Up to 1024 the kernel pads to a multiple
+    of 8; past it (where it used to refuse) to one of 256, by at most
+    1.25x."""
+    assert [topk.kernel_dim(d) for d in (1, 8, 100, 1023, 1024)] == [8, 8, 104, 1024, 1024]
+    assert [topk.kernel_dim(d) for d in (1025, 1100, 1280, 2048, 2049, 4096)] == [1280, 1280, 1280, 2048, 2304, 4096]
+    assert all(d <= topk.kernel_dim(d) <= 1.25 * d and topk.kernel_dim(d) % 256 == 0 for d in range(1025, 4097))
+    _topk_against_pallas(100, B=8, V=2048, seed=7)
+
+
+@pytest.mark.parametrize("D", [1100, 1280, 2048])
+def test_topk_past_1024_pads_to_a_multiple_of_256_and_matches_pallas_interpret(D):
+    """B11 past 1024 (1100 runs at 1280 on the K-chunked kernel): the top-k
+    of the padded operands, and ``fused_topk`` at D, against the
+    reference's kernel at D, which checks no width; ids equal but for
+    near-ties, under the same ``SCORE_TOL``."""
+    assert topk.kernel_dim(D) == {1100: 1280, 1280: 1280, 2048: 2048}[D]
+    _topk_against_pallas(D, B=5, V=1024, seed=D)
+
+
+def _topk_against_pallas(D: int, B: int, V: int, seed: int, k: int = 10):
+    rng = np.random.default_rng(seed)
+    q = (rng.normal(size=(B, D)) * (100 / D) ** 0.5).astype(np.float32)  # scores of one spread at every width
     table = rng.normal(size=(V, D)).astype(np.float32)
     bias = rng.normal(size=V).astype(np.float32)
     vj, ij = jax_fused_topk(jnp.asarray(q), jnp.asarray(table), jnp.asarray(bias), k, tile_v=512, interpret=True)
     exact = (torch.from_numpy(q).to(torch.bfloat16).double() @ torch.from_numpy(table).to(torch.bfloat16).double().T
              + torch.from_numpy(bias).double()).numpy()
-    Dp = padded_dim(D, topk.KERNEL_DIMS, "fused_topk")
+    Dp = topk.kernel_dim(D)
     for vals, ids in (topk.fused_topk(torch.from_numpy(q), torch.from_numpy(table), torch.from_numpy(bias), k),
                       topk.topk_reference(pad_cols(torch.from_numpy(q), Dp), pad_cols(torch.from_numpy(table), Dp),
                                           torch.from_numpy(bias), k)):
