@@ -46,11 +46,12 @@ with its plain PyTorch version on the card. Then it drives the paths:
   at request batch 1 and 256 on both paths; before them, B7 and B8 at D =
   600, 768, 1000 and 1024, B9 and B10 at 640, 768 and 1024, and the
   kernels' block plans held to their Python mirrors;
-- the widest bench path (the bench workload at D = H = 2048: B7, B8 and B11
-  past 1024 on their streamed kernels, B1/B2 on the grid), the same way as
-  the wider paths; before it, B7 and B8 at D = 1100, 1280, 2048 and 4096,
-  B11 at 1100, 2048 and 4096, and D = 1025 refused by B9/B10 alone and
-  taken by B7, B8 and B11;
+- the widest paths (the bench workload and config #4 at D = H = 2048: B7,
+  B8 (bench) or B9, B10 (config #4) and B11 past 1024 on their streamed
+  kernels, B1/B2 on the grid), the same way as the wider paths; before
+  them, B7 and B8 at D = 1100, 1280, 2048 and 4096, B9 and B10 at 1100,
+  1280 and 2048, B11 at 1100, 2048 and 4096, and D = 1025 taken by all
+  five;
 - config #5 on one card (``multihost_1m --set mesh.model=1
   mesh.embedding_mode=psum data.min_poi_checkins=1 data.val_fraction=0.05``:
   GRU 512-d + 8-head attention, T=64, batch 512, sampled softmax over 4,096
@@ -345,7 +346,8 @@ def kchunked(D: int) -> bool:
     logits' fp32 error grows with D, so the max-over-max errors pass
     CE_GRAD_TOL and CE_DBIAS_TOL on correct runs (dq 4.7e-3 at the bench
     shape at D = 1024, 0.18 of its element-wise bound; db 1.05e-5 on an
-    all-hit pool at 1024, 0.001 of it). Past 1024 (B7/B8 only) the same."""
+    all-hit pool at 1024, 0.001 of it). Past 1024 (B7-B10's streamed
+    kernels) the same."""
     return D > 512
 # B11's other main-path catalogs, (V, D, real POIs), each padded to a multiple
 # of 2,048 with -1e30 rows as the eval and serving code pad them: the bench
@@ -480,6 +482,16 @@ SAMPLED_CASES = ((8192, 1024, 256, 36969, 0, None), (8192, 1000, 256, 2000, 24, 
                  SAMPLED_C4_D1024, SAMPLED_C5_D768, (777, 300, 640, 400, 33, None), (100, 130, 1024, 400, 190, "all"))
 # The sampled cases timed, by the key of their times.
 SAMPLED_TIMED = {SAMPLED_CASES[0]: "", SAMPLED_C5: "_d512", SAMPLED_C4_D1024: "_d1024", SAMPLED_C5_D768: "_d768"}
+# B9/B10 past D = 1024, the streamed kernels (N, S, D, V, pad, hits):
+# config #4's shape at 2048 (the widest config #4 path's), config #5's rows
+# at 1280 (no main path), a ragged 1100 (run at 1280) on ragged N with a
+# padded pool, accidental hits from a small catalog and split ranges, and
+# every entry a hit at 2048; the first two timed.
+SAMPLED_C4_D2048 = (8192, 1024, 2048, 36969, 0, None)
+SAMPLED_C5_D1280 = (32768, 4096, 1280, 903889, 0, None)
+SAMPLED_WIDEST_CASES = (SAMPLED_C4_D2048, SAMPLED_C5_D1280, (777, 300, 1100, 400, 33, None),
+                        (100, 130, 2048, 400, 190, "all"))
+SAMPLED_WIDEST_TIMED = {SAMPLED_C4_D2048: "_d2048", SAMPLED_C5_D1280: "_d1280"}
 # B10's split rule (the dq pass's, the dE pass's: 2 and 16 at config #4's
 # shape) against fewer and more ranges of the streamed rows; (0, 0) is the
 # rule.
@@ -970,35 +982,31 @@ def ce_cases(tag: str, cases, gen) -> dict:
 
 
 def expect_loss_width_limit(tag: str, D: int) -> None:
-    """Width ``D`` past 1024 on CUDA tensors: B9/B10 alone refuse it, naming
-    the limit, before any launch; B7/B8 and B11 take it (at the next
-    multiple of 256), each launching its kernel once and agreeing with its
-    plain version."""
+    """Width ``D`` past 1024 on CUDA tensors (refused by B9/B10 before their
+    streamed kernels, by all five before any streamed kernel; the name keeps
+    that limit): B7, B8, B9, B10 and B11 each take it at the next multiple
+    of 256, launch their kernel once, and agree with their plain versions
+    (lse within ``ce_lse_tol``, the gradients within their element-wise
+    bounds, top-k values within ``topk_tol`` and ids but for near-ties)."""
     import torch
 
     from poi_tpu_torch.ops.fused_ce import ce_bwd, ce_bwd_reference, ce_lse, ce_lse_reference
-    from poi_tpu_torch.ops.fused_sampled import sampled_bwd, sampled_lse
+    from poi_tpu_torch.ops.fused_sampled import (kernel_dim, sampled_bwd, sampled_bwd_reference, sampled_lse,
+                                                 sampled_lse_reference)
     from poi_tpu_torch.ops.topk import fused_topk, topk_reference
 
-    q, z = torch.zeros(4, D, device=DEV), torch.zeros(4, device=DEV)
-    i = torch.zeros(4, dtype=torch.int32, device=DEV)
-    for fn, args in ((sampled_lse, (q, q, z, i, i)), (sampled_bwd, (q, q, z, i, i, z, z))):
-        try:
-            fn(*args)
-        except ValueError as e:
-            assert "D <= 1024" in str(e) and f"D={D}" in str(e), e
-            log(f"[{tag}] D={D} refused by {fn.__name__}: {e}")
-        else:
-            raise AssertionError(f"{fn.__name__} took D = {D}")
     gen = torch.Generator(device=DEV).manual_seed(SEED + 29)
     q = 0.3 * torch.randn(70, D, generator=gen, device=DEV)
     t = 0.3 * torch.randn(700, D, generator=gen, device=DEV)
     b = torch.randn(700, generator=gen, device=DEV)
     g = torch.rand(70, generator=gen, device=DEV)
-    before = {fn: fn.launches for fn in (ce_lse, ce_bwd, fused_topk)}
+    sq, se, sb, ids, tgt, lse_tot, sg = sampled_case(70, 130, D, 400, gen, pad=62)
+    before = {fn: fn.launches for fn in (ce_lse, ce_bwd, fused_topk, sampled_lse, sampled_bwd)}
     lse = ce_lse(q, t, b)
     got = ce_bwd(q, t, b, lse, g)
-    vals, ids = fused_topk(q, t, b, 10)
+    vals, ids_k = fused_topk(q, t, b, 10)
+    s_lse = sampled_lse(sq, se, sb, ids, tgt)
+    s_got = sampled_bwd(sq, se, sb, ids, tgt, lse_tot, sg)
     torch.cuda.synchronize()
     assert all(fn.launches == n + 1 for fn, n in before.items()), "a wrapper took D past 1024 without its kernel"
     e_lse = float((lse - ce_lse_reference(q, t, b)).abs().max())
@@ -1008,12 +1016,17 @@ def expect_loss_width_limit(tag: str, D: int) -> None:
     e_top = float((vals - want_v).abs().max())
     exact = q.to(torch.bfloat16).double() @ t.to(torch.bfloat16).double().T + b.double()
     rows = torch.arange(70, device=DEV)[:, None]
-    near = (exact[rows, ids.long()] - exact[rows, want_i.long()]).abs() < topk_tol(D)
-    assert e_lse < ce_lse_tol(D) and e_grad <= 1.0 and e_top < topk_tol(D) and bool(((ids == want_i) | near).all()), \
+    near = (exact[rows, ids_k.long()] - exact[rows, want_i.long()]).abs() < topk_tol(D)
+    assert e_lse < ce_lse_tol(D) and e_grad <= 1.0 and e_top < topk_tol(D) and bool(((ids_k == want_i) | near).all()), \
         (e_lse, e_grad, e_top)
-    log(f"[{tag}] D={D} taken by ce_lse, ce_bwd and fused_topk (one launch each): lse max err {e_lse:.2e}, "
-        f"gradients' largest |err| / element-wise bound {e_grad:.3f} (<= 1), top-k values {e_top:.2e}, ids the plain "
-        f"version's but for near-ties")
+    s_err = float((s_lse - sampled_lse_reference(sq, se, sb, ids, tgt)).abs().max())
+    s_want = sampled_bwd_reference(sq, se, sb, ids, tgt, lse_tot, sg)
+    s_ratio = max(b10_bound_ratios((sq, se, sb, ids, tgt, lse_tot, sg), s_got, s_want, with_db=True))
+    assert s_err < ce_lse_tol(kernel_dim(D)) and s_ratio <= 1.0, (s_err, s_ratio)
+    log(f"[{tag}] D={D} taken by ce_lse, ce_bwd, fused_topk, sampled_lse and sampled_bwd (run at {kernel_dim(D)}, one "
+        f"launch each): ce lse max err {e_lse:.2e}, its gradients' largest |err| / element-wise bound {e_grad:.3f} "
+        f"(<= 1), top-k values {e_top:.2e}, ids the plain version's but for near-ties; sampled lse max err "
+        f"{s_err:.2e}, its gradients' largest |err| / element-wise bound {s_ratio:.3f} (<= 1)")
 
 
 def ce_wide_phase() -> dict:
@@ -1040,7 +1053,6 @@ def check_plans() -> None:
 
     from poi_tpu_torch import _build
     from poi_tpu_torch.ops import fused_ce, fused_sampled
-    from poi_tpu_torch.ops.widths import padded_dim
 
     lib = _build.library()
     buf = (ctypes.c_int * 8)()
@@ -1050,19 +1062,18 @@ def check_plans() -> None:
         return tuple(buf[:n])
 
     widths = sorted(set(fused_ce.KERNEL_DIMS) | set(fused_sampled.KERNEL_DIMS) | {100, 300, 513, 600, 640, 1000}
-                    | {1100, 1280, 2048, 4096})
+                    | {1100, 1280, 1536, 2048, 2304, 4096})
     for D in widths:
-        Dc = fused_ce.kernel_dim(D)
+        Dc, Ds = fused_ce.kernel_dim(D), fused_sampled.kernel_dim(D)
         assert fused_ce.lse_plan(D) == c_plan(lib.ce_lse_plan, Dc, 3), (D, fused_ce.lse_plan(D))
         assert fused_ce.bwd_plan(D) == c_plan(lib.ce_bwd_plan, Dc, 4), (D, fused_ce.bwd_plan(D))
-        if D <= 1024:
-            Ds = padded_dim(max(D, 64), fused_sampled.KERNEL_DIMS, "sampled")
-            assert fused_sampled.plan(D) == c_plan(lib.sampled_plan, Ds, 7), (D, fused_sampled.plan(D))
-    assert lib.sampled_plan(1025, buf) == 0 and lib.sampled_plan(1280, buf) == 0 and lib.ce_lse_plan(1280, buf) == 1
-    log(f"[ce_wider] the Python block plans equal the C side's at D = {widths} (the sampled pair's to 1024; it has "
-        f"none at 1025 or 1280): "
-        + "; ".join(f"{D}: ce_lse {fused_ce.lse_plan(D)}, ce_bwd {fused_ce.bwd_plan(D)}"
-                    + (f", sampled {fused_sampled.plan(D)}" if D <= 1024 else "") for D in (512, 768, 1024, 2048)))
+        assert fused_sampled.plan(D) == c_plan(lib.sampled_plan, Ds, 7), (D, fused_sampled.plan(D))
+    # Widths no kernel is built for: the C side says so (the wrappers pad them first).
+    assert lib.sampled_plan(1025, buf) == 0 and lib.sampled_plan(1100, buf) == 0 and lib.ce_lse_plan(1100, buf) == 0
+    log(f"[ce_wider] the Python block plans equal the C side's at D = {widths} (past 1024 at the next multiple of "
+        f"256, the streamed kernels'; 1025 and 1100 themselves have none): "
+        + "; ".join(f"{D}: ce_lse {fused_ce.lse_plan(D)}, ce_bwd {fused_ce.bwd_plan(D)}, sampled "
+                    f"{fused_sampled.plan(D)}" for D in (512, 768, 1024, 2048)))
 
 
 def ce_wider_phase() -> dict:
@@ -1080,9 +1091,9 @@ def ce_wider_phase() -> dict:
 def ce_widest_phase() -> dict:
     """B7 and B8 past D = 1024 on the streamed kernels (``CE_D2048_CASES``,
     ``ce_case``: B8 element by element within ``ce_bound_ratios``' bound, a
-    second launch the same bits), and D = 1025 refused by B9/B10 alone
-    (``expect_loss_width_limit``). Returns the largest absolute errors,
-    relative errors and bound ratios."""
+    second launch the same bits), and D = 1025 taken by all five loss and
+    top-k wrappers (``expect_loss_width_limit``). Returns the largest
+    absolute errors, relative errors and bound ratios."""
     import torch
 
     out = ce_cases("ce_widest", CE_D2048_CASES, torch.Generator(device=DEV).manual_seed(SEED + 31))
@@ -1356,7 +1367,8 @@ def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str,
     (kernel and merge apart, also at ``SAMPLED_LSE_SPLITS``) and B10 (pass by
     pass, also at ``SAMPLED_SPLITS``) at config #4's shape, both at config
     #5's (D = 512), at config #4's at D = 1024 and config #5's rows at 768,
-    B3 at config
+    and past 1024 (``sampled``: both phases' times) at config #4's at 2048
+    and config #5's rows at 1280, B3 at config
     #2's and at ``LSTM_TIMED`` (and at each cluster of
     ``LSTM_CLUSTER_CASES``), B5 at config #3's and at ``RNN_TIMED`` (and at
     each cluster of ``RNN_FWD_CLUSTER_CASES``), B6 (pass by pass, and at each
@@ -1371,7 +1383,7 @@ def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str,
              ("sampled_bwd", sampled["bwd"], sampled_bwd, SAMPLED_BWD_KERNELS),
              ("sampled_lse", sampled["lse_d512"], sampled_lse, SAMPLED_LSE_KERNELS),
              ("sampled_bwd", sampled["bwd_d512"], sampled_bwd, SAMPLED_BWD_KERNELS),
-             *((f"sampled_{d}", sampled[f"{d}_d{w}"], fn, names) for w in (1024, 768)
+             *((f"sampled_{d}", sampled[f"{d}_d{w}"], fn, names) for w in (1024, 768, 2048, 1280)
                for d, fn, names in (("lse", sampled_lse, SAMPLED_LSE_KC_KERNELS),
                                     ("bwd", sampled_bwd, SAMPLED_BWD_KERNELS))),
              *(("lstm_fwd", lstm[k], fused_lstm_scan, LSTM_FWD_KERNELS)
@@ -1428,81 +1440,122 @@ def sampled_phase() -> dict:
     multiple of the 64-row tile (padded as the TPU pads them), and with pool
     entries that are a hit for every row; then the K-chunked kernels at
     config #4's shape at D = 1024, config #5's rows at 768 and a ragged 640;
-    both timed at ``SAMPLED_TIMED``'s shapes."""
+    both timed at ``SAMPLED_TIMED``'s shapes (``sampled_check``)."""
     import torch
-
-    from poi_tpu_torch.ops.fused_sampled import (NEG, sampled_bwd, sampled_bwd_reference, sampled_lse,
-                                                 sampled_lse_reference)
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
     out = {"lse_err": 0.0, "grad_err": 0.0}
-    for N, S, D, V, pad, hits in SAMPLED_CASES:
-        q, e, b, ids, tgt, lse_tot, g = sampled_case(N, S, D, V, gen, pad, hits)
-        full_hits = torch.tensor([3, S - 1] if hits == "two" else [], dtype=torch.long, device=DEV)
-        lse = sampled_lse(q, e, b, ids, tgt)
-        torch.cuda.synchronize()
-        want_lse = sampled_lse_reference(q, e, b, ids, tgt)
-        e_lse = float((lse - want_lse).abs().max())
-        assert bool(torch.isfinite(lse).all()), f"sampled_lse N={N} S={S} D={D}: non-finite lse"
-        assert e_lse < CE_LSE_TOL, f"sampled_lse N={N} S={S} D={D}: max |kernel - plain| {e_lse}"
-        if hits == "all":
-            assert bool((lse[:20] == NEG).all()), f"sampled_lse: rows whose every entry is a hit gave {lse[:20]}"
-        sampled_lse_splits(q, e, b, ids, tgt, lse)
-        got = sampled_bwd(q, e, b, ids, tgt, lse_tot, g)
-        torch.cuda.synchronize()
-        want = sampled_bwd_reference(q, e, b, ids, tgt, lse_tot, g)
-        errs = [rel_err(a, w) for a, w in zip(got, want)]
-        checked = b10_check((q, e, b, ids, tgt, lse_tot, g), got, want, f"sampled_bwd N={N} S={S} D={D}")
-        if b10_bounded(D):
-            out.setdefault("b10_ratios", []).append({"case": [N, S, D, V, pad, hits], "dq": checked[0],
-                                                     "de": checked[1], **({"db": checked[2]} if len(checked) > 2
-                                                                          else {})})
-        zero_rows = torch.cat([full_hits, torch.arange(S, S + pad, device=DEV)])
-        assert bool((got[1][zero_rows] == 0).all()) and bool((got[2][zero_rows] == 0).all()), \
-            "a hit column or a padded pool entry got gradient"
-        again = (sampled_lse(q, e, b, ids, tgt), *sampled_bwd(q, e, b, ids, tgt, lse_tot, g))
-        assert all(torch.equal(a, w) for a, w in zip(again, (lse, *got))), f"sampled N={N} S={S}: run-to-run bits"
-        out["lse_err"] = max(out["lse_err"], e_lse)
-        out["grad_err"] = max(out["grad_err"], *(float((a - w).abs().max()) for a, w in zip(got, want)))
-        n_hits = int((ids[None, :] == tgt[:, None]).sum())
-        all_hit = "; rows 0-19 (every entry a hit or padding) give -1e30" if hits == "all" else ""
-        log(f"[sampled] N={N} S={S}{f'+{pad} padded' if pad else ''} D={D}: {n_hits} hits; lse max err {e_lse:.2e} "
-            f"(tol {CE_LSE_TOL}){all_hit}; rel err dq {errs[0]:.2e}, de {errs[1]:.2e} ("
-            + (f"element-wise bound: largest |err| / bound dq {checked[0]:.4f}, de {checked[1]:.4f}"
-               + (f", db {checked[2]:.4f}" if len(checked) > 2 else "") + ", each <= 1"
-               if b10_bounded(D) else f"tol {CE_GRAD_TOL}")
-            + f"), db {errs[2]:.2e}" + ("" if len(checked) > 2 else f" (tol {CE_DBIAS_TOL})")
-            + f"; {len(zero_rows)} hit/padded pool rows exactly 0; a second run gives "
-            f"the same bits; every forced split of B9 within the tolerance")
-        key = SAMPLED_TIMED.get((N, S, D, V, pad, hits))
-        if key is not None:
-            # No single PyTorch call computes the masked pool LSE or its
-            # gradients: no library time.
-            if key:  # the wider rows' own parity (the top-level rows carry every case's worst)
-                out["lse_err" + key] = e_lse
-                out["grad_err" + key] = max(float((a - w).abs().max()) for a, w in zip(got, want))
-            out["lse" + key] = {"ms": time_ms(lambda: sampled_lse(q, e, b, ids, tgt)),
-                                "plain_ms": time_ms(lambda: sampled_lse_reference(q, e, b, ids, tgt)),
-                                "library_ms": None, **bound((q, e, b, ids, tgt), (lse,), bf16_flop=2 * N * S * D),
-                                "bound_kernel_ms": loss_kernel_flop("sampled_lse", N, S, D) / BF16_FLOP_PER_S * 1e3,
-                                "args": (q, e, b, ids, tgt)}
-            out["bwd" + key] = {"ms": time_ms(lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g)),
-                                "plain_ms": time_ms(lambda: sampled_bwd_reference(q, e, b, ids, tgt, lse_tot, g)),
-                                "library_ms": None,
-                                **bound((q, e, b, ids, tgt, lse_tot, g), got, bf16_flop=6 * N * S * D),
-                                "bound_kernel_ms": loss_kernel_flop("sampled_bwd", N, S, D) / BF16_FLOP_PER_S * 1e3,
-                                "args": (q, e, b, ids, tgt, lse_tot, g)}
-            for d in ("lse", "bwd"):
-                t = out[d + key]
-                log(f"[time] sampled_{d} N={N} S={S} D={D}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; "
-                    f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; the kernel's own count "
-                    f"{t['bound_kernel_ms']:.4f} ms)")
-            sampled_splits(q, e, b, ids, tgt, lse_tot, g, got)
-            sampled_nll_bits(q, e, b, ids, tgt, g)
+    for case in SAMPLED_CASES:
+        sampled_check("sampled", case, gen, out, SAMPLED_TIMED.get(case))
     # The K-chunked B10's largest |err| / element-wise bound, dq's and dE's, by width.
-    out["b10_ratios_max"] = {w: [max(r[k] for r in out["b10_ratios"] if r["case"][2] == w)
-                                 for k in ("dq", "de", "db")] for w in (768, 1024)}
+    out["b10_ratios_max"] = b10_ratios_max(out, (768, 1024))
     return out
+
+
+def sampled_widest_phase() -> dict:
+    """B9 and B10 past D = 1024 on the streamed kernels
+    (``SAMPLED_WIDEST_CASES``, ``sampled_check``): config #4's shape at
+    2048 (the widest config #4 path's), config #5's rows at 1280, a ragged
+    1100 (run at 1280) with accidental hits and split ranges, and every
+    entry a hit at 2048; B9 within ``ce_lse_tol``, B10 element by element
+    within ``b10_bound_ratios``' bound, a second launch the same bits; timed
+    at ``SAMPLED_WIDEST_TIMED``'s shapes."""
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 37)
+    out = {"lse_err": 0.0, "grad_err": 0.0}
+    for case in SAMPLED_WIDEST_CASES:
+        sampled_check("sampled_widest", case, gen, out, SAMPLED_WIDEST_TIMED.get(case))
+    out["b10_ratios_max"] = b10_ratios_max(out, sorted({case[2] for case in SAMPLED_WIDEST_CASES}))
+    return out
+
+
+def b10_ratios_max(out: dict, widths) -> dict:
+    """The largest B10 |err| / element-wise bound of dq, dE and db over
+    ``out``'s cases at each of ``widths``."""
+    return {w: [max(r[k] for r in out["b10_ratios"] if r["case"][2] == w) for k in ("dq", "de", "db")]
+            for w in widths}
+
+
+def sampled_check(tag: str, case: tuple, gen, out: dict, key: str | None) -> None:
+    """B9 and B10 on one case (N, S, D, V, pad, hits) of ``sampled_case``
+    against their plain versions: lse within ``ce_lse_tol`` of its padded
+    width (``CE_LSE_TOL`` up to D = 1024), finite, -1e30 on rows whose every
+    entry is a hit, B9 at every forced split; B10 by ``b10_check``, hit and
+    padded pool rows exactly 0; a second run the same bits. Where ``key`` is
+    not None, also times both (``out["lse" + key]``, ``out["bwd" + key]``),
+    B10 at its forced splits, and ``SampledNLL``'s bits. Folds the errors
+    into ``out``."""
+    import torch
+
+    from poi_tpu_torch.ops.fused_sampled import (NEG, kernel_dim, sampled_bwd, sampled_bwd_reference, sampled_lse,
+                                                 sampled_lse_reference)
+
+    N, S, D, V, pad, hits = case
+    Dp = kernel_dim(D)
+    q, e, b, ids, tgt, lse_tot, g = sampled_case(N, S, D, V, gen, pad, hits)
+    full_hits = torch.tensor([3, S - 1] if hits == "two" else [], dtype=torch.long, device=DEV)
+    lse = sampled_lse(q, e, b, ids, tgt)
+    torch.cuda.synchronize()
+    want_lse = sampled_lse_reference(q, e, b, ids, tgt)
+    e_lse, lse_tol = float((lse - want_lse).abs().max()), ce_lse_tol(Dp)
+    assert bool(torch.isfinite(lse).all()), f"sampled_lse N={N} S={S} D={D}: non-finite lse"
+    assert e_lse < lse_tol, f"sampled_lse N={N} S={S} D={D}: max |kernel - plain| {e_lse} (tol {lse_tol})"
+    if hits == "all":
+        assert bool((lse[:20] == NEG).all()), f"sampled_lse: rows whose every entry is a hit gave {lse[:20]}"
+    sampled_lse_splits(q, e, b, ids, tgt, lse)
+    got = sampled_bwd(q, e, b, ids, tgt, lse_tot, g)
+    torch.cuda.synchronize()
+    want = sampled_bwd_reference(q, e, b, ids, tgt, lse_tot, g)
+    errs = [rel_err(a, w) for a, w in zip(got, want)]
+    checked = b10_check((q, e, b, ids, tgt, lse_tot, g), got, want, f"sampled_bwd N={N} S={S} D={D}")
+    if b10_bounded(D):
+        out.setdefault("b10_ratios", []).append({"case": [N, S, D, V, pad, hits], "dq": checked[0],
+                                                 "de": checked[1], **({"db": checked[2]} if len(checked) > 2
+                                                                      else {})})
+    zero_rows = torch.cat([full_hits, torch.arange(S, S + pad, device=DEV)])
+    assert bool((got[1][zero_rows] == 0).all()) and bool((got[2][zero_rows] == 0).all()), \
+        "a hit column or a padded pool entry got gradient"
+    again = (sampled_lse(q, e, b, ids, tgt), *sampled_bwd(q, e, b, ids, tgt, lse_tot, g))
+    assert all(torch.equal(a, w) for a, w in zip(again, (lse, *got))), f"sampled N={N} S={S}: run-to-run bits"
+    out["lse_err"] = max(out["lse_err"], e_lse)
+    out["grad_err"] = max(out["grad_err"], *(float((a - w).abs().max()) for a, w in zip(got, want)))
+    n_hits = int((ids[None, :] == tgt[:, None]).sum())
+    all_hit = "; rows 0-19 (every entry a hit or padding) give -1e30" if hits == "all" else ""
+    log(f"[{tag}] N={N} S={S}{f'+{pad} padded' if pad else ''} D={D}{f' (run at {Dp})' if Dp != D else ''}: "
+        f"{n_hits} hits; lse max err {e_lse:.2e} (tol {lse_tol:.0e}){all_hit}; rel err dq {errs[0]:.2e}, de "
+        f"{errs[1]:.2e} ("
+        + (f"element-wise bound: largest |err| / bound dq {checked[0]:.4f}, de {checked[1]:.4f}"
+           + (f", db {checked[2]:.4f}" if len(checked) > 2 else "") + ", each <= 1"
+           if b10_bounded(D) else f"tol {CE_GRAD_TOL}")
+        + f"), db {errs[2]:.2e}" + ("" if len(checked) > 2 else f" (tol {CE_DBIAS_TOL})")
+        + f"; {len(zero_rows)} hit/padded pool rows exactly 0; a second run gives "
+        f"the same bits; every forced split of B9 within the tolerance")
+    if key is None:
+        return
+    # No single PyTorch call computes the masked pool LSE or its
+    # gradients: no library time.
+    if key:  # the wider rows' own parity (the top-level rows carry every case's worst)
+        out["lse_err" + key] = e_lse
+        out["grad_err" + key] = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    out["lse" + key] = {"ms": time_ms(lambda: sampled_lse(q, e, b, ids, tgt)),
+                        "plain_ms": time_ms(lambda: sampled_lse_reference(q, e, b, ids, tgt)),
+                        "library_ms": None, **bound((q, e, b, ids, tgt), (lse,), bf16_flop=2 * N * S * D),
+                        "bound_kernel_ms": loss_kernel_flop("sampled_lse", N, S, Dp) / BF16_FLOP_PER_S * 1e3,
+                        "args": (q, e, b, ids, tgt)}
+    out["bwd" + key] = {"ms": time_ms(lambda: sampled_bwd(q, e, b, ids, tgt, lse_tot, g)),
+                        "plain_ms": time_ms(lambda: sampled_bwd_reference(q, e, b, ids, tgt, lse_tot, g)),
+                        "library_ms": None,
+                        **bound((q, e, b, ids, tgt, lse_tot, g), got, bf16_flop=6 * N * S * D),
+                        "bound_kernel_ms": loss_kernel_flop("sampled_bwd", N, S, Dp) / BF16_FLOP_PER_S * 1e3,
+                        "args": (q, e, b, ids, tgt, lse_tot, g)}
+    for d in ("lse", "bwd"):
+        t = out[d + key]
+        log(f"[time] sampled_{d} N={N} S={S} D={D}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; the kernel's own count "
+            f"{t['bound_kernel_ms']:.4f} ms)")
+    sampled_splits(q, e, b, ids, tgt, lse_tot, g, got)
+    sampled_nll_bits(q, e, b, ids, tgt, g)
 
 
 def b10_bound_ratios(args, got, want, with_db: bool = False) -> tuple:
@@ -1569,10 +1622,9 @@ def b10_bound_ratios(args, got, want, with_db: bool = False) -> tuple:
 def b10_bounded(D: int) -> bool:
     """Whether ``b10_check`` holds B10 at width ``D`` by its element-wise
     bound: at ``B10_BOUND_DIMS`` and where the kernels run K-chunked."""
-    from poi_tpu_torch.ops.fused_sampled import KERNEL_DIMS
-    from poi_tpu_torch.ops.widths import padded_dim
+    from poi_tpu_torch.ops.fused_sampled import kernel_dim
 
-    return D in B10_BOUND_DIMS or kchunked(padded_dim(D, KERNEL_DIMS, "sampled_bwd"))
+    return D in B10_BOUND_DIMS or kchunked(kernel_dim(D))
 
 
 def b10_check(args, got, want, what: str) -> tuple:
@@ -1582,11 +1634,10 @@ def b10_check(args, got, want, what: str) -> tuple:
     ``CE_DBIAS_TOL`` (fp32 sums of the unrounded gp). Where the kernels run
     K-chunked (``kchunked``), all three by the bound (three ratios
     returned)."""
-    from poi_tpu_torch.ops.fused_sampled import KERNEL_DIMS
-    from poi_tpu_torch.ops.widths import padded_dim
+    from poi_tpu_torch.ops.fused_sampled import kernel_dim
 
     db = rel_err(got[2], want[2])
-    if kchunked(padded_dim(args[0].shape[1], KERNEL_DIMS, "sampled_bwd")):
+    if kchunked(kernel_dim(args[0].shape[1])):
         ratios = b10_bound_ratios(args, got, want, with_db=True)
         assert max(ratios) <= 1.0, f"{what}: |err| / element-wise bound dq/de/db {ratios}, db rel err {db}"
         return ratios
@@ -1607,11 +1658,10 @@ def sampled_lse_at(args, splits: int):
     import torch
 
     from poi_tpu_torch import _build
-    from poi_tpu_torch.ops.fused_sampled import KERNEL_DIMS, _kernel_args
-    from poi_tpu_torch.ops.widths import padded_dim
+    from poi_tpu_torch.ops.fused_sampled import _kernel_args, kernel_dim
 
     lib = _build.library()
-    ins = _kernel_args(*args, padded_dim(args[0].shape[1], KERNEL_DIMS, "sampled_lse"))
+    ins = _kernel_args(*args, kernel_dim(args[0].shape[1]))
     (N, D), S = ins[0].shape, ins[1].shape[0]
     lse = torch.empty(N, device=DEV)
     scratch = torch.empty(max(1, lib.sampled_lse_scratch(N, S, D, splits)), device=DEV)
@@ -1672,11 +1722,10 @@ def sampled_bwd_at(args, splits):
     import torch
 
     from poi_tpu_torch import _build
-    from poi_tpu_torch.ops.fused_sampled import KERNEL_DIMS, bwd_kernel_args
-    from poi_tpu_torch.ops.widths import padded_dim
+    from poi_tpu_torch.ops.fused_sampled import bwd_kernel_args, kernel_dim
 
     lib = _build.library()
-    ins = bwd_kernel_args(*args, padded_dim(args[0].shape[1], KERNEL_DIMS, "sampled_bwd"))
+    ins = bwd_kernel_args(*args, kernel_dim(args[0].shape[1]))
     (N, D), S = ins[0].shape, ins[1].shape[0]
     dq, de, db = torch.empty(N, D, device=DEV), torch.empty(S, D, device=DEV), torch.empty(S, device=DEV)
     scratch = torch.empty(max(1, lib.sampled_bwd_scratch(N, S, D, *splits)), device=DEV)
@@ -2575,23 +2624,28 @@ def run_cli_train(config: str, overrides: list[str], steps: int, job: tuple | No
 
 
 def cli_train_phase(state) -> None:
-    run_cli_train(CONFIG, ["train.num_steps=20", "train.eval_every=10", "train.log_every=10"], 20)
-    # The bench workload: device sampler in 40-step chunks, test evaluated
-    # through the top-k kernel at steps 40 and 80 and at the end.
+    """The train CLI on config #1, the bench workload, and configs #4, #2
+    and #3, each as its own process, all started together (each process's
+    start, imports and corpus load take most of its time) and each checked
+    by ``run_cli_train``."""
     steps = 2 * TRAIN_STEPS
-    out = run_cli_train("smoke", [f"{k}={v}" for k, v in BENCH_OVERRIDES.items()]
-                        + [f"train.num_steps={steps}", f"train.eval_every={TRAIN_STEPS}",
-                           f"train.log_every={TRAIN_STEPS}"], steps)
+    runs = [(CONFIG, ["train.num_steps=20", "train.eval_every=10", "train.log_every=10"], 20),
+            # The bench workload: device sampler in 40-step chunks, test
+            # evaluated through the top-k kernel at steps 40 and 80 and at the end.
+            ("smoke", [f"{k}={v}" for k, v in BENCH_OVERRIDES.items()]
+             + [f"train.num_steps={steps}", f"train.eval_every={TRAIN_STEPS}", f"train.log_every={TRAIN_STEPS}"],
+             steps),
+            # Config #4 as a user runs it, cut to 40 steps (best-on-val at 20 and 40).
+            (ATTN_CONFIG, [f"train.num_steps={TRAIN_STEPS}", f"train.eval_every={TRAIN_STEPS // 2}",
+                           f"train.log_every={TRAIN_STEPS // 2}", "data.sampler=device"], TRAIN_STEPS),
+            # Configs #2 and #3 as a user runs them, cut to 20 steps (best-on-val at 10 and 20).
+            *((config, ["train.num_steps=20", "train.eval_every=10", "train.log_every=10", "data.sampler=device"], 20)
+              for config, _ in REC_CONFIGS.values())]
+    jobs = [cli_proc("train", config, ["--set", *sets, "--no-checkpoint"]) for config, sets, _ in runs]
+    outs = [run_cli_train(config, sets, n, job) for (config, sets, n), job in zip(runs, jobs)]
     # At the random init every POI scores about alike, a loss of ~ln(V):
-    # the loss logged at step 40 must already be below it.
-    assert out["history"][0]["loss"] < math.log(state["bench_ds"].num_pois), out["history"]
-    # Config #4 as a user runs it, cut to 40 steps (best-on-val at 20 and 40).
-    run_cli_train(ATTN_CONFIG, [f"train.num_steps={TRAIN_STEPS}", f"train.eval_every={TRAIN_STEPS // 2}",
-                                f"train.log_every={TRAIN_STEPS // 2}", "data.sampler=device"], TRAIN_STEPS)
-    # Configs #2 and #3 as a user runs them, cut to 20 steps (best-on-val at 10 and 20).
-    for config, _ in REC_CONFIGS.values():
-        run_cli_train(config, ["train.num_steps=20", "train.eval_every=10", "train.log_every=10",
-                               "data.sampler=device"], 20)
+    # the bench loss logged at step 40 must already be below it.
+    assert outs[1]["history"][0]["loss"] < math.log(state["bench_ds"].num_pois), outs[1]["history"]
 
 
 # The wide path: the bench workload at D = 512 and H = 1024 through the
@@ -2910,11 +2964,12 @@ WIDER_SETS = {"model.embed_dim": "1024", "model.hidden_dim": "1024"}
 WIDER_CLI_STEPS = 5  # 10 before the widest path came
 WIDER_PATHS = {"bench": ("smoke", ("gru_fwd", "gru_bwd", "ce_lse", "ce_bwd")),
                "c4": (ATTN_CONFIG, ("gru_fwd", "gru_bwd", "sampled_lse", "sampled_bwd"))}
-# The widest bench path: the bench workload at D = H = 2048, the widest GRU
-# the port takes (2,064) over B7/B8 and B11 on their streamed kernels, the
-# same phase with its own sets (the train CLI for WIDEST_CLI_STEPS steps,
-# then WIDE_STEPS a path through train(), Recommender at batch 1 and 256);
-# its step is timed over WIDEST_TIME_CHUNK-step chunks.
+# The widest paths: the bench workload and config #4 at D = H = 2048, the
+# widest GRU the port takes (2,064) over B7/B8 (bench) or B9/B10 (config
+# #4) and B11 on their streamed kernels, the same phase with its own sets
+# (the train CLI for WIDEST_CLI_STEPS steps, then WIDE_STEPS a path through
+# train(), Recommender at batch 1 and 256); each step is timed over
+# WIDEST_TIME_CHUNK-step chunks.
 WIDEST_SETS = {"model.embed_dim": "2048", "model.hidden_dim": "2048"}
 WIDEST_CLI_STEPS, WIDEST_TIME_CHUNK = 5, 3
 
@@ -2924,7 +2979,7 @@ def wider_path_phase(state, tag: str, sets: dict = WIDER_SETS, cli_steps: int = 
     """The wider bench path (``tag`` bench) or the wider config #4 path (c4)
     as a user runs it: ``python -m poi_tpu_torch train --config <smoke --set
     BENCH_OVERRIDES, or attention_gowalla> --set model.embed_dim=1024
-    model.hidden_dim=1024`` (``sets``; the widest bench path's, ``label``
+    model.hidden_dim=1024`` (``sets``; the widest paths', ``label``
     widest, at 2048) for ``cli_steps`` steps, run in this process
     (``cli.main``) so its launches are counted (exit 0, finite losses, the
     path's four kernels and B11 launched); then ``WIDE_STEPS``
@@ -3678,7 +3733,7 @@ def train_timing_phase(state, gpu: str) -> dict:
 def config_timing_phase(state, gpu: str) -> dict:
     """Config #4's train step on both paths, with its device-time profile;
     then configs #2 and #3, the wide path, the wide LSTM and ST-RNN paths,
-    and the wider bench and config #4 paths."""
+    and the wider and widest bench and config #4 paths."""
     from poi_tpu_torch.train.loop import make_trainer
 
     out = {}
@@ -3711,13 +3766,14 @@ def config_timing_phase(state, gpu: str) -> dict:
                     "plain": make_trainer(w["cfg"].with_overrides(PLAIN_OVERRIDES), w["ds"], DEV)}
         out[f"wider_{tag}_train_step"] = step_timing(f"the wider {tag} path ({config} at D = H = 1024)", trainers,
                                                      w["tree"], WIDE_TIME_CHUNK, gpu, profiled=2)
-    # The widest bench path's step (the bench workload at D = H = 2048),
-    # over WIDEST_TIME_CHUNK-step chunks and 2 profiled steps.
-    w = state["widest_bench"]
-    trainers = {"kernels": make_trainer(w["cfg"], w["ds"], DEV),
-                "plain": make_trainer(w["cfg"].with_overrides(PLAIN_OVERRIDES), w["ds"], DEV)}
-    out["widest_bench_train_step"] = step_timing("the widest bench path (smoke at D = H = 2048)", trainers, w["tree"],
-                                                 WIDEST_TIME_CHUNK, gpu, profiled=2)
+    # The widest paths' steps (the bench workload and config #4 at D = H =
+    # 2048), over WIDEST_TIME_CHUNK-step chunks and 2 profiled steps.
+    for tag, (config, _) in WIDER_PATHS.items():
+        w = state[f"widest_{tag}"]
+        trainers = {"kernels": make_trainer(w["cfg"], w["ds"], DEV),
+                    "plain": make_trainer(w["cfg"].with_overrides(PLAIN_OVERRIDES), w["ds"], DEV)}
+        out[f"widest_{tag}_train_step"] = step_timing(f"the widest {tag} path ({config} at D = H = 2048)", trainers,
+                                                      w["tree"], WIDEST_TIME_CHUNK, gpu, profiled=2)
     return out
 
 
@@ -3805,6 +3861,10 @@ q5, e5, b5, ids5, tgt5, lse5, g5 = cs.sampled_case(8192, 1024, 512, 36969, gen)
 # B7/B8 at D = 1024 on config #3's rows, the widest both checkouts take.
 kq, kt = (0.3 * torch.randn(n, 1024, generator=gen, device="cuda") for n in (2048, 36969))
 kb = torch.randn(36969, generator=gen, device="cuda")
+# B9/B10 at D = 1024 on config #4's rows (K-chunked) and at 768 on a ragged
+# padded pool with accidental hits (split ranges), the widest both take.
+qk, ek, bk, idk, tgk, lsk, gk = cs.sampled_case(8192, 1024, 1024, 36969, gen)
+qr, er, br, idr, tgr, lsr, gr = cs.sampled_case(777, 300, 768, 400, gen, 33)
 # B11 at its main paths' widths up to 1024: serving config #1 (D = 64, the
 # padded 8,192 catalog, k = 128 and 10 at batch 256 and 1), the bench eval
 # sweep (D = 128, 45,056, batch 32), config #5's width on a small catalog
@@ -3844,10 +3904,13 @@ calls = {**{f"ce_lse_variant_{v}": variant(v) for v in ("base", "exp2", "nomax")
                      cs.RNN_BWD_KERNELS),
          "lstm_fwd": (lambda: (*fused_lstm_scan(lx, lmask, lw), *fused_lstm_scan(lx5, lmask5, lw5)),
                       cs.LSTM_FWD_KERNELS),
-         "sampled_lse": (lambda: (sampled_lse(q, e, b, ids, tgt), sampled_lse(q5, e5, b5, ids5, tgt5)),
+         "sampled_lse": (lambda: (sampled_lse(q, e, b, ids, tgt), sampled_lse(q5, e5, b5, ids5, tgt5),
+                                  sampled_lse(qk, ek, bk, idk, tgk), sampled_lse(qr, er, br, idr, tgr)),
                          cs.SAMPLED_LSE_KERNELS),
          "sampled_bwd": (lambda: (*sampled_bwd(q, e, b, ids, tgt, lse_tot, g),
-                                  *sampled_bwd(q5, e5, b5, ids5, tgt5, lse5, g5)), cs.SAMPLED_BWD_KERNELS),
+                                  *sampled_bwd(q5, e5, b5, ids5, tgt5, lse5, g5),
+                                  *sampled_bwd(qk, ek, bk, idk, tgk, lsk, gk),
+                                  *sampled_bwd(qr, er, br, idr, tgr, lsr, gr)), cs.SAMPLED_BWD_KERNELS),
          "gru_bwd": (lambda: (*fused_gru_bwd(xw, wh, gh, gdh), *fused_gru_bwd(xw6, wh6, gh6, gdh6),
                               *(o for (a, w), h, d in zip(gw, gwh, gwd) for o in fused_gru_bwd(a, w, h, d))),
                      cs.GRU_BWD_KERNELS),
@@ -4893,6 +4956,7 @@ def main() -> int:
     ce_wider = phase("ce_wider", ce_wider_phase)
     ce_widest = phase("ce_widest", ce_widest_phase)
     sampled = phase("sampled", sampled_phase)
+    sampled_widest = phase("sampled_widest", sampled_widest_phase)
     lstm = phase("lstm", lstm_phase)
     rnn = phase("rnn", rnn_phase)
     lstm_wide = phase("lstm_wide", lstm_wide_phase)
@@ -4913,6 +4977,7 @@ def main() -> int:
     phase("wider_bench_path", wider_path_phase, state, "bench")
     phase("wider_c4_path", wider_path_phase, state, "c4")
     phase("widest_bench_path", wider_path_phase, state, "bench", WIDEST_SETS, WIDEST_CLI_STEPS, "widest")
+    phase("widest_c4_path", wider_path_phase, state, "c4", WIDEST_SETS, WIDEST_CLI_STEPS, "widest")
     phase("host_loader", host_loader_phase, state)
     mesh = phase("mesh", mesh_phase, state, gpu)
     phase("cli_train", cli_train_phase, state)
@@ -4921,7 +4986,8 @@ def main() -> int:
     times.update(phase("train_timing", train_timing_phase, state, gpu))
     times.update(phase("config_timing", config_timing_phase, state, gpu))
     phase("recurrence_device", recurrence_device_phase, times, big, lstm, gpu, wide)
-    phase("pool_recurrence_device", pool_recurrence_device_phase, sampled, lstm, rnn, gpu, lstm_wide, rnn_wide)
+    phase("pool_recurrence_device", pool_recurrence_device_phase, {**sampled, **sampled_widest}, lstm, rnn, gpu,
+          lstm_wide, rnn_wide)
     phase("ce_variants_device", ce_variants_device_phase, variants, gpu)
     phase("host_loader_device", host_loader_device_phase, state, gpu)
     phase("config5_timing", config5_timing_phase, state, gpu)
@@ -4985,6 +5051,10 @@ def main() -> int:
     # evaluations (its eval sweep's shape, topk_eval_d2048).
     wst = state["widest_bench"]["launches"]
     d256.update({"bench_d2048": wst, "config3_d1280": {"ce_lse": 0, "ce_bwd": 0}})
+    # B9/B10 past 1024: config #4's shape at D = 2048 with the widest config
+    # #4 path's launches (its train CLI at 5 steps, GRU H = 2048); config
+    # #5's rows at 1280 have no main path.
+    wsc4 = state["widest_c4"]["launches"]
     h256 = lambda d: {f"{k}_h256": big[d][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}  # noqa: E731
     fwd_at = lambda t: {f: t[f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}  # noqa: E731
     kernels = [
@@ -5056,19 +5126,24 @@ def main() -> int:
                sampled["lse_err"], sampled["lse"],
                **{k: sampled["lse"][k] for k in ("device_ms", *(f"{n}_ms" for n in SAMPLED_LSE_KERNELS))},
                d512={**at5(sampled["lse_d512"], c5["sampled_lse"]), "max_abs_err": sampled["lse_err_d512"]},
-               **{f"d{w}": {**at5(sampled[f"lse_d{w}"], n), "bound_kernel_ms": sampled[f"lse_d{w}"]["bound_kernel_ms"],
-                            "max_abs_err": sampled[f"lse_err_d{w}"],
-                            **{f"{k}_ms": sampled[f"lse_d{w}"][f"{k}_ms"] for k in SAMPLED_LSE_KC_KERNELS}}
-                  for w, n in ((1024, wc4["sampled_lse"]), (768, 0))}),
+               **{f"d{w}": {**at5(src[f"lse_d{w}"], n), "bound_kernel_ms": src[f"lse_d{w}"]["bound_kernel_ms"],
+                            "max_abs_err": src[f"lse_err_d{w}"],
+                            **{f"{k}_ms": src[f"lse_d{w}"][f"{k}_ms"] for k in SAMPLED_LSE_KC_KERNELS}}
+                  for w, n, src in ((1024, wc4["sampled_lse"], sampled), (768, 0, sampled),
+                                    (2048, wsc4["sampled_lse"], sampled_widest), (1280, 0, sampled_widest))},
+               max_abs_err_past_1024=sampled_widest["lse_err"]),
         record("sampled_bwd", "sampled.cu", "poi_tpu/ops/fused_sampled.py:103", attn["sampled_bwd"],
                sampled["grad_err"], sampled["bwd"],
                **{k: sampled["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in SAMPLED_BWD_KERNELS))},
                d512={**at5(sampled["bwd_d512"], c5["sampled_bwd"]), "max_abs_err": sampled["grad_err_d512"],
                      **{f"{n}_ms": sampled["bwd_d512"][f"{n}_ms"] for n in SAMPLED_BWD_KERNELS}},
-               **{f"d{w}": {**at5(sampled[f"bwd_d{w}"], n), "bound_kernel_ms": sampled[f"bwd_d{w}"]["bound_kernel_ms"],
-                            "max_abs_err": sampled[f"grad_err_d{w}"], "bound_ratios": sampled["b10_ratios_max"][w],
-                            **{f"{k}_ms": sampled[f"bwd_d{w}"][f"{k}_ms"] for k in SAMPLED_BWD_KERNELS}}
-                  for w, n in ((1024, wc4["sampled_bwd"]), (768, 0))}),
+               **{f"d{w}": {**at5(src[f"bwd_d{w}"], n), "bound_kernel_ms": src[f"bwd_d{w}"]["bound_kernel_ms"],
+                            "max_abs_err": src[f"grad_err_d{w}"], "bound_ratios": src["b10_ratios_max"][w],
+                            **{f"{k}_ms": src[f"bwd_d{w}"][f"{k}_ms"] for k in SAMPLED_BWD_KERNELS}}
+                  for w, n, src in ((1024, wc4["sampled_bwd"], sampled), (768, 0, sampled),
+                                    (2048, wsc4["sampled_bwd"], sampled_widest), (1280, 0, sampled_widest))},
+               max_abs_err_past_1024=sampled_widest["grad_err"],
+               bound_ratios_past_1024=sampled_widest["b10_ratios_max"]),
         record("topk", "topk.cu", "poi_tpu/ops/topk.py:58", served["topk"], topk_err, times["topk"],
                device_ms=times["topk"]["device_ms"], library_device_ms=times["topk"]["library_device_ms"],
                **{case: {f: times[case][f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
@@ -5076,7 +5151,8 @@ def main() -> int:
                   for case in ("topk_k10", "topk_b1", "topk_b1_k10", "topk_eval", "topk_eval256", "topk_c4",
                                "topk_serve70k", "topk_serve70k_b1", "topk_eval_d1024", "topk_eval_d2048",
                                "topk_serve_d2048_b1", "topk_serve_d2048", "topk_d4096")},
-               wider_launches={"bench": wb["topk"], "c4": wc4["topk"], "widest_bench": wst["topk"]},
+               wider_launches={"bench": wb["topk"], "c4": wc4["topk"], "widest_bench": wst["topk"],
+                               "widest_c4": wsc4["topk"]},
                config5={**at5(times["topk_c5"], c5_eval["topk"]),
                         "library_device_ms": times["topk_c5"]["library_device_ms"]}),
         record("ce_lse_variants", "ce.cu", "scripts/sweep_ce_fwd.py:30,58", sum(swept.values()),

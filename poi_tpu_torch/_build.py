@@ -82,7 +82,8 @@ _SIGNATURES = {
     "poi_cuda_error_string": [_I],
 }
 # Entry points that return another type than int.
-_RESTYPES = {"poi_cuda_error_string": ctypes.c_char_p, "ce_bwd_scratch": ctypes.c_longlong}
+_RESTYPES = {"poi_cuda_error_string": ctypes.c_char_p, "ce_bwd_scratch": ctypes.c_longlong,
+             "sampled_bwd_scratch": ctypes.c_longlong}
 
 
 def _nvcc() -> str:

@@ -1,5 +1,6 @@
 // K-chunked streaming for the loss kernels past D = 512: B7 and B8 (ce.cu,
-// ce_bwd.cu), B9 and B10 (sampled.cu) at D = 768 and 1024.
+// ce_bwd.cu), B9 and B10 (sampled.cu) at D = 768 and 1024, and all four at
+// any multiple of 256 past 1024 (the kcs_ functions at the end).
 //
 // Why: up to D = 512 a block holds its 64 resident rows and whole 64-row
 // streamed tiles in shared memory. At D = 1024 each is 128 KB, and a block
@@ -35,8 +36,8 @@
 // Every output element is summed by one thread in one fixed order, with no
 // atomics: a run gives the same bits every time.
 //
-// Past D = 1024 (B7 and B8 at any multiple of 256 the wrappers pad to: the
-// kcs_ functions at the end). The 64 resident rows no longer fit whole
+// Past D = 1024 (B7, B8, B9 and B10 at any multiple of 256 the wrappers pad
+// to: the kcs_ functions at the end). The 64 resident rows no longer fit whole
 // beside the ring (160 KB at 1280, 256 KB at 2048), so they stream too:
 // each stage of the ring carries the resident rows' K-chunk c and the tile's
 // chunk c (64 KB), and the tile's logits accumulate over D / 256 chunks in

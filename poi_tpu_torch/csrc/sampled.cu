@@ -18,7 +18,7 @@
 //     (the unrounded gp). A hit gets gp = 0 exactly, and so does a padded
 //     pool entry (bias -1e30, id -1).
 //   The positive column and its gradient stay outside, as on the TPU.
-//   D is 64, 128, 256, 512, 768 or 1024.
+//   D is 64, 128, 256, 512, 768, 1024 or any multiple of 256 past 1024.
 //
 // B9, the pool LSE. What bounds it on this card: its product, 2*N*S*D
 // FLOPs (4.3 GFLOP at config #4's N = 8,192, S = 1,024, D = 256: 4.3 us at
@@ -142,6 +142,28 @@
 // every range recomputing the logits, 16*N*S*D operations at 768 and
 // 20*N*S*D at 1024 for the function's 6*N*S*D; gp and its product as
 // bwd_pass's; db, the same in every range, written by range 0.
+//
+// Past D = 1024, at any multiple of 256 (the wrapper pads any wider D to
+// one; the width a run-time argument, D = 0 in the templates). A block's 64
+// resident rows (160 KB at 1280, 256 KB at 2048) no longer fit beside the
+// ring, so they stream too: kchunk.cuh's kcs_ functions, B7/B8's past 1024.
+// B9 (sampled_lse_kc_kernel<0>): each 64 KB stage carries the query rows'
+// K-chunk and the pool tile's, the tile's biases and ids riding with its
+// last chunk, on 3 stages; the fold, split-S and the ordered merge as
+// above. The query rows are re-read from L2 for every pool tile: at config
+// #4's shape at D = 2048 (N = 8,192, S = 1,024) the 32 MB of queries are
+// read once for each of the 16 pool tiles and the 4 MB pool once for each
+// of the 128 row blocks, ~1 GB of L2 reads for the function's 3.4e10
+// operations.
+// B10 (kc_bwd_pass<0, .>, both passes): a block still sums one range of
+// 256 output columns and recomputes the logits from streamed chunks of
+// both operands; the tile's chunk z goes to the hold with the tile's
+// vectors (the dq pass's biases and ids, the dE pass's lse, g and
+// targets), and the stage that carries the resident rows' chunk z carries
+// nothing of the tile. (2 (D / 256) + 2) N S D operations a pass: 36*N*S*D
+// at 2048 for the function's 6*N*S*D. db, summed from the unrounded gp by
+// one thread in one fixed order, is written by range 0; the split rule and
+// its ordered sums as above.
 //
 // The entry points launch on the given stream, do not synchronise and
 // allocate nothing; each returns cudaGetLastError() after its launches.
@@ -408,13 +430,15 @@ __global__ void __launch_bounds__(128 * (Cons + 1), 1)
 }
 
 // D = 768 and 1024 (see the top of the file): 64 query rows a block,
-// kchunk.cuh's K-chunked stream of pool tiles.
+// kchunk.cuh's K-chunked stream of pool tiles. D = 0: any width past 1024,
+// `width` columns (a multiple of 256), the query rows streamed with the
+// pool tiles (kcs_fwd_run).
 template <int D>
 __global__ void __launch_bounds__(256, 1)
     sampled_lse_kc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap e_map,
                           const __grid_constant__ CUtensorMap b_map, const __grid_constant__ CUtensorMap id_map,
                           const int* __restrict__ tgt, float* __restrict__ lse, float* __restrict__ part, int N,
-                          int S, int tiles_per_split) {
+                          int S, int tiles_per_split, int width) {
   const int split = blockIdx.y, n_split = gridDim.y;
   const int n_tiles = (S + kLseStr - 1) / kLseStr;
   const int t0 = split * tiles_per_split, t1 = min(n_tiles, t0 + tiles_per_split);
@@ -425,14 +449,19 @@ __global__ void __launch_bounds__(256, 1)
   for (int r = 0; r < 2; ++r) rid[r] = row0 + 8 * r < N ? tgt[row0 + 8 * r] : -1;
   const CUtensorMap* const vecs[2] = {&b_map, &id_map};
   float m[2] = {kLseInit, kLseInit}, l[2] = {0.f, 0.f};
-  const bool consumer = kc_fwd_run<D, 2>(m, l, &q_map, &e_map, vecs, t0, t1,
-                                         [&](float (&s)[32], float (&mm)[2], float (&ll)[2], const float* v, int it) {
-                                           if ((it + 1) * kLseStr > S) {
-                                             pool_fold<true>(s, mm, ll, v, rid, it * kLseStr, S, t);
-                                           } else {
-                                             pool_fold<false>(s, mm, ll, v, rid, 0, 0, t);
-                                           }
-                                         });
+  auto fold = [&](float (&s)[32], float (&mm)[2], float (&ll)[2], const float* v, int it) {
+    if ((it + 1) * kLseStr > S) {
+      pool_fold<true>(s, mm, ll, v, rid, it * kLseStr, S, t);
+    } else {
+      pool_fold<false>(s, mm, ll, v, rid, 0, 0, t);
+    }
+  };
+  bool consumer;
+  if constexpr (D == 0) {
+    consumer = kcs_fwd_run<2>(m, l, &q_map, &e_map, vecs, t0, t1, width / kKc, fold);
+  } else {
+    consumer = kc_fwd_run<D, 2>(m, l, &q_map, &e_map, vecs, t0, t1, fold);
+  }
   if (consumer) pool_lse_store(m, l, lse, part, row0, N, split, n_split, t);
 }
 
@@ -465,24 +494,35 @@ int lse_splits(int N, int S, int cons, int forced, int* per) {
   return stream_splits((N + 64 * cons - 1) / (64 * cons), (S + kLseStr - 1) / kLseStr, forced, per);
 }
 
-// sampled_lse_kc_kernel at D = 768 or 1024; ranges and merge as run_lse's.
+// The shared memory of sampled_lse_kc_kernel<D>.
+template <int D>
+constexpr int lse_kc_smem() {
+  if constexpr (D == 0) {
+    return KcsFwd<2>::kSmem;
+  } else {
+    return KcFwd<D, 2>::kSmem;
+  }
+}
+
+// sampled_lse_kc_kernel at D = 768 or 1024, or at D = 0 with `width`
+// columns past 1024; ranges and merge as run_lse's.
 template <int D>
 cudaError_t run_lse_kc(const void* q, const void* e, const void* b, const void* ids, const void* tgt, void* lse,
-                       void* scratch, int N, int S, int forced, cudaStream_t s) {
+                       void* scratch, int N, int S, int width, int forced, cudaStream_t s) {
   CUtensorMap q_map, e_map, b_map, id_map;
-  if (!make_map(&q_map, q, N, D, kKcRows) || !make_map(&e_map, e, S, D, kLseStr) ||
+  if (!make_map(&q_map, q, N, width, kKcRows) || !make_map(&e_map, e, S, width, kLseStr) ||
       !make_vec_map(&b_map, static_cast<const float*>(b), S, kLseStr) ||
       !make_vec_map(&id_map, static_cast<const float*>(ids), S, kLseStr)) {
     return cudaErrorInvalidValue;
   }
   int per = 0;
   const int n_split = lse_splits(N, S, 1, forced, &per);
-  constexpr int smem = KcFwd<D, 2>::kSmem;
+  constexpr int smem = lse_kc_smem<D>();
   cudaError_t err = cudaFuncSetAttribute(sampled_lse_kc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   float* part = static_cast<float*>(scratch);
   sampled_lse_kc_kernel<D><<<dim3((N + kKcRows - 1) / kKcRows, n_split), 256, smem, s>>>(
-      q_map, e_map, b_map, id_map, static_cast<const int*>(tgt), static_cast<float*>(lse), part, N, S, per);
+      q_map, e_map, b_map, id_map, static_cast<const int*>(tgt), static_cast<float*>(lse), part, N, S, per, width);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   sampled_lse_merge<<<(N + 255) / 256, 256, 0, s>>>(part, static_cast<float*>(lse), N, n_split);
@@ -535,8 +575,10 @@ constexpr int kKPerChunk = kSw / 32;  // k16 steps a chunk
 // 256 registers, so a block sums one half of the columns (gridDim.z = 2,
 // each half recomputing the logits), and the resident rows (64 KB a
 // warpgroup) and the tiles (64 KB each) leave room for one consumer
-// warpgroup (64 rows) and a ring of 2.
-__host__ __device__ constexpr int bwd_cons(int D) { return D >= 512 ? 1 : 2; }
+// warpgroup (64 rows) and a ring of 2. D = 0 is the streamed pass past
+// 1024 (one consumer warpgroup), whose ranges the launch counts from its
+// run-time width.
+__host__ __device__ constexpr int bwd_cons(int D) { return D >= 512 || D == 0 ? 1 : 2; }
 __host__ __device__ constexpr int bwd_res(int D) { return 64 * bwd_cons(D); }  // resident rows a block
 __host__ __device__ constexpr int bwd_stages(int D) { return D == 512 ? 2 : 4; }
 __host__ __device__ constexpr int bwd_threads(int D) { return 128 * (bwd_cons(D) + 1); }  // + 1 producer warpgroup
@@ -552,6 +594,7 @@ __host__ __device__ constexpr int stream_vecs() {
 
 template <int D, bool kDe>
 constexpr int pass_smem_bytes() {
+  if constexpr (D == 0) return KcsBwd<stream_vecs<kDe>()>::kSmem;
   if constexpr (D > 512) return KcBwd<D, stream_vecs<kDe>()>::kSmem;
   // 1024: room to align the base; the stages' vectors; the barriers.
   constexpr int ST = bwd_stages(D);
@@ -785,16 +828,17 @@ __device__ __forceinline__ void bwd_pass(const CUtensorMap* res_map, const CUten
   }
 }
 
-// One pass at D = 768 or 1024 (kchunk.cuh's K-chunked backward): a block
-// sums the 256 output columns of range blockIdx.z, gp and its product as
-// bwd_pass's; arguments as bwd_pass's. db, the same in every range, is
-// written by range 0.
+// One pass at D = 768 or 1024 (kchunk.cuh's K-chunked backward), or at D =
+// 0 with `width` columns past 1024 (its streamed backward): a block sums the
+// 256 output columns of range blockIdx.z, gp and its product as bwd_pass's;
+// arguments as bwd_pass's. db, the same in every range, is written by range
+// 0.
 template <int D, bool kDe>
 __device__ __forceinline__ void kc_bwd_pass(const CUtensorMap* res_map, const CUtensorMap* str_map,
                                             const CUtensorMap* vec_maps, const float* __restrict__ row_a,
                                             const float* __restrict__ row_b, const int* __restrict__ row_id,
                                             float* __restrict__ out, float* __restrict__ db_out, int n_res, int n_str,
-                                            int tiles_per_split) {
+                                            int tiles_per_split, int width) {
   const int split = blockIdx.y, col0 = blockIdx.z * kKc;
   const int n_tiles = (n_str + kStr - 1) / kStr;
   const int t0 = split * tiles_per_split, t1 = min(n_tiles, t0 + tiles_per_split);
@@ -813,14 +857,20 @@ __device__ __forceinline__ void kc_bwd_pass(const CUtensorMap* res_map, const CU
   const CUtensorMap* const vecs[3] = {&vec_maps[0], &vec_maps[1], &vec_maps[2]};
   float acc[2][64];
   float db[2] = {0.f, 0.f};
-  const bool consumer = kc_bwd_run<D, stream_vecs<kDe>()>(
-      acc, res_map, str_map, vecs, t0, t1, [&](float (&s)[32], const float* vec, int it, uint32_t hold) {
-        tile_gp<kDe>(s, db, vec, it * kStr, n_str, ok, ra, rb, rid, t);
-        gp_product<kKc>(acc, s, hold);
-      });
+  auto tile = [&](float (&s)[32], const float* vec, int it, uint32_t hold) {
+    tile_gp<kDe>(s, db, vec, it * kStr, n_str, ok, ra, rb, rid, t);
+    gp_product<kKc>(acc, s, hold);
+  };
+  bool consumer;
+  if constexpr (D == 0) {
+    consumer = kcs_bwd_run<stream_vecs<kDe>()>(acc, res_map, str_map, vecs, t0, t1, width / kKc, tile);
+  } else {
+    consumer = kc_bwd_run<D, stream_vecs<kDe>()>(acc, res_map, str_map, vecs, t0, t1, tile);
+  }
   if (!consumer) return;
 
-  float* dst0 = out + (size_t)split * n_res * D;
+  const int W = D == 0 ? width : D;
+  float* dst0 = out + (size_t)split * n_res * W;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if constexpr (kDe) {
@@ -829,7 +879,7 @@ __device__ __forceinline__ void kc_bwd_pass(const CUtensorMap* res_map, const CU
       if (ok[r] && t == 0 && col0 == 0) db_out[(size_t)split * n_res + row[r]] = db[r];
     }
     if (!ok[r]) continue;
-    float* dst = dst0 + (size_t)row[r] * D + col0 + 2 * t;
+    float* dst = dst0 + (size_t)row[r] * W + col0 + 2 * t;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
 #pragma unroll
@@ -841,8 +891,9 @@ __device__ __forceinline__ void kc_bwd_pass(const CUtensorMap* res_map, const CU
 }
 
 // The two passes as kernels of their own names (the profiler tells them
-// apart): bwd_pass up to D = 512, kc_bwd_pass above. vec_maps: the streamed
-// vectors' tensor maps, in stream_vecs' order.
+// apart): bwd_pass up to D = 512, kc_bwd_pass above and at D = 0 (`width`
+// columns past 1024; the other widths ignore `width`). vec_maps: the
+// streamed vectors' tensor maps, in stream_vecs' order.
 struct VecMaps {
   CUtensorMap m[3];
 };
@@ -851,9 +902,10 @@ template <int D>
 __global__ void __launch_bounds__(bwd_threads(D), 1)
     sampled_dq_pass(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap e_map,
                     const __grid_constant__ VecMaps vecs, const float* __restrict__ lse, const float* __restrict__ g,
-                    const int* __restrict__ tgt, float* __restrict__ dq, int N, int S, int tiles_per_split) {
-  if constexpr (D > 512) {
-    kc_bwd_pass<D, false>(&q_map, &e_map, vecs.m, lse, g, tgt, dq, nullptr, N, S, tiles_per_split);
+                    const int* __restrict__ tgt, float* __restrict__ dq, int N, int S, int tiles_per_split,
+                    int width) {
+  if constexpr (D == 0 || D > 512) {
+    kc_bwd_pass<D, false>(&q_map, &e_map, vecs.m, lse, g, tgt, dq, nullptr, N, S, tiles_per_split, width);
   } else {
     bwd_pass<D, false>(&q_map, &e_map, vecs.m, lse, g, tgt, dq, nullptr, N, S, tiles_per_split);
   }
@@ -863,9 +915,9 @@ template <int D>
 __global__ void __launch_bounds__(bwd_threads(D), 1)
     sampled_de_pass(const __grid_constant__ CUtensorMap e_map, const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ VecMaps vecs, const float* __restrict__ b, const int* __restrict__ ids,
-                    float* __restrict__ de, float* __restrict__ db, int S, int N, int tiles_per_split) {
-  if constexpr (D > 512) {
-    kc_bwd_pass<D, true>(&e_map, &q_map, vecs.m, b, nullptr, ids, de, db, S, N, tiles_per_split);
+                    float* __restrict__ de, float* __restrict__ db, int S, int N, int tiles_per_split, int width) {
+  if constexpr (D == 0 || D > 512) {
+    kc_bwd_pass<D, true>(&e_map, &q_map, vecs.m, b, nullptr, ids, de, db, S, N, tiles_per_split, width);
   } else {
     bwd_pass<D, true>(&e_map, &q_map, vecs.m, b, nullptr, ids, de, db, S, N, tiles_per_split);
   }
@@ -885,16 +937,20 @@ long long pass_scratch(int n_res, int n_str, int D, bool de, int forced) {
   return S > 1 ? (long long)S * n_res * (D + (de ? 1 : 0)) : 0;
 }
 
+// Both passes at width `width`: D itself, or any multiple of 256 past 1024
+// at D = 0.
 template <int D>
 cudaError_t run_bwd(const void* q, const void* e, const void* b, const void* ids, const void* tgt, const void* lse,
-                    const void* g, void* dq, void* de, void* db, void* scratch, int N, int S, int dq_forced,
+                    const void* g, void* dq, void* de, void* db, void* scratch, int N, int S, int width, int dq_forced,
                     int de_forced, cudaStream_t s) {
   CUtensorMap q_res, q_str, e_res, e_str;
   VecMaps pool_vecs, query_vecs;  // the dq pass's streamed bias, ids; the dE pass's lse, g, tgt
   // The int32 ids and targets travel as 4-byte elements under an fp32 map (TMA copies bits).
-  constexpr int Res = bwd_res(D), H = bwd_halves(D);
-  if (!make_map(&q_res, q, N, D, Res) || !make_map(&q_str, q, N, D, kStr) || !make_map(&e_res, e, S, D, Res) ||
-      !make_map(&e_str, e, S, D, kStr) || !make_vec_map(&pool_vecs.m[0], static_cast<const float*>(b), S, kStr) ||
+  constexpr int Res = bwd_res(D);
+  const int H = bwd_halves(width);
+  if (!make_map(&q_res, q, N, width, Res) || !make_map(&q_str, q, N, width, kStr) ||
+      !make_map(&e_res, e, S, width, Res) || !make_map(&e_str, e, S, width, kStr) ||
+      !make_vec_map(&pool_vecs.m[0], static_cast<const float*>(b), S, kStr) ||
       !make_vec_map(&pool_vecs.m[1], static_cast<const float*>(ids), S, kStr) ||
       !make_vec_map(&query_vecs.m[0], static_cast<const float*>(lse), N, kStr) ||
       !make_vec_map(&query_vecs.m[1], static_cast<const float*>(g), N, kStr) ||
@@ -911,43 +967,46 @@ cudaError_t run_bwd(const void* q, const void* e, const void* b, const void* ids
 
   // dq: resident queries, streamed pool.
   int per = 0;
-  int splits = pass_splits(N, S, D, dq_forced, &per);
+  int splits = pass_splits(N, S, width, dq_forced, &per);
   constexpr int dq_smem = pass_smem_bytes<D, false>();
   cudaError_t err = cudaFuncSetAttribute(sampled_dq_pass<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
   if (err != cudaSuccess) return err;
   float* o = splits > 1 ? sc : static_cast<float*>(dq);
-  sampled_dq_pass<D><<<dim3((N + Res - 1) / Res, splits, H), bwd_threads(D), dq_smem, s>>>(q_res, e_str, pool_vecs, l,
-                                                                                             gg, ti, o, N, S, per);
+  sampled_dq_pass<D><<<dim3((N + Res - 1) / Res, splits, H), bwd_threads(D), dq_smem, s>>>(
+      q_res, e_str, pool_vecs, l, gg, ti, o, N, S, per, width);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (splits > 1) {
-    sum_splits<<<2 * kSms, 256, 0, s>>>(o, static_cast<float*>(dq), (long long)N * D, splits);
+    sum_splits<<<2 * kSms, 256, 0, s>>>(o, static_cast<float*>(dq), (long long)N * width, splits);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  sc += pass_scratch(N, S, D, false, dq_forced);
+  sc += pass_scratch(N, S, width, false, dq_forced);
 
   // dE and db: resident pool rows, streamed queries.
-  splits = pass_splits(S, N, D, de_forced, &per);
+  splits = pass_splits(S, N, width, de_forced, &per);
   constexpr int de_smem = pass_smem_bytes<D, true>();
   err = cudaFuncSetAttribute(sampled_de_pass<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, de_smem);
   if (err != cudaSuccess) return err;
   o = splits > 1 ? sc : static_cast<float*>(de);
-  float* ob = splits > 1 ? sc + (size_t)splits * S * D : static_cast<float*>(db);
-  sampled_de_pass<D><<<dim3((S + Res - 1) / Res, splits, H), bwd_threads(D), de_smem, s>>>(e_res, q_str, query_vecs,
-                                                                                             bb, ii, o, ob, S, N, per);
+  float* ob = splits > 1 ? sc + (size_t)splits * S * width : static_cast<float*>(db);
+  sampled_de_pass<D><<<dim3((S + Res - 1) / Res, splits, H), bwd_threads(D), de_smem, s>>>(
+      e_res, q_str, query_vecs, bb, ii, o, ob, S, N, per, width);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  sum_splits<<<2 * kSms, 256, 0, s>>>(o, static_cast<float*>(de), (long long)S * D, splits);
+  sum_splits<<<2 * kSms, 256, 0, s>>>(o, static_cast<float*>(de), (long long)S * width, splits);
   sum_splits<<<2 * kSms, 256, 0, s>>>(ob, static_cast<float*>(db), S, splits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The widths the kernels are built for; the wrapper checks D against it.
+// The widths the kernels are built for: a list up to 1024, then every
+// multiple of 256 (the streamed kernels, D = 0 in their templates). The
+// wrapper pads any D <= 1024 with zero columns to the next of the list, and
+// any wider D to the next multiple of 256 (ops/fused_sampled.py kernel_dim).
 extern "C" int sampled_supports_dim(int D) {
-  return D == 64 || D == 128 || D == 256 || D == 512 || D == 768 || D == 1024;
+  return D == 64 || D == 128 || D == 256 || D == 512 || D == 768 || D == 1024 || (D > 1024 && D % kKc == 0);
 }
 
 // The shape of the kernels' blocks at a width they are built for, as
@@ -957,12 +1016,19 @@ extern "C" int sampled_supports_dim(int D) {
 // column ranges (gridDim.z) and the columns a chunk. ops/fused_sampled.py's
 // plan mirrors it. Returns 0 for a width they are not built for.
 extern "C" int sampled_plan(int D, int* out) {
+  static_assert(KcsBwd<2>::kStages == KcsBwd<3>::kStages, "the streamed passes' rings differ");
   if (!sampled_supports_dim(D)) return 0;
   out[0] = 64 * lse_cons(D);
-  out[1] = D == 768 ? KcFwd<768, 2>::kStages : D == 1024 ? KcFwd<1024, 2>::kStages : lse_stages(D);
+  out[1] = D > 1024   ? KcsFwd<2>::kStages
+           : D == 768  ? KcFwd<768, 2>::kStages
+           : D == 1024 ? KcFwd<1024, 2>::kStages
+                       : lse_stages(D);
   out[2] = D > 512 ? kKc : D;
   out[3] = bwd_res(D);
-  out[4] = D == 768 ? KcBwd<768, 3>::kStages : D == 1024 ? KcBwd<1024, 3>::kStages : bwd_stages(D);
+  out[4] = D > 1024   ? KcsBwd<3>::kStages
+           : D == 768  ? KcBwd<768, 3>::kStages
+           : D == 1024 ? KcBwd<1024, 3>::kStages
+                       : bwd_stages(D);
   out[5] = bwd_halves(D);
   out[6] = out[2];
   return 1;
@@ -970,9 +1036,9 @@ extern "C" int sampled_plan(int D, int* out) {
 
 // Floats of scratch sampled_bwd needs for split partials (0: pass any
 // pointer). dq_splits / de_splits: as for sampled_bwd.
-extern "C" int sampled_bwd_scratch(int N, int S, int D, int dq_splits, int de_splits) {
+extern "C" long long sampled_bwd_scratch(int N, int S, int D, int dq_splits, int de_splits) {
   if (N <= 0 || S <= 0 || !sampled_supports_dim(D)) return 0;
-  return static_cast<int>(pass_scratch(N, S, D, false, dq_splits) + pass_scratch(S, N, D, true, de_splits));
+  return pass_scratch(N, S, D, false, dq_splits) + pass_scratch(S, N, D, true, de_splits);
 }
 
 // Floats of scratch sampled_lse needs for its ranges' partial sums (0 when
@@ -999,9 +1065,10 @@ extern "C" int sampled_lse(const void* q, const void* e, const void* b, const vo
     case 64: return run_lse<64, lse_cons(64)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
     case 128: return run_lse<128, lse_cons(128)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
     case 256: return run_lse<256, lse_cons(256)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
-    case 768: return run_lse_kc<768>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
-    case 1024: return run_lse_kc<1024>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
-    default: return run_lse<512, lse_cons(512)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
+    case 512: return run_lse<512, lse_cons(512)>(q, e, b, ids, tgt, lse, scratch, N, S, splits, s);
+    case 768: return run_lse_kc<768>(q, e, b, ids, tgt, lse, scratch, N, S, D, splits, s);
+    case 1024: return run_lse_kc<1024>(q, e, b, ids, tgt, lse, scratch, N, S, D, splits, s);
+    default: return run_lse_kc<0>(q, e, b, ids, tgt, lse, scratch, N, S, D, splits, s);
   }
 }
 
@@ -1017,11 +1084,12 @@ extern "C" int sampled_bwd(const void* q, const void* e, const void* b, const vo
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return run_bwd<64>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
-    case 128: return run_bwd<128>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
-    case 256: return run_bwd<256>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
-    case 768: return run_bwd<768>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
-    case 1024: return run_bwd<1024>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
-    default: return run_bwd<512>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, dq_splits, de_splits, s);
+    case 64: return run_bwd<64>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, D, dq_splits, de_splits, s);
+    case 128: return run_bwd<128>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, D, dq_splits, de_splits, s);
+    case 256: return run_bwd<256>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, D, dq_splits, de_splits, s);
+    case 512: return run_bwd<512>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, D, dq_splits, de_splits, s);
+    case 768: return run_bwd<768>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, D, dq_splits, de_splits, s);
+    case 1024: return run_bwd<1024>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, D, dq_splits, de_splits, s);
+    default: return run_bwd<0>(q, e, b, ids, tgt, lse, g, dq, de, db, scratch, N, S, D, dq_splits, de_splits, s);
   }
 }

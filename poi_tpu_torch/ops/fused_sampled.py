@@ -16,13 +16,15 @@ TPU kernels':
   ``db_neg = colsum(gp)`` from the unrounded ``gp``. The positive column's
   gradient ``ds_pos = g · (exp(s_pos - lse_tot) - 1)`` stays outside.
 
-The kernels are built for ``KERNEL_DIMS``; on CUDA tensors the wrappers pad
-any ``D <= 1024`` with zero columns to the next of them (``widths.padded_dim``:
-config #5's 384-wide variants run at 512) and drop the padded columns of
-``dq`` and ``de_neg``. Zero columns add nothing to ``q · e_negᵀ``. At 768
-and 1024 both kernels stream the pool in K-chunks of 256 columns
-(``csrc/kchunk.cuh``); ``plan`` gives each width's block shape, as
-``sampled_plan`` in ``csrc/sampled.cu`` does.
+The kernels are built for ``KERNEL_DIMS`` and, past ``MAX_DIM``, for every
+multiple of 256; on CUDA tensors the wrappers pad any ``D`` with zero columns
+to the next of them (``kernel_dim``: config #5's 384-wide variants run at
+512, 1100 at 1280) and drop the padded columns of ``dq`` and ``de_neg``.
+Zero columns add nothing to ``q · e_negᵀ``. At 768 and 1024 both kernels
+stream the pool in K-chunks of 256 columns (``csrc/kchunk.cuh``); past 1024
+the 64 resident rows stream in the same chunks beside the pool's
+(``kcs_fwd_run``, ``kcs_bwd_run``), at any width. ``plan`` gives each
+width's block shape, as ``sampled_plan`` in ``csrc/sampled.cu`` does.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ import torch
 
 from poi_tpu_torch import _build
 from poi_tpu_torch.models.base import gather_rows
-from poi_tpu_torch.ops.widths import KCHUNK, kchunk_bwd_stages, kchunk_fwd_stages, pad_cols, padded_dim
+from poi_tpu_torch.ops.widths import (KCHUNK, kchunk_bwd_stages, kchunk_fwd_stages, kchunk_stream_bwd_stages,
+                                     kchunk_stream_fwd_stages, pad_cols, padded_dim)
 
 NEG = -1e30
 
@@ -67,19 +70,32 @@ def sampled_bwd_reference(q, e_neg, b_neg, neg_ids, targets, lse_tot, g):
     return gpb @ _bf16(e_neg), gpb.T @ _bf16(q), gp.sum(dim=0)
 
 
-# The widths the kernels are built for (``sampled_supports_dim`` in
-# ``csrc/sampled.cu`` says the same).
+# The widths the kernels are built for up to MAX_DIM (``sampled_supports_dim``
+# in ``csrc/sampled.cu`` says the same, and takes every multiple of 256 past
+# it).
 KERNEL_DIMS = (64, 128, 256, 512, 768, 1024)
+MAX_DIM = KERNEL_DIMS[-1]
+
+
+def kernel_dim(D: int, name: str = "sampled") -> int:
+    """The width the kernels run ``D`` at: the next of ``KERNEL_DIMS``, or
+    past ``MAX_DIM`` the next multiple of 256."""
+    return padded_dim(D, KERNEL_DIMS, name, chunked=True)
 
 
 def plan(D: int) -> tuple[int, ...]:
-    """The kernels' blocks at width ``D`` (run at ``padded_dim(D)``), as
+    """The kernels' blocks at width ``D`` (run at ``kernel_dim(D)``), as
     ``sampled_plan`` in ``csrc/sampled.cu`` gives them: B9's (query rows a
     block, ring stages, columns a streamed chunk), then B10's (resident rows
     a block, the dE pass's ring stages, output column ranges, columns a
     chunk). Up to 512 a tile arrives whole; past it in chunks of 256, and a
-    B10 block sums one range of 256 output columns."""
-    Dp = padded_dim(D, KERNEL_DIMS, "sampled_lse")
+    B10 block sums one range of 256 output columns; past 1024 the resident
+    rows' chunks ride each stage beside the tile's (B9: the tile's biases
+    and ids with its last chunk; B10: the dE pass's three vectors in the
+    hold)."""
+    Dp = kernel_dim(D, "sampled_lse")
+    if Dp > MAX_DIM:
+        return 64, kchunk_stream_fwd_stages(2), KCHUNK, 64, kchunk_stream_bwd_stages(3), Dp // KCHUNK, KCHUNK
     if Dp > 512:
         return 64, kchunk_fwd_stages(Dp, 2), KCHUNK, 64, kchunk_bwd_stages(Dp, 3), Dp // KCHUNK, KCHUNK
     if Dp == 512:
@@ -96,7 +112,6 @@ def _check(name: str, tensors: dict[str, torch.Tensor]) -> bool:
         return True
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}; need all on one CUDA device")
-    padded_dim(tensors["q"].shape[1], KERNEL_DIMS, name)
     return False
 
 
@@ -141,7 +156,7 @@ def sampled_lse(q, e_neg, b_neg, neg_ids, targets) -> torch.Tensor:
     if N == 0:
         return lse
     lib = _build.library()
-    D = padded_dim(D, KERNEL_DIMS, "sampled_lse")
+    D = kernel_dim(D, "sampled_lse")
     args = _kernel_args(q, e_neg, b_neg, neg_ids, targets, D)
     # Scratch for the pool ranges' partial sums; 0: the split rule.
     scratch = torch.empty(max(1, lib.sampled_lse_scratch(N, S, D, 0)), dtype=torch.float32, device=dev)
@@ -169,7 +184,7 @@ def sampled_bwd(q, e_neg, b_neg, neg_ids, targets, lse_tot, g):
                               "lse_tot": lse_tot, "g": g}):
         return sampled_bwd_reference(q, e_neg, b_neg, neg_ids, targets, lse_tot, g)
     dev = q.device
-    Dp = padded_dim(D, KERNEL_DIMS, "sampled_bwd")
+    Dp = kernel_dim(D, "sampled_bwd")
     dq = torch.empty(N, Dp, dtype=torch.float32, device=dev)
     de = torch.empty(S, Dp, dtype=torch.float32, device=dev)
     db = torch.empty(S, dtype=torch.float32, device=dev)

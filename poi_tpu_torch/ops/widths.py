@@ -6,10 +6,10 @@ A wrapper pads its inputs' last dimension with zero columns to
 ``padded_dim(D, its kernels' widths)``. Zero columns add nothing to a row
 product ``q · eᵀ``, and the gradient columns past ``D`` are dropped, so the
 result is the function at ``D``. Past the last width, the kernels that
-stream every operand in K-chunks (B7, B8, B11) take any multiple of
+stream every operand in K-chunks (B7, B8, B9, B10, B11) take any multiple of
 ``KCHUNK``: ``padded_dim(..., chunked=True)`` pads to the next one
-(``chunked_dim``, at most 1.25× past 1024), and the others raise. Pure
-Python, so the CPU tests hold the dispatch the card runs.
+(``chunked_dim``, at most 1.25× past 1024); without ``chunked`` it raises.
+Pure Python, so the CPU tests hold the dispatch the card runs.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ def pad_cols(x: torch.Tensor, width: int) -> torch.Tensor:
 # csrc/kchunk.cuh: the loss kernels past D = 512 stream a 64-row tile as
 # K-chunks of KCHUNK columns (32 KB) through a ring of 2 to 4 stages, as many
 # as fit the shared memory a block may opt into on an H100; past D = 1024
-# (B7, B8; B11 in csrc/topk.cu) every multiple of KCHUNK.
+# (B7-B10; B11 in csrc/topk.cu) every multiple of KCHUNK.
 KCHUNK = 256
 KCHUNK_ROWS = 64
 SMEM_OPT_IN = 232448

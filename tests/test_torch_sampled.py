@@ -126,13 +126,17 @@ def test_d512_loss_matches_pallas_interpret_and_xla(num_sampled):
 def test_kernel_widths_take_d512_and_refuse_others():
     """The wrappers' width dispatch (on CUDA tensors, before any launch): the
     kernels take D = 512, config #5's, and 768 and 1024; a width they are
-    not built for is padded to the next one they are, up to 1024; a wider
-    one is refused, naming the limit."""
+    not built for is padded to the next one they are, up to 1024; past 1024
+    (refused before the streamed kernels; the name keeps that) ``kernel_dim``
+    pads to the next multiple of 256, and the list alone (``padded_dim``
+    without ``chunked``) still refuses, naming the limit."""
     assert fused_sampled.KERNEL_DIMS == (64, 128, 256, 512, 768, 1024)
     assert padded_dim(512, fused_sampled.KERNEL_DIMS, "sampled_lse") == 512
     assert [padded_dim(d, fused_sampled.KERNEL_DIMS, "sampled_lse") for d in (1, 64, 96, 200, 384, 511, 513, 640,
                                                                                768, 769, 1024)] == \
         [64, 64, 128, 256, 512, 512, 768, 768, 768, 1024, 1024]
+    assert [fused_sampled.kernel_dim(d) for d in (1, 384, 1024, 1025, 1100, 2048, 2049)] == \
+        [64, 512, 1024, 1280, 1280, 2048, 2304]
     with pytest.raises(ValueError, match="D <= 1024.*D=1025"):
         padded_dim(1025, fused_sampled.KERNEL_DIMS, "sampled_lse")
 
