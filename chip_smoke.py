@@ -108,6 +108,7 @@ possible time on the card, ``bound_ms``) and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import json
 import math
@@ -369,12 +370,13 @@ CE_THRESHOLD_CASES = ((2048, 6749, 64), (32768, 6749, 128), (32768, 44170, 128))
 # Config #4 at full width: GRU + attention 256-d, T=128, batch 64, dropout
 # 0.3, sampled softmax (S=1,024), lazy Adam, 36,969 POIs. The device sampler
 # draws its batches (configs #2 and #3 too); each config's step is timed over
-# chunks of STEP_TIME_CHUNK steps (20 before the wider paths' phases came;
-# the bench workload's over BENCH_TIME_CHUNK, 40 before).
+# chunks of STEP_TIME_CHUNK steps (10 before the widest-H path came, 20
+# before the wider paths' phases; the bench workload's over
+# BENCH_TIME_CHUNK, 20 and 40 before).
 ATTN_CONFIG = "attention_gowalla"
 SAMPLER_OVERRIDES = {"data.sampler": "device", "train.steps_per_call": str(TRAIN_STEPS)}
-STEP_TIME_CHUNK = 10
-BENCH_TIME_CHUNK = 20
+STEP_TIME_CHUNK = 5
+BENCH_TIME_CHUNK = 10
 # The ported measurement scripts, each run once (run_script): the sweeps,
 # bench_cells and bench_serve at their defaults (bench_serve also at --dim
 # 1024: B1 on the grid, B11 at D = 1024); profile_step at the bench
@@ -385,14 +387,17 @@ BENCH_TIME_CHUNK = 20
 # on config #5 (one host-loader rows step), profile_1m at its default,
 # bench_1m's training at V = 1M with the preset's lazy Adam (its top-k is
 # timed in the timing phase at V = 903,889), step_time on the bench
-# workload; tune_strnn and tune_attention at 15 steps a probe (25 before
-# A1's scripts came, 50 before the wider paths'; tune_strnn's h256 runs
+# workload; tune_strnn and tune_attention at 10 steps a probe (15 before
+# the widest-H path came, 25 before A1's scripts, 50 before the wider
+# paths'; tune_strnn's h256 runs
 # B7/B8 at D = 256), check_cell_parity (a DIVERGES line fails the run),
 # bench_eval_path, compare_embedding_modes and compare_attention_modes on 4
-# gloo ranks sharing the card, scaling_bench on 2 of them (20 steps, one
-# repeat; 60 and 3 before), host_feed one round of 15 steps (25 before A1's
-# scripts came, 50 before that); bench_variants' nine points at one window
-# each, bench_attn_step at the sparse table update alone (SCRIPT_ENV).
+# gloo ranks sharing the card, scaling_bench on 2 of them (10 steps after 5
+# of warm-up, one repeat; 20 after 10 before the widest-H path came, 60 and
+# 3 before that), host_feed one round of 10 steps (15 before the widest-H
+# path, 25 before A1's scripts came, 50 before that); bench_variants' nine
+# points at one window each, bench_attn_step at the sparse table update
+# alone (SCRIPT_ENV).
 SCRIPT_RUNS = (
     ("sweep_ce_fwd", []),
     ("sweep_ce_bwd", []),
@@ -409,14 +414,14 @@ SCRIPT_RUNS = (
     ("profile_1m", []),
     ("bench_1m", ["--skip-topk", "--table-update", "sparse"]),
     ("step_time", ["bench"]),
-    ("tune_strnn", ["15"]),
-    ("tune_attention", ["15"]),
+    ("tune_strnn", ["10"]),
+    ("tune_attention", ["10"]),
     ("check_cell_parity", []),
     ("bench_eval_path", []),
     ("compare_embedding_modes", []),
     ("compare_attention_modes", []),
-    ("scaling_bench", ["--local-processes", "2", "--steps", "20", "--repeats", "1"]),
-    ("host_feed", ["--rounds", "1", "--steps", "15"]),
+    ("scaling_bench", ["--local-processes", "2", "--steps", "10", "--warmup", "5", "--repeats", "1"]),
+    ("host_feed", ["--rounds", "1", "--steps", "10"]),
     ("bench_variants", ["1"]),
     ("bench_attn_step", []),
 )
@@ -436,11 +441,14 @@ GRU_FWD_RAGGED = ((1100, 100, 4), (7, 200, 8), (300, 45, 2))
 # config #1 at request batch 1 and 256, the bench workload, config #4.
 GRU_CLUSTER_CASES = ((1, 64, 64), (256, 64, 64), (512, 64, 128), (64, 128, 256))
 # B1 and B2 past the clusters' 640, on the grid-resident kernels (B, T, H):
-# the wide path's shape (the bench workload at H = 1024, where both are also
-# timed), 5 rows at 768, and 7 rows at 648, ragged just past 640; then the
-# pair's limit (gru_max_hidden()) on 3 rows.
+# the wide path's shape (the bench workload at H = 1024), the widest bench
+# path's (H = 2048) and the widest config #4 path's (64, 128, 2048), where
+# both are also timed (GRU_WIDE_TIMED, by the key of their times), 5 rows
+# at 768, and 7 rows at 648, ragged just past 640; then the pair's limit
+# (gru_max_hidden()) on 3 rows.
 GRU_WIDE_H1024 = (512, 64, 1024)
-GRU_WIDE_SHAPES = (GRU_WIDE_H1024, (5, 64, 768), (7, 32, 648))
+GRU_WIDE_TIMED = {GRU_WIDE_H1024: "", (512, 64, 2048): "_h2048", (64, 128, 2048): "_c4_h2048"}
+GRU_WIDE_SHAPES = (*GRU_WIDE_TIMED, (5, 64, 768), (7, 32, 648))
 # The widths and batches at which the Python dispatch (fused_gru.design,
 # grid_shape) is held to the C side's picks.
 GRU_PICK_WIDTHS = (1, 20, 64, 100, 128, 256, 512, 600, 639, 640, 641, 648, 700, 768, 1000, 1024, 1500, 2048)
@@ -449,6 +457,24 @@ GRU_PICK_BATCHES = (1, 7, 64, 512, 1100)
 # pass, grid carry, outputs and dwh.
 GRU_FWD_GRID_KERNELS = ("gru_fwd_grid_kernel",)
 GRU_BWD_GRID_KERNELS = ("gru_bwd_gates", "gru_bwd_grid_carry", "gru_bwd_outputs", "recurrent_dw")
+# B1 and B2 past the grid's 2064, on the streamed kernels (B, T, H): the
+# widest-H bench path's train shape (the bench workload at H = 4096, where
+# both are also timed and held against fp64), its serving batches 1 and 256
+# (B1 timed), config #4's batch and length at 4096 (no path: the bound at
+# small batch; timed), 24 rows at 2065 (ragged, just past the grid, B no
+# multiple of 16), and 16 rows at 8192 (more unit slices than SMs).
+GRU_STREAM_H4096 = (512, 64, 4096)
+GRU_STREAM_SHAPES = (GRU_STREAM_H4096, (1, 64, 4096), (256, 64, 4096), (64, 128, 4096), (24, 8, 2065),
+                     (16, 4, 8192))
+GRU_STREAM_TIMED = {GRU_STREAM_H4096: "", (1, 64, 4096): "_b1", (256, 64, 4096): "_b256", (64, 128, 4096): "_c4"}
+# The widths and batches at which the streamed grid's Python mirror
+# (fused_gru.stream_shape) is held to the C side's.
+GRU_STREAM_PICK_WIDTHS = (1, 100, 2064, 2065, 2070, 3000, 4096, 6000, 8192, 16384)
+GRU_STREAM_PICK_BATCHES = (1, 7, 24, 32, 64, 256, 512, 1100)
+# The kernels of B1's and B2's calls past 2064: the streamed forward; B2's
+# gates pass, streamed carry, outputs and dwh.
+GRU_FWD_STREAM_KERNELS = ("gru_fwd_stream_kernel",)
+GRU_BWD_STREAM_KERNELS = ("gru_bwd_gates", "gru_bwd_stream_carry", "gru_bwd_outputs", "recurrent_dw")
 # B2 at widths that are no multiple of 16 (B, H, blocks a row group that the
 # kernel picks for them): H = 100 on one block, at a batch whose 69 row groups
 # would not fit on the card on clusters of 2, and H = 200 on a cluster.
@@ -811,6 +837,10 @@ def parts_text(t: dict, names) -> str:
 
 def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def norm_err(got, want) -> float:
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
 def gru_bwd_phase() -> float:
@@ -1243,7 +1273,10 @@ def gru_picks() -> None:
     ``grid_shape``, pure Python) against the C side's own picks at
     ``GRU_PICK_WIDTHS`` x ``GRU_PICK_BATCHES`` and at the limit: the clusters
     take H exactly where the design says "cluster", the grid shapes agree,
-    and ``gru_max_hidden()`` is ``fused_gru.MAX_HIDDEN``."""
+    and ``gru_max_hidden()`` is ``fused_gru.MAX_HIDDEN``; past it the design
+    is "stream", and the streamed grid's mirror (``fused_gru.stream_shape``)
+    agrees with ``gru_stream_shape`` at ``GRU_STREAM_PICK_WIDTHS`` x
+    ``GRU_STREAM_PICK_BATCHES``, both directions."""
     import ctypes
 
     from poi_tpu_torch import _build
@@ -1258,17 +1291,27 @@ def gru_picks() -> None:
         cluster = H <= fused_gru.CLUSTER_MAX_HIDDEN
         assert (lib.gru_fwd_cluster_size(H) > 0) == cluster, (H, lib.gru_fwd_cluster_size(H))
         assert all((lib.gru_bwd_cluster_size(B, H) > 0) == cluster for B in GRU_PICK_BATCHES), H
-        if H <= limit:
-            assert fused_gru.design(H) == ("cluster" if cluster else "grid"), H
+        assert fused_gru.design(H) == ("cluster" if cluster else "grid" if H <= limit else "stream"), H
         for B in GRU_PICK_BATCHES:
             for bwd in (0, 1):
                 c = tuple(got) if lib.gru_grid_shape(B, H, bwd, got) else None
                 assert c == fused_gru.grid_shape(B, H, bool(bwd)), (B, H, bwd, c, fused_gru.grid_shape(B, H, bool(bwd)))
                 n += 1
+    got6 = (ctypes.c_int * 6)()
+    m = 0
+    for H in GRU_STREAM_PICK_WIDTHS:
+        for B in GRU_STREAM_PICK_BATCHES:
+            for bwd in (0, 1):
+                c = tuple(got6) if lib.gru_stream_shape(B, H, bwd, got6) else None
+                assert c == fused_gru.stream_shape(B, H, bool(bwd)), (B, H, bwd, c)
+                m += 1
     log(f"[gru_wide] the Python dispatch agrees with the C side: clusters exactly to H = "
         f"{fused_gru.CLUSTER_MAX_HIDDEN}, {n} grid shapes (the wide path's {fused_gru.grid_shape(512, 1024, False)} "
         f"forward, {fused_gru.grid_shape(512, 1024, True)} backward: octets a block, unit slices, row groups, rows "
-        f"a group), gru_max_hidden() = {limit}")
+        f"a group), gru_max_hidden() = {limit}, the streamed design past it; {m} streamed shapes (the widest-H "
+        f"path's {fused_gru.stream_shape(*GRU_STREAM_H4096[::2], False)} forward, "
+        f"{fused_gru.stream_shape(*GRU_STREAM_H4096[::2], True)} carry: octets a slice, unit slices, blocks a "
+        f"row group, row groups, rows a group, mt)")
 
 
 def gru_wide_phase() -> dict:
@@ -1276,8 +1319,8 @@ def gru_wide_phase() -> dict:
     ``GRU_WIDE_SHAPES`` and at the limit: the forward at ``GRU_TOL`` with
     the carry held through the padding, the backward at ``GRU_BWD_TOL`` with
     dxw exactly 0 on padded steps, the same bits on a second launch of
-    each; the width past the limit refused, naming it. Returns the largest
-    errors and the wide path's times (with cuDNN's ``nn.GRU`` at H = 1024)."""
+    each; H = 0 refused, naming the designs. Returns the largest errors and
+    the wide path's times (with cuDNN's ``nn.GRU`` at H = 1024)."""
     import torch
 
     from poi_tpu_torch.ops import fused_gru
@@ -1298,34 +1341,162 @@ def gru_wide_phase() -> dict:
             f"octets a block): forward max |kernel - plain| at valid steps {err:.3e} (tol {GRU_TOL}); backward rel "
             f"err dxw {ex:.2e}, dwh {ew:.2e} (tol {GRU_BWD_TOL}); dxw on {n_pad} padded steps exactly 0; a second "
             f"run of each gives the same bits")
-        if (B, T, H) == GRU_WIDE_H1024:
-            out["fwd"] = {"ms": time_ms(lambda: fused_gru_scan(xw, wh)),
-                          "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh), 5),
-                          "library_ms": cudnn_ms("gru", B, T, H, DEV),
-                          **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * 3 * H), "args": (xw, wh)}
-            out["bwd"] = {"ms": time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs), 5),
-                          "plain_ms": time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 3), "library_ms": None,
-                          **gru_bwd_bound(xw, wh, hs, dhs, fused_gru_bwd(xw, wh, hs, dhs)),
-                          "args": (xw, wh, hs, dhs)}
-            t, tb = out["fwd"], out["bwd"]
+        key = GRU_WIDE_TIMED.get((B, T, H))
+        if key is not None:
+            t = out["fwd" + key] = {"ms": time_ms(lambda: fused_gru_scan(xw, wh)),
+                                    "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh), 5),
+                                    "library_ms": cudnn_ms("gru", B, T, H, DEV),
+                                    **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * 3 * H), "args": (xw, wh)}
+            tb = out["bwd" + key] = {"ms": time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs), 5),
+                                     "plain_ms": time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 3),
+                                     "library_ms": None,
+                                     **gru_bwd_bound(xw, wh, hs, dhs, fused_gru_bwd(xw, wh, hs, dhs)),
+                                     "args": (xw, wh, hs, dhs)}
             log(f"[time] gru_fwd B={B} T={T} H={H} (grid): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
                 f"cuDNN nn.GRU forward {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
                 f"{t['bound_pipe']}); gru_bwd (grid carry): kernel {tb['ms']:.4f} ms, plain {tb['plain_ms']:.4f} ms; "
                 f"bound {tb['bound_ms']:.4f} ms ({tb['bound_by']}, {tb['bound_pipe']})")
-    H = fused_gru.MAX_HIDDEN + 1
-    xw, wh = torch.zeros(2, 3, 3 * H, device=DEV), torch.zeros(H, 3 * H, device=DEV, dtype=torch.bfloat16)
-    for fn, args in ((fused_gru_scan, (xw, wh)), (fused_gru_bwd, (xw, wh, xw[..., :H], xw[..., :H]))):
-        msg = expect_width_limit(fn, *args)
-        assert f"H <= {fused_gru.MAX_HIDDEN} (gru_max_hidden())" in msg, msg
-        log(f"[gru_wide] {fn.__name__} H={H} refused: {msg}")
+    # Past the limit the streamed kernels run (gru_stream); only H = 0 is refused.
+    xw, wh = torch.zeros(2, 3, 0, device=DEV), torch.zeros(0, 0, device=DEV, dtype=torch.bfloat16)
+    for fn, args in ((fused_gru_scan, (xw, wh)), (fused_gru_bwd, (xw, wh, xw, xw))):
+        try:
+            fn(*args)
+        except ValueError as e:
+            assert "H=0 is not taken by the kernels: H >= 1" in str(e), str(e)
+            log(f"[gru_wide] {fn.__name__} H=0 refused: {e}")
+        else:
+            raise AssertionError(f"{fn.__name__} took H = 0")
     return out
 
 
-def recurrence_device_phase(times: dict, big: dict, lstm: dict, gpu: str, wide: dict) -> None:
+def gru_step_err(xw, wh, hs, mask) -> float:
+    """The largest error of one step of the GRU forward over every valid
+    (b, t): ``hs[t]`` against the step recomputed in fp64 from ``hs[t - 1]``
+    (rounded to bf16 as the kernel rounds it). The whole sequence also
+    carries every earlier step's rounding through the chain, where a sum
+    that lands across a bf16 rounding boundary of h moves later steps (at H
+    = 2070 in the CPU tests, by 2.3e-4 after five steps); this is the
+    arithmetic of the step alone: the product's sums and the gates."""
+    import torch
+
+    H = wh.shape[0]
+    h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], dim=1).double()
+    pre = xw.double()
+    pre[..., :2 * H] += h_prev.to(torch.bfloat16).double() @ wh[:, :2 * H].double()
+    hn = h_prev.to(torch.bfloat16).double() @ wh[:, 2 * H:].double()
+    z, r = torch.sigmoid(pre[..., :H]), torch.sigmoid(pre[..., H:2 * H])
+    want = (1.0 - z) * h_prev + z * torch.tanh(pre[..., 2 * H:] + r * hn)
+    return float(((hs.double() - want).abs() * mask[:, :, None]).max())
+
+
+def gru_stream_phase(gpu: str) -> dict:
+    """B1 and B2 past the grid's 2064, on the streamed kernels, at
+    ``GRU_STREAM_SHAPES``: the forward at ``GRU_TOL`` with the carry held
+    through the padding, the backward at ``GRU_BWD_TOL`` with dxw exactly 0
+    on padded steps, the same bits on a second launch of each. At the
+    widest-H path's train shape, the sums against fp64 (ROADMAP §C's watch):
+    a forward step alone (``gru_step_err``) and dxw and dwh on the kernel's
+    hs, the kernel's and the plain version's. Returns the largest errors and
+    the times at ``GRU_STREAM_TIMED`` (B1 with cuDNN's ``nn.GRU``; B2 at the
+    train shape), device time later (``recurrence_device``, which also runs
+    the streamed kernels at the grid's widths: ``gru_stream_at_grid_widths``)."""
+    import torch
+
+    from poi_tpu_torch.ops import fused_gru
+    from poi_tpu_torch.ops.fused_gru import fused_gru_bwd, fused_gru_scan, gru_bwd_reference, gru_scan_reference
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 24)
+    out = {"fwd_err": 0.0, "bwd_err": 0.0}
+    for B, T, H in GRU_STREAM_SHAPES:
+        assert fused_gru.design(H) == "stream", H
+        xw, wh, mask, lengths = gru_case(B, T, H, gen)
+        hs, err = check_gru_fwd(xw, wh, mask, lengths)
+        dhs = torch.randn(B, T, H, generator=gen, device=DEV)
+        ex, ew, bwd_err, n_pad = check_gru_bwd(xw, wh, hs, dhs, mask)
+        out["fwd_err"] = max(out["fwd_err"], err)
+        out["bwd_err"] = max(out["bwd_err"], bwd_err)
+        f, b = fused_gru.stream_shape(B, H, False), fused_gru.stream_shape(B, H, True)
+        log(f"[gru_stream] B={B:3d} T={T} H={H} (forward on {f[2]} blocks x {f[3]} row groups of {f[4]} rows, "
+            f"{f[1]} slices of {f[0]} octets; carry {b[2]} x {b[3]} of {b[4]}, slices of {b[0]}): forward max "
+            f"|kernel - plain| at valid steps {err:.3e} (tol {GRU_TOL}); backward rel err dxw {ex:.2e}, dwh "
+            f"{ew:.2e} (tol {GRU_BWD_TOL}); dxw on {n_pad} padded steps exactly 0; a second run of each gives the "
+            f"same bits")
+        key = GRU_STREAM_TIMED.get((B, T, H))
+        if key is None:
+            continue
+        t = {"ms": time_ms(lambda: fused_gru_scan(xw, wh), 10),
+             "plain_ms": time_ms(lambda: gru_scan_reference(xw, wh), 2, 1),
+             "library_ms": cudnn_ms("gru", B, T, H, DEV, 10),
+             **bound((xw, wh), (hs,), bf16_flop=2 * B * T * H * 3 * H),
+             # The streamed floor: wh read from device memory once a step.
+             "stream_floor_ms": T * wh.numel() * 2 / HBM_BYTES_PER_S * 1e3, "args": (xw, wh)}
+        out["fwd" + key] = t
+        log(f"[time] gru_fwd B={B} T={T} H={H} (stream): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"cuDNN nn.GRU forward {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{t['bound_pipe']}), wh read once a step {t['stream_floor_ms']:.4f} ms  ({gpu})")
+        if (B, T, H) != GRU_STREAM_H4096:
+            continue
+        tb = {"ms": time_ms(lambda: fused_gru_bwd(xw, wh, hs, dhs), 3),
+              "plain_ms": time_ms(lambda: gru_bwd_reference(xw, wh, hs, dhs), 2, 1), "library_ms": None,
+              **gru_bwd_bound(xw, wh, hs, dhs, fused_gru_bwd(xw, wh, hs, dhs)), "args": (xw, wh, hs, dhs)}
+        out["bwd"] = tb
+        log(f"[time] gru_bwd B={B} T={T} H={H} (stream carry): kernel {tb['ms']:.4f} ms, plain {tb['plain_ms']:.4f} "
+            f"ms; bound {tb['bound_ms']:.4f} ms ({tb['bound_by']}, {tb['bound_pipe']})  ({gpu})")
+        # The sums against fp64: a forward step alone, and B2 on the kernel's hs.
+        plain_hs = gru_scan_reference(xw, wh)
+        steps = {"kernel": gru_step_err(xw, wh, hs, mask), "plain": gru_step_err(xw, wh, plain_hs, mask)}
+        del plain_hs
+        got, plain = fused_gru_bwd(xw, wh, hs, dhs), gru_bwd_reference(xw, wh, hs, dhs)
+        want = gru_bwd_reference(xw.double(), wh, hs, dhs)
+        fp64 = {f"{n}_{who}": rel_err(v[i].double(), want[i]) for who, v in (("kernel", got), ("plain", plain))
+                for i, n in enumerate(("dxw", "dwh"))}
+        del got, plain, want
+        torch.cuda.empty_cache()  # the fp64 references' ~15 GB
+        out["fp64"] = {"step_kernel": steps["kernel"], "step_plain": steps["plain"], **fp64}
+        log(f"[gru_stream] B={B} T={T} H={H} against fp64: a forward step alone (gru_step_err) kernel "
+            f"{steps['kernel']:.3e}, plain (fp32) {steps['plain']:.3e}; B2 on the kernel's hs, rel err dxw kernel "
+            f"{fp64['dxw_kernel']:.2e}, plain (fp32) {fp64['dxw_plain']:.2e}; dwh kernel {fp64['dwh_kernel']:.2e}, "
+            f"plain {fp64['dwh_plain']:.2e}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def gru_stream_at_grid_widths(wide: dict, stream: dict, gpu: str) -> None:
+    """B1 and B2 on the streamed kernels at the grid's widths, so that the
+    two designs meet on the same inputs: the wide and widest paths' shapes
+    (``GRU_WIDE_TIMED``, the inputs ``gru_wide`` ran the grid on), held as
+    ``check_gru_fwd`` and ``check_gru_bwd`` hold the wrappers, device time by
+    kernel beside the grid's. The wrappers run the streamed kernels past
+    ``MAX_HIDDEN`` only; for these calls the dispatch (``fused_gru.design``)
+    answers "stream". Keeps ``stream["on_grid" + key]``."""
+    from poi_tpu_torch.ops import fused_gru
+
+    dispatch = fused_gru.design
+    fused_gru.design = lambda H: "stream"
+    try:
+        for key in GRU_WIDE_TIMED.values():
+            xw, wh = wide["fwd" + key]["args"]
+            hs, dhs = wide["bwd" + key]["args"][2:]
+            mask = xw[:, :, 0] > fused_gru.MASK_NEG / 2
+            err = check_gru_fwd(xw, wh, mask, mask.sum(1))[1]
+            ex, ew = check_gru_bwd(xw, wh, hs, dhs, mask)[:2]
+            f = device_parts(lambda: fused_gru.fused_gru_scan(xw, wh), GRU_FWD_STREAM_KERNELS)
+            b = device_parts(lambda: fused_gru.fused_gru_bwd(xw, wh, hs, dhs), GRU_BWD_STREAM_KERNELS)
+            stream["on_grid" + key] = {"fwd": {**f, "err": err}, "bwd": {**b, "dxw_err": ex, "dwh_err": ew}}
+            log(f"[time] gru_fwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]} on the stream design: device "
+                f"{f['device_ms']:.4f} ms (max |kernel - plain| at valid steps {err:.3e}); gru_bwd with the streamed "
+                f"carry: {parts_text(b, GRU_BWD_STREAM_KERNELS)} (rel err dxw {ex:.2e}, dwh {ew:.2e})  ({gpu})")
+    finally:
+        fused_gru.design = dispatch
+
+
+def recurrence_device_phase(times: dict, big: dict, lstm: dict, gpu: str, wide: dict, stream: dict) -> None:
     """Device time by kernel, on the inputs the earlier phases timed: B1 at
     the serve shapes (batch 256 and 1), the bench shape, config #4's and
     config #5's; B2 at config #4's and config #5's; B1 and B2 on the grid at
-    the wide path's shape (``gru_wide``); B4 at config #2's, pass by pass. It runs after the
+    the wide path's shape (``gru_wide``); B1 on the streamed kernel at
+    ``GRU_STREAM_TIMED`` and B2 with the streamed carry at the widest-H
+    path's train shape (``gru_stream``); B4 at config #2's, pass by pass. It runs after the
     timing phases, as every profiler reading does: in a run that profiled
     here, before the training phases, the top-k timing's later records came
     back empty."""
@@ -1347,13 +1518,28 @@ def recurrence_device_phase(times: dict, big: dict, lstm: dict, gpu: str, wide: 
         t.update(device_parts(lambda: fused_gru_bwd(xw, wh, hs, dhs), GRU_BWD_KERNELS))
         log(f"[time] gru_bwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]}: {parts_text(t, GRU_BWD_KERNELS)}  "
             f"({gpu})")
-    # B1 and B2 on the grid at the wide path's shape.
-    xw, wh = wide["fwd"].pop("args")
-    wide["fwd"].update(device_parts(lambda: fused_gru_scan(xw, wh), GRU_FWD_GRID_KERNELS))
-    xw, wh, hs, dhs = wide["bwd"].pop("args")
-    wide["bwd"].update(device_parts(lambda: fused_gru_bwd(xw, wh, hs, dhs), GRU_BWD_GRID_KERNELS))
-    log(f"[time] gru_fwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]} (grid): device {wide['fwd']['device_ms']:.4f} "
-        f"ms (CUDA events {wide['fwd']['ms']:.4f} ms); gru_bwd: {parts_text(wide['bwd'], GRU_BWD_GRID_KERNELS)}  ({gpu})")
+    # B1 and B2 on the grid at the wide and widest paths' shapes, and on the stream design there.
+    gru_stream_at_grid_widths(wide, stream, gpu)
+    for key in GRU_WIDE_TIMED.values():
+        xw, wh = wide["fwd" + key].pop("args")
+        wide["fwd" + key].update(device_parts(lambda: fused_gru_scan(xw, wh), GRU_FWD_GRID_KERNELS))
+        xw, wh, hs, dhs = wide["bwd" + key].pop("args")
+        wide["bwd" + key].update(device_parts(lambda: fused_gru_bwd(xw, wh, hs, dhs), GRU_BWD_GRID_KERNELS))
+        log(f"[time] gru_fwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]} (grid): device "
+            f"{wide['fwd' + key]['device_ms']:.4f} ms (CUDA events {wide['fwd' + key]['ms']:.4f} ms); gru_bwd: "
+            f"{parts_text(wide['bwd' + key], GRU_BWD_GRID_KERNELS)}  ({gpu})")
+    # B1 and B2 on the streamed kernels.
+    for key in GRU_STREAM_TIMED.values():
+        t = stream["fwd" + key]
+        xw, wh = t.pop("args")
+        t.update(device_parts(lambda: fused_gru_scan(xw, wh), GRU_FWD_STREAM_KERNELS))
+        log(f"[time] gru_fwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]} (stream): device {t['device_ms']:.4f} ms "
+            f"(CUDA events {t['ms']:.4f} ms)  ({gpu})")
+    xw, wh, hs, dhs = stream["bwd"].pop("args")
+    stream["bwd"].update(device_parts(lambda: fused_gru_bwd(xw, wh, hs, dhs), GRU_BWD_STREAM_KERNELS))
+    log(f"[time] gru_bwd B={xw.shape[0]} T={xw.shape[1]} H={wh.shape[0]} (stream carry): "
+        f"{parts_text(stream['bwd'], GRU_BWD_STREAM_KERNELS)}  ({gpu})")
+    del xw, wh, hs, dhs
     t = lstm["bwd"]
     args = t.pop("args")
     t.update(device_parts(lambda: fused_lstm_bwd(*args), LSTM_BWD_KERNELS))
@@ -2572,6 +2758,9 @@ def config5_phase(state, gpu: str) -> None:
     sets = [f"{k}={v}" for k, v in C5_SETS.items()]
     cli_sets = sets + [f"train.num_steps={C5_CLI_STEPS}", f"train.eval_every={C5_CLI_STEPS // 2}",
                        f"train.log_every={C5_CLI_STEPS // 2}", f"train.steps_per_call={C5_CLI_STEPS // 2}"]
+    # The train CLI runs beside this process's config #5: what the earlier
+    # phases left in the allocator's cache goes back to the card first.
+    torch.cuda.empty_cache()
     cli_job = cli_proc("train", C5_CONFIG, ["--set", *cli_sets, "--no-checkpoint"])
     cfg = get_config(C5_CONFIG).with_overrides({**C5_SETS, "train.steps_per_call": str(C5_STEPS)})
     t0 = time.perf_counter()
@@ -2654,8 +2843,8 @@ def cli_train_phase(state) -> None:
 # both paths: B1/B2 on the grid, B7/B8 at D = 512, B11 at D = 512.
 WIDE_SETS = {"model.embed_dim": "512", "model.hidden_dim": "1024"}
 # The wide and wider paths' steps are timed over WIDE_TIME_CHUNK-step
-# chunks (10 before the wider paths' phases came).
-WIDE_CLI_STEPS, WIDE_STEPS, WIDE_TIME_CHUNK = 10, 5, 5
+# chunks (5 before the widest-H path came, 10 before the wider paths').
+WIDE_CLI_STEPS, WIDE_STEPS, WIDE_TIME_CHUNK = 10, 5, 3
 
 
 # Path 1: config #3 at its reference's 256-d probe (BASELINE.md:27,
@@ -2835,24 +3024,55 @@ def rnn_step_err(xin, mask, c, hs) -> float:
     return float(((hs.double() - want).abs() * (m > 0)).max())
 
 
-def c1_phase(state) -> dict:
-    """C1's evidence on the card (queue C): the per-step losses and grad
-    norms of the four runs, the kernel-to-plain gradient at each step from
-    one set of parameters, and B5/B6 at steps ``C1_HELD`` on the kernel
-    path's own inputs: B5 at the valid steps within ``RNN_TOL``, B6 element
-    by element within ``REC_BWD_TOL`` of each output's largest."""
+@contextlib.contextmanager
+def catching(module, names: tuple, caught: dict):
+    """Stands each wrapper ``module.<name>`` of ``names`` in with one that
+    keeps a copy of its first call's arguments in ``caught[name]``, for the
+    block. A wrapper counts its launches on its module name, so the
+    stand-in's count is carried back to it."""
+    real = {n: getattr(module, n) for n in names}
+
+    def stand_in(n):
+        def wrapped(*args):
+            caught.setdefault(n, tuple(a.detach().clone() for a in args))
+            return real[n](*args)
+        wrapped.launches = wrapped.start = real[n].launches
+        return wrapped
+
+    caught.clear()
+    stand = {n: stand_in(n) for n in names}
+    for n in names:
+        setattr(module, n, stand[n])
+    try:
+        yield
+    finally:
+        for n in names:
+            real[n].launches += stand[n].launches - stand[n].start
+            setattr(module, n, real[n])
+
+
+def climb_runs(cfg, ds, steps: int, around_kernel=contextlib.nullcontext, after_step=None) -> list:
+    """Four runs of ``steps`` device-sampled steps from one init on the same
+    batches and dropout masks: the kernel path ``cfg``, the plain path
+    (``PLAIN_OVERRIDES``), the plain path from the init with a noise of
+    ``C1_NOISE`` relative on every weight, and the plain path in fp32.
+    Before each step, the kernel path's, the plain path's and the fp32
+    run's gradients from the kernel path's parameters (the kernel path's
+    inside ``around_kernel()``); after it, ``after_step(s)``. Returns a row a
+    step: each run's loss and grad norm, the kernel and the plain gradient's
+    rel err by parameter and the worst, and by parameter each one's rel err
+    from the fp32 run's gradient."""
     import torch
 
     from poi_tpu_torch.convert import params_to_numpy
-    from poi_tpu_torch.ops import fused_rnn
     from poi_tpu_torch.train.loop import DROPOUT_STREAM, make_trainer
 
-    cfg, ds = state["strnn"]["cfg"].with_overrides(C1_SETS), state["strnn"]["ds"]
     plain_cfg = cfg.with_overrides(PLAIN_OVERRIDES)
     runs = {"kernel": cfg, "plain": plain_cfg, "plain_noise": plain_cfg,
             "plain_fp32": plain_cfg.with_overrides({"model.compute_dtype": "float32"})}
     trainers = {name: make_trainer(c, ds, DEV) for name, c in runs.items()}
-    probe = make_trainer(plain_cfg, ds, DEV)  # the plain path's gradient at the kernel path's parameters
+    # The plain path's gradient and the fp32 run's at the kernel path's parameters.
+    probes = {"plain": make_trainer(plain_cfg, ds, DEV), "fp32": make_trainer(runs["plain_fp32"], ds, DEV)}
     tree = params_to_numpy(trainers["kernel"].model)
     states = {name: t.init_state(tree) for name, t in trainers.items()}
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -2870,67 +3090,90 @@ def c1_phase(state) -> dict:
             p.grad = None
         return out
 
-    real = {"fwd": fused_rnn.fused_rnn_scan, "bwd": fused_rnn.fused_rnn_bwd}
-    caught: dict = {}
-
-    def catch(kind):
-        # Stands in under the wrapper's module name, which the wrapper counts its launches on.
-        def wrapped(*args):
-            caught.setdefault(kind, tuple(a.detach().clone() for a in args))
-            return real[kind](*args)
-        wrapped.launches = wrapped.start = real[kind].launches
-        return wrapped
-
-    def release(*wrapped):
-        for kind, w in zip(("fwd", "bwd"), wrapped):
-            real[kind].launches += w.launches - w.start
-        fused_rnn.fused_rnn_scan, fused_rnn.fused_rnn_bwd = real["fwd"], real["bwd"]
-
-    rows, held = [], {}
-    for s in range(C1_STEPS):
+    rows = []
+    for s in range(steps):
         batch = trainers["kernel"].sampler.sample(s)
-        caught.clear()
-        fused_rnn.fused_rnn_scan, fused_rnn.fused_rnn_bwd = catch("fwd"), catch("bwd")
-        try:
+        with around_kernel():
             gk = grads(trainers["kernel"], batch, s)
-        finally:
-            release(fused_rnn.fused_rnn_scan, fused_rnn.fused_rnn_bwd)
-        probe.model.load_state_dict(trainers["kernel"].model.state_dict())
-        gp = grads(probe, batch, s)
+        at = {}
+        for name, probe in probes.items():
+            probe.model.load_state_dict(trainers["kernel"].model.state_dict())
+            at[name] = grads(probe, batch, s)
+        gp, g32 = at["plain"], at["fp32"]
         worst = max(gk, key=lambda k: rel_err(gk[k], gp[k]))
-        row = {"step": s + 1, "grad_rel": {k: rel_err(gk[k], gp[k]) for k in gk}, "worst": worst}
+        row = {"step": s + 1, "grad_rel": {k: rel_err(gk[k], gp[k]) for k in gk}, "worst": worst,
+               "fp32_rel": {k: (norm_err(gk[k], g32[k]), norm_err(gp[k], g32[k])) for k in gk}}
         for name, t in trainers.items():
             states[name], m = t.step(states[name], batch)
             row[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
         rows.append(row)
-        if s + 1 in C1_HELD:
-            # The kernels, the plain versions (fp32) and the plain versions
-            # summed in fp64 on the path's own inputs.
-            xin, mask, c16 = caught["fwd"]
-            valid = mask[:, :, None] > 0
-            hs = {"kernel": real["fwd"](xin, mask, c16), "plain": fused_rnn.rnn_scan_reference(xin, mask, c16),
-                  "fp64": fused_rnn.rnn_scan_reference(xin.double(), mask, c16)}
-            fwd = {f"{a}{tag}": float(((hs[a].double() - hs[b].double()).abs() * valid).max())
-                   for a, b, tag in (("kernel", "plain", ""), ("kernel", "fp64", "_fp64"), ("plain", "fp64", "_fp64"))}
-            fwd.update({f"{a}_step": rnn_step_err(xin, mask, c16, hs[a]) for a in ("kernel", "plain")})
-            bx, bm, bc, bhs, bdhs = caught["bwd"]
-            bwd = {"kernel": real["bwd"](bx, bm, bc, bhs, bdhs),
-                   "plain": fused_rnn.rnn_bwd_reference(bx, bm, bc, bhs, bdhs),
-                   "fp64": fused_rnn.rnn_bwd_reference(bx.double(), bm, bc, bhs, bdhs)}
-            held[s + 1] = {"shape": list(xin.shape), "fwd": fwd, **{
-                f"{out}_{a}_{b}": rel_err(bwd[a][i].double(), bwd[b][i].double())
-                for i, out in enumerate(("dxin", "dC"))
-                for a, b in (("kernel", "plain"), ("kernel", "fp64"), ("plain", "fp64"))}}
+        if after_step is not None:
+            after_step(s)
+    for name in runs:
+        assert all(math.isfinite(r[name]["loss"]) for r in rows), f"non-finite loss on {name}: {rows}"
+    return rows
+
+
+def climb_gaps(rows: list, name: str) -> list:
+    """Each step's rel gap of run ``name``'s loss from the plain path's."""
+    return [abs(r[name]["loss"] - r["plain"]["loss"]) / r["plain"]["loss"] for r in rows]
+
+
+def log_climb(tag: str, rows: list) -> None:
+    """One line a step of ``climb_runs``' rows: the losses and their gaps
+    from the plain path, the grad norms, the gradients' rel errs."""
     for row in rows:
         k, p = row["kernel"], row["plain"]
         gap = lambda name: abs(row[name]["loss"] - p["loss"]) / p["loss"]  # noqa: E731
-        log(f"[c1] step {row['step']}: loss kernel {k['loss']:.6f} plain {p['loss']:.6f} (rel gap {gap('kernel'):.2e}), "
+        log(f"[{tag}] step {row['step']}: loss kernel {k['loss']:.6f} plain {p['loss']:.6f} (rel gap "
+            f"{gap('kernel'):.2e}), "
             f"plain from the init x (1 + {C1_NOISE:g} noise) {row['plain_noise']['loss']:.6f} (gap "
             f"{gap('plain_noise'):.2e}), plain fp32 {row['plain_fp32']['loss']:.6f}; grad norm kernel "
             f"{k['grad_norm']:.4f} plain {p['grad_norm']:.4f} noise {row['plain_noise']['grad_norm']:.4f} fp32 "
             f"{row['plain_fp32']['grad_norm']:.4f}; from the kernel path's parameters, kernel vs plain gradient "
             f"max rel err {row['grad_rel'][row['worst']]:.2e} ({row['worst']}), wh/c "
-            + ", ".join(f"{n} {v:.2e}" for n, v in row["grad_rel"].items() if n.endswith(("wh", ".c"))))
+            + ", ".join(f"{n} {v:.2e}" for n, v in row["grad_rel"].items() if n.endswith(("wh", ".c")))
+            + "; against the fp32 run's gradient there, kernel / plain: "
+            + ", ".join(f"{n} {k:.2e} / {p:.2e}" for n, (k, p) in row["fp32_rel"].items()))
+
+
+def c1_phase(state) -> dict:
+    """C1's evidence on the card (queue C): the per-step losses and grad
+    norms of the four runs, the kernel-to-plain gradient at each step from
+    one set of parameters, and B5/B6 at steps ``C1_HELD`` on the kernel
+    path's own inputs: B5 at the valid steps within ``RNN_TOL``, B6 element
+    by element within ``REC_BWD_TOL`` of each output's largest."""
+    from poi_tpu_torch.ops import fused_rnn
+
+    cfg, ds = state["strnn"]["cfg"].with_overrides(C1_SETS), state["strnn"]["ds"]
+    caught: dict = {}
+    held = {}
+
+    def hold(s):
+        if s + 1 not in C1_HELD:
+            return
+        # The kernels, the plain versions (fp32) and the plain versions
+        # summed in fp64 on the path's own inputs.
+        xin, mask, c16 = caught["fused_rnn_scan"]
+        valid = mask[:, :, None] > 0
+        hs = {"kernel": fused_rnn.fused_rnn_scan(xin, mask, c16),
+              "plain": fused_rnn.rnn_scan_reference(xin, mask, c16),
+              "fp64": fused_rnn.rnn_scan_reference(xin.double(), mask, c16)}
+        fwd = {f"{a}{tag}": float(((hs[a].double() - hs[b].double()).abs() * valid).max())
+               for a, b, tag in (("kernel", "plain", ""), ("kernel", "fp64", "_fp64"), ("plain", "fp64", "_fp64"))}
+        fwd.update({f"{a}_step": rnn_step_err(xin, mask, c16, hs[a]) for a in ("kernel", "plain")})
+        bx, bm, bc, bhs, bdhs = caught["fused_rnn_bwd"]
+        bwd = {"kernel": fused_rnn.fused_rnn_bwd(bx, bm, bc, bhs, bdhs),
+               "plain": fused_rnn.rnn_bwd_reference(bx, bm, bc, bhs, bdhs),
+               "fp64": fused_rnn.rnn_bwd_reference(bx.double(), bm, bc, bhs, bdhs)}
+        held[s + 1] = {"shape": list(xin.shape), "fwd": fwd, **{
+            f"{out}_{a}_{b}": rel_err(bwd[a][i].double(), bwd[b][i].double())
+            for i, out in enumerate(("dxin", "dC"))
+            for a, b in (("kernel", "plain"), ("kernel", "fp64"), ("plain", "fp64"))}}
+
+    rows = climb_runs(cfg, ds, C1_STEPS, lambda: catching(fused_rnn, ("fused_rnn_scan", "fused_rnn_bwd"), caught),
+                      hold)
+    log_climb("c1", rows)
     for step, h in held.items():
         f = h["fwd"]
         log(f"[c1] step {step}: the kernel path's B5/B6 calls at {h['shape']} on their own inputs: B5 max |kernel - "
@@ -2941,9 +3184,7 @@ def c1_phase(state) -> dict:
             f"{h['dxin_kernel_plain']:.2e}, dC {h['dC_kernel_plain']:.2e} (REC_BWD_TOL {REC_BWD_TOL}); against fp64: "
             f"kernel dxin {h['dxin_kernel_fp64']:.2e}, dC {h['dC_kernel_fp64']:.2e}, plain (fp32) dxin "
             f"{h['dxin_plain_fp64']:.2e}, dC {h['dC_plain_fp64']:.2e}")
-    for name in runs:
-        assert all(math.isfinite(r[name]["loss"]) for r in rows), f"c1: non-finite loss on {name}"
-    gaps = [abs(r["kernel"]["loss"] - r["plain"]["loss"]) / r["plain"]["loss"] for r in rows[:C1_BEFORE]]
+    gaps = climb_gaps(rows, "kernel")[:C1_BEFORE]
     assert gaps[0] < LOSS_TOL_FIRST and max(gaps) < LOSS_TOL_LAST, f"c1: losses before the climb part: {gaps}"
     for step, h in held.items():
         assert h["fwd"]["kernel_step"] < C1_STEP_TOL, f"c1 step {step}: B5 {h}"
@@ -2969,13 +3210,92 @@ WIDER_PATHS = {"bench": ("smoke", ("gru_fwd", "gru_bwd", "ce_lse", "ce_bwd")),
 # #4) and B11 on their streamed kernels, the same phase with its own sets
 # (the train CLI for WIDEST_CLI_STEPS steps, then WIDE_STEPS a path through
 # train(), Recommender at batch 1 and 256); each step is timed over
-# WIDEST_TIME_CHUNK-step chunks.
+# WIDEST_TIME_CHUNK-step chunks (3 before the widest-H path came).
 WIDEST_SETS = {"model.embed_dim": "2048", "model.hidden_dim": "2048"}
-WIDEST_CLI_STEPS, WIDEST_TIME_CHUNK = 5, 3
+WIDEST_CLI_STEPS, WIDEST_TIME_CHUNK = 5, 2
+# The widest-H bench path: the bench workload at H = 4096 over its own D =
+# 128 (the hidden-to-embedding projection runs; B7/B8 and B11 on their D =
+# 128 kernels), B1/B2 on the streamed kernels (past the grid's 2064), the
+# same phase with its own sets; its step timed over WIDEST_TIME_CHUNK-step
+# chunks.
+WIDEST_H_SETS = {"model.hidden_dim": "4096"}
+# Its train() comparison runs at warm-up 20, as the wide LSTM and ST-RNN
+# paths' do (REC_WIDE_TRAIN_SETS); the CLI run keeps the workload's own
+# warm-up 0, where the widest_h_warmup0 phase runs C1's four runs
+# (climb_runs) for WIDEST_H_CLIMB_STEPS steps: the grad norm climbs from
+# 0.07 to 11.7 by step 4, and after it the runs part (the fp32 run by
+# 1.4e-3 from the plain one at step 5). That phase holds the kernel path's
+# B1/B2 calls at steps WIDEST_H_HELD, after the climb, on their own inputs
+# against their plain versions and fp64, as C1's phase holds B5/B6.
+WIDEST_H_TRAIN_SETS = {"train.warmup_steps": "20"}
+WIDEST_H_CLIMB_STEPS = 5
+WIDEST_H_HELD = (4, 5)
+
+
+def widest_h_warmup0_phase(state) -> dict:
+    """The widest-H bench path's ``train()`` at the bench workload's own
+    warm-up 0: the four runs of ``climb_runs`` from the trainer's own
+    seeded init. Before the climb (the first ``C1_BEFORE`` steps) the
+    losses at PERF.md §2's limits; at steps ``WIDEST_H_HELD`` the kernel
+    path's B1/B2 calls on their own inputs: B1's step alone within
+    ``C1_STEP_TOL`` of fp64 (``gru_step_err``), B2 within ``GRU_BWD_TOL`` of
+    its plain version; B1's whole sequence against its plain version and
+    fp64, B2 against fp64, the loss gaps after the climb and each path's
+    gradient against the fp32 run's, logged."""
+    import torch
+
+    from poi_tpu_torch.ops import fused_gru
+
+    cfg = state["bench_cfg"].with_overrides({**WIDEST_H_SETS, "train.log_every": "1"})
+    assert cfg.train.warmup_steps == 0, cfg.train.warmup_steps
+    caught: dict = {}
+    held = {}
+
+    def hold(s):
+        if s + 1 not in WIDEST_H_HELD:
+            return
+        xw, wh = caught["fused_gru_scan"]
+        valid = (xw[:, :, 0] > fused_gru.MASK_NEG / 2)[:, :, None]
+        hs = {"kernel": fused_gru.fused_gru_scan(xw, wh), "plain": fused_gru.gru_scan_reference(xw, wh),
+              "fp64": fused_gru.gru_scan_reference(xw.double(), wh)}
+        fwd = {f"{a}{tag}": float(((hs[a].double() - hs[b].double()).abs() * valid).max())
+               for a, b, tag in (("kernel", "plain", ""), ("kernel", "fp64", "_fp64"), ("plain", "fp64", "_fp64"))}
+        fwd.update({f"{a}_step": gru_step_err(xw, wh, hs[a], valid[:, :, 0]) for a in ("kernel", "plain")})
+        del hs
+        args = caught["fused_gru_bwd"]
+        bwd = {"kernel": fused_gru.fused_gru_bwd(*args), "plain": fused_gru.gru_bwd_reference(*args),
+               "fp64": fused_gru.gru_bwd_reference(args[0].double(), *args[1:])}
+        held[s + 1] = {"shape": list(xw.shape), "fwd": fwd, **{
+            f"{out}_{a}_{b}": rel_err(bwd[a][i].double(), bwd[b][i].double())
+            for i, out in enumerate(("dxw", "dwh"))
+            for a, b in (("kernel", "plain"), ("kernel", "fp64"), ("plain", "fp64"))}}
+        del bwd
+        torch.cuda.empty_cache()
+
+    rows = climb_runs(cfg, state["bench_ds"], WIDEST_H_CLIMB_STEPS,
+                      lambda: catching(fused_gru, ("fused_gru_scan", "fused_gru_bwd"), caught), hold)
+    log_climb("widest_h_warmup0", rows)
+    for step, h in held.items():
+        f = h["fwd"]
+        log(f"[widest_h_warmup0] step {step}: the kernel path's B1/B2 calls at {h['shape']} on their own inputs: B1 "
+            f"max |kernel - plain| at valid steps {f['kernel']:.3e}, against the plain version summed in fp64: kernel "
+            f"{f['kernel_fp64']:.3e}, plain (fp32) {f['plain_fp64']:.3e}; a step alone against fp64 (gru_step_err): "
+            f"kernel {f['kernel_step']:.3e}, plain (fp32) {f['plain_step']:.3e} (tol {C1_STEP_TOL}); B2 rel err "
+            f"kernel vs plain dxw {h['dxw_kernel_plain']:.2e}, dwh {h['dwh_kernel_plain']:.2e} (tol {GRU_BWD_TOL}); "
+            f"against fp64: kernel dxw {h['dxw_kernel_fp64']:.2e}, dwh {h['dwh_kernel_fp64']:.2e}, plain (fp32) dxw "
+            f"{h['dxw_plain_fp64']:.2e}, dwh {h['dwh_plain_fp64']:.2e}")
+    kernel = climb_gaps(rows, "kernel")
+    assert kernel[0] < LOSS_TOL_FIRST and max(kernel[:C1_BEFORE]) < LOSS_TOL_LAST, \
+        f"widest_h_warmup0: losses before the climb part: {kernel}"
+    for step, h in held.items():
+        assert h["fwd"]["kernel_step"] < C1_STEP_TOL, f"widest_h_warmup0 step {step}: B1 {h}"
+        assert h["dxw_kernel_plain"] < GRU_BWD_TOL and h["dwh_kernel_plain"] < GRU_BWD_TOL, \
+            f"widest_h_warmup0 step {step}: B2 {h}"
+    return {"rows": rows, "held": held}
 
 
 def wider_path_phase(state, tag: str, sets: dict = WIDER_SETS, cli_steps: int = WIDER_CLI_STEPS,
-                     label: str = "wider") -> None:
+                     label: str = "wider", train_sets: dict | None = None) -> None:
     """The wider bench path (``tag`` bench) or the wider config #4 path (c4)
     as a user runs it: ``python -m poi_tpu_torch train --config <smoke --set
     BENCH_OVERRIDES, or attention_gowalla> --set model.embed_dim=1024
@@ -2986,13 +3306,15 @@ def wider_path_phase(state, tag: str, sets: dict = WIDER_SETS, cli_steps: int = 
     device-sampled steps through ``train()`` on the kernel and the plain
     path from one init (``train_both_paths``: losses at PERF.md §2's limits,
     evaluate on test), and ``Recommender`` at request batch 1 and 256 on both
-    paths (``serve_both_paths``: B1 at H, B11 at D). Keeps the path's
-    launches, config, init and dataset in ``state[f"{label}_{tag}"]``."""
+    paths (``serve_both_paths``: B1 at H, B11 at D); ``train_sets`` are
+    further sets of the ``train()`` comparison. Keeps the path's launches,
+    config, init and dataset in ``state[f"{label}_{tag}"]``."""
     import contextlib
     import io
 
     from poi_tpu_torch import cli
     from poi_tpu_torch.convert import params_to_numpy
+    from poi_tpu_torch.ops import fused_gru
     from poi_tpu_torch.train.loop import make_trainer
 
     config, used = WIDER_PATHS[tag]
@@ -3022,8 +3344,11 @@ def wider_path_phase(state, tag: str, sets: dict = WIDER_SETS, cli_steps: int = 
         assert launches[kernel] > 0, f"{name}_path: no {kernel} launch: {launches}"
     base, ds = (state["bench_cfg"], state["bench_ds"]) if tag == "bench" else (state["attn_cfg"], state["attn_ds"])
     cfg = base.with_overrides(wide_sets)
+    log(f"[{name}_path] the GRU at H = {cfg.model.hidden_dim} runs the {fused_gru.design(cfg.model.hidden_dim)} "
+        f"design (B1, B2), D = {cfg.model.embed_dim}")
     tree = params_to_numpy(make_trainer(cfg, ds, DEV).model)  # the trainer's own seeded init
-    kern, both, _ = train_both_paths(f"{name}_path", cfg, ds, tree, used=used, steps=WIDE_STEPS)
+    kern, both, _ = train_both_paths(f"{name}_path", cfg.with_overrides(train_sets or {}), ds, tree, used=used,
+                                     steps=WIDE_STEPS)
     serve_both_paths(f"{name}_path serve", cfg, ds, params_to_numpy(kern.model))
     state[name] = {"launches": launches, "both_launches": both, "cfg": cfg, "tree": tree, "ds": ds}
 
@@ -3034,10 +3359,11 @@ def wider_path_phase(state, tag: str, sets: dict = WIDER_SETS, cli_steps: int = 
 # init,
 # every step a log step, for the losses. The rates come from warmed runs at
 # the preset's log_every (host_loader_timing), HOST_TIMING_ROUNDS of each
-# spc in turns.
+# spc in turns, HOST_TIMING_STEPS steps a window (100 before the widest-H
+# path came).
 HOST_LOADER_STEPS = 40
 HOST_LOADER_SPC = (1, 1, 10)
-HOST_TIMING_STEPS, HOST_TIMING_WARMUP, HOST_TIMING_PROFILED = 100, 10, 10
+HOST_TIMING_STEPS, HOST_TIMING_WARMUP, HOST_TIMING_PROFILED = 50, 10, 10
 HOST_TIMING_ROUNDS = 1
 
 
@@ -3673,7 +3999,10 @@ def train_timing_phase(state, gpu: str) -> dict:
                            ("_d256", CE_WIDE_CASES[1][:3]), ("_c3_d512", CE_C3_D512), ("_d512", CE_BENCH_D512),
                            ("_d1024", CE_BENCH_D1024), ("_c3_d768", CE_C3_D768), ("_d2048", CE_BENCH_D2048),
                            ("_c3_d1280", CE_C3_D1280)):
+        # The widest shape's calls take ~0.4 s: fewer of them (the plain
+        # versions 3 calls there, 8 before the widest-H path came).
         iters = 3 if key == "_d2048" else 20
+        plain_it = (2, 1) if key == "_d2048" else (5,)
         q = 0.3 * torch.randn(N, D, generator=gen, device=DEV)
         table = 0.3 * torch.randn(V, D, generator=gen, device=DEV)
         bias = torch.randn(V, generator=gen, device=DEV)
@@ -3683,14 +4012,15 @@ def train_timing_phase(state, gpu: str) -> dict:
         # B7 at both shapes, its split kernel and merge apart in device time.
         lse_names = ce_lse_kernels(D)
         out["ce_lse" + key] = {"ms": time_ms(lambda: ce_lse(q, table, bias)),
-                               "plain_ms": time_ms(lambda: ce_lse_reference(q, table, bias), 5), "library_ms": None,
+                               "plain_ms": time_ms(lambda: ce_lse_reference(q, table, bias), *plain_it),
+                               "library_ms": None,
                                **ce_lse_bound(q, table, bias, lse),
                                "bound_kernel_ms": loss_kernel_flop("ce_lse", N, V, D) / BF16_FLOP_PER_S * 1e3,
                                **device_parts(lambda: ce_lse(q, table, bias), lse_names)}
         for n in CE_LSE_KERNELS:  # the record's keys, under B7's kernel names at every width
             out["ce_lse" + key][f"{n}_ms"] = out["ce_lse" + key].pop(f"{lse_names[CE_LSE_KERNELS.index(n)]}_ms")
         t = {"ms": time_ms(lambda: ce_bwd(q, table, bias, lse, g), iters),
-             "plain_ms": time_ms(lambda: ce_bwd_reference(q, table, bias, lse, g), 5), "library_ms": None,
+             "plain_ms": time_ms(lambda: ce_bwd_reference(q, table, bias, lse, g), *plain_it), "library_ms": None,
              **bound((q, table, bias, lse, g), ce_bwd(q, table, bias, lse, g), bf16_flop=3 * flop),
              "bound_kernel_ms": loss_kernel_flop("ce_bwd", N, V, D) / BF16_FLOP_PER_S * 1e3}
         parts = sweep_ce_bwd.pass_ms(lambda: ce_bwd(q, table, bias, lse, g), min(iters, 10))
@@ -3774,6 +4104,13 @@ def config_timing_phase(state, gpu: str) -> dict:
                     "plain": make_trainer(w["cfg"].with_overrides(PLAIN_OVERRIDES), w["ds"], DEV)}
         out[f"widest_{tag}_train_step"] = step_timing(f"the widest {tag} path ({config} at D = H = 2048)", trainers,
                                                       w["tree"], WIDEST_TIME_CHUNK, gpu, profiled=2)
+    # The widest-H bench path's step (the bench workload at H = 4096, D =
+    # 128), the same way.
+    w = state["widest_h_bench"]
+    trainers = {"kernels": make_trainer(w["cfg"], w["ds"], DEV),
+                "plain": make_trainer(w["cfg"].with_overrides(PLAIN_OVERRIDES), w["ds"], DEV)}
+    out["widest_h_bench_train_step"] = step_timing("the widest-H bench path (smoke at H = 4096, D = 128)", trainers,
+                                                   w["tree"], WIDEST_TIME_CHUNK, gpu, profiled=2)
     return out
 
 
@@ -3834,10 +4171,11 @@ wb = torch.randn(cs.CE_C3_D256[1], generator=gen, device="cuda")
 lx, lmask, lw, _ = cs.recurrence_case(64, 64, 128, 4, gen)
 lst = fused_lstm_scan(lx, lmask, lw)
 ldh = torch.randn(64, 64, 128, generator=gen, device="cuda")
-# B1/B2 on the grid (H = 648 and 1024), B3/B4 at the clusters' widest H,
-# 512, and B5/B6 at theirs, 640: the parent takes each. The backward's
-# inputs come from the plain forward, the same in both checkouts.
-gw = [cs.gru_case(B, 32, H, gen)[:2] for B, H in ((7, 648), (5, 1024))]
+# B1/B2 on the grid (H = 648, 1024 and its widest, 2064), B3/B4 at the
+# clusters' widest H, 512, and B5/B6 at theirs, 640: the parent takes each.
+# The backward's inputs come from the plain forward, the same in both
+# checkouts.
+gw = [cs.gru_case(B, 32, H, gen)[:2] for B, H in ((7, 648), (5, 1024), (3, 2064))]
 gwh = [gru_scan_reference(a, w) for a, w in gw]
 gwd = [torch.randn(*h.shape, generator=gen, device="cuda") for h in gwh]
 lx5, lmask5, lw5, _ = cs.recurrence_case(3, 32, 512, 4, gen)
@@ -3998,7 +4336,7 @@ MESH_EXACT = {"mesh.a2a_capacity_factor": str(float(MESH_WORLD))}
 MESH_C5_STEPS = 2  # 3 before A1's scripts came, 5 before the wider paths' phases
 # The bench workload on 2 x 2: psum lookups, the sharded CE, dense Adam with the clip.
 MESH_BENCH_SETS = {**BENCH_OVERRIDES, "mesh.data": "2", "mesh.model": "2", "mesh.embedding_mode": "psum"}
-MESH_BENCH_STEPS = 10
+MESH_BENCH_STEPS = 5  # 10 before the widest-H path came
 MESH_TOPK_ROWS = 512  # the val (test) rows whose top-k scores and ids the mesh and one rank compare
 # The jobs whose table after step 1 is held entry by entry to the one-rank
 # run's. Not the bench: one card takes the fused CE (B8's fp32 table
@@ -4952,6 +5290,7 @@ def main() -> int:
     variants = phase("ce_variants", ce_variants_phase)
     big = phase("gru_big", gru_big_phase)
     wide = phase("gru_wide", gru_wide_phase)
+    stream = phase("gru_stream", gru_stream_phase, gpu)
     ce_wide = phase("ce_wide", ce_wide_phase)
     ce_wider = phase("ce_wider", ce_wider_phase)
     ce_widest = phase("ce_widest", ce_widest_phase)
@@ -4978,6 +5317,9 @@ def main() -> int:
     phase("wider_c4_path", wider_path_phase, state, "c4")
     phase("widest_bench_path", wider_path_phase, state, "bench", WIDEST_SETS, WIDEST_CLI_STEPS, "widest")
     phase("widest_c4_path", wider_path_phase, state, "c4", WIDEST_SETS, WIDEST_CLI_STEPS, "widest")
+    warmup0 = phase("widest_h_warmup0", widest_h_warmup0_phase, state)["held"]
+    phase("widest_h_bench_path", wider_path_phase, state, "bench", WIDEST_H_SETS, WIDEST_CLI_STEPS, "widest_h",
+          WIDEST_H_TRAIN_SETS)
     phase("host_loader", host_loader_phase, state)
     mesh = phase("mesh", mesh_phase, state, gpu)
     phase("cli_train", cli_train_phase, state)
@@ -4985,7 +5327,7 @@ def main() -> int:
     times = phase("timing", timing_phase, state, gpu)
     times.update(phase("train_timing", train_timing_phase, state, gpu))
     times.update(phase("config_timing", config_timing_phase, state, gpu))
-    phase("recurrence_device", recurrence_device_phase, times, big, lstm, gpu, wide)
+    phase("recurrence_device", recurrence_device_phase, times, big, lstm, gpu, wide, stream)
     phase("pool_recurrence_device", pool_recurrence_device_phase, {**sampled, **sampled_widest}, lstm, rnn, gpu,
           lstm_wide, rnn_wide)
     phase("ce_variants_device", ce_variants_device_phase, variants, gpu)
@@ -5055,6 +5397,12 @@ def main() -> int:
     # #4 path's launches (its train CLI at 5 steps, GRU H = 2048); config
     # #5's rows at 1280 have no main path.
     wsc4 = state["widest_c4"]["launches"]
+    # B1/B2 on the streamed kernels (gru_fwd_stream, gru_bwd_stream): the
+    # widest-H bench path's train shape and launches (its train CLI at 5
+    # steps, GRU H = 4096); B1 also at its serving batches (b1, b256: the
+    # serve phase's requests, not counted apart) and config #4's shape (c4,
+    # no main path).
+    wsh = state["widest_h_bench"]["launches"]
     h256 = lambda d: {f"{k}_h256": big[d][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}  # noqa: E731
     fwd_at = lambda t: {f: t[f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}  # noqa: E731
     kernels = [
@@ -5070,10 +5418,32 @@ def main() -> int:
                config5={**at5(big["bwd_h512"], c5["gru_bwd"]),
                         **{f"{n}_ms": big["bwd_h512"][f"{n}_ms"] for n in GRU_BWD_KERNELS}}),
         record("gru_fwd_grid", "gru_fwd.cu", "poi_tpu/ops/fused_gru.py:71", wl["gru_fwd"], wide["fwd_err"], wide["fwd"],
-               device_ms=wide["fwd"]["device_ms"], shape=list(GRU_WIDE_H1024), max_hidden=max_hidden),
+               device_ms=wide["fwd"]["device_ms"], shape=list(GRU_WIDE_H1024), max_hidden=max_hidden,
+               **{k[1:]: {**fwd_at(wide["fwd" + k]), "launches": lc["gru_fwd"]}
+                  for k, lc in (("_h2048", wst), ("_c4_h2048", wsc4))}),
         record("gru_bwd_grid", "gru_bwd.cu", "poi_tpu/ops/fused_gru.py:86", wl["gru_bwd"], wide["bwd_err"], wide["bwd"],
                **{k: wide["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in GRU_BWD_GRID_KERNELS))},
-               shape=list(GRU_WIDE_H1024)),
+               shape=list(GRU_WIDE_H1024),
+               **{k[1:]: {**{f: wide["bwd" + k][f] for f in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
+                                                              *(f"{n}_ms" for n in GRU_BWD_GRID_KERNELS))},
+                          "launches": lc["gru_bwd"]} for k, lc in (("_h2048", wst), ("_c4_h2048", wsc4))}),
+        record("gru_fwd_stream", "gru_fwd.cu", "poi_tpu/ops/fused_gru.py:71", wsh["gru_fwd"], stream["fwd_err"],
+               stream["fwd"], device_ms=stream["fwd"]["device_ms"], shape=list(GRU_STREAM_H4096),
+               stream_floor_ms=stream["fwd"]["stream_floor_ms"],
+               **{k[1:]: {**fwd_at(stream["fwd" + k]), "stream_floor_ms": stream["fwd" + k]["stream_floor_ms"]}
+                  for k in ("_b1", "_b256", "_c4")},
+               fp64={k: v for k, v in stream["fp64"].items() if k.startswith("step")},
+               **{"on_grid" + k: {"shape": list(sh), **stream["on_grid" + k]["fwd"]}
+                  for sh, k in GRU_WIDE_TIMED.items()},
+               warmup0={str(step): h["fwd"] for step, h in warmup0.items()}),
+        record("gru_bwd_stream", "gru_bwd.cu", "poi_tpu/ops/fused_gru.py:86", wsh["gru_bwd"], stream["bwd_err"],
+               stream["bwd"],
+               **{k: stream["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in GRU_BWD_STREAM_KERNELS))},
+               shape=list(GRU_STREAM_H4096), fp64={k: v for k, v in stream["fp64"].items() if not k.startswith("step")},
+               **{"on_grid" + k: {"shape": list(sh), **stream["on_grid" + k]["bwd"]}
+                  for sh, k in GRU_WIDE_TIMED.items()},
+               warmup0={str(step): {k: v for k, v in h.items() if k not in ("shape", "fwd")}
+                        for step, h in warmup0.items()}),
         record("lstm_fwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:59", c2["lstm_fwd"], lstm["fwd_err"], lstm["fwd"],
                device_ms=lstm["fwd"]["device_ms"], **{k: fwd_at(lstm[f"fwd_{k}"]) for k in LSTM_TIMED}),
         record("lstm_bwd", "lstm.cu", "poi_tpu/ops/fused_lstm.py:81", c2["lstm_bwd"], lstm["bwd_err"], lstm["bwd"],

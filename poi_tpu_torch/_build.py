@@ -43,6 +43,9 @@ _SIGNATURES = {
     "gru_max_hidden": [],
     "gru_fwd_grid": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gru_bwd_grid": [_P] * 10 + [_I, _I, _I, _I, _P],
+    "gru_stream_shape": [_I, _I, _I, ctypes.POINTER(_I)],
+    "gru_fwd_stream": [_P] * 5 + [_I] * 4 + [_P],
+    "gru_bwd_stream": [_P] * 11 + [_I] * 4 + [_P],
     "lstm_max_hidden": [],
     "lstm_grid_shape": [_I, _I, _I, ctypes.POINTER(_I)],
     "lstm_fwd_grid": [_P] * 7 + [_I, _I, _I, _I, _P],

@@ -244,15 +244,15 @@ __device__ __forceinline__ void group_wait(const int* ctr, int target) {
 // The step counters: one a row group, 128 bytes apart.
 constexpr int kCtrStride = 32;
 
-// A cooperative launch of `kernel` on a grid of U x R CTAs of kGridWarps
-// warps with `smem` bytes of shared memory; fails where they cannot all be
-// resident at once.
+// A cooperative launch of `kernel` on `ctas` CTAs of kGridWarps warps with
+// `smem` bytes of shared memory; fails where they cannot all be resident at
+// once.
 template <class K, class... Args>
-cudaError_t launch_grid(K kernel, const GridShape& s, int smem, cudaStream_t stream, Args... args) {
+cudaError_t launch_coop(K kernel, int ctas, int smem, cudaStream_t stream, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(s.U * s.R);
+  cfg.gridDim = dim3(ctas);
   cfg.blockDim = dim3(32 * kGridWarps);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -264,6 +264,12 @@ cudaError_t launch_grid(K kernel, const GridShape& s, int smem, cudaStream_t str
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// The grid-resident kernels' launch: U x R CTAs.
+template <class K, class... Args>
+cudaError_t launch_grid(K kernel, const GridShape& s, int smem, cudaStream_t stream, Args... args) {
+  return launch_coop(kernel, s.U * s.R, smem, stream, args...);
 }
 
 }  // namespace

@@ -68,7 +68,10 @@
 //    csrc/grid_carry.cuh): each CTA keeps wh's rows of its output units and
 //    reads the three bf16 terms of every column of dhw from an L2-resident
 //    buffer behind a step barrier of its row group; the other passes are
-//    the same (gru_bwd_grid).
+//    the same (gru_bwd_grid). Past 2064 no layout holds wh on the chip, and
+//    the carry streams wh's rows of each CTA's units from device memory
+//    every step (gru_bwd_stream_carry_kernel, with csrc/grid_stream.cuh;
+//    gru_bwd_stream), any H >= 1.
 // 3. gru_bwd_outputs_kernel: dxw = d [alpha, beta, delta] and
 //    dhw = d [alpha, beta, gamma], in place. Padded steps (z = 0 exactly
 //    from the folded -1e9) have alpha = beta = gamma = delta = 0, so dxw is
@@ -84,7 +87,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "grid_carry.cuh"
+#include "grid_stream.cuh"
 #include "recurrent_dwh.cuh"
 
 namespace {
@@ -105,11 +108,18 @@ __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(
 // A block is 8 warps of 16 rows (128 rows of B*T) x 8 unit octets (their z,
 // r and n columns); K streams through smem in chunks of 64. Where H % 8 ==
 // 0 (kVec) the loads move 4 (h) and 8 (wh) elements at a time and the
-// epilogue two units.
+// epilogue two units. kIeee (the streamed backward's, past H = 2064): each
+// k-step's product goes into a zeroed fragment that is added to acc in
+// IEEE fp32, as the streamed kernels' products are (grid_stream.cuh): the
+// tensor core's own fp32 accumulation truncates, and at H = 4096 the pass
+// sums 256 k-steps, which put the bench workload's dxw at H = 4096, after
+// its grad norm climbs at warm-up 0, 3e-5 to 6e-5 from fp64 on an H100
+// (the plain version 9e-7; chip_smoke.py's widest_h_warmup0 phase, PERF.md).
+// The cluster and grid backward keep the tensor core's sums.
 constexpr int kGateRows = 128, kGateOct = 8, kGateK = 64, kGateThreads = 256;
 constexpr int kGateLdA = kGateK + 8, kGateLdB = 24 * kGateOct + 8;
 
-template <bool kVec>
+template <bool kVec, bool kIeee>
 __global__ void __launch_bounds__(kGateThreads)
     gru_bwd_gates_kernel(const float* __restrict__ xw, const bf16* __restrict__ wh, const float* __restrict__ hs,
                          float* __restrict__ dxw, float* __restrict__ dhw, int BT, int T, int H) {
@@ -167,7 +177,14 @@ __global__ void __launch_bounds__(kGateThreads)
       for (int nt = 0; nt < 3 * kGateOct; ++nt) {
         uint32_t b0, b1;
         ldsm_x2_trans(b0, b1, b_a + ((ks * 16 + lane % 16) * kGateLdB + nt * 8) * 2);
-        mma_bf16(acc[nt], a, b0, b1);
+        if constexpr (kIeee) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(part, a, b0, b1);
+#pragma unroll
+          for (int x = 0; x < 4; ++x) acc[nt][x] += part[x];
+        } else {
+          mma_bf16(acc[nt], a, b0, b1);
+        }
       }
     }
     __syncthreads();
@@ -569,6 +586,137 @@ __global__ void __launch_bounds__(32 * kGridWarps, 1)
   }
 }
 
+// ------------------------------------------------------------- pass 2 past the grid: the stream
+//
+// gru_bwd_stream_carry_kernel, for the widths past the grid's (grid_stream.cuh
+// has the grid, the ring of k-chunks and the product). CTA c of a row group
+// owns the output units of its slices: for each item (a slice, a pass of 32
+// mt rows) dhw[t] @ wh^T at those units is one product over all 3 Hp
+// columns (stream_carry_product: the three bf16 terms of dhw from the
+// L2-resident buffer dt[t & 1] [3][R rows][3 Hp], wh's rows of the units by
+// k-chunks), so no partial sums cross a CTA. What bounds it at the bench
+// workload's H = 4096, B = 512: three products of 2 B 3H H = 1.5e11
+// operations a step (0.15 ms at 989 TFLOP/s), and the L2 reads: at the pick
+// (16 octets a slice, 32 slices x 4 row groups of 128 rows, two passes of
+// 64) 9.4 MB of the three terms and 6.3 MB of weight a CTA, 2 GB a step.
+// Step t = T-1 .. 1 of the row group:
+// - the group's barrier (the terms of step t are written);
+// - per item, the product: s, summed smallest first (acc12 + acc0);
+//   dh = d(t) (1 - z) + s and d(t - 1) = dh + dhs[t - 1] into dhw's third
+//   block for the next step and for pass 3, and (t > 1) the three bf16
+//   terms of d(t - 1) [alpha, beta, gamma](t - 1) (split3) into dt[(t - 1) &
+//   1] at columns gate Hp + unit.
+// d(T - 1) = dhs[T - 1] and its terms are written first. Step 0's dh is the
+// cotangent of h0, a constant: no product. Every cotangent stays fp32 (the
+// terms carry its 24 bits). The same thread reads back each d it wrote. No
+// atomics in any sum: the same bits every run.
+template <int MT, int NT>
+__global__ void __launch_bounds__(32 * kGridWarps, 1)
+    gru_bwd_stream_carry_kernel(const bf16* __restrict__ w, const float* __restrict__ dhs,
+                                const float* __restrict__ coef_x, float* __restrict__ coef_h, bf16* __restrict__ dt,
+                                int* __restrict__ ctr, int B, int T, int H, StreamShape S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using F = StreamCarry<MT, NT>;
+  const int O = (H + 7) / 8, Hp = 8 * O, K = 3 * Hp;
+  const size_t H3 = 3 * (size_t)H;
+  const int c = blockIdx.x % S.Uc, grp = blockIdx.x / S.Uc;
+  const int row0 = grp * S.rows, rend = row0 + S.rows, bend = min(rend, B);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const size_t term = (size_t)S.R * S.rows * K;  // one term of one parity of dt [2][3][R rows][K]
+  int* my_ctr = ctr + grp * kCtrStride;
+  const uint64_t policy = evict_first_policy();
+
+  // The three bf16 terms of d (at units j0, j0 + 1 of row b; 0 past H) times
+  // [alpha, beta, gamma](t) into dt[t & 1].
+  auto put_terms = [&](int t, int b, int j0, const float (&d)[2]) {
+    bf16* at = dt + (size_t)(t & 1) * 3 * term + (size_t)b * K + j0;
+    const size_t o = ((size_t)b * T + t) * H3 + j0;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const float* coef = q < 2 ? coef_x + o + q * H : coef_h + o + H;
+      float v[2];
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) v[ii] = j0 + ii < H ? d[ii] * coef[ii] : 0.f;
+      __nv_bfloat162 terms[3];
+      split3(v[0], v[1], terms);
+#pragma unroll
+      for (int e = 0; e < 3; ++e) *reinterpret_cast<__nv_bfloat162*>(at + e * term + q * Hp) = terms[e];
+    }
+  };
+  // d(T - 1) = dhs[T - 1] at this thread's pairs of each item, and its terms.
+  for (int u = c; u < S.U; u += S.Uc) {
+    for (int r0 = row0; r0 < bend; r0 += F::kMc) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int j0 = 8 * (u * F::kOcp + wn * NT + n) + 2 * tq;
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int b = r0 + wm * 16 * MT + 16 * i + g + 8 * rr;
+            if (b >= bend || j0 >= H) continue;
+            const size_t row = (size_t)b * T + T - 1;
+            float d[2] = {0.f, 0.f};
+#pragma unroll
+            for (int ii = 0; ii < 2; ++ii) {
+              if (j0 + ii >= H) break;
+              d[ii] = dhs[row * H + j0 + ii];
+              coef_h[row * H3 + 2 * H + j0 + ii] = d[ii];
+            }
+            if (T > 1) put_terms(T - 1, b, j0, d);
+          }
+        }
+      }
+    }
+  }
+
+  for (int t = T - 1; t > 0; --t) {
+    group_arrive(my_ctr);
+    group_wait(my_ctr, S.Uc * (T - t));  // every CTA of the group has written step t's terms
+    const bf16* dtt = dt + (size_t)(t & 1) * 3 * term;
+    for (int u = c; u < S.U; u += S.Uc) {
+      const int ob = u * F::kOcp, n_oct = min(F::kOcp, O - ob);
+      for (int r0 = row0; r0 < bend; r0 += F::kMc) {
+        float acc0[MT][NT][4] = {}, acc12[MT][NT][4] = {};
+        stream_carry_product<MT, NT>(acc0, acc12, dtt, term, K, r0, rend, w, H, ob, n_oct, smem, policy);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const int j0 = 8 * (ob + wn * NT + n) + 2 * tq;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int b = r0 + wm * 16 * MT + 16 * i + g + 8 * rr;
+              if (b >= bend || j0 >= H) continue;
+              const size_t row = (size_t)b * T + t;
+              float d[2] = {0.f, 0.f};
+#pragma unroll
+              for (int ii = 0; ii < 2; ++ii) {
+                if (j0 + ii >= H) break;
+                const int j = j0 + ii;
+                const float s = acc12[i][n][2 * rr + ii] + acc0[i][n][2 * rr + ii];
+                const float dh = coef_h[row * H3 + 2 * H + j] * coef_h[row * H3 + j] + s;
+                d[ii] = dh + dhs[(row - 1) * H + j];
+                coef_h[(row - 1) * H3 + 2 * H + j] = d[ii];
+              }
+              if (t > 1) put_terms(t - 1, b, j0, d);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int MT, int NT>
+cudaError_t launch_carry_stream(const StreamShape& s, cudaStream_t st, const void* w, const void* dhs,
+                                const void* dxw, void* dhw, void* dt, void* ctr, int B, int T, int H) {
+  return launch_coop(gru_bwd_stream_carry_kernel<MT, NT>, s.Uc * s.R, StreamCarry<MT, NT>::kSmem, st,
+                     static_cast<const bf16*>(w), static_cast<const float*>(dhs), static_cast<const float*>(dxw),
+                     static_cast<float*>(dhw), static_cast<bf16*>(dt), static_cast<int*>(ctr), B, T, H, s);
+}
+
 template <int C>
 cudaError_t launch_carry(const void* wh, const void* dhs, void* dxw, void* dhw, int B, int T, int H, cudaStream_t s) {
   const Layout L = layout(H, C, 3);
@@ -607,13 +755,20 @@ extern "C" int gru_bwd_cluster_size(int B, int H) { return pick_cluster(B, H, 3)
 // Number of partial dwh sums the wrapper allocates ([splits, H, 3H] fp32).
 extern "C" int gru_bwd_splits(int B, int T, int H) { return recurrent_dw::num_splits(B * T, H, 3 * H); }
 
-// The three passes and dwh around `carry`, which launches pass 2 on `s`.
+// The three passes and dwh around `carry`, which launches pass 2 on `s`;
+// ieee (the streamed backward): the gates pass adds each k-step in IEEE
+// fp32, and dwh sums its rows in runs (recurrent_dw::launch's blocked): its
+// one split at H = 4096 chains all B*T = 32,768 rows, which put the bench
+// workload's dwh, after its grad norm climbs at warm-up 0, 1e-5 to 3.4e-5
+// from fp64 on an H100 (the plain version 4e-7; chip_smoke.py's
+// widest_h_warmup0 phase, PERF.md).
 template <class Carry>
 cudaError_t run_passes(const void* xw, const void* wh, const void* hs, void* dxw, void* dhw, void* dwh_partial,
-                       void* dwh, int B, int T, int H, cudaStream_t s, Carry carry) {
+                       void* dwh, int B, int T, int H, cudaStream_t s, Carry carry, bool ieee = false) {
   const int BT = B * T;
   const dim3 gates_grid((BT + kGateRows - 1) / kGateRows, ((H + 7) / 8 + kGateOct - 1) / kGateOct);
-  auto gates = H % 8 == 0 ? gru_bwd_gates_kernel<true> : gru_bwd_gates_kernel<false>;
+  auto gates = ieee ? (H % 8 == 0 ? gru_bwd_gates_kernel<true, true> : gru_bwd_gates_kernel<false, true>)
+                    : (H % 8 == 0 ? gru_bwd_gates_kernel<true, false> : gru_bwd_gates_kernel<false, false>);
   gates<<<gates_grid, kGateThreads, 0, s>>>(static_cast<const float*>(xw), static_cast<const bf16*>(wh),
                                             static_cast<const float*>(hs), static_cast<float*>(dxw),
                                             static_cast<float*>(dhw), BT, T, H);
@@ -626,7 +781,7 @@ cudaError_t run_passes(const void* xw, const void* wh, const void* hs, void* dxw
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return recurrent_dw::launch(static_cast<const float*>(hs), static_cast<const float*>(dhw),
-                              static_cast<float*>(dwh_partial), static_cast<float*>(dwh), B, T, H, 3 * H, s);
+                              static_cast<float*>(dwh_partial), static_cast<float*>(dwh), B, T, H, 3 * H, s, ieee);
 }
 
 extern "C" int gru_bwd(const void* xw, const void* wh, const void* hs, const void* dhs, void* dxw, void* dhw,
@@ -664,4 +819,30 @@ extern "C" int gru_bwd_grid(const void* xw, const void* wh, const void* hs, cons
                        static_cast<const bf16*>(wh), static_cast<const float*>(dhs), static_cast<const float*>(dxw),
                        static_cast<float*>(dhw), static_cast<bf16*>(dt), static_cast<int*>(ctr), B, T, H, g);
   });
+}
+
+// The backward with pass 2 streamed (gru_bwd_stream_carry_kernel), the
+// gates pass's k-steps added in IEEE fp32 and dwh summed in runs, any H >= 1. wh: [H][3H] bf16
+// (the gates pass's); w: wh with its gate blocks Hp =
+// 8 ceil(H / 8) apart, [H][3 Hp] (wh itself where H % 8 == 0); dt: [2][3][R
+// rows][3 Hp] bf16 zeros, ctr: R * 32 int32 zeros (gru_stream_shape(B, H,
+// 1)'s R and rows); both the caller's, left dirty. cudaErrorInvalidValue at
+// H <= 0 or an empty batch.
+extern "C" int gru_bwd_stream(const void* xw, const void* wh, const void* hs, const void* dhs, void* dxw, void* dhw,
+                              void* dwh_partial, void* dwh, const void* w, void* dt, void* ctr, int B, int T, int H,
+                              int device, void* stream) {
+  const StreamShape g = stream_shape(B, H, true);
+  if (g.ocp == 0 || B <= 0 || T <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return run_passes(xw, wh, hs, dxw, dhw, dwh_partial, dwh, B, T, H, s, [&]() {
+    const bool four = g.ocp == 16;  // four octets a warp
+    if (g.mt == 1) {
+      return four ? launch_carry_stream<1, 4>(g, s, w, dhs, dxw, dhw, dt, ctr, B, T, H)
+                  : launch_carry_stream<1, 2>(g, s, w, dhs, dxw, dhw, dt, ctr, B, T, H);
+    }
+    return four ? launch_carry_stream<2, 4>(g, s, w, dhs, dxw, dhw, dt, ctr, B, T, H)
+                : launch_carry_stream<2, 2>(g, s, w, dhs, dxw, dhw, dt, ctr, B, T, H);
+  }, true);
 }

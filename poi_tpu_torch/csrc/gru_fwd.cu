@@ -74,8 +74,13 @@
 // memory, bf16(h) exchanged through an L2-resident buffer behind a step
 // barrier of the row group, any H up to gru_max_hidden() (2064).
 //
-// An H that neither design takes is refused (cudaErrorInvalidValue); the
-// Python wrapper raises a clear error first (ops/fused_gru.py design).
+// Past 2064 no layout holds wh on the chip, and gru_fwd_stream runs
+// gru_fwd_stream_kernel (below, and csrc/grid_stream.cuh): the same
+// grid of row groups, each CTA's z, r, n columns of wh streamed from device
+// memory through a ring of k-chunks every step, any H >= 1.
+//
+// The Python wrapper picks the design (ops/fused_gru.py design); an H <= 0
+// is refused (cudaErrorInvalidValue).
 //
 // The entry point launches on the given stream, does not synchronise and
 // allocates nothing; it returns cudaGetLastError() after the launch.
@@ -84,7 +89,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "grid_carry.cuh"
+#include "grid_stream.cuh"
 
 namespace {
 
@@ -539,7 +544,136 @@ __global__ void __launch_bounds__(32 * kGridWarps, 1)
   }
 }
 
+// ---------------------------------------------------------------- past the grid: the stream
+//
+// gru_fwd_stream_kernel, for the widths past the grid's (grid_stream.cuh has
+// the grid, the ring of k-chunks and the product). What bounds it at the
+// bench workload's H = 4096 (wh [4096, 12288] bf16, 100.7 MB):
+// - B = 512 (training): 2 B H 3H = 5.2e10 operations a step, 53 us at the
+//   tensor cores' 989 TFLOP/s (more on mma.sync); the weight read at least
+//   once a step from device memory, 30 us at 3.35 TB/s; and the L2 reads of
+//   the slices and of bf16(h): at the pick (8 octets a slice, 64 slices x 2
+//   row groups of 256 rows, two passes of 128) 1.57 MB of weight a pass and
+//   2 MB of bf16(h) a CTA, 5.1 MB a CTA and 655 MB a step.
+// - B = 1 to 256 (serving, eval): the weight stream, 64 steps x 100.7 MB =
+//   1.92 ms a call; 4-octet slices put it on 128 SMs where the rows take one
+//   pass.
+// A step: wait on the row group's barrier for h(t - 1); for each item (a
+// unit slice, a pass of 32 mt rows), hw = bf16(h(t - 1)) @ wh's z, r, n
+// columns of the slice (stream_fwd_product: bf16(h) from hbuf[(t - 1) & 1],
+// zero past B and H, and wh's rows by k-chunks, each k-step's product added
+// in IEEE fp32), then the gate update of
+// the grid kernel above (sigmoid_fast, tanh_fast, h = (1 - z) h + z n, the
+// fp32 h(t - 1) read back from hs, which this thread wrote), fp32 h out to
+// hs and bf16(h) to hbuf[t & 1]; then arrive. w is wh with its gate blocks
+// Hp apart (Hp = 8 ceil(H / 8): the wrapper pads them where H % 8 != 0).
+// Padded steps: z = 0 exactly from the folded -1e9, so h passes through. No
+// atomics: a second launch gives the same bits.
+template <int MT, int NO>
+__global__ void __launch_bounds__(32 * kGridWarps, 1)
+    gru_fwd_stream_kernel(const float* __restrict__ xw, const bf16* __restrict__ w, float* __restrict__ hs,
+                          bf16* __restrict__ hbuf, int* __restrict__ ctr, int B, int T, int H, StreamShape S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using F = StreamFwd<3, MT, NO>;
+  const int O = (H + 7) / 8, Hp = 8 * O, Hk = (H + 15) / 16 * 16;
+  const size_t H3 = 3 * (size_t)H;
+  const int c = blockIdx.x % S.Uc, grp = blockIdx.x / S.Uc;
+  const int row0 = grp * S.rows, rend = row0 + S.rows, bend = min(rend, B);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const size_t buf = (size_t)S.R * S.rows * Hk;  // one parity of hbuf [2][R rows][Hk]
+  int* my_ctr = ctr + grp * kCtrStride;
+  const uint64_t policy = evict_first_policy();
+
+  for (int t = 0; t < T; ++t) {
+    if (t > 0) group_wait(my_ctr, S.Uc * t);  // every CTA of the group has written h(t - 1)
+    const bf16* hb = hbuf + ((t - 1) & 1) * buf;
+    bf16* hn = hbuf + (t & 1) * buf;
+    for (int u = c; u < S.U; u += S.Uc) {
+      const int ob = u * F::kOcp, n_oct = min(F::kOcp, O - ob);
+      for (int r0 = row0; r0 < bend; r0 += F::kMc) {
+        float acc[MT][NO][3][4] = {};
+        if (t > 0) {  // h(-1) = 0
+          stream_fwd_product<3, MT, NO>(acc, hb, Hk, r0, rend, w, 3 * (size_t)Hp, Hp, H, ob, n_oct, smem, policy);
+        }
+        // The gate update: accumulator element 2 rr + ii is (row g + 8 rr, unit 2 tq + ii) of the tile.
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+#pragma unroll
+          for (int o = 0; o < NO; ++o) {
+            const int j0 = 8 * (ob + wn * NO + o) + 2 * tq;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int b = r0 + wm * 16 * MT + 16 * i + g + 8 * rr;
+              if (b >= bend || j0 >= H) continue;
+              const size_t xo = ((size_t)b * T + t) * H3 + j0, ho = ((size_t)b * T + t) * H + j0;
+              float h[2] = {0.f, 0.f};
+#pragma unroll
+              for (int ii = 0; ii < 2; ++ii) {
+                if (j0 + ii >= H) break;
+                const int ci = 2 * rr + ii;
+                const float z = sigmoid_fast(xw[xo + ii] + acc[i][o][0][ci]);
+                const float rg = sigmoid_fast(xw[xo + H + ii] + acc[i][o][1][ci]);
+                const float n = tanh_fast(xw[xo + 2 * H + ii] + rg * acc[i][o][2][ci]);
+                const float hp = t > 0 ? hs[ho - H + ii] : 0.f;
+                h[ii] = (1.0f - z) * hp + z * n;
+                hs[ho + ii] = h[ii];
+              }
+              if (t + 1 < T) *reinterpret_cast<uint32_t*>(hn + (size_t)b * Hk + j0) = pack_bf16(h[0], h[1]);
+            }
+          }
+        }
+      }
+    }
+    if (t + 1 < T) group_arrive(my_ctr);
+  }
+}
+
+template <int MT, int NO>
+cudaError_t launch_fwd_stream(const StreamShape& s, cudaStream_t st, const void* xw, const void* w, void* hs,
+                              void* hbuf, void* ctr, int B, int T, int H) {
+  return launch_coop(gru_fwd_stream_kernel<MT, NO>, s.Uc * s.R, StreamFwd<3, MT, NO>::kSmem, st,
+                     static_cast<const float*>(xw), static_cast<const bf16*>(w), static_cast<float*>(hs),
+                     static_cast<bf16*>(hbuf), static_cast<int*>(ctr), B, T, H, s);
+}
+
 }  // namespace
+
+// The grid the streamed kernels run a batch of B rows of width H on (the
+// forward's, bwd = 0, or the carry's): out[0..5] = octets a slice, unit
+// slices, CTAs a row group, row groups, rows a group, mt (32 mt rows a
+// pass). Returns 0 (out untouched) at H <= 0.
+extern "C" int gru_stream_shape(int B, int H, int bwd, int* out) {
+  const StreamShape s = stream_shape(B, H, bwd != 0);
+  if (s.ocp == 0) return 0;
+  const int v[6] = {s.ocp, s.U, s.Uc, s.R, s.rows, s.mt};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 1;
+}
+
+// The forward streamed (gru_fwd_stream_kernel), any H >= 1. w: wh with its
+// gate blocks Hp = 8 ceil(H / 8) apart, [H][3 Hp] bf16 (wh itself where H %
+// 8 == 0); hbuf: [2][R rows][Hk] bf16 zeros, ctr: R * 32 int32 zeros
+// (gru_stream_shape's R and rows); both the caller's, left dirty.
+// cudaErrorInvalidValue at H <= 0.
+extern "C" int gru_fwd_stream(const void* xw, const void* w, void* hs, void* hbuf, void* ctr, int B, int T, int H,
+                              int device, void* stream) {
+  const StreamShape s = stream_shape(B, H, false);
+  if (s.ocp == 0) return cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool two = s.ocp == 8;  // two octets a warp
+  switch (s.mt) {
+    case 1: return two ? launch_fwd_stream<1, 2>(s, st, xw, w, hs, hbuf, ctr, B, T, H)
+                       : launch_fwd_stream<1, 1>(s, st, xw, w, hs, hbuf, ctr, B, T, H);
+    case 2: return two ? launch_fwd_stream<2, 2>(s, st, xw, w, hs, hbuf, ctr, B, T, H)
+                       : launch_fwd_stream<2, 1>(s, st, xw, w, hs, hbuf, ctr, B, T, H);
+    default: return two ? launch_fwd_stream<4, 2>(s, st, xw, w, hs, hbuf, ctr, B, T, H)
+                        : launch_fwd_stream<4, 1>(s, st, xw, w, hs, hbuf, ctr, B, T, H);
+  }
+}
 
 // The grid the grid-resident kernels run a batch of B rows of width H on
 // (the forward's, bwd = 0, or the backward carry's): out[0..3] = octets a
@@ -555,8 +689,9 @@ extern "C" int gru_grid_shape(int B, int H, int bwd, int* out) {
   return 1;
 }
 
-// The widest H the GRU pair takes, every narrower one with it: the cluster
-// kernels up to 640, the grid-resident ones past it (both directions).
+// The widest H the GRU pair's cluster and grid-resident kernels take, every
+// narrower one with it: the clusters up to 640, the grid past it (both
+// directions); the streamed kernels take every H past it.
 extern "C" int gru_max_hidden() {
   static int limit = -1;
   if (limit < 0) {

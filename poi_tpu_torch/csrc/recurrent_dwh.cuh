@@ -28,7 +28,11 @@ constexpr int kK = 32;         // B*T rows per smem stage
 constexpr int kThreads = 256;  // 16 x 16, 4 x 4 outputs each
 
 // partial[s][k][c] = sum over rows i of chunk s of h_prev[i][k] * d[i][c],
-// where row i = b*T + t and h_prev[i] = hs[i-1] (0 where t == 0).
+// where row i = b*T + t and h_prev[i] = hs[i-1] (0 where t == 0). kBlock >
+// 0 sums each run of kBlock stages (kBlock kK rows) in its own chain and
+// adds the runs' sums in a second one, so that no fp32 chain is longer than
+// kBlock kK or chunk / (kBlock kK) terms; 0 keeps one chain of the chunk.
+template <int kBlock>
 __global__ void __launch_bounds__(kThreads)
     partial_kernel(const float* __restrict__ hs, const float* __restrict__ d, float* __restrict__ partial, int BT,
                    int T, int H, int N, int chunk) {
@@ -40,7 +44,8 @@ __global__ void __launch_bounds__(kThreads)
   const int i_end = min(BT, i_begin + chunk);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  float acc[4][4] = {};
+  float acc[4][4] = {}, runs[4][4] = {};
+  int stage = 0;
   for (int i0 = i_begin; i0 < i_end; i0 += kK) {
     for (int e = threadIdx.x; e < kK * kTile; e += kThreads) {
       const int ii = e / kTile, col = e % kTile;
@@ -64,6 +69,20 @@ __global__ void __launch_bounds__(kThreads)
         for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(a[m], bb[n], acc[m][n]);
     }
     __syncthreads();
+    if constexpr (kBlock > 0) {
+      if (++stage % kBlock == 0) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n) runs[m][n] += acc[m][n], acc[m][n] = 0.f;
+      }
+    }
+  }
+  if constexpr (kBlock > 0) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) acc[m][n] += runs[m][n];
   }
   float* out = partial + (size_t)blockIdx.z * H * N;
 #pragma unroll
@@ -78,8 +97,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void reduce_kernel(const float* __restrict__ partial, float* __restrict__ dw, int n, int splits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void reduce_kernel(const float* __restrict__ partial, float* __restrict__ dw, long long n, int splits) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
   for (int z = 0; z < splits; ++z) s += partial[(size_t)z * n + i];
@@ -106,17 +125,23 @@ inline int num_splits(int BT, int H, int N) {
 }
 
 // Launches the partial product and the ordered reduce on `s`; dw [H, N].
+// blocked: partial_kernel<kRunStages>, runs of kRunStages stages summed apart
+// (the GRU's streamed backward, past H = 2064, where one split sums all B*T
+// = 32,768 rows of the bench workload).
+constexpr int kRunStages = 8;
+
 inline cudaError_t launch(const float* hs, const float* d, float* partial, float* dw, int B, int T, int H, int N,
-                          cudaStream_t s) {
+                          cudaStream_t s, bool blocked = false) {
   const int BT = B * T;
   const int chunk = chunk_rows(BT, H, N);
   const int splits = (BT + chunk - 1) / chunk;
   const dim3 grid((N + kTile - 1) / kTile, (H + kTile - 1) / kTile, splits);
-  partial_kernel<<<grid, kThreads, 0, s>>>(hs, d, partial, BT, T, H, N, chunk);
+  auto partial_fn = blocked ? partial_kernel<kRunStages> : partial_kernel<0>;
+  partial_fn<<<grid, kThreads, 0, s>>>(hs, d, partial, BT, T, H, N, chunk);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const int n = H * N;
-  reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(partial, dw, n, splits);
+  const long long n = (long long)H * N;
+  reduce_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(partial, dw, n, splits);
   return cudaGetLastError();
 }
 

@@ -29,9 +29,13 @@ Past 640 no cluster holds wh, and the serial kernels run on the whole card
 (``grid_shape``): R row groups x U unit slices, one block an SM, each
 block's slice of wh in its shared memory, the operand a step needs
 exchanged through an L2-resident buffer behind a step barrier of the row
-group (``gru_fwd_grid``, ``gru_bwd_grid``). The pair takes any H up to
-``MAX_HIDDEN``, the C side's ``gru_max_hidden()``; ``design`` is the
-dispatch, in Python so that the CPU tests hold it.
+group (``gru_fwd_grid``, ``gru_bwd_grid``), up to ``MAX_HIDDEN`` (2064),
+the C side's ``gru_max_hidden()``. Past it no slice of wh fits a block, and
+the serial kernels stream wh from device memory every step through a ring
+of k-chunks in shared memory, on the same grid of row groups
+(``stream_shape``; ``gru_fwd_stream``, ``gru_bwd_stream``). So the pair
+takes any H >= 1; ``design`` is the dispatch, in Python so that the CPU
+tests hold it.
 """
 
 from __future__ import annotations
@@ -68,16 +72,39 @@ def grid_shape(B: int, H: int, bwd: bool) -> tuple[int, int, int, int] | None:
     return grid.grid_shape(B, H, bwd, GATES)
 
 
-# The widest H the pair takes (``gru_max_hidden()`` in csrc/gru_fwd.cu).
+def stream_shape(B: int, H: int, bwd: bool) -> tuple[int, int, int, int, int, int] | None:
+    """The grid of the streamed kernel for ``B`` rows of width ``H`` (the
+    forward's, or with ``bwd`` the carry's), as ``gru_stream_shape`` picks
+    it: ``(ocp, U, Uc, R, rows, mt)`` (``grid.stream_shape``)."""
+    return grid.stream_shape(B, H, bwd)
+
+
+# The widest H of the grid-resident kernels (``gru_max_hidden()`` in
+# csrc/gru_fwd.cu); the streamed kernels take every H past it.
 MAX_HIDDEN = grid.max_hidden(CLUSTER_MAX_HIDDEN, GATES)
-TAKES_H = (f"H <= {MAX_HIDDEN} (gru_max_hidden()): on a cluster of 1, 2, 4, 8 or 16 blocks a group of batch "
-           f"rows up to H = {CLUSTER_MAX_HIDDEN}, on a grid of row groups x unit slices, one block an SM, past it")
+TAKES_H = (f"H >= 1: on a cluster of 1, 2, 4, 8 or 16 blocks a group of batch rows up to H = {CLUSTER_MAX_HIDDEN}, "
+           f"on a grid of row groups x unit slices, one block an SM, each block's slice of wh in shared memory up to "
+           f"H = {MAX_HIDDEN} (gru_max_hidden()), and past it on that grid with wh streamed from device memory "
+           f"every step")
 
 
 def design(H: int) -> str:
     """Which kernels run width ``H``: ``"cluster"`` up to 640, ``"grid"``
-    past it; raises past ``MAX_HIDDEN``, naming it."""
-    return grid.design(H, CLUSTER_MAX_HIDDEN, MAX_HIDDEN, f"GRU: H={H} is not taken by the kernels: {TAKES_H}")
+    past it up to ``MAX_HIDDEN`` (2064), ``"stream"`` past that; raises at
+    H <= 0."""
+    return grid.design(H, CLUSTER_MAX_HIDDEN, MAX_HIDDEN, f"GRU: H={H} is not taken by the kernels: {TAKES_H}",
+                       stream=True)
+
+
+def stream_weight(wh: torch.Tensor) -> torch.Tensor:
+    """wh as the streamed kernels read it: its gate blocks ``Hp`` = 8
+    ceil(H / 8) apart, ``[H, 3 Hp]`` with zero columns past H in each block,
+    so that each unit octet of a row is 16 aligned bytes; wh itself where H
+    % 8 == 0."""
+    H = wh.shape[0]
+    if H % 8 == 0:
+        return wh
+    return torch.nn.functional.pad(wh.view(H, GATES, H), (0, -H % 8)).reshape(H, -1)
 
 
 def gru_scan_reference(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
@@ -85,16 +112,18 @@ def gru_scan_reference(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
 
     ``h`` is rounded to ``wh``'s dtype before the recurrent product, which
     sums in fp32: with bf16 ``wh`` that is the kernel's arithmetic, with fp32
-    ``wh`` the JAX scan cell's at ``compute_dtype="float32"``.
+    ``wh`` the JAX scan cell's at ``compute_dtype="float32"``. An fp64 ``xw``
+    runs the whole step in fp64 (the card's measure of the kernel's sums).
     """
     B, T, H3 = xw.shape
     H = H3 // 3
-    xw = xw.float()
-    w = wh.float()
+    dt = torch.float64 if xw.dtype == torch.float64 else torch.float32
+    xw = xw.to(dt)
+    w = wh.to(dt)
     h = xw.new_zeros(B, H)
     hs = []
     for t in range(T):
-        hw = h.to(wh.dtype).float() @ w
+        hw = h.to(wh.dtype).to(dt) @ w
         x_t = xw[:, t]
         z = torch.sigmoid(x_t[:, :H] + hw[:, :H])
         r = torch.sigmoid(x_t[:, H:2 * H] + hw[:, H:2 * H])
@@ -120,20 +149,24 @@ def fused_gru_scan(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"fused_gru_scan: need xw float32 and wh bfloat16, got {xw.dtype}, {wh.dtype}")
     B, T, H3 = xw.shape
     H = H3 // 3
-    grid = design(H) == "grid"
+    kind = design(H)
     lib = _build.library()
     xw = xw.contiguous()
     wh = wh.contiguous()
     dev = xw.device
     hs = torch.empty(B, T, H, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if grid:
-        _, _, R, rows = grid_shape(B, H, False)
+    if kind in ("grid", "stream"):
+        R, rows = stream_shape(B, H, False)[3:5] if kind == "stream" else grid_shape(B, H, False)[2:]
         # bf16(h) by step parity, zero past B and H; the row groups' step counters.
         hbuf = torch.zeros(2, R * rows, (H + 15) // 16 * 16, dtype=torch.bfloat16, device=dev)
         ctr = torch.zeros(R * 32, dtype=torch.int32, device=dev)
-        rc = lib.gru_fwd_grid(xw.data_ptr(), wh.data_ptr(), hs.data_ptr(), hbuf.data_ptr(), ctr.data_ptr(), B, T, H,
-                              dev.index, stream)
+        if kind == "stream":
+            rc = lib.gru_fwd_stream(xw.data_ptr(), stream_weight(wh).data_ptr(), hs.data_ptr(), hbuf.data_ptr(),
+                                    ctr.data_ptr(), B, T, H, dev.index, stream)
+        else:
+            rc = lib.gru_fwd_grid(xw.data_ptr(), wh.data_ptr(), hs.data_ptr(), hbuf.data_ptr(), ctr.data_ptr(), B, T,
+                                  H, dev.index, stream)
     else:
         rc = lib.gru_fwd(xw.data_ptr(), wh.data_ptr(), hs.data_ptr(), B, T, H, 0, dev.index, stream)
     _build.check(rc, "gru_fwd launch")
@@ -150,18 +183,19 @@ def gru_bwd_reference(xw: torch.Tensor, wh: torch.Tensor, hs: torch.Tensor, dhs:
 
     The gates are recomputed with ``h_prev`` rounded to ``wh``'s dtype, as in
     ``gru_scan_reference``. Returns ``(dxw [B, T, 3H], dwh [H, 3H])``, both
-    fp32.
+    fp32 (fp64 for an fp64 ``xw``, which runs the whole loop in fp64).
     """
     B, T, H3 = xw.shape
     H = H3 // 3
-    xw, hs, dhs = xw.float(), hs.float(), dhs.float()
-    w = wh.float()
+    dt = torch.float64 if xw.dtype == torch.float64 else torch.float32
+    xw, hs, dhs = xw.to(dt), hs.to(dt), dhs.to(dt)
+    w = wh.to(dt)
     dh = xw.new_zeros(B, H)
     dxw = torch.empty_like(xw)
     dwh = xw.new_zeros(H, H3)
     for t in range(T - 1, -1, -1):
         h_prev = hs[:, t - 1] if t > 0 else xw.new_zeros(B, H)
-        hw = h_prev.to(wh.dtype).float() @ w
+        hw = h_prev.to(wh.dtype).to(dt) @ w
         x_t = xw[:, t]
         z = torch.sigmoid(x_t[:, :H] + hw[:, :H])
         r = torch.sigmoid(x_t[:, H:2 * H] + hw[:, H:2 * H])
@@ -199,7 +233,7 @@ def fused_gru_bwd(xw: torch.Tensor, wh: torch.Tensor, hs: torch.Tensor, dhs: tor
     if wh.dtype != torch.bfloat16 or any(t.dtype != torch.float32 for t in (xw, hs, dhs)):
         raise TypeError(f"fused_gru_bwd: need wh bfloat16 and xw, hs, dhs float32; got "
                         f"{[t.dtype for t in tensors]}")
-    grid = design(H) == "grid"
+    kind = design(H)
     lib = _build.library()
     dev = xw.device
     dxw = torch.empty(B, T, H3, dtype=torch.float32, device=dev)
@@ -212,12 +246,18 @@ def fused_gru_bwd(xw: torch.Tensor, wh: torch.Tensor, hs: torch.Tensor, dhs: tor
     args = (xw.data_ptr(), wh.data_ptr(), hs.data_ptr(), dhs.data_ptr(), dxw.data_ptr(), dhw.data_ptr(),
             partial.data_ptr(), dwh.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if grid:
-        _, _, R, rows = grid_shape(B, H, True)
-        # The three bf16 terms of dhw by step parity, zero past B and 3H; the row groups' step counters.
-        dt = torch.zeros(2, 3, R * rows, (3 * H + 15) // 16 * 16, dtype=torch.bfloat16, device=dev)
+    if kind in ("grid", "stream"):
+        R, rows = stream_shape(B, H, True)[3:5] if kind == "stream" else grid_shape(B, H, True)[2:]
+        # The three bf16 terms of dhw by step parity, zero past B and 3H (the streamed carry's gate blocks 8
+        # ceil(H / 8) apart, zero past H in each); the row groups' step counters.
+        cols = 3 * (-(-H // 8) * 8) if kind == "stream" else (3 * H + 15) // 16 * 16
+        dt = torch.zeros(2, 3, R * rows, cols, dtype=torch.bfloat16, device=dev)
         ctr = torch.zeros(R * 32, dtype=torch.int32, device=dev)
-        rc = lib.gru_bwd_grid(*args, dt.data_ptr(), ctr.data_ptr(), B, T, H, dev.index, stream)
+        if kind == "stream":
+            rc = lib.gru_bwd_stream(*args, stream_weight(wh).data_ptr(), dt.data_ptr(), ctr.data_ptr(), B, T, H,
+                                    dev.index, stream)
+        else:
+            rc = lib.gru_bwd_grid(*args, dt.data_ptr(), ctr.data_ptr(), B, T, H, dev.index, stream)
     else:
         rc = lib.gru_bwd(*args, B, T, H, dev.index, stream)
     _build.check(rc, "gru_bwd launch")

@@ -1,12 +1,15 @@
-"""The grid the recurrences' grid-resident serial kernels run on
-(``csrc/grid_carry.cuh``), mirrored in Python so that the wrappers' dispatch
-and buffers, and the CPU tests, hold it without the card.
+"""The grids the recurrences' serial kernels run on past the clusters
+(``csrc/grid_carry.cuh``, ``csrc/grid_stream.cuh``), mirrored in Python so
+that the wrappers' dispatch and buffers, and the CPU tests, hold them
+without the card.
 
 Past the widths a cluster holds, a kernel runs on R row groups x U unit
 slices, one block an SM: block (r, u) keeps the slice of the recurrent
-weight for its unit octets in shared memory. ``G`` is the weight's gate
-blocks: 3 for the GRU (``fused_gru``), 4 for the LSTM (``fused_lstm``), 1
-for the RNN (``fused_rnn``).
+weight for its unit octets in shared memory (``grid_shape``). Past the
+widths whose slices fit, the streamed kernels read the weight from device
+memory every step through a ring of k-chunks (``stream_shape``). ``G`` is
+the weight's gate blocks: 3 for the GRU (``fused_gru``), 4 for the LSTM
+(``fused_lstm``), 1 for the RNN (``fused_rnn``).
 """
 
 from __future__ import annotations
@@ -61,12 +64,40 @@ def max_hidden(cluster_max: int, G: int) -> int:
     return H
 
 
-def design(H: int, cluster_max: int, limit: int, refusal: str) -> str:
+def stream_shape(B: int, H: int, bwd: bool) -> tuple[int, int, int, int, int, int] | None:
+    """The grid of the streamed kernel for ``B`` rows of width ``H`` (the
+    forward's, or with ``bwd`` the carry's), as ``stream_shape`` in
+    ``csrc/grid_stream.cuh`` picks it: ``(ocp, U, Uc, R, rows, mt)``,
+    octets a unit slice, unit slices, blocks a row group (``min(U, 132)``:
+    a block takes slices ``c, c + Uc, ...``), row groups (as many as the
+    other SMs hold, no more than the batch has 16-row tiles), rows a group,
+    and ``mt`` (a block's rows go in passes of ``32 mt``). The forward takes
+    slices of 4 octets where a group's rows take one pass of at most 128,
+    else 8; the carry 8 where they take one pass of at most 64, else 16
+    (the header says why). ``None`` at H <= 0."""
+    if H <= 0:
+        return None
+    O, tiles = -(-H // 8), (-(-B // 16) if B > 0 else 1)
+    for c in (8, 16) if bwd else (4, 8):
+        U = -(-O // c)
+        Uc = min(U, SMS)
+        per = -(-tiles // max(1, min(SMS // Uc, tiles)))
+        R, rows = -(-tiles // per), 16 * per
+        if rows <= (64 if bwd else 128):
+            break
+    mt = 1 if rows <= 32 else 2 if bwd or rows <= 64 else 4
+    return c, U, Uc, R, rows, mt
+
+
+def design(H: int, cluster_max: int, limit: int, refusal: str, stream: bool = False) -> str:
     """Which kernels run width ``H``: ``"cluster"`` up to ``cluster_max``,
-    ``"grid"`` past it up to ``limit``; past it (or at H <= 0) raises
-    ``ValueError(refusal)``."""
+    ``"grid"`` past it up to ``limit``, and past it ``"stream"`` where the
+    pair has streamed kernels (``stream``); any other H (H <= 0, or past
+    ``limit`` without them) raises ``ValueError(refusal)``."""
     if 0 < H <= cluster_max:
         return "cluster"
     if cluster_max < H <= limit:
         return "grid"
+    if stream and H > limit:
+        return "stream"
     raise ValueError(refusal)

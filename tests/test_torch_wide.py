@@ -34,10 +34,11 @@ from poi_tpu_torch.train.loop import Trainer
 
 torch.set_num_threads(1)
 
-# The widest H the pair takes: csrc/gru_fwd.cu's gru_max_hidden(), which
-# chip_smoke.py holds to fused_gru.MAX_HIDDEN on the card. At 2064 the
-# forward's slice of two octets ([2064][56] bf16, 231,168 bytes) still fits
-# a block's 232,448; at 2065 one octet a block would need 259 blocks.
+# The widest H of the grid-resident kernels: csrc/gru_fwd.cu's
+# gru_max_hidden(), which chip_smoke.py holds to fused_gru.MAX_HIDDEN on the
+# card. At 2064 the forward's slice of two octets ([2064][56] bf16, 231,168
+# bytes) still fits a block's 232,448; at 2065 one octet a block would need
+# 259 blocks. Past it the streamed kernels take every H.
 EXPECTED_MAX_HIDDEN = 2064
 # The forward at the valid steps, absolute (tests/test_torch_gru.py's ATOL),
 # and the backward relative to each output's largest element
@@ -47,15 +48,53 @@ ATOL = 1e-5
 REL_TOL = 1e-5
 
 
-def test_design_picks_cluster_to_640_grid_past_it_and_refuses_past_the_limit():
+@pytest.mark.parametrize("H, want", [
+    *((H, "cluster") for H in (1, 64, 639, 640)),
+    *((H, "grid") for H in (641, 648, 768, 1024, 2048, EXPECTED_MAX_HIDDEN)),
+    *((H, "stream") for H in (EXPECTED_MAX_HIDDEN + 1, 4096, 8192)),
+    (0, None), (-8, None),
+])
+def test_design_picks_cluster_to_640_grid_past_it_and_refuses_past_the_limit(H, want):
+    """The three-way dispatch: clusters to 640, the grid to
+    ``gru_max_hidden()`` (2064), the streamed kernels past it; only H <= 0
+    raises, naming the designs. No grid takes a width past the limit, and
+    every H >= 1 has a streamed grid."""
     assert fused_gru.CLUSTER_MAX_HIDDEN == 640 and fused_gru.MAX_HIDDEN == EXPECTED_MAX_HIDDEN
-    assert [fused_gru.design(H) for H in (1, 64, 639, 640)] == ["cluster"] * 4
-    assert [fused_gru.design(H) for H in (641, 648, 768, 1024, 2048, EXPECTED_MAX_HIDDEN)] == ["grid"] * 6
-    for H in (0, EXPECTED_MAX_HIDDEN + 1, 4096):
-        with pytest.raises(ValueError, match=rf"H={H} is not taken by the kernels: H <= {EXPECTED_MAX_HIDDEN} "
-                                              rf"\(gru_max_hidden\(\)\)"):
+    if want is None:
+        with pytest.raises(ValueError, match=rf"H={H} is not taken by the kernels: H >= 1: .* up to H = "
+                                              rf"{EXPECTED_MAX_HIDDEN} \(gru_max_hidden\(\)\)"):
             fused_gru.design(H)
-    assert fused_gru.grid_shape(1, EXPECTED_MAX_HIDDEN + 1, False) is None
+        assert fused_gru.stream_shape(1, H, False) is None and fused_gru.stream_shape(1, H, True) is None
+        return
+    assert fused_gru.design(H) == want
+    assert fused_gru.stream_shape(1, H, False) is not None and fused_gru.stream_shape(512, H, True) is not None
+    if want == "stream":
+        assert fused_gru.grid_shape(1, H, False) is None
+
+
+# The streamed grid (ocp, U, Uc, R, rows, mt) at the widest-H bench path's
+# shapes (H = 4096: train at B = 512, eval at 32, serving at 1 and 256),
+# config #4's batch at 4096, a ragged width just past the grid, and 8192.
+@pytest.mark.parametrize("B, H, bwd, want", [
+    (512, 4096, False, (8, 64, 64, 2, 256, 4)),   # the path's forward: two row groups, two passes of 128 rows
+    (512, 4096, True, (16, 32, 32, 4, 128, 2)),   # its carry: four row groups, two passes of 64 rows
+    (32, 4096, False, (4, 128, 128, 1, 32, 1)),   # the eval batch: 4-octet slices on 128 blocks, one pass
+    (1, 4096, False, (4, 128, 128, 1, 16, 1)),    # serving at batch 1
+    (256, 4096, False, (8, 64, 64, 2, 128, 4)),   # serving at batch 256: one pass of 128
+    (64, 4096, False, (4, 128, 128, 1, 64, 2)),   # config #4's batch
+    (64, 4096, True, (8, 64, 64, 2, 32, 1)),
+    (24, 2065, False, (4, 65, 65, 2, 16, 1)),     # ragged, just past the grid
+    (24, 2065, True, (8, 33, 33, 2, 16, 1)),
+    (16, 8192, False, (4, 256, 132, 1, 16, 1)),   # more slices than SMs: a block takes two
+    (16, 8192, True, (8, 128, 128, 1, 16, 1)),
+])
+def test_stream_shape(B, H, bwd, want):
+    got = fused_gru.stream_shape(B, H, bwd)
+    assert got == want
+    ocp, U, Uc, R, rows, mt = got
+    assert Uc * R <= fused_gru.SMS and R * rows >= B and (R - 1) * rows < max(B, 1) and U * ocp >= -(-H // 8)
+    assert -(-rows // (32 * mt)) <= 2 and (rows <= 32 * mt or mt == (2 if bwd else 4))
+    assert ocp in ((8, 16) if bwd else (4, 8))
 
 
 @pytest.mark.parametrize("B, H, bwd, want", [
