@@ -52,6 +52,13 @@ with its plain PyTorch version on the card. Then it drives the paths:
   them, B7 and B8 at D = 1100, 1280, 2048 and 4096, B9 and B10 at 1100,
   1280 and 2048, B11 at 1100, 2048 and 4096, and D = 1025 taken by all
   five;
+- the widest-H paths (the bench workload and configs #2 and #3 at H =
+  4096 over their own D = 128: the recurrences past their grids on the
+  streamed-weight kernels), the same way, and one kernel-path run each at
+  warm-up 0 with the recurrence's calls held on their own inputs against
+  fp64; before them, B1-B6 on their streamed kernels at the paths' shapes,
+  just past each grid and at 8192; and C2's hold: the grid backward of the
+  wide and widest paths on their own climbing inputs against fp64;
 - config #5 on one card (``multihost_1m --set mesh.model=1
   mesh.embedding_mode=psum data.min_poi_checkins=1 data.val_fraction=0.05``:
   GRU 512-d + 8-head attention, T=64, batch 512, sampled softmax over 4,096
@@ -475,6 +482,31 @@ GRU_STREAM_PICK_BATCHES = (1, 7, 24, 32, 64, 256, 512, 1100)
 # gates pass, streamed carry, outputs and dwh.
 GRU_FWD_STREAM_KERNELS = ("gru_fwd_stream_kernel",)
 GRU_BWD_STREAM_KERNELS = ("gru_bwd_gates", "gru_bwd_stream_carry", "gru_bwd_outputs", "recurrent_dw")
+# B3/B4 and B5/B6 past their grids' 1600 and 3168, on the streamed kernels
+# (B, T, H): the widest-H paths' train shapes (config #2 at H = 4096, config
+# #3 at 4096: both directions timed, the sums held against fp64), serving
+# batches 1 and 256 (the forward timed beside cuDNN), 24 rows just past each
+# grid (ragged: 1601, 3169; B no multiple of 16), and 16 rows at 8192.
+LSTM_STREAM_H4096 = (64, 64, 4096)
+LSTM_STREAM_SHAPES = (LSTM_STREAM_H4096, (1, 64, 4096), (256, 64, 4096), (24, 8, 1601), (16, 4, 8192))
+LSTM_STREAM_TIMED = {LSTM_STREAM_H4096: "", (1, 64, 4096): "_b1", (256, 64, 4096): "_b256"}
+RNN_STREAM_H4096 = (64, 32, 4096)
+RNN_STREAM_SHAPES = (RNN_STREAM_H4096, (1, 32, 4096), (256, 32, 4096), (24, 8, 3169), (16, 4, 8192))
+RNN_STREAM_TIMED = {RNN_STREAM_H4096: "", (1, 32, 4096): "_b1", (256, 32, 4096): "_b256"}
+# The widths and batches at which the LSTM's and the RNN's streamed grids'
+# Python mirrors (stream_shape) are held to the C side's.
+REC_STREAM_PICK_WIDTHS = (1, 100, 1600, 1601, 1602, 3168, 3169, 3170, 4096, 6000, 8192, 16384)
+REC_STREAM_PICK_BATCHES = (1, 7, 24, 64, 128, 256, 512, 1100)
+# The streamed kernels on the grids' inputs (B, T, H), beside the grid's
+# device time: the wide paths' shapes (H = 1024) and the grids' limits at
+# the configs' batch and length.
+LSTM_STREAM_ON_GRID = ((64, 64, 1024), (64, 64, 1600))
+RNN_STREAM_ON_GRID = ((64, 32, 1024), (64, 32, 3168))
+# The kernels of B3's, B4's, B5's and B6's calls past the grids.
+LSTM_FWD_STREAM_KERNELS = ("lstm_fwd_stream_kernel",)
+LSTM_BWD_STREAM_KERNELS = ("lstm_bwd_gates", "lstm_bwd_stream_carry", "recurrent_dw")
+RNN_FWD_STREAM_KERNELS = ("rnn_fwd_stream_kernel",)
+RNN_BWD_STREAM_KERNELS = ("rnn_bwd_coef", "rnn_bwd_stream_carry", "recurrent_dw")
 # B2 at widths that are no multiple of 16 (B, H, blocks a row group that the
 # kernel picks for them): H = 100 on one block, at a batch whose 69 row groups
 # would not fit on the card on clusters of 2, and H = 200 on a cluster.
@@ -766,13 +798,14 @@ def gru_bwd_bound(xw, wh, hs, dhs, outs) -> dict:
     return bound((xw, wh, hs, dhs), outs, bf16_flop=4 * flop, fp32_flop=flop)
 
 
-def lstm_bwd_bound(x, mask, w, carries, dhs, outs) -> dict:
-    """B4's bound, counted as the kernel runs it: the gate recompute and the
-    carry product on the tensor cores, the carry's fp32 cotangent as three
-    exact bf16 products (so four products of 2 * B * T * H * 4H FLOPs), and
-    dwh's fp32 product on the CUDA cores."""
+def rec_bwd_bound(x, mask, w, carries, dhs, outs) -> dict:
+    """B4's and B6's bound, counted as the kernels run it: the recompute
+    (B4's gates, B6's coefficients) and the carry product on the tensor
+    cores, the carry's fp32 cotangent as three exact bf16 products (so four
+    products of 2 * B * T * H * G FLOPs, G = w's 4H or H columns), and
+    dwh's (dC's) fp32 product on the CUDA cores."""
     B, T, H = carries[0].shape
-    flop = 2 * B * T * H * 4 * H
+    flop = 2 * B * T * H * w.shape[1]
     return bound((x, mask, w, *carries, dhs), outs, bf16_flop=4 * flop, fp32_flop=flop)
 
 
@@ -1592,6 +1625,36 @@ def pool_recurrence_device_phase(sampled: dict, lstm: dict, rnn: dict, gpu: str,
     rnn_cluster_choice(gpu)
 
 
+def rec_stream_device_phase(lstm_stream: dict, rnn_stream: dict, gpu: str) -> dict:
+    """Device time by kernel of B3-B6's streamed kernels on the inputs the
+    ``lstm_stream`` and ``rnn_stream`` phases timed (the forwards at
+    ``LSTM_STREAM_TIMED`` / ``RNN_STREAM_TIMED``, the backwards at the
+    widest-H paths' train shapes); then both designs on the grids' inputs
+    (``rec_stream_at_grid_widths``). After the timing phases, as every
+    profiler reading."""
+    from poi_tpu_torch.ops.fused_lstm import fused_lstm_bwd, fused_lstm_scan
+    from poi_tpu_torch.ops.fused_rnn import fused_rnn_bwd, fused_rnn_scan
+
+    for tag, st, timed, scan, bwd, names in (
+            ("lstm", lstm_stream, LSTM_STREAM_TIMED, fused_lstm_scan, fused_lstm_bwd,
+             (LSTM_FWD_STREAM_KERNELS, LSTM_BWD_STREAM_KERNELS)),
+            ("rnn", rnn_stream, RNN_STREAM_TIMED, fused_rnn_scan, fused_rnn_bwd,
+             (RNN_FWD_STREAM_KERNELS, RNN_BWD_STREAM_KERNELS))):
+        for (B, T, H), key in timed.items():
+            t = st["fwd" + key]
+            args = t.pop("args")
+            t.update(device_parts(lambda: scan(*args), names[0]))
+            log(f"[time] {tag}_fwd B={B} T={T} H={H} (stream): device {t['device_ms']:.4f} ms (CUDA events "
+                f"{t['ms']:.4f} ms)  ({gpu})")
+        t = st["bwd"]
+        args = t.pop("args")
+        t.update(device_parts(lambda: bwd(*args), names[1]))
+        log(f"[time] {tag}_bwd B={args[0].shape[0]} T={args[0].shape[1]} H={args[2].shape[0]} (stream carry): "
+            f"{parts_text(t, names[1])} (CUDA events {t['ms']:.4f} ms)  ({gpu})")
+        del args
+    return {"lstm_on_grid": rec_stream_at_grid_widths("lstm", gpu), "rnn_on_grid": rec_stream_at_grid_widths("rnn", gpu)}
+
+
 def sampled_case(N: int, S: int, D: int, V: int, gen, pad: int = 0, hits=None):
     """Queries, a pool of S draws from V ids with ``pad`` entries appended
     as the TPU kernel pads its pool (bias -1e30, id -1), targets, and the
@@ -2004,16 +2067,6 @@ def check_recurrence(tag: str, scan, scan_ref, bwd, bwd_ref, x, mask, w, lengths
     return {"fwd_err": fwd_err, "bwd_err": bwd_err, "carries": carries, "dhs": dhs}
 
 
-def expect_width_limit(fn, *args) -> str:
-    """``fn`` must refuse a hidden width past the kernels' limit and name it."""
-    try:
-        fn(*args)
-    except ValueError as e:
-        assert "H <=" in str(e), str(e)
-        return str(e)
-    raise AssertionError(f"{fn.__name__} took a width past its limit")
-
-
 def recurrence_phase(tag: str, gates: int, shapes, tol: float, ops) -> dict:
     """B3/B4 (``gates`` = 4) or B5/B6 (1) against their plain versions at
     ``shapes``; times both directions at the first shape (the config's train
@@ -2040,9 +2093,7 @@ def recurrence_phase(tag: str, gates: int, shapes, tol: float, ops) -> dict:
         dx_dw = bwd(x, mask, w, *carries, dhs)
         out["bwd"] = {"ms": time_ms(lambda: bwd(x, mask, w, *carries, dhs)),
                       "plain_ms": time_ms(lambda: bwd_ref(x, mask, w, *carries, dhs), 5), "library_ms": None,
-                      **(lstm_bwd_bound(x, mask, w, carries, dhs, dx_dw) if gates == 4 else
-                         bound((x, mask, w, *carries, dhs), dx_dw, bf16_flop=2 * B * T * H * G,
-                               fp32_flop=4 * B * T * H * G)),
+                      **rec_bwd_bound(x, mask, w, carries, dhs, dx_dw),
                       "args": (x, mask, w, *carries, dhs)}
         for d in ("fwd", "bwd"):
             t = out[d]
@@ -2175,8 +2226,7 @@ def rnn_phase() -> dict:
         dhs = torch.randn(B, T, H, generator=gen, device=DEV)
         args = (x, mask, w, hs, dhs)
         t = {"ms": time_ms(lambda: fused_rnn_bwd(*args)), "plain_ms": time_ms(lambda: rnn_bwd_reference(*args), 5),
-             "library_ms": None, **bound(args, fused_rnn_bwd(*args), bf16_flop=2 * B * T * H * H,
-                                         fp32_flop=4 * B * T * H * H), "args": args}
+             "library_ms": None, **rec_bwd_bound(x, mask, w, (hs,), dhs, fused_rnn_bwd(*args)), "args": args}
         out["bwd_h512"] = t
         log(f"[time] rnn_bwd B={B} T={T} H={H}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
@@ -2282,7 +2332,8 @@ def rec_wide_phase(tag: str, gates: int, shapes, tol: float, ops, mod) -> dict:
     C side (``rec_picks``), then ``recurrence_phase`` at ``shapes`` and at
     the pair's limit (both directions timed at the first shape, the wide
     path's, beside their plain versions, cuDNN's forward and their bounds);
-    the width past the limit refused, naming it."""
+    H = 0 refused, naming the designs (past the limit the streamed kernels
+    run: ``rec_stream_phase``)."""
     import torch
 
     rec_picks(tag, mod)
@@ -2294,14 +2345,17 @@ def rec_wide_phase(tag: str, gates: int, shapes, tol: float, ops, mod) -> dict:
             f"a block; backward carry on {bu} x {br} of {brows}, {bo} octets")
     out = recurrence_phase(f"{tag}_wide", gates, shapes, tol, ops)
     scan, _, bwd, _ = ops
-    H = mod.MAX_HIDDEN + 1
-    x = torch.zeros(2, 3, gates * H, device=DEV)
-    ones, w = torch.ones(2, 3, device=DEV), torch.zeros(H, gates * H, device=DEV, dtype=torch.bfloat16)
-    carries = (x[..., :H],) * (2 if gates == 4 else 1)
-    for fn, args in ((scan, (x, ones, w)), (bwd, (x, ones, w, *carries, x[..., :H]))):
-        msg = expect_width_limit(fn, *args)
-        assert f"H <= {mod.MAX_HIDDEN} ({tag}_max_hidden())" in msg, msg
-        log(f"[{tag}_wide] {fn.__name__} H={H} refused: {msg}")
+    x = torch.zeros(2, 3, 0, device=DEV)
+    ones, w = torch.ones(2, 3, device=DEV), torch.zeros(0, 0, device=DEV, dtype=torch.bfloat16)
+    carries = (x,) * (2 if gates == 4 else 1)
+    for fn, args in ((scan, (x, ones, w)), (bwd, (x, ones, w, *carries, x))):
+        try:
+            fn(*args)
+        except ValueError as e:
+            assert "H=0 is not taken by the kernels: H >= 1" in str(e), str(e)
+            log(f"[{tag}_wide] {fn.__name__} H=0 refused: {e}")
+        else:
+            raise AssertionError(f"{fn.__name__} took H = 0")
     return out
 
 
@@ -2319,6 +2373,198 @@ def rnn_wide_phase() -> dict:
     return rec_wide_phase("rnn", 1, RNN_WIDE_SHAPES, RNN_TOL,
                           (fused_rnn.fused_rnn_scan, fused_rnn.rnn_scan_reference, fused_rnn.fused_rnn_bwd,
                            fused_rnn.rnn_bwd_reference), fused_rnn)
+
+
+def lstm_step_err(xw, mask, wh, hs, cs) -> float:
+    """The largest error of one step of the LSTM forward over every valid
+    (b, t), both carries: ``hs[t]`` and ``cs[t]`` against the step
+    recomputed in fp64 from ``hs[t - 1]`` (rounded to bf16 as the kernel
+    rounds it) and ``cs[t - 1]``: the arithmetic of the step alone (the
+    product's sums and the gates), as ``gru_step_err`` for the GRU."""
+    import torch
+
+    H = wh.shape[0]
+    h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], dim=1)
+    c_prev = torch.cat([torch.zeros_like(cs[:, :1]), cs[:, :-1]], dim=1).double()
+    pre = xw.double() + h_prev.to(torch.bfloat16).double() @ wh.double()
+    i, f = torch.sigmoid(pre[..., :H]), torch.sigmoid(pre[..., H:2 * H])
+    g, o = torch.tanh(pre[..., 2 * H:3 * H]), torch.sigmoid(pre[..., 3 * H:])
+    c = f * c_prev + i * g
+    h = o * torch.tanh(c)
+    m = mask.double()[:, :, None] > 0
+    return max(float(((hs.double() - h).abs() * m).max()), float(((cs.double() - c).abs() * m).max()))
+
+
+def rec_stream_picks(tag: str, mod) -> None:
+    """The LSTM's (``tag`` lstm) or the RNN's (rnn) streamed grid in Python
+    (``mod.stream_shape``) against the C side's ``<tag>_stream_shape`` at
+    ``REC_STREAM_PICK_WIDTHS`` x ``REC_STREAM_PICK_BATCHES``, both
+    directions, and the design past the grid's limit "stream"."""
+    import ctypes
+
+    from poi_tpu_torch import _build
+
+    lib = _build.library()
+    shape = getattr(lib, f"{tag}_stream_shape")
+    assert getattr(lib, f"{tag}_max_hidden")() == mod.MAX_HIDDEN, (tag, mod.MAX_HIDDEN)
+    got = (ctypes.c_int * 6)()
+    n = 0
+    for H in REC_STREAM_PICK_WIDTHS:
+        assert H <= mod.MAX_HIDDEN or mod.design(H) == "stream", (tag, H, mod.design(H))
+        for B in REC_STREAM_PICK_BATCHES:
+            for bwd in (0, 1):
+                c = tuple(got) if shape(B, H, bwd, got) else None
+                assert c == mod.stream_shape(B, H, bool(bwd)), (tag, B, H, bwd, c, mod.stream_shape(B, H, bool(bwd)))
+                n += 1
+    B, _, H = LSTM_STREAM_H4096 if tag == "lstm" else RNN_STREAM_H4096
+    log(f"[{tag}_stream] the Python mirror agrees with {tag}_stream_shape at {n} shapes (the widest-H path's "
+        f"{mod.stream_shape(B, H, False)} forward, {mod.stream_shape(B, H, True)} carry, "
+        f"{mod.stream_shape(256, H, False)} forward at request batch 256: octets a slice, unit slices, blocks a row "
+        f"group, row groups, rows a group, mt); the design past {mod.MAX_HIDDEN} is stream")
+
+
+def rec_stream_phase(tag: str, gates: int, shapes, timed: dict, tol: float, ops, mod, gpu: str) -> dict:
+    """B3/B4 (``tag`` lstm, ``gates`` = 4) or B5/B6 (rnn, 1) past the grid's
+    limit, on the streamed kernels, at ``shapes``: the mirror held to the C
+    side (``rec_stream_picks``); each shape through ``check_recurrence``
+    (the forward at ``tol`` and the carries exact through the padding, the
+    backward at ``REC_BWD_TOL`` with dx exactly 0 on padded steps, the same
+    bits on a second launch of each). The forward timed at ``timed`` beside
+    its plain version and cuDNN's forward, with its bound and the weight
+    read once a step; at the first shape (the widest-H path's train shape)
+    the backward timed, and the sums against fp64: the forward's step alone
+    (``lstm_step_err``, ``rnn_step_err``) and dx and dw on the kernel's
+    carries, the kernel's and the plain version's."""
+    import torch
+
+    scan, scan_ref, bwd, bwd_ref = ops
+    rec_stream_picks(tag, mod)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 25 + gates)
+    out = {"fwd_err": 0.0, "bwd_err": 0.0}
+    for B, T, H in shapes:
+        assert mod.design(H) == "stream", (tag, H)
+        f, b = mod.stream_shape(B, H, False), mod.stream_shape(B, H, True)
+        log(f"[{tag}_stream] B={B} T={T} H={H}: forward on {f[2]} blocks x {f[3]} row groups of {f[4]} rows, "
+            f"{f[1]} slices of {f[0]} octets, mt {f[5]}; carry {b[2]} x {b[3]} of {b[4]}, slices of {b[0]}")
+        x, mask, w, lengths = recurrence_case(B, T, H, gates, gen)
+        r = check_recurrence(f"{tag}_stream", scan, scan_ref, bwd, bwd_ref, x, mask, w, lengths, tol)
+        out["fwd_err"] = max(out["fwd_err"], r["fwd_err"])
+        out["bwd_err"] = max(out["bwd_err"], r["bwd_err"])
+        key = timed.get((B, T, H))
+        if key is None:
+            continue
+        carries, dhs = r["carries"], r["dhs"]
+        t = {"ms": time_ms(lambda: scan(x, mask, w), 5), "plain_ms": time_ms(lambda: scan_ref(x, mask, w), 2, 1),
+             "library_ms": cudnn_ms("lstm" if gates == 4 else "rnn", B, T, H, DEV, 5),
+             **bound((x, mask, w), carries, bf16_flop=2 * B * T * H * gates * H),
+             # The streamed floor: the weight read from device memory once a step.
+             "stream_floor_ms": T * w.numel() * 2 / HBM_BYTES_PER_S * 1e3, "args": (x, mask, w)}
+        out["fwd" + key] = t
+        log(f"[time] {tag}_fwd B={B} T={T} H={H} (stream): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"cuDNN nn.{'LSTM' if gates == 4 else 'RNN'} forward {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} "
+            f"ms ({t['bound_by']}, {t['bound_pipe']}), the weight read once a step {t['stream_floor_ms']:.4f} ms  "
+            f"({gpu})")
+        if (B, T, H) != shapes[0]:
+            continue
+        outs = bwd(x, mask, w, *carries, dhs)
+        tb = {"ms": time_ms(lambda: bwd(x, mask, w, *carries, dhs), 3),
+              "plain_ms": time_ms(lambda: bwd_ref(x, mask, w, *carries, dhs), 2, 1), "library_ms": None,
+              **rec_bwd_bound(x, mask, w, carries, dhs, outs),
+              "args": (x, mask, w, *carries, dhs)}
+        out["bwd"] = tb
+        log(f"[time] {tag}_bwd B={B} T={T} H={H} (stream carry): kernel {tb['ms']:.4f} ms, plain {tb['plain_ms']:.4f} "
+            f"ms; bound {tb['bound_ms']:.4f} ms ({tb['bound_by']}, {tb['bound_pipe']})  ({gpu})")
+        # The sums against fp64: a forward step alone, and the backward on the kernel's carries.
+        plain = scan_ref(x, mask, w)
+        plain = plain if isinstance(plain, tuple) else (plain,)
+        step = lstm_step_err if gates == 4 else rnn_step_err
+        steps = {"kernel": step(x, mask, w, *carries), "plain": step(x, mask, w, *plain)}
+        del plain
+        got, plain = outs, bwd_ref(x, mask, w, *carries, dhs)
+        want = bwd_ref(x.double(), mask, w, *carries, dhs)
+        fp64 = {f"{n}_{who}": rel_err(v[i].double(), want[i]) for who, v in (("kernel", got), ("plain", plain))
+                for i, n in enumerate(("dx", "dw"))}
+        del got, plain, want, outs
+        torch.cuda.empty_cache()
+        out["fp64"] = {"step_kernel": steps["kernel"], "step_plain": steps["plain"], **fp64}
+        log(f"[{tag}_stream] B={B} T={T} H={H} against fp64: a forward step alone kernel {steps['kernel']:.3e}, "
+            f"plain (fp32) {steps['plain']:.3e} (limit {step_limit(gates == 4, steps['plain']):.3e}); the backward on "
+            f"the kernel's carries, rel err dx "
+            f"kernel {fp64['dx_kernel']:.2e}, plain (fp32) {fp64['dx_plain']:.2e}; dw kernel {fp64['dw_kernel']:.2e}, "
+            f"plain {fp64['dw_plain']:.2e} (tol {REC_BWD_TOL})")
+        assert steps["kernel"] < step_limit(gates == 4, steps["plain"]), \
+            f"{tag}_stream: a forward step alone {steps} from fp64"
+        assert fp64["dx_kernel"] < REC_BWD_TOL and fp64["dw_kernel"] < REC_BWD_TOL, f"{tag}_stream: {fp64}"
+    torch.cuda.empty_cache()
+    return out
+
+
+def lstm_stream_phase(gpu: str) -> dict:
+    from poi_tpu_torch.ops import fused_lstm
+
+    return rec_stream_phase("lstm", 4, LSTM_STREAM_SHAPES, LSTM_STREAM_TIMED, LSTM_TOL,
+                            (fused_lstm.fused_lstm_scan, fused_lstm.lstm_scan_reference, fused_lstm.fused_lstm_bwd,
+                             fused_lstm.lstm_bwd_reference), fused_lstm, gpu)
+
+
+def rnn_stream_phase(gpu: str) -> dict:
+    from poi_tpu_torch.ops import fused_rnn
+
+    return rec_stream_phase("rnn", 1, RNN_STREAM_SHAPES, RNN_STREAM_TIMED, RNN_TOL,
+                            (fused_rnn.fused_rnn_scan, fused_rnn.rnn_scan_reference, fused_rnn.fused_rnn_bwd,
+                             fused_rnn.rnn_bwd_reference), fused_rnn, gpu)
+
+
+def rec_stream_at_grid_widths(tag: str, gpu: str) -> dict:
+    """B3/B4 (``tag`` lstm) or B5/B6 (rnn) on the grid-resident and on the
+    streamed kernels, on the same inputs, at ``LSTM_STREAM_ON_GRID`` /
+    ``RNN_STREAM_ON_GRID`` (the wide paths' H = 1024 and the grids'
+    limits): the streamed pair held as ``check_recurrence`` holds every
+    pair, and device time by kernel of both designs. The wrappers run the
+    streamed kernels past ``MAX_HIDDEN`` only; for these calls the dispatch
+    (``design``) answers "stream". A measurement for the choice between the
+    two designs: no dispatch changes here."""
+    import torch
+
+    from poi_tpu_torch.ops import fused_lstm, fused_rnn
+
+    mod, gates, tol = (fused_lstm, 4, LSTM_TOL) if tag == "lstm" else (fused_rnn, 1, RNN_TOL)
+    scan, bwd = (mod.fused_lstm_scan, mod.fused_lstm_bwd) if tag == "lstm" else (mod.fused_rnn_scan,
+                                                                              mod.fused_rnn_bwd)
+    refs = (mod.lstm_scan_reference, mod.lstm_bwd_reference) if tag == "lstm" else (mod.rnn_scan_reference,
+                                                                                 mod.rnn_bwd_reference)
+    names = {"grid": ((LSTM_FWD_GRID_KERNELS, LSTM_BWD_GRID_KERNELS) if tag == "lstm" else
+                      (RNN_FWD_GRID_KERNELS, RNN_BWD_GRID_KERNELS)),
+             "stream": ((LSTM_FWD_STREAM_KERNELS, LSTM_BWD_STREAM_KERNELS) if tag == "lstm" else
+                        (RNN_FWD_STREAM_KERNELS, RNN_BWD_STREAM_KERNELS))}
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 26 + gates)
+    out = {}
+    dispatch = mod.design
+    for B, T, H in LSTM_STREAM_ON_GRID if tag == "lstm" else RNN_STREAM_ON_GRID:
+        x, mask, w, lengths = recurrence_case(B, T, H, gates, gen)
+        carries = scan(x, mask, w)
+        carries = carries if isinstance(carries, tuple) else (carries,)
+        dhs = torch.randn_like(carries[0])
+        row = {}
+        for kind in ("grid", "stream"):
+            mod.design = (lambda H: "stream") if kind == "stream" else dispatch
+            try:
+                if kind == "stream":
+                    r = check_recurrence(f"{tag}_stream_on_grid", scan, refs[0], bwd, refs[1], x, mask, w, lengths,
+                                         tol)
+                    row["fwd_err"], row["bwd_err"] = r["fwd_err"], r["bwd_err"]
+                fn, bn = names[kind]
+                row[kind] = {"fwd": device_parts(lambda: scan(x, mask, w), fn),
+                             "bwd": device_parts(lambda: bwd(x, mask, w, *carries, dhs), bn)}
+            finally:
+                mod.design = dispatch
+        out[f"{B}x{T}x{H}"] = row
+        g, st = row["grid"], row["stream"]
+        log(f"[time] {tag} B={B} T={T} H={H}, grid / stream design on the same inputs: forward device "
+            f"{g['fwd']['device_ms']:.4f} / {st['fwd']['device_ms']:.4f} ms; backward "
+            f"{parts_text(g['bwd'], names['grid'][1])} / {parts_text(st['bwd'], names['stream'][1])}  ({gpu})")
+    torch.cuda.empty_cache()
+    return out
 
 
 def gru_params(ds, cfg, seed: int = SEED):
@@ -2939,20 +3185,23 @@ def gru_wide_path_phase(state) -> None:
 # lets config #3 at H = 1024 climb as at warm-up 0 (the c1_warmup0 phase),
 # where any two runs part once its grad norm has climbed.
 REC_WIDE_CLI_STEPS = 10
-REC_WIDE_TRAIN_SETS = {**WIDE_SETS, "train.warmup_steps": "20"}
+REC_WIDE_TRAIN_SETS = {"train.warmup_steps": "20"}
 
 
-def rec_wide_path_phase(state, tag: str) -> None:
+def rec_wide_path_phase(state, tag: str, sets: dict = WIDE_SETS, cli_steps: int = REC_WIDE_CLI_STEPS,
+                        label: str = "wide") -> None:
     """The wide LSTM path (``tag`` lstm) or ST-RNN path (strnn) as a user
     runs it: ``python -m poi_tpu_torch train --config <config #2 or #3> --set
-    model.embed_dim=512 model.hidden_dim=1024`` for ``REC_WIDE_CLI_STEPS``
+    model.embed_dim=512 model.hidden_dim=1024`` (``sets``; the widest-H
+    paths', ``label`` widest_h, model.hidden_dim=4096) for ``cli_steps``
     steps, run in this process (``cli.main``) so its launches are counted
     (exit 0, finite losses, the recurrence's kernels launched, and B7/B8 on
     config #3); then ``WIDE_STEPS`` device-sampled steps through ``train()``
-    on the kernel and the plain path from one init (``train_both_paths``:
-    losses at PERF.md §2's limits, evaluate on test), and ``Recommender`` at
-    request batch 1 and 256 on both paths (``serve_both_paths``: B3 or B5 at
-    H = 1024, B11 at D = 512)."""
+    on the kernel and the plain path from one init at warm-up 20
+    (``train_both_paths``: losses at PERF.md §2's limits, evaluate on test),
+    and ``Recommender`` at request batch 1 and 256 on both paths
+    (``serve_both_paths``: B3 or B5 at H, B11 at D). Keeps the path's
+    launches, config and init in ``state[f"{tag}_{label}"]``."""
     import contextlib
     import io
 
@@ -2961,10 +3210,10 @@ def rec_wide_path_phase(state, tag: str) -> None:
     from poi_tpu_torch.train.loop import make_trainer
 
     config, used = REC_CONFIGS[tag]
-    sets = {**WIDE_SETS, "train.num_steps": str(REC_WIDE_CLI_STEPS), "train.eval_every": str(REC_WIDE_CLI_STEPS),
-            "train.log_every": "5"}
+    name = f"{tag}_{label}_path"
+    cli_sets = {**sets, "train.num_steps": str(cli_steps), "train.eval_every": str(cli_steps), "train.log_every": "5"}
     argv = ["train", "--config", config, "--device", DEV, "--no-checkpoint", "--set",
-            *(f"{k}={v}" for k, v in sets.items())]
+            *(f"{k}={v}" for k, v in cli_sets.items())]
     reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -2973,19 +3222,19 @@ def rec_wide_path_phase(state, tag: str) -> None:
     launches = read_launches()
     out = json.loads(buf.getvalue().strip().splitlines()[-1])
     losses = [row["loss"] for row in out["history"]]
-    log(f"[{tag}_wide_path] python -m poi_tpu_torch {' '.join(argv)}: exit {rc} in {time.perf_counter() - t0:.1f} s, "
+    log(f"[{name}] python -m poi_tpu_torch {' '.join(argv)}: exit {rc} in {time.perf_counter() - t0:.1f} s, "
         f"loss by log step {losses}, final recall@10 {out['final']['recall@10']:.4f} (popularity "
         f"{out['popularity_baseline']['recall@10']:.4f}), {out['history'][-1]['seqs_per_sec']:.1f} seq/s over the "
         f"last log interval; launches {launches}")
-    assert rc == 0 and out["steps"] == REC_WIDE_CLI_STEPS and all(math.isfinite(v) for v in losses), out["history"]
+    assert rc == 0 and out["steps"] == cli_steps and all(math.isfinite(v) for v in losses), out["history"]
     assert all(math.isfinite(v) for v in out["final"].values()), out["final"]
-    for name in used:
-        assert launches[name] > 0, f"{tag}_wide_path: no {name} launch: {launches}"
-    cfg, ds = state[tag]["cfg"].with_overrides(REC_WIDE_TRAIN_SETS), state[tag]["ds"]
+    for kernel in used:
+        assert launches[kernel] > 0, f"{name}: no {kernel} launch: {launches}"
+    cfg, ds = state[tag]["cfg"].with_overrides({**sets, **REC_WIDE_TRAIN_SETS}), state[tag]["ds"]
     tree = params_to_numpy(make_trainer(cfg, ds, DEV).model)  # the trainer's own seeded init
-    kern, both, _ = train_both_paths(f"{tag}_wide_path", cfg, ds, tree, used=used, fwd=used[0], steps=WIDE_STEPS)
-    serve_both_paths(f"{tag}_wide_path serve", cfg, ds, params_to_numpy(kern.model), used[0])
-    state[f"{tag}_wide"] = {"launches": launches, "both_launches": both, "cfg": cfg, "tree": tree}
+    kern, both, _ = train_both_paths(name, cfg, ds, tree, used=used, fwd=used[0], steps=WIDE_STEPS)
+    serve_both_paths(f"{name} serve", cfg, ds, params_to_numpy(kern.model), used[0])
+    state[f"{tag}_{label}"] = {"launches": launches, "both_launches": both, "cfg": cfg, "tree": tree}
 
 
 # C1: config #3 at D = 512, H = 1024 with warm-up 0, where the two paths'
@@ -3005,6 +3254,22 @@ C1_BEFORE = 3
 C1_SETS = {**WIDE_SETS, "train.warmup_steps": "0", "train.log_every": "1"}
 C1_NOISE = 1e-6
 C1_STEP_TOL = 1e-5  # B5's step alone against fp64 (rnn_step_err), absolute; fp32 sums of H products
+# The LSTM's step alone (lstm_step_err) is held against the fp32 plain
+# version's distance from fp64 on the same inputs instead: its cell state
+# grows with the steps, and fp32 rounding of c alone puts the plain version
+# 5.8e-6 / 7.2e-6 from fp64 at the widest-H LSTM path's climbing steps, so
+# an absolute limit there would pass a summing fault of that size and trip
+# on a correct kernel that rounds a little further.
+LSTM_STEP_FACTOR = 2.0
+LSTM_STEP_SLACK = 1e-6
+
+
+def step_limit(lstm: bool, plain: float) -> float:
+    """The limit of a forward step alone against fp64 (``*_step_err``):
+    ``C1_STEP_TOL`` for the RNN and the GRU; for the LSTM ``LSTM_STEP_FACTOR``
+    x the fp32 plain version's distance on the same inputs +
+    ``LSTM_STEP_SLACK``."""
+    return LSTM_STEP_FACTOR * plain + LSTM_STEP_SLACK if lstm else C1_STEP_TOL
 
 
 def rnn_step_err(xin, mask, c, hs) -> float:
@@ -3189,6 +3454,9 @@ def c1_phase(state) -> dict:
     for step, h in held.items():
         assert h["fwd"]["kernel_step"] < C1_STEP_TOL, f"c1 step {step}: B5 {h}"
         assert h["dxin_kernel_plain"] < REC_BWD_TOL and h["dC_kernel_plain"] < REC_BWD_TOL, f"c1 step {step}: B6 {h}"
+        for o in ("dxin", "dC"):  # C2's hold: against fp64, where the fp32 plain version is within it
+            if h[f"{o}_plain_fp64"] < REC_BWD_TOL:
+                assert h[f"{o}_kernel_fp64"] < REC_BWD_TOL, f"c1 step {step}: B6 {o} from fp64 {h}"
     return {"rows": rows, "held": held}
 
 
@@ -3291,6 +3559,150 @@ def widest_h_warmup0_phase(state) -> dict:
         assert h["fwd"]["kernel_step"] < C1_STEP_TOL, f"widest_h_warmup0 step {step}: B1 {h}"
         assert h["dxw_kernel_plain"] < GRU_BWD_TOL and h["dwh_kernel_plain"] < GRU_BWD_TOL, \
             f"widest_h_warmup0 step {step}: B2 {h}"
+    return {"rows": rows, "held": held}
+
+
+# C2 (queue C): the cluster and grid backward keep the tensor core's own
+# fp32 accumulation in their gates pass and one fp32 chain over all B*T rows
+# in dwh. Held at the paths' own climbing inputs: the widest bench path (D =
+# H = 2048, grid B2), the wide path (D = 512, H = 1024, grid B2) and the wide
+# LSTM path (config #2 at D = 512, H = 1024, grid B4), each through one
+# kernel-path run of C2_STEPS device-sampled steps at warm-up 0 (the bench
+# workload's own), and at steps C2_HELD the backward's call on its own
+# captured inputs against its plain version summed in fp64, beside the fp32
+# plain version's distance. (B6 at H = 1024 is held by c1_warmup0, dxin and
+# dC against fp64 too.)
+C2_STEPS = 5
+C2_HELD = (4, 5)
+C2_PATHS = {"widest_bench": ("bench", WIDEST_SETS, "gru"), "wide_bench": ("bench", WIDE_SETS, "gru"),
+            "wide_lstm": ("lstm", WIDE_SETS, "lstm")}
+
+
+def kernel_path_holds(cfg, ds, steps: int, module, names: tuple, held: tuple, hold) -> list:
+    """One kernel-path run of ``steps`` device-sampled steps from the
+    trainer's own seeded init (``Trainer.step``, the loop ``train()``
+    runs); at each step of ``held``, ``hold(step, caught)`` with the first
+    call's arguments of each wrapper ``module.<name>`` of ``names`` in that
+    step (``catching``). Returns each step's loss and grad norm."""
+    from poi_tpu_torch.convert import params_to_numpy
+    from poi_tpu_torch.train.loop import make_trainer
+
+    trainer = make_trainer(cfg, ds, DEV)
+    state = trainer.init_state(params_to_numpy(trainer.model))
+    caught: dict = {}
+    rows = []
+    for s in range(steps):
+        batch = trainer.sampler.sample(s)
+        with catching(module, names, caught):
+            state, m = trainer.step(state, batch)
+        rows.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])})
+        assert math.isfinite(rows[-1]["loss"]), rows
+        if s + 1 in held:
+            hold(s + 1, caught)
+    return rows
+
+
+def held_bwd(kernel, plain, args, outs: tuple) -> dict:
+    """A backward's call on its captured ``args``: the kernel's and the fp32
+    plain version's rel err from the plain version summed in fp64, by
+    output, and the kernel's from the fp32 plain version's."""
+    import torch
+
+    got, ref = kernel(*args), plain(*args)
+    want = plain(args[0].double(), *args[1:])
+    out = {f"{n}_{a}_{b}": rel_err(x[i].double(), y[i].double())
+           for i, n in enumerate(outs)
+           for a, b, x, y in (("kernel", "fp64", got, want), ("plain", "fp64", ref, want), ("kernel", "plain", got, ref))}
+    del got, ref, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def c2_hold_phase(state) -> dict:
+    """C2's hold (see ``C2_PATHS``): at each held step B2's (or B4's) call
+    on its own inputs against fp64, the kernel's and the plain version's
+    distances logged. Returns them by path and step; the caller asserts
+    (``REC_BWD_TOL`` from fp64, where the plain version is within it)."""
+    from poi_tpu_torch.ops import fused_gru, fused_lstm
+
+    out = {}
+    for name, (base, sets, rec) in C2_PATHS.items():
+        cfg = (state["bench_cfg"] if base == "bench" else state[base]["cfg"]).with_overrides(
+            {**sets, "train.warmup_steps": "0", "train.log_every": "1"})
+        ds = state["bench_ds"] if base == "bench" else state[base]["ds"]
+        mod, wrapper, ref, outs = ((fused_gru, "fused_gru_bwd", fused_gru.gru_bwd_reference, ("dxw", "dwh"))
+                                   if rec == "gru" else
+                                   (fused_lstm, "fused_lstm_bwd", fused_lstm.lstm_bwd_reference, ("dxw", "dwh")))
+        H = cfg.model.hidden_dim
+        held = {}
+
+        def hold(step, caught):
+            held[step] = held_bwd(getattr(mod, wrapper), ref, caught[wrapper], outs)
+
+        rows = kernel_path_holds(cfg, ds, C2_STEPS, mod, (wrapper,), C2_HELD, hold)
+        out[name] = {"rows": rows, "held": held, "design": mod.design(H), "H": H}
+        log(f"[c2_hold] {name} (D = {cfg.model.embed_dim}, H = {H}, {mod.design(H)} {wrapper}) at warm-up 0: loss by "
+            f"step {[round(r['loss'], 6) for r in rows]}, grad norm {[round(r['grad_norm'], 4) for r in rows]}")
+        for step, h in held.items():
+            log(f"[c2_hold] {name} step {step}: {wrapper} on its own inputs, rel err from fp64: kernel dxw "
+                f"{h['dxw_kernel_fp64']:.2e}, dwh {h['dwh_kernel_fp64']:.2e}; plain (fp32) dxw "
+                f"{h['dxw_plain_fp64']:.2e}, dwh {h['dwh_plain_fp64']:.2e}; kernel vs plain dxw "
+                f"{h['dxw_kernel_plain']:.2e}, dwh {h['dwh_kernel_plain']:.2e} (tol {REC_BWD_TOL})")
+    for name, r in out.items():
+        for step, h in r["held"].items():
+            for o in ("dxw", "dwh"):
+                if h[f"{o}_plain_fp64"] < REC_BWD_TOL:
+                    assert h[f"{o}_kernel_fp64"] < REC_BWD_TOL, f"c2_hold {name} step {step}: {o} {h}"
+    return out
+
+
+# The widest-H LSTM and ST-RNN paths: configs #2 and #3 at H = 4096 over
+# their own D = 128 (the hidden-to-embedding projection runs), B3/B4 or
+# B5/B6 on the streamed kernels (past the grids' 1600 and 3168), through
+# rec_wide_path_phase with WIDEST_H_SETS (the train CLI for WIDEST_CLI_STEPS
+# steps, train() for WIDE_STEPS a path at warm-up 20, Recommender at batch 1
+# and 256); then one kernel-path run at warm-up 0 for WIDEST_H_CLIMB_STEPS
+# steps (kernel_path_holds), with the recurrence's calls at WIDEST_H_HELD
+# held on their own inputs: the forward's step alone within its step_limit
+# of fp64, the backward within REC_BWD_TOL of its plain version summed in
+# fp64 (where the fp32 plain version is within it too).
+def rec_widest_h_path_phase(state, tag: str) -> dict:
+    from poi_tpu_torch.ops import fused_lstm, fused_rnn
+
+    rec_wide_path_phase(state, tag, WIDEST_H_SETS, WIDEST_CLI_STEPS, "widest_h")
+    lstm = tag == "lstm"
+    mod = fused_lstm if lstm else fused_rnn
+    names = ("fused_lstm_scan", "fused_lstm_bwd") if lstm else ("fused_rnn_scan", "fused_rnn_bwd")
+    scan_ref, bwd_ref = ((fused_lstm.lstm_scan_reference, fused_lstm.lstm_bwd_reference) if lstm else
+                         (fused_rnn.rnn_scan_reference, fused_rnn.rnn_bwd_reference))
+    step_err = lstm_step_err if lstm else rnn_step_err
+    cfg = state[tag]["cfg"].with_overrides({**WIDEST_H_SETS, "train.warmup_steps": "0", "train.log_every": "1"})
+    held = {}
+
+    def hold(step, caught):
+        x, mask, w = caught[names[0]]
+        carries = {"kernel": getattr(mod, names[0])(x, mask, w), "plain": scan_ref(x, mask, w)}
+        steps = {f"step_{k}": step_err(x, mask, w, *(c if isinstance(c, tuple) else (c,))) for k, c in carries.items()}
+        del carries
+        held[step] = {"shape": list(x.shape), **steps,
+                      **held_bwd(getattr(mod, names[1]), bwd_ref, caught[names[1]], ("dx", "dw"))}
+
+    rows = kernel_path_holds(cfg, state[tag]["ds"], WIDEST_H_CLIMB_STEPS, mod, names, WIDEST_H_HELD, hold)
+    name = f"{tag}_widest_h_warmup0"
+    log(f"[{name}] one kernel-path run at warm-up 0: loss by step {[round(r['loss'], 6) for r in rows]}, grad norm "
+        f"{[round(r['grad_norm'], 4) for r in rows]}")
+    for step, h in held.items():
+        log(f"[{name}] step {step}: the kernel path's calls at {h['shape']} on their own inputs: the forward's step "
+            f"alone against fp64 kernel {h['step_kernel']:.3e}, plain (fp32) {h['step_plain']:.3e} (limit "
+            f"{step_limit(lstm, h['step_plain']):.3e}); the backward's rel err from fp64: kernel dx "
+            f"{h['dx_kernel_fp64']:.2e}, dw "
+            f"{h['dw_kernel_fp64']:.2e}; plain (fp32) dx {h['dx_plain_fp64']:.2e}, dw {h['dw_plain_fp64']:.2e}; "
+            f"kernel vs plain dx {h['dx_kernel_plain']:.2e}, dw {h['dw_kernel_plain']:.2e} (tol {REC_BWD_TOL})")
+    for step, h in held.items():
+        assert h["step_kernel"] < step_limit(lstm, h["step_plain"]), f"{name} step {step}: {h}"
+        for o in ("dx", "dw"):
+            if h[f"{o}_plain_fp64"] < REC_BWD_TOL:
+                assert h[f"{o}_kernel_fp64"] < REC_BWD_TOL, f"{name} step {step}: {o} {h}"
     return {"rows": rows, "held": held}
 
 
@@ -4063,7 +4475,8 @@ def train_timing_phase(state, gpu: str) -> dict:
 def config_timing_phase(state, gpu: str) -> dict:
     """Config #4's train step on both paths, with its device-time profile;
     then configs #2 and #3, the wide path, the wide LSTM and ST-RNN paths,
-    and the wider and widest bench and config #4 paths."""
+    the wider and widest bench and config #4 paths, and the widest-H bench,
+    LSTM and ST-RNN paths."""
     from poi_tpu_torch.train.loop import make_trainer
 
     out = {}
@@ -4111,6 +4524,15 @@ def config_timing_phase(state, gpu: str) -> dict:
                 "plain": make_trainer(w["cfg"].with_overrides(PLAIN_OVERRIDES), w["ds"], DEV)}
     out["widest_h_bench_train_step"] = step_timing("the widest-H bench path (smoke at H = 4096, D = 128)", trainers,
                                                    w["tree"], WIDEST_TIME_CHUNK, gpu, profiled=2)
+    # The widest-H LSTM and ST-RNN paths' steps (configs #2 and #3 at H =
+    # 4096, D = 128), the same way.
+    for tag in REC_CONFIGS:
+        w = state[f"{tag}_widest_h"]
+        trainers = {"kernels": make_trainer(w["cfg"], state[tag]["ds"], DEV),
+                    "plain": make_trainer(w["cfg"].with_overrides(PLAIN_OVERRIDES), state[tag]["ds"], DEV)}
+        out[f"{tag}_widest_h_train_step"] = step_timing(f"the widest-H {tag} path (config {REC_CONFIGS[tag][0]} at H "
+                                                        f"= 4096, D = 128)", trainers, w["tree"], WIDEST_TIME_CHUNK,
+                                                        gpu, profiled=2)
     return out
 
 
@@ -4135,7 +4557,7 @@ def config5_timing_phase(state, gpu: str) -> None:
 # either names; its second argument lists the kernels to time.
 AB_TIMED = ("topk",)
 AB_KEPT = ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd", "sampled_bwd", "rnn_bwd", "sampled_lse", "ce_lse", "ce_bwd",
-           "rnn_fwd", "ce_lse_variant_base", "ce_lse_variant_exp2", "ce_lse_variant_nomax", *AB_TIMED)
+           "rnn_fwd", "ce_lse_variant_base", "ce_lse_variant_exp2", "ce_lse_variant_nomax", "gru_stream", *AB_TIMED)
 # Path 2's host-loader train() in each checkout (seq/s and device idle share
 # at steps_per_call 1 and 10 by this checkout's host_loader_timing; a
 # checkout whose loop ignores steps_per_call runs both synchronously).
@@ -4184,6 +4606,11 @@ ldh5 = torch.randn(3, 32, 512, generator=gen, device="cuda")
 x6, mask6, w6, _ = cs.recurrence_case(3, 32, 640, 1, gen)
 hs6 = rnn_scan_reference(x6, mask6, w6)
 dhs6 = torch.randn(3, 32, 640, generator=gen, device="cuda")
+# B1/B2 on the streamed design (H = 2304, under the weight's L2 rule's
+# bytes, and 4096, over them): the parent takes both.
+gs = [cs.gru_case(B, 16, H, gen)[:2] for B, H in ((5, 2304), (3, 4096))]
+gsh = [gru_scan_reference(a, w) for a, w in gs]
+gsd = [torch.randn(*h.shape, generator=gen, device="cuda") for h in gsh]
 cq, ct, cb = sweep_ce_fwd.inputs(sweep_ce_fwd.N, sweep_ce_fwd.V, sweep_ce_fwd.D, "cuda")
 bq, bt = (0.3 * torch.randn(n, 128, generator=gen, device="cuda") for n in cs.CE_TRAIN_SHAPE[:2])
 bb = torch.randn(cs.CE_TRAIN_SHAPE[1], generator=gen, device="cuda")
@@ -4253,7 +4680,10 @@ calls = {**{f"ce_lse_variant_{v}": variant(v) for v in ("base", "exp2", "nomax")
                               *(o for (a, w), h, d in zip(gw, gwh, gwd) for o in fused_gru_bwd(a, w, h, d))),
                      cs.GRU_BWD_KERNELS),
          "lstm_bwd": (lambda: (*fused_lstm_bwd(lx, lmask, lw, *lst, ldh), *fused_lstm_bwd(lx5, lmask5, lw5, *lst5, ldh5)),
-                      cs.LSTM_BWD_KERNELS)}
+                      cs.LSTM_BWD_KERNELS),
+         "gru_stream": (lambda: (*(fused_gru_scan(a, w) for a, w in gs),
+                                 *(o for (a, w), h, d in zip(gs, gsh, gsd) for o in fused_gru_bwd(a, w, h, d))),
+                        cs.GRU_FWD_STREAM_KERNELS)}
 wanted = json.loads(sys.argv[2])
 res = {k: {"events_ms": cs.time_ms(calls[k][0]), **cs.device_parts(*calls[k])} for k in wanted if k in calls}
 torch.save({k: [t.cpu() for t in f()] for k, (f, _) in calls.items()}, sys.argv[1])
@@ -5291,6 +5721,8 @@ def main() -> int:
     big = phase("gru_big", gru_big_phase)
     wide = phase("gru_wide", gru_wide_phase)
     stream = phase("gru_stream", gru_stream_phase, gpu)
+    lstm_stream = phase("lstm_stream", lstm_stream_phase, gpu)
+    rnn_stream = phase("rnn_stream", rnn_stream_phase, gpu)
     ce_wide = phase("ce_wide", ce_wide_phase)
     ce_wider = phase("ce_wider", ce_wider_phase)
     ce_widest = phase("ce_widest", ce_widest_phase)
@@ -5307,6 +5739,7 @@ def main() -> int:
     phase("attn_serve", serve_both_paths, "attn serve", state["attn_cfg"], state["attn_ds"], state["attn_trained"])
     phase("lstm_config", recurrent_config_phase, state, "lstm")
     phase("strnn_config", recurrent_config_phase, state, "strnn")
+    c2_held = phase("c2_hold", c2_hold_phase, state)
     phase("config5", config5_phase, state, gpu)
     phase("strnn_d256", strnn_d256_phase, state)
     phase("gru_wide_path", gru_wide_path_phase, state)
@@ -5320,6 +5753,8 @@ def main() -> int:
     warmup0 = phase("widest_h_warmup0", widest_h_warmup0_phase, state)["held"]
     phase("widest_h_bench_path", wider_path_phase, state, "bench", WIDEST_H_SETS, WIDEST_CLI_STEPS, "widest_h",
           WIDEST_H_TRAIN_SETS)
+    rec_warmup0 = {tag: phase(f"{tag}_widest_h_path", rec_widest_h_path_phase, state, tag)["held"]
+                   for tag in REC_CONFIGS}
     phase("host_loader", host_loader_phase, state)
     mesh = phase("mesh", mesh_phase, state, gpu)
     phase("cli_train", cli_train_phase, state)
@@ -5330,6 +5765,7 @@ def main() -> int:
     phase("recurrence_device", recurrence_device_phase, times, big, lstm, gpu, wide, stream)
     phase("pool_recurrence_device", pool_recurrence_device_phase, {**sampled, **sampled_widest}, lstm, rnn, gpu,
           lstm_wide, rnn_wide)
+    rec_dev = phase("rec_stream_device", rec_stream_device_phase, lstm_stream, rnn_stream, gpu)
     phase("ce_variants_device", ce_variants_device_phase, variants, gpu)
     phase("host_loader_device", host_loader_device_phase, state, gpu)
     phase("config5_timing", config5_timing_phase, state, gpu)
@@ -5403,6 +5839,31 @@ def main() -> int:
     # serve phase's requests, not counted apart) and config #4's shape (c4,
     # no main path).
     wsh = state["widest_h_bench"]["launches"]
+    # B3/B4 and B5/B6 on the streamed kernels (lstm_*_stream, rnn_*_stream):
+    # the widest-H LSTM and ST-RNN paths' train shapes and launches (their
+    # train CLI at 5 steps, H = 4096); the forwards also at serving batches 1
+    # and 256 (the serve phase's requests, not counted apart), both designs
+    # on the grids' inputs (on_grid), and each path's calls held at warm-up 0.
+    c2h, c3h = state["lstm_widest_h"]["launches"], state["strnn_widest_h"]["launches"]
+
+    def stream_recs(tag, name, st, launches, bwd_names, replaces, H4096):
+        on_grid = rec_dev[f"{tag}_on_grid"]
+        designs = lambda d: {sh: {f"{k}_device_ms": r[k][d]["device_ms"] for k in ("grid", "stream")}  # noqa: E731
+                             for sh, r in on_grid.items()}
+        held = rec_warmup0[name]
+        fwd = record(f"{tag}_fwd_stream", f"{tag}.cu", replaces[0], launches[f"{tag}_fwd"], st["fwd_err"], st["fwd"],
+                     device_ms=st["fwd"]["device_ms"], shape=list(H4096), stream_floor_ms=st["fwd"]["stream_floor_ms"],
+                     **{k[1:]: {**fwd_at(st["fwd" + k]), "stream_floor_ms": st["fwd" + k]["stream_floor_ms"]}
+                        for k in ("_b1", "_b256")},
+                     fp64={k: v for k, v in st["fp64"].items() if k.startswith("step")}, on_grid=designs("fwd"),
+                     warmup0={str(step): {k: h[k] for k in ("step_kernel", "step_plain")} for step, h in held.items()})
+        bwd = record(f"{tag}_bwd_stream", f"{tag}.cu", replaces[1], launches[f"{tag}_bwd"], st["bwd_err"], st["bwd"],
+                     **{k: st["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in bwd_names))},
+                     shape=list(H4096), fp64={k: v for k, v in st["fp64"].items() if not k.startswith("step")},
+                     on_grid=designs("bwd"),
+                     warmup0={str(step): {k: v for k, v in h.items() if k.startswith(("dx", "dw"))}
+                              for step, h in held.items()})
+        return [fwd, bwd]
     h256 = lambda d: {f"{k}_h256": big[d][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}  # noqa: E731
     fwd_at = lambda t: {f: t[f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}  # noqa: E731
     kernels = [
@@ -5426,7 +5887,9 @@ def main() -> int:
                shape=list(GRU_WIDE_H1024),
                **{k[1:]: {**{f: wide["bwd" + k][f] for f in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
                                                               *(f"{n}_ms" for n in GRU_BWD_GRID_KERNELS))},
-                          "launches": lc["gru_bwd"]} for k, lc in (("_h2048", wst), ("_c4_h2048", wsc4))}),
+                          "launches": lc["gru_bwd"]} for k, lc in (("_h2048", wst), ("_c4_h2048", wsc4))},
+               c2_warmup0={k: {str(step): h for step, h in c2_held[k]["held"].items()}
+                           for k in ("wide_bench", "widest_bench")}),
         record("gru_fwd_stream", "gru_fwd.cu", "poi_tpu/ops/fused_gru.py:71", wsh["gru_fwd"], stream["fwd_err"],
                stream["fwd"], device_ms=stream["fwd"]["device_ms"], shape=list(GRU_STREAM_H4096),
                stream_floor_ms=stream["fwd"]["stream_floor_ms"],
@@ -5460,7 +5923,8 @@ def main() -> int:
         record("lstm_bwd_grid", "lstm.cu", "poi_tpu/ops/fused_lstm.py:81", c2w["lstm_bwd"], lstm_wide["bwd_err"],
                lstm_wide["bwd"],
                **{k: lstm_wide["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in LSTM_BWD_GRID_KERNELS))},
-               shape=list(LSTM_WIDE_H1024)),
+               shape=list(LSTM_WIDE_H1024),
+               c2_warmup0={str(step): h for step, h in c2_held["wide_lstm"]["held"].items()}),
         record("rnn_fwd_grid", "rnn.cu", "poi_tpu/ops/fused_rnn.py:48", c3w["rnn_fwd"], rnn_wide["fwd_err"],
                rnn_wide["fwd"], device_ms=rnn_wide["fwd"]["device_ms"], shape=list(RNN_WIDE_H1024),
                max_hidden=rnn_max),
@@ -5468,6 +5932,10 @@ def main() -> int:
                rnn_wide["bwd"],
                **{k: rnn_wide["bwd"][k] for k in ("device_ms", *(f"{n}_ms" for n in RNN_BWD_GRID_KERNELS))},
                shape=list(RNN_WIDE_H1024)),
+        *stream_recs("lstm", "lstm", lstm_stream, c2h, LSTM_BWD_STREAM_KERNELS,
+                     ("poi_tpu/ops/fused_lstm.py:59", "poi_tpu/ops/fused_lstm.py:81"), LSTM_STREAM_H4096),
+        *stream_recs("rnn", "strnn", rnn_stream, c3h, RNN_BWD_STREAM_KERNELS,
+                     ("poi_tpu/ops/fused_rnn.py:48", "poi_tpu/ops/fused_rnn.py:65"), RNN_STREAM_H4096),
         record("ce_lse", "ce.cu", "poi_tpu/ops/fused_ce.py:181", trained["ce_lse"], lse_err, times["ce_lse"],
                device_ms=times["ce_lse"]["device_ms"],
                config3={f: times["ce_lse_c3"][f] for f in ("ms", "plain_ms", "bound_ms", "device_ms",

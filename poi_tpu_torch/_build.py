@@ -47,6 +47,9 @@ _SIGNATURES = {
     "gru_fwd_stream": [_P] * 5 + [_I] * 4 + [_P],
     "gru_bwd_stream": [_P] * 11 + [_I] * 4 + [_P],
     "lstm_max_hidden": [],
+    "lstm_stream_shape": [_I, _I, _I, ctypes.POINTER(_I)],
+    "lstm_fwd_stream": [_P] * 7 + [_I] * 4 + [_P],
+    "lstm_bwd_stream": [_P] * 14 + [_I] * 4 + [_P],
     "lstm_grid_shape": [_I, _I, _I, ctypes.POINTER(_I)],
     "lstm_fwd_grid": [_P] * 7 + [_I, _I, _I, _I, _P],
     "lstm_bwd_grid": [_P] * 13 + [_I, _I, _I, _I, _P],
@@ -56,6 +59,9 @@ _SIGNATURES = {
     "lstm_bwd_splits": [_I, _I, _I],
     "lstm_bwd": [_P] * 10 + [_I, _I, _I, _I, _P],
     "rnn_max_hidden": [],
+    "rnn_stream_shape": [_I, _I, _I, ctypes.POINTER(_I)],
+    "rnn_fwd_stream": [_P] * 6 + [_I] * 4 + [_P],
+    "rnn_bwd_stream": [_P] * 12 + [_I] * 4 + [_P],
     "rnn_grid_shape": [_I, _I, _I, ctypes.POINTER(_I)],
     "rnn_fwd_grid": [_P] * 6 + [_I, _I, _I, _I, _P],
     "rnn_bwd_grid": [_P] * 11 + [_I, _I, _I, _I, _P],

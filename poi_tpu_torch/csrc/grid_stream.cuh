@@ -1,15 +1,20 @@
 // Helpers of the recurrences' streamed-weight serial kernels (csrc/gru_fwd.cu's
-// gru_fwd_stream_kernel, csrc/gru_bwd.cu's gru_bwd_stream_carry_kernel), which
-// take the widths whose recurrent weight no layout holds on the chip. G is the
-// gate blocks of the weight: 3 (GRU), 4 (LSTM), 1 (RNN).
+// gru_fwd_stream_kernel, csrc/gru_bwd.cu's gru_bwd_stream_carry_kernel,
+// csrc/lstm.cu's lstm_fwd_stream_kernel and lstm_bwd_stream_carry_kernel,
+// csrc/rnn.cu's rnn_fwd_stream_kernel and rnn_bwd_stream_carry_kernel), which
+// take the widths whose recurrent weight no layout holds on the chip. G is
+// the gate blocks of the weight: 3 (GRU), 4 (LSTM), 1 (RNN).
 //
 // Why stream: the grid-resident design (grid_carry.cuh) keeps each CTA's
 // slice of the weight in shared memory for the whole launch. Past its limit
 // (the GRU past H = 2064: two octets a CTA to fit 258 octets into 132 SMs,
-// [2064][56] bf16 = 231,168 of a CTA's 232,448 bytes) no slice fits: wh at
-// H = 4096 is [4096, 12288] bf16 = 100.7 MB, twice the 50 MB L2 and 3.3x the
-// 30 MB of all 132 SMs' shared memory. So the weight is read from device
-// memory again every step, through a ring of k-chunks in shared memory.
+// [2064][56] bf16 = 231,168 of a CTA's 232,448 bytes; the LSTM past 1600,
+// the RNN past 3168) no slice fits: wh at H = 4096 is [4096, 12288] bf16 =
+// 100.7 MB (the GRU), [4096, 16384] = 134.2 MB (the LSTM), 2x-2.7x the 50 MB
+// L2 and 3.3x-4.5x the 30 MB of all 132 SMs' shared memory; the RNN's C
+// [4096, 4096] is 33.6 MB, more than all shared memory but less than the
+// L2. So the weight is read again every step, through a ring of k-chunks in
+// shared memory.
 //
 // - The grid is R row groups x Uc CTAs, one CTA an SM, launched
 //   cooperatively (launch_coop): a grid that cannot be co-resident fails to
@@ -25,11 +30,11 @@
 //   cotangent, from an L2-resident buffer that the row group's CTAs wrote
 //   before the barrier) and of the weight (its slice's columns or rows)
 //   lands in a ring of kStreamStages stages by 16-byte cp.async (L2 only:
-//   .cg), the weight's with an L2 evict-first hint, so that the 100 MB a step
-//   of streamed weight leaves the operand buffers and the barrier counters in
-//   L2; the 8 warps (2 along the rows, 4 along the columns) multiply it on
-//   mma.sync m16n8k16 from ldmatrix fragments, each warp's accumulators in
-//   registers for the whole item.
+//   .cg), the weight's with an L2 evict-first hint (evict_first_policy), so
+//   that the 100 MB a step of streamed weight leaves the operand buffers and
+//   the barrier counters in L2; the 8 warps (2 along the rows, 4 along the
+//   columns) multiply it on mma.sync m16n8k16 from ldmatrix fragments, each
+//   warp's accumulators in registers for the whole item.
 // - The padding: units past H are columns of zero weight (the wrapper pads
 //   wh's gate blocks to Hp = 8 ceil(H / 8) where H % 8 != 0, so that each
 //   octet of a row is 16 aligned bytes); rows of K past the data arrive as
@@ -54,7 +59,7 @@ struct StreamShape {
 };
 
 // The streamed grid for a batch of B rows of width H: the forward's
-// (bwd = false) or the carry's.
+// (bwd = false) or the carry's, the same for every G.
 //
 // The pick, from the reckoning at the bench workload's H = 4096, B = 512
 // (T = 64): every SM holds B 3H / 132 fp32 accumulators of the forward (190
@@ -72,6 +77,16 @@ struct StreamShape {
 // on an H100 (chip_smoke.py, PERF.md): B1 at B = 512 in 17.71 ms at 8
 // octets against 21.86 at 4, at B = 1 in 3.90 ms at 4 against 5.40 at 8; B2
 // at B = 512 in 266.73 ms at 16 octets against 286.92 at 8.
+//
+// A forward pass of 128 rows (mt = 4) holds MT x NO x G x 4 fp32
+// accumulators a thread (StreamFwd): the GRU's <4, 2> 96, the LSTM's 128
+// (half the register file), the RNN's 32. The LSTM's spills there (ptxas,
+// -Xptxas -v: lstm_fwd_stream_kernel<4, 2> at 255 registers, 96 bytes of
+// spill stores and 488 of loads; the GRU's <4, 2> 88 and 724), and passes
+// of 64, which stream the slice's weight twice as often, are slower still:
+// on an H100 at H = 4096, batch 256, 14.5 ms at passes of 128 against 22.5
+// at 64 (poi_tpu_torch/scripts/stream_rules.py, PERF.md). So the pick does
+// not depend on G; the carry's accumulators do not either (its K does).
 inline StreamShape stream_shape(int B, int H, bool bwd) {
   StreamShape s = {0, 0, 0, 0, 0, 0};
   if (H <= 0) return s;
@@ -93,7 +108,28 @@ inline StreamShape stream_shape(int B, int H, bool bwd) {
   return s;
 }
 
-// The L2 policy of the streamed weight: evicted first.
+// The C entries' form of stream_shape (gru_stream_shape, lstm_stream_shape,
+// rnn_stream_shape): out[0..5] = octets a slice, unit slices, CTAs a row
+// group, row groups, rows a group, mt; 0 (out untouched) at H <= 0.
+inline int stream_shape_out(int B, int H, bool bwd, int* out) {
+  const StreamShape s = stream_shape(B, H, bwd);
+  if (s.ocp == 0) return 0;
+  const int v[6] = {s.ocp, s.U, s.Uc, s.R, s.rows, s.mt};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 1;
+}
+
+// The L2 policy of the streamed weight: evicted first, whatever its bytes.
+// A weight that fits the 50 MB L2 (the RNN's C at H = 4096, 33.6 MB; the
+// GRU's wh at H = 2304 and 2560, 31.9 and 39.3 MB; the LSTM's at 2048,
+// 33.6 MB) could be kept there from step to step with evict-last instead.
+// On an H100 (poi_tpu_torch/scripts/stream_rules.py, PERF.md) that moved
+// the RNN's kernels at (64, 32, 4096) and the GRU's at (512, 64, 2304) and
+// 2560 by at most 1.1% either way (the RNN's training step, forward and
+// backward, 0.8% slower kept; the GRU's forwards slower, carries faster),
+// and the LSTM's carry at (64, 64, 2048) by 0.7%; only the LSTM's forward
+// there gained, 5.3%, at a width no configuration runs. So the bytes decide
+// nothing on the paths, and one policy holds for the three recurrences.
 __device__ __forceinline__ uint64_t evict_first_policy() {
   uint64_t p;
   asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));

@@ -644,11 +644,7 @@ cudaError_t launch_fwd_stream(const StreamShape& s, cudaStream_t st, const void*
 // slices, CTAs a row group, row groups, rows a group, mt (32 mt rows a
 // pass). Returns 0 (out untouched) at H <= 0.
 extern "C" int gru_stream_shape(int B, int H, int bwd, int* out) {
-  const StreamShape s = stream_shape(B, H, bwd != 0);
-  if (s.ocp == 0) return 0;
-  const int v[6] = {s.ocp, s.U, s.Uc, s.R, s.rows, s.mt};
-  for (int i = 0; i < 6; ++i) out[i] = v[i];
-  return 1;
+  return stream_shape_out(B, H, bwd != 0, out);
 }
 
 // The forward streamed (gru_fwd_stream_kernel), any H >= 1. w: wh with its

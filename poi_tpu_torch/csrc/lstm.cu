@@ -94,9 +94,12 @@
 // MB at H = 1024), and the serial kernels run on the whole card:
 // lstm_fwd_grid_kernel and lstm_bwd_grid_carry_kernel below
 // (csrc/grid_carry.cuh, the GRU's grid-resident design with four gate
-// blocks), up to lstm_max_hidden() (1600); a larger H is refused
-// (cudaErrorInvalidValue), and the Python wrapper raises first and names the
-// limit.
+// blocks), up to lstm_max_hidden() (1600). Past it no layout holds wh on
+// the chip (134.2 MB at H = 4096), and the serial kernels stream it from
+// device memory every step (lstm_fwd_stream_kernel and
+// lstm_bwd_stream_carry_kernel below, with csrc/grid_stream.cuh), any
+// H >= 1. The Python wrapper picks the design (ops/fused_lstm.py design);
+// an H <= 0 is refused (cudaErrorInvalidValue).
 //
 // Backward (B4): csrc/gru_bwd.cu's three passes, for four gates and two
 // carries, and the shared dwh product.
@@ -142,6 +145,11 @@
 //    Any H up to the pair's limit, ragged ones included: a ragged H
 //    zero-pads the last octet and K.
 // 3. dwh: recurrent_dw::launch over the final dxw (csrc/recurrent_dwh.cuh).
+// On the streamed design (lstm_bwd_stream) pass 1 adds its k-steps in IEEE
+// fp32 and dwh sums its rows in runs (run_passes' ieee), as the GRU's
+// streamed backward does: the tensor core's own fp32 accumulation over
+// H / 16 k-steps, and one fp32 chain over all B*T rows, put the GRU's at
+// H = 4096 3e-5 to 6e-5 from fp64 on a climbing run's inputs (PERF.md).
 //
 // The entry points launch on the given stream, do not synchronise and
 // allocate nothing; they return cudaGetLastError() after the launches.
@@ -150,7 +158,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "grid_carry.cuh"
+#include "grid_stream.cuh"
 #include "recurrent_dwh.cuh"
 
 namespace {
@@ -531,11 +539,15 @@ cudaError_t launch_fwd(const void* xw, const void* mask, const void* wh, void* h
 // coef [B*T, 2H]. A block is 8 warps of 16 rows (128 rows of B*T) x 4 unit
 // octets (their i, f, g and o columns); K streams through smem in chunks of
 // 64. Where H % 8 == 0 (kVec) the loads move 4 (h) and 8 (wh) elements at a
-// time and the epilogue two units.
+// time and the epilogue two units. kIeee (the streamed backward's, past
+// H = 1600): each k-step's product goes into a zeroed fragment that is
+// added to acc in IEEE fp32, as gru_bwd.cu's gates pass does there (the
+// tensor core's own fp32 accumulation truncates, and at H = 4096 the pass
+// sums 256 k-steps).
 constexpr int kGateRows = 128, kGateOct = 4, kGateK = 64, kGateThreads = 256;
 constexpr int kGateLdA = kGateK + 8, kGateLdB = 32 * kGateOct + 8;
 
-template <bool kVec>
+template <bool kVec, bool kIeee>
 __global__ void __launch_bounds__(kGateThreads)
     lstm_bwd_gates_kernel(const float* __restrict__ xw, const bf16* __restrict__ wh, const float* __restrict__ hs,
                           const float* __restrict__ cs, float* __restrict__ dxw, float* __restrict__ coef, int BT,
@@ -594,7 +606,14 @@ __global__ void __launch_bounds__(kGateThreads)
       for (int nt = 0; nt < 4 * kGateOct; ++nt) {
         uint32_t b0, b1;
         ldsm_x2_trans(b0, b1, b_a + ((ks * 16 + lane % 16) * kGateLdB + nt * 8) * 2);
-        mma_bf16(acc[nt], a, b0, b1);
+        if constexpr (kIeee) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(part, a, b0, b1);
+#pragma unroll
+          for (int x = 0; x < 4; ++x) acc[nt][x] += part[x];
+        } else {
+          mma_bf16(acc[nt], a, b0, b1);
+        }
       }
     }
     __syncthreads();
@@ -1187,14 +1206,258 @@ __global__ void __launch_bounds__(32 * kGridWarps, 1)
   }
 }
 
+// ---------------------------------------------------------------- past the grid: the stream
+//
+// lstm_fwd_stream_kernel, for the widths past the grid's (grid_stream.cuh has
+// the grid, the ring of k-chunks and the product; gru_fwd.cu's
+// gru_fwd_stream_kernel is the same design with three gate blocks). What
+// bounds it at config #2's batch 64 and T = 64 at H = 4096 (wh [4096, 16384]
+// bf16, 134.2 MB, 2.7x the L2): the weight read from device memory once a
+// step, 40 us at 3.35 TB/s, 2.56 ms a call (the tensor work, 8.6e9
+// operations a step, is 9 us of it at 989 TFLOP/s). The pick there is one
+// row group of 64 rows on 128 CTAs of 4-octet slices (128 columns: i, f, g,
+// o of 32 units), one pass (mt = 2), so each SM streams its 1 MB slice of
+// the weight and reads 0.5 MB of bf16(h) from L2 a step; at batch 1
+// (serving) the same weight stream holds, 2.56 ms. At batch 256 the slices
+// take 8 octets on 64 CTAs x 2 row groups of 128 rows, one pass of 128 (mt
+// = 4: 4 x 2 x 4 x 4 = 128 fp32 accumulators a thread, which spill, and
+// still beat two passes of 64: grid_stream.cuh's stream_shape).
+// A step: wait on the row group's barrier for h(t - 1); for each item (a
+// unit slice, a pass of 32 mt rows), pre = bf16(h(t - 1)) @ wh's i, f, g, o
+// columns of the slice (stream_fwd_product<4>: bf16(h) from hbuf[(t - 1) &
+// 1], zero past B and H, and wh's rows by k-chunks, each k-step's product
+// added in IEEE fp32), then lstm_fwd_grid_kernel's update (sigmoid_fast,
+// tanh_fast, c_raw = f c + i g, h_raw = o tanh(c_raw), both carries blended
+// with the row's mask, the fp32 h(t - 1) and c(t - 1) read back from hs
+// and cs, which this thread wrote), fp32 h and c out, bf16(h) to hbuf[t &
+// 1]; then arrive. w is wh with its gate blocks Hp apart (Hp = 8 ceil(H /
+// 8): the wrapper pads them where H % 8 != 0). A padded step (m = 0) passes
+// both carries through exactly: the gates are finite. No atomics: a second
+// launch gives the same bits.
+template <int MT, int NO>
+__global__ void __launch_bounds__(32 * kGridWarps, 1)
+    lstm_fwd_stream_kernel(const float* __restrict__ xw, const float* __restrict__ mask, const bf16* __restrict__ w,
+                           float* __restrict__ hs, float* __restrict__ cs, bf16* __restrict__ hbuf,
+                           int* __restrict__ ctr, int B, int T, int H, StreamShape S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using F = StreamFwd<4, MT, NO>;
+  const int O = (H + 7) / 8, Hp = 8 * O, Hk = (H + 15) / 16 * 16;
+  const size_t H4 = 4 * (size_t)H;
+  const int c = blockIdx.x % S.Uc, grp = blockIdx.x / S.Uc;
+  const int row0 = grp * S.rows, rend = row0 + S.rows, bend = min(rend, B);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const size_t buf = (size_t)S.R * S.rows * Hk;  // one parity of hbuf [2][R rows][Hk]
+  int* my_ctr = ctr + grp * kCtrStride;
+  const uint64_t policy = evict_first_policy();
+
+  for (int t = 0; t < T; ++t) {
+    if (t > 0) group_wait(my_ctr, S.Uc * t);  // every CTA of the group has written h(t - 1)
+    const bf16* hb = hbuf + ((t - 1) & 1) * buf;
+    bf16* hn = hbuf + (t & 1) * buf;
+    for (int u = c; u < S.U; u += S.Uc) {
+      const int ob = u * F::kOcp, n_oct = min(F::kOcp, O - ob);
+      for (int r0 = row0; r0 < bend; r0 += F::kMc) {
+        float acc[MT][NO][4][4] = {};
+        if (t > 0) {  // h(-1) = 0
+          stream_fwd_product<4, MT, NO>(acc, hb, Hk, r0, rend, w, 4 * (size_t)Hp, Hp, H, ob, n_oct, smem, policy);
+        }
+        // The update: accumulator element 2 rr + ii is (row g + 8 rr, unit 2 tq + ii) of the tile.
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+#pragma unroll
+          for (int o = 0; o < NO; ++o) {
+            const int j0 = 8 * (ob + wn * NO + o) + 2 * tq;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int b = r0 + wm * 16 * MT + 16 * i + g + 8 * rr;
+              if (b >= bend || j0 >= H) continue;
+              const size_t row = (size_t)b * T + t, xo = row * H4 + j0, ho = row * H + j0;
+              const float m = mask[row];
+              float h[2] = {0.f, 0.f};
+#pragma unroll
+              for (int ii = 0; ii < 2; ++ii) {
+                if (j0 + ii >= H) break;
+                const int ci = 2 * rr + ii;
+                const float ig = sigmoid_fast(xw[xo + ii] + acc[i][o][0][ci]);
+                const float fg = sigmoid_fast(xw[xo + H + ii] + acc[i][o][1][ci]);
+                const float gg = tanh_fast(xw[xo + 2 * H + ii] + acc[i][o][2][ci]);
+                const float og = sigmoid_fast(xw[xo + 3 * H + ii] + acc[i][o][3][ci]);
+                const float hp = t > 0 ? hs[ho - H + ii] : 0.f, cp = t > 0 ? cs[ho - H + ii] : 0.f;
+                const float c_raw = fg * cp + ig * gg;
+                const float h_raw = og * tanh_fast(c_raw);
+                h[ii] = m * h_raw + (1.0f - m) * hp;
+                cs[ho + ii] = m * c_raw + (1.0f - m) * cp;
+                hs[ho + ii] = h[ii];
+              }
+              if (t + 1 < T) *reinterpret_cast<uint32_t*>(hn + (size_t)b * Hk + j0) = pack_bf16(h[0], h[1]);
+            }
+          }
+        }
+      }
+    }
+    if (t + 1 < T) group_arrive(my_ctr);
+  }
+}
+
+template <int MT, int NO>
+cudaError_t launch_fwd_stream(const StreamShape& s, cudaStream_t st, const void* xw, const void* mask, const void* w,
+                              void* hs, void* cs, void* hbuf, void* ctr, int B, int T, int H) {
+  return launch_coop(lstm_fwd_stream_kernel<MT, NO>, s.Uc * s.R, StreamFwd<4, MT, NO>::kSmem, st,
+                     static_cast<const float*>(xw), static_cast<const float*>(mask), static_cast<const bf16*>(w),
+                     static_cast<float*>(hs), static_cast<float*>(cs), static_cast<bf16*>(hbuf),
+                     static_cast<int*>(ctr), B, T, H, s);
+}
+
+// lstm_bwd_stream_carry_kernel, pass 2 of the backward past the grid's
+// widths (gru_bwd.cu's gru_bwd_stream_carry_kernel with four gate blocks, a
+// second carry and lstm_bwd_grid_carry_kernel's step: dxw written by the
+// carry, no outputs pass). CTA c of a row group owns the output units of its
+// slices: for each item (a slice, a pass of 32 mt rows) dxw[t] @ wh^T at
+// those units is one product over all 4 Hp columns (stream_carry_product:
+// the three bf16 terms of dxw[t] from the L2-resident buffer dt[t & 1]
+// [3][R rows][4 Hp], wh's rows of the units by k-chunks, term 0's k-steps
+// added in IEEE fp32), so no partial sums cross a CTA. What bounds it at
+// config #2's (64, 64, 4096): the pick (8-octet slices, 64 slices x 2 row
+// groups of 32 rows, one pass, mt = 1) streams the 134.2 MB weight once a
+// row group a step from device memory or L2, and each CTA reads its slice's
+// 2.1 MB of wh rows and 3.1 MB of the three terms a step; three products of
+// 2 B 4H H = 8.6e9 operations a step are 26 us at 989 TFLOP/s.
+// Step t = T-1 .. 0 of the row group:
+// - per item, at this thread's pairs, from the coefficients of pass 1
+//   (kappa, f in coef; iota, phi, gamma, omega in dxw) and the carries dh,
+//   dc of the step after: d = dh + dhs[t], dh_raw = d m, dc_raw = dc m +
+//   dh_raw kappa, dxw[t] = [dc_raw iota, dc_raw phi, dc_raw gamma, dh_raw
+//   omega] (over its coefficients; exactly 0 where m = 0), dc = dc (1 - m) +
+//   dc_raw f and d (1 - m) into the thread's slots of `carry` [2][B][H] (dh,
+//   dc: only this thread reads them), and (t > 0) dxw[t]'s three exact bf16
+//   terms (split3) into dt[t & 1] at columns gate Hp + unit;
+// - the group's barrier (not at t = 0: dh(-1) feeds nothing);
+// - per item, the product: s, summed smallest first (acc12 + acc0);
+//   dh = d (1 - m) + s.
+// Every cotangent stays fp32 (the terms carry its 24 bits). No atomics in
+// any sum: the same bits every run.
+template <int MT, int NT>
+__global__ void __launch_bounds__(32 * kGridWarps, 1)
+    lstm_bwd_stream_carry_kernel(const bf16* __restrict__ w, const float* __restrict__ dhs,
+                                 const float* __restrict__ mask, float* __restrict__ dxw,
+                                 const float* __restrict__ coef, float* __restrict__ carry, bf16* __restrict__ dt,
+                                 int* __restrict__ ctr, int B, int T, int H, StreamShape S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using F = StreamCarry<MT, NT>;
+  const int O = (H + 7) / 8, Hp = 8 * O, K = 4 * Hp;
+  const size_t H4 = 4 * (size_t)H;
+  const int c = blockIdx.x % S.Uc, grp = blockIdx.x / S.Uc;
+  const int row0 = grp * S.rows, rend = row0 + S.rows, bend = min(rend, B);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const size_t term = (size_t)S.R * S.rows * K;  // one term of one parity of dt [2][3][R rows][K]
+  int* my_ctr = ctr + grp * kCtrStride;
+  float* dh_c = carry;                   // [B][H]: d (1 - m) of the step, then dh into the step before
+  float* dc_c = carry + (size_t)B * H;  // [B][H]: dc into the step before
+  const uint64_t policy = evict_first_policy();
+
+  for (int t = T - 1; t >= 0; --t) {
+    bf16* dtt = dt + (size_t)(t & 1) * 3 * term;
+    for (int u = c; u < S.U; u += S.Uc) {
+      for (int r0 = row0; r0 < bend; r0 += F::kMc) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const int j0 = 8 * (u * F::kOcp + wn * NT + n) + 2 * tq;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int b = r0 + wm * 16 * MT + 16 * i + g + 8 * rr;
+              if (b >= bend || j0 >= H) continue;
+              const size_t row = (size_t)b * T + t;
+              const float m = mask[row];
+              float x[4][2] = {};
+#pragma unroll
+              for (int ii = 0; ii < 2; ++ii) {
+                const int j = j0 + ii;
+                if (j >= H) break;
+                const size_t o = row * H4 + j, oc = row * 2 * H + j, oh = (size_t)b * H + j;
+                const float dh = t == T - 1 ? 0.f : dh_c[oh], dc = t == T - 1 ? 0.f : dc_c[oh];
+                const float d = dh + dhs[row * H + j];
+                const float dh_raw = d * m;
+                const float dc_raw = dc * m + dh_raw * coef[oc];
+                x[0][ii] = dc_raw * dxw[o];
+                x[1][ii] = dc_raw * dxw[o + H];
+                x[2][ii] = dc_raw * dxw[o + 2 * H];
+                x[3][ii] = dh_raw * dxw[o + 3 * H];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) dxw[o + q * H] = x[q][ii];
+                dc_c[oh] = dc * (1.0f - m) + dc_raw * coef[oc + H];
+                dh_c[oh] = d * (1.0f - m);
+              }
+              if (t == 0) continue;
+              bf16* at = dtt + (size_t)b * K + j0;
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                __nv_bfloat162 terms[3];
+                split3(x[q][0], x[q][1], terms);
+#pragma unroll
+                for (int e = 0; e < 3; ++e) *reinterpret_cast<__nv_bfloat162*>(at + e * term + q * Hp) = terms[e];
+              }
+            }
+          }
+        }
+      }
+    }
+    if (t == 0) break;
+    group_arrive(my_ctr);
+    group_wait(my_ctr, S.Uc * (T - t));  // every CTA of the group has written step t's terms
+    for (int u = c; u < S.U; u += S.Uc) {
+      const int ob = u * F::kOcp, n_oct = min(F::kOcp, O - ob);
+      for (int r0 = row0; r0 < bend; r0 += F::kMc) {
+        float acc0[MT][NT][4] = {}, acc12[MT][NT][4] = {};
+        stream_carry_product<MT, NT>(acc0, acc12, dtt, term, K, r0, rend, w, H, ob, n_oct, smem, policy);
+        // dh = d (1 - m) + s, the smallest terms first.
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const int j0 = 8 * (ob + wn * NT + n) + 2 * tq;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int b = r0 + wm * 16 * MT + 16 * i + g + 8 * rr;
+#pragma unroll
+              for (int ii = 0; ii < 2; ++ii) {
+                if (b >= bend || j0 + ii >= H) continue;
+                const int ci = 2 * rr + ii;
+                dh_c[(size_t)b * H + j0 + ii] += acc12[i][n][ci] + acc0[i][n][ci];
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int MT, int NT>
+cudaError_t launch_carry_stream(const StreamShape& s, cudaStream_t st, const void* w, const void* dhs,
+                                const void* mask, void* dxw, const void* coef, void* carry, void* dt, void* ctr,
+                                int B, int T, int H) {
+  return launch_coop(lstm_bwd_stream_carry_kernel<MT, NT>, s.Uc * s.R, StreamCarry<MT, NT>::kSmem, st,
+                     static_cast<const bf16*>(w), static_cast<const float*>(dhs), static_cast<const float*>(mask),
+                     static_cast<float*>(dxw), static_cast<const float*>(coef), static_cast<float*>(carry),
+                     static_cast<bf16*>(dt), static_cast<int*>(ctr), B, T, H, s);
+}
+
 // The backward's passes around `carry`, which launches pass 2 on `s`: the
-// gates (pass 1) before it, dwh over the final dxw (pass 3) after it.
+// gates (pass 1) before it, dwh over the final dxw (pass 3) after it; ieee
+// (the streamed backward): the gates pass adds each k-step in IEEE fp32,
+// and dwh sums its rows in runs (recurrent_dw::launch's blocked).
 template <class Carry>
 cudaError_t run_passes(const void* xw, const void* wh, const void* hs, const void* cs, void* dxw, void* coef,
-                       void* dwh_partial, void* dwh, int B, int T, int H, cudaStream_t s, Carry carry) {
+                       void* dwh_partial, void* dwh, int B, int T, int H, cudaStream_t s, Carry carry,
+                       bool ieee = false) {
   const int BT = B * T;
   const dim3 gates_grid((BT + kGateRows - 1) / kGateRows, ((H + 7) / 8 + kGateOct - 1) / kGateOct);
-  auto gates = H % 8 == 0 ? lstm_bwd_gates_kernel<true> : lstm_bwd_gates_kernel<false>;
+  auto gates = ieee ? (H % 8 == 0 ? lstm_bwd_gates_kernel<true, true> : lstm_bwd_gates_kernel<false, true>)
+                    : (H % 8 == 0 ? lstm_bwd_gates_kernel<true, false> : lstm_bwd_gates_kernel<false, false>);
   gates<<<gates_grid, kGateThreads, 0, s>>>(static_cast<const float*>(xw), static_cast<const bf16*>(wh),
                                             static_cast<const float*>(hs), static_cast<const float*>(cs),
                                             static_cast<float*>(dxw), static_cast<float*>(coef), BT, T, H);
@@ -1203,7 +1466,7 @@ cudaError_t run_passes(const void* xw, const void* wh, const void* hs, const voi
   e = carry();
   if (e != cudaSuccess) return e;
   return recurrent_dw::launch(static_cast<const float*>(hs), static_cast<const float*>(dxw),
-                              static_cast<float*>(dwh_partial), static_cast<float*>(dwh), B, T, H, 4 * H, s);
+                              static_cast<float*>(dwh_partial), static_cast<float*>(dwh), B, T, H, 4 * H, s, ieee);
 }
 
 // The widest H up to which the cluster kernels take every width: the
@@ -1221,10 +1484,11 @@ int cluster_max_hidden() {
 
 }  // namespace
 
-// The largest H up to which the pair takes every width: the cluster kernels
-// up to cluster_max_hidden() (512), the grid-resident ones past it, both
-// directions (1600: past it the forward's slice of two octets no longer
-// fits a CTA, and one octet a CTA needs more CTAs than the card has SMs).
+// The largest H up to which the cluster and grid-resident kernels take
+// every width: the clusters up to cluster_max_hidden() (512), the grid past
+// it, both directions (1600: past it the forward's slice of two octets no
+// longer fits a CTA, and one octet a CTA needs more CTAs than the card has
+// SMs); the streamed kernels take every H past it.
 extern "C" int lstm_max_hidden() {
   static int limit = -1;
   if (limit < 0) {
@@ -1337,4 +1601,62 @@ extern "C" int lstm_bwd_grid(const void* xw, const void* mask, const void* wh, c
                        static_cast<float*>(dxw), static_cast<const float*>(coef), static_cast<float*>(carry),
                        static_cast<bf16*>(dt), static_cast<int*>(ctr), B, T, H, g);
   });
+}
+
+// The grid the streamed kernels run a batch of B rows of width H on (the
+// forward's, bwd = 0, or the carry's; grid_stream.cuh's stream_shape):
+// out[0..5] = octets a slice, unit slices, CTAs a row group, row groups,
+// rows a group, mt (32 mt rows a pass). Returns 0 (out untouched) at H <= 0.
+extern "C" int lstm_stream_shape(int B, int H, int bwd, int* out) {
+  return stream_shape_out(B, H, bwd != 0, out);
+}
+
+// The forward streamed (lstm_fwd_stream_kernel), any H >= 1. w: wh with its
+// gate blocks Hp = 8 ceil(H / 8) apart, [H][4 Hp] bf16 (wh itself where H %
+// 8 == 0); hbuf: [2][R rows][Hk] bf16 zeros, ctr: R * 32 int32 zeros
+// (lstm_stream_shape(B, H, 0)'s R and rows); both the caller's, left dirty.
+// cudaErrorInvalidValue at H <= 0.
+extern "C" int lstm_fwd_stream(const void* xw, const void* mask, const void* w, void* hs, void* cs, void* hbuf,
+                               void* ctr, int B, int T, int H, int device, void* stream) {
+  const StreamShape s = stream_shape(B, H, false);
+  if (s.ocp == 0) return cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool two = s.ocp == 8;  // two octets a warp
+  switch (s.mt) {
+    case 1: return two ? launch_fwd_stream<1, 2>(s, st, xw, mask, w, hs, cs, hbuf, ctr, B, T, H)
+                       : launch_fwd_stream<1, 1>(s, st, xw, mask, w, hs, cs, hbuf, ctr, B, T, H);
+    case 2: return two ? launch_fwd_stream<2, 2>(s, st, xw, mask, w, hs, cs, hbuf, ctr, B, T, H)
+                       : launch_fwd_stream<2, 1>(s, st, xw, mask, w, hs, cs, hbuf, ctr, B, T, H);
+    default: return two ? launch_fwd_stream<4, 2>(s, st, xw, mask, w, hs, cs, hbuf, ctr, B, T, H)
+                        : launch_fwd_stream<4, 1>(s, st, xw, mask, w, hs, cs, hbuf, ctr, B, T, H);
+  }
+}
+
+// The backward with pass 2 streamed (lstm_bwd_stream_carry_kernel), the
+// gates pass's k-steps added in IEEE fp32 and dwh summed in runs, any H >= 1.
+// wh: [H][4H] bf16 (the gates pass's); w: wh with its gate blocks Hp apart,
+// [H][4 Hp] (wh itself where H % 8 == 0); dt: [2][3][R rows][4 Hp] bf16
+// zeros, ctr: R * 32 int32 zeros (lstm_stream_shape(B, H, 1)'s R and rows),
+// carry: [2][B][H] fp32; all the caller's, left dirty.
+// cudaErrorInvalidValue at H <= 0 or an empty batch.
+extern "C" int lstm_bwd_stream(const void* xw, const void* mask, const void* wh, const void* hs, const void* cs,
+                               const void* dhs, void* dxw, void* coef, void* dwh_partial, void* dwh, const void* w,
+                               void* dt, void* ctr, void* carry, int B, int T, int H, int device, void* stream) {
+  const StreamShape g = stream_shape(B, H, true);
+  if (g.ocp == 0 || B <= 0 || T <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return run_passes(xw, wh, hs, cs, dxw, coef, dwh_partial, dwh, B, T, H, s, [&]() {
+    const bool four = g.ocp == 16;  // four octets a warp
+    if (g.mt == 1) {
+      return four ? launch_carry_stream<1, 4>(g, s, w, dhs, mask, dxw, coef, carry, dt, ctr, B, T, H)
+                  : launch_carry_stream<1, 2>(g, s, w, dhs, mask, dxw, coef, carry, dt, ctr, B, T, H);
+    }
+    return four ? launch_carry_stream<2, 4>(g, s, w, dhs, mask, dxw, coef, carry, dt, ctr, B, T, H)
+                : launch_carry_stream<2, 2>(g, s, w, dhs, mask, dxw, coef, carry, dt, ctr, B, T, H);
+  }, true);
 }

@@ -80,9 +80,12 @@
 // 40 k-steps). Past it the serial kernels run on the whole card, C in the
 // CTAs' shared memory: rnn_fwd_grid_kernel and rnn_bwd_grid_carry_kernel
 // below (csrc/grid_carry.cuh, the GRU's grid-resident design with one gate
-// block), up to rnn_max_hidden() (3168); a larger H is refused
-// (cudaErrorInvalidValue), and the Python wrapper raises first and names the
-// limit.
+// block), up to rnn_max_hidden() (3168). Past it C no longer fits the CTAs'
+// shared memory (33.6 MB at H = 4096), and the serial kernels read it from
+// L2 or device memory every step (rnn_fwd_stream_kernel and
+// rnn_bwd_stream_carry_kernel below, with csrc/grid_stream.cuh), any H >= 1.
+// The Python wrapper picks the design (ops/fused_rnn.py design); an H <= 0
+// is refused (cudaErrorInvalidValue).
 //
 // Backward (B6): csrc/gru_bwd.cu's three-part pattern with one gate block.
 // 1. rnn_bwd_coef_kernel: h_raw = tanh(xin + bf16(h_prev) @ C) of every
@@ -133,7 +136,8 @@
 //    rows, so every cluster gives the same bits. A ragged H zero-pads the
 //    last octet and K.
 // 3. dC: recurrent_dw::launch over the final dxin (fp32 on the CUDA cores,
-//    csrc/recurrent_dwh.cuh, as B2's and B4's dwh).
+//    csrc/recurrent_dwh.cuh, as B2's and B4's dwh); on the streamed design
+//    (rnn_bwd_stream) in runs of rows (run_parts' blocked), as the GRU's.
 // No atomics: a second launch gives the same bits.
 //
 // The entry points launch on the given stream, do not synchronise and
@@ -143,7 +147,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "grid_carry.cuh"
+#include "grid_stream.cuh"
 #include "recurrent_dwh.cuh"
 
 namespace {
@@ -1132,6 +1136,215 @@ __global__ void __launch_bounds__(32 * kGridWarps, 1)
   }
 }
 
+// ---------------------------------------------------------------- past the grid: the stream
+//
+// rnn_fwd_stream_kernel, for the widths past the grid's (grid_stream.cuh has
+// the grid, the ring of k-chunks and the product; gru_fwd.cu's
+// gru_fwd_stream_kernel is the same design with three gate blocks). What
+// bounds it at config #3's batch 64 and T = 32 at H = 4096 (C [4096, 4096]
+// bf16, 33.6 MB): the weight read once a step, 10 us from device memory at
+// 3.35 TB/s (0.32 ms a call), less where L2 still holds some of C from the
+// step before (it is loaded evict-first, grid_stream.cuh says why), plus
+// the row group's barrier. The pick is
+// the GRU's: one row group of 64 rows on 128 CTAs of 4-octet slices, one
+// pass (mt = 2). With one gate block a slice is 32 columns of C, so an
+// item's product has a narrow N (a warp's 8 columns) against the 64 rows x
+// 4096 k of bf16(h) that every CTA reads from L2 (0.5 MB a step, beside
+// its 0.26 MB of C). The pick stands: wider slices (8 octets, 64 CTAs)
+// read the same 0.5 MB of bf16(h) and twice the C a CTA on half the SMs,
+// and more row groups would split the 64 rows that share each slice's
+// read of C.
+// A step: wait on the row group's barrier for h(t - 1); for each item (a
+// unit slice, a pass of 32 mt rows), bf16(h(t - 1)) @ C's columns of the
+// slice (stream_fwd_product<1>: each k-step's product added in IEEE fp32),
+// then h = m tanh_fast(xin + .) + (1 - m) h with the fp32 h(t - 1) read
+// back from hs (this thread wrote it); fp32 h out, bf16(h) to hbuf[t & 1];
+// then arrive. w is C with its columns padded to Hp = 8 ceil(H / 8) where
+// H % 8 != 0 (the wrapper's). A padded step (m = 0) passes h through
+// exactly: tanh_fast is finite. No atomics: a second launch gives the same
+// bits.
+template <int MT, int NO>
+__global__ void __launch_bounds__(32 * kGridWarps, 1)
+    rnn_fwd_stream_kernel(const float* __restrict__ xin, const float* __restrict__ mask, const bf16* __restrict__ w,
+                          float* __restrict__ hs, bf16* __restrict__ hbuf, int* __restrict__ ctr, int B, int T, int H,
+                          StreamShape S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using F = StreamFwd<1, MT, NO>;
+  const int O = (H + 7) / 8, Hp = 8 * O, Hk = (H + 15) / 16 * 16;
+  const int c = blockIdx.x % S.Uc, grp = blockIdx.x / S.Uc;
+  const int row0 = grp * S.rows, rend = row0 + S.rows, bend = min(rend, B);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const size_t buf = (size_t)S.R * S.rows * Hk;  // one parity of hbuf [2][R rows][Hk]
+  int* my_ctr = ctr + grp * kCtrStride;
+  const uint64_t policy = evict_first_policy();
+
+  for (int t = 0; t < T; ++t) {
+    if (t > 0) group_wait(my_ctr, S.Uc * t);  // every CTA of the group has written h(t - 1)
+    const bf16* hb = hbuf + ((t - 1) & 1) * buf;
+    bf16* hn = hbuf + (t & 1) * buf;
+    for (int u = c; u < S.U; u += S.Uc) {
+      const int ob = u * F::kOcp, n_oct = min(F::kOcp, O - ob);
+      for (int r0 = row0; r0 < bend; r0 += F::kMc) {
+        float acc[MT][NO][1][4] = {};
+        if (t > 0) {  // h(-1) = 0
+          stream_fwd_product<1, MT, NO>(acc, hb, Hk, r0, rend, w, (size_t)Hp, Hp, H, ob, n_oct, smem, policy);
+        }
+        // The update: accumulator element 2 rr + ii is (row g + 8 rr, unit 2 tq + ii) of the tile.
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+#pragma unroll
+          for (int o = 0; o < NO; ++o) {
+            const int j0 = 8 * (ob + wn * NO + o) + 2 * tq;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int b = r0 + wm * 16 * MT + 16 * i + g + 8 * rr;
+              if (b >= bend || j0 >= H) continue;
+              const size_t row = (size_t)b * T + t, ho = row * H + j0;
+              const float m = mask[row];
+              float h[2] = {0.f, 0.f};
+#pragma unroll
+              for (int ii = 0; ii < 2; ++ii) {
+                if (j0 + ii >= H) break;
+                const float h_raw = tanh_fast(xin[ho + ii] + acc[i][o][0][2 * rr + ii]);
+                const float hp = t > 0 ? hs[ho - H + ii] : 0.f;
+                h[ii] = m * h_raw + (1.0f - m) * hp;
+                hs[ho + ii] = h[ii];
+              }
+              if (t + 1 < T) *reinterpret_cast<uint32_t*>(hn + (size_t)b * Hk + j0) = pack_bf16(h[0], h[1]);
+            }
+          }
+        }
+      }
+    }
+    if (t + 1 < T) group_arrive(my_ctr);
+  }
+}
+
+template <int MT, int NO>
+cudaError_t launch_fwd_stream(const StreamShape& s, cudaStream_t st, const void* xin, const void* mask, const void* w,
+                              void* hs, void* hbuf, void* ctr, int B, int T, int H) {
+  return launch_coop(rnn_fwd_stream_kernel<MT, NO>, s.Uc * s.R, StreamFwd<1, MT, NO>::kSmem, st,
+                     static_cast<const float*>(xin), static_cast<const float*>(mask), static_cast<const bf16*>(w),
+                     static_cast<float*>(hs), static_cast<bf16*>(hbuf), static_cast<int*>(ctr), B, T, H, s);
+}
+
+// rnn_bwd_stream_carry_kernel, part 2 of the backward past the grid's
+// widths (gru_bwd.cu's gru_bwd_stream_carry_kernel with one gate block and
+// rnn_bwd_grid_carry_kernel's step). CTA c of a row group owns the output
+// units of its slices: for each item (a slice, a pass of 32 mt rows)
+// dpre(t) @ C^T at those units is one product over all Hp columns
+// (stream_carry_product: the three bf16 terms of dpre(t) from the
+// L2-resident buffer dt[t & 1] [3][R rows][Hp], C's rows of the units by
+// k-chunks, term 0's k-steps added in IEEE fp32), so no partial sums cross
+// a CTA. What bounds it at config #3's (64, 32, 4096): the pick (8-octet
+// slices, 64 slices x 2 row groups of 32 rows, one pass) streams C's 33.6
+// MB once a row group a step, and each CTA reads its slice's 0.5 MB of C's
+// rows and 0.8 MB of the three terms a step; three products of 2 B H H =
+// 2.1e9 operations a step are 6.5 us at 989 TFLOP/s.
+// Step t = T-1 .. 0 of the row group:
+// - per item, at this thread's pairs, from part 1's coefficient a = m (1 -
+//   h_raw^2) (in dxin) and the carry dh of the step after: d = dh + dhs[t],
+//   dpre = d a into dxin[t] (exactly 0 on a padded step), d (1 - m) into
+//   the thread's slot of `carry` [B][H] (only this thread reads it), and
+//   (t > 0) dpre's three exact bf16 terms (split3) into dt[t & 1];
+// - the group's barrier (not at t = 0: dh(-1) feeds nothing);
+// - per item, the product: s, summed smallest first (acc12 + acc0);
+//   dh = d (1 - m) + s.
+// No atomics in any sum: the same bits every run.
+template <int MT, int NT>
+__global__ void __launch_bounds__(32 * kGridWarps, 1)
+    rnn_bwd_stream_carry_kernel(const bf16* __restrict__ w, const float* __restrict__ dhs,
+                                const float* __restrict__ mask, float* __restrict__ dxin, float* __restrict__ carry,
+                                bf16* __restrict__ dt, int* __restrict__ ctr, int B, int T, int H, StreamShape S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using F = StreamCarry<MT, NT>;
+  const int O = (H + 7) / 8, K = 8 * O;
+  const int c = blockIdx.x % S.Uc, grp = blockIdx.x / S.Uc;
+  const int row0 = grp * S.rows, rend = row0 + S.rows, bend = min(rend, B);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const size_t term = (size_t)S.R * S.rows * K;  // one term of one parity of dt [2][3][R rows][K]
+  int* my_ctr = ctr + grp * kCtrStride;
+  const uint64_t policy = evict_first_policy();
+
+  for (int t = T - 1; t >= 0; --t) {
+    bf16* dtt = dt + (size_t)(t & 1) * 3 * term;
+    for (int u = c; u < S.U; u += S.Uc) {
+      for (int r0 = row0; r0 < bend; r0 += F::kMc) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const int j0 = 8 * (u * F::kOcp + wn * NT + n) + 2 * tq;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int b = r0 + wm * 16 * MT + 16 * i + g + 8 * rr;
+              if (b >= bend || j0 >= H) continue;
+              const size_t row = (size_t)b * T + t;
+              const float m = mask[row];
+              float dpre[2] = {0.f, 0.f};
+#pragma unroll
+              for (int ii = 0; ii < 2; ++ii) {
+                const int j = j0 + ii;
+                if (j >= H) break;
+                const size_t o = row * H + j, oh = (size_t)b * H + j;
+                const float d = (t == T - 1 ? 0.f : carry[oh]) + dhs[o];
+                dpre[ii] = d * dxin[o];
+                dxin[o] = dpre[ii];
+                carry[oh] = d * (1.0f - m);
+              }
+              if (t == 0) continue;
+              __nv_bfloat162 terms[3];
+              split3(dpre[0], dpre[1], terms);
+              bf16* at = dtt + (size_t)b * K + j0;
+#pragma unroll
+              for (int e = 0; e < 3; ++e) *reinterpret_cast<__nv_bfloat162*>(at + e * term) = terms[e];
+            }
+          }
+        }
+      }
+    }
+    if (t == 0) break;
+    group_arrive(my_ctr);
+    group_wait(my_ctr, S.Uc * (T - t));  // every CTA of the group has written step t's terms
+    for (int u = c; u < S.U; u += S.Uc) {
+      const int ob = u * F::kOcp, n_oct = min(F::kOcp, O - ob);
+      for (int r0 = row0; r0 < bend; r0 += F::kMc) {
+        float acc0[MT][NT][4] = {}, acc12[MT][NT][4] = {};
+        stream_carry_product<MT, NT>(acc0, acc12, dtt, term, K, r0, rend, w, H, ob, n_oct, smem, policy);
+        // dh = d (1 - m) + s, the smallest terms first.
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const int j0 = 8 * (ob + wn * NT + n) + 2 * tq;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int b = r0 + wm * 16 * MT + 16 * i + g + 8 * rr;
+#pragma unroll
+              for (int ii = 0; ii < 2; ++ii) {
+                if (b >= bend || j0 + ii >= H) continue;
+                const int ci = 2 * rr + ii;
+                carry[(size_t)b * H + j0 + ii] += acc12[i][n][ci] + acc0[i][n][ci];
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int MT, int NT>
+cudaError_t launch_carry_stream(const StreamShape& s, cudaStream_t st, const void* w, const void* dhs,
+                                const void* mask, void* dxin, void* carry, void* dt, void* ctr, int B, int T, int H) {
+  return launch_coop(rnn_bwd_stream_carry_kernel<MT, NT>, s.Uc * s.R, StreamCarry<MT, NT>::kSmem, st,
+                     static_cast<const bf16*>(w), static_cast<const float*>(dhs), static_cast<const float*>(mask),
+                     static_cast<float*>(dxin), static_cast<float*>(carry), static_cast<bf16*>(dt),
+                     static_cast<int*>(ctr), B, T, H, s);
+}
+
 // The widest H up to which the cluster kernels take every width (640: past
 // it a warp's fragments of C, 40 k-steps, no longer fit its registers).
 int cluster_max_hidden() {
@@ -1145,10 +1358,13 @@ int cluster_max_hidden() {
 }
 
 // The backward's parts around `carry`, which launches part 2 on `s`: the
-// coefficients (part 1) before it, dC over the final dxin (part 3) after it.
+// coefficients (part 1) before it, dC over the final dxin (part 3) after it;
+// blocked (the streamed backward): dC sums its rows in runs
+// (recurrent_dw::launch's blocked), as the GRU's streamed dwh does. Part 1
+// adds its k-steps in IEEE fp32 on every design (C1).
 template <class Carry>
 cudaError_t run_parts(const void* xin, const void* mask, const void* cw, const void* hs, void* dxin, void* dc_partial,
-                      void* dc, int B, int T, int H, cudaStream_t s, Carry carry) {
+                      void* dc, int B, int T, int H, cudaStream_t s, Carry carry, bool blocked = false) {
   const int BT = B * T;
   const dim3 coef_grid((BT + kCoefRows - 1) / kCoefRows, ((H + 7) / 8 + kCoefOct - 1) / kCoefOct);
   auto coef = H % 8 == 0 ? rnn_bwd_coef_kernel<true> : rnn_bwd_coef_kernel<false>;
@@ -1160,16 +1376,17 @@ cudaError_t run_parts(const void* xin, const void* mask, const void* cw, const v
   e = carry();
   if (e != cudaSuccess) return e;
   return recurrent_dw::launch(static_cast<const float*>(hs), static_cast<const float*>(dxin),
-                              static_cast<float*>(dc_partial), static_cast<float*>(dc), B, T, H, H, s);
+                              static_cast<float*>(dc_partial), static_cast<float*>(dc), B, T, H, H, s, blocked);
 }
 
 }  // namespace
 
-// The largest H up to which the pair takes every width: the cluster kernels
-// up to cluster_max_hidden() (640), the grid-resident ones past it, both
-// directions (3168: past it the forward's slice of three octets no longer
-// fits a CTA's shared memory beside four, and three octets a CTA need more
-// CTAs than the card has SMs).
+// The largest H up to which the cluster and grid-resident kernels take
+// every width: the clusters up to cluster_max_hidden() (640), the grid past
+// it, both directions (3168: past it the forward's slice of three octets no
+// longer fits a CTA's shared memory beside four, and three octets a CTA need
+// more CTAs than the card has SMs); the streamed kernels take every H past
+// it.
 extern "C" int rnn_max_hidden() {
   static int limit = -1;
   if (limit < 0) {
@@ -1286,4 +1503,61 @@ extern "C" int rnn_bwd_grid(const void* xin, const void* mask, const void* cw, c
                        static_cast<float*>(dxin), static_cast<float*>(carry), static_cast<bf16*>(dt),
                        static_cast<int*>(ctr), B, T, H, g);
   });
+}
+
+// The grid the streamed kernels run a batch of B rows of width H on (the
+// forward's, bwd = 0, or the carry's; grid_stream.cuh's stream_shape):
+// out[0..5] = octets a slice, unit slices, CTAs a row group, row groups,
+// rows a group, mt (32 mt rows a pass). Returns 0 (out untouched) at H <= 0.
+extern "C" int rnn_stream_shape(int B, int H, int bwd, int* out) {
+  return stream_shape_out(B, H, bwd != 0, out);
+}
+
+// The forward streamed (rnn_fwd_stream_kernel), any H >= 1. w: C with its
+// columns padded to Hp = 8 ceil(H / 8), [H][Hp] bf16 (C itself where H % 8
+// == 0); hbuf: [2][R rows][Hk] bf16 zeros, ctr: R * 32 int32 zeros
+// (rnn_stream_shape(B, H, 0)'s R and rows); both the caller's, left dirty.
+// cudaErrorInvalidValue at H <= 0.
+extern "C" int rnn_fwd_stream(const void* xin, const void* mask, const void* w, void* hs, void* hbuf, void* ctr, int B,
+                              int T, int H, int device, void* stream) {
+  const StreamShape s = stream_shape(B, H, false);
+  if (s.ocp == 0) return cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool two = s.ocp == 8;  // two octets a warp
+  switch (s.mt) {
+    case 1: return two ? launch_fwd_stream<1, 2>(s, st, xin, mask, w, hs, hbuf, ctr, B, T, H)
+                       : launch_fwd_stream<1, 1>(s, st, xin, mask, w, hs, hbuf, ctr, B, T, H);
+    case 2: return two ? launch_fwd_stream<2, 2>(s, st, xin, mask, w, hs, hbuf, ctr, B, T, H)
+                       : launch_fwd_stream<2, 1>(s, st, xin, mask, w, hs, hbuf, ctr, B, T, H);
+    default: return two ? launch_fwd_stream<4, 2>(s, st, xin, mask, w, hs, hbuf, ctr, B, T, H)
+                        : launch_fwd_stream<4, 1>(s, st, xin, mask, w, hs, hbuf, ctr, B, T, H);
+  }
+}
+
+// The backward with part 2 streamed (rnn_bwd_stream_carry_kernel) and dC
+// summed in runs, any H >= 1. cw: C [H][H] bf16 (the coefficient pass's); w:
+// C with its columns padded to Hp, [H][Hp] (C itself where H % 8 == 0); dt:
+// [2][3][R rows][Hp] bf16 zeros, ctr: R * 32 int32 zeros
+// (rnn_stream_shape(B, H, 1)'s R and rows), carry: [B][H] fp32; all the
+// caller's, left dirty. cudaErrorInvalidValue at H <= 0 or an empty batch.
+extern "C" int rnn_bwd_stream(const void* xin, const void* mask, const void* cw, const void* hs, const void* dhs,
+                              void* dxin, void* dc_partial, void* dc, const void* w, void* dt, void* ctr, void* carry,
+                              int B, int T, int H, int device, void* stream) {
+  const StreamShape g = stream_shape(B, H, true);
+  if (g.ocp == 0 || B <= 0 || T <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return run_parts(xin, mask, cw, hs, dxin, dc_partial, dc, B, T, H, s, [&]() {
+    const bool four = g.ocp == 16;  // four octets a warp
+    if (g.mt == 1) {
+      return four ? launch_carry_stream<1, 4>(g, s, w, dhs, mask, dxin, carry, dt, ctr, B, T, H)
+                  : launch_carry_stream<1, 2>(g, s, w, dhs, mask, dxin, carry, dt, ctr, B, T, H);
+    }
+    return four ? launch_carry_stream<2, 4>(g, s, w, dhs, mask, dxin, carry, dt, ctr, B, T, H)
+                : launch_carry_stream<2, 2>(g, s, w, dhs, mask, dxin, carry, dt, ctr, B, T, H);
+  }, true);
 }

@@ -92,19 +92,13 @@ def design(H: int) -> str:
     """Which kernels run width ``H``: ``"cluster"`` up to 640, ``"grid"``
     past it up to ``MAX_HIDDEN`` (2064), ``"stream"`` past that; raises at
     H <= 0."""
-    return grid.design(H, CLUSTER_MAX_HIDDEN, MAX_HIDDEN, f"GRU: H={H} is not taken by the kernels: {TAKES_H}",
-                       stream=True)
+    return grid.design(H, CLUSTER_MAX_HIDDEN, MAX_HIDDEN, f"GRU: H={H} is not taken by the kernels: {TAKES_H}")
 
 
 def stream_weight(wh: torch.Tensor) -> torch.Tensor:
     """wh as the streamed kernels read it: its gate blocks ``Hp`` = 8
-    ceil(H / 8) apart, ``[H, 3 Hp]`` with zero columns past H in each block,
-    so that each unit octet of a row is 16 aligned bytes; wh itself where H
-    % 8 == 0."""
-    H = wh.shape[0]
-    if H % 8 == 0:
-        return wh
-    return torch.nn.functional.pad(wh.view(H, GATES, H), (0, -H % 8)).reshape(H, -1)
+    ceil(H / 8) apart, ``[H, 3 Hp]`` (``grid.stream_weight``)."""
+    return grid.stream_weight(wh, GATES)
 
 
 def gru_scan_reference(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:

@@ -29,10 +29,14 @@ too. Past 512 no cluster holds wh (2.1 MB at H = 512, 8.4 MB at 1024), and
 both serial kernels run on the whole card (``grid_shape``): R row groups x U
 unit slices, one block an SM, each block's slice of wh in its shared memory,
 the operand a step needs exchanged through an L2-resident buffer behind a
-step barrier of the row group (``lstm_fwd_grid``, ``lstm_bwd_grid``). The
-pair takes any H up to ``MAX_HIDDEN`` (1600), the C side's
-``lstm_max_hidden()``; ``design`` is the dispatch, in Python so that the CPU
-tests hold it.
+step barrier of the row group (``lstm_fwd_grid``, ``lstm_bwd_grid``), up to
+``MAX_HIDDEN`` (1600), the C side's ``lstm_max_hidden()``. Past it no slice
+of wh fits a block (134.2 MB at H = 4096), and the serial kernels stream wh
+from device memory every step through a ring of k-chunks in shared memory,
+on the same grid of row groups (``stream_shape``; ``lstm_fwd_stream``,
+``lstm_bwd_stream``, whose gates pass adds its k-steps in IEEE fp32 and
+whose dwh sums its rows in runs). So the pair takes any H >= 1; ``design``
+is the dispatch, in Python so that the CPU tests hold it.
 """
 
 from __future__ import annotations
@@ -46,10 +50,13 @@ from poi_tpu_torch.ops import grid
 # chip_smoke.py checks both sides).
 CLUSTER_MAX_HIDDEN = 512
 GATES = 4  # the i, f, g and o blocks of wh
-# The widest H the pair takes (``lstm_max_hidden()`` in csrc/lstm.cu).
+# The widest H of the grid-resident kernels (``lstm_max_hidden()`` in
+# csrc/lstm.cu); the streamed kernels take every H past it.
 MAX_HIDDEN = grid.max_hidden(CLUSTER_MAX_HIDDEN, GATES)
-TAKES_H = (f"H <= {MAX_HIDDEN} (lstm_max_hidden()): on a cluster of 1 to 16 blocks a group of 16 batch rows up to "
-           f"H = {CLUSTER_MAX_HIDDEN}, on a grid of row groups x unit slices, one block an SM, past it")
+TAKES_H = (f"H >= 1: on a cluster of 1 to 16 blocks a group of 16 batch rows up to H = {CLUSTER_MAX_HIDDEN}, on a "
+           f"grid of row groups x unit slices, one block an SM, each block's slice of wh in shared memory up to "
+           f"H = {MAX_HIDDEN} (lstm_max_hidden()), and past it on that grid with wh streamed from device memory "
+           f"every step")
 
 
 def grid_shape(B: int, H: int, bwd: bool) -> tuple[int, int, int, int] | None:
@@ -60,9 +67,23 @@ def grid_shape(B: int, H: int, bwd: bool) -> tuple[int, int, int, int] | None:
     return grid.grid_shape(B, H, bwd, GATES)
 
 
+def stream_shape(B: int, H: int, bwd: bool) -> tuple[int, int, int, int, int, int] | None:
+    """The grid of the streamed kernel for ``B`` rows of width ``H`` (the
+    forward's, or with ``bwd`` the carry's), as ``lstm_stream_shape`` picks
+    it: ``(ocp, U, Uc, R, rows, mt)`` (``grid.stream_shape``)."""
+    return grid.stream_shape(B, H, bwd)
+
+
+def stream_weight(wh: torch.Tensor) -> torch.Tensor:
+    """wh as the streamed kernels read it: its gate blocks ``Hp`` = 8
+    ceil(H / 8) apart, ``[H, 4 Hp]`` (``grid.stream_weight``)."""
+    return grid.stream_weight(wh, GATES)
+
+
 def design(H: int) -> str:
     """Which kernels run width ``H``: ``"cluster"`` up to 512, ``"grid"``
-    past it; raises past ``MAX_HIDDEN``, naming it."""
+    past it up to ``MAX_HIDDEN`` (1600), ``"stream"`` past that; raises at
+    H <= 0."""
     return grid.design(H, CLUSTER_MAX_HIDDEN, MAX_HIDDEN, f"LSTM: H={H} is not taken by the kernels: {TAKES_H}")
 
 
@@ -77,23 +98,29 @@ def _gates(pre: torch.Tensor, H: int):
             torch.sigmoid(pre[:, 3 * H:]))
 
 
+def _sum_dtype(xw: torch.Tensor) -> torch.dtype:
+    return torch.float64 if xw.dtype == torch.float64 else torch.float32
+
+
 def lstm_scan_reference(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
     """Plain PyTorch version of the forward kernel: a Python loop over T.
 
     ``h`` is rounded to ``wh``'s dtype before the recurrent product, which
     sums in fp32: with bf16 ``wh`` that is the kernel's arithmetic, with fp32
     ``wh`` the JAX scan cell's at ``compute_dtype="float32"``. Returns
-    ``(hs, cs)`` [B, T, H] fp32.
+    ``(hs, cs)`` [B, T, H] fp32. An fp64 ``xw`` runs the whole step in fp64
+    (the card's measure of the kernel's sums).
     """
     B, T, H4 = xw.shape
     H = H4 // 4
-    xw, mask = xw.float(), mask.float()
-    w = wh.float()
+    dt = _sum_dtype(xw)
+    xw, mask = xw.to(dt), mask.to(dt)
+    w = wh.to(dt)
     h = xw.new_zeros(B, H)
     c = xw.new_zeros(B, H)
     hs, cs = [], []
     for t in range(T):
-        i, f, g, o = _gates(xw[:, t] + h.to(wh.dtype).float() @ w, H)
+        i, f, g, o = _gates(xw[:, t] + h.to(wh.dtype).to(dt) @ w, H)
         c_raw = f * c + i * g
         h_raw = o * torch.tanh(c_raw)
         c = _blend(mask[:, t], c_raw, c)
@@ -132,7 +159,7 @@ def fused_lstm_scan(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
         return lstm_scan_reference(xw, mask, wh)
     B, T, H4 = xw.shape
     H = H4 // 4
-    on_grid = _check_cuda("fused_lstm_scan", (xw, mask, wh), H) == "grid"
+    kind = _check_cuda("fused_lstm_scan", (xw, mask, wh), H)
     if xw.dtype != torch.float32 or mask.dtype != torch.float32 or wh.dtype != torch.bfloat16:
         raise TypeError(f"fused_lstm_scan: need xw and mask float32, wh bfloat16; got {xw.dtype}, {mask.dtype}, "
                         f"{wh.dtype}")
@@ -141,14 +168,16 @@ def fused_lstm_scan(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
     dev = xw.device
     hs = torch.empty(B, T, H, dtype=torch.float32, device=dev)
     cs = torch.empty_like(hs)
-    args = (xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), hs.data_ptr(), cs.data_ptr())
+    w = stream_weight(wh) if kind == "stream" else wh
+    args = (xw.data_ptr(), mask.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if on_grid:
-        _, _, R, rows = grid_shape(B, H, False)
+    if kind in ("grid", "stream"):
+        R, rows = stream_shape(B, H, False)[3:5] if kind == "stream" else grid_shape(B, H, False)[2:]
         # bf16(h) by step parity, zero past B and H; the row groups' step counters.
         hbuf = torch.zeros(2, R * rows, (H + 15) // 16 * 16, dtype=torch.bfloat16, device=dev)
         ctr = torch.zeros(R * 32, dtype=torch.int32, device=dev)
-        rc = lib.lstm_fwd_grid(*args, hbuf.data_ptr(), ctr.data_ptr(), B, T, H, dev.index, stream)
+        entry = lib.lstm_fwd_stream if kind == "stream" else lib.lstm_fwd_grid
+        rc = entry(*args, hbuf.data_ptr(), ctr.data_ptr(), B, T, H, dev.index, stream)
     else:
         rc = lib.lstm_fwd(*args, B, T, H, 0, dev.index, stream)
     _build.check(rc, "lstm_fwd launch")
@@ -164,12 +193,14 @@ def lstm_bwd_reference(xw, mask, wh, hs, cs, dhs):
     loop in fp32 with the TPU kernel's formulas (``fused_lstm.py:_bwd_kernel``).
 
     The gates are recomputed with ``h_prev`` rounded to ``wh``'s dtype, as in
-    ``lstm_scan_reference``. Returns ``(dxw [B, T, 4H], dwh [H, 4H])`` fp32.
+    ``lstm_scan_reference``. Returns ``(dxw [B, T, 4H], dwh [H, 4H])`` fp32
+    (fp64 for an fp64 ``xw``, which runs the whole loop in fp64).
     """
     B, T, H4 = xw.shape
     H = H4 // 4
-    xw, mask, hs, cs, dhs = xw.float(), mask.float(), hs.float(), cs.float(), dhs.float()
-    w = wh.float()
+    dt = _sum_dtype(xw)
+    xw, mask, hs, cs, dhs = xw.to(dt), mask.to(dt), hs.to(dt), cs.to(dt), dhs.to(dt)
+    w = wh.to(dt)
     zero = xw.new_zeros(B, H)
     dh, dc = zero, zero
     dxw = torch.empty_like(xw)
@@ -178,7 +209,7 @@ def lstm_bwd_reference(xw, mask, wh, hs, cs, dhs):
         h_prev = hs[:, t - 1] if t > 0 else zero
         c_prev = cs[:, t - 1] if t > 0 else zero
         m = mask[:, t, None]
-        i, f, g, o = _gates(xw[:, t] + h_prev.to(wh.dtype).float() @ w, H)
+        i, f, g, o = _gates(xw[:, t] + h_prev.to(wh.dtype).to(dt) @ w, H)
         tc = torch.tanh(f * c_prev + i * g)
         dh = dh + dhs[:, t]
         dh_raw = dh * m
@@ -208,7 +239,7 @@ def fused_lstm_bwd(xw, mask, wh, hs, cs, dhs):
     tensors = (xw, mask, wh, hs, cs, dhs)
     if all(t.device.type == "cpu" for t in tensors):
         return lstm_bwd_reference(*tensors)
-    on_grid = _check_cuda("fused_lstm_bwd", tensors, H) == "grid"
+    kind = _check_cuda("fused_lstm_bwd", tensors, H)
     if wh.dtype != torch.bfloat16 or any(t.dtype != torch.float32 for t in (xw, mask, hs, cs, dhs)):
         raise TypeError(f"fused_lstm_bwd: need wh bfloat16 and the rest float32; got {[t.dtype for t in tensors]}")
     lib = _build.library()
@@ -223,14 +254,20 @@ def fused_lstm_bwd(xw, mask, wh, hs, cs, dhs):
     args = (xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
             dxw.data_ptr(), coef.data_ptr(), partial.data_ptr(), dwh.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if on_grid:
-        _, _, R, rows = grid_shape(B, H, True)
-        # The three bf16 terms of dxw[t] by step parity, zero past B and 4H; the row groups' step counters; the
-        # carries dh and dc of each (row, unit).
-        dt = torch.zeros(2, 3, R * rows, (4 * H + 15) // 16 * 16, dtype=torch.bfloat16, device=dev)
+    if kind in ("grid", "stream"):
+        R, rows = stream_shape(B, H, True)[3:5] if kind == "stream" else grid_shape(B, H, True)[2:]
+        # The three bf16 terms of dxw[t] by step parity, zero past B and 4H (the streamed carry's gate blocks 8
+        # ceil(H / 8) apart, zero past H in each); the row groups' step counters; the carries dh and dc of each
+        # (row, unit).
+        cols = 4 * (-(-H // 8) * 8) if kind == "stream" else (4 * H + 15) // 16 * 16
+        dt = torch.zeros(2, 3, R * rows, cols, dtype=torch.bfloat16, device=dev)
         ctr = torch.zeros(R * 32, dtype=torch.int32, device=dev)
         carry = torch.empty(2, B, H, dtype=torch.float32, device=dev)
-        rc = lib.lstm_bwd_grid(*args, dt.data_ptr(), ctr.data_ptr(), carry.data_ptr(), B, T, H, dev.index, stream)
+        bufs = (dt.data_ptr(), ctr.data_ptr(), carry.data_ptr(), B, T, H, dev.index, stream)
+        if kind == "stream":
+            rc = lib.lstm_bwd_stream(*args, stream_weight(wh).data_ptr(), *bufs)
+        else:
+            rc = lib.lstm_bwd_grid(*args, *bufs)
     else:
         rc = lib.lstm_bwd(*args, B, T, H, dev.index, stream)
     _build.check(rc, "lstm_bwd launch")

@@ -30,9 +30,14 @@ fragments (40 k-steps) no longer fit its registers, and both serial kernels
 run on the whole card (``grid_shape``): R row groups x U unit slices, one
 block an SM, each block's slice of ``C`` in its shared memory, the operand a
 step needs exchanged through an L2-resident buffer behind a step barrier of
-the row group (``rnn_fwd_grid``, ``rnn_bwd_grid``). The pair takes any H up
-to ``MAX_HIDDEN`` (3168), the C side's ``rnn_max_hidden()``; ``design`` is
-the dispatch, in Python so that the CPU tests hold it.
+the row group (``rnn_fwd_grid``, ``rnn_bwd_grid``), up to ``MAX_HIDDEN``
+(3168), the C side's ``rnn_max_hidden()``. Past it no slice of ``C`` fits a
+block (33.6 MB at H = 4096), and the serial kernels read it from L2 or
+device memory every step through a ring of k-chunks in shared memory, on
+the same grid of row groups (``stream_shape``; ``rnn_fwd_stream``,
+``rnn_bwd_stream``, whose ``dC`` sums its rows in runs). So the pair takes
+any H >= 1; ``design`` is the dispatch, in Python so that the CPU tests
+hold it.
 """
 
 from __future__ import annotations
@@ -46,10 +51,12 @@ from poi_tpu_torch.ops import grid
 # rnn_bwd_cluster_size are 0 past it: chip_smoke.py checks both sides).
 CLUSTER_MAX_HIDDEN = 640
 GATES = 1  # C is one block
-# The widest H the pair takes (``rnn_max_hidden()`` in csrc/rnn.cu).
+# The widest H of the grid-resident kernels (``rnn_max_hidden()`` in
+# csrc/rnn.cu); the streamed kernels take every H past it.
 MAX_HIDDEN = grid.max_hidden(CLUSTER_MAX_HIDDEN, GATES)
-TAKES_H = (f"H <= {MAX_HIDDEN} (rnn_max_hidden()): on a cluster of 1 to 16 blocks a group of 8 or 16 batch rows "
-           f"up to H = {CLUSTER_MAX_HIDDEN}, on a grid of row groups x unit slices, one block an SM, past it")
+TAKES_H = (f"H >= 1: on a cluster of 1 to 16 blocks a group of 8 or 16 batch rows up to H = {CLUSTER_MAX_HIDDEN}, "
+           f"on a grid of row groups x unit slices, one block an SM, each block's slice of C in shared memory up to "
+           f"H = {MAX_HIDDEN} (rnn_max_hidden()), and past it on that grid with C streamed every step")
 
 
 def grid_shape(B: int, H: int, bwd: bool) -> tuple[int, int, int, int] | None:
@@ -60,9 +67,23 @@ def grid_shape(B: int, H: int, bwd: bool) -> tuple[int, int, int, int] | None:
     return grid.grid_shape(B, H, bwd, GATES)
 
 
+def stream_shape(B: int, H: int, bwd: bool) -> tuple[int, int, int, int, int, int] | None:
+    """The grid of the streamed kernel for ``B`` rows of width ``H`` (the
+    forward's, or with ``bwd`` the carry's), as ``rnn_stream_shape`` picks
+    it: ``(ocp, U, Uc, R, rows, mt)`` (``grid.stream_shape``)."""
+    return grid.stream_shape(B, H, bwd)
+
+
+def stream_weight(c: torch.Tensor) -> torch.Tensor:
+    """``C`` as the streamed kernels read it: its columns padded to ``Hp`` =
+    8 ceil(H / 8), ``[H, Hp]`` (``grid.stream_weight``)."""
+    return grid.stream_weight(c, GATES)
+
+
 def design(H: int) -> str:
     """Which kernels run width ``H``: ``"cluster"`` up to 640, ``"grid"``
-    past it; raises past ``MAX_HIDDEN``, naming it."""
+    past it up to ``MAX_HIDDEN`` (3168), ``"stream"`` past that; raises at
+    H <= 0."""
     return grid.design(H, CLUSTER_MAX_HIDDEN, MAX_HIDDEN, f"RNN: H={H} is not taken by the kernels: {TAKES_H}")
 
 
@@ -117,7 +138,7 @@ def fused_rnn_scan(xin: torch.Tensor, mask: torch.Tensor, c: torch.Tensor) -> to
     if all(t.device.type == "cpu" for t in (xin, mask, c)):
         return rnn_scan_reference(xin, mask, c)
     B, T, H = xin.shape
-    on_grid = _check_cuda("fused_rnn_scan", (xin, mask, c), H) == "grid"
+    kind = _check_cuda("fused_rnn_scan", (xin, mask, c), H)
     if xin.dtype != torch.float32 or mask.dtype != torch.float32 or c.dtype != torch.bfloat16:
         raise TypeError(f"fused_rnn_scan: need xin and mask float32, C bfloat16; got {xin.dtype}, {mask.dtype}, "
                         f"{c.dtype}")
@@ -125,14 +146,16 @@ def fused_rnn_scan(xin: torch.Tensor, mask: torch.Tensor, c: torch.Tensor) -> to
     xin, mask, c = xin.contiguous(), mask.contiguous(), c.contiguous()
     dev = xin.device
     hs = torch.empty(B, T, H, dtype=torch.float32, device=dev)
-    args = (xin.data_ptr(), mask.data_ptr(), c.data_ptr(), hs.data_ptr())
+    w = stream_weight(c) if kind == "stream" else c
+    args = (xin.data_ptr(), mask.data_ptr(), w.data_ptr(), hs.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if on_grid:
-        _, _, R, rows = grid_shape(B, H, False)
+    if kind in ("grid", "stream"):
+        R, rows = stream_shape(B, H, False)[3:5] if kind == "stream" else grid_shape(B, H, False)[2:]
         # bf16(h) by step parity, zero past B and H; the row groups' step counters.
         hbuf = torch.zeros(2, R * rows, (H + 15) // 16 * 16, dtype=torch.bfloat16, device=dev)
         ctr = torch.zeros(R * 32, dtype=torch.int32, device=dev)
-        rc = lib.rnn_fwd_grid(*args, hbuf.data_ptr(), ctr.data_ptr(), B, T, H, dev.index, stream)
+        entry = lib.rnn_fwd_stream if kind == "stream" else lib.rnn_fwd_grid
+        rc = entry(*args, hbuf.data_ptr(), ctr.data_ptr(), B, T, H, dev.index, stream)
     else:
         # Cluster and rows 0: the kernel's own pick.
         rc = lib.rnn_fwd(*args, B, T, H, 0, 0, dev.index, stream)
@@ -183,7 +206,7 @@ def fused_rnn_bwd(xin, mask, c, hs, dhs):
     tensors = (xin, mask, c, hs, dhs)
     if all(t.device.type == "cpu" for t in tensors):
         return rnn_bwd_reference(*tensors)
-    on_grid = _check_cuda("fused_rnn_bwd", tensors, H) == "grid"
+    kind = _check_cuda("fused_rnn_bwd", tensors, H)
     if c.dtype != torch.bfloat16 or any(t.dtype != torch.float32 for t in (xin, mask, hs, dhs)):
         raise TypeError(f"fused_rnn_bwd: need C bfloat16 and the rest float32; got {[t.dtype for t in tensors]}")
     lib = _build.library()
@@ -197,14 +220,19 @@ def fused_rnn_bwd(xin, mask, c, hs, dhs):
     args = (xin.data_ptr(), mask.data_ptr(), c.data_ptr(), hs.data_ptr(), dhs.data_ptr(), dxin.data_ptr(),
             partial.data_ptr(), dc.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if on_grid:
-        _, _, R, rows = grid_shape(B, H, True)
-        # The three bf16 terms of dpre by step parity, zero past B and H; the row groups' step counters; the
-        # carry dh of each (row, unit).
-        dt = torch.zeros(2, 3, R * rows, (H + 15) // 16 * 16, dtype=torch.bfloat16, device=dev)
+    if kind in ("grid", "stream"):
+        R, rows = stream_shape(B, H, True)[3:5] if kind == "stream" else grid_shape(B, H, True)[2:]
+        # The three bf16 terms of dpre by step parity, zero past B and H (the streamed carry's columns to 8
+        # ceil(H / 8)); the row groups' step counters; the carry dh of each (row, unit).
+        cols = -(-H // 8) * 8 if kind == "stream" else (H + 15) // 16 * 16
+        dt = torch.zeros(2, 3, R * rows, cols, dtype=torch.bfloat16, device=dev)
         ctr = torch.zeros(R * 32, dtype=torch.int32, device=dev)
         carry = torch.empty(B, H, dtype=torch.float32, device=dev)
-        rc = lib.rnn_bwd_grid(*args, dt.data_ptr(), ctr.data_ptr(), carry.data_ptr(), B, T, H, dev.index, stream)
+        bufs = (dt.data_ptr(), ctr.data_ptr(), carry.data_ptr(), B, T, H, dev.index, stream)
+        if kind == "stream":
+            rc = lib.rnn_bwd_stream(*args, stream_weight(c).data_ptr(), *bufs)
+        else:
+            rc = lib.rnn_bwd_grid(*args, *bufs)
     else:
         # Cluster 0: the carry's own pick.
         rc = lib.rnn_bwd(*args, B, T, H, 0, dev.index, stream)

@@ -14,6 +14,8 @@ the weight's gate blocks: 3 for the GRU (``fused_gru``), 4 for the LSTM
 
 from __future__ import annotations
 
+import torch
+
 # A block's shared memory at most, the card's SMs, and a block's unit octets
 # at most (kMaxSmem, kSms, kTaskOct).
 MAX_SMEM = 232448
@@ -66,9 +68,9 @@ def max_hidden(cluster_max: int, G: int) -> int:
 
 def stream_shape(B: int, H: int, bwd: bool) -> tuple[int, int, int, int, int, int] | None:
     """The grid of the streamed kernel for ``B`` rows of width ``H`` (the
-    forward's, or with ``bwd`` the carry's), as ``stream_shape`` in
-    ``csrc/grid_stream.cuh`` picks it: ``(ocp, U, Uc, R, rows, mt)``,
-    octets a unit slice, unit slices, blocks a row group (``min(U, 132)``:
+    forward's, or with ``bwd`` the carry's), the same for every gate count,
+    as ``stream_shape`` in ``csrc/grid_stream.cuh`` picks it: ``(ocp, U,
+    Uc, R, rows, mt)``, octets a unit slice, unit slices, blocks a row group (``min(U, 132)``:
     a block takes slices ``c, c + Uc, ...``), row groups (as many as the
     other SMs hold, no more than the batch has 16-row tiles), rows a group,
     and ``mt`` (a block's rows go in passes of ``32 mt``). The forward takes
@@ -89,15 +91,21 @@ def stream_shape(B: int, H: int, bwd: bool) -> tuple[int, int, int, int, int, in
     return c, U, Uc, R, rows, mt
 
 
-def design(H: int, cluster_max: int, limit: int, refusal: str, stream: bool = False) -> str:
+def stream_weight(w: torch.Tensor, G: int) -> torch.Tensor:
+    """A recurrent weight ``[H, G H]`` as the streamed kernels read it: its
+    ``G`` gate blocks ``Hp`` = 8 ceil(H / 8) apart, ``[H, G Hp]`` with zero
+    columns past H in each block, so that each unit octet of a row is 16
+    aligned bytes; the weight itself where H % 8 == 0."""
+    H = w.shape[0]
+    if H % 8 == 0:
+        return w
+    return torch.nn.functional.pad(w.view(H, G, H), (0, -H % 8)).reshape(H, -1)
+
+
+def design(H: int, cluster_max: int, limit: int, refusal: str) -> str:
     """Which kernels run width ``H``: ``"cluster"`` up to ``cluster_max``,
-    ``"grid"`` past it up to ``limit``, and past it ``"stream"`` where the
-    pair has streamed kernels (``stream``); any other H (H <= 0, or past
-    ``limit`` without them) raises ``ValueError(refusal)``."""
-    if 0 < H <= cluster_max:
-        return "cluster"
-    if cluster_max < H <= limit:
-        return "grid"
-    if stream and H > limit:
-        return "stream"
-    raise ValueError(refusal)
+    ``"grid"`` past it up to ``limit``, and ``"stream"`` past it; H <= 0
+    raises ``ValueError(refusal)``."""
+    if H <= 0:
+        raise ValueError(refusal)
+    return "cluster" if H <= cluster_max else "grid" if H <= limit else "stream"

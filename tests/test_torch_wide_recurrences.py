@@ -55,16 +55,21 @@ REL_TOL = 1e-5
 @pytest.mark.parametrize("mod, cluster_max, limit", [(fused_lstm, 512, LSTM_MAX_HIDDEN),
                                                       (fused_rnn, 640, RNN_MAX_HIDDEN)], ids=["lstm", "rnn"])
 def test_design_picks_cluster_then_grid_and_refuses_past_the_limit(mod, cluster_max, limit):
+    """The clusters to ``CLUSTER_MAX_HIDDEN``, the grid to ``MAX_HIDDEN``
+    (the grid's limit, ``<name>_max_hidden()``), the streamed kernels past
+    it; only H <= 0 is refused, naming what the pair takes."""
     name = mod.__name__.rsplit("_", 1)[-1]
     assert mod.CLUSTER_MAX_HIDDEN == cluster_max and mod.MAX_HIDDEN == limit
     assert [mod.design(H) for H in (1, 20, 128, cluster_max - 1, cluster_max)] == ["cluster"] * 5
     assert [mod.design(H) for H in (cluster_max + 1, cluster_max + 8, 768, 1024, limit)] == ["grid"] * 5
-    for H in (0, limit + 1, 8192):
-        with pytest.raises(ValueError, match=rf"{name.upper()}: H={H} is not taken by the kernels: H <= {limit} "
-                                              rf"\({name}_max_hidden\(\)\)"):
+    assert [mod.design(H) for H in (limit + 1, limit + 2, 4096, 8192)] == ["stream"] * 4
+    for H in (0, -1):
+        with pytest.raises(ValueError, match=rf"{name.upper()}: H={H} is not taken by the kernels: H >= 1: .* up to "
+                                              rf"H = {limit} \({name}_max_hidden\(\)\), and past it"):
             mod.design(H)
-    assert mod.grid_shape(1, limit + 1, False) is None
+    assert mod.grid_shape(1, limit + 1, False) is None and mod.stream_shape(1, 0, False) is None
     assert mod.grid_shape(1, limit, False) and mod.grid_shape(1, limit, True)
+    assert mod.stream_shape(1, limit + 1, False) and mod.stream_shape(1, limit + 1, True)
 
 
 @pytest.mark.parametrize("mod, B, H, bwd, want", [
@@ -194,18 +199,18 @@ STEP_LOSS_TOL = 1e-5
 MOMENT_TOL = 1e-5
 
 
-@pytest.mark.parametrize("config", list(WIDE_CONFIGS))
-def test_wide_trainer_step_matches_jax(config):
-    """One ``Trainer`` step of config #2 or #3 at H = 1024, D = 512 from the
-    same params on the same host batch (config #2 also on the same BPR
-    negatives, replayed from ``poi_tpu``'s draw) against ``poi_tpu``'s: the
-    loss, the updated params and the Adam moments."""
-    cfg = get_config(config).with_overrides({**WIDE, **WIDE_CONFIGS[config]})
+def wide_step_matches_jax(config: str, sets: dict, H: int, mesh=None) -> None:
+    """One ``Trainer`` step of ``config`` with ``sets`` and
+    ``WIDE_CONFIGS``' data (recurrent width ``H``) from the same params on
+    the same host batch (config #2 also on the same BPR negatives, replayed
+    from ``poi_tpu``'s draw) against ``poi_tpu``'s (on ``mesh``, else its
+    default): the loss, the updated params and the Adam moments."""
+    cfg = get_config(config).with_overrides({**sets, **WIDE_CONFIGS[config]})
     ds = load_dataset(cfg.data)
-    assert ds.max_seq_len == 6 and cfg.model.hidden_dim == 1024
+    assert ds.max_seq_len == 6 and cfg.model.hidden_dim == H
     if config == "strnn_gowalla":
         assert ds.num_pois >= FUSED_CE_MIN_VOCAB
-    jt = JaxTrainer(JaxConfig.from_dict(cfg.to_dict()), JaxDataDims.from_dataset(ds))
+    jt = JaxTrainer(JaxConfig.from_dict(cfg.to_dict()), JaxDataDims.from_dataset(ds), mesh=mesh)
     js = jt.init_state()
     tree = jax.tree.map(np.asarray, js.params)
     negatives = None
@@ -222,7 +227,7 @@ def test_wide_trainer_step_matches_jax(config):
     got, want = flatten(params_to_numpy(tt.model)), flatten(jax.tree.map(np.asarray, js2.params))
     assert got.keys() == want.keys()
     wh = [k for k in got if k.endswith("/wh") or k.endswith("/c")]
-    assert wh and all(got[k].shape[0] == 1024 for k in wh), wh
+    assert wh and all(got[k].shape[0] == H for k in wh), wh
     jadam, tadam = adam_state_to_numpy(adam_state_from_jax(js2.opt_state)), adam_state_to_numpy(st.opt_state)
     for which in ("mu", "nu"):
         tw = flatten(tadam[which])
@@ -235,6 +240,13 @@ def test_wide_trainer_step_matches_jax(config):
         clear = np.abs(mu[name]) > 0.05 * np.abs(mu[name]).max()
         assert diff[clear].max(initial=0.0) <= 1e-6, name
         assert diff.max() <= 2 * lr + 1e-6, name
+
+
+@pytest.mark.parametrize("config", list(WIDE_CONFIGS))
+def test_wide_trainer_step_matches_jax(config):
+    """One ``Trainer`` step of config #2 or #3 at H = 1024, D = 512 against
+    ``poi_tpu``'s (``wide_step_matches_jax``)."""
+    wide_step_matches_jax(config, WIDE, 1024)
 
 
 # C1 (queue C): config #3 at H = 1024, D = 512 with warm-up 0, where on the
