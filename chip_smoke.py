@@ -20,7 +20,12 @@ with its plain PyTorch version on the card. Then it drives the paths:
   batch 64, dropout 0.3, sampled softmax over 1,024 negatives, lazy Adam,
   36,969-POI catalog): 20 device-sampled steps through ``train()`` on both
   paths, ``evaluate()``, ``Recommender`` at request batch 1 and 256 on both
-  paths, and ``python -m poi_tpu_torch train``;
+  paths, and ``python -m poi_tpu_torch train``; then at T = 1,024 (the
+  ``attn_long`` phase): its tower's kernel path against the plain
+  recurrence, its band-restricted blockwise attention against the
+  reference's loop over every KV block, the attention's peak memory and
+  time by form at T = 128, 1,024 and 4,096, and 5 steps through
+  ``train()`` on both paths on a corpus of histories longer than T;
 - config #2 (``lstm_bpr_foursquare``: LSTM 128-d + user embedding, BPR with
   32 negatives a position, T=64, batch 64, 35,880 POIs) and config #3
   (``strnn_gowalla``: ST-RNN 128-d, 8 time-gap and 8 distance buckets, user
@@ -2732,7 +2737,7 @@ def read_launches() -> dict:
 
 
 def train_both_paths(tag: str, cfg, ds, tree, used: tuple, fwd: str = "gru_fwd", steps: int = PATH_STEPS,
-                     split: str = "test"):
+                     split: str | None = "test"):
     """``steps`` (20) device-sampled steps through ``train()``, the loop a
     user runs, on the kernel path and on the plain path (``PLAIN_OVERRIDES``)
     from the params ``tree``; every step a log step, so the history holds
@@ -2741,8 +2746,9 @@ def train_both_paths(tag: str, cfg, ds, tree, used: tuple, fwd: str = "gru_fwd",
     no other, the plain path nothing, then ``evaluate()`` on ``split``: the
     kernel-trained model through the top-k kernel (and the recurrence's
     forward kernel ``fwd``) and through its plain version, the plain-trained
-    model, and the popularity baseline. Returns (kernel trainer, the kernel
-    path's launches in training, in its evaluate)."""
+    model, and the popularity baseline (``split`` None: no evaluate).
+    Returns (kernel trainer, the kernel path's launches in training, in its
+    evaluate)."""
     import math
 
     import torch
@@ -2777,6 +2783,8 @@ def train_both_paths(tag: str, cfg, ds, tree, used: tuple, fwd: str = "gru_fwd",
     assert float(rel[0]) < LOSS_TOL_FIRST, f"{tag}: step-1 loss differs: {float(rel[0])}"
     assert float(rel.max()) < LOSS_TOL_LAST, f"{tag}: loss trajectories drift apart: {rel.tolist()}"
     assert float(k_loss[-1]) < float(k_loss[0]), f"{tag}: loss did not drop: {k_loss.tolist()}"
+    if split is None:
+        return kern, launches, {}
 
     reset_launches()
     m_kern = evaluate(kern.model, ds, cfg, split)
@@ -2917,6 +2925,12 @@ C5_STEPS, C5_CLI_STEPS = 20, 10
 C5_POIS = 903_889
 
 
+# Entries of one comparison after Adam's first step that may lie past the
+# tolerance where the two runs' gradients explain the move
+# (``state.first_step_apart``).
+EPS_REGIME_MAX = 16
+
+
 def rows_against_dense(trainer, tree) -> None:
     """Config #5's rows-gradient step against the dense-gradient sparse step
     (``rows_mode`` off: autograd's [V, D] table gradient, gathered at the
@@ -2924,10 +2938,18 @@ def rows_against_dense(trainer, tree) -> None:
     reference's tolerances for this comparison (tests/test_sparse_opt.py:
     loss 1e-5, grad norm 1e-4 relative, params 2e-6 + 2e-5 relative); then
     the lazy-Adam update of the rows step, called twice on its gradients
-    from that state, and the whole rows step twice: the same bits."""
+    from that state, and the whole rows step twice: the same bits.
+
+    A param past its tolerance passes only where the two steps' gradients
+    explain it (``state.first_step_apart``: both nonzero, the move within
+    twice lr·|g_rows - g_dense| / eps of the tolerance; Adam's first step
+    multiplies a gradient near or below eps up to lr / eps), and at most
+    EPS_REGIME_MAX such entries in all (chip runs found one of config #5's
+    462,791,168 table entries at gradients -1.96e-9 / -2.01e-9, moved
+    3.2e-6 against a limit of 2.3e-6)."""
     import torch
 
-    from poi_tpu_torch.train.state import TrainState
+    from poi_tpu_torch.train.state import ADAM_B1, TrainState, first_step_apart
 
     state = trainer.init_state(tree)
     batch = trainer.sampler.sample(0)
@@ -2968,12 +2990,16 @@ def rows_against_dense(trainer, tree) -> None:
 
     l_r, g_r = step(True)
     ref = [t.clone() for t in live()]
+    grad_r = {k: t / (1 - ADAM_B1) for k, t in state.opt_state["m"].items()}
     l_d, g_d = step(False)
     assert abs(l_r - l_d) < 1e-5 and abs(g_r - g_d) < 1e-4 * max(1.0, g_d), (l_r, l_d, g_r, g_d)
-    worst = 0.0
+    worst, explained, lr = 0.0, 0, trainer.optimizer.lr(0)
     for (k, p), a in zip(state.params.items(), ref):
-        assert torch.allclose(p.detach(), a, atol=2e-6, rtol=2e-5), f"rows vs dense path: {k} differs"
+        off, ok = first_step_apart(p.detach(), a, state.opt_state["m"][k] / (1 - ADAM_B1), grad_r[k], lr, 2e-6, 2e-5)
+        assert off == 0, f"rows vs dense path: {k} differs at {off} entries the gradients do not explain"
+        explained += ok
         worst = max(worst, float((p.detach() - a).abs().max()))
+    assert explained <= EPS_REGIME_MAX, f"rows vs dense path: {explained} entries past the tolerance"
     step(True)
     assert same_bits(ref), "two rows steps from one state: other bits"
     args, kwargs = calls[0]
@@ -2982,7 +3008,8 @@ def rows_against_dense(trainer, tree) -> None:
         real(*args, **kwargs)
         assert same_bits(ref), "the rows step's lazy-Adam update, replayed on its gradients: other bits"
     log(f"[c5] rows step vs the dense-gradient step, one state, batch and pool: loss {l_r:.7f} / {l_d:.7f}, grad "
-        f"norm {g_r:.6f} / {g_d:.6f}, params max |diff| {worst:.3e} (tol 2e-6 + 2e-5 relative); the rows step twice "
+        f"norm {g_r:.6f} / {g_d:.6f}, params max |diff| {worst:.3e} (tol 2e-6 + 2e-5 relative; {explained} past it, "
+        f"at most {EPS_REGIME_MAX}, each within twice lr·|g_rows - g_dense| / eps of it); the rows step twice "
         f"and its lazy-Adam update twice on the same gradients: the same bits ({len(ref)} tensors)")
 
 
@@ -4794,10 +4821,11 @@ MESH_JOBS = {"c5": (C5_CONFIG, {**MESH_C5_SETS, **MESH_EXACT}, MESH_C5_STEPS, "v
 # one cotangent. In fp32 (the plain GRU) at tests/test_sp_attention.py's
 # tolerances (|diff| <= atol + rtol |ref|: 1e-4 forward, 1e-3 gradients); in
 # bf16 (B1 and B2 on every rank) to 2^-5 of each tensor's largest value:
-# ring rounds its unnormalised probabilities to bf16 where blockwise rounds
-# the normalised ones, and the attention output is rounded again before wo
-# (2^-8 a rounding), so the two differ by a few bf16 steps, which the layer
-# norm scales up.
+# the SP attention computes in fp32 whatever the compute dtype, as poi_tpu's
+# does, where blockwise on one rank rounds q, k, v, its unnormalised
+# probabilities and its output to bf16 (2^-8 a rounding), so the two differ
+# by a few bf16 steps, which the layer norm scales up (6e-3 of the largest
+# in a CPU run of the port at batch 8).
 TOWER_FP32_TOL = (1e-4, 1e-3)
 TOWER_BF16_TOL = 2.0 ** -5
 # Config #5 served on its 1 x 4 by the c5 job's ranks, through the serve
@@ -4861,13 +4889,14 @@ def mesh_reference(job: str, ds, work: Path) -> dict:
     """The one-rank run a mesh job is held to: ``make_trainer`` on this
     card from the seed's init, the top-k of the split's first rows at that
     init, the same device-sampled batches and pools, ``steps`` steps
-    through ``train()`` (the table after step 1 saved for the ranks) and
-    ``evaluate()``."""
+    through ``train()`` (the table and its gradient after step 1 saved for
+    the ranks) and ``evaluate()``."""
     import numpy as np
     import torch
 
     from poi_tpu_torch.eval.evaluate import evaluate
     from poi_tpu_torch.train.loop import make_trainer, train
+    from poi_tpu_torch.train.state import ADAM_B1
 
     name, sets, steps, split, _ = MESH_JOBS[job]
     cfg = mesh_cfg(name, sets, one_rank=True)
@@ -4877,6 +4906,7 @@ def mesh_reference(job: str, ds, work: Path) -> dict:
     _, state, hist = train(cfg, ds, num_steps=1, trainer=trainer, state=state)
     if job in MESH_TABLE_JOBS:
         np.save(work / f"{job}_table1.npy", state.params["embed.poi"].detach().cpu().numpy())
+        np.save(work / f"{job}_grad1.npy", (state.opt_state["m"]["embed.poi"] / (1 - ADAM_B1)).cpu().numpy())
     _, state, more = train(cfg, ds, num_steps=steps - 1, trainer=trainer, state=state)
     out = {"losses": [r["loss"] for r in hist + more], "vals": vals, "ids": ids,
            "metrics": evaluate(trainer.model, ds, cfg, split)}
@@ -4889,13 +4919,17 @@ def mesh_steps(trainer, state, cfg, ds, steps: int, table1: Path | None = None, 
     """``steps`` device-sampled steps through ``train()``, timed one by one:
     the losses, step ms, ``a2a_overflow`` by step and the peak memory;
     given ``table1`` (the one-rank POI table after step 1, ``.npy``), this
-    rank's rows against it after step 1; with ``lookup_ms``, the a2a
-    lookup's time alone."""
+    rank's rows against it after step 1, an entry past the tolerance
+    passing only where the two runs' gradients explain it
+    (``state.first_step_apart``, as in ``rows_against_dense``; the
+    one-rank gradient from ``grad1.npy`` beside ``table1``); with
+    ``lookup_ms``, the a2a lookup's time alone."""
     import numpy as np
     import torch
 
     from poi_tpu_torch.parallel.mesh import MODEL_AXIS
     from poi_tpu_torch.train.loop import train
+    from poi_tpu_torch.train.state import ADAM_B1, first_step_apart
 
     torch.cuda.reset_peak_memory_stats()
     res = {"losses": [], "step_ms": [], "overflow": []}
@@ -4915,8 +4949,11 @@ def mesh_steps(trainer, state, cfg, ds, steps: int, table1: Path | None = None, 
             mine = trainer.model.embed["poi"].detach()[:max(0, min(ref.shape[0] - lo, rows))]
             want = torch.from_numpy(np.ascontiguousarray(ref[lo:lo + mine.shape[0]])).to(mine.device)
             d = (mine - want).abs()
-            res.update(table1_max_abs=float(d.max()), table1_off=int((d > 2e-6 + 2e-5 * want.abs()).sum()),
-                       table1_n=int(d.numel()))
+            ref_g = np.load(table1.with_name(table1.name.replace("table1", "grad1")), mmap_mode="r")
+            g_ref = torch.from_numpy(np.ascontiguousarray(ref_g[lo:lo + mine.shape[0]])).to(mine.device)
+            g = state.opt_state["m"]["embed.poi"][:mine.shape[0]] / (1 - ADAM_B1)
+            off, ok = first_step_apart(mine, want, g, g_ref, trainer.optimizer.lr(0), 2e-6, 2e-5)
+            res.update(table1_max_abs=float(d.max()), table1_off=off, table1_explained=ok, table1_n=int(d.numel()))
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     if trainer.a2a and lookup_ms:  # the a2a lookup of step 0's inputs alone, every rank in step
         batch = trainer.sampler.sample(0)
@@ -5050,15 +5087,17 @@ def mesh_child(job: str, out: str, config: str, sets: dict, steps: int, split: s
         dist.destroy_process_group()
 
 
-def tower_inputs() -> dict:
-    """Config #4's tower inputs from the seed: x [B, T, E], a ragged
-    validity-prefix mask, and a cotangent of the output."""
+def tower_inputs(T: int | None = None) -> dict:
+    """Config #4's tower inputs from the seed: x [B, T, E] (T the preset's
+    unless given), a ragged validity-prefix mask, and a cotangent of the
+    output."""
     import torch
 
     from poi_tpu_torch.configs.presets import get_config
 
     base = get_config(ATTN_CONFIG)
-    B, T, E, H = base.train.batch_size, base.data.max_seq_len, base.model.embed_dim, base.model.hidden_dim
+    B, E, H = base.train.batch_size, base.model.embed_dim, base.model.hidden_dim
+    T = T or base.data.max_seq_len
     gen = torch.Generator(device=DEV).manual_seed(SEED + 21)
     lengths = torch.randint(1, T + 1, (B,), generator=gen, device=DEV)
     return {"x": 0.5 * torch.randn(B, T, E, generator=gen, device=DEV),
@@ -5073,27 +5112,19 @@ def tower_run(dtype: str, impl: str | None, mesh, inputs: dict) -> tuple:
     gradients summed over ``data`` (every rank calls); with None, blockwise
     on this rank over the whole batch. Returns (output, {name: gradient}) of
     the GRU's and the projections' parameters."""
-    import types
-
     import torch
 
     from poi_tpu_torch.configs.presets import get_config
-    from poi_tpu_torch.models.attention import AttentionTower
     from poi_tpu_torch.parallel import collectives as cc
     from poi_tpu_torch.parallel.mesh import DATA_AXIS
     from poi_tpu_torch.parallel.sp_attention import make_sp_attention
 
     model_cfg = get_config(ATTN_CONFIG).with_overrides({"model.compute_dtype": dtype}).model
-    tower = AttentionTower(model_cfg, torch.Generator().manual_seed(SEED), DEV)
-    r = slice(None)
-    if impl is not None:
-        r = mesh.rows(inputs["x"].shape[0], DATA_AXIS)
-        tower.sp_mha = make_sp_attention(mesh, model_cfg.attn_heads, model_cfg.attn_window, impl,
-                                         torch.bfloat16 if dtype == "bfloat16" else torch.float32)
-    o = tower(inputs["x"][r], types.SimpleNamespace(mask=inputs["mask"][r]))
-    (o * inputs["cot"][r]).sum().backward()
-    grads = {k: p.grad for k, p in tower.named_parameters() if k.startswith(("gru.", "mha."))}
-    if impl is not None:
+    if impl is None:
+        o, grads = tower_grads(model_cfg, inputs)
+    else:
+        o, grads = tower_grads(model_cfg, inputs, mesh.rows(inputs["x"].shape[0], DATA_AXIS), make_sp_attention(
+            mesh, model_cfg.attn_heads, model_cfg.attn_window, impl, model_cfg.attn_block_size))
         o = cc.all_gather(o.detach(), mesh, DATA_AXIS)
         grads = {k: cc.all_reduce_(g.clone(), mesh, DATA_AXIS) for k, g in grads.items()}
     torch.cuda.synchronize()
@@ -5115,6 +5146,184 @@ def tower_errors(sp: dict, refs: dict) -> dict:
         else:
             out[f"{impl}_{dtype}"] = {k: rel_err(a, w) for k, (a, w) in pairs.items()}
     return out
+
+
+# attn_long: config #4 at its full width (GRU 256-d, 4 heads, window 16,
+# batch 64, attention blocks of 128) with T raised past the preset's 128.
+# At ATTN_LONG_T, the tower from tower_inputs' seed: its kernel path (B1,
+# B2) against the plain recurrence at TOWER_BF16_TOL, and its attention (the
+# band-restricted blockwise form) against poi_tpu's form as it runs, every
+# query block against every KV block (``blockwise_attention_reference``,
+# the plain form): the output and the gradients of the attention's input and of
+# wq..wo in bf16, within ATTN_FORM_TOL of each tensor's largest value. A
+# block that the restricted form skips is an exact no-op in the online
+# update (the CPU tests hold the two to 0), so they can differ only where
+# cuBLAS sums a score or p·v product in another order for the two
+# batchings: an fp32 ulp there can move one bf16 rounding of p (2^-8 of a
+# value) and, backward, of the cotangents of q, k and v, which the
+# projections' gradients then sum over T.
+ATTN_LONG_T = 1024
+ATTN_FORM_TOL = (2.0 ** -8, 2.0 ** -6)
+# The attention's forward and backward (``multihead_attention`` of random
+# bf16-compute inputs under a cotangent, batch 64, block 128) at each (impl,
+# T): the peak device memory above what was allocated before, and the
+# median of ATTN_LONG_ITERS CUDA-event times after one warm-up. Running out
+# of memory is recorded, not raised.
+ATTN_LONG_TIMED = (("vanilla", 128), ("blockwise", 128), ("vanilla", 1024), ("blockwise", 1024),
+                   ("blockwise", 4096), ("vanilla", 4096))
+ATTN_LONG_ITERS = 5
+# train() of config #4 at T = ATTN_LONG_T on the kernel and the plain path
+# for ATTN_LONG_STEPS device-sampled steps (losses at PERF.md §2's limits),
+# on a corpus whose histories are longer than T: 200 users of 2,000
+# check-ins on average (the preset's 10,000 of 70), no val split.
+ATTN_LONG_SETS = {"data.max_seq_len": str(ATTN_LONG_T), "data.num_users": "200",
+                  "data.mean_checkins_per_user": "2000", "data.val_fraction": "0.0"}
+ATTN_LONG_STEPS = 5
+
+
+def tower_grads(model_cfg, inputs: dict, rows=slice(None), sp_mha=None) -> tuple:
+    """``AttentionTower`` of ``model_cfg`` from the seed (its attention
+    ``sp_mha`` where given), forward and backward on ``inputs``' ``rows``
+    under their cotangent: (output, {name: gradient}) of the GRU's and the
+    projections' parameters."""
+    import types
+
+    import torch
+
+    from poi_tpu_torch.models.attention import AttentionTower
+
+    tower = AttentionTower(model_cfg, torch.Generator().manual_seed(SEED), DEV)
+    tower.sp_mha = sp_mha
+    o = tower(inputs["x"][rows], types.SimpleNamespace(mask=inputs["mask"][rows]))
+    (o * inputs["cot"][rows]).sum().backward()
+    torch.cuda.synchronize()
+    return o.detach(), {k: p.grad for k, p in tower.named_parameters() if k.startswith(("gru.", "mha."))}
+
+
+def attn_forms_check(model_cfg, inputs: dict) -> dict:
+    """The tower's attention at the inputs' T on its GRU's output (B1): the
+    band-restricted blockwise form against its plain version
+    (``blockwise_attention_reference``), each between the tower's
+    projections, forward and the gradients of its input and of wq..wo,
+    bf16 compute."""
+    import torch
+
+    from poi_tpu_torch.models.attention import AttentionTower
+    from poi_tpu_torch.ops.attention import blockwise_attention, blockwise_attention_reference, project_attend
+
+    tower = AttentionTower(model_cfg, torch.Generator().manual_seed(SEED), DEV)
+    with torch.no_grad():
+        h = tower._gru(inputs["x"], inputs["mask"])
+    m = model_cfg
+
+    def run(form):
+        x = h.clone().requires_grad_()
+        p = {k: w.detach().clone().requires_grad_() for k, w in tower.mha.items()}
+        o = project_attend(x, p, m.attn_heads, lambda q, k, v: form(q, k, v, m.attn_window, m.attn_block_size),
+                           torch.bfloat16)
+        (o * inputs["cot"]).sum().backward()
+        torch.cuda.synchronize()
+        return {"out": o.detach(), "dx": x.grad, **{f"d{k}": w.grad for k, w in p.items()}}
+
+    got, want = run(blockwise_attention), run(blockwise_attention_reference)
+    return {k: {"rel": rel_err(got[k], want[k]), "max_abs": float((got[k] - want[k]).abs().max()),
+                "differ": int((got[k] != want[k]).sum()), "n": got[k].numel()} for k in got}
+
+
+def attn_cost(impl: str, T: int, gen) -> dict:
+    """Peak device memory (bytes above what was allocated before) and the
+    median ms of ``multihead_attention``'s forward and backward at config
+    #4's width and batch, bf16 compute, at (impl, T); {"oom": message} if
+    the card runs out of memory."""
+    import torch
+
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.models.attention import init_mha
+    from poi_tpu_torch.ops.attention import multihead_attention
+
+    c = get_config(ATTN_CONFIG)
+    m, B = c.model, c.train.batch_size
+    p = {k: w.to(DEV).requires_grad_() for k, w in init_mha(torch.Generator().manual_seed(SEED), m.hidden_dim).items()}
+    x = torch.randn(B, T, m.hidden_dim, generator=gen, device=DEV).requires_grad_()
+    cot = torch.randn(B, T, m.hidden_dim, generator=gen, device=DEV)
+
+    def run():
+        for t in (x, *p.values()):
+            t.grad = None
+        o = multihead_attention(x, p, m.attn_heads, m.attn_window, impl, m.attn_block_size, torch.bfloat16)
+        (o * cot).sum().backward()
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        run()
+        torch.cuda.synchronize()
+        res = {"peak_bytes": torch.cuda.max_memory_allocated() - base,
+               "ms": time_ms(run, ATTN_LONG_ITERS, warmup=1, dev=DEV)}
+    except torch.cuda.OutOfMemoryError as e:
+        res = {"oom": str(e).splitlines()[0]}
+    for t in (x, *p.values()):
+        t.grad = None
+    del x, p, cot
+    torch.cuda.empty_cache()
+    return res
+
+
+def attn_long_phase(state, gpu: str) -> dict:
+    """Config #4 past T = 128: the tower and its attention held at
+    ATTN_LONG_T, the attention's memory and time by form and T, and
+    ``train()`` at ATTN_LONG_T on both paths (``ATTN_LONG_SETS``)."""
+    import torch
+
+    from poi_tpu_torch.configs.presets import get_config
+    from poi_tpu_torch.convert import params_to_numpy
+    from poi_tpu_torch.data.dataset import load_dataset
+    from poi_tpu_torch.train.loop import make_trainer
+
+    T = ATTN_LONG_T
+    model_cfg = get_config(ATTN_CONFIG).model
+    inputs = tower_inputs(T)
+    reset_launches()
+    kern = tower_grads(model_cfg, inputs)
+    launches = read_launches()
+    assert launches["gru_fwd"] > 0 and launches["gru_bwd"] > 0, f"attn_long tower: {launches}"
+    plain = tower_grads(get_config(ATTN_CONFIG).with_overrides({"model.cell_impl": "scan"}).model, inputs)
+    errs = {"out": rel_err(kern[0], plain[0]), **{k: rel_err(g, plain[1][k]) for k, g in kern[1].items()}}
+    log(f"[attn_long] config #4's tower at T = {T} (batch {inputs['x'].shape[0]}, bf16), kernel path (launches "
+        f"{ {k: v for k, v in launches.items() if v} }) against the plain recurrence, rel err (tol "
+        f"{TOWER_BF16_TOL:.4g}): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    assert max(errs.values()) <= TOWER_BF16_TOL, f"attn_long tower: {errs}"
+    del kern, plain
+
+    forms = attn_forms_check(model_cfg, inputs)
+    log(f"[attn_long] attention at T = {T}, band-restricted blockwise against every KV block (the plain form), "
+        f"bf16: " + "; ".join(f"{k} rel {v['rel']:.3e} max|diff| {v['max_abs']:.3e} ({v['differ']} of {v['n']} "
+                               f"differ)" for k, v in forms.items())
+        + f" (tol {ATTN_FORM_TOL[0]:.4g} forward, {ATTN_FORM_TOL[1]:.4g} gradients)")
+    for k, v in forms.items():
+        assert v["rel"] <= ATTN_FORM_TOL[0 if k == "out" else 1], f"attn_long forms {k}: {v}"
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 26)
+    cost = {}
+    for impl, t in ATTN_LONG_TIMED:
+        cost[f"{impl}_t{t}"] = c = attn_cost(impl, t, gen)
+        log(f"[attn_long] attention fwd+bwd {impl} at T = {t} (batch 64, 4 heads, 256-d, W = 16, block 128, bf16): "
+            + (f"out of memory ({c['oom']})" if "oom" in c else
+               f"peak {c['peak_bytes'] / 2 ** 20:.1f} MiB, {c['ms']:.4f} ms") + f"  ({gpu})")
+    assert "oom" not in cost[f"blockwise_t{ATTN_LONG_TIMED[4][1]}"], cost
+
+    cfg = get_config(ATTN_CONFIG).with_overrides({**SAMPLER_OVERRIDES, **ATTN_LONG_SETS})
+    t0 = time.perf_counter()
+    ds = load_dataset(cfg.data)
+    lens = ds.train.mask.sum(axis=1)
+    log(f"[attn_long] corpus {ATTN_LONG_SETS}: {ds.num_pois} POIs, {len(ds.train)} training windows of T = "
+        f"{ds.max_seq_len} ({int((lens == T).sum())} full), loaded in {time.perf_counter() - t0:.1f} s")
+    tree = params_to_numpy(make_trainer(cfg, ds, DEV).model)  # the trainer's own seeded init
+    _, both, _ = train_both_paths("attn_long", cfg, ds, tree, used=("gru_fwd", "gru_bwd", "sampled_lse", "sampled_bwd"),
+                                  steps=ATTN_LONG_STEPS, split=None)
+    return {"tower": errs, "forms": forms, "cost": cost, "launches": both}
 
 
 def serve_prepare(trainer, state, cfg, ds, work: Path, rank: int) -> dict:
@@ -5566,11 +5775,15 @@ def mesh_phase(state, gpu: str) -> dict:
             assert float(rel[0]) < LOSS_TOL_FIRST and float(rel.max()) < LOSS_TOL_LAST, f"mesh {job}: {rel.tolist()}"
             if "table1_max_abs" in r0:
                 off = sum(r["table1_off"] for r in ranks)
+                explained = sum(r["table1_explained"] for r in ranks)
                 n = sum(r["table1_n"] for r in ranks)
                 worst = max(r["table1_max_abs"] for r in ranks)
                 log(f"[mesh] {job}: POI table after step 1, each rank's rows against the one-rank table: max |diff| "
-                    f"{worst:.3e}, {off} of {n} entries past 2e-6 + 2e-5 relative (the rows step's tolerance)")
-                assert off == 0, f"mesh {job}: table after step 1, {off} entries off, max |diff| {worst}"
+                    f"{worst:.3e}, {off} of {n} entries past 2e-6 + 2e-5 relative (the rows step's tolerance), "
+                    f"{explained} more past it, at most {EPS_REGIME_MAX}, each within twice lr·|g_rank - g_one| / eps "
+                    f"of it (Adam's first step on gradients near eps)")
+                assert off == 0 and explained <= EPS_REGIME_MAX, \
+                    f"mesh {job}: table after step 1, {off} entries off, {explained} explained, max |diff| {worst}"
             topk = torch.load(work / f"{job}_topk.pt")
             eq_v = bool(torch.equal(topk["vals"], ref["vals"]))
             tied = ref["vals"][:, :, None] == ref["vals"][:, None, :]
@@ -5597,7 +5810,8 @@ def mesh_phase(state, gpu: str) -> dict:
                                               if "library_ms" in t else ""))
             mesh_line(job, ranks, gpu, r0["mesh"])
             out[job] = ranks
-            (work / f"{job}_table1.npy").unlink(missing_ok=True)
+            for f in ("table1", "grad1"):
+                (work / f"{job}_{f}.npy").unlink(missing_ok=True)
             torch.cuda.empty_cache()
 
             if job == "c5":
@@ -5737,6 +5951,7 @@ def main() -> int:
     phase("train", train_phase, state)
     phase("attn_train", attention_train_phase, state)
     phase("attn_serve", serve_both_paths, "attn serve", state["attn_cfg"], state["attn_ds"], state["attn_trained"])
+    phase("attn_long", attn_long_phase, state, gpu)
     phase("lstm_config", recurrent_config_phase, state, "lstm")
     phase("strnn_config", recurrent_config_phase, state, "strnn")
     c2_held = phase("c2_hold", c2_hold_phase, state)

@@ -2,6 +2,14 @@
 ``poi_tpu/models/attention.py``: embeddings → GRU layer → MHA over the last
 ``attn_window`` positions + residual → LayerNorm.
 
+``model.attn_impl`` picks the attention as the reference's tower does:
+``vanilla`` and ``blockwise`` pass through, anything else (``banded``, and
+``ring`` or ``ulysses`` without a model axis to split time over) becomes
+``blockwise`` at ``model.attn_block_size``, which ``ops.attention`` turns
+into the band once the window reaches 128 and T twice the window
+(``AttentionTower.attention``). ``model.remat_cell`` checkpoints the GRU's
+scan cell (``models.gru.gru_layer``).
+
 Parameters keep the JAX package's names: ``tower.gru.{wx, wh, b}``,
 ``tower.mha.{wq, wk, wv, wo}`` ([H, H] each) and ``tower.ln.{scale, bias}``.
 """
@@ -46,17 +54,25 @@ class AttentionTower(nn.Module):
         self.ln = base.params({"scale": torch.ones(h), "bias": torch.zeros(h)}, device)
 
     def _gru(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return gru_layer(self.gru, x, mask, base.compute_dtype(self.cfg), cell_impl=self.cfg.cell_impl)
+        cfg = self.cfg
+        return gru_layer(self.gru, x, mask, base.compute_dtype(cfg), cell_impl=cfg.cell_impl, remat=cfg.remat_cell)
+
+    def attention(self, h: torch.Tensor) -> torch.Tensor:
+        """The attention over the GRU's output h [B, T, H] → [B, T, H]:
+        ``sp_mha`` where the Trainer set one, else ``multihead_attention``
+        at the (impl, block_size) that ``model.attn_impl`` and
+        ``model.attn_block_size`` map to."""
+        cfg = self.cfg
+        if self.sp_mha is not None:
+            return self.sp_mha(h, self.mha)
+        impl = cfg.attn_impl if cfg.attn_impl in ("vanilla", "blockwise") else "blockwise"
+        return multihead_attention(h, self.mha, cfg.attn_heads, cfg.attn_window, impl, cfg.attn_block_size,
+                                   base.compute_dtype(cfg))
 
     def forward(self, x: torch.Tensor, batch) -> torch.Tensor:
         """[B, T, D] → [B, T, H] at every position."""
-        cfg = self.cfg
         h = self._gru(x, batch.mask)
-        if self.sp_mha is not None:
-            o = self.sp_mha(h, self.mha)
-        else:
-            o = multihead_attention(h, self.mha, cfg.attn_heads, cfg.attn_window, base.compute_dtype(cfg))
-        return layer_norm(self.ln, h + o)
+        return layer_norm(self.ln, h + self.attention(h))
 
     def last(self, x: torch.Tensor, batch, last: torch.Tensor) -> torch.Tensor:
         """[B, H] at position ``last`` of each row: the GRU runs over all T,

@@ -202,6 +202,19 @@ def matmul_fp32(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.T
     return x.to(dtype).float() @ w.to(dtype).float()
 
 
+def remat_step(step, remat: bool):
+    """``step`` itself, or with ``remat`` wrapped in a non-reentrant
+    ``torch.utils.checkpoint``: autograd keeps only the step's inputs and
+    recomputes its intermediates in the backward, as ``jax.checkpoint``
+    wraps the scan cell in the reference (``model.remat_cell``). The values
+    and gradients are the same bits either way."""
+    if not remat:
+        return step
+    from torch.utils.checkpoint import checkpoint
+
+    return lambda *args: checkpoint(step, *args, use_reentrant=False)
+
+
 def linear(p, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return matmul_fp32(x, p["kernel"], dtype) + p["bias"]
 

@@ -25,13 +25,17 @@ def init_gru_layer(gen: torch.Generator, d_in: int, d_h: int) -> dict[str, torch
     }
 
 
-def gru_layer(p, x: torch.Tensor, mask: torch.Tensor | None, dtype: torch.dtype, cell_impl: str = "auto") -> torch.Tensor:
+def gru_layer(p, x: torch.Tensor, mask: torch.Tensor | None, dtype: torch.dtype, cell_impl: str = "auto",
+              remat: bool = False) -> torch.Tensor:
     """[B, T, D] → [B, T, H].
 
     ``cell_impl`` ``auto`` (with bf16) and ``pallas`` run the recurrence
     through ``fused_gru``: the CUDA kernels forward and backward on a CUDA
     tensor, their plain versions on a CPU tensor. ``scan`` (or ``auto`` with
-    fp32) runs the plain forward under autograd, the oracle.
+    fp32) runs the plain forward under autograd, the oracle. ``remat``
+    (``model.remat_cell``) checkpoints the scan's cell; the kernel path
+    keeps no per-step residuals and ignores it, as the reference's fused
+    path does.
     """
     if cell_impl not in CELL_IMPLS:
         raise ValueError(f"unknown cell_impl {cell_impl!r}: have {CELL_IMPLS}")
@@ -46,7 +50,7 @@ def gru_layer(p, x: torch.Tensor, mask: torch.Tensor | None, dtype: torch.dtype,
         xw = torch.cat([xz, xw[:, :, H:]], dim=2)
     if cell_impl == "pallas" or (cell_impl == "auto" and dtype == torch.bfloat16):
         return fused_gru(xw, wh)
-    return gru_scan_reference(xw, wh)
+    return gru_scan_reference(xw, wh, remat)
 
 
 class GRUTower(nn.Module):
@@ -66,7 +70,7 @@ class GRUTower(nn.Module):
         dtype = base.compute_dtype(self.cfg)
         h = x
         for p in self.layers:
-            h = gru_layer(p, h, batch.mask, dtype, cell_impl=self.cfg.cell_impl)
+            h = gru_layer(p, h, batch.mask, dtype, cell_impl=self.cfg.cell_impl, remat=self.cfg.remat_cell)
         return h
 
 

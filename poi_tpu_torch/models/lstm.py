@@ -27,13 +27,16 @@ def init_lstm_layer(gen: torch.Generator, d_in: int, d_h: int) -> dict[str, torc
     }
 
 
-def lstm_layer(p, x: torch.Tensor, mask: torch.Tensor, dtype: torch.dtype, cell_impl: str = "auto") -> torch.Tensor:
+def lstm_layer(p, x: torch.Tensor, mask: torch.Tensor, dtype: torch.dtype, cell_impl: str = "auto",
+               remat: bool = False) -> torch.Tensor:
     """[B, T, D] → [B, T, H].
 
     ``cell_impl`` ``auto`` (with bf16) and ``pallas`` run the recurrence
     through ``fused_lstm``: the CUDA kernels forward and backward on a CUDA
     tensor, their plain versions on a CPU tensor. ``scan`` (or ``auto`` with
-    fp32) runs the plain forward under autograd, the oracle.
+    fp32) runs the plain forward under autograd, the oracle. ``remat``
+    (``model.remat_cell``) checkpoints the scan's cell; the kernel path
+    ignores it, as the reference's fused path does.
     """
     if cell_impl not in CELL_IMPLS:
         raise ValueError(f"unknown cell_impl {cell_impl!r}: have {CELL_IMPLS}")
@@ -42,7 +45,7 @@ def lstm_layer(p, x: torch.Tensor, mask: torch.Tensor, dtype: torch.dtype, cell_
     wh = p["wh"].to(dtype)
     if cell_impl == "pallas" or (cell_impl == "auto" and dtype == torch.bfloat16):
         return fused_lstm(xw, mask, wh)
-    return lstm_scan_reference(xw, mask, wh)[0]
+    return lstm_scan_reference(xw, mask, wh, remat)[0]
 
 
 class LSTMTower(nn.Module):
@@ -62,7 +65,7 @@ class LSTMTower(nn.Module):
         dtype = base.compute_dtype(self.cfg)
         h = x
         for p in self.layers:
-            h = lstm_layer(p, h, batch.mask, dtype, cell_impl=self.cfg.cell_impl)
+            h = lstm_layer(p, h, batch.mask, dtype, cell_impl=self.cfg.cell_impl, remat=self.cfg.remat_cell)
         return h
 
 

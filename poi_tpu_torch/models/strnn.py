@@ -68,7 +68,9 @@ class STRNNTower(nn.Module):
     def forward(self, x: torch.Tensor, batch) -> torch.Tensor:
         """[B, T, D] → [B, T, H]. ``cell_impl`` ``auto`` (with bf16) and
         ``pallas`` run the recurrence through ``fused_rnn``; ``scan`` (or
-        ``auto`` with fp32) runs the plain forward under autograd."""
+        ``auto`` with fp32) runs the plain forward under autograd, its cell
+        checkpointed under ``model.remat_cell`` (the kernel path ignores
+        it, as the reference's fused path does)."""
         p, cfg = self.layer, self.cfg
         dtype = base.compute_dtype(cfg)
         # The spatial transition, then the temporal one, both hoisted.
@@ -78,7 +80,7 @@ class STRNNTower(nn.Module):
         c = p["c"].to(dtype)
         if cfg.cell_impl == "pallas" or (cfg.cell_impl == "auto" and dtype == torch.bfloat16):
             return fused_rnn(xin, batch.mask, c)
-        return rnn_scan_reference(xin, batch.mask, c)
+        return rnn_scan_reference(xin, batch.mask, c, cfg.remat_cell)
 
 
 class STRNNModel(base.SequenceModel):

@@ -43,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from poi_tpu_torch import _build
+from poi_tpu_torch.models.base import remat_step
 from poi_tpu_torch.ops import grid
 
 MASK_NEG = -1e9
@@ -101,28 +102,33 @@ def stream_weight(wh: torch.Tensor) -> torch.Tensor:
     return grid.stream_weight(wh, GATES)
 
 
-def gru_scan_reference(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+def gru_scan_reference(xw: torch.Tensor, wh: torch.Tensor, remat: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel: a Python loop over T.
 
     ``h`` is rounded to ``wh``'s dtype before the recurrent product, which
     sums in fp32: with bf16 ``wh`` that is the kernel's arithmetic, with fp32
     ``wh`` the JAX scan cell's at ``compute_dtype="float32"``. An fp64 ``xw``
     runs the whole step in fp64 (the card's measure of the kernel's sums).
+    ``remat`` checkpoints each step (``models.base.remat_step``).
     """
     B, T, H3 = xw.shape
     H = H3 // 3
     dt = torch.float64 if xw.dtype == torch.float64 else torch.float32
     xw = xw.to(dt)
     w = wh.to(dt)
-    h = xw.new_zeros(B, H)
-    hs = []
-    for t in range(T):
+
+    def step(h, x_t):
         hw = h.to(wh.dtype).to(dt) @ w
-        x_t = xw[:, t]
         z = torch.sigmoid(x_t[:, :H] + hw[:, :H])
         r = torch.sigmoid(x_t[:, H:2 * H] + hw[:, H:2 * H])
         n = torch.tanh(x_t[:, 2 * H:] + r * hw[:, 2 * H:])
-        h = (1.0 - z) * h + z * n
+        return (1.0 - z) * h + z * n
+
+    step = remat_step(step, remat)
+    h = xw.new_zeros(B, H)
+    hs = []
+    for t in range(T):
+        h = step(h, xw[:, t])
         hs.append(h)
     return torch.stack(hs, dim=1) if hs else xw.new_zeros(B, 0, H)
 

@@ -44,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from poi_tpu_torch import _build
+from poi_tpu_torch.models.base import remat_step
 from poi_tpu_torch.ops import grid
 
 # The widest H the cluster kernels take (lstm_fwd_cluster_size is 0 past it:
@@ -102,29 +103,34 @@ def _sum_dtype(xw: torch.Tensor) -> torch.dtype:
     return torch.float64 if xw.dtype == torch.float64 else torch.float32
 
 
-def lstm_scan_reference(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
+def lstm_scan_reference(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, remat: bool = False):
     """Plain PyTorch version of the forward kernel: a Python loop over T.
 
     ``h`` is rounded to ``wh``'s dtype before the recurrent product, which
     sums in fp32: with bf16 ``wh`` that is the kernel's arithmetic, with fp32
     ``wh`` the JAX scan cell's at ``compute_dtype="float32"``. Returns
     ``(hs, cs)`` [B, T, H] fp32. An fp64 ``xw`` runs the whole step in fp64
-    (the card's measure of the kernel's sums).
+    (the card's measure of the kernel's sums). ``remat`` checkpoints each
+    step (``models.base.remat_step``).
     """
     B, T, H4 = xw.shape
     H = H4 // 4
     dt = _sum_dtype(xw)
     xw, mask = xw.to(dt), mask.to(dt)
     w = wh.to(dt)
+
+    def step(h, c, x_t, m_t):
+        i, f, g, o = _gates(x_t + h.to(wh.dtype).to(dt) @ w, H)
+        c_raw = f * c + i * g
+        h_raw = o * torch.tanh(c_raw)
+        return _blend(m_t, h_raw, h), _blend(m_t, c_raw, c)
+
+    step = remat_step(step, remat)
     h = xw.new_zeros(B, H)
     c = xw.new_zeros(B, H)
     hs, cs = [], []
     for t in range(T):
-        i, f, g, o = _gates(xw[:, t] + h.to(wh.dtype).to(dt) @ w, H)
-        c_raw = f * c + i * g
-        h_raw = o * torch.tanh(c_raw)
-        c = _blend(mask[:, t], c_raw, c)
-        h = _blend(mask[:, t], h_raw, h)
+        h, c = step(h, c, xw[:, t], mask[:, t])
         hs.append(h)
         cs.append(c)
     if not hs:

@@ -45,6 +45,7 @@ from __future__ import annotations
 import torch
 
 from poi_tpu_torch import _build
+from poi_tpu_torch.models.base import remat_step
 from poi_tpu_torch.ops import grid
 
 # The widest H the cluster kernels take (rnn_fwd_cluster_size and
@@ -91,24 +92,30 @@ def _sum_dtype(xin: torch.Tensor) -> torch.dtype:
     return torch.float64 if xin.dtype == torch.float64 else torch.float32
 
 
-def rnn_scan_reference(xin: torch.Tensor, mask: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def rnn_scan_reference(xin: torch.Tensor, mask: torch.Tensor, c: torch.Tensor, remat: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: a Python loop over T.
 
     ``h`` is rounded to ``c``'s dtype before the recurrent product, which sums
     in fp32: with bf16 ``c`` that is the kernel's arithmetic, with fp32 ``c``
     the JAX scan cell's at ``compute_dtype="float32"``. An fp64 ``xin`` sums
-    in fp64 (a reference for both fp32 orders).
+    in fp64 (a reference for both fp32 orders). ``remat`` checkpoints each
+    step (``models.base.remat_step``).
     """
     B, T, H = xin.shape
     dt = _sum_dtype(xin)
     xin, mask = xin.to(dt), mask.to(dt)
     w = c.to(dt)
+
+    def step(h, x_t, m_t):
+        h_raw = torch.tanh(x_t + h.to(c.dtype).to(dt) @ w)
+        m = m_t[:, None]
+        return m * h_raw + (1.0 - m) * h
+
+    step = remat_step(step, remat)
     h = xin.new_zeros(B, H)
     hs = []
     for t in range(T):
-        h_raw = torch.tanh(xin[:, t] + h.to(c.dtype).to(dt) @ w)
-        m = mask[:, t, None]
-        h = m * h_raw + (1.0 - m) * h
+        h = step(h, xin[:, t], mask[:, t])
         hs.append(h)
     return torch.stack(hs, dim=1) if hs else xin.new_zeros(B, 0, H)
 

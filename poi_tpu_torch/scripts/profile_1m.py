@@ -53,8 +53,7 @@ def regions(trainer, batch) -> dict:
     optimizers run on copies of the parameters, their gradients the
     parameters' one real step's."""
     from poi_tpu_torch.models.attention import layer_norm
-    from poi_tpu_torch.models.base import compute_dtype, input_embeddings, output_table
-    from poi_tpu_torch.ops.attention import multihead_attention
+    from poi_tpu_torch.models.base import input_embeddings, output_table
     from poi_tpu_torch.train import sparse_opt
     from poi_tpu_torch.train.state import make_optimizer
 
@@ -75,9 +74,7 @@ def regions(trainer, batch) -> dict:
         t.float().sum().backward() if t.dim() else t.backward()
 
     def mha_ln():
-        tower, m = model.tower, cfg.model
-        o = multihead_attention(h_fixed, tower.mha, m.attn_heads, m.attn_window, compute_dtype(m))
-        backward(layer_norm(tower.ln, h_fixed + o))
+        backward(layer_norm(model.tower.ln, h_fixed + model.tower.attention(h_fixed)))
 
     def no_grad(fn):
         def run():

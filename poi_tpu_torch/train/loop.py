@@ -117,8 +117,8 @@ class Trainer:
             self.dims = self.dims.padded_to(n_model)
         sp = cfg.model.kind == "attention" and cfg.model.attn_impl in sp_attention.IMPLS
         if sp and n_model == 1:
-            log.info("model.attn_impl=%r requested but the mesh's model axis is 1; taking single-device blockwise "
-                     "attention", cfg.model.attn_impl)
+            log.info("model.attn_impl=%r requested but the mesh's model axis is 1; taking the single-device "
+                     "blockwise form at block %d", cfg.model.attn_impl, cfg.model.attn_block_size)
         # fp32 products stay fp32 on the card (no TF32), as the reference's.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -130,8 +130,7 @@ class Trainer:
                                             poi_lookup=lookup)
         if sp and n_model > 1:  # the attention's time axis split over the model axis
             self.model.tower.sp_mha = sp_attention.make_sp_attention(
-                mesh, cfg.model.attn_heads, cfg.model.attn_window, cfg.model.attn_impl,
-                model_base.compute_dtype(cfg.model))
+                mesh, cfg.model.attn_heads, cfg.model.attn_window, cfg.model.attn_impl, cfg.model.attn_block_size)
         # The parameters that hold this rank's rows of a catalog table.
         self.sharded = {k for k, _ in self.model.named_parameters() if k in CATALOG_TABLES} if n_model > 1 else set()
         # Each rank's loss is its part of the whole batch's masked mean.

@@ -79,6 +79,33 @@ def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     return lambda step: float(_F(peak))
 
 
+def first_step_apart(p: torch.Tensor, p_ref: torch.Tensor, g: torch.Tensor, g_ref: torch.Tensor, lr: float,
+                     atol: float, rtol: float) -> tuple[int, int]:
+    """Two runs' parameters after Adam's first step from one state, ``g``
+    and ``g_ref`` the gradients each step took (its first moment over
+    1 - b1): (entries past ``atol + rtol·|p_ref|`` that the gradients'
+    gap does not explain, entries past it that it does).
+
+    The first step is lr·g / (|g| + eps), whose slope in g is at most
+    1 / eps: where |g| is near or below eps, a gap of summation order
+    between the two gradients moves the two parameters up to
+    lr·|g - g_ref| / eps apart (1e5 times the gap at lr 1e-3). An entry
+    past the tolerance is explained where neither gradient is 0 and it lies
+    within twice that of the tolerance; one whose gradient is 0 in either
+    run (a row that run left untouched) is held at the tolerance alone.
+    Runs over slices of 2^24 entries, so a table costs little memory."""
+    unexplained = explained = 0
+    for a, b, ga, gb in zip(*(t.detach().reshape(-1).split(1 << 24) for t in (p, p_ref, g, g_ref))):
+        tol = atol + rtol * b.abs()
+        d = (a - b).abs()
+        off = d > tol
+        gap = torch.where((ga != 0) & (gb != 0), (ga - gb).abs() * (lr / ADAM_EPS), 0.0)
+        ok = off & (d <= tol + 2 * gap)
+        unexplained += int((off & ~ok).sum())
+        explained += int(ok.sum())
+    return unexplained, explained
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element (``optax.global_norm``)."""
     return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))

@@ -27,14 +27,9 @@ torch.set_num_threads(1)
 
 # fp32: the same arithmetic up to summation order.
 F32_TOL = 1e-5
-# bf16 against the same form (vanilla): the same rounding points; an fp32
-# order difference can move a value across a bf16 boundary, 2^-8 relative.
+# bf16 against the same form: the same rounding points; an fp32 order
+# difference can move a value across a bf16 boundary, 2^-8 relative.
 BF16_TOL = 2 ** -8
-# bf16 against blockwise, which rounds the unnormalised exp(s - m) to bf16
-# before p·v and divides by the sum after, where the port (and vanilla)
-# round the normalised softmax: the two differ at bf16 resolution in every
-# p, ~1e-2 of the output's scale.
-BLOCKWISE_BF16_TOL = 2e-2
 
 DIMS = jax_base.DataDims(num_users=7, num_pois=50, num_time_buckets=12, num_geo_buckets=16,
                          num_tgap_buckets=4, num_dist_buckets=4)
@@ -68,24 +63,26 @@ def _close(got, want, tol, name=""):
 
 def test_window_mask_matches_jax():
     for T, window in ((5, 3), (9, 2), (6, 10)):
-        assert np.array_equal(window_mask(T, window).numpy(), np.asarray(jax_window_mask(T, T, window)))
+        assert np.array_equal(window_mask(T, T, window).numpy(), np.asarray(jax_window_mask(T, T, window)))
 
 
 @pytest.mark.parametrize("dtype, impl, tol", [
     ("float32", "vanilla", F32_TOL),
     ("float32", "blockwise", F32_TOL),
     ("bfloat16", "vanilla", BF16_TOL),
-    ("bfloat16", "blockwise", BLOCKWISE_BF16_TOL),
+    # The same unnormalised bf16 p on both sides, its products exact in fp32.
+    ("bfloat16", "blockwise", F32_TOL),
 ])
 def test_multihead_attention_matches_jax(dtype, impl, tol):
-    """T=10 with blocks of 4: blockwise pads its last KV block."""
+    """T=10 with blocks of 4: blockwise pads its last KV block. Each form
+    against the reference's same form, at its rounding points."""
     rng = np.random.default_rng(0)
     x = rng.normal(size=(3, 10, 16)).astype(np.float32)
     p = _mha_params(rng, 16)
     want = jax_mha(jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()}, num_heads=2, window=5, impl=impl,
                    block_size=4, dtype=getattr(jnp, dtype))
-    got = multihead_attention(torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in p.items()}, 2, 5,
-                              getattr(torch, dtype))
+    got = multihead_attention(torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in p.items()}, 2, 5, impl,
+                              block_size=4, dtype=getattr(torch, dtype))
     assert got.dtype == torch.float32 and got.shape == (3, 10, 16)
     _close(got, want, tol, f"{dtype} {impl}")
 
@@ -105,7 +102,8 @@ def test_multihead_attention_last_matches_jax_and_the_full_path(window, lens, dt
                         last=jnp.asarray(last), dtype=getattr(jnp, dtype))
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     _close(got, want, tol, "vs jax")
-    full = multihead_attention(torch.from_numpy(x), tp, 2, window, getattr(torch, dtype))
+    # The full path's normalised form, whose rounding points the last path shares.
+    full = multihead_attention(torch.from_numpy(x), tp, 2, window, "vanilla", dtype=getattr(torch, dtype))
     _close(got, full[torch.arange(5), torch.from_numpy(last)], tol, "vs the full path")
 
 
@@ -120,12 +118,12 @@ def _models(dtype, seed=3, **cfg_kw):
     return jm, params, tm
 
 
-@pytest.mark.parametrize("dtype, tol", [("float32", F32_TOL), ("bfloat16", BLOCKWISE_BF16_TOL)])
+@pytest.mark.parametrize("dtype, tol", [("float32", F32_TOL), ("bfloat16", BF16_TOL)])
 def test_attention_model_queries_match_jax(dtype, tol):
     """queries (every position) and queries_last, on ragged prefixes, from
-    poi_tpu's params. poi_tpu runs its lax.scan GRU and blockwise attention,
-    the port its GRU Function (the kernels' plain versions) and one
-    attention form; bf16 differs as BLOCKWISE_BF16_TOL says."""
+    poi_tpu's params. poi_tpu runs its lax.scan GRU and blockwise
+    attention, the port its GRU Function (the kernels' plain versions) and
+    the same blockwise form."""
     jm, params, tm = _models(dtype)
     assert sorted(tm.state_dict()) == sorted(k.replace("/", ".") for k in flatten(params))
     lens = [12, 1, 5, 9]

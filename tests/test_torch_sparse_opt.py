@@ -339,3 +339,41 @@ def test_lookup_gradient_matches_jax_take(num_rows, skew):
     again = torch.from_numpy(table).requires_grad_()
     lookup(again, torch.from_numpy(ids)).backward(torch.from_numpy(g))
     assert torch.equal(again.grad, t.grad)
+
+
+def _first_adam_step(p0: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
+    from poi_tpu_torch.train.state import Optimizer
+
+    opt = Optimizer(TrainConfig(learning_rate=lr, warmup_steps=0, grad_clip_norm=0.0, lr_schedule="constant"))
+    p = {"w": p0.clone()}
+    opt.update({"w": g}, opt.init(p), p)
+    return p["w"]
+
+
+@pytest.mark.parametrize("fault", [None, "untouched_row_moved", "touched_in_one_run", "move_past_the_gap"])
+def test_first_step_apart_explains_only_a_gradient_gap(fault):
+    """``state.first_step_apart`` on two first Adam steps (the port's
+    optimizer, lr 1e-3, no clip) from one tensor: gradients near eps that
+    differ by summation-order noise (~5e-11) put entries past 2e-6 + 2e-5
+    relative, and the gap explains each; a moved row whose gradient is 0 in
+    both runs, a row one run left untouched, and a move past what the gap
+    allows are not explained."""
+    from poi_tpu_torch.train.state import first_step_apart
+
+    lr = 1e-3
+    p0 = torch.full((3, 3), 0.01)
+    g = torch.tensor([[2e-9, -3e-9, 1.5e-8], [0.0, 0.0, 0.0], [0.3, -0.2, 0.1]])
+    g2 = g.clone()
+    g2[0] += torch.tensor([5e-11, -4e-11, 6e-11])
+    if fault == "touched_in_one_run":
+        g2[1, 1] = 5e-10
+    p1, p2 = _first_adam_step(p0, g, lr), _first_adam_step(p0, g2, lr)
+    if fault == "untouched_row_moved":
+        p2[1, 0] += 1e-5
+    if fault == "move_past_the_gap":
+        p2[0, 0] += 1e-4
+    unexplained, explained = first_step_apart(p2, p1, g2, g, lr, 2e-6, 2e-5)
+    if fault is None:
+        assert unexplained == 0 and explained == 2, (unexplained, explained)
+    else:
+        assert unexplained == 1, (fault, unexplained, explained)

@@ -198,16 +198,18 @@ def train_job(inp: str, out: str, cases: str) -> None:
     dist.destroy_process_group()
 
 
-def sp_job(inp: str, out: str, cases: str, tower: str) -> None:
+def sp_job(inp: str, out: str, cases: str, towers: str) -> None:
     """Sequence-parallel attention (``parallel.sp_attention``) on both
     meshes: for each case of ``cases`` (JSON: name -> {"impl", "window",
     "heads"}), the forward of this data rank's rows of ``x``, and the
     gradients of ``x`` and of ``wq``..``wo`` under the cotangent ``cot``,
     each gathered to the whole batch (the projections' summed over data);
-    a case that raises keeps its error. Then the attention tower of the
-    ``tower`` overrides (JSON, on ``attention_gowalla``) with each impl on
-    the inputs ``tx``, ``tmask``, ``tcot``: its output and the gradients of
-    its GRU and projections, gathered and summed alike. Then
+    a case that raises keeps its error. Then the attention tower of each
+    of ``towers`` (JSON: key prefix -> {"sets": overrides on
+    ``attention_gowalla``, "cot": the input that is its output's
+    cotangent}) with each impl on the inputs ``tx`` and ``tmask``: its
+    output and the gradients of its GRU and projections, gathered and
+    summed alike. Then
     ``ppermute_ring`` at shifts 1 and -1, forward and backward, every
     rank's result gathered."""
     import types
@@ -227,7 +229,7 @@ def sp_job(inp: str, out: str, cases: str, tower: str) -> None:
         for name, case in json.loads(cases).items():
             x = z["x"][drows].clone().requires_grad_()
             p = {w: z[w].clone().requires_grad_() for w in ("wq", "wk", "wv", "wo")}
-            mha = make_sp_attention(mesh, case["heads"], case["window"], case["impl"], torch.float32)
+            mha = make_sp_attention(mesh, case["heads"], case["window"], case["impl"], case["block"])
             try:
                 o = mha(x, p)
             except ValueError as e:
@@ -242,16 +244,19 @@ def sp_job(inp: str, out: str, cases: str, tower: str) -> None:
             for w in p:
                 res[f"{tag}/{name}/d{w}"] = cc.all_reduce_(p[w].grad.clone(), mesh, DATA_AXIS).numpy()
 
-        model_cfg = get_config("attention_gowalla").with_overrides(json.loads(tower)).model
-        for impl in IMPLS:
-            t = AttentionTower(model_cfg, torch.Generator().manual_seed(0), "cpu")
-            t.sp_mha = make_sp_attention(mesh, model_cfg.attn_heads, model_cfg.attn_window, impl, torch.float32)
-            o = t(z["tx"][drows], types.SimpleNamespace(mask=z["tmask"][drows]))
-            (o * z["tcot"][drows]).sum().backward()
-            res[f"{tag}/tower_{impl}/out"] = _whole_rows(o, mesh).numpy()
-            for k, p in t.named_parameters():
-                if p.grad is not None:
-                    res[f"{tag}/tower_{impl}/d{k}"] = cc.all_reduce_(p.grad.clone(), mesh, DATA_AXIS).numpy()
+        for prefix, tower in json.loads(towers).items():
+            model_cfg = get_config("attention_gowalla").with_overrides(tower["sets"]).model
+            for impl in IMPLS:
+                t = AttentionTower(model_cfg, torch.Generator().manual_seed(0), "cpu")
+                t.sp_mha = make_sp_attention(mesh, model_cfg.attn_heads, model_cfg.attn_window, impl,
+                                             model_cfg.attn_block_size)
+                o = t(z["tx"][drows], types.SimpleNamespace(mask=z["tmask"][drows]))
+                (o * z[tower["cot"]][drows]).sum().backward()
+                key = f"{tag}/tower_{prefix}{impl}"
+                res[f"{key}/out"] = _whole_rows(o, mesh).numpy()
+                for k, p in t.named_parameters():
+                    if p.grad is not None:
+                        res[f"{key}/d{k}"] = cc.all_reduce_(p.grad.clone(), mesh, DATA_AXIS).numpy()
 
         # The ring shift: rank i's tensor to rank i + shift of its model group, the gradient back.
         for shift in (1, -1):
@@ -293,7 +298,7 @@ def bytes_job(out: str, n_ids: int, dim: int, vocab: int, factor: float, attn: s
     x = torch.randn(a["B"], a["T"], a["D"], generator=gen)
     p = {n: (0.1 * torch.randn(a["D"], a["D"], generator=gen)).requires_grad_() for n in ("wq", "wk", "wv", "wo")}
     for impl in ("ring", "ulysses"):
-        mha = make_sp_attention(mesh, a["heads"], a["window"], impl, torch.float32)
+        mha = make_sp_attention(mesh, a["heads"], a["window"], impl)
         xr = x.clone().requires_grad_()
         with cc.count_bytes() as c:
             mha(xr, p).square().sum().backward()
