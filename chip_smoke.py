@@ -55,7 +55,7 @@ with its plain PyTorch version on the card. Then it drives the paths:
   B8 (bench) or B9, B10 (config #4) and B11 past 1024 on their streamed
   kernels, B1/B2 on the grid), the same way as the wider paths; before
   them, B7 and B8 at D = 1100, 1280, 2048 and 4096, B9 and B10 at 1100,
-  1280 and 2048, B11 at 1100, 2048 and 4096, and D = 1025 taken by all
+  1280 and 2048, B11 at 1100, 2048 and 4096 (on its wgmma design), and D = 1025 taken by all
   five;
 - the widest-H paths (the bench workload and configs #2 and #3 at H =
   4096 over their own D = 128: the recurrences past their grids on the
@@ -378,6 +378,11 @@ TOPK_CATALOGS = {"eval": (45056, 128, 44170), "c4": (38912, 256, 36969), "serve7
 TOPK_WIDEST_CASES = ((None, 45056, 2048, 10, 44170), (1, 45056, 2048, 128, 44170), (256, 45056, 2048, 128, 44170),
                      (7, 8192, 4096, 128, 8000), (256, 8192, 4096, 10, 8000), (33, 8192, 1100, 32, 8000),
                      (1, 8192, 1100, 128, 8000))
+# B11 at config #5 on one card (B, V, D, k, real POIs): its eval sweep
+# (the check's 512-row batches, k = 10) and its serving at request batch 1
+# and 256 (k = 128, recommend's fetch).
+TOPK_C5_CASES = ((512, 905216, 512, 10, 903889), (1, 905216, 512, 128, 903889), (256, 905216, 512, 128, 903889))
+TOPK_TIME_ITERS = 10  # calls a top-k timing in timing_phase
 CE_THRESHOLD_CASES = ((2048, 6749, 64), (32768, 6749, 128), (32768, 44170, 128))
 # Config #4 at full width: GRU + attention 256-d, T=128, batch 64, dropout
 # 0.3, sampled softmax (S=1,024), lazy Adam, 36,969 POIs. The device sampler
@@ -702,7 +707,7 @@ def topk_phase() -> float:
     import torch
 
     from poi_tpu_torch.configs.presets import get_config
-    from poi_tpu_torch.ops.topk import fused_topk, kernel_dim, topk_reference
+    from poi_tpu_torch.ops.topk import SLICE_MAX_D, fused_topk, kernel_dim, launch_topk, topk_plan, topk_reference
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     worst = 0.0
@@ -718,17 +723,21 @@ def topk_phase() -> float:
              (eval_batch, 45056, 128, 10, 44170), (256, 45056, 128, 10, 44170), (256, 38912, 256, 10, 36969)]
     # bench_serve's catalog (70,953 POIs padded to 71,680, D=256) at its fetch
     # of k = 32, a whole 32-entry list, at batch 1 (its widest slice plan)
-    # and 256. The narrower blocks of D > 256 at config #5's D = 512 and at
-    # the kernel's limit of 1024, and D = 520, whose K is zero-padded to a
-    # multiple of 16, on a ragged batch.
+    # and 256. Config #5's D = 512 and 1024 on a small catalog (one- and
+    # two-box stages beside resident and streamed query rows), and D = 520,
+    # whose K is zero-padded to a multiple of 16, on a ragged batch.
     cases += [(1, 71680, 256, 32, 70953), (256, 71680, 256, 32, 70953), (256, 8192, 512, 10, 8000),
               (256, 8192, 512, 128, 8000), (256, 8192, 1024, 10, 8000), (256, 8192, 1024, 128, 8000),
               (7, 8192, 520, 128, 8000)]
     # D = 100, no multiple of 8: the wrapper pads q and the table with zero
-    # columns to 104. Past 1024, the K-chunked pass 1 (TOPK_WIDEST_CASES),
-    # each launched twice for its bits.
+    # columns to 104. Past 1024 (TOPK_WIDEST_CASES), the width padded to a
+    # multiple of 256.
     cases += [(256, 8192, 100, 10, 8000), (7, 8192, 100, 128, 8000)]
     cases += [(eval_batch if B is None else B, V, D, k, real) for B, V, D, k, real in TOPK_WIDEST_CASES]
+    # Config #5 on one card: its eval sweep (512 rows, k = 10) and its
+    # serving at request batch 1 and 256 (k = 128, recommend's fetch) over
+    # the 903,889 POIs padded to 905,216.
+    cases += list(TOPK_C5_CASES)
     for B, V, D, k, real in cases:
         # Scores of the same spread at either width (std ~8).
         q = torch.randn(B, D, generator=gen, device=DEV) * (64 / D) ** 0.5
@@ -745,27 +754,46 @@ def topk_phase() -> float:
         near = (exact[rows, ids.long()] - exact[rows, want_i.long()]).abs() < tol
         assert ((ids == want_i) | near).all(), f"top-k B={B} V={V} D={D} k={k}: ids differ beyond near-ties"
         assert int(ids.max()) < real, f"top-k B={B} V={V} D={D} k={k}: a padded row won"
-        bits = ""
-        if D > 1024:
-            again = fused_topk(q, table, bias, k)
-            assert torch.equal(again[0], vals) and torch.equal(again[1], ids), f"top-k D={D}: run-to-run bits"
-            bits = f"; run at {kernel_dim(D)} on the K-chunked pass 1, a second launch gives the same bits"
+        again = fused_topk(q, table, bias, k)
+        assert torch.equal(again[0], vals) and torch.equal(again[1], ids), f"top-k B={B} D={D} k={k}: run-to-run bits"
+        # Where both designs take the shape, the other one on the same inputs
+        # gives the same bits: a score's bits do not depend on the design
+        # (wgmma and mma.sync sum a k16 step alike), so a mesh shard and its
+        # catalog agree whichever takes each.
+        plan, other = topk_plan(B, V, kernel_dim(D), k), other_plan(B, V, D, k)
+        if other is not None:
+            o_v, o_i = launch_topk(q, table, bias, k, other)
+            assert torch.equal(o_v, vals) and torch.equal(o_i, ids), \
+                f"top-k B={B} V={V} D={D} k={k}: the {other.design} design's bits differ from the {plan.design} design's"
         worst = max(worst, err)
-        log(f"[topk] B={B:3d} V={V} D={D:3d} k={k:3d}{' (-1e30 tail)' if real < V else ''}: max |vals - plain| "
-            f"{err:.3e} (tol {tol:.0e}), ids equal {int((ids == want_i).sum())}/{ids.numel()} (rest near-ties < "
-            f"{tol:.0e}){bits}")
-    # Duplicated rows across the catalog: the tie order must be exact (past
-    # 1024 too: two identical rows score bit for bit alike over the chunks).
-    for D in (64, 2048):
+        log(f"[topk] B={B:3d} V={V} D={D:3d} k={k:3d}{' (-1e30 tail)' if real < V else ''}: {plan_text(plan, B)} at "
+            f"{kernel_dim(D)}: max |vals - plain| {err:.3e} (tol {tol:.0e}), ids equal {int((ids == want_i).sum())}/"
+            f"{ids.numel()} (rest near-ties < {tol:.0e}); a second launch"
+            + (f" and the {other.design} design give the same bits" if other else " gives the same bits"))
+    # Duplicated rows across the catalog: the tie order must be exact (on
+    # both designs at D = 64, and past 1024 too: two identical rows score bit
+    # for bit alike over the chunks).
+    for D in (64, 512, 2048):
         V = 8192
         q = torch.randn(4, D, generator=gen, device=DEV)
         table = torch.randn(16, D, generator=gen, device=DEV)[torch.randint(0, 16, (V,), generator=gen, device=DEV)]
         bias = torch.zeros(V, device=DEV)
         for k in (10, 128):
-            _, ids = fused_topk(q, table, bias, k)
             _, want_i = topk_reference(q, table, bias, k)
-            assert torch.equal(ids, want_i), f"top-k duplicated rows D={D} k={k}: tie order differs"
-    log("[topk] duplicated rows at D = 64 and 2048: tie order (value desc, id asc) exact for k=10 and k=128")
+            for design in ("wg", "slice") if D <= SLICE_MAX_D else ("wg",):
+                _, ids = launch_topk(q, table, bias, k, topk_plan(4, V, D, k, design))
+                assert torch.equal(ids, want_i), f"top-k duplicated rows D={D} k={k} ({design}): tie order differs"
+    log("[topk] duplicated rows at D = 64 (both designs), 512 and 2048 (the wgmma design): tie order (value desc, "
+        "id asc) exact for k=10 and k=128")
+    # The plan's shared-memory count (ops/topk.py wg_smem) is the kernel's.
+    from poi_tpu_torch import _build
+
+    lib = _build.library()
+    for B, V, D, k, _ in cases:
+        p = topk_plan(B, V, kernel_dim(D), k, "wg")
+        c_smem = lib.topk_wg_smem(p.qrows, kernel_dim(D), p.unit_boxes, p.stages, int(p.resident), p.surv_rows)
+        assert p.smem == c_smem, f"top-k B={B} D={D} k={k}: the plan's smem {p.smem} is not the kernel's {c_smem}"
+    log(f"[topk] the wgmma design's plan counts the kernel's shared memory at all {len(cases)} cases")
     return worst
 
 
@@ -2880,6 +2908,7 @@ def serve_both_paths(tag: str, cfg, ds, trained, fwd: str = "gru_fwd") -> None:
         got = rec.recommend(histories[:n], k=10, exclude_visited=True)
         launches = read_launches()
         assert launches[fwd] > 0 and launches["topk"] > 0, f"{tag} recommend skipped a kernel: {launches}"
+        log(f"[{tag}] recommend at batch {n}: {launches[fwd]} launch(es) of {fwd}, {launches['topk']} of B11")
         assert got.shape == (n, 10) and ((got >= 0) & (got < ds.num_pois)).all(), got
         for row, hist in zip(got, histories[:n]):
             assert not set(row.tolist()) & {c.poi for c in hist}, "a visited POI was returned"
@@ -4219,19 +4248,23 @@ def scripts_phase(state) -> None:
         log(f"[scripts] {name} {' '.join(args)}: exit 0 in {time.perf_counter() - t0:.1f} s")
 
 
-def topk_kernels(B: int, V: int, D: int, k: int) -> tuple:
-    """The kernels one ``fused_topk`` call launches: pass 1 (past D = 1024
-    the K-chunked one), and the merge pass where its plan cuts the catalog
-    into more than one slice."""
-    import ctypes
+def other_plan(B: int, V: int, D: int, k: int):
+    """The plan of the top-k design that the rule does not pick, where it
+    takes the shape (both do from kernel width 64 to 128), else None."""
+    from poi_tpu_torch.ops.topk import SLICE_MAX_D, kernel_dim, topk_plan
 
-    from poi_tpu_torch import _build
-    from poi_tpu_torch.ops.topk import kernel_dim
+    Dk = kernel_dim(D)
+    if not 64 <= Dk <= SLICE_MAX_D:
+        return None
+    return topk_plan(B, V, Dk, k, "slice" if topk_plan(B, V, Dk, k).design == "wg" else "wg")
 
-    D = kernel_dim(D)
-    slices = _build.library().topk_plan(V, k, B, D, ctypes.byref(ctypes.c_int(0)))
-    first = "topk_slice_kc_kernel" if D > 1024 else "topk_slice_kernel"
-    return (first, "topk_merge_kernel") if slices > 1 else (first,)
+
+def plan_text(plan, B: int) -> str:
+    """A top-k plan in words."""
+    if plan.design == "slice":
+        return f"slice design ({plan.slices} slices x {plan.groups(B)} row groups of {plan.rows})"
+    return (f"wg design ({plan.slices} slices x {plan.groups(B)} row groups of {plan.rows}, {plan.stages} stages of "
+            f"{plan.unit_boxes} boxes, query rows {'resident' if plan.resident else 'streamed'})")
 
 
 def timing_phase(state, gpu: str) -> dict:
@@ -4239,7 +4272,7 @@ def timing_phase(state, gpu: str) -> dict:
 
     from poi_tpu_torch.models.base import batch_to
     from poi_tpu_torch.ops.fused_gru import fused_gru_scan, gru_scan_reference
-    from poi_tpu_torch.ops.topk import fused_topk, topk_reference
+    from poi_tpu_torch.ops.topk import fused_topk, kernel_dim, launch_topk, topk_plan, topk_reference
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
     out = {}
@@ -4258,8 +4291,12 @@ def timing_phase(state, gpu: str) -> dict:
     # and 256, k = 128 (recommend's fetch) and 10, and at the bench eval
     # sweep's shape, each beside torch.topk over the materialised logits (bf16
     # product, fp32 scores): CUDA events around a call (host launch work
-    # included) and the profiler's device time.
+    # included) and the profiler's device time; and, where both designs take
+    # the shape, the one that the plan does not pick, on the same inputs
+    # ("other_*").
     # bench_serve's 20-check-in histories fetch k = 32 (next_pow2(10 + 20)).
+    # Config #5 on one card: its eval sweep and its serving at batch 1 and
+    # 256. Ten calls a timing (twenty before the new cases came).
     prep = state["rec"]._prep
     catalogs = {"serve": (prep.table, prep.bias)}
     for key, (V, D, real) in TOPK_CATALOGS.items():
@@ -4272,20 +4309,29 @@ def timing_phase(state, gpu: str) -> dict:
              ("topk_c4", 256, "c4", 10), ("topk_serve70k", 256, "serve70k", 32), ("topk_serve70k_b1", 1, "serve70k", 32),
              ("topk_c5", 512, "c5", 10), ("topk_eval_d1024", eval_batch, "eval1024", 10),
              ("topk_eval_d2048", eval_batch, "eval2048", 10), ("topk_serve_d2048_b1", 1, "eval2048", 128),
-             ("topk_serve_d2048", 256, "eval2048", 128), ("topk_d4096", 256, "d4096", 10)]
+             ("topk_serve_d2048", 256, "eval2048", 128), ("topk_d4096", 256, "d4096", 10),
+             ("topk_c5_b1", 1, "c5", 128), ("topk_c5_b256", 256, "c5", 128)]
+    n = TOPK_TIME_ITERS
     for name, B, cat, k in cases:
         table, bias = catalogs[cat]
-        q = torch.randn(B, table.shape[1], generator=gen, device=DEV)
+        V, D = table.shape
+        q = torch.randn(B, D, generator=gen, device=DEV)
+        plan, other = topk_plan(B, V, kernel_dim(D), k), other_plan(B, V, D, k)
         lib = lambda: torch.topk(torch.nn.functional.linear(q.to(torch.bfloat16), table).float() + bias, k)  # noqa: E731
-        t = {"ms": time_ms(lambda: fused_topk(q, table, bias, k)),
-             "plain_ms": time_ms(lambda: topk_reference(q, table, bias, k)), "library_ms": time_ms(lib),
-             "device_ms": device_ms(lambda: fused_topk(q, table, bias, k), expect=topk_kernels(B, *table.shape, k)),
-             "library_device_ms": device_ms(lib),
-             **bound((q, table, bias), fused_topk(q, table, bias, k), bf16_flop=2 * B * table.shape[0] * table.shape[1])}
+        run_other = lambda: launch_topk(q, table, bias, k, other)  # noqa: E731
+        t = {"design": plan.design, "ms": time_ms(lambda: fused_topk(q, table, bias, k), n),
+             "plain_ms": time_ms(lambda: topk_reference(q, table, bias, k), n), "library_ms": time_ms(lib, n),
+             "device_ms": device_ms(lambda: fused_topk(q, table, bias, k), n, expect=plan.kernels()),
+             "library_device_ms": device_ms(lib, n), "other_design": other and other.design,
+             "other_ms": other and time_ms(run_other, n),
+             "other_device_ms": other and device_ms(run_other, n, expect=other.kernels()),
+             **bound((q, table, bias), fused_topk(q, table, bias, k), bf16_flop=2 * B * V * D)}
         out[name] = t
-        log(f"[time] {name} B={B} V={table.shape[0]} D={table.shape[1]} k={k}: kernel {t['ms']:.4f} ms (device "
-            f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, torch.topk over the logits {t['library_ms']:.4f} ms "
-            f"(device {t['library_device_ms']:.4f}); bound {t['bound_ms']:.4f} ms ({t['bound_by']})  ({gpu})")
+        log(f"[time] {name} B={B} V={V} D={D} k={k}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}; "
+            f"{plan_text(plan, B)})"
+            + (f", the {other.design} design {t['other_ms']:.4f} ms (device {t['other_device_ms']:.4f})" if other else "")
+            + f", plain {t['plain_ms']:.4f} ms, torch.topk over the logits {t['library_ms']:.4f} ms (device "
+            f"{t['library_device_ms']:.4f}); bound {t['bound_ms']:.4f} ms ({t['bound_by']})  ({gpu})")
     hist = state["histories"]
     rec = state["rec"]
     for n in (1, 256):
@@ -4584,7 +4630,7 @@ def config5_timing_phase(state, gpu: str) -> None:
 # either names; its second argument lists the kernels to time.
 AB_TIMED = ("topk",)
 AB_KEPT = ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd", "sampled_bwd", "rnn_bwd", "sampled_lse", "ce_lse", "ce_bwd",
-           "rnn_fwd", "ce_lse_variant_base", "ce_lse_variant_exp2", "ce_lse_variant_nomax", "gru_stream", *AB_TIMED)
+           "rnn_fwd", "ce_lse_variant_base", "ce_lse_variant_exp2", "ce_lse_variant_nomax", "gru_stream", "topk_kept")
 # Path 2's host-loader train() in each checkout (seq/s and device idle share
 # at steps_per_call 1 and 10 by this checkout's host_loader_timing; a
 # checkout whose loop ignores steps_per_call runs both synchronously).
@@ -4657,17 +4703,24 @@ kb = torch.randn(36969, generator=gen, device="cuda")
 # padded pool with accidental hits (split ranges), the widest both take.
 qk, ek, bk, idk, tgk, lsk, gk = cs.sampled_case(8192, 1024, 1024, 36969, gen)
 qr, er, br, idr, tgr, lsr, gr = cs.sampled_case(777, 300, 768, 400, gen, 33)
-# B11 at its main paths' widths up to 1024: serving config #1 (D = 64, the
-# padded 8,192 catalog, k = 128 and 10 at batch 256 and 1), the bench eval
-# sweep (D = 128, 45,056, batch 32), config #5's width on a small catalog
-# (512) and 1024, the eval of the wider bench path: both checkouts take them.
-tops = []
-for B, V, D, k in ((256, 8192, 64, 128), (1, 8192, 64, 10), (32, 45056, 128, 10), (256, 8192, 512, 10),
-                   (32, 45056, 1024, 10), (7, 8192, 520, 128)):
-    tb = torch.randn(V, generator=gen, device="cuda")
-    tb[V - 600:] = -1e30
-    tops.append((torch.randn(B, D, generator=gen, device="cuda") * (64 / D) ** 0.5,
-                 torch.randn(V, D, generator=gen, device="cuda").to(torch.bfloat16), tb, k))
+# B11 at its main paths' widths: serving config #1 at batch 256 (D = 64,
+# the padded 8,192 catalog, k = 128 and 10), which the mma.sync design keeps
+# ("topk_kept", its bits asserted); config #5's eval (512 rows, 905,216, D =
+# 512, k = 10), config #1 at batch 1, the bench eval sweep (D = 128, 45,056,
+# batch 32), config #5's width on a small catalog, 520 and 1024 (the wider
+# bench path's eval) and the widest model served at batch 256, which the
+# wgmma design takes ("topk", timed): both checkouts take them all.
+def top_inputs(shapes):
+    out = []
+    for B, V, D, k in shapes:
+        tb = torch.randn(V, generator=gen, device="cuda")
+        tb[V - 600:] = -1e30
+        out.append((torch.randn(B, D, generator=gen, device="cuda") * (64 / D) ** 0.5,
+                    torch.randn(V, D, generator=gen, device="cuda").to(torch.bfloat16), tb, k))
+    return out
+tops_kept = top_inputs(((256, 8192, 64, 128), (256, 8192, 64, 10)))
+tops = top_inputs(((512, 905216, 512, 10), (1, 8192, 64, 10), (32, 45056, 128, 10), (256, 8192, 512, 10),
+                   (32, 45056, 1024, 10), (7, 8192, 520, 128), (256, 45056, 2048, 128)))
 # B12 at the sweep's shape and 128 rows, which both checkouts take; "ce_lse"
 # names the kernel of either design (ce_lse_kernel, ce_lse_wg_kernel). B7 at
 # the bench shape, and on config #3's 2,048 rows (its split-and-merge path).
@@ -4690,7 +4743,8 @@ calls = {**{f"ce_lse_variant_{v}": variant(v) for v in ("base", "exp2", "nomax")
                     ("ce_bwd_pass", "sum_splits")),
          "gru_fwd": (lambda: (fused_gru_scan(xw, wh), fused_gru_scan(xw6, wh6), *(fused_gru_scan(a, w) for a, w in gw)),
                      cs.GRU_FWD_KERNELS),
-         "topk": (lambda: tuple(o for a in tops for o in fused_topk(*a)), ("topk_slice_kernel", "topk_merge_kernel")),
+         "topk": (lambda: tuple(o for a in tops for o in fused_topk(*a)), ("topk",)),
+         "topk_kept": (lambda: tuple(o for a in tops_kept for o in fused_topk(*a)), ("topk_slice_kernel",)),
          "rnn_fwd": (lambda: (fused_rnn_scan(x, mask, w), fused_rnn_scan(x6, mask6, w6)), cs.RNN_FWD_KERNELS),
          "rnn_bwd": (lambda: (*fused_rnn_bwd(x, mask, w, hs, dhs), *fused_rnn_bwd(x6, mask6, w6, hs6, dhs6)),
                      cs.RNN_BWD_KERNELS),
@@ -6199,15 +6253,20 @@ def main() -> int:
                bound_ratios_past_1024=sampled_widest["b10_ratios_max"]),
         record("topk", "topk.cu", "poi_tpu/ops/topk.py:58", served["topk"], topk_err, times["topk"],
                device_ms=times["topk"]["device_ms"], library_device_ms=times["topk"]["library_device_ms"],
-               **{case: {f: times[case][f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
-                                                    "bound_ms")}
+               design=times["topk"]["design"], designs={"slice": "poi_tpu_torch/csrc/topk.cu",
+                                                        "wg": "poi_tpu_torch/csrc/topk_wg.cu"},
+               **{case: {f: times[case][f] for f in ("design", "ms", "device_ms", "plain_ms", "library_ms",
+                                                    "library_device_ms", "bound_ms", "other_design", "other_ms",
+                                                    "other_device_ms")}
                   for case in ("topk_k10", "topk_b1", "topk_b1_k10", "topk_eval", "topk_eval256", "topk_c4",
                                "topk_serve70k", "topk_serve70k_b1", "topk_eval_d1024", "topk_eval_d2048",
-                               "topk_serve_d2048_b1", "topk_serve_d2048", "topk_d4096")},
+                               "topk_serve_d2048_b1", "topk_serve_d2048", "topk_d4096", "topk_c5_b1",
+                               "topk_c5_b256")},
                wider_launches={"bench": wb["topk"], "c4": wc4["topk"], "widest_bench": wst["topk"],
                                "widest_c4": wsc4["topk"]},
                config5={**at5(times["topk_c5"], c5_eval["topk"]),
-                        "library_device_ms": times["topk_c5"]["library_device_ms"]}),
+                        **{f: times["topk_c5"][f] for f in ("library_device_ms", "design", "other_design", "other_ms",
+                                                            "other_device_ms")}}),
         record("ce_lse_variants", "ce.cu", "scripts/sweep_ce_fwd.py:30,58", sum(swept.values()),
                max(t["max_abs_err"] for t in variants.values()), variants[best], best=best,
                variants={k: {**{f: t[f] for f in ("ms", "device_ms", *(f"{n}_ms" for n in CE_LSE_KERNELS),

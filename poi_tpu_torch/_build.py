@@ -86,8 +86,9 @@ _SIGNATURES = {
     "sampled_lse": [_P] * 7 + [_I] * 5 + [_P],
     "sampled_bwd_scratch": [_I] * 5,
     "sampled_bwd": [_P] * 11 + [_I] * 6 + [_P],
-    "topk_plan": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     "topk_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "topk_wg_smem": [_I] * 6,
+    "topk_wg": [_P] * 9 + [_I] * 12 + [_P],
     "poi_cuda_error_string": [_I],
 }
 # Entry points that return another type than int.
